@@ -1,0 +1,16 @@
+"""apex_tpu_torch — the PyTorch/CUDA port of ``apex_tpu`` for NVIDIA Hopper.
+
+The JAX package stays the reference; this package keeps its module and
+function names so each piece has an obvious counterpart. Plain tensor code
+is PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel for
+``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use and launched
+through ``ctypes`` (``ops._kernel_util``). Each kernel's plain PyTorch
+version sits beside its wrapper and runs only for tensors on the CPU.
+
+Ported so far: the single-engine serving path (``serve``), with the
+LayerNorm forward and paged-attention decode kernels.
+"""
+
+from apex_tpu_torch._device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"

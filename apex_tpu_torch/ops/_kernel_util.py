@@ -1,0 +1,190 @@
+"""Build, load and count the port's CUDA kernels (counterpart of
+``apex_tpu/ops/_pallas_util.py``).
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
+package's ``_build/`` directory (named by a hash of the source, so an
+edited source is rebuilt) and loaded with ``ctypes``. Every C entry
+returns ``cudaGetLastError()``; :func:`check_status` raises on a nonzero
+code, so a launch the card refuses never passes silently.
+
+Dispatch rule shared by every wrapper (:func:`use_kernel`): a CPU tensor
+takes the plain PyTorch version, a CUDA tensor takes the kernel, anything
+else raises. :func:`force_plain` is the one exception, an explicit switch
+that ``chip_smoke.py`` uses to run the plain versions on the card and
+compare streams.
+
+Launch counts: each wrapper calls :func:`count_launch` right where it
+launches its kernel and nowhere else, so a run can show that the main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Dict, Iterable, Iterator, List, Sequence
+
+import torch
+
+PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+# every kernel source of the port, by name (csrc/<name>.cu)
+KERNEL_SOURCES = ("layer_norm", "paged_attention")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCHES: Dict[str, int] = {}
+_FORCE_PLAIN = [False]
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True -> launch the kernel; False -> run the plain version. A CPU
+    tensor (or the :func:`force_plain` switch) takes the plain version; a
+    CUDA tensor the kernel; any other device raises."""
+    if t.device.type == "cpu" or _FORCE_PLAIN[0]:
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+@contextlib.contextmanager
+def force_plain() -> Iterator[None]:
+    """Run every wrapper's plain PyTorch version, even on CUDA tensors.
+    For comparing the kernels with their plain versions end to end on the
+    card; nothing on the serving path sets it."""
+    prev = _FORCE_PLAIN[0]
+    _FORCE_PLAIN[0] = True
+    try:
+        yield
+    finally:
+        _FORCE_PLAIN[0] = prev
+
+
+# ---------------------------------------------------------------------------
+# launch counters
+
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES.clear()
+
+
+# ---------------------------------------------------------------------------
+# build + load
+
+
+def nvcc_path() -> str:
+    cands: List[str] = []
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cands.append(os.path.join(home, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the port's kernels are built from csrc/ at first use")
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
+    """Compile every named source that has no up-to-date library yet, one
+    ``nvcc`` process per source, all started together. Returns the
+    compiler's output per name built (``-Xptxas -v``: registers, shared
+    memory, spills). Raises with the log when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs: Dict[str, str] = {}
+    failed: List[str] = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load_kernel(name: str,
+                signatures: Dict[str, Sequence[type]]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built first if needed),
+    with ``argtypes``/``restype`` set for each entry in ``signatures`` —
+    ``c_void_p`` for every pointer and the stream, so no pointer is cut to
+    32 bits."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, args in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(args)
+            f.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
+    if status != 0:
+        msg = lib.kernel_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s device, as a C pointer."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require(cond: bool, what: str) -> None:
+    """Wrapper-side input check: a shape, dtype or layout the kernel does
+    not take raises (never a quiet detour to the plain version)."""
+    if not cond:
+        raise ValueError(what)

@@ -1,0 +1,306 @@
+"""Paged attention and the GPT serve programs (counterpart of
+``apex_tpu/serve/decode.py``), single device.
+
+Two halves:
+
+* **paged attention** — :func:`paged_attention_reference`, the plain
+  version (gather through the block tables, then ``attention_reference``
+  with a ``kpos >= ctx`` mask; ctx == 0 rows are zeros, as in the kernel),
+  and :func:`paged_attention_fwd`, the wrapper of the CUDA gather-attend
+  kernel ``csrc/paged_attention.cu``. :func:`paged_attention` takes the
+  plain version for CPU tensors and the kernel for CUDA tensors.
+
+* **serve programs** — :func:`gpt_paged_forward` runs q tokens per slot
+  against the paged cache (per-row math independent of q); the engine's
+  three calls are thin wrappers: :func:`gpt_decode_step` (q=1),
+  :func:`gpt_verify_step` (q=k+1) and :func:`gpt_prefill_chunk` (one
+  slot, q=chunk). The layer stack is a Python loop over the stacked layer
+  params (the JAX ``lax.scan``), and the K/V pools are written in place
+  (where the JAX programs donated them).
+
+Row-count invariance: cuBLAS picks its GEMM algorithm per shape, and two
+algorithms may sum a row's products in different orders. So every
+projection runs its flat rows in tiles of exactly ``GEMM_ROW_TILE`` rows
+(the last one zero-padded): a token's row goes through the same GEMM
+whether it is decoded, verified or prefilled, and whatever else is in the
+batch. That keeps speculative streams bitwise equal to plain decode on the
+card, the property the JAX engine guarantees.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from apex_tpu_torch.ops import _kernel_util as ku
+from apex_tpu_torch.ops.attention import attention_reference
+from apex_tpu_torch.ops.layer_norm import layer_norm
+from apex_tpu_torch.serve.kv_cache import KVCacheConfig, gather_kv, paged_write
+
+Params = Dict[str, Any]
+
+_SIGNATURES = {
+    "paged_attention_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
+_HEAD_DIMS = (32, 64, 128)
+GEMM_ROW_TILE = 64
+
+
+# ---------------------------------------------------------------------------
+# Paged attention
+
+
+def paged_attention_reference(q, cache_layer, cfg: KVCacheConfig,
+                              block_tables, ctx_lens,
+                              scale: Optional[float] = None):
+    """q (n, H, D) against one layer's paged pools; ``ctx_lens`` (n,)
+    tokens of context per row. Returns (n, H, D) in q.dtype: exactly
+    ``attention_reference`` over the gathered K/V with a ``kpos >= ctx``
+    mask, and zeros for rows with ``ctx == 0`` (where the JAX reference
+    gives a finite junk row)."""
+    k, v = gather_kv(cache_layer, cfg, block_tables)  # (n, H, S, D)
+    kpos = torch.arange(k.shape[2], device=q.device)
+    mask = kpos[None, None, None, :] >= ctx_lens[:, None, None, None]
+    o = attention_reference(q[:, :, None], k, v, mask=mask, scale=scale)
+    o = o[:, :, 0]
+    return torch.where((ctx_lens > 0)[:, None, None], o, torch.zeros_like(o))
+
+
+def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
+                        ctx_lens, scale: float):
+    """Launch the paged-attention kernel on CUDA tensors. ``q`` (n, H, D)
+    contiguous; pools (H, B, bs, D) of q's dtype (fp32 or bf16);
+    ``block_tables`` (n, max_blocks) and ``ctx_lens`` (n,) integer. A
+    context longer than the row's blocks attends to the blocks it has."""
+    kp, vp = cache_layer["k"], cache_layer["v"]
+    ku.require(q.is_cuda and q.dim() == 3,
+               f"paged_attention_fwd takes a 3-d CUDA q, got {q.device} "
+               f"{tuple(q.shape)}")
+    n, h, d = q.shape
+    ku.require(q.dtype in (torch.float32, torch.bfloat16),
+               f"paged_attention_fwd takes fp32 or bf16, got {q.dtype}")
+    ku.require(d in _HEAD_DIMS,
+               f"paged_attention_fwd: head_dim {d} not in {_HEAD_DIMS}")
+    for name, pool in (("k", kp), ("v", vp)):
+        ku.require(pool.device == q.device and pool.dtype == q.dtype
+                   and pool.dim() == 4 and pool.shape[0] == h
+                   and pool.shape[2] == cfg.block_size
+                   and pool.shape[3] == d and pool.is_contiguous(),
+                   f"paged_attention_fwd: pool {name} must be a contiguous "
+                   f"({h}, B, {cfg.block_size}, {d}) {q.dtype} tensor on "
+                   f"{q.device}, got {pool.dtype} {tuple(pool.shape)}")
+    ku.require(kp.shape == vp.shape, "paged_attention_fwd: k/v pools differ")
+    ku.require(q.is_contiguous(), "paged_attention_fwd: q must be contiguous")
+    ku.require(all(t.data_ptr() % 16 == 0 for t in (q, kp, vp)),
+               "paged_attention_fwd: q and pools must be 16-byte aligned")
+    ku.require(tuple(block_tables.shape[:1]) == (n,)
+               and block_tables.dim() == 2
+               and tuple(ctx_lens.shape) == (n,),
+               "paged_attention_fwd: block_tables (n, max_blocks) and "
+               "ctx_lens (n,) must match q's rows")
+    ku.require(block_tables.device == q.device and ctx_lens.device == q.device,
+               "paged_attention_fwd: block tables and lengths must be on "
+               "q's device")
+    ku.require(n <= 65535, f"paged_attention_fwd: {n} rows > 65535")
+    bt = block_tables.to(torch.int32).contiguous()
+    lens = ctx_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = ku.load_kernel("paged_attention", _SIGNATURES)
+    status = lib.paged_attention_fwd(
+        q.device.index, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        bt.data_ptr(), lens.data_ptr(), out.data_ptr(), n, h, d, kp.shape[1],
+        cfg.block_size, bt.shape[1], float(scale),
+        int(q.dtype == torch.bfloat16), ku.stream_handle(q))
+    ku.count_launch("paged_attention_fwd")
+    ku.check_status(lib, status, "paged_attention_fwd")
+    return out
+
+
+def paged_attention(q, cache_layer, cfg: KVCacheConfig, block_tables,
+                    ctx_lens, scale: Optional[float] = None):
+    """The plain version for CPU tensors, the kernel for CUDA tensors
+    (raises on a shape the kernel does not take). Same result as
+    :func:`paged_attention_reference`."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not ku.use_kernel(q):
+        return paged_attention_reference(q, cache_layer, cfg, block_tables,
+                                         ctx_lens, scale=scale)
+    return paged_attention_fwd(q, cache_layer, cfg, block_tables, ctx_lens,
+                               scale)
+
+
+# ---------------------------------------------------------------------------
+# Model pieces
+
+
+def _dense(x, kernel, bias):
+    """``x @ kernel + bias`` in x.dtype, over the flat rows in tiles of
+    ``GEMM_ROW_TILE`` rows, so each row's sum order does not depend on the
+    row count (see the module docstring)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    r = x2.shape[0]
+    tiles = -(-r // GEMM_ROW_TILE)
+    pad = tiles * GEMM_ROW_TILE - r
+    if pad:
+        x2 = F.pad(x2, (0, 0, 0, pad))
+    w = kernel.to(x.dtype)
+    if tiles == 1:
+        y = (x2 @ w)[:r]
+    else:
+        y = torch.cat([x2[i * GEMM_ROW_TILE:(i + 1) * GEMM_ROW_TILE] @ w
+                       for i in range(tiles)])[:r]
+    if bias is not None:
+        y = y + bias
+    return y.reshape(*lead, y.shape[-1])
+
+
+def _embed(embed, tokens, positions):
+    """Token + position embedding at explicit positions."""
+    x = embed["tok"][tokens.long()]
+    pos = embed["pos"][positions.long()]
+    return x + pos.to(x.dtype)
+
+
+def serve_logits(params: Params, x, cfg):
+    """Final LN + LM head -> full-vocab fp32 logits. The tied head is a
+    product in the model dtype, then cast to fp32 (as in JAX)."""
+    head = params["head"]
+    x = layer_norm(x, head["ln_w"], head["ln_b"])
+    if cfg.tie_embeddings:
+        w = params["embed"]["tok"].to(x.dtype).t()
+    else:
+        w = head["lm"]
+    return _dense(x, w, None).float()
+
+
+def _split_qkv(qkv, heads: int, head_dim: int):
+    """Per-head interleaved unpack — the standalone_gpt packing."""
+    qkv = qkv.reshape(*qkv.shape[:-1], heads, 3, head_dim)
+    return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+
+
+def _check_serve_cfg(cfg, kv_cfg: KVCacheConfig) -> None:
+    if kv_cfg.num_heads != cfg.num_heads or kv_cfg.head_dim != cfg.head_dim:
+        raise ValueError(
+            f"KVCacheConfig ({kv_cfg.num_heads} heads x {kv_cfg.head_dim}) "
+            f"does not match the model ({cfg.num_heads} x {cfg.head_dim})")
+    if kv_cfg.num_layers != cfg.num_layers:
+        raise ValueError(
+            f"KVCacheConfig.num_layers ({kv_cfg.num_layers}) != "
+            f"cfg.num_layers ({cfg.num_layers})")
+
+
+# ---------------------------------------------------------------------------
+# The unified paged forward: q tokens per slot through the whole stack.
+# Per-row math is identical across q (each token row embeds at its own
+# position, writes its K/V, then attends through the paged gather masked
+# to its own context), so speculative verification and chunked prefill
+# give the streams sequential decode would.
+
+
+def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
+                      cache: Dict[str, torch.Tensor], block_tables, cfg,
+                      kv_cfg: KVCacheConfig
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run embedded activations ``x`` (n, q, h) through the stacked layers
+    against their paged pools; ``cache`` is updated in place. Returns
+    ``(x', cache)``."""
+    n, q = x.shape[:2]
+    heads, hd = cfg.num_heads, cfg.head_dim
+    offs = torch.arange(q, device=x.device)
+    positions = start_lens.long()[:, None] + offs[None, :]      # (n, q)
+    valid = active[:, None] & (offs[None, :] < n_valid[:, None])
+    ctx_lens = torch.where(valid, positions + 1, 0).to(torch.int32)
+    ctx_lens = ctx_lens.reshape(-1)
+    # flat row views: each token is its own "slot" sharing its owner's
+    # block-table row
+    bt_rows = block_tables.to(torch.int32).repeat_interleave(q, dim=0)
+    pos_flat = positions.reshape(-1)
+    valid_flat = valid.reshape(-1)
+    for li in range(cfg.num_layers):
+        lp = {name: t[li] for name, t in layers.items()}
+        cl = {"k": cache["k"][li], "v": cache["v"][li]}
+        h1 = layer_norm(x, lp["ln1_w"], lp["ln1_b"])
+        qkv = _dense(h1, lp["qkv_kernel"], lp["qkv_bias"])
+        qh, k, v = _split_qkv(qkv, heads, hd)                  # (n,q,H,D)
+        paged_write(cl, kv_cfg, k.reshape(n * q, heads, hd).transpose(0, 1),
+                    v.reshape(n * q, heads, hd).transpose(0, 1), bt_rows,
+                    pos_flat, valid_flat)
+        ctx = paged_attention(qh.reshape(n * q, heads, hd).contiguous(), cl,
+                              kv_cfg, bt_rows, ctx_lens)
+        ctx = ctx.reshape(n, q, heads * hd)
+        x = x + _dense(ctx, lp["out_kernel"], lp["out_bias"])
+        h2 = layer_norm(x, lp["ln2_w"], lp["ln2_b"])
+        y = F.gelu(_dense(h2, lp["fc1_kernel"], lp["fc1_bias"]),
+                   approximate="tanh")
+        x = x + _dense(y, lp["fc2_kernel"], lp["fc2_bias"])
+    return x, cache
+
+
+def gpt_paged_forward(params: Params, tokens, start_lens, n_valid, active,
+                      cache: Dict[str, torch.Tensor], block_tables, cfg,
+                      kv_cfg: KVCacheConfig):
+    """Process ``tokens`` (n, q) — per slot, q consecutive tokens starting
+    at position ``start_lens[slot]`` — against the paged cache.
+
+    ``n_valid``: (n,) how many of each slot's q tokens are real (the rest
+    are padding: K/V writes go to the trash block, logits junk).
+    ``active``: (n,) bool. Returns ``(cache, logits (n, q, vocab) fp32)``;
+    ``cache`` is updated in place. logits[i, j] is the next-token
+    distribution after tokens[i, j] at position ``start_lens[i] + j``.
+    """
+    _check_serve_cfg(cfg, kv_cfg)
+    q = tokens.shape[1]
+    offs = torch.arange(q, device=tokens.device)
+    positions = start_lens.long()[:, None] + offs[None, :]
+    # JAX's take clamps; torch indexing raises, so clamp explicitly
+    positions_c = torch.clamp(positions, max=cfg.max_seq - 1)
+    x = _embed(params["embed"], tokens, positions_c)           # (n, q, h)
+    x, cache = paged_layer_stack(x, params["layers"], start_lens, n_valid,
+                                 active, cache, block_tables, cfg, kv_cfg)
+    return cache, serve_logits(params, x, cfg)
+
+
+def gpt_decode_step(params: Params, last_tokens, seq_lens, active, cache,
+                    block_tables, cfg, kv_cfg: KVCacheConfig):
+    """Advance every active slot by one token (q=1). ``last_tokens`` (n,)
+    the token each slot feeds; ``seq_lens`` (n,) tokens already cached.
+    Returns ``(cache, logits (n, vocab) fp32)``."""
+    n = last_tokens.shape[0]
+    ones = torch.ones((n,), dtype=torch.int32, device=last_tokens.device)
+    cache, logits = gpt_paged_forward(
+        params, last_tokens[:, None], seq_lens, ones, active, cache,
+        block_tables, cfg, kv_cfg)
+    return cache, logits[:, 0]
+
+
+def gpt_verify_step(params: Params, fed_tokens, seq_lens, n_fed, active,
+                    cache, block_tables, cfg, kv_cfg: KVCacheConfig):
+    """Speculative verify: ``fed_tokens`` (n, k+1) — each slot's last
+    token then up to k drafts — in one paged call. Returns ``(cache,
+    logits (n, k+1, vocab))``. Rejected drafts' K/V need no rollback: the
+    accepted length caps the context, and later writes overwrite them."""
+    return gpt_paged_forward(params, fed_tokens, seq_lens, n_fed, active,
+                             cache, block_tables, cfg, kv_cfg)
+
+
+def gpt_prefill_chunk(params: Params, tokens, start: int, n_valid: int,
+                      cache, block_row, cfg, kv_cfg: KVCacheConfig):
+    """One fixed-size chunk of ONE prompt: ``tokens`` (chunk,) holding
+    prompt positions ``start .. start + n_valid - 1``, padded. Returns
+    ``(cache, logits (vocab,))`` after the chunk's last valid token."""
+    dev = tokens.device
+    start_lens = torch.full((1,), int(start), dtype=torch.int32, device=dev)
+    nv = torch.full((1,), int(n_valid), dtype=torch.int32, device=dev)
+    active = torch.ones((1,), dtype=torch.bool, device=dev)
+    cache, logits = gpt_paged_forward(
+        params, tokens[None, :], start_lens, nv, active, cache,
+        block_row[None, :], cfg, kv_cfg)
+    return cache, logits[0, max(int(n_valid) - 1, 0)]
