@@ -46,3 +46,45 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
         return tensor_from_numpy(node, dev, dtype)
 
     return conv(tree)
+
+
+def named_leaves(tree: Any, prefix: str = ""):
+    """``(path, leaf)`` pairs of a nested dict in sorted-key order (the
+    JAX tree order), paths joined by ``.``: ``("layers.qkv_kernel", t)``."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from named_leaves(tree[k], f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def adam_state_from_numpy(jax_state_as_numpy: Any, params: Any,
+                          optimizer) -> None:
+    """Carry a JAX ``FusedAdamState`` (``count``, ``mu``, ``nu``, taken out
+    as numpy: ``jax.tree.map(np.asarray, state)``) into ``optimizer``, a
+    port :class:`~apex_tpu_torch.optimizers.FusedAdam` over the leaves of
+    ``params`` (the same nested-dict tree as ``mu``/``nu``). Each param's
+    ``exp_avg``/``exp_avg_sq`` become fp32 copies of its moments on the
+    param's device, and every group's step count becomes ``count``, so a
+    run can continue from the JAX state."""
+    state = (jax_state_as_numpy if isinstance(jax_state_as_numpy, dict)
+             else jax_state_as_numpy._asdict())
+    mu, nu = dict(named_leaves(state["mu"])), dict(named_leaves(state["nu"]))
+    leaves = dict(named_leaves(params))
+    if set(mu) != set(leaves) or set(nu) != set(leaves):
+        raise ValueError(f"optimizer state leaves {sorted(mu)} do not match "
+                         f"the params' {sorted(leaves)}")
+    owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    for name, p in leaves.items():
+        if id(p) not in owned:
+            raise ValueError(f"param {name} is not in the optimizer")
+        if np.shape(mu[name]) != tuple(p.shape):
+            raise ValueError(f"{name}: moment shape {np.shape(mu[name])} "
+                             f"does not match param shape {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "exp_avg": tensor_from_numpy(mu[name], p.device, torch.float32),
+            "exp_avg_sq": tensor_from_numpy(nu[name], p.device,
+                                            torch.float32),
+        }
+    for g in optimizer.param_groups:
+        g["step"] = int(np.asarray(state["count"]))

@@ -37,7 +37,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 # every kernel source of the port, by name (csrc/<name>.cu)
-KERNEL_SOURCES = ("layer_norm", "paged_attention")
+KERNEL_SOURCES = ("layer_norm", "paged_attention", "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

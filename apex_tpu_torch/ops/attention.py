@@ -1,25 +1,104 @@
-"""Attention reference math (counterpart of ``apex_tpu/ops/attention.py``).
+"""Attention: plain PyTorch versions + the CUDA flash-attention kernels
+(counterpart of ``apex_tpu/ops/attention.py``).
 
-Only the plain reference is ported so far; the flash-attention kernels
-(``_fa_fwd``/``_fa_bwd``) belong to the training slice.
+Layout at the public functions is JAX's, (batch, heads, seq, head_dim);
+the kernels take the flattened (batch·heads, seq, head_dim) form. The
+forward kernel (:func:`flash_attention_fwd`) returns ``o`` and the row
+log-sum-exp ``lse`` (fp32, (bh, sq, 1)); the backward is two kernels,
+:func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv`,
+recomputing the scores from ``lse`` and ``delta = Σ dO·O``.
+:class:`FlashAttention` ties them into autograd; each dispatches by device
+(the kernel for a CUDA tensor, its plain version for a CPU tensor).
+
+Dropout is the JAX kernels' counter hash (:func:`attention_dropout_mask`),
+bitwise the same keep mask, so the forward, its remat replay and both
+backward kernels drop the same entries.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
 import torch
 
+from apex_tpu_torch.ops import _kernel_util as ku
+
 # Finite stand-in for -inf: keeps exp() exact zero without nan from
 # (-inf) - (-inf).
 NEG_INF = -1e30
 
+_M32 = 0xFFFFFFFF
+_FLASH_HEAD_DIMS = (32, 64)
+_FLASH_TILE = 64
+_FLASH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+               ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_SIGNATURES = {
+    "flash_attention_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 5
+    + _FLASH_ARGS,
+    "flash_attention_bwd_dq": [ctypes.c_int] + [ctypes.c_void_p] * 7
+    + _FLASH_ARGS,
+    "flash_attention_bwd_dkv": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    + _FLASH_ARGS,
+}
+
+
+# ---------------------------------------------------------------------------
+# dropout keep mask (the JAX kernels' counter hash, in int64 arithmetic)
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for int64 tensors holding uint32 values, without
+    int64 overflow: the high 16 bits of x are multiplied separately."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _hash_keep(qpos, kpos, seed, bh, rate: float):
+    """``apex_tpu.ops.attention._hash_keep``: murmur3-style mix of
+    (q position, k position, seed, batch·head), all uint32 values held in
+    int64 tensors; keep where the hash >= rate·2**32."""
+    x = (_mul32(qpos, 0x9E3779B1) + _mul32(kpos, 0x85EBCA77)
+         + _mul32(seed, 0xC2B2AE3D) + _mul32(bh, 0x27D4EB2F)) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x >= _keep_threshold(rate)
+
+
+def _keep_threshold(rate: float) -> int:
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def attention_dropout_mask(seed, rate: float, bh: int, sq: int, sk: int,
+                           q_off: int = 0, k_off: int = 0, device=None):
+    """(bh, sq, sk) boolean keep mask, bitwise JAX's
+    ``attention_dropout_mask``: keyed by (seed, batch·head, global q
+    position ``q_off + i``, global k position ``k_off + j``)."""
+    dev = torch.device("cpu") if device is None else device
+    u32 = lambda v: torch.tensor(int(v) & _M32, dtype=torch.int64,
+                                 device=dev)
+    qpos = (u32(q_off) + torch.arange(sq, device=dev)) & _M32
+    kpos = (u32(k_off) + torch.arange(sk, device=dev)) & _M32
+    bhi = torch.arange(bh, device=dev)
+    return _hash_keep(qpos[None, :, None], kpos[None, None, :], u32(seed),
+                      bhi[:, None, None], rate)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
 
 def attention_reference(q, k, v, mask=None, scale: Optional[float] = None,
-                        causal: bool = False):
+                        causal: bool = False, dropout_rate: float = 0.0,
+                        dropout_keep=None):
     """Plain softmax(Q Kᵀ · scale) V with fp32 accumulation (the JAX
-    ``attention_reference`` without dropout or bias).
+    ``attention_reference`` without bias; dropout only from an explicit
+    ``dropout_keep`` mask, the counter-hash stream).
 
     ``mask``: boolean broadcastable over (..., sq, sk), True = masked OUT.
     Returns q.dtype.
@@ -29,12 +108,261 @@ def attention_reference(q, k, v, mask=None, scale: Optional[float] = None,
     q32, k32, v32 = q.float(), k.float(), v.float()
     s = torch.einsum("...qd,...kd->...qk", q32, k32) * scale
     if causal:
-        sq, sk = s.shape[-2], s.shape[-1]
-        qpos = torch.arange(sq, device=s.device)[:, None]
-        kpos = torch.arange(sk, device=s.device)[None, :]
-        s = torch.where(kpos > qpos + (sk - sq), NEG_INF, s)
+        s = torch.where(_causal_masked(s), NEG_INF, s)
     if mask is not None:
         s = torch.where(mask, NEG_INF, s)
     p = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0:
+        if dropout_keep is None:
+            raise ValueError("dropout_rate > 0 needs dropout_keep (the "
+                             "counter-hash mask)")
+        p = torch.where(dropout_keep, p / (1.0 - dropout_rate), 0.0)
     o = torch.einsum("...qk,...kd->...qd", p, v32)
     return o.to(q.dtype)
+
+
+def _causal_masked(s):
+    """True above the causal diagonal of the trailing (sq, sk) dims."""
+    sq, sk = s.shape[-2], s.shape[-1]
+    qpos = torch.arange(sq, device=s.device)[:, None]
+    kpos = torch.arange(sk, device=s.device)[None, :]
+    return kpos > qpos + (sk - sq)
+
+
+def _scores(q3, k3, scale, causal):
+    s = torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale
+    if causal:
+        s = torch.where(_causal_masked(s), NEG_INF, s)
+    return s
+
+
+def _keep(rate, seed, bh, sq, sk, device):
+    if rate <= 0.0:
+        return None
+    return attention_dropout_mask(seed, rate, bh, sq, sk, device=device)
+
+
+def flash_attention_fwd_reference(q3, k3, v3, scale: float, causal: bool,
+                                  dropout_rate: float = 0.0, seed: int = 0):
+    """Plain version of the forward kernel over (bh, s, d): ``(o, lse)``,
+    o in q's type, lse fp32 (bh, sq, 1). Like the kernel, ``l`` sums the
+    UNdropped probabilities, dropout scales the kept ones, and p is
+    rounded to v's type before p @ v."""
+    bh, sq, _ = q3.shape
+    s = _scores(q3, k3, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    keep = _keep(dropout_rate, seed, bh, sq, k3.shape[1], q3.device)
+    if keep is not None:
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    acc = torch.einsum("bqk,bkd->bqd", p.to(v3.dtype).float(), v3.float())
+    empty = l == 0.0
+    safe_l = torch.where(empty, 1.0, l)
+    o = (acc / safe_l).to(q3.dtype)
+    lse = torch.where(empty, NEG_INF, m + torch.log(safe_l))
+    return o, lse
+
+
+def flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3, scale: float,
+                                  causal: bool, dropout_rate: float = 0.0,
+                                  seed: int = 0):
+    """Plain version of the two backward kernels: ``(dq, dk, dv)`` in the
+    inputs' types, recomputed from ``lse`` the way the kernels do: p =
+    exp(s − lse), dp = dO·vᵀ (dropped and rescaled), ds = p·(dp − Δ)·scale
+    with Δ = Σ dO·O; ds and the dropped p are rounded to the input type
+    before each product, fp32 accumulation."""
+    bh, sq, _ = q3.shape
+    delta = (do3.float() * o3.float()).sum(dim=-1, keepdim=True)
+    p = torch.exp(_scores(q3, k3, scale, causal) - lse)
+    dp = torch.einsum("bqd,bkd->bqk", do3.float(), v3.float())
+    keep = _keep(dropout_rate, seed, bh, sq, k3.shape[1], q3.device)
+    p_v = p
+    if keep is not None:
+        inv = 1.0 / (1.0 - dropout_rate)
+        p_v = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    ds = (p * (dp - delta) * scale).to(q3.dtype).float()
+    dv = torch.einsum("bqk,bqd->bkd", p_v.to(do3.dtype).float(), do3.float())
+    dq = torch.einsum("bqk,bkd->bqd", ds, k3.float())
+    dk = torch.einsum("bqk,bqd->bkd", ds, q3.float())
+    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _check_flash(what, q3, k3, v3, causal, *others):
+    ku.require(q3.is_cuda and q3.dim() == 3,
+               f"{what} takes 3-d (bh, s, d) CUDA tensors, got {q3.device} "
+               f"{tuple(q3.shape)}")
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    ku.require(q3.dtype in (torch.float32, torch.bfloat16),
+               f"{what} takes fp32 or bf16, got {q3.dtype}")
+    ku.require(d in _FLASH_HEAD_DIMS,
+               f"{what}: head_dim {d} not in {_FLASH_HEAD_DIMS}")
+    ku.require(sq % _FLASH_TILE == 0 and sk % _FLASH_TILE == 0,
+               f"{what}: sequence lengths ({sq}, {sk}) must be multiples of "
+               f"{_FLASH_TILE}")
+    ku.require(not causal or sq == sk,
+               f"{what}: causal needs sq == sk, got {sq} and {sk}")
+    ku.require(bh < 65536, f"{what}: batch*heads ({bh}) must be < 65536")
+    for name, t, shape in (("k", k3, (bh, sk, d)), ("v", v3, (bh, sk, d)),
+                           *others):
+        want_dtype = torch.float32 if name in ("lse", "delta") else q3.dtype
+        ku.require(t.device == q3.device and t.dtype == want_dtype
+                   and tuple(t.shape) == shape and t.is_contiguous()
+                   and t.data_ptr() % 16 == 0,
+                   f"{what}: {name} must be a contiguous, 16-byte aligned "
+                   f"{shape} {want_dtype} tensor on {q3.device}")
+    ku.require(q3.is_contiguous() and q3.data_ptr() % 16 == 0,
+               f"{what}: q must be contiguous and 16-byte aligned")
+    return bh, sq, sk, d
+
+
+def _dropout_args(rate: float, seed: int):
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0
+    return 1, int(seed) & _M32, _keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def flash_attention_fwd(q3, k3, v3, scale: float, causal: bool,
+                        dropout_rate: float = 0.0, seed: int = 0):
+    """Launch the flash forward kernel on (bh, s, d) CUDA tensors: returns
+    ``(o, lse)``, lse fp32 (bh, sq, 1)."""
+    bh, sq, sk, d = _check_flash("flash_attention_fwd", q3, k3, v3, causal)
+    o = torch.empty_like(q3)
+    lse = torch.empty(bh, sq, 1, dtype=torch.float32, device=q3.device)
+    lib = ku.load_kernel("flash_attention", _SIGNATURES)
+    status = lib.flash_attention_fwd(
+        q3.device.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), bh, sq, sk, d, float(scale),
+        int(causal), *_dropout_args(dropout_rate, seed),
+        int(q3.dtype == torch.bfloat16), ku.stream_handle(q3))
+    ku.count_launch("flash_attention_fwd")
+    ku.check_status(lib, status, "flash_attention_fwd")
+    return o, lse
+
+
+def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float,
+                           causal: bool, dropout_rate: float = 0.0,
+                           seed: int = 0):
+    """Launch the dQ kernel; ``lse`` and ``delta`` are fp32 (bh, sq, 1)."""
+    rows = (q3.shape[0], q3.shape[1], 1)
+    bh, sq, sk, d = _check_flash(
+        "flash_attention_bwd_dq", q3, k3, v3, causal,
+        ("dO", do3, tuple(q3.shape)), ("lse", lse, rows),
+        ("delta", delta, rows))
+    dq = torch.empty_like(q3)
+    lib = ku.load_kernel("flash_attention", _SIGNATURES)
+    status = lib.flash_attention_bwd_dq(
+        q3.device.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+        do3.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh,
+        sq, sk, d, float(scale), int(causal),
+        *_dropout_args(dropout_rate, seed), int(q3.dtype == torch.bfloat16),
+        ku.stream_handle(q3))
+    ku.count_launch("flash_attention_bwd_dq")
+    ku.check_status(lib, status, "flash_attention_bwd_dq")
+    return dq
+
+
+def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float,
+                            causal: bool, dropout_rate: float = 0.0,
+                            seed: int = 0):
+    """Launch the dK/dV kernel; returns ``(dk, dv)``."""
+    rows = (q3.shape[0], q3.shape[1], 1)
+    bh, sq, sk, d = _check_flash(
+        "flash_attention_bwd_dkv", q3, k3, v3, causal,
+        ("dO", do3, tuple(q3.shape)), ("lse", lse, rows),
+        ("delta", delta, rows))
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    lib = ku.load_kernel("flash_attention", _SIGNATURES)
+    status = lib.flash_attention_bwd_dkv(
+        q3.device.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+        do3.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, sq, sk, d, float(scale), int(causal),
+        *_dropout_args(dropout_rate, seed), int(q3.dtype == torch.bfloat16),
+        ku.stream_handle(q3))
+    ku.count_launch("flash_attention_bwd_dkv")
+    ku.check_status(lib, status, "flash_attention_bwd_dkv")
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention over (bh, s, d) with its JAX ``custom_vjp``
+    (``_flash3``): the forward saves (q, k, v, o, lse), the backward runs
+    the dQ and dK/dV kernels (or their plain versions) from them."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, scale, causal, dropout_rate, seed):
+        ctx.kernel = ku.use_kernel(q3)
+        ctx.args = (scale, causal, dropout_rate, seed)
+        if ctx.kernel:
+            o, lse = flash_attention_fwd(q3, k3, v3, *ctx.args)
+        else:
+            o, lse = flash_attention_fwd_reference(q3, k3, v3, *ctx.args)
+        ctx.save_for_backward(q3, k3, v3, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do3):
+        q3, k3, v3, o, lse = ctx.saved_tensors
+        do3 = do3.contiguous()
+        if ctx.kernel:
+            # delta = Σ dO·O stays a torch reduction, as it is XLA outside
+            # the kernels in JAX (attention.py:506)
+            delta = (do3.float() * o.float()).sum(dim=-1, keepdim=True)
+            dq = flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta,
+                                        *ctx.args)
+            dk, dv = flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta,
+                                             *ctx.args)
+        else:
+            dq, dk, dv = flash_attention_bwd_reference(q3, k3, v3, o, lse,
+                                                       do3, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, mask=None, causal: bool = False,
+                    scale: Optional[float] = None, dropout_rate: float = 0.0,
+                    dropout_seed=None, bias=None):
+    """Memory-efficient attention over (batch, heads, seq, head_dim), the
+    JAX ``flash_attention`` contract: the flash kernels on CUDA tensors
+    (their plain versions on CPU tensors), differentiable.
+
+    ``mask`` (True = masked out) takes the plain :func:`attention_reference`
+    path on every device, exactly as JAX sends a mask to its reference
+    (``attention.py:804-821``); with dropout that path applies the same
+    counter-hash mask. ``dropout_rate`` > 0 needs ``dropout_seed`` (an
+    int). ``bias`` (T5 relative position bias, kernel B #8) is not ported.
+    On CUDA the kernels take fp32/bf16, head_dim 32 or 64, sequence
+    lengths that are multiples of 64, and sq == sk when causal; any other
+    shape raises.
+    """
+    if bias is not None:
+        raise NotImplementedError(
+            "flash_attention(bias=...) and its d(bias) kernel are not ported "
+            "yet (ROADMAP A6)")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 needs dropout_seed")
+    seed = 0 if dropout_seed is None else int(dropout_seed)
+    if mask is not None:
+        keep = None
+        if dropout_rate > 0.0:
+            keep = attention_dropout_mask(seed, float(dropout_rate), b * h,
+                                          sq, sk, device=q.device)
+            keep = keep.reshape(b, h, sq, sk)
+        return attention_reference(q, k, v, mask=mask, scale=scale,
+                                   causal=causal, dropout_rate=dropout_rate,
+                                   dropout_keep=keep)
+    o3 = FlashAttention.apply(
+        q.reshape(b * h, sq, d), k.reshape(b * h, sk, d),
+        v.reshape(b * h, sk, d), float(scale), bool(causal),
+        float(dropout_rate), seed)
+    return o3.reshape(b, h, sq, d)

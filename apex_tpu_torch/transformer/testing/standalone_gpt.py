@@ -1,5 +1,6 @@
 """Standalone GPT config and parameters (counterpart of
-``apex_tpu/transformer/testing/standalone_gpt.py``), for serving.
+``apex_tpu/transformer/testing/standalone_gpt.py``): config, parameters,
+and the single-device training forward and loss.
 
 The parameter tree keeps the JAX package's layout so weights carry across
 one to one through :func:`apex_tpu_torch.convert.params_from_numpy`:
@@ -16,9 +17,13 @@ one to one through :func:`apex_tpu_torch.convert.params_from_numpy`:
 ``head.lm`` (untied head)       (hidden, vocab)
 ==============================  ==========================
 
-Only the single-device serving fields of ``GPTConfig`` are ported; the
-training fields (remat, fused loss, dropout, sequence parallelism, MoE,
-kernel block sizes) come with the training slice.
+Training (single device, the JAX package's tp=1 program): :func:`gpt_loss`
+is the unfused branch of the JAX ``gpt_loss`` — embedding, a Python loop
+over the stacked layers (each under ``torch.utils.checkpoint`` when
+``remat``), final LayerNorm, the tied vocab head and the port's
+``vocab_parallel_cross_entropy``.
+LayerNorm and the attention core go through the port's kernels; the
+projections are plain ``torch.matmul`` over the (b·s) rows.
 """
 
 from __future__ import annotations
@@ -29,15 +34,37 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch._device import DeviceLike
 from apex_tpu_torch.convert import params_from_numpy
+from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.ops.layer_norm import layer_norm
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """GPT-2-124M-class defaults: vocab 50304, hidden 768, 12 layers, 12
-    heads (head_dim 64), max_seq 1024, bf16, tied embeddings."""
+    heads (head_dim 64), max_seq 1024, bf16, tied embeddings.
+
+    Training fields with the JAX meaning: ``remat`` (recompute each layer
+    in backward), ``remat_policy`` (``"full"`` only; ``"dots"`` and
+    ``"dots_attn"`` raise ``NotImplementedError``), ``fused_loss`` (JAX's
+    default ``True``; :func:`gpt_loss` raises unless it is ``False``,
+    since the fused LM-head + CE kernels B #12-14 are the next slice — a
+    serving config never reaches the loss and keeps the default),
+    ``attention_dropout`` and
+    ``hidden_dropout`` (0.0 only: JAX keys their masks from threefry keys,
+    which the port has no counterpart for yet), ``megatron_sp``,
+    ``overlap_comm`` and ``num_experts`` (defaults only: single device,
+    dense FFN). Left out, as TPU-only tuning: ``scan_unroll``,
+    ``ln_pallas``, ``attn_block_q/k``, ``lm_block_n/v``, and the MoE
+    routing fields.
+    """
 
     vocab_size: int = 50304
     max_seq: int = 1024
@@ -47,6 +74,14 @@ class GPTConfig:
     ffn_mult: int = 4
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = True
+    remat: bool = True
+    remat_policy: str = "full"
+    fused_loss: bool = True
+    attention_dropout: float = 0.0
+    hidden_dropout: float = 0.0
+    megatron_sp: bool = False
+    overlap_comm: bool = False
+    num_experts: int = 0
 
     @property
     def ffn_hidden(self) -> int:
@@ -62,6 +97,42 @@ class GPTConfig:
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got "
                              f"{self.dtype}")
+        if self.remat_policy not in ("full", "dots", "dots_attn"):
+            raise ValueError(
+                f"remat_policy must be 'full', 'dots' or 'dots_attn', "
+                f"got {self.remat_policy!r}")
+        refused = {
+            "remat_policy": (self.remat_policy != "full",
+                             "only 'full' is ported (selective policies "
+                             "need saved-tensor naming)"),
+            "attention_dropout": (self.attention_dropout != 0.0,
+                                  "model-level dropout waits for a seed "
+                                  "decision (JAX keys it from threefry)"),
+            "hidden_dropout": (self.hidden_dropout != 0.0,
+                               "model-level dropout waits for a seed "
+                               "decision (JAX keys it from threefry)"),
+            "megatron_sp": (self.megatron_sp,
+                            "sequence parallelism is multi-device (A7)"),
+            "overlap_comm": (self.overlap_comm,
+                             "collective overlap is multi-device (A7)"),
+            "num_experts": (self.num_experts != 0,
+                            "mixture of experts is multi-device (A7)"),
+        }
+        for name, (bad, why) in refused.items():
+            if bad:
+                raise NotImplementedError(
+                    f"GPTConfig.{name}={getattr(self, name)!r} is not ported: "
+                    f"{why}")
+
+    def validate_loss(self) -> None:
+        """:meth:`validate`, and the loss's own refusal: only the unfused
+        head + cross-entropy is ported."""
+        self.validate()
+        if self.fused_loss:
+            raise NotImplementedError(
+                "GPTConfig.fused_loss=True is not ported: the fused LM-head "
+                "+ CE kernels (B #12-14) are the next slice; pass "
+                "fused_loss=False")
 
 
 def init_gpt_params_numpy(cfg: GPTConfig, seed: int = 0
@@ -112,3 +183,100 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0,
     ``device`` (default ``cuda``)."""
     return params_from_numpy(init_gpt_params_numpy(cfg, seed), device,
                              dtype=cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# forward and loss (single device; the JAX tp=1 program)
+
+
+def _dense(x, kernel, bias=None):
+    """``x @ kernel (+ bias)`` over the (b·s) rows, in x's dtype, rounded
+    after the product and after the bias add as the JAX column/row
+    parallel linears are."""
+    y = torch.matmul(x, kernel)
+    return y if bias is None else y + bias
+
+
+def embed_tokens(embed, tokens):
+    """Token + position embedding (the JAX ``embed_tokens`` at tp=1, no
+    sequence sharding): tokens (b, s) -> (b, s, hidden)."""
+    h = F.embedding(tokens, embed["tok"])
+    return h + embed["pos"][:tokens.shape[1]][None].to(h.dtype)
+
+
+def _attention(p, x, cfg: GPTConfig, causal: bool = True, mask=None):
+    """Fused QKV, flash core, out-projection (JAX ``_attention`` at tp=1).
+    The QKV columns are per-head interleaved, (head, {q,k,v}, head_dim),
+    as in the JAX tree."""
+    b, s, h = x.shape
+    qkv = _dense(x, p["qkv_kernel"], p["qkv_bias"])
+    # (b, s, H, 3, D) -> (3, b, H, s, D): one copy, then q, k, v are
+    # contiguous (b, H, s, D) views
+    qkv = qkv.view(b, s, cfg.num_heads, 3, cfg.head_dim)
+    q, k, v = qkv.permute(3, 0, 2, 1, 4).contiguous().unbind(0)
+    ctx = flash_attention(q, k, v, causal=causal, mask=mask)
+    ctx = ctx.transpose(1, 2).reshape(b, s, h)
+    return _dense(ctx, p["out_kernel"], p["out_bias"])
+
+
+def _mlp(p, x, cfg: GPTConfig):
+    """FC1 + tanh-approximated GELU + FC2 (JAX ``_mlp``, dense FFN)."""
+    y = F.gelu(_dense(x, p["fc1_kernel"], p["fc1_bias"]), approximate="tanh")
+    return _dense(y, p["fc2_kernel"], p["fc2_bias"])
+
+
+def _layer(p, x, cfg: GPTConfig, causal: bool = True, mask=None):
+    """Pre-LN transformer layer (JAX ``_layer`` without dropout)."""
+    x = x + _attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg,
+                       causal, mask)
+    return x + _mlp(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), cfg)
+
+
+def _layer_stack(layers, x, cfg: GPTConfig, causal: bool = True, mask=None):
+    """The JAX ``lax.scan`` over the stacked layer params as a Python loop;
+    with ``cfg.remat`` (and autograd recording) each layer runs under
+    ``torch.utils.checkpoint`` and is recomputed in backward ("full"
+    policy). The stacked leaves are unbound once, so their gradients are
+    stacked once in backward."""
+    names = sorted(layers)
+    per_leaf = [layers[k].unbind(0) for k in names]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for vals in zip(*per_leaf):
+        lp = dict(zip(names, vals))
+        if remat:
+            x = checkpoint(_layer, lp, x, cfg, causal, mask,
+                           use_reentrant=False)
+        else:
+            x = _layer(lp, x, cfg, causal, mask)
+    return x
+
+
+def tied_vocab_logits(x, tok_embed):
+    """The tied LM head: logits = x @ tokᵀ, (b, s, vocab) in x's dtype."""
+    return torch.matmul(x, tok_embed.t())
+
+
+def gpt_head(params, x, cfg: GPTConfig):
+    """Final LN + LM head -> logits (b, s, vocab)."""
+    head = params["head"]
+    x = layer_norm(x, head["ln_w"], head["ln_b"])
+    if cfg.tie_embeddings:
+        return tied_vocab_logits(x, params["embed"]["tok"])
+    return _dense(x, head["lm"])
+
+
+def gpt_forward(params, tokens, cfg: GPTConfig):
+    """tokens (b, s) -> logits (b, s, vocab)."""
+    cfg.validate()
+    x = embed_tokens(params["embed"], tokens)
+    x = _layer_stack(params["layers"], x, cfg)
+    return gpt_head(params, x, cfg)
+
+
+def gpt_loss(params, tokens, targets, cfg: GPTConfig):
+    """Mean cross-entropy of the next-token logits (the unfused branch of
+    the JAX ``gpt_loss``): a 0-d fp32 tensor. Raises unless
+    ``cfg.fused_loss`` is False."""
+    cfg.validate_loss()
+    logits = gpt_forward(params, tokens, cfg)
+    return vocab_parallel_cross_entropy(logits, targets).mean()

@@ -3,23 +3,43 @@
 
     python3 chip_smoke.py [--out PATH]
 
-1. Builds every kernel of the serving path from ``apex_tpu_torch/csrc``
-   with ``nvcc`` (one process per source, all at once).
-2. Kernel phase: each kernel against its plain PyTorch version on the card
-   at the serving path's shapes, fp32 and bf16, with the tolerance stated;
-   times of kernel, plain version and the nearest library call
-   (``F.layer_norm``; SDPA over pre-gathered K/V), and each kernel's bound.
+1. Builds every kernel of the serving and training paths from
+   ``apex_tpu_torch/csrc`` with ``nvcc`` (one process per source, all at
+   once).
+2. Kernel phase: each kernel against its plain PyTorch version on the card,
+   fp32 and bf16, with the tolerance stated; times of kernel, plain version
+   and the nearest library call, and each kernel's bound:
+   * LayerNorm forward and paged attention at the serving path's shapes
+     (``F.layer_norm``; SDPA over pre-gathered K/V), and LayerNorm forward
+     with its mean/rstd at the training path's (8192, 768);
+   * LayerNorm backward at the flagship training shape (8192, 768), with a
+     bitwise repeat check of dW/dB (autograd through ``F.layer_norm``);
+   * flash attention forward, dQ and dK/dV at the flagship shape (96,
+     1024, 64) causal, at a non-causal and at a dropout shape
+     (``F.scaled_dot_product_attention`` forward and backward).
 3. Engine phase: GPT-2-124M at full width (random weights from a numpy
    seed), ``ServeConfig(num_slots=8, prefill_chunk=32)``, 16 requests of
    64-512 prompt tokens (several sharing a 64-token prefix, one exactly
    that prefix) generating 32 tokens greedily:
    * fp32 through the kernels vs fp32 with the plain versions forced:
      equal streams, and logits that agree on a small input;
-   * bf16 with ``spec_k=0`` (the main path: launch counts are reset just
-     before it and read just after) and with ``spec_k=4``: equal streams;
+   * bf16 with ``spec_k=0`` (the serving main path: launch counts are
+     reset just before it and read just after) and with ``spec_k=4``:
+     equal streams;
    * where a steady-state bf16 step's time goes (torch.profiler): the
      card's busy share and the top kernels.
-4. Prints a detail line, the card's ``nvidia-smi`` name and power limit,
+4. Train phase: GPT-2-124M at full width and depth, full remat,
+   ``fused_loss=False``, ``FusedAdam(lr=1e-4, fused_tail="off")``:
+   * fp32, batch 2 x 1024: loss and every gradient leaf through the
+     kernels vs the plain versions forced;
+   * bf16, batch 8 x 1024 (the training main path): the launch counts of
+     one step (reset just before it, read just after) equal the per-step
+     table (LN fwd 49, LN bwd 25, flash fwd 24, dQ 12, dK/dV 12); the
+     loss stays finite and falls over 10 steps on the fixed batch; a
+     second run from the same seed repeats the losses bitwise; tokens/s,
+     step ms p50, MFU, peak memory, and the card's busy share and top
+     kernels over a profiled window.
+5. Prints detail lines, the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
    code is then nonzero and the last line is not printed.
@@ -41,6 +61,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 KERNEL_ITERS = 50
 SLEEP_CYCLES_PER_S = 2.0e9         # above the H100's SM clock: sleeps long
+TRAIN_ROWS = 8 * 1024              # b·s of the training main path
 
 
 def _fail(msg: str) -> int:
@@ -112,40 +133,69 @@ def check_close(name, got, want, atol, rtol):
 
 
 def layer_norm_phase(torch, dev):
+    """LayerNorm forward at the serving path's shapes (4-256 rows, no
+    statistics) and at the training path's (b·s = 8192 rows, with the fp32
+    mean/rstd the backward reads): y within tol[dtype] of the plain
+    version, mean and rstd within atol/rtol 2e-5 (fp32 sums over 768
+    columns in another order). The training shape is timed with the L2
+    flushed between calls, as the backward is."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops.layer_norm import (layer_norm_fwd,
-                                               layer_norm_reference)
+                                               layer_norm_fwd_reference)
 
     hidden, eps = 768, 1e-5
     tol = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 8e-3)}
+    stats_tol = (2e-5, 2e-5)
     gen = torch.Generator(device=dev).manual_seed(0)
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        for rows in (4, 8, 32, 8 * 32):
-            x = torch.randn(rows, hidden, device=dev, generator=gen).to(dt)
+        for rows, stats in ((4, False), (8, False), (32, False),
+                            (8 * 32, False), (TRAIN_ROWS, True)):
+            x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
+                 + 1).to(dt)
             w = (1 + 0.1 * torch.randn(hidden, device=dev,
                                        generator=gen)).to(dt)
             b = (0.1 * torch.randn(hidden, device=dev, generator=gen)).to(dt)
-            got = layer_norm_fwd(x, w, b, eps)
-            want = layer_norm_reference(x, w, b, eps)
+            got = layer_norm_fwd(x, w, b, eps, stats=stats)
+            want = layer_norm_fwd_reference(x, w, b, eps)
             torch.cuda.synchronize()
             atol, rtol = tol[dname]
-            err = check_close(f"layer_norm_fwd {dname} rows={rows}", got,
-                              want, atol, rtol)
+            tag = f"{dname} rows={rows}"
+            if stats:
+                err = check_close(f"layer_norm_fwd y {tag}", got[0], want[0],
+                                  atol, rtol)
+                stats_err = max(
+                    check_close(f"layer_norm_fwd mean {tag}", got[1],
+                                want[1], *stats_tol),
+                    check_close(f"layer_norm_fwd rstd {tag}", got[2],
+                                want[2], *stats_tol))
+            else:
+                err = check_close(f"layer_norm_fwd {tag}", got, want[0],
+                                  atol, rtol)
             esz = x.element_size()
-            bms, by = bound_ms((2 * rows * hidden + 2 * hidden) * esz,
+            bms, by = bound_ms((2 * rows * hidden + 2 * hidden) * esz
+                               + (8 * rows if stats else 0),
                                8.0 * rows * hidden, dname)
-            cases.append({
+            flush = flush_buf.zero_ if stats else None
+            case = {
                 "dtype": dname, "rows": rows, "hidden": hidden,
-                "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "ms": time_ms(torch, lambda: layer_norm_fwd(x, w, b, eps)),
-                "plain_ms": time_ms(
-                    torch, lambda: layer_norm_reference(x, w, b, eps)),
+                "stats": stats, "max_abs_err": err, "atol": atol,
+                "rtol": rtol,
+                "ms": time_ms(torch, lambda: layer_norm_fwd(
+                    x, w, b, eps, stats=stats), flush=flush),
+                "plain_ms": time_ms(torch, lambda: layer_norm_fwd_reference(
+                    x, w, b, eps), flush=flush),
                 "library_ms": time_ms(
-                    torch, lambda: F.layer_norm(x, (hidden,), w, b, eps)),
-                "bound_ms": bms, "bound_by": by})
+                    torch, lambda: F.layer_norm(x, (hidden,), w, b, eps),
+                    flush=flush),
+                "bound_ms": bms, "bound_by": by}
+            if stats:
+                case.update(stats_max_abs_err=stats_err,
+                            stats_atol=stats_tol[0], stats_rtol=stats_tol[1])
+            cases.append(case)
     return cases
 
 
@@ -216,6 +266,179 @@ def paged_attention_phase(torch, dev):
                     flush=flush_buf.zero_),
                 "bound_ms": bms, "bound_by": by})
             del pools, k_all, v_all
+    return cases
+
+
+def layer_norm_bwd_phase(torch, dev):
+    """LayerNorm backward at the flagship training shape (b·s = 8192 rows,
+    hidden 768): dx, dw, db vs the plain version (dw/db sum 8192 rows, so
+    their atol is 2e-5·sqrt(rows) in fp32 and one bf16 rounding plus
+    2e-3·sqrt(rows) in bf16), and dw/db bitwise equal over repeats. Both
+    sides read the forward kernel's mean/rstd, which ``layer_norm_phase``
+    holds against the plain version at this shape."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd,
+                                               layer_norm_bwd_reference,
+                                               layer_norm_fwd)
+
+    rows, hidden, eps = TRAIN_ROWS, 768, 1e-5
+    tol = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 8e-3)}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
+             + 1).to(dt)
+        w = (1 + 0.1 * torch.randn(hidden, device=dev, generator=gen)).to(dt)
+        b = (0.1 * torch.randn(hidden, device=dev, generator=gen)).to(dt)
+        dy = torch.randn(rows, hidden, device=dev, generator=gen).to(dt)
+        _, mean, rstd = layer_norm_fwd(x, w, b, eps, stats=True)
+        got = layer_norm_bwd(dy, x, mean, rstd, w)
+        want = layer_norm_bwd_reference(dy, x, mean, rstd, w)
+        torch.cuda.synchronize()
+        atol, rtol = tol[dname]
+        sum_atol = atol * math.sqrt(rows)
+        err = max(
+            check_close(f"layer_norm_bwd dx {dname}", got[0], want[0], atol,
+                        rtol),
+            check_close(f"layer_norm_bwd dw {dname}", got[1], want[1],
+                        sum_atol, rtol),
+            check_close(f"layer_norm_bwd db {dname}", got[2], want[2],
+                        sum_atol, rtol))
+        for _ in range(3):
+            again = layer_norm_bwd(dy, x, mean, rstd, w)
+            if not all(bool(torch.equal(a, c)) for a, c in zip(got, again)):
+                raise AssertionError(f"layer_norm_bwd {dname}: dx/dw/db not "
+                                     f"bitwise equal over repeats")
+        xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
+        y_lib = F.layer_norm(xl, (hidden,), wl, bl, eps)
+        esz = x.element_size()
+        bms, by = bound_ms(3 * rows * hidden * esz + 8 * rows
+                           + 3 * hidden * esz, 12.0 * rows * hidden, dname)
+        cases.append({
+            "dtype": dname, "rows": rows, "hidden": hidden,
+            "max_abs_err": err, "atol": atol, "rtol": rtol,
+            "dw_db_atol": sum_atol, "bitwise_repeat": True,
+            "ms": time_ms(torch, lambda: layer_norm_bwd(dy, x, mean, rstd, w),
+                          flush=flush_buf.zero_),
+            "plain_ms": time_ms(torch, lambda: layer_norm_bwd_reference(
+                dy, x, mean, rstd, w), flush=flush_buf.zero_),
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                y_lib, (xl, wl, bl), dy, retain_graph=True),
+                flush=flush_buf.zero_),
+            "bound_ms": bms, "bound_by": by})
+    return cases
+
+
+FLASH_SHAPES = [  # (name, bh, s, d, causal, dropout rate)
+    ("flagship", 96, 1024, 64, True, 0.0),
+    ("non_causal", 24, 512, 64, False, 0.0),
+    ("dropout", 24, 512, 64, True, 0.1),
+]
+
+
+def flash_bounds(bh, s, d, causal, esz, dname):
+    """(fwd, dq, dkv) bounds: max(FLOPs / peak, bytes / 3.35 TB/s), the
+    causal FLOPs half of 4, 6 and 8 · bh·s²·d; bytes count each input read
+    once and each output written once (lse, delta fp32)."""
+    half = 0.5 if causal else 1.0
+    t = bh * s * d * esz           # one (bh, s, d) tensor
+    row = 4 * bh * s               # one fp32 (bh, s) vector
+    return (bound_ms(4 * t + row, half * 4 * bh * s * s * d, dname),
+            bound_ms(5 * t + 2 * row, half * 6 * bh * s * s * d, dname),
+            bound_ms(6 * t + 2 * row, half * 8 * bh * s * s * d, dname))
+
+
+def flash_phase(torch, dev):
+    """The three flash kernels vs their plain versions at each shape of
+    FLASH_SHAPES, fp32 and bf16 (lse and delta from the kernel forward feed
+    both backwards). Tolerance: fp32 atol/rtol 1e-4 (sums over up to 1024
+    keys in another order); bf16 one output rounding (rtol 2**-7) plus
+    atol 1e-2 (p and ds are rounded to bf16 before their products, at
+    other running maxima; the largest error measured at these shapes is
+    one bf16 step at |o| < 2, 7.8e-3). Times at every shape (flushing the
+    L2 between calls) beside SDPA forward and backward."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_reference, flash_attention_fwd,
+        flash_attention_fwd_reference)
+
+    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    seed = 1234
+    cases = []
+    for name, bh, s, d, causal, rate in FLASH_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            q, k, v, do = (torch.randn(bh, s, d, device=dev, generator=gen)
+                           .to(dt) for _ in range(4))
+            scale = 1.0 / math.sqrt(d)
+            args = (scale, causal, rate, seed)
+            o, lse = flash_attention_fwd(q, k, v, *args)
+            o_p, lse_p = flash_attention_fwd_reference(q, k, v, *args)
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *args)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args)
+            want = flash_attention_bwd_reference(q, k, v, o, lse, do, *args)
+            torch.cuda.synchronize()
+            atol, rtol = tol[dname]
+            tag = f"{name} {dname}"
+            err_fwd = max(check_close(f"flash fwd o {tag}", o, o_p, atol,
+                                      rtol),
+                          check_close(f"flash fwd lse {tag}", lse, lse_p,
+                                      1e-4, 1e-5))
+            err_dq = check_close(f"flash dq {tag}", dq, want[0], atol, rtol)
+            err_dkv = max(
+                check_close(f"flash dk {tag}", dk, want[1], atol, rtol),
+                check_close(f"flash dv {tag}", dv, want[2], atol, rtol))
+            del o_p, lse_p, want
+            # library yardstick: SDPA on the (1, bh, s, d) view, fwd and
+            # the whole bwd (dq, dk and dv in one call)
+            q4, k4, v4 = (t.view(1, bh, s, d).clone().requires_grad_()
+                          for t in (q, k, v))
+            dropout = {"dropout_p": rate} if rate else {}
+            o_lib = F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=causal,
+                                                   **dropout)
+            do4 = do.view(1, bh, s, d)
+            b_fwd, b_dq, b_dkv = flash_bounds(bh, s, d, causal,
+                                              q.element_size(), dname)
+            timed = lambda fn: time_ms(torch, fn, iters=20,
+                                       flush=flush_buf.zero_)
+            sdpa_bwd = timed(lambda: torch.autograd.grad(
+                o_lib, (q4, k4, v4), do4, retain_graph=True))
+            plain_bwd = timed(lambda: flash_attention_bwd_reference(
+                q, k, v, o, lse, do, *args))
+            cases.append({
+                "shape": name, "dtype": dname, "bh": bh, "seq": s,
+                "head_dim": d, "causal": causal, "dropout": rate,
+                "atol": atol, "rtol": rtol,
+                "fwd": {"max_abs_err": err_fwd,
+                        "ms": timed(lambda: flash_attention_fwd(q, k, v,
+                                                                *args)),
+                        "plain_ms": timed(
+                            lambda: flash_attention_fwd_reference(q, k, v,
+                                                                  *args)),
+                        "library_ms": timed(
+                            lambda: F.scaled_dot_product_attention(
+                                q4, k4, v4, is_causal=causal, **dropout)),
+                        "bound_ms": b_fwd[0], "bound_by": b_fwd[1]},
+                "dq": {"max_abs_err": err_dq,
+                       "ms": timed(lambda: flash_attention_bwd_dq(
+                           q, k, v, do, lse, delta, *args)),
+                       "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
+                       "bound_ms": b_dq[0], "bound_by": b_dq[1]},
+                "dkv": {"max_abs_err": err_dkv,
+                        "ms": timed(lambda: flash_attention_bwd_dkv(
+                            q, k, v, do, lse, delta, *args)),
+                        "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
+                        "bound_ms": b_dkv[0], "bound_by": b_dkv[1]}})
+            del q, k, v, do, o, lse, delta, q4, k4, v4, o_lib
     return cases
 
 
@@ -294,9 +517,6 @@ def profile_decode(torch, params, cfg, dev, requests, steps: int = 20):
     ``steps`` steps without the profiler, then the same number of steps
     under torch.profiler for the device's busy time (union of its
     kernel and copy intervals) and the top kernels by device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from apex_tpu_torch.serve import InferenceEngine, ServeConfig
 
     eng = InferenceEngine(params, cfg, ServeConfig(
@@ -311,15 +531,32 @@ def profile_decode(torch, params, cfg, dev, requests, steps: int = 20):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    out = profiled(torch, lambda: [eng.step() for _ in range(steps)])
+    out.update(steps=steps, wall_ms=wall_ms,
+               device_busy_share_of_unprofiled_wall=(
+                   out["device_busy_ms"] / wall_ms))
+    return out
+
+
+def profiled(torch, fn):
+    """Run ``fn`` once under torch.profiler: its wall time, the device's
+    busy time (union of its kernel and copy intervals; the device-side
+    copies of host annotations such as ``Optimizer.step`` are left out),
+    idle share, and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
+        fn()
         torch.cuda.synchronize()
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and e.name not in host_names)
     busy_us, end = 0.0, float("-inf")
     by_name = {}
     for start, stop, name in spans:
@@ -327,12 +564,10 @@ def profile_decode(torch, params, cfg, dev, requests, steps: int = 20):
         end = max(end, stop)
         n, us = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, us + stop - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    return {"steps": steps, "wall_ms": wall_ms,
-            "profiled_wall_ms": profiled_wall_ms,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"profiled_wall_ms": profiled_wall_ms,
             "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / profiled_wall_ms,
-            "device_busy_share_of_unprofiled_wall": busy_us / 1e3 / wall_ms,
             "top": [{"name": k[:80], "count": n, "device_ms": us / 1e3}
                     for k, (n, us) in top]}
 
@@ -414,6 +649,129 @@ def engine_phase(torch, dev, ku):
     return result, launches
 
 
+# ---------------------------------------------------------------------------
+# train phase
+
+# kernel launches of one GPT-2-124M train step (12 layers, full remat):
+# 2 LN per layer + the head's, each layer's LNs and attention replayed in
+# backward, one backward per forward
+TRAIN_LAUNCHES = {"layer_norm_fwd": 25 + 24, "layer_norm_bwd": 25,
+                  "flash_attention_fwd": 12 + 12,
+                  "flash_attention_bwd_dq": 12,
+                  "flash_attention_bwd_dkv": 12}
+
+
+def train_fp32_check(torch, dev, ku):
+    """One fp32 GPT-2-124M forward + backward (batch 2 x 1024, full remat)
+    through the kernels vs the same with the plain versions forced.
+    Tolerance: loss relative 1e-5; every gradient leaf max |kernel - plain|
+    <= 1e-5 * max |plain| (fp32 through 12 layers, sums in other orders;
+    the largest measured is 1.3e-6 of the leaf's scale)."""
+    import numpy as np
+
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.testing import (GPTConfig, gpt_loss,
+                                                    init_gpt_params)
+
+    cfg = GPTConfig(dtype=torch.float32, fused_loss=False)
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1024))).to(dev)
+    tgt = torch.roll(tok, -1, dims=1)
+
+    def loss_and_grads():
+        for _, p in leaves:
+            p.grad = None
+        loss = gpt_loss(params, tok, tgt, cfg)
+        loss.backward()
+        return loss.item(), [p.grad for _, p in leaves]
+
+    lk, gk = loss_and_grads()
+    with ku.force_plain():
+        before = ku.launch_counts()
+        lp, gp = loss_and_grads()
+        if ku.launch_counts() != before:
+            raise AssertionError("force_plain train step launched a kernel")
+    loss_err = abs(lk - lp) / abs(lp)
+    if not math.isfinite(lk) or loss_err > 1e-5:
+        raise AssertionError(f"fp32 train loss: kernels {lk} vs plain {lp}")
+    worst = 0.0
+    for (name, _), a, b in zip(leaves, gk, gp):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not bool(a.isfinite().all()) or err > 1e-5 * scale:
+            raise AssertionError(
+                f"fp32 grad {name}: kernels vs plain max abs err {err:.3e} "
+                f"(limit 1e-5 * {scale:.3e})")
+        worst = max(worst, err / scale if scale else 0.0)
+    return {"batch": 2, "seq": 1024, "loss_kernels": lk, "loss_plain": lp,
+            "loss_rel_err": loss_err, "grad_max_rel_err": worst}
+
+
+def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
+    """The bf16 flagship step: launch counts of one step, a falling and
+    bitwise repeatable loss, speed, memory and the card's busy share."""
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step)
+
+    result = {"fp32_check": train_fp32_check(torch, dev, ku)}
+    torch.cuda.empty_cache()
+    cfg = GPTConfig(fused_loss=False)           # bf16, full remat
+    batch, seq = 8, 1024
+    assert batch * seq == TRAIN_ROWS
+    torch.cuda.reset_peak_memory_stats()
+    step, params, _, _, _ = build_train_step(cfg, batch, seq, device=dev,
+                                             seed=0)
+    n_params = sum(p.numel() for _, p in named_leaves(params))
+    ku.reset_launch_counts()
+    losses = [step()]
+    torch.cuda.synchronize()
+    launches = ku.launch_counts()
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"train step launches {launches}, expected "
+                             f"{TRAIN_LAUNCHES}")
+    losses += [step() for _ in range(steps - 1)]
+    losses = torch.stack(losses)
+    vals = losses.tolist()
+    if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+        raise AssertionError(f"bf16 train loss did not fall: {vals}")
+    durs = []
+    for _ in range(timed_steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        durs.append(time.perf_counter() - t0)
+    tokens_per_s = batch * seq * timed_steps / sum(durs)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profiled(torch, lambda: [step() for _ in range(3)])
+    prof["device_busy_share_of_unprofiled_wall"] = (
+        prof["device_busy_ms"] / (3 * sum(durs) / timed_steps * 1e3))
+    del step, params
+    torch.cuda.empty_cache()
+    step2 = build_train_step(cfg, batch, seq, device=dev, seed=0)[0]
+    again = torch.stack([step2() for _ in range(steps)])
+    if not torch.equal(losses, again):
+        raise AssertionError(f"bf16 losses differ between two runs from one "
+                             f"seed: {vals} vs {again.tolist()}")
+    del step2
+    torch.cuda.empty_cache()
+    result.update({
+        "batch": batch, "seq": seq, "n_params": n_params,
+        "launches_per_step": launches, "losses": vals,
+        "bitwise_repeat": True, "tokens_per_s": tokens_per_s,
+        "step_ms_p50": sorted(durs)[len(durs) // 2] * 1e3,
+        "step_ms": [d * 1e3 for d in durs],
+        "mfu_6n": 6 * n_params * tokens_per_s / PEAK_OPS_PER_S["bfloat16"],
+        "mfu_bench_py": (6 * n_params + 6 * cfg.num_layers * cfg.hidden * seq)
+        * tokens_per_s / PEAK_OPS_PER_S["bfloat16"],
+        "peak_mem_gib": peak_gib, "profile_3_steps": prof})
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full JSON record here")
@@ -445,27 +803,41 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ln_cases = layer_norm_phase(torch, dev)
     pa_cases = paged_attention_phase(torch, dev)
+    lnb_cases = layer_norm_bwd_phase(torch, dev)
+    fa_cases = flash_phase(torch, dev)
     kernel_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     engine, launches = engine_phase(torch, dev, ku)
     engine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = train_phase(torch, dev, ku)
+    train_s = time.perf_counter() - t0
+    train_launches = train["launches_per_step"]
 
     def pick(cases, **where):
         return next(c for c in cases
                     if all(c[k] == v for k, v in where.items()))
 
-    # the main path's shapes: bf16, 8 decode rows
+    # the serving main path's shapes: bf16, 8 decode rows
     ln = pick(ln_cases, dtype="bfloat16", rows=8)
     pa = pick(pa_cases, dtype="bfloat16", rows=8)
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # LN forward also runs on the training main path, at (8192, 768) with
+    # its statistics: that path's launches and times beside the serving
+    # path's
+    ln_train = pick(ln_cases, dtype="bfloat16", rows=TRAIN_ROWS)
     kernels = [
         {"name": "layer_norm_fwd", "route": "cuda",
          "source": "apex_tpu_torch/csrc/layer_norm.cu",
          "replaces": "apex_tpu/ops/layer_norm.py:191",
          "launches": launches.get("layer_norm_fwd", 0),
          "max_abs_err": max(c["max_abs_err"] for c in ln_cases),
-         "ms": ln["ms"], "plain_ms": ln["plain_ms"],
-         "bound_ms": ln["bound_ms"], "bound_by": ln["bound_by"],
-         "library_ms": ln["library_ms"]},
+         **{k: ln[k] for k in timing},
+         "train": {"launches": train_launches["layer_norm_fwd"],
+                   "rows": TRAIN_ROWS, "max_abs_err": ln_train["max_abs_err"],
+                   "stats_max_abs_err": max(c["stats_max_abs_err"]
+                                            for c in ln_cases if c["stats"]),
+                   **{k: ln_train[k] for k in timing}}},
         {"name": "paged_attention_fwd", "route": "cuda",
          "source": "apex_tpu_torch/csrc/paged_attention.cu",
          "replaces": "apex_tpu/serve/decode.py:228",
@@ -475,19 +847,71 @@ def main(argv=None) -> int:
          "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
          "library_ms": pa["library_ms"]},
     ]
+    # the training main path's shapes: bf16, LN (8192, 768), attention
+    # (96, 1024, 64) causal
+    lnb = pick(lnb_cases, dtype="bfloat16")
+    kernels.append(
+        {"name": "layer_norm_bwd", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/layer_norm.cu",
+         "replaces": "apex_tpu/ops/layer_norm.py:224",
+         "launches": train_launches["layer_norm_bwd"],
+         "max_abs_err": max(c["max_abs_err"] for c in lnb_cases),
+         **{k: lnb[k] for k in timing}})
+    fa = pick(fa_cases, dtype="bfloat16", shape="flagship")
+    for key, kname, line in (("fwd", "flash_attention_fwd", 297),
+                             ("dq", "flash_attention_bwd_dq", 532),
+                             ("dkv", "flash_attention_bwd_dkv", 570)):
+        kernels.append(
+            {"name": kname, "route": "cuda",
+             "source": "apex_tpu_torch/csrc/flash_attention.cu",
+             "replaces": f"apex_tpu/ops/attention.py:{line}",
+             "launches": train_launches[kname],
+             "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases),
+             **{k: fa[key][k] for k in timing}})
     name = torch.cuda.get_device_name(0)
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
-              "engine_phase_s": engine_s, "layer_norm": ln_cases,
-              "paged_attention": pa_cases, "engine": engine}
+              "engine_phase_s": engine_s, "train_phase_s": train_s,
+              "layer_norm": ln_cases, "paged_attention": pa_cases,
+              "layer_norm_bwd": lnb_cases, "flash_attention": fa_cases,
+              "engine": engine, "train": train}
     for run in ("fp32_kernels", "fp32_plain", "bf16_spec0", "bf16_spec4"):
         e = engine[run]
         print(f"{run}: tokens/s {e['tokens_per_s']} ttft_ms_p50 "
               f"{e['ttft_ms_p50']} decode_step_ms_p50 "
               f"{e['decode_step_ms_p50']} on {card}")
+    fp, prof = train["fp32_check"], train["profile_3_steps"]
+    print(f"train fp32 check (batch 2 x 1024): loss kernels "
+          f"{fp['loss_kernels']} plain {fp['loss_plain']} grad max rel err "
+          f"{fp['grad_max_rel_err']:.3e}")
+    print(f"train bf16 batch 8 x 1024: tokens/s {train['tokens_per_s']:.1f} "
+          f"step_ms_p50 {train['step_ms_p50']:.2f} mfu(6N) "
+          f"{train['mfu_6n']:.4f} mfu(bench.py) {train['mfu_bench_py']:.4f} "
+          f"peak {train['peak_mem_gib']:.2f} GiB busy share "
+          f"{prof['device_busy_share_of_unprofiled_wall']:.3f} (of the "
+          f"profiled wall {1 - prof['device_idle_share']:.3f}) "
+          f"losses {[round(v, 4) for v in train['losses']]} on {card}")
+    for t in prof["top"]:
+        print(f"  train top kernel: {t['device_ms']:.2f} ms x{t['count']} "
+              f"{t['name']}")
+    for c in fa_cases:
+        print(f"flash {c['shape']} {c['dtype']}: " + " ".join(
+            f"{k} {c[k]['ms']:.3f} ms (plain {c[k]['plain_ms']:.3f}, "
+            f"library {c[k]['library_ms']:.3f}, bound {c[k]['bound_ms']:.4f})"
+            for k in ("fwd", "dq", "dkv")))
+    for c in ln_cases:
+        if c["stats"]:
+            print(f"layer_norm_fwd {c['dtype']} rows {c['rows']} (stats): "
+                  f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, library "
+                  f"{c['library_ms']:.4f}, bound {c['bound_ms']:.4f})")
+    for c in lnb_cases:
+        print(f"layer_norm_bwd {c['dtype']}: {c['ms']:.4f} ms (plain "
+              f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
+              f"{c['bound_ms']:.4f})")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
-    print(json.dumps(record))
+    print(json.dumps({k: record[k] for k in (
+        "build_s", "kernel_phase_s", "engine_phase_s", "train_phase_s")}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

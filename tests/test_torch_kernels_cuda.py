@@ -19,7 +19,16 @@ import pytest
 import torch
 
 from apex_tpu_torch.ops import _kernel_util as ku
-from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_fwd,
+from apex_tpu_torch.ops.attention import (flash_attention,
+                                          flash_attention_bwd_dkv,
+                                          flash_attention_bwd_dq,
+                                          flash_attention_bwd_reference,
+                                          flash_attention_fwd,
+                                          flash_attention_fwd_reference)
+from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
+                                           layer_norm_bwd_reference,
+                                           layer_norm_fwd,
+                                           layer_norm_fwd_reference,
                                            layer_norm_reference)
 from apex_tpu_torch.serve.decode import (paged_attention, paged_attention_fwd,
                                          paged_attention_reference)
@@ -129,3 +138,168 @@ def test_paged_attention_kernel_refuses_what_it_cannot_take(dev):
                             pools, cfg, bt, ctx, scale)
     with pytest.raises(ValueError, match="rows"):
         paged_attention_fwd(q, pools, cfg, bt[:3], ctx, scale)
+
+
+# ---------------------------------------------------------------------------
+# training slice: LayerNorm backward, flash attention forward and backward
+
+
+def _ln_case(dev, dtype, rows, hidden, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(rows, hidden, device=dev, generator=g) * 2 + 1).to(dtype)
+    w = (1 + 0.1 * torch.randn(hidden, device=dev, generator=g)).to(dtype)
+    b = (0.1 * torch.randn(hidden, device=dev, generator=g)).to(dtype)
+    dy = torch.randn(rows, hidden, device=dev, generator=g).to(dtype)
+    return x, w, b, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,hidden", [(1, 768), (37, 128), (512, 768),
+                                         (1000, 1024), (8192, 768)])
+def test_layer_norm_bwd_kernel_matches_plain(dev, dtype, rows, hidden):
+    """dx within the file's tolerance; dw/db are sums over ``rows``, so
+    their atol grows with sqrt(rows) (fp32 1e-5·sqrt(rows), bf16 one output
+    rounding plus 2e-3·sqrt(rows))."""
+    x, w, b, dy = _ln_case(dev, dtype, rows, hidden, rows + hidden)
+    y, mean, rstd = layer_norm_fwd(x, w, b, stats=True)
+    y_p, mean_p, rstd_p = layer_norm_fwd_reference(x, w, b)
+    _close(y, y_p, dtype)
+    torch.testing.assert_close(mean, mean_p, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(rstd, rstd_p, atol=2e-5, rtol=2e-5)
+    before = ku.launch_counts().get("layer_norm_bwd", 0)
+    dx, dw, db = layer_norm_bwd(dy, x, mean, rstd, w)
+    assert ku.launch_counts()["layer_norm_bwd"] == before + 1
+    pdx, pdw, pdb = layer_norm_bwd_reference(dy, x, mean, rstd, w)
+    _close(dx, pdx, dtype)
+    sum_atol = (1e-5 if dtype == torch.float32 else 2e-3) * math.sqrt(rows)
+    for got, want in ((dw, pdw), (db, pdb)):
+        assert got.dtype == dtype and got.shape == (hidden,)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=sum_atol,
+                                   rtol=TOL[dtype][1])
+
+
+def test_layer_norm_bwd_dw_db_bitwise_repeat(dev):
+    """Two-stage reduction, no atomics: the same input gives bitwise the
+    same dw/db (and dx) on every run."""
+    x, w, b, dy = _ln_case(dev, torch.float32, 8192, 768, 7)
+    _, mean, rstd = layer_norm_fwd(x, w, b, stats=True)
+    first = layer_norm_bwd(dy, x, mean, rstd, w)
+    for _ in range(3):
+        again = layer_norm_bwd(dy, x, mean, rstd, w)
+        for a, b_ in zip(first, again):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_is_differentiable_on_the_card(dev, dtype):
+    """The repaired fault: ``layer_norm`` on CUDA has a grad_fn, and its
+    gradients equal the plain version's (autograd through the reference
+    math); a serving call without autograd keeps no statistics."""
+    x, w, b, dy = _ln_case(dev, dtype, 64, 768, 3)
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    ws = [w.clone().requires_grad_() for _ in range(2)]
+    bs = [b.clone().requires_grad_() for _ in range(2)]
+    y = layer_norm(xs[0], ws[0], bs[0])
+    assert y.grad_fn is not None
+    y.backward(dy)
+    layer_norm_reference(xs[1], ws[1], bs[1]).backward(dy)
+    for got, want in zip((xs[0], ws[0], bs[0]), (xs[1], ws[1], bs[1])):
+        torch.testing.assert_close(got.grad.float(), want.grad.float(),
+                                   atol=8 * TOL[dtype][0],
+                                   rtol=TOL[dtype][1])
+    with torch.no_grad():
+        assert layer_norm(xs[0], ws[0], bs[0]).grad_fn is None
+
+
+def _flash_case(dev, dtype, bh, s, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(bh, s, d, device=dev, generator=g).to(dtype)
+            for _ in range(4)]
+
+
+FLASH_CASES = [  # bh, s, d, causal, dropout rate
+    (6, 256, 64, True, 0.0), (4, 128, 64, False, 0.0),
+    (3, 192, 32, True, 0.0), (4, 128, 64, True, 0.2),
+    (2, 128, 32, False, 0.1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,d,causal,rate", FLASH_CASES)
+def test_flash_kernels_match_plain(dev, dtype, bh, s, d, causal, rate):
+    """o, lse, dq, dk, dv of the three kernels vs their plain versions at
+    the same inputs (lse and delta from the kernel forward for both
+    backwards); fp32 atol/rtol 1e-4 (sums over up to s keys in another
+    order), bf16 one output rounding (rtol 2**-7) plus atol 1e-2 for the
+    bf16-rounded p and ds products."""
+    q, k, v, do = _flash_case(dev, dtype, bh, s, d, bh * s + d)
+    scale, seed = 1 / math.sqrt(d), 4321
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    counts = ku.launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, scale, causal, rate, seed)
+    o_p, lse_p = flash_attention_fwd_reference(q, k, v, scale, causal, rate,
+                                               seed)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal,
+                                rate, seed)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal,
+                                     rate, seed)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, scale, causal,
+                                         rate, seed)
+    torch.cuda.synchronize()
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert got.dtype == dtype, name
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    after = ku.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert after[name] == counts.get(name, 0) + 1
+
+
+def test_flash_attention_autograd_on_the_card(dev):
+    """The front door on CUDA goes through the kernels (one launch each)
+    and gives the plain versions' output and gradients (fp32 atol 1e-4)."""
+    q, k, v, do = (t.reshape(2, 3, 128, 64)
+                   for t in _flash_case(dev, torch.float32, 6, 128, 64, 11))
+    runs = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = ku.launch_counts()
+        if plain:
+            with ku.force_plain():
+                o = flash_attention(*leaves, causal=True)
+                o.backward(do)
+            assert ku.launch_counts() == before
+        else:
+            o = flash_attention(*leaves, causal=True)
+            o.backward(do)
+            assert ku.launch_counts()["flash_attention_bwd_dkv"] == \
+                before.get("flash_attention_bwd_dkv", 0) + 1
+        runs.append([o] + [t.grad for t in leaves])
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_kernels_refuse_what_they_cannot_take(dev):
+    q, k, v, do = _flash_case(dev, torch.float32, 2, 128, 64, 1)
+    flash_attention_fwd(q, k, v, 0.125, True)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd(*(t[..., :48].contiguous() for t in (q, k, v)),
+                            0.125, False)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        flash_attention_fwd(*(t[:, :100].contiguous() for t in (q, k, v)),
+                            0.125, False)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention_fwd(q[:, :64].contiguous(), k, v, 0.125, True)
+    with pytest.raises(ValueError, match="k must be"):
+        flash_attention_fwd(q, k.bfloat16(), v, 0.125, True)
+    q_strided = torch.randn(2, 64, 128, device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q_strided, k, v, 0.125, True)
+    lse = torch.zeros(2, 128, 1, device=dev)
+    with pytest.raises(ValueError, match="delta"):
+        flash_attention_bwd_dq(q, k, v, do, lse, lse[:, :64], 0.125, True)
