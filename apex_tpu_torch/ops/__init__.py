@@ -12,6 +12,13 @@ from apex_tpu_torch.ops.attention import (  # noqa: F401
     flash_attention_fwd,
     flash_attention_fwd_reference,
 )
+from apex_tpu_torch.ops.fused_update import (  # noqa: F401
+    adam_tail_reference,
+    fused_adam_tail,
+    fused_lamb_tail,
+    lamb_tail_reference,
+    resolve_fused,
+)
 from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     LayerNormAffine,
     layer_norm,
@@ -20,4 +27,15 @@ from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     layer_norm_fwd,
     layer_norm_fwd_reference,
     layer_norm_reference,
+)
+from apex_tpu_torch.ops.lm_head_loss import (  # noqa: F401
+    LMHeadLoss,
+    kernel_fits,
+    lm_head_loss,
+    lm_head_loss_bwd_dw,
+    lm_head_loss_bwd_dx,
+    lm_head_loss_bwd_reference,
+    lm_head_loss_fwd,
+    lm_head_loss_fwd_reference,
+    lm_head_loss_reference,
 )

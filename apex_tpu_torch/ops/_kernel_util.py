@@ -28,6 +28,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
+import time
 from typing import Dict, Iterable, Iterator, List, Sequence
 
 import torch
@@ -37,7 +39,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 # every kernel source of the port, by name (csrc/<name>.cu)
-KERNEL_SOURCES = ("layer_norm", "paged_attention", "flash_attention")
+KERNEL_SOURCES = ("layer_norm", "paged_attention", "flash_attention",
+                  "lm_head_loss", "fused_update")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -120,36 +123,47 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
+def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Dict]:
     """Compile every named source that has no up-to-date library yet, one
-    ``nvcc`` process per source, all started together. Returns the
-    compiler's output per name built (``-Xptxas -v``: registers, shared
-    memory, spills). Raises with the log when a build fails."""
+    ``nvcc`` process per source, all started together. Returns, per name
+    built, the compiler's output (``"log"``; ``-Xptxas -v``: registers,
+    shared memory, spills) and its wall seconds (``"seconds"``). Raises
+    with the log when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # unique per process and thread: two builds of one source never
+        # write the same file
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        log = BUILD_DIR / f"{name}.log"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs: Dict[str, str] = {}
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f,
+                                            stderr=subprocess.STDOUT),
+                           tmp, out, log)
+    seconds: Dict[str, float] = {}
+    while len(seconds) < len(procs):
+        for name, (proc, _, _, _) in procs.items():
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+        time.sleep(0.05)
+    built: Dict[str, Dict] = {}
     failed: List[str] = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        (BUILD_DIR / f"{name}.log").write_text(log)
+    for name, (proc, tmp, out, log) in procs.items():
+        text = log.read_text()
+        built[name] = {"log": text, "seconds": seconds[name]}
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{text}")
             continue
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return logs
+    return built
 
 
 def load_kernel(name: str,

@@ -16,11 +16,13 @@ are fp32 whatever the param dtype; the update is rounded to the param
 dtype and then added, as ``bench.py`` applies ``p + u``. The moments are
 updated in place.
 
-Only ``fused_tail="off"`` (this op chain) is ported: the one-kernel update
-tail (B #15, ``ops/fused_update.py``) is the next slice, so ``"auto"`` and
-``"on"`` raise rather than quietly run the chain. The default stays JAX's
-``"auto"``, so a caller who does not ask for the chain learns that the
-kernel is missing; pass ``fused_tail="off"``.
+``fused_tail`` picks how the tail runs, as in JAX: ``"auto"`` (the
+default) and ``"on"`` run it per leaf through
+:func:`apex_tpu_torch.ops.fused_update.fused_adam_tail` — one CUDA kernel
+per leaf (B #15) for a parameter on the card, its plain version on the
+CPU — and then apply ``p += (-lr·u).to(p.dtype)``; ``"off"`` keeps the op
+chain above on every device (``adam_tail_reference(in_place=True)``: the
+moments updated with ``mul_``/``add_``, no new m or v).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Iterable, Tuple
 import numpy as np
 import torch
 
+from apex_tpu_torch.ops.fused_update import (adam_tail_reference,
+                                             fused_adam_tail, resolve_fused)
 from apex_tpu_torch.optimizers._common import Schedule, value_at
 
 
@@ -47,14 +51,7 @@ class FusedAdam(torch.optim.Optimizer):
         if amsgrad:
             raise RuntimeError(
                 "FusedAdam does not support the AMSGrad variant.")
-        if fused_tail not in ("auto", "on", "off"):
-            raise ValueError(f"fused_tail must be 'auto', 'on' or 'off', "
-                             f"got {fused_tail!r}")
-        if fused_tail != "off":
-            raise NotImplementedError(
-                f"FusedAdam(fused_tail={fused_tail!r}): the fused Adam tail "
-                f"kernel (B #15) is the next slice of the port; use "
-                f"fused_tail='off'")
+        self.use_fused = resolve_fused(fused_tail, what="fused_tail")
         defaults = dict(lr=lr, bias_correction=bias_correction, betas=betas,
                         eps=eps, adam_w_mode=adam_w_mode,
                         weight_decay=weight_decay, step=0)
@@ -88,14 +85,14 @@ class FusedAdam(torch.optim.Optimizer):
                     state["exp_avg_sq"] = torch.zeros_like(
                         p, dtype=torch.float32)
                 m, v = state["exp_avg"], state["exp_avg_sq"]
-                g = p.grad.float()
-                p32 = p.float()
-                if not group["adam_w_mode"] and wd != 0.0:
-                    g = g + wd * p32                 # ADAM_MODE_1
-                m.mul_(b1).add_((1.0 - b1) * g)
-                v.mul_(b2).add_((1.0 - b2) * g * g)
-                upd = (m / c1) / (torch.sqrt(v / c2) + eps)
-                if group["adam_w_mode"] and wd != 0.0:
-                    upd = upd + wd * p32             # ADAM_MODE_0
+                kw = dict(betas=(b1, b2), eps=eps, weight_decay=wd,
+                          adam_w_mode=group["adam_w_mode"])
+                if self.use_fused:
+                    # the whole tail as one kernel per leaf (JAX's leaf)
+                    upd, _, _ = fused_adam_tail(p.grad.contiguous(), m, v, p,
+                                                c1, c2, **kw)
+                else:
+                    upd, _, _ = adam_tail_reference(p.grad, m, v, p, c1, c2,
+                                                    in_place=True, **kw)
                 p.add_((-lr * upd).to(p.dtype))
         return loss

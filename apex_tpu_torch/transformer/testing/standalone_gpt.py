@@ -18,12 +18,14 @@ one to one through :func:`apex_tpu_torch.convert.params_from_numpy`:
 ==============================  ==========================
 
 Training (single device, the JAX package's tp=1 program): :func:`gpt_loss`
-is the unfused branch of the JAX ``gpt_loss`` — embedding, a Python loop
-over the stacked layers (each under ``torch.utils.checkpoint`` when
-``remat``), final LayerNorm, the tied vocab head and the port's
-``vocab_parallel_cross_entropy``.
-LayerNorm and the attention core go through the port's kernels; the
-projections are plain ``torch.matmul`` over the (b·s) rows.
+is the JAX ``gpt_loss`` — embedding, a Python loop over the stacked layers
+(each under ``torch.utils.checkpoint`` when ``remat``), then either the
+fused head (``fused_loss``, the default: final LayerNorm and
+:func:`~apex_tpu_torch.ops.lm_head_loss.lm_head_loss` over the vocab rows,
+kernels B #12-14 on the card) or the unfused one (final LayerNorm, the
+vocab logits and the port's ``vocab_parallel_cross_entropy``).
+LayerNorm, the attention core and the fused loss go through the port's
+kernels; the projections are plain ``torch.matmul`` over the (b·s) rows.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from apex_tpu_torch._device import DeviceLike
 from apex_tpu_torch.convert import params_from_numpy
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import layer_norm
+from apex_tpu_torch.ops.lm_head_loss import kernel_fits, lm_head_loss
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -54,10 +57,8 @@ class GPTConfig:
     Training fields with the JAX meaning: ``remat`` (recompute each layer
     in backward), ``remat_policy`` (``"full"`` only; ``"dots"`` and
     ``"dots_attn"`` raise ``NotImplementedError``), ``fused_loss`` (JAX's
-    default ``True``; :func:`gpt_loss` raises unless it is ``False``,
-    since the fused LM-head + CE kernels B #12-14 are the next slice — a
-    serving config never reaches the loss and keeps the default),
-    ``attention_dropout`` and
+    default ``True``: the LM head fused into the loss, kernels B #12-14 on
+    the card; ``False`` materializes the logits), ``attention_dropout`` and
     ``hidden_dropout`` (0.0 only: JAX keys their masks from threefry keys,
     which the port has no counterpart for yet), ``megatron_sp``,
     ``overlap_comm`` and ``num_experts`` (defaults only: single device,
@@ -123,16 +124,6 @@ class GPTConfig:
                 raise NotImplementedError(
                     f"GPTConfig.{name}={getattr(self, name)!r} is not ported: "
                     f"{why}")
-
-    def validate_loss(self) -> None:
-        """:meth:`validate`, and the loss's own refusal: only the unfused
-        head + cross-entropy is ported."""
-        self.validate()
-        if self.fused_loss:
-            raise NotImplementedError(
-                "GPTConfig.fused_loss=True is not ported: the fused LM-head "
-                "+ CE kernels (B #12-14) are the next slice; pass "
-                "fused_loss=False")
 
 
 def init_gpt_params_numpy(cfg: GPTConfig, seed: int = 0
@@ -273,10 +264,40 @@ def gpt_forward(params, tokens, cfg: GPTConfig):
     return gpt_head(params, x, cfg)
 
 
+def _use_fused_loss(cfg: GPTConfig, n_rows: int,
+                    device: torch.device) -> bool:
+    """The JAX ``_use_fused_loss``: the fused head where ``cfg.fused_loss``
+    asks for it and, on the card, the kernel's shape gate holds
+    (:func:`kernel_fits`, JAX's ``pallas_fits``); on the CPU always, as
+    JAX runs its dense version off the TPU."""
+    if not cfg.fused_loss:
+        return False
+    if device.type == "cpu":
+        return True
+    return kernel_fits(n_rows, cfg.hidden)
+
+
+def fused_head_loss(head_rows_w, ln_w, ln_b, x, targets):
+    """Final LayerNorm, then the fused LM-head + CE over the (vocab,
+    hidden) projection rows ``head_rows_w``: the mean loss, 0-d fp32 (the
+    JAX ``fused_head_loss`` at tp = 1)."""
+    x = layer_norm(x, ln_w, ln_b)
+    return lm_head_loss(x, head_rows_w, targets).mean()
+
+
 def gpt_loss(params, tokens, targets, cfg: GPTConfig):
-    """Mean cross-entropy of the next-token logits (the unfused branch of
-    the JAX ``gpt_loss``): a 0-d fp32 tensor. Raises unless
-    ``cfg.fused_loss`` is False."""
-    cfg.validate_loss()
-    logits = gpt_forward(params, tokens, cfg)
-    return vocab_parallel_cross_entropy(logits, targets).mean()
+    """Mean cross-entropy of the next-token logits (the JAX ``gpt_loss``):
+    a 0-d fp32 tensor. With ``cfg.fused_loss`` (and the kernel's shape
+    gate on the card) the head is fused into the loss and the logits are
+    never materialized; otherwise logits + ``vocab_parallel_cross_entropy``.
+    """
+    cfg.validate()
+    x = embed_tokens(params["embed"], tokens)
+    x = _layer_stack(params["layers"], x, cfg)
+    if not _use_fused_loss(cfg, tokens.numel(), tokens.device):
+        logits = gpt_head(params, x, cfg)
+        return vocab_parallel_cross_entropy(logits, targets).mean()
+    head = params["head"]
+    w = (params["embed"]["tok"] if cfg.tie_embeddings
+         else head["lm"].t())  # (vocab, hidden) rows
+    return fused_head_loss(w, head["ln_w"], head["ln_b"], x, targets)

@@ -2,7 +2,7 @@
 ``build_train_step``, ``bench.py:55-102``): forward with full remat,
 backward and the FusedAdam update of a GPT on one device.
 
-    cfg = GPTConfig(fused_loss=False)
+    cfg = GPTConfig()        # bf16, full remat, fused LM-head loss
     step, params, opt, tok, tgt = build_train_step(cfg, 8, 1024)
     loss = step()            # 0-d fp32 tensor, no host sync inside
 
@@ -34,22 +34,26 @@ def param_leaves(params: Dict[str, Any]):
 
 
 def build_train_step(cfg: GPTConfig, batch: int, seq: int,
-                     device: DeviceLike = None, seed: int = 0
+                     device: DeviceLike = None, seed: int = 0,
+                     fused_tail: str = "auto"
                      ) -> Tuple[Callable[[], torch.Tensor], Dict[str, Any],
                                 FusedAdam, torch.Tensor, torch.Tensor]:
     """Returns ``(train_step, params, optimizer, tok, tgt)``; each call of
     ``train_step()`` runs one fwd + bwd + ``FusedAdam(lr=1e-4,
-    fused_tail="off")`` update on the fixed batch and returns the loss
-    before the update (a 0-d tensor on the device). ``cfg.fused_loss``
-    must be False (the fused loss is not ported)."""
-    cfg.validate_loss()
+    fused_tail=fused_tail)`` update on the fixed batch and returns the
+    loss before the update (a 0-d tensor on the device). The defaults are
+    JAX's: the loss follows ``cfg.fused_loss`` and the Adam tail is one
+    kernel per leaf (``"auto"``); ``fused_tail="off"`` keeps the op
+    chain."""
+    cfg.validate()
     if seq > cfg.max_seq:
         raise ValueError(f"seq ({seq}) exceeds max_seq ({cfg.max_seq})")
     dev = resolve_device(device)
     params = init_gpt_params(cfg, seed=seed, device=dev)
     for p in param_leaves(params):
         p.requires_grad_(True)
-    optimizer = FusedAdam(param_leaves(params), lr=1e-4, fused_tail="off")
+    optimizer = FusedAdam(param_leaves(params), lr=1e-4,
+                          fused_tail=fused_tail)
     rng = np.random.default_rng(seed + 1)
     tok = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int64)

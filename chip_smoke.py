@@ -5,7 +5,8 @@
 
 1. Builds every kernel of the serving and training paths from
    ``apex_tpu_torch/csrc`` with ``nvcc`` (one process per source, all at
-   once).
+   once); each kernel phase below starts as soon as its own source is
+   built.
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    fp32 and bf16, with the tolerance stated; times of kernel, plain version
    and the nearest library call, and each kernel's bound:
@@ -16,7 +17,15 @@
      bitwise repeat check of dW/dB (autograd through ``F.layer_norm``);
    * flash attention forward, dQ and dK/dV at the flagship shape (96,
      1024, 64) causal, at a non-causal and at a dropout shape
-     (``F.scaled_dot_product_attention`` forward and backward).
+     (``F.scaled_dot_product_attention`` forward and backward);
+   * the fused LM-head + CE forward, dX and dW at the training shape
+     (8192, 768, V 50304) and a ragged one (96 rows, V 1000), dX and dW
+     held row by row and with the softmax term alone, with a bitwise
+     repeat check of dW (``torch.matmul`` + ``F.cross_entropy``, forward
+     and autograd);
+   * the Adam tail on each of GPT-2-124M's 16 leaf shapes in both decay
+     modes, the LAMB sums with a bitwise repeat, and the step's 16
+     launches timed (``torch.optim.AdamW(fused=True).step()``).
 3. Engine phase: GPT-2-124M at full width (random weights from a numpy
    seed), ``ServeConfig(num_slots=8, prefill_chunk=32)``, 16 requests of
    64-512 prompt tokens (several sharing a 64-token prefix, one exactly
@@ -28,18 +37,24 @@
      equal streams;
    * where a steady-state bf16 step's time goes (torch.profiler): the
      card's busy share and the top kernels.
-4. Train phase: GPT-2-124M at full width and depth, full remat,
-   ``fused_loss=False``, ``FusedAdam(lr=1e-4, fused_tail="off")``:
+4. Train phase: GPT-2-124M at full width and depth, full remat, the JAX
+   defaults ``fused_loss=True`` and ``FusedAdam(lr=1e-4,
+   fused_tail="auto")``:
    * fp32, batch 2 x 1024: loss and every gradient leaf through the
      kernels vs the plain versions forced;
    * bf16, batch 8 x 1024 (the training main path): the launch counts of
      one step (reset just before it, read just after) equal the per-step
-     table (LN fwd 49, LN bwd 25, flash fwd 24, dQ 12, dK/dV 12); the
-     loss stays finite and falls over 10 steps on the fixed batch; a
-     second run from the same seed repeats the losses bitwise; tokens/s,
-     step ms p50, MFU, peak memory, and the card's busy share and top
-     kernels over a profiled window.
-5. Prints detail lines, the card's ``nvidia-smi`` name and power limit,
+     table (LN fwd 49, LN bwd 25, flash fwd 24, dQ 12, dK/dV 12, LM-head
+     fwd, dX and dW 1 each, Adam tail 16); the loss stays finite and
+     falls over 10 steps on the fixed batch; a second run from the same
+     seed repeats the losses bitwise; tokens/s, step ms p50, MFU, peak
+     memory, and the card's busy share and top kernels over a profiled
+     window;
+   * the unfused step (``fused_loss=False``, ``fused_tail="off"``)
+     timed over 10 steps at the same batch and profiled over 3: both
+     tokens/s and device busy ms per step side by side.
+5. Prints detail lines, the wall seconds of each phase (and of each
+   source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
    code is then nonzero and the last line is not printed.
@@ -126,6 +141,55 @@ def check_close(name, got, want, atol, rtol):
             f"{name}: kernel disagrees with its plain version: max abs err "
             f"{float(err.max()):.3e} (atol {atol}, rtol {rtol})")
     return float(err.max())
+
+
+def check_rows(name, got, want, atol_of_row_max, rtol):
+    """``check_close`` for a 2-d tensor whose rows differ in scale: each
+    element within ``atol_of_row_max · max|want[row]| + rtol · |want|``,
+    so a row of small values (a vocab row of dW that no target hits) is
+    held to its own scale, not to the largest row's. Returns the max abs
+    error and the largest row's max abs error over its max |want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    row_max = want.abs().amax(dim=1, keepdim=True)
+    if not bool(got.isfinite().all()) or bool(
+            (err > atol_of_row_max * row_max + rtol * want.abs()).any()):
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version: max abs err "
+            f"{float(err.max()):.3e} (atol {atol_of_row_max} of each row's "
+            f"max, rtol {rtol})")
+    row_err = err.amax(dim=1, keepdim=True) / row_max.clamp_min(1e-30)
+    return float(err.max()), float(row_err.max())
+
+
+def start_builds(ku):
+    """Start one ``nvcc`` per kernel source, all together, each from its
+    own thread, so a phase can begin once its sources are built while a
+    slower one still compiles. Returns ``(built, wait)``: ``built`` fills
+    with ``ku.build``'s record per source; ``wait(*names)`` joins those
+    builds (every build with no names) and re-raises a failed one. The
+    threads are not daemons: the script never exits before its nvcc
+    processes."""
+    import threading
+
+    built, errors, threads = {}, {}, {}
+
+    def one(name):
+        try:
+            built.update(ku.build([name]))
+        except BaseException as e:          # re-raised by wait()
+            errors[name] = e
+
+    for name in ku.KERNEL_SOURCES:
+        threads[name] = threading.Thread(target=one, args=(name,))
+        threads[name].start()
+
+    def wait(*names):
+        for name in names or tuple(threads):
+            threads[name].join()
+            if name in errors:
+                raise errors[name]
+    return built, wait
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +506,226 @@ def flash_phase(torch, dev):
     return cases
 
 
+LM_SHAPES = [  # (name, rows, hidden, vocab)
+    ("train", TRAIN_ROWS, 768, 50304),
+    ("ragged", 96, 768, 1000),
+]
+
+
+def lm_head_bounds(n, h, v, esz, dname):
+    """(fwd, dx, dw) bounds: max(FLOPs / peak, bytes / 3.35 TB/s). The
+    forward does 2·n·V·h, each backward kernel recomputes the scores and
+    does one more product, 4·n·V·h. Bytes: x and w read once, the int64
+    targets and fp32 row vectors (lse, pred, g), dx or dw written once."""
+    xw = (n * h + v * h) * esz
+    return (bound_ms(xw + 8 * n + 8 * n, 2.0 * n * v * h, dname),
+            bound_ms(xw + 16 * n + n * h * esz, 4.0 * n * v * h, dname),
+            bound_ms(xw + 16 * n + v * h * esz, 4.0 * n * v * h, dname))
+
+
+def lm_head_phase(torch, dev):
+    """The fused LM-head + CE kernels (forward, dX, dW) vs their plain
+    versions at the training shape (8192 rows, h 768, V 50304) and a
+    ragged one (96 rows, V 1000), fp32 and bf16. Tolerance: lse, pred and
+    the loss atol/rtol 2e-5 (fp32) and 2e-4 (bf16: the same bf16 products,
+    fp32 sums in another order); dx and dw, row by row (``check_rows``),
+    1e-5 of the row's max plus rtol 1e-4 (fp32) and 1e-2 of the row's max
+    plus one bf16 step (bf16: dl is rounded to bf16 on both sides from
+    scores that differ in the last fp32 bits). With g = 1/n most vocab
+    rows of dW get no target and hold only the softmax term, a thousandth
+    of a hit row's scale, so each row is held to its own max. The softmax
+    term alone is checked too: dx and dw with no target hit (targets -1),
+    where the one-hot term of dx no longer hides it. dW bitwise equal over
+    repeats. Times (bf16, training shape) beside the unfused pair
+    torch.matmul + F.cross_entropy: its forward, and its autograd (dx and
+    dw together) for both backward rows."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.lm_head_loss import (lm_head_loss_bwd_dw,
+                                                 lm_head_loss_bwd_dx,
+                                                 lm_head_loss_bwd_reference,
+                                                 lm_head_loss_fwd,
+                                                 lm_head_loss_fwd_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = []
+    for name, n, h, v in LM_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            x = torch.randn(n, h, device=dev, generator=gen).to(dt)
+            w = (0.05 * torch.randn(v, h, device=dev, generator=gen)).to(dt)
+            t = torch.randint(0, v, (n,), device=dev, generator=gen)
+            g = torch.full((n,), 1.0 / n, device=dev)   # d mean / d loss
+            lse, pred = lm_head_loss_fwd(x, w, t)
+            dx = lm_head_loss_bwd_dx(x, w, t, lse, g)
+            dw = lm_head_loss_bwd_dw(x, w, t, lse, g)
+            lse_p, pred_p = lm_head_loss_fwd_reference(x, w, t)
+            dx_p, dw_p = lm_head_loss_bwd_reference(x, w, t, lse, g)
+            torch.cuda.synchronize()
+            tag = f"{name} {dname}"
+            tol = 2e-5 if dt == torch.float32 else 2e-4
+            err_fwd = max(
+                check_close(f"lm_head fwd lse {tag}", lse, lse_p, tol, tol),
+                check_close(f"lm_head fwd pred {tag}", pred, pred_p, tol,
+                            tol),
+                check_close(f"lm_head loss {tag}", lse - pred,
+                            lse_p - pred_p, tol, tol))
+            atol, rtol = ((1e-5, 1e-4) if dt == torch.float32
+                          else (1e-2, 2 ** -7))
+            err_dx, row_dx = check_rows(f"lm_head dx {tag}", dx, dx_p, atol,
+                                        rtol)
+            err_dw, row_dw = check_rows(f"lm_head dw {tag}", dw, dw_p, atol,
+                                        rtol)
+            dw_abs = dw_p.float().abs()
+            dw_scale = {"median_abs": float(dw_abs.median()),
+                        "max_abs": float(dw_abs.max())}
+            del lse_p, pred_p, dx_p, dw_p, dw_abs
+            # the softmax term alone: no target hit
+            t_none = torch.full_like(t, -1)
+            dx_s, dw_s = (lm_head_loss_bwd_dx(x, w, t_none, lse, g),
+                          lm_head_loss_bwd_dw(x, w, t_none, lse, g))
+            dx_sp, dw_sp = lm_head_loss_bwd_reference(x, w, t_none, lse, g)
+            soft = {"dx_max_row_rel_err": check_rows(
+                        f"lm_head dx softmax term {tag}", dx_s, dx_sp, atol,
+                        rtol)[1],
+                    "dw_max_row_rel_err": check_rows(
+                        f"lm_head dw softmax term {tag}", dw_s, dw_sp, atol,
+                        rtol)[1],
+                    "dw_median_abs": float(dw_sp.float().abs().median())}
+            del t_none, dx_s, dw_s, dx_sp, dw_sp
+            for _ in range(2):
+                if not torch.equal(dw, lm_head_loss_bwd_dw(x, w, t, lse, g)):
+                    raise AssertionError(f"lm_head dw {tag}: not bitwise "
+                                         f"equal over repeats")
+            case = {"shape": name, "dtype": dname, "rows": n, "hidden": h,
+                    "vocab": v, "lse_pred_tol": tol, "atol_of_row_max": atol,
+                    "rtol": rtol, "dw_bitwise_repeat": True,
+                    "fwd": {"max_abs_err": err_fwd},
+                    "dx": {"max_abs_err": err_dx, "max_row_rel_err": row_dx},
+                    "dw": {"max_abs_err": err_dw, "max_row_rel_err": row_dw,
+                           **dw_scale},
+                    "softmax_term_only": soft}
+            if name == "train" and dt == torch.bfloat16:
+                b_fwd, b_dx, b_dw = lm_head_bounds(n, h, v, x.element_size(),
+                                                   dname)
+                timed = lambda fn: time_ms(torch, fn, iters=10)
+                xl, wl = (a.clone().requires_grad_() for a in (x, w))
+                loss_lib = F.cross_entropy(torch.matmul(xl, wl.t()), t,
+                                           reduction="none")
+                lib_bwd = timed(lambda: torch.autograd.grad(
+                    loss_lib, (xl, wl), g, retain_graph=True))
+                plain_bwd = timed(lambda: lm_head_loss_bwd_reference(
+                    x, w, t, lse, g))
+                case["fwd"].update(
+                    ms=timed(lambda: lm_head_loss_fwd(x, w, t)),
+                    plain_ms=timed(lambda: lm_head_loss_fwd_reference(
+                        x, w, t)),
+                    library_ms=timed(lambda: F.cross_entropy(
+                        torch.matmul(x, w.t()), t, reduction="none")),
+                    bound_ms=b_fwd[0], bound_by=b_fwd[1])
+                case["dx"].update(
+                    ms=timed(lambda: lm_head_loss_bwd_dx(x, w, t, lse, g)),
+                    plain_ms=plain_bwd, library_ms=lib_bwd,
+                    bound_ms=b_dx[0], bound_by=b_dx[1])
+                case["dw"].update(
+                    ms=timed(lambda: lm_head_loss_bwd_dw(x, w, t, lse, g)),
+                    plain_ms=plain_bwd, library_ms=lib_bwd,
+                    bound_ms=b_dw[0], bound_by=b_dw[1])
+                del xl, wl, loss_lib
+            cases.append(case)
+            del x, w, t, g, lse, pred, dx, dw
+            torch.cuda.empty_cache()
+    return cases
+
+
+def adam_tail_phase(torch, dev):
+    """The Adam tail kernel on every one of GPT-2-124M's 16 leaf shapes,
+    bf16 p and g with fp32 m and v, in both decay modes (decoupled and L2,
+    weight decay 0.01) and with none: u, m', v' within rtol 1e-6 / atol
+    1e-7 of the plain version (IEEE division and square root on both
+    sides). The LAMB variant's Σp² and Σu² within rtol 1e-5 of the plain
+    sums, bitwise equal over repeats. Times the train step's 16 launches
+    (no decay, as FusedAdam(lr=1e-4)) against the bound of 24 bytes an
+    element, beside the plain version and torch.optim.AdamW(fused=True)
+    over the same leaves (timed only)."""
+    import numpy as np
+
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.ops.fused_update import (adam_tail_reference,
+                                                 fused_adam_tail,
+                                                 fused_lamb_tail,
+                                                 lamb_tail_reference)
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        GPTConfig, init_gpt_params_numpy)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shapes = [(name, tuple(a.shape)) for name, a in named_leaves(
+        init_gpt_params_numpy(GPTConfig(), 0))]
+    leaves = []
+    for name, shape in shapes:
+        leaves.append((name,
+                       torch.randn(shape, device=dev, generator=gen)
+                       .bfloat16(),                               # g
+                       0.01 * torch.randn(shape, device=dev, generator=gen),
+                       1e-4 * torch.rand(shape, device=dev, generator=gen),
+                       torch.randn(shape, device=dev, generator=gen)
+                       .bfloat16()))                              # p
+    kw = dict(betas=(0.9, 0.999), eps=1e-8)
+    c1 = float(np.float32(1) - np.float32(0.9) ** np.float32(3))
+    c2 = float(np.float32(1) - np.float32(0.999) ** np.float32(3))
+    worst, sums_err = 0.0, 0.0
+    for wd, adam_w in ((0.0, True), (0.01, True), (0.01, False)):
+        for name, g, m, v, p in leaves:
+            want = adam_tail_reference(g, m, v, p, c1, c2, weight_decay=wd,
+                                       adam_w_mode=adam_w, **kw)
+            m_k, v_k = m.clone(), v.clone()
+            got = fused_adam_tail(g, m_k, v_k, p, c1, c2, weight_decay=wd,
+                                  adam_w_mode=adam_w, **kw)
+            torch.cuda.synchronize()
+            for a, b, what in zip(got, want, ("u", "m", "v")):
+                worst = max(worst, check_close(
+                    f"adam tail {what} {name} wd={wd} adam_w={adam_w}", a,
+                    b, 1e-7, 1e-6))
+    for name, g, m, v, p in leaves:
+        want = lamb_tail_reference(g, m, v, p, c1, c2, weight_decay=0.01,
+                                   **kw)
+        runs = [fused_lamb_tail(g, m.clone(), v.clone(), p, c1, c2,
+                                weight_decay=0.01, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(runs[0][3:], want[3:]):
+            sums_err = max(sums_err, check_close(
+                f"lamb sums {name}", a, b, 0.0, 1e-5) / float(b))
+        if not all(bool(torch.equal(a, b)) for a, b in zip(*runs)):
+            raise AssertionError(f"lamb tail {name}: not bitwise equal over "
+                                 f"repeats")
+
+    def step_kernel():
+        for _, g, m, v, p in leaves:
+            fused_adam_tail(g, m, v, p, c1, c2, **kw)
+
+    def step_plain():
+        for _, g, m, v, p in leaves:
+            adam_tail_reference(g, m, v, p, c1, c2, **kw)
+
+    params = [p.clone().requires_grad_() for _, _, _, _, p in leaves]
+    for q, (_, g, _, _, _) in zip(params, leaves):
+        q.grad = g.clone()
+    lib = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.0, fused=True)
+    n_el = sum(g.numel() for _, g, _, _, _ in leaves)
+    bms, by = bound_ms(24.0 * n_el, 10.0 * n_el, "float32")
+    out = {"leaves": len(leaves), "elements": n_el, "rtol": 1e-6,
+           "atol": 1e-7, "max_abs_err": worst,
+           "lamb_sums_max_rel_err": sums_err, "lamb_sums_rtol": 1e-5,
+           "lamb_bitwise_repeat": True, "per": "train step (16 launches)",
+           "ms": time_ms(torch, step_kernel, iters=20),
+           "plain_ms": time_ms(torch, step_plain, iters=5),
+           "library_ms": time_ms(torch, lib.step, iters=20),
+           "bound_ms": bms, "bound_by": by}
+    del leaves, params, lib
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # engine phase
 
@@ -654,16 +938,20 @@ def engine_phase(torch, dev, ku):
 
 # kernel launches of one GPT-2-124M train step (12 layers, full remat):
 # 2 LN per layer + the head's, each layer's LNs and attention replayed in
-# backward, one backward per forward
+# backward, one backward per forward; the fused LM-head loss once (outside
+# the remat blocks); the Adam tail once per leaf (16 leaves)
 TRAIN_LAUNCHES = {"layer_norm_fwd": 25 + 24, "layer_norm_bwd": 25,
                   "flash_attention_fwd": 12 + 12,
                   "flash_attention_bwd_dq": 12,
-                  "flash_attention_bwd_dkv": 12}
+                  "flash_attention_bwd_dkv": 12,
+                  "lm_head_loss_fwd": 1, "lm_head_loss_bwd_dx": 1,
+                  "lm_head_loss_bwd_dw": 1, "fused_adam_tail": 16}
 
 
 def train_fp32_check(torch, dev, ku):
-    """One fp32 GPT-2-124M forward + backward (batch 2 x 1024, full remat)
-    through the kernels vs the same with the plain versions forced.
+    """One fp32 GPT-2-124M forward + backward (batch 2 x 1024, full remat,
+    the default fused LM-head loss) through the kernels vs the same with
+    the plain versions forced.
     Tolerance: loss relative 1e-5; every gradient leaf max |kernel - plain|
     <= 1e-5 * max |plain| (fp32 through 12 layers, sums in other orders;
     the largest measured is 1.3e-6 of the leaf's scale)."""
@@ -673,7 +961,7 @@ def train_fp32_check(torch, dev, ku):
     from apex_tpu_torch.transformer.testing import (GPTConfig, gpt_loss,
                                                     init_gpt_params)
 
-    cfg = GPTConfig(dtype=torch.float32, fused_loss=False)
+    cfg = GPTConfig(dtype=torch.float32)
     params = init_gpt_params(cfg, seed=0, device=dev)
     leaves = list(named_leaves(params))
     for _, p in leaves:
@@ -689,7 +977,11 @@ def train_fp32_check(torch, dev, ku):
         loss.backward()
         return loss.item(), [p.grad for _, p in leaves]
 
+    ku.reset_launch_counts()
     lk, gk = loss_and_grads()
+    if ku.launch_counts().get("lm_head_loss_bwd_dw", 0) != 1:
+        raise AssertionError(f"fp32 check did not take the fused loss: "
+                             f"{ku.launch_counts()}")
     with ku.force_plain():
         before = ku.launch_counts()
         lp, gp = loss_and_grads()
@@ -711,16 +1003,59 @@ def train_fp32_check(torch, dev, ku):
             "loss_rel_err": loss_err, "grad_max_rel_err": worst}
 
 
+def timed_steps_of(torch, step, n: int):
+    """Wall seconds of ``n`` calls of ``step``, each ended by a sync."""
+    durs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        durs.append(time.perf_counter() - t0)
+    return durs
+
+
+def unfused_step(torch, dev, batch: int, seq: int, steps: int = 10):
+    """The unfused step (``fused_loss=False``, ``fused_tail="off"``: logits
+    + CE and the Adam op chain) at the same batch, for the fused-vs-unfused
+    comparison on this card: tokens/s over ``steps`` timed steps after two
+    warm-up steps, the device's busy ms per step over 3 profiled steps
+    (host-clock step times spread more between calls than device time),
+    and the losses, which must be finite and fall."""
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step)
+
+    step = build_train_step(GPTConfig(fused_loss=False), batch, seq,
+                            device=dev, seed=0, fused_tail="off")[0]
+    losses = [float(step()) for _ in range(2)]
+    durs = timed_steps_of(torch, step, steps)
+    prof = profiled(torch, lambda: [step() for _ in range(3)])
+    del step
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in losses) or not losses[1] < losses[0]:
+        raise AssertionError(f"unfused bf16 loss did not fall: {losses}")
+    return {"fused_loss": False, "fused_tail": "off", "losses": losses,
+            "tokens_per_s": batch * seq * steps / sum(durs),
+            "step_ms_p50": sorted(durs)[len(durs) // 2] * 1e3,
+            "step_ms": [d * 1e3 for d in durs],
+            "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
+            "top": prof["top"]}
+
+
 def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
-    """The bf16 flagship step: launch counts of one step, a falling and
-    bitwise repeatable loss, speed, memory and the card's busy share."""
+    """The bf16 default step (the training main path): launch counts of one
+    step, a falling and bitwise repeatable loss, speed, memory and the
+    card's busy share; then the unfused step timed beside it."""
     from apex_tpu_torch.convert import named_leaves
     from apex_tpu_torch.transformer.testing import (GPTConfig,
                                                     build_train_step)
 
+    phase_s = {}
+    t0 = time.perf_counter()
     result = {"fp32_check": train_fp32_check(torch, dev, ku)}
     torch.cuda.empty_cache()
-    cfg = GPTConfig(fused_loss=False)           # bf16, full remat
+    phase_s["fp32_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = GPTConfig()         # bf16, full remat, fused LM-head loss
     batch, seq = 8, 1024
     assert batch * seq == TRAIN_ROWS
     torch.cuda.reset_peak_memory_stats()
@@ -739,12 +1074,7 @@ def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
     vals = losses.tolist()
     if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
         raise AssertionError(f"bf16 train loss did not fall: {vals}")
-    durs = []
-    for _ in range(timed_steps):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        durs.append(time.perf_counter() - t0)
+    durs = timed_steps_of(torch, step, timed_steps)
     tokens_per_s = batch * seq * timed_steps / sum(durs)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profiled(torch, lambda: [step() for _ in range(3)])
@@ -752,6 +1082,8 @@ def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
         prof["device_busy_ms"] / (3 * sum(durs) / timed_steps * 1e3))
     del step, params
     torch.cuda.empty_cache()
+    phase_s["default_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     step2 = build_train_step(cfg, batch, seq, device=dev, seed=0)[0]
     again = torch.stack([step2() for _ in range(steps)])
     if not torch.equal(losses, again):
@@ -759,7 +1091,12 @@ def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
                              f"seed: {vals} vs {again.tolist()}")
     del step2
     torch.cuda.empty_cache()
+    phase_s["bitwise_repeat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["unfused_step"] = unfused_step(torch, dev, batch, seq)
+    phase_s["unfused_step"] = time.perf_counter() - t0
     result.update({
+        "phase_s": phase_s,
         "batch": batch, "seq": seq, "n_params": n_params,
         "launches_per_step": launches, "losses": vals,
         "bitwise_repeat": True, "tokens_per_s": tokens_per_s,
@@ -793,25 +1130,48 @@ def main(argv=None) -> int:
     card = card_line()
 
     t0 = time.perf_counter()
-    logs = ku.build()
-    build_s = time.perf_counter() - t0
-    for name, log in logs.items():
-        for line in log.splitlines():
+    built, wait = start_builds(ku)
+    # wall seconds of each phase, so a longer run says where it went
+    seconds = {"build_wait": 0.0}
+
+    def phase(name, sources, fn, *args):
+        t = time.perf_counter()
+        wait(*sources)
+        seconds["build_wait"] += time.perf_counter() - t
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    # each kernel phase starts once its own source is built, the quick
+    # sources' first: the LM-head source compiles longest
+    ln_cases = phase("layer_norm", ("layer_norm",), layer_norm_phase, torch,
+                     dev)
+    pa_cases = phase("paged_attention", ("paged_attention",),
+                     paged_attention_phase, torch, dev)
+    lnb_cases = phase("layer_norm_bwd", ("layer_norm",),
+                      layer_norm_bwd_phase, torch, dev)
+    adam = phase("adam_tail", ("fused_update",), adam_tail_phase, torch, dev)
+    fa_cases = phase("flash_attention", ("flash_attention",), flash_phase,
+                     torch, dev)
+    lm_cases = phase("lm_head_loss", ("lm_head_loss",), lm_head_phase, torch,
+                     dev)
+    wait()
+    for name, b in built.items():
+        for line in b["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[nvcc {name}] {line.strip()}", file=sys.stderr)
-
-    t0 = time.perf_counter()
-    ln_cases = layer_norm_phase(torch, dev)
-    pa_cases = paged_attention_phase(torch, dev)
-    lnb_cases = layer_norm_bwd_phase(torch, dev)
-    fa_cases = flash_phase(torch, dev)
-    kernel_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    engine, launches = engine_phase(torch, dev, ku)
-    engine_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    train = train_phase(torch, dev, ku)
-    train_s = time.perf_counter() - t0
+    seconds["build_per_source"] = {name: b["seconds"]
+                                   for name, b in built.items()}
+    build_s = max(seconds["build_per_source"].values(), default=0.0)
+    seconds["build"] = build_s
+    kernel_s = sum(seconds[k] for k in (
+        "layer_norm", "paged_attention", "layer_norm_bwd", "flash_attention",
+        "lm_head_loss", "adam_tail"))
+    seconds["builds_and_kernel_phases"] = time.perf_counter() - t0
+    engine, launches = phase("engine", (), engine_phase, torch, dev, ku)
+    train = phase("train", (), train_phase, torch, dev, ku)
+    seconds["train_parts"] = train["phase_s"]
     train_launches = train["launches_per_step"]
 
     def pick(cases, **where):
@@ -868,11 +1228,32 @@ def main(argv=None) -> int:
              "launches": train_launches[kname],
              "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases),
              **{k: fa[key][k] for k in timing}})
+    # the fused loss at the training shape (8192, 768, 50304) bf16
+    lm = pick(lm_cases, dtype="bfloat16", shape="train")
+    for key, kname, line in (("fwd", "lm_head_loss_fwd", 198),
+                             ("dx", "lm_head_loss_bwd_dx", 244),
+                             ("dw", "lm_head_loss_bwd_dw", 263)):
+        kernels.append(
+            {"name": kname, "route": "cuda",
+             "source": "apex_tpu_torch/csrc/lm_head_loss.cu",
+             "replaces": f"apex_tpu/ops/lm_head_loss.py:{line}",
+             "launches": train_launches[kname],
+             "max_abs_err": max(c[key]["max_abs_err"] for c in lm_cases),
+             **{k: lm[key][k] for k in timing}})
+    kernels.append(
+        {"name": "fused_adam_tail", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/fused_update.cu",
+         "replaces": "apex_tpu/ops/fused_update.py:160",
+         "launches": train_launches["fused_adam_tail"],
+         "max_abs_err": adam["max_abs_err"], "per": adam["per"],
+         **{k: adam[k] for k in timing}})
     name = torch.cuda.get_device_name(0)
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
-              "engine_phase_s": engine_s, "train_phase_s": train_s,
+              "engine_phase_s": seconds["engine"],
+              "train_phase_s": seconds["train"], "seconds": seconds,
               "layer_norm": ln_cases, "paged_attention": pa_cases,
               "layer_norm_bwd": lnb_cases, "flash_attention": fa_cases,
+              "lm_head_loss": lm_cases, "adam_tail": adam,
               "engine": engine, "train": train}
     for run in ("fp32_kernels", "fp32_plain", "bf16_spec0", "bf16_spec4"):
         e = engine[run]
@@ -890,6 +1271,13 @@ def main(argv=None) -> int:
           f"{prof['device_busy_share_of_unprofiled_wall']:.3f} (of the "
           f"profiled wall {1 - prof['device_idle_share']:.3f}) "
           f"losses {[round(v, 4) for v in train['losses']]} on {card}")
+    un = train["unfused_step"]
+    print(f"train bf16 tokens/s: default step (fused loss, fused Adam tail) "
+          f"{train['tokens_per_s']:.1f}, unfused step (fused_loss=False, "
+          f"fused_tail='off') {un['tokens_per_s']:.1f} (step_ms_p50 "
+          f"{train['step_ms_p50']:.2f} vs {un['step_ms_p50']:.2f}; device "
+          f"busy ms per step {prof['device_busy_ms'] / 3:.2f} vs "
+          f"{un['device_busy_ms_per_step']:.2f}) on {card}")
     for t in prof["top"]:
         print(f"  train top kernel: {t['device_ms']:.2f} ms x{t['count']} "
               f"{t['name']}")
@@ -898,6 +1286,25 @@ def main(argv=None) -> int:
             f"{k} {c[k]['ms']:.3f} ms (plain {c[k]['plain_ms']:.3f}, "
             f"library {c[k]['library_ms']:.3f}, bound {c[k]['bound_ms']:.4f})"
             for k in ("fwd", "dq", "dkv")))
+    for key in ("fwd", "dx", "dw"):
+        c = lm[key]
+        print(f"lm_head_loss {key} bf16 (8192, 768, 50304): {c['ms']:.3f} ms "
+              f"(plain {c['plain_ms']:.3f}, library {c['library_ms']:.3f}, "
+              f"bound {c['bound_ms']:.4f})")
+    for c in lm_cases:
+        s = c["softmax_term_only"]
+        print(f"lm_head_loss gates {c['shape']} {c['dtype']}: dx max abs err "
+              f"{c['dx']['max_abs_err']:.3e} ({c['dx']['max_row_rel_err']:.3e}"
+              f" of its row's max), dw {c['dw']['max_abs_err']:.3e} "
+              f"({c['dw']['max_row_rel_err']:.3e}); |dw| median "
+              f"{c['dw']['median_abs']:.3e} max {c['dw']['max_abs']:.3e}; "
+              f"softmax term alone dx {s['dx_max_row_rel_err']:.3e} dw "
+              f"{s['dw_max_row_rel_err']:.3e} of the row's max (|dw| median "
+              f"{s['dw_median_abs']:.3e}); gate {c['atol_of_row_max']} of "
+              f"the row's max + rtol {c['rtol']:.3e}")
+    print(f"fused_adam_tail (16 leaves, 124M elements): {adam['ms']:.4f} ms "
+          f"(plain {adam['plain_ms']:.4f}, AdamW(fused=True) "
+          f"{adam['library_ms']:.4f}, bound {adam['bound_ms']:.4f})")
     for c in ln_cases:
         if c["stats"]:
             print(f"layer_norm_fwd {c['dtype']} rows {c['rows']} (stats): "
@@ -910,8 +1317,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
-    print(json.dumps({k: record[k] for k in (
-        "build_s", "kernel_phase_s", "engine_phase_s", "train_phase_s")}))
+    print(json.dumps({"seconds": seconds}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,11 +25,21 @@ from apex_tpu_torch.ops.attention import (flash_attention,
                                           flash_attention_bwd_reference,
                                           flash_attention_fwd,
                                           flash_attention_fwd_reference)
+from apex_tpu_torch.ops.fused_update import (adam_tail_reference,
+                                             fused_adam_tail,
+                                             fused_lamb_tail,
+                                             lamb_tail_reference)
 from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                            layer_norm_bwd_reference,
                                            layer_norm_fwd,
                                            layer_norm_fwd_reference,
                                            layer_norm_reference)
+from apex_tpu_torch.ops.lm_head_loss import (lm_head_loss,
+                                             lm_head_loss_bwd_dw,
+                                             lm_head_loss_bwd_dx,
+                                             lm_head_loss_bwd_reference,
+                                             lm_head_loss_fwd,
+                                             lm_head_loss_fwd_reference)
 from apex_tpu_torch.serve.decode import (paged_attention, paged_attention_fwd,
                                          paged_attention_reference)
 from apex_tpu_torch.serve.kv_cache import KVCacheConfig
@@ -303,3 +313,202 @@ def test_flash_kernels_refuse_what_they_cannot_take(dev):
     lse = torch.zeros(2, 128, 1, device=dev)
     with pytest.raises(ValueError, match="delta"):
         flash_attention_bwd_dq(q, k, v, do, lse, lse[:, :64], 0.125, True)
+
+
+# ---------------------------------------------------------------------------
+# fused LM-head + cross-entropy (forward, dX, dW) and the Adam tail
+
+
+def _lm_case(dev, dtype, n, v, h, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, h, device=dev, generator=g).to(dtype)
+    w = (0.05 * torch.randn(v, h, device=dev, generator=g)).to(dtype)
+    t = torch.randint(0, v, (n,), device=dev, generator=g)
+    gr = torch.randn(n, device=dev, generator=g)
+    return x, w, t, gr
+
+
+def _close_scaled(got, want, atol_of_max, rtol, name):
+    """|got − want| ≤ atol_of_max·max|want| + rtol·|want|."""
+    torch.cuda.synchronize()
+    got, want = got.detach().float(), want.detach().float()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want,
+                               atol=atol_of_max * scale, rtol=rtol, msg=name)
+
+
+def _close_rows(got, want, atol_of_row_max, rtol, name):
+    """|got − want| ≤ atol_of_row_max·max|want[row]| + rtol·|want|, row by
+    row: a vocab row of dw that no target hits holds only the softmax
+    term, far below a hit row's scale, and is held to its own max."""
+    torch.cuda.synchronize()
+    got, want = got.detach().float(), want.detach().float()
+    err = (got - want).abs()
+    row_max = want.abs().amax(dim=1, keepdim=True)
+    bad = err > atol_of_row_max * row_max + rtol * want.abs()
+    assert bool(got.isfinite().all()) and not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} elements outside {atol_of_row_max} of "
+        f"their row's max + rtol {rtol}; max abs err {float(err.max()):.3e}")
+
+
+LM_CASES = [(96, 1000, 128), (256, 512, 768), (8, 37, 256), (600, 3000, 384),
+            (128, 257, 1152)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v,h", LM_CASES)
+def test_lm_head_loss_kernels_match_plain(dev, dtype, n, v, h):
+    """lse, pred, dx and dw of the three kernels vs their plain versions at
+    ragged row and vocab counts (and h = 1152, two hidden chunks in fp32).
+    lse/pred: atol/rtol 2e-5 fp32 (sums over h in another order), 2e-4
+    bf16 (the same bf16 products, fp32 sums). dx, dw, row by row, with
+    the targets and with none hit: fp32 1e-5 of the row's max plus rtol
+    1e-4; bf16 1e-2 of the row's max plus one bf16 step (dl is rounded to
+    bf16 on both sides from scores that differ in the last fp32 bits, so a
+    rounding may flip by one step)."""
+    x, w, t, g = _lm_case(dev, dtype, n, v, h, n + v + h)
+    counts = ku.launch_counts()
+    lse, pred = lm_head_loss_fwd(x, w, t)
+    lse_p, pred_p = lm_head_loss_fwd_reference(x, w, t)
+    tol = 2e-5 if dtype == torch.float32 else 2e-4
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_p, atol=tol, rtol=tol)
+    torch.testing.assert_close(pred, pred_p, atol=tol, rtol=tol)
+    dx = lm_head_loss_bwd_dx(x, w, t, lse, g)
+    dw = lm_head_loss_bwd_dw(x, w, t, lse, g)
+    dx_p, dw_p = lm_head_loss_bwd_reference(x, w, t, lse, g)
+    atol, rtol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    assert dx.dtype == dw.dtype == dtype
+    _close_rows(dx, dx_p, atol, rtol, "dx")
+    _close_rows(dw, dw_p, atol, rtol, "dw")
+    after = ku.launch_counts()
+    for name in ("lm_head_loss_fwd", "lm_head_loss_bwd_dx",
+                 "lm_head_loss_bwd_dw"):
+        assert after[name] == counts.get(name, 0) + 1
+    # the softmax term alone (no target hit), which the one-hot term
+    # outweighs in dx and in the hit rows of dw
+    none = torch.full_like(t, -1)
+    dx_p, dw_p = lm_head_loss_bwd_reference(x, w, none, lse, g)
+    _close_rows(lm_head_loss_bwd_dx(x, w, none, lse, g), dx_p, atol, rtol,
+                "dx, softmax term")
+    _close_rows(lm_head_loss_bwd_dw(x, w, none, lse, g), dw_p, atol, rtol,
+                "dw, softmax term")
+
+
+def test_lm_head_loss_dw_bitwise_repeat(dev):
+    """Each dw row has one owning block that sums the rows in order: the
+    same inputs give bitwise the same dw (and dx, lse) on every run."""
+    x, w, t, g = _lm_case(dev, torch.bfloat16, 1024, 5000, 768, 5)
+    lse, _ = lm_head_loss_fwd(x, w, t)
+    first = (lse, lm_head_loss_bwd_dx(x, w, t, lse, g),
+             lm_head_loss_bwd_dw(x, w, t, lse, g))
+    for _ in range(3):
+        lse2, _ = lm_head_loss_fwd(x, w, t)
+        again = (lse2, lm_head_loss_bwd_dx(x, w, t, lse2, g),
+                 lm_head_loss_bwd_dw(x, w, t, lse2, g))
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_lm_head_loss_autograd_on_the_card(dev):
+    """The front door on CUDA launches the three kernels once each and
+    gives the plain versions' loss and gradients (fp32, 1e-5 of max)."""
+    x, w, t, _ = _lm_case(dev, torch.float32, 2, 777, 256, 9)
+    x = torch.randn(2, 48, 256, device=dev)
+    t = t.new_tensor(np.random.default_rng(0).integers(0, 777, (2, 48)))
+    runs = []
+    for plain in (False, True):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = ku.launch_counts()
+        if plain:
+            with ku.force_plain():
+                loss = lm_head_loss(xs, ws, t)
+                loss.mean().backward()
+            assert ku.launch_counts() == before
+        else:
+            loss = lm_head_loss(xs, ws, t)
+            loss.mean().backward()
+            assert ku.launch_counts()["lm_head_loss_bwd_dw"] == \
+                before.get("lm_head_loss_bwd_dw", 0) + 1
+        assert loss.shape == t.shape and loss.dtype == torch.float32
+        runs.append((loss, xs.grad, ws.grad))
+    for got, want in zip(*runs):
+        _close_scaled(got, want, 1e-5, 1e-5, "lm_head_loss autograd")
+
+
+def test_lm_head_loss_kernels_refuse_what_they_cannot_take(dev):
+    x, w, t, g = _lm_case(dev, torch.float32, 16, 50, 128, 1)
+    lm_head_loss_fwd(x, w, t)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        lm_head_loss_fwd(x[:, :100].contiguous(), w[:, :100].contiguous(), t)
+    with pytest.raises(ValueError, match="w must be"):
+        lm_head_loss_fwd(x, w.bfloat16(), t)
+    with pytest.raises(ValueError, match="targets"):
+        lm_head_loss_fwd(x, w, t.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        lm_head_loss_fwd(torch.randn(128, 16, device=dev).t(), w, t)
+    lse, _ = lm_head_loss_fwd(x, w, t)
+    with pytest.raises(ValueError, match="g must be"):
+        lm_head_loss_bwd_dx(x, w, t, lse, g[:8])
+
+
+def _tail_case(dev, shape, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g, p = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    m = torch.randn(shape, device=dev, generator=gen)
+    v = torch.rand(shape, device=dev, generator=gen)
+    return g, m, v, p
+
+
+TAIL_KW = dict(betas=(0.9, 0.999), eps=1e-8)
+C1, C2 = float(np.float32(1 - 0.9 ** 3)), float(np.float32(1 - 0.999 ** 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 13), (300, 700), (1,), (70001,),
+                                   (256 * 1056 + 3,)])
+@pytest.mark.parametrize("wd,adam_w", [(0.0, True), (0.01, True),
+                                       (0.01, False)])
+def test_adam_tail_kernel_matches_plain(dev, dtype, shape, wd, adam_w):
+    """u, m', v' of the kernel vs the plain version (rtol 1e-6, atol
+    1e-7: IEEE division and square root on both sides, torch divides a
+    tensor by a scalar through its reciprocal), leaves that are not a
+    multiple of the block included; m and v are updated in place."""
+    g, m, v, p = _tail_case(dev, shape, dtype, len(shape) + shape[0])
+    want = adam_tail_reference(g, m, v, p, C1, C2, weight_decay=wd,
+                               adam_w_mode=adam_w, **TAIL_KW)
+    m_in, v_in = m.clone(), v.clone()
+    before = ku.launch_counts().get("fused_adam_tail", 0)
+    u, m_out, v_out = fused_adam_tail(g, m_in, v_in, p, C1, C2,
+                                      weight_decay=wd, adam_w_mode=adam_w,
+                                      **TAIL_KW)
+    assert ku.launch_counts()["fused_adam_tail"] == before + 1
+    assert m_out.data_ptr() == m_in.data_ptr()
+    assert v_out.data_ptr() == v_in.data_ptr()
+    torch.cuda.synchronize()
+    for got, ref, name in zip((u, m_in, v_in), want, ("u", "m", "v")):
+        assert got.dtype == torch.float32 and got.shape == shape, name
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7, msg=name)
+
+
+def test_lamb_tail_kernel_sums_match_and_repeat_bitwise(dev):
+    """LAMB: u, m', v' as Adam's; Σp² and Σu² within rtol 1e-5 of the
+    plain sums, and bitwise equal over repeats (two-stage, in-order)."""
+    shape = (1000, 777)
+    g, m, v, p = _tail_case(dev, shape, torch.bfloat16, 3)
+    want = lamb_tail_reference(g, m, v, p, C1, C2, weight_decay=0.01,
+                               **TAIL_KW)
+    outs = []
+    for _ in range(3):
+        got = fused_lamb_tail(g, m.clone(), v.clone(), p, C1, C2,
+                              weight_decay=0.01, **TAIL_KW)
+        outs.append(got)
+    torch.cuda.synchronize()
+    for got, ref in zip(outs[0][:3], want[:3]):
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7)
+    for got, ref in zip(outs[0][3:], want[3:]):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+    for again in outs[1:]:
+        for a, b in zip(outs[0], again):
+            assert torch.equal(a, b)

@@ -378,21 +378,15 @@ def test_build_train_step_on_cpu_falls_and_repeats():
 
 @pytest.mark.parametrize("field,value", [
     ("remat_policy", "dots"), ("remat_policy", "dots_attn"),
-    ("fused_loss", True), ("attention_dropout", 0.1),
+    ("attention_dropout", 0.1),
     ("hidden_dropout", 0.1), ("megatron_sp", True), ("overlap_comm", True),
     ("num_experts", 4)])
 def test_refused_training_fields_raise(field, value):
-    """Each refused field raises from ``gpt_loss`` and
-    ``build_train_step``; all but ``fused_loss`` already from
-    ``validate()``. ``fused_loss`` keeps JAX's default (True), which a
-    serving config passes through ``validate()`` untouched."""
+    """Each refused field raises from ``validate()``, ``gpt_loss`` and
+    ``build_train_step``."""
     cfg = dataclasses.replace(TCFG, **{field: value})
-    if field == "fused_loss":
+    with pytest.raises(NotImplementedError, match=field):
         cfg.validate()
-        GPTConfig().validate()
-    else:
-        with pytest.raises(NotImplementedError, match=field):
-            cfg.validate()
     with pytest.raises(NotImplementedError, match=field):
         gpt_loss({}, torch.zeros(1, 4, dtype=torch.long),
                  torch.zeros(1, 4, dtype=torch.long), cfg)
@@ -402,9 +396,12 @@ def test_refused_training_fields_raise(field, value):
 
 def test_refused_optimizer_and_attention_options_raise():
     p = [torch.zeros(3, requires_grad=True)]
-    for kw in ({}, {"fused_tail": "auto"}, {"fused_tail": "on"}):
-        with pytest.raises(NotImplementedError, match="B #15"):
-            FusedAdam(p, **kw)          # the JAX default "auto" included
+    for kw, fused in (({}, True), ({"fused_tail": "auto"}, True),
+                      ({"fused_tail": "on"}, True),
+                      ({"fused_tail": "off"}, False)):
+        assert FusedAdam(p, **kw).use_fused == fused   # JAX default "auto"
+    with pytest.raises(ValueError, match="fused_tail"):
+        FusedAdam(p, fused_tail="always")
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(p, amsgrad=True)
     q = torch.zeros(1, 1, 8, 8)
