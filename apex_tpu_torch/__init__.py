@@ -7,8 +7,11 @@ is PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel for
 through ``ctypes`` (``ops._kernel_util``). Each kernel's plain PyTorch
 version sits beside its wrapper and runs only for tensors on the CPU.
 
-Ported so far: the single-engine serving path (``serve``), with the
-LayerNorm forward and paged-attention decode kernels.
+Ported so far: the single-engine serving path (``serve``: the fused
+per-layer decode/verify kernel, the per-op path with the LayerNorm and
+paged-attention kernels, int8/int4 paged KV through ``comm.quantize``'s
+codec) and the GPT-2-124M train step (``transformer.testing``, ``ops``,
+``optimizers``).
 """
 
 from apex_tpu_torch._device import resolve_device  # noqa: F401

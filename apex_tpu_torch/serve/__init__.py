@@ -2,12 +2,16 @@
 (counterpart of ``apex_tpu.serve``):
 
 * :mod:`~apex_tpu_torch.serve.kv_cache` — paged K/V pools updated in
-  place (plus a trash block for dropped writes), the refcounted
+  place (plus a trash block for dropped writes), full precision or int8 /
+  int4 through the ``comm.quantize`` codec, the refcounted
   :class:`BlockAllocator` with prefix caching, copy-on-write, byte models;
 * :mod:`~apex_tpu_torch.serve.decode` — paged attention (plain version +
   the ``csrc/paged_attention.cu`` kernel) and the serve programs
   ``gpt_paged_forward`` / ``gpt_decode_step`` / ``gpt_verify_step`` /
   ``gpt_prefill_chunk``;
+* :mod:`~apex_tpu_torch.serve.megakernel` — the fused per-layer decode /
+  verify kernel (``csrc/megakernel.cu``), its plain version, the fused
+  serve programs and the shape gate;
 * :mod:`~apex_tpu_torch.serve.sampling` — greedy / temperature / top-k /
   top-p with counter-hash position-keyed draws;
 * :mod:`~apex_tpu_torch.serve.drafter` — prompt-lookup n-gram drafter;
@@ -45,6 +49,15 @@ from apex_tpu_torch.serve.kv_cache import (  # noqa: F401
     kv_write_bytes_per_token,
     paged_write,
     prefix_block_hashes,
+)
+from apex_tpu_torch.serve.megakernel import (  # noqa: F401
+    fused_layer_decode,
+    fused_layer_reference,
+    fused_layer_verify,
+    gpt_decode_step_fused,
+    gpt_verify_step_fused,
+    megakernel_ok,
+    megakernel_refusal,
 )
 from apex_tpu_torch.serve.sampling import (  # noqa: F401
     SamplingConfig,

@@ -4,10 +4,10 @@
 Two halves:
 
 * **paged attention** — :func:`paged_attention_reference`, the plain
-  version (gather through the block tables, then ``attention_reference``
-  with a ``kpos >= ctx`` mask; ctx == 0 rows are zeros, as in the kernel),
-  and :func:`paged_attention_fwd`, the wrapper of the CUDA gather-attend
-  kernel ``csrc/paged_attention.cu``. :func:`paged_attention` takes the
+  version (gather through the block tables, dequantizing int8/int4 pools,
+  then ``attention_reference`` with a ``kpos >= ctx`` mask; ctx == 0 rows
+  are zeros, as in the kernel), and :func:`paged_attention_fwd`, the
+  wrapper of the CUDA gather-attend kernel ``csrc/paged_attention.cu``. :func:`paged_attention` takes the
   plain version for CPU tensors and the kernel for CUDA tensors.
 
 * **serve programs** — :func:`gpt_paged_forward` runs q tokens per slot
@@ -39,13 +39,14 @@ import torch.nn.functional as F
 from apex_tpu_torch.ops import _kernel_util as ku
 from apex_tpu_torch.ops.attention import attention_reference
 from apex_tpu_torch.ops.layer_norm import layer_norm
-from apex_tpu_torch.serve.kv_cache import KVCacheConfig, gather_kv, paged_write
+from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, _dequant_rows_int4,
+                                           gather_kv, paged_write)
 
 Params = Dict[str, Any]
 
 _SIGNATURES = {
-    "paged_attention_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "paged_attention_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 _HEAD_DIMS = (32, 64, 128)
 GEMM_ROW_TILE = 64
@@ -53,6 +54,14 @@ GEMM_ROW_TILE = 64
 
 # ---------------------------------------------------------------------------
 # Paged attention
+
+
+def _nibble_dequant(packed, s, group: int):
+    """int4 pool dequant: (.., bs, D/2) packed uint8 codes + (.., bs,
+    D/group) bf16 group scales -> (.., bs, D) fp32, code x scale. The plain
+    version of what the kernels do per 16-byte load (``Int4Pool`` in
+    ``csrc/paged_attend.cuh``)."""
+    return _dequant_rows_int4(packed, s, group, torch.float32)
 
 
 def paged_attention_reference(q, cache_layer, cfg: KVCacheConfig,
@@ -71,13 +80,52 @@ def paged_attention_reference(q, cache_layer, cfg: KVCacheConfig,
     return torch.where((ctx_lens > 0)[:, None, None], o, torch.zeros_like(o))
 
 
+def kv_mode(cfg: KVCacheConfig) -> int:
+    """The kernels' pool format code: 0 the model dtype, 1 int8 + fp32
+    scales, 2 int4 nibble pairs + bf16 group scales."""
+    if not cfg.quantized:
+        return 0
+    return 2 if cfg.bits == 4 else 1
+
+
+def check_pools(what: str, cache_layer, cfg: KVCacheConfig, device,
+                dtype) -> None:
+    """The kernels' pool rules: one layer's contiguous, 16-byte aligned
+    leaves on ``device`` of the shapes and types ``cfg`` gives (a
+    full-precision pool in ``dtype``, the model's)."""
+    kp = cache_layer["k"]
+    h, d, bs = cfg.num_heads, cfg.head_dim, cfg.block_size
+    blocks = kp.shape[1] if kp.dim() == 4 else -1
+    mode = kv_mode(cfg)
+    leaves = {"k": ((h, blocks, bs, d // 2 if mode == 2 else d),
+                    (dtype, torch.int8, torch.uint8)[mode])}
+    if mode == 1:
+        leaves["k_scale"] = ((h, blocks, bs), torch.float32)
+    elif mode == 2:
+        leaves["k_scale"] = ((h, blocks, bs, d // cfg.kv_group),
+                             torch.bfloat16)
+    for name, (shape, dt) in list(leaves.items()):
+        leaves[name.replace("k", "v", 1)] = (shape, dt)
+    for name, (shape, dt) in leaves.items():
+        pool = cache_layer.get(name)
+        if not (pool is not None and pool.device == device
+                and pool.dtype == dt and tuple(pool.shape) == shape
+                and pool.is_contiguous() and pool.data_ptr() % 16 == 0):
+            got = (None if pool is None
+                   else (pool.dtype, tuple(pool.shape), pool.device))
+            raise ValueError(f"{what}: pool {name} must be a contiguous "
+                             f"16-byte aligned {shape} {dt} tensor on "
+                             f"{device}, got {got}")
+
+
 def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
                         ctx_lens, scale: float):
     """Launch the paged-attention kernel on CUDA tensors. ``q`` (n, H, D)
-    contiguous; pools (H, B, bs, D) of q's dtype (fp32 or bf16);
-    ``block_tables`` (n, max_blocks) and ``ctx_lens`` (n,) integer. A
-    context longer than the row's blocks attends to the blocks it has."""
-    kp, vp = cache_layer["k"], cache_layer["v"]
+    contiguous, fp32 or bf16; one layer's pools as ``cfg`` lays them out
+    (full-precision pools in q's dtype; int8 codes + fp32 scales; int4
+    nibble pairs + bf16 group scales); ``block_tables`` (n, max_blocks) and
+    ``ctx_lens`` (n,) integer. A context longer than the row's blocks
+    attends to the blocks it has."""
     ku.require(q.is_cuda and q.dim() == 3,
                f"paged_attention_fwd takes a 3-d CUDA q, got {q.device} "
                f"{tuple(q.shape)}")
@@ -86,18 +134,13 @@ def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
                f"paged_attention_fwd takes fp32 or bf16, got {q.dtype}")
     ku.require(d in _HEAD_DIMS,
                f"paged_attention_fwd: head_dim {d} not in {_HEAD_DIMS}")
-    for name, pool in (("k", kp), ("v", vp)):
-        ku.require(pool.device == q.device and pool.dtype == q.dtype
-                   and pool.dim() == 4 and pool.shape[0] == h
-                   and pool.shape[2] == cfg.block_size
-                   and pool.shape[3] == d and pool.is_contiguous(),
-                   f"paged_attention_fwd: pool {name} must be a contiguous "
-                   f"({h}, B, {cfg.block_size}, {d}) {q.dtype} tensor on "
-                   f"{q.device}, got {pool.dtype} {tuple(pool.shape)}")
-    ku.require(kp.shape == vp.shape, "paged_attention_fwd: k/v pools differ")
-    ku.require(q.is_contiguous(), "paged_attention_fwd: q must be contiguous")
-    ku.require(all(t.data_ptr() % 16 == 0 for t in (q, kp, vp)),
-               "paged_attention_fwd: q and pools must be 16-byte aligned")
+    ku.require(h == cfg.num_heads and d == cfg.head_dim,
+               f"paged_attention_fwd: q ({h} heads x {d}) does not match "
+               f"the cache ({cfg.num_heads} x {cfg.head_dim})")
+    check_pools("paged_attention_fwd", cache_layer, cfg, q.device, q.dtype)
+    ku.require(q.is_contiguous() and q.data_ptr() % 16 == 0,
+               "paged_attention_fwd: q must be contiguous and 16-byte "
+               "aligned")
     ku.require(tuple(block_tables.shape[:1]) == (n,)
                and block_tables.dim() == 2
                and tuple(ctx_lens.shape) == (n,),
@@ -110,12 +153,16 @@ def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
     bt = block_tables.to(torch.int32).contiguous()
     lens = ctx_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    kp, vp = cache_layer["k"], cache_layer["v"]
+    ks, vs = cache_layer.get("k_scale"), cache_layer.get("v_scale")
     lib = ku.load_kernel("paged_attention", _SIGNATURES)
     status = lib.paged_attention_fwd(
         q.device.index, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-        bt.data_ptr(), lens.data_ptr(), out.data_ptr(), n, h, d, kp.shape[1],
-        cfg.block_size, bt.shape[1], float(scale),
-        int(q.dtype == torch.bfloat16), ku.stream_handle(q))
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), bt.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), n, h, d, kp.shape[1],
+        cfg.block_size, bt.shape[1], kv_mode(cfg), cfg.kv_group,
+        float(scale), int(q.dtype == torch.bfloat16), ku.stream_handle(q))
     ku.count_launch("paged_attention_fwd")
     ku.check_status(lib, status, "paged_attention_fwd")
     return out
@@ -226,7 +273,7 @@ def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
     valid_flat = valid.reshape(-1)
     for li in range(cfg.num_layers):
         lp = {name: t[li] for name, t in layers.items()}
-        cl = {"k": cache["k"][li], "v": cache["v"][li]}
+        cl = {name: pool[li] for name, pool in cache.items()}
         h1 = layer_norm(x, lp["ln1_w"], lp["ln1_b"])
         qkv = _dense(h1, lp["qkv_kernel"], lp["qkv_bias"])
         qh, k, v = _split_qkv(qkv, heads, hd)                  # (n,q,H,D)

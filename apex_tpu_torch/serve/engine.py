@@ -23,9 +23,16 @@ numpy with cached device copies, re-uploaded only after a host change
 (through pinned memory, without a sync). The one sync per step is the
 copy of the sampled tokens back to the host.
 
-Outside this slice: int8/int4 KV, the fused megakernel, LoRA adapters,
-plan-sharded serving (``ServeConfig`` raises ``NotImplementedError`` for
-each), and the ``monitor`` telemetry (events, histograms, SLOs, metering):
+The decode and verify calls run the fused per-layer kernel
+(``serve.megakernel``) when ``ServeConfig.megakernel`` resolves to it — the
+default ``"auto"`` does on a CUDA engine whose shape the kernel takes, as
+JAX's does on its compiled backend — else the per-op programs of
+``serve.decode``; prefill chunks always take the per-op program.
+``kv_quant="int8"|"int4"`` keeps the pools in the ``comm.quantize`` codec.
+
+Outside this slice: LoRA adapters and plan-sharded serving
+(``ServeConfig`` raises ``NotImplementedError`` for each), and the
+``monitor`` telemetry (events, histograms, SLOs, metering):
 :meth:`InferenceEngine.stats` reports counts and numpy quantiles instead.
 """
 
@@ -47,6 +54,12 @@ from apex_tpu_torch.serve.decode import (
     gpt_verify_step,
 )
 from apex_tpu_torch.serve.drafter import Drafter, NGramDrafter
+from apex_tpu_torch.serve.megakernel import (
+    gpt_decode_step_fused,
+    gpt_verify_step_fused,
+    megakernel_refusal,
+    warn_megakernel_fallback,
+)
 from apex_tpu_torch.serve.kv_cache import (
     BlockAllocator,
     KVCacheConfig,
@@ -77,9 +90,16 @@ class Request:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Engine shape knobs. The quantized-KV, megakernel, LoRA and plan
-    fields exist so a JAX config reads the same; their non-default values
-    raise ``NotImplementedError`` until their slice is ported."""
+    """Engine shape knobs, JAX's fields and defaults. ``megakernel``:
+    ``"auto"`` runs decode and verify through the fused per-layer kernel on
+    a CUDA engine when the shape allows it (else the per-op path, with a
+    warning logged once per reason) and the per-op path on a CPU engine;
+    ``"on"`` forces the fused layer (its plain version on the CPU) and
+    raises with the reason on an unsupported shape; ``"off"`` keeps the
+    per-op path. ``kv_quant``: ``"none"``, ``"int8"`` or ``"int4"`` pools
+    (``kv_group``: int4 scale-group length). The LoRA and plan fields
+    exist so a JAX config reads the same; their non-default values raise
+    ``NotImplementedError`` until their slice is ported."""
 
     num_slots: int = 4
     block_size: int = 16
@@ -91,7 +111,6 @@ class ServeConfig:
     # draft up to spec_k tokens per slot per step; 0 disables
     spec_k: int = 0
     spec_ngram: int = 3
-    # "auto" resolves to the per-op path (the only one ported)
     megakernel: str = "auto"
     max_context: Optional[int] = None  # default: model cfg.max_seq
     eos_id: Optional[int] = None
@@ -128,15 +147,6 @@ class ServeConfig:
             raise ValueError("kv_group only applies to kv_quant='int4'")
         if self.lora_rank < 0 or self.max_adapters < 0:
             raise ValueError("lora_rank and max_adapters must be >= 0")
-        if self.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={self.kv_quant!r} is not ported yet: the int8/int4 "
-                f"KV codec and the paged kernel's dequant branches are "
-                f"ROADMAP §A item 2")
-        if self.megakernel == "on":
-            raise NotImplementedError(
-                "megakernel='on' is not ported yet: the fused layer block "
-                "is ROADMAP §A item 3 (use 'auto' or 'off')")
         if self.lora_rank > 0 or self.max_adapters > 0:
             raise NotImplementedError(
                 "LoRA adapters (lora_rank > 0) are not ported yet: "
@@ -216,7 +226,9 @@ class InferenceEngine:
         self.kv_cfg = KVCacheConfig(
             num_layers=cfg.num_layers, num_heads=cfg.num_heads,
             head_dim=cfg.head_dim, num_blocks=num_blocks, block_size=bs,
-            dtype=cfg.dtype)
+            dtype=cfg.dtype, quantized=scfg.kv_quant != "none",
+            bits=4 if scfg.kv_quant == "int4" else 8,
+            group_size=scfg.kv_group)
         self.allocator = BlockAllocator(num_blocks,
                                         prefix_cache=scfg.prefix_cache)
         self.cache = init_kv_cache(self.kv_cfg, self.device)
@@ -263,12 +275,58 @@ class InferenceEngine:
         self._spec_accepted = 0
         self._verify_steps = 0
         self._decode_steps = 0
+        self._megakernel = self._resolve_megakernel()
+
+    def _resolve_megakernel(self) -> bool:
+        """``ServeConfig.megakernel`` -> whether the decode AND verify calls
+        run the fused layer, gated on the verify call's spec_k + 1 rows per
+        slot so speculation never flips the choice. ``auto`` needs the
+        kernel itself (a CUDA engine): on a CUDA engine it falls back to the
+        per-op path only with a reason, logged once; on the CPU it means
+        per-op. ``on`` raises with the reason on an unsupported shape."""
+        mode = self.serve_cfg.megakernel
+        if mode == "off":
+            return False
+        cuda = self.device.type == "cuda"
+        if mode == "auto" and not cuda:
+            return False
+        reason = megakernel_refusal(
+            self.cfg, self.kv_cfg, allow_interpret=not cuda,
+            q=self.serve_cfg.spec_k + 1, slots=self.serve_cfg.num_slots)
+        if mode == "on":
+            if reason is not None:
+                raise ValueError(
+                    f"megakernel='on' but the fused decode layer does not "
+                    f"support this configuration: {reason} — use "
+                    f"megakernel='off'/'auto'")
+            return True
+        if reason is not None:
+            warn_megakernel_fallback(reason)
+            return False
+        return True
+
+    @property
+    def megakernel_enabled(self) -> bool:
+        """Whether decode and verify run the fused per-layer kernel."""
+        return self._megakernel
 
     @property
     def decode_kernel(self) -> str:
-        """``cuda`` (the paged-attention and LayerNorm kernels) on a CUDA
-        engine, ``plain`` (their PyTorch versions) on the CPU."""
+        """The decode path this engine runs: ``fused`` (the per-layer
+        megakernel, or its plain version on the CPU), else the per-op
+        path's ``cuda`` (the paged-attention and LayerNorm kernels) on a
+        CUDA engine or ``plain`` (their PyTorch versions) on the CPU."""
+        if self._megakernel:
+            return "fused"
         return "cuda" if self.device.type == "cuda" else "plain"
+
+    @property
+    def verify_kernel(self) -> Optional[str]:
+        """The speculative verify path: ``None`` when ``spec_k == 0``, else
+        :attr:`decode_kernel` (one flag drives both calls)."""
+        if self.serve_cfg.spec_k <= 0:
+            return None
+        return self.decode_kernel
 
     # -- device copies -----------------------------------------------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -504,7 +562,8 @@ class InferenceEngine:
 
     # -- stepping ----------------------------------------------------------
     def _decode(self) -> torch.Tensor:
-        self.cache, logits = gpt_decode_step(
+        step = gpt_decode_step_fused if self._megakernel else gpt_decode_step
+        self.cache, logits = step(
             self.params, self._dev("last_tokens"), self._dev("seq_lens"),
             self._dev("active"), self.cache, self._dev("block_tables"),
             self.cfg, self.kv_cfg)
@@ -521,7 +580,8 @@ class InferenceEngine:
             fed[i, 1:1 + len(d)] = d
             n_fed[i] = 1 + len(d)
         seq_lens = self._dev("seq_lens")
-        self.cache, logits = gpt_verify_step(
+        step = gpt_verify_step_fused if self._megakernel else gpt_verify_step
+        self.cache, logits = step(
             self.params, self._upload(fed), seq_lens, self._upload(n_fed),
             self._dev("active"), self.cache, self._dev("block_tables"),
             self.cfg, self.kv_cfg)
@@ -648,8 +708,14 @@ class InferenceEngine:
             "queue_depth": len(self._pending),
             "occupancy": self.occupancy(),
             "device": str(self.device),
+            "megakernel": self._megakernel,
             "decode_kernel": self.decode_kernel,
+            "verify_kernel": self.verify_kernel,
+            "kv_bits": (self.kv_cfg.bits if self.kv_cfg.quantized else
+                        8 * torch.empty((), dtype=self.kv_cfg.dtype)
+                        .element_size()),
             "kv_cache_bytes": kv_cache_bytes(self.kv_cfg),
+            "contexts_max": self.kv_cfg.tokens_capacity // self.max_context,
         }
         out["tokens_per_s"] = self.throughput()
         for name, vals in (("ttft_ms", self._ttft_ms),

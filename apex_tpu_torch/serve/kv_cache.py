@@ -1,10 +1,13 @@
-"""Block-paged KV cache (counterpart of ``apex_tpu/serve/kv_cache.py``),
-full-precision pools only; the int8/int4 codec comes with the quantized
-KV slice.
+"""Block-paged KV cache (counterpart of ``apex_tpu/serve/kv_cache.py``).
 
 * the pools are one dict ``{"k", "v"}`` of ``(L, H, num_blocks + 1,
   block_size, head_dim)`` tensors, allocated once per engine and updated
   IN PLACE by the serve programs (where the JAX programs donated them);
+* quantized pools (``KVCacheConfig.quantized``) hold codes of the
+  ``comm.quantize`` codec at codec-block = head_dim: int8 codes + one fp32
+  scale per (head, token) vector (``bits=8``), or nibble-packed int4 codes
+  (last dim ``head_dim // 2``) + one bf16 scale per ``kv_group`` channels
+  (``bits=4``), under ``"k_scale"`` / ``"v_scale"``;
 * the one extra trailing block is the **trash block**: a write that the
   JAX code dropped with ``.at[...].set(mode="drop")`` (inactive slot,
   padded position) is sent there instead, because PyTorch has no drop
@@ -25,12 +28,20 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
+from apex_tpu_torch.comm.quantize import (QMAX4, divide, pack_int4,
+                                          quantize_blockwise, unpack_int4)
 
 
 @dataclasses.dataclass(frozen=True)
 class KVCacheConfig:
     """Static shape/layout of the paged pools. ``num_blocks`` is the number
-    of allocatable blocks (the pools hold one more: the trash block)."""
+    of allocatable blocks (the pools hold one more: the trash block).
+
+    ``quantized=True, bits=8``: int8 codes + one fp32 scale per (head,
+    token) head_dim vector. ``bits=4``: codes nibble-packed two per byte
+    and group-quantized along head_dim with one bf16 scale per
+    ``group_size`` channels (default: the whole vector, half the int8
+    pool's bytes). ``dtype`` is the model's: what reads dequantize to."""
 
     num_layers: int
     num_heads: int
@@ -38,6 +49,22 @@ class KVCacheConfig:
     num_blocks: int
     block_size: int = 16
     dtype: torch.dtype = torch.bfloat16
+    quantized: bool = False
+    bits: int = 8
+    # int4 scale-group length along head_dim; None -> head_dim
+    group_size: Optional[int] = None
+
+    @property
+    def tokens_capacity(self) -> int:
+        return self.num_blocks * self.block_size
+
+    @property
+    def kv_group(self) -> int:
+        """Effective scale-group length along head_dim (the full vector
+        unless int4 ``group_size`` narrows it)."""
+        if self.bits == 8 or self.group_size is None:
+            return self.head_dim
+        return self.group_size
 
     def blocks_for_tokens(self, n_tokens: int) -> int:
         """Blocks needed to hold ``n_tokens`` (ceil)."""
@@ -48,22 +75,91 @@ class KVCacheConfig:
                      "block_size"):
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be positive")
+        if self.bits not in (4, 8):
+            raise ValueError(f"bits must be 4 or 8, got {self.bits}")
+        if self.group_size is not None and self.bits == 8:
+            raise ValueError("group_size only applies to the int4 mode "
+                             "(int8 scales one full head_dim vector)")
+        if self.quantized and self.bits == 4:
+            g = self.kv_group
+            if self.head_dim % 2:
+                raise ValueError(
+                    f"int4 KV needs an even head_dim (nibble packing): "
+                    f"{self.head_dim}")
+            if g % 2 or g <= 0 or self.head_dim % g:
+                raise ValueError(
+                    f"int4 KV group_size must be even and divide head_dim "
+                    f"({self.head_dim}): got {g}")
 
 
 def init_kv_cache(cfg: KVCacheConfig, device: DeviceLike = None
                   ) -> Dict[str, torch.Tensor]:
-    """Zeroed pools ``{"k", "v"}``, each (L, H, num_blocks + 1, bs, D) on
-    ``device`` (default ``cuda``)."""
+    """Zeroed pools ``{"k", "v"}`` (+ ``{"k_scale", "v_scale"}``, ones, when
+    quantized), each (L, H, num_blocks + 1, bs, ...) on ``device`` (default
+    ``cuda``): (..., D) of ``cfg.dtype``; int8 codes (..., D) + fp32 scales
+    (L, H, B + 1, bs); int4 uint8 codes (..., D/2) + bf16 scales (...,
+    D/group)."""
     cfg.validate()
     dev = resolve_device(device)
-    shape = (cfg.num_layers, cfg.num_heads, cfg.num_blocks + 1,
-             cfg.block_size, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    lead = (cfg.num_layers, cfg.num_heads, cfg.num_blocks + 1,
+            cfg.block_size)
+    d = cfg.head_dim
+    if cfg.quantized and cfg.bits == 4:
+        codes, cdt = lead + (d // 2,), torch.uint8
+        scales, sdt = lead + (d // cfg.kv_group,), torch.bfloat16
+    elif cfg.quantized:
+        codes, cdt = lead + (d,), torch.int8
+        scales, sdt = lead, torch.float32
+    else:
+        shape = lead + (d,)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    # scale 1 keeps the dequantized never-written codes (0) well defined
+    return {"k": torch.zeros(codes, dtype=cdt, device=dev),
+            "v": torch.zeros(codes, dtype=cdt, device=dev),
+            "k_scale": torch.ones(scales, dtype=sdt, device=dev),
+            "v_scale": torch.ones(scales, dtype=sdt, device=dev)}
+
+
+def _quant_rows(x):
+    """(..., head_dim) vectors -> int8 codes of the same shape + one fp32
+    scale per vector: the ``comm.quantize`` codec at codec-block =
+    head_dim, round-to-nearest."""
+    d = x.shape[-1]
+    q, s = quantize_blockwise(x.float().reshape(-1), d)
+    return q.reshape(x.shape), s.reshape(x.shape[:-1])
+
+
+def _dequant_rows(q, s, dtype):
+    return (q.float() * s[..., None]).to(dtype)
+
+
+def _quant_rows_int4(x, group: int):
+    """(..., head_dim) vectors -> (packed uint8 codes (..., head_dim/2),
+    bf16 scales (..., head_dim/group)): absmax/7 per group with the scale
+    ROUNDED TO bf16 FIRST and the codes computed against that stored value
+    (round-to-nearest, ±7 clip, nibble pack)."""
+    d = x.shape[-1]
+    g = x.float().reshape(*x.shape[:-1], d // group, group)
+    amax = g.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, divide(amax, QMAX4),
+                        torch.ones_like(amax)).to(torch.bfloat16)
+    q = torch.clamp(torch.round(g / scale.float()[..., None]), -QMAX4, QMAX4)
+    return pack_int4(q.to(torch.int8).reshape(x.shape)), scale
+
+
+def _dequant_rows_int4(q, s, group: int, dtype):
+    """Inverse of :func:`_quant_rows_int4`: unpack nibbles, scale per
+    group, restore (..., head_dim)."""
+    codes = unpack_int4(q)
+    d = codes.shape[-1]
+    g = codes.reshape(*codes.shape[:-1], d // group, group)
+    out = g.float() * s.float()[..., None]
+    return out.reshape(codes.shape).to(dtype)
 
 
 def _pool_write(pool, values, block_ids, offsets, valid) -> None:
-    """Scatter ``values`` (H, n, D) into ``pool`` (H, B + 1, bs, D) at
+    """Scatter ``values`` (H, n, ...) into ``pool`` (H, B + 1, bs, ...) at
     ``(block_ids[i], offsets[i])`` in place; rows with ``valid[i] == False``
     land in the trash block (the last one)."""
     trash = pool.shape[1] - 1
@@ -76,9 +172,10 @@ def paged_write(cache_layer: Dict[str, torch.Tensor], cfg: KVCacheConfig,
                 ) -> Dict[str, torch.Tensor]:
     """Write per-token K/V into one layer's pools, in place.
 
-    ``cache_layer``: ``{"k": (H, B + 1, bs, D), "v": ...}`` (views into the
-    stacked pools). ``k_new``/``v_new``: (H, n, D). ``block_rows``: (n,
-    max_blocks) block-table rows owning each token. ``positions``: (n,)
+    ``cache_layer``: ``{"k": (H, B + 1, bs, D), "v": ...}`` (+ the scale
+    pools when quantized; views into the stacked pools). ``k_new``/
+    ``v_new``: (H, n, D), quantized here through the codec. ``block_rows``:
+    (n, max_blocks) block-table rows owning each token. ``positions``: (n,)
     logical positions. ``valid``: (n,) bool — False rows (inactive slots,
     padding) and positions past the row's blocks are not written.
     Returns ``cache_layer``.
@@ -92,8 +189,18 @@ def paged_write(cache_layer: Dict[str, torch.Tensor], cfg: KVCacheConfig,
     block_ids = torch.gather(block_rows.long(), 1, col[:, None])[:, 0]
     offsets = positions % bs
     valid = valid & (positions < mb * bs)
-    _pool_write(cache_layer["k"], k_new, block_ids, offsets, valid)
-    _pool_write(cache_layer["v"], v_new, block_ids, offsets, valid)
+    if not cfg.quantized:
+        _pool_write(cache_layer["k"], k_new, block_ids, offsets, valid)
+        _pool_write(cache_layer["v"], v_new, block_ids, offsets, valid)
+        return cache_layer
+    for name, x in (("k", k_new), ("v", v_new)):
+        if cfg.bits == 4:
+            codes, scales = _quant_rows_int4(x, cfg.kv_group)
+        else:
+            codes, scales = _quant_rows(x)
+        _pool_write(cache_layer[name], codes, block_ids, offsets, valid)
+        _pool_write(cache_layer[name + "_scale"], scales, block_ids, offsets,
+                    valid)
     return cache_layer
 
 
@@ -101,22 +208,32 @@ def gather_kv(cache_layer: Dict[str, torch.Tensor], cfg: KVCacheConfig,
               block_tables):
     """Contiguous K/V through the block tables: ``block_tables`` (n,
     max_blocks) -> ``(k, v)`` each (n, H, max_blocks*block_size, D) in
-    ``cfg.dtype``. Positions never written come back as whatever the pool
-    holds and must be masked by the caller's context lengths."""
+    ``cfg.dtype``, dequantized when the pools are quantized. Positions
+    never written come back as whatever the pool holds and must be masked
+    by the caller's context lengths."""
     bt = block_tables.long()
 
     def grab(pool):
-        g = pool[:, bt]                       # (H, n, mb, bs, D)
+        g = pool[:, bt]                       # (H, n, mb, bs[, ...])
         h, n, mb, bs = g.shape[:4]
-        return g.permute(1, 0, 2, 3, 4).reshape(n, h, mb * bs, g.shape[4])
+        perm = (1, 0, 2, 3) + tuple(range(4, g.dim()))
+        return g.permute(perm).reshape(n, h, mb * bs, *g.shape[4:])
 
     k, v = grab(cache_layer["k"]), grab(cache_layer["v"])
+    if cfg.quantized and cfg.bits == 4:
+        ks, vs = grab(cache_layer["k_scale"]), grab(cache_layer["v_scale"])
+        return (_dequant_rows_int4(k, ks, cfg.kv_group, cfg.dtype),
+                _dequant_rows_int4(v, vs, cfg.kv_group, cfg.dtype))
+    if cfg.quantized:
+        return (_dequant_rows(k, grab(cache_layer["k_scale"]), cfg.dtype),
+                _dequant_rows(v, grab(cache_layer["v_scale"]), cfg.dtype))
     return k.to(cfg.dtype), v.to(cfg.dtype)
 
 
 def copy_block(cache: Dict[str, torch.Tensor], src: int, dst: int
                ) -> Dict[str, torch.Tensor]:
-    """Copy pool block ``src`` -> ``dst`` across every layer, in place —
+    """Copy pool block ``src`` -> ``dst`` across every layer and pool leaf
+    (codes and scales when quantized), in place —
     the device half of copy-on-write (the sharers' block is never
     mutated). Returns ``cache``."""
     for pool in cache.values():
@@ -291,6 +408,11 @@ class BlockAllocator:
 
 
 def _elem_bytes(cfg: KVCacheConfig) -> float:
+    """Bytes per cached K or V element, scale overhead amortized in."""
+    if cfg.quantized and cfg.bits == 4:
+        return 0.5 + 2.0 / cfg.kv_group  # nibble code + bf16 group scale
+    if cfg.quantized:
+        return 1.0 + 4.0 / cfg.head_dim  # int8 code + fp32 vector scale
     return float(torch.empty((), dtype=cfg.dtype).element_size())
 
 

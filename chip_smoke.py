@@ -11,8 +11,15 @@
    fp32 and bf16, with the tolerance stated; times of kernel, plain version
    and the nearest library call, and each kernel's bound:
    * LayerNorm forward and paged attention at the serving path's shapes
-     (``F.layer_norm``; SDPA over pre-gathered K/V), and LayerNorm forward
-     with its mean/rstd at the training path's (8192, 768);
+     (``F.layer_norm``; SDPA over pre-gathered K/V), paged attention also
+     over int8 and int4 pools, and LayerNorm forward with its mean/rstd
+     at the training path's (8192, 768);
+   * the fused layer (the megakernel) for one GPT-2-124M layer, decode (8
+     rows) and verify (8 x 5 rows), fp32 and bf16, fp / int8 / int4
+     pools: x', K, V and fp pools within tolerance of its plain version,
+     quantized codes and scales equal to the plain codec's write of its
+     K/V, two launches bitwise equal; timed beside the plain version and
+     the per-op layer (no single PyTorch call computes a layer);
    * LayerNorm backward at the flagship training shape (8192, 768), with a
      bitwise repeat check of dW/dB (autograd through ``F.layer_norm``);
    * flash attention forward, dQ and dK/dV at the flagship shape (96,
@@ -27,16 +34,23 @@
      modes, the LAMB sums with a bitwise repeat, and the step's 16
      launches timed (``torch.optim.AdamW(fused=True).step()``).
 3. Engine phase: GPT-2-124M at full width (random weights from a numpy
-   seed), ``ServeConfig(num_slots=8, prefill_chunk=32)``, 16 requests of
-   64-512 prompt tokens (several sharing a 64-token prefix, one exactly
-   that prefix) generating 32 tokens greedily:
-   * fp32 through the kernels vs fp32 with the plain versions forced:
-     equal streams, and logits that agree on a small input;
+   seed), ``ServeConfig(num_slots=8, prefill_chunk=32)`` — whose default
+   ``megakernel="auto"`` runs decode and verify through the fused layer —
+   16 requests of 64-512 prompt tokens (several sharing a 64-token
+   prefix, one exactly that prefix) generating 32 tokens greedily:
+   * fp32 through the kernels vs fp32 with the plain versions forced,
+     fused vs per-op (``megakernel="off"``), and fused vs per-op with
+     int8 and int4 pools on 6 requests: equal streams (the first
+     mismatch and its top-2 logit gap reported otherwise), and logits
+     that agree on a small input;
    * bf16 with ``spec_k=0`` (the serving main path: launch counts are
      reset just before it and read just after) and with ``spec_k=4``:
-     equal streams;
-   * where a steady-state bf16 step's time goes (torch.profiler): the
-     card's busy share and the top kernels.
+     equal streams; the launches of one decode and one verify call
+     (megakernel 12, LayerNorm 1, no paged attention); int8 and int4
+     pools with ``spec_k`` 0 and 4 (equal streams, tokens/s, pool bytes);
+     the per-op path with its launches;
+   * where a steady-state bf16 step's time goes (torch.profiler), fused
+     and per-op: the card's busy share and the top kernels.
 4. Train phase: GPT-2-124M at full width and depth, full remat, the JAX
    defaults ``fused_loss=True`` and ``FusedAdam(lr=1e-4,
    fused_tail="auto")``:
@@ -77,6 +91,8 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 KERNEL_ITERS = 50
 SLEEP_CYCLES_PER_S = 2.0e9         # above the H100's SM clock: sleeps long
 TRAIN_ROWS = 8 * 1024              # b·s of the training main path
+KV_MODES = {"none": {}, "int8": dict(quantized=True, bits=8),
+            "int4": dict(quantized=True, bits=4)}
 
 
 def _fail(msg: str) -> int:
@@ -263,48 +279,102 @@ def layer_norm_phase(torch, dev):
     return cases
 
 
+def quant_pools(torch, dev, cfg, bt, seed):
+    """One layer's pools for ``cfg`` with every position of every row's
+    blocks written through the plain codec (``paged_write``) from random
+    K/V, made on the card."""
+    from apex_tpu_torch.serve.kv_cache import init_kv_cache, paged_write
+
+    n, mb = bt.shape
+    bs, heads, hd = cfg.block_size, cfg.num_heads, cfg.head_dim
+    layer = {k: v[0] for k, v in init_kv_cache(cfg, dev).items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.arange(mb * bs, device=dev).repeat(n)
+    k, v = (torch.randn(heads, n * mb * bs, hd, device=dev, generator=gen)
+            .to(cfg.dtype) for _ in range(2))
+    paged_write(layer, cfg, k, v, bt.repeat_interleave(mb * bs, dim=0), pos,
+                torch.ones_like(pos, dtype=torch.bool))
+    return layer
+
+
+SERVE_HEADS, SERVE_HD, SERVE_BS, SERVE_CTX = 12, 64, 16, 1024
+
+
+def paged_draws():
+    """The serving shapes' contexts and block tables, keyed (dtype name,
+    rows), drawn from numpy seed 0 in one fixed order: per row count, an
+    idle row (ctx 0), a full row (1024) and the rest uniform."""
+    import numpy as np
+
+    mb = SERVE_CTX // SERVE_BS
+    rng = np.random.default_rng(0)
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        for n in (8, 32):
+            ctx = rng.integers(1, SERVE_CTX + 1, n)
+            ctx[0] = 0
+            ctx[1] = SERVE_CTX
+            bt = rng.permutation(n * mb).reshape(n, mb).astype(np.int32)
+            out[(dname, n)] = (ctx, bt)
+    return out
+
+
 def paged_attention_phase(torch, dev):
+    """The paged kernel against its plain version at the serving path's
+    shapes (12 heads of 64, block 16, contexts up to 1024, a ctx == 0 row
+    and a full row): full-precision pools at 8 and 32 rows, int8 and int4
+    pools (codes written through the plain codec) at 8 rows, fp32 and
+    bf16 q. The plain version dequantizes into the model dtype (JAX's
+    gather) where the kernel stays fp32, so bf16 with quantized pools is
+    held at atol 1e-2. Bound: live·H·D·2·elem_bytes (1 + 4/D for int8, 0.5
+    + 2/D for int4 at group D) + q and out + tables."""
     import numpy as np
     import torch.nn.functional as F
 
     from apex_tpu_torch.serve.decode import (paged_attention_fwd,
                                              paged_attention_reference)
-    from apex_tpu_torch.serve.kv_cache import KVCacheConfig, gather_kv
+    from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, _elem_bytes,
+                                               gather_kv)
 
-    heads, hd, bs, max_ctx = 12, 64, 16, 1024
+    heads, hd, bs, max_ctx = SERVE_HEADS, SERVE_HD, SERVE_BS, SERVE_CTX
     mb = max_ctx // bs
     scale = 1.0 / math.sqrt(hd)
     tol = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 8e-3)}
-    rng = np.random.default_rng(0)
+    quant_tol = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 8e-3)}
+    draws = paged_draws()
     gen = torch.Generator(device=dev).manual_seed(1)
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        for n in (8, 32):
+        for mode, n in (("none", 8), ("none", 32), ("int8", 8),
+                        ("int4", 8)):
             blocks = n * mb
             cfg = KVCacheConfig(num_layers=1, num_heads=heads, head_dim=hd,
-                                num_blocks=blocks, block_size=bs, dtype=dt)
-            ctx = rng.integers(1, max_ctx + 1, n)
-            ctx[0] = 0                  # an idle row: zeros
-            ctx[1] = max_ctx            # a full row
-            bt = rng.permutation(blocks).reshape(n, mb).astype(np.int32)
-            pools = {k: torch.randn(heads, blocks + 1, bs, hd, device=dev,
-                                    generator=gen).to(dt) for k in "kv"}
-            q = torch.randn(n, heads, hd, device=dev, generator=gen).to(dt)
+                                num_blocks=blocks, block_size=bs, dtype=dt,
+                                **KV_MODES[mode])
+            ctx, bt = draws[(dname, n)]
             bt_t = torch.from_numpy(bt).to(dev)
+            if mode == "none":
+                pools = {k: torch.randn(heads, blocks + 1, bs, hd,
+                                        device=dev, generator=gen).to(dt)
+                         for k in "kv"}
+            else:
+                pools = quant_pools(torch, dev, cfg, bt_t, seed=n)
+            q = torch.randn(n, heads, hd, device=dev, generator=gen).to(dt)
             ctx_t = torch.from_numpy(ctx.astype(np.int32)).to(dev)
             got = paged_attention_fwd(q, pools, cfg, bt_t, ctx_t, scale)
             want = paged_attention_reference(q, pools, cfg, bt_t, ctx_t,
                                              scale=scale)
             torch.cuda.synchronize()
-            atol, rtol = tol[dname]
-            err = check_close(f"paged_attention_fwd {dname} n={n}", got,
-                              want, atol, rtol)
+            atol, rtol = (tol if mode == "none" else quant_tol)[dname]
+            err = check_close(f"paged_attention_fwd {mode} {dname} n={n}",
+                              got, want, atol, rtol)
             if bool(got[0].abs().max() != 0):
                 raise AssertionError("paged_attention_fwd: ctx == 0 row is "
                                      "not zeros")
-            # library yardstick: SDPA over K/V gathered beforehand
+            # library yardstick: SDPA over K/V gathered (and dequantized)
+            # beforehand
             k_all, v_all = gather_kv(pools, cfg, bt_t)
             kpos = torch.arange(max_ctx, device=dev)
             keep = (kpos[None, None, None, :] < ctx_t[:, None, None, None])
@@ -312,12 +382,14 @@ def paged_attention_phase(torch, dev):
             esz = q.element_size()
             live = int(ctx.sum())
             bms, by = bound_ms(
-                live * heads * hd * 2 * esz + 2 * n * heads * hd * esz
-                + n * mb * 4 + n * 4, 4.0 * live * heads * hd, dname)
+                live * heads * hd * 2 * _elem_bytes(cfg)
+                + 2 * n * heads * hd * esz + n * mb * 4 + n * 4,
+                4.0 * live * heads * hd, dname)
             cases.append({
-                "dtype": dname, "rows": n, "heads": heads, "head_dim": hd,
-                "block_size": bs, "ctx_sum": live, "ctx_max": int(ctx.max()),
-                "max_abs_err": err, "atol": atol, "rtol": rtol,
+                "dtype": dname, "kv": mode, "rows": n, "heads": heads,
+                "head_dim": hd, "block_size": bs, "ctx_sum": live,
+                "ctx_max": int(ctx.max()), "max_abs_err": err,
+                "atol": atol, "rtol": rtol,
                 "ms": time_ms(torch, lambda: paged_attention_fwd(
                     q, pools, cfg, bt_t, ctx_t, scale),
                     flush=flush_buf.zero_),
@@ -726,6 +798,196 @@ def adam_tail_phase(torch, dev):
     return out
 
 
+# the fused layer's tolerances against its plain version (x'): fp32 sums
+# in another order (fp pools); with quantized pools a fed row's code can
+# flip where the two fp32 K values straddle a rounding midpoint (one code
+# step of one score); bf16 one rounding of x' and of its intermediates
+MEGA_TOL = {("float32", False): (1e-4, 1e-4), ("float32", True): (2e-3, 1e-3),
+            ("bfloat16", False): (2e-2, 2 ** -6),
+            ("bfloat16", True): (2e-2, 2 ** -6)}
+MEGA_KV_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 2 ** -7)}
+def megakernel_case(torch, dev, dtype, mode, q):
+    """One GPT-2-124M layer (weights from numpy seed 0, biases and LN
+    weights perturbed so every vector shows), 8 slots holding the paged
+    phase's bf16 contexts (slot 0 idle, slot 1 full: its verify rows run
+    past its blocks), fed rows at the end of each context (decode q=1,
+    verify q=5, every row real)."""
+    import numpy as np
+
+    from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, init_kv_cache,
+                                               paged_write)
+    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+
+    cfg = GPTConfig(num_layers=1, dtype=dtype)
+    n, bs, max_ctx = 8, SERVE_BS, SERVE_CTX
+    mb = max_ctx // bs
+    heads, hd, h = cfg.num_heads, cfg.head_dim, cfg.hidden
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lp = {}
+    for name, t in init_gpt_params(cfg, seed=0, device=dev)["layers"].items():
+        t = t[0].float()
+        if t.dim() == 1:
+            t = t + 0.1 * torch.randn(t.shape, device=dev, generator=gen)
+        lp[name] = t.to(dtype).contiguous()
+    kv = KVCacheConfig(num_layers=1, num_heads=heads, head_dim=hd,
+                       num_blocks=n * mb, block_size=bs, dtype=dtype,
+                       **KV_MODES[mode])
+    ctx, bt = paged_draws()[("bfloat16", n)]
+    bt = torch.from_numpy(bt).to(dev)
+    start = torch.from_numpy(np.maximum(ctx - 1, 0).astype(np.int32)).to(dev)
+    active = torch.from_numpy(ctx > 0).to(dev)
+    layer = {k: v[0] for k, v in init_kv_cache(kv, dev).items()}
+    pos = torch.arange(mb * bs, device=dev).repeat(n)
+    old = pos < start.long().repeat_interleave(mb * bs)
+    k, v = (torch.randn(heads, n * mb * bs, hd, device=dev, generator=gen)
+            .to(dtype) for _ in range(2))
+    paged_write(layer, kv, k, v, bt.repeat_interleave(mb * bs, dim=0), pos,
+                old)
+    x = torch.randn(n, q, h, device=dev, generator=gen).to(dtype)
+    n_fed = torch.full((n,), q, dtype=torch.int32, device=dev)
+    return cfg, kv, lp, layer, x, bt, start, n_fed, active
+
+
+def megakernel_bound(cfg, kv, start, active, q, dname):
+    """Least time of one fused layer: the layer's weights and vectors read
+    once, each slot's attended pool positions read once (whole blocks, as
+    the serving byte model counts), the fed rows' K/V written, x read and
+    x', K, V written; operations 2·rows per weight element plus 4 per
+    attended K/V element pair, at the dtype's peak."""
+    from apex_tpu_torch.serve.kv_cache import _elem_bytes
+    from apex_tpu_torch.serve.megakernel import layer_weight_bytes
+
+    h, f, heads, hd = cfg.hidden, cfg.ffn_hidden, cfg.num_heads, cfg.head_dim
+    cap = kv.num_blocks // start.shape[0] * kv.block_size
+    esz = 2 if dname == "bfloat16" else 4
+    rows = start.shape[0] * q
+    read_tok, written, att = 0, 0, 0
+    for s, a in zip(start.tolist(), active.tolist()):
+        if not a:
+            continue
+        last = min(s + q, cap)                    # positions attended
+        read_tok += -(-last // kv.block_size) * kv.block_size
+        written += max(0, min(s + q, cap) - s)
+        att += sum(min(s + w + 1, cap) for w in range(q))
+    elem = _elem_bytes(kv)
+    bytes_moved = (layer_weight_bytes(cfg) + read_tok * heads * hd * 2 * elem
+                   + written * heads * hd * 2 * elem + 4 * rows * h * esz)
+    ops = 2.0 * rows * (4 * h * h + 2 * h * f) + 4.0 * att * heads * hd
+    return bound_ms(bytes_moved, ops, dname)
+
+
+def megakernel_phase(torch, dev):
+    """The fused layer against its plain version for one GPT-2-124M layer,
+    decode (8 rows) and verify (8 x 5 rows), fp32 and bf16, each pool
+    format: x', K and V within MEGA_TOL / MEGA_KV_TOL; fp pools within
+    MEGA_KV_TOL; int8/int4 codes and scales equal to the plain codec's
+    write of the kernel's own K/V (the count that differ, which must be
+    0); two launches bitwise equal (x', K, V, pools). Times: the kernel,
+    its plain version, and the per-op layer (the eager layer body with the
+    port's LayerNorm and paged-attention kernels, ``paged_layer_stack`` on
+    one layer: no single PyTorch call computes a layer), the L2 flushed
+    between calls as 12 layers in a row would find it."""
+    from apex_tpu_torch.ops import _kernel_util as ku
+    from apex_tpu_torch.serve.decode import paged_layer_stack
+    from apex_tpu_torch.serve.kv_cache import paged_write
+    from apex_tpu_torch.serve.megakernel import (fused_layer_fwd,
+                                                 fused_layer_reference,
+                                                 kernel_smem_bytes)
+
+    from apex_tpu_torch.serve import megakernel as mk
+
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    lib = ku.load_kernel("megakernel", mk._SIGNATURES)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for mode in KV_MODES:
+            for what, q in (("decode", 1), ("verify", 5)):
+                cfg, kv, lp, layer, x, bt, start, n_fed, active = \
+                    megakernel_case(torch, dev, dt, mode, q)
+                if mode == "none" and q == 1 and dt == torch.float32:
+                    smem = lib.fused_layer_smem_bytes(cfg.hidden,
+                                                      cfg.head_dim)
+                    if smem != kernel_smem_bytes(cfg.hidden, cfg.head_dim):
+                        raise AssertionError(
+                            f"megakernel shared memory: the kernel uses "
+                            f"{smem} B, megakernel_refusal counts "
+                            f"{kernel_smem_bytes(cfg.hidden, cfg.head_dim)}")
+                nv = None if q == 1 else n_fed
+                args = (cfg, kv, bt, start, nv, active)
+                pools = {}
+
+                def run(fn, key):
+                    pools[key] = {k: v.clone() for k, v in layer.items()}
+                    return fn(x, lp, pools[key], *args)
+
+                got = run(fused_layer_fwd, "kernel")
+                want = run(fused_layer_reference, "plain")
+                again = run(fused_layer_fwd, "again")
+                torch.cuda.synchronize()
+                tag = f"megakernel {what} {mode} {dname}"
+                atol, rtol = MEGA_TOL[(dname, mode != "none")]
+                err = check_close(f"{tag} x'", got[0], want[0], atol, rtol)
+                kv_atol, kv_rtol = MEGA_KV_TOL[dname]
+                kv_err = max(check_close(f"{tag} {nm}", a, b, kv_atol,
+                                         kv_rtol)
+                             for nm, a, b in zip("kv", got[1:], want[1:]))
+                differ = 0
+                if mode == "none":
+                    for nm in layer:   # the plain version fills the trash
+                        kv_err = max(kv_err, check_close(
+                            f"{tag} pool {nm}", pools["kernel"][nm][:, :-1],
+                            pools["plain"][nm][:, :-1], kv_atol, kv_rtol))
+                else:
+                    codec = {k: v.clone() for k, v in layer.items()}
+                    offs = torch.arange(q, device=dev)
+                    pos = (start.long()[:, None] + offs).reshape(-1)
+                    valid = (active[:, None] & (offs[None, :] < q)).reshape(-1)
+                    heads, hd = kv.num_heads, kv.head_dim
+                    paged_write(codec, kv,
+                                got[1].reshape(-1, heads, hd).transpose(0, 1),
+                                got[2].reshape(-1, heads, hd).transpose(0, 1),
+                                bt.repeat_interleave(q, dim=0), pos, valid)
+                    differ = sum(int((pools["kernel"][nm][:, :-1]
+                                      != codec[nm][:, :-1]).sum())
+                                 for nm in layer)
+                    if differ:
+                        raise AssertionError(
+                            f"{tag}: {differ} pool codes/scales differ from "
+                            f"the plain codec's write of the kernel's K/V")
+                if not (all(bool(torch.equal(a, b))
+                            for a, b in zip(got, again))
+                        and all(bool(torch.equal(pools["kernel"][nm][:, :-1],
+                                                 pools["again"][nm][:, :-1]))
+                                for nm in layer)):
+                    raise AssertionError(f"{tag}: two launches differ")
+                layers1 = {k: v[None] for k, v in lp.items()}
+                cache1 = {k: v[None].clone() for k, v in layer.items()}
+                n_valid = (n_fed if nv is not None else
+                           torch.ones_like(n_fed))
+                bms, by = megakernel_bound(cfg, kv, start, active, q, dname)
+                timed = {k: v.clone() for k, v in layer.items()}
+                cases.append({
+                    "case": what, "dtype": dname, "kv": mode,
+                    "rows": x.shape[0] * q,
+                    "max_abs_err": err, "atol": atol, "rtol": rtol,
+                    "kv_max_abs_err": kv_err, "kv_atol": kv_atol,
+                    "kv_rtol": kv_rtol, "codes_differ": differ,
+                    "bitwise_repeat": True,
+                    "ms": time_ms(torch, lambda: fused_layer_fwd(
+                        x, lp, timed, *args), flush=flush_buf.zero_),
+                    "plain_ms": time_ms(torch, lambda: fused_layer_reference(
+                        x, lp, timed, *args), iters=10,
+                        flush=flush_buf.zero_),
+                    "per_op_layer_ms": time_ms(torch, lambda: paged_layer_stack(
+                        x, layers1, start, n_valid, active, cache1, bt, cfg,
+                        kv), flush=flush_buf.zero_),
+                    "library_ms": None, "bound_ms": bms, "bound_by": by})
+                del pools, timed, cache1, layer
+    torch.cuda.empty_cache()
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # engine phase
 
@@ -750,11 +1012,14 @@ def make_requests(vocab: int, seed: int = 1):
     return reqs
 
 
-def serve(torch, params, cfg, dev, spec_k: int, requests):
+def serve(torch, params, cfg, dev, spec_k: int, requests, **scfg):
+    """Serve ``requests`` to completion on a fresh engine
+    (``ServeConfig(num_slots=8, prefill_chunk=32, spec_k=..., **scfg)``);
+    returns the streams and the run's figures."""
     from apex_tpu_torch.serve import InferenceEngine, ServeConfig
 
     eng = InferenceEngine(params, cfg, ServeConfig(
-        num_slots=8, prefill_chunk=32, spec_k=spec_k), device=dev)
+        num_slots=8, prefill_chunk=32, spec_k=spec_k, **scfg), device=dev)
     t0 = time.perf_counter()
     streams = eng.run(requests)
     torch.cuda.synchronize()
@@ -767,7 +1032,9 @@ def serve(torch, params, cfg, dev, spec_k: int, requests):
             raise AssertionError(f"{r.uid}: bad stream {s}")
     keep = ("completed", "steps", "generated_tokens", "tokens_per_s",
             "ttft_ms_p50", "ttft_ms_p99", "decode_step_ms_p50",
-            "decode_step_ms_p99", "prefix_cache", "speculative")
+            "decode_step_ms_p99", "prefix_cache", "speculative",
+            "megakernel", "decode_kernel", "verify_kernel", "kv_bits",
+            "kv_cache_bytes")
     out = {k: st.get(k) for k in keep}
     out["wall_s"] = wall
     return streams, out
@@ -796,7 +1063,8 @@ def last_logits(torch, params, cfg, dev, tokens):
     return logits
 
 
-def profile_decode(torch, params, cfg, dev, requests, steps: int = 20):
+def profile_decode(torch, params, cfg, dev, requests, steps: int = 20,
+                   **scfg):
     """Where a steady-state engine step's time goes: the wall time of
     ``steps`` steps without the profiler, then the same number of steps
     under torch.profiler for the device's busy time (union of its
@@ -804,7 +1072,7 @@ def profile_decode(torch, params, cfg, dev, requests, steps: int = 20):
     from apex_tpu_torch.serve import InferenceEngine, ServeConfig
 
     eng = InferenceEngine(params, cfg, ServeConfig(
-        num_slots=8, prefill_chunk=32), device=dev)
+        num_slots=8, prefill_chunk=32, **scfg), device=dev)
     for r in requests:
         eng.submit(r)
     for _ in range(40):
@@ -816,10 +1084,47 @@ def profile_decode(torch, params, cfg, dev, requests, steps: int = 20):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     out = profiled(torch, lambda: [eng.step() for _ in range(steps)])
-    out.update(steps=steps, wall_ms=wall_ms,
+    out.update(steps=steps, wall_ms=wall_ms, decode_kernel=eng.decode_kernel,
                device_busy_share_of_unprofiled_wall=(
                    out["device_busy_ms"] / wall_ms))
     return out
+
+
+class RepeatDrafter:
+    """Proposes k copies of the last token, so every step with room for
+    drafts is a verify call."""
+
+    def propose(self, tokens, k):
+        return [tokens[-1]] * k
+
+
+def launches_per_call(torch, ku, params, cfg, dev, spec_k: int):
+    """Kernel launches of one decode (spec_k 0) or verify (spec_k > 0)
+    call of the default engine, counted over one step taken once all eight
+    slots are decoding and no prompt is left to prefill."""
+    from apex_tpu_torch.serve import InferenceEngine, Request, ServeConfig
+
+    eng = InferenceEngine(params, cfg, ServeConfig(
+        num_slots=8, prefill_chunk=32, spec_k=spec_k), device=dev,
+        drafter=RepeatDrafter() if spec_k else None)
+    for i in range(8):
+        eng.submit(Request(f"p{i}", list(range(1 + i, 17 + i)),
+                           max_new_tokens=24))
+    while eng._pending or eng._prefill_queue:
+        eng.step()
+    torch.cuda.synchronize()
+    calls = (eng._decode_steps, eng._verify_steps)
+    ku.reset_launch_counts()
+    eng.step()
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    kind = ("verify" if eng._verify_steps > calls[1] else
+            "decode" if eng._decode_steps > calls[0] else "none")
+    want = {"megakernel": cfg.num_layers, "layer_norm_fwd": 1}
+    if kind != ("verify" if spec_k else "decode") or counts != want:
+        raise AssertionError(f"one {kind} call of the fused engine launched "
+                             f"{counts}, expected {want}")
+    return {"call": kind, "launches": counts}
 
 
 def profiled(torch, fn):
@@ -869,7 +1174,33 @@ def top2_gap(torch, logits) -> float:
     return float(v[0] - v[1])
 
 
+def streams_equal(torch, what, a, b, requests, logits_at=None):
+    """Raise at the first token where streams ``a`` and ``b`` differ,
+    with the top-2 logit gap there when ``logits_at(tokens)`` is given."""
+    miss = first_mismatch(a, b)
+    if miss is None:
+        return
+    uid, j = miss
+    gap = ""
+    if logits_at is not None:
+        req = next(r for r in requests if r.uid == uid)
+        ctx = list(req.tokens) + a[uid][:j]
+        gap = f"; top-2 logit gap there {top2_gap(torch, logits_at(ctx)):.3e}"
+    raise AssertionError(f"{what}: streams differ at {uid} token {j}: "
+                         f"{a[uid][j]} vs {b[uid][j]}{gap}")
+
+
 def engine_phase(torch, dev, ku):
+    """GPT-2-124M at full width. ``ServeConfig()`` resolves to the fused
+    per-layer kernel on the card (``decode_kernel == "fused"``). fp32:
+    kernels vs plain versions forced (streams), fused vs per-op
+    (``megakernel="off"``) streams, and the same with int8 and int4 pools
+    on the first 6 requests. bf16: the main path (``spec_k=0``, fused;
+    launch counts reset just before and read just after), ``spec_k=4``
+    streams equal to it, launches per decode and verify call, int8 and
+    int4 pools with spec_k 0 and 4 (equal streams, tokens/s, pool bytes,
+    launches), the per-op path (``megakernel="off"``) with its launches,
+    and 20 steady steps profiled on each path."""
     from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
 
     result = {}
@@ -877,11 +1208,14 @@ def engine_phase(torch, dev, ku):
     params32 = init_gpt_params(cfg32, seed=0, device=dev)
     requests = make_requests(cfg32.vocab_size)
 
+    def logits32(tokens):
+        return last_logits(torch, params32, cfg32, dev, tokens)
+
     # logits on a small input: kernels vs plain versions
     probe = requests[1].tokens[:40]
-    lk = last_logits(torch, params32, cfg32, dev, probe)
+    lk = logits32(probe)
     with ku.force_plain():
-        lp = last_logits(torch, params32, cfg32, dev, probe)
+        lp = logits32(probe)
     err = float((lk - lp).abs().max())
     if not bool(torch.isfinite(lk).all()) or err > 1e-3:
         raise AssertionError(f"fp32 logits: kernels vs plain max abs err "
@@ -892,22 +1226,30 @@ def engine_phase(torch, dev, ku):
     s_kernel, result["fp32_kernels"] = serve(torch, params32, cfg32, dev, 0,
                                              requests)
     result["fp32_kernels"]["launches"] = ku.launch_counts()
+    if result["fp32_kernels"]["decode_kernel"] != "fused":
+        raise AssertionError("ServeConfig() did not resolve to the fused "
+                             "layer on the card")
     with ku.force_plain():
         before = ku.launch_counts()
         s_plain, result["fp32_plain"] = serve(torch, params32, cfg32, dev, 0,
                                               requests)
         if ku.launch_counts() != before:
             raise AssertionError("force_plain run launched a kernel")
-    miss = first_mismatch(s_kernel, s_plain)
-    if miss is not None:
-        uid, j = miss
-        req = next(r for r in requests if r.uid == uid)
-        ctx = list(req.tokens) + s_kernel[uid][:j]
-        gap = top2_gap(torch, last_logits(torch, params32, cfg32, dev, ctx))
-        raise AssertionError(
-            f"fp32 streams differ (kernels vs plain) at {uid} token {j}: "
-            f"{s_kernel[uid][j]} vs {s_plain[uid][j]}; top-2 logit gap "
-            f"there {gap:.3e}")
+    streams_equal(torch, "fp32 kernels vs plain", s_kernel, s_plain,
+                  requests, logits32)
+    s_off, result["fp32_off"] = serve(torch, params32, cfg32, dev, 0,
+                                      requests, megakernel="off")
+    streams_equal(torch, "fp32 fused vs per-op", s_kernel, s_off, requests,
+                  logits32)
+    subset = requests[:6]
+    for kvq in ("int8", "int4"):
+        s_on, result[f"fp32_{kvq}"] = serve(torch, params32, cfg32, dev, 0,
+                                            subset, kv_quant=kvq)
+        s_off, result[f"fp32_{kvq}_off"] = serve(
+            torch, params32, cfg32, dev, 0, subset, kv_quant=kvq,
+            megakernel="off")
+        streams_equal(torch, f"fp32 {kvq} fused vs per-op", s_on, s_off,
+                      subset)
     del params32
 
     cfg16 = GPTConfig(dtype=torch.bfloat16)
@@ -917,20 +1259,42 @@ def engine_phase(torch, dev, ku):
                                       requests)
     launches = ku.launch_counts()
     result["bf16_spec0"]["launches"] = launches
-    for name in ("layer_norm_fwd", "paged_attention_fwd"):
+    if result["bf16_spec0"]["decode_kernel"] != "fused":
+        raise AssertionError("the bf16 main path did not run fused")
+    for name in ("megakernel", "layer_norm_fwd", "paged_attention_fwd"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"the main path never launched {name}")
     s16k, result["bf16_spec4"] = serve(torch, params16, cfg16, dev, 4,
                                        requests)
-    miss = first_mismatch(s16, s16k)
-    if miss is not None:
-        uid, j = miss
-        raise AssertionError(
-            f"bf16 speculative stream differs from plain decode at {uid} "
-            f"token {j}: {s16k[uid][j]} vs {s16[uid][j]}")
+    streams_equal(torch, "bf16 spec_k=4 vs spec_k=0 (fused)", s16k, s16,
+                  requests)
+    result["launches_per_call"] = {
+        "decode": launches_per_call(torch, ku, params16, cfg16, dev, 0),
+        "verify": launches_per_call(torch, ku, params16, cfg16, dev, 4)}
+    quant_launches = {}
+    for kvq in ("int8", "int4"):
+        ku.reset_launch_counts()
+        a, result[f"bf16_{kvq}_spec0"] = serve(torch, params16, cfg16, dev,
+                                               0, requests, kv_quant=kvq)
+        quant_launches[kvq] = ku.launch_counts()
+        result[f"bf16_{kvq}_spec0"]["launches"] = quant_launches[kvq]
+        b, result[f"bf16_{kvq}_spec4"] = serve(torch, params16, cfg16, dev,
+                                               4, requests, kv_quant=kvq)
+        streams_equal(torch, f"bf16 {kvq} spec_k=4 vs spec_k=0 (fused)", b,
+                      a, requests)
+    ku.reset_launch_counts()
+    _, result["bf16_off"] = serve(torch, params16, cfg16, dev, 0, requests,
+                                  megakernel="off")
+    result["bf16_off"]["launches"] = off = ku.launch_counts()
+    if (result["bf16_off"]["decode_kernel"] != "cuda"
+            or off.get("megakernel", 0) or not off.get("paged_attention_fwd")
+            or not off.get("layer_norm_fwd")):
+        raise AssertionError(f"the per-op path's launches look wrong: {off}")
     result["bf16_profile"] = profile_decode(torch, params16, cfg16, dev,
                                             requests)
-    return result, launches
+    result["bf16_profile_off"] = profile_decode(
+        torch, params16, cfg16, dev, requests, megakernel="off")
+    return result, launches, quant_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1154,6 +1518,9 @@ def main(argv=None) -> int:
     adam = phase("adam_tail", ("fused_update",), adam_tail_phase, torch, dev)
     fa_cases = phase("flash_attention", ("flash_attention",), flash_phase,
                      torch, dev)
+    mk_cases = phase("megakernel", ("megakernel", "paged_attention",
+                                    "layer_norm"), megakernel_phase, torch,
+                     dev)
     lm_cases = phase("lm_head_loss", ("lm_head_loss",), lm_head_phase, torch,
                      dev)
     wait()
@@ -1167,9 +1534,10 @@ def main(argv=None) -> int:
     seconds["build"] = build_s
     kernel_s = sum(seconds[k] for k in (
         "layer_norm", "paged_attention", "layer_norm_bwd", "flash_attention",
-        "lm_head_loss", "adam_tail"))
+        "lm_head_loss", "adam_tail", "megakernel"))
     seconds["builds_and_kernel_phases"] = time.perf_counter() - t0
-    engine, launches = phase("engine", (), engine_phase, torch, dev, ku)
+    engine, launches, quant_launches = phase("engine", (), engine_phase,
+                                             torch, dev, ku)
     train = phase("train", (), train_phase, torch, dev, ku)
     seconds["train_parts"] = train["phase_s"]
     train_launches = train["launches_per_step"]
@@ -1180,7 +1548,7 @@ def main(argv=None) -> int:
 
     # the serving main path's shapes: bf16, 8 decode rows
     ln = pick(ln_cases, dtype="bfloat16", rows=8)
-    pa = pick(pa_cases, dtype="bfloat16", rows=8)
+    pa = pick(pa_cases, dtype="bfloat16", rows=8, kv="none")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # LN forward also runs on the training main path, at (8192, 768) with
     # its statistics: that path's launches and times beside the serving
@@ -1202,11 +1570,35 @@ def main(argv=None) -> int:
          "source": "apex_tpu_torch/csrc/paged_attention.cu",
          "replaces": "apex_tpu/serve/decode.py:228",
          "launches": launches.get("paged_attention_fwd", 0),
-         "max_abs_err": max(c["max_abs_err"] for c in pa_cases),
+         "max_abs_err": max(c["max_abs_err"] for c in pa_cases
+                            if c["kv"] == "none"),
          "ms": pa["ms"], "plain_ms": pa["plain_ms"],
          "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
          "library_ms": pa["library_ms"]},
     ]
+    # the paged kernel's quantized branches: launched by the prefill chunks
+    # of the bf16 int8 / int4 engine runs; timed at 8 bf16 rows
+    for kvq in ("int8", "int4"):
+        c = pick(pa_cases, dtype="bfloat16", rows=8, kv=kvq)
+        kernels.append(
+            {"name": f"paged_attention_fwd[{kvq}]", "route": "cuda",
+             "source": "apex_tpu_torch/csrc/paged_attention.cu",
+             "replaces": "apex_tpu/serve/decode.py:228",
+             "launches": quant_launches[kvq].get("paged_attention_fwd", 0),
+             "max_abs_err": max(x["max_abs_err"] for x in pa_cases
+                                if x["kv"] == kvq),
+             **{k: c[k] for k in timing}})
+    # the fused layer: launched by the serving main path's decode calls;
+    # timed for bf16 decode at 8 rows; its comparator is the per-op layer
+    mk = pick(mk_cases, dtype="bfloat16", kv="none", case="decode")
+    kernels.append(
+        {"name": "megakernel", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/megakernel.cu",
+         "replaces": "apex_tpu/serve/megakernel.py:668",
+         "launches": launches.get("megakernel", 0),
+         "max_abs_err": max(c["max_abs_err"] for c in mk_cases),
+         "per_op_layer_ms": mk["per_op_layer_ms"],
+         **{k: mk[k] for k in timing}})
     # the training main path's shapes: bf16, LN (8192, 768), attention
     # (96, 1024, 64) causal
     lnb = pick(lnb_cases, dtype="bfloat16")
@@ -1254,12 +1646,41 @@ def main(argv=None) -> int:
               "layer_norm": ln_cases, "paged_attention": pa_cases,
               "layer_norm_bwd": lnb_cases, "flash_attention": fa_cases,
               "lm_head_loss": lm_cases, "adam_tail": adam,
+              "megakernel": mk_cases,
               "engine": engine, "train": train}
-    for run in ("fp32_kernels", "fp32_plain", "bf16_spec0", "bf16_spec4"):
+    for run in ("fp32_kernels", "fp32_plain", "fp32_off", "fp32_int8",
+                "fp32_int8_off", "fp32_int4", "fp32_int4_off", "bf16_spec0",
+                "bf16_spec4", "bf16_int8_spec0", "bf16_int8_spec4",
+                "bf16_int4_spec0", "bf16_int4_spec4", "bf16_off"):
         e = engine[run]
-        print(f"{run}: tokens/s {e['tokens_per_s']} ttft_ms_p50 "
-              f"{e['ttft_ms_p50']} decode_step_ms_p50 "
+        print(f"{run} ({e['decode_kernel']}, kv_bits {e['kv_bits']}, pools "
+              f"{e['kv_cache_bytes']} B): tokens/s {e['tokens_per_s']} "
+              f"ttft_ms_p50 {e['ttft_ms_p50']} decode_step_ms_p50 "
               f"{e['decode_step_ms_p50']} on {card}")
+    for key in ("decode", "verify"):
+        print(f"launches per {key} call (fused): "
+              f"{engine['launches_per_call'][key]['launches']}")
+    for key in ("bf16_profile", "bf16_profile_off"):
+        pr = engine[key]
+        print(f"{key} ({pr['decode_kernel']}): {pr['steps']} steps wall "
+              f"{pr['wall_ms']:.2f} ms, device busy {pr['device_busy_ms']:.2f}"
+              f" ms (share {pr['device_busy_share_of_unprofiled_wall']:.3f})")
+        for t in pr["top"][:6]:
+            print(f"  top kernel: {t['device_ms']:.3f} ms x{t['count']} "
+                  f"{t['name']}")
+    for c in mk_cases:
+        print(f"megakernel {c['case']} {c['kv']} {c['dtype']} rows "
+              f"{c['rows']}: {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, "
+              f"per-op layer {c['per_op_layer_ms']:.4f}, bound "
+              f"{c['bound_ms']:.4f} {c['bound_by']}); x' err "
+              f"{c['max_abs_err']:.3e}, K/V err {c['kv_max_abs_err']:.3e}, "
+              f"codes differ {c['codes_differ']}")
+    for c in pa_cases:
+        if c["kv"] != "none":
+            print(f"paged_attention_fwd {c['kv']} {c['dtype']} rows "
+                  f"{c['rows']}: {c['ms']:.4f} ms (plain {c['plain_ms']:.4f},"
+                  f" library {c['library_ms']:.4f}, bound "
+                  f"{c['bound_ms']:.5f}); err {c['max_abs_err']:.3e}")
     fp, prof = train["fp32_check"], train["profile_3_steps"]
     print(f"train fp32 check (batch 2 x 1024): loss kernels "
           f"{fp['loss_kernels']} plain {fp['loss_plain']} grad max rel err "

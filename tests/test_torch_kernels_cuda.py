@@ -42,7 +42,11 @@ from apex_tpu_torch.ops.lm_head_loss import (lm_head_loss,
                                              lm_head_loss_fwd_reference)
 from apex_tpu_torch.serve.decode import (paged_attention, paged_attention_fwd,
                                          paged_attention_reference)
-from apex_tpu_torch.serve.kv_cache import KVCacheConfig
+from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, init_kv_cache,
+                                           paged_write)
+from apex_tpu_torch.serve.megakernel import (fused_layer_fwd,
+                                             fused_layer_reference)
+from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
 
 pytestmark = pytest.mark.cuda
 
@@ -512,3 +516,213 @@ def test_lamb_tail_kernel_sums_match_and_repeat_bitwise(dev):
     for again in outs[1:]:
         for a, b in zip(outs[0], again):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# quantized paged attention and the fused layer (the megakernel)
+
+QUANT = {"int8": dict(quantized=True, bits=8),
+         "int4": dict(quantized=True, bits=4),
+         "int4_g16": dict(quantized=True, bits=4, group_size=16)}
+
+
+def _quant_pools(dev, dtype, mode, n, heads, hd, bs, mb, seed):
+    """Pools written through the plain codec with random K/V at every
+    position of every row's blocks, and the paged kernel's inputs."""
+    q, pools, _, bt, ctx = _paged(dev, dtype, n, heads, hd, bs, mb, seed)
+    cfg = KVCacheConfig(num_layers=1, num_heads=heads, head_dim=hd,
+                        num_blocks=n * mb, block_size=bs, dtype=dtype,
+                        **QUANT[mode])
+    layer = {k: v[0] for k, v in init_kv_cache(cfg, dev).items()}
+    pos = torch.arange(mb * bs, device=dev).repeat(n)
+    rows = bt.repeat_interleave(mb * bs, dim=0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randn(heads, n * mb * bs, hd, device=dev, generator=g) * 2
+    v = torch.randn(heads, n * mb * bs, hd, device=dev, generator=g)
+    paged_write(layer, cfg, k.to(dtype), v.to(dtype), rows, pos,
+                torch.ones_like(pos, dtype=torch.bool))
+    return q, layer, cfg, bt, ctx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(QUANT))
+@pytest.mark.parametrize("n,heads,hd,bs,mb", [
+    (8, 12, 64, 16, 8), (3, 2, 32, 8, 3), (5, 4, 128, 16, 5)])
+def test_quant_paged_attention_kernel_matches_plain(dev, dtype, mode, n,
+                                                    heads, hd, bs, mb):
+    """int8 / int4 pools: the kernel dequantizes in fp32; the plain
+    version dequantizes into the model dtype (JAX's gather), so bf16 is
+    held at atol 1e-2 (one bf16 rounding of K, moving a score by up to
+    |q|·|k|·2⁻⁹, and of V), fp32 at 2e-5."""
+    q, layer, cfg, bt, ctx = _quant_pools(dev, dtype, mode, n, heads, hd,
+                                          bs, mb, seed=n + hd)
+    before = ku.launch_counts().get("paged_attention_fwd", 0)
+    got = paged_attention(q, layer, cfg, bt, ctx)
+    assert ku.launch_counts()["paged_attention_fwd"] == before + 1
+    want = paged_attention_reference(q, layer, cfg, bt, ctx)
+    torch.cuda.synchronize()
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert not got[0].float().abs().max()
+
+
+def _fused_case(dev, dtype, mode, n, q, hidden=256, heads=4, seed=0):
+    """One GPT layer (biases and LN weights perturbed), a pool whose
+    slots already hold random context, and fed rows: slot 0 inactive, the
+    last slot's rows running past its blocks, n_fed varying."""
+    cfg = GPTConfig(vocab_size=128, max_seq=256, hidden=hidden,
+                    num_layers=1, num_heads=heads, dtype=dtype)
+    params = init_gpt_params(cfg, seed=seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lp = {}
+    for name, t in params["layers"].items():
+        t = t[0].float()
+        if t.dim() == 1:
+            t = t + 0.1 * torch.randn(t.shape, device=dev, generator=g)
+        lp[name] = t.to(dtype).contiguous()
+    hd, bs, mb = hidden // heads, 16, 8
+    kv = KVCacheConfig(num_layers=1, num_heads=heads, head_dim=hd,
+                       num_blocks=n * mb, block_size=bs, dtype=dtype,
+                       **QUANT.get(mode, {}))
+    layer = {k: v[0] for k, v in init_kv_cache(kv, dev).items()}
+    rng = np.random.default_rng(seed)
+    bt = torch.from_numpy(rng.permutation(n * mb).reshape(n, mb)
+                          .astype(np.int32)).to(dev)
+    start = rng.integers(0, 100, n)
+    start[-1] = mb * bs - 2
+    pos = torch.arange(mb * bs, device=dev).repeat(n)
+    old = pos < torch.from_numpy(start).to(dev).repeat_interleave(mb * bs)
+    kk = torch.randn(heads, n * mb * bs, hd, device=dev, generator=g)
+    vv = torch.randn(heads, n * mb * bs, hd, device=dev, generator=g)
+    paged_write(layer, kv, kk.to(dtype), vv.to(dtype),
+                bt.repeat_interleave(mb * bs, dim=0), pos, old)
+    n_fed = torch.from_numpy(rng.integers(1, q + 1, n).astype(np.int32))
+    active = torch.ones(n, dtype=torch.bool)
+    active[0] = n == 1
+    x = torch.randn(n, q, hidden, device=dev, generator=g).to(dtype)
+    return (x, lp, layer, cfg, kv, bt,
+            torch.from_numpy(start.astype(np.int32)).to(dev),
+            n_fed.to(dev), active.to(dev))
+
+
+def _clone(layer):
+    return {k: v.clone() for k, v in layer.items()}
+
+
+# x' of the fused layer against its plain version: fp32 sums in another
+# order (fp pools); with quantized pools a fed row's code may flip where
+# the two fp32 K values straddle a rounding midpoint, moving a score by
+# one code step; bf16 one output rounding plus flips of bf16 intermediates
+MK_TOL = {(torch.float32, False): (1e-4, 1e-4),
+          (torch.float32, True): (2e-3, 1e-3),
+          (torch.bfloat16, False): (2e-2, 2 ** -6),
+          (torch.bfloat16, True): (2e-2, 2 ** -6)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["none", "int8", "int4"])
+@pytest.mark.parametrize("n,q", [(8, 1), (8, 5), (3, 3)])
+def test_megakernel_matches_plain(dev, dtype, mode, n, q):
+    """The fused layer against its plain version: x', K and V within
+    tolerance; the pool it wrote equal to the plain codec's write of its
+    own K/V (codes and scales bitwise) or within tolerance (fp pools);
+    two launches bitwise equal."""
+    x, lp, layer, cfg, kv, bt, start, n_fed, active = _fused_case(
+        dev, dtype, mode, n, q)
+    nv = None if q == 1 else n_fed
+    got_pool = _clone(layer)
+    before = ku.launch_counts().get("megakernel", 0)
+    got = fused_layer_fwd(x, lp, got_pool, cfg, kv, bt, start, nv, active)
+    assert ku.launch_counts()["megakernel"] == before + 1
+    want_pool = _clone(layer)
+    want = fused_layer_reference(x, lp, want_pool, cfg, kv, bt, start, nv,
+                                 active)
+    torch.cuda.synchronize()
+    atol, rtol = MK_TOL[(dtype, mode != "none")]
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol,
+                               rtol=rtol)
+    kv_tol = TOL[dtype] if dtype == torch.float32 else (1e-2, 2 ** -7)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a.float(), b.float(), atol=kv_tol[0],
+                                   rtol=kv_tol[1])
+    if mode == "none":
+        for name in layer:   # the plain version also fills the trash block
+            torch.testing.assert_close(got_pool[name][:, :-1].float(),
+                                       want_pool[name][:, :-1].float(),
+                                       atol=kv_tol[0], rtol=kv_tol[1])
+    else:
+        # the plain codec on the kernel's own K/V: the same pool, bitwise
+        codec_pool = _clone(layer)
+        offs = torch.arange(q, device=dev)
+        pos = (start.long()[:, None] + offs).reshape(-1)
+        valid = active[:, None] & (offs[None, :] < (
+            n_fed[:, None] if nv is not None else q))
+        heads, hd = kv.num_heads, kv.head_dim
+        paged_write(codec_pool, kv,
+                    got[1].reshape(n * q, heads, hd).transpose(0, 1),
+                    got[2].reshape(n * q, heads, hd).transpose(0, 1),
+                    bt.repeat_interleave(q, dim=0), pos, valid.reshape(-1))
+        for name in layer:
+            # the trash block (last) is written by paged_write only
+            assert torch.equal(got_pool[name][:, :-1],
+                               codec_pool[name][:, :-1]), name
+    again_pool = _clone(layer)
+    again = fused_layer_fwd(x, lp, again_pool, cfg, kv, bt, start, nv,
+                            active)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for name in layer:
+        assert torch.equal(got_pool[name], again_pool[name]), name
+
+
+@pytest.mark.parametrize("mode", ["none", "int4"])
+def test_megakernel_rows_do_not_depend_on_the_batch(dev, mode):
+    """Each slot launched alone gives the bits it gets among eight, and a
+    q=1 launch (decode) the bits of the same row in a q=5 launch whose
+    other rows are padding (verify)."""
+    x, lp, layer, cfg, kv, bt, start, n_fed, active = _fused_case(
+        dev, torch.bfloat16, mode, 8, 5, seed=3)
+    full_pool = _clone(layer)
+    full = fused_layer_fwd(x, lp, full_pool, cfg, kv, bt, start, n_fed,
+                           active)
+    for i in range(1, 8):
+        alone_pool = _clone(layer)
+        alone = fused_layer_fwd(x[i:i + 1], lp, alone_pool, cfg, kv,
+                                bt[i:i + 1], start[i:i + 1],
+                                n_fed[i:i + 1], active[i:i + 1])
+        for a, b in zip(full, alone):
+            assert torch.equal(a[i:i + 1], b)
+    one_pool = _clone(layer)
+    one = fused_layer_fwd(x[:, :1].contiguous(), lp, one_pool, cfg, kv, bt,
+                          start, None, active)
+    ones = torch.ones_like(n_fed)
+    five_pool = _clone(layer)
+    five = fused_layer_fwd(x, lp, five_pool, cfg, kv, bt, start, ones,
+                           active)
+    for a, b in zip(one, five):
+        assert torch.equal(a[:, 0], b[:, 0])
+    for name in layer:
+        assert torch.equal(one_pool[name], five_pool[name]), name
+
+
+def test_megakernel_refuses_what_it_cannot_take(dev):
+    x, lp, layer, cfg, kv, bt, start, n_fed, active = _fused_case(
+        dev, torch.float32, "none", 2, 1)
+    with pytest.raises(ValueError, match="head_dim in"):
+        cfg16 = GPTConfig(vocab_size=128, max_seq=256, hidden=64,
+                          num_layers=1, num_heads=4, dtype=torch.float32)
+        kv16 = KVCacheConfig(num_layers=1, num_heads=4, head_dim=16,
+                             num_blocks=16, block_size=16,
+                             dtype=torch.float32)
+        fused_layer_fwd(x[..., :64].contiguous(), lp, layer, cfg16, kv16,
+                        bt, start, None, active)
+    with pytest.raises(ValueError, match="qkv_kernel"):
+        fused_layer_fwd(x, {**lp, "qkv_kernel": lp["qkv_kernel"].t()},
+                        layer, cfg, kv, bt, start, None, active)
+    with pytest.raises(ValueError, match="pool"):
+        fused_layer_fwd(x, lp, {k: v.bfloat16() for k, v in layer.items()},
+                        cfg, kv, bt, start, None, active)
+    with pytest.raises(ValueError, match="rows per launch"):
+        fused_layer_fwd(x.repeat(1, 65, 1), lp, layer, cfg, kv, bt, start,
+                        None, active)

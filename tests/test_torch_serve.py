@@ -367,7 +367,6 @@ def test_ngram_drafter_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_quant", "int8"), ("kv_quant", "int4"), ("megakernel", "on"),
     ("lora_rank", 4), ("plan", object())])
 def test_serve_config_refuses_unported_fields(field, value):
     """Fields outside this slice raise NotImplementedError naming their
