@@ -1,14 +1,21 @@
-// Causal / full flash attention, forward and backward, for Hopper (sm_90a).
+// Causal / full flash attention, forward and backward, with an optional
+// additive logit bias, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of apex_tpu/ops/attention.py:
 //   * `_fa_fwd_kernel` (reached through `_fa_fwd`, pallas_call at :297):
 //     o and the row log-sum-exp lse;
 //   * `_fa_bwd_dq_kernel` (`_fa_bwd`, pallas_call at :532): dQ;
-//   * `_fa_bwd_dkv_kernel` (`_fa_bwd`, pallas_call at :570): dK and dV.
-// The bias variant and its d(bias) kernel (:607) are not ported here.
+//   * `_fa_bwd_dkv_kernel` (`_fa_bwd`, pallas_call at :570): dK and dV;
+//   * `_fa_bwd_dbias_kernel` (`_fa_bwd`, pallas_call at :607): dL/dbias,
+//     summed over the batch.
+// The first three take the bias as a template switch (HasBias): with a
+// null bias pointer they are the bias-free kernels, unchanged.
 //
 // Math, exactly the JAX kernels' (all accumulation in fp32):
-//   s = (q . k) * scale, s = NEG_INF where causal and kpos > qpos;
+//   s = (q . k) * scale (+ bias[bh % heads, qpos, kpos], an fp32 (heads,
+//   sq, sk) tensor shared by the batch, added after the scaling and
+//   rounded on its own: never fused into the product), then
+//   s = NEG_INF where causal and kpos > qpos;
 //   forward: online softmax over K/V tiles with running max m and sum l of
 //   the UNdropped p = exp(s - m); dropout multiplies p (after l is summed)
 //   by keep / (1 - rate); p is rounded to the input type before p @ v;
@@ -17,7 +24,9 @@
 //   p = exp(s - lse), dp = dO . v (times keep / (1 - rate) with dropout),
 //   ds = p * (dp - delta) * scale; dQ = sum ds * k, dK = sum ds * q,
 //   dV = sum p_dropped * dO, with ds and p_dropped rounded to the input
-//   type before each product, as the JAX kernels cast before their dots.
+//   type before each product, as the JAX kernels cast before their dots;
+//   dbias[h] = sum over the batch b of p * (dp - delta) at bh = b * heads
+//   + h, in fp32 and without `scale` (the bias enters after the scaling).
 // Dropout keeps an entry where the murmur3-style counter hash of (seed,
 // batch*head, global q position, global k position) is >= thresh: the
 // same bits as `_hash_keep` (:129-144), so the mask regenerates exactly in
@@ -25,7 +34,10 @@
 //
 // Bound on this card: at the flagship shape (bh 96, s 1024, d 64, bf16)
 // the tensor-core operations (4, 6 and 8 * bh * s^2 * d, halved by the
-// causal mask) bound all three, not the bytes. These first kernels run
+// causal mask) bound all three, not the bytes. The bias adds one fp32
+// read of heads * sq * sk to each (and d(bias) writes as much): at T5's
+// encoder shape (bh 64, s 512, d 64) that is bytes the forward must move
+// in about the time of its operations. These first kernels run
 // their products on the CUDA cores in fp32, not on the tensor cores, so
 // they sit far above that bound: a simple kernel that is right comes
 // first, wgmma and TMA come later.
@@ -43,6 +55,18 @@
 // inside the group. Masking is by value, never by branch, so every lane
 // reaches every shuffle. Sequence lengths are multiples of 64; D is 32 or
 // 64.
+//
+// The bias is read straight from device memory, one (q tile, k tile)
+// block of it where the scores of that tile are formed: a q row's 16
+// biases of a key chunk as float4 loads in the forward, a key column's
+// bias per q row in dK/dV (neighbouring threads, neighbouring keys). The
+// causal tiles that the kernels skip read no bias. d(bias) has no
+// sequential grid to carry the batch sum through (JAX runs the batch as
+// its innermost, ordered grid axis): one block owns each (head, q tile,
+// k tile) output tile and walks the batch in order, summing in registers
+// (each thread owns 64 / TPR columns of its row), then writes the tile
+// once; no atomics, so the sum is the same bits on every run. Tiles above
+// the causal diagonal write zeros.
 
 #include "common.cuh"
 
@@ -170,15 +194,26 @@ __device__ __forceinline__ void store_row_part(T* row, const float* reg,
     store4(row + 4 * (h + TPR * i), reg + 4 * i);
 }
 
+// row `qpos` of head `head` of the (heads, sq, sk) bias; null without one
+template <bool HasBias>
+__device__ __forceinline__ const float* bias_row(const float* bias, int head,
+                                                 int qpos, int sq, int sk) {
+  if constexpr (HasBias)
+    return bias + (static_cast<long>(head) * sq + qpos) * sk;
+  else
+    return nullptr;
+}
+
 // ---------------------------------------------------------------------------
 // forward: o and lse
 
-template <typename T, int D>
+template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kB * (D / 32))
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int sq, int sk, float scale,
-                     int causal, Dropout drop) {
+                     const T* __restrict__ v,
+                     const float* __restrict__ bias, T* __restrict__ o,
+                     float* __restrict__ lse, int heads, int sq, int sk,
+                     float scale, int causal, Dropout drop) {
   constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
   __shared__ __align__(16) float sK[kB * D];
   __shared__ __align__(16) float sV[kB * D];
@@ -194,6 +229,7 @@ __global__ void __launch_bounds__(kB * (D / 32))
 #pragma unroll
   for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
   float m = apex::kNegInf, l = 0.f;
+  const float* brow = bias_row<HasBias>(bias, bh % heads, qpos, sq, sk);
 
   const int nkt = causal ? qt + 1 : sk / kB;
   for (int kt = 0; kt < nkt; ++kt) {
@@ -205,12 +241,19 @@ __global__ void __launch_bounds__(kB * (D / 32))
     const bool diag = causal && kt == qt;
     for (int j0 = 0; j0 < kB; j0 += kChunk) {
       float s[kChunk];
+      float bv[kChunk];
+      if constexpr (HasBias) {
+#pragma unroll
+        for (int i = 0; i < kChunk; i += 4)
+          load4(brow + kt * kB + j0 + i, bv + i);
+      }
       float cmax = apex::kNegInf;
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
         const int j = j0 + jj;
         float sv = group_sum<TPR>(dot_part<DPT, TPR>(qr, sK + j * D, h)) *
                    scale;
+        if constexpr (HasBias) sv = __fadd_rn(sv, bv[jj]);
         if (diag && j > r) sv = apex::kNegInf;
         s[jj] = sv;
         cmax = fmaxf(cmax, sv);
@@ -251,13 +294,14 @@ __global__ void __launch_bounds__(kB * (D / 32))
 // ---------------------------------------------------------------------------
 // dQ: one block per (q tile, bh), looping over the K/V tiles
 
-template <typename T, int D>
+template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kB * (D / 32))
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int sq, int sk, float scale, int causal,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ bias, T* __restrict__ dq,
+                        int heads, int sq, int sk, float scale, int causal,
                         Dropout drop) {
   constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
   __shared__ __align__(16) float sK[kB * D];
@@ -276,6 +320,7 @@ __global__ void __launch_bounds__(kB * (D / 32))
   for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
   const float lse_r = lse[static_cast<long>(bh) * sq + qpos];
   const float delta_r = delta[static_cast<long>(bh) * sq + qpos];
+  const float* brow = bias_row<HasBias>(bias, bh % heads, qpos, sq, sk);
 
   const int nkt = causal ? qt + 1 : sk / kB;
   for (int kt = 0; kt < nkt; ++kt) {
@@ -289,6 +334,7 @@ __global__ void __launch_bounds__(kB * (D / 32))
     for (int j = 0; j < kB; ++j) {
       float sv = group_sum<TPR>(dot_part<DPT, TPR>(qr, sK + j * D, h)) *
                  scale;
+      if constexpr (HasBias) sv = __fadd_rn(sv, __ldg(brow + kt * kB + j));
       if (diag && j > r) sv = apex::kNegInf;
       const float p = expf(sv - lse_r);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
@@ -307,14 +353,15 @@ __global__ void __launch_bounds__(kB * (D / 32))
 // dK, dV: one block per (kv tile, bh), looping over the q tiles from the
 // causal diagonal on
 
-template <typename T, int D>
+template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kB * (D / 16))
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int sq,
-                         int sk, float scale, int causal, Dropout drop) {
+                         const float* __restrict__ bias, T* __restrict__ dk,
+                         T* __restrict__ dv, int heads, int sq, int sk,
+                         float scale, int causal, Dropout drop) {
   constexpr int DPT = 16, TPR = D / DPT, NT = kB * TPR;
   __shared__ __align__(16) float sQ[kB * D];
   __shared__ __align__(16) float sO[kB * D];  // dO
@@ -331,6 +378,10 @@ __global__ void __launch_bounds__(kB * (D / 16))
   load_row_part<T, DPT, TPR>(v + krow, vr, h);
 #pragma unroll
   for (int i = 0; i < DPT; ++i) dka[i] = dva[i] = 0.f;
+  // this key's bias column: row i of q tile qt at bcol[(qt * kB + i) * sk]
+  const float* bcol =
+      HasBias ? bias + static_cast<long>(bh % heads) * sq * sk + kpos
+              : nullptr;
 
   const int nqt = sq / kB;
   for (int qt = causal ? kt : 0; qt < nqt; ++qt) {
@@ -348,6 +399,9 @@ __global__ void __launch_bounds__(kB * (D / 16))
     for (int i = 0; i < kB; ++i) {
       float sv = group_sum<TPR>(dot_part<DPT, TPR>(kr, sQ + i * D, h)) *
                  scale;
+      if constexpr (HasBias)
+        sv = __fadd_rn(sv,
+                       __ldg(bcol + static_cast<long>(qt * kB + i) * sk));
       if (diag && r > i) sv = apex::kNegInf;  // kpos > qpos
       const float p = expf(sv - sL[i]);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(vr, sO + i * D, h));
@@ -366,54 +420,158 @@ __global__ void __launch_bounds__(kB * (D / 16))
   store_row_part<T, DPT, TPR>(dv + krow, dva, h);
 }
 
-template <typename T, int D>
-void launch_fwd(const void* q, const void* k, const void* v, void* o,
-                void* lse, int bh, int sq, int sk, float scale, int causal,
-                Dropout drop, cudaStream_t s) {
-  flash_fwd_kernel<T, D><<<dim3(sq / kB, bh), kB * (D / 32), 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, scale, causal, drop);
-}
+// ---------------------------------------------------------------------------
+// d(bias): one block per (k tile, q tile, head) output tile, walking the
+// batch in order
 
 template <typename T, int D>
+__global__ void __launch_bounds__(kB * (D / 32))
+    flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const float* __restrict__ bias,
+                           float* __restrict__ db, int heads, int nb, int sq,
+                           int sk, float scale, int causal, Dropout drop) {
+  constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
+  constexpr int NJ = kB / TPR;  // columns of the tile one thread sums
+  __shared__ __align__(16) float sK[kB * D];
+  __shared__ __align__(16) float sV[kB * D];
+  const int kt = blockIdx.x, qt = blockIdx.y, head = blockIdx.z;
+  const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
+  const int qpos = qt * kB + r;
+  // this thread's columns: h, h + TPR, h + 2 * TPR, ... of the tile's row r
+  float* dbrow = db + (static_cast<long>(head) * sq + qpos) * sk + kt * kB;
+  float acc[NJ];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) acc[i] = 0.f;
+  if (causal && kt > qt) {  // above the diagonal: no score is live
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) dbrow[h + TPR * i] = 0.f;
+    return;
+  }
+  const float* brow = bias_row<true>(bias, head, qpos, sq, sk) + kt * kB;
+  const bool diag = causal && kt == qt;
+
+  float qr[DPT], dor[DPT];
+  for (int b = 0; b < nb; ++b) {
+    const int bh = b * heads + head;
+    const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
+    const long qrow = (static_cast<long>(bh) * sq + qpos) * D;
+    load_row_part<T, DPT, TPR>(q + qrow, qr, h);
+    load_row_part<T, DPT, TPR>(dout + qrow, dor, h);
+    const float lse_r = lse[static_cast<long>(bh) * sq + qpos];
+    const float delta_r = delta[static_cast<long>(bh) * sq + qpos];
+    __syncthreads();  // the previous batch item's readers are done
+    const long kbase = (static_cast<long>(bh) * sk + kt * kB) * D;
+    stage_tile<T, D>(sK, k + kbase, NT);
+    stage_tile<T, D>(sV, v + kbase, NT);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      float sv = group_sum<TPR>(dot_part<DPT, TPR>(qr, sK + j * D, h)) *
+                 scale;
+      sv = __fadd_rn(sv, __ldg(brow + j));
+      if (diag && j > r) sv = apex::kNegInf;
+      const float p = expf(sv - lse_r);
+      float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
+      if (drop.on)
+        dp = hash_keep(qpos, kt * kB + j, base, drop.thresh)
+                 ? dp * drop.inv_keep
+                 : 0.f;
+      // rounded before the sum, as JAX adds p * (dp - delta) to its scratch
+      const float ds = __fmul_rn(p, dp - delta_r);
+      if (j % TPR == h) acc[j / TPR] = __fadd_rn(acc[j / TPR], ds);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) dbrow[h + TPR * i] = acc[i];
+}
+
+template <typename T, int D, bool HasBias>
+void launch_fwd(const void* q, const void* k, const void* v,
+                const void* bias, void* o, void* lse, int heads, int bh,
+                int sq, int sk, float scale, int causal, Dropout drop,
+                cudaStream_t s) {
+  flash_fwd_kernel<T, D, HasBias>
+      <<<dim3(sq / kB, bh), kB * (D / 32), 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const float*>(bias),
+          static_cast<T*>(o), static_cast<float*>(lse), heads, sq, sk, scale,
+          causal, drop);
+}
+
+template <typename T, int D, bool HasBias>
 void launch_dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, int bh, int sq,
-               int sk, float scale, int causal, Dropout drop,
-               cudaStream_t s) {
-  flash_bwd_dq_kernel<T, D><<<dim3(sq / kB, bh), kB * (D / 32), 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), sq, sk, scale, causal, drop);
+               const void* lse, const void* delta, const void* bias, void* dq,
+               int heads, int bh, int sq, int sk, float scale, int causal,
+               Dropout drop, cudaStream_t s) {
+  flash_bwd_dq_kernel<T, D, HasBias>
+      <<<dim3(sq / kB, bh), kB * (D / 32), 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const float*>(bias), static_cast<T*>(dq), heads, sq,
+          sk, scale, causal, drop);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool HasBias>
 void launch_dkv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
-                void* dk, void* dv, int bh, int sq, int sk, float scale,
-                int causal, Dropout drop, cudaStream_t s) {
-  flash_bwd_dkv_kernel<T, D><<<dim3(sk / kB, bh), kB * (D / 16), 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, scale, causal, drop);
+                const void* bias, void* dk, void* dv, int heads, int bh,
+                int sq, int sk, float scale, int causal, Dropout drop,
+                cudaStream_t s) {
+  flash_bwd_dkv_kernel<T, D, HasBias>
+      <<<dim3(sk / kB, bh), kB * (D / 16), 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const float*>(bias), static_cast<T*>(dk),
+          static_cast<T*>(dv), heads, sq, sk, scale, causal, drop);
 }
 
-// calls FN<T, D>(args...) for the (type, head_dim) pair; an unsupported pair
-// returns cudaErrorInvalidValue from the calling entry point
-#define APEX_FLASH_DISPATCH(FN, ...)                      \
-  do {                                                    \
-    if (is_bf16 && d == 64)                               \
-      FN<__nv_bfloat16, 64>(__VA_ARGS__);                 \
-    else if (is_bf16 && d == 32)                          \
-      FN<__nv_bfloat16, 32>(__VA_ARGS__);                 \
-    else if (!is_bf16 && d == 64)                         \
-      FN<float, 64>(__VA_ARGS__);                         \
-    else if (!is_bf16 && d == 32)                         \
-      FN<float, 32>(__VA_ARGS__);                         \
-    else                                                  \
-      return static_cast<int>(cudaErrorInvalidValue);     \
+template <typename T, int D>
+void launch_dbias(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  const void* bias, void* db, int heads, int bh, int sq,
+                  int sk, float scale, int causal, Dropout drop,
+                  cudaStream_t s) {
+  flash_bwd_dbias_kernel<T, D>
+      <<<dim3(sk / kB, sq / kB, heads), kB * (D / 32), 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const float*>(bias), static_cast<float*>(db), heads,
+          bh / heads, sq, sk, scale, causal, drop);
+}
+
+// runs the statement given, as written, with T and D bound to the
+// (type, head_dim) pair; an unsupported pair returns cudaErrorInvalidValue
+// from the calling entry point
+#define APEX_FLASH_DISPATCH_TD(...)                                  \
+  do {                                                               \
+    if (is_bf16 && d == 64) {                                        \
+      using T = __nv_bfloat16; constexpr int D = 64; __VA_ARGS__;    \
+    } else if (is_bf16 && d == 32) {                                 \
+      using T = __nv_bfloat16; constexpr int D = 32; __VA_ARGS__;    \
+    } else if (!is_bf16 && d == 64) {                                \
+      using T = float; constexpr int D = 64; __VA_ARGS__;            \
+    } else if (!is_bf16 && d == 32) {                                \
+      using T = float; constexpr int D = 32; __VA_ARGS__;            \
+    } else {                                                         \
+      return static_cast<int>(cudaErrorInvalidValue);                \
+    }                                                                \
+  } while (0)
+
+// FN<T, D, HasBias>(args...): the bias-free kernels for a null `bias`, the
+// bias kernels otherwise
+#define APEX_FLASH_DISPATCH(FN, ...)                                 \
+  do {                                                               \
+    if (bias != nullptr)                                             \
+      APEX_FLASH_DISPATCH_TD(FN<T, D, true>(__VA_ARGS__));           \
+    else                                                             \
+      APEX_FLASH_DISPATCH_TD(FN<T, D, false>(__VA_ARGS__));          \
   } while (0)
 
 }  // namespace
@@ -421,55 +579,81 @@ void launch_dkv(const void* q, const void* k, const void* v,
 // On CUDA device `device`, on `stream`. q, o, dO, dq: (bh, sq, d); k, v,
 // dk, dv: (bh, sk, d); contiguous, 16-byte aligned, all of one type
 // (is_bf16 ? bf16 : fp32); lse, delta: (bh, sq) fp32. sq and sk are
-// multiples of 64 (equal when causal); d is 32 or 64. Dropout is on when
-// `dropout` != 0: keep where hash >= thresh, kept values scaled by
-// inv_keep.
+// multiples of 64 (equal when causal); d is 32 or 64. `bias` is null or a
+// contiguous, 16-byte aligned fp32 (heads, sq, sk) tensor shared by the
+// batch (bh = batch * heads, b-major; heads is ignored without a bias);
+// d(bias) writes db, fp32 (heads, sq, sk). Dropout is on when `dropout`
+// != 0: keep where hash >= thresh, kept values scaled by inv_keep.
 extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int bh,
-                                   int sq, int sk, int d, float scale,
-                                   int causal, int dropout, unsigned seed,
+                                   const void* v, const void* bias, void* o,
+                                   void* lse, int heads, int bh, int sq,
+                                   int sk, int d, float scale, int causal,
+                                   int dropout, unsigned seed,
                                    unsigned thresh, float inv_keep,
                                    int is_bf16, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, bh, sq, sk, scale, causal,
-                      drop, s);
+  APEX_FLASH_DISPATCH(launch_fwd, q, k, v, bias, o, lse, heads, bh, sq, sk,
+                      scale, causal, drop, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_attention_bwd_dq(int device, const void* q,
                                       const void* k, const void* v,
                                       const void* dout, const void* lse,
-                                      const void* delta, void* dq, int bh,
-                                      int sq, int sk, int d, float scale,
-                                      int causal, int dropout, unsigned seed,
+                                      const void* delta, const void* bias,
+                                      void* dq, int heads, int bh, int sq,
+                                      int sk, int d, float scale, int causal,
+                                      int dropout, unsigned seed,
                                       unsigned thresh, float inv_keep,
                                       int is_bf16, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, sq, sk,
-                      scale, causal, drop, s);
+  APEX_FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, bias, dq, heads,
+                      bh, sq, sk, scale, causal, drop, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_attention_bwd_dkv(int device, const void* q,
                                        const void* k, const void* v,
                                        const void* dout, const void* lse,
-                                       const void* delta, void* dk, void* dv,
-                                       int bh, int sq, int sk, int d,
-                                       float scale, int causal, int dropout,
-                                       unsigned seed, unsigned thresh,
-                                       float inv_keep, int is_bf16,
-                                       void* stream) {
+                                       const void* delta, const void* bias,
+                                       void* dk, void* dv, int heads, int bh,
+                                       int sq, int sk, int d, float scale,
+                                       int causal, int dropout, unsigned seed,
+                                       unsigned thresh, float inv_keep,
+                                       int is_bf16, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, sq,
-                      sk, scale, causal, drop, s);
+  APEX_FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, bias, dk, dv,
+                      heads, bh, sq, sk, scale, causal, drop, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flash_attention_bwd_dbias(int device, const void* q,
+                                         const void* k, const void* v,
+                                         const void* dout, const void* lse,
+                                         const void* delta, const void* bias,
+                                         void* db, int heads, int bh, int sq,
+                                         int sk, int d, float scale,
+                                         int causal, int dropout,
+                                         unsigned seed, unsigned thresh,
+                                         float inv_keep, int is_bf16,
+                                         void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (bias == nullptr || heads <= 0 || bh % heads != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{dropout, seed, thresh, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  APEX_FLASH_DISPATCH_TD(launch_dbias<T, D>(q, k, v, dout, lse, delta, bias,
+                                            db, heads, bh, sq, sk, scale,
+                                            causal, drop, s));
   return static_cast<int>(cudaGetLastError());
 }

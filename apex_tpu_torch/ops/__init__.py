@@ -6,6 +6,8 @@ from apex_tpu_torch.ops.attention import (  # noqa: F401
     attention_dropout_mask,
     attention_reference,
     flash_attention,
+    flash_attention_bwd_dbias,
+    flash_attention_bwd_dbias_reference,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_bwd_reference,

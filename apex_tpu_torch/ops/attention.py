@@ -10,6 +10,12 @@ recomputing the scores from ``lse`` and ``delta = Σ dO·O``.
 :class:`FlashAttention` ties them into autograd; each dispatches by device
 (the kernel for a CUDA tensor, its plain version for a CPU tensor).
 
+An additive logit bias (T5's relative position bias) rides the same
+kernels: fp32 (heads, sq, sk), shared by the batch (row ``bh`` of the
+flattened form takes head ``bh % heads``), added to the scaled scores
+before the causal mask. Its gradient, Σ over the batch of p·(dp − Δ), is
+a fourth kernel, :func:`flash_attention_bwd_dbias`.
+
 Dropout is the JAX kernels' counter hash (:func:`attention_dropout_mask`),
 bitwise the same keep mask, so the forward, its remat replay and both
 backward kernels drop the same entries.
@@ -32,15 +38,20 @@ NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 _FLASH_HEAD_DIMS = (32, 64)
 _FLASH_TILE = 64
+# heads, bh, sq, sk, d, scale, causal, dropout, seed, thresh, inv_keep,
+# is_bf16, stream
 _FLASH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-               ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+               ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+               ctypes.c_void_p]
 _SIGNATURES = {
-    "flash_attention_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 5
+    "flash_attention_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6
     + _FLASH_ARGS,
-    "flash_attention_bwd_dq": [ctypes.c_int] + [ctypes.c_void_p] * 7
+    "flash_attention_bwd_dq": [ctypes.c_int] + [ctypes.c_void_p] * 8
     + _FLASH_ARGS,
-    "flash_attention_bwd_dkv": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    "flash_attention_bwd_dkv": [ctypes.c_int] + [ctypes.c_void_p] * 9
+    + _FLASH_ARGS,
+    "flash_attention_bwd_dbias": [ctypes.c_int] + [ctypes.c_void_p] * 8
     + _FLASH_ARGS,
 }
 
@@ -95,18 +106,21 @@ def attention_dropout_mask(seed, rate: float, bh: int, sq: int, sk: int,
 
 def attention_reference(q, k, v, mask=None, scale: Optional[float] = None,
                         causal: bool = False, dropout_rate: float = 0.0,
-                        dropout_keep=None):
-    """Plain softmax(Q Kᵀ · scale) V with fp32 accumulation (the JAX
-    ``attention_reference`` without bias; dropout only from an explicit
+                        dropout_keep=None, bias=None):
+    """Plain softmax(Q Kᵀ · scale + bias) V with fp32 accumulation (the JAX
+    ``attention_reference``; dropout only from an explicit
     ``dropout_keep`` mask, the counter-hash stream).
 
     ``mask``: boolean broadcastable over (..., sq, sk), True = masked OUT.
-    Returns q.dtype.
+    ``bias``: additive logit bias broadcastable over (..., sq, sk), e.g.
+    T5's (heads, sq, sk). Returns q.dtype.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     q32, k32, v32 = q.float(), k.float(), v.float()
     s = torch.einsum("...qd,...kd->...qk", q32, k32) * scale
+    if bias is not None:
+        s = s + bias.float()
     if causal:
         s = torch.where(_causal_masked(s), NEG_INF, s)
     if mask is not None:
@@ -129,11 +143,20 @@ def _causal_masked(s):
     return kpos > qpos + (sk - sq)
 
 
-def _scores(q3, k3, scale, causal):
+def _scores(q3, k3, scale, causal, bias=None):
     s = torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale
+    if bias is not None:
+        s = _per_head(s, bias) + bias.float()
+        s = s.reshape(q3.shape[0], *s.shape[2:])
     if causal:
         s = torch.where(_causal_masked(s), NEG_INF, s)
     return s
+
+
+def _per_head(t3, bias):
+    """(bh, ...) -> (b, heads, ...) view, bh = b·heads b-major (the
+    flattening of ``flash_attention``), so a (heads, ...) bias lines up."""
+    return t3.view(-1, bias.shape[0], *t3.shape[1:])
 
 
 def _keep(rate, seed, bh, sq, sk, device):
@@ -143,13 +166,15 @@ def _keep(rate, seed, bh, sq, sk, device):
 
 
 def flash_attention_fwd_reference(q3, k3, v3, scale: float, causal: bool,
-                                  dropout_rate: float = 0.0, seed: int = 0):
+                                  dropout_rate: float = 0.0, seed: int = 0,
+                                  bias=None):
     """Plain version of the forward kernel over (bh, s, d): ``(o, lse)``,
     o in q's type, lse fp32 (bh, sq, 1). Like the kernel, ``l`` sums the
     UNdropped probabilities, dropout scales the kept ones, and p is
-    rounded to v's type before p @ v."""
+    rounded to v's type before p @ v. ``bias``: None or (heads, sq, sk),
+    added in fp32 after the scaling."""
     bh, sq, _ = q3.shape
-    s = _scores(q3, k3, scale, causal)
+    s = _scores(q3, k3, scale, causal, bias)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -164,17 +189,13 @@ def flash_attention_fwd_reference(q3, k3, v3, scale: float, causal: bool,
     return o, lse
 
 
-def flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3, scale: float,
-                                  causal: bool, dropout_rate: float = 0.0,
-                                  seed: int = 0):
-    """Plain version of the two backward kernels: ``(dq, dk, dv)`` in the
-    inputs' types, recomputed from ``lse`` the way the kernels do: p =
-    exp(s − lse), dp = dO·vᵀ (dropped and rescaled), ds = p·(dp − Δ)·scale
-    with Δ = Σ dO·O; ds and the dropped p are rounded to the input type
-    before each product, fp32 accumulation."""
+def _p_dp_delta(q3, k3, v3, o3, lse, do3, scale, causal, dropout_rate,
+                seed, bias):
+    """The backward's recomputation: p = exp(s − lse), dp = dO·vᵀ (dropped
+    and rescaled), Δ = Σ dO·O, and the dropped p that multiplies dO."""
     bh, sq, _ = q3.shape
     delta = (do3.float() * o3.float()).sum(dim=-1, keepdim=True)
-    p = torch.exp(_scores(q3, k3, scale, causal) - lse)
+    p = torch.exp(_scores(q3, k3, scale, causal, bias) - lse)
     dp = torch.einsum("bqd,bkd->bqk", do3.float(), v3.float())
     keep = _keep(dropout_rate, seed, bh, sq, k3.shape[1], q3.device)
     p_v = p
@@ -182,6 +203,19 @@ def flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3, scale: float,
         inv = 1.0 / (1.0 - dropout_rate)
         p_v = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
+    return p, dp, delta, p_v
+
+
+def flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3, scale: float,
+                                  causal: bool, dropout_rate: float = 0.0,
+                                  seed: int = 0, bias=None):
+    """Plain version of the dQ and dK/dV kernels: ``(dq, dk, dv)`` in the
+    inputs' types, recomputed from ``lse`` the way the kernels do: p =
+    exp(s − lse), dp = dO·vᵀ (dropped and rescaled), ds = p·(dp − Δ)·scale
+    with Δ = Σ dO·O; ds and the dropped p are rounded to the input type
+    before each product, fp32 accumulation."""
+    p, dp, delta, p_v = _p_dp_delta(q3, k3, v3, o3, lse, do3, scale, causal,
+                                    dropout_rate, seed, bias)
     ds = (p * (dp - delta) * scale).to(q3.dtype).float()
     dv = torch.einsum("bqk,bqd->bkd", p_v.to(do3.dtype).float(), do3.float())
     dq = torch.einsum("bqk,bkd->bqd", ds, k3.float())
@@ -189,11 +223,26 @@ def flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3, scale: float,
     return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
+def flash_attention_bwd_dbias_reference(q3, k3, v3, o3, lse, do3,
+                                        scale: float, causal: bool,
+                                        dropout_rate: float = 0.0,
+                                        seed: int = 0, *, bias):
+    """Plain version of the d(bias) kernel: dL/dbias, fp32 (heads, sq, sk),
+    Σ over the batch of p·(dp − Δ) — no ``scale`` factor, the bias enters
+    after the scaling. Where the causal mask holds p is 0, so those
+    entries are 0."""
+    p, dp, delta, _ = _p_dp_delta(q3, k3, v3, o3, lse, do3, scale, causal,
+                                  dropout_rate, seed, bias)
+    return _per_head(p * (dp - delta), bias).sum(dim=0)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
 
-def _check_flash(what, q3, k3, v3, causal, *others):
+def _check_flash(what, q3, k3, v3, causal, bias, *others):
+    """Checks the kernels' inputs; returns ``(heads, bh, sq, sk, d)``
+    (heads 1 without a bias)."""
     ku.require(q3.is_cuda and q3.dim() == 3,
                f"{what} takes 3-d (bh, s, d) CUDA tensors, got {q3.device} "
                f"{tuple(q3.shape)}")
@@ -209,9 +258,17 @@ def _check_flash(what, q3, k3, v3, causal, *others):
     ku.require(not causal or sq == sk,
                f"{what}: causal needs sq == sk, got {sq} and {sk}")
     ku.require(bh < 65536, f"{what}: batch*heads ({bh}) must be < 65536")
+    heads = 1
+    if bias is not None:
+        heads = bias.shape[0] if bias.dim() == 3 else 0
+        ku.require(heads > 0 and bh % heads == 0,
+                   f"{what}: bias must be (heads, sq, sk) with heads "
+                   f"dividing batch*heads ({bh}), got {tuple(bias.shape)}")
+        others = (("bias", bias, (heads, sq, sk)), *others)
     for name, t, shape in (("k", k3, (bh, sk, d)), ("v", v3, (bh, sk, d)),
                            *others):
-        want_dtype = torch.float32 if name in ("lse", "delta") else q3.dtype
+        want_dtype = (torch.float32 if name in ("lse", "delta", "bias")
+                      else q3.dtype)
         ku.require(t.device == q3.device and t.dtype == want_dtype
                    and tuple(t.shape) == shape and t.is_contiguous()
                    and t.data_ptr() % 16 == 0,
@@ -219,7 +276,11 @@ def _check_flash(what, q3, k3, v3, causal, *others):
                    f"{shape} {want_dtype} tensor on {q3.device}")
     ku.require(q3.is_contiguous() and q3.data_ptr() % 16 == 0,
                f"{what}: q must be contiguous and 16-byte aligned")
-    return bh, sq, sk, d
+    return heads, bh, sq, sk, d
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _dropout_args(rate: float, seed: int):
@@ -228,101 +289,127 @@ def _dropout_args(rate: float, seed: int):
     return 1, int(seed) & _M32, _keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def flash_attention_fwd(q3, k3, v3, scale: float, causal: bool,
-                        dropout_rate: float = 0.0, seed: int = 0):
-    """Launch the flash forward kernel on (bh, s, d) CUDA tensors: returns
-    ``(o, lse)``, lse fp32 (bh, sq, 1)."""
-    bh, sq, sk, d = _check_flash("flash_attention_fwd", q3, k3, v3, causal)
-    o = torch.empty_like(q3)
-    lse = torch.empty(bh, sq, 1, dtype=torch.float32, device=q3.device)
+def _launch(entry, q3, k3, v3, bias, scale, causal, dropout_rate, seed,
+            pointers, shapes):
+    """Check the inputs, launch ``entry`` with the tensors of ``pointers``
+    (in the C order), count the launch (a launch of the fwd, dQ or dK/dV
+    kernel with a bias also under ``entry + "[bias]"``) and raise on a
+    CUDA error."""
+    heads, bh, sq, sk, d = _check_flash(entry, q3, k3, v3, causal, bias,
+                                        *shapes)
     lib = ku.load_kernel("flash_attention", _SIGNATURES)
-    status = lib.flash_attention_fwd(
-        q3.device.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), bh, sq, sk, d, float(scale),
-        int(causal), *_dropout_args(dropout_rate, seed),
+    status = getattr(lib, entry)(
+        q3.device.index, *(_ptr(t) for t in pointers), heads, bh, sq, sk, d,
+        float(scale), int(causal), *_dropout_args(dropout_rate, seed),
         int(q3.dtype == torch.bfloat16), ku.stream_handle(q3))
-    ku.count_launch("flash_attention_fwd")
-    ku.check_status(lib, status, "flash_attention_fwd")
+    ku.count_launch(entry)
+    if bias is not None and entry != "flash_attention_bwd_dbias":
+        ku.count_launch(entry + "[bias]")
+    ku.check_status(lib, status, entry)
+
+
+def _bwd_shapes(q3, do3, lse, delta):
+    rows = (q3.shape[0], q3.shape[1], 1)
+    return (("dO", do3, tuple(q3.shape)), ("lse", lse, rows),
+            ("delta", delta, rows))
+
+
+def flash_attention_fwd(q3, k3, v3, scale: float, causal: bool,
+                        dropout_rate: float = 0.0, seed: int = 0,
+                        bias=None):
+    """Launch the flash forward kernel on (bh, s, d) CUDA tensors: returns
+    ``(o, lse)``, lse fp32 (bh, sq, 1). ``bias``: None or a contiguous fp32
+    (heads, sq, sk) CUDA tensor."""
+    o = torch.empty_like(q3)
+    lse = torch.empty(q3.shape[0], q3.shape[1], 1, dtype=torch.float32,
+                      device=q3.device)
+    _launch("flash_attention_fwd", q3, k3, v3, bias, scale, causal,
+            dropout_rate, seed, (q3, k3, v3, bias, o, lse), ())
     return o, lse
 
 
 def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float,
                            causal: bool, dropout_rate: float = 0.0,
-                           seed: int = 0):
+                           seed: int = 0, bias=None):
     """Launch the dQ kernel; ``lse`` and ``delta`` are fp32 (bh, sq, 1)."""
-    rows = (q3.shape[0], q3.shape[1], 1)
-    bh, sq, sk, d = _check_flash(
-        "flash_attention_bwd_dq", q3, k3, v3, causal,
-        ("dO", do3, tuple(q3.shape)), ("lse", lse, rows),
-        ("delta", delta, rows))
     dq = torch.empty_like(q3)
-    lib = ku.load_kernel("flash_attention", _SIGNATURES)
-    status = lib.flash_attention_bwd_dq(
-        q3.device.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-        do3.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh,
-        sq, sk, d, float(scale), int(causal),
-        *_dropout_args(dropout_rate, seed), int(q3.dtype == torch.bfloat16),
-        ku.stream_handle(q3))
-    ku.count_launch("flash_attention_bwd_dq")
-    ku.check_status(lib, status, "flash_attention_bwd_dq")
+    _launch("flash_attention_bwd_dq", q3, k3, v3, bias, scale, causal,
+            dropout_rate, seed, (q3, k3, v3, do3, lse, delta, bias, dq),
+            _bwd_shapes(q3, do3, lse, delta))
     return dq
 
 
 def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float,
                             causal: bool, dropout_rate: float = 0.0,
-                            seed: int = 0):
+                            seed: int = 0, bias=None):
     """Launch the dK/dV kernel; returns ``(dk, dv)``."""
-    rows = (q3.shape[0], q3.shape[1], 1)
-    bh, sq, sk, d = _check_flash(
-        "flash_attention_bwd_dkv", q3, k3, v3, causal,
-        ("dO", do3, tuple(q3.shape)), ("lse", lse, rows),
-        ("delta", delta, rows))
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
-    lib = ku.load_kernel("flash_attention", _SIGNATURES)
-    status = lib.flash_attention_bwd_dkv(
-        q3.device.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-        do3.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, sq, sk, d, float(scale), int(causal),
-        *_dropout_args(dropout_rate, seed), int(q3.dtype == torch.bfloat16),
-        ku.stream_handle(q3))
-    ku.count_launch("flash_attention_bwd_dkv")
-    ku.check_status(lib, status, "flash_attention_bwd_dkv")
+    _launch("flash_attention_bwd_dkv", q3, k3, v3, bias, scale, causal,
+            dropout_rate, seed, (q3, k3, v3, do3, lse, delta, bias, dk, dv),
+            _bwd_shapes(q3, do3, lse, delta))
     return dk, dv
+
+
+def flash_attention_bwd_dbias(q3, k3, v3, do3, lse, delta, scale: float,
+                              causal: bool, dropout_rate: float = 0.0,
+                              seed: int = 0, *, bias):
+    """Launch the d(bias) kernel: dL/dbias, fp32 (heads, sq, sk), summed
+    over the batch in order by one block per output tile (the same bits
+    on every run)."""
+    ku.require(bias is not None, "flash_attention_bwd_dbias needs the bias")
+    db = torch.empty(bias.shape, dtype=torch.float32, device=q3.device)
+    _launch("flash_attention_bwd_dbias", q3, k3, v3, bias, scale, causal,
+            dropout_rate, seed, (q3, k3, v3, do3, lse, delta, bias, db),
+            _bwd_shapes(q3, do3, lse, delta))
+    return db
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention over (bh, s, d) with its JAX ``custom_vjp``
-    (``_flash3``): the forward saves (q, k, v, o, lse), the backward runs
-    the dQ and dK/dV kernels (or their plain versions) from them."""
+    (``_flash3``, and ``_flash3_bias`` when a bias is given): the forward
+    saves (q, k, v, o, lse), the backward runs the dQ and dK/dV kernels
+    and, with a bias, the d(bias) kernel (or their plain versions) from
+    them. The bias is used in fp32; its gradient comes back in the bias's
+    dtype, as ``_flash3_bias_bwd`` casts it."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, scale, causal, dropout_rate, seed):
+    def forward(ctx, q3, k3, v3, bias, scale, causal, dropout_rate, seed):
         ctx.kernel = ku.use_kernel(q3)
         ctx.args = (scale, causal, dropout_rate, seed)
-        if ctx.kernel:
-            o, lse = flash_attention_fwd(q3, k3, v3, *ctx.args)
-        else:
-            o, lse = flash_attention_fwd_reference(q3, k3, v3, *ctx.args)
-        ctx.save_for_backward(q3, k3, v3, o, lse)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        bias32 = None if bias is None else bias.float().contiguous()
+        fwd = (flash_attention_fwd if ctx.kernel
+               else flash_attention_fwd_reference)
+        o, lse = fwd(q3, k3, v3, *ctx.args, bias=bias32)
+        ctx.save_for_backward(q3, k3, v3, o, lse, bias32)
         return o
 
     @staticmethod
     def backward(ctx, do3):
-        q3, k3, v3, o, lse = ctx.saved_tensors
+        q3, k3, v3, o, lse, bias32 = ctx.saved_tensors
         do3 = do3.contiguous()
+        db = None
         if ctx.kernel:
             # delta = Σ dO·O stays a torch reduction, as it is XLA outside
             # the kernels in JAX (attention.py:506)
             delta = (do3.float() * o.float()).sum(dim=-1, keepdim=True)
             dq = flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta,
-                                        *ctx.args)
+                                        *ctx.args, bias=bias32)
             dk, dv = flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta,
-                                             *ctx.args)
+                                             *ctx.args, bias=bias32)
+            if bias32 is not None and ctx.needs_input_grad[3]:
+                db = flash_attention_bwd_dbias(q3, k3, v3, do3, lse, delta,
+                                               *ctx.args, bias=bias32)
         else:
-            dq, dk, dv = flash_attention_bwd_reference(q3, k3, v3, o, lse,
-                                                       do3, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+            dq, dk, dv = flash_attention_bwd_reference(
+                q3, k3, v3, o, lse, do3, *ctx.args, bias=bias32)
+            if bias32 is not None and ctx.needs_input_grad[3]:
+                db = flash_attention_bwd_dbias_reference(
+                    q3, k3, v3, o, lse, do3, *ctx.args, bias=bias32)
+        if db is not None:
+            db = db.to(ctx.bias_dtype)
+        return dq, dk, dv, db, None, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, causal: bool = False,
@@ -336,21 +423,23 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     path on every device, exactly as JAX sends a mask to its reference
     (``attention.py:804-821``); with dropout that path applies the same
     counter-hash mask. ``dropout_rate`` > 0 needs ``dropout_seed`` (an
-    int). ``bias`` (T5 relative position bias, kernel B #8) is not ported.
-    On CUDA the kernels take fp32/bf16, head_dim 32 or 64, sequence
-    lengths that are multiples of 64, and sq == sk when causal; any other
-    shape raises.
+    int). ``bias``: a batch-shared additive logit bias of shape (heads,
+    sq, sk) (T5's relative position bias), added after the scaling and
+    differentiable; any other shape raises ``ValueError``, as in JAX. On
+    CUDA the kernels take fp32/bf16, head_dim 32 or 64, sequence lengths
+    that are multiples of 64, and sq == sk when causal; any other shape
+    raises. The bias is used in fp32 whatever its dtype.
     """
-    if bias is not None:
-        raise NotImplementedError(
-            "flash_attention(bias=...) and its d(bias) kernel are not ported "
-            "yet (ROADMAP A6)")
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 needs dropout_seed")
+    if bias is not None and tuple(bias.shape) != (h, sq, sk):
+        raise ValueError(
+            f"bias must be batch-shared (heads, sq, sk) = {(h, sq, sk)}, "
+            f"got {tuple(bias.shape)}")
     seed = 0 if dropout_seed is None else int(dropout_seed)
     if mask is not None:
         keep = None
@@ -360,9 +449,9 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
             keep = keep.reshape(b, h, sq, sk)
         return attention_reference(q, k, v, mask=mask, scale=scale,
                                    causal=causal, dropout_rate=dropout_rate,
-                                   dropout_keep=keep)
+                                   dropout_keep=keep, bias=bias)
     o3 = FlashAttention.apply(
         q.reshape(b * h, sq, d), k.reshape(b * h, sk, d),
-        v.reshape(b * h, sk, d), float(scale), bool(causal),
+        v.reshape(b * h, sk, d), bias, float(scale), bool(causal),
         float(dropout_rate), seed)
     return o3.reshape(b, h, sq, d)

@@ -10,6 +10,16 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     init_gpt_params,
     tied_vocab_logits,
 )
+from apex_tpu_torch.transformer.testing.standalone_t5 import (  # noqa: F401
+    T5Config,
+    init_t5_params,
+    init_t5_params_numpy,
+    t5_decode,
+    t5_encode,
+    t5_loss,
+    t5_relative_bias,
+)
 from apex_tpu_torch.transformer.testing.train import (  # noqa: F401
+    build_t5_train_step,
     build_train_step,
 )

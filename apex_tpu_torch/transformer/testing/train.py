@@ -1,14 +1,20 @@
 """The flagship training step (counterpart of ``bench.py``'s
 ``build_train_step``, ``bench.py:55-102``): forward with full remat,
-backward and the FusedAdam update of a GPT on one device.
+backward and the FusedAdam update of a GPT on one device; and the same
+step for the T5 encoder-decoder (JAX's sequential ``t5_loss``).
 
     cfg = GPTConfig()        # bf16, full remat, fused LM-head loss
     step, params, opt, tok, tgt = build_train_step(cfg, 8, 1024)
     loss = step()            # 0-d fp32 tensor, no host sync inside
 
-Parameters come from :func:`init_gpt_params` (numpy seed ``seed``),
-tokens from ``numpy.random.default_rng(seed + 1)``, and ``tgt`` is
-``tok`` rolled by one position, as in JAX.
+    cfg = T5Config(relative_position_bias=True, encoder_final_ln=True)
+    step, params, opt, (enc, dec, tgt) = build_t5_train_step(cfg, 8, 512,
+                                                             128)
+
+Parameters come from :func:`init_gpt_params` / :func:`init_t5_params`
+(numpy seed ``seed``), tokens from ``numpy.random.default_rng(seed + 1)``,
+and the targets are the (decoder) tokens rolled by one position, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +31,11 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
     GPTConfig,
     gpt_loss,
     init_gpt_params,
+)
+from apex_tpu_torch.transformer.testing.standalone_t5 import (
+    T5Config,
+    init_t5_params,
+    t5_loss,
 )
 
 
@@ -50,21 +61,59 @@ def build_train_step(cfg: GPTConfig, batch: int, seq: int,
         raise ValueError(f"seq ({seq}) exceeds max_seq ({cfg.max_seq})")
     dev = resolve_device(device)
     params = init_gpt_params(cfg, seed=seed, device=dev)
+    tok = _tokens(np.random.default_rng(seed + 1), cfg.vocab_size, batch,
+                  seq, dev)
+    tgt = torch.roll(tok, -1, dims=1)
+    step, optimizer = _step_over(params, fused_tail,
+                                 lambda: gpt_loss(params, tok, tgt, cfg))
+    return step, params, optimizer, tok, tgt
+
+
+def build_t5_train_step(cfg: T5Config, batch: int, seq_enc: int,
+                        seq_dec: int, device: DeviceLike = None,
+                        seed: int = 0) -> Tuple[Callable[[], torch.Tensor],
+                                   Dict[str, Any], FusedAdam,
+                                   Tuple[torch.Tensor, ...]]:
+    """Returns ``(train_step, params, optimizer, (enc, dec, tgt))``: each
+    call of ``train_step()`` runs one ``t5_loss`` fwd + bwd and the
+    ``FusedAdam(lr=1e-4, fused_tail="auto")`` update on the fixed
+    batch (encoder tokens (batch, seq_enc), decoder tokens (batch,
+    seq_dec), targets the decoder tokens rolled by one) and returns the
+    loss before the update."""
+    cfg.validate()
+    for what, seq, most in (("seq_enc", seq_enc, cfg.max_seq_enc),
+                            ("seq_dec", seq_dec, cfg.max_seq_dec)):
+        if seq > most:
+            raise ValueError(f"{what} ({seq}) exceeds its max ({most})")
+    dev = resolve_device(device)
+    params = init_t5_params(cfg, seed=seed, device=dev)
+    rng = np.random.default_rng(seed + 1)
+    enc = _tokens(rng, cfg.vocab_size, batch, seq_enc, dev)
+    dec = _tokens(rng, cfg.vocab_size, batch, seq_dec, dev)
+    tgt = torch.roll(dec, -1, dims=1)
+    step, optimizer = _step_over(params, "auto",
+                                 lambda: t5_loss(params, enc, dec, tgt, cfg))
+    return step, params, optimizer, (enc, dec, tgt)
+
+
+def _tokens(rng, vocab: int, batch: int, seq: int, dev) -> torch.Tensor:
+    return torch.from_numpy(
+        rng.integers(0, vocab, (batch, seq)).astype(np.int64)).to(dev)
+
+
+def _step_over(params, fused_tail: str, loss_fn):
+    """The step closure over ``loss_fn`` and a ``FusedAdam(lr=1e-4)`` over
+    every leaf of ``params`` (made trainable here)."""
     for p in param_leaves(params):
         p.requires_grad_(True)
     optimizer = FusedAdam(param_leaves(params), lr=1e-4,
                           fused_tail=fused_tail)
-    rng = np.random.default_rng(seed + 1)
-    tok = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
-    ).to(dev)
-    tgt = torch.roll(tok, -1, dims=1)
 
     def train_step() -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = gpt_loss(params, tok, tgt, cfg)
+        loss = loss_fn()
         loss.backward()
         optimizer.step()
         return loss.detach()
 
-    return train_step, params, optimizer, tok, tgt
+    return train_step, optimizer

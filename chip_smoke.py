@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--out PATH]
 
-1. Builds every kernel of the serving and training paths from
-   ``apex_tpu_torch/csrc`` with ``nvcc`` (one process per source, all at
-   once); each kernel phase below starts as soon as its own source is
+1. Builds every kernel of the serving and training paths (GPT and T5)
+   from ``apex_tpu_torch/csrc`` with ``nvcc`` (one process per source, all
+   at once); each kernel phase below starts as soon as its own source is
    built.
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    fp32 and bf16, with the tolerance stated; times of kernel, plain version
@@ -13,26 +13,32 @@
    * LayerNorm forward and paged attention at the serving path's shapes
      (``F.layer_norm``; SDPA over pre-gathered K/V), paged attention also
      over int8 and int4 pools, and LayerNorm forward with its mean/rstd
-     at the training path's (8192, 768);
+     at the training paths' (GPT's (8192, 768), T5's (4096 | 1024, 512));
    * the fused layer (the megakernel) for one GPT-2-124M layer, decode (8
      rows) and verify (8 x 5 rows), fp32 and bf16, fp / int8 / int4
      pools: x', K, V and fp pools within tolerance of its plain version,
      quantized codes and scales equal to the plain codec's write of its
      K/V, two launches bitwise equal; timed beside the plain version and
      the per-op layer (no single PyTorch call computes a layer);
-   * LayerNorm backward at the flagship training shape (8192, 768), with a
-     bitwise repeat check of dW/dB (autograd through ``F.layer_norm``);
-   * flash attention forward, dQ and dK/dV at the flagship shape (96,
-     1024, 64) causal, at a non-causal and at a dropout shape
-     (``F.scaled_dot_product_attention`` forward and backward);
+   * LayerNorm backward at the same training shapes, with a bitwise
+     repeat check of dW/dB (autograd through ``F.layer_norm``);
+   * flash attention forward, dQ and dK/dV at GPT's flagship shape (8 x
+     12 heads, 1024, 64) causal, at a non-causal and at a dropout shape,
+     and with a bias, beside the d(bias) kernel, at T5-small's: the
+     encoder's (8 x 8 heads, 512, 64) with an fp32 (8, 512, 512) bias,
+     the decoder's causal (.., 128, ..) with an (8, 128, 128) bias, and
+     the rectangular cross-attention 128 x 512 without one; d(bias)
+     bitwise equal over two launches and zero above the causal diagonal
+     (``F.scaled_dot_product_attention`` forward and backward, with the
+     bias as a float mask over the batch);
    * the fused LM-head + CE forward, dX and dW at the training shape
-     (8192, 768, V 50304) and a ragged one (96 rows, V 1000), dX and dW
-     held row by row and with the softmax term alone, with a bitwise
-     repeat check of dW (``torch.matmul`` + ``F.cross_entropy``, forward
-     and autograd);
-   * the Adam tail on each of GPT-2-124M's 16 leaf shapes in both decay
-     modes, the LAMB sums with a bitwise repeat, and the step's 16
-     launches timed (``torch.optim.AdamW(fused=True).step()``).
+     (8192, 768, V 50304), a ragged one (96 rows, V 1000) and T5's (1024,
+     512, V 32128), dX and dW held row by row and with the softmax term
+     alone, with a bitwise repeat check of dW (``torch.matmul`` +
+     ``F.cross_entropy``, forward and autograd);
+   * the Adam tail on each of GPT-2-124M's 16 and T5-small's 39 leaf
+     shapes in both decay modes, the LAMB sums with a bitwise repeat, and
+     each step's launches timed (``torch.optim.AdamW(fused=True).step()``).
 3. Engine phase: GPT-2-124M at full width (random weights from a numpy
    seed), ``ServeConfig(num_slots=8, prefill_chunk=32)`` — whose default
    ``megakernel="auto"`` runs decode and verify through the fused layer —
@@ -67,7 +73,23 @@
    * the unfused step (``fused_loss=False``, ``fused_tail="off"``)
      timed over 10 steps at the same batch and profiled over 3: both
      tokens/s and device busy ms per step side by side.
-5. Prints detail lines, the wall seconds of each phase (and of each
+5. T5 train phase: T5-small (``T5Config(relative_position_bias=True,
+   encoder_final_ln=True)``, 6 + 6 layers, hidden 512, 8 heads, vocab
+   32128) at full width and depth, full remat, the fused LM-head loss,
+   ``FusedAdam(lr=1e-4, fused_tail="auto")``, 512 encoder and 128 decoder
+   tokens a row:
+   * fp32, batch 2: loss and every gradient leaf (the bias tables
+     included, which must get a gradient) through the kernels vs the plain
+     versions forced;
+   * bf16, batch 8 (the T5 main path): the launch counts of one step
+     (reset just before it, read just after) equal the per-step table
+     (LN fwd 62, LN bwd 32, flash fwd 36 of which 24 with a bias, dQ 18,
+     dK/dV 18, d(bias) 12, LM-head 1 each, Adam tail 39); the loss stays
+     finite and falls over 10 steps; a second run from the same seed
+     repeats the losses bitwise; train tokens/s (encoder + decoder), step
+     ms p50, peak memory, busy share and top kernels over 3 profiled
+     steps.
+6. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -80,6 +102,7 @@ when CUDA is absent or the package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -91,6 +114,11 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 KERNEL_ITERS = 50
 SLEEP_CYCLES_PER_S = 2.0e9         # above the H100's SM clock: sleeps long
 TRAIN_ROWS = 8 * 1024              # b·s of the training main path
+# the T5 main path's batch; T5-small's split: 512 inputs, 128 targets
+# (pre-training's 512 / 114, rounded up to the kernels' multiple of 64)
+T5_BATCH, T5_ENC, T5_DEC = 8, 512, 128
+T5_HIDDEN = 512                    # T5-small's width
+T5_LN_ROWS = (T5_BATCH * T5_ENC, T5_BATCH * T5_DEC)   # encoder, decoder
 KV_MODES = {"none": {}, "int8": dict(quantized=True, bits=8),
             "int4": dict(quantized=True, bits=4)}
 
@@ -213,18 +241,19 @@ def start_builds(ku):
 
 
 def layer_norm_phase(torch, dev):
-    """LayerNorm forward at the serving path's shapes (4-256 rows, no
-    statistics) and at the training path's (b·s = 8192 rows, with the fp32
+    """LayerNorm forward at the serving path's shapes (4-256 rows of 768,
+    no statistics) and at the training paths' (GPT's b·s = 8192 rows of
+    768, T5's 4096 encoder and 1024 decoder rows of 512, with the fp32
     mean/rstd the backward reads): y within tol[dtype] of the plain
-    version, mean and rstd within atol/rtol 2e-5 (fp32 sums over 768
-    columns in another order). The training shape is timed with the L2
+    version, mean and rstd within atol/rtol 2e-5 (fp32 sums over the
+    columns in another order). The training shapes are timed with the L2
     flushed between calls, as the backward is."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops.layer_norm import (layer_norm_fwd,
                                                layer_norm_fwd_reference)
 
-    hidden, eps = 768, 1e-5
+    eps = 1e-5
     tol = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 8e-3)}
     stats_tol = (2e-5, 2e-5)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -232,8 +261,10 @@ def layer_norm_phase(torch, dev):
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        for rows, stats in ((4, False), (8, False), (32, False),
-                            (8 * 32, False), (TRAIN_ROWS, True)):
+        for rows, hidden, stats in (
+                (4, 768, False), (8, 768, False), (32, 768, False),
+                (8 * 32, 768, False), (TRAIN_ROWS, 768, True),
+                *((r, T5_HIDDEN, True) for r in T5_LN_ROWS)):
             x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
                  + 1).to(dt)
             w = (1 + 0.1 * torch.randn(hidden, device=dev,
@@ -243,7 +274,7 @@ def layer_norm_phase(torch, dev):
             want = layer_norm_fwd_reference(x, w, b, eps)
             torch.cuda.synchronize()
             atol, rtol = tol[dname]
-            tag = f"{dname} rows={rows}"
+            tag = f"{dname} rows={rows} hidden={hidden}"
             if stats:
                 err = check_close(f"layer_norm_fwd y {tag}", got[0], want[0],
                                   atol, rtol)
@@ -406,25 +437,29 @@ def paged_attention_phase(torch, dev):
 
 
 def layer_norm_bwd_phase(torch, dev):
-    """LayerNorm backward at the flagship training shape (b·s = 8192 rows,
-    hidden 768): dx, dw, db vs the plain version (dw/db sum 8192 rows, so
-    their atol is 2e-5·sqrt(rows) in fp32 and one bf16 rounding plus
-    2e-3·sqrt(rows) in bf16), and dw/db bitwise equal over repeats. Both
-    sides read the forward kernel's mean/rstd, which ``layer_norm_phase``
-    holds against the plain version at this shape."""
+    """LayerNorm backward at the training paths' shapes (GPT's b·s = 8192
+    rows of 768; T5's 4096 encoder and 1024 decoder rows of 512): dx, dw,
+    db vs the plain version (dw/db sum the rows, so their atol is
+    2e-5·sqrt(rows) in fp32 and one bf16 rounding plus 2e-3·sqrt(rows) in
+    bf16), and dw/db bitwise equal over repeats. Both sides read the
+    forward kernel's mean/rstd, which ``layer_norm_phase`` holds against
+    the plain version at these shapes."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd,
                                                layer_norm_bwd_reference,
                                                layer_norm_fwd)
 
-    rows, hidden, eps = TRAIN_ROWS, 768, 1e-5
+    eps = 1e-5
     tol = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 8e-3)}
     gen = torch.Generator(device=dev).manual_seed(2)
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     cases = []
-    for dt in (torch.float32, torch.bfloat16):
+    for (rows, hidden), dt in itertools.product(
+            ((TRAIN_ROWS, 768), *((r, T5_HIDDEN) for r in T5_LN_ROWS)),
+            (torch.float32, torch.bfloat16)):
         dname = str(dt).split(".")[1]
+        tag = f"{dname} rows={rows} hidden={hidden}"
         x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
              + 1).to(dt)
         w = (1 + 0.1 * torch.randn(hidden, device=dev, generator=gen)).to(dt)
@@ -437,16 +472,16 @@ def layer_norm_bwd_phase(torch, dev):
         atol, rtol = tol[dname]
         sum_atol = atol * math.sqrt(rows)
         err = max(
-            check_close(f"layer_norm_bwd dx {dname}", got[0], want[0], atol,
+            check_close(f"layer_norm_bwd dx {tag}", got[0], want[0], atol,
                         rtol),
-            check_close(f"layer_norm_bwd dw {dname}", got[1], want[1],
+            check_close(f"layer_norm_bwd dw {tag}", got[1], want[1],
                         sum_atol, rtol),
-            check_close(f"layer_norm_bwd db {dname}", got[2], want[2],
+            check_close(f"layer_norm_bwd db {tag}", got[2], want[2],
                         sum_atol, rtol))
         for _ in range(3):
             again = layer_norm_bwd(dy, x, mean, rstd, w)
             if not all(bool(torch.equal(a, c)) for a, c in zip(got, again)):
-                raise AssertionError(f"layer_norm_bwd {dname}: dx/dw/db not "
+                raise AssertionError(f"layer_norm_bwd {tag}: dx/dw/db not "
                                      f"bitwise equal over repeats")
         xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
         y_lib = F.layer_norm(xl, (hidden,), wl, bl, eps)
@@ -468,37 +503,58 @@ def layer_norm_bwd_phase(torch, dev):
     return cases
 
 
-FLASH_SHAPES = [  # (name, bh, s, d, causal, dropout rate)
-    ("flagship", 96, 1024, 64, True, 0.0),
-    ("non_causal", 24, 512, 64, False, 0.0),
-    ("dropout", 24, 512, 64, True, 0.1),
+FLASH_SHAPES = [  # (name, batch, heads, sq, sk, d, causal, dropout rate, bias)
+    ("flagship", 8, 12, 1024, 1024, 64, True, 0.0, False),
+    ("non_causal", 2, 12, 512, 512, 64, False, 0.0, False),
+    ("dropout", 2, 12, 512, 512, 64, True, 0.1, False),
+    # T5-small: encoder and decoder self-attention with their fp32
+    # (heads, sq, sk) bias, the rectangular cross-attention without one
+    ("t5_enc", 8, 8, 512, 512, 64, False, 0.0, True),
+    ("t5_dec", 8, 8, 128, 128, 64, True, 0.0, True),
+    ("t5_cross", 8, 8, 128, 512, 64, False, 0.0, False),
 ]
+# d(bias) in both input types: fp32 products of the same inputs on both
+# sides, fp32 sums over the batch in another order
+DBIAS_TOL = (1e-4, 1e-4)
 
 
-def flash_bounds(bh, s, d, causal, esz, dname):
-    """(fwd, dq, dkv) bounds: max(FLOPs / peak, bytes / 3.35 TB/s), the
-    causal FLOPs half of 4, 6 and 8 · bh·s²·d; bytes count each input read
-    once and each output written once (lse, delta fp32)."""
+def flash_bounds(bh, sq, sk, d, causal, esz, dname, heads=0):
+    """(fwd, dq, dkv, dbias) bounds: max(FLOPs / peak, bytes / 3.35 TB/s),
+    the causal FLOPs half of 4, 6, 8 and 4 · bh·sq·sk·d (d(bias) forms the
+    two products q·kᵀ and dO·vᵀ); bytes count each input read once and
+    each output written once (lse, delta fp32; with ``heads`` an fp32
+    (heads, sq, sk) bias read by each kernel and written once by d(bias)).
+    """
     half = 0.5 if causal else 1.0
-    t = bh * s * d * esz           # one (bh, s, d) tensor
-    row = 4 * bh * s               # one fp32 (bh, s) vector
-    return (bound_ms(4 * t + row, half * 4 * bh * s * s * d, dname),
-            bound_ms(5 * t + 2 * row, half * 6 * bh * s * s * d, dname),
-            bound_ms(6 * t + 2 * row, half * 8 * bh * s * s * d, dname))
+    tq = bh * sq * d * esz         # one (bh, sq, d) tensor
+    tk = bh * sk * d * esz         # one (bh, sk, d) tensor
+    row = 4 * bh * sq              # one fp32 (bh, sq) vector
+    bias = 4 * heads * sq * sk     # the fp32 bias, or d(bias)
+    ops = half * bh * sq * sk * d
+    return (bound_ms(2 * tq + 2 * tk + row + bias, 4 * ops, dname),
+            bound_ms(3 * tq + 2 * tk + 2 * row + bias, 6 * ops, dname),
+            bound_ms(2 * tq + 4 * tk + 2 * row + bias, 8 * ops, dname),
+            bound_ms(2 * tq + 2 * tk + 2 * row + 2 * bias, 4 * ops, dname))
 
 
 def flash_phase(torch, dev):
-    """The three flash kernels vs their plain versions at each shape of
+    """The flash kernels vs their plain versions at each shape of
     FLASH_SHAPES, fp32 and bf16 (lse and delta from the kernel forward feed
-    both backwards). Tolerance: fp32 atol/rtol 1e-4 (sums over up to 1024
-    keys in another order); bf16 one output rounding (rtol 2**-7) plus
-    atol 1e-2 (p and ds are rounded to bf16 before their products, at
-    other running maxima; the largest error measured at these shapes is
-    one bf16 step at |o| < 2, 7.8e-3). Times at every shape (flushing the
-    L2 between calls) beside SDPA forward and backward."""
+    the backwards): o, lse, dq, dk, dv and, with a bias, d(bias), which
+    must also be bitwise equal over two launches and zero above the causal
+    diagonal. Tolerance: fp32 atol/rtol 1e-4 (sums over up to 1024 keys
+    in another order); bf16 one output rounding (rtol 2**-7) plus atol
+    1e-2 (p and ds are rounded to bf16 before their products, at other
+    running maxima; the largest error measured at these shapes is one
+    bf16 step at |o| < 2, 7.8e-3); d(bias) DBIAS_TOL in both types. Times
+    at every shape (flushing the L2 between calls) beside SDPA forward and
+    backward on the (batch, heads, s, d) view; with a bias, SDPA takes it
+    (and the causal mask) as a float ``attn_mask`` expanded over the
+    batch, and its backward sums the mask's gradient over the batch."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops.attention import (
+        flash_attention_bwd_dbias, flash_attention_bwd_dbias_reference,
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_bwd_reference, flash_attention_fwd,
         flash_attention_fwd_reference)
@@ -508,79 +564,128 @@ def flash_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     seed = 1234
     cases = []
-    for name, bh, s, d, causal, rate in FLASH_SHAPES:
+    for name, b, heads, sq, sk, d, causal, rate, has_bias in FLASH_SHAPES:
+        bh = b * heads
         for dt in (torch.float32, torch.bfloat16):
             dname = str(dt).split(".")[1]
-            q, k, v, do = (torch.randn(bh, s, d, device=dev, generator=gen)
-                           .to(dt) for _ in range(4))
-            scale = 1.0 / math.sqrt(d)
-            args = (scale, causal, rate, seed)
-            o, lse = flash_attention_fwd(q, k, v, *args)
-            o_p, lse_p = flash_attention_fwd_reference(q, k, v, *args)
+            q, do = (torch.randn(bh, sq, d, device=dev, generator=gen).to(dt)
+                     for _ in range(2))
+            k, v = (torch.randn(bh, sk, d, device=dev, generator=gen).to(dt)
+                    for _ in range(2))
+            bias = (torch.randn(heads, sq, sk, device=dev, generator=gen)
+                    if has_bias else None)
+            args = (1.0 / math.sqrt(d), causal, rate, seed)
+            kw = {"bias": bias}
+            o, lse = flash_attention_fwd(q, k, v, *args, **kw)
+            o_p, lse_p = flash_attention_fwd_reference(q, k, v, *args, **kw)
             delta = (do.float() * o.float()).sum(-1, keepdim=True)
-            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *args)
-            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args)
-            want = flash_attention_bwd_reference(q, k, v, o, lse, do, *args)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *args, **kw)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args,
+                                             **kw)
+            want = flash_attention_bwd_reference(q, k, v, o, lse, do, *args,
+                                                 **kw)
             torch.cuda.synchronize()
             atol, rtol = tol[dname]
             tag = f"{name} {dname}"
-            err_fwd = max(check_close(f"flash fwd o {tag}", o, o_p, atol,
-                                      rtol),
-                          check_close(f"flash fwd lse {tag}", lse, lse_p,
-                                      1e-4, 1e-5))
-            err_dq = check_close(f"flash dq {tag}", dq, want[0], atol, rtol)
-            err_dkv = max(
-                check_close(f"flash dk {tag}", dk, want[1], atol, rtol),
-                check_close(f"flash dv {tag}", dv, want[2], atol, rtol))
+            case = {"shape": name, "dtype": dname, "batch": b,
+                    "heads": heads, "bh": bh, "sq": sq, "sk": sk,
+                    "head_dim": d, "causal": causal, "dropout": rate,
+                    "bias": has_bias, "atol": atol, "rtol": rtol,
+                    "fwd": {"max_abs_err": max(
+                        check_close(f"flash fwd o {tag}", o, o_p, atol, rtol),
+                        check_close(f"flash fwd lse {tag}", lse, lse_p, 1e-4,
+                                    1e-5))},
+                    "dq": {"max_abs_err": check_close(
+                        f"flash dq {tag}", dq, want[0], atol, rtol)},
+                    "dkv": {"max_abs_err": max(
+                        check_close(f"flash dk {tag}", dk, want[1], atol,
+                                    rtol),
+                        check_close(f"flash dv {tag}", dv, want[2], atol,
+                                    rtol))}}
             del o_p, lse_p, want
-            # library yardstick: SDPA on the (1, bh, s, d) view, fwd and
-            # the whole bwd (dq, dk and dv in one call)
-            q4, k4, v4 = (t.view(1, bh, s, d).clone().requires_grad_()
+            keys = ("fwd", "dq", "dkv")
+            if has_bias:
+                db = flash_attention_bwd_dbias(q, k, v, do, lse, delta, *args,
+                                               **kw)
+                db_p = flash_attention_bwd_dbias_reference(q, k, v, o, lse,
+                                                           do, *args, **kw)
+                torch.cuda.synchronize()
+                case["dbias"] = {
+                    "max_abs_err": check_close(f"flash dbias {tag}", db, db_p,
+                                               *DBIAS_TOL),
+                    "atol": DBIAS_TOL[0], "rtol": DBIAS_TOL[1]}
+                if causal and bool(db.triu(1 + sk - sq).any()):
+                    raise AssertionError(f"flash dbias {tag}: nonzero above "
+                                         f"the causal diagonal")
+                if not torch.equal(db, flash_attention_bwd_dbias(
+                        q, k, v, do, lse, delta, *args, **kw)):
+                    raise AssertionError(f"flash dbias {tag}: two launches "
+                                         f"differ")
+                case["dbias"]["bitwise_repeat"] = True
+                keys += ("dbias",)
+                del db, db_p
+            # library yardstick: SDPA on the (batch, heads, s, d) view, fwd
+            # and the whole bwd (dq, dk, dv and d(mask) in one call)
+            q4, k4, v4 = (t.view(b, heads, -1, d).clone().requires_grad_()
                           for t in (q, k, v))
-            dropout = {"dropout_p": rate} if rate else {}
-            o_lib = F.scaled_dot_product_attention(q4, k4, v4,
-                                                   is_causal=causal,
-                                                   **dropout)
-            do4 = do.view(1, bh, s, d)
-            b_fwd, b_dq, b_dkv = flash_bounds(bh, s, d, causal,
-                                              q.element_size(), dname)
+            sdpa = {"dropout_p": rate} if rate else {}
+            leaves = (q4, k4, v4)
+            if has_bias:
+                b_leaf = bias.clone().requires_grad_()
+                m = b_leaf
+                if causal:
+                    m = m.masked_fill(torch.ones(
+                        sq, sk, dtype=torch.bool, device=dev).triu(1),
+                        float("-inf"))
+                sdpa["attn_mask"] = m.to(dt).expand(b, heads, sq, sk)
+                leaves += (b_leaf,)
+            else:
+                sdpa["is_causal"] = causal
+            o_lib = F.scaled_dot_product_attention(q4, k4, v4, **sdpa)
+            do4 = do.view(b, heads, sq, d)
             timed = lambda fn: time_ms(torch, fn, iters=20,
                                        flush=flush_buf.zero_)
-            sdpa_bwd = timed(lambda: torch.autograd.grad(
-                o_lib, (q4, k4, v4), do4, retain_graph=True))
+            lib_bwd = timed(lambda: torch.autograd.grad(
+                o_lib, leaves, do4, retain_graph=True))
             plain_bwd = timed(lambda: flash_attention_bwd_reference(
-                q, k, v, o, lse, do, *args))
-            cases.append({
-                "shape": name, "dtype": dname, "bh": bh, "seq": s,
-                "head_dim": d, "causal": causal, "dropout": rate,
-                "atol": atol, "rtol": rtol,
-                "fwd": {"max_abs_err": err_fwd,
-                        "ms": timed(lambda: flash_attention_fwd(q, k, v,
-                                                                *args)),
-                        "plain_ms": timed(
-                            lambda: flash_attention_fwd_reference(q, k, v,
-                                                                  *args)),
-                        "library_ms": timed(
-                            lambda: F.scaled_dot_product_attention(
-                                q4, k4, v4, is_causal=causal, **dropout)),
-                        "bound_ms": b_fwd[0], "bound_by": b_fwd[1]},
-                "dq": {"max_abs_err": err_dq,
-                       "ms": timed(lambda: flash_attention_bwd_dq(
-                           q, k, v, do, lse, delta, *args)),
-                       "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
-                       "bound_ms": b_dq[0], "bound_by": b_dq[1]},
-                "dkv": {"max_abs_err": err_dkv,
-                        "ms": timed(lambda: flash_attention_bwd_dkv(
-                            q, k, v, do, lse, delta, *args)),
-                        "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
-                        "bound_ms": b_dkv[0], "bound_by": b_dkv[1]}})
-            del q, k, v, do, o, lse, delta, q4, k4, v4, o_lib
+                q, k, v, o, lse, do, *args, **kw))
+            case["fwd"].update(
+                ms=timed(lambda: flash_attention_fwd(q, k, v, *args, **kw)),
+                plain_ms=timed(lambda: flash_attention_fwd_reference(
+                    q, k, v, *args, **kw)),
+                library_ms=timed(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, **sdpa)))
+            case["dq"].update(
+                ms=timed(lambda: flash_attention_bwd_dq(
+                    q, k, v, do, lse, delta, *args, **kw)),
+                plain_ms=plain_bwd, library_ms=lib_bwd)
+            case["dkv"].update(
+                ms=timed(lambda: flash_attention_bwd_dkv(
+                    q, k, v, do, lse, delta, *args, **kw)),
+                plain_ms=plain_bwd, library_ms=lib_bwd)
+            if has_bias:
+                case["dbias"].update(
+                    ms=timed(lambda: flash_attention_bwd_dbias(
+                        q, k, v, do, lse, delta, *args, **kw)),
+                    plain_ms=timed(
+                        lambda: flash_attention_bwd_dbias_reference(
+                            q, k, v, o, lse, do, *args, **kw)),
+                    library_ms=lib_bwd)
+            bounds = flash_bounds(bh, sq, sk, d, causal, q.element_size(),
+                                  dname, heads if has_bias else 0)
+            for key, (bms, by) in zip(keys, bounds):
+                case[key].update(bound_ms=bms, bound_by=by)
+            cases.append(case)
+            del q, k, v, do, o, lse, delta, dq, dk, dv, bias, q4, k4, v4
+            del o_lib, sdpa, leaves
+    torch.cuda.empty_cache()
     return cases
 
 
 LM_SHAPES = [  # (name, rows, hidden, vocab)
     ("train", TRAIN_ROWS, 768, 50304),
     ("ragged", 96, 768, 1000),
+    ("t5", T5_BATCH * T5_DEC, T5_HIDDEN, 32128),   # T5-small's head
 ]
 
 
@@ -597,8 +702,9 @@ def lm_head_bounds(n, h, v, esz, dname):
 
 def lm_head_phase(torch, dev):
     """The fused LM-head + CE kernels (forward, dX, dW) vs their plain
-    versions at the training shape (8192 rows, h 768, V 50304) and a
-    ragged one (96 rows, V 1000), fp32 and bf16. Tolerance: lse, pred and
+    versions at the training shape (8192 rows, h 768, V 50304), a ragged
+    one (96 rows, V 1000) and T5-small's (1024 decoder rows, h 512, V
+    32128), fp32 and bf16. Tolerance: lse, pred and
     the loss atol/rtol 2e-5 (fp32) and 2e-4 (bf16: the same bf16 products,
     fp32 sums in another order); dx and dw, row by row (``check_rows``),
     1e-5 of the row's max plus rtol 1e-4 (fp32) and 1e-2 of the row's max
@@ -608,7 +714,7 @@ def lm_head_phase(torch, dev):
     of a hit row's scale, so each row is held to its own max. The softmax
     term alone is checked too: dx and dw with no target hit (targets -1),
     where the one-hot term of dx no longer hides it. dW bitwise equal over
-    repeats. Times (bf16, training shape) beside the unfused pair
+    repeats. Times (bf16, the training and T5 shapes) beside the unfused pair
     torch.matmul + F.cross_entropy: its forward, and its autograd (dx and
     dw together) for both backward rows."""
     import torch.nn.functional as F
@@ -677,7 +783,7 @@ def lm_head_phase(torch, dev):
                     "dw": {"max_abs_err": err_dw, "max_row_rel_err": row_dw,
                            **dw_scale},
                     "softmax_term_only": soft}
-            if name == "train" and dt == torch.bfloat16:
+            if name != "ragged" and dt == torch.bfloat16:
                 b_fwd, b_dx, b_dw = lm_head_bounds(n, h, v, x.element_size(),
                                                    dname)
                 timed = lambda fn: time_ms(torch, fn, iters=10)
@@ -711,15 +817,16 @@ def lm_head_phase(torch, dev):
 
 
 def adam_tail_phase(torch, dev):
-    """The Adam tail kernel on every one of GPT-2-124M's 16 leaf shapes,
-    bf16 p and g with fp32 m and v, in both decay modes (decoupled and L2,
-    weight decay 0.01) and with none: u, m', v' within rtol 1e-6 / atol
-    1e-7 of the plain version (IEEE division and square root on both
-    sides). The LAMB variant's Σp² and Σu² within rtol 1e-5 of the plain
-    sums, bitwise equal over repeats. Times the train step's 16 launches
-    (no decay, as FusedAdam(lr=1e-4)) against the bound of 24 bytes an
-    element, beside the plain version and torch.optim.AdamW(fused=True)
-    over the same leaves (timed only)."""
+    """The Adam tail kernel on every leaf shape of GPT-2-124M (16) and of
+    T5-small (39), bf16 p and g with fp32 m and v, in both decay modes
+    (decoupled and L2, weight decay 0.01) and with none: u, m', v' within
+    rtol 1e-6 / atol 1e-7 of the plain version (IEEE division and square
+    root on both sides). The LAMB variant's Σp² and Σu² within rtol 1e-5
+    of the plain sums, bitwise equal over repeats. Times each model's
+    train-step launches (one per leaf, no decay, as FusedAdam(lr=1e-4))
+    against the bound of 24 bytes an element, beside the plain version and
+    torch.optim.AdamW(fused=True) over the same leaves (timed only).
+    Returns GPT's record with T5's under "t5"."""
     import numpy as np
 
     from apex_tpu_torch.convert import named_leaves
@@ -729,72 +836,87 @@ def adam_tail_phase(torch, dev):
                                                  lamb_tail_reference)
     from apex_tpu_torch.transformer.testing.standalone_gpt import (
         GPTConfig, init_gpt_params_numpy)
+    from apex_tpu_torch.transformer.testing.standalone_t5 import (
+        init_t5_params_numpy)
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    shapes = [(name, tuple(a.shape)) for name, a in named_leaves(
-        init_gpt_params_numpy(GPTConfig(), 0))]
-    leaves = []
-    for name, shape in shapes:
-        leaves.append((name,
-                       torch.randn(shape, device=dev, generator=gen)
-                       .bfloat16(),                               # g
-                       0.01 * torch.randn(shape, device=dev, generator=gen),
-                       1e-4 * torch.rand(shape, device=dev, generator=gen),
-                       torch.randn(shape, device=dev, generator=gen)
-                       .bfloat16()))                              # p
     kw = dict(betas=(0.9, 0.999), eps=1e-8)
     c1 = float(np.float32(1) - np.float32(0.9) ** np.float32(3))
     c2 = float(np.float32(1) - np.float32(0.999) ** np.float32(3))
-    worst, sums_err = 0.0, 0.0
-    for wd, adam_w in ((0.0, True), (0.01, True), (0.01, False)):
+
+    def one_model(model, tree):
+        leaves = []
+        for name, a in named_leaves(tree):
+            shape = tuple(a.shape)
+            leaves.append((f"{model} {name}",
+                           torch.randn(shape, device=dev, generator=gen)
+                           .bfloat16(),                           # g
+                           0.01 * torch.randn(shape, device=dev,
+                                              generator=gen),
+                           1e-4 * torch.rand(shape, device=dev,
+                                             generator=gen),
+                           torch.randn(shape, device=dev, generator=gen)
+                           .bfloat16()))                          # p
+        worst, sums_err = 0.0, 0.0
+        for wd, adam_w in ((0.0, True), (0.01, True), (0.01, False)):
+            for name, g, m, v, p in leaves:
+                want = adam_tail_reference(g, m, v, p, c1, c2,
+                                           weight_decay=wd,
+                                           adam_w_mode=adam_w, **kw)
+                m_k, v_k = m.clone(), v.clone()
+                got = fused_adam_tail(g, m_k, v_k, p, c1, c2,
+                                      weight_decay=wd, adam_w_mode=adam_w,
+                                      **kw)
+                torch.cuda.synchronize()
+                for a, b, what in zip(got, want, ("u", "m", "v")):
+                    worst = max(worst, check_close(
+                        f"adam tail {what} {name} wd={wd} adam_w={adam_w}",
+                        a, b, 1e-7, 1e-6))
         for name, g, m, v, p in leaves:
-            want = adam_tail_reference(g, m, v, p, c1, c2, weight_decay=wd,
-                                       adam_w_mode=adam_w, **kw)
-            m_k, v_k = m.clone(), v.clone()
-            got = fused_adam_tail(g, m_k, v_k, p, c1, c2, weight_decay=wd,
-                                  adam_w_mode=adam_w, **kw)
+            want = lamb_tail_reference(g, m, v, p, c1, c2, weight_decay=0.01,
+                                       **kw)
+            runs = [fused_lamb_tail(g, m.clone(), v.clone(), p, c1, c2,
+                                    weight_decay=0.01, **kw)
+                    for _ in range(2)]
             torch.cuda.synchronize()
-            for a, b, what in zip(got, want, ("u", "m", "v")):
-                worst = max(worst, check_close(
-                    f"adam tail {what} {name} wd={wd} adam_w={adam_w}", a,
-                    b, 1e-7, 1e-6))
-    for name, g, m, v, p in leaves:
-        want = lamb_tail_reference(g, m, v, p, c1, c2, weight_decay=0.01,
-                                   **kw)
-        runs = [fused_lamb_tail(g, m.clone(), v.clone(), p, c1, c2,
-                                weight_decay=0.01, **kw) for _ in range(2)]
-        torch.cuda.synchronize()
-        for a, b in zip(runs[0][3:], want[3:]):
-            sums_err = max(sums_err, check_close(
-                f"lamb sums {name}", a, b, 0.0, 1e-5) / float(b))
-        if not all(bool(torch.equal(a, b)) for a, b in zip(*runs)):
-            raise AssertionError(f"lamb tail {name}: not bitwise equal over "
-                                 f"repeats")
+            for a, b in zip(runs[0][3:], want[3:]):
+                sums_err = max(sums_err, check_close(
+                    f"lamb sums {name}", a, b, 0.0, 1e-5) / float(b))
+            if not all(bool(torch.equal(a, b)) for a, b in zip(*runs)):
+                raise AssertionError(f"lamb tail {name}: not bitwise equal "
+                                     f"over repeats")
 
-    def step_kernel():
-        for _, g, m, v, p in leaves:
-            fused_adam_tail(g, m, v, p, c1, c2, **kw)
+        def step_kernel():
+            for _, g, m, v, p in leaves:
+                fused_adam_tail(g, m, v, p, c1, c2, **kw)
 
-    def step_plain():
-        for _, g, m, v, p in leaves:
-            adam_tail_reference(g, m, v, p, c1, c2, **kw)
+        def step_plain():
+            for _, g, m, v, p in leaves:
+                adam_tail_reference(g, m, v, p, c1, c2, **kw)
 
-    params = [p.clone().requires_grad_() for _, _, _, _, p in leaves]
-    for q, (_, g, _, _, _) in zip(params, leaves):
-        q.grad = g.clone()
-    lib = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.0, fused=True)
-    n_el = sum(g.numel() for _, g, _, _, _ in leaves)
-    bms, by = bound_ms(24.0 * n_el, 10.0 * n_el, "float32")
-    out = {"leaves": len(leaves), "elements": n_el, "rtol": 1e-6,
-           "atol": 1e-7, "max_abs_err": worst,
-           "lamb_sums_max_rel_err": sums_err, "lamb_sums_rtol": 1e-5,
-           "lamb_bitwise_repeat": True, "per": "train step (16 launches)",
-           "ms": time_ms(torch, step_kernel, iters=20),
-           "plain_ms": time_ms(torch, step_plain, iters=5),
-           "library_ms": time_ms(torch, lib.step, iters=20),
-           "bound_ms": bms, "bound_by": by}
-    del leaves, params, lib
-    torch.cuda.empty_cache()
+        params = [p.clone().requires_grad_() for _, _, _, _, p in leaves]
+        for q, (_, g, _, _, _) in zip(params, leaves):
+            q.grad = g.clone()
+        lib = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.0,
+                                fused=True)
+        n_el = sum(g.numel() for _, g, _, _, _ in leaves)
+        bms, by = bound_ms(24.0 * n_el, 10.0 * n_el, "float32")
+        out = {"leaves": len(leaves), "elements": n_el, "rtol": 1e-6,
+               "atol": 1e-7, "max_abs_err": worst,
+               "lamb_sums_max_rel_err": sums_err, "lamb_sums_rtol": 1e-5,
+               "lamb_bitwise_repeat": True,
+               "per": f"{model} train step ({len(leaves)} launches)",
+               "ms": time_ms(torch, step_kernel, iters=20),
+               "plain_ms": time_ms(torch, step_plain, iters=5),
+               "library_ms": time_ms(torch, lib.step, iters=20),
+               "bound_ms": bms, "bound_by": by}
+        del leaves, params, lib
+        torch.cuda.empty_cache()
+        return out
+
+    out = one_model("gpt", init_gpt_params_numpy(GPTConfig(), 0))
+    out["t5"] = one_model("t5", init_t5_params_numpy(
+        t5_config(torch.bfloat16), 0))
     return out
 
 
@@ -1473,6 +1595,157 @@ def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
     return result
 
 
+# ---------------------------------------------------------------------------
+# T5 train phase
+
+# kernel launches of one T5-small train step (6 + 6 layers, full remat):
+# LN 2 per encoder and 3 per decoder layer, each replayed in backward, plus
+# the encoder-final and the head LN; flash forward for each self-attention
+# (with its stack's bias) and each cross-attention (none), replayed; one
+# backward of each; d(bias) once per self-attention; the fused LM-head loss
+# once; the Adam tail once per leaf (39 leaves)
+T5_LAUNCHES = {"layer_norm_fwd": 2 * (6 * 2 + 6 * 3) + 2,
+               "layer_norm_bwd": 6 * 2 + 6 * 3 + 2,
+               "flash_attention_fwd": 2 * 18,
+               "flash_attention_fwd[bias]": 2 * 12,
+               "flash_attention_bwd_dq": 18,
+               "flash_attention_bwd_dq[bias]": 12,
+               "flash_attention_bwd_dkv": 18,
+               "flash_attention_bwd_dkv[bias]": 12,
+               "flash_attention_bwd_dbias": 12,
+               "lm_head_loss_fwd": 1, "lm_head_loss_bwd_dx": 1,
+               "lm_head_loss_bwd_dw": 1, "fused_adam_tail": 39}
+
+
+def t5_config(dtype):
+    from apex_tpu_torch.transformer.testing import T5Config
+
+    return T5Config(dtype=dtype, relative_position_bias=True,
+                    encoder_final_ln=True)
+
+
+def t5_fp32_check(torch, dev, ku):
+    """One fp32 T5-small forward + backward (batch 2, 512 + 128 tokens,
+    full remat, the fused LM-head loss) through the kernels vs the same
+    with the plain versions forced. Tolerance as the GPT check: loss
+    relative 1e-5; every gradient leaf max |kernel - plain| <= 1e-5 * max
+    |plain|. The bias tables rel_enc / rel_dec must get nonzero
+    gradients."""
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.testing import (build_t5_train_step,
+                                                    t5_loss)
+
+    cfg = t5_config(torch.float32)
+    _, params, _, (enc, dec, tgt) = build_t5_train_step(
+        cfg, 2, T5_ENC, T5_DEC, device=dev, seed=0)
+    leaves = list(named_leaves(params))
+
+    def loss_and_grads():
+        for _, p in leaves:
+            p.grad = None
+        loss = t5_loss(params, enc, dec, tgt, cfg)
+        loss.backward()
+        return loss.item(), [p.grad for _, p in leaves]
+
+    ku.reset_launch_counts()
+    lk, gk = loss_and_grads()
+    if ku.launch_counts().get("flash_attention_bwd_dbias", 0) != 12:
+        raise AssertionError(f"fp32 T5 check did not run d(bias) 12 times: "
+                             f"{ku.launch_counts()}")
+    with ku.force_plain():
+        before = ku.launch_counts()
+        lp, gp = loss_and_grads()
+        if ku.launch_counts() != before:
+            raise AssertionError("force_plain T5 step launched a kernel")
+    loss_err = abs(lk - lp) / abs(lp)
+    if not math.isfinite(lk) or loss_err > 1e-5:
+        raise AssertionError(f"fp32 T5 loss: kernels {lk} vs plain {lp}")
+    worst, rel_scale = 0.0, {}
+    for (name, _), a, b in zip(leaves, gk, gp):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not bool(a.isfinite().all()) or err > 1e-5 * scale:
+            raise AssertionError(
+                f"fp32 T5 grad {name}: kernels vs plain max abs err "
+                f"{err:.3e} (limit 1e-5 * {scale:.3e})")
+        worst = max(worst, err / scale if scale else 0.0)
+        if name in ("embed.rel_enc", "embed.rel_dec"):
+            rel_scale[name] = float(a.abs().max())
+            if rel_scale[name] <= 0.0:
+                raise AssertionError(f"fp32 T5 grad {name} is zero")
+    return {"batch": 2, "seq_enc": T5_ENC, "seq_dec": T5_DEC,
+            "loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_err,
+            "grad_max_rel_err": worst, "rel_table_grad_max_abs": rel_scale}
+
+
+def t5_train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
+    """T5-small (``T5Config(relative_position_bias=True,
+    encoder_final_ln=True)``: 6 + 6 layers, hidden 512, 8 heads of 64,
+    vocab 32128), full remat, the fused LM-head loss, ``FusedAdam(lr=1e-4,
+    fused_tail="auto")``: the fp32 check, then the bf16 step at batch 8 x
+    (512 + 128) (the T5 main path): the launch counts of one step (reset
+    just before it, read just after) equal T5_LAUNCHES; the loss stays
+    finite and falls over 10 steps; a second run from the same seed
+    repeats the losses bitwise; train tokens/s (encoder + decoder tokens),
+    step ms p50, peak memory, and the card's busy share and top kernels
+    over a profiled window."""
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.testing import build_t5_train_step
+
+    phase_s = {}
+    t0 = time.perf_counter()
+    result = {"fp32_check": t5_fp32_check(torch, dev, ku)}
+    torch.cuda.empty_cache()
+    phase_s["fp32_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = t5_config(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    step, params, _, _ = build_t5_train_step(cfg, T5_BATCH, T5_ENC, T5_DEC,
+                                             device=dev, seed=0)
+    n_params = sum(p.numel() for _, p in named_leaves(params))
+    ku.reset_launch_counts()
+    losses = [step()]
+    torch.cuda.synchronize()
+    launches = ku.launch_counts()
+    if launches != T5_LAUNCHES:
+        raise AssertionError(f"T5 train step launches {launches}, expected "
+                             f"{T5_LAUNCHES}")
+    losses += [step() for _ in range(steps - 1)]
+    losses = torch.stack(losses)
+    vals = losses.tolist()
+    if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+        raise AssertionError(f"T5 bf16 train loss did not fall: {vals}")
+    durs = timed_steps_of(torch, step, timed_steps)
+    tokens = T5_BATCH * (T5_ENC + T5_DEC)
+    tokens_per_s = tokens * timed_steps / sum(durs)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profiled(torch, lambda: [step() for _ in range(3)])
+    prof["device_busy_share_of_unprofiled_wall"] = (
+        prof["device_busy_ms"] / (3 * sum(durs) / timed_steps * 1e3))
+    del step, params
+    torch.cuda.empty_cache()
+    phase_s["bf16_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step2 = build_t5_train_step(cfg, T5_BATCH, T5_ENC, T5_DEC, device=dev,
+                                seed=0)[0]
+    again = torch.stack([step2() for _ in range(steps)])
+    if not torch.equal(losses, again):
+        raise AssertionError(f"T5 bf16 losses differ between two runs from "
+                             f"one seed: {vals} vs {again.tolist()}")
+    del step2
+    torch.cuda.empty_cache()
+    phase_s["bitwise_repeat"] = time.perf_counter() - t0
+    result.update({
+        "phase_s": phase_s, "batch": T5_BATCH, "seq_enc": T5_ENC,
+        "seq_dec": T5_DEC, "n_params": n_params,
+        "launches_per_step": launches, "losses": vals,
+        "bitwise_repeat": True, "tokens_per_s": tokens_per_s,
+        "step_ms_p50": sorted(durs)[len(durs) // 2] * 1e3,
+        "step_ms": [d * 1e3 for d in durs],
+        "peak_mem_gib": peak_gib, "profile_3_steps": prof})
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full JSON record here")
@@ -1541,6 +1814,9 @@ def main(argv=None) -> int:
     train = phase("train", (), train_phase, torch, dev, ku)
     seconds["train_parts"] = train["phase_s"]
     train_launches = train["launches_per_step"]
+    t5 = phase("t5_train", (), t5_train_phase, torch, dev, ku)
+    seconds["t5_train_parts"] = t5["phase_s"]
+    t5_launches = t5["launches_per_step"]
 
     def pick(cases, **where):
         return next(c for c in cases
@@ -1554,6 +1830,24 @@ def main(argv=None) -> int:
     # its statistics: that path's launches and times beside the serving
     # path's
     ln_train = pick(ln_cases, dtype="bfloat16", rows=TRAIN_ROWS)
+
+    def t5_entry(kname, cases, key=None, **where):
+        """The T5 main path's launches of ``kname`` and, at its shapes
+        (cases with ``where``), the largest error and the bf16 times of
+        each (the first case's at the top level, the rest by rows)."""
+        mine = [c for c in cases
+                if all(c[k] == v for k, v in where.items())]
+        bf = [c[key] if key else c for c in mine
+              if c["dtype"] == "bfloat16"]
+        out = {"launches": t5_launches[kname],
+               "max_abs_err": max((c[key] if key else c)["max_abs_err"]
+                                  for c in mine),
+               **{k: bf[0][k] for k in timing}}
+        for c, b in zip([c for c in mine if c["dtype"] == "bfloat16"][1:],
+                        bf[1:]):
+            out[f"rows_{c['rows']}"] = {k: b[k] for k in timing}
+        return out
+
     kernels = [
         {"name": "layer_norm_fwd", "route": "cuda",
          "source": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -1565,7 +1859,9 @@ def main(argv=None) -> int:
                    "rows": TRAIN_ROWS, "max_abs_err": ln_train["max_abs_err"],
                    "stats_max_abs_err": max(c["stats_max_abs_err"]
                                             for c in ln_cases if c["stats"]),
-                   **{k: ln_train[k] for k in timing}}},
+                   **{k: ln_train[k] for k in timing}},
+         "t5": {"rows": list(T5_LN_ROWS), "hidden": T5_HIDDEN,
+                **t5_entry("layer_norm_fwd", ln_cases, hidden=T5_HIDDEN)}},
         {"name": "paged_attention_fwd", "route": "cuda",
          "source": "apex_tpu_torch/csrc/paged_attention.cu",
          "replaces": "apex_tpu/serve/decode.py:228",
@@ -1601,27 +1897,57 @@ def main(argv=None) -> int:
          **{k: mk[k] for k in timing}})
     # the training main path's shapes: bf16, LN (8192, 768), attention
     # (96, 1024, 64) causal
-    lnb = pick(lnb_cases, dtype="bfloat16")
+    lnb = pick(lnb_cases, dtype="bfloat16", rows=TRAIN_ROWS)
     kernels.append(
         {"name": "layer_norm_bwd", "route": "cuda",
          "source": "apex_tpu_torch/csrc/layer_norm.cu",
          "replaces": "apex_tpu/ops/layer_norm.py:224",
          "launches": train_launches["layer_norm_bwd"],
          "max_abs_err": max(c["max_abs_err"] for c in lnb_cases),
-         **{k: lnb[k] for k in timing}})
+         **{k: lnb[k] for k in timing},
+         "t5": {"rows": list(T5_LN_ROWS), "hidden": T5_HIDDEN,
+                **t5_entry("layer_norm_bwd", lnb_cases, hidden=T5_HIDDEN)}})
     fa = pick(fa_cases, dtype="bfloat16", shape="flagship")
-    for key, kname, line in (("fwd", "flash_attention_fwd", 297),
-                             ("dq", "flash_attention_bwd_dq", 532),
-                             ("dkv", "flash_attention_bwd_dkv", 570)):
+    # T5's shapes, bf16: the rectangular cross-attention (no bias) beside
+    # GPT's flagship shape; the bias kernels at the encoder's shape, with
+    # the decoder's beside it
+    cross = pick(fa_cases, dtype="bfloat16", shape="t5_cross")
+    enc = pick(fa_cases, dtype="bfloat16", shape="t5_enc")
+    dec = pick(fa_cases, dtype="bfloat16", shape="t5_dec")
+    flash_rows = (("fwd", "flash_attention_fwd", 297),
+                  ("dq", "flash_attention_bwd_dq", 532),
+                  ("dkv", "flash_attention_bwd_dkv", 570))
+    for key, kname, line in flash_rows:
         kernels.append(
             {"name": kname, "route": "cuda",
              "source": "apex_tpu_torch/csrc/flash_attention.cu",
              "replaces": f"apex_tpu/ops/attention.py:{line}",
              "launches": train_launches[kname],
-             "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases),
-             **{k: fa[key][k] for k in timing}})
+             "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
+                                if not c["bias"]),
+             **{k: fa[key][k] for k in timing},
+             "t5_cross": {
+                 "launches": t5_launches[kname]
+                 - t5_launches[f"{kname}[bias]"],
+                 "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
+                                    if c["shape"] == "t5_cross"),
+                 **{k: cross[key][k] for k in timing}}})
+    for key, kname, line in flash_rows + (
+            ("dbias", "flash_attention_bwd_dbias", 607),):
+        tname = kname if key == "dbias" else f"{kname}[bias]"
+        kernels.append(
+            {"name": tname, "route": "cuda",
+             "source": "apex_tpu_torch/csrc/flash_attention.cu",
+             "replaces": f"apex_tpu/ops/attention.py:{line}",
+             "launches": t5_launches[tname], "path": "t5_train",
+             "shape": "t5_enc (64, 512, 512, 64) bias (8, 512, 512)",
+             "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
+                                if c["bias"]),
+             **{k: enc[key][k] for k in timing},
+             "t5_dec": {k: dec[key][k] for k in timing}})
     # the fused loss at the training shape (8192, 768, 50304) bf16
     lm = pick(lm_cases, dtype="bfloat16", shape="train")
+    lm_t5 = pick(lm_cases, dtype="bfloat16", shape="t5")
     for key, kname, line in (("fwd", "lm_head_loss_fwd", 198),
                              ("dx", "lm_head_loss_bwd_dx", 244),
                              ("dw", "lm_head_loss_bwd_dw", 263)):
@@ -1631,14 +1957,19 @@ def main(argv=None) -> int:
              "replaces": f"apex_tpu/ops/lm_head_loss.py:{line}",
              "launches": train_launches[kname],
              "max_abs_err": max(c[key]["max_abs_err"] for c in lm_cases),
-             **{k: lm[key][k] for k in timing}})
+             **{k: lm[key][k] for k in timing},
+             "t5": {"shape": [lm_t5[k] for k in ("rows", "hidden", "vocab")],
+                    **t5_entry(kname, lm_cases, key, shape="t5")}})
     kernels.append(
         {"name": "fused_adam_tail", "route": "cuda",
          "source": "apex_tpu_torch/csrc/fused_update.cu",
          "replaces": "apex_tpu/ops/fused_update.py:160",
          "launches": train_launches["fused_adam_tail"],
          "max_abs_err": adam["max_abs_err"], "per": adam["per"],
-         **{k: adam[k] for k in timing}})
+         **{k: adam[k] for k in timing},
+         "t5": {"launches": t5_launches["fused_adam_tail"],
+                **{k: adam["t5"][k] for k in ("max_abs_err", "per",
+                                              *timing)}}})
     name = torch.cuda.get_device_name(0)
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
               "engine_phase_s": seconds["engine"],
@@ -1647,7 +1978,7 @@ def main(argv=None) -> int:
               "layer_norm_bwd": lnb_cases, "flash_attention": fa_cases,
               "lm_head_loss": lm_cases, "adam_tail": adam,
               "megakernel": mk_cases,
-              "engine": engine, "train": train}
+              "engine": engine, "train": train, "t5_train": t5}
     for run in ("fp32_kernels", "fp32_plain", "fp32_off", "fp32_int8",
                 "fp32_int8_off", "fp32_int4", "fp32_int4_off", "bf16_spec0",
                 "bf16_spec4", "bf16_int8_spec0", "bf16_int8_spec4",
@@ -1703,15 +2034,38 @@ def main(argv=None) -> int:
         print(f"  train top kernel: {t['device_ms']:.2f} ms x{t['count']} "
               f"{t['name']}")
     for c in fa_cases:
-        print(f"flash {c['shape']} {c['dtype']}: " + " ".join(
-            f"{k} {c[k]['ms']:.3f} ms (plain {c[k]['plain_ms']:.3f}, "
-            f"library {c[k]['library_ms']:.3f}, bound {c[k]['bound_ms']:.4f})"
-            for k in ("fwd", "dq", "dkv")))
-    for key in ("fwd", "dx", "dw"):
-        c = lm[key]
-        print(f"lm_head_loss {key} bf16 (8192, 768, 50304): {c['ms']:.3f} ms "
-              f"(plain {c['plain_ms']:.3f}, library {c['library_ms']:.3f}, "
-              f"bound {c['bound_ms']:.4f})")
+        keys = ("fwd", "dq", "dkv") + (("dbias",) if c["bias"] else ())
+        text = ", ".join(f"{k} err {c[k]['max_abs_err']:.3e}" for k in keys)
+        text += "; " + " ".join(
+            f"{k} {c[k]['ms']:.4f} ms (plain {c[k]['plain_ms']:.4f}, "
+            f"library {c[k]['library_ms']:.4f}, bound "
+            f"{c[k]['bound_ms']:.4f} {c[k]['bound_by']})" for k in keys)
+        print(f"flash {c['shape']} {c['dtype']} (b {c['batch']}, heads "
+              f"{c['heads']}, {c['sq']} x {c['sk']}, causal {c['causal']}, "
+              f"bias {c['bias']}): {text}")
+    t5fp, t5prof = t5["fp32_check"], t5["profile_3_steps"]
+    print(f"t5 fp32 check (batch 2, {T5_ENC} + {T5_DEC}): loss kernels "
+          f"{t5fp['loss_kernels']} plain {t5fp['loss_plain']} grad max rel "
+          f"err {t5fp['grad_max_rel_err']:.3e} rel-table grads "
+          f"{t5fp['rel_table_grad_max_abs']}")
+    print(f"t5 bf16 batch {T5_BATCH} x ({T5_ENC} + {T5_DEC}): params "
+          f"{t5['n_params']} tokens/s {t5['tokens_per_s']:.1f} step_ms_p50 "
+          f"{t5['step_ms_p50']:.2f} peak {t5['peak_mem_gib']:.2f} GiB busy "
+          f"ms per step {t5prof['device_busy_ms'] / 3:.2f} (share "
+          f"{t5prof['device_busy_share_of_unprofiled_wall']:.3f}) losses "
+          f"{[round(v, 4) for v in t5['losses']]} on {card}")
+    print(f"t5 launches per step: {t5_launches}")
+    for t in t5prof["top"]:
+        print(f"  t5 top kernel: {t['device_ms']:.2f} ms x{t['count']} "
+              f"{t['name']}")
+    for shape in ("train", "t5"):
+        cs = pick(lm_cases, dtype="bfloat16", shape=shape)
+        for key in ("fwd", "dx", "dw"):
+            c = cs[key]
+            print(f"lm_head_loss {key} bf16 ({cs['rows']}, {cs['hidden']}, "
+                  f"{cs['vocab']}): {c['ms']:.3f} ms (plain "
+                  f"{c['plain_ms']:.3f}, library {c['library_ms']:.3f}, "
+                  f"bound {c['bound_ms']:.4f})")
     for c in lm_cases:
         s = c["softmax_term_only"]
         print(f"lm_head_loss gates {c['shape']} {c['dtype']}: dx max abs err "
@@ -1723,16 +2077,20 @@ def main(argv=None) -> int:
               f"{s['dw_max_row_rel_err']:.3e} of the row's max (|dw| median "
               f"{s['dw_median_abs']:.3e}); gate {c['atol_of_row_max']} of "
               f"the row's max + rtol {c['rtol']:.3e}")
-    print(f"fused_adam_tail (16 leaves, 124M elements): {adam['ms']:.4f} ms "
-          f"(plain {adam['plain_ms']:.4f}, AdamW(fused=True) "
-          f"{adam['library_ms']:.4f}, bound {adam['bound_ms']:.4f})")
+    for a in (adam, adam["t5"]):
+        print(f"fused_adam_tail ({a['per']}, {a['elements']} elements): "
+              f"{a['ms']:.4f} ms (plain {a['plain_ms']:.4f}, "
+              f"AdamW(fused=True) {a['library_ms']:.4f}, bound "
+              f"{a['bound_ms']:.4f})")
     for c in ln_cases:
         if c["stats"]:
-            print(f"layer_norm_fwd {c['dtype']} rows {c['rows']} (stats): "
+            print(f"layer_norm_fwd {c['dtype']} ({c['rows']}, "
+                  f"{c['hidden']}) (stats): "
                   f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, library "
                   f"{c['library_ms']:.4f}, bound {c['bound_ms']:.4f})")
     for c in lnb_cases:
-        print(f"layer_norm_bwd {c['dtype']}: {c['ms']:.4f} ms (plain "
+        print(f"layer_norm_bwd {c['dtype']} ({c['rows']}, {c['hidden']}): "
+              f"{c['ms']:.4f} ms (plain "
               f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
               f"{c['bound_ms']:.4f})")
     if args.out:

@@ -18,8 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from apex_tpu_torch.convert import named_leaves
 from apex_tpu_torch.ops import _kernel_util as ku
 from apex_tpu_torch.ops.attention import (flash_attention,
+                                          flash_attention_bwd_dbias,
+                                          flash_attention_bwd_dbias_reference,
                                           flash_attention_bwd_dkv,
                                           flash_attention_bwd_dq,
                                           flash_attention_bwd_reference,
@@ -46,7 +49,9 @@ from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, init_kv_cache,
                                            paged_write)
 from apex_tpu_torch.serve.megakernel import (fused_layer_fwd,
                                              fused_layer_reference)
-from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+from apex_tpu_torch.transformer.testing import (GPTConfig, T5Config,
+                                                build_t5_train_step,
+                                                init_gpt_params, t5_loss)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,7 +76,8 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,hidden", [(1, 768), (3, 768), (37, 128),
-                                         (512, 1024), (5, 4096)])
+                                         (512, 1024), (5, 4096),
+                                         (1024, 512)])
 def test_layer_norm_kernel_matches_plain(dev, dtype, rows, hidden):
     g = torch.Generator(device=dev).manual_seed(rows * hidden)
     x = (torch.randn(rows, hidden, device=dev, generator=g) * 2 + 1).to(dtype)
@@ -169,7 +175,8 @@ def _ln_case(dev, dtype, rows, hidden, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,hidden", [(1, 768), (37, 128), (512, 768),
-                                         (1000, 1024), (8192, 768)])
+                                         (1000, 1024), (8192, 768),
+                                         (4096, 512)])
 def test_layer_norm_bwd_kernel_matches_plain(dev, dtype, rows, hidden):
     """dx within the file's tolerance; dw/db are sums over ``rows``, so
     their atol grows with sqrt(rows) (fp32 1e-5·sqrt(rows), bf16 one output
@@ -319,6 +326,165 @@ def test_flash_kernels_refuse_what_they_cannot_take(dev):
         flash_attention_bwd_dq(q, k, v, do, lse, lse[:, :64], 0.125, True)
 
 
+FLASH_BIAS_CASES = [  # batch, heads, sq, sk, d, causal, dropout rate
+    (2, 4, 128, 128, 64, False, 0.0), (2, 3, 192, 192, 32, True, 0.0),
+    (2, 2, 64, 256, 64, False, 0.0), (3, 2, 128, 128, 64, True, 0.2)]
+
+
+def _flash_bias_case(dev, dtype, b, heads, sq, sk, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b * heads, sq, d, device=dev, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b * heads, sk, d, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    bias = 2.0 * torch.randn(heads, sq, sk, device=dev, generator=g)
+    return q, k, v, do, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,sq,sk,d,causal,rate", FLASH_BIAS_CASES)
+def test_flash_bias_kernels_match_plain(dev, dtype, b, heads, sq, sk, d,
+                                        causal, rate):
+    """The four kernels with an fp32 (heads, sq, sk) bias vs their plain
+    versions: o, lse, dq, dk, dv as without a bias (fp32 atol/rtol 1e-4,
+    bf16 atol 1e-2 + rtol 2**-7), d(bias) fp32 within atol/rtol 1e-4 in
+    both input types (both sides form the same fp32 products of the same
+    inputs and sum the batch in fp32, in another order); above the causal
+    diagonal d(bias) is exactly 0."""
+    q, k, v, do, bias = _flash_bias_case(dev, dtype, b, heads, sq, sk, d,
+                                         sq * sk + d + b)
+    args = (1 / math.sqrt(d), causal, rate, 99)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    counts = ku.launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, *args, bias=bias)
+    o_p, lse_p = flash_attention_fwd_reference(q, k, v, *args, bias=bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *args, bias=bias)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args,
+                                     bias=bias)
+    db = flash_attention_bwd_dbias(q, k, v, do, lse, delta, *args,
+                                   bias=bias)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, *args,
+                                         bias=bias)
+    db_p = flash_attention_bwd_dbias_reference(q, k, v, o, lse, do, *args,
+                                               bias=bias)
+    torch.cuda.synchronize()
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    assert db.dtype == torch.float32 and db.shape == bias.shape
+    torch.testing.assert_close(db, db_p, atol=1e-4, rtol=1e-4)
+    if causal:
+        above = torch.ones(sq, sk, dtype=torch.bool, device=dev).triu(1)
+        assert not bool(db[:, above].any())
+    after = ku.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_dbias"):
+        assert after[name] == counts.get(name, 0) + 1
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_dbias_bitwise_repeat(dev, causal):
+    """d(bias) sums the batch in one fixed order: repeats are bitwise
+    equal (bf16 inputs, 8 batch items, T5's decoder shape)."""
+    q, k, v, do, bias = _flash_bias_case(dev, torch.bfloat16, 8, 8, 128,
+                                         128, 64, 5)
+    args = (0.125, causal, 0.0, 0)
+    o, lse = flash_attention_fwd(q, k, v, *args, bias=bias)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    first = flash_attention_bwd_dbias(q, k, v, do, lse, delta, *args,
+                                      bias=bias)
+    for _ in range(3):
+        again = flash_attention_bwd_dbias(q, k, v, do, lse, delta, *args,
+                                          bias=bias)
+        assert torch.equal(first, again)
+
+
+def test_flash_attention_bias_autograd_on_the_card(dev):
+    """The front door with a bias on CUDA goes through the four kernels
+    (one launch each) and gives the plain versions' output and q, k, v
+    and bias gradients (fp32 atol 1e-4); a bf16 bias gets a bf16
+    gradient."""
+    q, k, v, do, bias = _flash_bias_case(dev, torch.float32, 2, 3, 128, 128,
+                                         64, 12)
+    q, k, v, do = (t.reshape(2, 3, 128, 64) for t in (q, k, v, do))
+    runs = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        before = ku.launch_counts()
+        if plain:
+            with ku.force_plain():
+                o = flash_attention(*leaves[:3], bias=leaves[3], causal=True)
+                o.backward(do)
+            assert ku.launch_counts() == before
+        else:
+            o = flash_attention(*leaves[:3], bias=leaves[3], causal=True)
+            o.backward(do)
+            assert ku.launch_counts()["flash_attention_bwd_dbias"] == \
+                before.get("flash_attention_bwd_dbias", 0) + 1
+        runs.append([o] + [t.grad for t in leaves])
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    b16 = bias.bfloat16().requires_grad_()
+    flash_attention(q, k, v, bias=b16).backward(do)
+    assert b16.grad.dtype == torch.bfloat16
+
+
+def test_flash_bias_kernels_refuse_what_they_cannot_take(dev):
+    q, k, v, do, bias = _flash_bias_case(dev, torch.float32, 2, 2, 128, 128,
+                                         64, 3)
+    flash_attention_fwd(q, k, v, 0.125, False, bias=bias)
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention_fwd(q, k, v, 0.125, False, bias=bias.bfloat16())
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention_fwd(q, k, v, 0.125, False, bias=bias[:, :64])
+    with pytest.raises(ValueError, match="heads"):
+        flash_attention_fwd(q, k, v, 0.125, False,
+                            bias=torch.zeros(3, 128, 128, device=dev))
+    lse = torch.zeros(4, 128, 1, device=dev)
+    with pytest.raises(ValueError, match="needs the bias"):
+        flash_attention_bwd_dbias(q, k, v, do, lse, lse, 0.125, False,
+                                  bias=None)
+
+
+def test_t5_loss_kernels_match_plain_on_the_card(dev):
+    """A small T5 proper (hidden 128, 2 heads of 64, 1 + 1 layers, s_enc
+    128, s_dec 64, fp32): loss and every gradient leaf through the kernels
+    (bias fwd/dQ/dK-dV/d(bias), cross-attention, LN, fused loss) vs the
+    plain versions forced; loss rel 1e-5, each leaf max err <= 1e-5 of
+    its max |g|, as ``chip_smoke.py`` holds T5-small."""
+    cfg = T5Config(vocab_size=512, hidden=128, num_heads=2, enc_layers=1,
+                   dec_layers=1, dtype=torch.float32,
+                   relative_position_bias=True, encoder_final_ln=True)
+    _, params, _, (enc, dec, tgt) = build_t5_train_step(cfg, 2, 128, 64,
+                                                        device=dev)
+    leaves = list(named_leaves(params))
+    runs = []
+    for plain in (False, True):
+        for _, p in leaves:
+            p.grad = None
+        before = ku.launch_counts()
+        if plain:
+            with ku.force_plain():
+                loss = t5_loss(params, enc, dec, tgt, cfg)
+                loss.backward()
+            assert ku.launch_counts() == before
+        else:
+            loss = t5_loss(params, enc, dec, tgt, cfg)
+            loss.backward()
+            assert ku.launch_counts()["flash_attention_bwd_dbias"] == \
+                before.get("flash_attention_bwd_dbias", 0) + 2
+        runs.append((loss.item(), [p.grad.clone() for _, p in leaves]))
+    (lk, gk), (lp, gp) = runs
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for (name, _), a, b in zip(leaves, gk, gp):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * scale, name
+
+
 # ---------------------------------------------------------------------------
 # fused LM-head + cross-entropy (forward, dX, dW) and the Adam tail
 
@@ -356,7 +522,7 @@ def _close_rows(got, want, atol_of_row_max, rtol, name):
 
 
 LM_CASES = [(96, 1000, 128), (256, 512, 768), (8, 37, 256), (600, 3000, 384),
-            (128, 257, 1152)]
+            (128, 257, 1152), (1024, 32128, 512)]   # the last: T5-small's
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

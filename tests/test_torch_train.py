@@ -405,7 +405,8 @@ def test_refused_optimizer_and_attention_options_raise():
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(p, amsgrad=True)
     q = torch.zeros(1, 1, 8, 8)
-    with pytest.raises(NotImplementedError, match="A6"):
-        flash_attention(q, q, q, bias=torch.zeros(1, 8, 8))
+    # the bias must be batch-shared (heads, sq, sk), as JAX checks it
+    with pytest.raises(ValueError, match="heads, sq, sk"):
+        flash_attention(q, q, q, bias=torch.zeros(2, 2, 8, 8))
     with pytest.raises(ValueError, match="dropout_seed"):
         flash_attention(q, q, q, dropout_rate=0.1)
