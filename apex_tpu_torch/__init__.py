@@ -10,8 +10,10 @@ version sits beside its wrapper and runs only for tensors on the CPU.
 Ported so far: the single-engine serving path (``serve``: the fused
 per-layer decode/verify kernel, the per-op path with the LayerNorm and
 paged-attention kernels, int8/int4 paged KV through ``comm.quantize``'s
-codec) and the GPT-2-124M train step (``transformer.testing``, ``ops``,
-``optimizers``).
+codec), the GPT-2-124M and T5-small train steps (``transformer.testing``,
+``ops``, ``optimizers``), packed variable-length attention
+(``contrib.fmha`` over ``ops.attention_varlen``) and the engine's
+latency histograms (``monitor.hist``).
 """
 
 from apex_tpu_torch._device import resolve_device  # noqa: F401

@@ -47,69 +47,38 @@
 // heaviest causal tiles launched first; dK/dV: one block per (kv tile of
 // 64 rows, batch*head), walking the q tiles from the causal diagonal on.
 // Each output tile has exactly one owner, so nothing is summed across
-// blocks: no atomics, and the results are deterministic. K/V (or Q/dO)
-// tiles are staged in shared memory as fp32. A row is held by TPR = D /
-// DPT neighbouring threads, each owning DPT of its dims in registers (in
-// interleaved float4 chunks, so the group's shared-memory reads are
-// conflict-free broadcasts); dot products end with an xor-shuffle sum
-// inside the group. Masking is by value, never by branch, so every lane
-// reaches every shuffle. Sequence lengths are multiples of 64; D is 32 or
-// 64.
+// blocks: no atomics, and the results are deterministic. The tile code is
+// shared with the varlen kernels (flash_tile.cuh): K/V (or Q/dO) tiles
+// staged in shared memory as fp32, a row held by TPR = D / DPT
+// neighbouring threads. Masking is by value, never by branch, so every
+// lane reaches every shuffle. Any sequence length runs: the last tile of
+// a length that is not a multiple of 64 stages zeros past the end, gives
+// the columns past sk the score NEG_INF (p = 0) and stores no row past
+// sq. A head dim d (a multiple of 8 up to 128) runs in the instantiation
+// for D = 32, 64 or 128 with zeros past d; `scale` is the caller's (1 /
+// sqrt(d)). D = 128 stages 64 KB a block, above the 48 KB of static
+// shared memory, so every kernel takes its tiles as dynamic shared memory.
 //
 // The bias is read straight from device memory, one (q tile, k tile)
 // block of it where the scores of that tile are formed: a q row's 16
 // biases of a key chunk as float4 loads in the forward, a key column's
 // bias per q row in dK/dV (neighbouring threads, neighbouring keys). The
-// causal tiles that the kernels skip read no bias. d(bias) has no
-// sequential grid to carry the batch sum through (JAX runs the batch as
-// its innermost, ordered grid axis): one block owns each (head, q tile,
-// k tile) output tile and walks the batch in order, summing in registers
-// (each thread owns 64 / TPR columns of its row), then writes the tile
-// once; no atomics, so the sum is the same bits on every run. Tiles above
-// the causal diagonal write zeros.
+// causal tiles that the kernels skip read no bias. The bias and d(bias)
+// come in whole tiles, (heads, sq, sk) rounded up to multiples of 64 (the
+// wrapper pads a shape that ends in a partial tile, the bias with
+// NEG_INF): the reads of a tail tile stay in bounds with no clamp or
+// branch, and the padding masks their scores by value, so the bias
+// kernels carry no tail mask of their own. d(bias) has no sequential grid
+// to carry the batch sum through (JAX runs the batch as its innermost,
+// ordered grid axis): one block owns each (head, q tile, k tile) output
+// tile and walks the batch in order, summing in registers (each thread
+// owns 64 / TPR columns of its row), then writes the tile once; no
+// atomics, so the sum is the same bits on every run. Tiles above the
+// causal diagonal write zeros.
 
-#include "common.cuh"
+#include "flash_tile.cuh"
 
 namespace {
-
-constexpr int kB = 64;      // rows of a q or kv tile
-constexpr int kChunk = 16;  // keys per online-softmax update
-
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) out[i] = __bfloat162float(e[i]);
-}
-__device__ __forceinline__ void store4(float* p, const float* in) {
-  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* in) {
-  uint2 raw;
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) e[i] = __float2bfloat16_rn(in[i]);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// the value after a cast to T and back (JAX casts p and ds before a dot)
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // `_hash_keep` of ops/attention.py, in uint32 arithmetic; `base` is
 // seed * 0xC2B2AE3D + bh * 0x27D4EB2F
@@ -130,76 +99,22 @@ struct Dropout {
   float inv_keep;  // 1 / (1 - rate), as the JAX kernels scale
 };
 
-// sum over the TPR neighbouring lanes that hold one row
-template <int TPR>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// shapes of one launch: sq, sk rows; d the true head dim (the row stride);
+// bsq, bsk the bias's (and d(bias)'s) rows and columns, sq and sk rounded
+// up to whole tiles
+struct Dims {
+  int heads, sq, sk, d, bsq, bsk;
+  Dims(int heads_, int sq_, int sk_, int d_)
+      : heads(heads_), sq(sq_), sk(sk_), d(d_), bsq(tiles(sq_) * kB),
+        bsk(tiles(sk_) * kB) {}
+};
 
-// Copy a contiguous (kB, D) tile of T into shared memory as fp32.
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src,
-                                           int nthreads) {
-  constexpr int N = apex::Vec<T>::N;
-  for (int u = threadIdx.x; u < kB * D / N; u += nthreads) {
-    float f[N];
-    apex::load_vec(src + static_cast<long>(u) * N, f);
-#pragma unroll
-    for (int e = 0; e < N; e += 4) store4(dst + u * N + e, f + e);
-  }
-}
-
-// dims of this thread: float4 chunks h, h + TPR, h + 2*TPR, ... of a row
-template <int DPT, int TPR>
-__device__ __forceinline__ float dot_part(const float* reg, const float* row,
-                                          int h) {
-  float d = 0.f;
-#pragma unroll
-  for (int i = 0; i < DPT / 4; ++i) {
-    const float4 r4 = reinterpret_cast<const float4*>(row)[h + TPR * i];
-    d += reg[4 * i] * r4.x + reg[4 * i + 1] * r4.y + reg[4 * i + 2] * r4.z +
-         reg[4 * i + 3] * r4.w;
-  }
-  return d;
-}
-
-template <int DPT, int TPR>
-__device__ __forceinline__ void axpy_part(float* acc, float a,
-                                          const float* row, int h) {
-#pragma unroll
-  for (int i = 0; i < DPT / 4; ++i) {
-    const float4 r4 = reinterpret_cast<const float4*>(row)[h + TPR * i];
-    acc[4 * i] += a * r4.x;
-    acc[4 * i + 1] += a * r4.y;
-    acc[4 * i + 2] += a * r4.z;
-    acc[4 * i + 3] += a * r4.w;
-  }
-}
-
-template <typename T, int DPT, int TPR>
-__device__ __forceinline__ void load_row_part(const T* row, float* reg,
-                                              int h) {
-#pragma unroll
-  for (int i = 0; i < DPT / 4; ++i) load4(row + 4 * (h + TPR * i), reg + 4 * i);
-}
-
-template <typename T, int DPT, int TPR>
-__device__ __forceinline__ void store_row_part(T* row, const float* reg,
-                                               int h) {
-#pragma unroll
-  for (int i = 0; i < DPT / 4; ++i)
-    store4(row + 4 * (h + TPR * i), reg + 4 * i);
-}
-
-// row `qpos` of head `head` of the (heads, sq, sk) bias; null without one
+// row `qpos` of head `head` of the (heads, bsq, bsk) bias; null without one
 template <bool HasBias>
 __device__ __forceinline__ const float* bias_row(const float* bias, int head,
-                                                 int qpos, int sq, int sk) {
+                                                 int qpos, const Dims& n) {
   if constexpr (HasBias)
-    return bias + (static_cast<long>(head) * sq + qpos) * sk;
+    return bias + (static_cast<long>(head) * n.bsq + qpos) * n.bsk;
   else
     return nullptr;
 }
@@ -207,36 +122,42 @@ __device__ __forceinline__ const float* bias_row(const float* bias, int head,
 // ---------------------------------------------------------------------------
 // forward: o and lse
 
+// at most 128 registers a thread (512 threads an SM): four blocks at D =
+// 64; left free, the bias variant takes 135 registers, fits three blocks
+// and runs 30 % longer
 template <typename T, int D, bool HasBias>
-__global__ void __launch_bounds__(kB * (D / 32))
+__global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
                      const float* __restrict__ bias, T* __restrict__ o,
-                     float* __restrict__ lse, int heads, int sq, int sk,
-                     float scale, int causal, Dropout drop) {
+                     float* __restrict__ lse, Dims n, float scale,
+                     int causal, Dropout drop) {
   constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
-  __shared__ __align__(16) float sK[kB * D];
-  __shared__ __align__(16) float sV[kB * D];
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = smem + kB * D;
   const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
   const int bh = blockIdx.y;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
   const int qpos = qt * kB + r;
+  const bool qvalid = qpos < n.sq;
   const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
 
   float qr[DPT], acc[DPT];
-  const long qrow = (static_cast<long>(bh) * sq + qpos) * D;
-  load_row_part<T, DPT, TPR>(q + qrow, qr, h);
+  const long qrow = (static_cast<long>(bh) * n.sq + qpos) * n.d;
+  load_row_part<T, DPT, TPR>(q + qrow, qr, h, qvalid ? n.d : 0);
 #pragma unroll
   for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
   float m = apex::kNegInf, l = 0.f;
-  const float* brow = bias_row<HasBias>(bias, bh % heads, qpos, sq, sk);
+  const float* brow = bias_row<HasBias>(bias, bh % n.heads, qpos, n);
 
-  const int nkt = causal ? qt + 1 : sk / kB;
+  const int nkt = causal ? qt + 1 : tiles(n.sk);
   for (int kt = 0; kt < nkt; ++kt) {
     __syncthreads();  // the previous tile's readers are done
-    const long kbase = (static_cast<long>(bh) * sk + kt * kB) * D;
-    stage_tile<T, D>(sK, k + kbase, NT);
-    stage_tile<T, D>(sV, v + kbase, NT);
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
+    const int krows = min(kB, n.sk - kt * kB);
+    stage_tile<T, D>(sK, k + kbase, krows, n.d, NT);
+    stage_tile<T, D>(sV, v + kbase, krows, n.d, NT);
     __syncthreads();
     const bool diag = causal && kt == qt;
     for (int j0 = 0; j0 < kB; j0 += kChunk) {
@@ -254,7 +175,7 @@ __global__ void __launch_bounds__(kB * (D / 32))
         float sv = group_sum<TPR>(dot_part<DPT, TPR>(qr, sK + j * D, h)) *
                    scale;
         if constexpr (HasBias) sv = __fadd_rn(sv, bv[jj]);
-        if (diag && j > r) sv = apex::kNegInf;
+        if ((diag && j > r) || (!HasBias && j >= krows)) sv = apex::kNegInf;
         s[jj] = sv;
         cmax = fmaxf(cmax, sv);
       }
@@ -282,12 +203,13 @@ __global__ void __launch_bounds__(kB * (D / 32))
       m = m_new;
     }
   }
+  if (!qvalid) return;
   const float safe_l = l == 0.f ? 1.f : l;
 #pragma unroll
   for (int i = 0; i < DPT; ++i) acc[i] /= safe_l;
-  store_row_part<T, DPT, TPR>(o + qrow, acc, h);
+  store_row_part<T, DPT, TPR>(o + qrow, acc, h, n.d);
   if (h == 0)
-    lse[static_cast<long>(bh) * sq + qpos] =
+    lse[static_cast<long>(bh) * n.sq + qpos] =
         l == 0.f ? apex::kNegInf : m + logf(safe_l);
 }
 
@@ -301,41 +223,45 @@ __global__ void __launch_bounds__(kB * (D / 32))
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const float* __restrict__ bias, T* __restrict__ dq,
-                        int heads, int sq, int sk, float scale, int causal,
-                        Dropout drop) {
+                        Dims n, float scale, int causal, Dropout drop) {
   constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
-  __shared__ __align__(16) float sK[kB * D];
-  __shared__ __align__(16) float sV[kB * D];
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = smem + kB * D;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
   const int qpos = qt * kB + r;
+  const bool qvalid = qpos < n.sq;
   const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
 
   float qr[DPT], dor[DPT], acc[DPT];
-  const long qrow = (static_cast<long>(bh) * sq + qpos) * D;
-  load_row_part<T, DPT, TPR>(q + qrow, qr, h);
-  load_row_part<T, DPT, TPR>(dout + qrow, dor, h);
+  const long qrow = (static_cast<long>(bh) * n.sq + qpos) * n.d;
+  load_row_part<T, DPT, TPR>(q + qrow, qr, h, qvalid ? n.d : 0);
+  load_row_part<T, DPT, TPR>(dout + qrow, dor, h, qvalid ? n.d : 0);
 #pragma unroll
   for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-  const float lse_r = lse[static_cast<long>(bh) * sq + qpos];
-  const float delta_r = delta[static_cast<long>(bh) * sq + qpos];
-  const float* brow = bias_row<HasBias>(bias, bh % heads, qpos, sq, sk);
+  const float lse_r = qvalid ? lse[static_cast<long>(bh) * n.sq + qpos] : 0.f;
+  const float delta_r =
+      qvalid ? delta[static_cast<long>(bh) * n.sq + qpos] : 0.f;
+  const float* brow = bias_row<HasBias>(bias, bh % n.heads, qpos, n);
 
-  const int nkt = causal ? qt + 1 : sk / kB;
+  const int nkt = causal ? qt + 1 : tiles(n.sk);
   for (int kt = 0; kt < nkt; ++kt) {
     __syncthreads();
-    const long kbase = (static_cast<long>(bh) * sk + kt * kB) * D;
-    stage_tile<T, D>(sK, k + kbase, NT);
-    stage_tile<T, D>(sV, v + kbase, NT);
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
+    const int krows = min(kB, n.sk - kt * kB);
+    stage_tile<T, D>(sK, k + kbase, krows, n.d, NT);
+    stage_tile<T, D>(sV, v + kbase, krows, n.d, NT);
     __syncthreads();
     const bool diag = causal && kt == qt;
 #pragma unroll 4
     for (int j = 0; j < kB; ++j) {
       float sv = group_sum<TPR>(dot_part<DPT, TPR>(qr, sK + j * D, h)) *
                  scale;
-      if constexpr (HasBias) sv = __fadd_rn(sv, __ldg(brow + kt * kB + j));
-      if (diag && j > r) sv = apex::kNegInf;
+      if constexpr (HasBias)
+        sv = __fadd_rn(sv, __ldg(brow + kt * kB + j));
+      if ((diag && j > r) || (!HasBias && j >= krows)) sv = apex::kNegInf;
       const float p = expf(sv - lse_r);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
       if (drop.on)
@@ -346,7 +272,7 @@ __global__ void __launch_bounds__(kB * (D / 32))
       axpy_part<DPT, TPR>(acc, round_to<T>(ds), sK + j * D, h);
     }
   }
-  store_row_part<T, DPT, TPR>(dq + qrow, acc, h);
+  if (qvalid) store_row_part<T, DPT, TPR>(dq + qrow, acc, h, n.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -360,38 +286,43 @@ __global__ void __launch_bounds__(kB * (D / 16))
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const float* __restrict__ bias, T* __restrict__ dk,
-                         T* __restrict__ dv, int heads, int sq, int sk,
-                         float scale, int causal, Dropout drop) {
+                         T* __restrict__ dv, Dims n, float scale, int causal,
+                         Dropout drop) {
   constexpr int DPT = 16, TPR = D / DPT, NT = kB * TPR;
-  __shared__ __align__(16) float sQ[kB * D];
-  __shared__ __align__(16) float sO[kB * D];  // dO
-  __shared__ float sL[kB], sD[kB];
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sO = smem + kB * D;  // dO
+  float* sL = smem + 2 * kB * D;
+  float* sD = sL + kB;
   const int kt = blockIdx.x;  // causal: low tiles have the most q tiles
   const int bh = blockIdx.y;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
   const int kpos = kt * kB + r;
+  const bool kvalid = kpos < n.sk;
   const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
 
   float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
-  const long krow = (static_cast<long>(bh) * sk + kpos) * D;
-  load_row_part<T, DPT, TPR>(k + krow, kr, h);
-  load_row_part<T, DPT, TPR>(v + krow, vr, h);
+  const long krow = (static_cast<long>(bh) * n.sk + kpos) * n.d;
+  load_row_part<T, DPT, TPR>(k + krow, kr, h, kvalid ? n.d : 0);
+  load_row_part<T, DPT, TPR>(v + krow, vr, h, kvalid ? n.d : 0);
 #pragma unroll
   for (int i = 0; i < DPT; ++i) dka[i] = dva[i] = 0.f;
-  // this key's bias column: row i of q tile qt at bcol[(qt * kB + i) * sk]
+  // this key's bias column: row i of q tile qt at bcol[(qt * kB + i) * bsk]
   const float* bcol =
-      HasBias ? bias + static_cast<long>(bh % heads) * sq * sk + kpos
+      HasBias ? bias + static_cast<long>(bh % n.heads) * n.bsq * n.bsk + kpos
               : nullptr;
 
-  const int nqt = sq / kB;
+  const int nqt = tiles(n.sq);
   for (int qt = causal ? kt : 0; qt < nqt; ++qt) {
     __syncthreads();
-    const long qbase = (static_cast<long>(bh) * sq + qt * kB) * D;
-    stage_tile<T, D>(sQ, q + qbase, NT);
-    stage_tile<T, D>(sO, dout + qbase, NT);
+    const long qbase = (static_cast<long>(bh) * n.sq + qt * kB) * n.d;
+    const int qrows = min(kB, n.sq - qt * kB);
+    stage_tile<T, D>(sQ, q + qbase, qrows, n.d, NT);
+    stage_tile<T, D>(sO, dout + qbase, qrows, n.d, NT);
     for (int i = threadIdx.x; i < kB; i += NT) {
-      sL[i] = lse[static_cast<long>(bh) * sq + qt * kB + i];
-      sD[i] = delta[static_cast<long>(bh) * sq + qt * kB + i];
+      const long row = static_cast<long>(bh) * n.sq + qt * kB + i;
+      sL[i] = i < qrows ? lse[row] : 0.f;
+      sD[i] = i < qrows ? delta[row] : 0.f;
     }
     __syncthreads();
     const bool diag = causal && kt == qt;
@@ -401,8 +332,9 @@ __global__ void __launch_bounds__(kB * (D / 16))
                  scale;
       if constexpr (HasBias)
         sv = __fadd_rn(sv,
-                       __ldg(bcol + static_cast<long>(qt * kB + i) * sk));
-      if (diag && r > i) sv = apex::kNegInf;  // kpos > qpos
+                       __ldg(bcol + static_cast<long>(qt * kB + i) * n.bsk));
+      // kpos > qpos, or a row past sq (with a bias, its NEG_INF does it)
+      if ((diag && r > i) || (!HasBias && i >= qrows)) sv = apex::kNegInf;
       const float p = expf(sv - sL[i]);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(vr, sO + i * D, h));
       float pv = p;
@@ -416,33 +348,40 @@ __global__ void __launch_bounds__(kB * (D / 16))
       axpy_part<DPT, TPR>(dka, round_to<T>(ds), sQ + i * D, h);
     }
   }
-  store_row_part<T, DPT, TPR>(dk + krow, dka, h);
-  store_row_part<T, DPT, TPR>(dv + krow, dva, h);
+  if (!kvalid) return;
+  store_row_part<T, DPT, TPR>(dk + krow, dka, h, n.d);
+  store_row_part<T, DPT, TPR>(dv + krow, dva, h, n.d);
 }
 
 // ---------------------------------------------------------------------------
 // d(bias): one block per (k tile, q tile, head) output tile, walking the
 // batch in order
 
+// three blocks an SM at D = 64 (168 registers; left free, the compiler
+// takes 255 and fits two)
 template <typename T, int D>
-__global__ void __launch_bounds__(kB * (D / 32))
+__global__ void __launch_bounds__(kB * (D / 32), D == 64 ? 3 : 1)
     flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
                            const T* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            const float* __restrict__ bias,
-                           float* __restrict__ db, int heads, int nb, int sq,
-                           int sk, float scale, int causal, Dropout drop) {
+                           float* __restrict__ db, Dims n, int nb,
+                           float scale, int causal, Dropout drop) {
   constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
   constexpr int NJ = kB / TPR;  // columns of the tile one thread sums
-  __shared__ __align__(16) float sK[kB * D];
-  __shared__ __align__(16) float sV[kB * D];
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = smem + kB * D;
   const int kt = blockIdx.x, qt = blockIdx.y, head = blockIdx.z;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
   const int qpos = qt * kB + r;
+  const bool qvalid = qpos < n.sq;
+  const int krows = min(kB, n.sk - kt * kB);
   // this thread's columns: h, h + TPR, h + 2 * TPR, ... of the tile's row r
-  float* dbrow = db + (static_cast<long>(head) * sq + qpos) * sk + kt * kB;
+  float* dbrow =
+      db + (static_cast<long>(head) * n.bsq + qpos) * n.bsk + kt * kB;
   float acc[NJ];
 #pragma unroll
   for (int i = 0; i < NJ; ++i) acc[i] = 0.f;
@@ -451,29 +390,30 @@ __global__ void __launch_bounds__(kB * (D / 32))
     for (int i = 0; i < NJ; ++i) dbrow[h + TPR * i] = 0.f;
     return;
   }
-  const float* brow = bias_row<true>(bias, head, qpos, sq, sk) + kt * kB;
+  const float* brow = bias_row<true>(bias, head, qpos, n);
   const bool diag = causal && kt == qt;
 
   float qr[DPT], dor[DPT];
   for (int b = 0; b < nb; ++b) {
-    const int bh = b * heads + head;
+    const int bh = b * n.heads + head;
     const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
-    const long qrow = (static_cast<long>(bh) * sq + qpos) * D;
-    load_row_part<T, DPT, TPR>(q + qrow, qr, h);
-    load_row_part<T, DPT, TPR>(dout + qrow, dor, h);
-    const float lse_r = lse[static_cast<long>(bh) * sq + qpos];
-    const float delta_r = delta[static_cast<long>(bh) * sq + qpos];
+    const long qrow = (static_cast<long>(bh) * n.sq + qpos) * n.d;
+    load_row_part<T, DPT, TPR>(q + qrow, qr, h, qvalid ? n.d : 0);
+    load_row_part<T, DPT, TPR>(dout + qrow, dor, h, qvalid ? n.d : 0);
+    const long lrow = static_cast<long>(bh) * n.sq + qpos;
+    const float lse_r = qvalid ? lse[lrow] : 0.f;
+    const float delta_r = qvalid ? delta[lrow] : 0.f;
     __syncthreads();  // the previous batch item's readers are done
-    const long kbase = (static_cast<long>(bh) * sk + kt * kB) * D;
-    stage_tile<T, D>(sK, k + kbase, NT);
-    stage_tile<T, D>(sV, v + kbase, NT);
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
+    stage_tile<T, D>(sK, k + kbase, krows, n.d, NT);
+    stage_tile<T, D>(sV, v + kbase, krows, n.d, NT);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < kB; ++j) {
       float sv = group_sum<TPR>(dot_part<DPT, TPR>(qr, sK + j * D, h)) *
                  scale;
-      sv = __fadd_rn(sv, __ldg(brow + j));
-      if (diag && j > r) sv = apex::kNegInf;
+      sv = __fadd_rn(sv, __ldg(brow + kt * kB + j));
+      if (diag && j > r) sv = apex::kNegInf;  // pad columns: bias NEG_INF
       const float p = expf(sv - lse_r);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
       if (drop.on)
@@ -489,80 +429,85 @@ __global__ void __launch_bounds__(kB * (D / 32))
   for (int i = 0; i < NJ; ++i) dbrow[h + TPR * i] = acc[i];
 }
 
-template <typename T, int D, bool HasBias>
-void launch_fwd(const void* q, const void* k, const void* v,
-                const void* bias, void* o, void* lse, int heads, int bh,
-                int sq, int sk, float scale, int causal, Dropout drop,
-                cudaStream_t s) {
-  flash_fwd_kernel<T, D, HasBias>
-      <<<dim3(sq / kB, bh), kB * (D / 32), 0, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const float*>(bias),
-          static_cast<T*>(o), static_cast<float*>(lse), heads, sq, sk, scale,
-          causal, drop);
+// dynamic shared memory of a kernel that stages two (kB, D) fp32 tiles
+// (plus, for dK/dV, the tile's lse and delta)
+template <int D>
+constexpr int tile_smem(bool rows) {
+  return (2 * kB * D + (rows ? 2 * kB : 0)) * static_cast<int>(sizeof(float));
 }
 
 template <typename T, int D, bool HasBias>
-void launch_dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* bias, void* dq,
-               int heads, int bh, int sq, int sk, float scale, int causal,
-               Dropout drop, cudaStream_t s) {
-  flash_bwd_dq_kernel<T, D, HasBias>
-      <<<dim3(sq / kB, bh), kB * (D / 32), 0, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<const float*>(bias), static_cast<T*>(dq), heads, sq,
-          sk, scale, causal, drop);
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const void* bias, void* o, void* lse, Dims n, int bh,
+                       float scale, int causal, Dropout drop,
+                       cudaStream_t s) {
+  auto kernel = flash_fwd_kernel<T, D, HasBias>;
+  constexpr int smem = tile_smem<D>(false);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles(n.sq), bh), kB * (D / 32), smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<T*>(o), static_cast<float*>(lse), n, scale, causal, drop);
+  return cudaSuccess;
 }
 
 template <typename T, int D, bool HasBias>
-void launch_dkv(const void* q, const void* k, const void* v,
-                const void* dout, const void* lse, const void* delta,
-                const void* bias, void* dk, void* dv, int heads, int bh,
-                int sq, int sk, float scale, int causal, Dropout drop,
-                cudaStream_t s) {
-  flash_bwd_dkv_kernel<T, D, HasBias>
-      <<<dim3(sk / kB, bh), kB * (D / 16), 0, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<const float*>(bias), static_cast<T*>(dk),
-          static_cast<T*>(dv), heads, sq, sk, scale, causal, drop);
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* bias, void* dq, Dims n, int bh, float scale,
+                      int causal, Dropout drop, cudaStream_t s) {
+  auto kernel = flash_bwd_dq_kernel<T, D, HasBias>;
+  constexpr int smem = tile_smem<D>(false);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles(n.sq), bh), kB * (D / 32), smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(bias), static_cast<T*>(dq), n, scale, causal,
+      drop);
+  return cudaSuccess;
+}
+
+template <typename T, int D, bool HasBias>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       const void* bias, void* dk, void* dv, Dims n, int bh,
+                       float scale, int causal, Dropout drop,
+                       cudaStream_t s) {
+  auto kernel = flash_bwd_dkv_kernel<T, D, HasBias>;
+  constexpr int smem = tile_smem<D>(true);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles(n.sk), bh), kB * (D / 16), smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(bias), static_cast<T*>(dk),
+      static_cast<T*>(dv), n, scale, causal, drop);
+  return cudaSuccess;
 }
 
 template <typename T, int D>
-void launch_dbias(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  const void* bias, void* db, int heads, int bh, int sq,
-                  int sk, float scale, int causal, Dropout drop,
-                  cudaStream_t s) {
-  flash_bwd_dbias_kernel<T, D>
-      <<<dim3(sk / kB, sq / kB, heads), kB * (D / 32), 0, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<const float*>(bias), static_cast<float*>(db), heads,
-          bh / heads, sq, sk, scale, causal, drop);
+cudaError_t launch_dbias(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         const void* bias, void* db, Dims n, int bh,
+                         float scale, int causal, Dropout drop,
+                         cudaStream_t s) {
+  auto kernel = flash_bwd_dbias_kernel<T, D>;
+  constexpr int smem = tile_smem<D>(false);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles(n.sk), tiles(n.sq), n.heads), kB * (D / 32), smem,
+           s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const float*>(lse),
+                static_cast<const float*>(delta),
+                static_cast<const float*>(bias), static_cast<float*>(db), n,
+                bh / n.heads, scale, causal, drop);
+  return cudaSuccess;
 }
-
-// runs the statement given, as written, with T and D bound to the
-// (type, head_dim) pair; an unsupported pair returns cudaErrorInvalidValue
-// from the calling entry point
-#define APEX_FLASH_DISPATCH_TD(...)                                  \
-  do {                                                               \
-    if (is_bf16 && d == 64) {                                        \
-      using T = __nv_bfloat16; constexpr int D = 64; __VA_ARGS__;    \
-    } else if (is_bf16 && d == 32) {                                 \
-      using T = __nv_bfloat16; constexpr int D = 32; __VA_ARGS__;    \
-    } else if (!is_bf16 && d == 64) {                                \
-      using T = float; constexpr int D = 64; __VA_ARGS__;            \
-    } else if (!is_bf16 && d == 32) {                                \
-      using T = float; constexpr int D = 32; __VA_ARGS__;            \
-    } else {                                                         \
-      return static_cast<int>(cudaErrorInvalidValue);                \
-    }                                                                \
-  } while (0)
 
 // FN<T, D, HasBias>(args...): the bias-free kernels for a null `bias`, the
 // bias kernels otherwise
@@ -578,12 +523,18 @@ void launch_dbias(const void* q, const void* k, const void* v,
 
 // On CUDA device `device`, on `stream`. q, o, dO, dq: (bh, sq, d); k, v,
 // dk, dv: (bh, sk, d); contiguous, 16-byte aligned, all of one type
-// (is_bf16 ? bf16 : fp32); lse, delta: (bh, sq) fp32. sq and sk are
-// multiples of 64 (equal when causal); d is 32 or 64. `bias` is null or a
-// contiguous, 16-byte aligned fp32 (heads, sq, sk) tensor shared by the
-// batch (bh = batch * heads, b-major; heads is ignored without a bias);
-// d(bias) writes db, fp32 (heads, sq, sk). Dropout is on when `dropout`
-// != 0: keep where hash >= thresh, kept values scaled by inv_keep.
+// (is_bf16 ? bf16 : fp32); lse, delta: (bh, sq) fp32. d is a multiple of 8
+// up to 128 (run by the instantiation for 32, 64 or 128, zeros past d);
+// sq and sk are any lengths, equal when causal: the last tile of a length
+// that is not a multiple of 64 masks the rows and columns past it. `bias`
+// is null or a contiguous, 16-byte aligned fp32 (heads, bsq, bsk) tensor
+// shared by the batch (bh = batch * heads, b-major; heads is ignored
+// without a bias), bsq and bsk being sq and sk rounded up to multiples of
+// 64, its entries past sq, sk NEG_INF (they mask the scores of the rows
+// and columns past the end); d(bias) writes db, fp32
+// (heads, bsq, bsk), whose entries past sq, sk are scratch. Dropout is on
+// when `dropout` != 0: keep where hash >= thresh, kept values scaled by
+// inv_keep.
 extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
                                    const void* v, const void* bias, void* o,
                                    void* lse, int heads, int bh, int sq,
@@ -594,10 +545,10 @@ extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH(launch_fwd, q, k, v, bias, o, lse, heads, bh, sq, sk,
+  APEX_FLASH_DISPATCH(launch_fwd, q, k, v, bias, o, lse, n, bh,
                       scale, causal, drop, s);
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_attention_bwd_dq(int device, const void* q,
@@ -612,10 +563,10 @@ extern "C" int flash_attention_bwd_dq(int device, const void* q,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, bias, dq, heads,
-                      bh, sq, sk, scale, causal, drop, s);
-  return static_cast<int>(cudaGetLastError());
+  APEX_FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, bias,
+                      dq, n, bh, scale, causal, drop, s);
 }
 
 extern "C" int flash_attention_bwd_dkv(int device, const void* q,
@@ -630,10 +581,10 @@ extern "C" int flash_attention_bwd_dkv(int device, const void* q,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, bias, dk, dv,
-                      heads, bh, sq, sk, scale, causal, drop, s);
-  return static_cast<int>(cudaGetLastError());
+  APEX_FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, bias,
+                      dk, dv, n, bh, scale, causal, drop, s);
 }
 
 extern "C" int flash_attention_bwd_dbias(int device, const void* q,
@@ -651,9 +602,8 @@ extern "C" int flash_attention_bwd_dbias(int device, const void* q,
   if (bias == nullptr || heads <= 0 || bh % heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH_TD(launch_dbias<T, D>(q, k, v, dout, lse, delta, bias,
-                                            db, heads, bh, sq, sk, scale,
-                                            causal, drop, s));
-  return static_cast<int>(cudaGetLastError());
+  APEX_FLASH_DISPATCH_TD(launch_dbias<T, D>(
+      q, k, v, dout, lse, delta, bias, db, n, bh, scale, causal, drop, s));
 }

@@ -1,0 +1,189 @@
+// Tile code shared by the flash attention kernels (flash_attention.cu) and
+// the packed variable-length ones (flash_varlen.cu).
+//
+// A tile is kB = 64 rows of one (batch*head) slice. K/V (or Q/dO) tiles are
+// staged in shared memory as fp32, D floats a row, where D is the
+// instantiated head dim (32, 64 or 128) and the true head dim d (a multiple
+// of 8, at most D) is the row stride in device memory: columns d..D-1 and
+// the rows past the end of a sequence are filled with zeros, so dot
+// products over D equal those over d and nothing is read past the end. A
+// row held in registers belongs to TPR = D / DPT neighbouring threads, each
+// owning DPT of its dims in interleaved float4 chunks (h, h + TPR, ...), so
+// the group's shared-memory reads are conflict-free broadcasts; dot
+// products end with an xor-shuffle sum inside the group.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kB = 64;      // rows of a q or kv tile
+constexpr int kChunk = 16;  // keys per online-softmax update
+
+// the instantiated head dim that runs head dim d (0: none)
+inline int flash_head_dim(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 0;
+}
+
+// tiles of n rows
+__host__ __device__ inline int tiles(int n) { return (n + kB - 1) / kB; }
+
+// shared memory above the static 48 KB needs the kernel's opt-in
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = __bfloat162float(e[i]);
+}
+__device__ __forceinline__ void store4(float* p, const float* in) {
+  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* in) {
+  uint2 raw;
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = __float2bfloat16_rn(in[i]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// the value after a cast to T and back (JAX casts p and ds before a dot)
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// sum over the TPR neighbouring lanes that hold one row
+template <int TPR>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = TPR / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Copy `rows` rows (1 <= rows <= kB) of d columns of T, row stride d, into
+// a (kB, D) fp32 tile; the other rows and columns become zeros. Every load
+// is made, from an address clamped into the tile, and zeroed by value: a
+// load behind a branch cannot start ahead of the others.
+template <typename T, int D>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src, int rows,
+                                           int d, int nthreads) {
+  constexpr int N = apex::Vec<T>::N, PER_ROW = D / N;
+  for (int u = threadIdx.x; u < kB * PER_ROW; u += nthreads) {
+    const int row = u / PER_ROW, c = (u % PER_ROW) * N;
+    float f[N];
+    apex::load_vec(src + static_cast<long>(min(row, rows - 1)) * d +
+                       min(c, d - N),
+                   f);
+    const bool in = row < rows && c < d;
+#pragma unroll
+    for (int e = 0; e < N; ++e) f[e] = in ? f[e] : 0.f;
+#pragma unroll
+    for (int e = 0; e < N; e += 4) store4(dst + row * D + c + e, f + e);
+  }
+}
+
+// dims of this thread: float4 chunks h, h + TPR, h + 2*TPR, ... of a row
+template <int DPT, int TPR>
+__device__ __forceinline__ float dot_part(const float* reg, const float* row,
+                                          int h) {
+  float d = 0.f;
+#pragma unroll
+  for (int i = 0; i < DPT / 4; ++i) {
+    const float4 r4 = reinterpret_cast<const float4*>(row)[h + TPR * i];
+    d += reg[4 * i] * r4.x + reg[4 * i + 1] * r4.y + reg[4 * i + 2] * r4.z +
+         reg[4 * i + 3] * r4.w;
+  }
+  return d;
+}
+
+template <int DPT, int TPR>
+__device__ __forceinline__ void axpy_part(float* acc, float a,
+                                          const float* row, int h) {
+#pragma unroll
+  for (int i = 0; i < DPT / 4; ++i) {
+    const float4 r4 = reinterpret_cast<const float4*>(row)[h + TPR * i];
+    acc[4 * i] += a * r4.x;
+    acc[4 * i + 1] += a * r4.y;
+    acc[4 * i + 2] += a * r4.z;
+    acc[4 * i + 3] += a * r4.w;
+  }
+}
+
+// this thread's dims of a row of d columns; zeros past d (d = 0 for a row
+// past the end of the sequence: nothing is read)
+template <typename T, int DPT, int TPR>
+__device__ __forceinline__ void load_row_part(const T* row, float* reg, int h,
+                                              int d) {
+#pragma unroll
+  for (int i = 0; i < DPT / 4; ++i) {
+    const int c = 4 * (h + TPR * i);
+    if (c < d) {
+      load4(row + c, reg + 4 * i);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) reg[4 * i + e] = 0.f;
+    }
+  }
+}
+
+template <typename T, int DPT, int TPR>
+__device__ __forceinline__ void store_row_part(T* row, const float* reg,
+                                               int h, int d) {
+#pragma unroll
+  for (int i = 0; i < DPT / 4; ++i) {
+    const int c = 4 * (h + TPR * i);
+    if (c < d) store4(row + c, reg + 4 * i);
+  }
+}
+
+// after a launch: the launch's own error, else whatever the card reported
+inline int status_of(cudaError_t launched) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
+}
+
+// runs the launch given, as written, with T and D bound to the input type
+// and the instantiated head dim that takes d, and returns its status from
+// the calling entry point (cudaErrorInvalidValue for a d above 128)
+#define APEX_FLASH_DISPATCH_TD(...)                                   \
+  do {                                                                \
+    switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \
+      case 64: { using T = float; constexpr int D = 32;               \
+                 return status_of(__VA_ARGS__); }                     \
+      case 65: { using T = __nv_bfloat16; constexpr int D = 32;       \
+                 return status_of(__VA_ARGS__); }                     \
+      case 128: { using T = float; constexpr int D = 64;              \
+                  return status_of(__VA_ARGS__); }                    \
+      case 129: { using T = __nv_bfloat16; constexpr int D = 64;      \
+                  return status_of(__VA_ARGS__); }                    \
+      case 256: { using T = float; constexpr int D = 128;             \
+                  return status_of(__VA_ARGS__); }                    \
+      case 257: { using T = __nv_bfloat16; constexpr int D = 128;     \
+                  return status_of(__VA_ARGS__); }                    \
+      default: return static_cast<int>(cudaErrorInvalidValue);        \
+    }                                                                 \
+  } while (0)
+
+}  // namespace

@@ -1,0 +1,389 @@
+// Packed variable-length flash attention, forward and backward, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernels of apex_tpu/ops/attention_varlen.py:
+//   * `_vl_fwd_kernel` (reached through `_vl_call`, pallas_call at :377):
+//     o and the row log-sum-exp lse;
+//   * `_vl_bwd_dq_kernel` (`_vl_bwd_call`, pallas_call at :414): dQ;
+//   * `_vl_bwd_dkv_kernel` (`_vl_bwd_call`, pallas_call at :451): dK, dV.
+//
+// Math, exactly the JAX kernels' (all accumulation in fp32): a score
+// s = (q . k) * scale is allowed where seg_q == seg_k >= 0 (and kpos <=
+// qpos when causal, absolute positions in the packed row); elsewhere it is
+// NEG_INF and p is 0 by value. Forward: online softmax over K/V chunks
+// with running max m and sum l, the correction exp(m_prev - m_new) taken
+// as 0 while m_prev is NEG_INF; p is rounded to the input type before
+// p @ v; o = acc / l, lse = m + log(l), and a row with no allowed score
+// (a pad row) gives o = 0 and lse = NEG_INF. Backward, from lse and
+// delta = sum(dO * O) per row: p = allowed ? exp(s - lse) : 0 (by value: a
+// pad row's lse is NEG_INF and exp(s - lse) would be 1), dp = dO . v,
+// ds = p * (dp - delta) * scale; dQ = sum ds * k, dK = sum ds * q, dV =
+// sum p * dO, with ds and p rounded to the input type before each product.
+//
+// Bound on this card: the live scores S (sum over documents of L^2, or
+// L(L+1)/2 causal) per head set the operations, 4, 6 and 8 * h * S * d for
+// the three kernels; at GPT-2's attention width (12 heads of 64) and
+// documents of 64-1024 tokens they bound all three on the tensor cores'
+// rate. These first kernels run their products on the CUDA cores in fp32
+// (the flash kernels' tiling), so they sit far above that bound: a simple
+// kernel that is right comes first, wgmma and TMA come later.
+//
+// Design: the flash kernels' tiles and row layout (flash_tile.cuh), over a
+// packed row padded to a multiple of 64 with segment -1. JAX clamps its K/V
+// index maps into each q block's live range [jlo, jhi] and skips the
+// blocks in it that cannot meet (`_skip`); here one block per (q tile,
+// batch*head) walks exactly that range and skips the same tiles, and a q
+// tile with an empty range still writes its zeros and NEG_INF. JAX walks q
+// sequentially into one dK/dV block; here one owner block per (K/V tile,
+// batch*head) walks its live q range [ilo, ihi] in order, so nothing is
+// summed across blocks: no atomics, the same bits on every run, and a K/V
+// tile that no q meets writes zeros. The per-tile tables come from the
+// wrapper, computed with torch on the card (no host sync): qr[b][qt] =
+// (qmin, qmax, jlo, jhi) of the q tile's segment ids, kr[b][kt] = (kmin,
+// kmax, ilo, ihi). The min is over the tile's real tokens: JAX counts a
+// pad as -1, which makes the tile holding a document's end and padding
+// meet every tile, and its block walk the whole row. Each block stages
+// the tile's segment ids beside K/V (or Q/dO) in shared memory.
+
+#include "flash_tile.cuh"
+
+namespace {
+
+struct Dims {
+  int h, sq, sk, d;
+};
+
+// JAX's `_skip`, negated: can q tile qt and kv tile kt meet at all?
+__device__ __forceinline__ bool tiles_meet(int4 qi, int4 ki, int qt, int kt,
+                                           int causal) {
+  const bool meet = !(qi.x > ki.y || qi.y < ki.x) && qi.y >= 0 && ki.y >= 0;
+  return meet && (!causal || kt * kB <= qt * kB + kB - 1);
+}
+
+// ---------------------------------------------------------------------------
+// forward: o and lse; one block per (q tile, b*h)
+
+// at most 128 registers a thread, as the flash forward
+template <typename T, int D>
+__global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
+    varlen_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_k,
+                      const int4* __restrict__ qr,
+                      const int4* __restrict__ kr, T* __restrict__ o,
+                      float* __restrict__ lse, Dims n, float scale,
+                      int causal) {
+  constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = smem + kB * D;
+  int* sSeg = reinterpret_cast<int*>(smem + 2 * kB * D);
+  const int nq = gridDim.x, nk = n.sk / kB;
+  const int qt = blockIdx.x, bh = blockIdx.y, b = bh / n.h;
+  const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
+  const int qpos = qt * kB + r;
+  const int seg = seg_q[static_cast<long>(b) * n.sq + qpos];
+
+  float qr_[DPT], acc[DPT];
+  const long qrow = (static_cast<long>(bh) * n.sq + qpos) * n.d;
+  load_row_part<T, DPT, TPR>(q + qrow, qr_, h, n.d);
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+  float m = apex::kNegInf, l = 0.f;
+
+  const int4 qi = qr[static_cast<long>(b) * nq + qt];
+  for (int kt = qi.z; kt <= qi.w; ++kt) {
+    if (!tiles_meet(qi, kr[static_cast<long>(b) * nk + kt], qt, kt, causal))
+      continue;  // the same for the whole block
+    __syncthreads();  // the previous tile's readers are done
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
+    stage_tile<T, D>(sK, k + kbase, kB, n.d, NT);
+    stage_tile<T, D>(sV, v + kbase, kB, n.d, NT);
+    for (int j = threadIdx.x; j < kB; j += NT)
+      sSeg[j] = seg_k[static_cast<long>(b) * n.sk + kt * kB + j];
+    __syncthreads();
+    for (int j0 = 0; j0 < kB; j0 += kChunk) {
+      float s[kChunk];
+      bool ok[kChunk];
+      float cmax = apex::kNegInf;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const int j = j0 + jj;
+        const float sv =
+            group_sum<TPR>(dot_part<DPT, TPR>(qr_, sK + j * D, h)) * scale;
+        ok[jj] =
+            seg >= 0 && sSeg[j] == seg && (!causal || kt * kB + j <= qpos);
+        s[jj] = ok[jj] ? sv : apex::kNegInf;
+        cmax = fmaxf(cmax, s[jj]);
+      }
+      const float m_new = fmaxf(m, cmax);
+      const float corr = m <= 0.5f * apex::kNegInf ? 0.f : expf(m - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        s[jj] = ok[jj] ? expf(s[jj] - m_new) : 0.f;
+        psum += s[jj];
+      }
+      l = corr * l + psum;
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) acc[i] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj)
+        axpy_part<DPT, TPR>(acc, round_to<T>(s[jj]), sV + (j0 + jj) * D, h);
+      m = m_new;
+    }
+  }
+  const float safe_l = l == 0.f ? 1.f : l;
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) acc[i] /= safe_l;
+  store_row_part<T, DPT, TPR>(o + qrow, acc, h, n.d);
+  if (h == 0)
+    lse[static_cast<long>(bh) * n.sq + qpos] =
+        l == 0.f ? apex::kNegInf : m + logf(safe_l);
+}
+
+// ---------------------------------------------------------------------------
+// dQ: one block per (q tile, b*h), over the q tile's live K/V tiles
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kB * (D / 32))
+    varlen_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_k,
+                     const int4* __restrict__ qr, const int4* __restrict__ kr,
+                     const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq,
+                     Dims n, float scale, int causal) {
+  constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = smem + kB * D;
+  int* sSeg = reinterpret_cast<int*>(smem + 2 * kB * D);
+  const int nq = gridDim.x, nk = n.sk / kB;
+  const int qt = blockIdx.x, bh = blockIdx.y, b = bh / n.h;
+  const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
+  const int qpos = qt * kB + r;
+  const int seg = seg_q[static_cast<long>(b) * n.sq + qpos];
+
+  float qr_[DPT], dor[DPT], acc[DPT];
+  const long qrow = (static_cast<long>(bh) * n.sq + qpos) * n.d;
+  load_row_part<T, DPT, TPR>(q + qrow, qr_, h, n.d);
+  load_row_part<T, DPT, TPR>(dout + qrow, dor, h, n.d);
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+  const float lse_r = lse[static_cast<long>(bh) * n.sq + qpos];
+  const float delta_r = delta[static_cast<long>(bh) * n.sq + qpos];
+
+  const int4 qi = qr[static_cast<long>(b) * nq + qt];
+  for (int kt = qi.z; kt <= qi.w; ++kt) {
+    if (!tiles_meet(qi, kr[static_cast<long>(b) * nk + kt], qt, kt, causal))
+      continue;
+    __syncthreads();
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
+    stage_tile<T, D>(sK, k + kbase, kB, n.d, NT);
+    stage_tile<T, D>(sV, v + kbase, kB, n.d, NT);
+    for (int j = threadIdx.x; j < kB; j += NT)
+      sSeg[j] = seg_k[static_cast<long>(b) * n.sk + kt * kB + j];
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kB; ++j) {
+      const float sv =
+          group_sum<TPR>(dot_part<DPT, TPR>(qr_, sK + j * D, h)) * scale;
+      const bool ok =
+          seg >= 0 && sSeg[j] == seg && (!causal || kt * kB + j <= qpos);
+      const float p = ok ? expf(sv - lse_r) : 0.f;
+      const float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
+      const float ds = p * (dp - delta_r) * scale;
+      axpy_part<DPT, TPR>(acc, round_to<T>(ds), sK + j * D, h);
+    }
+  }
+  store_row_part<T, DPT, TPR>(dq + qrow, acc, h, n.d);
+}
+
+// ---------------------------------------------------------------------------
+// dK, dV: one owner block per (kv tile, b*h), over the tile's live q tiles
+// in order
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kB * (D / 16))
+    varlen_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_k,
+                      const int4* __restrict__ qr,
+                      const int4* __restrict__ kr,
+                      const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, Dims n, float scale, int causal) {
+  constexpr int DPT = 16, TPR = D / DPT, NT = kB * TPR;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sO = smem + kB * D;  // dO
+  float* sL = smem + 2 * kB * D;
+  float* sD = sL + kB;
+  int* sSeg = reinterpret_cast<int*>(sD + kB);
+  const int nq = n.sq / kB, nk = gridDim.x;
+  const int kt = blockIdx.x, bh = blockIdx.y, b = bh / n.h;
+  const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
+  const int kpos = kt * kB + r;
+  const int seg = seg_k[static_cast<long>(b) * n.sk + kpos];
+
+  float kr_[DPT], vr[DPT], dka[DPT], dva[DPT];
+  const long krow = (static_cast<long>(bh) * n.sk + kpos) * n.d;
+  load_row_part<T, DPT, TPR>(k + krow, kr_, h, n.d);
+  load_row_part<T, DPT, TPR>(v + krow, vr, h, n.d);
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) dka[i] = dva[i] = 0.f;
+
+  const int4 ki = kr[static_cast<long>(b) * nk + kt];
+  for (int qt = ki.z; qt <= ki.w; ++qt) {
+    if (!tiles_meet(qr[static_cast<long>(b) * nq + qt], ki, qt, kt, causal))
+      continue;
+    __syncthreads();
+    const long qbase = (static_cast<long>(bh) * n.sq + qt * kB) * n.d;
+    stage_tile<T, D>(sQ, q + qbase, kB, n.d, NT);
+    stage_tile<T, D>(sO, dout + qbase, kB, n.d, NT);
+    for (int i = threadIdx.x; i < kB; i += NT) {
+      sL[i] = lse[static_cast<long>(bh) * n.sq + qt * kB + i];
+      sD[i] = delta[static_cast<long>(bh) * n.sq + qt * kB + i];
+      sSeg[i] = seg_q[static_cast<long>(b) * n.sq + qt * kB + i];
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < kB; ++i) {
+      const float sv =
+          group_sum<TPR>(dot_part<DPT, TPR>(kr_, sQ + i * D, h)) * scale;
+      const bool ok =
+          sSeg[i] >= 0 && sSeg[i] == seg && (!causal || kpos <= qt * kB + i);
+      const float p = ok ? expf(sv - sL[i]) : 0.f;
+      const float dp = group_sum<TPR>(dot_part<DPT, TPR>(vr, sO + i * D, h));
+      axpy_part<DPT, TPR>(dva, round_to<T>(p), sO + i * D, h);
+      const float ds = p * (dp - sD[i]) * scale;
+      axpy_part<DPT, TPR>(dka, round_to<T>(ds), sQ + i * D, h);
+    }
+  }
+  store_row_part<T, DPT, TPR>(dk + krow, dka, h, n.d);
+  store_row_part<T, DPT, TPR>(dv + krow, dva, h, n.d);
+}
+
+// dynamic shared memory: two (kB, D) fp32 tiles and the tile's segment
+// ids (plus, for dK/dV, its lse and delta)
+template <int D>
+constexpr int varlen_smem(bool rows) {
+  return (2 * kB * D + (rows ? 3 : 1) * kB) * 4;
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const void* seg_q, const void* seg_k, const void* qr,
+                       const void* kr, void* o, void* lse, int b, Dims n,
+                       float scale, int causal, cudaStream_t s) {
+  auto kernel = varlen_fwd_kernel<T, D>;
+  constexpr int smem = varlen_smem<D>(false);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(n.sq / kB, b * n.h), kB * (D / 32), smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(seg_q),
+      static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
+      static_cast<const int4*>(kr), static_cast<T*>(o),
+      static_cast<float*>(lse), n, scale, causal);
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* seg_q, const void* seg_k, const void* qr,
+                      const void* kr, const void* dout, const void* lse,
+                      const void* delta, void* dq, int b, Dims n, float scale,
+                      int causal, cudaStream_t s) {
+  auto kernel = varlen_dq_kernel<T, D>;
+  constexpr int smem = varlen_smem<D>(false);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(n.sq / kB, b * n.h), kB * (D / 32), smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(seg_q),
+      static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
+      static_cast<const int4*>(kr), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), n, scale, causal);
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* seg_q, const void* seg_k, const void* qr,
+                       const void* kr, const void* dout, const void* lse,
+                       const void* delta, void* dk, void* dv, int b, Dims n,
+                       float scale, int causal, cudaStream_t s) {
+  auto kernel = varlen_dkv_kernel<T, D>;
+  constexpr int smem = varlen_smem<D>(true);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(n.sk / kB, b * n.h), kB * (D / 16), smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(seg_q),
+      static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
+      static_cast<const int4*>(kr), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), n, scale, causal);
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// On CUDA device `device`, on `stream`. q, o, dO, dq: (b, h, sq, d); k, v,
+// dk, dv: (b, h, sk, d); contiguous, 16-byte aligned, all of one type
+// (is_bf16 ? bf16 : fp32); seg_q (b, sq), seg_k (b, sk) int32; lse, delta:
+// (b, h, sq) fp32; qr (b, sq / 64, 4) and kr (b, sk / 64, 4) int32, the
+// per-tile tables (segment min, max, live range lo, hi). sq and sk are
+// multiples of 64; d is a multiple of 8 up to 128.
+extern "C" int flash_varlen_fwd(int device, const void* q, const void* k,
+                                const void* v, const void* seg_q,
+                                const void* seg_k, const void* qr,
+                                const void* kr, void* o, void* lse, int b,
+                                int h, int sq, int sk, int d, float scale,
+                                int causal, int is_bf16, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Dims n{h, sq, sk, d};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  APEX_FLASH_DISPATCH_TD(launch_fwd<T, D>(q, k, v, seg_q, seg_k, qr, kr, o, lse,
+                                        b, n, scale, causal, s));
+}
+
+extern "C" int flash_varlen_bwd_dq(int device, const void* q, const void* k,
+                                   const void* v, const void* seg_q,
+                                   const void* seg_k, const void* qr,
+                                   const void* kr, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dq, int b, int h, int sq, int sk,
+                                   int d, float scale, int causal,
+                                   int is_bf16, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Dims n{h, sq, sk, d};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  APEX_FLASH_DISPATCH_TD(launch_dq<T, D>(q, k, v, seg_q, seg_k, qr, kr, dout,
+                                       lse, delta, dq, b, n, scale, causal,
+                                       s));
+}
+
+extern "C" int flash_varlen_bwd_dkv(int device, const void* q, const void* k,
+                                    const void* v, const void* seg_q,
+                                    const void* seg_k, const void* qr,
+                                    const void* kr, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dk, void* dv, int b, int h, int sq,
+                                    int sk, int d, float scale, int causal,
+                                    int is_bf16, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Dims n{h, sq, sk, d};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  APEX_FLASH_DISPATCH_TD(launch_dkv<T, D>(q, k, v, seg_q, seg_k, qr, kr, dout,
+                                        lse, delta, dk, dv, b, n, scale,
+                                        causal, s));
+}

@@ -14,6 +14,16 @@ from apex_tpu_torch.ops.attention import (  # noqa: F401
     flash_attention_fwd,
     flash_attention_fwd_reference,
 )
+from apex_tpu_torch.ops.attention_varlen import (  # noqa: F401
+    VarlenAttention,
+    attention_varlen_reference,
+    flash_attention_varlen,
+    flash_varlen_bwd_dkv,
+    flash_varlen_bwd_dq,
+    flash_varlen_bwd_reference,
+    flash_varlen_fwd,
+    flash_varlen_fwd_reference,
+)
 from apex_tpu_torch.ops.fused_update import (  # noqa: F401
     adam_tail_reference,
     fused_adam_tail,

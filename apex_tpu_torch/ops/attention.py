@@ -28,6 +28,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _kernel_util as ku
 
@@ -36,8 +37,12 @@ from apex_tpu_torch.ops import _kernel_util as ku
 NEG_INF = -1e30
 
 _M32 = 0xFFFFFFFF
-_FLASH_HEAD_DIMS = (32, 64)
-_FLASH_TILE = 64
+# the kernels' largest head dim: 128 fills a 64-row fp32 tile pair with
+# 64 KB of shared memory; JAX's kernel also runs 136-256
+_MAX_HEAD_DIM = 128
+# rows of a kernel tile; the kernels read the bias (and write d(bias)) in
+# whole tiles
+_TILE = 64
 # heads, bh, sq, sk, d, scale, causal, dropout, seed, thresh, inv_keep,
 # is_bf16, stream
 _FLASH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -54,6 +59,31 @@ _SIGNATURES = {
     "flash_attention_bwd_dbias": [ctypes.c_int] + [ctypes.c_void_p] * 8
     + _FLASH_ARGS,
 }
+
+
+# ---------------------------------------------------------------------------
+# dispatch: JAX's gate (``apex_tpu/ops/attention.py`` ``_pick_block``,
+# ``_pallas_ok``), under its names
+
+
+def _pick_block(seq: int, want: int) -> Optional[int]:
+    for cand in (want, 512, 256, 128, 64, 32, 16, 8):
+        if cand <= want and seq % cand == 0:
+            return cand
+    return None
+
+
+def _pallas_ok(sq: int, sk: int, d: int, causal: bool) -> bool:
+    """Whether JAX runs its flash kernel at this shape (``_pallas_ok`` with
+    ``allow_interpret=True``): both lengths have a block down to 8, head_dim
+    % 8 == 0, sq == sk when causal. Where it holds, a CUDA tensor takes
+    the flash kernels; where it fails, every device takes
+    :func:`attention_reference`, as JAX does."""
+    if _pick_block(sq, 128) is None or _pick_block(sk, 128) is None:
+        return False
+    if d % 8 != 0:
+        return False
+    return not (causal and sq != sk)
 
 
 # ---------------------------------------------------------------------------
@@ -250,11 +280,11 @@ def _check_flash(what, q3, k3, v3, causal, bias, *others):
     sk = k3.shape[1]
     ku.require(q3.dtype in (torch.float32, torch.bfloat16),
                f"{what} takes fp32 or bf16, got {q3.dtype}")
-    ku.require(d in _FLASH_HEAD_DIMS,
-               f"{what}: head_dim {d} not in {_FLASH_HEAD_DIMS}")
-    ku.require(sq % _FLASH_TILE == 0 and sk % _FLASH_TILE == 0,
-               f"{what}: sequence lengths ({sq}, {sk}) must be multiples of "
-               f"{_FLASH_TILE}")
+    ku.require(d % 8 == 0 and 0 < d <= _MAX_HEAD_DIM,
+               f"{what}: head_dim {d} must be a multiple of 8 up to "
+               f"{_MAX_HEAD_DIM}")
+    ku.require(sq % 8 == 0 and sk % 8 == 0,
+               f"{what}: sequence lengths ({sq}, {sk}) must be multiples of 8")
     ku.require(not causal or sq == sk,
                f"{what}: causal needs sq == sk, got {sq} and {sk}")
     ku.require(bh < 65536, f"{what}: batch*heads ({bh}) must be < 65536")
@@ -283,6 +313,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _whole_tiles(t, rows: int, cols: int, value: float = 0.0):
+    """(heads, rows, cols) ``t`` padded with ``value`` to whole 64-row
+    tiles, the layout the kernels read the bias (padded with NEG_INF, which
+    masks the scores past the end) and write d(bias) in; no copy when
+    aligned."""
+    pr, pc = (-rows) % _TILE, (-cols) % _TILE
+    return F.pad(t, (0, pc, 0, pr), value=value) if pr or pc else t
+
+
 def _dropout_args(rate: float, seed: int):
     if rate <= 0.0:
         return 0, 0, 0, 1.0
@@ -297,6 +336,9 @@ def _launch(entry, q3, k3, v3, bias, scale, causal, dropout_rate, seed,
     CUDA error."""
     heads, bh, sq, sk, d = _check_flash(entry, q3, k3, v3, causal, bias,
                                         *shapes)
+    if bias is not None:
+        tiled = _whole_tiles(bias, sq, sk, NEG_INF)
+        pointers = tuple(tiled if t is bias else t for t in pointers)
     lib = ku.load_kernel("flash_attention", _SIGNATURES)
     status = getattr(lib, entry)(
         q3.device.index, *(_ptr(t) for t in pointers), heads, bh, sq, sk, d,
@@ -358,11 +400,13 @@ def flash_attention_bwd_dbias(q3, k3, v3, do3, lse, delta, scale: float,
     over the batch in order by one block per output tile (the same bits
     on every run)."""
     ku.require(bias is not None, "flash_attention_bwd_dbias needs the bias")
-    db = torch.empty(bias.shape, dtype=torch.float32, device=q3.device)
+    sq, sk = q3.shape[1], k3.shape[1]
+    db = _whole_tiles(torch.empty(bias.shape, dtype=torch.float32,
+                                  device=q3.device), sq, sk)
     _launch("flash_attention_bwd_dbias", q3, k3, v3, bias, scale, causal,
             dropout_rate, seed, (q3, k3, v3, do3, lse, delta, bias, db),
             _bwd_shapes(q3, do3, lse, delta))
-    return db
+    return db if db.shape[1:] == (sq, sk) else db[:, :sq, :sk].contiguous()
 
 
 class FlashAttention(torch.autograd.Function):
@@ -419,16 +463,18 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     JAX ``flash_attention`` contract: the flash kernels on CUDA tensors
     (their plain versions on CPU tensors), differentiable.
 
-    ``mask`` (True = masked out) takes the plain :func:`attention_reference`
-    path on every device, exactly as JAX sends a mask to its reference
-    (``attention.py:804-821``); with dropout that path applies the same
-    counter-hash mask. ``dropout_rate`` > 0 needs ``dropout_seed`` (an
-    int). ``bias``: a batch-shared additive logit bias of shape (heads,
-    sq, sk) (T5's relative position bias), added after the scaling and
-    differentiable; any other shape raises ``ValueError``, as in JAX. On
-    CUDA the kernels take fp32/bf16, head_dim 32 or 64, sequence lengths
-    that are multiples of 64, and sq == sk when causal; any other shape
-    raises. The bias is used in fp32 whatever its dtype.
+    ``mask`` (True = masked out), and every shape JAX's gate
+    (:func:`_pallas_ok`) refuses — a length that is not a multiple of 8,
+    head_dim % 8 != 0, causal with sq != sk — take the plain
+    :func:`attention_reference` path on every device, exactly as JAX sends
+    them to its reference (``attention.py:795-821``); with dropout that
+    path applies the same counter-hash mask. ``dropout_rate`` > 0 needs
+    ``dropout_seed`` (an int). ``bias``: a batch-shared additive logit
+    bias of shape (heads, sq, sk) (T5's relative position bias), added
+    after the scaling and differentiable; any other shape raises
+    ``ValueError``, as in JAX. On CUDA the kernels take fp32/bf16 and
+    head_dim up to 128 (above that they raise). The bias is used in fp32
+    whatever its dtype.
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -441,7 +487,7 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
             f"bias must be batch-shared (heads, sq, sk) = {(h, sq, sk)}, "
             f"got {tuple(bias.shape)}")
     seed = 0 if dropout_seed is None else int(dropout_seed)
-    if mask is not None:
+    if mask is not None or not _pallas_ok(sq, sk, d, causal):
         keep = None
         if dropout_rate > 0.0:
             keep = attention_dropout_mask(seed, float(dropout_rate), b * h,

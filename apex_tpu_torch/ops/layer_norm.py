@@ -3,8 +3,9 @@
 
 ``layer_norm`` dispatches by the tensor's device: the plain versions for a
 CPU tensor, the ``csrc/layer_norm.cu`` kernels (:func:`layer_norm_fwd`,
-:func:`layer_norm_bwd`) for a CUDA tensor. A CUDA input the kernels do not
-take raises. The affine form is differentiable through
+:func:`layer_norm_bwd`) for a CUDA tensor; the non-affine form takes the
+plain version everywhere, as in JAX. A CUDA input the kernels do not take
+raises. The affine form is differentiable through
 :class:`LayerNormAffine` (the JAX ``custom_vjp``, ``layer_norm.py:180-249``):
 its forward saves ``(x2d, w, mean, rstd)`` and its backward is the
 backward kernel (or its plain version). RMSNorm is not ported yet.
@@ -184,13 +185,13 @@ class LayerNormAffine(torch.autograd.Function):
 
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
     """LayerNorm over the last axis: the plain versions on the CPU, the
-    kernels on CUDA (affine form only there). Differentiable: with
-    autograd recording, the affine form goes through
+    kernels on CUDA for the affine form. The non-affine form (``weight`` or
+    ``bias`` None) is :func:`layer_norm_reference` on every device, as JAX
+    sends it to its reference (``apex_tpu/ops/layer_norm.py:344``).
+    Differentiable: with autograd recording, the affine form goes through
     :class:`LayerNormAffine`; without it, the forward alone runs and no
     statistics are kept."""
     if weight is None or bias is None:
-        ku.require(not ku.use_kernel(x), "the CUDA layer_norm kernel takes "
-                                         "the affine form (weight and bias)")
         return layer_norm_reference(x, weight, bias, eps)
     hidden = x.shape[-1]
     kernel = ku.use_kernel(x)

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
+from apex_tpu_torch.monitor.hist import Histogram
 from apex_tpu_torch.serve.decode import (
     gpt_decode_step,
     gpt_prefill_chunk,
@@ -176,6 +177,11 @@ class _SlotState:
     ttft_ms: float = 0.0
 
 
+# the engine's latency dimensions (JAX's ``_HIST_NAMES``); each gets a
+# streaming Histogram, so the records stay O(1) however long the run
+_HIST_NAMES = ("ttft_ms", "tpot_ms", "queue_ms", "e2e_ms",
+               "decode_step_ms", "verify_step_ms")
+
 # host arrays with cached device copies (uploaded only when changed)
 _MIRROR_NAMES = ("block_tables", "seq_lens", "last_tokens", "active", "keys")
 
@@ -264,8 +270,8 @@ class InferenceEngine:
         self._tokens_generated = 0
         self._rejected = 0
         self._completed = 0
-        self._ttft_ms: List[float] = []
-        self._decode_step_ms: List[float] = []
+        self.hists: Dict[str, Histogram] = {
+            name: Histogram() for name in _HIST_NAMES}
         self._prefix_blocks_hit = 0
         self._prefix_blocks_needed = 0
         self._prefill_tokens_saved = 0
@@ -494,7 +500,6 @@ class InferenceEngine:
         t_first = self._now_ms()
         state.t_first_ms = t_first
         state.ttft_ms = t_first - state.t_submit_ms
-        self._ttft_ms.append(state.ttft_ms)
         if self._t_start is None:
             self._t_start = time.perf_counter()
         self._tokens_generated += 1
@@ -520,8 +525,18 @@ class InferenceEngine:
         return state.prompt_len + len(state.generated) > self.max_context
 
     def _retire(self, slot: int) -> None:
+        """Fold the request's latencies into the histograms and drop every
+        per-request entry: with ``retain_streams=False`` the engine's state
+        stays O(slots + backlog) (:meth:`per_request_state_count`)."""
         state = self._slots[slot]
         self._completed += 1
+        now = self._now_ms()
+        n_gen = len(state.generated)
+        self.hists["ttft_ms"].add([state.ttft_ms])
+        self.hists["queue_ms"].add([state.queue_ms])
+        self.hists["e2e_ms"].add([now - state.t_submit_ms])
+        if n_gen > 1:
+            self.hists["tpot_ms"].add([(now - state.t_first_ms) / (n_gen - 1)])
         if self._retain_streams:
             self._finished[state.request.uid] = state.generated
         if self._on_retire is not None:
@@ -610,7 +625,12 @@ class InferenceEngine:
             self._verify_steps += 1
             toks = self._verify(drafts)
         toks = toks.cpu().numpy()  # fence — the iteration-level sync
-        self._decode_step_ms.append((time.perf_counter() - t0) * 1e3)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self.hists["decode_step_ms"].add([dt_ms])
+        if drafts is not None:
+            # a verify step is one engine iteration too: it also lands in
+            # decode_step_ms, as in JAX
+            self.hists["verify_step_ms"].add([dt_ms])
         for i in range(len(self._slots)):
             if not self._active[i]:
                 continue
@@ -696,10 +716,19 @@ class InferenceEngine:
         dt = time.perf_counter() - self._t_start
         return self._tokens_generated / dt if dt > 0 else None
 
+    def per_request_state_count(self) -> int:
+        """Per-request entries the engine is holding: retained streams +
+        queued submissions + occupied slots. With ``retain_streams=False``
+        this is O(slots + backlog) however many requests went through."""
+        return (len(self._finished) + len(self._pending)
+                + sum(s is not None for s in self._slots))
+
     def stats(self) -> Dict[str, Any]:
-        """One JSON-serializable snapshot: counts, tokens/s, TTFT and
-        decode-step quantiles (numpy, exact over the recorded steps), and
-        the prefix-cache, prefill and speculation counters."""
+        """One JSON-serializable snapshot: counts, tokens/s, latency
+        quantiles (``<name>_p50`` / ``_p99`` of each dimension recorded so
+        far, from the streaming histograms: bounded relative error, O(1)
+        memory, rounded to 3 decimals as JAX's ``stats()``), and the
+        prefix-cache, prefill and speculation counters."""
         out: Dict[str, Any] = {
             "completed": self._completed,
             "rejected": self._rejected,
@@ -718,11 +747,11 @@ class InferenceEngine:
             "contexts_max": self.kv_cfg.tokens_capacity // self.max_context,
         }
         out["tokens_per_s"] = self.throughput()
-        for name, vals in (("ttft_ms", self._ttft_ms),
-                           ("decode_step_ms", self._decode_step_ms)):
-            if vals:
-                out[f"{name}_p50"] = float(np.percentile(vals, 50))
-                out[f"{name}_p99"] = float(np.percentile(vals, 99))
+        for name in _HIST_NAMES:
+            h = self.hists[name]
+            if h.total:
+                out[f"{name}_p50"] = round(h.quantile(0.5), 3)
+                out[f"{name}_p99"] = round(h.quantile(0.99), 3)
         out["prefix_cache"] = {
             "enabled": self.serve_cfg.prefix_cache,
             "blocks_hit": self._prefix_blocks_hit,

@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--out PATH]
 
-1. Builds every kernel of the serving and training paths (GPT and T5)
-   from ``apex_tpu_torch/csrc`` with ``nvcc`` (one process per source, all
-   at once); each kernel phase below starts as soon as its own source is
-   built.
+1. Builds every kernel of the serving, training (GPT and T5) and packed
+   attention paths from ``apex_tpu_torch/csrc`` with ``nvcc`` (one
+   process per source, all at once); each kernel phase below starts as
+   soon as its own source is built.
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    fp32 and bf16, with the tolerance stated; times of kernel, plain version
    and the nearest library call, and each kernel's bound:
@@ -30,7 +30,18 @@
      the rectangular cross-attention 128 x 512 without one; d(bias)
      bitwise equal over two launches and zero above the causal diagonal
      (``F.scaled_dot_product_attention`` forward and backward, with the
-     bias as a float mask over the batch);
+     bias as a float mask over the batch); and at the shapes JAX's kernel
+     takes that the first kernels refused: GPT-2's width as 6 heads of
+     128, head_dim 40, and tail tiles at 1000 x 1000 causal and 200 x 328
+     with a T5 bias;
+   * the varlen kernels (forward, dQ, dK/dV) at the packed path's shape
+     (one row of 8192 tokens, 12 heads of 64, documents of 64-1024
+     tokens from numpy seed 1, the rest padding), fp32 and bf16, causal
+     and not, pad rows exactly 0, and through ``flash_attention_varlen``
+     at a misaligned total (8100); times beside SDPA with the dense
+     block-diagonal mask and the dense causal flash kernels at the same T;
+   * ``layer_norm`` without weight or bias on CUDA: the plain version,
+     bitwise, no launch;
    * the fused LM-head + CE forward, dX and dW at the training shape
      (8192, 768, V 50304), a ragged one (96 rows, V 1000) and T5's (1024,
      512, V 32128), dX and dW held row by row and with the softmax term
@@ -89,7 +100,14 @@
      repeats the losses bitwise; train tokens/s (encoder + decoder), step
      ms p50, peak memory, busy share and top kernels over 3 profiled
      steps.
-6. Prints detail lines, the wall seconds of each phase (and of each
+6. Packed path: ``contrib.fmha.FMHA`` (12 heads of 64) over the packed
+   row of 8192 tokens, forward plus backward through autograd, bf16 and
+   fp32, causal and bidirectional: one launch of each varlen kernel per
+   run (counts reset just before it and read just after), pad rows of o
+   and dqkv exactly 0, a second run bitwise equal, and in fp32 o and dqkv
+   equal to ``flash_attention`` run document by document (1e-5); device
+   and wall ms, tokens/s, and a profile of the bf16 causal run.
+7. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -115,7 +133,8 @@ KERNEL_ITERS = 50
 SLEEP_CYCLES_PER_S = 2.0e9         # above the H100's SM clock: sleeps long
 TRAIN_ROWS = 8 * 1024              # b·s of the training main path
 # the T5 main path's batch; T5-small's split: 512 inputs, 128 targets
-# (pre-training's 512 / 114, rounded up to the kernels' multiple of 64)
+# (pre-training's 512 / 114, rounded up: 114 is not a multiple of 8, so
+# JAX's own kernel gate would send it to the reference attention)
 T5_BATCH, T5_ENC, T5_DEC = 8, 512, 128
 T5_HIDDEN = 512                    # T5-small's width
 T5_LN_ROWS = (T5_BATCH * T5_ENC, T5_BATCH * T5_DEC)   # encoder, decoder
@@ -204,6 +223,28 @@ def check_rows(name, got, want, atol_of_row_max, rtol):
             f"max, rtol {rtol})")
     row_err = err.amax(dim=1, keepdim=True) / row_max.clamp_min(1e-30)
     return float(err.max()), float(row_err.max())
+
+
+def ptxas_lines(log: str):
+    """(kernel, line) for each register, spill or error line of an ``nvcc
+    -Xptxas -v`` log; the kernel is named from the mangled entry the line
+    belongs to, e.g. ``flash_fwd_kernel[bf16, 64, 1]`` (type, then the
+    integer template arguments)."""
+    import re
+
+    kernel, out = "", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            base = re.findall(r"\d([a-z][a-z_]*_kernel)I", entry)
+            args = re.findall(r"L[ib](\d+)E", entry)
+            kind = "bf16" if "bfloat16" in entry else "f32"
+            kernel = (f"{base[-1] if base else entry[:40]}"
+                      f"[{', '.join([kind, *args])}]")
+        elif "registers" in line or "spill" in line or "error" in line:
+            out.append((kernel, line.strip()))
+    return out
 
 
 def start_builds(ku):
@@ -512,6 +553,13 @@ FLASH_SHAPES = [  # (name, batch, heads, sq, sk, d, causal, dropout rate, bias)
     ("t5_enc", 8, 8, 512, 512, 64, False, 0.0, True),
     ("t5_dec", 8, 8, 128, 128, 64, True, 0.0, True),
     ("t5_cross", 8, 8, 128, 512, 64, False, 0.0, False),
+    # shapes JAX's kernel takes that the first kernels refused: GPT-2's
+    # width as 6 heads of 128, head_dim 40, and lengths that end in a
+    # partial 64-row tile, causal and with a T5 bias
+    ("gpt_d128", 8, 6, 1024, 1024, 128, True, 0.0, False),
+    ("d40", 2, 12, 512, 512, 40, True, 0.0, False),
+    ("tail_causal", 2, 12, 1000, 1000, 64, True, 0.0, False),
+    ("tail_bias", 8, 8, 200, 328, 64, False, 0.0, True),
 ]
 # d(bias) in both input types: fp32 products of the same inputs on both
 # sides, fp32 sums over the batch in another order
@@ -680,6 +728,348 @@ def flash_phase(torch, dev):
             del o_lib, sdpa, leaves
     torch.cuda.empty_cache()
     return cases
+
+
+# the packed path: one row of PACK_T tokens at GPT-2-124M's attention width
+# (12 heads of 64), documents of 64-1024 tokens drawn from numpy seed 1 and
+# packed until the next would overflow; the rest is padding (segment -1)
+PACK_T, PACK_HEADS, PACK_D = 8192, 12, 64
+PACK_MISALIGNED_T = 8100           # not a multiple of the 64-row tile
+VARLEN_NAMES = ("flash_varlen_fwd", "flash_varlen_bwd_dq",
+                "flash_varlen_bwd_dkv")
+
+
+def packed_lengths(total: int = PACK_T, seed: int = 1, lo: int = 64,
+                   hi: int = 1024):
+    """Document lengths uniform in [lo, hi] from numpy ``seed``, drawn
+    until the next would overflow ``total``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = []
+    while True:
+        n = int(rng.integers(lo, hi + 1))
+        if sum(lens) + n > total:
+            return lens
+        lens.append(n)
+
+
+def packed_segments(torch, dev, lens, total: int):
+    """(1, total) int32 segment ids of the documents ``lens``, then -1."""
+    seg = torch.full((1, total), -1, dtype=torch.int32, device=dev)
+    start = 0
+    for i, n in enumerate(lens):
+        seg[0, start:start + n] = i
+        start += n
+    return seg
+
+
+def live_scores(lens, causal: bool) -> int:
+    """Scores a head must form: Σ L² over the documents, Σ L(L+1)/2 when
+    causal."""
+    return sum(n * (n + 1) // 2 if causal else n * n for n in lens)
+
+
+def varlen_bounds(heads, t, d, s_live, esz, dname):
+    """(fwd, dq, dkv) bounds of the varlen kernels: flash's byte counts
+    with T tokens for both sq and sk, plus the int32 segment ids read, and
+    4, 6 and 8 · heads · S · d operations over the S live scores of a
+    head."""
+    tq = heads * t * d * esz       # one (heads, T, d) tensor
+    row = 4 * heads * t            # one fp32 (heads, T) vector
+    seg = 2 * 4 * t                # seg_q and seg_k
+    ops = heads * s_live * d
+    return (bound_ms(4 * tq + row + seg, 4 * ops, dname),
+            bound_ms(5 * tq + 2 * row + seg, 6 * ops, dname),
+            bound_ms(6 * tq + 2 * row + seg, 8 * ops, dname))
+
+
+def varlen_phase(torch, dev):
+    """The varlen kernels (B #9-11) vs their plain versions on the card at
+    the packed path's shape (one row of PACK_T tokens, 12 heads of 64, the
+    documents of ``packed_lengths()``), fp32 and bf16, causal and not:
+    o, lse, dq, dk, dv within flash's tolerances (fp32 atol/rtol 1e-4, bf16
+    atol 1e-2 + rtol 2**-7), pad rows of o and dq and pad keys of dk and
+    dv exactly 0, pad rows' lse NEG_INF. Then the front door
+    (``flash_attention_varlen``) at a misaligned total (PACK_MISALIGNED_T,
+    padded to the tile and sliced back): output and q/k/v gradients
+    kernels vs plain versions forced, same tolerances. Times at every
+    shape (L2 flushed between calls) beside the bound, the plain version,
+    SDPA with the dense block-diagonal boolean mask (pad rows attend to
+    themselves, so no row is empty; a yardstick only) and the dense causal
+    flash kernels at the same T, whose ratio shows the block skipping."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import _kernel_util as ku
+    from apex_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
+                                              flash_attention_bwd_dq,
+                                              flash_attention_fwd)
+    from apex_tpu_torch.ops.attention_varlen import (
+        NEG_INF, flash_attention_varlen, flash_varlen_bwd_dkv,
+        flash_varlen_bwd_dq, flash_varlen_bwd_reference, flash_varlen_fwd,
+        flash_varlen_fwd_reference)
+
+    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    heads, t, d = PACK_HEADS, PACK_T, PACK_D
+    lens = packed_lengths()
+    seg = packed_segments(torch, dev, lens, t)
+    pad = seg[0] < 0
+    timed = lambda fn, iters=20: time_ms(torch, fn, iters=iters,
+                                         flush=flush_buf.zero_)
+    dense = {}                      # dense causal flash ms per dtype
+    cases = []
+    for causal in (True, False):
+        s_live = live_scores(lens, causal)
+        allowed = (seg[0][:, None] == seg[0][None, :]) & ~pad[:, None]
+        if causal:
+            allowed &= torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+        sdpa_mask = allowed | torch.eye(t, dtype=torch.bool, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            q, k, v, do = (torch.randn(1, heads, t, d, device=dev,
+                                       generator=gen).to(dt)
+                           for _ in range(4))
+            args = (1.0 / math.sqrt(d), causal)
+            vargs = (q, k, v, seg, seg)
+            o, lse = flash_varlen_fwd(*vargs, *args)
+            o_p, lse_p = flash_varlen_fwd_reference(*vargs, *args)
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+            dq = flash_varlen_bwd_dq(*vargs, do, lse, delta, *args)
+            dk, dv = flash_varlen_bwd_dkv(*vargs, do, lse, delta, *args)
+            want = flash_varlen_bwd_reference(*vargs, o, lse, do, *args)
+            torch.cuda.synchronize()
+            atol, rtol = tol[dname]
+            tag = f"varlen {'causal' if causal else 'bidirectional'} {dname}"
+            case = {"dtype": dname, "causal": causal, "tokens": t,
+                    "heads": heads, "head_dim": d, "documents": len(lens),
+                    "pad_tokens": int(pad.sum()), "live_scores": s_live,
+                    "atol": atol, "rtol": rtol,
+                    "fwd": {"max_abs_err": max(
+                        check_close(f"{tag} o", o, o_p, atol, rtol),
+                        check_close(f"{tag} lse", lse, lse_p, 1e-4, 1e-5))},
+                    "dq": {"max_abs_err": check_close(f"{tag} dq", dq,
+                                                      want[0], atol, rtol)},
+                    "dkv": {"max_abs_err": max(
+                        check_close(f"{tag} dk", dk, want[1], atol, rtol),
+                        check_close(f"{tag} dv", dv, want[2], atol, rtol))}}
+            for name, x in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+                if bool(x[0][:, pad].any()):
+                    raise AssertionError(f"{tag}: {name} of pad rows not 0")
+            if not bool((lse[0, :, pad] == NEG_INF).all()):
+                raise AssertionError(f"{tag}: pad rows' lse not NEG_INF")
+            del o_p, lse_p, want
+            q4, k4, v4 = (x.clone().requires_grad_() for x in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=sdpa_mask)
+            lib_bwd = timed(lambda: torch.autograd.grad(
+                o_lib, (q4, k4, v4), do, retain_graph=True), 10)
+            plain_bwd = timed(lambda: flash_varlen_bwd_reference(
+                *vargs, o, lse, do, *args), 5)
+            if dname not in dense:
+                q3, k3, v3, do3 = (x.view(heads, t, d) for x in (q, k, v, do))
+                lse3, delta3 = lse.view(heads, t, 1), delta.view(heads, t, 1)
+                sc = args[0]
+                dense[dname] = {
+                    "fwd": timed(lambda: flash_attention_fwd(
+                        q3, k3, v3, sc, True)),
+                    "dq": timed(lambda: flash_attention_bwd_dq(
+                        q3, k3, v3, do3, lse3, delta3, sc, True)),
+                    "dkv": timed(lambda: flash_attention_bwd_dkv(
+                        q3, k3, v3, do3, lse3, delta3, sc, True))}
+            case["fwd"].update(
+                ms=timed(lambda: flash_varlen_fwd(*vargs, *args)),
+                plain_ms=timed(lambda: flash_varlen_fwd_reference(
+                    *vargs, *args), 5),
+                library_ms=timed(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=sdpa_mask), 10))
+            case["dq"].update(
+                ms=timed(lambda: flash_varlen_bwd_dq(*vargs, do, lse, delta,
+                                                     *args)),
+                plain_ms=plain_bwd, library_ms=lib_bwd)
+            case["dkv"].update(
+                ms=timed(lambda: flash_varlen_bwd_dkv(*vargs, do, lse, delta,
+                                                      *args)),
+                plain_ms=plain_bwd, library_ms=lib_bwd)
+            for key, (bms, by) in zip(("fwd", "dq", "dkv"), varlen_bounds(
+                    heads, t, d, s_live, q.element_size(), dname)):
+                case[key].update(
+                    bound_ms=bms, bound_by=by,
+                    dense_causal_flash_ms=dense[dname][key],
+                    ratio_to_dense_causal_flash=(case[key]["ms"]
+                                                 / dense[dname][key]))
+            cases.append(case)
+            del q, k, v, do, o, lse, delta, dq, dk, dv, q4, k4, v4, o_lib
+        del allowed, sdpa_mask
+    # the front door at a total that is not a multiple of the tile
+    tm = PACK_MISALIGNED_T
+    lens_m = packed_lengths(tm)
+    seg_m = packed_segments(torch, dev, lens_m, tm)
+    misaligned = []
+    for causal in (True, False):
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            q, k, v, do = (torch.randn(1, heads, tm, d, device=dev,
+                                       generator=gen).to(dt)
+                           for _ in range(4))
+            runs = []
+            for plain in (False, True):
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                before = ku.launch_counts()
+                if plain:
+                    with ku.force_plain():
+                        o = flash_attention_varlen(*leaves, seg_m,
+                                                   causal=causal)
+                        o.backward(do)
+                else:
+                    o = flash_attention_varlen(*leaves, seg_m, causal=causal)
+                    o.backward(do)
+                torch.cuda.synchronize()
+                after = ku.launch_counts()
+                want_n = 0 if plain else 1
+                if any(after.get(n, 0) - before.get(n, 0) != want_n
+                       for n in VARLEN_NAMES):
+                    raise AssertionError(
+                        f"varlen misaligned {dname}: launches {after} after "
+                        f"{before}")
+                runs.append([o.detach()] + [x.grad for x in leaves])
+            atol, rtol = tol[dname]
+            tag = f"varlen misaligned T={tm} causal={causal} {dname}"
+            if runs[0][0].shape != (1, heads, tm, d):
+                raise AssertionError(f"{tag}: shape {runs[0][0].shape}")
+            misaligned.append({
+                "dtype": dname, "causal": causal, "tokens": tm,
+                "max_abs_err": max(
+                    check_close(f"{tag} {name}", a, b, atol, rtol)
+                    for name, a, b in zip(("o", "dq", "dk", "dv"), *runs))})
+            del q, k, v, do, runs
+    torch.cuda.empty_cache()
+    return {"cases": cases, "misaligned": misaligned}
+
+
+def fmha_phase(torch, dev, ku):
+    """The packed path: ``contrib.fmha.FMHA`` (12 heads of 64, no
+    parameters) over one packed row of PACK_T tokens (the documents of
+    ``packed_lengths()``, the rest padding), forward plus backward through
+    autograd, bf16 and fp32, causal (GPT-style packed pre-training) and
+    bidirectional (BERT-style, Apex fmha's origin). Gates, all hard: the
+    launch counts of each run (reset just before it, read just after) are
+    exactly one of each varlen kernel; pad rows of o and of dqkv are
+    exactly 0; a second run gives the same bits; in fp32, o and dqkv
+    equal the port's own ``flash_attention`` run document by document
+    (atol/rtol 1e-5; documents whose length is a multiple of 8 go through
+    the flash kernels, the others through the reference attention, as
+    JAX routes them). Times: device ms of one forward plus backward (CUDA
+    events), wall ms p50 of 5, attention tokens/s, and a profile of one
+    bf16 causal run (busy share, top kernels)."""
+    from apex_tpu_torch.contrib.fmha import FMHA
+    from apex_tpu_torch.ops.attention import flash_attention
+
+    heads, t, d = PACK_HEADS, PACK_T, PACK_D
+    lens = packed_lengths()
+    starts = [0, *itertools.accumulate(lens)]
+    n_real = starts[-1]
+    cu = torch.tensor(starts, dtype=torch.int32, device=dev)
+    mod = FMHA(num_heads=heads)
+    if list(mod.parameters()):
+        raise AssertionError("FMHA has parameters")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    want_counts = {n: 1 for n in VARLEN_NAMES}
+
+    def run(qkv, do, causal):
+        x = qkv.clone().requires_grad_()
+        o = mod(x, cu, causal=causal)
+        o.backward(do)
+        return o.detach(), x.grad
+
+    out = {"tokens": t, "documents": len(lens), "lengths": lens,
+           "pad_tokens": t - n_real, "runs": []}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[1]
+        qkv = torch.randn(t, 3, heads, d, device=dev, generator=gen).to(dt)
+        do = torch.randn(t, heads, d, device=dev, generator=gen).to(dt)
+        for causal in (True, False):
+            tag = f"fmha {'causal' if causal else 'bidirectional'} {dname}"
+            torch.cuda.synchronize()
+            ku.reset_launch_counts()
+            o, g = run(qkv, do, causal)
+            torch.cuda.synchronize()
+            counts = ku.launch_counts()
+            if counts != want_counts:
+                raise AssertionError(f"{tag}: one forward plus backward "
+                                     f"launched {counts}, expected "
+                                     f"{want_counts}")
+            if not (bool(o.isfinite().all()) and bool(g.isfinite().all())):
+                raise AssertionError(f"{tag}: non-finite output")
+            if bool(o[n_real:].any()) or bool(g[n_real:].any()):
+                raise AssertionError(f"{tag}: pad rows of o or dqkv not 0")
+            o2, g2 = run(qkv, do, causal)
+            if not (torch.equal(o, o2) and torch.equal(g, g2)):
+                raise AssertionError(f"{tag}: two runs differ")
+            entry = {"dtype": dname, "causal": causal, "launches": counts,
+                     "bitwise_repeat": True, "pad_rows_zero": True}
+            if dt == torch.float32:
+                errs, on_kernels = [], 0
+                for a, n in zip(starts, lens):
+                    leaves = [qkv[a:a + n, i].transpose(0, 1)[None]
+                              .contiguous().requires_grad_()
+                              for i in range(3)]
+                    od = flash_attention(*leaves, causal=causal)
+                    od.backward(do[a:a + n].transpose(0, 1)[None])
+                    on_kernels += n % 8 == 0
+                    errs.append(check_close(
+                        f"{tag} doc at {a} o", o[a:a + n],
+                        od[0].transpose(0, 1), 1e-5, 1e-5))
+                    for i, leaf in enumerate(leaves):
+                        errs.append(check_close(
+                            f"{tag} doc at {a} dqkv[{i}]", g[a:a + n, i],
+                            leaf.grad[0].transpose(0, 1), 1e-5, 1e-5))
+                entry.update(per_document_max_abs_err=max(errs),
+                             per_document_tol=1e-5,
+                             documents_on_flash_kernels=on_kernels)
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(qkv, do, causal)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            ms = time_ms(torch, lambda: run(qkv, do, causal), iters=10)
+            entry.update(fwd_bwd_device_ms=ms,
+                         fwd_bwd_wall_ms_p50=sorted(walls)[2],
+                         tokens_per_s=n_real / (sorted(walls)[2] / 1e3))
+            if dt == torch.bfloat16 and causal:
+                entry["profile"] = profiled(torch, lambda: run(qkv, do,
+                                                               causal))
+            out["runs"].append(entry)
+            del o, g, o2, g2
+        del qkv, do
+    torch.cuda.empty_cache()
+    return out
+
+
+def layer_norm_non_affine_check(torch, dev, ku):
+    """``layer_norm(x, None, None)`` (and with a weight alone) on a CUDA
+    tensor returns the plain version's result, bitwise, with no kernel
+    launch and no raise, as JAX sends the non-affine form to its
+    reference."""
+    from apex_tpu_torch.ops.layer_norm import (layer_norm,
+                                               layer_norm_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(TRAIN_ROWS, 768, device=dev, generator=gen)
+    w = torch.randn(768, device=dev, generator=gen)
+    before = ku.launch_counts()
+    for dt in (torch.float32, torch.bfloat16):
+        for args in ((None, None), (w.to(dt), None)):
+            got = layer_norm(x.to(dt), *args)
+            if not torch.equal(got, layer_norm_reference(x.to(dt), *args)):
+                raise AssertionError("non-affine layer_norm on CUDA differs "
+                                     "from its plain version")
+    if ku.launch_counts() != before:
+        raise AssertionError("non-affine layer_norm launched a kernel")
+    return {"rows": TRAIN_ROWS, "hidden": 768, "equal_to_plain": True}
 
 
 LM_SHAPES = [  # (name, rows, hidden, vocab)
@@ -1784,6 +2174,8 @@ def main(argv=None) -> int:
     # sources' first: the LM-head source compiles longest
     ln_cases = phase("layer_norm", ("layer_norm",), layer_norm_phase, torch,
                      dev)
+    ln_non_affine = phase("layer_norm_non_affine", ("layer_norm",),
+                          layer_norm_non_affine_check, torch, dev, ku)
     pa_cases = phase("paged_attention", ("paged_attention",),
                      paged_attention_phase, torch, dev)
     lnb_cases = phase("layer_norm_bwd", ("layer_norm",),
@@ -1791,6 +2183,8 @@ def main(argv=None) -> int:
     adam = phase("adam_tail", ("fused_update",), adam_tail_phase, torch, dev)
     fa_cases = phase("flash_attention", ("flash_attention",), flash_phase,
                      torch, dev)
+    vl = phase("flash_varlen", ("flash_attention", "flash_varlen"),
+               varlen_phase, torch, dev)
     mk_cases = phase("megakernel", ("megakernel", "paged_attention",
                                     "layer_norm"), megakernel_phase, torch,
                      dev)
@@ -1798,16 +2192,16 @@ def main(argv=None) -> int:
                      dev)
     wait()
     for name, b in built.items():
-        for line in b["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"[nvcc {name}] {line.strip()}", file=sys.stderr)
+        for kernel, line in ptxas_lines(b["log"]):
+            print(f"[nvcc {name}] {kernel}: {line}", file=sys.stderr)
     seconds["build_per_source"] = {name: b["seconds"]
                                    for name, b in built.items()}
     build_s = max(seconds["build_per_source"].values(), default=0.0)
     seconds["build"] = build_s
     kernel_s = sum(seconds[k] for k in (
-        "layer_norm", "paged_attention", "layer_norm_bwd", "flash_attention",
-        "lm_head_loss", "adam_tail", "megakernel"))
+        "layer_norm", "layer_norm_non_affine", "paged_attention",
+        "layer_norm_bwd", "flash_attention", "flash_varlen", "lm_head_loss",
+        "adam_tail", "megakernel"))
     seconds["builds_and_kernel_phases"] = time.perf_counter() - t0
     engine, launches, quant_launches = phase("engine", (), engine_phase,
                                              torch, dev, ku)
@@ -1817,6 +2211,7 @@ def main(argv=None) -> int:
     t5 = phase("t5_train", (), t5_train_phase, torch, dev, ku)
     seconds["t5_train_parts"] = t5["phase_s"]
     t5_launches = t5["launches_per_step"]
+    fmha = phase("fmha", (), fmha_phase, torch, dev, ku)
 
     def pick(cases, **where):
         return next(c for c in cases
@@ -1914,6 +2309,9 @@ def main(argv=None) -> int:
     cross = pick(fa_cases, dtype="bfloat16", shape="t5_cross")
     enc = pick(fa_cases, dtype="bfloat16", shape="t5_enc")
     dec = pick(fa_cases, dtype="bfloat16", shape="t5_dec")
+    # the shapes the repaired kernels take (C1): head_dim 128 and 40, tails
+    c1 = {shape: pick(fa_cases, dtype="bfloat16", shape=shape)
+          for shape in ("gpt_d128", "d40", "tail_causal", "tail_bias")}
     flash_rows = (("fwd", "flash_attention_fwd", 297),
                   ("dq", "flash_attention_bwd_dq", 532),
                   ("dkv", "flash_attention_bwd_dkv", 570))
@@ -1931,7 +2329,12 @@ def main(argv=None) -> int:
                  - t5_launches[f"{kname}[bias]"],
                  "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
                                     if c["shape"] == "t5_cross"),
-                 **{k: cross[key][k] for k in timing}}})
+                 **{k: cross[key][k] for k in timing}},
+             **{shape: {"max_abs_err": max(
+                 c[key]["max_abs_err"] for c in fa_cases
+                 if c["shape"] == shape), **{k: c1[shape][key][k]
+                                             for k in timing}}
+                for shape in ("gpt_d128", "d40", "tail_causal")}})
     for key, kname, line in flash_rows + (
             ("dbias", "flash_attention_bwd_dbias", 607),):
         tname = kname if key == "dbias" else f"{kname}[bias]"
@@ -1944,7 +2347,33 @@ def main(argv=None) -> int:
              "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
                                 if c["bias"]),
              **{k: enc[key][k] for k in timing},
-             "t5_dec": {k: dec[key][k] for k in timing}})
+             "t5_dec": {k: dec[key][k] for k in timing},
+             "tail_bias": {k: c1["tail_bias"][key][k] for k in timing}})
+    # the packed path's kernels: launches of one bf16 causal forward plus
+    # backward through FMHA; times at its shape, bf16 causal, with the
+    # bidirectional times and the dense causal flash kernels beside them
+    vc = pick(vl["cases"], dtype="bfloat16", causal=True)
+    vb = pick(vl["cases"], dtype="bfloat16", causal=False)
+    main_run = pick(fmha["runs"], dtype="bfloat16", causal=True)
+    for key, kname, line in (("fwd", "flash_varlen_fwd", 377),
+                             ("dq", "flash_varlen_bwd_dq", 414),
+                             ("dkv", "flash_varlen_bwd_dkv", 451)):
+        kernels.append(
+            {"name": kname, "route": "cuda",
+             "source": "apex_tpu_torch/csrc/flash_varlen.cu",
+             "replaces": f"apex_tpu/ops/attention_varlen.py:{line}",
+             "launches": main_run["launches"][kname], "path": "fmha",
+             "shape": f"packed (1, {vc['heads']}, {vc['tokens']}, "
+                      f"{vc['head_dim']}), {vc['documents']} documents, "
+                      f"causal",
+             "max_abs_err": max(
+                 [c[key]["max_abs_err"] for c in vl["cases"]]
+                 + [c["max_abs_err"] for c in vl["misaligned"]]),
+             **{k: vc[key][k] for k in timing},
+             "dense_causal_flash_ms": vc[key]["dense_causal_flash_ms"],
+             "ratio_to_dense_causal_flash":
+                 vc[key]["ratio_to_dense_causal_flash"],
+             "bidirectional": {k: vb[key][k] for k in timing}})
     # the fused loss at the training shape (8192, 768, 50304) bf16
     lm = pick(lm_cases, dtype="bfloat16", shape="train")
     lm_t5 = pick(lm_cases, dtype="bfloat16", shape="t5")
@@ -1977,7 +2406,8 @@ def main(argv=None) -> int:
               "layer_norm": ln_cases, "paged_attention": pa_cases,
               "layer_norm_bwd": lnb_cases, "flash_attention": fa_cases,
               "lm_head_loss": lm_cases, "adam_tail": adam,
-              "megakernel": mk_cases,
+              "megakernel": mk_cases, "flash_varlen": vl, "fmha": fmha,
+              "layer_norm_non_affine": ln_non_affine,
               "engine": engine, "train": train, "t5_train": t5}
     for run in ("fp32_kernels", "fp32_plain", "fp32_off", "fp32_int8",
                 "fp32_int8_off", "fp32_int4", "fp32_int4_off", "bf16_spec0",
@@ -2043,6 +2473,40 @@ def main(argv=None) -> int:
         print(f"flash {c['shape']} {c['dtype']} (b {c['batch']}, heads "
               f"{c['heads']}, {c['sq']} x {c['sk']}, causal {c['causal']}, "
               f"bias {c['bias']}): {text}")
+    for c in vl["cases"]:
+        text = " ".join(
+            f"{k} {c[k]['ms']:.4f} ms (plain {c[k]['plain_ms']:.4f}, library "
+            f"{c[k]['library_ms']:.4f}, bound {c[k]['bound_ms']:.4f} "
+            f"{c[k]['bound_by']}, dense causal flash "
+            f"{c[k]['dense_causal_flash_ms']:.4f}) err "
+            f"{c[k]['max_abs_err']:.3e}" for k in ("fwd", "dq", "dkv"))
+        print(f"flash_varlen {'causal' if c['causal'] else 'bidirectional'} "
+              f"{c['dtype']} (1, {c['heads']}, {c['tokens']}, "
+              f"{c['head_dim']}; {c['documents']} documents, "
+              f"{c['pad_tokens']} pad): {text}")
+    for c in vl["misaligned"]:
+        print(f"flash_varlen misaligned T={c['tokens']} causal {c['causal']} "
+              f"{c['dtype']}: kernels vs plain err {c['max_abs_err']:.3e}")
+    for r in fmha["runs"]:
+        doc = (f", per-document vs flash_attention err "
+               f"{r['per_document_max_abs_err']:.3e} "
+               f"({r['documents_on_flash_kernels']} of {fmha['documents']} "
+               f"on the flash kernels)" if "per_document_max_abs_err" in r
+               else "")
+        print(f"fmha {'causal' if r['causal'] else 'bidirectional'} "
+              f"{r['dtype']} (T {fmha['tokens']}, {fmha['documents']} "
+              f"documents, {fmha['pad_tokens']} pad): fwd+bwd device "
+              f"{r['fwd_bwd_device_ms']:.3f} ms, wall p50 "
+              f"{r['fwd_bwd_wall_ms_p50']:.3f} ms, {r['tokens_per_s']:.0f} "
+              f"tokens/s, launches {r['launches']}{doc} on {card}")
+    fprof = main_run["profile"]
+    print(f"fmha bf16 causal profile: wall {fprof['profiled_wall_ms']:.3f} "
+          f"ms, device busy {fprof['device_busy_ms']:.3f} ms (idle share "
+          f"{fprof['device_idle_share']:.3f})")
+    for t in fprof["top"][:6]:
+        print(f"  fmha top kernel: {t['device_ms']:.3f} ms x{t['count']} "
+              f"{t['name']}")
+    print(f"layer_norm non-affine on CUDA: {ln_non_affine}")
     t5fp, t5prof = t5["fp32_check"], t5["profile_3_steps"]
     print(f"t5 fp32 check (batch 2, {T5_ENC} + {T5_DEC}): loss kernels "
           f"{t5fp['loss_kernels']} plain {t5fp['loss_plain']} grad max rel "

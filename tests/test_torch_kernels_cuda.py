@@ -12,6 +12,7 @@ differ from the plain version's kernels); bf16 atol 1e-3, rtol 2**-7 (one
 rounding step of the bf16 output).
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -20,7 +21,8 @@ import torch
 
 from apex_tpu_torch.convert import named_leaves
 from apex_tpu_torch.ops import _kernel_util as ku
-from apex_tpu_torch.ops.attention import (flash_attention,
+from apex_tpu_torch.ops.attention import (attention_reference,
+                                          flash_attention,
                                           flash_attention_bwd_dbias,
                                           flash_attention_bwd_dbias_reference,
                                           flash_attention_bwd_dkv,
@@ -98,12 +100,24 @@ def test_layer_norm_kernel_refuses_what_it_cannot_take(dev):
         layer_norm_fwd(x.bfloat16(), w.bfloat16(), b.bfloat16())
     with pytest.raises(ValueError, match="weight"):
         layer_norm_fwd(x, w.bfloat16(), b)
-    with pytest.raises(ValueError, match="affine"):
-        layer_norm(x)                          # no plain detour on CUDA
     with pytest.raises(ValueError, match="contiguous"):
         layer_norm(torch.randn(100, 4, device=dev).t(), w, b)
     with ku.force_plain():
         torch.testing.assert_close(layer_norm(x), layer_norm_reference(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_non_affine_is_the_plain_version_on_the_card(dev, dtype):
+    """weight or bias None: the plain version on CUDA too, as JAX sends the
+    non-affine form to its reference; no kernel launch, no raise."""
+    x = torch.randn(64, 768, device=dev).to(dtype)
+    w = torch.randn(768, device=dev).to(dtype)
+    before = ku.launch_counts()
+    for args in ((None, None), (w, None)):
+        got = layer_norm(x, *args)
+        assert got.dtype == dtype and got.is_cuda
+        assert torch.equal(got, layer_norm_reference(x, *args))
+    assert ku.launch_counts() == before
 
 
 def _paged(dev, dtype, n, heads, hd, bs, mb, seed):
@@ -242,7 +256,11 @@ def _flash_case(dev, dtype, bh, s, d, seed):
 FLASH_CASES = [  # bh, s, d, causal, dropout rate
     (6, 256, 64, True, 0.0), (4, 128, 64, False, 0.0),
     (3, 192, 32, True, 0.0), (4, 128, 64, True, 0.2),
-    (2, 128, 32, False, 0.1)]
+    (2, 128, 32, False, 0.1),
+    # tail tiles (lengths not a multiple of 64), head dims 40 and 128
+    (3, 1000, 64, True, 0.0), (2, 200, 40, False, 0.1),
+    (4, 256, 128, True, 0.0), (2, 136, 128, False, 0.2),
+    (3, 72, 24, True, 0.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -308,10 +326,15 @@ def test_flash_attention_autograd_on_the_card(dev):
 def test_flash_kernels_refuse_what_they_cannot_take(dev):
     q, k, v, do = _flash_case(dev, torch.float32, 2, 128, 64, 1)
     flash_attention_fwd(q, k, v, 0.125, True)
+    flash_attention_fwd(*(t[..., :48].contiguous() for t in (q, k, v)),
+                        0.125, False)                  # runs in D = 64
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_fwd(*(t[..., :48].contiguous() for t in (q, k, v)),
+        flash_attention_fwd(*(t[..., :36].contiguous() for t in (q, k, v)),
                             0.125, False)
-    with pytest.raises(ValueError, match="multiples of 64"):
+    wide = torch.randn(2, 128, 136, device=dev)
+    with pytest.raises(ValueError, match="head_dim 136"):
+        flash_attention_fwd(wide, wide, wide, 0.125, False)
+    with pytest.raises(ValueError, match="multiples of 8"):
         flash_attention_fwd(*(t[:, :100].contiguous() for t in (q, k, v)),
                             0.125, False)
     with pytest.raises(ValueError, match="causal"):
@@ -328,7 +351,10 @@ def test_flash_kernels_refuse_what_they_cannot_take(dev):
 
 FLASH_BIAS_CASES = [  # batch, heads, sq, sk, d, causal, dropout rate
     (2, 4, 128, 128, 64, False, 0.0), (2, 3, 192, 192, 32, True, 0.0),
-    (2, 2, 64, 256, 64, False, 0.0), (3, 2, 128, 128, 64, True, 0.2)]
+    (2, 2, 64, 256, 64, False, 0.0), (3, 2, 128, 128, 64, True, 0.2),
+    # tail tiles, head dims 40 and 128
+    (2, 2, 200, 328, 64, False, 0.0), (2, 2, 136, 136, 128, True, 0.1),
+    (2, 3, 200, 200, 40, True, 0.0)]
 
 
 def _flash_bias_case(dev, dtype, b, heads, sq, sk, d, seed):
@@ -431,6 +457,54 @@ def test_flash_attention_bias_autograd_on_the_card(dev):
     b16 = bias.bfloat16().requires_grad_()
     flash_attention(q, k, v, bias=b16).backward(do)
     assert b16.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,bias", [
+    (1000, 1000, 64, True, False), (200, 328, 40, False, True),
+    (136, 136, 128, True, True)])
+def test_flash_attention_tail_shapes_autograd_on_the_card(dev, sq, sk, d,
+                                                          causal, bias):
+    """The front door at a tail shape or a repaired head dim goes through
+    the kernels (one launch each of fwd, dQ, dK/dV and, with a bias,
+    d(bias)) and gives the plain versions' output and gradients (fp32
+    atol 1e-4)."""
+    g = torch.Generator(device=dev).manual_seed(sq + sk + d)
+    q, do = (torch.randn(2, 3, sq, d, device=dev, generator=g)
+             for _ in range(2))
+    k, v = (torch.randn(2, 3, sk, d, device=dev, generator=g)
+            for _ in range(2))
+    bb = [torch.randn(3, sq, sk, device=dev, generator=g)] if bias else []
+    names = ["flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv"]
+    names += ["flash_attention_bwd_dbias"] if bias else []
+    runs = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, *bb)]
+        before = ku.launch_counts()
+        with ku.force_plain() if plain else contextlib.nullcontext():
+            o = flash_attention(*leaves[:3], causal=causal,
+                                bias=leaves[3] if bias else None)
+            o.backward(do)
+        after = ku.launch_counts()
+        for name in names:
+            assert after.get(name, 0) == before.get(name, 0) + (not plain)
+        runs.append([o] + [t.grad for t in leaves])
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_shapes_jax_sends_to_its_reference_launch_nothing(dev):
+    """Causal with sq != sk, a length not a multiple of 8, head_dim % 8 !=
+    0: the plain reference on the card, as JAX routes them; no launch."""
+    before = ku.launch_counts()
+    for sq, sk, d, causal in ((64, 128, 64, True), (100, 100, 64, False),
+                              (64, 64, 12, False)):
+        q = torch.randn(1, 2, sq, d, device=dev)
+        k = torch.randn(1, 2, sk, d, device=dev)
+        got = flash_attention(q, k, k, causal=causal)
+        torch.testing.assert_close(
+            got, attention_reference(q, k, k, causal=causal))
+    assert ku.launch_counts() == before
 
 
 def test_flash_bias_kernels_refuse_what_they_cannot_take(dev):
@@ -892,3 +966,127 @@ def test_megakernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="rows per launch"):
         fused_layer_fwd(x.repeat(1, 65, 1), lp, layer, cfg, kv, bt, start,
                         None, active)
+
+
+# ---------------------------------------------------------------------------
+# packed varlen attention (B #9-11) and contrib.fmha
+
+
+def _varlen_case(dev, dtype, b, h, s, d, seed, foreign_tile=False):
+    """Packed rows of documents of 20-150 tokens with a pad tail of 70 (at
+    s = 320 the last tile is all padding). With ``foreign_tile`` the keys
+    of tile 2 carry a segment id no query has: a K/V tile no q meets."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(b):
+        row, doc = [], 0
+        while len(row) < s - 70:
+            row += [doc] * min(int(rng.integers(20, 151)), s - 70 - len(row))
+            doc += 1
+        rows.append(row + [-1] * (s - len(row)))
+    seg_q = torch.tensor(rows, dtype=torch.int32, device=dev)
+    seg_k = seg_q.clone()
+    if foreign_tile:
+        seg_k[:, 128:192] = 999
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
+                   for _ in range(4))
+    return q, k, v, do, seg_q, seg_k
+
+
+VARLEN_CASES = [  # b, h, s, d, causal, foreign K/V tile
+    (2, 3, 320, 64, True, False), (2, 3, 320, 64, False, True),
+    (1, 2, 320, 40, True, True), (1, 2, 256, 128, False, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d,causal,foreign", VARLEN_CASES)
+def test_varlen_kernels_match_plain(dev, dtype, b, h, s, d, causal, foreign):
+    """o, lse, dq, dk, dv of the three varlen kernels vs their plain
+    versions at the same inputs (fp32 atol/rtol 1e-4, bf16 atol 1e-2 +
+    rtol 2**-7, as flash); pad rows, an all-padding tile and a K/V tile no
+    query meets give exact zeros (lse NEG_INF on pad rows)."""
+    from apex_tpu_torch.ops.attention_varlen import (
+        NEG_INF, flash_varlen_bwd_dkv, flash_varlen_bwd_dq,
+        flash_varlen_bwd_reference, flash_varlen_fwd,
+        flash_varlen_fwd_reference)
+    q, k, v, do, seg_q, seg_k = _varlen_case(dev, dtype, b, h, s, d,
+                                             s * d + b, foreign)
+    args = (1 / math.sqrt(d), causal)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    counts = ku.launch_counts()
+    o, lse = flash_varlen_fwd(q, k, v, seg_q, seg_k, *args)
+    o_p, lse_p = flash_varlen_fwd_reference(q, k, v, seg_q, seg_k, *args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = flash_varlen_bwd_dq(q, k, v, seg_q, seg_k, do, lse, delta, *args)
+    dk, dv = flash_varlen_bwd_dkv(q, k, v, seg_q, seg_k, do, lse, delta,
+                                  *args)
+    want = flash_varlen_bwd_reference(q, k, v, seg_q, seg_k, o, lse, do,
+                                      *args)
+    torch.cuda.synchronize()
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert got.dtype == dtype, name
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    pad_q = (seg_q < 0)[:, None, :]
+    assert not bool(o[pad_q.expand(-1, h, -1)].any())
+    assert not bool(dq[pad_q.expand(-1, h, -1)].any())
+    assert bool((lse[..., 0][pad_q.expand(-1, h, -1)] == NEG_INF).all())
+    no_q = ~torch.isin(seg_k, seg_q[seg_q >= 0])[:, None, :]
+    for t in (dk, dv):
+        assert not bool(t[no_q.expand(-1, h, -1)].any())
+    after = ku.launch_counts()
+    for name in ("flash_varlen_fwd", "flash_varlen_bwd_dq",
+                 "flash_varlen_bwd_dkv"):
+        assert after[name] == counts.get(name, 0) + 1
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fmha_packed_autograd_on_the_card(dev, causal):
+    """``fmha_packed`` on CUDA: one launch of each varlen kernel per
+    forward plus backward, the plain versions' output and qkv gradient
+    (fp32 atol 1e-4) at a misaligned total (1000 tokens, 40 of padding),
+    pad rows exactly 0, and the same bits on a second run."""
+    from apex_tpu_torch.contrib.fmha import fmha_packed
+    g = torch.Generator(device=dev).manual_seed(21)
+    qkv = torch.randn(1000, 3, 4, 64, device=dev, generator=g)
+    do = torch.randn(1000, 4, 64, device=dev, generator=g)
+    cu = torch.tensor([0, 130, 400, 777, 960], device=dev)
+    runs = []
+    for plain in (False, True, False):
+        x = qkv.clone().requires_grad_()
+        before = ku.launch_counts()
+        with ku.force_plain() if plain else contextlib.nullcontext():
+            o = fmha_packed(x, cu, causal=causal)
+            o.backward(do)
+        after = ku.launch_counts()
+        for name in ("flash_varlen_fwd", "flash_varlen_bwd_dq",
+                     "flash_varlen_bwd_dkv"):
+            assert after.get(name, 0) == before.get(name, 0) + (not plain)
+        assert not bool(o[960:].any()) and not bool(x.grad[960:].any())
+        runs.append((o, x.grad))
+    torch.testing.assert_close(runs[0][0], runs[1][0], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(runs[0][1], runs[1][1], atol=1e-4, rtol=1e-4)
+    assert torch.equal(runs[0][0], runs[2][0])
+    assert torch.equal(runs[0][1], runs[2][1])
+
+
+def test_varlen_kernels_refuse_what_they_cannot_take(dev):
+    from apex_tpu_torch.ops.attention_varlen import flash_varlen_fwd
+    q, k, v, do, seg_q, seg_k = _varlen_case(dev, torch.float32, 1, 2, 256,
+                                             64, 3)
+    flash_varlen_fwd(q, k, v, seg_q, seg_k, 0.125, True)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        flash_varlen_fwd(*(t[:, :, :200].contiguous() for t in (q, k, v)),
+                         seg_q[:, :200].contiguous(),
+                         seg_k[:, :200].contiguous(), 0.125, True)
+    with pytest.raises(ValueError, match="seg_q"):
+        flash_varlen_fwd(q, k, v, seg_q.long(), seg_k, 0.125, True)
+    with pytest.raises(ValueError, match="head_dim"):
+        wide = torch.randn(1, 2, 256, 136, device=dev)
+        flash_varlen_fwd(wide, wide, wide, seg_q, seg_k, 0.125, True)
+    with pytest.raises(ValueError, match="k must be"):
+        flash_varlen_fwd(q, k.bfloat16(), v, seg_q, seg_k, 0.125, True)

@@ -37,9 +37,17 @@ from apex_tpu.serve.decode import gpt_verify_step as jax_verify
 from apex_tpu.serve.sampling import _top_k_mask as jax_top_k
 from apex_tpu.serve.sampling import _top_p_mask as jax_top_p
 from apex_tpu.transformer.testing import GPTConfig as JGPTConfig
+from apex_tpu.monitor.hist import DEFAULT_LATENCY_SPEC as JSPEC
+from apex_tpu.monitor.hist import HistSpec as JHistSpec
+from apex_tpu.monitor.hist import Histogram as JHistogram
+from apex_tpu.monitor.hist import bucket_indices as jax_bucket_indices
+from apex_tpu.monitor.hist import hist_counts as jax_hist_counts
 from apex_tpu.transformer.testing import init_gpt_params as jax_init
 
 from apex_tpu_torch.convert import params_from_numpy
+from apex_tpu_torch.monitor.hist import (DEFAULT_LATENCY_SPEC, HistSpec,
+                                         Histogram, bucket_indices,
+                                         hist_counts)
 from apex_tpu_torch.serve import (BlockAllocator, InferenceEngine,
                                   KVCacheConfig, NGramDrafter, Request,
                                   SamplingConfig, ServeConfig, copy_block,
@@ -414,7 +422,7 @@ def test_engine_stall_raises_and_on_reject_sheds():
 
 def test_engine_eos_retain_and_stats():
     """EOS retires early; retain_streams=False hands streams to on_retire;
-    stats() carries counts and numpy quantiles."""
+    stats() carries counts and the histograms' quantiles."""
     work = _workload()
     ref = InferenceEngine(PARAMS, CFG, ServeConfig(
         num_slots=2, block_size=8, prefill_chunk=8), device="cpu").run(
@@ -437,3 +445,101 @@ def test_engine_eos_retain_and_stats():
     assert st["prefill"]["chunks_run"] > 0
     counts = collections.Counter(eng.transfer_counts)
     assert counts["keys"] <= len(work)           # uploaded on change only
+
+
+# ---------------------------------------------------------------------------
+# bounded latency records: histograms and the O(slots) leak gate
+
+
+def test_engine_state_stays_o_slots():
+    """JAX's leak gate (``tests/test_serve.py``): with retain_streams=False,
+    per-request state after 10x slot-count requests is zero — retirement
+    folded every timeline into the constant-size histograms and dropped
+    the per-uid entries; the streams equal a retained run's."""
+    n_slots = 3
+    scfg = ServeConfig(num_slots=n_slots, block_size=8, prefill_chunk=8)
+    got = {}
+    eng = InferenceEngine(PARAMS, CFG, scfg, device="cpu",
+                          retain_streams=False,
+                          on_retire=lambda uid, toks: got.__setitem__(
+                              uid, toks))
+    n = 10 * n_slots
+    reqs = [Request(f"r{i:03d}", [1 + i % 7, 2, 3], max_new_tokens=3)
+            for i in range(n)]
+    out = eng.run(reqs)
+    assert out == {}                       # streams not retained...
+    assert len(got) == n                   # ...but delivered via callback
+    assert eng.per_request_state_count() == 0
+    assert eng.hists["ttft_ms"].total == n
+    assert eng.hists["e2e_ms"].total == n
+    assert eng.hists["tpot_ms"].total == n
+    # no container of the engine grows with requests or steps: each holds
+    # at most one entry per slot or per fixed name
+    sizes = {k: len(v) for k, v in vars(eng).items()
+             if isinstance(v, (list, dict, collections.deque))}
+    assert max(sizes.values()) <= 6, sizes
+    st = eng.stats()
+    assert st["completed"] == n and st["ttft_ms_p99"] > 0
+    base = InferenceEngine(PARAMS, CFG, scfg, device="cpu").run(reqs)
+    assert got == base
+
+
+def test_engine_stats_quantiles_come_from_the_histograms():
+    """stats()' p50/p99 are the histograms' quantiles rounded to 3 places
+    (JAX's ``stats()``), one pair per dimension recorded; with speculation
+    the verify steps get their own dimension and also count as engine
+    steps in decode_step_ms."""
+    reqs = [Request(f"s{i}", [5, 6, 7, 5, 6, 7, 5, 6], max_new_tokens=6)
+            for i in range(4)]
+    eng = InferenceEngine(PARAMS, CFG, ServeConfig(
+        num_slots=2, block_size=8, prefill_chunk=8, spec_k=2), device="cpu")
+    eng.run(reqs)
+    st = eng.stats()
+    assert eng.hists["verify_step_ms"].total > 0
+    assert (eng.hists["decode_step_ms"].total
+            == st["speculative"]["decode_steps"]
+            + st["speculative"]["verify_steps"])
+    assert eng.hists["verify_step_ms"].total == st["speculative"][
+        "verify_steps"]
+    for name, h in eng.hists.items():
+        assert st[f"{name}_p50"] == round(h.quantile(0.5), 3)
+        assert st[f"{name}_p99"] == round(h.quantile(0.99), 3)
+
+
+@pytest.mark.parametrize("spec", [None, (0.5, 1e4, 1.05)])
+def test_histogram_matches_jax_bit_for_bit(spec):
+    """The port's ``monitor.hist`` gives JAX's ``Histogram`` quantiles,
+    counts, mean and JSON dump bit for bit on the same values (the
+    default latency ladder and a finer one), merge included; the
+    torch bucket indices and count vector equal JAX's in-graph ones."""
+    rng = np.random.default_rng(11)
+    vals = np.concatenate([rng.lognormal(2.0, 1.5, 500), [0.0, -1.0, 1e9,
+                                                           0.01, 6e5]])
+    ours = Histogram(None if spec is None else HistSpec(*spec))
+    theirs = JHistogram(None if spec is None else JHistSpec(*spec))
+    if spec is None:
+        assert ours.spec.to_dict() == JSPEC.to_dict()
+        assert DEFAULT_LATENCY_SPEC.num_buckets == JSPEC.num_buckets
+    for chunk in np.array_split(vals, 7):
+        ours.add(chunk)
+        theirs.add(chunk)
+    np.testing.assert_array_equal(ours.counts, theirs.counts)
+    qs = [0.0, 0.01, 0.25, 0.5, 0.9, 0.99, 0.999, 1.0]
+    assert ours.quantiles(qs) == theirs.quantiles(qs)
+    assert ours.mean() == theirs.mean()
+    assert ours.to_dict() == theirs.to_dict()
+    merged = ours.merge(Histogram.from_dict(ours.to_dict()))
+    jmerged = theirs.merge(JHistogram.from_dict(theirs.to_dict()))
+    assert merged.quantiles(qs) == jmerged.quantiles(qs)
+    jspec = theirs.spec
+    np.testing.assert_array_equal(
+        bucket_indices(torch.tensor(vals, dtype=torch.float32),
+                       ours.spec).numpy(),
+        np.asarray(jax_bucket_indices(jnp.asarray(vals, jnp.float32),
+                                      jspec)))
+    valid = rng.random(vals.shape) < 0.7
+    np.testing.assert_array_equal(
+        hist_counts(torch.tensor(vals, dtype=torch.float32), ours.spec,
+                    valid=torch.tensor(valid)).numpy(),
+        np.asarray(jax_hist_counts(jnp.asarray(vals, jnp.float32), jspec,
+                                   valid=jnp.asarray(valid))))

@@ -21,6 +21,8 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from apex_tpu.ops.attention import _fa_fwd
+from apex_tpu.ops.attention import _pallas_ok as jax_pallas_ok
+from apex_tpu.ops.attention import _pick_block as jax_pick_block
 from apex_tpu.ops.attention import attention_dropout_mask as jax_drop_mask
 from apex_tpu.ops.attention import flash_attention as jax_flash
 from apex_tpu.ops.layer_norm import layer_norm as jax_layer_norm
@@ -33,6 +35,7 @@ from apex_tpu.transformer.testing import init_gpt_params as jax_init
 
 from apex_tpu_torch.convert import (adam_state_from_numpy, named_leaves,
                                     params_from_numpy)
+from apex_tpu_torch.ops import attention as port_attention
 from apex_tpu_torch.ops.attention import (attention_dropout_mask,
                                           attention_reference,
                                           flash_attention,
@@ -164,6 +167,83 @@ def test_flash_grads_match_jax_kernel(causal, rate):
     for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4,
                                    err_msg=f"d{name}")
+
+
+def test_flash_gate_matches_jax():
+    """The port's ``_pick_block`` / ``_pallas_ok`` equal JAX's (with
+    ``allow_interpret=True``) on a grid of lengths, head dims and causal:
+    the shapes where a CUDA tensor takes the flash kernels are exactly the
+    ones where JAX takes its Pallas kernel."""
+    seqs = (8, 16, 40, 64, 100, 128, 130, 200, 328, 512, 1000, 1024, 2056)
+    for seq in seqs:
+        for want in (8, 32, 128, 200, 512):
+            assert (port_attention._pick_block(seq, want)
+                    == jax_pick_block(seq, want)), (seq, want)
+    for sq in seqs:
+        for sk in seqs:
+            for d in (12, 32, 40, 64, 100, 128, 136, 256):
+                for causal in (False, True):
+                    assert (port_attention._pallas_ok(sq, sk, d, causal)
+                            == jax_pallas_ok(sq, sk, d, causal,
+                                             allow_interpret=True)), (
+                        sq, sk, d, causal)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,bias", [
+    (200, 328, 40, False, False), (200, 328, 128, False, True),
+    (200, 200, 40, True, True), (200, 200, 128, True, False)])
+def test_flash_tail_shapes_and_head_dims_match_jax_kernel(sq, sk, d, causal,
+                                                          bias):
+    """Lengths that are not multiples of the port's 64-row tile and head
+    dims 40 and 128 (the shapes the repaired kernels take on the card):
+    o and every gradient, the bias's included, of the port's
+    ``flash_attention`` (plain versions) vs ``jax.vjp`` of JAX's
+    interpret-mode kernels at one block per sequence; atol 2e-5 (o) and
+    1e-4 (grads), as the flash tests above."""
+    rng = np.random.default_rng(sq + sk + d)
+    q, do = (rng.standard_normal((1, 2, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((1, 2, sk, d)).astype(np.float32)
+            for _ in range(2))
+    b = rng.standard_normal((2, sq, sk)).astype(np.float32) if bias else None
+    args = [q, k, v] + ([b] if bias else [])
+
+    def jfn(q, k, v, *bb):
+        return jax_flash(q, k, v, causal=causal, bias=bb[0] if bb else None,
+                         use_pallas=True, block_q=sq, block_k=sk)
+
+    o_j, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in args))
+    want = vjp(jnp.asarray(do))
+    leaves = [_t(a).requires_grad_() for a in args]
+    o = flash_attention(*leaves[:3], causal=causal,
+                        bias=leaves[3] if bias else None)
+    o.backward(_t(do))
+    np.testing.assert_allclose(_np(o), np.asarray(o_j), atol=2e-5)
+    for got, ref, name in zip(leaves, want, ("q", "k", "v", "bias")):
+        np.testing.assert_allclose(_np(got.grad), np.asarray(ref),
+                                   atol=1e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (64, 128, 32, True), (100, 100, 32, False), (64, 64, 12, False)])
+def test_shapes_jax_sends_to_its_reference_take_the_plain_path(
+        monkeypatch, sq, sk, d, causal):
+    """Causal with sq != sk, a length that is not a multiple of 8, head_dim
+    % 8 != 0: JAX's gate sends these to ``attention_reference``; so does
+    the port, on every device (the flash autograd function is never
+    reached), with JAX's result (atol 2e-5)."""
+    rng = np.random.default_rng(sq * sk + d)
+    q = rng.standard_normal((1, 2, sq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 2, sk, d)).astype(np.float32)
+            for _ in range(2))
+
+    def refuse(*a):
+        raise AssertionError("took the flash kernels' path")
+
+    monkeypatch.setattr(port_attention.FlashAttention, "apply", refuse)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    want = jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
 
 
 @pytest.mark.parametrize("seed,q_off,k_off", [
