@@ -12,8 +12,11 @@ per-layer decode/verify kernel, the per-op path with the LayerNorm and
 paged-attention kernels, int8/int4 paged KV through ``comm.quantize``'s
 codec), the GPT-2-124M and T5-small train steps (``transformer.testing``,
 ``ops``, ``optimizers``), packed variable-length attention
-(``contrib.fmha`` over ``ops.attention_varlen``) and the engine's
-latency histograms (``monitor.hist``).
+(``contrib.fmha`` over ``ops.attention_varlen``), the engine's latency
+histograms (``monitor.hist``), the LayerNorm / RMSNorm modules
+(``normalization``, ``contrib.layer_norm``) and the blockwise codec's
+kernels (``comm.quantize``): every Pallas kernel of ``apex_tpu`` has its
+CUDA counterpart.
 """
 
 from apex_tpu_torch._device import resolve_device  # noqa: F401

@@ -1,6 +1,7 @@
-"""apex_tpu_torch.comm — so far only the deterministic blockwise codec
-(counterpart of ``apex_tpu.comm.quantize``) that the quantized KV cache
-uses; the collectives are ROADMAP §A item 7."""
+"""apex_tpu_torch.comm — so far the blockwise codec (counterpart of
+``apex_tpu.comm.quantize``, with its quantize and dequantize kernels in
+``csrc/quantize.cu``) that the quantized KV cache uses; the collectives
+are ROADMAP §A item 7."""
 
 from apex_tpu_torch.comm.quantize import (  # noqa: F401
     QMAX,

@@ -1,30 +1,56 @@
 """Blockwise int8 / group int4 codec (counterpart of
-``apex_tpu/comm/quantize.py``), deterministic mode, plain PyTorch.
+``apex_tpu/comm/quantize.py``): plain PyTorch versions + the CUDA quantize
+and dequantize kernels (``csrc/quantize.cu``).
 
 Flat fp buffers are split into fixed-size blocks; each block carries one
 fp32 scale ``absmax / qmax`` (1 for an all-zero block) and its codes
 ``clip(round(x / scale), -qmax, qmax)``, with round-half-to-even as
 ``jnp.round`` rounds. int4 codes are nibble-packed two per byte, the even
-index in the low nibble.
+index in the low nibble; the pack and unpack stay plain tensor ops outside
+the kernels, as in JAX.
 
-The serving path's quantized KV cache (``serve/kv_cache.py``) calls this
-math at codec-block = head_dim, as the JAX KV path calls it with
-``use_pallas=False``. Not ported here, both ROADMAP §A item 7 (the
-compressed collectives, the only callers of either):
+Dispatch is JAX's (``_pallas_ok``, ``_ROWS_PER_STEP``, under their names):
+``use_pallas=None`` launches the kernels for a CUDA tensor where the block
+is a multiple of 128 and the rows a multiple of 32, and runs the reference
+elsewhere and on the CPU (JAX: off a compiled backend); ``True`` takes the
+kernels (their plain versions on the CPU), raising ``ValueError`` with
+JAX's message outside the gate; ``False`` is the reference. The two paths
+differ as JAX's do: the kernels' scale is amax · fp32(1/qmax) (XLA turns
+the kernel's division by the constant qmax into that product), the
+reference's the true quotient (``_quantize_jax``), one ulp apart in a few
+blocks of a hundred. The serving path's quantized KV cache
+(``serve/kv_cache.py``) calls the reference with ``use_pallas=False`` at
+codec-block = head_dim, as the JAX KV path does.
 
-* ``stochastic=True`` — JAX draws the rounding noise from threefry or the
-  TPU core's PRNG; the port's stream is for the comm slice to decide;
-* ``use_pallas=True`` — the codec kernels (ROADMAP §B #16-18).
+Stochastic rounding (``stochastic=True``) rounds ``floor(x / scale + u)``.
+JAX draws u from threefry or the TPU core's PRNG; neither is a bitwise
+target here. The port's u is the top 24 bits of a counter hash of (seed,
+flat element index) times 2⁻²⁴ (:func:`uniform_from_seed`, the sampler's
+``fmix32``), computed the same way by the kernel and its plain version,
+so the two agree bit for bit; each element's draw depends on nothing but
+the seed and its index.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
+from apex_tpu_torch._hash import M32, fmix32, mul32
+from apex_tpu_torch.ops import _kernel_util as ku
+
 QMAX = 127.0  # symmetric int8 code range; -128 is never emitted
 QMAX4 = 7.0   # symmetric int4 code range; -8 is never emitted
+
+_SIGNATURES = {
+    "quantize_blockwise": [ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+       ctypes.c_uint, ctypes.c_int, ctypes.c_void_p],
+    "dequantize_blockwise": [ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+}
 
 
 def qmax_for_bits(bits: int) -> float:
@@ -80,22 +106,188 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
         *packed.shape[:-1], 2 * packed.shape[-1])
 
 
-def _refuse_unported(stochastic: bool, use_pallas: Optional[bool]) -> None:
-    if stochastic:
-        raise NotImplementedError(
-            "stochastic rounding is not ported: its random stream is "
-            "decided with the compressed collectives, ROADMAP §A item 7")
-    if use_pallas:
-        raise NotImplementedError(
-            "the codec kernels (use_pallas=True) are not ported: they run "
-            "only under the compressed collectives, ROADMAP §A item 7")
+# ---------------------------------------------------------------------------
+# dispatch: JAX's gate (``apex_tpu/comm/quantize.py:165-179``)
+
+# JAX's int8 VREG tiling wants (32, 128) blocks: 32 rows a grid step
+_ROWS_PER_STEP = 32
 
 
-def _quantize(x_flat, block_size: int, qmax: float):
-    xb = x_flat.float().reshape(-1, block_size)
-    scales = _block_scales(xb, qmax)
-    q = torch.clamp(torch.round(xb / scales[:, None]), -qmax, qmax)
-    return q.to(torch.int8).reshape(-1), scales
+def _pallas_ok(n: int, block_size: int) -> bool:
+    """Whether JAX runs its codec kernels at this size (``_pallas_ok`` with
+    ``allow_interpret=True``): block % 128 == 0 and whole 32-row steps."""
+    if block_size % 128 != 0:
+        return False
+    rows = n // block_size
+    return n % block_size == 0 and rows % _ROWS_PER_STEP == 0
+
+
+def _use_pallas(t: torch.Tensor, size: int, use_pallas: Optional[bool],
+                what: str, arg: str = "block_size") -> bool:
+    """JAX's choice between its kernels and its reference: None takes the
+    kernels inside the gate on a CUDA tensor (JAX: on a compiled backend)
+    and the reference elsewhere; True takes them, raising JAX's message
+    outside the gate; False takes the reference."""
+    n = t.numel()
+    if use_pallas is None:
+        return _pallas_ok(n, size) and ku.use_kernel(t)
+    if use_pallas and not _pallas_ok(n, size):
+        raise ValueError(
+            f"pallas {what} needs {arg} % 128 == 0 and rows % "
+            f"{_ROWS_PER_STEP} == 0; got n={n}, {arg}={size}")
+    return bool(use_pallas)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def uniform_from_seed(seed: int, n: int, device=None) -> torch.Tensor:
+    """(n,) fp32 in [0, 1): element i's draw, the top 24 bits of
+    ``fmix32(fmix32(seed) + i_lo·0x9E3779B1 + i_hi·0x85EBCA77)`` (uint32
+    arithmetic) times 2⁻²⁴, exactly as the stochastic kernel draws it."""
+    key = fmix32(int(seed) & M32)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    h = fmix32((key + mul32(i & M32, 0x9E3779B1)
+                + mul32(i >> 32, 0x85EBCA77)) & M32)
+    return (h >> 8).float() * 2.0 ** -24
+
+
+def _codes(xb, scales, qmax: float, seed: Optional[int]):
+    """int8 codes of (rows, block) fp32 ``xb`` at ``scales``: y = x / scale
+    (tensor by tensor: IEEE division on every device), rounded half to
+    even, or ⌊y + u⌋ with ``seed``; clipped to ±qmax."""
+    y = xb / scales[:, None]
+    if seed is None:
+        q = torch.round(y)
+    else:
+        u = uniform_from_seed(seed, xb.numel(), xb.device)
+        q = torch.floor(y + u.reshape(xb.shape))
+    return torch.clamp(q, -qmax, qmax).to(torch.int8)
+
+
+def quantize_blocks_reference(x2d: torch.Tensor, qmax: float = QMAX,
+                              seed: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the quantize kernel: (rows, block) -> (int8 codes
+    (rows, block), fp32 scales (rows,)); nearest rounding, or stochastic
+    with ``seed``. The scale is amax · fp32(1/qmax), as JAX's kernel
+    computes it (XLA turns its division by the constant qmax into that
+    product): one ulp off :func:`_block_scales`' quotient in a few blocks
+    of a hundred."""
+    xb = x2d.float()
+    amax = xb.abs().amax(dim=1)
+    inv = torch.tensor(1.0 / qmax, dtype=torch.float32, device=xb.device)
+    scales = torch.where(amax > 0, amax * inv, torch.ones_like(amax))
+    return _codes(xb, scales, qmax, seed), scales
+
+
+def dequantize_blocks_reference(q2d: torch.Tensor,
+                                scales: torch.Tensor) -> torch.Tensor:
+    """Plain version of the dequantize kernel: codes × per-row scale, fp32
+    (rows, block)."""
+    return q2d.float() * scales[:, None]
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _check_flat(what, t, dtypes):
+    ku.require(t.is_cuda and t.dim() == 2 and t.is_contiguous(),
+               f"{what} takes a contiguous 2-d (rows, block) CUDA tensor, "
+               f"got {t.device} {tuple(t.shape)}")
+    ku.require(t.dtype in dtypes,
+               f"{what} takes {' or '.join(map(str, dtypes))}, got {t.dtype}")
+    ku.require(t.shape[1] % 128 == 0,
+               f"{what}: block ({t.shape[1]}) must be a multiple of 128")
+    ku.require(t.data_ptr() % 16 == 0, f"{what}: tensors must be 16-byte "
+                                       f"aligned")
+
+
+def quantize_blocks(x2d: torch.Tensor, qmax: float = QMAX,
+                    seed: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the quantize kernel on a CUDA (rows, block) fp32 or bf16
+    tensor, block % 128 == 0: returns (int8 codes (rows, block), fp32
+    scales (rows,)), rounded to nearest, or stochastically with ``seed``.
+    Launches count as ``quantize_blockwise[nearest]`` or
+    ``quantize_blockwise[stochastic]``."""
+    _check_flat("quantize_blocks", x2d, (torch.float32, torch.bfloat16))
+    rows, block = x2d.shape
+    q = torch.empty(rows, block, dtype=torch.int8, device=x2d.device)
+    scales = torch.empty(rows, dtype=torch.float32, device=x2d.device)
+    stochastic = seed is not None
+    lib = ku.load_kernel("quantize", _SIGNATURES)
+    status = lib.quantize_blockwise(
+        x2d.device.index, x2d.data_ptr(), q.data_ptr(), scales.data_ptr(),
+        rows, block, float(qmax), int(stochastic),
+        fmix32(int(seed) & M32) if stochastic else 0,
+        int(x2d.dtype == torch.bfloat16), ku.stream_handle(x2d))
+    name = "stochastic" if stochastic else "nearest"
+    ku.count_launch(f"quantize_blockwise[{name}]")
+    ku.check_status(lib, status, "quantize_blocks")
+    return q, scales
+
+
+def dequantize_blocks(q2d: torch.Tensor, scales: torch.Tensor
+                      ) -> torch.Tensor:
+    """Launch the dequantize kernel: CUDA int8 codes (rows, block), block %
+    128 == 0, and fp32 scales (rows,) -> fp32 (rows, block)."""
+    _check_flat("dequantize_blocks", q2d, (torch.int8,))
+    rows, block = q2d.shape
+    ku.require(scales.device == q2d.device and scales.dtype == torch.float32
+               and tuple(scales.shape) == (rows,) and scales.is_contiguous(),
+               f"dequantize_blocks: scales must be a contiguous ({rows},) "
+               f"fp32 tensor on {q2d.device}")
+    y = torch.empty(rows, block, dtype=torch.float32, device=q2d.device)
+    lib = ku.load_kernel("quantize", _SIGNATURES)
+    status = lib.dequantize_blockwise(
+        q2d.device.index, q2d.data_ptr(), scales.data_ptr(), y.data_ptr(),
+        q2d.numel(), block, ku.stream_handle(q2d))
+    ku.count_launch("dequantize_blockwise")
+    ku.check_status(lib, status, "dequantize_blocks")
+    return y
+
+
+# ---------------------------------------------------------------------------
+# public API
+
+
+def _check_quantize_args(x_flat, size: int, stochastic: bool, seed,
+                         arg: str = "block_size") -> None:
+    if x_flat.dim() != 1:
+        raise ValueError(f"expected flat buffer, got shape "
+                         f"{tuple(x_flat.shape)}")
+    if arg == "group_size" and size % 2:
+        raise ValueError(f"int4 group_size must be even (nibble packing): "
+                         f"{size}")
+    if x_flat.numel() % size != 0:
+        raise ValueError(f"size {x_flat.numel()} not a multiple of "
+                         f"{arg} {size}")
+    if stochastic and seed is None:
+        raise ValueError("stochastic quantization needs a seed")
+
+
+def _quantize(x_flat, block_size: int, stochastic: bool, seed, qmax: float,
+              use_pallas: bool):
+    """JAX's two paths: the kernel's math (``use_pallas``: the kernel on
+    CUDA, its plain version on the CPU) or its reference (the scale a
+    true quotient, as ``_quantize_jax`` divides)."""
+    seed = int(seed) if stochastic else None
+    x2d = x_flat.reshape(-1, block_size)
+    if not use_pallas:
+        xb = x2d.float()
+        scales = _block_scales(xb, qmax)
+        return _codes(xb, scales, qmax, seed).reshape(-1), scales
+    if ku.use_kernel(x_flat):
+        x = x2d.contiguous()
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            x = x.float()
+        q, s = quantize_blocks(x, qmax, seed)
+    else:
+        q, s = quantize_blocks_reference(x2d, qmax, seed)
+    return q.reshape(-1), s
 
 
 def quantize_blockwise(x_flat: torch.Tensor, block_size: int = 256,
@@ -103,17 +295,12 @@ def quantize_blockwise(x_flat: torch.Tensor, block_size: int = 256,
                        use_pallas: Optional[bool] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat fp buffer -> (int8 codes (n,), fp32 per-block scales (n/B,)).
-    ``x_flat.numel()`` must be a multiple of ``block_size``."""
-    if x_flat.dim() != 1:
-        raise ValueError(f"expected flat buffer, got shape "
-                         f"{tuple(x_flat.shape)}")
-    if x_flat.numel() % block_size != 0:
-        raise ValueError(f"size {x_flat.numel()} not a multiple of "
-                         f"block_size {block_size}")
-    if stochastic and seed is None:
-        raise ValueError("stochastic quantization needs a seed")
-    _refuse_unported(stochastic, use_pallas)
-    return _quantize(x_flat, block_size, QMAX)
+    ``x_flat.numel()`` must be a multiple of ``block_size``; ``seed``
+    (an int) is required when ``stochastic``, and the codes are a
+    function of it. ``use_pallas`` as the module says."""
+    _check_quantize_args(x_flat, block_size, stochastic, seed)
+    return _quantize(x_flat, block_size, stochastic, seed, QMAX,
+                     _use_pallas(x_flat, block_size, use_pallas, "quantize"))
 
 
 def dequantize_blockwise(q_flat: torch.Tensor, scales: torch.Tensor,
@@ -123,14 +310,18 @@ def dequantize_blockwise(q_flat: torch.Tensor, scales: torch.Tensor,
     if q_flat.numel() % block_size != 0:
         raise ValueError(f"size {q_flat.numel()} not a multiple of "
                          f"block_size {block_size}")
-    _refuse_unported(False, use_pallas)
-    qb = q_flat.reshape(-1, block_size).float()
-    return (qb * scales[:, None]).reshape(-1)
+    q2d = q_flat.reshape(-1, block_size)
+    if (_use_pallas(q_flat, block_size, use_pallas, "dequantize")
+            and ku.use_kernel(q_flat)):
+        return dequantize_blocks(q2d.contiguous(),
+                                 scales.float().contiguous()).reshape(-1)
+    return dequantize_blocks_reference(q2d, scales).reshape(-1)
 
 
 def quantization_error(x_flat: torch.Tensor,
                        block_size: int = 256) -> torch.Tensor:
-    """Round-trip error ``x - dq(q(x))`` of the deterministic codec."""
+    """Round-trip error ``x - dq(q(x))`` of the deterministic codec — the
+    quantity error feedback re-injects."""
     q, s = quantize_blockwise(x_flat, block_size)
     return x_flat.float() - dequantize_blockwise(q, s, block_size)
 
@@ -140,20 +331,12 @@ def quantize_blockwise_int4(x_flat: torch.Tensor, group_size: int = 128,
                             use_pallas: Optional[bool] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat fp buffer -> (packed uint8 codes (n/2,), fp32 per-group scales
-    (n/G,)). ``x_flat.numel()`` must be a multiple of the (even) group."""
-    if x_flat.dim() != 1:
-        raise ValueError(f"expected flat buffer, got shape "
-                         f"{tuple(x_flat.shape)}")
-    if group_size % 2:
-        raise ValueError(f"int4 group_size must be even (nibble packing): "
-                         f"{group_size}")
-    if x_flat.numel() % group_size != 0:
-        raise ValueError(f"size {x_flat.numel()} not a multiple of "
-                         f"group_size {group_size}")
-    if stochastic and seed is None:
-        raise ValueError("stochastic quantization needs a seed")
-    _refuse_unported(stochastic, use_pallas)
-    q, s = _quantize(x_flat, group_size, QMAX4)
+    (n/G,)). ``x_flat.numel()`` must be a multiple of the (even) group;
+    ``seed`` and ``use_pallas`` as in :func:`quantize_blockwise`."""
+    _check_quantize_args(x_flat, group_size, stochastic, seed, "group_size")
+    q, s = _quantize(x_flat, group_size, stochastic, seed, QMAX4,
+                     _use_pallas(x_flat, group_size, use_pallas,
+                                 "int4 quantize", "group_size"))
     return pack_int4(q), s
 
 
@@ -168,6 +351,7 @@ def dequantize_blockwise_int4(packed: torch.Tensor, scales: torch.Tensor,
 
 def quantization_error_int4(x_flat: torch.Tensor,
                             group_size: int = 128) -> torch.Tensor:
-    """Round-trip error of the deterministic int4 codec."""
+    """Round-trip error of the deterministic int4 codec (the EF residual
+    quantity for the ``int4_ef`` policy)."""
     q, s = quantize_blockwise_int4(x_flat, group_size)
     return x_flat.float() - dequantize_blockwise_int4(q, s, group_size)

@@ -1,3 +1,4 @@
 """Contrib layer of the port (counterpart of ``apex_tpu/contrib``): so far
 ``contrib.fmha``, packed variable-length attention over the varlen flash
+kernels, and ``contrib.layer_norm``, FastLayerNorm over the LayerNorm
 kernels."""

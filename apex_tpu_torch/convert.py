@@ -88,3 +88,21 @@ def adam_state_from_numpy(jax_state_as_numpy: Any, params: Any,
         }
     for g in optimizer.param_groups:
         g["step"] = int(np.asarray(state["count"]))
+
+
+def norm_state_from_numpy(params: Any, device: DeviceLike = None,
+                          dtype: Optional[torch.dtype] = None) -> dict:
+    """A flax norm module's params (JAX's ``FusedLayerNorm`` /
+    ``FusedRMSNorm`` and the ``Mixed*`` variants: ``{"scale", "bias"}`` as
+    numpy, optionally under a ``"params"`` key) -> the port module's state
+    dict (``weight``, and ``bias`` where JAX has one), for
+    ``module.load_state_dict``. ``dtype`` casts the leaves when given."""
+    if "params" in params:
+        params = params["params"]
+    names = {"scale": "weight", "bias": "bias"}
+    extra = set(params) - set(names)
+    if extra:
+        raise ValueError(f"not a norm module's params: {sorted(extra)}")
+    dev = resolve_device(device)
+    return {names[k]: tensor_from_numpy(v, dev, dtype)
+            for k, v in params.items()}

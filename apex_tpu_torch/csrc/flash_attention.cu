@@ -54,10 +54,17 @@
 // lane reaches every shuffle. Any sequence length runs: the last tile of
 // a length that is not a multiple of 64 stages zeros past the end, gives
 // the columns past sk the score NEG_INF (p = 0) and stores no row past
-// sq. A head dim d (a multiple of 8 up to 128) runs in the instantiation
-// for D = 32, 64 or 128 with zeros past d; `scale` is the caller's (1 /
+// sq. A head dim d (a multiple of 8 up to 256) runs in the instantiation
+// for D = 32, 64, 128 or 256 with zeros past d; `scale` is the caller's (1 /
 // sqrt(d)). D = 128 stages 64 KB a block, above the 48 KB of static
 // shared memory, so every kernel takes its tiles as dynamic shared memory.
+// D = 256 stages 128 KB (one block an SM) and runs 512 threads a block
+// (1,024 for dK/dV), each holding the same DPT dims as at D = 128: the
+// register file then holds the block's rows and little else, and the
+// compiler spills — dK/dV most (32 registers, 1.3-1.8 KB a thread; 32
+// dims a thread at 512 threads spilled more and ran slower). A first
+// kernel that is right; the spills are in the nvcc log chip_smoke.py
+// prints.
 //
 // The bias is read straight from device memory, one (q tile, k tile)
 // block of it where the scores of that tile are formed: a q row's 16
@@ -524,7 +531,7 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
 // On CUDA device `device`, on `stream`. q, o, dO, dq: (bh, sq, d); k, v,
 // dk, dv: (bh, sk, d); contiguous, 16-byte aligned, all of one type
 // (is_bf16 ? bf16 : fp32); lse, delta: (bh, sq) fp32. d is a multiple of 8
-// up to 128 (run by the instantiation for 32, 64 or 128, zeros past d);
+// up to 256 (run by the instantiation for 32, 64, 128 or 256, zeros past d);
 // sq and sk are any lengths, equal when causal: the last tile of a length
 // that is not a multiple of 64 masks the rows and columns past it. `bias`
 // is null or a contiguous, 16-byte aligned fp32 (heads, bsq, bsk) tensor

@@ -3,8 +3,8 @@
 //
 // A tile is kB = 64 rows of one (batch*head) slice. K/V (or Q/dO) tiles are
 // staged in shared memory as fp32, D floats a row, where D is the
-// instantiated head dim (32, 64 or 128) and the true head dim d (a multiple
-// of 8, at most D) is the row stride in device memory: columns d..D-1 and
+// instantiated head dim (32, 64, 128 or 256) and the true head dim d (a
+// multiple of 8, at most D) is the row stride in device memory: columns d..D-1 and
 // the rows past the end of a sequence are filled with zeros, so dot
 // products over D equal those over d and nothing is read past the end. A
 // row held in registers belongs to TPR = D / DPT neighbouring threads, each
@@ -20,9 +20,11 @@ namespace {
 constexpr int kB = 64;      // rows of a q or kv tile
 constexpr int kChunk = 16;  // keys per online-softmax update
 
-// the instantiated head dim that runs head dim d (0: none)
+// the instantiated head dim that runs head dim d (0: none). Two (kB, 256)
+// fp32 tiles take 128 KB of shared memory, one block an SM; D = 512 would
+// need 256 KB, more than the 227 KB a block can have
 inline int flash_head_dim(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 0;
 }
 
 // tiles of n rows
@@ -166,7 +168,7 @@ inline int status_of(cudaError_t launched) {
 
 // runs the launch given, as written, with T and D bound to the input type
 // and the instantiated head dim that takes d, and returns its status from
-// the calling entry point (cudaErrorInvalidValue for a d above 128)
+// the calling entry point (cudaErrorInvalidValue for a d above 256)
 #define APEX_FLASH_DISPATCH_TD(...)                                   \
   do {                                                                \
     switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \
@@ -181,6 +183,10 @@ inline int status_of(cudaError_t launched) {
       case 256: { using T = float; constexpr int D = 128;             \
                   return status_of(__VA_ARGS__); }                    \
       case 257: { using T = __nv_bfloat16; constexpr int D = 128;     \
+                  return status_of(__VA_ARGS__); }                    \
+      case 512: { using T = float; constexpr int D = 256;             \
+                  return status_of(__VA_ARGS__); }                    \
+      case 513: { using T = __nv_bfloat16; constexpr int D = 256;     \
                   return status_of(__VA_ARGS__); }                    \
       default: return static_cast<int>(cudaErrorInvalidValue);        \
     }                                                                 \

@@ -339,7 +339,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // (is_bf16 ? bf16 : fp32); seg_q (b, sq), seg_k (b, sk) int32; lse, delta:
 // (b, h, sq) fp32; qr (b, sq / 64, 4) and kr (b, sk / 64, 4) int32, the
 // per-tile tables (segment min, max, live range lo, hi). sq and sk are
-// multiples of 64; d is a multiple of 8 up to 128.
+// multiples of 64; d is a multiple of 8 up to 256.
 extern "C" int flash_varlen_fwd(int device, const void* q, const void* k,
                                 const void* v, const void* seg_q,
                                 const void* seg_k, const void* qr,

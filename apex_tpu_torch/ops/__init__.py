@@ -33,12 +33,19 @@ from apex_tpu_torch.ops.fused_update import (  # noqa: F401
 )
 from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     LayerNormAffine,
+    RMSNormAffine,
     layer_norm,
     layer_norm_bwd,
     layer_norm_bwd_reference,
     layer_norm_fwd,
     layer_norm_fwd_reference,
     layer_norm_reference,
+    rms_norm,
+    rms_norm_bwd,
+    rms_norm_bwd_reference,
+    rms_norm_fwd,
+    rms_norm_fwd_reference,
+    rms_norm_reference,
 )
 from apex_tpu_torch.ops.lm_head_loss import (  # noqa: F401
     LMHeadLoss,

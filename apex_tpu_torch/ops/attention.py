@@ -30,16 +30,17 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch._hash import M32, fmix32, mul32
 from apex_tpu_torch.ops import _kernel_util as ku
 
 # Finite stand-in for -inf: keeps exp() exact zero without nan from
 # (-inf) - (-inf).
 NEG_INF = -1e30
 
-_M32 = 0xFFFFFFFF
-# the kernels' largest head dim: 128 fills a 64-row fp32 tile pair with
-# 64 KB of shared memory; JAX's kernel also runs 136-256
-_MAX_HEAD_DIM = 128
+# the kernels' largest head dim: 256 fills a 64-row fp32 tile pair with
+# 128 KB of shared memory; 512 would need 256 KB, above the 227 KB a block
+# can have (JAX's kernel takes any head_dim % 8 == 0)
+_MAX_HEAD_DIM = 256
 # rows of a kernel tile; the kernels read the bias (and write d(bias)) in
 # whole tiles
 _TILE = 64
@@ -90,24 +91,12 @@ def _pallas_ok(sq: int, sk: int, d: int, causal: bool) -> bool:
 # dropout keep mask (the JAX kernels' counter hash, in int64 arithmetic)
 
 
-def _mul32(x, c: int):
-    """(x * c) mod 2**32 for int64 tensors holding uint32 values, without
-    int64 overflow: the high 16 bits of x are multiplied separately."""
-    lo, hi = x & 0xFFFF, x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
-
-
 def _hash_keep(qpos, kpos, seed, bh, rate: float):
-    """``apex_tpu.ops.attention._hash_keep``: murmur3-style mix of
-    (q position, k position, seed, batch·head), all uint32 values held in
-    int64 tensors; keep where the hash >= rate·2**32."""
-    x = (_mul32(qpos, 0x9E3779B1) + _mul32(kpos, 0x85EBCA77)
-         + _mul32(seed, 0xC2B2AE3D) + _mul32(bh, 0x27D4EB2F)) & _M32
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    x = x ^ (x >> 16)
+    """``apex_tpu.ops.attention._hash_keep``: murmur3's finalizer over a
+    mix of (q position, k position, seed, batch·head), all uint32 values
+    held in int64 tensors; keep where the hash >= rate·2**32."""
+    x = fmix32((mul32(qpos, 0x9E3779B1) + mul32(kpos, 0x85EBCA77)
+                + mul32(seed, 0xC2B2AE3D) + mul32(bh, 0x27D4EB2F)) & M32)
     return x >= _keep_threshold(rate)
 
 
@@ -121,10 +110,10 @@ def attention_dropout_mask(seed, rate: float, bh: int, sq: int, sk: int,
     ``attention_dropout_mask``: keyed by (seed, batch·head, global q
     position ``q_off + i``, global k position ``k_off + j``)."""
     dev = torch.device("cpu") if device is None else device
-    u32 = lambda v: torch.tensor(int(v) & _M32, dtype=torch.int64,
+    u32 = lambda v: torch.tensor(int(v) & M32, dtype=torch.int64,
                                  device=dev)
-    qpos = (u32(q_off) + torch.arange(sq, device=dev)) & _M32
-    kpos = (u32(k_off) + torch.arange(sk, device=dev)) & _M32
+    qpos = (u32(q_off) + torch.arange(sq, device=dev)) & M32
+    kpos = (u32(k_off) + torch.arange(sk, device=dev)) & M32
     bhi = torch.arange(bh, device=dev)
     return _hash_keep(qpos[None, :, None], kpos[None, None, :], u32(seed),
                       bhi[:, None, None], rate)
@@ -325,7 +314,7 @@ def _whole_tiles(t, rows: int, cols: int, value: float = 0.0):
 def _dropout_args(rate: float, seed: int):
     if rate <= 0.0:
         return 0, 0, 0, 1.0
-    return 1, int(seed) & _M32, _keep_threshold(rate), 1.0 / (1.0 - rate)
+    return 1, int(seed) & M32, _keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
 def _launch(entry, q3, k3, v3, bias, scale, causal, dropout_rate, seed,
@@ -473,7 +462,7 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     bias of shape (heads, sq, sk) (T5's relative position bias), added
     after the scaling and differentiable; any other shape raises
     ``ValueError``, as in JAX. On CUDA the kernels take fp32/bf16 and
-    head_dim up to 128 (above that they raise). The bias is used in fp32
+    head_dim up to 256 (above that they raise). The bias is used in fp32
     whatever its dtype.
     """
     b, h, sq, d = q.shape

@@ -1,19 +1,31 @@
-"""LayerNorm: plain PyTorch versions + the CUDA forward and backward kernels
-(counterpart of ``apex_tpu/ops/layer_norm.py``).
+"""LayerNorm and RMSNorm: plain PyTorch versions + the CUDA forward and
+backward kernels (counterpart of ``apex_tpu/ops/layer_norm.py``).
 
-``layer_norm`` dispatches by the tensor's device: the plain versions for a
-CPU tensor, the ``csrc/layer_norm.cu`` kernels (:func:`layer_norm_fwd`,
-:func:`layer_norm_bwd`) for a CUDA tensor; the non-affine form takes the
-plain version everywhere, as in JAX. A CUDA input the kernels do not take
-raises. The affine form is differentiable through
-:class:`LayerNormAffine` (the JAX ``custom_vjp``, ``layer_norm.py:180-249``):
-its forward saves ``(x2d, w, mean, rstd)`` and its backward is the
-backward kernel (or its plain version). RMSNorm is not ported yet.
+Dispatch is JAX's: :func:`_pallas_ok` (``_pick_block_rows`` and the VMEM
+budget arithmetic, under JAX's names) decides whether a shape takes the
+kernels. Inside the gate a CUDA tensor launches the ``csrc/layer_norm.cu``
+kernels (:func:`layer_norm_fwd` / :func:`layer_norm_bwd`,
+:func:`rms_norm_fwd` / :func:`rms_norm_bwd`) and a CPU tensor runs their
+plain versions; outside it, and for the non-affine forms, every device
+runs the reference, as JAX does. ``use_pallas=True`` outside the gate
+raises ``ValueError`` with JAX's wording; ``use_pallas=False`` is the
+reference. Inside the gate a kernel that fails raises: there is no
+fallback.
+
+x and the weight each have their own type (fp32 or bf16): everything is
+computed in fp32, y and dx come back in x's type and dw/db in the
+weight's, as JAX's kernels return them. The affine forms are
+differentiable through :class:`LayerNormAffine` and :class:`RMSNormAffine`
+(JAX's ``custom_vjp``\\ s, ``layer_norm.py:180-314``): the forward saves x,
+the weight and the fp32 row statistics, and the backward is the backward
+kernel (or its plain version).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Optional
 
 import torch
 
@@ -22,14 +34,67 @@ from apex_tpu_torch.ops import _kernel_util as ku
 _SIGNATURES = {
     "layer_norm_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-       ctypes.c_void_p],
+       ctypes.c_int, ctypes.c_void_p],
     "layer_norm_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "rms_norm_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+       ctypes.c_int, ctypes.c_void_p],
+    "rms_norm_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 _DTYPES = (torch.float32, torch.bfloat16)
-# blocks of the backward's first stage (each owns ceil(rows / parts) rows);
-# a function of the row count alone, so dw/db repeat bitwise
+# blocks of rows of the backward's first stage (each owns ceil(rows /
+# parts) rows); a function of the row count alone, so dw/db repeat bitwise
 _BWD_PARTS = 256
+
+
+# ---------------------------------------------------------------------------
+# dispatch: JAX's gate (``apex_tpu/ops/layer_norm.py:147-170``), under its
+# names
+
+# JAX budgets half a TPU core's VMEM for the backward's ~7 block-sized
+# fp32 buffers; the row block shrinks with hidden, and past the budget the
+# shape takes the reference
+_VMEM_BUDGET_BYTES = 8 * 1024 * 1024
+_BWD_LIVE_BUFFERS = 7
+
+
+def _pick_block_rows(rows: int, hidden: int) -> Optional[int]:
+    for cand in (256, 128, 64, 32, 16, 8):
+        if (rows % cand == 0
+                and cand * hidden * 4 * _BWD_LIVE_BUFFERS
+                <= _VMEM_BUDGET_BYTES):
+            return cand
+    return None
+
+
+def _pallas_ok(rows: int, hidden: int) -> bool:
+    """Whether JAX runs its kernels at this shape (``_pallas_ok`` with
+    ``allow_interpret=True``): a row block of 8-256 rows divides ``rows``
+    and fits the VMEM budget at this hidden, and hidden % 128 == 0."""
+    if _pick_block_rows(rows, hidden) is None:
+        return False
+    return hidden % 128 == 0
+
+
+def _use_pallas(what: str, x, use_pallas: Optional[bool]) -> bool:
+    """JAX's dispatch of ``layer_norm`` / ``rms_norm``: None takes the
+    kernels where the gate holds, True raises outside it."""
+    hidden = x.shape[-1]
+    rows = math.prod(x.shape[:-1])
+    if use_pallas is None:
+        return _pallas_ok(rows, hidden)
+    if use_pallas and not _pallas_ok(rows, hidden):
+        raise ValueError(
+            f"pallas {what} requires row count divisible by 8, hidden "
+            f"% 128 == 0, and a row block fitting VMEM at this hidden size; "
+            f"got shape {tuple(x.shape)}")
+    return bool(use_pallas)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
 
 
 def layer_norm_fwd_reference(x2d, weight=None, bias=None, eps: float = 1e-5):
@@ -73,21 +138,62 @@ def layer_norm_bwd_reference(dy, x2d, mean, rstd, weight):
     return dx.to(x2d.dtype), dw.to(weight.dtype), db.to(weight.dtype)
 
 
+def rms_norm_fwd_reference(x2d, weight=None, eps: float = 1e-5):
+    """Plain version of the RMSNorm forward kernel with its statistic:
+    ``rstd = rsqrt(mean(x²) + eps)`` in fp32, ``y = (x·rstd)·w`` cast back
+    to x2d.dtype. Returns ``(y, rstd)``, rstd fp32 of shape (rows,)."""
+    x32 = x2d.float()
+    rstd = torch.rsqrt((x32 * x32).mean(dim=-1) + eps)
+    y = x32 * rstd[:, None]
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x2d.dtype), rstd
+
+
+def rms_norm_reference(x, weight=None, eps: float = 1e-5):
+    """RMSNorm over the last axis of any shape (JAX's
+    ``rms_norm_reference``): the forward reference's ``y`` alone."""
+    y, _ = rms_norm_fwd_reference(x.reshape(-1, x.shape[-1]), weight, eps)
+    return y.reshape(x.shape)
+
+
+def rms_norm_bwd_reference(dy, x2d, rstd, weight):
+    """Plain version of the RMSNorm backward kernel (``_rms_bwd_kernel``'s
+    formula), all in fp32: ``x̂ = x·rstd``, ``g = dy·w``, ``dx = rstd·(g −
+    x̂·mean(g·x̂))``, ``dw = Σ dy·x̂``. Returns ``dx`` in x2d's type and
+    ``dw`` in the weight's."""
+    dy32 = dy.float()
+    xhat = x2d.float() * rstd[:, None]
+    g = dy32 * weight.float()
+    c2 = (g * xhat).mean(dim=-1, keepdim=True)
+    dx = (g - xhat * c2) * rstd[:, None]
+    dw = (dy32 * xhat).sum(dim=0)
+    return dx.to(x2d.dtype), dw.to(weight.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
 def _check_rows(what, x2d, *vectors):
     """The kernels' shared input rules: 2-d contiguous CUDA (rows, hidden)
-    in fp32 or bf16; (hidden,) vectors of the same type and device;
-    16-byte aligned; hidden a multiple of the 16-byte vector width."""
+    x in fp32 or bf16; (hidden,) weight vectors of one type (fp32 or
+    bf16, not necessarily x's) on x's device; 16-byte aligned; hidden a
+    multiple of x's 16-byte vector width."""
     ku.require(x2d.is_cuda and x2d.dim() == 2,
                f"{what} takes a 2-d CUDA tensor, got {x2d.device} "
                f"{tuple(x2d.shape)}")
     rows, hidden = x2d.shape
     ku.require(x2d.dtype in _DTYPES,
                f"{what} takes fp32 or bf16, got {x2d.dtype}")
+    wdtype = vectors[0][1].dtype
     for name, t in vectors:
-        ku.require(t.device == x2d.device and t.dtype == x2d.dtype
-                   and tuple(t.shape) == (hidden,) and t.is_contiguous(),
-                   f"{what}: {name} must be a contiguous ({hidden},) "
-                   f"{x2d.dtype} tensor on {x2d.device}")
+        ku.require(t.device == x2d.device and t.dtype == wdtype
+                   and wdtype in _DTYPES and tuple(t.shape) == (hidden,)
+                   and t.is_contiguous(),
+                   f"{what}: {name} must be a contiguous ({hidden},) fp32 "
+                   f"or bf16 tensor on {x2d.device}, of the weight's type "
+                   f"({wdtype})")
     vec = 16 // x2d.element_size()
     ku.require(hidden % vec == 0,
                f"{what}: hidden ({hidden}) must be a multiple of {vec} for "
@@ -100,11 +206,40 @@ def _check_rows(what, x2d, *vectors):
     return rows, hidden
 
 
+def _check_grad_in(what, dy, x2d, stats):
+    """dy like x2d; each (name, t) of ``stats`` a contiguous (rows,) fp32
+    tensor on x's device."""
+    rows = x2d.shape[0]
+    ku.require(dy.shape == x2d.shape and dy.dtype == x2d.dtype
+               and dy.device == x2d.device and dy.is_contiguous()
+               and dy.data_ptr() % 16 == 0,
+               f"{what}: dy must be a contiguous, aligned "
+               f"{tuple(x2d.shape)} {x2d.dtype} tensor like x")
+    for name, t in stats:
+        ku.require(t.device == x2d.device and t.dtype == torch.float32
+                   and tuple(t.shape) == (rows,) and t.is_contiguous(),
+                   f"{what}: {name} must be a contiguous ({rows},) "
+                   f"fp32 tensor on {x2d.device}")
+
+
+def _types(x2d, weight):
+    return (int(x2d.dtype == torch.bfloat16),
+            int(weight.dtype == torch.bfloat16))
+
+
+def _workspace(x2d, vectors: int):
+    """(parts, the fp32 partial rows of ``vectors`` sums)."""
+    rows, hidden = x2d.shape
+    parts = max(1, min(rows, _BWD_PARTS))
+    return parts, torch.empty(vectors * parts * hidden, dtype=torch.float32,
+                              device=x2d.device)
+
+
 def layer_norm_fwd(x2d, weight, bias, eps: float = 1e-5, stats: bool = False):
     """Launch the LayerNorm forward kernel on CUDA tensors: ``x2d`` (rows,
-    hidden) contiguous, ``weight``/``bias`` (hidden,), one dtype (fp32 or
-    bf16). Returns y like x2d, or ``(y, mean, rstd)`` (fp32, (rows,)) with
-    ``stats``."""
+    hidden) contiguous in fp32 or bf16, ``weight``/``bias`` (hidden,) of
+    one type, fp32 or bf16. Returns y like x2d, or ``(y, mean, rstd)``
+    (fp32, (rows,)) with ``stats``."""
     rows, hidden = _check_rows("layer_norm_fwd", x2d, ("weight", weight),
                                ("bias", bias))
     y = torch.empty_like(x2d)
@@ -117,43 +252,75 @@ def layer_norm_fwd(x2d, weight, bias, eps: float = 1e-5, stats: bool = False):
         x2d.device.index, x2d.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         y.data_ptr(), mean.data_ptr() if stats else None,
         rstd.data_ptr() if stats else None, rows, hidden, float(eps),
-        int(x2d.dtype == torch.bfloat16), ku.stream_handle(x2d))
+        *_types(x2d, weight), ku.stream_handle(x2d))
     ku.count_launch("layer_norm_fwd")
     ku.check_status(lib, status, "layer_norm_fwd")
     return (y, mean, rstd) if stats else y
 
 
 def layer_norm_bwd(dy, x2d, mean, rstd, weight):
-    """Launch the LayerNorm backward kernels on CUDA tensors (the
-    per-block partial dw/db rows, then their in-order sum): returns ``(dx,
-    dw, db)``, dx like x2d, dw and db in the weight's type. dw/db are
-    bitwise the same for the same inputs (no atomics)."""
+    """Launch the LayerNorm backward kernels on CUDA tensors (dx by rows,
+    then the per-part fp32 dw/db rows and their in-order sum): returns
+    ``(dx, dw, db)``, dx like x2d, dw and db in the weight's type. dw/db
+    are bitwise the same for the same inputs (no atomics)."""
     rows, hidden = _check_rows("layer_norm_bwd", x2d, ("weight", weight))
-    ku.require(dy.shape == x2d.shape and dy.dtype == x2d.dtype
-               and dy.device == x2d.device and dy.is_contiguous()
-               and dy.data_ptr() % 16 == 0,
-               f"layer_norm_bwd: dy must be a contiguous, aligned "
-               f"{tuple(x2d.shape)} {x2d.dtype} tensor like x")
-    for name, t in (("mean", mean), ("rstd", rstd)):
-        ku.require(t.device == x2d.device and t.dtype == torch.float32
-                   and tuple(t.shape) == (rows,) and t.is_contiguous(),
-                   f"layer_norm_bwd: {name} must be a contiguous ({rows},) "
-                   f"fp32 tensor on {x2d.device}")
+    _check_grad_in("layer_norm_bwd", dy, x2d, (("mean", mean),
+                                               ("rstd", rstd)))
     dx = torch.empty_like(x2d)
     dw = torch.empty_like(weight)
     db = torch.empty_like(weight)
-    parts = max(1, min(rows, _BWD_PARTS))
-    work = torch.empty(2 * parts * hidden, dtype=torch.float32,
-                       device=x2d.device)
+    parts, work = _workspace(x2d, 2)
     lib = ku.load_kernel("layer_norm", _SIGNATURES)
     status = lib.layer_norm_bwd(
         x2d.device.index, dy.data_ptr(), x2d.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), weight.data_ptr(), dx.data_ptr(), dw.data_ptr(),
         db.data_ptr(), work.data_ptr(), rows, hidden, parts,
-        int(x2d.dtype == torch.bfloat16), ku.stream_handle(x2d))
+        *_types(x2d, weight), ku.stream_handle(x2d))
     ku.count_launch("layer_norm_bwd")
     ku.check_status(lib, status, "layer_norm_bwd")
     return dx, dw, db
+
+
+def rms_norm_fwd(x2d, weight, eps: float = 1e-5, stats: bool = False):
+    """Launch the RMSNorm forward kernel on CUDA tensors: ``x2d`` (rows,
+    hidden) contiguous in fp32 or bf16, ``weight`` (hidden,) fp32 or bf16.
+    Returns y like x2d, or ``(y, rstd)`` (fp32, (rows,)) with ``stats``."""
+    rows, hidden = _check_rows("rms_norm_fwd", x2d, ("weight", weight))
+    y = torch.empty_like(x2d)
+    rstd = (torch.empty(rows, dtype=torch.float32, device=x2d.device)
+            if stats else None)
+    lib = ku.load_kernel("layer_norm", _SIGNATURES)
+    status = lib.rms_norm_fwd(
+        x2d.device.index, x2d.data_ptr(), weight.data_ptr(), y.data_ptr(),
+        rstd.data_ptr() if stats else None, rows, hidden, float(eps),
+        *_types(x2d, weight), ku.stream_handle(x2d))
+    ku.count_launch("rms_norm_fwd")
+    ku.check_status(lib, status, "rms_norm_fwd")
+    return (y, rstd) if stats else y
+
+
+def rms_norm_bwd(dy, x2d, rstd, weight):
+    """Launch the RMSNorm backward kernels on CUDA tensors (dx by rows,
+    then the per-part fp32 dw rows and their in-order sum): returns ``(dx,
+    dw)``, dx like x2d, dw in the weight's type, bitwise the same for the
+    same inputs."""
+    rows, hidden = _check_rows("rms_norm_bwd", x2d, ("weight", weight))
+    _check_grad_in("rms_norm_bwd", dy, x2d, (("rstd", rstd),))
+    dx = torch.empty_like(x2d)
+    dw = torch.empty_like(weight)
+    parts, work = _workspace(x2d, 1)
+    lib = ku.load_kernel("layer_norm", _SIGNATURES)
+    status = lib.rms_norm_bwd(
+        x2d.device.index, dy.data_ptr(), x2d.data_ptr(), rstd.data_ptr(),
+        weight.data_ptr(), dx.data_ptr(), dw.data_ptr(), work.data_ptr(),
+        rows, hidden, parts, *_types(x2d, weight), ku.stream_handle(x2d))
+    ku.count_launch("rms_norm_bwd")
+    ku.check_status(lib, status, "rms_norm_bwd")
+    return dx, dw
+
+
+# ---------------------------------------------------------------------------
+# differentiable affine forms
 
 
 class LayerNormAffine(torch.autograd.Function):
@@ -183,26 +350,78 @@ class LayerNormAffine(torch.autograd.Function):
         return dx, dw, db, None
 
 
-def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
-    """LayerNorm over the last axis: the plain versions on the CPU, the
-    kernels on CUDA for the affine form. The non-affine form (``weight`` or
-    ``bias`` None) is :func:`layer_norm_reference` on every device, as JAX
-    sends it to its reference (``apex_tpu/ops/layer_norm.py:344``).
-    Differentiable: with autograd recording, the affine form goes through
-    :class:`LayerNormAffine`; without it, the forward alone runs and no
-    statistics are kept."""
-    if weight is None or bias is None:
-        return layer_norm_reference(x, weight, bias, eps)
-    hidden = x.shape[-1]
+class RMSNormAffine(torch.autograd.Function):
+    """Differentiable affine RMSNorm over (rows, hidden) (JAX's
+    ``_rms_norm_affine``): the kernels for CUDA tensors, their plain
+    versions for CPU tensors (or under ``force_plain``)."""
+
+    @staticmethod
+    def forward(ctx, x2d, weight, eps):
+        ctx.kernel = ku.use_kernel(x2d)
+        if ctx.kernel:
+            y, rstd = rms_norm_fwd(x2d, weight, eps, stats=True)
+        else:
+            y, rstd = rms_norm_fwd_reference(x2d, weight, eps)
+        ctx.save_for_backward(x2d, weight, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, weight, rstd = ctx.saved_tensors
+        dy = dy.contiguous()
+        if ctx.kernel:
+            dx, dw = rms_norm_bwd(dy, x2d, rstd, weight)
+        else:
+            dx, dw = rms_norm_bwd_reference(dy, x2d, rstd, weight)
+        return dx, dw, None
+
+
+def _affine(x, vectors, autograd_fn, fwd, reference, eps):
+    """Run an affine norm inside the gate: through ``autograd_fn`` when
+    autograd records, else the forward kernel alone on CUDA (no
+    statistics kept) or ``reference`` on the CPU."""
     kernel = ku.use_kernel(x)
     if kernel:
-        ku.require(x.is_contiguous(), "layer_norm: x must be contiguous")
-    x2d = x.reshape(-1, hidden)
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
-        y = LayerNormAffine.apply(x2d, weight, bias, eps)
+        ku.require(x.is_contiguous(), f"{fwd.__name__}: x must be "
+                   f"contiguous")
+    x2d = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, *vectors)):
+        y = autograd_fn.apply(x2d, *vectors, eps)
     elif kernel:
-        y = layer_norm_fwd(x2d, weight, bias, eps)
+        y = fwd(x2d, *vectors, eps)
     else:
-        return layer_norm_reference(x, weight, bias, eps)
+        return reference(x, *vectors, eps)
     return y.reshape(x.shape)
+
+
+def layer_norm(x, weight=None, bias=None, eps: float = 1e-5,
+               use_pallas: Optional[bool] = None):
+    """LayerNorm over the last axis, with JAX's dispatch: where its gate
+    (:func:`_pallas_ok`) holds, the kernels on CUDA (their plain versions
+    on the CPU); elsewhere, and for the non-affine form (``weight`` or
+    ``bias`` None), :func:`layer_norm_reference` on every device, as JAX
+    (``apex_tpu/ops/layer_norm.py:320-347``). ``use_pallas=True`` outside
+    the gate raises ``ValueError``; ``False`` takes the reference. x and
+    the weight may differ in type (fp32 or bf16 each): y comes back in
+    x's. Differentiable: with autograd recording, the gated affine form
+    goes through :class:`LayerNormAffine`; without it, the forward alone
+    runs and no statistics are kept."""
+    if (not _use_pallas("layer_norm", x, use_pallas) or weight is None
+            or bias is None):
+        return layer_norm_reference(x, weight, bias, eps)
+    return _affine(x, (weight, bias), LayerNormAffine, layer_norm_fwd,
+                   layer_norm_reference, eps)
+
+
+def rms_norm(x, weight=None, eps: float = 1e-5,
+             use_pallas: Optional[bool] = None):
+    """RMSNorm over the last axis, with JAX's dispatch as
+    :func:`layer_norm`: the kernels on CUDA where the gate holds, else (and
+    without a weight) :func:`rms_norm_reference` on every device, as JAX
+    (``apex_tpu/ops/layer_norm.py:350-369``); ``use_pallas`` as there.
+    Differentiable through :class:`RMSNormAffine`."""
+    if not _use_pallas("rms_norm", x, use_pallas) or weight is None:
+        return rms_norm_reference(x, weight, eps)
+    return _affine(x, (weight,), RMSNormAffine, rms_norm_fwd,
+                   rms_norm_reference, eps)

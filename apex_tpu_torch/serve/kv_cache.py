@@ -123,10 +123,11 @@ def init_kv_cache(cfg: KVCacheConfig, device: DeviceLike = None
 
 def _quant_rows(x):
     """(..., head_dim) vectors -> int8 codes of the same shape + one fp32
-    scale per vector: the ``comm.quantize`` codec at codec-block =
-    head_dim, round-to-nearest."""
+    scale per vector: the ``comm.quantize`` codec's reference at
+    codec-block = head_dim, round-to-nearest — ``use_pallas=False``, as
+    JAX's KV path calls it, so the codec kernels never move the pools."""
     d = x.shape[-1]
-    q, s = quantize_blockwise(x.float().reshape(-1), d)
+    q, s = quantize_blockwise(x.float().reshape(-1), d, use_pallas=False)
     return q.reshape(x.shape), s.reshape(x.shape[:-1])
 
 

@@ -24,7 +24,8 @@ import dataclasses
 
 import torch
 
-_M32 = 0xFFFFFFFF
+from apex_tpu_torch._hash import M32, fmix32, mul32
+
 _TWO32 = float(2 ** 32)
 
 
@@ -46,35 +47,17 @@ class SamplingConfig:
             raise ValueError("top_p must be in (0, 1]")
 
 
-def _mul32(h, c: int):
-    """(h * c) mod 2**32 for h in [0, 2**32) — python int or int64 tensor —
-    without overflowing int64 (the product is split at 16 bits)."""
-    lo = h * (c & 0xFFFF)
-    hi = ((h * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _fmix32(h):
-    """murmur3's 32-bit finalizer: a bijection on [0, 2**32)."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
 def request_key(base_seed: int, request_seed: int) -> int:
     """The request's own 32-bit key from the engine's base seed and the
     request-intrinsic seed (never an admission index)."""
-    return _fmix32(_fmix32(int(base_seed) & _M32) ^ (int(request_seed)
-                                                     & _M32))
+    return fmix32(fmix32(int(base_seed) & M32) ^ (int(request_seed) & M32))
 
 
 def step_keys(keys, positions):
     """Fold each row's absolute position into its request key: int64 (n,)
     keys and positions -> (n,) per-draw keys in [0, 2**32)."""
-    p = (positions.long() + 1) & _M32
-    return _fmix32(keys.long() ^ _mul32(p, 0x9E3779B1))
+    p = (positions.long() + 1) & M32
+    return fmix32(keys.long() ^ mul32(p, 0x9E3779B1))
 
 
 def gumbel_noise(keys, positions, vocab: int):
@@ -83,7 +66,7 @@ def gumbel_noise(keys, positions, vocab: int):
     hash values (both mixes are bijections)."""
     sk = step_keys(keys, positions)
     vidx = torch.arange(vocab, device=sk.device, dtype=torch.int64)
-    bits = _fmix32(sk[:, None] ^ _fmix32(vidx + 0x632BE5AB)[None, :])
+    bits = fmix32(sk[:, None] ^ fmix32(vidx + 0x632BE5AB)[None, :])
     u = (bits.double() + 0.5) / _TWO32                # in (0, 1)
     return -torch.log(-torch.log(u))
 

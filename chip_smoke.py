@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--out PATH]
 
-1. Builds every kernel of the serving, training (GPT and T5) and packed
-   attention paths from ``apex_tpu_torch/csrc`` with ``nvcc`` (one
-   process per source, all at once); each kernel phase below starts as
-   soon as its own source is built.
+1. Builds every kernel of the serving, training (GPT and T5), packed
+   attention, normalization and codec paths from ``apex_tpu_torch/csrc``
+   with ``nvcc`` (one process per source, all at once); each kernel phase
+   below starts as soon as its own source is built.
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    fp32 and bf16, with the tolerance stated; times of kernel, plain version
    and the nearest library call, and each kernel's bound:
@@ -22,6 +22,23 @@
      the per-op layer (no single PyTorch call computes a layer);
    * LayerNorm backward at the same training shapes, with a bitwise
      repeat check of dW/dB (autograd through ``F.layer_norm``);
+   * RMSNorm forward and backward at GPT-2-124M's training rows (8192,
+     768), T5-small's (4096, 512) and a wide row (2048, 12288), x and
+     weight as fp32/fp32, bf16/bf16 and bf16/fp32, and LayerNorm with a
+     bf16 x and an fp32 weight and at hidden 12,288: within tolerance of
+     the plain versions, the backward bitwise over two launches
+     (``F.rms_norm`` / ``F.layer_norm``); then the normalization main
+     path: ``MixedFusedRMSNorm``, ``FusedRMSNorm`` (bf16 params) and
+     ``MixedFusedLayerNorm`` forward + backward on bf16 batches, one
+     launch of each kernel (counts reset just before, read just after);
+   * the codec at GPT-2-124M's gradient as one flat buffer (124,477,440
+     elements), fp32 and bf16, int8 (block 256) and int4 (group 128),
+     nearest and stochastic: codes, scales and dequantized values bitwise
+     the plain versions' (no single PyTorch call computes the codec);
+     then the codec main path, ``quantize_blockwise`` +
+     ``dequantize_blockwise`` and the int4 pair through the public entry
+     points, one launch each, the round trip within half a step (one
+     step stochastic);
    * flash attention forward, dQ and dK/dV at GPT's flagship shape (8 x
      12 heads, 1024, 64) causal, at a non-causal and at a dropout shape,
      and with a bias, beside the d(bias) kernel, at T5-small's: the
@@ -32,12 +49,14 @@
      (``F.scaled_dot_product_attention`` forward and backward, with the
      bias as a float mask over the batch); and at the shapes JAX's kernel
      takes that the first kernels refused: GPT-2's width as 6 heads of
-     128, head_dim 40, and tail tiles at 1000 x 1000 causal and 200 x 328
-     with a T5 bias;
+     128, head_dim 40, tail tiles at 1000 x 1000 causal and 200 x 328
+     with a T5 bias, and head_dim 256 and 192 (the D = 256
+     instantiation) causal and with a bias;
    * the varlen kernels (forward, dQ, dK/dV) at the packed path's shape
      (one row of 8192 tokens, 12 heads of 64, documents of 64-1024
      tokens from numpy seed 1, the rest padding), fp32 and bf16, causal
-     and not, pad rows exactly 0, and through ``flash_attention_varlen``
+     and not, and the same row at 4 heads of 256, causal; pad rows
+     exactly 0, and through ``flash_attention_varlen``
      at a misaligned total (8100); times beside SDPA with the dense
      block-diagonal mask and the dense causal flash kernels at the same T;
    * ``layer_norm`` without weight or bias on CUDA: the plain version,
@@ -544,6 +563,317 @@ def layer_norm_bwd_phase(torch, dev):
     return cases
 
 
+# RMSNorm (B #3-4) and the LayerNorm repairs at the sizes the card runs:
+# GPT-2-124M's training rows (8192, 768), T5-small's encoder rows (4096,
+# 512) and one wide row of GPT-3's width (2048, 12288)
+NORM_SHAPES = [  # (name, rows, hidden, (x, weight) types held)
+    ("gpt2", TRAIN_ROWS, 768, (("float32", "float32"),
+                               ("bfloat16", "bfloat16"),
+                               ("bfloat16", "float32"))),
+    ("t5_small", T5_LN_ROWS[0], T5_HIDDEN, (("float32", "float32"),
+                                            ("bfloat16", "bfloat16"),
+                                            ("bfloat16", "float32"))),
+    ("wide", 2048, 12288, (("bfloat16", "bfloat16"),
+                           ("bfloat16", "float32"))),
+]
+# the main path's module runs: (name, x shape, module, param type); the
+# T5 run keeps bf16 params, the others JAX's fp32 default
+NORM_MODULE_RUNS = [
+    ("gpt2", (8, 1024, 768), "MixedFusedRMSNorm", "float32"),
+    ("t5_small", (8, 512, 512), "FusedRMSNorm", "bfloat16"),
+    ("wide", (2, 1024, 12288), "MixedFusedRMSNorm", "float32"),
+    ("gpt2_ln", (8, 1024, 768), "MixedFusedLayerNorm", "float32"),
+]
+# y, dx: fp32 1e-5; bf16 one bf16 step of the output (rtol 2**-7) over a
+# small atol (dx's fp32 sums round in another order before the cast);
+# dw, db sum the rows: their atol grows with sqrt(rows)
+NORM_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
+NORM_SUM_ATOL = {"float32": 2e-5, "bfloat16": 2e-3}
+
+
+def norm_phase(torch, dev, ku):
+    """RMSNorm forward and backward (B #3-4), and LayerNorm with a bf16 x
+    and an fp32 weight and at hidden 12,288 (the repairs), vs their plain
+    versions at NORM_SHAPES in each (x, weight) type: y, dx and the fp32
+    row statistics within NORM_TOL (rstd, mean 2e-5), dw (and db) within
+    NORM_SUM_ATOL·sqrt(rows), and dx, dw (db) bitwise over two launches.
+    Times with the L2 flushed between calls beside the bound, the plain
+    version and ``F.rms_norm`` / ``F.layer_norm`` (forward, autograd for
+    the backward; the weight cast to x's type where they differ, which
+    those calls need). Then the main path: each of NORM_MODULE_RUNS
+    forward + backward through its ``normalization`` module on a bf16
+    batch, the launch counts reset just before and read just after (one
+    forward and one backward kernel, nothing else), output and gradients
+    within tolerance of the same module with the plain versions forced,
+    and its device time."""
+    import torch.nn.functional as F
+
+    import apex_tpu_torch.normalization as norm
+    from apex_tpu_torch.ops.layer_norm import (
+        layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
+        layer_norm_fwd_reference, rms_norm_bwd, rms_norm_bwd_reference,
+        rms_norm_fwd, rms_norm_fwd_reference)
+
+    eps = 1e-5
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timed = lambda fn, iters=20: time_ms(torch, fn, iters=iters,
+                                         flush=flush_buf.zero_)
+    dt_of = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = []
+    for (name, rows, hidden, types), kind in itertools.product(
+            NORM_SHAPES, ("rms", "ln")):
+        for xt, wt in types:
+            if kind == "ln" and (xt, wt) != ("bfloat16", "float32") \
+                    and name != "wide":
+                continue    # LN's own types: held by the LN phases
+            x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
+                 + 0.5).to(dt_of[xt])
+            w = (1 + 0.1 * torch.randn(hidden, device=dev,
+                                       generator=gen)).to(dt_of[wt])
+            b = (0.1 * torch.randn(hidden, device=dev,
+                                   generator=gen)).to(dt_of[wt])
+            dy = torch.randn(rows, hidden, device=dev,
+                             generator=gen).to(dt_of[xt])
+            tag = f"{kind} {name} x {xt} w {wt}"
+            atol, rtol = NORM_TOL[xt]
+            sum_atol = NORM_SUM_ATOL[wt] * math.sqrt(rows)
+            if kind == "rms":
+                vecs, fwd, fwd_ref = (w,), rms_norm_fwd, rms_norm_fwd_reference
+                bwd = lambda stats: rms_norm_bwd(dy, x, *stats, w)
+                bwd_ref = lambda stats: rms_norm_bwd_reference(dy, x,
+                                                               *stats, w)
+                lib_fwd = lambda xx, ww: F.rms_norm(xx, (hidden,), ww, eps)
+            else:
+                vecs, fwd, fwd_ref = ((w, b), layer_norm_fwd,
+                                      layer_norm_fwd_reference)
+                bwd = lambda stats: layer_norm_bwd(dy, x, *stats, w)
+                bwd_ref = lambda stats: layer_norm_bwd_reference(dy, x,
+                                                                 *stats, w)
+                lib_fwd = lambda xx, ww: F.layer_norm(
+                    xx, (hidden,), ww, b.to(xx.dtype), eps)
+            got = fwd(x, *vecs, eps, stats=True)
+            want = fwd_ref(x, *vecs, eps)
+            torch.cuda.synchronize()
+            err = check_close(f"{tag} y", got[0], want[0], atol, rtol)
+            stats_err = max(check_close(f"{tag} stats", a, c, 2e-5, 2e-5)
+                            for a, c in zip(got[1:], want[1:]))
+            stats = got[1:]
+            grads = bwd(stats)
+            grads_p = bwd_ref(stats)
+            torch.cuda.synchronize()
+            err = max(err, check_close(f"{tag} dx", grads[0], grads_p[0],
+                                       atol, rtol))
+            sum_err = max(check_close(f"{tag} dw/db", a, c, sum_atol,
+                                      NORM_TOL[wt][1])
+                          for a, c in zip(grads[1:], grads_p[1:]))
+            if not all(bool(torch.equal(a, c))
+                       for a, c in zip(grads, bwd(stats))):
+                raise AssertionError(f"{tag}: backward not bitwise equal "
+                                     f"over two launches")
+            xl = x.clone().requires_grad_()
+            wl = w.to(x.dtype).clone().requires_grad_()
+            y_lib = lib_fwd(xl, wl)
+            xb, wb = x.element_size(), w.element_size()
+            n = rows * hidden
+            nvec = len(vecs)
+            case = {
+                "kind": kind, "shape": name, "rows": rows, "hidden": hidden,
+                "x_dtype": xt, "w_dtype": wt, "atol": atol, "rtol": rtol,
+                "sum_atol": sum_atol, "bitwise_repeat": True,
+                "max_abs_err": err, "stats_max_abs_err": stats_err,
+                "sum_max_abs_err": sum_err,
+                "fwd": dict(zip(("bound_ms", "bound_by"), bound_ms(
+                    2 * n * xb + nvec * hidden * wb + 4 * rows * len(stats),
+                    4.0 * n, "float32"))),
+                "bwd": dict(zip(("bound_ms", "bound_by"), bound_ms(
+                    3 * n * xb + (1 + nvec) * hidden * wb
+                    + 4 * rows * len(stats), 8.0 * n, "float32")))}
+            case["fwd"].update(
+                ms=timed(lambda: fwd(x, *vecs, eps, stats=True)),
+                plain_ms=timed(lambda: fwd_ref(x, *vecs, eps), 10),
+                library_ms=timed(lambda: lib_fwd(x, w.to(x.dtype))))
+            case["bwd"].update(
+                ms=timed(lambda: bwd(stats)),
+                plain_ms=timed(lambda: bwd_ref(stats), 10),
+                library_ms=timed(lambda: torch.autograd.grad(
+                    y_lib, (xl, wl), dy, retain_graph=True)))
+            cases.append(case)
+            del x, w, b, dy, got, want, grads, grads_p, xl, wl, y_lib
+    # the main path: the modules, forward + backward
+    runs = []
+    for name, shape, module, pt in NORM_MODULE_RUNS:
+        x = torch.randn(*shape, device=dev, generator=gen).bfloat16()
+        dy = torch.randn(*shape, device=dev, generator=gen).bfloat16()
+        hidden = shape[-1]
+        w0 = 1 + 0.1 * torch.randn(hidden, device=dev, generator=gen)
+        b0 = 0.1 * torch.randn(hidden, device=dev, generator=gen)
+        outs, launches = [], None
+        for plain in (False, True):
+            mod = getattr(norm, module)(hidden, param_dtype=dt_of[pt],
+                                        device=dev)
+            with torch.no_grad():
+                mod.weight.copy_(w0)
+                if mod.bias is not None:
+                    mod.bias.copy_(b0)
+            xl = x.clone().requires_grad_()
+
+            def run():
+                y = mod(xl)
+                y.backward(dy)
+                return y
+            if plain:
+                with ku.force_plain():
+                    y = run()
+            else:
+                ku.reset_launch_counts()
+                y = run()
+                torch.cuda.synchronize()
+                launches = ku.launch_counts()
+            outs.append([y.detach(), xl.grad]
+                        + [t.grad for t in (mod.weight, mod.bias)
+                           if t is not None])
+        kname = "rms_norm" if "RMS" in module else "layer_norm"
+        want = {f"{kname}_fwd": 1, f"{kname}_bwd": 1}
+        if launches != want:
+            raise AssertionError(f"{module} {name}: launches {launches}, "
+                                 f"want {want}")
+        rows = x.numel() // hidden
+        sum_tol = (NORM_SUM_ATOL[pt] * math.sqrt(rows), NORM_TOL[pt][1])
+        err = max(check_close(f"{module} {name} {what}", a, c, *tol)
+                  for what, a, c, tol in zip(
+                      ("y", "dx", "dw", "db"), *outs,
+                      (NORM_TOL["bfloat16"], NORM_TOL["bfloat16"], sum_tol,
+                       sum_tol)))
+        if not all(bool(t.isfinite().all()) for t in outs[0]):
+            raise AssertionError(f"{module} {name}: not finite")
+        mod = getattr(norm, module)(hidden, param_dtype=dt_of[pt],
+                                    device=dev)
+        xl = x.clone().requires_grad_()
+        runs.append({
+            "name": name, "module": module, "shape": list(shape),
+            "param_dtype": pt, "launches": launches, "max_abs_err": err,
+            "fwd_bwd_ms": timed(lambda: mod(xl).backward(dy))})
+        del x, dy, outs, xl, mod
+    torch.cuda.empty_cache()
+    return {"cases": cases, "runs": runs}
+
+
+# the codec at GPT-2-124M's gradient as one flat buffer, padded to whole
+# 32-row steps of 256-element blocks (JAX's gate): int8 at block 256 and
+# int4 at group 128 over the same buffer, fp32 and bf16
+CODEC_GRAD_ELEMS = 124_475_904
+CODEC_SEED = 1234
+
+
+def codec_phase(torch, dev, ku):
+    """The codec kernels (B #16-18) vs their plain versions at
+    ``padded_size(124,475,904, 256·32)`` elements, fp32 and bf16, int8
+    (block 256) and int4 (group 128), nearest and stochastic: codes and
+    scales bitwise equal (the same IEEE quotient, rint and counter hash),
+    the stochastic codes bitwise over two launches, dequantize bitwise;
+    times beside the bound and the plain version (no single PyTorch call
+    computes the codec). Then the main path: ``quantize_blockwise`` +
+    ``dequantize_blockwise`` (and the int4 pair) on the fp32 buffer
+    through the public entry points, nearest and stochastic, the launch
+    counts reset just before and read just after (one quantize and one
+    dequantize launch each), the round trip within half a step (nearest)
+    or one step (stochastic) of x, finite."""
+    from apex_tpu_torch.comm import quantize as pq
+
+    n = pq.padded_size(CODEC_GRAD_ELEMS, 256 * pq._ROWS_PER_STEP)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    base = torch.randn(n, device=dev, generator=gen) * 1e-3
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        x = base.to(dt)
+        for bits, block in ((8, 256), (4, 128)):
+            qmax = pq.qmax_for_bits(bits)
+            x2d = x.view(-1, block)
+            for seed in (None, CODEC_SEED):
+                mode = "nearest" if seed is None else "stochastic"
+                tag = f"codec {dname} int{bits} {mode}"
+                q, s = pq.quantize_blocks(x2d, qmax, seed)
+                q_p, s_p = pq.quantize_blocks_reference(x2d, qmax, seed)
+                torch.cuda.synchronize()
+                if not (torch.equal(q, q_p) and torch.equal(s, s_p)):
+                    raise AssertionError(
+                        f"{tag}: codes differ at "
+                        f"{int((q != q_p).sum())} of {n}, scales at "
+                        f"{int((s != s_p).sum())}")
+                if not torch.equal(q, pq.quantize_blocks(x2d, qmax, seed)[0]):
+                    raise AssertionError(f"{tag}: two launches differ")
+                del q_p, s_p
+                case = {"dtype": dname, "bits": bits, "block": block,
+                        "mode": mode, "elements": n, "bitwise": True,
+                        "max_abs_err": 0.0, "library_ms": None}
+                case.update(zip(("bound_ms", "bound_by"), bound_ms(
+                    n * x.element_size() + n + 4 * n / block, 3.0 * n,
+                    "float32")))
+                case.update(
+                    ms=time_ms(torch, lambda: pq.quantize_blocks(
+                        x2d, qmax, seed), iters=20),
+                    plain_ms=time_ms(torch, lambda: pq.quantize_blocks_reference(
+                        x2d, qmax, seed), iters=5))
+                if dname == "float32" and seed is None:
+                    y = pq.dequantize_blocks(q, s)
+                    if not torch.equal(y, pq.dequantize_blocks_reference(q,
+                                                                         s)):
+                        raise AssertionError(f"{tag}: dequantize differs")
+                    deq = {"max_abs_err": 0.0, "bitwise": True,
+                           "library_ms": None}
+                    deq.update(zip(("bound_ms", "bound_by"), bound_ms(
+                        n + 4 * n / block + 4 * n, 1.0 * n, "float32")))
+                    deq.update(
+                        ms=time_ms(torch, lambda: pq.dequantize_blocks(q, s),
+                                   iters=20),
+                        plain_ms=time_ms(
+                            torch, lambda: pq.dequantize_blocks_reference(
+                                q, s), iters=5))
+                    case["dequantize"] = deq
+                    del y
+                cases.append(case)
+                del q, s
+        del x, x2d
+    # the main path: the public entry points on the fp32 gradient buffer
+    runs = []
+    for bits, block in ((8, 256), (4, 128)):
+        quant, dequant = ((pq.quantize_blockwise, pq.dequantize_blockwise)
+                          if bits == 8 else (pq.quantize_blockwise_int4,
+                                             pq.dequantize_blockwise_int4))
+        for stochastic in (False, True):
+            ku.reset_launch_counts()
+            codes, scales = quant(base, block, stochastic,
+                                  CODEC_SEED if stochastic else None)
+            back = dequant(codes, scales, block)
+            torch.cuda.synchronize()
+            launches = ku.launch_counts()
+            mode = "stochastic" if stochastic else "nearest"
+            want = {f"quantize_blockwise[{mode}]": 1,
+                    "dequantize_blockwise": 1}
+            if launches != want:
+                raise AssertionError(f"codec int{bits} {mode}: launches "
+                                     f"{launches}, want {want}")
+            err = (back - base).view(-1, block).abs()
+            step = scales[:, None] * (1.0 if stochastic else 0.5)
+            # fp32 rounding of y and of q·scale: well under 1e-4 of a step
+            if not bool(back.isfinite().all()) or bool(
+                    (err > step * (1 + 1e-4)).any()):
+                raise AssertionError(f"codec int{bits} {mode}: round trip "
+                                     f"beyond {'one' if stochastic else 'half a'}"
+                                     f" step")
+            runs.append({"bits": bits, "block": block, "mode": mode,
+                         "elements": n, "launches": launches,
+                         "max_abs_err": float(err.max()),
+                         "max_err_in_steps": float((err / scales[:, None])
+                                                   .max())})
+            del codes, scales, back, err, step
+    del base
+    torch.cuda.empty_cache()
+    return {"cases": cases, "runs": runs}
+
+
 FLASH_SHAPES = [  # (name, batch, heads, sq, sk, d, causal, dropout rate, bias)
     ("flagship", 8, 12, 1024, 1024, 64, True, 0.0, False),
     ("non_causal", 2, 12, 512, 512, 64, False, 0.0, False),
@@ -560,7 +890,15 @@ FLASH_SHAPES = [  # (name, batch, heads, sq, sk, d, causal, dropout rate, bias)
     ("d40", 2, 12, 512, 512, 40, True, 0.0, False),
     ("tail_causal", 2, 12, 1000, 1000, 64, True, 0.0, False),
     ("tail_bias", 8, 8, 200, 328, 64, False, 0.0, True),
+    # head dims 136-256, the kernels' D = 256 instantiation: 256 (Gemma's
+    # head width) and 192, causal, and with a T5-style bias
+    ("d256", 2, 8, 1024, 1024, 256, True, 0.0, False),
+    ("d192", 2, 8, 1024, 1024, 192, True, 0.0, False),
+    ("d256_bias", 2, 8, 512, 512, 256, False, 0.0, True),
+    ("d192_bias", 2, 8, 256, 256, 192, True, 0.0, True),
 ]
+# the shapes of FLASH_SHAPES that run in the D = 256 instantiation
+D256_SHAPES = ("d256", "d192", "d256_bias", "d192_bias")
 # d(bias) in both input types: fp32 products of the same inputs on both
 # sides, fp32 sums over the batch in another order
 DBIAS_TOL = (1e-4, 1e-4)
@@ -735,6 +1073,9 @@ def flash_phase(torch, dev):
 # packed until the next would overflow; the rest is padding (segment -1)
 PACK_T, PACK_HEADS, PACK_D = 8192, 12, 64
 PACK_MISALIGNED_T = 8100           # not a multiple of the 64-row tile
+# the same packed row at head_dim 256 (the kernels' D = 256
+# instantiation; Gemma's head width), 4 heads, causal
+PACK_D256_HEADS = 4
 VARLEN_NAMES = ("flash_varlen_fwd", "flash_varlen_bwd_dq",
                 "flash_varlen_bwd_dkv")
 
@@ -797,7 +1138,9 @@ def varlen_phase(torch, dev):
     shape (L2 flushed between calls) beside the bound, the plain version,
     SDPA with the dense block-diagonal boolean mask (pad rows attend to
     themselves, so no row is empty; a yardstick only) and the dense causal
-    flash kernels at the same T, whose ratio shows the block skipping."""
+    flash kernels at the same T, whose ratio shows the block skipping.
+    The same row at head_dim 256 (PACK_D256_HEADS heads, causal) is held
+    and timed the same way, without the dense flash comparison."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import _kernel_util as ku
@@ -820,7 +1163,8 @@ def varlen_phase(torch, dev):
                                          flush=flush_buf.zero_)
     dense = {}                      # dense causal flash ms per dtype
     cases = []
-    for causal in (True, False):
+    for heads, d, causal in ((heads, d, True), (heads, d, False),
+                             (PACK_D256_HEADS, 256, True)):
         s_live = live_scores(lens, causal)
         allowed = (seg[0][:, None] == seg[0][None, :]) & ~pad[:, None]
         if causal:
@@ -867,7 +1211,7 @@ def varlen_phase(torch, dev):
                 o_lib, (q4, k4, v4), do, retain_graph=True), 10)
             plain_bwd = timed(lambda: flash_varlen_bwd_reference(
                 *vargs, o, lse, do, *args), 5)
-            if dname not in dense:
+            if d == PACK_D and dname not in dense:
                 q3, k3, v3, do3 = (x.view(heads, t, d) for x in (q, k, v, do))
                 lse3, delta3 = lse.view(heads, t, 1), delta.view(heads, t, 1)
                 sc = args[0]
@@ -894,15 +1238,17 @@ def varlen_phase(torch, dev):
                 plain_ms=plain_bwd, library_ms=lib_bwd)
             for key, (bms, by) in zip(("fwd", "dq", "dkv"), varlen_bounds(
                     heads, t, d, s_live, q.element_size(), dname)):
-                case[key].update(
-                    bound_ms=bms, bound_by=by,
-                    dense_causal_flash_ms=dense[dname][key],
-                    ratio_to_dense_causal_flash=(case[key]["ms"]
-                                                 / dense[dname][key]))
+                case[key].update(bound_ms=bms, bound_by=by)
+                if d == PACK_D:
+                    case[key].update(
+                        dense_causal_flash_ms=dense[dname][key],
+                        ratio_to_dense_causal_flash=(case[key]["ms"]
+                                                     / dense[dname][key]))
             cases.append(case)
             del q, k, v, do, o, lse, delta, dq, dk, dv, q4, k4, v4, o_lib
         del allowed, sdpa_mask
     # the front door at a total that is not a multiple of the tile
+    heads, d = PACK_HEADS, PACK_D
     tm = PACK_MISALIGNED_T
     lens_m = packed_lengths(tm)
     seg_m = packed_segments(torch, dev, lens_m, tm)
@@ -2180,6 +2526,8 @@ def main(argv=None) -> int:
                      paged_attention_phase, torch, dev)
     lnb_cases = phase("layer_norm_bwd", ("layer_norm",),
                       layer_norm_bwd_phase, torch, dev)
+    nrm = phase("rms_norm", ("layer_norm",), norm_phase, torch, dev, ku)
+    codec = phase("codec", ("quantize",), codec_phase, torch, dev, ku)
     adam = phase("adam_tail", ("fused_update",), adam_tail_phase, torch, dev)
     fa_cases = phase("flash_attention", ("flash_attention",), flash_phase,
                      torch, dev)
@@ -2200,8 +2548,8 @@ def main(argv=None) -> int:
     seconds["build"] = build_s
     kernel_s = sum(seconds[k] for k in (
         "layer_norm", "layer_norm_non_affine", "paged_attention",
-        "layer_norm_bwd", "flash_attention", "flash_varlen", "lm_head_loss",
-        "adam_tail", "megakernel"))
+        "layer_norm_bwd", "rms_norm", "codec", "flash_attention",
+        "flash_varlen", "lm_head_loss", "adam_tail", "megakernel"))
     seconds["builds_and_kernel_phases"] = time.perf_counter() - t0
     engine, launches, quant_launches = phase("engine", (), engine_phase,
                                              torch, dev, ku)
@@ -2302,6 +2650,82 @@ def main(argv=None) -> int:
          **{k: lnb[k] for k in timing},
          "t5": {"rows": list(T5_LN_ROWS), "hidden": T5_HIDDEN,
                 **t5_entry("layer_norm_bwd", lnb_cases, hidden=T5_HIDDEN)}})
+    # the repaired LayerNorm: bf16 x with an fp32 weight at GPT-2's training
+    # rows (launched once each by MixedFusedLayerNorm on the main path) and
+    # GPT-3's width, beside each LN kernel's own entry
+    ln_run = pick(nrm["runs"], name="gpt2_ln")
+    for entry in kernels:
+        if entry["name"] in ("layer_norm_fwd", "layer_norm_bwd"):
+            key = entry["name"][-3:]
+            for label, shape, xt, wt in (
+                    ("mixed", "gpt2", "bfloat16", "float32"),
+                    ("mixed_t5", "t5_small", "bfloat16", "float32"),
+                    ("wide", "wide", "bfloat16", "bfloat16"),
+                    ("wide_mixed", "wide", "bfloat16", "float32")):
+                c = pick(nrm["cases"], kind="ln", shape=shape, x_dtype=xt,
+                         w_dtype=wt)
+                entry[label] = {"rows": c["rows"], "hidden": c["hidden"],
+                                "max_abs_err": c["max_abs_err"],
+                                **{k: c[key][k] for k in timing}}
+            entry["mixed"]["module_launches"] = ln_run["launches"][
+                entry["name"]]
+    # RMSNorm (B #3-4): launched by the main path's MixedFusedRMSNorm at
+    # GPT-2's training rows (bf16 x, fp32 weight), timed there; the other
+    # shapes and types beside it
+    rms_run = pick(nrm["runs"], name="gpt2")
+    rms_main = pick(nrm["cases"], kind="rms", shape="gpt2",
+                    x_dtype="bfloat16", w_dtype="float32")
+    for key, kname, line in (("fwd", "rms_norm_fwd", 262),
+                             ("bwd", "rms_norm_bwd", 292)):
+        kernels.append(
+            {"name": kname, "route": "cuda",
+             "source": "apex_tpu_torch/csrc/layer_norm.cu",
+             "replaces": f"apex_tpu/ops/layer_norm.py:{line}",
+             "launches": rms_run["launches"][kname],
+             "path": "normalization.MixedFusedRMSNorm",
+             "shape": f"({rms_main['rows']}, {rms_main['hidden']}) bf16 x, "
+                      f"fp32 weight",
+             "max_abs_err": max(c["max_abs_err"] for c in nrm["cases"]
+                                if c["kind"] == "rms"),
+             **{k: rms_main[key][k] for k in timing},
+             **{f"{c['shape']}_{c['x_dtype']}_{c['w_dtype']}": {
+                 "rows": c["rows"], "hidden": c["hidden"],
+                 **{k: c[key][k] for k in timing}}
+                for c in nrm["cases"] if c["kind"] == "rms"
+                and c is not rms_main}})
+    # the codec (B #16-18): launched by the main path's quantize_blockwise
+    # and _int4 pairs on GPT-2-124M's fp32 gradient, timed there (int8,
+    # block 256); bf16 and int4 beside it; no single PyTorch call computes
+    # it (library_ms null)
+    for mode, line in (("nearest", 213), ("stochastic", 201)):
+        kname = f"quantize_blockwise[{mode}]"
+        c = pick(codec["cases"], dtype="float32", bits=8, mode=mode)
+        kernels.append(
+            {"name": kname, "route": "cuda",
+             "source": "apex_tpu_torch/csrc/quantize.cu",
+             "replaces": f"apex_tpu/comm/quantize.py:{line}",
+             "launches": sum(r["launches"].get(kname, 0)
+                             for r in codec["runs"]),
+             "path": "comm.quantize_blockwise(_int4)",
+             "shape": f"{c['elements']} elements fp32, int8, block 256",
+             "max_abs_err": 0.0, "bitwise": True,
+             **{k: c[k] for k in timing},
+             **{f"{x['dtype']}_int{x['bits']}": {k: x[k] for k in timing}
+                for x in codec["cases"] if x["mode"] == mode
+                and x is not c}})
+    deq = {x["bits"]: x["dequantize"] for x in codec["cases"]
+           if "dequantize" in x}
+    kernels.append(
+        {"name": "dequantize_blockwise", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/quantize.cu",
+         "replaces": "apex_tpu/comm/quantize.py:226",
+         "launches": sum(r["launches"].get("dequantize_blockwise", 0)
+                         for r in codec["runs"]),
+         "path": "comm.dequantize_blockwise(_int4)",
+         "shape": f"{codec['cases'][0]['elements']} codes, block 256",
+         "max_abs_err": 0.0, "bitwise": True,
+         **{k: deq[8][k] for k in timing},
+         "int4_group128": {k: deq[4][k] for k in timing}})
     fa = pick(fa_cases, dtype="bfloat16", shape="flagship")
     # T5's shapes, bf16: the rectangular cross-attention (no bias) beside
     # GPT's flagship shape; the bias kernels at the encoder's shape, with
@@ -2311,7 +2735,8 @@ def main(argv=None) -> int:
     dec = pick(fa_cases, dtype="bfloat16", shape="t5_dec")
     # the shapes the repaired kernels take (C1): head_dim 128 and 40, tails
     c1 = {shape: pick(fa_cases, dtype="bfloat16", shape=shape)
-          for shape in ("gpt_d128", "d40", "tail_causal", "tail_bias")}
+          for shape in ("gpt_d128", "d40", "tail_causal", "tail_bias",
+                        *D256_SHAPES)}
     flash_rows = (("fwd", "flash_attention_fwd", 297),
                   ("dq", "flash_attention_bwd_dq", 532),
                   ("dkv", "flash_attention_bwd_dkv", 570))
@@ -2334,7 +2759,8 @@ def main(argv=None) -> int:
                  c[key]["max_abs_err"] for c in fa_cases
                  if c["shape"] == shape), **{k: c1[shape][key][k]
                                              for k in timing}}
-                for shape in ("gpt_d128", "d40", "tail_causal")}})
+                for shape in ("gpt_d128", "d40", "tail_causal", "d256",
+                              "d192")}})
     for key, kname, line in flash_rows + (
             ("dbias", "flash_attention_bwd_dbias", 607),):
         tname = kname if key == "dbias" else f"{kname}[bias]"
@@ -2348,12 +2774,14 @@ def main(argv=None) -> int:
                                 if c["bias"]),
              **{k: enc[key][k] for k in timing},
              "t5_dec": {k: dec[key][k] for k in timing},
-             "tail_bias": {k: c1["tail_bias"][key][k] for k in timing}})
+             **{shape: {k: c1[shape][key][k] for k in timing}
+                for shape in ("tail_bias", "d256_bias", "d192_bias")}})
     # the packed path's kernels: launches of one bf16 causal forward plus
     # backward through FMHA; times at its shape, bf16 causal, with the
     # bidirectional times and the dense causal flash kernels beside them
-    vc = pick(vl["cases"], dtype="bfloat16", causal=True)
-    vb = pick(vl["cases"], dtype="bfloat16", causal=False)
+    vc = pick(vl["cases"], dtype="bfloat16", causal=True, head_dim=PACK_D)
+    vb = pick(vl["cases"], dtype="bfloat16", causal=False, head_dim=PACK_D)
+    v256 = pick(vl["cases"], dtype="bfloat16", head_dim=256)
     main_run = pick(fmha["runs"], dtype="bfloat16", causal=True)
     for key, kname, line in (("fwd", "flash_varlen_fwd", 377),
                              ("dq", "flash_varlen_bwd_dq", 414),
@@ -2373,7 +2801,9 @@ def main(argv=None) -> int:
              "dense_causal_flash_ms": vc[key]["dense_causal_flash_ms"],
              "ratio_to_dense_causal_flash":
                  vc[key]["ratio_to_dense_causal_flash"],
-             "bidirectional": {k: vb[key][k] for k in timing}})
+             "bidirectional": {k: vb[key][k] for k in timing},
+             "d256": {"heads": v256["heads"], "causal": v256["causal"],
+                      **{k: v256[key][k] for k in timing}}})
     # the fused loss at the training shape (8192, 768, 50304) bf16
     lm = pick(lm_cases, dtype="bfloat16", shape="train")
     lm_t5 = pick(lm_cases, dtype="bfloat16", shape="t5")
@@ -2407,7 +2837,8 @@ def main(argv=None) -> int:
               "layer_norm_bwd": lnb_cases, "flash_attention": fa_cases,
               "lm_head_loss": lm_cases, "adam_tail": adam,
               "megakernel": mk_cases, "flash_varlen": vl, "fmha": fmha,
-              "layer_norm_non_affine": ln_non_affine,
+              "layer_norm_non_affine": ln_non_affine, "norm": nrm,
+              "codec": codec,
               "engine": engine, "train": train, "t5_train": t5}
     for run in ("fp32_kernels", "fp32_plain", "fp32_off", "fp32_int8",
                 "fp32_int8_off", "fp32_int4", "fp32_int4_off", "bf16_spec0",
@@ -2478,7 +2909,7 @@ def main(argv=None) -> int:
             f"{k} {c[k]['ms']:.4f} ms (plain {c[k]['plain_ms']:.4f}, library "
             f"{c[k]['library_ms']:.4f}, bound {c[k]['bound_ms']:.4f} "
             f"{c[k]['bound_by']}, dense causal flash "
-            f"{c[k]['dense_causal_flash_ms']:.4f}) err "
+            f"{c[k].get('dense_causal_flash_ms', float('nan')):.4f}) err "
             f"{c[k]['max_abs_err']:.3e}" for k in ("fwd", "dq", "dkv"))
         print(f"flash_varlen {'causal' if c['causal'] else 'bidirectional'} "
               f"{c['dtype']} (1, {c['heads']}, {c['tokens']}, "
@@ -2557,6 +2988,31 @@ def main(argv=None) -> int:
               f"{c['ms']:.4f} ms (plain "
               f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
               f"{c['bound_ms']:.4f})")
+    for c in nrm["cases"]:
+        print(f"{c['kind']} {c['shape']} ({c['rows']}, {c['hidden']}) x "
+              f"{c['x_dtype']} w {c['w_dtype']}: err {c['max_abs_err']:.3e} "
+              f"(dw/db {c['sum_max_abs_err']:.3e}); " + " ".join(
+                  f"{k} {c[k]['ms']:.4f} ms (plain {c[k]['plain_ms']:.4f}, "
+                  f"library {c[k]['library_ms']:.4f}, bound "
+                  f"{c[k]['bound_ms']:.4f})" for k in ("fwd", "bwd"))
+              + f" on {card}")
+    for r in nrm["runs"]:
+        print(f"{r['module']} {r['name']} {r['shape']} bf16, "
+              f"{r['param_dtype']} params: fwd+bwd {r['fwd_bwd_ms']:.4f} ms, "
+              f"launches {r['launches']}, vs plain {r['max_abs_err']:.3e}")
+    for c in codec["cases"]:
+        d = c.get("dequantize")
+        print(f"codec {c['dtype']} int{c['bits']} block {c['block']} "
+              f"{c['mode']} ({c['elements']} elements): quantize "
+              f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
+              f"{c['bound_ms']:.4f}) bitwise"
+              + (f"; dequantize {d['ms']:.4f} ms (plain {d['plain_ms']:.4f},"
+                 f" bound {d['bound_ms']:.4f}) bitwise" if d else "")
+              + f" on {card}")
+    for r in codec["runs"]:
+        print(f"codec main path int{r['bits']} {r['mode']}: launches "
+              f"{r['launches']}, round trip max {r['max_err_in_steps']:.4f}"
+              f" steps")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)

@@ -13,6 +13,7 @@ rounding step of the bf16 output).
 """
 
 import contextlib
+import importlib
 import math
 
 import numpy as np
@@ -38,7 +39,12 @@ from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                            layer_norm_bwd_reference,
                                            layer_norm_fwd,
                                            layer_norm_fwd_reference,
-                                           layer_norm_reference)
+                                           layer_norm_reference, rms_norm,
+                                           rms_norm_bwd,
+                                           rms_norm_bwd_reference,
+                                           rms_norm_fwd,
+                                           rms_norm_fwd_reference,
+                                           rms_norm_reference)
 from apex_tpu_torch.ops.lm_head_loss import (lm_head_loss,
                                              lm_head_loss_bwd_dw,
                                              lm_head_loss_bwd_dx,
@@ -54,6 +60,8 @@ from apex_tpu_torch.serve.megakernel import (fused_layer_fwd,
 from apex_tpu_torch.transformer.testing import (GPTConfig, T5Config,
                                                 build_t5_train_step,
                                                 init_gpt_params, t5_loss)
+
+ln_mod = importlib.import_module("apex_tpu_torch.ops.layer_norm")
 
 pytestmark = pytest.mark.cuda
 
@@ -86,10 +94,17 @@ def test_layer_norm_kernel_matches_plain(dev, dtype, rows, hidden):
     w = torch.randn(hidden, device=dev, generator=g).to(dtype)
     b = torch.randn(hidden, device=dev, generator=g).to(dtype)
     before = ku.launch_counts().get("layer_norm_fwd", 0)
-    got = layer_norm(x, w, b)
+    got = layer_norm_fwd(x, w, b)
     assert ku.launch_counts()["layer_norm_fwd"] == before + 1
     _close(got, layer_norm_reference(x, w, b), dtype)
     assert got.dtype == dtype and got.shape == x.shape
+    # the front door launches only where JAX's gate holds (rows % 8),
+    # and gives the reference's bits elsewhere
+    gated = ln_mod._pallas_ok(rows, hidden)
+    got = layer_norm(x, w, b)
+    assert ku.launch_counts()["layer_norm_fwd"] == before + 1 + gated
+    if not gated:
+        assert torch.equal(got, layer_norm_reference(x, w, b))
 
 
 def test_layer_norm_kernel_refuses_what_it_cannot_take(dev):
@@ -99,9 +114,12 @@ def test_layer_norm_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="multiple"):
         layer_norm_fwd(x.bfloat16(), w.bfloat16(), b.bfloat16())
     with pytest.raises(ValueError, match="weight"):
-        layer_norm_fwd(x, w.bfloat16(), b)
+        layer_norm_fwd(x, w.bfloat16(), b)     # weight and bias differ
+    w8, b8 = torch.ones(768, device=dev), torch.zeros(768, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
-        layer_norm(torch.randn(100, 4, device=dev).t(), w, b)
+        layer_norm(torch.randn(768, 8, device=dev).t(), w8, b8)
+    with pytest.raises(ValueError, match="pallas layer_norm requires"):
+        layer_norm(x, w, b, use_pallas=True)
     with ku.force_plain():
         torch.testing.assert_close(layer_norm(x), layer_norm_reference(x))
 
@@ -260,7 +278,10 @@ FLASH_CASES = [  # bh, s, d, causal, dropout rate
     # tail tiles (lengths not a multiple of 64), head dims 40 and 128
     (3, 1000, 64, True, 0.0), (2, 200, 40, False, 0.1),
     (4, 256, 128, True, 0.0), (2, 136, 128, False, 0.2),
-    (3, 72, 24, True, 0.0)]
+    (3, 72, 24, True, 0.0),
+    # head dims 136-256 (D = 256)
+    (2, 256, 256, True, 0.0), (2, 200, 192, False, 0.1),
+    (2, 128, 136, True, 0.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -331,8 +352,8 @@ def test_flash_kernels_refuse_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_fwd(*(t[..., :36].contiguous() for t in (q, k, v)),
                             0.125, False)
-    wide = torch.randn(2, 128, 136, device=dev)
-    with pytest.raises(ValueError, match="head_dim 136"):
+    wide = torch.randn(2, 128, 264, device=dev)
+    with pytest.raises(ValueError, match="head_dim 264 .* up to 256"):
         flash_attention_fwd(wide, wide, wide, 0.125, False)
     with pytest.raises(ValueError, match="multiples of 8"):
         flash_attention_fwd(*(t[:, :100].contiguous() for t in (q, k, v)),
@@ -354,7 +375,9 @@ FLASH_BIAS_CASES = [  # batch, heads, sq, sk, d, causal, dropout rate
     (2, 2, 64, 256, 64, False, 0.0), (3, 2, 128, 128, 64, True, 0.2),
     # tail tiles, head dims 40 and 128
     (2, 2, 200, 328, 64, False, 0.0), (2, 2, 136, 136, 128, True, 0.1),
-    (2, 3, 200, 200, 40, True, 0.0)]
+    (2, 3, 200, 200, 40, True, 0.0),
+    # head dims 192 and 256 (D = 256)
+    (2, 2, 128, 192, 256, False, 0.0), (2, 2, 136, 136, 192, True, 0.1)]
 
 
 def _flash_bias_case(dev, dtype, b, heads, sq, sk, d, seed):
@@ -461,7 +484,8 @@ def test_flash_attention_bias_autograd_on_the_card(dev):
 
 @pytest.mark.parametrize("sq,sk,d,causal,bias", [
     (1000, 1000, 64, True, False), (200, 328, 40, False, True),
-    (136, 136, 128, True, True)])
+    (136, 136, 128, True, True), (256, 256, 256, True, True),
+    (200, 200, 192, False, False)])
 def test_flash_attention_tail_shapes_autograd_on_the_card(dev, sq, sk, d,
                                                           causal, bias):
     """The front door at a tail shape or a repaired head dim goes through
@@ -996,7 +1020,8 @@ def _varlen_case(dev, dtype, b, h, s, d, seed, foreign_tile=False):
 
 VARLEN_CASES = [  # b, h, s, d, causal, foreign K/V tile
     (2, 3, 320, 64, True, False), (2, 3, 320, 64, False, True),
-    (1, 2, 320, 40, True, True), (1, 2, 256, 128, False, False)]
+    (1, 2, 320, 40, True, True), (1, 2, 256, 128, False, False),
+    (1, 2, 320, 256, True, True), (1, 2, 256, 192, False, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1085,8 +1110,219 @@ def test_varlen_kernels_refuse_what_they_cannot_take(dev):
                          seg_k[:, :200].contiguous(), 0.125, True)
     with pytest.raises(ValueError, match="seg_q"):
         flash_varlen_fwd(q, k, v, seg_q.long(), seg_k, 0.125, True)
-    with pytest.raises(ValueError, match="head_dim"):
-        wide = torch.randn(1, 2, 256, 136, device=dev)
+    with pytest.raises(ValueError, match="head_dim 264 .* up to 256"):
+        wide = torch.randn(1, 2, 256, 264, device=dev)
         flash_varlen_fwd(wide, wide, wide, seg_q, seg_k, 0.125, True)
     with pytest.raises(ValueError, match="k must be"):
         flash_varlen_fwd(q, k.bfloat16(), v, seg_q, seg_k, 0.125, True)
+
+
+def test_flash_attention_head_dim_above_256_raises_on_the_card(dev):
+    """head_dim 264 (% 8 == 0, so JAX's gate takes it): the kernels stop
+    at 256 (two 64-row fp32 tiles of 512 would need 256 KB of shared
+    memory), so the front door raises naming the limit, and launches
+    nothing."""
+    q = torch.randn(1, 2, 64, 264, device=dev)
+    before = ku.launch_counts()
+    with pytest.raises(ValueError, match="head_dim 264 .* up to 256"):
+        flash_attention(q, q, q, causal=True)
+    assert ku.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# seventh slice: LayerNorm in mixed types and wide rows, RMSNorm, the codec
+
+NORM_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+def _norm_case(dev, xt, wt, rows, hidden, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(rows, hidden, device=dev, generator=g) * 2 + 1).to(xt)
+    w = (1 + 0.1 * torch.randn(hidden, device=dev, generator=g)).to(wt)
+    b = (0.1 * torch.randn(hidden, device=dev, generator=g)).to(wt)
+    dy = torch.randn(rows, hidden, device=dev, generator=g).to(xt)
+    return x, w, b, dy
+
+
+def _close_norm(got, want, dtype, sum_rows=None):
+    """y and dx: the file's tolerance; a sum over rows (dw, db): atol
+    1e-5·sqrt(rows) in fp32, 2e-3·sqrt(rows) in bf16."""
+    atol, rtol = TOL[dtype]
+    if sum_rows is not None:
+        atol = (1e-5 if dtype == torch.float32 else 2e-3) * math.sqrt(
+            sum_rows)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("xt,wt", NORM_TYPES)
+@pytest.mark.parametrize("rows,hidden", [(64, 768), (37, 512), (16, 12288)])
+def test_layer_norm_mixed_types_match_plain(dev, xt, wt, rows, hidden):
+    """x and the weight in their own types: y and dx in x's, dw/db in the
+    weight's, each within tolerance of the plain version (which computes
+    in fp32 and rounds where the kernels do)."""
+    x, w, b, dy = _norm_case(dev, xt, wt, rows, hidden, rows + hidden)
+    y, mean, rstd = layer_norm_fwd(x, w, b, stats=True)
+    y_p, mean_p, rstd_p = layer_norm_fwd_reference(x, w, b)
+    _close_norm(y, y_p, xt)
+    torch.testing.assert_close(rstd, rstd_p, atol=2e-5, rtol=2e-5)
+    dx, dw, db = layer_norm_bwd(dy, x, mean, rstd, w)
+    pdx, pdw, pdb = layer_norm_bwd_reference(dy, x, mean, rstd, w)
+    _close_norm(dx, pdx, xt)
+    _close_norm(dw, pdw, wt, rows)
+    _close_norm(db, pdb, wt, rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_bwd_wide_rows(dev, dtype):
+    """hidden 12,288 (GPT-3's width) and 37,376 (the widest JAX's gate
+    admits at 8-row blocks, a multiple of 128): the backward's shared
+    memory no longer grows with hidden, so both run, match the plain
+    version and repeat bitwise."""
+    for rows, hidden in ((256, 12288), (16, 37376)):
+        assert ln_mod._pallas_ok(rows, hidden)
+        x, w, b, dy = _norm_case(dev, dtype, dtype, rows, hidden, hidden)
+        _, mean, rstd = layer_norm_fwd(x, w, b, stats=True)
+        got = layer_norm_bwd(dy, x, mean, rstd, w)
+        want = layer_norm_bwd_reference(dy, x, mean, rstd, w)
+        _close_norm(got[0], want[0], dtype)
+        _close_norm(got[1], want[1], dtype, rows)
+        _close_norm(got[2], want[2], dtype, rows)
+        again = layer_norm_bwd(dy, x, mean, rstd, w)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("xt,wt", NORM_TYPES)
+@pytest.mark.parametrize("rows,hidden", [(8192, 768), (4096, 512),
+                                         (37, 256), (64, 12288)])
+def test_rms_norm_kernels_match_plain(dev, xt, wt, rows, hidden):
+    """RMSNorm forward (y, rstd) and backward (dx, dw) vs their plain
+    versions; one launch each; dw bitwise over a repeat."""
+    x, w, _, dy = _norm_case(dev, xt, wt, rows, hidden, 3 * rows + hidden)
+    counts = ku.launch_counts()
+    y, rstd = rms_norm_fwd(x, w, stats=True)
+    y_p, rstd_p = rms_norm_fwd_reference(x, w)
+    _close_norm(y, y_p, xt)
+    torch.testing.assert_close(rstd, rstd_p, atol=2e-5, rtol=2e-5)
+    dx, dw = rms_norm_bwd(dy, x, rstd, w)
+    pdx, pdw = rms_norm_bwd_reference(dy, x, rstd, w)
+    _close_norm(dx, pdx, xt)
+    _close_norm(dw, pdw, wt, rows)
+    after = ku.launch_counts()
+    for name in ("rms_norm_fwd", "rms_norm_bwd"):
+        assert after[name] == counts.get(name, 0) + 1
+    assert torch.equal(rms_norm_bwd(dy, x, rstd, w)[1], dw)
+
+
+@pytest.mark.parametrize("module", ["FusedRMSNorm", "MixedFusedRMSNorm",
+                                    "FusedLayerNorm", "MixedFusedLayerNorm"])
+def test_normalization_modules_on_the_card(dev, module):
+    """A bf16 batch through each module (fp32 params): one forward and one
+    backward kernel launch, output and gradients within tolerance of the
+    same module run with the plain versions forced."""
+    import apex_tpu_torch.normalization as norm
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(4, 64, 768, device=dev, generator=g).bfloat16()
+    dy = torch.randn(4, 64, 768, device=dev, generator=g).bfloat16()
+    rms = "RMS" in module
+    names = ("rms_norm_fwd", "rms_norm_bwd") if rms else (
+        "layer_norm_fwd", "layer_norm_bwd")
+    w0 = 1 + 0.1 * torch.randn(768, device=dev, generator=g)
+    runs = []
+    for plain in (False, True):
+        mod = getattr(norm, module)(768, device=dev)
+        with torch.no_grad():
+            mod.weight.copy_(w0)
+        xl = x.clone().requires_grad_()
+        before = ku.launch_counts()
+        with ku.force_plain() if plain else contextlib.nullcontext():
+            y = mod(xl)
+            y.backward(dy)
+        after = ku.launch_counts()
+        for name in names:
+            assert after.get(name, 0) == before.get(name, 0) + (not plain)
+        assert y.dtype == torch.bfloat16 and mod.weight.grad.dtype == \
+            torch.float32
+        runs.append((y, xl.grad, mod.weight.grad))
+    for got, want, dtype in zip(runs[0], runs[1], (torch.bfloat16,) * 2
+                                + (torch.float32,)):
+        _close_norm(got, want, dtype, 256 if got.dim() == 1 else None)
+
+
+def test_rms_norm_gate_on_the_card(dev):
+    """Outside JAX's gate (rows % 8, hidden % 128) rms_norm is the
+    reference on CUDA, no launch; use_pallas=True there raises; no weight
+    is the reference everywhere."""
+    before = ku.launch_counts()
+    x = torch.randn(5, 100, device=dev)
+    w = torch.ones(100, device=dev)
+    assert torch.equal(rms_norm(x, w), rms_norm_reference(x, w))
+    x8 = torch.randn(8, 256, device=dev)
+    assert torch.equal(rms_norm(x8), rms_norm_reference(x8))
+    assert ku.launch_counts() == before
+    with pytest.raises(ValueError, match="pallas rms_norm requires"):
+        rms_norm(x, w, use_pallas=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,block", [(8, 256), (4, 128), (8, 512)])
+@pytest.mark.parametrize("seed", [None, 7])
+def test_codec_kernels_match_plain_bitwise(dev, dtype, bits, block, seed):
+    """Quantize (nearest, or stochastic with a seed) and dequantize: codes
+    and scales bitwise the plain versions' (IEEE division, rint, the same
+    counter hash), the dequantized values bitwise too; one launch each
+    through the public entry points, the int4 codes packed outside."""
+    from apex_tpu_torch.comm import quantize as pq
+    g = torch.Generator(device=dev).manual_seed(block + bits)
+    n = 64 * block
+    x = (torch.randn(n, device=dev, generator=g) * 3).to(dtype)
+    x[:block] = 0                                   # an all-zero block
+    x[block:2 * block] = 0.5 * torch.arange(block, device=dev) - 7
+    qmax = pq.qmax_for_bits(bits)
+    q, s = pq.quantize_blocks(x.reshape(-1, block), qmax, seed)
+    q_p, s_p = pq.quantize_blocks_reference(x.reshape(-1, block), qmax, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+    assert int(q.abs().max()) <= qmax and float(s[0]) == 1.0
+    y = pq.dequantize_blocks(q, s)
+    assert torch.equal(y, pq.dequantize_blocks_reference(q, s))
+    stoch = seed is not None
+    kind = "stochastic" if stoch else "nearest"
+    before = ku.launch_counts()
+    if bits == 8:
+        codes, scales = pq.quantize_blockwise(x, block, stoch, seed)
+        back = pq.dequantize_blockwise(codes, scales, block)
+    else:
+        codes, scales = pq.quantize_blockwise_int4(x, block, stoch, seed)
+        assert torch.equal(codes, pq.pack_int4(q.reshape(-1)))
+        back = pq.dequantize_blockwise_int4(codes, scales, block)
+    after = ku.launch_counts()
+    assert after[f"quantize_blockwise[{kind}]"] == \
+        before.get(f"quantize_blockwise[{kind}]", 0) + 1
+    assert after["dequantize_blockwise"] == \
+        before.get("dequantize_blockwise", 0) + 1
+    assert torch.equal(scales, s) and torch.equal(back, y.reshape(-1))
+
+
+def test_codec_gate_on_the_card(dev):
+    """JAX's gate: block % 128 and rows % 32. Outside it the codec's
+    reference (the scale a true quotient) runs on CUDA with no launch,
+    the same bits as on the CPU; use_pallas=True raises there; False is
+    the reference inside it; the KV pools' codec (block = head_dim 64)
+    never launches."""
+    from apex_tpu_torch.comm import quantize as pq
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(16 * 256, device=dev, generator=g)   # 16 rows: not 32
+    before = ku.launch_counts()
+    q, s = pq.quantize_blockwise(x)
+    q_r, s_r = pq.quantize_blockwise(x.cpu(), use_pallas=False)
+    assert torch.equal(q.cpu(), q_r) and torch.equal(s.cpu(), s_r)
+    pq.quantize_blockwise(torch.randn(64 * 256, device=dev),
+                          use_pallas=False)
+    pq.quantize_blockwise(torch.randn(64 * 64, device=dev), 64)
+    assert ku.launch_counts() == before
+    with pytest.raises(ValueError, match="pallas quantize needs"):
+        pq.quantize_blockwise(x, use_pallas=True)

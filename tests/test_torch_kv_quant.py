@@ -133,8 +133,9 @@ def test_nibble_packing_matches_jax():
 
 
 def test_codec_argument_checks():
-    """Bad sizes raise as JAX's do; stochastic rounding and the codec
-    kernels raise NotImplementedError naming ROADMAP §A item 7."""
+    """Bad sizes raise as JAX's do; ``use_pallas=True`` where JAX's gate
+    refuses the codec kernels (block 10) raises ValueError as JAX's does;
+    stochastic rounding with a seed returns codes."""
     x = torch.zeros(100)
     assert pq.qmax_for_bits(8) == jq.qmax_for_bits(8) == 127.0
     assert pq.qmax_for_bits(4) == jq.qmax_for_bits(4) == 7.0
@@ -152,15 +153,15 @@ def test_codec_argument_checks():
         pq.quantize_blockwise_int4(x, 8)
     with pytest.raises(ValueError, match="seed"):
         pq.quantize_blockwise(x, 10, stochastic=True)
-    for call in (lambda: pq.quantize_blockwise(x, 10, stochastic=True,
-                                               seed=1),
-                 lambda: pq.quantize_blockwise(x, 10, use_pallas=True),
+    for call in (lambda: pq.quantize_blockwise(x, 10, use_pallas=True),
                  lambda: pq.quantize_blockwise_int4(x, 10, use_pallas=True),
                  lambda: pq.dequantize_blockwise(x.to(torch.int8),
                                                  torch.ones(10), 10,
                                                  use_pallas=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="pallas .*rows % 32"):
             call()
+    q, s = pq.quantize_blockwise(x, 10, stochastic=True, seed=1)
+    assert q.dtype == torch.int8 and q.shape == (100,) and s.shape == (10,)
 
 
 # ---------------------------------------------------------------------------

@@ -191,7 +191,8 @@ def test_flash_gate_matches_jax():
 
 @pytest.mark.parametrize("sq,sk,d,causal,bias", [
     (200, 328, 40, False, False), (200, 328, 128, False, True),
-    (200, 200, 40, True, True), (200, 200, 128, True, False)])
+    (200, 200, 40, True, True), (200, 200, 128, True, False),
+    (128, 128, 256, True, True), (64, 136, 192, False, False)])
 def test_flash_tail_shapes_and_head_dims_match_jax_kernel(sq, sk, d, causal,
                                                           bias):
     """Lengths that are not multiples of the port's 64-row tile and head
@@ -222,6 +223,32 @@ def test_flash_tail_shapes_and_head_dims_match_jax_kernel(sq, sk, d, causal,
     for got, ref, name in zip(leaves, want, ("q", "k", "v", "bias")):
         np.testing.assert_allclose(_np(got.grad), np.asarray(ref),
                                    atol=1e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_head_dims_up_to_256_take_the_kernel_path(monkeypatch, d):
+    """JAX's gate takes head_dim 136-256, and so do the port's kernels
+    (D = 256 with zeros past d): ``flash_attention`` goes through the
+    flash autograd function (the kernels on CUDA, their plain versions
+    here), with JAX's interpret-mode kernel's output (atol 2e-5)."""
+    assert port_attention._MAX_HEAD_DIM == 256
+    assert jax_pallas_ok(64, 64, d, True, allow_interpret=True)
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((1, 2, 64, d)).astype(np.float32)
+               for _ in range(3))
+    calls = []
+    real = port_attention.FlashAttention.apply
+
+    def count(*a):
+        calls.append(a[0].shape)
+        return real(*a)
+
+    monkeypatch.setattr(port_attention.FlashAttention, "apply", count)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True)
+    want = jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
+                     use_pallas=True, block_q=64, block_k=64)
+    assert calls == [(2, 64, d)]
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
 
 
 @pytest.mark.parametrize("sq,sk,d,causal", [

@@ -92,6 +92,17 @@ def test_varlen_matches_jax_kernel(causal):
                _jax_varlen(q, k, v, do, seg, causal))
 
 
+@pytest.mark.parametrize("d", [192, 256])
+def test_varlen_head_dims_up_to_256_match_jax_kernel(d):
+    """Head dims 192 and 256 (the varlen kernels' D = 256 instantiation on
+    the card): o and every gradient vs JAX's interpret-mode kernels, one
+    row of 2 heads, 128 packed tokens, causal."""
+    (q, k, v, do), rng = _inputs(d, 1, 2, 128, d)
+    seg = _packed_segs(rng, 1, 128, 10, 60, 9)
+    _close_all(_port_varlen(q, k, v, do, seg, True),
+               _jax_varlen(q, k, v, do, seg, True))
+
+
 @pytest.mark.parametrize("total", [130, 200])
 @pytest.mark.parametrize("causal", [False, True])
 def test_varlen_misaligned_total_matches_jax(total, causal):
