@@ -32,39 +32,44 @@
 // same bits as `_hash_keep` (:129-144), so the mask regenerates exactly in
 // the forward, its remat replay and both backward kernels.
 //
-// Bound on this card: at the flagship shape (bh 96, s 1024, d 64, bf16)
-// the tensor-core operations (4, 6 and 8 * bh * s^2 * d, halved by the
-// causal mask) bound all three, not the bytes. The bias adds one fp32
-// read of heads * sq * sk to each (and d(bias) writes as much): at T5's
-// encoder shape (bh 64, s 512, d 64) that is bytes the forward must move
-// in about the time of its operations. These first kernels run
-// their products on the CUDA cores in fp32, not on the tensor cores, so
-// they sit far above that bound: a simple kernel that is right comes
-// first, wgmma and TMA come later.
+// Which kernels run here: fp32 inputs in all four, and bf16 inputs in dQ
+// and d(bias) at every head dim and in the forward and dK/dV at D = 512;
+// the forward and dK/dV with bf16 inputs at d <= 256 run on the tensor
+// cores (flash_mma.cu; the wrapper's `_flash_route` picks). fp32 products
+// stay here, on the CUDA cores: the tensor cores would take fp32 as TF32,
+// not the fp32 products JAX's reference forms.
+//
+// Bound on this card: at the flagship shape (bh 96, s 1024, d 64) the
+// operations (4, 6 and 8 * bh * s^2 * d, halved by the causal mask) bound
+// all three, not the bytes. The bias adds one fp32 read of heads * sq * sk
+// to each (and d(bias) writes as much): at T5's encoder shape (bh 64, s
+// 512, d 64) that is bytes the forward must move in about the time of its
+// operations. These kernels run their products on the CUDA cores in fp32,
+// so they sit far above the bf16 bound: simple kernels that are right.
 //
 // Design: the TPU's sequential (q, kv) grid becomes a loop inside one
-// block. Forward and dQ: one block per (q tile of 64 rows, batch*head),
+// block. Forward and dQ: one block per (q tile of BR rows, batch*head),
 // heaviest causal tiles launched first; dK/dV: one block per (kv tile of
-// 64 rows, batch*head), walking the q tiles from the causal diagonal on.
+// BR rows, batch*head), walking the q tiles from the causal diagonal on.
 // Each output tile has exactly one owner, so nothing is summed across
 // blocks: no atomics, and the results are deterministic. The tile code is
 // shared with the varlen kernels (flash_tile.cuh): K/V (or Q/dO) tiles
 // staged in shared memory as fp32, a row held by TPR = D / DPT
 // neighbouring threads. Masking is by value, never by branch, so every
 // lane reaches every shuffle. Any sequence length runs: the last tile of
-// a length that is not a multiple of 64 stages zeros past the end, gives
+// a length that is not a multiple of BR stages zeros past the end, gives
 // the columns past sk the score NEG_INF (p = 0) and stores no row past
-// sq. A head dim d (a multiple of 8 up to 256) runs in the instantiation
-// for D = 32, 64, 128 or 256 with zeros past d; `scale` is the caller's (1 /
-// sqrt(d)). D = 128 stages 64 KB a block, above the 48 KB of static
-// shared memory, so every kernel takes its tiles as dynamic shared memory.
-// D = 256 stages 128 KB (one block an SM) and runs 512 threads a block
-// (1,024 for dK/dV), each holding the same DPT dims as at D = 128: the
-// register file then holds the block's rows and little else, and the
-// compiler spills — dK/dV most (32 registers, 1.3-1.8 KB a thread; 32
-// dims a thread at 512 threads spilled more and ran slower). A first
-// kernel that is right; the spills are in the nvcc log chip_smoke.py
-// prints.
+// sq. A head dim d (a multiple of 8 up to 512) runs in the instantiation
+// for D = 32, 64, 128, 256 or 512 with zeros past d; `scale` is the
+// caller's (1 / sqrt(d)). D = 128 stages 64 KB a block, above the 48 KB
+// of static shared memory, so every kernel takes its tiles as dynamic
+// shared memory. D = 256 stages two 64-row tiles in 128 KB (one block an
+// SM) and runs 512 threads a block (1,024 for dK/dV), each holding the
+// same DPT dims as at D = 128: the register file then holds the block's
+// rows and little else, and the compiler spills, dK/dV most. D = 512
+// stages two 32-row tiles in the same 128 KB, 512 threads of 32 dims (dK
+// and dV too): slow, and right. The spills are in the nvcc log
+// chip_smoke.py prints.
 //
 // The bias is read straight from device memory, one (q tile, k tile)
 // block of it where the scores of that tile are formed: a q row's 16
@@ -79,52 +84,13 @@
 // to carry the batch sum through (JAX runs the batch as its innermost,
 // ordered grid axis): one block owns each (head, q tile, k tile) output
 // tile and walks the batch in order, summing in registers (each thread
-// owns 64 / TPR columns of its row), then writes the tile once; no
+// owns BR / TPR columns of its row), then writes the tile once; no
 // atomics, so the sum is the same bits on every run. Tiles above the
 // causal diagonal write zeros.
 
-#include "flash_tile.cuh"
+#include "flash_dense.cuh"
 
 namespace {
-
-// `_hash_keep` of ops/attention.py, in uint32 arithmetic; `base` is
-// seed * 0xC2B2AE3D + bh * 0x27D4EB2F
-__device__ __forceinline__ bool hash_keep(uint32_t qpos, uint32_t kpos,
-                                          uint32_t base, uint32_t thresh) {
-  uint32_t x = qpos * 0x9E3779B1u + kpos * 0x85EBCA77u + base;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x >= thresh;
-}
-
-struct Dropout {
-  int on;
-  uint32_t seed, thresh;
-  float inv_keep;  // 1 / (1 - rate), as the JAX kernels scale
-};
-
-// shapes of one launch: sq, sk rows; d the true head dim (the row stride);
-// bsq, bsk the bias's (and d(bias)'s) rows and columns, sq and sk rounded
-// up to whole tiles
-struct Dims {
-  int heads, sq, sk, d, bsq, bsk;
-  Dims(int heads_, int sq_, int sk_, int d_)
-      : heads(heads_), sq(sq_), sk(sk_), d(d_), bsq(tiles(sq_) * kB),
-        bsk(tiles(sk_) * kB) {}
-};
-
-// row `qpos` of head `head` of the (heads, bsq, bsk) bias; null without one
-template <bool HasBias>
-__device__ __forceinline__ const float* bias_row(const float* bias, int head,
-                                                 int qpos, const Dims& n) {
-  if constexpr (HasBias)
-    return bias + (static_cast<long>(head) * n.bsq + qpos) * n.bsk;
-  else
-    return nullptr;
-}
 
 // ---------------------------------------------------------------------------
 // forward: o and lse
@@ -132,21 +98,21 @@ __device__ __forceinline__ const float* bias_row(const float* bias, int head,
 // at most 128 registers a thread (512 threads an SM): four blocks at D =
 // 64; left free, the bias variant takes 135 registers, fits three blocks
 // and runs 30 % longer
-template <typename T, int D, bool HasBias>
-__global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
+template <typename T, int D, bool HasBias, int BR>
+__global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
                      const float* __restrict__ bias, T* __restrict__ o,
                      float* __restrict__ lse, Dims n, float scale,
                      int causal, Dropout drop) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
+  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = smem + kB * D;
+  float* sV = smem + BR * D;
   const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
   const int bh = blockIdx.y;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
-  const int qpos = qt * kB + r;
+  const int qpos = qt * BR + r;
   const bool qvalid = qpos < n.sq;
   const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
 
@@ -158,22 +124,22 @@ __global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
   float m = apex::kNegInf, l = 0.f;
   const float* brow = bias_row<HasBias>(bias, bh % n.heads, qpos, n);
 
-  const int nkt = causal ? qt + 1 : tiles(n.sk);
+  const int nkt = causal ? qt + 1 : tiles<BR>(n.sk);
   for (int kt = 0; kt < nkt; ++kt) {
     __syncthreads();  // the previous tile's readers are done
-    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
-    const int krows = min(kB, n.sk - kt * kB);
-    stage_tile<T, D>(sK, k + kbase, krows, n.d, NT);
-    stage_tile<T, D>(sV, v + kbase, krows, n.d, NT);
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * BR) * n.d;
+    const int krows = min(BR, n.sk - kt * BR);
+    stage_tile<T, D, BR>(sK, k + kbase, krows, n.d, NT);
+    stage_tile<T, D, BR>(sV, v + kbase, krows, n.d, NT);
     __syncthreads();
     const bool diag = causal && kt == qt;
-    for (int j0 = 0; j0 < kB; j0 += kChunk) {
+    for (int j0 = 0; j0 < BR; j0 += kChunk) {
       float s[kChunk];
       float bv[kChunk];
       if constexpr (HasBias) {
 #pragma unroll
         for (int i = 0; i < kChunk; i += 4)
-          load4(brow + kt * kB + j0 + i, bv + i);
+          load4(brow + kt * BR + j0 + i, bv + i);
       }
       float cmax = apex::kNegInf;
 #pragma unroll
@@ -202,7 +168,7 @@ __global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
         const int j = j0 + jj;
         float p = s[jj];
         if (drop.on)
-          p = hash_keep(qpos, kt * kB + j, base, drop.thresh)
+          p = hash_keep(qpos, kt * BR + j, base, drop.thresh)
                   ? p * drop.inv_keep
                   : 0.f;
         axpy_part<DPT, TPR>(acc, round_to<T>(p), sV + j * D, h);
@@ -223,22 +189,22 @@ __global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
 // ---------------------------------------------------------------------------
 // dQ: one block per (q tile, bh), looping over the K/V tiles
 
-template <typename T, int D, bool HasBias>
-__global__ void __launch_bounds__(kB * (D / 32))
+template <typename T, int D, bool HasBias, int BR>
+__global__ void __launch_bounds__(BR * (D / 32))
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const float* __restrict__ bias, T* __restrict__ dq,
                         Dims n, float scale, int causal, Dropout drop) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
+  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = smem + kB * D;
+  float* sV = smem + BR * D;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
-  const int qpos = qt * kB + r;
+  const int qpos = qt * BR + r;
   const bool qvalid = qpos < n.sq;
   const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
 
@@ -253,26 +219,26 @@ __global__ void __launch_bounds__(kB * (D / 32))
       qvalid ? delta[static_cast<long>(bh) * n.sq + qpos] : 0.f;
   const float* brow = bias_row<HasBias>(bias, bh % n.heads, qpos, n);
 
-  const int nkt = causal ? qt + 1 : tiles(n.sk);
+  const int nkt = causal ? qt + 1 : tiles<BR>(n.sk);
   for (int kt = 0; kt < nkt; ++kt) {
     __syncthreads();
-    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
-    const int krows = min(kB, n.sk - kt * kB);
-    stage_tile<T, D>(sK, k + kbase, krows, n.d, NT);
-    stage_tile<T, D>(sV, v + kbase, krows, n.d, NT);
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * BR) * n.d;
+    const int krows = min(BR, n.sk - kt * BR);
+    stage_tile<T, D, BR>(sK, k + kbase, krows, n.d, NT);
+    stage_tile<T, D, BR>(sV, v + kbase, krows, n.d, NT);
     __syncthreads();
     const bool diag = causal && kt == qt;
 #pragma unroll 4
-    for (int j = 0; j < kB; ++j) {
+    for (int j = 0; j < BR; ++j) {
       float sv = group_sum<TPR>(dot_part<DPT, TPR>(qr, sK + j * D, h)) *
                  scale;
       if constexpr (HasBias)
-        sv = __fadd_rn(sv, __ldg(brow + kt * kB + j));
+        sv = __fadd_rn(sv, __ldg(brow + kt * BR + j));
       if ((diag && j > r) || (!HasBias && j >= krows)) sv = apex::kNegInf;
       const float p = expf(sv - lse_r);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
       if (drop.on)
-        dp = hash_keep(qpos, kt * kB + j, base, drop.thresh)
+        dp = hash_keep(qpos, kt * BR + j, base, drop.thresh)
                  ? dp * drop.inv_keep
                  : 0.f;
       const float ds = p * (dp - delta_r) * scale;
@@ -286,8 +252,8 @@ __global__ void __launch_bounds__(kB * (D / 32))
 // dK, dV: one block per (kv tile, bh), looping over the q tiles from the
 // causal diagonal on
 
-template <typename T, int D, bool HasBias>
-__global__ void __launch_bounds__(kB * (D / 16))
+template <typename T, int D, bool HasBias, int BR>
+__global__ void __launch_bounds__(BR * (D / dkv_dims(D)))
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
@@ -295,16 +261,16 @@ __global__ void __launch_bounds__(kB * (D / 16))
                          const float* __restrict__ bias, T* __restrict__ dk,
                          T* __restrict__ dv, Dims n, float scale, int causal,
                          Dropout drop) {
-  constexpr int DPT = 16, TPR = D / DPT, NT = kB * TPR;
+  constexpr int DPT = dkv_dims(D), TPR = D / DPT, NT = BR * TPR;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sO = smem + kB * D;  // dO
-  float* sL = smem + 2 * kB * D;
-  float* sD = sL + kB;
+  float* sO = smem + BR * D;  // dO
+  float* sL = smem + 2 * BR * D;
+  float* sD = sL + BR;
   const int kt = blockIdx.x;  // causal: low tiles have the most q tiles
   const int bh = blockIdx.y;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
-  const int kpos = kt * kB + r;
+  const int kpos = kt * BR + r;
   const bool kvalid = kpos < n.sk;
   const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
 
@@ -314,39 +280,39 @@ __global__ void __launch_bounds__(kB * (D / 16))
   load_row_part<T, DPT, TPR>(v + krow, vr, h, kvalid ? n.d : 0);
 #pragma unroll
   for (int i = 0; i < DPT; ++i) dka[i] = dva[i] = 0.f;
-  // this key's bias column: row i of q tile qt at bcol[(qt * kB + i) * bsk]
+  // this key's bias column: row i of q tile qt at bcol[(qt * BR + i) * bsk]
   const float* bcol =
       HasBias ? bias + static_cast<long>(bh % n.heads) * n.bsq * n.bsk + kpos
               : nullptr;
 
-  const int nqt = tiles(n.sq);
+  const int nqt = tiles<BR>(n.sq);
   for (int qt = causal ? kt : 0; qt < nqt; ++qt) {
     __syncthreads();
-    const long qbase = (static_cast<long>(bh) * n.sq + qt * kB) * n.d;
-    const int qrows = min(kB, n.sq - qt * kB);
-    stage_tile<T, D>(sQ, q + qbase, qrows, n.d, NT);
-    stage_tile<T, D>(sO, dout + qbase, qrows, n.d, NT);
-    for (int i = threadIdx.x; i < kB; i += NT) {
-      const long row = static_cast<long>(bh) * n.sq + qt * kB + i;
+    const long qbase = (static_cast<long>(bh) * n.sq + qt * BR) * n.d;
+    const int qrows = min(BR, n.sq - qt * BR);
+    stage_tile<T, D, BR>(sQ, q + qbase, qrows, n.d, NT);
+    stage_tile<T, D, BR>(sO, dout + qbase, qrows, n.d, NT);
+    for (int i = threadIdx.x; i < BR; i += NT) {
+      const long row = static_cast<long>(bh) * n.sq + qt * BR + i;
       sL[i] = i < qrows ? lse[row] : 0.f;
       sD[i] = i < qrows ? delta[row] : 0.f;
     }
     __syncthreads();
     const bool diag = causal && kt == qt;
 #pragma unroll 4
-    for (int i = 0; i < kB; ++i) {
+    for (int i = 0; i < BR; ++i) {
       float sv = group_sum<TPR>(dot_part<DPT, TPR>(kr, sQ + i * D, h)) *
                  scale;
       if constexpr (HasBias)
         sv = __fadd_rn(sv,
-                       __ldg(bcol + static_cast<long>(qt * kB + i) * n.bsk));
+                       __ldg(bcol + static_cast<long>(qt * BR + i) * n.bsk));
       // kpos > qpos, or a row past sq (with a bias, its NEG_INF does it)
       if ((diag && r > i) || (!HasBias && i >= qrows)) sv = apex::kNegInf;
       const float p = expf(sv - sL[i]);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(vr, sO + i * D, h));
       float pv = p;
       if (drop.on) {
-        const bool keep = hash_keep(qt * kB + i, kpos, base, drop.thresh);
+        const bool keep = hash_keep(qt * BR + i, kpos, base, drop.thresh);
         pv = keep ? p * drop.inv_keep : 0.f;
         dp = keep ? dp * drop.inv_keep : 0.f;
       }
@@ -366,8 +332,8 @@ __global__ void __launch_bounds__(kB * (D / 16))
 
 // three blocks an SM at D = 64 (168 registers; left free, the compiler
 // takes 255 and fits two)
-template <typename T, int D>
-__global__ void __launch_bounds__(kB * (D / 32), D == 64 ? 3 : 1)
+template <typename T, int D, int BR>
+__global__ void __launch_bounds__(BR * (D / 32), D == 64 ? 3 : 1)
     flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
                            const T* __restrict__ dout,
@@ -376,19 +342,19 @@ __global__ void __launch_bounds__(kB * (D / 32), D == 64 ? 3 : 1)
                            const float* __restrict__ bias,
                            float* __restrict__ db, Dims n, int nb,
                            float scale, int causal, Dropout drop) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
-  constexpr int NJ = kB / TPR;  // columns of the tile one thread sums
+  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
+  constexpr int NJ = BR / TPR;  // columns of the tile one thread sums
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = smem + kB * D;
+  float* sV = smem + BR * D;
   const int kt = blockIdx.x, qt = blockIdx.y, head = blockIdx.z;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
-  const int qpos = qt * kB + r;
+  const int qpos = qt * BR + r;
   const bool qvalid = qpos < n.sq;
-  const int krows = min(kB, n.sk - kt * kB);
+  const int krows = min(BR, n.sk - kt * BR);
   // this thread's columns: h, h + TPR, h + 2 * TPR, ... of the tile's row r
   float* dbrow =
-      db + (static_cast<long>(head) * n.bsq + qpos) * n.bsk + kt * kB;
+      db + (static_cast<long>(head) * n.bsq + qpos) * n.bsk + kt * BR;
   float acc[NJ];
 #pragma unroll
   for (int i = 0; i < NJ; ++i) acc[i] = 0.f;
@@ -411,20 +377,20 @@ __global__ void __launch_bounds__(kB * (D / 32), D == 64 ? 3 : 1)
     const float lse_r = qvalid ? lse[lrow] : 0.f;
     const float delta_r = qvalid ? delta[lrow] : 0.f;
     __syncthreads();  // the previous batch item's readers are done
-    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
-    stage_tile<T, D>(sK, k + kbase, krows, n.d, NT);
-    stage_tile<T, D>(sV, v + kbase, krows, n.d, NT);
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * BR) * n.d;
+    stage_tile<T, D, BR>(sK, k + kbase, krows, n.d, NT);
+    stage_tile<T, D, BR>(sV, v + kbase, krows, n.d, NT);
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kB; ++j) {
+    for (int j = 0; j < BR; ++j) {
       float sv = group_sum<TPR>(dot_part<DPT, TPR>(qr, sK + j * D, h)) *
                  scale;
-      sv = __fadd_rn(sv, __ldg(brow + kt * kB + j));
+      sv = __fadd_rn(sv, __ldg(brow + kt * BR + j));
       if (diag && j > r) sv = apex::kNegInf;  // pad columns: bias NEG_INF
       const float p = expf(sv - lse_r);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
       if (drop.on)
-        dp = hash_keep(qpos, kt * kB + j, base, drop.thresh)
+        dp = hash_keep(qpos, kt * BR + j, base, drop.thresh)
                  ? dp * drop.inv_keep
                  : 0.f;
       // rounded before the sum, as JAX adds p * (dp - delta) to its scratch
@@ -436,39 +402,39 @@ __global__ void __launch_bounds__(kB * (D / 32), D == 64 ? 3 : 1)
   for (int i = 0; i < NJ; ++i) dbrow[h + TPR * i] = acc[i];
 }
 
-// dynamic shared memory of a kernel that stages two (kB, D) fp32 tiles
+// dynamic shared memory of a kernel that stages two (BR, D) fp32 tiles
 // (plus, for dK/dV, the tile's lse and delta)
-template <int D>
+template <int D, int BR>
 constexpr int tile_smem(bool rows) {
-  return (2 * kB * D + (rows ? 2 * kB : 0)) * static_cast<int>(sizeof(float));
+  return (2 * BR * D + (rows ? 2 * BR : 0)) * static_cast<int>(sizeof(float));
 }
 
-template <typename T, int D, bool HasBias>
+template <typename T, int D, bool HasBias, int BR>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* o, void* lse, Dims n, int bh,
                        float scale, int causal, Dropout drop,
                        cudaStream_t s) {
-  auto kernel = flash_fwd_kernel<T, D, HasBias>;
-  constexpr int smem = tile_smem<D>(false);
+  auto kernel = flash_fwd_kernel<T, D, HasBias, BR>;
+  constexpr int smem = tile_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles(n.sq), bh), kB * (D / 32), smem, s>>>(
+  kernel<<<dim3(tiles<BR>(n.sq), bh), BR * (D / 32), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(o), static_cast<float*>(lse), n, scale, causal, drop);
   return cudaSuccess;
 }
 
-template <typename T, int D, bool HasBias>
+template <typename T, int D, bool HasBias, int BR>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* bias, void* dq, Dims n, int bh, float scale,
                       int causal, Dropout drop, cudaStream_t s) {
-  auto kernel = flash_bwd_dq_kernel<T, D, HasBias>;
-  constexpr int smem = tile_smem<D>(false);
+  auto kernel = flash_bwd_dq_kernel<T, D, HasBias, BR>;
+  constexpr int smem = tile_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles(n.sq), bh), kB * (D / 32), smem, s>>>(
+  kernel<<<dim3(tiles<BR>(n.sq), bh), BR * (D / 32), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -477,17 +443,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
-template <typename T, int D, bool HasBias>
+template <typename T, int D, bool HasBias, int BR>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* bias, void* dk, void* dv, Dims n, int bh,
                        float scale, int causal, Dropout drop,
                        cudaStream_t s) {
-  auto kernel = flash_bwd_dkv_kernel<T, D, HasBias>;
-  constexpr int smem = tile_smem<D>(true);
+  auto kernel = flash_bwd_dkv_kernel<T, D, HasBias, BR>;
+  constexpr int smem = tile_smem<D, BR>(true);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles(n.sk), bh), kB * (D / 16), smem, s>>>(
+  kernel<<<dim3(tiles<BR>(n.sk), bh), BR * (D / dkv_dims(D)), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -496,18 +462,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
-template <typename T, int D>
+template <typename T, int D, int BR>
 cudaError_t launch_dbias(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          const void* bias, void* db, Dims n, int bh,
                          float scale, int causal, Dropout drop,
                          cudaStream_t s) {
-  auto kernel = flash_bwd_dbias_kernel<T, D>;
-  constexpr int smem = tile_smem<D>(false);
+  auto kernel = flash_bwd_dbias_kernel<T, D, BR>;
+  constexpr int smem = tile_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles(n.sk), tiles(n.sq), n.heads), kB * (D / 32), smem,
-           s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+  kernel<<<dim3(tiles<BR>(n.sk), tiles<BR>(n.sq), n.heads), BR * (D / 32),
+           smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse),
                 static_cast<const float*>(delta),
@@ -516,14 +482,23 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
-// FN<T, D, HasBias>(args...): the bias-free kernels for a null `bias`, the
-// bias kernels otherwise
+// FN<T, D, HasBias, BR>(args...): the bias-free kernels for a null
+// `bias`, the bias kernels otherwise; over every type and D (DISPATCH) or
+// over those the CUDA-core route takes of the forward and dK/dV
+// (DISPATCH_CORE: fp32, and bf16 at D = 512)
 #define APEX_FLASH_DISPATCH(FN, ...)                                 \
   do {                                                               \
     if (bias != nullptr)                                             \
-      APEX_FLASH_DISPATCH_TD(FN<T, D, true>(__VA_ARGS__));           \
+      APEX_FLASH_DISPATCH_TD(FN<T, D, true, BR>(__VA_ARGS__));       \
     else                                                             \
-      APEX_FLASH_DISPATCH_TD(FN<T, D, false>(__VA_ARGS__));          \
+      APEX_FLASH_DISPATCH_TD(FN<T, D, false, BR>(__VA_ARGS__));      \
+  } while (0)
+#define APEX_FLASH_DISPATCH_CORE_FN(FN, ...)                         \
+  do {                                                               \
+    if (bias != nullptr)                                             \
+      APEX_FLASH_DISPATCH_CORE(FN<T, D, true, BR>(__VA_ARGS__));     \
+    else                                                             \
+      APEX_FLASH_DISPATCH_CORE(FN<T, D, false, BR>(__VA_ARGS__));    \
   } while (0)
 
 }  // namespace
@@ -531,9 +506,12 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
 // On CUDA device `device`, on `stream`. q, o, dO, dq: (bh, sq, d); k, v,
 // dk, dv: (bh, sk, d); contiguous, 16-byte aligned, all of one type
 // (is_bf16 ? bf16 : fp32); lse, delta: (bh, sq) fp32. d is a multiple of 8
-// up to 256 (run by the instantiation for 32, 64, 128 or 256, zeros past d);
-// sq and sk are any lengths, equal when causal: the last tile of a length
-// that is not a multiple of 64 masks the rows and columns past it. `bias`
+// up to 512 (run by the instantiation for 32, 64, 128, 256 or 512, zeros
+// past d); the forward and dK/dV take bf16 only at d > 256 (below, the
+// entry points of flash_mma.cu run it) and return cudaErrorInvalidValue
+// otherwise. sq and sk are any lengths, equal when causal: the last tile
+// of a length that is not a multiple of the tile masks the rows and
+// columns past it. `bias`
 // is null or a contiguous, 16-byte aligned fp32 (heads, bsq, bsk) tensor
 // shared by the batch (bh = batch * heads, b-major; heads is ignored
 // without a bias), bsq and bsk being sq and sk rounded up to multiples of
@@ -554,8 +532,8 @@ extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
   const Dropout drop{dropout, seed, thresh, inv_keep};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH(launch_fwd, q, k, v, bias, o, lse, n, bh,
-                      scale, causal, drop, s);
+  APEX_FLASH_DISPATCH_CORE_FN(launch_fwd, q, k, v, bias, o, lse, n, bh,
+                              scale, causal, drop, s);
 }
 
 extern "C" int flash_attention_bwd_dq(int device, const void* q,
@@ -590,8 +568,8 @@ extern "C" int flash_attention_bwd_dkv(int device, const void* q,
   const Dropout drop{dropout, seed, thresh, inv_keep};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, bias,
-                      dk, dv, n, bh, scale, causal, drop, s);
+  APEX_FLASH_DISPATCH_CORE_FN(launch_dkv, q, k, v, dout, lse, delta, bias,
+                              dk, dv, n, bh, scale, causal, drop, s);
 }
 
 extern "C" int flash_attention_bwd_dbias(int device, const void* q,
@@ -611,6 +589,6 @@ extern "C" int flash_attention_bwd_dbias(int device, const void* q,
   const Dropout drop{dropout, seed, thresh, inv_keep};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH_TD(launch_dbias<T, D>(
+  APEX_FLASH_DISPATCH_TD(launch_dbias<T, D, BR>(
       q, k, v, dout, lse, delta, bias, db, n, bh, scale, causal, drop, s));
 }

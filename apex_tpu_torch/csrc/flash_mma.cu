@@ -1,0 +1,499 @@
+// Flash attention's forward and dK/dV on the tensor cores, bf16 inputs,
+// head dim d <= 256, with an optional additive logit bias and the counter
+// hash dropout, for Hopper (sm_90a).
+//
+// Replaces, for bf16 inputs, the TPU kernels of apex_tpu/ops/attention.py:
+//   * `_fa_fwd_kernel` (reached through `_fa_fwd`, pallas_call at :297):
+//     o and the row log-sum-exp lse;
+//   * `_fa_bwd_dkv_kernel` (`_fa_bwd`, pallas_call at :570): dK and dV.
+// JAX runs these products on its matrix unit as bf16 dots with fp32
+// results (`lax.dot_general(..., preferred_element_type=jnp.float32)`,
+// :205, :228, :410, :429, :432, :437); so do these kernels, with
+// mma.sync.m16n8k16 (flash_mma.cuh). fp32 inputs keep the CUDA-core
+// kernels of flash_attention.cu: on the tensor cores fp32 products run as
+// TF32, which keeps 10 bits of mantissa, not the fp32 products JAX's
+// reference forms, and the fp32 parity gates (1e-4 a kernel, 1e-5 on the
+// train step) could not hold. dQ and d(bias) stay there too, and so do d
+// above 256 (D = 512).
+//
+// Math, the JAX kernels' and flash_attention.cu's: s = (q . k) * scale
+// (+ bias[bh % heads, qpos, kpos] by __fadd_rn after the scaling), NEG_INF
+// where causal and kpos > qpos and at the columns past sk; the forward's
+// online softmax keeps per row the running max m and the sum l of the
+// UNdropped p = exp(s - m), p is dropped by the counter hash after l is
+// summed, rounded to bf16 (JAX's cast at :228) and multiplied by V; o = acc
+// / l, lse = m + log l (o = 0 and lse = NEG_INF where l == 0). dK/dV:
+// p = exp(s - lse), dp = dO . v (times keep / (1 - rate)), dV += round(p
+// dropped)^T dO, dK += round(p * (dp - delta) * scale)^T q, the casts of
+// :429 and :437.
+//
+// Bound on this card: operations. At the flagship shape (bh 96, s 1024, d
+// 64, causal) the forward does 4 * bh * s^2 * d / 2 = 12.9 GFLOP and dK/dV
+// 8 * bh * s^2 * d / 2 = 25.8 (with the two products of S and dP done
+// twice at D >= 128, below, 6 -> 8 of its 8 units); their bytes (q, k, v,
+// o, lse: 50 MB) take 15 us at 3.35 TB/s, the bf16 operations 13 and 26 us.
+// mma.sync reaches about two thirds of the wgmma peak; a first tensor-core
+// kernel that is right and simple, wgmma with TMA is the next step.
+//
+// Design. The forward: one block of 4 warps per (64-row q tile, batch *
+// head), heaviest causal tiles first; each warp owns 16 q rows. Q is staged
+// once; K and V tiles of 64 keys arrive in a two-stage ring filled by
+// cp.async, the next tile copying while this one is used. S = Q K^T (16 x
+// 64 a warp) lands in registers; the scale, the bias, the masks, the
+// online-softmax update (once per 64-key tile), the dropout and the bf16
+// rounding apply there, each thread knowing the (q, k) position of each
+// accumulator element from the fragment layout; the C fragments are the A
+// operand of O += P V (V through ldmatrix.trans). The row max and sum are
+// reduced over the 4 lanes that share a row. dK/dV: one block per (64-row
+// K/V tile, batch * head); K and V stay in shared memory, Q and dO tiles
+// (with their lse and delta) stream through a two-stage cp.async ring,
+// from the causal diagonal on. Each warp owns 16 keys: S^T = K Q^T and
+// dP^T = V dO^T (16 x 64) in registers, then dV += P^T dO and dK += dS^T Q
+// with fp32 accumulators in registers. At D >= 128 the accumulators of
+// all D columns would not fit the 255 registers a thread can have (at D =
+// 256, 128 for dK and dV each, 64 for S and dP): there the block has 8
+// warps, two per 16 keys, each owning half of dK's and dV's columns and
+// forming S and dP itself. Nothing is summed across blocks or warps: one
+// owner per output tile, no atomics, the same bits on every launch. Masks
+// are by value, copies read from clamped addresses. Shared memory: the
+// forward 5 tiles (169 KB at D = 256), dK/dV 6 tiles and 1 KB of rows (204
+// KB at D = 256), one block an SM there.
+
+#include "flash_dense.cuh"
+#include "flash_mma.cuh"
+
+namespace {
+
+constexpr int kFwdThreads = 128;
+
+// ---------------------------------------------------------------------------
+// forward: o and lse
+
+// four blocks an SM at D <= 64 (at most 128 registers a thread), two at
+// D = 128, one at D = 256: what their shared memory allows
+template <int D, bool HasBias>
+__global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 4 : D == 128 ? 2 : 1)
+    flash_mma_fwd_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ bias,
+                         bf16* __restrict__ o, float* __restrict__ lse,
+                         Dims n, float scale, int causal, Dropout drop) {
+  constexpr int S = kStride<D>, NB = kB / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + kB * S;      // two stages
+  bf16* sV = sK + 2 * kB * S;  // two stages
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
+  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
+  const int nkt = causal ? qt + 1 : tiles(n.sk);
+
+  tile_async<D>(sQ, q + (static_cast<long>(bh) * n.sq + qt * kB) * n.d,
+                min(kB, n.sq - qt * kB), n.d, tid, kFwdThreads);
+  auto stage_kv = [&](int kt) {
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
+    const int rows = min(kB, n.sk - kt * kB);
+    tile_async<D>(sK + (kt & 1) * kB * S, k + kbase, rows, n.d, tid,
+                  kFwdThreads);
+    tile_async<D>(sV + (kt & 1) * kB * S, v + kbase, rows, n.d, tid,
+                  kFwdThreads);
+  };
+  stage_kv(0);
+  cp_async_commit();
+
+  // this thread's rows of the tile: r[0] = 16 warp + g and r[1] = r[0] + 8
+  const int r[2] = {warp * 16 + g, warp * 16 + g + 8};
+  const float* brow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    brow[i] = bias_row<HasBias>(bias, bh % n.heads, qt * kB + r[i], n);
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {apex::kNegInf, apex::kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();  // every warp is done with the stage refilled next
+    if (kt + 1 < nkt) stage_kv(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q) have landed
+    __syncthreads();
+    const bf16* cK = sK + (kt & 1) * kB * S;
+    const bf16* cV = sV + (kt & 1) * kB * S;
+
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; c += 16) {
+      uint32_t a[4];
+      load_a<D>(a, sQ, warp * 16, c, lane);
+#pragma unroll
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t b[4];
+        load_bt<D>(b, cK, j * 8, c, lane);
+        mma_bf16(s[j], a, b[0], b[1]);
+        mma_bf16(s[j + 1], a, b[2], b[3]);
+      }
+    }
+
+    // scale, bias, masks; the tile's row max
+    const bool diag = causal && kt == qt;
+    float mx[2] = {apex::kNegInf, apex::kNegInf};
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r[e >> 1], col = j * 8 + 2 * t + (e & 1);
+        float sv = s[j][e] * scale;
+        if constexpr (HasBias)
+          sv = __fadd_rn(sv, __ldg(brow[e >> 1] + kt * kB + col));
+        if ((diag && col > row) || (!HasBias && kt * kB + col >= n.sk))
+          sv = apex::kNegInf;
+        s[j][e] = sv;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= corr[i];  // this lane's part of the row sum
+    }
+    // p = exp(s - m) summed undropped, then dropped and rescaled
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        float pv = p;
+        if (drop.on)
+          pv = hash_keep(qt * kB + r[e >> 1],
+                         kt * kB + j * 8 + 2 * t + (e & 1), base,
+                         drop.thresh)
+                   ? p * drop.inv_keep
+                   : 0.f;
+        s[j][e] = pv;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+    // O += round_bf16(P) V
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a<NB>(a, s, kk);
+#pragma unroll
+      for (int c = 0; c < ND; c += 2) {
+        uint32_t b[4];
+        load_b<D>(b, cV, kk * 16, c * 8, lane);
+        mma_bf16(acc[c], a, b[0], b[1]);
+        mma_bf16(acc[c + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = qt * kB + r[i];
+    if (qpos >= n.sq) continue;
+    const float safe_l = l[i] == 0.f ? 1.f : l[i];
+    bf16* orow = o + (static_cast<long>(bh) * n.sq + qpos) * n.d;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (col < n.d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(acc[j][2 * i] / safe_l,
+                                  acc[j][2 * i + 1] / safe_l);
+    }
+    if (t == 0)
+      lse[static_cast<long>(bh) * n.sq + qpos] =
+          l[i] == 0.f ? apex::kNegInf : m[i] + logf(safe_l);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK, dV: one block per (kv tile, bh), walking the q tiles from the causal
+// diagonal on
+
+// warps that share 16 keys, each owning 1 / SPLIT of dK's and dV's columns
+template <int D>
+__host__ __device__ constexpr int dkv_split() {
+  return D >= 128 ? 2 : 1;
+}
+
+// three blocks an SM at D <= 64 (at most 168 registers a thread)
+template <int D, bool HasBias>
+__global__ void __launch_bounds__(128 * dkv_split<D>(), D <= 64 ? 3 : 1)
+    flash_mma_dkv_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ bias,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         Dims n, float scale, int causal, Dropout drop) {
+  constexpr int S = kStride<D>, NB = kB / 8, SPLIT = dkv_split<D>();
+  constexpr int DC = D / SPLIT, NC = DC / 8, NT = 128 * SPLIT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kB * S;
+  bf16* sQ = sV + kB * S;      // two stages
+  bf16* sO = sQ + 2 * kB * S;  // dO, two stages
+  float* sL = reinterpret_cast<float*>(sO + 2 * kB * S);  // two stages
+  float* sD = sL + 2 * kB;                                // two stages
+  const int kt = blockIdx.x;  // causal: low tiles have the most q tiles
+  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int slab = warp % 4, c0 = (warp / 4) * DC;  // keys 16 slab.., cols
+  const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
+  const int qt0 = causal ? kt : 0, nqt = tiles(n.sq);
+
+  {
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
+    const int rows = min(kB, n.sk - kt * kB);
+    tile_async<D>(sK, k + kbase, rows, n.d, tid, NT);
+    tile_async<D>(sV, v + kbase, rows, n.d, tid, NT);
+  }
+  auto stage_q = [&](int qt) {
+    const int st = (qt - qt0) & 1;
+    const long row0 = static_cast<long>(bh) * n.sq + qt * kB;
+    const int rows = min(kB, n.sq - qt * kB);
+    tile_async<D>(sQ + st * kB * S, q + row0 * n.d, rows, n.d, tid, NT);
+    tile_async<D>(sO + st * kB * S, dout + row0 * n.d, rows, n.d, tid, NT);
+    rows_async(sL + st * kB, lse + row0, rows, tid);
+    rows_async(sD + st * kB, delta + row0, rows, tid - 32);
+  };
+  stage_q(qt0);
+  cp_async_commit();
+
+  // this thread's keys of the tile: kr[0] = 16 slab + g and kr[1] = + 8
+  const int kr[2] = {slab * 16 + g, slab * 16 + g + 8};
+  const float* bcol[2];  // its bias columns: q row i at bcol[i * bsk]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    bcol[i] = HasBias ? bias + static_cast<long>(bh % n.heads) * n.bsq * n.bsk
+                            + kt * kB + kr[i]
+                      : nullptr;
+  float dka[NC][4], dva[NC][4];
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    __syncthreads();  // every warp is done with the stage refilled next
+    if (qt + 1 < nqt) stage_q(qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this q tile (and K, V) have landed
+    __syncthreads();
+    const int st = (qt - qt0) & 1;
+    const bf16* cQ = sQ + st * kB * S;
+    const bf16* cO = sO + st * kB * S;
+    const float* cL = sL + st * kB;
+    const float* cD = sD + st * kB;
+
+    // S^T = K Q^T and dP^T = V dO^T, 16 keys x 64 q rows a warp
+    float sc[NB][4], dp[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; c += 16) {
+      uint32_t ak[4], av[4];
+      load_a<D>(ak, sK, slab * 16, c, lane);
+      load_a<D>(av, sV, slab * 16, c, lane);
+#pragma unroll
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t b[4];
+        load_bt<D>(b, cQ, j * 8, c, lane);
+        mma_bf16(sc[j], ak, b[0], b[1]);
+        mma_bf16(sc[j + 1], ak, b[2], b[3]);
+        load_bt<D>(b, cO, j * 8, c, lane);
+        mma_bf16(dp[j], av, b[0], b[1]);
+        mma_bf16(dp[j + 1], av, b[2], b[3]);
+      }
+    }
+
+    // p, the dropped p (into sc) and ds (into dp)
+    const bool diag = causal && kt == qt;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kr[e >> 1], i = j * 8 + 2 * t + (e & 1);
+        const int qpos = qt * kB + i;
+        float sv = sc[j][e] * scale;
+        if constexpr (HasBias)
+          sv = __fadd_rn(sv, __ldg(bcol[e >> 1] +
+                                   static_cast<long>(qpos) * n.bsk));
+        // kpos > qpos, or a row past sq (with a bias, its NEG_INF does it)
+        if ((diag && key > i) || (!HasBias && qpos >= n.sq))
+          sv = apex::kNegInf;
+        const float p = expf(sv - cL[i]);
+        float dpv = dp[j][e], pv = p;
+        if (drop.on) {
+          const bool keep =
+              hash_keep(qpos, kt * kB + key, base, drop.thresh);
+          pv = keep ? p * drop.inv_keep : 0.f;
+          dpv = keep ? dpv * drop.inv_keep : 0.f;
+        }
+        sc[j][e] = pv;
+        dp[j][e] = p * (dpv - cD[i]) * scale;
+      }
+    }
+
+    // dV += round_bf16(P dropped)^T dO, dK += round_bf16(dS)^T Q over this
+    // warp's columns c0 .. c0 + DC - 1
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) {
+      uint32_t ap[4], as[4];
+      acc_to_a<NB>(ap, sc, kk);
+      acc_to_a<NB>(as, dp, kk);
+#pragma unroll
+      for (int c = 0; c < NC; c += 2) {
+        uint32_t b[4];
+        load_b<D>(b, cO, kk * 16, c0 + c * 8, lane);
+        mma_bf16(dva[c], ap, b[0], b[1]);
+        mma_bf16(dva[c + 1], ap, b[2], b[3]);
+        load_b<D>(b, cQ, kk * 16, c0 + c * 8, lane);
+        mma_bf16(dka[c], as, b[0], b[1]);
+        mma_bf16(dka[c + 1], as, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = kt * kB + kr[i];
+    if (kpos >= n.sk) continue;
+    const long row = (static_cast<long>(bh) * n.sk + kpos) * n.d;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = c0 + j * 8 + 2 * t;
+      if (col < n.d) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
+            __floats2bfloat162_rn(dka[j][2 * i], dka[j][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
+            __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int D, bool HasBias>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const void* bias, void* o, void* lse, Dims n, int bh,
+                       float scale, int causal, Dropout drop,
+                       cudaStream_t s) {
+  auto kernel = flash_mma_fwd_kernel<D, HasBias>;
+  constexpr int smem = 5 * tile_bytes<D>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles(n.sq), bh), kFwdThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<bf16*>(o), static_cast<float*>(lse), n, scale, causal,
+      drop);
+  return cudaSuccess;
+}
+
+template <int D, bool HasBias>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       const void* bias, void* dk, void* dv, Dims n, int bh,
+                       float scale, int causal, Dropout drop,
+                       cudaStream_t s) {
+  auto kernel = flash_mma_dkv_kernel<D, HasBias>;
+  constexpr int smem = 6 * tile_bytes<D> + 4 * kB * 4;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles(n.sk), bh), 128 * dkv_split<D>(), smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(bias), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), n, scale, causal, drop);
+  return cudaSuccess;
+}
+
+// FN<D, HasBias>(args...) at the instantiated head dim that takes d (32,
+// 64, 128 or 256), the bias kernels for a non-null `bias`; bf16 only
+#define APEX_MMA_CASE(DIM, FN, ...)                                   \
+  case DIM:                                                           \
+    return status_of(bias != nullptr ? FN<DIM, true>(__VA_ARGS__)     \
+                                     : FN<DIM, false>(__VA_ARGS__));
+#define APEX_MMA_DISPATCH(FN, ...)                                    \
+  do {                                                                \
+    if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);     \
+    switch (flash_head_dim(d)) {                                      \
+      APEX_MMA_CASE(32, FN, __VA_ARGS__)                              \
+      APEX_MMA_CASE(64, FN, __VA_ARGS__)                              \
+      APEX_MMA_CASE(128, FN, __VA_ARGS__)                             \
+      APEX_MMA_CASE(256, FN, __VA_ARGS__)                             \
+      default: return static_cast<int>(cudaErrorInvalidValue);        \
+    }                                                                 \
+  } while (0)
+
+}  // namespace
+
+// The entry points of flash_attention.cu's forward and dK/dV, with their
+// arguments (see there), for bf16 inputs (is_bf16 != 0) and d a multiple
+// of 8 up to 256; anything else returns cudaErrorInvalidValue.
+extern "C" int flash_mma_fwd(int device, const void* q, const void* k,
+                             const void* v, const void* bias, void* o,
+                             void* lse, int heads, int bh, int sq, int sk,
+                             int d, float scale, int causal, int dropout,
+                             unsigned seed, unsigned thresh, float inv_keep,
+                             int is_bf16, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dims n{heads, sq, sk, d};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  APEX_MMA_DISPATCH(launch_fwd, q, k, v, bias, o, lse, n, bh, scale, causal,
+                    drop, s);
+}
+
+extern "C" int flash_mma_bwd_dkv(int device, const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const void* lse, const void* delta,
+                                 const void* bias, void* dk, void* dv,
+                                 int heads, int bh, int sq, int sk, int d,
+                                 float scale, int causal, int dropout,
+                                 unsigned seed, unsigned thresh,
+                                 float inv_keep, int is_bf16, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dims n{heads, sq, sk, d};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  APEX_MMA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, bias, dk, dv, n,
+                    bh, scale, causal, drop, s);
+}

@@ -1,10 +1,15 @@
-// Tile code shared by the flash attention kernels (flash_attention.cu) and
-// the packed variable-length ones (flash_varlen.cu).
+// Tile code shared by the CUDA-core flash attention kernels
+// (flash_attention.cu) and the packed variable-length ones
+// (flash_varlen.cu).
 //
-// A tile is kB = 64 rows of one (batch*head) slice. K/V (or Q/dO) tiles are
-// staged in shared memory as fp32, D floats a row, where D is the
-// instantiated head dim (32, 64, 128 or 256) and the true head dim d (a
-// multiple of 8, at most D) is the row stride in device memory: columns d..D-1 and
+// A tile is BR rows of one (batch*head) slice: kB = 64, or 32 at D = 512,
+// where two 64-row fp32 tiles would need 256 KB of shared memory. The
+// wrappers' 64-row unit stays (the bias padding, the varlen tile tables,
+// the causal diagonal): a 32-row tile reads half of a 64-row entry.
+// K/V (or Q/dO) tiles are staged in shared memory as fp32, D floats a row,
+// where D is the instantiated head dim (32, 64, 128, 256 or 512) and the
+// true head dim d (a multiple of 8, at most D) is the row stride in device
+// memory: columns d..D-1 and
 // the rows past the end of a sequence are filled with zeros, so dot
 // products over D equal those over d and nothing is read past the end. A
 // row held in registers belongs to TPR = D / DPT neighbouring threads, each
@@ -17,18 +22,32 @@
 
 namespace {
 
-constexpr int kB = 64;      // rows of a q or kv tile
+constexpr int kB = 64;      // rows of the wrappers' tile unit
 constexpr int kChunk = 16;  // keys per online-softmax update
 
-// the instantiated head dim that runs head dim d (0: none). Two (kB, 256)
-// fp32 tiles take 128 KB of shared memory, one block an SM; D = 512 would
-// need 256 KB, more than the 227 KB a block can have
+// the instantiated head dim that runs head dim d (0: none)
 inline int flash_head_dim(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256
+         : d <= 512 ? 512 : 0;
 }
 
-// tiles of n rows
-__host__ __device__ inline int tiles(int n) { return (n + kB - 1) / kB; }
+// rows BR of a kernel tile at head dim D: two (BR, D) fp32 tiles take 128
+// KB of shared memory at D = 256 (64 rows) and at D = 512 (32 rows)
+__host__ __device__ constexpr int flash_tile_rows(int D) {
+  return D == 512 ? 32 : kB;
+}
+
+// dims a dK/dV thread holds of each of its four rows (k, v, dk, dv): 512
+// threads at D = 512 as at D = 256 (1,024 for dK/dV there)
+__host__ __device__ constexpr int dkv_dims(int D) {
+  return D == 512 ? 32 : 16;
+}
+
+// tiles of BR rows over n rows
+template <int BR = kB>
+__host__ __device__ inline int tiles(int n) {
+  return (n + BR - 1) / BR;
+}
 
 // shared memory above the static 48 KB needs the kernel's opt-in
 template <typename Kernel>
@@ -84,15 +103,15 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// Copy `rows` rows (1 <= rows <= kB) of d columns of T, row stride d, into
-// a (kB, D) fp32 tile; the other rows and columns become zeros. Every load
+// Copy `rows` rows (1 <= rows <= BR) of d columns of T, row stride d, into
+// a (BR, D) fp32 tile; the other rows and columns become zeros. Every load
 // is made, from an address clamped into the tile, and zeroed by value: a
 // load behind a branch cannot start ahead of the others.
-template <typename T, int D>
+template <typename T, int D, int BR>
 __device__ __forceinline__ void stage_tile(float* dst, const T* src, int rows,
                                            int d, int nthreads) {
   constexpr int N = apex::Vec<T>::N, PER_ROW = D / N;
-  for (int u = threadIdx.x; u < kB * PER_ROW; u += nthreads) {
+  for (int u = threadIdx.x; u < BR * PER_ROW; u += nthreads) {
     const int row = u / PER_ROW, c = (u % PER_ROW) * N;
     float f[N];
     apex::load_vec(src + static_cast<long>(min(row, rows - 1)) * d +
@@ -166,28 +185,49 @@ inline int status_of(cudaError_t launched) {
   return static_cast<int>(launched != cudaSuccess ? launched : last);
 }
 
+// one case of the dispatch below: T, D and BR bound, the launch's status
+// returned from the calling entry point
+#define APEX_FLASH_CASE(CODE, TYPE, DIM, ...)                         \
+  case CODE: {                                                        \
+    using T = TYPE;                                                   \
+    constexpr int D = DIM, BR = flash_tile_rows(DIM);                 \
+    (void)BR;                                                         \
+    return status_of(__VA_ARGS__);                                    \
+  }
+
 // runs the launch given, as written, with T and D bound to the input type
-// and the instantiated head dim that takes d, and returns its status from
-// the calling entry point (cudaErrorInvalidValue for a d above 256)
+// and the instantiated head dim that takes d (BR to its tile rows), and
+// returns its status from the calling entry point (cudaErrorInvalidValue
+// for a d above 512)
 #define APEX_FLASH_DISPATCH_TD(...)                                   \
   do {                                                                \
     switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \
-      case 64: { using T = float; constexpr int D = 32;               \
-                 return status_of(__VA_ARGS__); }                     \
-      case 65: { using T = __nv_bfloat16; constexpr int D = 32;       \
-                 return status_of(__VA_ARGS__); }                     \
-      case 128: { using T = float; constexpr int D = 64;              \
-                  return status_of(__VA_ARGS__); }                    \
-      case 129: { using T = __nv_bfloat16; constexpr int D = 64;      \
-                  return status_of(__VA_ARGS__); }                    \
-      case 256: { using T = float; constexpr int D = 128;             \
-                  return status_of(__VA_ARGS__); }                    \
-      case 257: { using T = __nv_bfloat16; constexpr int D = 128;     \
-                  return status_of(__VA_ARGS__); }                    \
-      case 512: { using T = float; constexpr int D = 256;             \
-                  return status_of(__VA_ARGS__); }                    \
-      case 513: { using T = __nv_bfloat16; constexpr int D = 256;     \
-                  return status_of(__VA_ARGS__); }                    \
+      APEX_FLASH_CASE(64, float, 32, __VA_ARGS__)                     \
+      APEX_FLASH_CASE(65, __nv_bfloat16, 32, __VA_ARGS__)             \
+      APEX_FLASH_CASE(128, float, 64, __VA_ARGS__)                    \
+      APEX_FLASH_CASE(129, __nv_bfloat16, 64, __VA_ARGS__)            \
+      APEX_FLASH_CASE(256, float, 128, __VA_ARGS__)                   \
+      APEX_FLASH_CASE(257, __nv_bfloat16, 128, __VA_ARGS__)           \
+      APEX_FLASH_CASE(512, float, 256, __VA_ARGS__)                   \
+      APEX_FLASH_CASE(513, __nv_bfloat16, 256, __VA_ARGS__)           \
+      APEX_FLASH_CASE(1024, float, 512, __VA_ARGS__)                  \
+      APEX_FLASH_CASE(1025, __nv_bfloat16, 512, __VA_ARGS__)          \
+      default: return static_cast<int>(cudaErrorInvalidValue);        \
+    }                                                                 \
+  } while (0)
+
+// as APEX_FLASH_DISPATCH_TD, for a kernel whose bf16 inputs at d <= 256
+// run on the tensor cores (flash_mma.cu): here fp32 at every D and bf16
+// at D = 512 only
+#define APEX_FLASH_DISPATCH_CORE(...)                                 \
+  do {                                                                \
+    switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \
+      APEX_FLASH_CASE(64, float, 32, __VA_ARGS__)                     \
+      APEX_FLASH_CASE(128, float, 64, __VA_ARGS__)                    \
+      APEX_FLASH_CASE(256, float, 128, __VA_ARGS__)                   \
+      APEX_FLASH_CASE(512, float, 256, __VA_ARGS__)                   \
+      APEX_FLASH_CASE(1024, float, 512, __VA_ARGS__)                  \
+      APEX_FLASH_CASE(1025, __nv_bfloat16, 512, __VA_ARGS__)          \
       default: return static_cast<int>(cudaErrorInvalidValue);        \
     }                                                                 \
   } while (0)

@@ -43,7 +43,9 @@
 // kmax, ilo, ihi). The min is over the tile's real tokens: JAX counts a
 // pad as -1, which makes the tile holding a document's end and padding
 // meet every tile, and its block walk the whole row. Each block stages
-// the tile's segment ids beside K/V (or Q/dO) in shared memory.
+// the tile's segment ids beside K/V (or Q/dO) in shared memory. At D = 512
+// the tiles are 32 rows (flash_tile.cuh): a block reads its half of a
+// 64-row table entry and walks both halves of each live entry.
 
 #include "flash_tile.cuh"
 
@@ -53,19 +55,21 @@ struct Dims {
   int h, sq, sk, d;
 };
 
-// JAX's `_skip`, negated: can q tile qt and kv tile kt meet at all?
+// JAX's `_skip`, negated: can q tile qt and kv tile kt (both of BR rows)
+// meet at all? qi and ki are the 64-row table entries that hold them
+template <int BR>
 __device__ __forceinline__ bool tiles_meet(int4 qi, int4 ki, int qt, int kt,
                                            int causal) {
   const bool meet = !(qi.x > ki.y || qi.y < ki.x) && qi.y >= 0 && ki.y >= 0;
-  return meet && (!causal || kt * kB <= qt * kB + kB - 1);
+  return meet && (!causal || kt * BR <= qt * BR + BR - 1);
 }
 
 // ---------------------------------------------------------------------------
 // forward: o and lse; one block per (q tile, b*h)
 
 // at most 128 registers a thread, as the flash forward
-template <typename T, int D>
-__global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
+template <typename T, int D, int BR>
+__global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
     varlen_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ seg_q,
                       const int* __restrict__ seg_k,
@@ -73,15 +77,16 @@ __global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
                       const int4* __restrict__ kr, T* __restrict__ o,
                       float* __restrict__ lse, Dims n, float scale,
                       int causal) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
+  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = smem + kB * D;
-  int* sSeg = reinterpret_cast<int*>(smem + 2 * kB * D);
-  const int nq = gridDim.x, nk = n.sk / kB;
+  float* sV = smem + BR * D;
+  int* sSeg = reinterpret_cast<int*>(smem + 2 * BR * D);
+  constexpr int SUB = kB / BR;  // tiles of a 64-row table entry
+  const int nq = gridDim.x / SUB, nk = n.sk / kB;
   const int qt = blockIdx.x, bh = blockIdx.y, b = bh / n.h;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
-  const int qpos = qt * kB + r;
+  const int qpos = qt * BR + r;
   const int seg = seg_q[static_cast<long>(b) * n.sq + qpos];
 
   float qr_[DPT], acc[DPT];
@@ -91,18 +96,19 @@ __global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
   for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
   float m = apex::kNegInf, l = 0.f;
 
-  const int4 qi = qr[static_cast<long>(b) * nq + qt];
-  for (int kt = qi.z; kt <= qi.w; ++kt) {
-    if (!tiles_meet(qi, kr[static_cast<long>(b) * nk + kt], qt, kt, causal))
+  const int4 qi = qr[static_cast<long>(b) * nq + qt / SUB];
+  for (int kt = qi.z * SUB; kt <= qi.w * SUB + SUB - 1; ++kt) {
+    if (!tiles_meet<BR>(qi, kr[static_cast<long>(b) * nk + kt / SUB], qt, kt,
+                        causal))
       continue;  // the same for the whole block
     __syncthreads();  // the previous tile's readers are done
-    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
-    stage_tile<T, D>(sK, k + kbase, kB, n.d, NT);
-    stage_tile<T, D>(sV, v + kbase, kB, n.d, NT);
-    for (int j = threadIdx.x; j < kB; j += NT)
-      sSeg[j] = seg_k[static_cast<long>(b) * n.sk + kt * kB + j];
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * BR) * n.d;
+    stage_tile<T, D, BR>(sK, k + kbase, BR, n.d, NT);
+    stage_tile<T, D, BR>(sV, v + kbase, BR, n.d, NT);
+    for (int j = threadIdx.x; j < BR; j += NT)
+      sSeg[j] = seg_k[static_cast<long>(b) * n.sk + kt * BR + j];
     __syncthreads();
-    for (int j0 = 0; j0 < kB; j0 += kChunk) {
+    for (int j0 = 0; j0 < BR; j0 += kChunk) {
       float s[kChunk];
       bool ok[kChunk];
       float cmax = apex::kNegInf;
@@ -112,7 +118,7 @@ __global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
         const float sv =
             group_sum<TPR>(dot_part<DPT, TPR>(qr_, sK + j * D, h)) * scale;
         ok[jj] =
-            seg >= 0 && sSeg[j] == seg && (!causal || kt * kB + j <= qpos);
+            seg >= 0 && sSeg[j] == seg && (!causal || kt * BR + j <= qpos);
         s[jj] = ok[jj] ? sv : apex::kNegInf;
         cmax = fmaxf(cmax, s[jj]);
       }
@@ -145,8 +151,8 @@ __global__ void __launch_bounds__(kB * (D / 32), 512 / (kB * (D / 32)))
 // ---------------------------------------------------------------------------
 // dQ: one block per (q tile, b*h), over the q tile's live K/V tiles
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kB * (D / 32))
+template <typename T, int D, int BR>
+__global__ void __launch_bounds__(BR * (D / 32))
     varlen_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ seg_q,
                      const int* __restrict__ seg_k,
@@ -155,15 +161,16 @@ __global__ void __launch_bounds__(kB * (D / 32))
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dq,
                      Dims n, float scale, int causal) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = kB * TPR;
+  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = smem + kB * D;
-  int* sSeg = reinterpret_cast<int*>(smem + 2 * kB * D);
-  const int nq = gridDim.x, nk = n.sk / kB;
+  float* sV = smem + BR * D;
+  int* sSeg = reinterpret_cast<int*>(smem + 2 * BR * D);
+  constexpr int SUB = kB / BR;  // tiles of a 64-row table entry
+  const int nq = gridDim.x / SUB, nk = n.sk / kB;
   const int qt = blockIdx.x, bh = blockIdx.y, b = bh / n.h;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
-  const int qpos = qt * kB + r;
+  const int qpos = qt * BR + r;
   const int seg = seg_q[static_cast<long>(b) * n.sq + qpos];
 
   float qr_[DPT], dor[DPT], acc[DPT];
@@ -175,23 +182,24 @@ __global__ void __launch_bounds__(kB * (D / 32))
   const float lse_r = lse[static_cast<long>(bh) * n.sq + qpos];
   const float delta_r = delta[static_cast<long>(bh) * n.sq + qpos];
 
-  const int4 qi = qr[static_cast<long>(b) * nq + qt];
-  for (int kt = qi.z; kt <= qi.w; ++kt) {
-    if (!tiles_meet(qi, kr[static_cast<long>(b) * nk + kt], qt, kt, causal))
+  const int4 qi = qr[static_cast<long>(b) * nq + qt / SUB];
+  for (int kt = qi.z * SUB; kt <= qi.w * SUB + SUB - 1; ++kt) {
+    if (!tiles_meet<BR>(qi, kr[static_cast<long>(b) * nk + kt / SUB], qt, kt,
+                        causal))
       continue;
     __syncthreads();
-    const long kbase = (static_cast<long>(bh) * n.sk + kt * kB) * n.d;
-    stage_tile<T, D>(sK, k + kbase, kB, n.d, NT);
-    stage_tile<T, D>(sV, v + kbase, kB, n.d, NT);
-    for (int j = threadIdx.x; j < kB; j += NT)
-      sSeg[j] = seg_k[static_cast<long>(b) * n.sk + kt * kB + j];
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * BR) * n.d;
+    stage_tile<T, D, BR>(sK, k + kbase, BR, n.d, NT);
+    stage_tile<T, D, BR>(sV, v + kbase, BR, n.d, NT);
+    for (int j = threadIdx.x; j < BR; j += NT)
+      sSeg[j] = seg_k[static_cast<long>(b) * n.sk + kt * BR + j];
     __syncthreads();
 #pragma unroll 4
-    for (int j = 0; j < kB; ++j) {
+    for (int j = 0; j < BR; ++j) {
       const float sv =
           group_sum<TPR>(dot_part<DPT, TPR>(qr_, sK + j * D, h)) * scale;
       const bool ok =
-          seg >= 0 && sSeg[j] == seg && (!causal || kt * kB + j <= qpos);
+          seg >= 0 && sSeg[j] == seg && (!causal || kt * BR + j <= qpos);
       const float p = ok ? expf(sv - lse_r) : 0.f;
       const float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
       const float ds = p * (dp - delta_r) * scale;
@@ -205,8 +213,8 @@ __global__ void __launch_bounds__(kB * (D / 32))
 // dK, dV: one owner block per (kv tile, b*h), over the tile's live q tiles
 // in order
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kB * (D / 16))
+template <typename T, int D, int BR>
+__global__ void __launch_bounds__(BR * (D / dkv_dims(D)))
     varlen_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ seg_q,
                       const int* __restrict__ seg_k,
@@ -216,17 +224,18 @@ __global__ void __launch_bounds__(kB * (D / 16))
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, Dims n, float scale, int causal) {
-  constexpr int DPT = 16, TPR = D / DPT, NT = kB * TPR;
+  constexpr int DPT = dkv_dims(D), TPR = D / DPT, NT = BR * TPR;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sO = smem + kB * D;  // dO
-  float* sL = smem + 2 * kB * D;
-  float* sD = sL + kB;
-  int* sSeg = reinterpret_cast<int*>(sD + kB);
-  const int nq = n.sq / kB, nk = gridDim.x;
+  float* sO = smem + BR * D;  // dO
+  float* sL = smem + 2 * BR * D;
+  float* sD = sL + BR;
+  int* sSeg = reinterpret_cast<int*>(sD + BR);
+  constexpr int SUB = kB / BR;  // tiles of a 64-row table entry
+  const int nq = n.sq / kB, nk = gridDim.x / SUB;
   const int kt = blockIdx.x, bh = blockIdx.y, b = bh / n.h;
   const int r = threadIdx.x / TPR, h = threadIdx.x % TPR;
-  const int kpos = kt * kB + r;
+  const int kpos = kt * BR + r;
   const int seg = seg_k[static_cast<long>(b) * n.sk + kpos];
 
   float kr_[DPT], vr[DPT], dka[DPT], dva[DPT];
@@ -236,26 +245,27 @@ __global__ void __launch_bounds__(kB * (D / 16))
 #pragma unroll
   for (int i = 0; i < DPT; ++i) dka[i] = dva[i] = 0.f;
 
-  const int4 ki = kr[static_cast<long>(b) * nk + kt];
-  for (int qt = ki.z; qt <= ki.w; ++qt) {
-    if (!tiles_meet(qr[static_cast<long>(b) * nq + qt], ki, qt, kt, causal))
+  const int4 ki = kr[static_cast<long>(b) * nk + kt / SUB];
+  for (int qt = ki.z * SUB; qt <= ki.w * SUB + SUB - 1; ++qt) {
+    if (!tiles_meet<BR>(qr[static_cast<long>(b) * nq + qt / SUB], ki, qt, kt,
+                        causal))
       continue;
     __syncthreads();
-    const long qbase = (static_cast<long>(bh) * n.sq + qt * kB) * n.d;
-    stage_tile<T, D>(sQ, q + qbase, kB, n.d, NT);
-    stage_tile<T, D>(sO, dout + qbase, kB, n.d, NT);
-    for (int i = threadIdx.x; i < kB; i += NT) {
-      sL[i] = lse[static_cast<long>(bh) * n.sq + qt * kB + i];
-      sD[i] = delta[static_cast<long>(bh) * n.sq + qt * kB + i];
-      sSeg[i] = seg_q[static_cast<long>(b) * n.sq + qt * kB + i];
+    const long qbase = (static_cast<long>(bh) * n.sq + qt * BR) * n.d;
+    stage_tile<T, D, BR>(sQ, q + qbase, BR, n.d, NT);
+    stage_tile<T, D, BR>(sO, dout + qbase, BR, n.d, NT);
+    for (int i = threadIdx.x; i < BR; i += NT) {
+      sL[i] = lse[static_cast<long>(bh) * n.sq + qt * BR + i];
+      sD[i] = delta[static_cast<long>(bh) * n.sq + qt * BR + i];
+      sSeg[i] = seg_q[static_cast<long>(b) * n.sq + qt * BR + i];
     }
     __syncthreads();
 #pragma unroll 4
-    for (int i = 0; i < kB; ++i) {
+    for (int i = 0; i < BR; ++i) {
       const float sv =
           group_sum<TPR>(dot_part<DPT, TPR>(kr_, sQ + i * D, h)) * scale;
       const bool ok =
-          sSeg[i] >= 0 && sSeg[i] == seg && (!causal || kpos <= qt * kB + i);
+          sSeg[i] >= 0 && sSeg[i] == seg && (!causal || kpos <= qt * BR + i);
       const float p = ok ? expf(sv - sL[i]) : 0.f;
       const float dp = group_sum<TPR>(dot_part<DPT, TPR>(vr, sO + i * D, h));
       axpy_part<DPT, TPR>(dva, round_to<T>(p), sO + i * D, h);
@@ -267,23 +277,23 @@ __global__ void __launch_bounds__(kB * (D / 16))
   store_row_part<T, DPT, TPR>(dv + krow, dva, h, n.d);
 }
 
-// dynamic shared memory: two (kB, D) fp32 tiles and the tile's segment
+// dynamic shared memory: two (BR, D) fp32 tiles and the tile's segment
 // ids (plus, for dK/dV, its lse and delta)
-template <int D>
+template <int D, int BR>
 constexpr int varlen_smem(bool rows) {
-  return (2 * kB * D + (rows ? 3 : 1) * kB) * 4;
+  return (2 * BR * D + (rows ? 3 : 1) * BR) * 4;
 }
 
-template <typename T, int D>
+template <typename T, int D, int BR>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* seg_q, const void* seg_k, const void* qr,
                        const void* kr, void* o, void* lse, int b, Dims n,
                        float scale, int causal, cudaStream_t s) {
-  auto kernel = varlen_fwd_kernel<T, D>;
-  constexpr int smem = varlen_smem<D>(false);
+  auto kernel = varlen_fwd_kernel<T, D, BR>;
+  constexpr int smem = varlen_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n.sq / kB, b * n.h), kB * (D / 32), smem, s>>>(
+  kernel<<<dim3(n.sq / BR, b * n.h), BR * (D / 32), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
@@ -292,17 +302,17 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
-template <typename T, int D>
+template <typename T, int D, int BR>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* seg_q, const void* seg_k, const void* qr,
                       const void* kr, const void* dout, const void* lse,
                       const void* delta, void* dq, int b, Dims n, float scale,
                       int causal, cudaStream_t s) {
-  auto kernel = varlen_dq_kernel<T, D>;
-  constexpr int smem = varlen_smem<D>(false);
+  auto kernel = varlen_dq_kernel<T, D, BR>;
+  constexpr int smem = varlen_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n.sq / kB, b * n.h), kB * (D / 32), smem, s>>>(
+  kernel<<<dim3(n.sq / BR, b * n.h), BR * (D / 32), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
@@ -312,17 +322,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
-template <typename T, int D>
+template <typename T, int D, int BR>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* seg_q, const void* seg_k, const void* qr,
                        const void* kr, const void* dout, const void* lse,
                        const void* delta, void* dk, void* dv, int b, Dims n,
                        float scale, int causal, cudaStream_t s) {
-  auto kernel = varlen_dkv_kernel<T, D>;
-  constexpr int smem = varlen_smem<D>(true);
+  auto kernel = varlen_dkv_kernel<T, D, BR>;
+  constexpr int smem = varlen_smem<D, BR>(true);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n.sk / kB, b * n.h), kB * (D / 16), smem, s>>>(
+  kernel<<<dim3(n.sk / BR, b * n.h), BR * (D / dkv_dims(D)), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
@@ -339,7 +349,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // (is_bf16 ? bf16 : fp32); seg_q (b, sq), seg_k (b, sk) int32; lse, delta:
 // (b, h, sq) fp32; qr (b, sq / 64, 4) and kr (b, sk / 64, 4) int32, the
 // per-tile tables (segment min, max, live range lo, hi). sq and sk are
-// multiples of 64; d is a multiple of 8 up to 256.
+// multiples of 64; d is a multiple of 8 up to 512 (at D = 512 the kernels'
+// 32-row tiles read half of a 64-row table entry each).
 extern "C" int flash_varlen_fwd(int device, const void* q, const void* k,
                                 const void* v, const void* seg_q,
                                 const void* seg_k, const void* qr,
@@ -350,8 +361,8 @@ extern "C" int flash_varlen_fwd(int device, const void* q, const void* k,
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dims n{h, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH_TD(launch_fwd<T, D>(q, k, v, seg_q, seg_k, qr, kr, o, lse,
-                                        b, n, scale, causal, s));
+  APEX_FLASH_DISPATCH_TD(launch_fwd<T, D, BR>(
+      q, k, v, seg_q, seg_k, qr, kr, o, lse, b, n, scale, causal, s));
 }
 
 extern "C" int flash_varlen_bwd_dq(int device, const void* q, const void* k,
@@ -366,9 +377,9 @@ extern "C" int flash_varlen_bwd_dq(int device, const void* q, const void* k,
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dims n{h, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH_TD(launch_dq<T, D>(q, k, v, seg_q, seg_k, qr, kr, dout,
-                                       lse, delta, dq, b, n, scale, causal,
-                                       s));
+  APEX_FLASH_DISPATCH_TD(launch_dq<T, D, BR>(q, k, v, seg_q, seg_k, qr, kr,
+                                             dout, lse, delta, dq, b, n,
+                                             scale, causal, s));
 }
 
 extern "C" int flash_varlen_bwd_dkv(int device, const void* q, const void* k,
@@ -383,7 +394,7 @@ extern "C" int flash_varlen_bwd_dkv(int device, const void* q, const void* k,
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dims n{h, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH_TD(launch_dkv<T, D>(q, k, v, seg_q, seg_k, qr, kr, dout,
-                                        lse, delta, dk, dv, b, n, scale,
-                                        causal, s));
+  APEX_FLASH_DISPATCH_TD(launch_dkv<T, D, BR>(q, k, v, seg_q, seg_k, qr, kr,
+                                              dout, lse, delta, dk, dv, b, n,
+                                              scale, causal, s));
 }

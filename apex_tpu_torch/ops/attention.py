@@ -19,6 +19,12 @@ a fourth kernel, :func:`flash_attention_bwd_dbias`.
 Dropout is the JAX kernels' counter hash (:func:`attention_dropout_mask`),
 bitwise the same keep mask, so the forward, its remat replay and both
 backward kernels drop the same entries.
+
+Two routes (:func:`_flash_route`): the forward and dK/dV with bf16 inputs
+at head_dim <= 256 run on the tensor cores (``csrc/flash_mma.cu``); fp32
+inputs, head_dim 264-512 and the dQ and d(bias) kernels run on the CUDA
+cores in fp32 (``csrc/flash_attention.cu``). Each kernel counts its
+launches under its own C entry's name.
 """
 
 from __future__ import annotations
@@ -37,10 +43,14 @@ from apex_tpu_torch.ops import _kernel_util as ku
 # (-inf) - (-inf).
 NEG_INF = -1e30
 
-# the kernels' largest head dim: 256 fills a 64-row fp32 tile pair with
-# 128 KB of shared memory; 512 would need 256 KB, above the 227 KB a block
-# can have (JAX's kernel takes any head_dim % 8 == 0)
-_MAX_HEAD_DIM = 256
+# the kernels' largest head dim: 512 fills a 32-row fp32 tile pair with
+# 128 KB of shared memory, as 256 does with 64 rows; above it 16-row tiles
+# would be needed, and no configuration uses it (JAX's kernel takes any
+# head_dim % 8 == 0)
+_MAX_HEAD_DIM = 512
+# the tensor-core kernels' largest head dim (bf16 only): six (64, 256) bf16
+# tiles of dK/dV take 204 KB of shared memory
+_MMA_MAX_HEAD_DIM = 256
 # rows of a kernel tile; the kernels read the bias (and write d(bias)) in
 # whole tiles
 _TILE = 64
@@ -60,6 +70,25 @@ _SIGNATURES = {
     "flash_attention_bwd_dbias": [ctypes.c_int] + [ctypes.c_void_p] * 8
     + _FLASH_ARGS,
 }
+# the tensor-core forward and dK/dV (csrc/flash_mma.cu), same arguments
+_MMA_SIGNATURES = {
+    "flash_mma_fwd": _SIGNATURES["flash_attention_fwd"],
+    "flash_mma_bwd_dkv": _SIGNATURES["flash_attention_bwd_dkv"],
+}
+
+
+def _flash_route(dtype, d: int) -> str:
+    """Which kernels run the forward and dK/dV at this input dtype and head
+    dim on the card: ``"tensor_core"`` (bf16, d <= 256: ``flash_mma.cu``)
+    or ``"cuda_core"`` (fp32 at every d, bf16 at 264-512:
+    ``flash_attention.cu``, fp32 products, as JAX's fp32 reference forms
+    them). A head dim that is not a multiple of 8 up to 512 raises."""
+    if not (d % 8 == 0 and 0 < d <= _MAX_HEAD_DIM):
+        raise ValueError(f"head_dim {d} must be a multiple of 8 up to "
+                         f"{_MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16 and d <= _MMA_MAX_HEAD_DIM:
+        return "tensor_core"
+    return "cuda_core"
 
 
 # ---------------------------------------------------------------------------
@@ -319,16 +348,18 @@ def _dropout_args(rate: float, seed: int):
 
 def _launch(entry, q3, k3, v3, bias, scale, causal, dropout_rate, seed,
             pointers, shapes):
-    """Check the inputs, launch ``entry`` with the tensors of ``pointers``
-    (in the C order), count the launch (a launch of the fwd, dQ or dK/dV
-    kernel with a bias also under ``entry + "[bias]"``) and raise on a
-    CUDA error."""
+    """Check the inputs, launch ``entry`` (of ``flash_mma.cu`` or
+    ``flash_attention.cu``) with the tensors of ``pointers`` (in the C
+    order), count the launch (a launch of the fwd, dQ or dK/dV kernel with
+    a bias also under ``entry + "[bias]"``) and raise on a CUDA error."""
     heads, bh, sq, sk, d = _check_flash(entry, q3, k3, v3, causal, bias,
                                         *shapes)
     if bias is not None:
         tiled = _whole_tiles(bias, sq, sk, NEG_INF)
         pointers = tuple(tiled if t is bias else t for t in pointers)
-    lib = ku.load_kernel("flash_attention", _SIGNATURES)
+    lib = (ku.load_kernel("flash_mma", _MMA_SIGNATURES)
+           if entry in _MMA_SIGNATURES
+           else ku.load_kernel("flash_attention", _SIGNATURES))
     status = getattr(lib, entry)(
         q3.device.index, *(_ptr(t) for t in pointers), heads, bh, sq, sk, d,
         float(scale), int(causal), *_dropout_args(dropout_rate, seed),
@@ -348,13 +379,16 @@ def _bwd_shapes(q3, do3, lse, delta):
 def flash_attention_fwd(q3, k3, v3, scale: float, causal: bool,
                         dropout_rate: float = 0.0, seed: int = 0,
                         bias=None):
-    """Launch the flash forward kernel on (bh, s, d) CUDA tensors: returns
-    ``(o, lse)``, lse fp32 (bh, sq, 1). ``bias``: None or a contiguous fp32
-    (heads, sq, sk) CUDA tensor."""
+    """Launch the flash forward kernel of :func:`_flash_route` on (bh, s, d)
+    CUDA tensors: returns ``(o, lse)``, lse fp32 (bh, sq, 1). ``bias``:
+    None or a contiguous fp32 (heads, sq, sk) CUDA tensor."""
+    entry = ("flash_mma_fwd"
+             if _flash_route(q3.dtype, q3.shape[-1]) == "tensor_core"
+             else "flash_attention_fwd")
     o = torch.empty_like(q3)
     lse = torch.empty(q3.shape[0], q3.shape[1], 1, dtype=torch.float32,
                       device=q3.device)
-    _launch("flash_attention_fwd", q3, k3, v3, bias, scale, causal,
+    _launch(entry, q3, k3, v3, bias, scale, causal,
             dropout_rate, seed, (q3, k3, v3, bias, o, lse), ())
     return o, lse
 
@@ -373,10 +407,14 @@ def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float,
 def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float,
                             causal: bool, dropout_rate: float = 0.0,
                             seed: int = 0, bias=None):
-    """Launch the dK/dV kernel; returns ``(dk, dv)``."""
+    """Launch the dK/dV kernel of :func:`_flash_route`; returns ``(dk,
+    dv)``."""
+    entry = ("flash_mma_bwd_dkv"
+             if _flash_route(q3.dtype, q3.shape[-1]) == "tensor_core"
+             else "flash_attention_bwd_dkv")
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
-    _launch("flash_attention_bwd_dkv", q3, k3, v3, bias, scale, causal,
+    _launch(entry, q3, k3, v3, bias, scale, causal,
             dropout_rate, seed, (q3, k3, v3, do3, lse, delta, bias, dk, dv),
             _bwd_shapes(q3, do3, lse, delta))
     return dk, dv
@@ -462,8 +500,9 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     bias of shape (heads, sq, sk) (T5's relative position bias), added
     after the scaling and differentiable; any other shape raises
     ``ValueError``, as in JAX. On CUDA the kernels take fp32/bf16 and
-    head_dim up to 256 (above that they raise). The bias is used in fp32
-    whatever its dtype.
+    head_dim up to 512 (above that they raise); bf16 at head_dim <= 256
+    runs the forward and dK/dV on the tensor cores (:func:`_flash_route`).
+    The bias is used in fp32 whatever its dtype.
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]

@@ -50,12 +50,19 @@
      bias as a float mask over the batch); and at the shapes JAX's kernel
      takes that the first kernels refused: GPT-2's width as 6 heads of
      128, head_dim 40, tail tiles at 1000 x 1000 causal and 200 x 328
-     with a T5 bias, and head_dim 256 and 192 (the D = 256
-     instantiation) causal and with a bias;
+     with a T5 bias, head_dim 256 and 192 (the D = 256
+     instantiation) causal and with a bias, and 512 and 320 (the
+     CUDA-core D = 512, 32-row tiles) causal and with a bias; each case
+     on its route (bf16 up to head_dim 256: the tensor-core forward and
+     dK/dV of ``csrc/flash_mma.cu``; fp32 and head_dim 264-512: the
+     CUDA-core kernels), the forward and dK/dV bitwise over two launches;
+     the tensor-core kernels' ptxas registers and spills and their count
+     of tensor-core (HMMA) instructions in the built library (SASS from
+     ``cuobjdump``), which must be nonzero in every instantiation;
    * the varlen kernels (forward, dQ, dK/dV) at the packed path's shape
      (one row of 8192 tokens, 12 heads of 64, documents of 64-1024
      tokens from numpy seed 1, the rest padding), fp32 and bf16, causal
-     and not, and the same row at 4 heads of 256, causal; pad rows
+     and not, the same row at 4 heads of 256 and 2 of 512, causal; pad rows
      exactly 0, and through ``flash_attention_varlen``
      at a misaligned total (8100); times beside SDPA with the dense
      block-diagonal mask and the dense causal flash kernels at the same T;
@@ -91,10 +98,13 @@
    defaults ``fused_loss=True`` and ``FusedAdam(lr=1e-4,
    fused_tail="auto")``:
    * fp32, batch 2 x 1024: loss and every gradient leaf through the
-     kernels vs the plain versions forced;
+     kernels vs the plain versions forced; the same in bf16 (the
+     tensor-core route), loss within BF16_LOSS_RTOL and every leaf within
+     BF16_GRAD_NORM_RTOL in norm;
    * bf16, batch 8 x 1024 (the training main path): the launch counts of
      one step (reset just before it, read just after) equal the per-step
-     table (LN fwd 49, LN bwd 25, flash fwd 24, dQ 12, dK/dV 12, LM-head
+     table (LN fwd 49, LN bwd 25, tensor-core flash fwd 24, dQ 12,
+     tensor-core dK/dV 12, LM-head
      fwd, dX and dW 1 each, Adam tail 16); the loss stays finite and
      falls over 10 steps on the fixed batch; a second run from the same
      seed repeats the losses bitwise; tokens/s, step ms p50, MFU, peak
@@ -110,11 +120,12 @@
    tokens a row:
    * fp32, batch 2: loss and every gradient leaf (the bias tables
      included, which must get a gradient) through the kernels vs the plain
-     versions forced;
+     versions forced; the bf16 gate as GPT's;
    * bf16, batch 8 (the T5 main path): the launch counts of one step
      (reset just before it, read just after) equal the per-step table
-     (LN fwd 62, LN bwd 32, flash fwd 36 of which 24 with a bias, dQ 18,
-     dK/dV 18, d(bias) 12, LM-head 1 each, Adam tail 39); the loss stays
+     (LN fwd 62, LN bwd 32, tensor-core flash fwd 36 of which 24 with a
+     bias, dQ 18, tensor-core dK/dV 18, d(bias) 12, LM-head 1 each, Adam
+     tail 39); the loss stays
      finite and falls over 10 steps; a second run from the same seed
      repeats the losses bitwise; train tokens/s (encoder + decoder), step
      ms p50, peak memory, busy share and top kernels over 3 profiled
@@ -263,6 +274,43 @@ def ptxas_lines(log: str):
                       f"[{', '.join([kind, *args])}]")
         elif "registers" in line or "spill" in line or "error" in line:
             out.append((kernel, line.strip()))
+    return out
+
+
+def mma_kernel_info(ku, built):
+    """For the tensor-core forward and dK/dV (``csrc/flash_mma.cu``): the
+    ptxas register and spill lines of each instantiation, and the count of
+    tensor-core instructions (HMMA, HGMMA) in each, from ``cuobjdump
+    --dump-sass`` of the built library: the proof that their products run
+    on the tensor cores. Raises if an instantiation has none."""
+    import os
+    import re
+
+    log = built.get("flash_mma", {}).get("log", "")
+    cuobjdump = os.path.join(os.path.dirname(ku.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass",
+                           str(ku._lib_path("flash_mma"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?(flash_mma_(?:fwd|dkv)_kernel)"
+                      r"ILi(\d+)ELb([01])E", line)
+        if m:
+            fn = f"{m.group(1)}[{m.group(2)}{', bias' * int(m.group(3))}]"
+            counts[fn] = 0
+        elif fn and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    out = {}
+    for key, base in (("fwd", "flash_mma_fwd_kernel"),
+                      ("dkv", "flash_mma_dkv_kernel")):
+        mine = {k: v for k, v in counts.items() if k.startswith(base)}
+        if len(mine) != 8 or not all(mine.values()):
+            raise AssertionError(f"{base}: tensor-core instructions per "
+                                 f"instantiation {mine}")
+        out[key] = {"sass_hmma": mine, "ptxas": [
+            f"{k}: {line}" for k, line in ptxas_lines(log)
+            if k.startswith(base)]}
     return out
 
 
@@ -896,9 +944,15 @@ FLASH_SHAPES = [  # (name, batch, heads, sq, sk, d, causal, dropout rate, bias)
     ("d192", 2, 8, 1024, 1024, 192, True, 0.0, False),
     ("d256_bias", 2, 8, 512, 512, 256, False, 0.0, True),
     ("d192_bias", 2, 8, 256, 256, 192, True, 0.0, True),
+    # head dims 264-512: the CUDA-core kernels' D = 512 (32-row tiles),
+    # in both types, causal, and with a bias
+    ("d512", 1, 4, 512, 512, 512, True, 0.0, False),
+    ("d320_bias", 2, 4, 256, 256, 320, False, 0.0, True),
 ]
-# the shapes of FLASH_SHAPES that run in the D = 256 instantiation
+# the shapes of FLASH_SHAPES that run in the D = 256 and D = 512
+# instantiations
 D256_SHAPES = ("d256", "d192", "d256_bias", "d192_bias")
+D512_SHAPES = ("d512", "d320_bias")
 # d(bias) in both input types: fp32 products of the same inputs on both
 # sides, fp32 sums over the batch in another order
 DBIAS_TOL = (1e-4, 1e-4)
@@ -926,9 +980,12 @@ def flash_bounds(bh, sq, sk, d, causal, esz, dname, heads=0):
 def flash_phase(torch, dev):
     """The flash kernels vs their plain versions at each shape of
     FLASH_SHAPES, fp32 and bf16 (lse and delta from the kernel forward feed
-    the backwards): o, lse, dq, dk, dv and, with a bias, d(bias), which
-    must also be bitwise equal over two launches and zero above the causal
-    diagonal. Tolerance: fp32 atol/rtol 1e-4 (sums over up to 1024 keys
+    the backwards), each case on the route ``_flash_route`` gives it (the
+    tensor-core forward and dK/dV for bf16 up to head_dim 256, the
+    CUDA-core kernels otherwise): o, lse, dq, dk, dv and, with a bias,
+    d(bias), which must also be zero above the causal diagonal; the
+    forward, dK/dV and d(bias) bitwise equal over two launches.
+    Tolerance: fp32 atol/rtol 1e-4 (sums over up to 1024 keys
     in another order); bf16 one output rounding (rtol 2**-7) plus atol
     1e-2 (p and ds are rounded to bf16 before their products, at other
     running maxima; the largest error measured at these shapes is one
@@ -940,10 +997,10 @@ def flash_phase(torch, dev):
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops.attention import (
-        flash_attention_bwd_dbias, flash_attention_bwd_dbias_reference,
-        flash_attention_bwd_dkv, flash_attention_bwd_dq,
-        flash_attention_bwd_reference, flash_attention_fwd,
-        flash_attention_fwd_reference)
+        _flash_route, flash_attention_bwd_dbias,
+        flash_attention_bwd_dbias_reference, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_fwd_reference)
 
     tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -977,6 +1034,7 @@ def flash_phase(torch, dev):
                     "heads": heads, "bh": bh, "sq": sq, "sk": sk,
                     "head_dim": d, "causal": causal, "dropout": rate,
                     "bias": has_bias, "atol": atol, "rtol": rtol,
+                    "route": _flash_route(dt, d),
                     "fwd": {"max_abs_err": max(
                         check_close(f"flash fwd o {tag}", o, o_p, atol, rtol),
                         check_close(f"flash fwd lse {tag}", lse, lse_p, 1e-4,
@@ -989,6 +1047,17 @@ def flash_phase(torch, dev):
                         check_close(f"flash dv {tag}", dv, want[2], atol,
                                     rtol))}}
             del o_p, lse_p, want
+            # the forward and dK/dV: the same bits from a second launch
+            o2, lse2 = flash_attention_fwd(q, k, v, *args, **kw)
+            dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               *args, **kw)
+            if not all(torch.equal(a, b2) for a, b2 in (
+                    (o, o2), (lse, lse2), (dk, dk2), (dv, dv2))):
+                raise AssertionError(f"flash fwd / dkv {tag}: two launches "
+                                     f"differ")
+            case["fwd"]["bitwise_repeat"] = True
+            case["dkv"]["bitwise_repeat"] = True
+            del o2, lse2, dk2, dv2
             keys = ("fwd", "dq", "dkv")
             if has_bias:
                 db = flash_attention_bwd_dbias(q, k, v, do, lse, delta, *args,
@@ -1074,8 +1143,10 @@ def flash_phase(torch, dev):
 PACK_T, PACK_HEADS, PACK_D = 8192, 12, 64
 PACK_MISALIGNED_T = 8100           # not a multiple of the 64-row tile
 # the same packed row at head_dim 256 (the kernels' D = 256
-# instantiation; Gemma's head width), 4 heads, causal
+# instantiation; Gemma's head width), 4 heads, and at 512 (D = 512, 32-row
+# tiles), 2 heads, causal
 PACK_D256_HEADS = 4
+PACK_D512_HEADS = 2
 VARLEN_NAMES = ("flash_varlen_fwd", "flash_varlen_bwd_dq",
                 "flash_varlen_bwd_dkv")
 
@@ -1139,8 +1210,9 @@ def varlen_phase(torch, dev):
     SDPA with the dense block-diagonal boolean mask (pad rows attend to
     themselves, so no row is empty; a yardstick only) and the dense causal
     flash kernels at the same T, whose ratio shows the block skipping.
-    The same row at head_dim 256 (PACK_D256_HEADS heads, causal) is held
-    and timed the same way, without the dense flash comparison."""
+    The same row at head_dim 256 (PACK_D256_HEADS heads) and 512
+    (PACK_D512_HEADS heads), causal, is held and timed the same way,
+    without the dense flash comparison."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import _kernel_util as ku
@@ -1164,7 +1236,8 @@ def varlen_phase(torch, dev):
     dense = {}                      # dense causal flash ms per dtype
     cases = []
     for heads, d, causal in ((heads, d, True), (heads, d, False),
-                             (PACK_D256_HEADS, 256, True)):
+                             (PACK_D256_HEADS, 256, True),
+                             (PACK_D512_HEADS, 512, True)):
         s_live = live_scores(lens, causal)
         allowed = (seg[0][:, None] == seg[0][None, :]) & ~pad[:, None]
         if causal:
@@ -2163,9 +2236,9 @@ def engine_phase(torch, dev, ku):
 # backward, one backward per forward; the fused LM-head loss once (outside
 # the remat blocks); the Adam tail once per leaf (16 leaves)
 TRAIN_LAUNCHES = {"layer_norm_fwd": 25 + 24, "layer_norm_bwd": 25,
-                  "flash_attention_fwd": 12 + 12,
+                  "flash_mma_fwd": 12 + 12,
                   "flash_attention_bwd_dq": 12,
-                  "flash_attention_bwd_dkv": 12,
+                  "flash_mma_bwd_dkv": 12,
                   "lm_head_loss_fwd": 1, "lm_head_loss_bwd_dx": 1,
                   "lm_head_loss_bwd_dw": 1, "fused_adam_tail": 16}
 
@@ -2201,9 +2274,10 @@ def train_fp32_check(torch, dev, ku):
 
     ku.reset_launch_counts()
     lk, gk = loss_and_grads()
-    if ku.launch_counts().get("lm_head_loss_bwd_dw", 0) != 1:
+    counts = ku.launch_counts()
+    if counts.get("lm_head_loss_bwd_dw", 0) != 1:
         raise AssertionError(f"fp32 check did not take the fused loss: "
-                             f"{ku.launch_counts()}")
+                             f"{counts}")
     with ku.force_plain():
         before = ku.launch_counts()
         lp, gp = loss_and_grads()
@@ -2222,7 +2296,82 @@ def train_fp32_check(torch, dev, ku):
                 f"(limit 1e-5 * {scale:.3e})")
         worst = max(worst, err / scale if scale else 0.0)
     return {"batch": 2, "seq": 1024, "loss_kernels": lk, "loss_plain": lp,
-            "loss_rel_err": loss_err, "grad_max_rel_err": worst}
+            "loss_rel_err": loss_err, "grad_max_rel_err": worst,
+            "launches": counts}
+
+
+# the bf16 gates of the GPT and T5 phases: loss relative error, and each
+# gradient leaf's |kernels - plain| norm over its plain norm. Both sides
+# round to bf16 at the same places (the flash kernels' p and ds, every
+# layer's output); the kernels sum in other orders, so a bf16 output can
+# land one rounding step (2**-8 relative) away, and that difference runs
+# through every later layer and back
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_NORM_RTOL = 5e-2
+
+
+def bf16_gate(torch, ku, what, leaves, loss_fn):
+    """One bf16 forward + backward through the kernels (launch counts
+    reset just before, read just after) vs the same with the plain
+    versions forced: the loss within BF16_LOSS_RTOL and every gradient
+    leaf within BF16_GRAD_NORM_RTOL of the plain one, in norm."""
+
+    def loss_and_grads():
+        for _, p in leaves:
+            p.grad = None
+        loss = loss_fn()
+        loss.backward()
+        return loss.item(), [p.grad.float() for _, p in leaves]
+
+    ku.reset_launch_counts()
+    lk, gk = loss_and_grads()
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    with ku.force_plain():
+        lp, gp = loss_and_grads()
+    loss_err = abs(lk - lp) / abs(lp)
+    if not math.isfinite(lk) or loss_err > BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16 {what} loss: kernels {lk} vs plain {lp}"
+                             f" (rel {loss_err:.3e}, limit {BF16_LOSS_RTOL})")
+    worst, worst_name = 0.0, ""
+    for (name, _), a, b in zip(leaves, gk, gp):
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        if not bool(a.isfinite().all()) or rel > BF16_GRAD_NORM_RTOL:
+            raise AssertionError(
+                f"bf16 {what} grad {name}: |kernels - plain| / |plain| = "
+                f"{rel:.3e} (limit {BF16_GRAD_NORM_RTOL})")
+        if rel > worst:
+            worst, worst_name = rel, name
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_err,
+            "loss_rtol": BF16_LOSS_RTOL, "grad_max_norm_rel_err": worst,
+            "grad_worst_leaf": worst_name,
+            "grad_norm_rtol": BF16_GRAD_NORM_RTOL, "launches": counts}
+
+
+def train_bf16_check(torch, dev, ku):
+    """The bf16 gate on GPT-2-124M (batch 2 x 1024, the default step's
+    loss: full remat, fused LM-head loss): its forward and dK/dV run on
+    the tensor cores, which the fp32 check does not reach."""
+    import numpy as np
+
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.testing import (GPTConfig, gpt_loss,
+                                                    init_gpt_params)
+
+    cfg = GPTConfig()
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1024))).to(dev)
+    tgt = torch.roll(tok, -1, dims=1)
+    out = bf16_gate(torch, ku, "train", leaves,
+                    lambda: gpt_loss(params, tok, tgt, cfg))
+    for name in ("flash_mma_fwd", "flash_mma_bwd_dkv"):
+        if out["launches"].get(name, 0) != TRAIN_LAUNCHES[name]:
+            raise AssertionError(f"bf16 check launches {out['launches']}")
+    return {"batch": 2, "seq": 1024, **out}
 
 
 def timed_steps_of(torch, step, n: int):
@@ -2276,6 +2425,10 @@ def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
     result = {"fp32_check": train_fp32_check(torch, dev, ku)}
     torch.cuda.empty_cache()
     phase_s["fp32_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["bf16_check"] = train_bf16_check(torch, dev, ku)
+    torch.cuda.empty_cache()
+    phase_s["bf16_check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cfg = GPTConfig()         # bf16, full remat, fused LM-head loss
     batch, seq = 8, 1024
@@ -2342,12 +2495,12 @@ def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
 # once; the Adam tail once per leaf (39 leaves)
 T5_LAUNCHES = {"layer_norm_fwd": 2 * (6 * 2 + 6 * 3) + 2,
                "layer_norm_bwd": 6 * 2 + 6 * 3 + 2,
-               "flash_attention_fwd": 2 * 18,
-               "flash_attention_fwd[bias]": 2 * 12,
+               "flash_mma_fwd": 2 * 18,
+               "flash_mma_fwd[bias]": 2 * 12,
                "flash_attention_bwd_dq": 18,
                "flash_attention_bwd_dq[bias]": 12,
-               "flash_attention_bwd_dkv": 18,
-               "flash_attention_bwd_dkv[bias]": 12,
+               "flash_mma_bwd_dkv": 18,
+               "flash_mma_bwd_dkv[bias]": 12,
                "flash_attention_bwd_dbias": 12,
                "lm_head_loss_fwd": 1, "lm_head_loss_bwd_dx": 1,
                "lm_head_loss_bwd_dw": 1, "fused_adam_tail": 39}
@@ -2385,9 +2538,10 @@ def t5_fp32_check(torch, dev, ku):
 
     ku.reset_launch_counts()
     lk, gk = loss_and_grads()
-    if ku.launch_counts().get("flash_attention_bwd_dbias", 0) != 12:
+    counts = ku.launch_counts()
+    if counts.get("flash_attention_bwd_dbias", 0) != 12:
         raise AssertionError(f"fp32 T5 check did not run d(bias) 12 times: "
-                             f"{ku.launch_counts()}")
+                             f"{counts}")
     with ku.force_plain():
         before = ku.launch_counts()
         lp, gp = loss_and_grads()
@@ -2411,7 +2565,28 @@ def t5_fp32_check(torch, dev, ku):
                 raise AssertionError(f"fp32 T5 grad {name} is zero")
     return {"batch": 2, "seq_enc": T5_ENC, "seq_dec": T5_DEC,
             "loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_err,
-            "grad_max_rel_err": worst, "rel_table_grad_max_abs": rel_scale}
+            "grad_max_rel_err": worst, "rel_table_grad_max_abs": rel_scale,
+            "launches": counts}
+
+
+def t5_bf16_check(torch, dev, ku):
+    """The bf16 gate on T5-small (batch 2, 512 + 128 tokens, full remat,
+    fused loss): its forward and dK/dV, with and without the bias, run on
+    the tensor cores, which the fp32 check does not reach."""
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.testing import (build_t5_train_step,
+                                                    t5_loss)
+
+    cfg = t5_config(torch.bfloat16)
+    _, params, _, (enc, dec, tgt) = build_t5_train_step(
+        cfg, 2, T5_ENC, T5_DEC, device=dev, seed=0)
+    out = bf16_gate(torch, ku, "T5", list(named_leaves(params)),
+                    lambda: t5_loss(params, enc, dec, tgt, cfg))
+    for name in ("flash_mma_fwd", "flash_mma_fwd[bias]", "flash_mma_bwd_dkv",
+                 "flash_mma_bwd_dkv[bias]"):
+        if out["launches"].get(name, 0) != T5_LAUNCHES[name]:
+            raise AssertionError(f"bf16 T5 check launches {out['launches']}")
+    return {"batch": 2, "seq_enc": T5_ENC, "seq_dec": T5_DEC, **out}
 
 
 def t5_train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
@@ -2433,6 +2608,10 @@ def t5_train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
     result = {"fp32_check": t5_fp32_check(torch, dev, ku)}
     torch.cuda.empty_cache()
     phase_s["fp32_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["bf16_check"] = t5_bf16_check(torch, dev, ku)
+    torch.cuda.empty_cache()
+    phase_s["bf16_check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cfg = t5_config(torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
@@ -2529,9 +2708,10 @@ def main(argv=None) -> int:
     nrm = phase("rms_norm", ("layer_norm",), norm_phase, torch, dev, ku)
     codec = phase("codec", ("quantize",), codec_phase, torch, dev, ku)
     adam = phase("adam_tail", ("fused_update",), adam_tail_phase, torch, dev)
-    fa_cases = phase("flash_attention", ("flash_attention",), flash_phase,
-                     torch, dev)
-    vl = phase("flash_varlen", ("flash_attention", "flash_varlen"),
+    fa_cases = phase("flash_attention", ("flash_attention", "flash_mma"),
+                     flash_phase, torch, dev)
+    vl = phase("flash_varlen", ("flash_attention", "flash_mma",
+                                "flash_varlen"),
                varlen_phase, torch, dev)
     mk_cases = phase("megakernel", ("megakernel", "paged_attention",
                                     "layer_norm"), megakernel_phase, torch,
@@ -2560,6 +2740,21 @@ def main(argv=None) -> int:
     seconds["t5_train_parts"] = t5["phase_s"]
     t5_launches = t5["launches_per_step"]
     fmha = phase("fmha", (), fmha_phase, torch, dev, ku)
+    name = torch.cuda.get_device_name(0)
+    # the phases' record, written before the kernels line is assembled
+    record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
+              "engine_phase_s": seconds["engine"],
+              "train_phase_s": seconds["train"], "seconds": seconds,
+              "layer_norm": ln_cases, "paged_attention": pa_cases,
+              "layer_norm_bwd": lnb_cases, "flash_attention": fa_cases,
+              "lm_head_loss": lm_cases, "adam_tail": adam,
+              "megakernel": mk_cases, "flash_varlen": vl, "fmha": fmha,
+              "layer_norm_non_affine": ln_non_affine, "norm": nrm,
+              "codec": codec,
+              "engine": engine, "train": train, "t5_train": t5}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(record, f, indent=1)
 
     def pick(cases, **where):
         return next(c for c in cases
@@ -2726,44 +2921,91 @@ def main(argv=None) -> int:
          "max_abs_err": 0.0, "bitwise": True,
          **{k: deq[8][k] for k in timing},
          "int4_group128": {k: deq[4][k] for k in timing}})
-    fa = pick(fa_cases, dtype="bfloat16", shape="flagship")
-    # T5's shapes, bf16: the rectangular cross-attention (no bias) beside
-    # GPT's flagship shape; the bias kernels at the encoder's shape, with
-    # the decoder's beside it
-    cross = pick(fa_cases, dtype="bfloat16", shape="t5_cross")
-    enc = pick(fa_cases, dtype="bfloat16", shape="t5_enc")
-    dec = pick(fa_cases, dtype="bfloat16", shape="t5_dec")
-    # the shapes the repaired kernels take (C1): head_dim 128 and 40, tails
-    c1 = {shape: pick(fa_cases, dtype="bfloat16", shape=shape)
-          for shape in ("gpt_d128", "d40", "tail_causal", "tail_bias",
-                        *D256_SHAPES)}
-    flash_rows = (("fwd", "flash_attention_fwd", 297),
-                  ("dq", "flash_attention_bwd_dq", 532),
-                  ("dkv", "flash_attention_bwd_dkv", 570))
-    for key, kname, line in flash_rows:
+    # The flash kernels. Main paths: the bf16 GPT and T5 steps run the
+    # tensor-core forward and dK/dV (flash_mma_*) and the CUDA-core dQ and
+    # d(bias); their launches and bf16 times at the steps' shapes (GPT's
+    # flagship, T5's cross-attention, the bias kernels at T5's encoder
+    # with the decoder beside it) and at the other FLASH_SHAPES. The
+    # CUDA-core forward and dK/dV now run fp32 inputs and head_dim 264-512:
+    # their launches from the fp32 train checks (counts reset just before,
+    # read just after), fp32 times at the same shapes, bf16 at D = 512.
+    def flash_case(shape, dtype="bfloat16"):
+        return pick(fa_cases, dtype=dtype, shape=shape)
+
+    def rows_of(key, shapes, dtype="bfloat16"):
+        return {(shape if dtype == "bfloat16" else f"{shape}_fp32"): {
+            "route": flash_case(shape, dtype)["route"],
+            "max_abs_err": flash_case(shape, dtype)[key]["max_abs_err"],
+            **{k: flash_case(shape, dtype)[key][k] for k in timing}}
+            for shape in shapes}
+
+    def errs(key, route, bias):
+        return max(c[key]["max_abs_err"] for c in fa_cases
+                   if c["route"] == route and c["bias"] == bias)
+
+    plain_shapes = ("gpt_d128", "d40", "tail_causal", *D256_SHAPES[:2])
+    bias_shapes = ("tail_bias", *D256_SHAPES[2:])
+    fp32_launches = train["fp32_check"]["launches"]
+    t5_fp32_launches = t5["fp32_check"]["launches"]
+    mma_info = mma_kernel_info(ku, built)
+    for key, kname, line in (("fwd", "flash_mma_fwd", 297),
+                             ("dkv", "flash_mma_bwd_dkv", 570)):
+        common = {"route": "cuda",
+                  "source": "apex_tpu_torch/csrc/flash_mma.cu",
+                  "replaces": f"apex_tpu/ops/attention.py:{line}",
+                  **mma_info[key]}
         kernels.append(
-            {"name": kname, "route": "cuda",
-             "source": "apex_tpu_torch/csrc/flash_attention.cu",
-             "replaces": f"apex_tpu/ops/attention.py:{line}",
-             "launches": train_launches[kname],
-             "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
-                                if not c["bias"]),
-             **{k: fa[key][k] for k in timing},
-             "t5_cross": {
-                 "launches": t5_launches[kname]
-                 - t5_launches[f"{kname}[bias]"],
-                 "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
-                                    if c["shape"] == "t5_cross"),
-                 **{k: cross[key][k] for k in timing}},
-             **{shape: {"max_abs_err": max(
-                 c[key]["max_abs_err"] for c in fa_cases
-                 if c["shape"] == shape), **{k: c1[shape][key][k]
-                                             for k in timing}}
-                for shape in ("gpt_d128", "d40", "tail_causal", "d256",
-                              "d192")}})
-    for key, kname, line in flash_rows + (
-            ("dbias", "flash_attention_bwd_dbias", 607),):
-        tname = kname if key == "dbias" else f"{kname}[bias]"
+            {"name": kname, **common, "launches": train_launches[kname],
+             "max_abs_err": errs(key, "tensor_core", False),
+             **{k: flash_case("flagship")[key][k] for k in timing},
+             "t5_cross": {"launches": t5_launches[kname]
+                          - t5_launches[f"{kname}[bias]"],
+                          **rows_of(key, ("t5_cross",))["t5_cross"]},
+             **rows_of(key, ("non_causal", "dropout", *plain_shapes))})
+        kernels.append(
+            {"name": f"{kname}[bias]", **common,
+             "launches": t5_launches[f"{kname}[bias]"], "path": "t5_train",
+             "shape": "t5_enc (64, 512, 512, 64) bias (8, 512, 512)",
+             "max_abs_err": errs(key, "tensor_core", True),
+             **{k: flash_case("t5_enc")[key][k] for k in timing},
+             **rows_of(key, ("t5_dec", *bias_shapes))})
+    for key, kname, line in (("fwd", "flash_attention_fwd", 297),
+                             ("dkv", "flash_attention_bwd_dkv", 570)):
+        common = {"route": "cuda",
+                  "source": "apex_tpu_torch/csrc/flash_attention.cu",
+                  "replaces": f"apex_tpu/ops/attention.py:{line}"}
+        kernels.append(
+            {"name": kname, **common, "launches": fp32_launches[kname],
+             "path": "train fp32 check (fp32 inputs; head_dim 264-512)",
+             "shape": "flagship (96, 1024, 64) fp32",
+             "max_abs_err": errs(key, "cuda_core", False),
+             **{k: flash_case("flagship", "float32")[key][k]
+                for k in timing},
+             **rows_of(key, ("t5_cross", *plain_shapes), "float32"),
+             **rows_of(key, D512_SHAPES[:1]),
+             **rows_of(key, D512_SHAPES[:1], "float32")})
+        kernels.append(
+            {"name": f"{kname}[bias]", **common,
+             "launches": t5_fp32_launches[f"{kname}[bias]"],
+             "path": "t5 fp32 check", "shape": "t5_enc fp32",
+             "max_abs_err": errs(key, "cuda_core", True),
+             **{k: flash_case("t5_enc", "float32")[key][k] for k in timing},
+             **rows_of(key, D512_SHAPES[1:]),
+             **rows_of(key, D512_SHAPES[1:], "float32")})
+    kernels.append(
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "apex_tpu/ops/attention.py:532",
+         "launches": train_launches["flash_attention_bwd_dq"],
+         "max_abs_err": max(c["dq"]["max_abs_err"] for c in fa_cases
+                            if not c["bias"]),
+         **{k: flash_case("flagship")["dq"][k] for k in timing},
+         "t5_cross": {"launches": t5_launches["flash_attention_bwd_dq"]
+                      - t5_launches["flash_attention_bwd_dq[bias]"],
+                      **rows_of("dq", ("t5_cross",))["t5_cross"]},
+         **rows_of("dq", (*plain_shapes, *D512_SHAPES[:1]))})
+    for key, tname, line in (("dq", "flash_attention_bwd_dq[bias]", 532),
+                             ("dbias", "flash_attention_bwd_dbias", 607)):
         kernels.append(
             {"name": tname, "route": "cuda",
              "source": "apex_tpu_torch/csrc/flash_attention.cu",
@@ -2772,16 +3014,15 @@ def main(argv=None) -> int:
              "shape": "t5_enc (64, 512, 512, 64) bias (8, 512, 512)",
              "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
                                 if c["bias"]),
-             **{k: enc[key][k] for k in timing},
-             "t5_dec": {k: dec[key][k] for k in timing},
-             **{shape: {k: c1[shape][key][k] for k in timing}
-                for shape in ("tail_bias", "d256_bias", "d192_bias")}})
+             **{k: flash_case("t5_enc")[key][k] for k in timing},
+             **rows_of(key, ("t5_dec", *bias_shapes, *D512_SHAPES[1:]))})
     # the packed path's kernels: launches of one bf16 causal forward plus
     # backward through FMHA; times at its shape, bf16 causal, with the
     # bidirectional times and the dense causal flash kernels beside them
     vc = pick(vl["cases"], dtype="bfloat16", causal=True, head_dim=PACK_D)
     vb = pick(vl["cases"], dtype="bfloat16", causal=False, head_dim=PACK_D)
     v256 = pick(vl["cases"], dtype="bfloat16", head_dim=256)
+    v512 = pick(vl["cases"], dtype="bfloat16", head_dim=512)
     main_run = pick(fmha["runs"], dtype="bfloat16", causal=True)
     for key, kname, line in (("fwd", "flash_varlen_fwd", 377),
                              ("dq", "flash_varlen_bwd_dq", 414),
@@ -2803,7 +3044,9 @@ def main(argv=None) -> int:
                  vc[key]["ratio_to_dense_causal_flash"],
              "bidirectional": {k: vb[key][k] for k in timing},
              "d256": {"heads": v256["heads"], "causal": v256["causal"],
-                      **{k: v256[key][k] for k in timing}}})
+                      **{k: v256[key][k] for k in timing}},
+             "d512": {"heads": v512["heads"], "causal": v512["causal"],
+                      **{k: v512[key][k] for k in timing}}})
     # the fused loss at the training shape (8192, 768, 50304) bf16
     lm = pick(lm_cases, dtype="bfloat16", shape="train")
     lm_t5 = pick(lm_cases, dtype="bfloat16", shape="t5")
@@ -2829,17 +3072,6 @@ def main(argv=None) -> int:
          "t5": {"launches": t5_launches["fused_adam_tail"],
                 **{k: adam["t5"][k] for k in ("max_abs_err", "per",
                                               *timing)}}})
-    name = torch.cuda.get_device_name(0)
-    record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
-              "engine_phase_s": seconds["engine"],
-              "train_phase_s": seconds["train"], "seconds": seconds,
-              "layer_norm": ln_cases, "paged_attention": pa_cases,
-              "layer_norm_bwd": lnb_cases, "flash_attention": fa_cases,
-              "lm_head_loss": lm_cases, "adam_tail": adam,
-              "megakernel": mk_cases, "flash_varlen": vl, "fmha": fmha,
-              "layer_norm_non_affine": ln_non_affine, "norm": nrm,
-              "codec": codec,
-              "engine": engine, "train": train, "t5_train": t5}
     for run in ("fp32_kernels", "fp32_plain", "fp32_off", "fp32_int8",
                 "fp32_int8_off", "fp32_int4", "fp32_int4_off", "bf16_spec0",
                 "bf16_spec4", "bf16_int8_spec0", "bf16_int8_spec4",
@@ -2884,6 +3116,13 @@ def main(argv=None) -> int:
           f"{prof['device_busy_share_of_unprofiled_wall']:.3f} (of the "
           f"profiled wall {1 - prof['device_idle_share']:.3f}) "
           f"losses {[round(v, 4) for v in train['losses']]} on {card}")
+    for what, chk in (("train", train["bf16_check"]),
+                      ("t5", t5["bf16_check"])):
+        print(f"{what} bf16 check (batch 2): loss kernels "
+              f"{chk['loss_kernels']} plain {chk['loss_plain']} (rel "
+              f"{chk['loss_rel_err']:.3e}, limit {chk['loss_rtol']}); grad "
+              f"max |k - p| / |p| {chk['grad_max_norm_rel_err']:.3e} at "
+              f"{chk['grad_worst_leaf']} (limit {chk['grad_norm_rtol']})")
     un = train["unfused_step"]
     print(f"train bf16 tokens/s: default step (fused loss, fused Adam tail) "
           f"{train['tokens_per_s']:.1f}, unfused step (fused_loss=False, "
@@ -2901,9 +3140,15 @@ def main(argv=None) -> int:
             f"{k} {c[k]['ms']:.4f} ms (plain {c[k]['plain_ms']:.4f}, "
             f"library {c[k]['library_ms']:.4f}, bound "
             f"{c[k]['bound_ms']:.4f} {c[k]['bound_by']})" for k in keys)
-        print(f"flash {c['shape']} {c['dtype']} (b {c['batch']}, heads "
-              f"{c['heads']}, {c['sq']} x {c['sk']}, causal {c['causal']}, "
-              f"bias {c['bias']}): {text}")
+        print(f"flash {c['shape']} {c['dtype']} route {c['route']} (b "
+              f"{c['batch']}, heads {c['heads']}, {c['sq']} x {c['sk']}, "
+              f"d {c['head_dim']}, causal {c['causal']}, bias {c['bias']}):"
+              f" {text}")
+    for key, info in mma_info.items():
+        print(f"tensor-core {key} HMMA/HGMMA per instantiation: "
+              f"{info['sass_hmma']}")
+        for line in info["ptxas"]:
+            print(f"  ptxas {line}")
     for c in vl["cases"]:
         text = " ".join(
             f"{k} {c[k]['ms']:.4f} ms (plain {c[k]['plain_ms']:.4f}, library "

@@ -1,0 +1,255 @@
+"""The port's flash attention routes and its kernels' C interface, on the
+CPU.
+
+* JAX parity at head_dim 264-512 (the CUDA-core kernels' D = 512, 32-row
+  tiles): the port's ``flash_attention`` goes through its flash autograd
+  function (the kernels on the card, their plain versions here) and
+  gives JAX's interpret-mode kernel's output and gradients, causal, full,
+  with a T5 bias and at a tail length; the packed varlen path likewise.
+* The route table (``ops.attention._flash_route``): bf16 with head_dim <=
+  256 takes the tensor-core forward and dK/dV (``csrc/flash_mma.cu``);
+  fp32 at any head_dim and bf16 at 264-512 the CUDA-core ones
+  (``csrc/flash_attention.cu``); above 512 it raises, naming the limit.
+* A static check of every ``extern "C"`` entry point in ``csrc/*.cu``
+  against the ctypes table its wrapper loads it with: the same argument
+  count, and ``c_void_p`` exactly where the C side takes a pointer (a
+  pointer passed as a 32-bit int would be cut).
+
+The kernels themselves run only on the card (``tests/test_torch_kernels_
+cuda.py``, ``chip_smoke.py``).
+"""
+
+import ctypes
+import importlib
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from apex_tpu.ops import attention_varlen as jvl
+from apex_tpu.ops.attention import _pallas_ok as jax_pallas_ok
+from apex_tpu.ops.attention import flash_attention as jax_flash
+
+from apex_tpu_torch.ops import _kernel_util as ku
+from apex_tpu_torch.ops import attention as port_attention
+from apex_tpu_torch.ops import attention_varlen as port_varlen
+from apex_tpu_torch.ops.attention import flash_attention
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# (a) JAX parity at head_dim 264-512
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,bias", [
+    (64, 64, 264, True, False), (72, 136, 320, False, True),
+    (128, 128, 512, True, True), (40, 40, 512, False, False),
+    (200, 200, 320, True, False)])
+def test_flash_head_dims_above_256_match_jax_kernel(monkeypatch, sq, sk, d,
+                                                    causal, bias):
+    """head_dim 264, 320 and 512, causal and full, with a bias and at tail
+    lengths (not multiples of the kernels' 32-row tile at D = 512): JAX's
+    gate takes them, so does the port (one call of its flash autograd
+    function), and o and every gradient, the bias's included, equal
+    ``jax.vjp`` of JAX's interpret-mode kernel at one block per sequence:
+    atol 2e-5 (o) and 1e-4 (grads), as the flash tests of
+    ``test_torch_train.py``."""
+    assert jax_pallas_ok(sq, sk, d, causal, allow_interpret=True)
+    rng = np.random.default_rng(sq + sk + d)
+    q, do = (rng.standard_normal((1, 2, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((1, 2, sk, d)).astype(np.float32)
+            for _ in range(2))
+    b = rng.standard_normal((2, sq, sk)).astype(np.float32) if bias else None
+    args = [q, k, v] + ([b] if bias else [])
+
+    def jfn(q, k, v, *bb):
+        return jax_flash(q, k, v, causal=causal, bias=bb[0] if bb else None,
+                         use_pallas=True, block_q=sq, block_k=sk)
+
+    o_j, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in args))
+    want = vjp(jnp.asarray(do))
+    calls = []
+    real = port_attention.FlashAttention.apply
+
+    def count(*a):
+        calls.append(a[0].shape)
+        return real(*a)
+
+    monkeypatch.setattr(port_attention.FlashAttention, "apply", count)
+    leaves = [_t(a).requires_grad_() for a in args]
+    o = flash_attention(*leaves[:3], causal=causal,
+                        bias=leaves[3] if bias else None)
+    o.backward(_t(do))
+    assert calls == [(2, sq, d)]
+    np.testing.assert_allclose(_np(o), np.asarray(o_j), atol=2e-5)
+    for got, ref, name in zip(leaves, want, ("q", "k", "v", "bias")):
+        np.testing.assert_allclose(_np(got.grad), np.asarray(ref),
+                                   atol=1e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d,causal", [(320, True), (512, False)])
+def test_varlen_head_dims_above_256_match_jax_kernel(d, causal):
+    """The packed varlen path at head_dim 320 and 512 (the varlen kernels'
+    D = 512 on the card, their plain versions here): o and q, k, v
+    gradients of the port's ``flash_attention_varlen`` equal ``jax.vjp``
+    of JAX's interpret-mode varlen kernel; atol 2e-5 (o), 1e-4 (grads).
+    Two documents and a pad tail over 192 tokens."""
+    rng = np.random.default_rng(d)
+    s = 192
+    seg = np.array([[0] * 70 + [1] * 90 + [-1] * 32], dtype=np.int32)
+    q, k, v, do = (rng.standard_normal((1, 2, s, d)).astype(np.float32)
+                   for _ in range(4))
+
+    def jfn(q, k, v):
+        return jvl.flash_attention_varlen(q, k, v, jnp.asarray(seg),
+                                          causal=causal, use_pallas=True,
+                                          interpret=True, block_q=64,
+                                          block_k=64)
+
+    o_j, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    o = port_varlen.flash_attention_varlen(*leaves, _t(seg), causal=causal)
+    o.backward(_t(do))
+    np.testing.assert_allclose(_np(o), np.asarray(o_j), atol=2e-5)
+    for got, ref, name in zip(leaves, want, "qkv"):
+        np.testing.assert_allclose(_np(got.grad), np.asarray(ref),
+                                   atol=1e-4, err_msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# (b) the route table
+
+
+@pytest.mark.parametrize("d", [8, 40, 64, 128, 136, 192, 256])
+def test_bf16_up_to_256_takes_the_tensor_cores(d):
+    assert port_attention._flash_route(torch.bfloat16, d) == "tensor_core"
+    assert port_attention._flash_route(torch.float32, d) == "cuda_core"
+
+
+@pytest.mark.parametrize("d", [264, 320, 400, 512])
+def test_head_dims_264_to_512_take_the_cuda_cores(d):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert port_attention._flash_route(dtype, d) == "cuda_core"
+
+
+@pytest.mark.parametrize("d", [520, 1024, 36, 0])
+def test_route_refuses_what_no_kernel_takes(d):
+    with pytest.raises(ValueError, match=f"head_dim {d} .* up to 512"):
+        port_attention._flash_route(torch.bfloat16, d)
+
+
+def _entries_launched(monkeypatch, dtype, d, bias):
+    """The C entries the four wrappers launch at this dtype and head dim
+    (``_launch`` stubbed: nothing runs)."""
+    seen = []
+    monkeypatch.setattr(port_attention, "_launch",
+                        lambda entry, *a, **kw: seen.append(entry))
+    q = torch.zeros(2, 64, d, dtype=dtype)
+    row = torch.zeros(2, 64, 1)
+    b = torch.zeros(2, 64, 64) if bias else None
+    port_attention.flash_attention_fwd(q, q, q, 0.1, True, bias=b)
+    port_attention.flash_attention_bwd_dq(q, q, q, q, row, row, 0.1, True,
+                                          bias=b)
+    port_attention.flash_attention_bwd_dkv(q, q, q, q, row, row, 0.1, True,
+                                           bias=b)
+    if bias:
+        port_attention.flash_attention_bwd_dbias(q, q, q, q, row, row, 0.1,
+                                                 True, bias=b)
+    return seen
+
+
+@pytest.mark.parametrize("dtype,d,fwd,dkv", [
+    (torch.bfloat16, 64, "flash_mma_fwd", "flash_mma_bwd_dkv"),
+    (torch.bfloat16, 256, "flash_mma_fwd", "flash_mma_bwd_dkv"),
+    (torch.bfloat16, 264, "flash_attention_fwd", "flash_attention_bwd_dkv"),
+    (torch.float32, 64, "flash_attention_fwd", "flash_attention_bwd_dkv"),
+    (torch.float32, 512, "flash_attention_fwd", "flash_attention_bwd_dkv")])
+@pytest.mark.parametrize("bias", [False, True])
+def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, d, fwd, dkv,
+                                            bias):
+    """Each wrapper launches the entry of its route; dQ and d(bias) stay on
+    the CUDA cores; every entry launched is in the table of the library
+    ``_launch`` loads it from (``flash_mma`` for the tensor-core ones)."""
+    seen = _entries_launched(monkeypatch, dtype, d, bias)
+    want = [fwd, "flash_attention_bwd_dq", dkv]
+    assert seen == want + (["flash_attention_bwd_dbias"] if bias else [])
+    for entry in seen:
+        table = (port_attention._MMA_SIGNATURES
+                 if entry.startswith("flash_mma")
+                 else port_attention._SIGNATURES)
+        assert entry in table
+
+
+def test_the_tensor_core_source_is_built_with_the_others():
+    assert "flash_mma" in ku.KERNEL_SOURCES
+    assert (ku.CSRC_DIR / "flash_mma.cu").is_file()
+    assert set(port_attention._MMA_SIGNATURES) == {"flash_mma_fwd",
+                                                    "flash_mma_bwd_dkv"}
+
+
+# ---------------------------------------------------------------------------
+# (c) the C entry points against their ctypes tables
+
+# csrc/<source>.cu -> (module, table) that loads it
+_TABLES = {
+    "layer_norm": ("apex_tpu_torch.ops.layer_norm", "_SIGNATURES"),
+    "paged_attention": ("apex_tpu_torch.serve.decode", "_SIGNATURES"),
+    "flash_attention": ("apex_tpu_torch.ops.attention", "_SIGNATURES"),
+    "flash_mma": ("apex_tpu_torch.ops.attention", "_MMA_SIGNATURES"),
+    "flash_varlen": ("apex_tpu_torch.ops.attention_varlen", "_SIGNATURES"),
+    "lm_head_loss": ("apex_tpu_torch.ops.lm_head_loss", "_SIGNATURES"),
+    "fused_update": ("apex_tpu_torch.ops.fused_update", "_SIGNATURES"),
+    "megakernel": ("apex_tpu_torch.serve.megakernel", "_SIGNATURES"),
+    "quantize": ("apex_tpu_torch.comm.quantize", "_SIGNATURES"),
+}
+_C_TYPES = {"int": ctypes.c_int, "unsigned": ctypes.c_uint,
+            "float": ctypes.c_float, "long long": ctypes.c_longlong}
+
+
+def _c_entries(path: pathlib.Path):
+    """{name: [parameter types]} of the ``extern "C"`` functions of a
+    source."""
+    src = path.read_text()
+    out = {}
+    for m in re.finditer(r'extern "C"\s+[\w\s\*]+?\b(\w+)\s*\(([^)]*)\)',
+                         src):
+        params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+        out[m.group(1)] = [re.sub(r"\s*\b\w+$", "", p) for p in params]
+    return out
+
+
+def test_every_source_has_a_table():
+    assert set(_TABLES) == set(ku.KERNEL_SOURCES)
+    assert {p.stem for p in ku.CSRC_DIR.glob("*.cu")} == set(_TABLES)
+
+
+@pytest.mark.parametrize("source", sorted(_TABLES))
+def test_c_entry_points_match_their_ctypes_signatures(source):
+    module, attr = _TABLES[source]
+    table = getattr(importlib.import_module(module), attr)
+    entries = _c_entries(ku.CSRC_DIR / f"{source}.cu")
+    assert set(table) <= set(entries), sorted(set(table) - set(entries))
+    for name, argtypes in table.items():
+        params = entries[name]
+        assert len(argtypes) == len(params), (name, len(argtypes),
+                                               len(params))
+        for i, (c_type, py_type) in enumerate(zip(params, argtypes)):
+            if "*" in c_type:
+                assert py_type is ctypes.c_void_p, (name, i, c_type)
+            else:
+                assert py_type is _C_TYPES[c_type], (name, i, c_type,
+                                                     py_type)

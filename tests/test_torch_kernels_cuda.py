@@ -62,6 +62,7 @@ from apex_tpu_torch.transformer.testing import (GPTConfig, T5Config,
                                                 init_gpt_params, t5_loss)
 
 ln_mod = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+port_attention = importlib.import_module("apex_tpu_torch.ops.attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -265,6 +266,17 @@ def test_layer_norm_is_differentiable_on_the_card(dev, dtype):
         assert layer_norm(xs[0], ws[0], bs[0]).grad_fn is None
 
 
+def _flash_names(dtype, d):
+    """The C entries the fwd, dQ and dK/dV wrappers launch (and count)
+    at this dtype and head dim: the tensor-core forward and dK/dV for bf16
+    up to 256, the CUDA-core kernels otherwise."""
+    if port_attention._flash_route(dtype, d) == "tensor_core":
+        return ("flash_mma_fwd", "flash_attention_bwd_dq",
+                "flash_mma_bwd_dkv")
+    return ("flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+
+
 def _flash_case(dev, dtype, bh, s, d, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(bh, s, d, device=dev, generator=g).to(dtype)
@@ -315,8 +327,7 @@ def test_flash_kernels_match_plain(dev, dtype, bh, s, d, causal, rate):
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=rtol, msg=name)
     after = ku.launch_counts()
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv"):
+    for name in _flash_names(dtype, d):
         assert after[name] == counts.get(name, 0) + 1
 
 
@@ -352,8 +363,10 @@ def test_flash_kernels_refuse_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_fwd(*(t[..., :36].contiguous() for t in (q, k, v)),
                             0.125, False)
-    wide = torch.randn(2, 128, 264, device=dev)
-    with pytest.raises(ValueError, match="head_dim 264 .* up to 256"):
+    flash_attention_fwd(*(torch.randn(2, 128, 264, device=dev)
+                          for _ in range(3)), 0.125, False)  # D = 512
+    wide = torch.randn(2, 128, 520, device=dev)
+    with pytest.raises(ValueError, match="head_dim 520 .* up to 512"):
         flash_attention_fwd(wide, wide, wide, 0.125, False)
     with pytest.raises(ValueError, match="multiples of 8"):
         flash_attention_fwd(*(t[:, :100].contiguous() for t in (q, k, v)),
@@ -430,8 +443,7 @@ def test_flash_bias_kernels_match_plain(dev, dtype, b, heads, sq, sk, d,
         above = torch.ones(sq, sk, dtype=torch.bool, device=dev).triu(1)
         assert not bool(db[:, above].any())
     after = ku.launch_counts()
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv", "flash_attention_bwd_dbias"):
+    for name in (*_flash_names(dtype, d), "flash_attention_bwd_dbias"):
         assert after[name] == counts.get(name, 0) + 1
 
 
@@ -1110,21 +1122,23 @@ def test_varlen_kernels_refuse_what_they_cannot_take(dev):
                          seg_k[:, :200].contiguous(), 0.125, True)
     with pytest.raises(ValueError, match="seg_q"):
         flash_varlen_fwd(q, k, v, seg_q.long(), seg_k, 0.125, True)
-    with pytest.raises(ValueError, match="head_dim 264 .* up to 256"):
-        wide = torch.randn(1, 2, 256, 264, device=dev)
+    with pytest.raises(ValueError, match="head_dim 520 .* up to 512"):
+        wide = torch.randn(1, 2, 256, 520, device=dev)
         flash_varlen_fwd(wide, wide, wide, seg_q, seg_k, 0.125, True)
     with pytest.raises(ValueError, match="k must be"):
         flash_varlen_fwd(q, k.bfloat16(), v, seg_q, seg_k, 0.125, True)
 
 
 def test_flash_attention_head_dim_above_256_raises_on_the_card(dev):
-    """head_dim 264 (% 8 == 0, so JAX's gate takes it): the kernels stop
-    at 256 (two 64-row fp32 tiles of 512 would need 256 KB of shared
-    memory), so the front door raises naming the limit, and launches
-    nothing."""
+    """head_dim 264 runs (the CUDA-core kernels' D = 512, 32-row tiles);
+    520 (% 8 == 0, so JAX's gate takes it) is past the kernels' 512 (two
+    32-row fp32 tiles of 520 would not fit): the front door raises naming
+    the limit, and launches nothing."""
     q = torch.randn(1, 2, 64, 264, device=dev)
+    flash_attention(q, q, q, causal=True)
+    q = torch.randn(1, 2, 64, 520, device=dev)
     before = ku.launch_counts()
-    with pytest.raises(ValueError, match="head_dim 264 .* up to 256"):
+    with pytest.raises(ValueError, match="head_dim 520 .* up to 512"):
         flash_attention(q, q, q, causal=True)
     assert ku.launch_counts() == before
 
@@ -1326,3 +1340,174 @@ def test_codec_gate_on_the_card(dev):
     assert ku.launch_counts() == before
     with pytest.raises(ValueError, match="pallas quantize needs"):
         pq.quantize_blockwise(x, use_pallas=True)
+
+
+# ---------------------------------------------------------------------------
+# eighth slice: the tensor-core forward and dK/dV (bf16, d <= 256), and the
+# CUDA-core kernels at head_dim 264-512 (D = 512)
+
+MMA_CASES = [  # batch, heads, sq, sk, d, causal, dropout rate, bias
+    (2, 3, 128, 128, 32, True, 0.0, False), (2, 3, 192, 192, 40, True, 0.1,
+                                             True),
+    (2, 3, 256, 256, 64, False, 0.0, True), (2, 2, 1000, 1000, 64, True,
+                                             0.0, False),
+    (2, 2, 200, 328, 64, False, 0.2, True), (2, 2, 136, 136, 128, True,
+                                             0.1, False),
+    (1, 2, 128, 512, 128, False, 0.0, False), (1, 2, 256, 256, 192, True,
+                                               0.0, True),
+    (1, 2, 200, 200, 256, False, 0.1, False), (1, 2, 72, 72, 256, True,
+                                               0.0, True)]
+
+
+@pytest.mark.parametrize("b,heads,sq,sk,d,causal,rate,bias", MMA_CASES)
+def test_mma_kernels_match_plain_and_repeat_bitwise(dev, b, heads, sq, sk,
+                                                    d, causal, rate, bias):
+    """The tensor-core forward and dK/dV (bf16, the D = 32/64/128/256
+    instantiations, d = 40 and 192 with zeros past d) vs their plain
+    versions: o, dk, dv within atol 1e-2 + rtol 2**-7 (p and ds are
+    rounded to bf16 before their products, at other running maxima), lse
+    1e-4 / 1e-5; two launches give the same bits; each call launches its
+    tensor-core entry once (and the ``[bias]`` count with a bias)."""
+    q, k, v, do, bb = _flash_bias_case(dev, torch.bfloat16, b, heads, sq,
+                                       sk, d, sq + sk + d)
+    bb = bb if bias else None
+    args = (1 / math.sqrt(d), causal, rate, 5)
+    counts = ku.launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, *args, bias=bb)
+    o_p, lse_p = flash_attention_fwd_reference(q, k, v, *args, bias=bb)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args, bias=bb)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, *args,
+                                         bias=bb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_p.float(), atol=1e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    for got, ref, name in zip((dk, dv), want[1:], ("dk", "dv")):
+        assert got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=2 ** -7, msg=name)
+    after = ku.launch_counts()
+    for name in ("flash_mma_fwd", "flash_mma_bwd_dkv"):
+        assert after[name] == counts.get(name, 0) + 1
+        assert after.get(f"{name}[bias]", 0) == \
+            counts.get(f"{name}[bias]", 0) + bias
+    o2, lse2 = flash_attention_fwd(q, k, v, *args, bias=bb)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args,
+                                       bias=bb)
+    for a, b2 in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b2)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_bf16_front_door_takes_the_tensor_cores(dev, bias):
+    """``flash_attention`` on bf16 CUDA tensors at head_dim 64: one launch
+    of the tensor-core forward and dK/dV (and of the CUDA-core dQ, and
+    d(bias) with a bias) per forward plus backward, none of the CUDA-core
+    forward or dK/dV; output and gradients within the bf16 tolerance of
+    the plain versions forced."""
+    q, k, v, do, bb = _flash_bias_case(dev, torch.bfloat16, 2, 3, 128, 128,
+                                       64, 31)
+    q, k, v, do = (t.reshape(2, 3, 128, 64) for t in (q, k, v, do))
+    runs = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        b_leaf = [bb.clone().requires_grad_()] if bias else []
+        before = ku.launch_counts()
+        with ku.force_plain() if plain else contextlib.nullcontext():
+            o = flash_attention(*leaves, causal=True,
+                                bias=b_leaf[0] if bias else None)
+            o.backward(do)
+        after = ku.launch_counts()
+        want = {"flash_mma_fwd": 1, "flash_mma_bwd_dkv": 1,
+                "flash_attention_bwd_dq": 1, "flash_attention_fwd": 0,
+                "flash_attention_bwd_dkv": 0,
+                "flash_attention_bwd_dbias": int(bias)}
+        for name, n in want.items():
+            assert after.get(name, 0) - before.get(name, 0) == \
+                (0 if plain else n), name
+        runs.append([o] + [t.grad for t in leaves + b_leaf])
+    for got, ref in zip(*runs):
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2 ** -7)
+
+
+D512_CASES = [  # batch, heads, sq, sk, d, causal, dropout rate, bias
+    (1, 2, 128, 128, 512, True, 0.1, True), (1, 2, 72, 200, 320, False,
+                                             0.0, True),
+    (1, 2, 200, 200, 264, True, 0.0, False), (2, 2, 96, 96, 512, False,
+                                              0.2, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,sq,sk,d,causal,rate,bias", D512_CASES)
+def test_head_dims_264_to_512_match_plain(dev, dtype, b, heads, sq, sk, d,
+                                          causal, rate, bias):
+    """The CUDA-core kernels' D = 512 (32-row tiles), fp32 and bf16: o,
+    lse, dq, dk, dv and d(bias) vs their plain versions with the flash
+    tolerances (fp32 1e-4, bf16 1e-2 + 2**-7, d(bias) 1e-4), one launch
+    each of the CUDA-core entries, and the causal d(bias) zero above the
+    diagonal."""
+    q, k, v, do, bb = _flash_bias_case(dev, dtype, b, heads, sq, sk, d,
+                                       sq * d + b)
+    bb = bb if bias else None
+    args = (1 / math.sqrt(d), causal, rate, 17)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    counts = ku.launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, *args, bias=bb)
+    o_p, lse_p = flash_attention_fwd_reference(q, k, v, *args, bias=bb)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *args, bias=bb)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args, bias=bb)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, *args,
+                                         bias=bb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    if bias:
+        db = flash_attention_bwd_dbias(q, k, v, do, lse, delta, *args,
+                                       bias=bb)
+        db_p = flash_attention_bwd_dbias_reference(q, k, v, o, lse, do,
+                                                   *args, bias=bb)
+        torch.testing.assert_close(db, db_p, atol=1e-4, rtol=1e-4)
+        if causal:
+            above = torch.ones(sq, sk, dtype=torch.bool, device=dev).triu(1)
+            assert not bool(db[:, above].any())
+    after = ku.launch_counts()
+    for name in _flash_names(dtype, d):
+        assert name.startswith("flash_attention")
+        assert after[name] == counts.get(name, 0) + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d,causal", [(320, 512, True), (256, 320, False)])
+def test_varlen_head_dims_264_to_512_match_plain(dev, dtype, s, d, causal):
+    """The varlen kernels' D = 512 (32-row tiles over the 64-row tile
+    tables) vs their plain versions, flash's tolerances; pad rows 0."""
+    from apex_tpu_torch.ops.attention_varlen import (
+        flash_varlen_bwd_dkv, flash_varlen_bwd_dq,
+        flash_varlen_bwd_reference, flash_varlen_fwd,
+        flash_varlen_fwd_reference)
+    q, k, v, do, seg_q, seg_k = _varlen_case(dev, dtype, 1, 2, s, d, s + d,
+                                             foreign_tile=not causal)
+    args = (1 / math.sqrt(d), causal)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    o, lse = flash_varlen_fwd(q, k, v, seg_q, seg_k, *args)
+    o_p, lse_p = flash_varlen_fwd_reference(q, k, v, seg_q, seg_k, *args)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = flash_varlen_bwd_dq(q, k, v, seg_q, seg_k, do, lse, delta, *args)
+    dk, dv = flash_varlen_bwd_dkv(q, k, v, seg_q, seg_k, do, lse, delta,
+                                  *args)
+    want = flash_varlen_bwd_reference(q, k, v, seg_q, seg_k, o, lse, do,
+                                      *args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    pad_q = (seg_q < 0)[:, None, :].expand(-1, 2, -1)
+    assert not bool(o[pad_q].any()) and not bool(dq[pad_q].any())
