@@ -33,7 +33,8 @@
 // the forward, its remat replay and both backward kernels.
 //
 // Which kernels run here: fp32 inputs in all four, and bf16 inputs in dQ
-// and d(bias) at every head dim and in the forward and dK/dV at D = 512;
+// and d(bias) at every head dim and in the forward and dK/dV from D = 512
+// on;
 // the forward and dK/dV with bf16 inputs at d <= 256 run on the tensor
 // cores (flash_mma.cu; the wrapper's `_flash_route` picks). fp32 products
 // stay here, on the CUDA cores: the tensor cores would take fp32 as TF32,
@@ -59,8 +60,9 @@
 // lane reaches every shuffle. Any sequence length runs: the last tile of
 // a length that is not a multiple of BR stages zeros past the end, gives
 // the columns past sk the score NEG_INF (p = 0) and stores no row past
-// sq. A head dim d (a multiple of 8 up to 512) runs in the instantiation
-// for D = 32, 64, 128, 256 or 512 with zeros past d; `scale` is the
+// sq. A head dim d (a multiple of 8 up to 2048) runs in the instantiation
+// for D = 32, 64, 128, 256, 512, 1024 or 2048 with zeros past d; `scale`
+// is the
 // caller's (1 / sqrt(d)). D = 128 stages 64 KB a block, above the 48 KB
 // of static shared memory, so every kernel takes its tiles as dynamic
 // shared memory. D = 256 stages two 64-row tiles in 128 KB (one block an
@@ -68,7 +70,10 @@
 // same DPT dims as at D = 128: the register file then holds the block's
 // rows and little else, and the compiler spills, dK/dV most. D = 512
 // stages two 32-row tiles in the same 128 KB, 512 threads of 32 dims (dK
-// and dV too): slow, and right. The spills are in the nvcc log
+// and dV too): slow, and right. D = 1024 and 2048 are the same kernels
+// with 16- and 8-row tiles (BR x D = 16,384: the same 128 KB): 512
+// threads of 32 dims at D = 1024; at D = 2048 256 threads of 64 dims, so
+// a row stays within one warp's shuffles. The spills are in the nvcc log
 // chip_smoke.py prints.
 //
 // The bias is read straight from device memory, one (q tile, k tile)
@@ -84,7 +89,8 @@
 // to carry the batch sum through (JAX runs the batch as its innermost,
 // ordered grid axis): one block owns each (head, q tile, k tile) output
 // tile and walks the batch in order, summing in registers (each thread
-// owns BR / TPR columns of its row), then writes the tile once; no
+// owns BR / TPR columns of its row, at most one), then writes the tile
+// once; no
 // atomics, so the sum is the same bits on every run. Tiles above the
 // causal diagonal write zeros.
 
@@ -99,13 +105,15 @@ namespace {
 // 64; left free, the bias variant takes 135 registers, fits three blocks
 // and runs 30 % longer
 template <typename T, int D, bool HasBias, int BR>
-__global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
+__global__ void __launch_bounds__(row_threads(D),
+                                  D == 2048 ? 1 : 512 / row_threads(D))
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
                      const float* __restrict__ bias, T* __restrict__ o,
                      float* __restrict__ lse, Dims n, float scale,
                      int causal, Dropout drop) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
+  constexpr int DPT = row_dims(D), TPR = D / DPT, NT = BR * TPR;
+  constexpr int CH = chunk_keys(BR);
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
   float* sV = smem + BR * D;
@@ -133,17 +141,17 @@ __global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
     stage_tile<T, D, BR>(sV, v + kbase, krows, n.d, NT);
     __syncthreads();
     const bool diag = causal && kt == qt;
-    for (int j0 = 0; j0 < BR; j0 += kChunk) {
-      float s[kChunk];
-      float bv[kChunk];
+    for (int j0 = 0; j0 < BR; j0 += CH) {
+      float s[CH];
+      float bv[CH];
       if constexpr (HasBias) {
 #pragma unroll
-        for (int i = 0; i < kChunk; i += 4)
+        for (int i = 0; i < CH; i += 4)
           load4(brow + kt * BR + j0 + i, bv + i);
       }
       float cmax = apex::kNegInf;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
+      for (int jj = 0; jj < CH; ++jj) {
         const int j = j0 + jj;
         float sv = group_sum<TPR>(dot_part<DPT, TPR>(qr, sK + j * D, h)) *
                    scale;
@@ -156,7 +164,7 @@ __global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
       const float corr = expf(m - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
+      for (int jj = 0; jj < CH; ++jj) {
         s[jj] = expf(s[jj] - m_new);
         psum += s[jj];
       }
@@ -164,7 +172,7 @@ __global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
 #pragma unroll
       for (int i = 0; i < DPT; ++i) acc[i] *= corr;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
+      for (int jj = 0; jj < CH; ++jj) {
         const int j = j0 + jj;
         float p = s[jj];
         if (drop.on)
@@ -190,14 +198,14 @@ __global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
 // dQ: one block per (q tile, bh), looping over the K/V tiles
 
 template <typename T, int D, bool HasBias, int BR>
-__global__ void __launch_bounds__(BR * (D / 32))
+__global__ void __launch_bounds__(row_threads(D))
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const float* __restrict__ bias, T* __restrict__ dq,
                         Dims n, float scale, int causal, Dropout drop) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
+  constexpr int DPT = row_dims(D), TPR = D / DPT, NT = BR * TPR;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
   float* sV = smem + BR * D;
@@ -333,7 +341,7 @@ __global__ void __launch_bounds__(BR * (D / dkv_dims(D)))
 // three blocks an SM at D = 64 (168 registers; left free, the compiler
 // takes 255 and fits two)
 template <typename T, int D, int BR>
-__global__ void __launch_bounds__(BR * (D / 32), D == 64 ? 3 : 1)
+__global__ void __launch_bounds__(row_threads(D), D == 64 ? 3 : 1)
     flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
                            const T* __restrict__ dout,
@@ -342,8 +350,10 @@ __global__ void __launch_bounds__(BR * (D / 32), D == 64 ? 3 : 1)
                            const float* __restrict__ bias,
                            float* __restrict__ db, Dims n, int nb,
                            float scale, int causal, Dropout drop) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
-  constexpr int NJ = BR / TPR;  // columns of the tile one thread sums
+  constexpr int DPT = row_dims(D), TPR = D / DPT, NT = BR * TPR;
+  // columns of the tile one thread sums (h, h + TPR, ... below BR; from D
+  // = 1024 on, where TPR > BR, the threads h < BR one each)
+  constexpr int NJ = (BR + TPR - 1) / TPR;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
   float* sV = smem + BR * D;
@@ -360,7 +370,8 @@ __global__ void __launch_bounds__(BR * (D / 32), D == 64 ? 3 : 1)
   for (int i = 0; i < NJ; ++i) acc[i] = 0.f;
   if (causal && kt > qt) {  // above the diagonal: no score is live
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) dbrow[h + TPR * i] = 0.f;
+    for (int i = 0; i < NJ; ++i)
+      if (h + TPR * i < BR) dbrow[h + TPR * i] = 0.f;
     return;
   }
   const float* brow = bias_row<true>(bias, head, qpos, n);
@@ -399,7 +410,8 @@ __global__ void __launch_bounds__(BR * (D / 32), D == 64 ? 3 : 1)
     }
   }
 #pragma unroll
-  for (int i = 0; i < NJ; ++i) dbrow[h + TPR * i] = acc[i];
+  for (int i = 0; i < NJ; ++i)
+    if (h + TPR * i < BR) dbrow[h + TPR * i] = acc[i];
 }
 
 // dynamic shared memory of a kernel that stages two (BR, D) fp32 tiles
@@ -418,7 +430,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   constexpr int smem = tile_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles<BR>(n.sq), bh), BR * (D / 32), smem, s>>>(
+  kernel<<<dim3(tiles<BR>(n.sq), bh), row_threads(D), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(o), static_cast<float*>(lse), n, scale, causal, drop);
@@ -434,7 +446,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   constexpr int smem = tile_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles<BR>(n.sq), bh), BR * (D / 32), smem, s>>>(
+  kernel<<<dim3(tiles<BR>(n.sq), bh), row_threads(D), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -472,8 +484,8 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
   constexpr int smem = tile_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles<BR>(n.sk), tiles<BR>(n.sq), n.heads), BR * (D / 32),
-           smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+  kernel<<<dim3(tiles<BR>(n.sk), tiles<BR>(n.sq), n.heads),
+           row_threads(D), smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse),
                 static_cast<const float*>(delta),
@@ -485,7 +497,7 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
 // FN<T, D, HasBias, BR>(args...): the bias-free kernels for a null
 // `bias`, the bias kernels otherwise; over every type and D (DISPATCH) or
 // over those the CUDA-core route takes of the forward and dK/dV
-// (DISPATCH_CORE: fp32, and bf16 at D = 512)
+// (DISPATCH_CORE: fp32, and bf16 from D = 512 on)
 #define APEX_FLASH_DISPATCH(FN, ...)                                 \
   do {                                                               \
     if (bias != nullptr)                                             \
@@ -506,8 +518,9 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
 // On CUDA device `device`, on `stream`. q, o, dO, dq: (bh, sq, d); k, v,
 // dk, dv: (bh, sk, d); contiguous, 16-byte aligned, all of one type
 // (is_bf16 ? bf16 : fp32); lse, delta: (bh, sq) fp32. d is a multiple of 8
-// up to 512 (run by the instantiation for 32, 64, 128, 256 or 512, zeros
-// past d); the forward and dK/dV take bf16 only at d > 256 (below, the
+// up to 2048 (run by the instantiation for 32, 64, 128, 256, 512, 1024
+// or 2048, zeros past d); the forward and dK/dV take bf16 only at d > 256
+// (below, the
 // entry points of flash_mma.cu run it) and return cudaErrorInvalidValue
 // otherwise. sq and sk are any lengths, equal when causal: the last tile
 // of a length that is not a multiple of the tile masks the rows and

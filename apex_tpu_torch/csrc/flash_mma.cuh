@@ -1,5 +1,6 @@
-// Tensor-core tile code for bf16 attention kernels (flash_mma.cu; the
-// varlen kernels can take it up): warp-level mma.sync.m16n8k16 products
+// Tensor-core tile code for bf16 kernels (the attention kernels of
+// flash_mma.cu, the LM-head backward of lm_head_mma.cu; the varlen kernels
+// can take it up): warp-level mma.sync.m16n8k16 products
 // with fp32 accumulation, operands loaded from shared memory by ldmatrix,
 // tiles filled by 16-byte cp.async copies.
 //

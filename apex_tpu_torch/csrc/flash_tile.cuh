@@ -2,17 +2,21 @@
 // (flash_attention.cu) and the packed variable-length ones
 // (flash_varlen.cu).
 //
-// A tile is BR rows of one (batch*head) slice: kB = 64, or 32 at D = 512,
-// where two 64-row fp32 tiles would need 256 KB of shared memory. The
-// wrappers' 64-row unit stays (the bias padding, the varlen tile tables,
-// the causal diagonal): a 32-row tile reads half of a 64-row entry.
+// A tile is BR rows of one (batch*head) slice: kB = 64 up to D = 256, and
+// above it BR = 16,384 / D (32 at D = 512, 16 at 1024, 8 at 2048), so two
+// (BR, D) fp32 tiles keep to 128 KB of shared memory. The wrappers' 64-row
+// unit stays (the bias padding, the varlen tile tables, the causal
+// diagonal): a BR-row tile reads a half, a quarter or an eighth of a
+// 64-row entry.
 // K/V (or Q/dO) tiles are staged in shared memory as fp32, D floats a row,
-// where D is the instantiated head dim (32, 64, 128, 256 or 512) and the
+// where D is the instantiated head dim (32, 64, 128, 256, 512, 1024 or
+// 2048) and the
 // true head dim d (a multiple of 8, at most D) is the row stride in device
 // memory: columns d..D-1 and
 // the rows past the end of a sequence are filled with zeros, so dot
 // products over D equal those over d and nothing is read past the end. A
-// row held in registers belongs to TPR = D / DPT neighbouring threads, each
+// row held in registers belongs to TPR = D / DPT neighbouring threads (at
+// most a warp), each
 // owning DPT of its dims in interleaved float4 chunks (h, h + TPR, ...), so
 // the group's shared-memory reads are conflict-free broadcasts; dot
 // products end with an xor-shuffle sum inside the group.
@@ -28,19 +32,38 @@ constexpr int kChunk = 16;  // keys per online-softmax update
 // the instantiated head dim that runs head dim d (0: none)
 inline int flash_head_dim(int d) {
   return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256
-         : d <= 512 ? 512 : 0;
+         : d <= 512 ? 512 : d <= 1024 ? 1024 : d <= 2048 ? 2048 : 0;
 }
 
 // rows BR of a kernel tile at head dim D: two (BR, D) fp32 tiles take 128
-// KB of shared memory at D = 256 (64 rows) and at D = 512 (32 rows)
+// KB of shared memory from D = 256 (64 rows) to D = 2048 (8 rows)
 __host__ __device__ constexpr int flash_tile_rows(int D) {
-  return D == 512 ? 32 : kB;
+  return D >= 256 ? 16384 / D : kB;
+}
+
+// dims a forward, dQ or d(bias) thread holds of its row: 32, and 64 at D =
+// 2048, so a row belongs to at most one warp (its sums are xor-shuffles)
+__host__ __device__ constexpr int row_dims(int D) {
+  return D == 2048 ? 64 : 32;
+}
+
+// threads of a forward, dQ or d(bias) block: 512 from D = 256 to 1024, 256
+// at D = 2048
+__host__ __device__ constexpr int row_threads(int D) {
+  return flash_tile_rows(D) * (D / row_dims(D));
 }
 
 // dims a dK/dV thread holds of each of its four rows (k, v, dk, dv): 512
-// threads at D = 512 as at D = 256 (1,024 for dK/dV there)
+// threads from D = 512 to 1024 as at D = 256 (1,024 for dK/dV there), 256
+// at D = 2048
 __host__ __device__ constexpr int dkv_dims(int D) {
-  return D == 512 ? 32 : 16;
+  return D == 2048 ? 64 : D >= 512 ? 32 : 16;
+}
+
+// keys per online-softmax update: kChunk, or the whole tile when it has
+// fewer rows (BR = 8 at D = 2048)
+__host__ __device__ constexpr int chunk_keys(int BR) {
+  return BR < kChunk ? BR : kChunk;
 }
 
 // tiles of BR rows over n rows
@@ -198,7 +221,7 @@ inline int status_of(cudaError_t launched) {
 // runs the launch given, as written, with T and D bound to the input type
 // and the instantiated head dim that takes d (BR to its tile rows), and
 // returns its status from the calling entry point (cudaErrorInvalidValue
-// for a d above 512)
+// for a d above 2048)
 #define APEX_FLASH_DISPATCH_TD(...)                                   \
   do {                                                                \
     switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \
@@ -212,13 +235,17 @@ inline int status_of(cudaError_t launched) {
       APEX_FLASH_CASE(513, __nv_bfloat16, 256, __VA_ARGS__)           \
       APEX_FLASH_CASE(1024, float, 512, __VA_ARGS__)                  \
       APEX_FLASH_CASE(1025, __nv_bfloat16, 512, __VA_ARGS__)          \
+      APEX_FLASH_CASE(2048, float, 1024, __VA_ARGS__)                 \
+      APEX_FLASH_CASE(2049, __nv_bfloat16, 1024, __VA_ARGS__)         \
+      APEX_FLASH_CASE(4096, float, 2048, __VA_ARGS__)                 \
+      APEX_FLASH_CASE(4097, __nv_bfloat16, 2048, __VA_ARGS__)         \
       default: return static_cast<int>(cudaErrorInvalidValue);        \
     }                                                                 \
   } while (0)
 
 // as APEX_FLASH_DISPATCH_TD, for a kernel whose bf16 inputs at d <= 256
 // run on the tensor cores (flash_mma.cu): here fp32 at every D and bf16
-// at D = 512 only
+// from D = 512 on
 #define APEX_FLASH_DISPATCH_CORE(...)                                 \
   do {                                                                \
     switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \
@@ -228,6 +255,10 @@ inline int status_of(cudaError_t launched) {
       APEX_FLASH_CASE(512, float, 256, __VA_ARGS__)                   \
       APEX_FLASH_CASE(1024, float, 512, __VA_ARGS__)                  \
       APEX_FLASH_CASE(1025, __nv_bfloat16, 512, __VA_ARGS__)          \
+      APEX_FLASH_CASE(2048, float, 1024, __VA_ARGS__)                 \
+      APEX_FLASH_CASE(2049, __nv_bfloat16, 1024, __VA_ARGS__)         \
+      APEX_FLASH_CASE(4096, float, 2048, __VA_ARGS__)                 \
+      APEX_FLASH_CASE(4097, __nv_bfloat16, 2048, __VA_ARGS__)         \
       default: return static_cast<int>(cudaErrorInvalidValue);        \
     }                                                                 \
   } while (0)

@@ -43,9 +43,10 @@
 // kmax, ilo, ihi). The min is over the tile's real tokens: JAX counts a
 // pad as -1, which makes the tile holding a document's end and padding
 // meet every tile, and its block walk the whole row. Each block stages
-// the tile's segment ids beside K/V (or Q/dO) in shared memory. At D = 512
-// the tiles are 32 rows (flash_tile.cuh): a block reads its half of a
-// 64-row table entry and walks both halves of each live entry.
+// the tile's segment ids beside K/V (or Q/dO) in shared memory. From D =
+// 512 on the tiles are 32, 16 or 8 rows (flash_tile.cuh, D = 512, 1024,
+// 2048): a block reads its part of a 64-row table entry and walks every
+// part of each live entry.
 
 #include "flash_tile.cuh"
 
@@ -69,7 +70,8 @@ __device__ __forceinline__ bool tiles_meet(int4 qi, int4 ki, int qt, int kt,
 
 // at most 128 registers a thread, as the flash forward
 template <typename T, int D, int BR>
-__global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
+__global__ void __launch_bounds__(row_threads(D),
+                                  D == 2048 ? 1 : 512 / row_threads(D))
     varlen_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ seg_q,
                       const int* __restrict__ seg_k,
@@ -77,7 +79,7 @@ __global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
                       const int4* __restrict__ kr, T* __restrict__ o,
                       float* __restrict__ lse, Dims n, float scale,
                       int causal) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
+  constexpr int DPT = row_dims(D), TPR = D / DPT, NT = BR * TPR;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
   float* sV = smem + BR * D;
@@ -108,12 +110,13 @@ __global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
     for (int j = threadIdx.x; j < BR; j += NT)
       sSeg[j] = seg_k[static_cast<long>(b) * n.sk + kt * BR + j];
     __syncthreads();
-    for (int j0 = 0; j0 < BR; j0 += kChunk) {
-      float s[kChunk];
-      bool ok[kChunk];
+    constexpr int CH = chunk_keys(BR);
+    for (int j0 = 0; j0 < BR; j0 += CH) {
+      float s[CH];
+      bool ok[CH];
       float cmax = apex::kNegInf;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
+      for (int jj = 0; jj < CH; ++jj) {
         const int j = j0 + jj;
         const float sv =
             group_sum<TPR>(dot_part<DPT, TPR>(qr_, sK + j * D, h)) * scale;
@@ -126,7 +129,7 @@ __global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
       const float corr = m <= 0.5f * apex::kNegInf ? 0.f : expf(m - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
+      for (int jj = 0; jj < CH; ++jj) {
         s[jj] = ok[jj] ? expf(s[jj] - m_new) : 0.f;
         psum += s[jj];
       }
@@ -134,7 +137,7 @@ __global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
 #pragma unroll
       for (int i = 0; i < DPT; ++i) acc[i] *= corr;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj)
+      for (int jj = 0; jj < CH; ++jj)
         axpy_part<DPT, TPR>(acc, round_to<T>(s[jj]), sV + (j0 + jj) * D, h);
       m = m_new;
     }
@@ -152,7 +155,7 @@ __global__ void __launch_bounds__(BR * (D / 32), 512 / (BR * (D / 32)))
 // dQ: one block per (q tile, b*h), over the q tile's live K/V tiles
 
 template <typename T, int D, int BR>
-__global__ void __launch_bounds__(BR * (D / 32))
+__global__ void __launch_bounds__(row_threads(D))
     varlen_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ seg_q,
                      const int* __restrict__ seg_k,
@@ -161,7 +164,7 @@ __global__ void __launch_bounds__(BR * (D / 32))
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dq,
                      Dims n, float scale, int causal) {
-  constexpr int DPT = 32, TPR = D / DPT, NT = BR * TPR;
+  constexpr int DPT = row_dims(D), TPR = D / DPT, NT = BR * TPR;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
   float* sV = smem + BR * D;
@@ -293,7 +296,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   constexpr int smem = varlen_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n.sq / BR, b * n.h), BR * (D / 32), smem, s>>>(
+  kernel<<<dim3(n.sq / BR, b * n.h), row_threads(D), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
@@ -312,7 +315,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   constexpr int smem = varlen_smem<D, BR>(false);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n.sq / BR, b * n.h), BR * (D / 32), smem, s>>>(
+  kernel<<<dim3(n.sq / BR, b * n.h), row_threads(D), smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
@@ -349,8 +352,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // (is_bf16 ? bf16 : fp32); seg_q (b, sq), seg_k (b, sk) int32; lse, delta:
 // (b, h, sq) fp32; qr (b, sq / 64, 4) and kr (b, sk / 64, 4) int32, the
 // per-tile tables (segment min, max, live range lo, hi). sq and sk are
-// multiples of 64; d is a multiple of 8 up to 512 (at D = 512 the kernels'
-// 32-row tiles read half of a 64-row table entry each).
+// multiples of 64; d is a multiple of 8 up to 2048 (from D = 512 on the
+// kernels' 32-, 16- and 8-row tiles read a half, a quarter and an eighth of
+// a 64-row table entry each).
 extern "C" int flash_varlen_fwd(int device, const void* q, const void* k,
                                 const void* v, const void* seg_q,
                                 const void* seg_k, const void* qr,

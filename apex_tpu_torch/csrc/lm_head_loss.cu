@@ -8,6 +8,8 @@
 //   * `_dx_kernel` (`_run_bwd`, pallas_call at :244):
 //     dx = sum_v dl . W_v with dl = (exp(s - lse) - onehot) * g;
 //   * `_dw_kernel` (`_run_bwd`, pallas_call at :263): dw = sum_n dl^T . X_n.
+// dX and dW here take fp32 inputs; bf16 inputs run the tensor-core dX and
+// dW of lm_head_mma.cu.
 //
 // Math, exactly the JAX kernels' (fp32 accumulation): a vocab column past V
 // is masked to NEG_INF in the forward and gives dl = 0 in the backward (its
@@ -31,11 +33,11 @@
 //     for ~8 blocks an SM), walks it in 64-column tiles keeping m, l and
 //     pred in registers (4 lanes per row), and writes them per split; a
 //     second launch merges the splits in order (log-sum-exp merge);
-//   * dX: a block owns 32 rows and a chunk of at most 1024 (fp32: 512)
-//     hidden columns, with its dx accumulator in the warps' fragments, and
-//     walks the vocab in 64-column tiles;
-//   * dW: a block owns 32 vocab rows and a hidden chunk, and walks the rows
-//     in 64-row tiles.
+//   * dX (fp32): a block owns 32 rows and a chunk of at most 512 hidden
+//     columns, with its dx accumulator in the warps' fragments, and walks
+//     the vocab in 64-column tiles;
+//   * dW (fp32): a block owns 32 vocab rows and a hidden chunk, and walks
+//     the rows in 64-row tiles.
 // The scores of a tile come from a product over h whose K chunks stream
 // into shared memory with cp.async, two stages deep, so the next chunk
 // loads while this one multiplies. They go to shared memory as fp32 for
@@ -65,7 +67,7 @@ template <typename T>
 struct Tile;
 template <>
 struct Tile<__nv_bfloat16> {
-  static constexpr int KC = 64, KC_BWD = 128, PAD = 8, HCMAX = 1024;
+  static constexpr int KC = 64, PAD = 8;
 };
 template <>
 struct Tile<float> {
@@ -742,7 +744,8 @@ extern "C" int lm_head_loss_fwd_splits(int n, int v) {
 // 128; t: (n,) int64 target ids (any value: an id outside [0, V) picks no
 // logit); lse, pred, g: (n,) fp32. Forward writes lse and pred (through
 // `part`, see lm_head_loss_fwd_splits); dX writes dx (n, h) and dW writes
-// dw (V, h), both in the input type.
+// dw (V, h), both fp32 (bf16 inputs: cudaErrorInvalidValue; their dX and
+// dW are lm_head_mma.cu's).
 extern "C" int lm_head_loss_fwd(int device, const void* x, const void* w,
                                 const void* t, void* part, void* lse,
                                 void* pred, int n, int v, int h, int is_bf16,
@@ -764,7 +767,7 @@ extern "C" int lm_head_loss_bwd_dx(int device, const void* x, const void* w,
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      is_bf16 ? launch_dx<__nv_bfloat16>(x, w, t, lse, g, dx, n, v, h, s)
+      is_bf16 ? cudaErrorInvalidValue
               : launch_dx<float>(x, w, t, lse, g, dx, n, v, h, s));
 }
 
@@ -776,6 +779,6 @@ extern "C" int lm_head_loss_bwd_dw(int device, const void* x, const void* w,
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      is_bf16 ? launch_dw<__nv_bfloat16>(x, w, t, lse, g, dw, n, v, h, s)
+      is_bf16 ? cudaErrorInvalidValue
               : launch_dw<float>(x, w, t, lse, g, dw, n, v, h, s));
 }

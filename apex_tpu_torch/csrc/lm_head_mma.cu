@@ -1,0 +1,622 @@
+// Fused LM head + softmax cross-entropy, backward (dX and dW), bf16 on
+// Hopper's tensor cores (sm_90a).
+//
+// Replaces, for bf16 inputs, the TPU kernels of apex_tpu/ops/lm_head_loss.py
+// reached through `_run_bwd`:
+//   * `_dx_kernel` (pallas_call at :244): dx = sum_v dl . W_v;
+//   * `_dw_kernel` (pallas_call at :263): dw = sum_n dl^T . X_n;
+// with dl = (exp(s - lse) - onehot(t)) * g and s = x . w^T recomputed tile
+// by tile from the saved (x, w, t, lse): the (rows, vocab) scores never
+// reach device memory. fp32 inputs keep the CUDA-core kernels of
+// lm_head_loss.cu: on the tensor cores fp32 products run as TF32, and the
+// fp32 gates need fp32 products.
+//
+// Math, the JAX kernels' (:130-183): s is accumulated in fp32; a vocab
+// column past V gives dl = 0 (its W row loads as zeros); a target outside
+// [0, V) hits no column; dl is rounded to bf16 before the second product,
+// whose sums are fp32; dx and dw are written in bf16.
+//
+// Bound on this card: tensor-core operations, 4.n.V.h (the scores and the
+// second product): 1.28 ms at the training shape (8192 x 768, V 50304) at
+// 989 TFLOP/s; the bytes (x, w, dx or dw) take 0.03 ms.
+//
+// Design. dX and dW are one kernel with the roles of x and w swapped: a
+// block owns 64 rows of one matrix (dX: x's rows; dW: w's vocab rows; the
+// "own" tile) and streams the other (dX: w; dW: x) in tiles of 64 rows.
+// Per tile: S = own . tile^T (64 x 64, fp32) in registers, dl from S in
+// registers, rounded to bf16 into a small shared tile, then acc += dl .
+// tile with the (64 x hk) fp32 accumulator in registers. The register file
+// bounds the accumulator: up to hk = 512 columns (128 fp32 a thread) a CTA
+// covers the hidden axis alone (T5-small's 512). Wider, a thread block
+// cluster of C CTAs (2 <= C <= 8) splits it into panels of hk <= 384 (96
+// fp32 a thread, beside the buffers of the exchange below): CTA r holds
+// the own rows and the streamed tiles over its hk columns only, forms its
+// part of S over them, and the C parts are summed through distributed
+// shared memory, in rank order in every CTA, so all hold the same S bits.
+// A pair (C = 2: GPT-2's 768) sends its part with one bulk copy into the
+// peer's shared memory, which completes the peer's mbarrier; larger
+// clusters read each other's parts after a cluster barrier, whose release
+// (a cluster-scope fence a tile) cost pairs more than the bulk copy does
+// (PERF.md). The streamed matrix is then read once per 64 own rows (at
+// GPT-2's shape 9.9 GB through L2, where 32-row blocks over the whole
+// hidden axis read 19.8), and S is formed once. Above 8 x
+// 384 hidden columns each CTA covers P > 1 panels of 384: S is formed
+// panel by panel and grid.y runs one block per output panel (S recomputed
+// P times).
+//
+// Products: mma.sync.m16n8k16 with fp32 accumulation, operands by ldmatrix
+// from shared rows padded by 16 bytes (flash_mma.cuh). Eight warps; for S
+// each owns 32 x 16 (2 A and 1 B fragment loads feed 4 products a k
+// step), for the accumulator 32 rows x hk/4 columns (2 A and hk/32 B
+// loads feed hk/16 products a k step). The streamed tile is
+// double-buffered: the next one copies (cp.async) while this one is used.
+// Every output element has one owner that sums in a fixed order, no
+// atomics: dx and dw repeat bitwise. dX at few rows (T5's 1,024) splits
+// the vocab so the grid fills the card: each split writes fp32 partials
+// and a second launch adds them in split order. The cluster size, panels
+// and split count come from the wrapper (ops/lm_head_loss.py
+// `_mma_layout`, `_dx_splits`), functions of (n, V, h) alone.
+
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+#include "flash_mma.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kOwnRows = 64;       // own rows of a block
+constexpr int kStreamRows = 64;    // rows of a streamed tile
+constexpr int kLmThreads = 256;    // 8 warps
+// fp32 row strides of a part of S: exchanged through the cluster barrier
+// (two buffers), or by bulk copies between the CTAs of a pair (four: two
+// received, two sent; four rows of 72 would not fit beside 384-column
+// tiles)
+constexpr int kPartLd = kStreamRows + 8;
+constexpr int kPairLd = kStreamRows + 4;
+constexpr int kMaxCluster = 8;
+constexpr int kMaxSplits = 16;
+
+struct BwdArgs {
+  const bf16* own;       // (own_n, h): x for dX, w for dW
+  const bf16* stream;    // (stream_n, h): w for dX, x for dW
+  const long long* t;    // (n,) targets
+  const float* lse;      // (n,)
+  const float* g;        // (n,) upstream gradient of each row's loss
+  bf16* out;             // (own_n, h), or null when `part` takes the sums
+  float* part;           // (splits, own_n, h) fp32 partials, or null
+  int own_n, stream_n, h, vocab;
+  int tiles_per_split;   // streamed tiles one split walks
+  int panels;            // hk-wide hidden panels a CTA covers (P)
+};
+
+// the own tile, two streamed tiles, dl; the parts of S a cluster
+// exchanges (and a pair's two mbarriers)
+template <int HK>
+constexpr size_t bwd_smem_bytes(int cluster) {
+  return (3 * kOwnRows * kStride<HK> + kOwnRows * kStride<64>) * 2 +
+         (cluster == 2   ? 4 * kOwnRows * kPairLd * 4 + 16
+          : cluster > 2 ? 2 * kOwnRows * kPartLd * 4
+                        : 0);
+}
+
+// Start copying rows [row0, row0 + 64) x columns [col0, col0 + HK) of a
+// (rows, h) bf16 matrix into a (64, HK) tile; rows at or past `limit` and
+// columns at or past h become zeros (read from a clamped address). Joins
+// the caller's open cp.async group.
+template <int HK>
+__device__ __forceinline__ void panel_async(bf16* dst, const bf16* src,
+                                            int row0, int limit, int col0,
+                                            int h) {
+  constexpr int CH = HK / 8;  // 16-byte chunks a row
+  static_assert(kOwnRows * CH % kLmThreads == 0, "whole rounds of copies");
+  auto copy = [&](int u) {
+    const int r = u / CH, c = (u % CH) * 8;
+    const int row = row0 + r, col = col0 + c;
+    const bool in = row < limit && col < h;
+    cp_async16(dst + r * kStride<HK> + c,
+               src + (in ? static_cast<long>(row) * h + col : 0L), in);
+  };
+  // unrolled up to 384 columns (GPT-2's pair: faster); at 512, where the
+  // accumulator takes 128 registers a thread, unrolled was slower
+  if constexpr (HK <= 384) {
+#pragma unroll
+    for (int k = 0; k < kOwnRows * CH / kLmThreads; ++k)
+      copy(threadIdx.x + k * kLmThreads);
+  } else {
+    for (int u = threadIdx.x; u < kOwnRows * CH; u += kLmThreads) copy(u);
+  }
+}
+
+// s += own . str^T over the HK columns of the two tiles; the warp's 32 x 16
+// block of S: s[m][nb] is rows 32 wm + 16 m, columns 16 wn + 8 nb
+template <int HK>
+__device__ __forceinline__ void score_part(float (&s)[2][2][4],
+                                           const bf16* own, const bf16* str,
+                                           int wm, int wn, int lane) {
+#pragma unroll 4
+  for (int kk = 0; kk < HK; kk += 16) {
+    uint32_t a0[4], a1[4], b[4];
+    load_a<HK>(a0, own, wm * 32, kk, lane);
+    load_a<HK>(a1, own, wm * 32 + 16, kk, lane);
+    load_bt<HK>(b, str, wn * 16, kk, lane);
+    mma_bf16(s[0][0], a0, b[0], b[1]);
+    mma_bf16(s[0][1], a0, b[2], b[3]);
+    mma_bf16(s[1][0], a1, b[0], b[1]);
+    mma_bf16(s[1][1], a1, b[2], b[3]);
+  }
+}
+
+// acc += dl . str: dl (64 x 64 bf16, row stride 72), str the streamed tile
+// (64 x HK); the warp's 32 rows x HK/4 columns, acc[m][nt] rows 32 wm +
+// 16 m, columns HK/4 wn + 8 nt
+template <int HK>
+__device__ __forceinline__ void dl_product(float (&acc)[2][HK / 32][4],
+                                           const bf16* dl, const bf16* str,
+                                           int wm, int wn, int lane) {
+  constexpr int NT = HK / 32;
+#pragma unroll
+  for (int kk = 0; kk < kStreamRows; kk += 16) {
+    uint32_t a0[4], a1[4];
+    load_a<64>(a0, dl, wm * 32, kk, lane);
+    load_a<64>(a1, dl, wm * 32 + 16, kk, lane);
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t b[4];
+      load_b<HK>(b, str, kk, wn * (HK / 4) + 16 * j, lane);
+      mma_bf16(acc[0][2 * j], a0, b[0], b[1]);
+      mma_bf16(acc[0][2 * j + 1], a0, b[2], b[3]);
+      mma_bf16(acc[1][2 * j], a1, b[0], b[1]);
+      mma_bf16(acc[1][2 * j + 1], a1, b[2], b[3]);
+    }
+  }
+}
+
+// mbarriers and copies between the shared memories of a pair (addresses:
+// shared::cta for this CTA's, shared::cluster for the peer's)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+// arrive (the one arrival a phase expects) and expect `bytes` more
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// the shared::cluster address of this CTA's `local` in CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t local, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(local), "r"(rank));
+  return out;
+}
+// `bytes` of this CTA's shared memory at `src` to `dst` in the peer's,
+// completing that many bytes of the peer's mbarrier `bar`
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src,
+                                             int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A row's target, lse and g (target -1, g 0 past the last row: dl = 0)
+struct RowInfo {
+  long long t;
+  float lse, g;
+};
+
+__device__ __forceinline__ RowInfo row_info(const BwdArgs& a, int row,
+                                            int n) {
+  if (row >= n) return {-1, 0.f, 0.f};
+  return {__ldg(a.t + row), __ldg(a.lse + row), __ldg(a.g + row)};
+}
+
+// Block (own tile x cluster rank, output panel, vocab split). DW: own = w,
+// streamed = x, the vocab index is the own row; else own = x, streamed =
+// w, the vocab index is the streamed row.
+template <bool DW, int HK>
+__global__ void __launch_bounds__(kLmThreads, 1)
+    lm_mma_bwd_kernel(const BwdArgs a) {
+  constexpr int LDH = kStride<HK>, LDL = kStride<64>, NT = HK / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* s_own = reinterpret_cast<bf16*>(smem);        // 64 x LDH
+  bf16* s_str = s_own + kOwnRows * LDH;               // 2 x 64 x LDH
+  bf16* s_dl = s_str + 2 * kStreamRows * LDH;         // 64 x LDL
+  // parts of S: a cluster's 2 x 64 x kPartLd, or a pair's 4 x 64 x
+  // kPairLd (received [0, 1], sent [2, 3]) and its mbarriers full[2]
+  float* s_part = reinterpret_cast<float*>(s_dl + kOwnRows * LDL);
+  uint64_t* s_full =
+      reinterpret_cast<uint64_t*>(s_part + 4 * kOwnRows * kPairLd);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int own0 = (blockIdx.x / csize) * kOwnRows;
+  const int P = a.panels, group = blockIdx.y;
+  if (csize == 2) {
+    if (threadIdx.x == 0) {
+      mbar_init(smem_addr(s_full), 1);
+      mbar_init(smem_addr(s_full + 1), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster.sync();  // the peer's mbarriers exist before any copy to them
+  }
+  // this thread's S elements in a part with row stride ld: rows 32 wm +
+  // 16 m + g8 + 8 hh, columns 16 wn + 8 nb + 2 t4 (and + 1)
+  auto frag_at = [&](int m, int nb, int hh, int ld) {
+    return (wm * 32 + 16 * m + g8 + 8 * hh) * ld + wn * 16 + 8 * nb + 2 * t4;
+  };
+  const int n = DW ? a.stream_n : a.own_n;
+  const int ntiles = (a.stream_n + kStreamRows - 1) / kStreamRows;
+  const int t_begin = blockIdx.z * a.tiles_per_split;
+  const int t_end = min(ntiles, t_begin + a.tiles_per_split);
+
+  // dX: the rows of this thread's accumulator and score elements are x
+  // rows, fixed for the block: own0 + 32 wm + 16 (i / 2) + g8 + 8 (i % 2)
+  RowInfo rows[4];
+  if (!DW) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      rows[i] = row_info(a, own0 + wm * 32 + 16 * (i >> 1) + g8 + 8 * (i & 1),
+                         n);
+  }
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
+
+  const int col1 = rank * HK;  // the one panel when P == 1
+  if (P == 1) {
+    panel_async<HK>(s_own, a.own, own0, a.own_n, col1, a.h);
+    if (t_begin < t_end)
+      panel_async<HK>(s_str, a.stream, t_begin * kStreamRows, a.stream_n,
+                      col1, a.h);
+    cp_async_commit();
+  }
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int i = tile - t_begin;
+    const int tile0 = tile * kStreamRows;
+    // dW: the score columns of this thread are x rows tile0 + 16 wn + 8
+    // (j / 2) + 2 t4 + j % 2
+    RowInfo cols[4];
+    if (DW) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        cols[j] = row_info(a, tile0 + wn * 16 + 8 * (j >> 1) + 2 * t4 +
+                                  (j & 1), n);
+    }
+    float s[2][2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s[m][nb][q] = 0.f;
+    const bf16* str;
+    if (P == 1) {
+      __syncthreads();  // the readers of the other buffer (tile - 1) are done
+      if (tile + 1 < t_end) {
+        panel_async<HK>(s_str + ((i + 1) & 1) * kStreamRows * LDH, a.stream,
+                        tile0 + kStreamRows, a.stream_n, col1, a.h);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // this tile has landed for every thread
+      str = s_str + (i & 1) * kStreamRows * LDH;
+      score_part<HK>(s, s_own, str, wm, wn, lane);
+    } else {
+      // panel by panel, the output panel last: its streamed tile stays in
+      // the buffer for the second product
+      for (int kp = 0; kp < P; ++kp) {
+        const int col = (rank * P + (group + 1 + kp) % P) * HK;
+        __syncthreads();  // the previous panel's (or tile's) readers are done
+        panel_async<HK>(s_own, a.own, own0, a.own_n, col, a.h);
+        panel_async<HK>(s_str, a.stream, tile0, a.stream_n, col, a.h);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        score_part<HK>(s, s_own, s_str, wm, wn, lane);
+      }
+      str = s_str;
+    }
+
+    if (csize == 2) {
+      // a pair: this CTA's part into its send buffer i % 2, one bulk copy
+      // of it into the peer's receive buffer i % 2 (completing the peer's
+      // mbarrier i % 2), then the peer's part from our receive buffer, the
+      // sum in rank order. A send buffer is written again two tiles
+      // later: by then the peer's part of tile i + 1 has arrived, which
+      // it sent after our copy of tile i had landed.
+      constexpr int PART = kOwnRows * kPairLd;
+      float* send = s_part + (2 + (i & 1)) * PART;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(send + frag_at(m, nb, hh, kPairLd)) =
+                make_float2(s[m][nb][2 * hh], s[m][nb][2 * hh + 1]);
+      // the bulk copy reads through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      const uint32_t full = smem_addr(s_full + (i & 1));
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(full, PART * 4);
+        bulk_to_peer(map_rank(smem_addr(s_part + (i & 1) * PART), rank ^ 1),
+                     smem_addr(send), PART * 4, map_rank(full, rank ^ 1));
+      }
+      mbar_wait(full, (i >> 1) & 1);
+      const float* got = s_part + (i & 1) * PART;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                got + frag_at(m, nb, hh, kPairLd));
+            float& x = s[m][nb][2 * hh];
+            float& y = s[m][nb][2 * hh + 1];
+            x = rank == 0 ? x + v.x : v.x + x;
+            y = rank == 0 ? y + v.y : v.y + y;
+          }
+    } else if (csize > 2) {
+      // the cluster's parts of S, summed in rank order; parts alternate
+      // between two buffers, so one cluster barrier a tile keeps a part
+      // from being overwritten before every CTA has read it
+      float* mine = s_part + (i & 1) * kOwnRows * kPartLd;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(mine + frag_at(m, nb, hh, kPartLd)) =
+                make_float2(s[m][nb][2 * hh], s[m][nb][2 * hh + 1]);
+      cluster.sync();
+      float sum[2][2][4];
+      for (int r = 0; r < csize; ++r) {
+        const float* other = cluster.map_shared_rank(mine, r);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float2 v = make_float2(s[m][nb][2 * hh], s[m][nb][2 * hh + 1]);
+              if (r != rank)
+                v = *reinterpret_cast<const float2*>(
+                    other + frag_at(m, nb, hh, kPartLd));
+              if (r == 0) {
+                sum[m][nb][2 * hh] = v.x;
+                sum[m][nb][2 * hh + 1] = v.y;
+              } else {
+                sum[m][nb][2 * hh] += v.x;
+                sum[m][nb][2 * hh + 1] += v.y;
+              }
+            }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) s[m][nb][q] = sum[m][nb][q];
+    }
+
+    // dl = (exp(s - lse) - hit) * g, 0 past the vocab, rounded to bf16
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ri = 2 * m + hh, cj = 2 * nb + e;
+            const int vocab =
+                DW ? own0 + wm * 32 + 16 * m + g8 + 8 * hh
+                   : tile0 + wn * 16 + 8 * nb + 2 * t4 + e;
+            const RowInfo& ri_ = DW ? cols[cj] : rows[ri];
+            const float p = expf(s[m][nb][2 * hh + e] - ri_.lse);
+            const float hit = ri_.t == vocab ? 1.f : 0.f;
+            d[e] = vocab < a.vocab ? (p - hit) * ri_.g : 0.f;
+          }
+          *reinterpret_cast<uint32_t*>(s_dl + frag_at(m, nb, hh, LDL)) =
+              pack_bf16(d[0], d[1]);
+        }
+    __syncthreads();
+    dl_product<HK>(acc, s_dl, str, wm, wn, lane);
+  }
+  cp_async_wait<0>();  // an empty split's first copy
+  // no CTA leaves while another of its cluster may still read its parts (a
+  // pair's reads are all local)
+  if (csize > 2) cluster.sync();
+
+  const int col0 = (rank * P + group) * HK + wn * (HK / 4);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = own0 + wm * 32 + 16 * m + g8 + 8 * hh;
+      if (row >= a.own_n) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = col0 + 8 * j + 2 * t4;
+        if (col >= a.h) continue;
+        const float v0 = acc[m][j][2 * hh], v1 = acc[m][j][2 * hh + 1];
+        const long at = static_cast<long>(row) * a.h + col;
+        if (a.part != nullptr)
+          *reinterpret_cast<float2*>(
+              a.part + static_cast<long>(blockIdx.z) * a.own_n * a.h + at) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<uint32_t*>(a.out + at) = pack_bf16(v0, v1);
+      }
+    }
+}
+
+// dx = sum of the splits' fp32 partials in split order, in bf16; four
+// elements a thread (count is a multiple of 128)
+__global__ void __launch_bounds__(kLmThreads)
+    lm_mma_dx_merge_kernel(const float* __restrict__ part,
+                           bf16* __restrict__ dx, long count, int splits) {
+  const long i = (static_cast<long>(blockIdx.x) * kLmThreads + threadIdx.x) *
+                 4;
+  if (i >= count) return;
+  float4 s = __ldcg(reinterpret_cast<const float4*>(part + i));
+  for (int k = 1; k < splits; ++k) {
+    const float4 p =
+        __ldcg(reinterpret_cast<const float4*>(part + k * count + i));
+    s.x += p.x;
+    s.y += p.y;
+    s.z += p.z;
+    s.w += p.w;
+  }
+  uint2 out;
+  out.x = pack_bf16(s.x, s.y);
+  out.y = pack_bf16(s.z, s.w);
+  *reinterpret_cast<uint2*>(dx + i) = out;
+}
+
+template <bool DW, int HK>
+cudaError_t launch_bwd(const BwdArgs& a, int cluster, int own_tiles,
+                       int splits, cudaStream_t s) {
+  auto kernel = lm_mma_bwd_kernel<DW, HK>;
+  const size_t bytes = bwd_smem_bytes<HK>(cluster);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(own_tiles * cluster, a.panels, splits);
+  cfg.blockDim = dim3(kLmThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+template <bool DW>
+cudaError_t launch_hk(const BwdArgs& a, int hk, int cluster, int own_tiles,
+                      int splits, cudaStream_t s) {
+  switch (hk) {
+    case 128: return launch_bwd<DW, 128>(a, cluster, own_tiles, splits, s);
+    case 256: return launch_bwd<DW, 256>(a, cluster, own_tiles, splits, s);
+    case 384: return launch_bwd<DW, 384>(a, cluster, own_tiles, splits, s);
+    case 512: return launch_bwd<DW, 512>(a, cluster, own_tiles, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the layout the wrapper chose: cluster CTAs of `panels` panels of hk
+// columns cover the hidden axis (512-column panels only without a
+// cluster: their parts of S would not fit beside the tiles)
+bool layout_ok(int h, int cluster, int hk, int panels, int splits) {
+  return h > 0 && h % 128 == 0 && cluster >= 1 && cluster <= kMaxCluster &&
+         (hk == 128 || hk == 256 || hk == 384 ||
+          (hk == 512 && cluster == 1)) &&
+         panels >= 1 &&
+         static_cast<long>(cluster) * panels * hk >= h &&
+         static_cast<long>(cluster) * (panels - 1) * hk < h && splits >= 1 &&
+         splits <= kMaxSplits;
+}
+
+}  // namespace
+
+// On CUDA device `device`, on `stream`. x: (n, h), w: (V, h), bf16,
+// contiguous, 16-byte aligned, h a multiple of 128; t: (n,) int64 target
+// ids (an id outside [0, V) hits no column); lse, g: (n,) fp32. The hidden
+// layout (cluster CTAs of `panels` panels of hk in {128, 256, 384}
+// columns) and dX's vocab split count come from the caller. dX writes dx
+// (n, h) bf16; with splits > 1 it first writes `part`, (splits, n, h)
+// fp32 scratch, and then adds the splits in order. dW writes dw (V, h)
+// bf16.
+extern "C" int lm_head_mma_bwd_dx(int device, const void* x, const void* w,
+                                  const void* t, const void* lse,
+                                  const void* g, void* part, void* dx, int n,
+                                  int v, int h, int cluster, int hk,
+                                  int panels, int splits, void* stream) {
+  if (!layout_ok(h, cluster, hk, panels, splits) || n <= 0 || v <= 0 ||
+      (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (v + kStreamRows - 1) / kStreamRows;
+  const BwdArgs a{static_cast<const bf16*>(x),
+                  static_cast<const bf16*>(w),
+                  static_cast<const long long*>(t),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(g),
+                  splits > 1 ? nullptr : static_cast<bf16*>(dx),
+                  splits > 1 ? static_cast<float*>(part) : nullptr,
+                  n, v, h, v, (tiles + splits - 1) / splits, panels};
+  cudaError_t e = launch_hk<false>(a, hk, cluster,
+                                   (n + kOwnRows - 1) / kOwnRows, splits, s);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const long count = static_cast<long>(n) * h;
+  lm_mma_dx_merge_kernel<<<(count / 4 + kLmThreads - 1) / kLmThreads,
+                           kLmThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<bf16*>(dx), count,
+      splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lm_head_mma_bwd_dw(int device, const void* x, const void* w,
+                                  const void* t, const void* lse,
+                                  const void* g, void* dw, int n, int v,
+                                  int h, int cluster, int hk, int panels,
+                                  void* stream) {
+  if (!layout_ok(h, cluster, hk, panels, 1) || n <= 0 || v <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs a{static_cast<const bf16*>(w),
+                  static_cast<const bf16*>(x),
+                  static_cast<const long long*>(t),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(g),
+                  static_cast<bf16*>(dw),
+                  nullptr,
+                  v, n, h, v, (n + kStreamRows - 1) / kStreamRows, panels};
+  cudaError_t e = launch_hk<true>(a, hk, cluster,
+                                  (v + kOwnRows - 1) / kOwnRows, 1, s);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
+}

@@ -22,7 +22,7 @@ backward kernels drop the same entries.
 
 Two routes (:func:`_flash_route`): the forward and dK/dV with bf16 inputs
 at head_dim <= 256 run on the tensor cores (``csrc/flash_mma.cu``); fp32
-inputs, head_dim 264-512 and the dQ and d(bias) kernels run on the CUDA
+inputs, head_dim 264-2048 and the dQ and d(bias) kernels run on the CUDA
 cores in fp32 (``csrc/flash_attention.cu``). Each kernel counts its
 launches under its own C entry's name.
 """
@@ -43,11 +43,12 @@ from apex_tpu_torch.ops import _kernel_util as ku
 # (-inf) - (-inf).
 NEG_INF = -1e30
 
-# the kernels' largest head dim: 512 fills a 32-row fp32 tile pair with
-# 128 KB of shared memory, as 256 does with 64 rows; above it 16-row tiles
-# would be needed, and no configuration uses it (JAX's kernel takes any
-# head_dim % 8 == 0)
-_MAX_HEAD_DIM = 512
+# the kernels' largest head dim: 2048 fills an 8-row fp32 tile pair with
+# 128 KB of shared memory, as 1024 does with 16 rows, 512 with 32 and 256
+# with 64, a row held by one warp at 64 dims a thread; above it a row
+# would need 128 dims a thread (registers) or a sum across warps, and no
+# configuration uses it (JAX's kernel takes any head_dim % 8 == 0)
+_MAX_HEAD_DIM = 2048
 # the tensor-core kernels' largest head dim (bf16 only): six (64, 256) bf16
 # tiles of dK/dV take 204 KB of shared memory
 _MMA_MAX_HEAD_DIM = 256
@@ -80,9 +81,9 @@ _MMA_SIGNATURES = {
 def _flash_route(dtype, d: int) -> str:
     """Which kernels run the forward and dK/dV at this input dtype and head
     dim on the card: ``"tensor_core"`` (bf16, d <= 256: ``flash_mma.cu``)
-    or ``"cuda_core"`` (fp32 at every d, bf16 at 264-512:
+    or ``"cuda_core"`` (fp32 at every d, bf16 at 264-2048:
     ``flash_attention.cu``, fp32 products, as JAX's fp32 reference forms
-    them). A head dim that is not a multiple of 8 up to 512 raises."""
+    them). A head dim that is not a multiple of 8 up to 2048 raises."""
     if not (d % 8 == 0 and 0 < d <= _MAX_HEAD_DIM):
         raise ValueError(f"head_dim {d} must be a multiple of 8 up to "
                          f"{_MAX_HEAD_DIM}")
@@ -500,7 +501,7 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     bias of shape (heads, sq, sk) (T5's relative position bias), added
     after the scaling and differentiable; any other shape raises
     ``ValueError``, as in JAX. On CUDA the kernels take fp32/bf16 and
-    head_dim up to 512 (above that they raise); bf16 at head_dim <= 256
+    head_dim up to 2048 (above that they raise); bf16 at head_dim <= 256
     runs the forward and dK/dV on the tensor cores (:func:`_flash_route`).
     The bias is used in fp32 whatever its dtype.
     """

@@ -320,7 +320,7 @@ def flash_attention_varlen(q, k, v, seg_q, seg_k=None, causal: bool = False,
     the JAX ``flash_attention_varlen`` contract: pads (seg < 0) attend to
     nothing and output zero; differentiable in q, k and v. The varlen
     kernels on CUDA tensors (their plain versions on CPU tensors) for
-    head_dim % 8 == 0 (up to 512 on CUDA; above that they raise), the dense
+    head_dim % 8 == 0 (up to 2048 on CUDA; above that they raise), the dense
     :func:`attention_varlen_reference` otherwise, as JAX. A length that is
     not a multiple of the kernels' 64-row tile is padded with segment −1
     and sliced back, as JAX pads to its 128 (pad keys match nothing, pad

@@ -4,13 +4,19 @@ at tp = 1).
 
 The loss of row i is ``lse_i - pred_i`` for the scores ``s = x2 · wᵀ``:
 ``lse`` the row's log-sum-exp over the vocab, ``pred`` the target's score.
-The kernels (``csrc/lm_head_loss.cu``) never write the (rows, vocab)
-scores to device memory; the backward recomputes them tile by tile from
-the saved ``(x2, w, t, lse)``. :class:`LMHeadLoss` is the JAX
-``custom_vjp``: the forward kernel (or its plain version for CPU tensors)
-in ``forward``, the dX and dW kernels (or their plain version) in
-``backward``. The plain versions materialize the fp32 scores and round
-``dl`` to the input type before each product, where the kernels do.
+The kernels never write the (rows, vocab) scores to device memory; the
+backward recomputes them tile by tile from the saved ``(x2, w, t, lse)``.
+:class:`LMHeadLoss` is the JAX ``custom_vjp``: the forward kernel (or its
+plain version for CPU tensors) in ``forward``, the dX and dW kernels (or
+their plain version) in ``backward``. The plain versions materialize the
+fp32 scores and round ``dl`` to the input type before each product, where
+the kernels do.
+
+Two routes for the backward (:func:`_lm_head_route`): bf16 inputs run the
+tensor-core dX and dW of ``csrc/lm_head_mma.cu`` (counted as
+``lm_head_mma_bwd_dx`` / ``_dw``), fp32 inputs the CUDA-core ones of
+``csrc/lm_head_loss.cu`` (``lm_head_loss_bwd_dx`` / ``_dw``, fp32
+products). The forward is ``lm_head_loss.cu``'s for both types.
 """
 
 from __future__ import annotations
@@ -35,7 +41,81 @@ _SIGNATURES = {
     "lm_head_loss_bwd_dw": [ctypes.c_int] + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
+# the tensor-core dX and dW (csrc/lm_head_mma.cu): x, w, t, lse, g, (dX:
+# the split scratch,) out; n, v, h; the hidden layout (cluster, hk,
+# panels) and dX's split count; the stream
+_MMA_SIGNATURES = {
+    "lm_head_mma_bwd_dx": [ctypes.c_int] + [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "lm_head_mma_bwd_dw": [ctypes.c_int] + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# the tensor-core backward's tiles (csrc/lm_head_mma.cu): 64 own rows a
+# block, 64 streamed rows a tile; a CTA's hidden panel is 128, 256 or 384
+# columns in a cluster (its fp32 accumulator, 64 x 384, fills the
+# registers beside its part of the scores), or up to 512 alone; a cluster
+# holds at most 8 CTAs; dX splits the vocab until its grid reaches one
+# block on each of the H100's 132 SMs, at most 16 ways
+_MMA_ROWS = 64
+_MMA_PANELS = (128, 256, 384)
+_MMA_SOLO_PANEL = 512
+_MMA_MAX_CLUSTER = 8
+_MMA_TARGET_BLOCKS = 132
+_MMA_MAX_SPLITS = 16
+
+
+def _lm_head_route(dtype, h: int) -> str:
+    """Which kernels run the backward (dX, dW) at this input dtype and
+    hidden size on the card: ``"tensor_core"`` (bf16:
+    ``csrc/lm_head_mma.cu``) or ``"cuda_core"`` (fp32:
+    ``csrc/lm_head_loss.cu``, fp32 products, as JAX's fp32 kernel forms
+    them). A hidden size that is not a positive multiple of 128, or
+    another dtype, raises."""
+    if not (h > 0 and h % 128 == 0):
+        raise ValueError(f"hidden ({h}) must be a positive multiple of 128")
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise ValueError(f"the LM-head kernels take fp32 or bf16, got {dtype}")
+
+
+def _mma_layout(h: int):
+    """``(cluster, hk, panels)``: how the tensor-core backward covers the
+    hidden axis. A cluster of ``cluster`` CTAs, each over ``panels``
+    panels of ``hk`` columns (the last CTA's may reach past h, as zeros).
+    Up to 512 columns one CTA (no cluster: its scores need no exchange);
+    else one panel a CTA where a cluster of at most 8 covers h: the
+    narrowest padded width ``cluster · hk``, then the fewest CTAs; above 8
+    · 384 columns, as many 384-column panels a CTA as 8 CTAs need, and as
+    few CTAs as those panels need."""
+    if h <= _MMA_SOLO_PANEL:
+        return 1, next(p for p in (*_MMA_PANELS, _MMA_SOLO_PANEL)
+                       if p >= h), 1
+    best = None
+    for c in range(1, _MMA_MAX_CLUSTER + 1):
+        per = -(-h // c)
+        hk = next((p for p in _MMA_PANELS if p >= per), None)
+        if hk is not None and (best is None or c * hk < best[0] * best[1]):
+            best = (c, hk, 1)
+    if best is None:
+        hk = _MMA_PANELS[-1]
+        panels = -(-h // (_MMA_MAX_CLUSTER * hk))
+        best = (-(-h // (panels * hk)), hk, panels)
+    return best
+
+
+def _dx_splits(n: int, v: int, h: int) -> int:
+    """Vocab splits of the tensor-core dX: enough that the (row tile ×
+    cluster × panel × split) grid reaches 132 blocks, at most 16 and at
+    most one a 64-column vocab tile. A function of the shape alone, so
+    the in-order merge of the splits repeats bitwise."""
+    c, _, panels = _mma_layout(h)
+    blocks = -(-n // _MMA_ROWS) * c * panels
+    tiles = -(-v // _MMA_ROWS)
+    return max(1, min(_MMA_TARGET_BLOCKS // blocks, _MMA_MAX_SPLITS, tiles))
 
 
 # ---------------------------------------------------------------------------
@@ -94,18 +174,40 @@ def lm_head_loss_fwd_reference(x2, w, t):
     return lse, torch.where(in_range, picked[:, 0], 0.0)
 
 
+def _dl(x2, w, t, lse, g):
+    """``(exp(s − lse) − onehot)·g`` over dense fp32 scores."""
+    p = torch.exp(_scores(x2, w) - lse[:, None])
+    hit = torch.arange(w.shape[0], device=x2.device)[None, :] == \
+        t.long()[:, None]
+    return (p - hit.float()) * g.float()[:, None]
+
+
 def lm_head_loss_bwd_reference(x2, w, t, lse, g):
     """Plain version of the dX and dW kernels: ``dl = (exp(s − lse) −
     onehot)·g`` over dense fp32 scores, rounded to the input type before
     each product (``lm_head_loss.py:152,179``); returns ``(dx, dw)`` in
     x2's and w's types."""
-    p = torch.exp(_scores(x2, w) - lse[:, None])
-    hit = torch.arange(w.shape[0], device=x2.device)[None, :] == \
-        t.long()[:, None]
-    dl = (p - hit.float()) * g.float()[:, None]
+    dl = _dl(x2, w, t, lse, g)
     dx = torch.matmul(dl.to(w.dtype).float(), w.float()).to(x2.dtype)
     dw = torch.matmul(dl.to(x2.dtype).float().t(), x2.float()).to(w.dtype)
     return dx, dw
+
+
+def lm_head_loss_bwd_dx_split_reference(x2, w, t, lse, g, splits: int):
+    """Plain emulation of the tensor-core dX's vocab split: split k sums
+    ``dl·W`` over its run of 64-column vocab tiles into an fp32 partial,
+    and the partials are added in split order (the kernel's merge).
+    Returns fp32 dx (n, h)."""
+    v = w.shape[0]
+    tiles = -(-v // _MMA_ROWS)
+    per = -(-tiles // splits) * _MMA_ROWS
+    dl = _dl(x2, w, t, lse, g).to(w.dtype).float()
+    out = None
+    for k in range(splits):
+        lo, hi = min(v, k * per), min(v, (k + 1) * per)
+        part = torch.matmul(dl[:, lo:hi], w[lo:hi].float())
+        out = part if out is None else out + part
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -158,35 +260,52 @@ def lm_head_loss_fwd(x2, w, t):
     return lse, pred
 
 
-def lm_head_loss_bwd_dx(x2, w, t, lse, g):
-    """Launch the dX kernel: dx (n, h) in x2's type."""
-    n, v, h = _check("lm_head_loss_bwd_dx", x2, w, t, ("lse", lse),
+def _launch_bwd(which, x2, w, t, lse, g, out):
+    """Launch the dX (``which`` "dx") or dW kernel of
+    :func:`_lm_head_route` into ``out``, count it under its C entry's
+    name and raise on a CUDA error."""
+    n, v, h = _check(f"lm_head_loss_bwd_{which}", x2, w, t, ("lse", lse),
                      ("g", g))
-    dx = torch.empty_like(x2)
-    lib = ku.load_kernel("lm_head_loss", _SIGNATURES)
-    status = lib.lm_head_loss_bwd_dx(
-        x2.device.index, x2.data_ptr(), w.data_ptr(), t.data_ptr(),
-        lse.data_ptr(), g.data_ptr(), dx.data_ptr(), n, v, h,
-        int(x2.dtype == torch.bfloat16), ku.stream_handle(x2))
-    ku.count_launch("lm_head_loss_bwd_dx")
-    ku.check_status(lib, status, "lm_head_loss_bwd_dx")
-    return dx
+    ptrs = (x2.data_ptr(), w.data_ptr(), t.data_ptr(), lse.data_ptr(),
+            g.data_ptr())
+    if _lm_head_route(x2.dtype, h) == "cuda_core":
+        entry = f"lm_head_loss_bwd_{which}"
+        lib = ku.load_kernel("lm_head_loss", _SIGNATURES)
+        status = getattr(lib, entry)(x2.device.index, *ptrs,
+                                     out.data_ptr(), n, v, h, 0,
+                                     ku.stream_handle(x2))
+    else:
+        entry = f"lm_head_mma_bwd_{which}"
+        lib = ku.load_kernel("lm_head_mma", _MMA_SIGNATURES)
+        layout = _mma_layout(h)
+        if which == "dx":
+            splits = _dx_splits(n, v, h)
+            part = (torch.empty(splits * n * h, dtype=torch.float32,
+                                device=x2.device) if splits > 1 else None)
+            status = lib.lm_head_mma_bwd_dx(
+                x2.device.index, *ptrs,
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                n, v, h, *layout, splits, ku.stream_handle(x2))
+        else:
+            status = lib.lm_head_mma_bwd_dw(
+                x2.device.index, *ptrs, out.data_ptr(), n, v, h, *layout,
+                ku.stream_handle(x2))
+    ku.count_launch(entry)
+    ku.check_status(lib, status, entry)
+    return out
+
+
+def lm_head_loss_bwd_dx(x2, w, t, lse, g):
+    """Launch the dX kernel of :func:`_lm_head_route`: dx (n, h) in x2's
+    type (bf16: per vocab split an fp32 partial, added in split order)."""
+    return _launch_bwd("dx", x2, w, t, lse, g, torch.empty_like(x2))
 
 
 def lm_head_loss_bwd_dw(x2, w, t, lse, g):
-    """Launch the dW kernel: dw (V, h) in w's type. Each vocab row has one
-    owning block that sums the rows in order: dw repeats bitwise."""
-    n, v, h = _check("lm_head_loss_bwd_dw", x2, w, t, ("lse", lse),
-                     ("g", g))
-    dw = torch.empty_like(w)
-    lib = ku.load_kernel("lm_head_loss", _SIGNATURES)
-    status = lib.lm_head_loss_bwd_dw(
-        x2.device.index, x2.data_ptr(), w.data_ptr(), t.data_ptr(),
-        lse.data_ptr(), g.data_ptr(), dw.data_ptr(), n, v, h,
-        int(x2.dtype == torch.bfloat16), ku.stream_handle(x2))
-    ku.count_launch("lm_head_loss_bwd_dw")
-    ku.check_status(lib, status, "lm_head_loss_bwd_dw")
-    return dw
+    """Launch the dW kernel of :func:`_lm_head_route`: dw (V, h) in w's
+    type. Each vocab row has one owning block that sums the rows in order:
+    dw repeats bitwise."""
+    return _launch_bwd("dw", x2, w, t, lse, g, torch.empty_like(w))
 
 
 class LMHeadLoss(torch.autograd.Function):

@@ -51,10 +51,12 @@
      takes that the first kernels refused: GPT-2's width as 6 heads of
      128, head_dim 40, tail tiles at 1000 x 1000 causal and 200 x 328
      with a T5 bias, head_dim 256 and 192 (the D = 256
-     instantiation) causal and with a bias, and 512 and 320 (the
-     CUDA-core D = 512, 32-row tiles) causal and with a bias; each case
+     instantiation) causal and with a bias, 512 and 320 (the CUDA-core D
+     = 512, 32-row tiles) causal and with a bias, and 1024 (D = 1024,
+     16-row tiles) causal and 2048 (D = 2048, 8-row tiles) with a bias;
+     each case
      on its route (bf16 up to head_dim 256: the tensor-core forward and
-     dK/dV of ``csrc/flash_mma.cu``; fp32 and head_dim 264-512: the
+     dK/dV of ``csrc/flash_mma.cu``; fp32 and head_dim 264-2048: the
      CUDA-core kernels), the forward and dK/dV bitwise over two launches;
      the tensor-core kernels' ptxas registers and spills and their count
      of tensor-core (HMMA) instructions in the built library (SASS from
@@ -69,9 +71,12 @@
    * ``layer_norm`` without weight or bias on CUDA: the plain version,
      bitwise, no launch;
    * the fused LM-head + CE forward, dX and dW at the training shape
-     (8192, 768, V 50304), a ragged one (96 rows, V 1000) and T5's (1024,
-     512, V 32128), dX and dW held row by row and with the softmax term
-     alone, with a bitwise repeat check of dW (``torch.matmul`` +
+     (8192, 768, V 50304), a ragged one (96 rows, V 1000), T5's (1024,
+     512, V 32128) and a wide one (512, 2048, V 1000), dX and dW on their
+     route (bf16: the tensor-core kernels of ``csrc/lm_head_mma.cu``,
+     their ptxas lines and SASS ``HMMA`` counts reported; fp32:
+     ``csrc/lm_head_loss.cu``), held row by row and with the softmax term
+     alone, with a bitwise repeat check of dX and dW (``torch.matmul`` +
      ``F.cross_entropy``, forward and autograd);
    * the Adam tail on each of GPT-2-124M's 16 and T5-small's 39 leaf
      shapes in both decay modes, the LAMB sums with a bitwise repeat, and
@@ -105,7 +110,8 @@
      one step (reset just before it, read just after) equal the per-step
      table (LN fwd 49, LN bwd 25, tensor-core flash fwd 24, dQ 12,
      tensor-core dK/dV 12, LM-head
-     fwd, dX and dW 1 each, Adam tail 16); the loss stays finite and
+     fwd, tensor-core dX and dW 1 each, Adam tail 16); the loss stays
+     finite and
      falls over 10 steps on the fixed batch; a second run from the same
      seed repeats the losses bitwise; tokens/s, step ms p50, MFU, peak
      memory, and the card's busy share and top kernels over a profiled
@@ -124,7 +130,8 @@
    * bf16, batch 8 (the T5 main path): the launch counts of one step
      (reset just before it, read just after) equal the per-step table
      (LN fwd 62, LN bwd 32, tensor-core flash fwd 36 of which 24 with a
-     bias, dQ 18, tensor-core dK/dV 18, d(bias) 12, LM-head 1 each, Adam
+     bias, dQ 18, tensor-core dK/dV 18, d(bias) 12, LM-head fwd and
+     tensor-core dX and dW 1 each, Adam
      tail 39); the loss stays
      finite and falls over 10 steps; a second run from the same seed
      repeats the losses bitwise; train tokens/s (encoder + decoder), step
@@ -269,49 +276,84 @@ def ptxas_lines(log: str):
             entry = m.group(1)
             base = re.findall(r"\d([a-z][a-z_]*_kernel)I", entry)
             args = re.findall(r"L[ib](\d+)E", entry)
-            kind = "bf16" if "bfloat16" in entry else "f32"
+            # the input type, where the kernel takes one as a template
+            # argument
+            kind = re.search(r"_kernelI(13__nv_bfloat16|f)", entry)
+            kind = [{"f": "f32"}.get(kind.group(1), "bf16")] if kind else []
             kernel = (f"{base[-1] if base else entry[:40]}"
-                      f"[{', '.join([kind, *args])}]")
+                      f"[{', '.join([*kind, *args])}]")
         elif "registers" in line or "spill" in line or "error" in line:
             out.append((kernel, line.strip()))
     return out
 
 
-def mma_kernel_info(ku, built):
-    """For the tensor-core forward and dK/dV (``csrc/flash_mma.cu``): the
-    ptxas register and spill lines of each instantiation, and the count of
-    tensor-core instructions (HMMA, HGMMA) in each, from ``cuobjdump
-    --dump-sass`` of the built library: the proof that their products run
-    on the tensor cores. Raises if an instantiation has none."""
+def sass_hmma_counts(ku, source, function, name):
+    """{instantiation: count of tensor-core instructions (HMMA, HGMMA)} in
+    the built library of ``csrc/<source>.cu``, from ``cuobjdump
+    --dump-sass``: each SASS function matching the regex ``function`` is
+    named ``name(match)``."""
     import os
     import re
 
-    log = built.get("flash_mma", {}).get("log", "")
     cuobjdump = os.path.join(os.path.dirname(ku.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass",
-                           str(ku._lib_path("flash_mma"))],
+                           str(ku._lib_path(source))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*?(flash_mma_(?:fwd|dkv)_kernel)"
-                      r"ILi(\d+)ELb([01])E", line)
+        m = re.search(r"Function : \S*?" + function, line)
         if m:
-            fn = f"{m.group(1)}[{m.group(2)}{', bias' * int(m.group(3))}]"
+            fn = name(m)
             counts[fn] = 0
         elif fn and re.search(r"\bH(G)?MMA\b", line):
             counts[fn] += 1
+    return counts
+
+
+def tensor_core_info(ku, built, source, counts, kernels):
+    """Per key of ``kernels`` ({key: (name prefix in ``counts``, number of
+    instantiations, name prefix in the ptxas log)}): the ptxas register
+    and spill lines of each instantiation of the kernel in
+    ``csrc/<source>.cu`` and its count of tensor-core instructions
+    (``counts``, from :func:`sass_hmma_counts`): the proof that its
+    products run on the tensor cores. Raises if an instantiation has
+    none."""
+    log = built.get(source, {}).get("log", "")
     out = {}
-    for key, base in (("fwd", "flash_mma_fwd_kernel"),
-                      ("dkv", "flash_mma_dkv_kernel")):
+    for key, (base, want, logged) in kernels.items():
         mine = {k: v for k, v in counts.items() if k.startswith(base)}
-        if len(mine) != 8 or not all(mine.values()):
+        if len(mine) != want or not all(mine.values()):
             raise AssertionError(f"{base}: tensor-core instructions per "
                                  f"instantiation {mine}")
         out[key] = {"sass_hmma": mine, "ptxas": [
             f"{k}: {line}" for k, line in ptxas_lines(log)
-            if k.startswith(base)]}
+            if k.startswith(logged)]}
     return out
+
+
+def mma_kernel_info(ku, built):
+    """The tensor-core flash forward and dK/dV (``csrc/flash_mma.cu``, 8
+    instantiations each: D 32-256 with and without a bias)."""
+    counts = sass_hmma_counts(
+        ku, "flash_mma", r"(flash_mma_(?:fwd|dkv)_kernel)ILi(\d+)ELb([01])E",
+        lambda m: f"{m.group(1)}[{m.group(2)}{', bias' * int(m.group(3))}]")
+    return tensor_core_info(ku, built, "flash_mma", counts, {
+        "fwd": ("flash_mma_fwd_kernel", 8, "flash_mma_fwd_kernel"),
+        "dkv": ("flash_mma_dkv_kernel", 8, "flash_mma_dkv_kernel")})
+
+
+def lm_mma_kernel_info(ku, built):
+    """The tensor-core LM-head dX and dW (``csrc/lm_head_mma.cu``, one
+    kernel with 4 instantiations each: panels of 128, 256, 384 and 512
+    columns)."""
+    counts = sass_hmma_counts(
+        ku, "lm_head_mma", r"lm_mma_bwd_kernelILb([01])ELi(\d+)E",
+        lambda m: f"lm_mma_bwd_kernel[{'dw' if m.group(1) == '1' else 'dx'}"
+                  f", {m.group(2)}]")
+    return tensor_core_info(ku, built, "lm_head_mma", counts, {
+        "dx": ("lm_mma_bwd_kernel[dx", 4, "lm_mma_bwd_kernel[0"),
+        "dw": ("lm_mma_bwd_kernel[dw", 4, "lm_mma_bwd_kernel[1")})
 
 
 def start_builds(ku):
@@ -948,11 +990,17 @@ FLASH_SHAPES = [  # (name, batch, heads, sq, sk, d, causal, dropout rate, bias)
     # in both types, causal, and with a bias
     ("d512", 1, 4, 512, 512, 512, True, 0.0, False),
     ("d320_bias", 2, 4, 256, 256, 320, False, 0.0, True),
+    # head dims 520-2048: D = 1024 (16-row tiles) causal, and D = 2048
+    # (8-row tiles) with a bias
+    ("d1024", 1, 2, 256, 256, 1024, True, 0.0, False),
+    ("d2048_bias", 1, 2, 128, 128, 2048, False, 0.0, True),
 ]
-# the shapes of FLASH_SHAPES that run in the D = 256 and D = 512
-# instantiations
+# the shapes of FLASH_SHAPES that run in the D = 256 instantiation, and in
+# D = 512-2048 (the CUDA-core kernels in both types), without and with a
+# bias
 D256_SHAPES = ("d256", "d192", "d256_bias", "d192_bias")
-D512_SHAPES = ("d512", "d320_bias")
+D_WIDE_SHAPES = ("d512", "d1024")
+D_WIDE_BIAS_SHAPES = ("d320_bias", "d2048_bias")
 # d(bias) in both input types: fp32 products of the same inputs on both
 # sides, fp32 sums over the batch in another order
 DBIAS_TOL = (1e-4, 1e-4)
@@ -1495,7 +1543,15 @@ LM_SHAPES = [  # (name, rows, hidden, vocab)
     ("train", TRAIN_ROWS, 768, 50304),
     ("ragged", 96, 768, 1000),
     ("t5", T5_BATCH * T5_DEC, T5_HIDDEN, 32128),   # T5-small's head
+    ("wide", 512, 2048, 1000),     # bf16: clusters of 8 CTAs, 2 dX splits
 ]
+# the shapes that run in bf16 only: the wide one holds the tensor-core
+# route's clusters of 8 (in fp32, with no target hit, dx's softmax term
+# cancels, and the fp32 sums of kernel and plain version differ by more
+# than the fp32 gate's 1e-5 of a row's max)
+LM_BF16_ONLY = ("wide",)
+# the shapes whose kernels are timed: the training and T5 main paths'
+LM_TIMED = ("train", "t5")
 
 
 def lm_head_bounds(n, h, v, esz, dname):
@@ -1512,23 +1568,28 @@ def lm_head_bounds(n, h, v, esz, dname):
 def lm_head_phase(torch, dev):
     """The fused LM-head + CE kernels (forward, dX, dW) vs their plain
     versions at the training shape (8192 rows, h 768, V 50304), a ragged
-    one (96 rows, V 1000) and T5-small's (1024 decoder rows, h 512, V
-    32128), fp32 and bf16. Tolerance: lse, pred and
-    the loss atol/rtol 2e-5 (fp32) and 2e-4 (bf16: the same bf16 products,
-    fp32 sums in another order); dx and dw, row by row (``check_rows``),
+    one (96 rows, V 1000), T5-small's (1024 decoder rows, h 512, V 32128)
+    and a wide one (512 rows, h 2048, V 1000; bf16 only), fp32 and bf16,
+    each dX and dW on its route (bf16: the tensor-core kernels of
+    ``csrc/lm_head_mma.cu``; fp32: ``csrc/lm_head_loss.cu``). Tolerance:
+    lse, pred and the loss atol/rtol 2e-5 (fp32) and 2e-4 (bf16: the same
+    bf16 products, fp32 sums in another order); dx and dw, row by row
+    (``check_rows``),
     1e-5 of the row's max plus rtol 1e-4 (fp32) and 1e-2 of the row's max
     plus one bf16 step (bf16: dl is rounded to bf16 on both sides from
     scores that differ in the last fp32 bits). With g = 1/n most vocab
     rows of dW get no target and hold only the softmax term, a thousandth
     of a hit row's scale, so each row is held to its own max. The softmax
     term alone is checked too: dx and dw with no target hit (targets -1),
-    where the one-hot term of dx no longer hides it. dW bitwise equal over
-    repeats. Times (bf16, the training and T5 shapes) beside the unfused pair
+    where the one-hot term of dx no longer hides it. dX and dW bitwise
+    equal over repeats. Times (bf16, LM_TIMED) beside the unfused pair
     torch.matmul + F.cross_entropy: its forward, and its autograd (dx and
-    dw together) for both backward rows."""
+    dw together) for both backward rows; fp32 at the same shapes for the
+    CUDA-core dX and dW."""
     import torch.nn.functional as F
 
-    from apex_tpu_torch.ops.lm_head_loss import (lm_head_loss_bwd_dw,
+    from apex_tpu_torch.ops.lm_head_loss import (_lm_head_route,
+                                                 lm_head_loss_bwd_dw,
                                                  lm_head_loss_bwd_dx,
                                                  lm_head_loss_bwd_reference,
                                                  lm_head_loss_fwd,
@@ -1538,6 +1599,8 @@ def lm_head_phase(torch, dev):
     cases = []
     for name, n, h, v in LM_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
+            if dt == torch.float32 and name in LM_BF16_ONLY:
+                continue
             dname = str(dt).split(".")[1]
             x = torch.randn(n, h, device=dev, generator=gen).to(dt)
             w = (0.05 * torch.randn(v, h, device=dev, generator=gen)).to(dt)
@@ -1581,18 +1644,23 @@ def lm_head_phase(torch, dev):
                     "dw_median_abs": float(dw_sp.float().abs().median())}
             del t_none, dx_s, dw_s, dx_sp, dw_sp
             for _ in range(2):
+                if not torch.equal(dx, lm_head_loss_bwd_dx(x, w, t, lse, g)):
+                    raise AssertionError(f"lm_head dx {tag}: not bitwise "
+                                         f"equal over repeats")
                 if not torch.equal(dw, lm_head_loss_bwd_dw(x, w, t, lse, g)):
                     raise AssertionError(f"lm_head dw {tag}: not bitwise "
                                          f"equal over repeats")
             case = {"shape": name, "dtype": dname, "rows": n, "hidden": h,
-                    "vocab": v, "lse_pred_tol": tol, "atol_of_row_max": atol,
-                    "rtol": rtol, "dw_bitwise_repeat": True,
+                    "vocab": v, "route": _lm_head_route(dt, h),
+                    "lse_pred_tol": tol, "atol_of_row_max": atol,
+                    "rtol": rtol, "dx_bitwise_repeat": True,
+                    "dw_bitwise_repeat": True,
                     "fwd": {"max_abs_err": err_fwd},
                     "dx": {"max_abs_err": err_dx, "max_row_rel_err": row_dx},
                     "dw": {"max_abs_err": err_dw, "max_row_rel_err": row_dw,
                            **dw_scale},
                     "softmax_term_only": soft}
-            if name != "ragged" and dt == torch.bfloat16:
+            if name in LM_TIMED:
                 b_fwd, b_dx, b_dw = lm_head_bounds(n, h, v, x.element_size(),
                                                    dname)
                 timed = lambda fn: time_ms(torch, fn, iters=10)
@@ -2239,8 +2307,8 @@ TRAIN_LAUNCHES = {"layer_norm_fwd": 25 + 24, "layer_norm_bwd": 25,
                   "flash_mma_fwd": 12 + 12,
                   "flash_attention_bwd_dq": 12,
                   "flash_mma_bwd_dkv": 12,
-                  "lm_head_loss_fwd": 1, "lm_head_loss_bwd_dx": 1,
-                  "lm_head_loss_bwd_dw": 1, "fused_adam_tail": 16}
+                  "lm_head_loss_fwd": 1, "lm_head_mma_bwd_dx": 1,
+                  "lm_head_mma_bwd_dw": 1, "fused_adam_tail": 16}
 
 
 def train_fp32_check(torch, dev, ku):
@@ -2350,8 +2418,9 @@ def bf16_gate(torch, ku, what, leaves, loss_fn):
 
 def train_bf16_check(torch, dev, ku):
     """The bf16 gate on GPT-2-124M (batch 2 x 1024, the default step's
-    loss: full remat, fused LM-head loss): its forward and dK/dV run on
-    the tensor cores, which the fp32 check does not reach."""
+    loss: full remat, fused LM-head loss): its flash forward and dK/dV and
+    its LM-head dX and dW run on the tensor cores, which the fp32 check
+    does not reach."""
     import numpy as np
 
     from apex_tpu_torch.convert import named_leaves
@@ -2368,7 +2437,8 @@ def train_bf16_check(torch, dev, ku):
     tgt = torch.roll(tok, -1, dims=1)
     out = bf16_gate(torch, ku, "train", leaves,
                     lambda: gpt_loss(params, tok, tgt, cfg))
-    for name in ("flash_mma_fwd", "flash_mma_bwd_dkv"):
+    for name in ("flash_mma_fwd", "flash_mma_bwd_dkv", "lm_head_mma_bwd_dx",
+                 "lm_head_mma_bwd_dw"):
         if out["launches"].get(name, 0) != TRAIN_LAUNCHES[name]:
             raise AssertionError(f"bf16 check launches {out['launches']}")
     return {"batch": 2, "seq": 1024, **out}
@@ -2502,8 +2572,8 @@ T5_LAUNCHES = {"layer_norm_fwd": 2 * (6 * 2 + 6 * 3) + 2,
                "flash_mma_bwd_dkv": 18,
                "flash_mma_bwd_dkv[bias]": 12,
                "flash_attention_bwd_dbias": 12,
-               "lm_head_loss_fwd": 1, "lm_head_loss_bwd_dx": 1,
-               "lm_head_loss_bwd_dw": 1, "fused_adam_tail": 39}
+               "lm_head_loss_fwd": 1, "lm_head_mma_bwd_dx": 1,
+               "lm_head_mma_bwd_dw": 1, "fused_adam_tail": 39}
 
 
 def t5_config(dtype):
@@ -2571,8 +2641,9 @@ def t5_fp32_check(torch, dev, ku):
 
 def t5_bf16_check(torch, dev, ku):
     """The bf16 gate on T5-small (batch 2, 512 + 128 tokens, full remat,
-    fused loss): its forward and dK/dV, with and without the bias, run on
-    the tensor cores, which the fp32 check does not reach."""
+    fused loss): its flash forward and dK/dV, with and without the bias,
+    and its LM-head dX and dW run on the tensor cores, which the fp32
+    check does not reach."""
     from apex_tpu_torch.convert import named_leaves
     from apex_tpu_torch.transformer.testing import (build_t5_train_step,
                                                     t5_loss)
@@ -2583,7 +2654,8 @@ def t5_bf16_check(torch, dev, ku):
     out = bf16_gate(torch, ku, "T5", list(named_leaves(params)),
                     lambda: t5_loss(params, enc, dec, tgt, cfg))
     for name in ("flash_mma_fwd", "flash_mma_fwd[bias]", "flash_mma_bwd_dkv",
-                 "flash_mma_bwd_dkv[bias]"):
+                 "flash_mma_bwd_dkv[bias]", "lm_head_mma_bwd_dx",
+                 "lm_head_mma_bwd_dw"):
         if out["launches"].get(name, 0) != T5_LAUNCHES[name]:
             raise AssertionError(f"bf16 T5 check launches {out['launches']}")
     return {"batch": 2, "seq_enc": T5_ENC, "seq_dec": T5_DEC, **out}
@@ -2926,9 +2998,9 @@ def main(argv=None) -> int:
     # d(bias); their launches and bf16 times at the steps' shapes (GPT's
     # flagship, T5's cross-attention, the bias kernels at T5's encoder
     # with the decoder beside it) and at the other FLASH_SHAPES. The
-    # CUDA-core forward and dK/dV now run fp32 inputs and head_dim 264-512:
+    # CUDA-core forward and dK/dV now run fp32 inputs and head_dim 264-2048:
     # their launches from the fp32 train checks (counts reset just before,
-    # read just after), fp32 times at the same shapes, bf16 at D = 512.
+    # read just after), fp32 times at the same shapes, bf16 at D = 512-2048.
     def flash_case(shape, dtype="bfloat16"):
         return pick(fa_cases, dtype=dtype, shape=shape)
 
@@ -2976,22 +3048,22 @@ def main(argv=None) -> int:
                   "replaces": f"apex_tpu/ops/attention.py:{line}"}
         kernels.append(
             {"name": kname, **common, "launches": fp32_launches[kname],
-             "path": "train fp32 check (fp32 inputs; head_dim 264-512)",
+             "path": "train fp32 check (fp32 inputs; head_dim 264-2048)",
              "shape": "flagship (96, 1024, 64) fp32",
              "max_abs_err": errs(key, "cuda_core", False),
              **{k: flash_case("flagship", "float32")[key][k]
                 for k in timing},
              **rows_of(key, ("t5_cross", *plain_shapes), "float32"),
-             **rows_of(key, D512_SHAPES[:1]),
-             **rows_of(key, D512_SHAPES[:1], "float32")})
+             **rows_of(key, D_WIDE_SHAPES),
+             **rows_of(key, D_WIDE_SHAPES, "float32")})
         kernels.append(
             {"name": f"{kname}[bias]", **common,
              "launches": t5_fp32_launches[f"{kname}[bias]"],
              "path": "t5 fp32 check", "shape": "t5_enc fp32",
              "max_abs_err": errs(key, "cuda_core", True),
              **{k: flash_case("t5_enc", "float32")[key][k] for k in timing},
-             **rows_of(key, D512_SHAPES[1:]),
-             **rows_of(key, D512_SHAPES[1:], "float32")})
+             **rows_of(key, D_WIDE_BIAS_SHAPES),
+             **rows_of(key, D_WIDE_BIAS_SHAPES, "float32")})
     kernels.append(
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "apex_tpu_torch/csrc/flash_attention.cu",
@@ -3003,7 +3075,7 @@ def main(argv=None) -> int:
          "t5_cross": {"launches": t5_launches["flash_attention_bwd_dq"]
                       - t5_launches["flash_attention_bwd_dq[bias]"],
                       **rows_of("dq", ("t5_cross",))["t5_cross"]},
-         **rows_of("dq", (*plain_shapes, *D512_SHAPES[:1]))})
+         **rows_of("dq", (*plain_shapes, *D_WIDE_SHAPES))})
     for key, tname, line in (("dq", "flash_attention_bwd_dq[bias]", 532),
                              ("dbias", "flash_attention_bwd_dbias", 607)):
         kernels.append(
@@ -3015,7 +3087,8 @@ def main(argv=None) -> int:
              "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
                                 if c["bias"]),
              **{k: flash_case("t5_enc")[key][k] for k in timing},
-             **rows_of(key, ("t5_dec", *bias_shapes, *D512_SHAPES[1:]))})
+             **rows_of(key, ("t5_dec", *bias_shapes,
+                             *D_WIDE_BIAS_SHAPES))})
     # the packed path's kernels: launches of one bf16 causal forward plus
     # backward through FMHA; times at its shape, bf16 causal, with the
     # bidirectional times and the dense causal flash kernels beside them
@@ -3047,21 +3120,44 @@ def main(argv=None) -> int:
                       **{k: v256[key][k] for k in timing}},
              "d512": {"heads": v512["heads"], "causal": v512["causal"],
                       **{k: v512[key][k] for k in timing}}})
-    # the fused loss at the training shape (8192, 768, 50304) bf16
-    lm = pick(lm_cases, dtype="bfloat16", shape="train")
-    lm_t5 = pick(lm_cases, dtype="bfloat16", shape="t5")
-    for key, kname, line in (("fwd", "lm_head_loss_fwd", 198),
-                             ("dx", "lm_head_loss_bwd_dx", 244),
+    # the fused loss at the training shape (8192, 768, 50304) bf16: the
+    # forward (both types), the tensor-core dX and dW (bf16), with T5's
+    # shape beside it; the CUDA-core dX and dW now run fp32 inputs: their
+    # launches from the fp32 train check, fp32 times at the same shapes
+    lm_shape = {"train": pick(lm_cases, dtype="bfloat16", shape="train"),
+                "t5": pick(lm_cases, dtype="bfloat16", shape="t5")}
+    lm_fp32 = pick(lm_cases, dtype="float32", shape="train")
+    lm_info = lm_mma_kernel_info(ku, built)
+    t5_shape = [lm_shape["t5"][k] for k in ("rows", "hidden", "vocab")]
+    for key, kname, line, source in (
+            ("fwd", "lm_head_loss_fwd", 198, "lm_head_loss"),
+            ("dx", "lm_head_mma_bwd_dx", 244, "lm_head_mma"),
+            ("dw", "lm_head_mma_bwd_dw", 263, "lm_head_mma")):
+        where = {} if key == "fwd" else {"dtype": "bfloat16"}
+        kernels.append(
+            {"name": kname, "route": "cuda",
+             "source": f"apex_tpu_torch/csrc/{source}.cu",
+             "replaces": f"apex_tpu/ops/lm_head_loss.py:{line}",
+             "launches": train_launches[kname],
+             "max_abs_err": max(
+                 c[key]["max_abs_err"] for c in lm_cases
+                 if all(c[k] == v for k, v in where.items())),
+             **{k: lm_shape["train"][key][k] for k in timing},
+             "t5": {"shape": t5_shape,
+                    **t5_entry(kname, lm_cases, key, shape="t5", **where)},
+             **lm_info.get(key, {})})
+    for key, kname, line in (("dx", "lm_head_loss_bwd_dx", 244),
                              ("dw", "lm_head_loss_bwd_dw", 263)):
         kernels.append(
             {"name": kname, "route": "cuda",
              "source": "apex_tpu_torch/csrc/lm_head_loss.cu",
              "replaces": f"apex_tpu/ops/lm_head_loss.py:{line}",
-             "launches": train_launches[kname],
-             "max_abs_err": max(c[key]["max_abs_err"] for c in lm_cases),
-             **{k: lm[key][k] for k in timing},
-             "t5": {"shape": [lm_t5[k] for k in ("rows", "hidden", "vocab")],
-                    **t5_entry(kname, lm_cases, key, shape="t5")}})
+             "launches": fp32_launches[kname],
+             "path": "train fp32 check (fp32 inputs)",
+             "shape": "train (8192, 768, V 50304) fp32",
+             "max_abs_err": max(c[key]["max_abs_err"] for c in lm_cases
+                                if c["dtype"] == "float32"),
+             **{k: lm_fp32[key][k] for k in timing}})
     kernels.append(
         {"name": "fused_adam_tail", "route": "cuda",
          "source": "apex_tpu_torch/csrc/fused_update.cu",

@@ -1,15 +1,16 @@
 """The port's flash attention routes and its kernels' C interface, on the
 CPU.
 
-* JAX parity at head_dim 264-512 (the CUDA-core kernels' D = 512, 32-row
-  tiles): the port's ``flash_attention`` goes through its flash autograd
+* JAX parity at head_dim 264-2048 (the CUDA-core kernels' D = 512, 1024
+  and 2048: 32-, 16- and 8-row tiles): the port's ``flash_attention`` goes
+  through its flash autograd
   function (the kernels on the card, their plain versions here) and
   gives JAX's interpret-mode kernel's output and gradients, causal, full,
   with a T5 bias and at a tail length; the packed varlen path likewise.
 * The route table (``ops.attention._flash_route``): bf16 with head_dim <=
   256 takes the tensor-core forward and dK/dV (``csrc/flash_mma.cu``);
-  fp32 at any head_dim and bf16 at 264-512 the CUDA-core ones
-  (``csrc/flash_attention.cu``); above 512 it raises, naming the limit.
+  fp32 at any head_dim and bf16 at 264-2048 the CUDA-core ones
+  (``csrc/flash_attention.cu``); above 2048 it raises, naming the limit.
 * A static check of every ``extern "C"`` entry point in ``csrc/*.cu``
   against the ctypes table its wrapper loads it with: the same argument
   count, and ``c_void_p`` exactly where the C side takes a pointer (a
@@ -50,17 +51,21 @@ def _np(t):
 
 
 # ---------------------------------------------------------------------------
-# (a) JAX parity at head_dim 264-512
+# (a) JAX parity at head_dim 264-2048
 
 
 @pytest.mark.parametrize("sq,sk,d,causal,bias", [
     (64, 64, 264, True, False), (72, 136, 320, False, True),
     (128, 128, 512, True, True), (40, 40, 512, False, False),
-    (200, 200, 320, True, False)])
+    (200, 200, 320, True, False),
+    # D = 1024 (16-row tiles) and D = 2048 (8-row tiles)
+    (40, 40, 520, True, False), (24, 56, 1024, False, True),
+    (48, 48, 1032, True, True), (32, 32, 2048, False, False),
+    (24, 24, 2048, True, True)])
 def test_flash_head_dims_above_256_match_jax_kernel(monkeypatch, sq, sk, d,
                                                     causal, bias):
-    """head_dim 264, 320 and 512, causal and full, with a bias and at tail
-    lengths (not multiples of the kernels' 32-row tile at D = 512): JAX's
+    """head_dim 264-2048, causal and full, with a bias and at tail lengths
+    (not multiples of the kernels' 32-, 16- or 8-row tile): JAX's
     gate takes them, so does the port (one call of its flash autograd
     function), and o and every gradient, the bias's included, equal
     ``jax.vjp`` of JAX's interpret-mode kernel at one block per sequence:
@@ -100,10 +105,12 @@ def test_flash_head_dims_above_256_match_jax_kernel(monkeypatch, sq, sk, d,
                                    atol=1e-4, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("d,causal", [(320, True), (512, False)])
+@pytest.mark.parametrize("d,causal", [(320, True), (512, False),
+                                     (1024, True), (2048, False)])
 def test_varlen_head_dims_above_256_match_jax_kernel(d, causal):
-    """The packed varlen path at head_dim 320 and 512 (the varlen kernels'
-    D = 512 on the card, their plain versions here): o and q, k, v
+    """The packed varlen path at head_dim 320-2048 (the varlen kernels'
+    D = 512, 1024 and 2048 on the card, their plain versions here): o and
+    q, k, v
     gradients of the port's ``flash_attention_varlen`` equal ``jax.vjp``
     of JAX's interpret-mode varlen kernel; atol 2e-5 (o), 1e-4 (grads).
     Two documents and a pad tail over 192 tokens."""
@@ -146,9 +153,15 @@ def test_head_dims_264_to_512_take_the_cuda_cores(d):
         assert port_attention._flash_route(dtype, d) == "cuda_core"
 
 
-@pytest.mark.parametrize("d", [520, 1024, 36, 0])
+@pytest.mark.parametrize("d", [520, 1024, 1032, 2048])
+def test_head_dims_520_to_2048_take_the_cuda_cores(d):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert port_attention._flash_route(dtype, d) == "cuda_core"
+
+
+@pytest.mark.parametrize("d", [2056, 4096, 36, 0])
 def test_route_refuses_what_no_kernel_takes(d):
-    with pytest.raises(ValueError, match=f"head_dim {d} .* up to 512"):
+    with pytest.raises(ValueError, match=f"head_dim {d} .* up to 2048"):
         port_attention._flash_route(torch.bfloat16, d)
 
 
@@ -177,7 +190,9 @@ def _entries_launched(monkeypatch, dtype, d, bias):
     (torch.bfloat16, 256, "flash_mma_fwd", "flash_mma_bwd_dkv"),
     (torch.bfloat16, 264, "flash_attention_fwd", "flash_attention_bwd_dkv"),
     (torch.float32, 64, "flash_attention_fwd", "flash_attention_bwd_dkv"),
-    (torch.float32, 512, "flash_attention_fwd", "flash_attention_bwd_dkv")])
+    (torch.float32, 512, "flash_attention_fwd", "flash_attention_bwd_dkv"),
+    (torch.bfloat16, 2048, "flash_attention_fwd",
+     "flash_attention_bwd_dkv")])
 @pytest.mark.parametrize("bias", [False, True])
 def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, d, fwd, dkv,
                                             bias):
@@ -212,6 +227,7 @@ _TABLES = {
     "flash_mma": ("apex_tpu_torch.ops.attention", "_MMA_SIGNATURES"),
     "flash_varlen": ("apex_tpu_torch.ops.attention_varlen", "_SIGNATURES"),
     "lm_head_loss": ("apex_tpu_torch.ops.lm_head_loss", "_SIGNATURES"),
+    "lm_head_mma": ("apex_tpu_torch.ops.lm_head_loss", "_MMA_SIGNATURES"),
     "fused_update": ("apex_tpu_torch.ops.fused_update", "_SIGNATURES"),
     "megakernel": ("apex_tpu_torch.serve.megakernel", "_SIGNATURES"),
     "quantize": ("apex_tpu_torch.comm.quantize", "_SIGNATURES"),

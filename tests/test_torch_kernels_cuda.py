@@ -45,7 +45,7 @@ from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                            rms_norm_fwd,
                                            rms_norm_fwd_reference,
                                            rms_norm_reference)
-from apex_tpu_torch.ops.lm_head_loss import (lm_head_loss,
+from apex_tpu_torch.ops.lm_head_loss import (_lm_head_route, lm_head_loss,
                                              lm_head_loss_bwd_dw,
                                              lm_head_loss_bwd_dx,
                                              lm_head_loss_bwd_reference,
@@ -293,7 +293,10 @@ FLASH_CASES = [  # bh, s, d, causal, dropout rate
     (3, 72, 24, True, 0.0),
     # head dims 136-256 (D = 256)
     (2, 256, 256, True, 0.0), (2, 200, 192, False, 0.1),
-    (2, 128, 136, True, 0.0)]
+    (2, 128, 136, True, 0.0),
+    # head dims 520-2048 (D = 1024, 16-row tiles; D = 2048, 8-row tiles)
+    (2, 72, 1024, True, 0.0), (1, 40, 520, False, 0.1),
+    (1, 64, 2048, True, 0.0), (2, 48, 1032, False, 0.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -365,8 +368,10 @@ def test_flash_kernels_refuse_what_they_cannot_take(dev):
                             0.125, False)
     flash_attention_fwd(*(torch.randn(2, 128, 264, device=dev)
                           for _ in range(3)), 0.125, False)  # D = 512
-    wide = torch.randn(2, 128, 520, device=dev)
-    with pytest.raises(ValueError, match="head_dim 520 .* up to 512"):
+    flash_attention_fwd(*(torch.randn(2, 64, 520, device=dev)
+                          for _ in range(3)), 0.125, False)  # D = 1024
+    wide = torch.randn(2, 64, 2056, device=dev)
+    with pytest.raises(ValueError, match="head_dim 2056 .* up to 2048"):
         flash_attention_fwd(wide, wide, wide, 0.125, False)
     with pytest.raises(ValueError, match="multiples of 8"):
         flash_attention_fwd(*(t[:, :100].contiguous() for t in (q, k, v)),
@@ -390,7 +395,10 @@ FLASH_BIAS_CASES = [  # batch, heads, sq, sk, d, causal, dropout rate
     (2, 2, 200, 328, 64, False, 0.0), (2, 2, 136, 136, 128, True, 0.1),
     (2, 3, 200, 200, 40, True, 0.0),
     # head dims 192 and 256 (D = 256)
-    (2, 2, 128, 192, 256, False, 0.0), (2, 2, 136, 136, 192, True, 0.1)]
+    (2, 2, 128, 192, 256, False, 0.0), (2, 2, 136, 136, 192, True, 0.1),
+    # head dims 1024 and 2048 (16- and 8-row tiles; the bias in 64-row
+    # units)
+    (2, 1, 72, 72, 1024, True, 0.0), (1, 2, 40, 104, 2048, False, 0.1)]
 
 
 def _flash_bias_case(dev, dtype, b, heads, sq, sk, d, seed):
@@ -635,6 +643,15 @@ LM_CASES = [(96, 1000, 128), (256, 512, 768), (8, 37, 256), (600, 3000, 384),
             (128, 257, 1152), (1024, 32128, 512)]   # the last: T5-small's
 
 
+def _lm_bwd_names(dtype):
+    """The C entries the dX and dW wrappers launch (and count) at this
+    dtype: the tensor-core ones of ``csrc/lm_head_mma.cu`` for bf16, the
+    CUDA-core ones of ``csrc/lm_head_loss.cu`` for fp32."""
+    if _lm_head_route(dtype, 128) == "tensor_core":
+        return ("lm_head_mma_bwd_dx", "lm_head_mma_bwd_dw")
+    return ("lm_head_loss_bwd_dx", "lm_head_loss_bwd_dw")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,v,h", LM_CASES)
 def test_lm_head_loss_kernels_match_plain(dev, dtype, n, v, h):
@@ -662,8 +679,7 @@ def test_lm_head_loss_kernels_match_plain(dev, dtype, n, v, h):
     _close_rows(dx, dx_p, atol, rtol, "dx")
     _close_rows(dw, dw_p, atol, rtol, "dw")
     after = ku.launch_counts()
-    for name in ("lm_head_loss_fwd", "lm_head_loss_bwd_dx",
-                 "lm_head_loss_bwd_dw"):
+    for name in ("lm_head_loss_fwd", *_lm_bwd_names(dtype)):
         assert after[name] == counts.get(name, 0) + 1
     # the softmax term alone (no target hit), which the one-hot term
     # outweighs in dx and in the hit rows of dw
@@ -673,6 +689,82 @@ def test_lm_head_loss_kernels_match_plain(dev, dtype, n, v, h):
                 "dx, softmax term")
     _close_rows(lm_head_loss_bwd_dw(x, w, none, lse, g), dw_p, atol, rtol,
                 "dw, softmax term")
+
+
+# the tensor-core dX and dW: GPT-2-124M's and T5-small's shapes, ragged
+# rows (96) and vocab (1000), one CTA a row tile (h up to 512) and
+# clusters of 2-8 CTAs (h 640-2048), two panels a CTA (h 3200), and dX's
+# vocab splits (1-16)
+LM_MMA_CASES = [(8192, 50304, 768), (1024, 32128, 512), (96, 1000, 768),
+                (512, 1000, 2048), (96, 1000, 3200), (8, 37, 256),
+                (600, 3000, 384), (128, 257, 1152), (200, 4100, 640),
+                (40, 777, 512)]
+
+
+@pytest.mark.parametrize("n,v,h", LM_MMA_CASES)
+def test_lm_head_mma_kernels_match_plain(dev, n, v, h):
+    """The tensor-core dX and dW vs their plain versions, bf16, with g =
+    1/n as on the training path (most vocab rows of dW then hold only the
+    softmax term), with the targets and with none hit, at chip_smoke's bf16
+    tolerance: 1e-2 of the row's max plus one bf16 step (dl is rounded to
+    bf16 on both sides from scores that differ in the last fp32 bits).
+    One launch of each, none of the CUDA-core dX and dW."""
+    x, w, t, _ = _lm_case(dev, torch.bfloat16, n, v, h, n + v + h)
+    g = torch.full((n,), 1.0 / n, device=dev)
+    lse, _ = lm_head_loss_fwd(x, w, t)
+    counts = ku.launch_counts()
+    dx = lm_head_loss_bwd_dx(x, w, t, lse, g)
+    dw = lm_head_loss_bwd_dw(x, w, t, lse, g)
+    after = ku.launch_counts()
+    for name in ("lm_head_mma_bwd_dx", "lm_head_mma_bwd_dw"):
+        assert after[name] == counts.get(name, 0) + 1
+    for name in ("lm_head_loss_bwd_dx", "lm_head_loss_bwd_dw"):
+        assert after.get(name, 0) == counts.get(name, 0)
+    dx_p, dw_p = lm_head_loss_bwd_reference(x, w, t, lse, g)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    _close_rows(dx, dx_p, 1e-2, 2 ** -7, "dx")
+    _close_rows(dw, dw_p, 1e-2, 2 ** -7, "dw")
+    del dx_p, dw_p
+    none = torch.full_like(t, -1)
+    dx_p, dw_p = lm_head_loss_bwd_reference(x, w, none, lse, g)
+    _close_rows(lm_head_loss_bwd_dx(x, w, none, lse, g), dx_p, 1e-2,
+                2 ** -7, "dx, softmax term")
+    _close_rows(lm_head_loss_bwd_dw(x, w, none, lse, g), dw_p, 1e-2,
+                2 ** -7, "dw, softmax term")
+
+
+@pytest.mark.parametrize("n,v,h", [(1024, 32128, 512), (2048, 5000, 768),
+                                   (96, 1000, 2048)])
+def test_lm_head_mma_bitwise_repeat(dev, n, v, h):
+    """dX (vocab splits 8, 2 and 8: partials added in split order) and dW
+    (one owner per output element; at h 768 and 2048 the cluster's score
+    parts summed in rank order) give the same bits on every launch."""
+    x, w, t, g = _lm_case(dev, torch.bfloat16, n, v, h, 11)
+    lse, _ = lm_head_loss_fwd(x, w, t)
+    first = (lm_head_loss_bwd_dx(x, w, t, lse, g),
+             lm_head_loss_bwd_dw(x, w, t, lse, g))
+    for _ in range(3):
+        assert torch.equal(first[0], lm_head_loss_bwd_dx(x, w, t, lse, g))
+        assert torch.equal(first[1], lm_head_loss_bwd_dw(x, w, t, lse, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_head_loss_backward_launches_its_route(dev, dtype):
+    """One ``LMHeadLoss`` backward on CUDA launches one dX and one dW of
+    its route (bf16: ``lm_head_mma_bwd_*``; fp32: ``lm_head_loss_bwd_*``)
+    and no kernel of the other."""
+    x, w, t, _ = _lm_case(dev, dtype, 256, 3000, 768, 2)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = ku.launch_counts()
+    lm_head_loss(xs, ws, t).mean().backward()
+    after = ku.launch_counts()
+    mine = _lm_bwd_names(dtype)
+    other = _lm_bwd_names(torch.float32 if dtype == torch.bfloat16
+                          else torch.bfloat16)
+    for name in mine:
+        assert after[name] == before.get(name, 0) + 1
+    for name in other:
+        assert after.get(name, 0) == before.get(name, 0)
 
 
 def test_lm_head_loss_dw_bitwise_repeat(dev):
@@ -1033,7 +1125,10 @@ def _varlen_case(dev, dtype, b, h, s, d, seed, foreign_tile=False):
 VARLEN_CASES = [  # b, h, s, d, causal, foreign K/V tile
     (2, 3, 320, 64, True, False), (2, 3, 320, 64, False, True),
     (1, 2, 320, 40, True, True), (1, 2, 256, 128, False, False),
-    (1, 2, 320, 256, True, True), (1, 2, 256, 192, False, False)]
+    (1, 2, 320, 256, True, True), (1, 2, 256, 192, False, False),
+    # D = 1024 and 2048: a quarter and an eighth of a 64-row table entry a
+    # tile
+    (1, 1, 320, 1024, True, True), (1, 1, 256, 2048, False, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1122,23 +1217,24 @@ def test_varlen_kernels_refuse_what_they_cannot_take(dev):
                          seg_k[:, :200].contiguous(), 0.125, True)
     with pytest.raises(ValueError, match="seg_q"):
         flash_varlen_fwd(q, k, v, seg_q.long(), seg_k, 0.125, True)
-    with pytest.raises(ValueError, match="head_dim 520 .* up to 512"):
-        wide = torch.randn(1, 2, 256, 520, device=dev)
+    with pytest.raises(ValueError, match="head_dim 2056 .* up to 2048"):
+        wide = torch.randn(1, 2, 256, 2056, device=dev)
         flash_varlen_fwd(wide, wide, wide, seg_q, seg_k, 0.125, True)
     with pytest.raises(ValueError, match="k must be"):
         flash_varlen_fwd(q, k.bfloat16(), v, seg_q, seg_k, 0.125, True)
 
 
 def test_flash_attention_head_dim_above_256_raises_on_the_card(dev):
-    """head_dim 264 runs (the CUDA-core kernels' D = 512, 32-row tiles);
-    520 (% 8 == 0, so JAX's gate takes it) is past the kernels' 512 (two
-    32-row fp32 tiles of 520 would not fit): the front door raises naming
+    """head_dim 264, 520 and 2048 run (the CUDA-core kernels' D = 512,
+    1024 and 2048: 32-, 16- and 8-row tiles); 2056 (% 8 == 0, so JAX's
+    gate takes it) is past the kernels' 2048: the front door raises naming
     the limit, and launches nothing."""
-    q = torch.randn(1, 2, 64, 264, device=dev)
-    flash_attention(q, q, q, causal=True)
-    q = torch.randn(1, 2, 64, 520, device=dev)
+    for d in (264, 520, 2048):
+        q = torch.randn(1, 2, 64, d, device=dev)
+        flash_attention(q, q, q, causal=True)
+    q = torch.randn(1, 2, 64, 2056, device=dev)
     before = ku.launch_counts()
-    with pytest.raises(ValueError, match="head_dim 520 .* up to 512"):
+    with pytest.raises(ValueError, match="head_dim 2056 .* up to 2048"):
         flash_attention(q, q, q, causal=True)
     assert ku.launch_counts() == before
 
