@@ -32,13 +32,11 @@
 // same bits as `_hash_keep` (:129-144), so the mask regenerates exactly in
 // the forward, its remat replay and both backward kernels.
 //
-// Which kernels run here: fp32 inputs in all four, and bf16 inputs in dQ
-// and d(bias) at every head dim and in the forward and dK/dV from D = 512
-// on;
-// the forward and dK/dV with bf16 inputs at d <= 256 run on the tensor
-// cores (flash_mma.cu; the wrapper's `_flash_route` picks). fp32 products
-// stay here, on the CUDA cores: the tensor cores would take fp32 as TF32,
-// not the fp32 products JAX's reference forms.
+// Which kernels run here: fp32 inputs at every head dim, and bf16 inputs
+// from D = 512 on (head dims above 256); bf16 inputs at d <= 256 run all
+// four on the tensor cores (flash_mma.cu; the wrapper's `_flash_route`
+// picks). fp32 products stay here, on the CUDA cores: the tensor cores
+// would take fp32 as TF32, not the fp32 products JAX's reference forms.
 //
 // Bound on this card: at the flagship shape (bh 96, s 1024, d 64) the
 // operations (4, 6 and 8 * bh * s^2 * d, halved by the causal mask) bound
@@ -60,10 +58,11 @@
 // lane reaches every shuffle. Any sequence length runs: the last tile of
 // a length that is not a multiple of BR stages zeros past the end, gives
 // the columns past sk the score NEG_INF (p = 0) and stores no row past
-// sq. A head dim d (a multiple of 8 up to 2048) runs in the instantiation
-// for D = 32, 64, 128, 256, 512, 1024 or 2048 with zeros past d; `scale`
-// is the
-// caller's (1 / sqrt(d)). D = 128 stages 64 KB a block, above the 48 KB
+// sq. A head dim d (a multiple of 8) up to 2048 runs in the instantiation
+// for D = 32, 64, 128, 256, 512, 1024 or 2048 with zeros past d, a wider
+// one in the wide kernels below (flash_wide.cuh: the head dim in chunks of
+// 2048 columns, the forward in two launches, lse first, then o from p =
+// exp(s - lse)); `scale` is the caller's (1 / sqrt(d)). D = 128 stages 64 KB a block, above the 48 KB
 // of static shared memory, so every kernel takes its tiles as dynamic
 // shared memory. D = 256 stages two 64-row tiles in 128 KB (one block an
 // SM) and runs 512 threads a block (1,024 for dK/dV), each holding the
@@ -95,6 +94,7 @@
 // causal diagonal write zeros.
 
 #include "flash_dense.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -414,6 +414,404 @@ __global__ void __launch_bounds__(row_threads(D), D == 64 ? 3 : 1)
     if (h + TPR * i < BR) dbrow[h + TPR * i] = acc[i];
 }
 
+// ---------------------------------------------------------------------------
+// head dims above 2048 (flash_wide.cuh): the same four functions with the
+// head dim in chunks of kWideCols columns, 8-row tiles
+
+// row r of q tile qt against key tile kt: the sums q . k scaled, the bias
+// added after the scaling, NEG_INF above the causal diagonal and (without
+// a bias, whose padding does it) at the keys past sk
+template <bool HasBias>
+__device__ __forceinline__ void wide_scores(float (&s)[kWideRows],
+                                            const float* brow, int qt,
+                                            int kt, int r, const Dims& n,
+                                            float scale, int causal) {
+  const bool diag = causal && kt == qt;
+  const int krows = n.sk - kt * kWideRows;
+#pragma unroll
+  for (int j = 0; j < kWideRows; ++j) {
+    float sv = s[j] * scale;
+    if constexpr (HasBias)
+      sv = __fadd_rn(sv, __ldg(brow + kt * kWideRows + j));
+    if ((diag && j > r) || (!HasBias && j >= krows)) sv = apex::kNegInf;
+    s[j] = sv;
+  }
+}
+
+// the forward's first launch: each row's lse, by the online softmax over
+// its key tiles; one block per (q tile, bh)
+template <typename T, bool HasBias>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_wide_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const float* __restrict__ bias,
+                            float* __restrict__ lse, Dims n, float scale,
+                            int causal) {
+  extern __shared__ __align__(16) float smem[];
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
+  const int bh = blockIdx.y;
+  const int r = threadIdx.x / kWideLanes, lane = threadIdx.x % kWideLanes;
+  const int qpos = qt * kWideRows + r;
+  const bool qvalid = qpos < n.sq;
+  const T* qrow = q + (static_cast<long>(bh) * n.sq + min(qpos, n.sq - 1)) *
+                          n.d;
+  const float* brow = bias_row<HasBias>(bias, bh % n.heads, qpos, n);
+  float m = apex::kNegInf, l = 0.f;
+  const int nkt = causal ? qt + 1 : tiles<kWideRows>(n.sk);
+  for (int kt = 0; kt < nkt; ++kt) {
+    const T* ktile = k + (static_cast<long>(bh) * n.sk + kt * kWideRows) *
+                             n.d;
+    float s[1][kWideRows];
+    wide_dots<T, 1>(s, {qrow}, qvalid, {ktile},
+                    min(kWideRows, n.sk - kt * kWideRows), n.d, {smem},
+                    lane);
+    wide_scores<HasBias>(s[0], brow, qt, kt, r, n, scale, causal);
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < kWideRows; ++j) mx = fmaxf(mx, s[0][j]);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWideRows; ++j) psum += expf(s[0][j] - mx);
+    l = l * expf(m - mx) + psum;
+    m = mx;
+  }
+  if (qvalid && lane == 0)
+    lse[static_cast<long>(bh) * n.sq + qpos] =
+        l == 0.f ? apex::kNegInf : m + logf(l);
+}
+
+// the forward's second launch: o's chunk blockIdx.z = sum of the rounded,
+// dropped p = exp(s - lse) times v; one block per (q tile, bh, chunk)
+template <typename T, bool HasBias>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_wide_out_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ lse, T* __restrict__ o,
+                          Dims n, float scale, int causal, Dropout drop) {
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = smem + kWideRows * kWideCols;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y, c0 = blockIdx.z * kWideCols;
+  const int r = threadIdx.x / kWideLanes, lane = threadIdx.x % kWideLanes;
+  const int qpos = qt * kWideRows + r;
+  const bool qvalid = qpos < n.sq;
+  const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
+  const T* qrow = q + (static_cast<long>(bh) * n.sq + min(qpos, n.sq - 1)) *
+                          n.d;
+  const float* brow = bias_row<HasBias>(bias, bh % n.heads, qpos, n);
+  const float lse_r = qvalid ? lse[static_cast<long>(bh) * n.sq + qpos] : 0.f;
+  float acc[kWideDims];
+#pragma unroll
+  for (int i = 0; i < kWideDims; ++i) acc[i] = 0.f;
+  const int nkt = causal ? qt + 1 : tiles<kWideRows>(n.sk);
+  for (int kt = 0; kt < nkt; ++kt) {
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kWideRows) * n.d;
+    const int krows = min(kWideRows, n.sk - kt * kWideRows);
+    float s[1][kWideRows];
+    wide_dots<T, 1>(s, {qrow}, qvalid, {k + kbase}, krows, n.d, {sK}, lane);
+    wide_scores<HasBias>(s[0], brow, qt, kt, r, n, scale, causal);
+    // sV's last readers passed wide_dots' syncs
+    stage_cols<T, kWideCols, kWideRows>(sV, v + kbase + c0, krows, n.d,
+                                        wide_cols(n.d, c0), kWideThreads);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kWideRows; ++j) {
+      float p = expf(s[0][j] - lse_r);
+      if (drop.on)
+        p = hash_keep(qpos, kt * kWideRows + j, base, drop.thresh)
+                ? p * drop.inv_keep
+                : 0.f;
+      axpy_part<kWideDims, kWideLanes>(acc, round_to<T>(p),
+                                       sV + j * kWideCols, lane);
+    }
+  }
+  if (qvalid)
+    store_row_part<T, kWideDims, kWideLanes>(
+        o + (static_cast<long>(bh) * n.sq + qpos) * n.d + c0, acc, lane,
+        wide_cols(n.d, c0));
+}
+
+// dQ's chunk blockIdx.z; one block per (q tile, bh, chunk)
+template <typename T, bool HasBias>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ bias, T* __restrict__ dq,
+                         Dims n, float scale, int causal, Dropout drop) {
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = smem + kWideRows * kWideCols;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y, c0 = blockIdx.z * kWideCols;
+  const int r = threadIdx.x / kWideLanes, lane = threadIdx.x % kWideLanes;
+  const int qpos = qt * kWideRows + r;
+  const bool qvalid = qpos < n.sq;
+  const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
+  const long qrow = (static_cast<long>(bh) * n.sq + min(qpos, n.sq - 1)) *
+                    n.d;
+  const float* brow = bias_row<HasBias>(bias, bh % n.heads, qpos, n);
+  const long lrow = static_cast<long>(bh) * n.sq + qpos;
+  const float lse_r = qvalid ? lse[lrow] : 0.f;
+  const float delta_r = qvalid ? delta[lrow] : 0.f;
+  float acc[kWideDims];
+#pragma unroll
+  for (int i = 0; i < kWideDims; ++i) acc[i] = 0.f;
+  const int nkt = causal ? qt + 1 : tiles<kWideRows>(n.sk);
+  for (int kt = 0; kt < nkt; ++kt) {
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kWideRows) * n.d;
+    const int krows = min(kWideRows, n.sk - kt * kWideRows);
+    float sd[2][kWideRows];  // s, dp
+    wide_dots<T, 2>(sd, {q + qrow, dout + qrow}, qvalid,
+                    {k + kbase, v + kbase}, krows, n.d, {sK, sV}, lane);
+    wide_scores<HasBias>(sd[0], brow, qt, kt, r, n, scale, causal);
+    wide_restage<T, 1>({sK}, {k + kbase}, krows, n.d, c0);
+#pragma unroll
+    for (int j = 0; j < kWideRows; ++j) {
+      const float p = expf(sd[0][j] - lse_r);
+      float dp = sd[1][j];
+      if (drop.on)
+        dp = hash_keep(qpos, kt * kWideRows + j, base, drop.thresh)
+                 ? dp * drop.inv_keep
+                 : 0.f;
+      const float ds = p * (dp - delta_r) * scale;
+      axpy_part<kWideDims, kWideLanes>(acc, round_to<T>(ds),
+                                       sK + j * kWideCols, lane);
+    }
+  }
+  if (qvalid)
+    store_row_part<T, kWideDims, kWideLanes>(dq + lrow * n.d + c0, acc, lane,
+                                             wide_cols(n.d, c0));
+}
+
+// dK's and dV's chunk blockIdx.z; one block per (kv tile, bh, chunk),
+// walking the q tiles from the causal diagonal on
+template <typename T, bool HasBias>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const float* __restrict__ bias, T* __restrict__ dk,
+                          T* __restrict__ dv, Dims n, float scale, int causal,
+                          Dropout drop) {
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sO = smem + kWideRows * kWideCols;  // dO
+  const int kt = blockIdx.x, bh = blockIdx.y, c0 = blockIdx.z * kWideCols;
+  const int r = threadIdx.x / kWideLanes, lane = threadIdx.x % kWideLanes;
+  const int kpos = kt * kWideRows + r;
+  const bool kvalid = kpos < n.sk;
+  const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
+  const long krow = (static_cast<long>(bh) * n.sk + min(kpos, n.sk - 1)) *
+                    n.d;
+  // this key's bias column: row i of q tile qt at bcol[(qt * 8 + i) * bsk]
+  const float* bcol =
+      HasBias ? bias + static_cast<long>(bh % n.heads) * n.bsq * n.bsk + kpos
+              : nullptr;
+  float dka[kWideDims], dva[kWideDims];
+#pragma unroll
+  for (int i = 0; i < kWideDims; ++i) dka[i] = dva[i] = 0.f;
+  const int nqt = tiles<kWideRows>(n.sq);
+  for (int qt = causal ? kt : 0; qt < nqt; ++qt) {
+    const long row0 = static_cast<long>(bh) * n.sq + qt * kWideRows;
+    const int qrows = min(kWideRows, n.sq - qt * kWideRows);
+    float sd[2][kWideRows];  // s^T, dp^T
+    wide_dots<T, 2>(sd, {k + krow, v + krow}, kvalid,
+                    {q + row0 * n.d, dout + row0 * n.d}, qrows, n.d,
+                    {sQ, sO}, lane);
+    const bool diag = causal && kt == qt;
+    float lr[kWideRows], dr[kWideRows];
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i) {
+      lr[i] = i < qrows ? __ldg(lse + row0 + i) : 0.f;
+      dr[i] = i < qrows ? __ldg(delta + row0 + i) : 0.f;
+      float sv = sd[0][i] * scale;
+      if constexpr (HasBias)
+        sv = __fadd_rn(sv, __ldg(bcol + static_cast<long>(qt * kWideRows + i)
+                                            * n.bsk));
+      // kpos > qpos, or a row past sq (with a bias, its NEG_INF does it)
+      if ((diag && r > i) || (!HasBias && i >= qrows)) sv = apex::kNegInf;
+      sd[0][i] = sv;
+    }
+    wide_restage<T, 2>({sQ, sO}, {q + row0 * n.d, dout + row0 * n.d}, qrows,
+                       n.d, c0);
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i) {
+      const float p = expf(sd[0][i] - lr[i]);
+      float dp = sd[1][i], pv = p;
+      if (drop.on) {
+        const bool keep =
+            hash_keep(qt * kWideRows + i, kpos, base, drop.thresh);
+        pv = keep ? p * drop.inv_keep : 0.f;
+        dp = keep ? dp * drop.inv_keep : 0.f;
+      }
+      axpy_part<kWideDims, kWideLanes>(dva, round_to<T>(pv),
+                                       sO + i * kWideCols, lane);
+      const float ds = p * (dp - dr[i]) * scale;
+      axpy_part<kWideDims, kWideLanes>(dka, round_to<T>(ds),
+                                       sQ + i * kWideCols, lane);
+    }
+  }
+  if (!kvalid) return;
+  const int cols = wide_cols(n.d, c0);
+  store_row_part<T, kWideDims, kWideLanes>(dk + krow + c0, dka, lane, cols);
+  store_row_part<T, kWideDims, kWideLanes>(dv + krow + c0, dva, lane, cols);
+}
+
+// d(bias): one block per (k tile, q tile, head) output tile of 8 x 8,
+// walking the batch in order; lane j < 8 of a row sums column j
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_wide_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const float* __restrict__ bias,
+                            float* __restrict__ db, Dims n, int nb,
+                            float scale, int causal, Dropout drop) {
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = smem + kWideRows * kWideCols;
+  const int kt = blockIdx.x, qt = blockIdx.y, head = blockIdx.z;
+  const int r = threadIdx.x / kWideLanes, lane = threadIdx.x % kWideLanes;
+  const int qpos = qt * kWideRows + r;
+  const bool qvalid = qpos < n.sq;
+  const int krows = min(kWideRows, n.sk - kt * kWideRows);
+  float* dbrow = db + (static_cast<long>(head) * n.bsq + qpos) * n.bsk +
+                 kt * kWideRows;
+  if (causal && kt > qt) {  // above the diagonal: no score is live
+    if (lane < kWideRows) dbrow[lane] = 0.f;
+    return;
+  }
+  const float* brow = bias_row<true>(bias, head, qpos, n);
+  float acc = 0.f;
+  for (int b = 0; b < nb; ++b) {
+    const int bh = b * n.heads + head;
+    const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
+    const long qrow = (static_cast<long>(bh) * n.sq + min(qpos, n.sq - 1)) *
+                      n.d;
+    const long lrow = static_cast<long>(bh) * n.sq + qpos;
+    const float lse_r = qvalid ? lse[lrow] : 0.f;
+    const float delta_r = qvalid ? delta[lrow] : 0.f;
+    const long kbase = (static_cast<long>(bh) * n.sk + kt * kWideRows) * n.d;
+    float sd[2][kWideRows];
+    wide_dots<T, 2>(sd, {q + qrow, dout + qrow}, qvalid,
+                    {k + kbase, v + kbase}, krows, n.d, {sK, sV}, lane);
+    wide_scores<true>(sd[0], brow, qt, kt, r, n, scale, causal);
+#pragma unroll
+    for (int j = 0; j < kWideRows; ++j) {
+      const float p = expf(sd[0][j] - lse_r);
+      float dp = sd[1][j];
+      if (drop.on)
+        dp = hash_keep(qpos, kt * kWideRows + j, base, drop.thresh)
+                 ? dp * drop.inv_keep
+                 : 0.f;
+      // rounded before the sum, as JAX adds p * (dp - delta) to its scratch
+      const float ds = __fmul_rn(p, dp - delta_r);
+      if (j == lane) acc = __fadd_rn(acc, ds);
+    }
+  }
+  if (lane < kWideRows) dbrow[lane] = acc;
+}
+
+template <typename T, bool HasBias>
+cudaError_t launch_wide_fwd(const void* q, const void* k, const void* v,
+                            const void* bias, void* o, void* lse, Dims n,
+                            int bh, float scale, int causal, Dropout drop,
+                            cudaStream_t s) {
+  auto stats = flash_wide_stats_kernel<T, HasBias>;
+  auto out = flash_wide_out_kernel<T, HasBias>;
+  cudaError_t e = allow_smem(stats, kWideTileBytes);
+  if (e == cudaSuccess) e = allow_smem(out, 2 * kWideTileBytes);
+  if (e != cudaSuccess) return e;
+  const int nqt = tiles<kWideRows>(n.sq);
+  stats<<<dim3(nqt, bh), kWideThreads, kWideTileBytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const float*>(bias), static_cast<float*>(lse), n, scale,
+      causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  out<<<dim3(nqt, bh, wide_chunks(n.d)), kWideThreads, 2 * kWideTileBytes,
+        s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+             static_cast<const T*>(v), static_cast<const float*>(bias),
+             static_cast<const float*>(lse), static_cast<T*>(o), n, scale,
+             causal, drop);
+  return cudaSuccess;
+}
+
+template <typename T, bool HasBias>
+cudaError_t launch_wide_dq(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, const void* bias, void* dq,
+                           Dims n, int bh, float scale, int causal,
+                           Dropout drop, cudaStream_t s) {
+  auto kernel = flash_wide_dq_kernel<T, HasBias>;
+  const cudaError_t e = allow_smem(kernel, 2 * kWideTileBytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles<kWideRows>(n.sq), bh, wide_chunks(n.d)), kWideThreads,
+           2 * kWideTileBytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(bias), static_cast<T*>(dq), n, scale, causal,
+      drop);
+  return cudaSuccess;
+}
+
+template <typename T, bool HasBias>
+cudaError_t launch_wide_dkv(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, const void* bias, void* dk,
+                            void* dv, Dims n, int bh, float scale, int causal,
+                            Dropout drop, cudaStream_t s) {
+  auto kernel = flash_wide_dkv_kernel<T, HasBias>;
+  const cudaError_t e = allow_smem(kernel, 2 * kWideTileBytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles<kWideRows>(n.sk), bh, wide_chunks(n.d)), kWideThreads,
+           2 * kWideTileBytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(bias), static_cast<T*>(dk),
+      static_cast<T*>(dv), n, scale, causal, drop);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_wide_dbias(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, const void* bias, void* db,
+                              Dims n, int bh, float scale, int causal,
+                              Dropout drop, cudaStream_t s) {
+  auto kernel = flash_wide_dbias_kernel<T>;
+  const cudaError_t e = allow_smem(kernel, 2 * kWideTileBytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles<kWideRows>(n.sk), tiles<kWideRows>(n.sq), n.heads),
+           kWideThreads, 2 * kWideTileBytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(bias), static_cast<float*>(db), n,
+      bh / n.heads, scale, causal, drop);
+  return cudaSuccess;
+}
+
+// FN<T, HasBias>(args...) for a head dim above 2048, T the input type, the
+// bias kernels for a non-null `bias`
+#define APEX_WIDE_DISPATCH(FN, ...)                                       \
+  do {                                                                    \
+    if (is_bf16)                                                          \
+      return status_of(bias != nullptr                                    \
+                           ? FN<__nv_bfloat16, true>(__VA_ARGS__)         \
+                           : FN<__nv_bfloat16, false>(__VA_ARGS__));      \
+    return status_of(bias != nullptr ? FN<float, true>(__VA_ARGS__)       \
+                                     : FN<float, false>(__VA_ARGS__));    \
+  } while (0)
+
 // dynamic shared memory of a kernel that stages two (BR, D) fp32 tiles
 // (plus, for dK/dV, the tile's lse and delta)
 template <int D, int BR>
@@ -495,16 +893,8 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
 }
 
 // FN<T, D, HasBias, BR>(args...): the bias-free kernels for a null
-// `bias`, the bias kernels otherwise; over every type and D (DISPATCH) or
-// over those the CUDA-core route takes of the forward and dK/dV
-// (DISPATCH_CORE: fp32, and bf16 from D = 512 on)
-#define APEX_FLASH_DISPATCH(FN, ...)                                 \
-  do {                                                               \
-    if (bias != nullptr)                                             \
-      APEX_FLASH_DISPATCH_TD(FN<T, D, true, BR>(__VA_ARGS__));       \
-    else                                                             \
-      APEX_FLASH_DISPATCH_TD(FN<T, D, false, BR>(__VA_ARGS__));      \
-  } while (0)
+// `bias`, the bias kernels otherwise; over the types and D the CUDA-core
+// route takes (fp32, and bf16 from D = 512 on)
 #define APEX_FLASH_DISPATCH_CORE_FN(FN, ...)                         \
   do {                                                               \
     if (bias != nullptr)                                             \
@@ -517,12 +907,10 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
 
 // On CUDA device `device`, on `stream`. q, o, dO, dq: (bh, sq, d); k, v,
 // dk, dv: (bh, sk, d); contiguous, 16-byte aligned, all of one type
-// (is_bf16 ? bf16 : fp32); lse, delta: (bh, sq) fp32. d is a multiple of 8
-// up to 2048 (run by the instantiation for 32, 64, 128, 256, 512, 1024
-// or 2048, zeros past d); the forward and dK/dV take bf16 only at d > 256
-// (below, the
-// entry points of flash_mma.cu run it) and return cudaErrorInvalidValue
-// otherwise. sq and sk are any lengths, equal when causal: the last tile
+// (is_bf16 ? bf16 : fp32); lse, delta: (bh, sq) fp32. d is any multiple of
+// 8 (run by the instantiation for 32, 64, 128, 256, 512, 1024 or 2048,
+// zeros past d, and above 2048 by the wide kernels); each takes bf16
+// only at d > 256 (below, the entry points of flash_mma.cu run it) and return cudaErrorInvalidValue otherwise. sq and sk are any lengths, equal when causal: the last tile
 // of a length that is not a multiple of the tile masks the rows and
 // columns past it. `bias`
 // is null or a contiguous, 16-byte aligned fp32 (heads, bsq, bsk) tensor
@@ -545,6 +933,9 @@ extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
   const Dropout drop{dropout, seed, thresh, inv_keep};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > kWideCols)
+    APEX_WIDE_DISPATCH(launch_wide_fwd, q, k, v, bias, o, lse, n, bh, scale,
+                       causal, drop, s);
   APEX_FLASH_DISPATCH_CORE_FN(launch_fwd, q, k, v, bias, o, lse, n, bh,
                               scale, causal, drop, s);
 }
@@ -563,8 +954,11 @@ extern "C" int flash_attention_bwd_dq(int device, const void* q,
   const Dropout drop{dropout, seed, thresh, inv_keep};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, bias,
-                      dq, n, bh, scale, causal, drop, s);
+  if (d > kWideCols)
+    APEX_WIDE_DISPATCH(launch_wide_dq, q, k, v, dout, lse, delta, bias, dq,
+                       n, bh, scale, causal, drop, s);
+  APEX_FLASH_DISPATCH_CORE_FN(launch_dq, q, k, v, dout, lse, delta, bias,
+                              dq, n, bh, scale, causal, drop, s);
 }
 
 extern "C" int flash_attention_bwd_dkv(int device, const void* q,
@@ -581,6 +975,9 @@ extern "C" int flash_attention_bwd_dkv(int device, const void* q,
   const Dropout drop{dropout, seed, thresh, inv_keep};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > kWideCols)
+    APEX_WIDE_DISPATCH(launch_wide_dkv, q, k, v, dout, lse, delta, bias, dk,
+                       dv, n, bh, scale, causal, drop, s);
   APEX_FLASH_DISPATCH_CORE_FN(launch_dkv, q, k, v, dout, lse, delta, bias,
                               dk, dv, n, bh, scale, causal, drop, s);
 }
@@ -602,6 +999,9 @@ extern "C" int flash_attention_bwd_dbias(int device, const void* q,
   const Dropout drop{dropout, seed, thresh, inv_keep};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_FLASH_DISPATCH_TD(launch_dbias<T, D, BR>(
+  if (d > kWideCols)
+    APEX_WIDE_DISPATCH_T(launch_wide_dbias, q, k, v, dout, lse, delta, bias,
+                         db, n, bh, scale, causal, drop, s);
+  APEX_FLASH_DISPATCH_CORE(launch_dbias<T, D, BR>(
       q, k, v, dout, lse, delta, bias, db, n, bh, scale, causal, drop, s));
 }

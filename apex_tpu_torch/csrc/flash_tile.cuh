@@ -126,26 +126,35 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// Copy `rows` rows (1 <= rows <= BR) of d columns of T, row stride d, into
-// a (BR, D) fp32 tile; the other rows and columns become zeros. Every load
-// is made, from an address clamped into the tile, and zeroed by value: a
-// load behind a branch cannot start ahead of the others.
+// Copy `rows` rows (1 <= rows <= BR) of `cols` columns of T (a multiple of
+// 8, at most D), row stride `stride`, into a (BR, D) fp32 tile; the other
+// rows and columns become zeros. Every load is made, from an address
+// clamped into the tile, and zeroed by value: a load behind a branch
+// cannot start ahead of the others.
 template <typename T, int D, int BR>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src, int rows,
-                                           int d, int nthreads) {
+__device__ __forceinline__ void stage_cols(float* dst, const T* src, int rows,
+                                           int stride, int cols,
+                                           int nthreads) {
   constexpr int N = apex::Vec<T>::N, PER_ROW = D / N;
   for (int u = threadIdx.x; u < BR * PER_ROW; u += nthreads) {
     const int row = u / PER_ROW, c = (u % PER_ROW) * N;
     float f[N];
-    apex::load_vec(src + static_cast<long>(min(row, rows - 1)) * d +
-                       min(c, d - N),
+    apex::load_vec(src + static_cast<long>(min(row, rows - 1)) * stride +
+                       min(c, cols - N),
                    f);
-    const bool in = row < rows && c < d;
+    const bool in = row < rows && c < cols;
 #pragma unroll
     for (int e = 0; e < N; ++e) f[e] = in ? f[e] : 0.f;
 #pragma unroll
     for (int e = 0; e < N; e += 4) store4(dst + row * D + c + e, f + e);
   }
+}
+
+// stage_cols over a whole row of d columns (row stride d)
+template <typename T, int D, int BR>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src, int rows,
+                                           int d, int nthreads) {
+  stage_cols<T, D, BR>(dst, src, rows, d, d, nthreads);
 }
 
 // dims of this thread: float4 chunks h, h + TPR, h + 2*TPR, ... of a row

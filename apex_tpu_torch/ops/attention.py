@@ -20,11 +20,12 @@ Dropout is the JAX kernels' counter hash (:func:`attention_dropout_mask`),
 bitwise the same keep mask, so the forward, its remat replay and both
 backward kernels drop the same entries.
 
-Two routes (:func:`_flash_route`): the forward and dK/dV with bf16 inputs
-at head_dim <= 256 run on the tensor cores (``csrc/flash_mma.cu``); fp32
-inputs, head_dim 264-2048 and the dQ and d(bias) kernels run on the CUDA
-cores in fp32 (``csrc/flash_attention.cu``). Each kernel counts its
-launches under its own C entry's name.
+Two routes (:func:`_flash_route`): bf16 inputs at head_dim <= 256 run all
+four kernels on the tensor cores (``csrc/flash_mma.cu``); fp32 inputs and
+every head_dim above 256 run them on the CUDA cores in fp32
+(``csrc/flash_attention.cu``; above 2048 with the head dim in chunks of
+2048 columns). Each kernel counts its launches under its own C entry's
+name.
 """
 
 from __future__ import annotations
@@ -43,18 +44,15 @@ from apex_tpu_torch.ops import _kernel_util as ku
 # (-inf) - (-inf).
 NEG_INF = -1e30
 
-# the kernels' largest head dim: 2048 fills an 8-row fp32 tile pair with
-# 128 KB of shared memory, as 1024 does with 16 rows, 512 with 32 and 256
-# with 64, a row held by one warp at 64 dims a thread; above it a row
-# would need 128 dims a thread (registers) or a sum across warps, and no
-# configuration uses it (JAX's kernel takes any head_dim % 8 == 0)
-_MAX_HEAD_DIM = 2048
 # the tensor-core kernels' largest head dim (bf16 only): six (64, 256) bf16
-# tiles of dK/dV take 204 KB of shared memory
+# tiles of dQ or dK/dV take 203-204 KB of shared memory
 _MMA_MAX_HEAD_DIM = 256
 # rows of a kernel tile; the kernels read the bias (and write d(bias)) in
 # whole tiles
 _TILE = 64
+# blocks the tensor-core d(bias) aims to launch: two for each of the H100's
+# 132 SMs
+_DBIAS_TARGET_BLOCKS = 264
 # heads, bh, sq, sk, d, scale, causal, dropout, seed, thresh, inv_keep,
 # is_bf16, stream
 _FLASH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -71,25 +69,40 @@ _SIGNATURES = {
     "flash_attention_bwd_dbias": [ctypes.c_int] + [ctypes.c_void_p] * 8
     + _FLASH_ARGS,
 }
-# the tensor-core forward and dK/dV (csrc/flash_mma.cu), same arguments
+# the tensor-core kernels (csrc/flash_mma.cu), the same arguments; d(bias)
+# also takes the scratch of its batch chunks' partials (a pointer after
+# db) and their count (an int before the stream)
 _MMA_SIGNATURES = {
     "flash_mma_fwd": _SIGNATURES["flash_attention_fwd"],
+    "flash_mma_bwd_dq": _SIGNATURES["flash_attention_bwd_dq"],
     "flash_mma_bwd_dkv": _SIGNATURES["flash_attention_bwd_dkv"],
+    "flash_mma_bwd_dbias": [ctypes.c_int] + [ctypes.c_void_p] * 9
+    + _FLASH_ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p],
 }
 
 
 def _flash_route(dtype, d: int) -> str:
-    """Which kernels run the forward and dK/dV at this input dtype and head
-    dim on the card: ``"tensor_core"`` (bf16, d <= 256: ``flash_mma.cu``)
-    or ``"cuda_core"`` (fp32 at every d, bf16 at 264-2048:
+    """Which kernels run flash attention at this input dtype and head dim
+    on the card: ``"tensor_core"`` (bf16, d <= 256: ``flash_mma.cu``) or
+    ``"cuda_core"`` (fp32 at every d, bf16 above 256:
     ``flash_attention.cu``, fp32 products, as JAX's fp32 reference forms
-    them). A head dim that is not a multiple of 8 up to 2048 raises."""
-    if not (d % 8 == 0 and 0 < d <= _MAX_HEAD_DIM):
-        raise ValueError(f"head_dim {d} must be a multiple of 8 up to "
-                         f"{_MAX_HEAD_DIM}")
+    them). A head dim that is not a positive multiple of 8 raises, as
+    JAX's gate refuses it."""
+    if not (d % 8 == 0 and d > 0):
+        raise ValueError(f"head_dim {d} must be a positive multiple of 8")
     if dtype == torch.bfloat16 and d <= _MMA_MAX_HEAD_DIM:
         return "tensor_core"
     return "cuda_core"
+
+
+def _dbias_chunks(heads: int, sq: int, sk: int, nb: int) -> int:
+    """Ordered chunks of the batch that the tensor-core d(bias) sums
+    apart (one block per (output tile, head, chunk), each chunk's partial
+    added in chunk order by a second launch): enough that the grid
+    reaches _DBIAS_TARGET_BLOCKS, at most one a batch item. A function of
+    the shape alone, so the sum repeats bitwise."""
+    tiles = heads * -(-sq // _TILE) * -(-sk // _TILE)
+    return max(1, min(nb, -(-_DBIAS_TARGET_BLOCKS // tiles)))
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +298,29 @@ def flash_attention_bwd_dbias_reference(q3, k3, v3, o3, lse, do3,
     return _per_head(p * (dp - delta), bias).sum(dim=0)
 
 
+def flash_attention_bwd_dbias_chunked_reference(q3, k3, v3, o3, lse, do3,
+                                                scale: float, causal: bool,
+                                                dropout_rate: float = 0.0,
+                                                seed: int = 0, *, bias,
+                                                chunks: int):
+    """Plain version of the tensor-core d(bias)'s batch split: chunk c sums
+    the batch items [c·nb // chunks, (c + 1)·nb // chunks) in order into
+    an fp32 partial, and the partials are added in chunk order, as the
+    kernel's second launch adds them."""
+    p, dp, delta, _ = _p_dp_delta(q3, k3, v3, o3, lse, do3, scale, causal,
+                                  dropout_rate, seed, bias)
+    per = _per_head(p * (dp - delta), bias)
+    nb = per.shape[0]
+    out = None
+    for c in range(chunks):
+        b0, b1 = c * nb // chunks, (c + 1) * nb // chunks
+        part = per[b0]
+        for b in range(b0 + 1, b1):
+            part = part + per[b]
+        out = part if out is None else out + part
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
@@ -299,9 +335,8 @@ def _check_flash(what, q3, k3, v3, causal, bias, *others):
     sk = k3.shape[1]
     ku.require(q3.dtype in (torch.float32, torch.bfloat16),
                f"{what} takes fp32 or bf16, got {q3.dtype}")
-    ku.require(d % 8 == 0 and 0 < d <= _MAX_HEAD_DIM,
-               f"{what}: head_dim {d} must be a multiple of 8 up to "
-               f"{_MAX_HEAD_DIM}")
+    ku.require(d % 8 == 0 and d > 0,
+               f"{what}: head_dim {d} must be a positive multiple of 8")
     ku.require(sq % 8 == 0 and sk % 8 == 0,
                f"{what}: sequence lengths ({sq}, {sk}) must be multiples of 8")
     ku.require(not causal or sq == sk,
@@ -348,11 +383,12 @@ def _dropout_args(rate: float, seed: int):
 
 
 def _launch(entry, q3, k3, v3, bias, scale, causal, dropout_rate, seed,
-            pointers, shapes):
+            pointers, shapes, extra=()):
     """Check the inputs, launch ``entry`` (of ``flash_mma.cu`` or
     ``flash_attention.cu``) with the tensors of ``pointers`` (in the C
-    order), count the launch (a launch of the fwd, dQ or dK/dV kernel with
-    a bias also under ``entry + "[bias]"``) and raise on a CUDA error."""
+    order) and the ints of ``extra`` (after is_bf16), count the launch (a
+    launch of the fwd, dQ or dK/dV kernel with a bias also under ``entry
+    + "[bias]"``) and raise on a CUDA error."""
     heads, bh, sq, sk, d = _check_flash(entry, q3, k3, v3, causal, bias,
                                         *shapes)
     if bias is not None:
@@ -364,9 +400,9 @@ def _launch(entry, q3, k3, v3, bias, scale, causal, dropout_rate, seed,
     status = getattr(lib, entry)(
         q3.device.index, *(_ptr(t) for t in pointers), heads, bh, sq, sk, d,
         float(scale), int(causal), *_dropout_args(dropout_rate, seed),
-        int(q3.dtype == torch.bfloat16), ku.stream_handle(q3))
+        int(q3.dtype == torch.bfloat16), *extra, ku.stream_handle(q3))
     ku.count_launch(entry)
-    if bias is not None and entry != "flash_attention_bwd_dbias":
+    if bias is not None and not entry.endswith("_dbias"):
         ku.count_launch(entry + "[bias]")
     ku.check_status(lib, status, entry)
 
@@ -397,9 +433,13 @@ def flash_attention_fwd(q3, k3, v3, scale: float, causal: bool,
 def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float,
                            causal: bool, dropout_rate: float = 0.0,
                            seed: int = 0, bias=None):
-    """Launch the dQ kernel; ``lse`` and ``delta`` are fp32 (bh, sq, 1)."""
+    """Launch the dQ kernel of :func:`_flash_route`; ``lse`` and ``delta``
+    are fp32 (bh, sq, 1)."""
+    entry = ("flash_mma_bwd_dq"
+             if _flash_route(q3.dtype, q3.shape[-1]) == "tensor_core"
+             else "flash_attention_bwd_dq")
     dq = torch.empty_like(q3)
-    _launch("flash_attention_bwd_dq", q3, k3, v3, bias, scale, causal,
+    _launch(entry, q3, k3, v3, bias, scale, causal,
             dropout_rate, seed, (q3, k3, v3, do3, lse, delta, bias, dq),
             _bwd_shapes(q3, do3, lse, delta))
     return dq
@@ -424,16 +464,28 @@ def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float,
 def flash_attention_bwd_dbias(q3, k3, v3, do3, lse, delta, scale: float,
                               causal: bool, dropout_rate: float = 0.0,
                               seed: int = 0, *, bias):
-    """Launch the d(bias) kernel: dL/dbias, fp32 (heads, sq, sk), summed
-    over the batch in order by one block per output tile (the same bits
-    on every run)."""
+    """Launch the d(bias) kernel of :func:`_flash_route`: dL/dbias, fp32
+    (heads, sq, sk), summed over the batch in order by one block per
+    output tile (on the tensor cores per chunk of the batch,
+    :func:`_dbias_chunks`, the chunks' partials added in chunk order): the
+    same bits on every run."""
     ku.require(bias is not None, "flash_attention_bwd_dbias needs the bias")
     sq, sk = q3.shape[1], k3.shape[1]
     db = _whole_tiles(torch.empty(bias.shape, dtype=torch.float32,
                                   device=q3.device), sq, sk)
-    _launch("flash_attention_bwd_dbias", q3, k3, v3, bias, scale, causal,
-            dropout_rate, seed, (q3, k3, v3, do3, lse, delta, bias, db),
-            _bwd_shapes(q3, do3, lse, delta))
+    pointers = (q3, k3, v3, do3, lse, delta, bias, db)
+    shapes = _bwd_shapes(q3, do3, lse, delta)
+    if _flash_route(q3.dtype, q3.shape[-1]) == "tensor_core":
+        heads = bias.shape[0] if bias.dim() == 3 else 1
+        chunks = _dbias_chunks(heads, sq, sk, max(1, q3.shape[0] // heads))
+        part = (torch.empty((chunks, *db.shape), dtype=torch.float32,
+                            device=q3.device) if chunks > 1 else None)
+        _launch("flash_mma_bwd_dbias", q3, k3, v3, bias, scale, causal,
+                dropout_rate, seed, (*pointers, part), shapes,
+                extra=(chunks,))
+    else:
+        _launch("flash_attention_bwd_dbias", q3, k3, v3, bias, scale, causal,
+                dropout_rate, seed, pointers, shapes)
     return db if db.shape[1:] == (sq, sk) else db[:, :sq, :sk].contiguous()
 
 
@@ -501,9 +553,9 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     bias of shape (heads, sq, sk) (T5's relative position bias), added
     after the scaling and differentiable; any other shape raises
     ``ValueError``, as in JAX. On CUDA the kernels take fp32/bf16 and
-    head_dim up to 2048 (above that they raise); bf16 at head_dim <= 256
-    runs the forward and dK/dV on the tensor cores (:func:`_flash_route`).
-    The bias is used in fp32 whatever its dtype.
+    every head_dim JAX's gate takes; bf16 at head_dim <= 256 runs them on
+    the tensor cores (:func:`_flash_route`). The bias is used in fp32
+    whatever its dtype.
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]

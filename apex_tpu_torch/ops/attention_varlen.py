@@ -35,7 +35,7 @@ from apex_tpu_torch.ops import _kernel_util as ku
 # _TILE: rows of a kernel tile; sequences are padded to a multiple of it
 # with segment -1 (pad keys match nothing, pad rows output 0 and are sliced
 # off)
-from apex_tpu_torch.ops.attention import _MAX_HEAD_DIM, _TILE, NEG_INF
+from apex_tpu_torch.ops.attention import _TILE, NEG_INF
 # device, q, k, v, seg_q, seg_k, q ranges, k ranges
 _HEAD = [ctypes.c_int] + [ctypes.c_void_p] * 7
 # b, h, sq, sk, d, scale, causal, is_bf16, stream
@@ -206,9 +206,8 @@ def _check_varlen(what, q, k, v, seg_q, seg_k, *others):
     sk = k.shape[2]
     ku.require(q.dtype in (torch.float32, torch.bfloat16),
                f"{what} takes fp32 or bf16, got {q.dtype}")
-    ku.require(d % 8 == 0 and 0 < d <= _MAX_HEAD_DIM,
-               f"{what}: head_dim {d} must be a multiple of 8 up to "
-               f"{_MAX_HEAD_DIM}")
+    ku.require(d % 8 == 0 and d > 0,
+               f"{what}: head_dim {d} must be a positive multiple of 8")
     ku.require(sq % _TILE == 0 and sk % _TILE == 0,
                f"{what}: sequence lengths ({sq}, {sk}) must be multiples of "
                f"{_TILE} (flash_attention_varlen pads them)")
@@ -320,8 +319,8 @@ def flash_attention_varlen(q, k, v, seg_q, seg_k=None, causal: bool = False,
     the JAX ``flash_attention_varlen`` contract: pads (seg < 0) attend to
     nothing and output zero; differentiable in q, k and v. The varlen
     kernels on CUDA tensors (their plain versions on CPU tensors) for
-    head_dim % 8 == 0 (up to 2048 on CUDA; above that they raise), the dense
-    :func:`attention_varlen_reference` otherwise, as JAX. A length that is
+    head_dim % 8 == 0, the dense :func:`attention_varlen_reference`
+    otherwise, as JAX. A length that is
     not a multiple of the kernels' 64-row tile is padded with segment −1
     and sliced back, as JAX pads to its 128 (pad keys match nothing, pad
     rows output 0, so the result is the same). JAX's ``block_q`` /

@@ -53,11 +53,14 @@
      with a T5 bias, head_dim 256 and 192 (the D = 256
      instantiation) causal and with a bias, 512 and 320 (the CUDA-core D
      = 512, 32-row tiles) causal and with a bias, and 1024 (D = 1024,
-     16-row tiles) causal and 2048 (D = 2048, 8-row tiles) with a bias;
-     each case
-     on its route (bf16 up to head_dim 256: the tensor-core forward and
-     dK/dV of ``csrc/flash_mma.cu``; fp32 and head_dim 264-2048: the
-     CUDA-core kernels), the forward and dK/dV bitwise over two launches;
+     16-row tiles) causal and 2048 (D = 2048, 8-row tiles) with a bias,
+     and above 2048 (the wide kernels, the head dim in 2048-column
+     chunks) 2056 causal with a bias and 4096 causal with dropout and
+     rectangular with a bias; each case
+     on its route (bf16 up to head_dim 256: the tensor-core forward, dQ,
+     dK/dV and d(bias) of ``csrc/flash_mma.cu``; fp32 and head_dim above
+     256: the CUDA-core kernels), the forward, dQ and dK/dV bitwise over
+     two launches;
      the tensor-core kernels' ptxas registers and spills and their count
      of tensor-core (HMMA) instructions in the built library (SASS from
      ``cuobjdump``), which must be nonzero in every instantiation;
@@ -68,6 +71,8 @@
      exactly 0, and through ``flash_attention_varlen``
      at a misaligned total (8100); times beside SDPA with the dense
      block-diagonal mask and the dense causal flash kernels at the same T;
+     and a short packed row (256 tokens, 2 heads) at head_dim 2056 causal
+     and 4096 bidirectional (the wide kernels), fp32 and bf16, checked;
    * ``layer_norm`` without weight or bias on CUDA: the plain version,
      bitwise, no launch;
    * the fused LM-head + CE forward, dX and dW at the training shape
@@ -108,8 +113,8 @@
      BF16_GRAD_NORM_RTOL in norm;
    * bf16, batch 8 x 1024 (the training main path): the launch counts of
      one step (reset just before it, read just after) equal the per-step
-     table (LN fwd 49, LN bwd 25, tensor-core flash fwd 24, dQ 12,
-     tensor-core dK/dV 12, LM-head
+     table (LN fwd 49, LN bwd 25, tensor-core flash fwd 24, tensor-core
+     dQ 12, tensor-core dK/dV 12, LM-head
      fwd, tensor-core dX and dW 1 each, Adam tail 16); the loss stays
      finite and
      falls over 10 steps on the fixed batch; a second run from the same
@@ -130,9 +135,9 @@
    * bf16, batch 8 (the T5 main path): the launch counts of one step
      (reset just before it, read just after) equal the per-step table
      (LN fwd 62, LN bwd 32, tensor-core flash fwd 36 of which 24 with a
-     bias, dQ 18, tensor-core dK/dV 18, d(bias) 12, LM-head fwd and
-     tensor-core dX and dW 1 each, Adam
-     tail 39); the loss stays
+     bias, tensor-core dQ 18 (12 with a bias), tensor-core dK/dV 18,
+     tensor-core d(bias) 12, LM-head fwd and tensor-core dX and dW 1 each,
+     Adam tail 39); the loss stays
      finite and falls over 10 steps; a second run from the same seed
      repeats the losses bitwise; train tokens/s (encoder + decoder), step
      ms p50, peak memory, busy share and top kernels over 3 profiled
@@ -333,14 +338,19 @@ def tensor_core_info(ku, built, source, counts, kernels):
 
 
 def mma_kernel_info(ku, built):
-    """The tensor-core flash forward and dK/dV (``csrc/flash_mma.cu``, 8
-    instantiations each: D 32-256 with and without a bias)."""
+    """The tensor-core flash forward, dQ and dK/dV (``csrc/flash_mma.cu``,
+    8 instantiations each: D 32-256 with and without a bias) and d(bias)
+    (4: D 32-256)."""
     counts = sass_hmma_counts(
-        ku, "flash_mma", r"(flash_mma_(?:fwd|dkv)_kernel)ILi(\d+)ELb([01])E",
-        lambda m: f"{m.group(1)}[{m.group(2)}{', bias' * int(m.group(3))}]")
+        ku, "flash_mma",
+        r"(flash_mma_(?:fwd|dq|dkv|dbias)_kernel)ILi(\d+)E(?:Lb([01])E)?",
+        lambda m: f"{m.group(1)}[{m.group(2)}"
+                  f"{', bias' * int(m.group(3) or 0)}]")
     return tensor_core_info(ku, built, "flash_mma", counts, {
         "fwd": ("flash_mma_fwd_kernel", 8, "flash_mma_fwd_kernel"),
-        "dkv": ("flash_mma_dkv_kernel", 8, "flash_mma_dkv_kernel")})
+        "dq": ("flash_mma_dq_kernel", 8, "flash_mma_dq_kernel"),
+        "dkv": ("flash_mma_dkv_kernel", 8, "flash_mma_dkv_kernel"),
+        "dbias": ("flash_mma_dbias_kernel", 4, "flash_mma_dbias_kernel")})
 
 
 def lm_mma_kernel_info(ku, built):
@@ -994,13 +1004,19 @@ FLASH_SHAPES = [  # (name, batch, heads, sq, sk, d, causal, dropout rate, bias)
     # (8-row tiles) with a bias
     ("d1024", 1, 2, 256, 256, 1024, True, 0.0, False),
     ("d2048_bias", 1, 2, 128, 128, 2048, False, 0.0, True),
+    # above 2048: the wide kernels (the head dim in 2048-column chunks),
+    # causal with a bias at a tail, causal with dropout, and rectangular
+    # with a bias
+    ("d2056_bias", 1, 2, 136, 136, 2056, True, 0.0, True),
+    ("d4096", 1, 2, 128, 128, 4096, True, 0.1, False),
+    ("d4096_bias", 1, 2, 72, 200, 4096, False, 0.0, True),
 ]
 # the shapes of FLASH_SHAPES that run in the D = 256 instantiation, and in
 # D = 512-2048 (the CUDA-core kernels in both types), without and with a
 # bias
 D256_SHAPES = ("d256", "d192", "d256_bias", "d192_bias")
-D_WIDE_SHAPES = ("d512", "d1024")
-D_WIDE_BIAS_SHAPES = ("d320_bias", "d2048_bias")
+D_WIDE_SHAPES = ("d512", "d1024", "d4096")
+D_WIDE_BIAS_SHAPES = ("d320_bias", "d2048_bias", "d2056_bias", "d4096_bias")
 # d(bias) in both input types: fp32 products of the same inputs on both
 # sides, fp32 sums over the batch in another order
 DBIAS_TOL = (1e-4, 1e-4)
@@ -1029,10 +1045,10 @@ def flash_phase(torch, dev):
     """The flash kernels vs their plain versions at each shape of
     FLASH_SHAPES, fp32 and bf16 (lse and delta from the kernel forward feed
     the backwards), each case on the route ``_flash_route`` gives it (the
-    tensor-core forward and dK/dV for bf16 up to head_dim 256, the
-    CUDA-core kernels otherwise): o, lse, dq, dk, dv and, with a bias,
-    d(bias), which must also be zero above the causal diagonal; the
-    forward, dK/dV and d(bias) bitwise equal over two launches.
+    tensor-core kernels for bf16 up to head_dim 256, the CUDA-core kernels
+    otherwise): o, lse, dq, dk, dv and, with a bias, d(bias), which must
+    also be zero above the causal diagonal; the forward, dQ, dK/dV and
+    d(bias) bitwise equal over two launches.
     Tolerance: fp32 atol/rtol 1e-4 (sums over up to 1024 keys
     in another order); bf16 one output rounding (rtol 2**-7) plus atol
     1e-2 (p and ds are rounded to bf16 before their products, at other
@@ -1095,17 +1111,19 @@ def flash_phase(torch, dev):
                         check_close(f"flash dv {tag}", dv, want[2], atol,
                                     rtol))}}
             del o_p, lse_p, want
-            # the forward and dK/dV: the same bits from a second launch
+            # the forward, dQ and dK/dV: the same bits from a second launch
             o2, lse2 = flash_attention_fwd(q, k, v, *args, **kw)
+            dq2 = flash_attention_bwd_dq(q, k, v, do, lse, delta, *args,
+                                         **kw)
             dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                *args, **kw)
             if not all(torch.equal(a, b2) for a, b2 in (
-                    (o, o2), (lse, lse2), (dk, dk2), (dv, dv2))):
-                raise AssertionError(f"flash fwd / dkv {tag}: two launches "
-                                     f"differ")
-            case["fwd"]["bitwise_repeat"] = True
-            case["dkv"]["bitwise_repeat"] = True
-            del o2, lse2, dk2, dv2
+                    (o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2))):
+                raise AssertionError(f"flash fwd / dq / dkv {tag}: two "
+                                     f"launches differ")
+            for key in ("fwd", "dq", "dkv"):
+                case[key]["bitwise_repeat"] = True
+            del o2, lse2, dq2, dk2, dv2
             keys = ("fwd", "dq", "dkv")
             if has_bias:
                 db = flash_attention_bwd_dbias(q, k, v, do, lse, delta, *args,
@@ -1195,6 +1213,11 @@ PACK_MISALIGNED_T = 8100           # not a multiple of the 64-row tile
 # tiles), 2 heads, causal
 PACK_D256_HEADS = 4
 PACK_D512_HEADS = 2
+# a short packed row (documents of 24-120 tokens from numpy seed 2, the
+# rest padding) at the head dims above 2048 (the wide kernels), 2 heads:
+# head_dim 2056 causal and 4096 bidirectional
+PACK_WIDE_T, PACK_WIDE_HEADS = 256, 2
+PACK_WIDE_CASES = ((2056, True), (4096, False))
 VARLEN_NAMES = ("flash_varlen_fwd", "flash_varlen_bwd_dq",
                 "flash_varlen_bwd_dkv")
 
@@ -1413,6 +1436,58 @@ def varlen_phase(torch, dev):
             del q, k, v, do, runs
     torch.cuda.empty_cache()
     return {"cases": cases, "misaligned": misaligned}
+
+
+def varlen_wide_phase(torch, dev):
+    """The varlen kernels above head dim 2048 (the wide kernels) vs their
+    plain versions on a short packed row (PACK_WIDE_T tokens, documents of
+    24-120 tokens from numpy seed 2, PACK_WIDE_HEADS heads) at the head
+    dims of PACK_WIDE_CASES, fp32 and bf16: o, lse, dq, dk, dv within
+    flash's tolerances (fp32 atol/rtol 1e-4, bf16 atol 1e-2 + rtol
+    2**-7), pad rows of o, dq, dk and dv exactly 0. Untimed."""
+    from apex_tpu_torch.ops.attention_varlen import (
+        flash_varlen_bwd_dkv, flash_varlen_bwd_dq,
+        flash_varlen_bwd_reference, flash_varlen_fwd,
+        flash_varlen_fwd_reference)
+
+    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    lens_w = packed_lengths(PACK_WIDE_T, seed=2, lo=24, hi=120)
+    seg_w = packed_segments(torch, dev, lens_w, PACK_WIDE_T)
+    pad_w = seg_w[0] < 0
+    wide = []
+    for d, causal in PACK_WIDE_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            q, k, v, do = (torch.randn(1, PACK_WIDE_HEADS, PACK_WIDE_T, d,
+                                       device=dev, generator=gen).to(dt)
+                           for _ in range(4))
+            args = (1.0 / math.sqrt(d), causal)
+            vargs = (q, k, v, seg_w, seg_w)
+            o, lse = flash_varlen_fwd(*vargs, *args)
+            o_p, lse_p = flash_varlen_fwd_reference(*vargs, *args)
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+            dq = flash_varlen_bwd_dq(*vargs, do, lse, delta, *args)
+            dk, dv = flash_varlen_bwd_dkv(*vargs, do, lse, delta, *args)
+            want = flash_varlen_bwd_reference(*vargs, o, lse, do, *args)
+            torch.cuda.synchronize()
+            atol, rtol = tol[dname]
+            tag = f"varlen d{d} causal={causal} {dname}"
+            err = max(check_close(f"{tag} o", o, o_p, atol, rtol),
+                      check_close(f"{tag} lse", lse, lse_p, 1e-4, 1e-5),
+                      *(check_close(f"{tag} {name}", a, b, atol, rtol)
+                        for name, a, b in zip(("dq", "dk", "dv"),
+                                              (dq, dk, dv), want)))
+            for name, x in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+                if bool(x[0][:, pad_w].any()):
+                    raise AssertionError(f"{tag}: {name} of pad rows not 0")
+            wide.append({"dtype": dname, "causal": causal, "head_dim": d,
+                         "heads": PACK_WIDE_HEADS, "tokens": PACK_WIDE_T,
+                         "documents": len(lens_w), "atol": atol,
+                         "rtol": rtol, "max_abs_err": err})
+            del q, k, v, do, o, o_p, lse, lse_p, delta, dq, dk, dv, want
+    torch.cuda.empty_cache()
+    return wide
 
 
 def fmha_phase(torch, dev, ku):
@@ -2305,7 +2380,7 @@ def engine_phase(torch, dev, ku):
 # the remat blocks); the Adam tail once per leaf (16 leaves)
 TRAIN_LAUNCHES = {"layer_norm_fwd": 25 + 24, "layer_norm_bwd": 25,
                   "flash_mma_fwd": 12 + 12,
-                  "flash_attention_bwd_dq": 12,
+                  "flash_mma_bwd_dq": 12,
                   "flash_mma_bwd_dkv": 12,
                   "lm_head_loss_fwd": 1, "lm_head_mma_bwd_dx": 1,
                   "lm_head_mma_bwd_dw": 1, "fused_adam_tail": 16}
@@ -2418,9 +2493,9 @@ def bf16_gate(torch, ku, what, leaves, loss_fn):
 
 def train_bf16_check(torch, dev, ku):
     """The bf16 gate on GPT-2-124M (batch 2 x 1024, the default step's
-    loss: full remat, fused LM-head loss): its flash forward and dK/dV and
-    its LM-head dX and dW run on the tensor cores, which the fp32 check
-    does not reach."""
+    loss: full remat, fused LM-head loss): its flash forward, dQ and dK/dV
+    and its LM-head dX and dW run on the tensor cores, which the fp32
+    check does not reach."""
     import numpy as np
 
     from apex_tpu_torch.convert import named_leaves
@@ -2437,8 +2512,8 @@ def train_bf16_check(torch, dev, ku):
     tgt = torch.roll(tok, -1, dims=1)
     out = bf16_gate(torch, ku, "train", leaves,
                     lambda: gpt_loss(params, tok, tgt, cfg))
-    for name in ("flash_mma_fwd", "flash_mma_bwd_dkv", "lm_head_mma_bwd_dx",
-                 "lm_head_mma_bwd_dw"):
+    for name in ("flash_mma_fwd", "flash_mma_bwd_dq", "flash_mma_bwd_dkv",
+                 "lm_head_mma_bwd_dx", "lm_head_mma_bwd_dw"):
         if out["launches"].get(name, 0) != TRAIN_LAUNCHES[name]:
             raise AssertionError(f"bf16 check launches {out['launches']}")
     return {"batch": 2, "seq": 1024, **out}
@@ -2567,11 +2642,11 @@ T5_LAUNCHES = {"layer_norm_fwd": 2 * (6 * 2 + 6 * 3) + 2,
                "layer_norm_bwd": 6 * 2 + 6 * 3 + 2,
                "flash_mma_fwd": 2 * 18,
                "flash_mma_fwd[bias]": 2 * 12,
-               "flash_attention_bwd_dq": 18,
-               "flash_attention_bwd_dq[bias]": 12,
+               "flash_mma_bwd_dq": 18,
+               "flash_mma_bwd_dq[bias]": 12,
                "flash_mma_bwd_dkv": 18,
                "flash_mma_bwd_dkv[bias]": 12,
-               "flash_attention_bwd_dbias": 12,
+               "flash_mma_bwd_dbias": 12,
                "lm_head_loss_fwd": 1, "lm_head_mma_bwd_dx": 1,
                "lm_head_mma_bwd_dw": 1, "fused_adam_tail": 39}
 
@@ -2641,9 +2716,9 @@ def t5_fp32_check(torch, dev, ku):
 
 def t5_bf16_check(torch, dev, ku):
     """The bf16 gate on T5-small (batch 2, 512 + 128 tokens, full remat,
-    fused loss): its flash forward and dK/dV, with and without the bias,
-    and its LM-head dX and dW run on the tensor cores, which the fp32
-    check does not reach."""
+    fused loss): its flash forward, dQ and dK/dV, with and without the
+    bias, its d(bias) and its LM-head dX and dW run on the tensor cores,
+    which the fp32 check does not reach."""
     from apex_tpu_torch.convert import named_leaves
     from apex_tpu_torch.transformer.testing import (build_t5_train_step,
                                                     t5_loss)
@@ -2653,9 +2728,10 @@ def t5_bf16_check(torch, dev, ku):
         cfg, 2, T5_ENC, T5_DEC, device=dev, seed=0)
     out = bf16_gate(torch, ku, "T5", list(named_leaves(params)),
                     lambda: t5_loss(params, enc, dec, tgt, cfg))
-    for name in ("flash_mma_fwd", "flash_mma_fwd[bias]", "flash_mma_bwd_dkv",
-                 "flash_mma_bwd_dkv[bias]", "lm_head_mma_bwd_dx",
-                 "lm_head_mma_bwd_dw"):
+    for name in ("flash_mma_fwd", "flash_mma_fwd[bias]", "flash_mma_bwd_dq",
+                 "flash_mma_bwd_dq[bias]", "flash_mma_bwd_dkv",
+                 "flash_mma_bwd_dkv[bias]", "flash_mma_bwd_dbias",
+                 "lm_head_mma_bwd_dx", "lm_head_mma_bwd_dw"):
         if out["launches"].get(name, 0) != T5_LAUNCHES[name]:
             raise AssertionError(f"bf16 T5 check launches {out['launches']}")
     return {"batch": 2, "seq_enc": T5_ENC, "seq_dec": T5_DEC, **out}
@@ -2785,6 +2861,8 @@ def main(argv=None) -> int:
     vl = phase("flash_varlen", ("flash_attention", "flash_mma",
                                 "flash_varlen"),
                varlen_phase, torch, dev)
+    vl["wide"] = phase("flash_varlen_wide", ("flash_varlen",),
+                       varlen_wide_phase, torch, dev)
     mk_cases = phase("megakernel", ("megakernel", "paged_attention",
                                     "layer_norm"), megakernel_phase, torch,
                      dev)
@@ -2801,7 +2879,8 @@ def main(argv=None) -> int:
     kernel_s = sum(seconds[k] for k in (
         "layer_norm", "layer_norm_non_affine", "paged_attention",
         "layer_norm_bwd", "rms_norm", "codec", "flash_attention",
-        "flash_varlen", "lm_head_loss", "adam_tail", "megakernel"))
+        "flash_varlen", "flash_varlen_wide", "lm_head_loss", "adam_tail",
+        "megakernel"))
     seconds["builds_and_kernel_phases"] = time.perf_counter() - t0
     engine, launches, quant_launches = phase("engine", (), engine_phase,
                                              torch, dev, ku)
@@ -2994,13 +3073,13 @@ def main(argv=None) -> int:
          **{k: deq[8][k] for k in timing},
          "int4_group128": {k: deq[4][k] for k in timing}})
     # The flash kernels. Main paths: the bf16 GPT and T5 steps run the
-    # tensor-core forward and dK/dV (flash_mma_*) and the CUDA-core dQ and
-    # d(bias); their launches and bf16 times at the steps' shapes (GPT's
-    # flagship, T5's cross-attention, the bias kernels at T5's encoder
-    # with the decoder beside it) and at the other FLASH_SHAPES. The
-    # CUDA-core forward and dK/dV now run fp32 inputs and head_dim 264-2048:
-    # their launches from the fp32 train checks (counts reset just before,
-    # read just after), fp32 times at the same shapes, bf16 at D = 512-2048.
+    # tensor-core forward, dQ, dK/dV and d(bias) (flash_mma_*); their
+    # launches and bf16 times at the steps' shapes (GPT's flagship, T5's
+    # cross-attention, the bias kernels at T5's encoder with the decoder
+    # beside it) and at the other FLASH_SHAPES. The CUDA-core kernels now
+    # run fp32 inputs and head_dim above 256: their launches from the fp32
+    # train checks (counts reset just before, read just after), fp32 times
+    # at the same shapes, bf16 at D = 512-2048 and above (the wide kernels).
     def flash_case(shape, dtype="bfloat16"):
         return pick(fa_cases, dtype=dtype, shape=shape)
 
@@ -3021,6 +3100,7 @@ def main(argv=None) -> int:
     t5_fp32_launches = t5["fp32_check"]["launches"]
     mma_info = mma_kernel_info(ku, built)
     for key, kname, line in (("fwd", "flash_mma_fwd", 297),
+                             ("dq", "flash_mma_bwd_dq", 532),
                              ("dkv", "flash_mma_bwd_dkv", 570)):
         common = {"route": "cuda",
                   "source": "apex_tpu_torch/csrc/flash_mma.cu",
@@ -3041,14 +3121,24 @@ def main(argv=None) -> int:
              "max_abs_err": errs(key, "tensor_core", True),
              **{k: flash_case("t5_enc")[key][k] for k in timing},
              **rows_of(key, ("t5_dec", *bias_shapes))})
+    kernels.append(
+        {"name": "flash_mma_bwd_dbias", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/flash_mma.cu",
+         "replaces": "apex_tpu/ops/attention.py:607", **mma_info["dbias"],
+         "launches": t5_launches["flash_mma_bwd_dbias"], "path": "t5_train",
+         "shape": "t5_enc (64, 512, 512, 64) bias (8, 512, 512)",
+         "max_abs_err": errs("dbias", "tensor_core", True),
+         **{k: flash_case("t5_enc")["dbias"][k] for k in timing},
+         **rows_of("dbias", ("t5_dec", *bias_shapes))})
     for key, kname, line in (("fwd", "flash_attention_fwd", 297),
+                             ("dq", "flash_attention_bwd_dq", 532),
                              ("dkv", "flash_attention_bwd_dkv", 570)):
         common = {"route": "cuda",
                   "source": "apex_tpu_torch/csrc/flash_attention.cu",
                   "replaces": f"apex_tpu/ops/attention.py:{line}"}
         kernels.append(
             {"name": kname, **common, "launches": fp32_launches[kname],
-             "path": "train fp32 check (fp32 inputs; head_dim 264-2048)",
+             "path": "train fp32 check (fp32 inputs; head_dim above 256)",
              "shape": "flagship (96, 1024, 64) fp32",
              "max_abs_err": errs(key, "cuda_core", False),
              **{k: flash_case("flagship", "float32")[key][k]
@@ -3065,30 +3155,16 @@ def main(argv=None) -> int:
              **rows_of(key, D_WIDE_BIAS_SHAPES),
              **rows_of(key, D_WIDE_BIAS_SHAPES, "float32")})
     kernels.append(
-        {"name": "flash_attention_bwd_dq", "route": "cuda",
+        {"name": "flash_attention_bwd_dbias", "route": "cuda",
          "source": "apex_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "apex_tpu/ops/attention.py:532",
-         "launches": train_launches["flash_attention_bwd_dq"],
-         "max_abs_err": max(c["dq"]["max_abs_err"] for c in fa_cases
-                            if not c["bias"]),
-         **{k: flash_case("flagship")["dq"][k] for k in timing},
-         "t5_cross": {"launches": t5_launches["flash_attention_bwd_dq"]
-                      - t5_launches["flash_attention_bwd_dq[bias]"],
-                      **rows_of("dq", ("t5_cross",))["t5_cross"]},
-         **rows_of("dq", (*plain_shapes, *D_WIDE_SHAPES))})
-    for key, tname, line in (("dq", "flash_attention_bwd_dq[bias]", 532),
-                             ("dbias", "flash_attention_bwd_dbias", 607)):
-        kernels.append(
-            {"name": tname, "route": "cuda",
-             "source": "apex_tpu_torch/csrc/flash_attention.cu",
-             "replaces": f"apex_tpu/ops/attention.py:{line}",
-             "launches": t5_launches[tname], "path": "t5_train",
-             "shape": "t5_enc (64, 512, 512, 64) bias (8, 512, 512)",
-             "max_abs_err": max(c[key]["max_abs_err"] for c in fa_cases
-                                if c["bias"]),
-             **{k: flash_case("t5_enc")[key][k] for k in timing},
-             **rows_of(key, ("t5_dec", *bias_shapes,
-                             *D_WIDE_BIAS_SHAPES))})
+         "replaces": "apex_tpu/ops/attention.py:607",
+         "launches": t5_fp32_launches["flash_attention_bwd_dbias"],
+         "path": "t5 fp32 check", "shape": "t5_enc fp32",
+         "max_abs_err": errs("dbias", "cuda_core", True),
+         **{k: flash_case("t5_enc", "float32")["dbias"][k] for k in timing},
+         **rows_of("dbias", ("t5_dec", "tail_bias"), "float32"),
+         **rows_of("dbias", D_WIDE_BIAS_SHAPES),
+         **rows_of("dbias", D_WIDE_BIAS_SHAPES, "float32")})
     # the packed path's kernels: launches of one bf16 causal forward plus
     # backward through FMHA; times at its shape, bf16 causal, with the
     # bidirectional times and the dense causal flash kernels beside them
@@ -3110,7 +3186,8 @@ def main(argv=None) -> int:
                       f"causal",
              "max_abs_err": max(
                  [c[key]["max_abs_err"] for c in vl["cases"]]
-                 + [c["max_abs_err"] for c in vl["misaligned"]]),
+                 + [c["max_abs_err"] for c in vl["misaligned"]]
+                 + [c["max_abs_err"] for c in vl["wide"]]),
              **{k: vc[key][k] for k in timing},
              "dense_causal_flash_ms": vc[key]["dense_causal_flash_ms"],
              "ratio_to_dense_causal_flash":
@@ -3119,7 +3196,9 @@ def main(argv=None) -> int:
              "d256": {"heads": v256["heads"], "causal": v256["causal"],
                       **{k: v256[key][k] for k in timing}},
              "d512": {"heads": v512["heads"], "causal": v512["causal"],
-                      **{k: v512[key][k] for k in timing}}})
+                      **{k: v512[key][k] for k in timing}},
+             "wide": {f"d{c['head_dim']}_{c['dtype']}": c["max_abs_err"]
+                      for c in vl["wide"]}})
     # the fused loss at the training shape (8192, 768, 50304) bf16: the
     # forward (both types), the tensor-core dX and dW (bf16), with T5's
     # shape beside it; the CUDA-core dX and dW now run fp32 inputs: their
@@ -3259,6 +3338,10 @@ def main(argv=None) -> int:
     for c in vl["misaligned"]:
         print(f"flash_varlen misaligned T={c['tokens']} causal {c['causal']} "
               f"{c['dtype']}: kernels vs plain err {c['max_abs_err']:.3e}")
+    for c in vl["wide"]:
+        print(f"flash_varlen wide d {c['head_dim']} causal {c['causal']} "
+              f"{c['dtype']} (1, {c['heads']}, {c['tokens']}): kernels vs "
+              f"plain err {c['max_abs_err']:.3e}")
     for r in fmha["runs"]:
         doc = (f", per-document vs flash_attention err "
                f"{r['per_document_max_abs_err']:.3e} "

@@ -1,16 +1,22 @@
 """The port's flash attention routes and its kernels' C interface, on the
 CPU.
 
-* JAX parity at head_dim 264-2048 (the CUDA-core kernels' D = 512, 1024
-  and 2048: 32-, 16- and 8-row tiles): the port's ``flash_attention`` goes
-  through its flash autograd
-  function (the kernels on the card, their plain versions here) and
-  gives JAX's interpret-mode kernel's output and gradients, causal, full,
-  with a T5 bias and at a tail length; the packed varlen path likewise.
+* JAX parity above head_dim 256 (the CUDA-core kernels' D = 512, 1024 and
+  2048: 32-, 16- and 8-row tiles; above 2048 the wide kernels, the head
+  dim in chunks of 2048 columns): the port's ``flash_attention`` goes
+  through its flash autograd function (the kernels on the card, their
+  plain versions here) and gives JAX's interpret-mode kernel's output and
+  gradients, causal, full, with a T5 bias and at a tail length; the
+  packed varlen path likewise.
 * The route table (``ops.attention._flash_route``): bf16 with head_dim <=
-  256 takes the tensor-core forward and dK/dV (``csrc/flash_mma.cu``);
-  fp32 at any head_dim and bf16 at 264-2048 the CUDA-core ones
-  (``csrc/flash_attention.cu``); above 2048 it raises, naming the limit.
+  256 takes the tensor-core forward, dQ, dK/dV and d(bias)
+  (``csrc/flash_mma.cu``); fp32 at any head_dim and bf16 above 256 the
+  CUDA-core ones (``csrc/flash_attention.cu``); a head_dim that is not a
+  positive multiple of 8 raises.
+* The tensor-core d(bias)'s batch split: its chunk count
+  (``_dbias_chunks``) and a plain emulation of the chunks' in-order sum;
+  bf16 parity of the port's plain dQ and d(bias) with JAX's
+  interpret-mode backward kernels.
 * A static check of every ``extern "C"`` entry point in ``csrc/*.cu``
   against the ctypes table its wrapper loads it with: the same argument
   count, and ``c_void_p`` exactly where the C side takes a pointer (a
@@ -33,6 +39,7 @@ import jax
 import jax.numpy as jnp
 
 from apex_tpu.ops import attention_varlen as jvl
+from apex_tpu.ops.attention import _fa_bwd, _fa_fwd
 from apex_tpu.ops.attention import _pallas_ok as jax_pallas_ok
 from apex_tpu.ops.attention import flash_attention as jax_flash
 
@@ -51,7 +58,7 @@ def _np(t):
 
 
 # ---------------------------------------------------------------------------
-# (a) JAX parity at head_dim 264-2048
+# (a) JAX parity above head_dim 256
 
 
 @pytest.mark.parametrize("sq,sk,d,causal,bias", [
@@ -61,10 +68,14 @@ def _np(t):
     # D = 1024 (16-row tiles) and D = 2048 (8-row tiles)
     (40, 40, 520, True, False), (24, 56, 1024, False, True),
     (48, 48, 1032, True, True), (32, 32, 2048, False, False),
-    (24, 24, 2048, True, True)])
+    (24, 24, 2048, True, True),
+    # above 2048: the wide kernels, two chunks (the second of 8 columns)
+    # and two full ones
+    (40, 40, 2056, True, False), (24, 72, 2056, False, True),
+    (32, 32, 4096, True, True), (16, 48, 4096, False, False)])
 def test_flash_head_dims_above_256_match_jax_kernel(monkeypatch, sq, sk, d,
                                                     causal, bias):
-    """head_dim 264-2048, causal and full, with a bias and at tail lengths
+    """head_dim 264-4096, causal and full, with a bias and at tail lengths
     (not multiples of the kernels' 32-, 16- or 8-row tile): JAX's
     gate takes them, so does the port (one call of its flash autograd
     function), and o and every gradient, the bias's included, equal
@@ -106,11 +117,12 @@ def test_flash_head_dims_above_256_match_jax_kernel(monkeypatch, sq, sk, d,
 
 
 @pytest.mark.parametrize("d,causal", [(320, True), (512, False),
-                                     (1024, True), (2048, False)])
+                                     (1024, True), (2048, False),
+                                     (2056, True), (2056, False)])
 def test_varlen_head_dims_above_256_match_jax_kernel(d, causal):
-    """The packed varlen path at head_dim 320-2048 (the varlen kernels'
-    D = 512, 1024 and 2048 on the card, their plain versions here): o and
-    q, k, v
+    """The packed varlen path at head_dim 320-2056 (the varlen kernels'
+    D = 512, 1024 and 2048 on the card and above it the wide kernels,
+    their plain versions here): o and q, k, v
     gradients of the port's ``flash_attention_varlen`` equal ``jax.vjp``
     of JAX's interpret-mode varlen kernel; atol 2e-5 (o), 1e-4 (grads).
     Two documents and a pad tail over 192 tokens."""
@@ -159,18 +171,30 @@ def test_head_dims_520_to_2048_take_the_cuda_cores(d):
         assert port_attention._flash_route(dtype, d) == "cuda_core"
 
 
-@pytest.mark.parametrize("d", [2056, 4096, 36, 0])
+@pytest.mark.parametrize("d", [2056, 4096, 6144, 8200])
+def test_head_dims_above_2048_take_the_cuda_cores(d):
+    """Above 2048 the wide kernels (the head dim in chunks of 2048
+    columns) run in both types: JAX's gate takes any d % 8 == 0."""
+    assert jax_pallas_ok(64, 64, d, True, allow_interpret=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert port_attention._flash_route(dtype, d) == "cuda_core"
+
+
+@pytest.mark.parametrize("d", [36, 0, -8, 12])
 def test_route_refuses_what_no_kernel_takes(d):
-    with pytest.raises(ValueError, match=f"head_dim {d} .* up to 2048"):
+    with pytest.raises(ValueError,
+                       match=f"head_dim {d} must be a positive multiple of 8"):
         port_attention._flash_route(torch.bfloat16, d)
 
 
 def _entries_launched(monkeypatch, dtype, d, bias):
     """The C entries the four wrappers launch at this dtype and head dim
-    (``_launch`` stubbed: nothing runs)."""
+    (``_launch`` stubbed: nothing runs), with the ints each passes after
+    is_bf16."""
     seen = []
     monkeypatch.setattr(port_attention, "_launch",
-                        lambda entry, *a, **kw: seen.append(entry))
+                        lambda entry, *a, extra=(): seen.append(
+                            (entry, extra)))
     q = torch.zeros(2, 64, d, dtype=dtype)
     row = torch.zeros(2, 64, 1)
     b = torch.zeros(2, 64, 64) if bias else None
@@ -185,35 +209,133 @@ def _entries_launched(monkeypatch, dtype, d, bias):
     return seen
 
 
-@pytest.mark.parametrize("dtype,d,fwd,dkv", [
-    (torch.bfloat16, 64, "flash_mma_fwd", "flash_mma_bwd_dkv"),
-    (torch.bfloat16, 256, "flash_mma_fwd", "flash_mma_bwd_dkv"),
-    (torch.bfloat16, 264, "flash_attention_fwd", "flash_attention_bwd_dkv"),
-    (torch.float32, 64, "flash_attention_fwd", "flash_attention_bwd_dkv"),
-    (torch.float32, 512, "flash_attention_fwd", "flash_attention_bwd_dkv"),
-    (torch.bfloat16, 2048, "flash_attention_fwd",
-     "flash_attention_bwd_dkv")])
+@pytest.mark.parametrize("dtype,d,prefix", [
+    (torch.bfloat16, 64, "flash_mma"), (torch.bfloat16, 256, "flash_mma"),
+    (torch.bfloat16, 264, "flash_attention"),
+    (torch.float32, 64, "flash_attention"),
+    (torch.float32, 512, "flash_attention"),
+    (torch.bfloat16, 2048, "flash_attention"),
+    (torch.bfloat16, 4096, "flash_attention"),
+    (torch.float32, 2056, "flash_attention")])
 @pytest.mark.parametrize("bias", [False, True])
-def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, d, fwd, dkv,
+def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, d, prefix,
                                             bias):
-    """Each wrapper launches the entry of its route; dQ and d(bias) stay on
-    the CUDA cores; every entry launched is in the table of the library
-    ``_launch`` loads it from (``flash_mma`` for the tensor-core ones)."""
+    """Each wrapper launches the entry of its route, all four on one
+    route (``flash_mma_*`` for bf16 up to 256, ``flash_attention_*``
+    otherwise); the tensor-core d(bias) passes its batch chunk count (1
+    here: one batch item); every entry launched is in the table of the
+    library ``_launch`` loads it from (``flash_mma`` for the tensor-core
+    ones)."""
     seen = _entries_launched(monkeypatch, dtype, d, bias)
-    want = [fwd, "flash_attention_bwd_dq", dkv]
-    assert seen == want + (["flash_attention_bwd_dbias"] if bias else [])
-    for entry in seen:
+    names = ["fwd", "bwd_dq", "bwd_dkv"] + (["bwd_dbias"] if bias else [])
+    assert [e for e, _ in seen] == [f"{prefix}_{n}" for n in names]
+    for entry, extra in seen:
         table = (port_attention._MMA_SIGNATURES
                  if entry.startswith("flash_mma")
                  else port_attention._SIGNATURES)
         assert entry in table
+        assert extra == ((1,) if entry == "flash_mma_bwd_dbias" else ())
 
 
 def test_the_tensor_core_source_is_built_with_the_others():
     assert "flash_mma" in ku.KERNEL_SOURCES
     assert (ku.CSRC_DIR / "flash_mma.cu").is_file()
-    assert set(port_attention._MMA_SIGNATURES) == {"flash_mma_fwd",
-                                                    "flash_mma_bwd_dkv"}
+    assert set(port_attention._MMA_SIGNATURES) == {
+        "flash_mma_fwd", "flash_mma_bwd_dq", "flash_mma_bwd_dkv",
+        "flash_mma_bwd_dbias"}
+
+
+# ---------------------------------------------------------------------------
+# (b') the tensor-core d(bias)'s batch split, and bf16 parity of the plain
+# dQ and d(bias) with JAX's kernels
+
+
+@pytest.mark.parametrize("heads,sq,sk,nb,want", [
+    (8, 512, 512, 8, 1),      # T5-small's encoder: 512 tiles, no split
+    (8, 128, 128, 8, 8),      # its decoder: 32 tiles, a chunk a batch item
+    (8, 200, 328, 8, 2),      # tails: 192 tiles
+    (8, 256, 256, 2, 2),      # capped by the batch
+    (12, 1024, 1024, 8, 1),   # GPT-2's width with a bias
+    (1, 64, 64, 3, 3)])
+def test_dbias_chunks_fill_the_card(heads, sq, sk, nb, want):
+    """Enough chunks that (output tiles x heads x chunks) reaches 264
+    blocks, at most one a batch item; a function of the shape alone."""
+    chunks = port_attention._dbias_chunks(heads, sq, sk, nb)
+    assert chunks == want
+    assert chunks == port_attention._dbias_chunks(heads, sq, sk, nb)
+    tiles = heads * -(-sq // 64) * -(-sk // 64)
+    assert 1 <= chunks <= nb
+    assert chunks == nb or tiles * chunks >= 264
+
+
+@pytest.mark.parametrize("nb,chunks", [(8, 8), (8, 3), (5, 2), (3, 1)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_dbias_chunk_partials_merged_in_order_equal_the_one_pass_sum(
+        nb, chunks, causal):
+    """The tensor-core d(bias)'s batch split, emulated: chunk c sums items
+    [c·nb // chunks, (c + 1)·nb // chunks) in order (the chunks cover the
+    batch once, none empty), the partials added in chunk order; equal to
+    the one-pass plain d(bias) within fp32 rounding (atol/rtol 1e-5: the
+    sum runs in another order)."""
+    bounds = [(c * nb // chunks, (c + 1) * nb // chunks)
+              for c in range(chunks)]
+    assert [b for b0, b1 in bounds for b in range(b0, b1)] == list(range(nb))
+    assert all(b1 > b0 for b0, b1 in bounds)
+    rng = np.random.default_rng(nb * 10 + chunks)
+    heads, s, d = 2, 48, 16
+    q, k, v, do = (_t(rng.standard_normal((nb * heads, s, d))
+                      .astype(np.float32)) for _ in range(4))
+    bias = _t(rng.standard_normal((heads, s, s)).astype(np.float32))
+    args = (0.25, causal)
+    o, lse = port_attention.flash_attention_fwd_reference(q, k, v, *args,
+                                                          bias=bias)
+    want = port_attention.flash_attention_bwd_dbias_reference(
+        q, k, v, o, lse, do, *args, bias=bias)
+    got = port_attention.flash_attention_bwd_dbias_chunked_reference(
+        q, k, v, o, lse, do, *args, bias=bias, chunks=chunks)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,sq,sk,rate", [
+    (False, 64, 64, 0.0), (True, 64, 64, 0.0), (False, 32, 96, 0.2),
+    (True, 64, 64, 0.3)])
+def test_bf16_plain_dq_and_dbias_match_jax_kernels(causal, sq, sk, rate):
+    """bf16 inputs (what the tensor-core dQ and d(bias) take on the card):
+    the port's plain dQ and d(bias) vs JAX's Pallas backward kernels
+    (``_fa_bwd``, interpret mode, 32-row blocks) from the same o and lse,
+    with a (heads, sq, sk) bias and the counter-hash dropout. dQ bf16
+    within atol 1e-2 + rtol 2**-7 (both round ds to bf16 before its
+    product, from fp32 sums in other orders: one rounding step apart at
+    most); d(bias) fp32 within 2e-4 (no bf16 rounding of the summand, as
+    the fp32 parity test holds it)."""
+    rng = np.random.default_rng(sq + sk + int(causal))
+    b, h, d = 2, 2, 32
+    q, do = (rng.standard_normal((b * h, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b * h, sk, d)).astype(np.float32)
+            for _ in range(2))
+    bias = (2.0 * rng.standard_normal((h, sq, sk))).astype(np.float32)
+    scale, seed = 1 / np.sqrt(d), 77
+    jseed = jnp.asarray([seed], jnp.int32)
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    jb = jnp.asarray(bias)
+    o_j, lse_j = _fa_fwd(jq, jk, jv, scale, causal, 32, 32, True, rate,
+                         jseed, bias=jb)
+    want = _fa_bwd(jq, jk, jv, o_j, lse_j, jdo, scale, causal, 32, 32, True,
+                   rate, jseed, bias=jb)
+    t16 = lambda a: _t(np.asarray(jnp.asarray(a).astype(jnp.float32))) \
+        .to(torch.bfloat16)
+    args = (t16(jq), t16(jk), t16(jv), t16(o_j), _t(np.asarray(lse_j)),
+            t16(jdo), scale, causal, rate, seed)
+    dq = port_attention.flash_attention_bwd_reference(*args,
+                                                      bias=_t(bias))[0]
+    db = port_attention.flash_attention_bwd_dbias_reference(*args,
+                                                            bias=_t(bias))
+    assert dq.dtype == torch.bfloat16 and db.dtype == torch.float32
+    want_dq = np.asarray(want[0].astype(jnp.float32))
+    torch.testing.assert_close(dq.float(), _t(want_dq), atol=1e-2,
+                               rtol=2 ** -7)
+    np.testing.assert_allclose(db.numpy(), np.asarray(want[3]), atol=2e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -266,15 +266,15 @@ def test_layer_norm_is_differentiable_on_the_card(dev, dtype):
         assert layer_norm(xs[0], ws[0], bs[0]).grad_fn is None
 
 
-def _flash_names(dtype, d):
-    """The C entries the fwd, dQ and dK/dV wrappers launch (and count)
-    at this dtype and head dim: the tensor-core forward and dK/dV for bf16
-    up to 256, the CUDA-core kernels otherwise."""
-    if port_attention._flash_route(dtype, d) == "tensor_core":
-        return ("flash_mma_fwd", "flash_attention_bwd_dq",
-                "flash_mma_bwd_dkv")
-    return ("flash_attention_fwd", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkv")
+def _flash_names(dtype, d, bias=False):
+    """The C entries the fwd, dQ and dK/dV wrappers (and, with ``bias``,
+    the d(bias) wrapper) launch and count at this dtype and head dim: the
+    tensor-core kernels for bf16 up to 256, the CUDA-core kernels
+    otherwise."""
+    prefix = ("flash_mma" if port_attention._flash_route(dtype, d)
+              == "tensor_core" else "flash_attention")
+    names = ("fwd", "bwd_dq", "bwd_dkv") + (("bwd_dbias",) if bias else ())
+    return tuple(f"{prefix}_{n}" for n in names)
 
 
 def _flash_case(dev, dtype, bh, s, d, seed):
@@ -296,7 +296,9 @@ FLASH_CASES = [  # bh, s, d, causal, dropout rate
     (2, 128, 136, True, 0.0),
     # head dims 520-2048 (D = 1024, 16-row tiles; D = 2048, 8-row tiles)
     (2, 72, 1024, True, 0.0), (1, 40, 520, False, 0.1),
-    (1, 64, 2048, True, 0.0), (2, 48, 1032, False, 0.0)]
+    (1, 64, 2048, True, 0.0), (2, 48, 1032, False, 0.0),
+    # above 2048: the wide kernels, the head dim in chunks of 2048 columns
+    (2, 40, 2056, True, 0.0), (1, 24, 4096, False, 0.1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -371,8 +373,9 @@ def test_flash_kernels_refuse_what_they_cannot_take(dev):
     flash_attention_fwd(*(torch.randn(2, 64, 520, device=dev)
                           for _ in range(3)), 0.125, False)  # D = 1024
     wide = torch.randn(2, 64, 2056, device=dev)
-    with pytest.raises(ValueError, match="head_dim 2056 .* up to 2048"):
-        flash_attention_fwd(wide, wide, wide, 0.125, False)
+    flash_attention_fwd(wide, wide, wide, 0.125, False)  # the wide kernels
+    with pytest.raises(ValueError, match="head_dim 0 must be a positive"):
+        flash_attention_fwd(*(t[..., :0] for t in (q, k, v)), 0.125, False)
     with pytest.raises(ValueError, match="multiples of 8"):
         flash_attention_fwd(*(t[:, :100].contiguous() for t in (q, k, v)),
                             0.125, False)
@@ -397,8 +400,9 @@ FLASH_BIAS_CASES = [  # batch, heads, sq, sk, d, causal, dropout rate
     # head dims 192 and 256 (D = 256)
     (2, 2, 128, 192, 256, False, 0.0), (2, 2, 136, 136, 192, True, 0.1),
     # head dims 1024 and 2048 (16- and 8-row tiles; the bias in 64-row
-    # units)
-    (2, 1, 72, 72, 1024, True, 0.0), (1, 2, 40, 104, 2048, False, 0.1)]
+    # units), and above 2048 (the wide kernels)
+    (2, 1, 72, 72, 1024, True, 0.0), (1, 2, 40, 104, 2048, False, 0.1),
+    (1, 2, 40, 40, 2056, True, 0.0), (2, 1, 24, 56, 4096, False, 0.1)]
 
 
 def _flash_bias_case(dev, dtype, b, heads, sq, sk, d, seed):
@@ -451,14 +455,15 @@ def test_flash_bias_kernels_match_plain(dev, dtype, b, heads, sq, sk, d,
         above = torch.ones(sq, sk, dtype=torch.bool, device=dev).triu(1)
         assert not bool(db[:, above].any())
     after = ku.launch_counts()
-    for name in (*_flash_names(dtype, d), "flash_attention_bwd_dbias"):
+    for name in _flash_names(dtype, d, bias=True):
         assert after[name] == counts.get(name, 0) + 1
 
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_dbias_bitwise_repeat(dev, causal):
     """d(bias) sums the batch in one fixed order: repeats are bitwise
-    equal (bf16 inputs, 8 batch items, T5's decoder shape)."""
+    equal (bf16 inputs, 8 batch items, T5's decoder shape: the tensor-core
+    kernel, 8 batch chunks added in order by a second launch)."""
     q, k, v, do, bias = _flash_bias_case(dev, torch.bfloat16, 8, 8, 128,
                                          128, 64, 5)
     args = (0.125, causal, 0.0, 0)
@@ -1127,8 +1132,9 @@ VARLEN_CASES = [  # b, h, s, d, causal, foreign K/V tile
     (1, 2, 320, 40, True, True), (1, 2, 256, 128, False, False),
     (1, 2, 320, 256, True, True), (1, 2, 256, 192, False, False),
     # D = 1024 and 2048: a quarter and an eighth of a 64-row table entry a
-    # tile
-    (1, 1, 320, 1024, True, True), (1, 1, 256, 2048, False, False)]
+    # tile; above 2048 the wide kernels (8-row tiles, 2048-column chunks)
+    (1, 1, 320, 1024, True, True), (1, 1, 256, 2048, False, False),
+    (1, 1, 256, 2056, True, True), (1, 1, 192, 4096, False, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1217,25 +1223,31 @@ def test_varlen_kernels_refuse_what_they_cannot_take(dev):
                          seg_k[:, :200].contiguous(), 0.125, True)
     with pytest.raises(ValueError, match="seg_q"):
         flash_varlen_fwd(q, k, v, seg_q.long(), seg_k, 0.125, True)
-    with pytest.raises(ValueError, match="head_dim 2056 .* up to 2048"):
-        wide = torch.randn(1, 2, 256, 2056, device=dev)
-        flash_varlen_fwd(wide, wide, wide, seg_q, seg_k, 0.125, True)
+    wide = torch.randn(1, 2, 256, 2056, device=dev)
+    flash_varlen_fwd(wide, wide, wide, seg_q, seg_k, 0.125, True)  # wide
+    with pytest.raises(ValueError, match="head_dim 36 must be a positive"):
+        flash_varlen_fwd(*(t[..., :36].contiguous() for t in (q, k, v)),
+                         seg_q, seg_k, 0.125, True)
     with pytest.raises(ValueError, match="k must be"):
         flash_varlen_fwd(q, k.bfloat16(), v, seg_q, seg_k, 0.125, True)
 
 
 def test_flash_attention_head_dim_above_256_raises_on_the_card(dev):
-    """head_dim 264, 520 and 2048 run (the CUDA-core kernels' D = 512,
-    1024 and 2048: 32-, 16- and 8-row tiles); 2056 (% 8 == 0, so JAX's
-    gate takes it) is past the kernels' 2048: the front door raises naming
-    the limit, and launches nothing."""
-    for d in (264, 520, 2048):
-        q = torch.randn(1, 2, 64, d, device=dev)
-        flash_attention(q, q, q, causal=True)
-    q = torch.randn(1, 2, 64, 2056, device=dev)
+    """head_dim 264, 520, 2048, 2056 and 4096 run (the CUDA-core kernels'
+    D = 512, 1024 and 2048: 32-, 16- and 8-row tiles; above it the wide
+    kernels): every d % 8 == 0 that JAX's gate takes, one launch of each
+    kernel, nothing raises; head_dim 36 takes the plain reference, as JAX
+    sends it there, and launches nothing."""
+    for d in (264, 520, 2048, 2056, 4096):
+        q = torch.randn(1, 2, 64, d, device=dev, requires_grad=True)
+        before = ku.launch_counts()
+        flash_attention(q, q, q, causal=True).sum().backward()
+        after = ku.launch_counts()
+        for name in _flash_names(torch.float32, d):
+            assert after[name] == before.get(name, 0) + 1
+    q = torch.randn(1, 2, 64, 36, device=dev)
     before = ku.launch_counts()
-    with pytest.raises(ValueError, match="head_dim 2056 .* up to 2048"):
-        flash_attention(q, q, q, causal=True)
+    flash_attention(q, q, q, causal=True)
     assert ku.launch_counts() == before
 
 
@@ -1498,10 +1510,9 @@ def test_mma_kernels_match_plain_and_repeat_bitwise(dev, b, heads, sq, sk,
 @pytest.mark.parametrize("bias", [False, True])
 def test_bf16_front_door_takes_the_tensor_cores(dev, bias):
     """``flash_attention`` on bf16 CUDA tensors at head_dim 64: one launch
-    of the tensor-core forward and dK/dV (and of the CUDA-core dQ, and
-    d(bias) with a bias) per forward plus backward, none of the CUDA-core
-    forward or dK/dV; output and gradients within the bf16 tolerance of
-    the plain versions forced."""
+    of the tensor-core forward, dQ and dK/dV (and d(bias) with a bias) per
+    forward plus backward, none of the CUDA-core kernels; output and
+    gradients within the bf16 tolerance of the plain versions forced."""
     q, k, v, do, bb = _flash_bias_case(dev, torch.bfloat16, 2, 3, 128, 128,
                                        64, 31)
     q, k, v, do = (t.reshape(2, 3, 128, 64) for t in (q, k, v, do))
@@ -1516,9 +1527,10 @@ def test_bf16_front_door_takes_the_tensor_cores(dev, bias):
             o.backward(do)
         after = ku.launch_counts()
         want = {"flash_mma_fwd": 1, "flash_mma_bwd_dkv": 1,
-                "flash_attention_bwd_dq": 1, "flash_attention_fwd": 0,
+                "flash_mma_bwd_dq": 1, "flash_mma_bwd_dbias": int(bias),
+                "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
                 "flash_attention_bwd_dkv": 0,
-                "flash_attention_bwd_dbias": int(bias)}
+                "flash_attention_bwd_dbias": 0}
         for name, n in want.items():
             assert after.get(name, 0) - before.get(name, 0) == \
                 (0 if plain else n), name
@@ -1526,6 +1538,85 @@ def test_bf16_front_door_takes_the_tensor_cores(dev, bias):
     for got, ref in zip(*runs):
         torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                    rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("b,heads,sq,sk,d,causal,rate,bias", MMA_CASES)
+def test_mma_dq_dbias_match_plain_and_repeat_bitwise(dev, b, heads, sq, sk,
+                                                     d, causal, rate, bias):
+    """The tensor-core dQ and d(bias) (bf16, D = 32/64/128/256, d = 40
+    and 192 with zeros past d, tails, dropout) vs their plain versions:
+    dq within atol 1e-2 + rtol 2**-7 (ds is rounded to bf16 before its
+    product on both sides, from fp32 sums in other orders), d(bias) fp32
+    within 1e-4 (the same fp32 products of the same bf16 inputs, the batch
+    summed in another order) and zero above the causal diagonal; two
+    launches of each give the same bits; each call launches its
+    tensor-core entry once (dQ's ``[bias]`` count with a bias)."""
+    q, k, v, do, bb = _flash_bias_case(dev, torch.bfloat16, b, heads, sq,
+                                       sk, d, sq * sk + d)
+    bb = bb if bias else None
+    args = (1 / math.sqrt(d), causal, rate, 9)
+    o, lse = flash_attention_fwd(q, k, v, *args, bias=bb)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    counts = ku.launch_counts()
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *args, bias=bb)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, *args,
+                                         bias=bb)[0]
+    torch.cuda.synchronize()
+    assert dq.dtype == torch.bfloat16
+    torch.testing.assert_close(dq.float(), want.float(), atol=1e-2,
+                               rtol=2 ** -7)
+    assert torch.equal(dq, flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                  *args, bias=bb))
+    after = ku.launch_counts()
+    assert after["flash_mma_bwd_dq"] == counts.get("flash_mma_bwd_dq", 0) + 2
+    assert after.get("flash_mma_bwd_dq[bias]", 0) == \
+        counts.get("flash_mma_bwd_dq[bias]", 0) + 2 * bias
+    if not bias:
+        return
+    db = flash_attention_bwd_dbias(q, k, v, do, lse, delta, *args, bias=bb)
+    db_p = flash_attention_bwd_dbias_reference(q, k, v, o, lse, do, *args,
+                                               bias=bb)
+    torch.cuda.synchronize()
+    assert db.dtype == torch.float32 and db.shape == bb.shape
+    torch.testing.assert_close(db, db_p, atol=1e-4, rtol=1e-4)
+    if causal:
+        above = torch.ones(sq, sk, dtype=torch.bool, device=dev).triu(1)
+        assert not bool(db[:, above].any())
+    assert torch.equal(db, flash_attention_bwd_dbias(q, k, v, do, lse, delta,
+                                                     *args, bias=bb))
+    assert ku.launch_counts()["flash_mma_bwd_dbias"] == \
+        counts.get("flash_mma_bwd_dbias", 0) + 2
+
+
+@pytest.mark.parametrize("b,heads,s,d,causal,chunks", [
+    (8, 8, 128, 64, True, 8), (3, 2, 200, 64, False, 3),
+    (8, 8, 512, 64, False, 1), (5, 1, 136, 64, True, 5),
+    # two batch items a chunk through the two-stage ring (D = 128) and the
+    # one stage (D = 256)
+    (4, 4, 512, 128, False, 2), (3, 4, 512, 256, True, 2)])
+def test_mma_dbias_batch_chunks_match_plain(dev, b, heads, s, d, causal,
+                                            chunks):
+    """The tensor-core d(bias) over ``_dbias_chunks`` ordered chunks of the
+    batch (T5's decoder: 8; its encoder: 1), their partials added in
+    chunk order by the second launch: within 1e-4 of the plain d(bias),
+    zero above the causal diagonal, bitwise over repeats."""
+    assert port_attention._dbias_chunks(heads, s, s, b) == chunks
+    q, k, v, do, bb = _flash_bias_case(dev, torch.bfloat16, b, heads, s, s,
+                                       d, b * s + heads)
+    args = (1 / math.sqrt(d), causal, 0.0, 0)
+    o, lse = flash_attention_fwd(q, k, v, *args, bias=bb)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    db = flash_attention_bwd_dbias(q, k, v, do, lse, delta, *args, bias=bb)
+    db_p = flash_attention_bwd_dbias_reference(q, k, v, o, lse, do, *args,
+                                               bias=bb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(db, db_p, atol=1e-4, rtol=1e-4)
+    if causal:
+        above = torch.ones(s, s, dtype=torch.bool, device=dev).triu(1)
+        assert not bool(db[:, above].any())
+    for _ in range(2):
+        assert torch.equal(db, flash_attention_bwd_dbias(
+            q, k, v, do, lse, delta, *args, bias=bb))
 
 
 D512_CASES = [  # batch, heads, sq, sk, d, causal, dropout rate, bias
