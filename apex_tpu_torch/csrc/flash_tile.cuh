@@ -211,6 +211,17 @@ __device__ __forceinline__ void store_row_part(T* row, const float* reg,
   }
 }
 
+// The packed varlen kernels' block skipping (flash_varlen.cu,
+// flash_varlen_mma.cu): JAX's `_skip`, negated. Can q tile qt and kv tile
+// kt (both of BR rows) meet at all? qi and ki are the 64-row table entries
+// (segment min, max, live lo, hi) that hold them.
+template <int BR>
+__device__ __forceinline__ bool tiles_meet(int4 qi, int4 ki, int qt, int kt,
+                                           int causal) {
+  const bool meet = !(qi.x > ki.y || qi.y < ki.x) && qi.y >= 0 && ki.y >= 0;
+  return meet && (!causal || kt * BR <= qt * BR + BR - 1);
+}
+
 // after a launch: the launch's own error, else whatever the card reported
 inline int status_of(cudaError_t launched) {
   const cudaError_t last = cudaGetLastError();
@@ -253,8 +264,8 @@ inline int status_of(cudaError_t launched) {
   } while (0)
 
 // as APEX_FLASH_DISPATCH_TD, for a kernel whose bf16 inputs at d <= 256
-// run on the tensor cores (flash_mma.cu): here fp32 at every D and bf16
-// from D = 512 on
+// run on the tensor cores (flash_mma.cu, flash_varlen_mma.cu): here fp32 at
+// every D and bf16 from D = 512 on
 #define APEX_FLASH_DISPATCH_CORE(...)                                 \
   do {                                                                \
     switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \

@@ -5,7 +5,9 @@
 //   * `_vl_fwd_kernel` (reached through `_vl_call`, pallas_call at :377):
 //     o and the row log-sum-exp lse;
 //   * `_vl_bwd_dq_kernel` (`_vl_bwd_call`, pallas_call at :414): dQ;
-//   * `_vl_bwd_dkv_kernel` (`_vl_bwd_call`, pallas_call at :451): dK, dV.
+//   * `_vl_bwd_dkv_kernel` (`_vl_bwd_call`, pallas_call at :451): dK, dV
+//     (here for fp32 inputs and bf16 above head_dim 256; bf16 up to 256
+//     runs the tensor-core dK/dV of flash_varlen_mma.cu).
 //
 // Math, exactly the JAX kernels' (all accumulation in fp32): a score
 // s = (q . k) * scale is allowed where seg_q == seg_k >= 0 (and kpos <=
@@ -57,15 +59,6 @@ namespace {
 struct Dims {
   int h, sq, sk, d;
 };
-
-// JAX's `_skip`, negated: can q tile qt and kv tile kt (both of BR rows)
-// meet at all? qi and ki are the 64-row table entries that hold them
-template <int BR>
-__device__ __forceinline__ bool tiles_meet(int4 qi, int4 ki, int qt, int kt,
-                                           int causal) {
-  const bool meet = !(qi.x > ki.y || qi.y < ki.x) && qi.y >= 0 && ki.y >= 0;
-  return meet && (!causal || kt * BR <= qt * BR + BR - 1);
-}
 
 // ---------------------------------------------------------------------------
 // forward: o and lse; one block per (q tile, b*h)
@@ -668,6 +661,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // multiples of 64; d is any multiple of 8 (from D = 512 on the kernels'
 // 32-, 16- and 8-row tiles read a half, a quarter and an eighth of a
 // 64-row table entry each; above 2048 the wide kernels, 8-row tiles).
+// flash_varlen_bwd_dkv takes bf16 only above d 256 (cudaErrorInvalidValue
+// below: flash_varlen_mma.cu's tensor-core dK/dV serves those).
 extern "C" int flash_varlen_fwd(int device, const void* q, const void* k,
                                 const void* v, const void* seg_q,
                                 const void* seg_k, const void* qr,
@@ -720,7 +715,7 @@ extern "C" int flash_varlen_bwd_dkv(int device, const void* q, const void* k,
   if (d > kWideCols)
     APEX_WIDE_DISPATCH_T(launch_wide_dkv, q, k, v, seg_q, seg_k, qr, kr, dout,
                          lse, delta, dk, dv, b, n, scale, causal, s);
-  APEX_FLASH_DISPATCH_TD(launch_dkv<T, D, BR>(q, k, v, seg_q, seg_k, qr, kr,
-                                              dout, lse, delta, dk, dv, b, n,
-                                              scale, causal, s));
+  APEX_FLASH_DISPATCH_CORE(launch_dkv<T, D, BR>(q, k, v, seg_q, seg_k, qr,
+                                                kr, dout, lse, delta, dk, dv,
+                                                b, n, scale, causal, s));
 }

@@ -1,60 +1,66 @@
-// Fused LM head + softmax cross-entropy, forward, dX and dW, for Hopper
-// (sm_90a). The (rows, vocab) logits never reach device memory.
+// Fused LM head + softmax cross-entropy, forward, dX and dW, fp32 on the
+// CUDA cores, for Hopper (sm_90a). The (rows, vocab) logits never reach
+// device memory.
 //
-// Replaces the TPU kernels of apex_tpu/ops/lm_head_loss.py:
+// Replaces, for fp32 inputs, the TPU kernels of
+// apex_tpu/ops/lm_head_loss.py:
 //   * `_fwd_kernel` (reached through `_run_fwd`, pallas_call at :198):
 //     per row the log-sum-exp lse of s = x . w^T over the vocab and the
 //     target's logit pred;
 //   * `_dx_kernel` (`_run_bwd`, pallas_call at :244):
 //     dx = sum_v dl . W_v with dl = (exp(s - lse) - onehot) * g;
 //   * `_dw_kernel` (`_run_bwd`, pallas_call at :263): dw = sum_n dl^T . X_n.
-// dX and dW here take fp32 inputs; bf16 inputs run the tensor-core dX and
-// dW of lm_head_mma.cu.
+// bf16 inputs run the tensor-core forward, dX and dW of lm_head_mma.cu; on
+// the tensor cores fp32 products would run as TF32, and the fp32 gates
+// need fp32 products.
 //
-// Math, exactly the JAX kernels' (fp32 accumulation): a vocab column past V
-// is masked to NEG_INF in the forward and gives dl = 0 in the backward (its
-// W row is loaded as zeros); the forward updates a running max m, sum l and
-// target logit per vocab tile, lse = m + log(l); dl is rounded to the
-// input type before each backward product (:152, :179).
+// Math, the JAX kernels' formulas: a vocab column past V is masked to
+// NEG_INF in the forward and gives dl = 0 in the backward (its W row is
+// loaded as zeros); the forward updates a running max m, sum l and target
+// logit per vocab tile, lse = m + log(l). Products are fp32; the scores'
+// 16-term partials are added in fp64 (ScoreAcc, below), so the fp32 path
+// is deliberately more exact than JAX's chain of fp32 FMAs (ROADMAP.md
+// section C, "fp32 LM-head sums").
 //
-// Bound on this card: tensor-core operations. At the training shape (n =
-// 8192 rows, h = 768, V = 50304, bf16) the forward does 2.n.V.h = 6.3e11
-// flop (0.64 ms at 989 TFLOP/s) and each backward kernel recomputes the
-// scores and does one more product of the same size, 4.n.V.h (1.28 ms);
-// the bytes (x, w, dx, dw, a few vectors) are ~0.1 GB, 0.03 ms.
+// Bound on this card: fp32 operations at 67 TFLOP/s. At the training shape
+// (n = 8192 rows, h = 768, V = 50304) the forward does 2.n.V.h = 6.3e11
+// flop (9.4 ms) and each backward kernel recomputes the scores and does
+// one more product of the same size, 4.n.V.h (18.9 ms); the bytes (x, w,
+// dx, dw, a few vectors) are ~0.2 GB, 0.06 ms.
 //
-// Design: bf16 products run on the tensor cores through nvcuda::wmma
-// 16x16x16 bf16 fragments with fp32 accumulators (fp32 inputs take a
-// CUDA-core version of the same fragment interface, so the fp32 path stays
-// fp32-exact). The TPU's sequential vocab / row grid becomes a loop inside
-// one block, and every output has exactly one owner whose sums run in a
-// fixed order: no atomics, results repeat bitwise.
+// Design: products in fp32 FMAs through a warp-level 16x16x16 fragment
+// interface (Mma). Each call sums its 16 products apart and adds that
+// partial to the accumulator, so a sum over the hidden or the vocab axis
+// is a two-level sum; the scores go further and add the partials in fp64
+// (ScoreAcc), so s carries the rounding of one 16-term partial, not of a
+// chain of h terms: at h = 2048 a chain of fp32 FMAs left dx's softmax
+// term (which cancels) more than the fp32 gate away from an fp64
+// evaluation, farther than cuBLAS's fp32 product. The TPU's sequential
+// vocab / row grid becomes a loop inside one block, and every output has
+// exactly one owner whose sums run in a fixed order: no atomics, results
+// repeat bitwise.
 //   * forward: a block owns 64 rows and a split of the vocab (enough splits
 //     for ~8 blocks an SM), walks it in 64-column tiles keeping m, l and
 //     pred in registers (4 lanes per row), and writes them per split; a
 //     second launch merges the splits in order (log-sum-exp merge);
-//   * dX (fp32): a block owns 32 rows and a chunk of at most 512 hidden
-//     columns, with its dx accumulator in the warps' fragments, and walks
-//     the vocab in 64-column tiles;
-//   * dW (fp32): a block owns 32 vocab rows and a hidden chunk, and walks
-//     the rows in 64-row tiles.
+//   * dX: a block owns 32 rows and a chunk of at most 512 hidden columns,
+//     with its dx accumulator in the warps' fragments, and walks the vocab
+//     in 64-column tiles;
+//   * dW: a block owns 32 vocab rows and a hidden chunk, and walks the
+//     rows in 64-row tiles.
 // The scores of a tile come from a product over h whose K chunks stream
 // into shared memory with cp.async, two stages deep, so the next chunk
 // loads while this one multiplies. They go to shared memory as fp32 for
-// the elementwise step, whose dl (in the input type) is the A operand of
-// the second product. When a backward block owns the whole hidden axis, the
-// chunks of the operand its second product also needs (dX: the w rows, dW:
-// the x rows) stream straight into that product's slab, so it is read from
-// global memory once per tile. wgmma, TMA and persistent scheduling are
-// later work.
-
-#include <mma.h>
+// the elementwise step, whose dl is the A operand of the second product.
+// When a backward block owns the whole hidden axis, the chunks of the
+// operand its second product also needs (dX: the w rows, dW: the x rows)
+// stream straight into that product's slab, so it is read from global
+// memory once per tile. The element type stays a template parameter T
+// (float here) of the tile code.
 
 #include "common.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -65,10 +71,6 @@ constexpr int kThreads = 32 * kWarps;
 // hidden chunk a backward block accumulates
 template <typename T>
 struct Tile;
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int KC = 64, PAD = 8;
-};
 template <>
 struct Tile<float> {
   static constexpr int KC = 32, KC_BWD = 32, PAD = 4, HCMAX = 512;
@@ -81,65 +83,27 @@ struct Tile<float> {
 template <typename T>
 struct Mma;
 
-template <>
-struct Mma<__nv_bfloat16> {
-  using T = __nv_bfloat16;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  template <typename L>
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, L>;
-  template <typename L>
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, L>;
-  static __device__ __forceinline__ void zero(Acc& c) {
-    wmma::fill_fragment(c, 0.f);
-  }
-  template <typename F>
-  static __device__ __forceinline__ F load(const T* p, int ld) {
-    F f;
-    wmma::load_matrix_sync(f, p, ld);
-    return f;
-  }
-  static __device__ __forceinline__ FragA<wmma::row_major> a_row(const T* a,
-                                                                 int ld) {
-    return load<FragA<wmma::row_major>>(a, ld);
-  }
-  static __device__ __forceinline__ FragA<wmma::col_major> a_col(const T* a,
-                                                                 int ld) {
-    return load<FragA<wmma::col_major>>(a, ld);
-  }
-  static __device__ __forceinline__ FragB<wmma::row_major> b_row(const T* b,
-                                                                 int ld) {
-    return load<FragB<wmma::row_major>>(b, ld);
-  }
-  static __device__ __forceinline__ FragB<wmma::col_major> b_col(const T* b,
-                                                                 int ld) {
-    return load<FragB<wmma::col_major>>(b, ld);
-  }
-  template <typename FA, typename FB>
-  static __device__ __forceinline__ void mma(Acc& c, const FA& a,
-                                             const FB& b) {
-    wmma::mma_sync(c, a, b, c);
-  }
-  static __device__ __forceinline__ void store(float* out, int ld,
-                                               const Acc& c) {
-    wmma::store_matrix_sync(out, c, ld, wmma::mem_row_major);
-  }
-};
-
 // fp32 on the CUDA cores: lane l holds row l / 2, columns (l % 2) * 8 + 0..7
 // of the accumulator; an operand is its shared-memory address and layout
-// (element (i, j) at p[i*si + j*sj]), read inside mma
+// (element (i, j) at p[i*si + j*sj]), read inside mma. Each call sums its
+// 16 products apart (fp32 FMAs from 0) and adds that partial to c: into
+// fp32 for Acc, into fp64 for ScoreAcc (the scores)
 template <>
 struct Mma<float> {
   struct Acc {
     float x[8];
   };
+  struct ScoreAcc {
+    double x[8];
+  };
   struct Op {
     const float* p;
     int si, sj;
   };
-  static __device__ __forceinline__ void zero(Acc& c) {
+  template <typename C>
+  static __device__ __forceinline__ void zero(C& c) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) c.x[j] = 0.f;
+    for (int j = 0; j < 8; ++j) c.x[j] = 0;
   }
   static __device__ __forceinline__ Op a_row(const float* a, int ld) {
     return {a, ld, 1};
@@ -153,23 +117,31 @@ struct Mma<float> {
   static __device__ __forceinline__ Op b_col(const float* b, int ld) {
     return {b, 1, ld};
   }
-  // c(r, c0 + j) += sum_k A(r, k) B(k, c0 + j)
-  static __device__ __forceinline__ void mma(Acc& c, const Op& a,
+  // c(r, c0 + j) += sum_k A(r, k) B(k, c0 + j), the 16-term sum first
+  template <typename C>
+  static __device__ __forceinline__ void mma(C& c, const Op& a,
                                              const Op& b) {
     const int r = (threadIdx.x & 31) >> 1, c0 = (threadIdx.x & 1) * 8;
+    float part[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) part[j] = 0.f;
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       const float av = a.p[r * a.si + k * a.sj];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        c.x[j] = fmaf(av, b.p[k * b.si + (c0 + j) * b.sj], c.x[j]);
+        part[j] = fmaf(av, b.p[k * b.si + (c0 + j) * b.sj], part[j]);
     }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c.x[j] += part[j];
   }
+  template <typename C>
   static __device__ __forceinline__ void store(float* out, int ld,
-                                               const Acc& c) {
+                                               const C& c) {
     const int r = (threadIdx.x & 31) >> 1, c0 = (threadIdx.x & 1) * 8;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out[r * ld + c0 + j] = c.x[j];
+    for (int j = 0; j < 8; ++j)
+      out[r * ld + c0 + j] = static_cast<float>(c.x[j]);
   }
 };
 
@@ -296,7 +268,7 @@ __device__ __forceinline__ void score_tile(float* sS, Operand<T> A,
   constexpr int PER = (NF + kWarps - 1) / kWarps;
   const int warp = threadIdx.x / 32;
   const int nch = h / KC;  // h is a multiple of 128
-  typename M::Acc acc[PER];
+  typename M::ScoreAcc acc[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) M::zero(acc[i]);
   auto issue = [&](int c) {
@@ -744,8 +716,8 @@ extern "C" int lm_head_loss_fwd_splits(int n, int v) {
 // 128; t: (n,) int64 target ids (any value: an id outside [0, V) picks no
 // logit); lse, pred, g: (n,) fp32. Forward writes lse and pred (through
 // `part`, see lm_head_loss_fwd_splits); dX writes dx (n, h) and dW writes
-// dw (V, h), both fp32 (bf16 inputs: cudaErrorInvalidValue; their dX and
-// dW are lm_head_mma.cu's).
+// dw (V, h), both fp32 (bf16 inputs: cudaErrorInvalidValue; their
+// forward, dX and dW are lm_head_mma.cu's).
 extern "C" int lm_head_loss_fwd(int device, const void* x, const void* w,
                                 const void* t, void* part, void* lse,
                                 void* pred, int n, int v, int h, int is_bf16,
@@ -754,9 +726,8 @@ extern "C" int lm_head_loss_fwd(int device, const void* x, const void* w,
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      is_bf16
-          ? launch_fwd<__nv_bfloat16>(x, w, t, part, lse, pred, n, v, h, s)
-          : launch_fwd<float>(x, w, t, part, lse, pred, n, v, h, s));
+      is_bf16 ? cudaErrorInvalidValue
+              : launch_fwd<float>(x, w, t, part, lse, pred, n, v, h, s));
 }
 
 extern "C" int lm_head_loss_bwd_dx(int device, const void* x, const void* w,

@@ -1,10 +1,12 @@
-// Fused LM head + softmax cross-entropy, backward (dX and dW), bf16 on
+// Fused LM head + softmax cross-entropy, forward, dX and dW, bf16 on
 // Hopper's tensor cores (sm_90a).
 //
-// Replaces, for bf16 inputs, the TPU kernels of apex_tpu/ops/lm_head_loss.py
-// reached through `_run_bwd`:
-//   * `_dx_kernel` (pallas_call at :244): dx = sum_v dl . W_v;
-//   * `_dw_kernel` (pallas_call at :263): dw = sum_n dl^T . X_n;
+// Replaces, for bf16 inputs, the TPU kernels of apex_tpu/ops/lm_head_loss.py:
+//   * `_fwd_kernel` (reached through `_run_fwd`, pallas_call at :198): per
+//     row the log-sum-exp lse of s = x . w^T over the vocab and the
+//     target's score pred;
+//   * `_dx_kernel` (`_run_bwd`, pallas_call at :244): dx = sum_v dl . W_v;
+//   * `_dw_kernel` (`_run_bwd`, pallas_call at :263): dw = sum_n dl^T . X_n;
 // with dl = (exp(s - lse) - onehot(t)) * g and s = x . w^T recomputed tile
 // by tile from the saved (x, w, t, lse): the (rows, vocab) scores never
 // reach device memory. fp32 inputs keep the CUDA-core kernels of
@@ -56,6 +58,42 @@
 // and a second launch adds them in split order. The cluster size, panels
 // and split count come from the wrapper (ops/lm_head_loss.py
 // `_mma_layout`, `_dx_splits`), functions of (n, V, h) alone.
+//
+// The forward is a plain GEMM with a light epilogue: no second product and
+// no (rows x h) accumulator, so no cluster and no hidden panels. Bound:
+// operations, 2.n.V.h (0.64 ms at GPT-2's 8192 x 768, V 50304, at 989
+// TFLOP/s). A block owns 128 x rows and a split of the vocab, which it
+// walks in tiles of 128 vocab rows; each tile's S = x . w^T (128 x 128,
+// fp32) is formed over the hidden axis in k chunks of 64, both operands
+// copied by cp.async into a three-stage ring that runs on across tile
+// boundaries (the (tile, chunk) walk is one sequence), so the next tile's
+// first chunks load while this tile's epilogue runs. Eight warps, 4 (rows)
+// x 2 (vocab), each own a 32 x 64 block of S: per k step of 16 their 2 A
+// and 4 B ldmatrix loads feed 16 mma.sync; 128 registers a thread and 111
+// KB of shared memory let two blocks share an SM, which hides more latency
+// than one block of 128 x 256 tiles with 64 x 64 warp blocks did (2.19 vs
+// 2.37 ms at GPT-2's shape on an H100 80GB HBM3 at 700 W, PERF.md), though
+// it reads 64, not 85, flop a byte through L2. Warp layout and the
+// softmax: a thread holds 4 rows (16 mi + g, + 8) x 16 vocab columns of
+// each tile, and keeps its OWN running max m, sum l and target score p of
+// each of its rows over the columns it holds, updated from S in registers
+// after each tile as JAX does per tile (max; rescale by exp(m_prev -
+// m_new); sum of exp(s - m_new); the score where col == t), so no tile
+// needs a reduction across lanes or warps. The per-thread partials are
+// merged once, at the end:
+// over a quad's lanes by xor shuffles (the two lanes of a pair compute the
+// same commutative sum, so both hold the same bits), then over the warps
+// of a row in warp order through shared memory; each block writes its
+// rows' (m, l, p) for its split, and a second launch merges the splits in
+// split order (lse = M + log sum_s l_s exp(m_s - M), pred = sum_s p_s):
+// the forward repeats bitwise. Columns past V are masked by value (s =
+// NEG_INF, exp term 0) and load as zeros from clamped addresses; a target
+// outside [0, V) hits no column (pred 0). Grid: the row tile is
+// blockIdx.x, so the blocks running at once are the row tiles of a few
+// splits, which walk the same vocab tiles at about the same time: each
+// tile of W (77 MB at GPT-2's shape, more than the 50 MB L2) comes from
+// device memory about once and is reread from L2. The split count is the
+// wrapper's (`_fwd_splits`, a function of (n, V, h) alone).
 
 #include <cooperative_groups.h>
 
@@ -542,6 +580,243 @@ cudaError_t launch_hk(const BwdArgs& a, int hk, int cluster, int own_tiles,
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward: (m, l, p) of each row over a vocab split, then the splits merged
+// in order
+
+constexpr int kFwdRows = 128;     // x rows of a block
+constexpr int kFwdVocab = 128;    // vocab rows of a tile
+constexpr int kFwdWarpRows = 4;   // warps along the rows (the rest along
+                                  // the vocab)
+constexpr int kFwdStages = 3;     // depth of the cp.async ring
+constexpr int kFwdMinBlocks = 2;  // blocks an SM
+constexpr int kFwdK = 64;         // hidden columns of a k chunk
+constexpr int kFwdMaxSplits = 64;
+constexpr int kFwdWarpCols = 8 / kFwdWarpRows;
+constexpr int kFwdMI = kFwdRows / kFwdWarpRows / 16;  // m16 tiles a warp
+constexpr int kFwdNJ = kFwdVocab / kFwdWarpCols / 8;  // n8 tiles a warp
+constexpr int kFwdStageElems = (kFwdRows + kFwdVocab) * kStride<kFwdK>;
+// the ring, then the warps' per-row (m, l, p) for the final merge
+constexpr size_t kFwdSmem =
+    static_cast<size_t>(kFwdStages) * kFwdStageElems * 2 +
+    3 * kFwdWarpCols * kFwdRows * 4;
+static_assert(kFwdNJ % 2 == 0 && kFwdRows <= kLmThreads, "fwd tiling");
+
+struct FwdArgs {
+  const bf16* x;         // (n, h)
+  const bf16* w;         // (vocab, h)
+  const long long* t;    // (n,) targets
+  float* part;           // (3, splits, n): m, l, p of each split
+  int n, vocab, h;
+  int tiles_per_split;   // vocab tiles one split walks
+};
+
+// Start copying rows [row0, row0 + ROWS) x columns [col0, col0 + 64) of a
+// (rows, h) bf16 matrix into a (ROWS, 64) ring stage; rows at or past
+// `limit` become zeros (read from a clamped address). h is a multiple of
+// 64, so no column is past it. Joins the caller's open cp.async group.
+template <int ROWS>
+__device__ __forceinline__ void chunk_async(bf16* dst, const bf16* src,
+                                            int row0, int limit, int col0,
+                                            int h) {
+  constexpr int CH = kFwdK / 8;  // 16-byte chunks a row
+  static_assert(ROWS * CH % kLmThreads == 0, "whole rounds of copies");
+#pragma unroll
+  for (int k = 0; k < ROWS * CH / kLmThreads; ++k) {
+    const int u = threadIdx.x + k * kLmThreads;
+    const int r = u / CH, c = (u % CH) * 8;
+    const int row = row0 + r;
+    const bool in = row < limit;
+    cp_async16(dst + r * kStride<kFwdK> + c,
+               src + (in ? static_cast<long>(row) * h + col0 + c : 0L), in);
+  }
+}
+
+// (m, l) of two partials merged: m = max, l = sum of each l rescaled to it
+// (commutative: either order gives the same bits)
+__device__ __forceinline__ void merge_ml(float& m, float& l, float m2,
+                                         float l2) {
+  const float mn = fmaxf(m, m2);
+  l = l * expf(m - mn) + l2 * expf(m2 - mn);
+  m = mn;
+}
+
+// Block (row tile, vocab split): its rows' (m, l, p) over the split's vocab
+// tiles, written to part[(k * splits + split) * n + row] for k = m, l, p.
+__global__ void __launch_bounds__(kLmThreads, kFwdMinBlocks)
+    lm_mma_fwd_kernel(const FwdArgs a) {
+  constexpr int MI = kFwdMI, NJ = kFwdNJ, RT = 2 * kFwdMI;
+  constexpr int WM = kFwdRows / kFwdWarpRows, WN = kFwdVocab / kFwdWarpCols;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* red = reinterpret_cast<float*>(ring + kFwdStages * kFwdStageElems);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  // this warp's block of S: rows WM wm.., columns WN wn..
+  const int wm = warp / kFwdWarpCols, wn = warp % kFwdWarpCols;
+  const int row0 = blockIdx.x * kFwdRows;
+  const int vtiles = (a.vocab + kFwdVocab - 1) / kFwdVocab;
+  const int t_begin = blockIdx.y * a.tiles_per_split;
+  const int t_end = min(vtiles, t_begin + a.tiles_per_split);
+  const int nk = a.h / kFwdK;
+  const int total = max(0, t_end - t_begin) * nk;
+
+  // step `it` of the (vocab tile, k chunk) walk into its ring stage; an
+  // empty group past the end keeps the waits' counts uniform
+  auto issue = [&](int it) {
+    if (it < total) {
+      bf16* sx = ring + (it % kFwdStages) * kFwdStageElems;
+      const int k0 = (it % nk) * kFwdK;
+      chunk_async<kFwdRows>(sx, a.x, row0, a.n, k0, a.h);
+      chunk_async<kFwdVocab>(sx + kFwdRows * kStride<kFwdK>, a.w,
+                             (t_begin + it / nk) * kFwdVocab, a.vocab, k0,
+                             a.h);
+    }
+    cp_async_commit();
+  };
+
+  // this thread's rows: i = 2 mi + hh is row WM wm + 16 mi + g8 + 8 hh of
+  // the tile; its columns of a tile: WN wn + 8 nj + 2 t4 + e
+  int tgt[RT];
+  float m[RT], l[RT], p[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int row = row0 + wm * WM + 16 * (i >> 1) + g8 + 8 * (i & 1);
+    const long long tv = row < a.n ? __ldg(a.t + row) : -1;
+    tgt[i] = tv >= 0 && tv < a.vocab ? static_cast<int>(tv) : -1;
+    m[i] = apex::kNegInf;
+    l[i] = 0.f;
+    p[i] = 0.f;
+  }
+  float acc[MI][NJ][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+
+  for (int s = 0; s < kFwdStages - 1; ++s) issue(s);
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<kFwdStages - 2>();  // step it has landed (this thread's)
+    __syncthreads();  // ... for every thread; step it - 1's readers done
+    issue(it + kFwdStages - 1);       // into step it - 1's stage
+    const bf16* sx = ring + (it % kFwdStages) * kFwdStageElems;
+    const bf16* sw = sx + kFwdRows * kStride<kFwdK>;
+#pragma unroll
+    for (int kk = 0; kk < kFwdK; kk += 16) {
+      uint32_t af[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        load_a<kFwdK>(af[mi], sx, wm * WM + 16 * mi, kk, lane);
+#pragma unroll
+      for (int j = 0; j < NJ / 2; ++j) {
+        uint32_t b[4];
+        load_bt<kFwdK>(b, sw, wn * WN + 16 * j, kk, lane);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          mma_bf16(acc[mi][2 * j], af[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * j + 1], af[mi], b[2], b[3]);
+        }
+      }
+    }
+    if (it % nk != nk - 1) continue;
+    // the tile's S is complete: each row's (m, l, p) over this thread's
+    // columns, then S is cleared for the next tile; columns past V only
+    // in the vocab's last tile
+    const int v0 = (t_begin + it / nk) * kFwdVocab;
+    const int c0 = v0 + wn * WN + 2 * t4;
+    const bool ragged = v0 + kFwdVocab > a.vocab;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int mi = i >> 1, hh = i & 1;
+      float mx = apex::kNegInf;
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * nj + e;
+          float& s = acc[mi][nj][2 * hh + e];
+          if (ragged && col >= a.vocab) s = apex::kNegInf;
+          if (col == tgt[i]) p[i] += s;
+          mx = fmaxf(mx, s);
+        }
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (!ragged || c0 + 8 * nj + e < a.vocab)
+            sum += expf(acc[mi][nj][2 * hh + e] - m_new);
+      l[i] = l[i] * expf(m[i] - m_new) + sum;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+  }
+  cp_async_wait<0>();  // the empty groups past the end
+
+  // merge: the quad's lanes, then the warps of a row in warp order
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], o);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[i], o);
+      p[i] += __shfl_xor_sync(0xffffffffu, p[i], o);
+      merge_ml(m[i], l[i], m2, l2);
+    }
+    if (t4 == 0) {
+      const int r = wm * WM + 16 * (i >> 1) + g8 + 8 * (i & 1);
+      red[(0 * kFwdWarpCols + wn) * kFwdRows + r] = m[i];
+      red[(1 * kFwdWarpCols + wn) * kFwdRows + r] = l[i];
+      red[(2 * kFwdWarpCols + wn) * kFwdRows + r] = p[i];
+    }
+  }
+  __syncthreads();
+  const int r = threadIdx.x, row = row0 + r;
+  if (r < kFwdRows && row < a.n) {
+    constexpr int L = kFwdWarpCols * kFwdRows, P = 2 * L;
+    float mm = red[r], ll = red[L + r], pp = red[P + r];
+    for (int q = 1; q < kFwdWarpCols; ++q) {
+      merge_ml(mm, ll, red[q * kFwdRows + r], red[L + q * kFwdRows + r]);
+      pp += red[P + q * kFwdRows + r];
+    }
+    const long stride = static_cast<long>(gridDim.y) * a.n;
+    float* out = a.part + static_cast<long>(blockIdx.y) * a.n + row;
+    out[0] = mm;
+    out[stride] = ll;
+    out[2 * stride] = pp;
+  }
+}
+
+// lse = M + log(sum_s l_s exp(m_s - M)), M = max_s m_s; pred = sum_s p_s;
+// the splits in order
+__global__ void __launch_bounds__(kLmThreads)
+    lm_mma_fwd_merge_kernel(const float* __restrict__ part,
+                            float* __restrict__ lse, float* __restrict__ pred,
+                            int n, int splits) {
+  const int row = blockIdx.x * kLmThreads + threadIdx.x;
+  if (row >= n) return;
+  const long stride = static_cast<long>(splits) * n;
+  float big = apex::kNegInf;
+  for (int k = 0; k < splits; ++k)
+    big = fmaxf(big, part[static_cast<long>(k) * n + row]);
+  float l = 0.f, p = 0.f;
+  for (int k = 0; k < splits; ++k) {
+    const long at = static_cast<long>(k) * n + row;
+    l += part[stride + at] * expf(part[at] - big);
+    p += part[2 * stride + at];
+  }
+  lse[row] = big + logf(l);
+  pred[row] = p;
+}
+
 // the layout the wrapper chose: cluster CTAs of `panels` panels of hk
 // columns cover the hidden axis (512-column panels only without a
 // cluster: their parts of S would not fit beside the tiles)
@@ -556,6 +831,41 @@ bool layout_ok(int h, int cluster, int hk, int panels, int splits) {
 }
 
 }  // namespace
+
+// On CUDA device `device`, on `stream`. x: (n, h), w: (V, h), bf16,
+// contiguous, 16-byte aligned, h a multiple of 128; t: (n,) int64 target
+// ids (an id outside [0, V) hits no column: pred 0). Writes the (m, l, p)
+// of each of `splits` vocab splits (1 to 64, the caller's) into `part`,
+// (3, splits, n) fp32 scratch, then lse and pred, (n,) fp32, merging the
+// splits in order.
+extern "C" int lm_head_mma_fwd(int device, const void* x, const void* w,
+                               const void* t, void* part, void* lse,
+                               void* pred, int n, int v, int h, int splits,
+                               void* stream) {
+  if (h <= 0 || h % 128 != 0 || n <= 0 || v <= 0 || splits < 1 ||
+      splits > kFwdMaxSplits || part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      lm_mma_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kFwdSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (v + kFwdVocab - 1) / kFwdVocab;
+  const FwdArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                  static_cast<const long long*>(t), static_cast<float*>(part),
+                  n, v, h, (tiles + splits - 1) / splits};
+  lm_mma_fwd_kernel<<<dim3((n + kFwdRows - 1) / kFwdRows, splits),
+                      kLmThreads, kFwdSmem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  lm_mma_fwd_merge_kernel<<<(n + kLmThreads - 1) / kLmThreads, kLmThreads, 0,
+                            s>>>(static_cast<const float*>(part),
+                                 static_cast<float*>(lse),
+                                 static_cast<float*>(pred), n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // On CUDA device `device`, on `stream`. x: (n, h), w: (V, h), bf16,
 // contiguous, 16-byte aligned, h a multiple of 128; t: (n,) int64 target

@@ -11,7 +11,12 @@ backward is two kernels, :func:`flash_varlen_bwd_dq` and
 :func:`flash_varlen_bwd_dkv`, which mask p by value (a pad row's lse is
 NEG_INF and ``exp(s - lse)`` would give 1). :class:`VarlenAttention` ties
 them into autograd; each dispatches by device (the kernel for a CUDA
-tensor, its plain version for a CPU tensor).
+tensor, its plain version for a CPU tensor). dK/dV has two routes
+(:func:`_varlen_dkv_route`): bf16 at head_dim <= 256 runs on the tensor
+cores (``csrc/flash_varlen_mma.cu``, counted as
+``flash_varlen_mma_bwd_dkv``), fp32 at every head_dim and bf16 above 256
+on the CUDA cores (``csrc/flash_varlen.cu``, ``flash_varlen_bwd_dkv``);
+the forward and dQ are ``flash_varlen.cu``'s for both types.
 
 Block skipping, as JAX does it: per 64-row tile the [min, max] segment id
 (:func:`_block_ranges`; the kernels take the min over real tokens,
@@ -35,7 +40,7 @@ from apex_tpu_torch.ops import _kernel_util as ku
 # _TILE: rows of a kernel tile; sequences are padded to a multiple of it
 # with segment -1 (pad keys match nothing, pad rows output 0 and are sliced
 # off)
-from apex_tpu_torch.ops.attention import _TILE, NEG_INF
+from apex_tpu_torch.ops.attention import _MMA_MAX_HEAD_DIM, _TILE, NEG_INF
 # device, q, k, v, seg_q, seg_k, q ranges, k ranges
 _HEAD = [ctypes.c_int] + [ctypes.c_void_p] * 7
 # b, h, sq, sk, d, scale, causal, is_bf16, stream
@@ -46,6 +51,24 @@ _SIGNATURES = {
     "flash_varlen_bwd_dq": _HEAD + [ctypes.c_void_p] * 4 + _TAIL,
     "flash_varlen_bwd_dkv": _HEAD + [ctypes.c_void_p] * 5 + _TAIL,
 }
+# the tensor-core dK/dV (csrc/flash_varlen_mma.cu): flash_varlen_bwd_dkv's
+# arguments, with its block order after the tables
+_MMA_SIGNATURES = {
+    "flash_varlen_mma_bwd_dkv": _HEAD + [ctypes.c_void_p] * 6 + _TAIL,
+}
+
+
+def _varlen_dkv_route(dtype, d: int) -> str:
+    """Which kernel runs the varlen dK/dV at this input dtype and head dim
+    on the card: ``"tensor_core"`` (bf16, d <= 256:
+    ``flash_varlen_mma.cu``) or ``"cuda_core"`` (fp32 at every d, bf16
+    above 256: ``flash_varlen.cu``, fp32 products). A head dim that is not
+    a positive multiple of 8 raises, as the kernels' gate refuses it."""
+    if not (d % 8 == 0 and d > 0):
+        raise ValueError(f"head_dim {d} must be a positive multiple of 8")
+    if dtype == torch.bfloat16 and d <= _MMA_MAX_HEAD_DIM:
+        return "tensor_core"
+    return "cuda_core"
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +216,21 @@ def _tile_ranges(seg_q, seg_k, causal: bool):
     return qr.contiguous(), kr.contiguous()
 
 
+def _tables(seg_q, seg_k, causal: bool, with_order: bool):
+    """What the kernels read beside the tensors: ``(qr, kr, order)``, the
+    per-tile tables of :func:`_tile_ranges` and, when ``with_order`` (the
+    tensor-core dK/dV's route, its only reader; else None), that kernel's
+    block order, (b, nk) int32: each batch row's K/V tiles by live q range
+    (``ihi - ilo``), longest first (a stable sort: ties in tile order),
+    so the blocks that walk the most q tiles start first. Built once per
+    :class:`VarlenAttention` call, with torch on the tensors' device."""
+    qr, kr = _tile_ranges(seg_q, seg_k, causal)
+    if not with_order:
+        return qr, kr, None
+    order = torch.argsort(kr[..., 2] - kr[..., 3], dim=1, stable=True)
+    return qr, kr, order.to(torch.int32).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
@@ -226,16 +264,30 @@ def _check_varlen(what, q, k, v, seg_q, seg_k, *others):
     return b, h, sq, sk, d
 
 
-def _launch(entry, q, k, v, seg_q, seg_k, scale, causal, pointers, others):
-    """Check the inputs, build the tile tables, launch ``entry`` with the
-    tensors of ``pointers`` (in the C order, after q, k, v, the segment ids
-    and the tables), count the launch and raise on a CUDA error."""
+def _launch(entry, q, k, v, seg_q, seg_k, scale, causal, pointers, others,
+            tables=None):
+    """Check the inputs, take the tables (``tables``, from :func:`_tables`
+    of these segment ids and ``causal``, with the block order for the
+    tensor-core entry; built here when None), launch
+    ``entry`` with the tensors of ``pointers`` (in the C order, after q,
+    k, v, the segment ids and the tables), count the launch and raise on a
+    CUDA error."""
     b, h, sq, sk, d = _check_varlen(entry, q, k, v, seg_q, seg_k, *others)
-    qr, kr = _tile_ranges(seg_q, seg_k, causal)
-    lib = ku.load_kernel("flash_varlen", _SIGNATURES)
+    mma = entry in _MMA_SIGNATURES
+    qr, kr, order = (tables if tables is not None
+                     else _tables(seg_q, seg_k, causal, mma))
+    if mma:
+        ku.require(order is not None,
+                   f"{entry}: its tables need the block order "
+                   f"(_tables(..., with_order=True))")
+        lib = ku.load_kernel("flash_varlen_mma", _MMA_SIGNATURES)
+        tabs = (qr, kr, order)
+    else:
+        lib = ku.load_kernel("flash_varlen", _SIGNATURES)
+        tabs = (qr, kr)
     status = getattr(lib, entry)(
-        q.device.index, *(t.data_ptr() for t in (q, k, v, seg_q, seg_k, qr,
-                                                 kr, *pointers)),
+        q.device.index, *(t.data_ptr() for t in (q, k, v, seg_q, seg_k,
+                                                 *tabs, *pointers)),
         b, h, sq, sk, d, float(scale), int(causal),
         int(q.dtype == torch.bfloat16), ku.stream_handle(q))
     ku.count_launch(entry)
@@ -249,34 +301,40 @@ def _bwd_others(q, do, lse, delta):
             ("delta", delta, rows, torch.float32))
 
 
-def flash_varlen_fwd(q, k, v, seg_q, seg_k, scale: float, causal: bool):
+def flash_varlen_fwd(q, k, v, seg_q, seg_k, scale: float, causal: bool,
+                     tables=None):
     """Launch the varlen forward kernel on (b, h, s, d) CUDA tensors with
     int32 (b, s) segment ids, s a multiple of 64: returns ``(o, lse)``,
-    lse fp32 (b, h, sq, 1)."""
+    lse fp32 (b, h, sq, 1). ``tables``: :func:`_tables` of these segment
+    ids, or None to build them."""
     o = torch.empty_like(q)
     lse = torch.empty(*q.shape[:3], 1, dtype=torch.float32, device=q.device)
     _launch("flash_varlen_fwd", q, k, v, seg_q, seg_k, scale, causal,
-            (o, lse), ())
+            (o, lse), (), tables)
     return o, lse
 
 
 def flash_varlen_bwd_dq(q, k, v, seg_q, seg_k, do, lse, delta, scale: float,
-                        causal: bool):
+                        causal: bool, tables=None):
     """Launch the varlen dQ kernel; ``lse`` and ``delta`` are fp32 (b, h,
     sq, 1)."""
     dq = torch.empty_like(q)
     _launch("flash_varlen_bwd_dq", q, k, v, seg_q, seg_k, scale, causal,
-            (do, lse, delta, dq), _bwd_others(q, do, lse, delta))
+            (do, lse, delta, dq), _bwd_others(q, do, lse, delta), tables)
     return dq
 
 
 def flash_varlen_bwd_dkv(q, k, v, seg_q, seg_k, do, lse, delta, scale: float,
-                         causal: bool):
-    """Launch the varlen dK/dV kernel; returns ``(dk, dv)``."""
+                         causal: bool, tables=None):
+    """Launch the varlen dK/dV kernel of :func:`_varlen_dkv_route`;
+    returns ``(dk, dv)``."""
+    entry = ("flash_varlen_mma_bwd_dkv"
+             if _varlen_dkv_route(q.dtype, q.shape[-1]) == "tensor_core"
+             else "flash_varlen_bwd_dkv")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_varlen_bwd_dkv", q, k, v, seg_q, seg_k, scale, causal,
-            (do, lse, delta, dk, dv), _bwd_others(q, do, lse, delta))
+    _launch(entry, q, k, v, seg_q, seg_k, scale, causal,
+            (do, lse, delta, dk, dv), _bwd_others(q, do, lse, delta), tables)
     return dk, dv
 
 
@@ -284,14 +342,22 @@ class VarlenAttention(torch.autograd.Function):
     """Varlen flash attention over (b, h, s, d), s a multiple of 64, with
     its JAX ``custom_vjp`` (``_varlen``): the forward saves (q, k, v, o,
     lse), the backward runs the dQ and dK/dV kernels (or their plain
-    versions) from them. The segment ids get no gradient."""
+    versions) from them. The segment ids get no gradient. On the card the
+    kernels' tables (:func:`_tables`) are built once, in the forward, and
+    the three kernels share them."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, scale, causal):
         ctx.kernel = ku.use_kernel(q)
         ctx.args = (scale, causal)
-        fwd = flash_varlen_fwd if ctx.kernel else flash_varlen_fwd_reference
-        o, lse = fwd(q, k, v, seg_q, seg_k, *ctx.args)
+        if ctx.kernel:
+            ctx.tables = _tables(seg_q, seg_k, causal, _varlen_dkv_route(
+                q.dtype, q.shape[-1]) == "tensor_core")
+            o, lse = flash_varlen_fwd(q, k, v, seg_q, seg_k, *ctx.args,
+                                      tables=ctx.tables)
+        else:
+            o, lse = flash_varlen_fwd_reference(q, k, v, seg_q, seg_k,
+                                                *ctx.args)
         ctx.save_for_backward(q, k, v, seg_q, seg_k, o, lse)
         return o
 
@@ -304,9 +370,10 @@ class VarlenAttention(torch.autograd.Function):
             # kernels in JAX (attention_varlen.py:400)
             delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
             dq = flash_varlen_bwd_dq(q, k, v, seg_q, seg_k, do, lse, delta,
-                                     *ctx.args)
+                                     *ctx.args, tables=ctx.tables)
             dk, dv = flash_varlen_bwd_dkv(q, k, v, seg_q, seg_k, do, lse,
-                                          delta, *ctx.args)
+                                          delta, *ctx.args,
+                                          tables=ctx.tables)
         else:
             dq, dk, dv = flash_varlen_bwd_reference(q, k, v, seg_q, seg_k, o,
                                                     lse, do, *ctx.args)

@@ -12,11 +12,11 @@ their plain version) in ``backward``. The plain versions materialize the
 fp32 scores and round ``dl`` to the input type before each product, where
 the kernels do.
 
-Two routes for the backward (:func:`_lm_head_route`): bf16 inputs run the
-tensor-core dX and dW of ``csrc/lm_head_mma.cu`` (counted as
-``lm_head_mma_bwd_dx`` / ``_dw``), fp32 inputs the CUDA-core ones of
-``csrc/lm_head_loss.cu`` (``lm_head_loss_bwd_dx`` / ``_dw``, fp32
-products). The forward is ``lm_head_loss.cu``'s for both types.
+Two routes (:func:`_lm_head_route`): bf16 inputs run the tensor-core
+forward, dX and dW of ``csrc/lm_head_mma.cu`` (counted as
+``lm_head_mma_fwd`` / ``_bwd_dx`` / ``_bwd_dw``), fp32 inputs the
+CUDA-core ones of ``csrc/lm_head_loss.cu`` (``lm_head_loss_fwd`` /
+``_bwd_dx`` / ``_bwd_dw``, fp32 products).
 """
 
 from __future__ import annotations
@@ -41,10 +41,13 @@ _SIGNATURES = {
     "lm_head_loss_bwd_dw": [ctypes.c_int] + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
-# the tensor-core dX and dW (csrc/lm_head_mma.cu): x, w, t, lse, g, (dX:
-# the split scratch,) out; n, v, h; the hidden layout (cluster, hk,
-# panels) and dX's split count; the stream
+# the tensor-core forward (csrc/lm_head_mma.cu): x, w, t, the split
+# scratch, lse, pred; n, v, h, the split count; the stream. dX and dW: x,
+# w, t, lse, g, (dX: the split scratch,) out; n, v, h; the hidden layout
+# (cluster, hk, panels) and dX's split count; the stream
 _MMA_SIGNATURES = {
+    "lm_head_mma_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "lm_head_mma_bwd_dx": [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "lm_head_mma_bwd_dw": [ctypes.c_int] + [ctypes.c_void_p] * 6
@@ -64,10 +67,16 @@ _MMA_SOLO_PANEL = 512
 _MMA_MAX_CLUSTER = 8
 _MMA_TARGET_BLOCKS = 132
 _MMA_MAX_SPLITS = 16
+# the tensor-core forward's tiles: 128 x rows a block, 128 vocab rows a
+# tile, two blocks an SM, at most 64 vocab splits
+_FWD_ROWS = 128
+_FWD_VOCAB = 128
+_FWD_BLOCKS = 2 * _MMA_TARGET_BLOCKS
+_FWD_MAX_SPLITS = 64
 
 
 def _lm_head_route(dtype, h: int) -> str:
-    """Which kernels run the backward (dX, dW) at this input dtype and
+    """Which kernels run the forward, dX and dW at this input dtype and
     hidden size on the card: ``"tensor_core"`` (bf16:
     ``csrc/lm_head_mma.cu``) or ``"cuda_core"`` (fp32:
     ``csrc/lm_head_loss.cu``, fp32 products, as JAX's fp32 kernel forms
@@ -116,6 +125,18 @@ def _dx_splits(n: int, v: int, h: int) -> int:
     blocks = -(-n // _MMA_ROWS) * c * panels
     tiles = -(-v // _MMA_ROWS)
     return max(1, min(_MMA_TARGET_BLOCKS // blocks, _MMA_MAX_SPLITS, tiles))
+
+
+def _fwd_splits(n: int, v: int, h: int) -> int:
+    """Vocab splits of the tensor-core forward: as many as keep the (row
+    tile × split) grid within one wave of 264 blocks (two an SM on 132
+    SMs), at most 64 and at most one a 128-row vocab tile. A function of
+    the shape alone (h does not change it), so the in-order merge of the
+    splits' (m, l, p) repeats bitwise."""
+    del h
+    rows = -(-n // _FWD_ROWS)
+    tiles = -(-v // _FWD_VOCAB)
+    return max(1, min(_FWD_BLOCKS // rows, _FWD_MAX_SPLITS, tiles))
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +193,38 @@ def lm_head_loss_fwd_reference(x2, w, t):
     in_range = (t >= 0) & (t < v)
     picked = torch.gather(logits, 1, torch.where(in_range, t, 0)[:, None])
     return lse, torch.where(in_range, picked[:, 0], 0.0)
+
+
+def lm_head_loss_fwd_split_reference(x2, w, t, splits: int):
+    """Plain emulation of the tensor-core forward's vocab split: split k
+    walks its run of 128-row vocab tiles, updating each row's running max
+    m, sum l and target score p tile by tile as JAX's kernel does, and the
+    splits' (m, l, p) are merged in split order (lse = M + log Σ l·exp(m −
+    M), pred = Σ p). Returns ``(lse, pred)``, fp32 (n,)."""
+    v = w.shape[0]
+    tiles = -(-v // _FWD_VOCAB)
+    per = -(-tiles // splits)
+    s = _scores(x2, w)
+    n = s.shape[0]
+    t = t.long()
+    parts = []
+    for k in range(splits):
+        m = torch.full((n,), NEG_INF, device=s.device)
+        l = torch.zeros(n, device=s.device)
+        p = torch.zeros(n, device=s.device)
+        for tile in range(k * per, min(tiles, (k + 1) * per)):
+            lo, hi = tile * _FWD_VOCAB, min(v, (tile + 1) * _FWD_VOCAB)
+            st = s[:, lo:hi]
+            hit = (t[:, None] == torch.arange(lo, hi, device=s.device))
+            p = p + torch.where(hit, st, 0.0).sum(dim=1)
+            m_new = torch.maximum(m, st.amax(dim=1))
+            l = l * torch.exp(m - m_new) + torch.exp(
+                st - m_new[:, None]).sum(dim=1)
+            m = m_new
+        parts.append((m, l, p))
+    big = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = sum(l * torch.exp(m - big) for m, l, _ in parts)
+    return big + torch.log(l), sum(p for _, _, p in parts)
 
 
 def _dl(x2, w, t, lse, g):
@@ -243,20 +296,31 @@ def _check(what, x2, w, t, *rows):
 
 
 def lm_head_loss_fwd(x2, w, t):
-    """Launch the forward kernels (per vocab split, then their in-order
-    merge): ``(lse, pred)``, fp32 (n,)."""
+    """Launch the forward kernels of :func:`_lm_head_route` (per vocab
+    split, then their in-order merge): ``(lse, pred)``, fp32 (n,)."""
     n, v, h = _check("lm_head_loss_fwd", x2, w, t)
     lse = torch.empty(n, dtype=torch.float32, device=x2.device)
     pred = torch.empty_like(lse)
-    lib = ku.load_kernel("lm_head_loss", _SIGNATURES)
-    part = torch.empty(3 * lib.lm_head_loss_fwd_splits(n, v) * n,
-                       dtype=torch.float32, device=x2.device)
-    status = lib.lm_head_loss_fwd(
-        x2.device.index, x2.data_ptr(), w.data_ptr(), t.data_ptr(),
-        part.data_ptr(), lse.data_ptr(), pred.data_ptr(), n, v, h,
-        int(x2.dtype == torch.bfloat16), ku.stream_handle(x2))
-    ku.count_launch("lm_head_loss_fwd")
-    ku.check_status(lib, status, "lm_head_loss_fwd")
+    ptrs = (x2.data_ptr(), w.data_ptr(), t.data_ptr())
+    if _lm_head_route(x2.dtype, h) == "tensor_core":
+        entry = "lm_head_mma_fwd"
+        lib = ku.load_kernel("lm_head_mma", _MMA_SIGNATURES)
+        splits = _fwd_splits(n, v, h)
+        part = torch.empty(3 * splits * n, dtype=torch.float32,
+                           device=x2.device)
+        status = lib.lm_head_mma_fwd(
+            x2.device.index, *ptrs, part.data_ptr(), lse.data_ptr(),
+            pred.data_ptr(), n, v, h, splits, ku.stream_handle(x2))
+    else:
+        entry = "lm_head_loss_fwd"
+        lib = ku.load_kernel("lm_head_loss", _SIGNATURES)
+        part = torch.empty(3 * lib.lm_head_loss_fwd_splits(n, v) * n,
+                           dtype=torch.float32, device=x2.device)
+        status = lib.lm_head_loss_fwd(
+            x2.device.index, *ptrs, part.data_ptr(), lse.data_ptr(),
+            pred.data_ptr(), n, v, h, 0, ku.stream_handle(x2))  # is_bf16 0
+    ku.count_launch(entry)
+    ku.check_status(lib, status, entry)
     return lse, pred
 
 

@@ -68,21 +68,29 @@
      (one row of 8192 tokens, 12 heads of 64, documents of 64-1024
      tokens from numpy seed 1, the rest padding), fp32 and bf16, causal
      and not, the same row at 4 heads of 256 and 2 of 512, causal; pad rows
-     exactly 0, and through ``flash_attention_varlen``
-     at a misaligned total (8100); times beside SDPA with the dense
-     block-diagonal mask and the dense causal flash kernels at the same T;
+     exactly 0, dK/dV on its route (bf16 up to head_dim 256: the
+     tensor-core kernel of ``csrc/flash_varlen_mma.cu``, its ptxas lines
+     and SASS ``HMMA`` counts reported) and bitwise over two launches, and
+     through ``flash_attention_varlen``
+     at a misaligned total (8100); times (the tile tables built
+     beforehand, once per call as the packed path does; their build timed
+     beside) next to SDPA with the dense block-diagonal mask and the dense
+     causal flash kernels at the same T, the CUDA-core dK/dV beside the
+     tensor-core one;
      and a short packed row (256 tokens, 2 heads) at head_dim 2056 causal
      and 4096 bidirectional (the wide kernels), fp32 and bf16, checked;
    * ``layer_norm`` without weight or bias on CUDA: the plain version,
      bitwise, no launch;
    * the fused LM-head + CE forward, dX and dW at the training shape
      (8192, 768, V 50304), a ragged one (96 rows, V 1000), T5's (1024,
-     512, V 32128) and a wide one (512, 2048, V 1000), dX and dW on their
-     route (bf16: the tensor-core kernels of ``csrc/lm_head_mma.cu``,
-     their ptxas lines and SASS ``HMMA`` counts reported; fp32:
-     ``csrc/lm_head_loss.cu``), held row by row and with the softmax term
-     alone, with a bitwise repeat check of dX and dW (``torch.matmul`` +
-     ``F.cross_entropy``, forward and autograd);
+     512, V 32128) and a wide one (512, 2048, V 1000), each on its route
+     (bf16: the tensor-core kernels of ``csrc/lm_head_mma.cu``, their
+     ptxas lines and SASS ``HMMA`` counts reported; fp32:
+     ``csrc/lm_head_loss.cu``), dX and dW held row by row and with the
+     softmax term alone, with a bitwise repeat check of the forward, dX
+     and dW, and the fp32 dX at the wide shape also held to an fp64
+     evaluation of its formula (``torch.matmul`` + ``F.cross_entropy``,
+     forward and autograd);
    * the Adam tail on each of GPT-2-124M's 16 and T5-small's 39 leaf
      shapes in both decay modes, the LAMB sums with a bitwise repeat, and
      each step's launches timed (``torch.optim.AdamW(fused=True).step()``).
@@ -114,8 +122,8 @@
    * bf16, batch 8 x 1024 (the training main path): the launch counts of
      one step (reset just before it, read just after) equal the per-step
      table (LN fwd 49, LN bwd 25, tensor-core flash fwd 24, tensor-core
-     dQ 12, tensor-core dK/dV 12, LM-head
-     fwd, tensor-core dX and dW 1 each, Adam tail 16); the loss stays
+     dQ 12, tensor-core dK/dV 12, tensor-core LM-head
+     fwd, dX and dW 1 each, Adam tail 16); the loss stays
      finite and
      falls over 10 steps on the fixed batch; a second run from the same
      seed repeats the losses bitwise; tokens/s, step ms p50, MFU, peak
@@ -136,7 +144,7 @@
      (reset just before it, read just after) equal the per-step table
      (LN fwd 62, LN bwd 32, tensor-core flash fwd 36 of which 24 with a
      bias, tensor-core dQ 18 (12 with a bias), tensor-core dK/dV 18,
-     tensor-core d(bias) 12, LM-head fwd and tensor-core dX and dW 1 each,
+     tensor-core d(bias) 12, tensor-core LM-head fwd, dX and dW 1 each,
      Adam tail 39); the loss stays
      finite and falls over 10 steps; a second run from the same seed
      repeats the losses bitwise; train tokens/s (encoder + decoder), step
@@ -145,7 +153,8 @@
 6. Packed path: ``contrib.fmha.FMHA`` (12 heads of 64) over the packed
    row of 8192 tokens, forward plus backward through autograd, bf16 and
    fp32, causal and bidirectional: one launch of each varlen kernel per
-   run (counts reset just before it and read just after), pad rows of o
+   run (dK/dV on its route; counts reset just before it and read just
+   after), pad rows of o
    and dqkv exactly 0, a second run bitwise equal, and in fp32 o and dqkv
    equal to ``flash_attention`` run document by document (1e-5); device
    and wall ms, tokens/s, and a profile of the bf16 causal run.
@@ -252,9 +261,11 @@ def check_rows(name, got, want, atol_of_row_max, rtol):
     """``check_close`` for a 2-d tensor whose rows differ in scale: each
     element within ``atol_of_row_max · max|want[row]| + rtol · |want|``,
     so a row of small values (a vocab row of dW that no target hits) is
-    held to its own scale, not to the largest row's. Returns the max abs
-    error and the largest row's max abs error over its max |want|."""
-    got, want = got.float(), want.float()
+    held to its own scale, not to the largest row's. Compared in fp64
+    when ``want`` is fp64, else in fp32. Returns the max abs error and the
+    largest row's max abs error over its max |want|."""
+    got, want = ((got.double(), want) if want.element_size() == 8
+                 else (got.float(), want.float()))
     err = (got - want).abs()
     row_max = want.abs().amax(dim=1, keepdim=True)
     if not bool(got.isfinite().all()) or bool(
@@ -279,7 +290,7 @@ def ptxas_lines(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-            base = re.findall(r"\d([a-z][a-z_]*_kernel)I", entry)
+            base = re.findall(r"\d([a-z][a-z_]*_kernel)[IE]", entry)
             args = re.findall(r"L[ib](\d+)E", entry)
             # the input type, where the kernel takes one as a template
             # argument
@@ -354,16 +365,29 @@ def mma_kernel_info(ku, built):
 
 
 def lm_mma_kernel_info(ku, built):
-    """The tensor-core LM-head dX and dW (``csrc/lm_head_mma.cu``, one
-    kernel with 4 instantiations each: panels of 128, 256, 384 and 512
-    columns)."""
+    """The tensor-core LM-head forward (``csrc/lm_head_mma.cu``, one
+    instantiation), dX and dW (one kernel with 4 instantiations each:
+    panels of 128, 256, 384 and 512 columns)."""
     counts = sass_hmma_counts(
-        ku, "lm_head_mma", r"lm_mma_bwd_kernelILb([01])ELi(\d+)E",
-        lambda m: f"lm_mma_bwd_kernel[{'dw' if m.group(1) == '1' else 'dx'}"
-                  f", {m.group(2)}]")
+        ku, "lm_head_mma",
+        r"lm_mma_(?:bwd_kernelILb([01])ELi(\d+)E|fwd_kernelE)",
+        lambda m: "lm_mma_fwd_kernel[]" if m.group(1) is None else
+        f"lm_mma_bwd_kernel[{'dw' if m.group(1) == '1' else 'dx'}"
+        f", {m.group(2)}]")
     return tensor_core_info(ku, built, "lm_head_mma", counts, {
+        "fwd": ("lm_mma_fwd_kernel", 1, "lm_mma_fwd_kernel"),
         "dx": ("lm_mma_bwd_kernel[dx", 4, "lm_mma_bwd_kernel[0"),
         "dw": ("lm_mma_bwd_kernel[dw", 4, "lm_mma_bwd_kernel[1")})
+
+
+def varlen_mma_kernel_info(ku, built):
+    """The tensor-core varlen dK/dV (``csrc/flash_varlen_mma.cu``, 4
+    instantiations: D 32-256)."""
+    counts = sass_hmma_counts(
+        ku, "flash_varlen_mma", r"(varlen_mma_dkv_kernel)ILi(\d+)E",
+        lambda m: f"{m.group(1)}[{m.group(2)}]")
+    return tensor_core_info(ku, built, "flash_varlen_mma", counts, {
+        "dkv": ("varlen_mma_dkv_kernel", 4, "varlen_mma_dkv_kernel")})
 
 
 def start_builds(ku):
@@ -1218,8 +1242,16 @@ PACK_D512_HEADS = 2
 # head_dim 2056 causal and 4096 bidirectional
 PACK_WIDE_T, PACK_WIDE_HEADS = 256, 2
 PACK_WIDE_CASES = ((2056, True), (4096, False))
-VARLEN_NAMES = ("flash_varlen_fwd", "flash_varlen_bwd_dq",
-                "flash_varlen_bwd_dkv")
+def varlen_entries(dtype, d: int):
+    """The varlen forward, dQ and dK/dV entries one packed forward plus
+    backward launches at this dtype and head dim: dK/dV on its route
+    (``_varlen_dkv_route``: bf16 up to 256 on the tensor cores)."""
+    from apex_tpu_torch.ops.attention_varlen import _varlen_dkv_route
+
+    dkv = ("flash_varlen_mma_bwd_dkv"
+           if _varlen_dkv_route(dtype, d) == "tensor_core"
+           else "flash_varlen_bwd_dkv")
+    return ("flash_varlen_fwd", "flash_varlen_bwd_dq", dkv)
 
 
 def packed_lengths(total: int = PACK_T, seed: int = 1, lo: int = 64,
@@ -1281,6 +1313,12 @@ def varlen_phase(torch, dev):
     SDPA with the dense block-diagonal boolean mask (pad rows attend to
     themselves, so no row is empty; a yardstick only) and the dense causal
     flash kernels at the same T, whose ratio shows the block skipping.
+    Each kernel is timed as the packed path calls it, with the tile tables
+    built beforehand (once per call of ``VarlenAttention``, shared by the
+    three kernels); their build is timed beside (``tables_ms``), and each
+    kernel again with the tables built inside the timed call
+    (``ms_tables_in_call``). dK/dV runs on its route (bf16 up to head_dim
+    256: the tensor-core kernel of ``csrc/flash_varlen_mma.cu``).
     The same row at head_dim 256 (PACK_D256_HEADS heads) and 512
     (PACK_D512_HEADS heads), causal, is held and timed the same way,
     without the dense flash comparison."""
@@ -1291,9 +1329,9 @@ def varlen_phase(torch, dev):
                                               flash_attention_bwd_dq,
                                               flash_attention_fwd)
     from apex_tpu_torch.ops.attention_varlen import (
-        NEG_INF, flash_attention_varlen, flash_varlen_bwd_dkv,
-        flash_varlen_bwd_dq, flash_varlen_bwd_reference, flash_varlen_fwd,
-        flash_varlen_fwd_reference)
+        NEG_INF, _tables, _varlen_dkv_route, flash_attention_varlen,
+        flash_varlen_bwd_dkv, flash_varlen_bwd_dq, flash_varlen_bwd_reference,
+        flash_varlen_fwd, flash_varlen_fwd_reference)
 
     tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -1334,6 +1372,7 @@ def varlen_phase(torch, dev):
                     "heads": heads, "head_dim": d, "documents": len(lens),
                     "pad_tokens": int(pad.sum()), "live_scores": s_live,
                     "atol": atol, "rtol": rtol,
+                    "dkv_entry": varlen_entries(dt, d)[2],
                     "fwd": {"max_abs_err": max(
                         check_close(f"{tag} o", o, o_p, atol, rtol),
                         check_close(f"{tag} lse", lse, lse_p, 1e-4, 1e-5))},
@@ -1347,7 +1386,15 @@ def varlen_phase(torch, dev):
                     raise AssertionError(f"{tag}: {name} of pad rows not 0")
             if not bool((lse[0, :, pad] == NEG_INF).all()):
                 raise AssertionError(f"{tag}: pad rows' lse not NEG_INF")
-            del o_p, lse_p, want
+            dk2, dv2 = flash_varlen_bwd_dkv(*vargs, do, lse, delta, *args)
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                raise AssertionError(f"{tag}: dk, dv not bitwise equal over "
+                                     f"repeats")
+            case["dkv"]["bitwise_repeat"] = True
+            del o_p, lse_p, want, dk2, dv2
+            mma = _varlen_dkv_route(dt, d) == "tensor_core"
+            tabs = _tables(seg, seg, causal, mma)
+            case["tables_ms"] = timed(lambda: _tables(seg, seg, causal, mma))
             q4, k4, v4 = (x.clone().requires_grad_() for x in (q, k, v))
             o_lib = F.scaled_dot_product_attention(q4, k4, v4,
                                                    attn_mask=sdpa_mask)
@@ -1367,18 +1414,25 @@ def varlen_phase(torch, dev):
                     "dkv": timed(lambda: flash_attention_bwd_dkv(
                         q3, k3, v3, do3, lse3, delta3, sc, True))}
             case["fwd"].update(
-                ms=timed(lambda: flash_varlen_fwd(*vargs, *args)),
+                ms=timed(lambda: flash_varlen_fwd(*vargs, *args,
+                                                  tables=tabs)),
+                ms_tables_in_call=timed(lambda: flash_varlen_fwd(*vargs,
+                                                                 *args)),
                 plain_ms=timed(lambda: flash_varlen_fwd_reference(
                     *vargs, *args), 5),
                 library_ms=timed(lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=sdpa_mask), 10))
             case["dq"].update(
                 ms=timed(lambda: flash_varlen_bwd_dq(*vargs, do, lse, delta,
-                                                     *args)),
+                                                     *args, tables=tabs)),
+                ms_tables_in_call=timed(lambda: flash_varlen_bwd_dq(
+                    *vargs, do, lse, delta, *args)),
                 plain_ms=plain_bwd, library_ms=lib_bwd)
             case["dkv"].update(
                 ms=timed(lambda: flash_varlen_bwd_dkv(*vargs, do, lse, delta,
-                                                      *args)),
+                                                      *args, tables=tabs)),
+                ms_tables_in_call=timed(lambda: flash_varlen_bwd_dkv(
+                    *vargs, do, lse, delta, *args)),
                 plain_ms=plain_bwd, library_ms=lib_bwd)
             for key, (bms, by) in zip(("fwd", "dq", "dkv"), varlen_bounds(
                     heads, t, d, s_live, q.element_size(), dname)):
@@ -1390,6 +1444,7 @@ def varlen_phase(torch, dev):
                                                      / dense[dname][key]))
             cases.append(case)
             del q, k, v, do, o, lse, delta, dq, dk, dv, q4, k4, v4, o_lib
+            del tabs
         del allowed, sdpa_mask
     # the front door at a total that is not a multiple of the tile
     heads, d = PACK_HEADS, PACK_D
@@ -1419,7 +1474,7 @@ def varlen_phase(torch, dev):
                 after = ku.launch_counts()
                 want_n = 0 if plain else 1
                 if any(after.get(n, 0) - before.get(n, 0) != want_n
-                       for n in VARLEN_NAMES):
+                       for n in varlen_entries(dt, d)):
                     raise AssertionError(
                         f"varlen misaligned {dname}: launches {after} after "
                         f"{before}")
@@ -1517,7 +1572,6 @@ def fmha_phase(torch, dev, ku):
     if list(mod.parameters()):
         raise AssertionError("FMHA has parameters")
     gen = torch.Generator(device=dev).manual_seed(7)
-    want_counts = {n: 1 for n in VARLEN_NAMES}
 
     def run(qkv, do, causal):
         x = qkv.clone().requires_grad_()
@@ -1529,6 +1583,7 @@ def fmha_phase(torch, dev, ku):
            "pad_tokens": t - n_real, "runs": []}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[1]
+        want_counts = {n: 1 for n in varlen_entries(dt, d)}
         qkv = torch.randn(t, 3, heads, d, device=dev, generator=gen).to(dt)
         do = torch.randn(t, heads, d, device=dev, generator=gen).to(dt)
         for causal in (True, False):
@@ -1620,13 +1675,12 @@ LM_SHAPES = [  # (name, rows, hidden, vocab)
     ("t5", T5_BATCH * T5_DEC, T5_HIDDEN, 32128),   # T5-small's head
     ("wide", 512, 2048, 1000),     # bf16: clusters of 8 CTAs, 2 dX splits
 ]
-# the shapes that run in bf16 only: the wide one holds the tensor-core
-# route's clusters of 8 (in fp32, with no target hit, dx's softmax term
-# cancels, and the fp32 sums of kernel and plain version differ by more
-# than the fp32 gate's 1e-5 of a row's max)
-LM_BF16_ONLY = ("wide",)
 # the shapes whose kernels are timed: the training and T5 main paths'
 LM_TIMED = ("train", "t5")
+# the shape whose fp32 dX is also held against an fp64 evaluation of its
+# formula: at h 2048, with no target hit, dx's softmax term cancels to a
+# small row max, where the fp32 gate is tightest
+LM_FP64 = "wide"
 
 
 def lm_head_bounds(n, h, v, esz, dname):
@@ -1640,12 +1694,41 @@ def lm_head_bounds(n, h, v, esz, dname):
             bound_ms(xw + 16 * n + v * h * esz, 4.0 * n * v * h, dname))
 
 
+def lm_head_fp64_check(torch, x, w, t, lse, g, atol, rtol, tag):
+    """dx = (exp(s − lse) − onehot(t))·g · w evaluated in fp64 from the
+    fp32 x, w, lse and g, with the targets ``t`` and with none hit; the
+    CUDA-core dX and the plain version each held to it row by row under
+    the fp32 gate (``check_rows``). Returns each one's largest row error
+    over its row's max."""
+    from apex_tpu_torch.ops.lm_head_loss import (lm_head_loss_bwd_dx,
+                                                 lm_head_loss_bwd_reference)
+
+    s64 = torch.matmul(x.double(), w.double().t())
+    cols = torch.arange(w.shape[0], device=x.device)[None, :]
+    out = {}
+    for label, tt in (("targets", t), ("no_target", torch.full_like(t, -1))):
+        p = torch.exp(s64 - lse.double()[:, None])
+        dl = (p - (cols == tt[:, None]).double()) * g.double()[:, None]
+        want = torch.matmul(dl, w.double())
+        del p, dl
+        out[label] = {
+            "kernel_max_row_rel_err": check_rows(
+                f"lm_head dx vs fp64 {label} {tag}",
+                lm_head_loss_bwd_dx(x, w, tt, lse, g), want, atol, rtol)[1],
+            "plain_max_row_rel_err": check_rows(
+                f"lm_head plain dx vs fp64 {label} {tag}",
+                lm_head_loss_bwd_reference(x, w, tt, lse, g)[0], want,
+                atol, rtol)[1]}
+        del want
+    return out
+
+
 def lm_head_phase(torch, dev):
     """The fused LM-head + CE kernels (forward, dX, dW) vs their plain
     versions at the training shape (8192 rows, h 768, V 50304), a ragged
     one (96 rows, V 1000), T5-small's (1024 decoder rows, h 512, V 32128)
-    and a wide one (512 rows, h 2048, V 1000; bf16 only), fp32 and bf16,
-    each dX and dW on its route (bf16: the tensor-core kernels of
+    and a wide one (512 rows, h 2048, V 1000), fp32 and bf16, each
+    kernel on its route (bf16: the tensor-core forward, dX and dW of
     ``csrc/lm_head_mma.cu``; fp32: ``csrc/lm_head_loss.cu``). Tolerance:
     lse, pred and the loss atol/rtol 2e-5 (fp32) and 2e-4 (bf16: the same
     bf16 products, fp32 sums in another order); dx and dw, row by row
@@ -1656,13 +1739,18 @@ def lm_head_phase(torch, dev):
     rows of dW get no target and hold only the softmax term, a thousandth
     of a hit row's scale, so each row is held to its own max. The softmax
     term alone is checked too: dx and dw with no target hit (targets -1),
-    where the one-hot term of dx no longer hides it. dX and dW bitwise
-    equal over repeats. Times (bf16, LM_TIMED) beside the unfused pair
-    torch.matmul + F.cross_entropy: its forward, and its autograd (dx and
-    dw together) for both backward rows; fp32 at the same shapes for the
-    CUDA-core dX and dW."""
+    where the one-hot term of dx no longer hides it. The forward (lse,
+    pred), dX and dW bitwise equal over repeats, each call one launch of
+    its route's entry. At LM_FP64 in fp32, the CUDA-core dX and the plain
+    version, with targets and with none, are each held to an fp64
+    evaluation of dx from the same x, w, lse and g under the same gate.
+    Times (bf16, LM_TIMED) beside the unfused pair torch.matmul +
+    F.cross_entropy: its forward, and its autograd (dx and dw together)
+    for both backward rows; fp32 at the same shapes for the CUDA-core
+    forward, dX and dW."""
     import torch.nn.functional as F
 
+    from apex_tpu_torch.ops import _kernel_util as ku
     from apex_tpu_torch.ops.lm_head_loss import (_lm_head_route,
                                                  lm_head_loss_bwd_dw,
                                                  lm_head_loss_bwd_dx,
@@ -1674,14 +1762,20 @@ def lm_head_phase(torch, dev):
     cases = []
     for name, n, h, v in LM_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
-            if dt == torch.float32 and name in LM_BF16_ONLY:
-                continue
             dname = str(dt).split(".")[1]
+            route = _lm_head_route(dt, h)
+            entry = ("lm_head_mma_fwd" if route == "tensor_core"
+                     else "lm_head_loss_fwd")
             x = torch.randn(n, h, device=dev, generator=gen).to(dt)
             w = (0.05 * torch.randn(v, h, device=dev, generator=gen)).to(dt)
             t = torch.randint(0, v, (n,), device=dev, generator=gen)
             g = torch.full((n,), 1.0 / n, device=dev)   # d mean / d loss
+            before = ku.launch_counts()
             lse, pred = lm_head_loss_fwd(x, w, t)
+            if ku.launch_counts().get(entry, 0) != before.get(entry, 0) + 1:
+                raise AssertionError(f"lm_head fwd {name} {dname}: launches "
+                                     f"{ku.launch_counts()}, expected one "
+                                     f"of {entry}")
             dx = lm_head_loss_bwd_dx(x, w, t, lse, g)
             dw = lm_head_loss_bwd_dw(x, w, t, lse, g)
             lse_p, pred_p = lm_head_loss_fwd_reference(x, w, t)
@@ -1718,7 +1812,15 @@ def lm_head_phase(torch, dev):
                         rtol)[1],
                     "dw_median_abs": float(dw_sp.float().abs().median())}
             del t_none, dx_s, dw_s, dx_sp, dw_sp
+            fp64 = (lm_head_fp64_check(torch, x, w, t, lse, g, atol, rtol,
+                                       tag)
+                    if name == LM_FP64 and dt == torch.float32 else None)
             for _ in range(2):
+                again = lm_head_loss_fwd(x, w, t)
+                if not (torch.equal(lse, again[0])
+                        and torch.equal(pred, again[1])):
+                    raise AssertionError(f"lm_head fwd {tag}: not bitwise "
+                                         f"equal over repeats")
                 if not torch.equal(dx, lm_head_loss_bwd_dx(x, w, t, lse, g)):
                     raise AssertionError(f"lm_head dx {tag}: not bitwise "
                                          f"equal over repeats")
@@ -1726,15 +1828,17 @@ def lm_head_phase(torch, dev):
                     raise AssertionError(f"lm_head dw {tag}: not bitwise "
                                          f"equal over repeats")
             case = {"shape": name, "dtype": dname, "rows": n, "hidden": h,
-                    "vocab": v, "route": _lm_head_route(dt, h),
+                    "vocab": v, "route": route, "fwd_entry": entry,
                     "lse_pred_tol": tol, "atol_of_row_max": atol,
-                    "rtol": rtol, "dx_bitwise_repeat": True,
-                    "dw_bitwise_repeat": True,
+                    "rtol": rtol, "fwd_bitwise_repeat": True,
+                    "dx_bitwise_repeat": True, "dw_bitwise_repeat": True,
                     "fwd": {"max_abs_err": err_fwd},
                     "dx": {"max_abs_err": err_dx, "max_row_rel_err": row_dx},
                     "dw": {"max_abs_err": err_dw, "max_row_rel_err": row_dw,
                            **dw_scale},
                     "softmax_term_only": soft}
+            if fp64 is not None:
+                case["dx_vs_fp64"] = fp64
             if name in LM_TIMED:
                 b_fwd, b_dx, b_dw = lm_head_bounds(n, h, v, x.element_size(),
                                                    dname)
@@ -2382,7 +2486,7 @@ TRAIN_LAUNCHES = {"layer_norm_fwd": 25 + 24, "layer_norm_bwd": 25,
                   "flash_mma_fwd": 12 + 12,
                   "flash_mma_bwd_dq": 12,
                   "flash_mma_bwd_dkv": 12,
-                  "lm_head_loss_fwd": 1, "lm_head_mma_bwd_dx": 1,
+                  "lm_head_mma_fwd": 1, "lm_head_mma_bwd_dx": 1,
                   "lm_head_mma_bwd_dw": 1, "fused_adam_tail": 16}
 
 
@@ -2494,8 +2598,8 @@ def bf16_gate(torch, ku, what, leaves, loss_fn):
 def train_bf16_check(torch, dev, ku):
     """The bf16 gate on GPT-2-124M (batch 2 x 1024, the default step's
     loss: full remat, fused LM-head loss): its flash forward, dQ and dK/dV
-    and its LM-head dX and dW run on the tensor cores, which the fp32
-    check does not reach."""
+    and its LM-head forward, dX and dW run on the tensor cores, which the
+    fp32 check does not reach."""
     import numpy as np
 
     from apex_tpu_torch.convert import named_leaves
@@ -2513,7 +2617,8 @@ def train_bf16_check(torch, dev, ku):
     out = bf16_gate(torch, ku, "train", leaves,
                     lambda: gpt_loss(params, tok, tgt, cfg))
     for name in ("flash_mma_fwd", "flash_mma_bwd_dq", "flash_mma_bwd_dkv",
-                 "lm_head_mma_bwd_dx", "lm_head_mma_bwd_dw"):
+                 "lm_head_mma_fwd", "lm_head_mma_bwd_dx",
+                 "lm_head_mma_bwd_dw"):
         if out["launches"].get(name, 0) != TRAIN_LAUNCHES[name]:
             raise AssertionError(f"bf16 check launches {out['launches']}")
     return {"batch": 2, "seq": 1024, **out}
@@ -2647,7 +2752,7 @@ T5_LAUNCHES = {"layer_norm_fwd": 2 * (6 * 2 + 6 * 3) + 2,
                "flash_mma_bwd_dkv": 18,
                "flash_mma_bwd_dkv[bias]": 12,
                "flash_mma_bwd_dbias": 12,
-               "lm_head_loss_fwd": 1, "lm_head_mma_bwd_dx": 1,
+               "lm_head_mma_fwd": 1, "lm_head_mma_bwd_dx": 1,
                "lm_head_mma_bwd_dw": 1, "fused_adam_tail": 39}
 
 
@@ -2717,8 +2822,8 @@ def t5_fp32_check(torch, dev, ku):
 def t5_bf16_check(torch, dev, ku):
     """The bf16 gate on T5-small (batch 2, 512 + 128 tokens, full remat,
     fused loss): its flash forward, dQ and dK/dV, with and without the
-    bias, its d(bias) and its LM-head dX and dW run on the tensor cores,
-    which the fp32 check does not reach."""
+    bias, its d(bias) and its LM-head forward, dX and dW run on the
+    tensor cores, which the fp32 check does not reach."""
     from apex_tpu_torch.convert import named_leaves
     from apex_tpu_torch.transformer.testing import (build_t5_train_step,
                                                     t5_loss)
@@ -2731,7 +2836,8 @@ def t5_bf16_check(torch, dev, ku):
     for name in ("flash_mma_fwd", "flash_mma_fwd[bias]", "flash_mma_bwd_dq",
                  "flash_mma_bwd_dq[bias]", "flash_mma_bwd_dkv",
                  "flash_mma_bwd_dkv[bias]", "flash_mma_bwd_dbias",
-                 "lm_head_mma_bwd_dx", "lm_head_mma_bwd_dw"):
+                 "lm_head_mma_fwd", "lm_head_mma_bwd_dx",
+                 "lm_head_mma_bwd_dw"):
         if out["launches"].get(name, 0) != T5_LAUNCHES[name]:
             raise AssertionError(f"bf16 T5 check launches {out['launches']}")
     return {"batch": 2, "seq_enc": T5_ENC, "seq_dec": T5_DEC, **out}
@@ -2859,15 +2965,15 @@ def main(argv=None) -> int:
     fa_cases = phase("flash_attention", ("flash_attention", "flash_mma"),
                      flash_phase, torch, dev)
     vl = phase("flash_varlen", ("flash_attention", "flash_mma",
-                                "flash_varlen"),
+                                "flash_varlen", "flash_varlen_mma"),
                varlen_phase, torch, dev)
     vl["wide"] = phase("flash_varlen_wide", ("flash_varlen",),
                        varlen_wide_phase, torch, dev)
     mk_cases = phase("megakernel", ("megakernel", "paged_attention",
                                     "layer_norm"), megakernel_phase, torch,
                      dev)
-    lm_cases = phase("lm_head_loss", ("lm_head_loss",), lm_head_phase, torch,
-                     dev)
+    lm_cases = phase("lm_head_loss", ("lm_head_loss", "lm_head_mma"),
+                     lm_head_phase, torch, dev)
     wait()
     for name, b in built.items():
         for kernel, line in ptxas_lines(b["log"]):
@@ -3167,65 +3273,112 @@ def main(argv=None) -> int:
          **rows_of("dbias", D_WIDE_BIAS_SHAPES, "float32")})
     # the packed path's kernels: launches of one bf16 causal forward plus
     # backward through FMHA; times at its shape, bf16 causal, with the
-    # bidirectional times and the dense causal flash kernels beside them
+    # bidirectional times and the dense causal flash kernels beside them.
+    # dK/dV: bf16 up to head_dim 256 on the tensor cores; the CUDA-core
+    # dK/dV now runs fp32 (launched by the fp32 FMHA run, timed fp32) and
+    # bf16 above 256 (d512)
     vc = pick(vl["cases"], dtype="bfloat16", causal=True, head_dim=PACK_D)
     vb = pick(vl["cases"], dtype="bfloat16", causal=False, head_dim=PACK_D)
     v256 = pick(vl["cases"], dtype="bfloat16", head_dim=256)
     v512 = pick(vl["cases"], dtype="bfloat16", head_dim=512)
+    vc32 = pick(vl["cases"], dtype="float32", causal=True, head_dim=PACK_D)
+    vb32 = pick(vl["cases"], dtype="float32", causal=False, head_dim=PACK_D)
     main_run = pick(fmha["runs"], dtype="bfloat16", causal=True)
+    fp32_run = pick(fmha["runs"], dtype="float32", causal=True)
+    packed = (f"packed (1, {vc['heads']}, {vc['tokens']}, {vc['head_dim']}), "
+              f"{vc['documents']} documents, causal")
+
+    def varlen_err(key, entry=None):
+        return max([c[key]["max_abs_err"] for c in vl["cases"]
+                    if entry is None or c["dkv_entry"] == entry]
+                   + [c["max_abs_err"] for c in vl["misaligned"]]
+                   + [c["max_abs_err"] for c in vl["wide"]])
+
+    def varlen_rows(key, case):
+        return {"heads": case["heads"], "causal": case["causal"],
+                **{k: case[key][k] for k in timing},
+                "tables_ms": case["tables_ms"],
+                "ms_tables_in_call": case[key]["ms_tables_in_call"]}
+
     for key, kname, line in (("fwd", "flash_varlen_fwd", 377),
-                             ("dq", "flash_varlen_bwd_dq", 414),
-                             ("dkv", "flash_varlen_bwd_dkv", 451)):
+                             ("dq", "flash_varlen_bwd_dq", 414)):
         kernels.append(
             {"name": kname, "route": "cuda",
              "source": "apex_tpu_torch/csrc/flash_varlen.cu",
              "replaces": f"apex_tpu/ops/attention_varlen.py:{line}",
              "launches": main_run["launches"][kname], "path": "fmha",
-             "shape": f"packed (1, {vc['heads']}, {vc['tokens']}, "
-                      f"{vc['head_dim']}), {vc['documents']} documents, "
-                      f"causal",
-             "max_abs_err": max(
-                 [c[key]["max_abs_err"] for c in vl["cases"]]
-                 + [c["max_abs_err"] for c in vl["misaligned"]]
-                 + [c["max_abs_err"] for c in vl["wide"]]),
+             "shape": packed, "max_abs_err": varlen_err(key),
              **{k: vc[key][k] for k in timing},
+             "tables_ms": vc["tables_ms"],
+             "ms_tables_in_call": vc[key]["ms_tables_in_call"],
              "dense_causal_flash_ms": vc[key]["dense_causal_flash_ms"],
              "ratio_to_dense_causal_flash":
                  vc[key]["ratio_to_dense_causal_flash"],
-             "bidirectional": {k: vb[key][k] for k in timing},
-             "d256": {"heads": v256["heads"], "causal": v256["causal"],
-                      **{k: v256[key][k] for k in timing}},
-             "d512": {"heads": v512["heads"], "causal": v512["causal"],
-                      **{k: v512[key][k] for k in timing}},
+             "bidirectional": varlen_rows(key, vb),
+             "d256": varlen_rows(key, v256), "d512": varlen_rows(key, v512),
              "wide": {f"d{c['head_dim']}_{c['dtype']}": c["max_abs_err"]
                       for c in vl["wide"]}})
+    vl_info = varlen_mma_kernel_info(ku, built)
+    kernels.append(
+        {"name": "flash_varlen_mma_bwd_dkv", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/flash_varlen_mma.cu",
+         "replaces": "apex_tpu/ops/attention_varlen.py:451",
+         **vl_info["dkv"],
+         "launches": main_run["launches"]["flash_varlen_mma_bwd_dkv"],
+         "path": "fmha", "shape": packed,
+         "max_abs_err": max(c["dkv"]["max_abs_err"] for c in vl["cases"]
+                            if c["dkv_entry"] == "flash_varlen_mma_bwd_dkv"),
+         "bitwise_repeat": True,
+         **{k: vc["dkv"][k] for k in timing},
+         "tables_ms": vc["tables_ms"],
+         "ms_tables_in_call": vc["dkv"]["ms_tables_in_call"],
+         "dense_causal_flash_ms": vc["dkv"]["dense_causal_flash_ms"],
+         "ratio_to_dense_causal_flash":
+             vc["dkv"]["ratio_to_dense_causal_flash"],
+         "bidirectional": varlen_rows("dkv", vb),
+         "d256": varlen_rows("dkv", v256)})
+    kernels.append(
+        {"name": "flash_varlen_bwd_dkv", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/flash_varlen.cu",
+         "replaces": "apex_tpu/ops/attention_varlen.py:451",
+         "launches": fp32_run["launches"]["flash_varlen_bwd_dkv"],
+         "path": "fmha fp32 (fp32 inputs; bf16 above head_dim 256)",
+         "shape": packed + " fp32",
+         "max_abs_err": varlen_err("dkv", "flash_varlen_bwd_dkv"),
+         **{k: vc32["dkv"][k] for k in timing},
+         "tables_ms": vc32["tables_ms"],
+         "ms_tables_in_call": vc32["dkv"]["ms_tables_in_call"],
+         "bidirectional_fp32": varlen_rows("dkv", vb32),
+         "d512": varlen_rows("dkv", v512),
+         "wide": {f"d{c['head_dim']}_{c['dtype']}": c["max_abs_err"]
+                  for c in vl["wide"]}})
     # the fused loss at the training shape (8192, 768, 50304) bf16: the
-    # forward (both types), the tensor-core dX and dW (bf16), with T5's
-    # shape beside it; the CUDA-core dX and dW now run fp32 inputs: their
-    # launches from the fp32 train check, fp32 times at the same shapes
+    # tensor-core forward, dX and dW, with T5's shape beside it; the
+    # CUDA-core forward, dX and dW now run fp32 inputs: their launches from
+    # the fp32 train check, fp32 times at the same shapes
     lm_shape = {"train": pick(lm_cases, dtype="bfloat16", shape="train"),
                 "t5": pick(lm_cases, dtype="bfloat16", shape="t5")}
     lm_fp32 = pick(lm_cases, dtype="float32", shape="train")
     lm_info = lm_mma_kernel_info(ku, built)
     t5_shape = [lm_shape["t5"][k] for k in ("rows", "hidden", "vocab")]
-    for key, kname, line, source in (
-            ("fwd", "lm_head_loss_fwd", 198, "lm_head_loss"),
-            ("dx", "lm_head_mma_bwd_dx", 244, "lm_head_mma"),
-            ("dw", "lm_head_mma_bwd_dw", 263, "lm_head_mma")):
-        where = {} if key == "fwd" else {"dtype": "bfloat16"}
+    lm_c1 = pick(lm_cases, dtype="float32", shape=LM_FP64)["dx_vs_fp64"]
+    for key, kname, line in (("fwd", "lm_head_mma_fwd", 198),
+                             ("dx", "lm_head_mma_bwd_dx", 244),
+                             ("dw", "lm_head_mma_bwd_dw", 263)):
         kernels.append(
             {"name": kname, "route": "cuda",
-             "source": f"apex_tpu_torch/csrc/{source}.cu",
+             "source": "apex_tpu_torch/csrc/lm_head_mma.cu",
              "replaces": f"apex_tpu/ops/lm_head_loss.py:{line}",
              "launches": train_launches[kname],
-             "max_abs_err": max(
-                 c[key]["max_abs_err"] for c in lm_cases
-                 if all(c[k] == v for k, v in where.items())),
+             "max_abs_err": max(c[key]["max_abs_err"] for c in lm_cases
+                                if c["dtype"] == "bfloat16"),
              **{k: lm_shape["train"][key][k] for k in timing},
              "t5": {"shape": t5_shape,
-                    **t5_entry(kname, lm_cases, key, shape="t5", **where)},
-             **lm_info.get(key, {})})
-    for key, kname, line in (("dx", "lm_head_loss_bwd_dx", 244),
+                    **t5_entry(kname, lm_cases, key, shape="t5",
+                               dtype="bfloat16")},
+             **lm_info[key]})
+    for key, kname, line in (("fwd", "lm_head_loss_fwd", 198),
+                             ("dx", "lm_head_loss_bwd_dx", 244),
                              ("dw", "lm_head_loss_bwd_dw", 263)):
         kernels.append(
             {"name": kname, "route": "cuda",
@@ -3236,7 +3389,8 @@ def main(argv=None) -> int:
              "shape": "train (8192, 768, V 50304) fp32",
              "max_abs_err": max(c[key]["max_abs_err"] for c in lm_cases
                                 if c["dtype"] == "float32"),
-             **{k: lm_fp32[key][k] for k in timing}})
+             **{k: lm_fp32[key][k] for k in timing},
+             **({"wide_vs_fp64": lm_c1} if key == "dx" else {})})
     kernels.append(
         {"name": "fused_adam_tail", "route": "cuda",
          "source": "apex_tpu_torch/csrc/fused_update.cu",
@@ -3319,11 +3473,13 @@ def main(argv=None) -> int:
               f"{c['batch']}, heads {c['heads']}, {c['sq']} x {c['sk']}, "
               f"d {c['head_dim']}, causal {c['causal']}, bias {c['bias']}):"
               f" {text}")
-    for key, info in mma_info.items():
-        print(f"tensor-core {key} HMMA/HGMMA per instantiation: "
-              f"{info['sass_hmma']}")
-        for line in info["ptxas"]:
-            print(f"  ptxas {line}")
+    for what, infos in (("flash", mma_info), ("lm_head", lm_info),
+                        ("flash_varlen", vl_info)):
+        for key, info in infos.items():
+            print(f"tensor-core {what} {key} HMMA/HGMMA per instantiation: "
+                  f"{info['sass_hmma']}")
+            for line in info["ptxas"]:
+                print(f"  ptxas {line}")
     for c in vl["cases"]:
         text = " ".join(
             f"{k} {c[k]['ms']:.4f} ms (plain {c[k]['plain_ms']:.4f}, library "
@@ -3331,10 +3487,14 @@ def main(argv=None) -> int:
             f"{c[k]['bound_by']}, dense causal flash "
             f"{c[k].get('dense_causal_flash_ms', float('nan')):.4f}) err "
             f"{c[k]['max_abs_err']:.3e}" for k in ("fwd", "dq", "dkv"))
+        text += "; tables built in the call: " + ", ".join(
+            f"{k} {c[k]['ms_tables_in_call']:.4f} ms"
+            for k in ("fwd", "dq", "dkv"))
         print(f"flash_varlen {'causal' if c['causal'] else 'bidirectional'} "
               f"{c['dtype']} (1, {c['heads']}, {c['tokens']}, "
               f"{c['head_dim']}; {c['documents']} documents, "
-              f"{c['pad_tokens']} pad): {text}")
+              f"{c['pad_tokens']} pad; dkv {c['dkv_entry']}, tables "
+              f"{c['tables_ms']:.4f} ms): {text} on {card}")
     for c in vl["misaligned"]:
         print(f"flash_varlen misaligned T={c['tokens']} causal {c['causal']} "
               f"{c['dtype']}: kernels vs plain err {c['max_abs_err']:.3e}")
@@ -3382,9 +3542,13 @@ def main(argv=None) -> int:
         for key in ("fwd", "dx", "dw"):
             c = cs[key]
             print(f"lm_head_loss {key} bf16 ({cs['rows']}, {cs['hidden']}, "
-                  f"{cs['vocab']}): {c['ms']:.3f} ms (plain "
-                  f"{c['plain_ms']:.3f}, library {c['library_ms']:.3f}, "
-                  f"bound {c['bound_ms']:.4f})")
+                  f"{cs['vocab']}): {c['ms']:.4f} ms (plain "
+                  f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, "
+                  f"bound {c['bound_ms']:.4f}) on {card}")
+    for label, e in lm_c1.items():
+        print(f"lm_head_loss dx fp32 {LM_FP64} vs fp64 ({label}): kernel "
+              f"{e['kernel_max_row_rel_err']:.3e}, plain "
+              f"{e['plain_max_row_rel_err']:.3e} of the row's max")
     for c in lm_cases:
         s = c["softmax_term_only"]
         print(f"lm_head_loss gates {c['shape']} {c['dtype']}: dx max abs err "

@@ -348,6 +348,8 @@ _TABLES = {
     "flash_attention": ("apex_tpu_torch.ops.attention", "_SIGNATURES"),
     "flash_mma": ("apex_tpu_torch.ops.attention", "_MMA_SIGNATURES"),
     "flash_varlen": ("apex_tpu_torch.ops.attention_varlen", "_SIGNATURES"),
+    "flash_varlen_mma": ("apex_tpu_torch.ops.attention_varlen",
+                         "_MMA_SIGNATURES"),
     "lm_head_loss": ("apex_tpu_torch.ops.lm_head_loss", "_SIGNATURES"),
     "lm_head_mma": ("apex_tpu_torch.ops.lm_head_loss", "_MMA_SIGNATURES"),
     "fused_update": ("apex_tpu_torch.ops.fused_update", "_SIGNATURES"),

@@ -648,6 +648,15 @@ LM_CASES = [(96, 1000, 128), (256, 512, 768), (8, 37, 256), (600, 3000, 384),
             (128, 257, 1152), (1024, 32128, 512)]   # the last: T5-small's
 
 
+def _lm_fwd_name(dtype):
+    """The forward's C entry at this dtype: the tensor-core one of
+    ``csrc/lm_head_mma.cu`` for bf16, the CUDA-core one of
+    ``csrc/lm_head_loss.cu`` for fp32."""
+    if _lm_head_route(dtype, 128) == "tensor_core":
+        return "lm_head_mma_fwd"
+    return "lm_head_loss_fwd"
+
+
 def _lm_bwd_names(dtype):
     """The C entries the dX and dW wrappers launch (and count) at this
     dtype: the tensor-core ones of ``csrc/lm_head_mma.cu`` for bf16, the
@@ -684,7 +693,7 @@ def test_lm_head_loss_kernels_match_plain(dev, dtype, n, v, h):
     _close_rows(dx, dx_p, atol, rtol, "dx")
     _close_rows(dw, dw_p, atol, rtol, "dw")
     after = ku.launch_counts()
-    for name in ("lm_head_loss_fwd", *_lm_bwd_names(dtype)):
+    for name in (_lm_fwd_name(dtype), *_lm_bwd_names(dtype)):
         assert after[name] == counts.get(name, 0) + 1
     # the softmax term alone (no target hit), which the one-hot term
     # outweighs in dx and in the hit rows of dw
@@ -751,6 +760,66 @@ def test_lm_head_mma_bitwise_repeat(dev, n, v, h):
     for _ in range(3):
         assert torch.equal(first[0], lm_head_loss_bwd_dx(x, w, t, lse, g))
         assert torch.equal(first[1], lm_head_loss_bwd_dw(x, w, t, lse, g))
+
+
+# the tensor-core forward: GPT-2-124M's and T5-small's heads, ragged rows
+# and vocab, the wide (h 2048) check, a vocab past one 128-row tile edge
+LM_FWD_CASES = [(8192, 50304, 768), (1024, 32128, 512), (96, 1000, 768),
+                (512, 1000, 2048), (200, 4100, 384), (8, 37, 256)]
+
+
+@pytest.mark.parametrize("n,v,h", LM_FWD_CASES)
+def test_lm_head_mma_fwd_matches_plain_and_repeats_bitwise(dev, n, v, h):
+    """The tensor-core forward (bf16) vs its plain version: lse, pred and
+    the loss within 2e-4 (the same bf16 products, fp32 sums in another
+    order); a target of -1 (and one past V) gives pred 0; one launch of
+    ``lm_head_mma_fwd``, none of the CUDA-core forward; the same bits on
+    every launch (the splits merged in order)."""
+    x, w, t, _ = _lm_case(dev, torch.bfloat16, n, v, h, n + v + h)
+    t[::7] = -1
+    t[1::7] = v
+    before = ku.launch_counts()
+    lse, pred = lm_head_loss_fwd(x, w, t)
+    after = ku.launch_counts()
+    assert after["lm_head_mma_fwd"] == before.get("lm_head_mma_fwd", 0) + 1
+    assert after.get("lm_head_loss_fwd", 0) == \
+        before.get("lm_head_loss_fwd", 0)
+    lse_p, pred_p = lm_head_loss_fwd_reference(x, w, t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_p, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(pred, pred_p, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(lse - pred, lse_p - pred_p, atol=2e-4,
+                               rtol=2e-4)
+    assert not bool(pred[::7].any()) and not bool(pred[1::7].any())
+    for _ in range(3):
+        again = lm_head_loss_fwd(x, w, t)
+        assert torch.equal(lse, again[0]) and torch.equal(pred, again[1])
+
+
+@pytest.mark.parametrize("targets", ["none", "random"])
+def test_lm_head_fp32_wide_dx_matches_plain_and_fp64(dev, targets):
+    """The fp32 CUDA-core dX at h 2048 (512 rows, V 1000, g = 1/n), with
+    no target hit (the softmax term alone, which cancels to a small row
+    max) and with targets: within the fp32 gate (1e-5 of the row's max
+    plus rtol 1e-4) of the plain version and of dx evaluated in fp64 from
+    the same x, w, lse and g."""
+    x, w, t, _ = _lm_case(dev, torch.float32, 512, 1000, 2048, 17)
+    if targets == "none":
+        t = torch.full_like(t, -1)
+    g = torch.full((512,), 1.0 / 512, device=dev)
+    lse, _ = lm_head_loss_fwd(x, w, t)
+    dx = lm_head_loss_bwd_dx(x, w, t, lse, g)
+    dx_p, _ = lm_head_loss_bwd_reference(x, w, t, lse, g)
+    _close_rows(dx, dx_p, 1e-5, 1e-4, "dx vs plain")
+    p = torch.exp(torch.matmul(x.double(), w.double().t())
+                  - lse.double()[:, None])
+    hit = torch.arange(1000, device=dev)[None, :] == t[:, None]
+    dx64 = torch.matmul((p - hit.double()) * g.double()[:, None],
+                        w.double())
+    err = (dx.double() - dx64).abs()
+    row_max = dx64.abs().amax(dim=1, keepdim=True)
+    assert not bool((err > 1e-5 * row_max + 1e-4 * dx64.abs()).any()), (
+        f"dx vs fp64: {float((err / row_max).max()):.3e} of the row's max")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1143,10 +1212,11 @@ def test_varlen_kernels_match_plain(dev, dtype, b, h, s, d, causal, foreign):
     """o, lse, dq, dk, dv of the three varlen kernels vs their plain
     versions at the same inputs (fp32 atol/rtol 1e-4, bf16 atol 1e-2 +
     rtol 2**-7, as flash); pad rows, an all-padding tile and a K/V tile no
-    query meets give exact zeros (lse NEG_INF on pad rows)."""
+    query meets give exact zeros (lse NEG_INF on pad rows). dK/dV runs on
+    its route (bf16 up to head_dim 256: ``flash_varlen_mma_bwd_dkv``)."""
     from apex_tpu_torch.ops.attention_varlen import (
-        NEG_INF, flash_varlen_bwd_dkv, flash_varlen_bwd_dq,
-        flash_varlen_bwd_reference, flash_varlen_fwd,
+        NEG_INF, _varlen_dkv_route, flash_varlen_bwd_dkv,
+        flash_varlen_bwd_dq, flash_varlen_bwd_reference, flash_varlen_fwd,
         flash_varlen_fwd_reference)
     q, k, v, do, seg_q, seg_k = _varlen_case(dev, dtype, b, h, s, d,
                                              s * d + b, foreign)
@@ -1177,9 +1247,106 @@ def test_varlen_kernels_match_plain(dev, dtype, b, h, s, d, causal, foreign):
     for t in (dk, dv):
         assert not bool(t[no_q.expand(-1, h, -1)].any())
     after = ku.launch_counts()
-    for name in ("flash_varlen_fwd", "flash_varlen_bwd_dq",
-                 "flash_varlen_bwd_dkv"):
+    dkv = ("flash_varlen_mma_bwd_dkv"
+           if _varlen_dkv_route(dtype, d) == "tensor_core"
+           else "flash_varlen_bwd_dkv")
+    for name in ("flash_varlen_fwd", "flash_varlen_bwd_dq", dkv):
         assert after[name] == counts.get(name, 0) + 1
+
+
+def _packed_case(dev, heads, total, d, seed):
+    """One packed row of ``total`` tokens: documents of 64-1024 tokens
+    from numpy ``seed`` until the next would overflow, then padding (-1);
+    bf16 q, k, v, dO."""
+    rng = np.random.default_rng(seed)
+    row = []
+    while True:
+        n = int(rng.integers(64, 1025))
+        if len(row) + n > total:
+            break
+        row += [len(set(row))] * n
+    seg = torch.tensor([row + [-1] * (total - len(row))], dtype=torch.int32,
+                       device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(1, heads, total, d, device=dev,
+                               generator=g).bfloat16() for _ in range(4))
+    return q, k, v, do, seg
+
+
+# the tensor-core dK/dV: packed causal and bidirectional rows at GPT-2's
+# head width, head_dim 256, and 40 (zeros past d in the D = 64 tile)
+VARLEN_MMA_CASES = [(4, 2048, 64, True), (4, 2048, 64, False),
+                    (2, 1024, 256, True), (2, 1024, 40, False)]
+
+
+@pytest.mark.parametrize("heads,total,d,causal", VARLEN_MMA_CASES)
+def test_varlen_mma_dkv_matches_plain_and_repeats_bitwise(dev, heads, total,
+                                                          d, causal):
+    """The tensor-core varlen dK/dV (bf16) vs its plain version, flash's
+    bf16 tolerance (atol 1e-2 + rtol 2**-7); pad keys get exactly 0; one
+    launch of ``flash_varlen_mma_bwd_dkv``, none of the CUDA-core dK/dV;
+    the same bits on every launch, with the tables built in the call or
+    given, in the block order or in tile order; tables without the block
+    order are refused."""
+    from apex_tpu_torch.ops.attention_varlen import (
+        _tables, flash_varlen_bwd_dkv, flash_varlen_bwd_reference,
+        flash_varlen_fwd)
+    q, k, v, do, seg = _packed_case(dev, heads, total, d, total + d)
+    args = (1 / math.sqrt(d), causal)
+    o, lse = flash_varlen_fwd(q, k, v, seg, seg, *args)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    before = ku.launch_counts()
+    dk, dv = flash_varlen_bwd_dkv(q, k, v, seg, seg, do, lse, delta, *args)
+    after = ku.launch_counts()
+    assert after["flash_varlen_mma_bwd_dkv"] == \
+        before.get("flash_varlen_mma_bwd_dkv", 0) + 1
+    assert after.get("flash_varlen_bwd_dkv", 0) == \
+        before.get("flash_varlen_bwd_dkv", 0)
+    want = flash_varlen_bwd_reference(q, k, v, seg, seg, o, lse, do, *args)
+    torch.cuda.synchronize()
+    for got, ref, name in zip((dk, dv), want[1:], ("dk", "dv")):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=2 ** -7, msg=name)
+        assert not bool(got[0][:, seg[0] < 0].any()), name
+    qr, kr, order = _tables(seg, seg, causal, True)
+    tile_order = torch.arange(order.shape[1], dtype=torch.int32,
+                              device=dev)[None].contiguous()
+    for tables in (None, (qr, kr, order), (qr, kr, tile_order)):
+        dk2, dv2 = flash_varlen_bwd_dkv(q, k, v, seg, seg, do, lse, delta,
+                                        *args, tables=tables)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    with pytest.raises(ValueError, match="block order"):
+        flash_varlen_bwd_dkv(q, k, v, seg, seg, do, lse, delta, *args,
+                             tables=(qr, kr, None))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_varlen_mma_dkv_misaligned_front_door(dev, causal):
+    """``flash_attention_varlen`` on bf16 at a total that is not a
+    multiple of the 64-row tile (1000 tokens, 4 heads of 64): one launch
+    of the tensor-core dK/dV per forward plus backward, k and v gradients
+    within the bf16 tolerance of the plain versions forced, pad keys 0."""
+    from apex_tpu_torch.ops.attention_varlen import flash_attention_varlen
+    q, k, v, do, seg = _packed_case(dev, 4, 1000, 64, 5)
+    runs = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = ku.launch_counts()
+        with ku.force_plain() if plain else contextlib.nullcontext():
+            o = flash_attention_varlen(*leaves, seg, causal=causal)
+            o.backward(do)
+        after = ku.launch_counts()
+        assert after.get("flash_varlen_mma_bwd_dkv", 0) - \
+            before.get("flash_varlen_mma_bwd_dkv", 0) == (not plain)
+        assert after.get("flash_varlen_bwd_dkv", 0) == \
+            before.get("flash_varlen_bwd_dkv", 0)
+        assert leaves[1].grad.shape == (1, 4, 1000, 64)
+        runs.append([t.grad for t in leaves[1:]])
+    for got, ref in zip(*runs):
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=2 ** -7)
+        assert not bool(got[0][:, seg[0] < 0].any())
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -1538,6 +1705,26 @@ def test_bf16_front_door_takes_the_tensor_cores(dev, bias):
     for got, ref in zip(*runs):
         torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                    rtol=2 ** -7)
+    # the fused LM-head loss and packed varlen attention on bf16: the
+    # tensor-core forward, dX and dW, and the tensor-core varlen dK/dV,
+    # none of the CUDA-core entries
+    from apex_tpu_torch.ops.attention_varlen import flash_attention_varlen
+    x, w, t, _ = _lm_case(dev, torch.bfloat16, 256, 3000, 768, 3)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    seg = torch.tensor([[0] * 100 + [1] * 150 + [-1] * 6], device=dev,
+                       dtype=torch.int32)
+    qv = q.reshape(1, 6, 128, 64).repeat(1, 1, 2, 1)
+    lv = [qv.clone().requires_grad_() for _ in range(3)]
+    before = ku.launch_counts()
+    lm_head_loss(xs, ws, t).mean().backward()
+    flash_attention_varlen(*lv, seg, causal=True).float().sum().backward()
+    after = ku.launch_counts()
+    want = {"lm_head_mma_fwd": 1, "lm_head_mma_bwd_dx": 1,
+            "lm_head_mma_bwd_dw": 1, "lm_head_loss_fwd": 0,
+            "lm_head_loss_bwd_dx": 0, "lm_head_loss_bwd_dw": 0,
+            "flash_varlen_mma_bwd_dkv": 1, "flash_varlen_bwd_dkv": 0}
+    for name, n in want.items():
+        assert after.get(name, 0) - before.get(name, 0) == n, name
 
 
 @pytest.mark.parametrize("b,heads,sq,sk,d,causal,rate,bias", MMA_CASES)

@@ -284,3 +284,177 @@ def test_varlen_cpu_tensors_take_the_plain_versions():
     assert ku.launch_counts() == before
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the dK/dV route (bf16 up to head_dim 256 on the tensor cores) and an
+# emulation of its owner-block walk
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 8, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 136, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
+    (torch.bfloat16, 264, "cuda_core"), (torch.bfloat16, 2056, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 256, "cuda_core"),
+    (torch.float32, 4096, "cuda_core")])
+def test_varlen_dkv_route(dtype, d, want):
+    """bf16 at head_dim <= 256 runs dK/dV on the tensor cores
+    (``csrc/flash_varlen_mma.cu``); fp32 at every head_dim and bf16 above
+    256 on the CUDA cores (``csrc/flash_varlen.cu``)."""
+    assert vl._varlen_dkv_route(dtype, d) == want
+
+
+@pytest.mark.parametrize("d", [36, 0, -8, 12])
+def test_varlen_dkv_route_refuses_what_no_kernel_takes(d):
+    with pytest.raises(ValueError,
+                       match=f"head_dim {d} must be a positive multiple of 8"):
+        vl._varlen_dkv_route(torch.bfloat16, d)
+
+
+@pytest.mark.parametrize("dtype,d,entry", [
+    (torch.bfloat16, 64, "flash_varlen_mma_bwd_dkv"),
+    (torch.bfloat16, 256, "flash_varlen_mma_bwd_dkv"),
+    (torch.bfloat16, 512, "flash_varlen_bwd_dkv"),
+    (torch.float32, 64, "flash_varlen_bwd_dkv")])
+def test_dkv_wrapper_launches_the_routed_entry(monkeypatch, dtype, d, entry):
+    """``flash_varlen_bwd_dkv`` launches its route's entry (``_launch``
+    stubbed: nothing runs), with the tables it is given; the tensor-core
+    entry's ctypes table has one pointer more than the CUDA-core one's
+    (the block order) and is the table ``_launch`` loads it with."""
+    seen = []
+    monkeypatch.setattr(vl, "_launch", lambda e, *a: seen.append((e, a[-1])))
+    q = torch.zeros(1, 2, 64, d, dtype=dtype)
+    seg = torch.zeros(1, 64, dtype=torch.int32)
+    row = torch.zeros(1, 2, 64, 1)
+    tables = vl._tables(seg, seg, True, "mma" in entry)
+    dk, dv = vl.flash_varlen_bwd_dkv(q, q, q, seg, seg, q, row, row, 0.1,
+                                     True, tables=tables)
+    assert dk.shape == dv.shape == q.shape
+    assert seen == [(entry, tables)]
+    assert entry in (vl._MMA_SIGNATURES if "mma" in entry
+                     else vl._SIGNATURES)
+    assert len(vl._MMA_SIGNATURES["flash_varlen_mma_bwd_dkv"]) == \
+        len(vl._SIGNATURES["flash_varlen_bwd_dkv"]) + 1
+
+
+def test_dkv_block_order_is_longest_live_range_first():
+    """``_tables``'s block order: per batch row a permutation of the K/V
+    tiles, by live q range (``ihi - ilo``) longest first, ties in tile
+    order; the tile tables are ``_tile_ranges``'s, and without
+    ``with_order`` (the CUDA-core routes) no order is built."""
+    rng = np.random.default_rng(11)
+    seg = _t(_packed_segs(rng, 2, 640, 20, 300, 60))
+    for causal in (False, True):
+        qr, kr, order = vl._tables(seg, seg, causal, True)
+        want_qr, want_kr = vl._tile_ranges(seg, seg, causal)
+        assert torch.equal(qr, want_qr) and torch.equal(kr, want_kr)
+        qr0, kr0, none = vl._tables(seg, seg, causal, False)
+        assert torch.equal(qr0, qr) and torch.equal(kr0, kr) and none is None
+        assert order.dtype == torch.int32 and order.shape == (2, 10)
+        for row in range(2):
+            assert sorted(order[row].tolist()) == list(range(10))
+            span = (kr[row, :, 3] - kr[row, :, 2]).tolist()
+            walk = order[row].tolist()
+            assert [span[t] for t in walk] == sorted(span, reverse=True)
+            for a, b in zip(walk[:-1], walk[1:]):
+                assert span[a] > span[b] or a < b
+
+
+def _dkv_owner_walk(q, k, v, seg, do, lse, delta, scale, causal):
+    """The tensor-core dK/dV's walk, emulated on the CPU: one owner per
+    (batch row, head, 64-row K/V tile), taken in ``_tables``'s block
+    order, walks exactly its live q range [ilo, ihi] of the ``kr`` table
+    in order, skips the q tiles that cannot meet it (``tiles_meet``), and
+    adds p^T dO and ds^T q into fp32 tiles, p = allowed ? exp(s − lse) : 0
+    (by value) and ds = p·(dp − delta)·scale rounded to the input type
+    before each product; a K/V tile that no q meets stays zero."""
+    b, h, s, d = q.shape
+    qr, kr, order = vl._tables(seg, seg, causal, True)
+    dk = torch.zeros(b, h, s, d)
+    dv = torch.zeros(b, h, s, d)
+
+    def meet(qi, ki, qt, kt):
+        ok = not (qi[0] > ki[1] or qi[1] < ki[0]) and qi[1] >= 0 and ki[1] >= 0
+        return ok and (not causal or kt * 64 <= qt * 64 + 63)
+
+    for bb in range(b):
+        for kt in order[bb].tolist():
+            ki = kr[bb, kt].tolist()
+            ks = slice(kt * 64, kt * 64 + 64)
+            kpos = torch.arange(kt * 64, kt * 64 + 64)
+            for hh in range(h):
+                acc_k = torch.zeros(64, d)
+                acc_v = torch.zeros(64, d)
+                for qt in range(ki[2], ki[3] + 1):
+                    if not meet(qr[bb, qt].tolist(), ki, qt, kt):
+                        continue
+                    qs = slice(qt * 64, qt * 64 + 64)
+                    qpos = torch.arange(qt * 64, qt * 64 + 64)
+                    sq, sk = seg[bb, qs], seg[bb, ks]
+                    ok = (sk[:, None] == sq[None, :]) & (sq[None, :] >= 0)
+                    if causal:
+                        ok &= kpos[:, None] <= qpos[None, :]
+                    qf, of = q[bb, hh, qs].float(), do[bb, hh, qs].float()
+                    st = k[bb, hh, ks].float() @ qf.t() * scale
+                    p = torch.where(ok, torch.exp(st - lse[bb, hh, qs, 0]),
+                                    0.0)
+                    dp = v[bb, hh, ks].float() @ of.t()
+                    ds = p * (dp - delta[bb, hh, qs, 0]) * scale
+                    acc_v += p.to(q.dtype).float() @ of
+                    acc_k += ds.to(q.dtype).float() @ qf
+                dk[bb, hh, ks] = acc_k
+                dv[bb, hh, ks] = acc_v
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dkv_owner_walk_matches_plain_version(dtype, causal):
+    """The emulated owner-block walk equals the plain dK/dV
+    (``flash_varlen_bwd_reference``) on two packed rows of 2 heads of 32
+    over 320 tokens: documents ending mid-tile and a pad tail of 70 (an
+    all-pad last tile), whose keys get exactly zero. fp32 atol 2e-5, rtol
+    1e-5; bf16 atol 1e-2 + rtol 2**-7 (p and ds rounded on both sides
+    from sums in another order)."""
+    (q, k, v, do), rng = _inputs(12, 2, 2, 320, 32)
+    seg = _packed_segs(rng, 2, 320, 30, 110, 70)
+    ts = _t(seg)
+    q, k, v, do = (_t(a).to(dtype) for a in (q, k, v, do))
+    scale = 32 ** -0.5
+    o, lse = vl.flash_varlen_fwd_reference(q, k, v, ts, ts, scale, causal)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dk, dv = _dkv_owner_walk(q, k, v, ts, do, lse, delta, scale, causal)
+    _, want_k, want_v = vl.flash_varlen_bwd_reference(q, k, v, ts, ts, o,
+                                                      lse, do, scale, causal)
+    atol, rtol = (ATOL, RTOL) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    for got, want in ((dk, want_k), (dv, want_v)):
+        assert got.dtype == dtype
+        np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=rtol)
+    pad = (ts < 0)[:, None, :].expand(-1, 2, -1)
+    for t in (dk, dv):
+        assert not bool(t[pad].any())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dkv_owner_walk_matches_jax_kernel(causal):
+    """The emulated owner-block walk against JAX's varlen dK/dV kernel
+    (``_vl_bwd_call``, interpret mode, 64-row blocks) from JAX's own o
+    and lse, fp32, one packed row of 2 heads of 32 over 192 tokens: two
+    documents ending mid-tile and a pad tail; atol 2e-5, rtol 1e-5."""
+    (q, k, v, do), _ = _inputs(13, 1, 2, 192, 32)
+    seg = np.asarray([[0] * 70 + [1] * 90 + [-1] * 32], np.int32)
+    scale = 32 ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    js = jnp.asarray(seg)
+    o_j, lse_j = jvl._vl_call(jq, jk, jv, js, js, scale, causal, 64, 64,
+                              True)
+    _, dk_j, dv_j = jvl._vl_bwd_call(jq, jk, jv, js, js, o_j, lse_j, jdo,
+                                     scale, causal, 64, 64, True)
+    o, lse = _t(np.asarray(o_j)), _t(np.asarray(lse_j))
+    delta = (_t(do) * o).sum(-1, keepdim=True)
+    dk, dv = _dkv_owner_walk(_t(q), _t(k), _t(v), _t(seg), _t(do), lse,
+                             delta, scale, causal)
+    np.testing.assert_allclose(_np(dk), np.asarray(dk_j), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(_np(dv), np.asarray(dv_j), atol=ATOL,
+                               rtol=RTOL)
