@@ -11,8 +11,8 @@
 //      (block_tables[slot, pos / bs], pos % bs): T as is, or through the
 //      comm.quantize codec (int8: absmax/127 per head vector; int4:
 //      absmax/7 per group, the scale rounded to bf16 first, nibble pairs);
-//   4. attention over pool positions 0..pos with paged_attention.cu's
-//      block walk (paged_attend.cuh); ctx cast to T;
+//   4. attention over pool positions 0..pos with paged_attend.cuh's
+//      block walk (one block per row and head); ctx cast to T;
 //   5. x1 = x + (ctx @ Wout + b), an fp32 residual, not rounded;
 //   6. LN2 of x1 in fp32, cast to T; y = gelu_tanh(h2 @ W1 + b1) in fp32,
 //      cast to T; x' = x1 + (y @ W2 + b2), cast to T.

@@ -1,7 +1,9 @@
-// The paged-attention block walk shared by csrc/paged_attention.cu (the
-// per-op kernel) and csrc/megakernel.cu (the fused layer's attention
-// phase), so both read a row's context in the same order and a fused
-// verify row computes exactly what the fused decode of that token does.
+// The paged-attention block walk of the fused layer (csrc/megakernel.cu's
+// attention phase): one block per (row, head), so a fused verify row
+// computes exactly what the fused decode of that token does. The per-op
+// kernels walk the context in splits instead (paged_split.cuh,
+// paged_attention.cu and paged_mma.cu); attend_row now serves only the
+// fused layer.
 //
 // A pool is read through a reader that turns 16 bytes of one token's
 // head vector into fp32 channels:

@@ -1,163 +1,272 @@
-// Paged decode attention for Hopper (sm_90a).
+// Paged attention on the CUDA cores, fp32, head dim d % 8 == 0 up to 256,
+// full-precision, int8 and int4 pools, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel apex_tpu/serve/decode.py `_paged_kernel`
-// (reached through `_paged_pallas`, pallas_call at decode.py:228), for
-// full-precision, int8 and int4 pools (its `quantized` / `kv_bits`
-// branches, decode.py:146-151).
+// Replaces, for fp32 queries, the TPU kernel apex_tpu/serve/decode.py
+// `_paged_kernel` (reached through `_paged_pallas`, pallas_call at
+// decode.py:228), for full-precision, int8 and int4 pools (its `quantized`
+// / `kv_bits` branches, decode.py:146-151); bf16 queries run on the tensor
+// cores (paged_mma.cu). The tensor cores would take fp32 as TF32, which
+// the fp32 gates (2e-5 a kernel, equal streams) would not survive.
 //
 // Computes, per row n and head h: softmax(q . K^T * scale) V over the
 // first ctx_lens[n] positions of the row's paged context, where position t
-// lives in pool block block_tables[n, t / bs] at offset t % bs. Scores are
-// fp32, positions >= ctx are masked with NEG_INF, the softmax is online
-// (running max, running sum, fp32 accumulator), and a row with ctx == 0
-// writes zeros (decode.py:172-174). Quantized pools are dequantized (code x
-// scale, fp32) into the same fp32 shared-memory tile the full-precision
-// pools fill (paged_attend.cuh).
+// lives in pool block block_tables[n, t / bs] at offset t % bs. Scores, p
+// and the accumulator are fp32, positions >= ctx are masked (p = 0 by
+// value), the softmax is online, a row with ctx == 0 writes zeros
+// (decode.py:172-174). Quantized pools are dequantized (code x scale,
+// fp32) into the fp32 tile the full-precision pools fill.
 //
 // Bound on this card: device memory. Every live K and V vector is read
-// once: sum(ctx) * H * D * 2 * elem_bytes over 3.35 TB/s, with elem_bytes
-// sizeof(T), 1 + 4/D (int8 + fp32 scale) or 0.5 + 2/group (int4 + bf16
-// group scale); the arithmetic is 4 operations per K/V element pair.
+// once per group of rows sharing a block table: sum over groups of the
+// group's largest ctx * H * d * 2 * elem_bytes (4; 1 + 4/d int8; 0.5 +
+// 2/group int4) over 3.35 TB/s; the arithmetic is 4 operations per K/V
+// element pair and row.
 //
-// Design (simple first):
-// * One 128-thread block per (head, row). The block reads its own
-//   block-table row and context length and walks tiles of NT = 4096 / D
-//   positions up to ctx only (paged_attend.cuh). That loop takes the place
-//   of the TPU's scalar prefetch, its dead-block clamp (decode.py:185-189)
-//   and its `pl.when(j * bs < ctx)` skip (decode.py:141).
-// * p stays fp32 (the TPU cast p to the pool type for its matrix unit).
-// * Rows are flat (slots * q), so the decode, verify and prefill-chunk
-//   programs all launch this one kernel.
-// Later work: TMA, split-K over the context, wgmma.
+// Design: the walk of paged_split.cuh, as paged_mma.cu's. One owner block
+// of 128 threads per (context split, head, tile of up to 8 rows of one
+// group: a prefill chunk's 32 rows make 4 tiles, so the chunk has enough
+// blocks for the card), the splits merged in order by a second launch,
+// counted once with this one. K/V tiles of 32 positions through a two-stage cp.async ring
+// (codes and scales for quantized pools, dequantized into one fp32 tile a
+// step after they land). Warp w scores the rows w, w + 4, ... of the tile,
+// lane i position i: one fp32 chain over the head dim (float4 reads, rows
+// padded by 16 bytes: conflict-free), then the row's online-softmax update
+// by xor-shuffles; thread (row, channel) pairs then add p V in position
+// order. Every row takes the same code path and sum orders whatever its
+// group, so its bits do not depend on the group size or the launch.
+// Instantiations D = 32, 64, 128, 256; the true d (a multiple of 8) bounds
+// the loops.
+//
+// Shared memory (D = 256): q 8 KB; full-precision K and V, two stages,
+// 130 KB; quantized: one fp32 stage of K and V 65 KB + two stages of codes
+// and scales.
 
-#include "paged_attend.cuh"
+#include "paged_split.cuh"
 
 namespace {
 
+using paged::Args;
+using paged::Layout;
+using paged::Walk;
+
 constexpr int kThreads = 128;
+constexpr int kTP = 32;   // positions of a tile: one a lane
+constexpr int kRows = 8;  // rows of a group a block takes
 
-template <typename Q, typename Pool, int D>
-__global__ void __launch_bounds__(kThreads) paged_attention_fwd_kernel(
-    const Q* __restrict__ q,               // (N, H, D)
-    const Pool kp, const Pool vp,          // one layer's pools
-    const int* __restrict__ block_tables,  // (N, mb)
-    const int* __restrict__ ctx_lens,      // (N,)
-    Q* __restrict__ out,                   // (N, H, D)
-    int heads, int pool_blocks, int bs, int mb, float scale) {
-  __shared__ float qs[D];
-  __shared__ float smem[apex::AttendSmem<kThreads, D>::kFloats];
-  const int h = blockIdx.x;
-  const long n = blockIdx.y;
-  const int tid = threadIdx.x;
-  // a context past the row's blocks attends to the blocks it has (the
-  // gathered reference's mask covers exactly mb * bs positions)
-  const int ctx = min(max(ctx_lens[n], 0), mb * bs);
-  const Q* qr = q + (n * heads + h) * D;
-  for (int d = tid; d < D; d += kThreads) qs[d] = apex::to_f(qr[d]);
-  const float o = apex::attend_row<kThreads, D>(
-      qs, kp, vp, block_tables + n * mb, ctx,
-      static_cast<long>(h) * pool_blocks * bs, bs, scale, smem);
-  if (tid < D) apex::from_f(o, &out[(n * heads + h) * D + tid]);
-}
+template <int D, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    paged_fp32_kernel(const Args a, const Layout L) {
+  constexpr int TP = kTP, LD = D + 4, R = kRows;
+  constexpr int ROWS_A_WARP = R / (kThreads / 32);
+  constexpr int ITEMS = R * D / kThreads;  // (row, channel) pairs a thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_ctx[paged::kMaxRows];
+  __shared__ int s_max;
+  __shared__ float sP[R][TP];
+  __shared__ float sCorr[R];
+  paged::let_merge_launch();
+  const Walk w = paged::walk_of(a, R, s_ctx, &s_max);
+  if (w.t_begin >= w.t_end) return;  // past every row's context
+  const int ntiles = (w.t_end - w.t_begin + TP - 1) / TP;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-template <typename Q, typename Pool>
-cudaError_t launch_pool(const Q* q, const Pool& kp, const Pool& vp,
-                        const int* block_tables, const int* ctx_lens, Q* out,
-                        int n, int heads, int head_dim, int pool_blocks,
-                        int bs, int mb, float scale, cudaStream_t stream) {
-  const dim3 grid(heads, n), block(kThreads);
-#define APEX_PAGED_CASE(DIM)                                                 \
-  case DIM:                                                                  \
-    paged_attention_fwd_kernel<Q, Pool, DIM><<<grid, block, 0, stream>>>(    \
-        q, kp, vp, block_tables, ctx_lens, out, heads, pool_blocks, bs, mb,  \
-        scale);                                                              \
-    break;
-  switch (head_dim) {
-    APEX_PAGED_CASE(32)
-    APEX_PAGED_CASE(64)
-    APEX_PAGED_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
+  float* sQ = reinterpret_cast<float*>(smem + L.q);
+  float* sK = reinterpret_cast<float*>(smem + L.k);
+  float* sV = reinterpret_cast<float*>(smem + L.v);
+  unsigned char* raw_k = smem + L.raw_k;
+  unsigned char* raw_v = smem + L.raw_v;
+  unsigned char* sc_k = smem + L.sc_k;
+  unsigned char* sc_v = smem + L.sc_v;
+  int* offs = reinterpret_cast<int*>(smem + L.offs);
+
+  paged::stage_q(sQ, D, R, a, w, a.d, tid, kThreads);
+  auto stage = [&](int kt) {
+    const int t0 = w.t_begin + kt * TP, st = kt & 1;
+    if constexpr (MODE == 0) {
+      paged::stage_fp<TP>(sK + st * TP * LD, sV + st * TP * LD, LD, a, w,
+                          t0, a.d, tid, kThreads);
+    } else {
+      paged::stage_quant<TP>(raw_k + st * TP * L.rs, raw_v + st * TP * L.rs,
+                             sc_k + st * TP * L.sw, sc_v + st * TP * L.sw,
+                             offs + st * TP, a, w, L, t0, tid, kThreads);
+    }
+  };
+  stage(0);
+  cp_async_commit();
+
+  // warp w: the online state of rows w + 4k (the same in every lane)
+  float m[ROWS_A_WARP], l[ROWS_A_WARP];
+#pragma unroll
+  for (int k = 0; k < ROWS_A_WARP; ++k) {
+    m[k] = apex::kNegInf;
+    l[k] = 0.f;
   }
-#undef APEX_PAGED_CASE
-  return cudaGetLastError();
+  // thread: the accumulators of pairs e = tid + kThreads * k, row e / D,
+  // channel e % D
+  float acc[ITEMS];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) acc[k] = 0.f;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    __syncthreads();  // every thread is done with the stage refilled next
+    if (kt + 1 < ntiles) stage(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and q) have landed
+    __syncthreads();
+    const int t0 = w.t_begin + kt * TP;
+    const float* cK = sK;
+    const float* cV = sV;
+    if constexpr (MODE == 0) {
+      cK += (kt & 1) * TP * LD;
+      cV += (kt & 1) * TP * LD;
+    } else {
+      const int st = kt & 1;
+      paged::dequant<4>(sK, LD, raw_k + st * TP * L.rs,
+                        sc_k + st * TP * L.sw, offs + st * TP, a, w, L, t0,
+                        a.d, 0, TP, tid, kThreads);
+      paged::dequant<4>(sV, LD, raw_v + st * TP * L.rs,
+                        sc_v + st * TP * L.sw, offs + st * TP, a, w, L, t0,
+                        a.d, 0, TP, tid, kThreads);
+      __syncthreads();
+    }
+
+    // scores and the online-softmax update, a warp per row
+#pragma unroll
+    for (int k = 0; k < ROWS_A_WARP; ++k) {
+      const int r = warp + 4 * k;
+      if (r >= w.rows) continue;
+      const float* qr = sQ + r * D;
+      const float* kr = cK + lane * LD;
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < D; c += 4) {
+        if (c < a.d) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + c);
+          const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+          dot = fmaf(qv.x, kv.x, dot);
+          dot = fmaf(qv.y, kv.y, dot);
+          dot = fmaf(qv.z, kv.z, dot);
+          dot = fmaf(qv.w, kv.w, dot);
+        }
+      }
+      const bool live = t0 + lane < s_ctx[r];
+      const float sv = live ? dot * a.scale : apex::kNegInf;
+      const float m_new = fmaxf(m[k], apex::warp_max(sv));
+      const float corr = expf(m[k] - m_new);
+      const float p = live ? expf(sv - m_new) : 0.f;
+      l[k] = l[k] * corr + apex::warp_sum(p);
+      m[k] = m_new;
+      sP[r][lane] = p;
+      if (lane == 0) sCorr[r] = corr;
+    }
+    __syncthreads();
+    // acc = acc * corr + sum_i p_i v_i, positions in order
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int e = tid + kThreads * k, r = e / D, c = e % D;
+      if (r < w.rows && c < a.d) {
+        float v = acc[k] * sCorr[r];
+#pragma unroll 8
+        for (int i = 0; i < TP; ++i) v = fmaf(sP[r][i], cV[i * LD + c], v);
+        acc[k] = v;
+      }
+    }
+  }
+
+  const int parts = a.splits;
+  float* ml = a.part + static_cast<long>(a.n) * a.heads * parts * a.d;
+  auto part_of = [&](int r) {
+    return ((w.row0 + r) * a.heads + blockIdx.y) * parts + blockIdx.x;
+  };
+#pragma unroll
+  for (int k = 0; k < ROWS_A_WARP; ++k) {
+    const int r = warp + 4 * k;
+    if (r < w.rows && lane == 0) {
+      ml[2 * part_of(r)] = m[k];
+      ml[2 * part_of(r) + 1] = l[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int e = tid + kThreads * k, r = e / D, c = e % D;
+    if (r < w.rows && c < a.d) a.part[part_of(r) * a.d + c] = acc[k];
+  }
 }
 
-template <typename Q>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* k_scale, const void* v_scale,
-                   const int* block_tables, const int* ctx_lens, void* out,
-                   int n, int heads, int head_dim, int pool_blocks, int bs,
-                   int mb, int kv_mode, int group, float scale,
-                   cudaStream_t s) {
-  const Q* qp = static_cast<const Q*>(q);
-  Q* op = static_cast<Q*>(out);
-  switch (kv_mode) {
-    case 0: {
-      const apex::FpPool<Q, false> kp{static_cast<const Q*>(k_pool)};
-      const apex::FpPool<Q, false> vp{static_cast<const Q*>(v_pool)};
-      return launch_pool(qp, kp, vp, block_tables, ctx_lens, op, n, heads,
-                         head_dim, pool_blocks, bs, mb, scale, s);
-    }
-    case 1: {
-      const apex::Int8Pool<false> kp{static_cast<const int8_t*>(k_pool),
-                                     static_cast<const float*>(k_scale)};
-      const apex::Int8Pool<false> vp{static_cast<const int8_t*>(v_pool),
-                                     static_cast<const float*>(v_scale)};
-      return launch_pool(qp, kp, vp, block_tables, ctx_lens, op, n, heads,
-                         head_dim, pool_blocks, bs, mb, scale, s);
-    }
-    case 2: {
-      const apex::Int4Pool<false> kp{
-          static_cast<const uint8_t*>(k_pool),
-          static_cast<const __nv_bfloat16*>(k_scale), group};
-      const apex::Int4Pool<false> vp{
-          static_cast<const uint8_t*>(v_pool),
-          static_cast<const __nv_bfloat16*>(v_scale), group};
-      return launch_pool(qp, kp, vp, block_tables, ctx_lens, op, n, heads,
-                         head_dim, pool_blocks, bs, mb, scale, s);
-    }
-    default:
-      return cudaErrorInvalidValue;
+template <int D, int MODE>
+cudaError_t launch_walk(const Args& a, cudaStream_t s) {
+  // code rows laid out for the instantiated D, scale rows for the true d
+  const Layout L = paged::make_layout(
+      kRows * D * 4, kTP * (D + 4) * 4, kTP, MODE,
+      paged::code_row_bytes(MODE, D),
+      MODE == 0 ? 0 : paged::scale_row_bytes(MODE, a.d, a.group));
+  auto kernel = paged_fp32_kernel<D, MODE>;
+  cudaError_t err = paged::allow_dynamic_smem(kernel, L.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<paged::walk_grid(a, kRows), kThreads, L.bytes, s>>>(a, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return paged::launch_merge<float>(a, s);
+}
+
+template <int MODE>
+cudaError_t launch_mode(const Args& a, cudaStream_t s) {
+  switch (paged::paged_head_dim(a.d)) {
+    case 32: return launch_walk<32, MODE>(a, s);
+    case 64: return launch_walk<64, MODE>(a, s);
+    case 128: return launch_walk<128, MODE>(a, s);
+    case 256: return launch_walk<256, MODE>(a, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // On CUDA device `device`, on `stream`:
-// q, out: (n, heads, head_dim) of q's type (is_bf16 ? bf16 : fp32), 16-byte
-// aligned. One layer's pools, pool_blocks blocks of block_size tokens:
-//   kv_mode 0: k_pool, v_pool (heads, pool_blocks, bs, head_dim) of q's
-//              type; k_scale, v_scale unused;
+// q, out: (n, heads, head_dim) fp32, 16-byte aligned. One layer's pools,
+// pool_blocks blocks of block_size tokens:
+//   kv_mode 0: k_pool, v_pool (heads, pool_blocks, bs, head_dim) fp32;
+//              k_scale, v_scale unused;
 //   kv_mode 1: int8 codes of that shape + fp32 scales (heads, pool_blocks,
 //              bs);
 //   kv_mode 2: uint8 nibble pairs (heads, pool_blocks, bs, head_dim / 2) +
 //              bf16 scales (heads, pool_blocks, bs, head_dim / group).
-// block_tables: (n, max_blocks) int32 of ids < pool_blocks; ctx_lens: (n,)
-// int32. head_dim in {32, 64, 128}; n <= 65535.
+// block_tables: (n, max_blocks) int32 of ids < pool_blocks, read at the
+// first row of each group of rows_per_table rows (n % rows_per_table ==
+// 0); ctx_lens: (n,) int32. part: fp32 scratch of n * heads * splits *
+// (head_dim + 2) floats. splits * split_len covers max_blocks * block_size,
+// split_len a multiple of 64. head_dim % 8 == 0, 8 <= head_dim <= 256.
 extern "C" int paged_attention_fwd(int device, const void* q,
                                    const void* k_pool, const void* v_pool,
                                    const void* k_scale, const void* v_scale,
                                    const void* block_tables,
-                                   const void* ctx_lens, void* out, int n,
-                                   int heads, int head_dim, int pool_blocks,
+                                   const void* ctx_lens, void* out,
+                                   void* part, int n, int heads,
+                                   int head_dim, int pool_blocks,
                                    int block_size, int max_blocks,
-                                   int kv_mode, int group, float scale,
-                                   int is_bf16, void* stream) {
+                                   int kv_mode, int group,
+                                   int rows_per_table, int splits,
+                                   int split_len, float scale,
+                                   void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (head_dim % 8 || rows_per_table <= 0 || n % rows_per_table ||
+      split_len % kB || splits <= 0 || splits > paged::kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pool, v_pool, k_scale, v_scale,
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(ctx_lens), out,
+               static_cast<float*>(part), n, heads, head_dim, pool_blocks,
+               block_size, max_blocks, kv_mode, group, rows_per_table,
+               splits, split_len, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* lens = static_cast<const int*>(ctx_lens);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k_pool, v_pool, k_scale, v_scale,
-                                      bt, lens, out, n, heads, head_dim,
-                                      pool_blocks, block_size, max_blocks,
-                                      kv_mode, group, scale, s)
-              : launch<float>(q, k_pool, v_pool, k_scale, v_scale, bt, lens,
-                              out, n, heads, head_dim, pool_blocks,
-                              block_size, max_blocks, kv_mode, group, scale,
-                              s);
+  cudaError_t err;
+  switch (kv_mode) {
+    case 0: err = launch_mode<0>(a, s); break;
+    case 1: err = launch_mode<1>(a, s); break;
+    case 2: err = launch_mode<2>(a, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -39,10 +39,10 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 # every kernel source of the port, by name (csrc/<name>.cu)
-KERNEL_SOURCES = ("layer_norm", "paged_attention", "flash_attention",
-                  "flash_mma", "flash_varlen", "flash_varlen_mma",
-                  "lm_head_loss", "lm_head_mma", "fused_update",
-                  "megakernel", "quantize")
+KERNEL_SOURCES = ("layer_norm", "paged_attention", "paged_mma",
+                  "flash_attention", "flash_mma", "flash_varlen",
+                  "flash_varlen_mma", "lm_head_loss", "lm_head_mma",
+                  "fused_update", "megakernel", "quantize")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

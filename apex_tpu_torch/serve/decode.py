@@ -6,9 +6,17 @@ Two halves:
 * **paged attention** — :func:`paged_attention_reference`, the plain
   version (gather through the block tables, dequantizing int8/int4 pools,
   then ``attention_reference`` with a ``kpos >= ctx`` mask; ctx == 0 rows
-  are zeros, as in the kernel), and :func:`paged_attention_fwd`, the
-  wrapper of the CUDA gather-attend kernel ``csrc/paged_attention.cu``. :func:`paged_attention` takes the
-  plain version for CPU tensors and the kernel for CUDA tensors.
+  are zeros, as in the kernels), and :func:`paged_attention_fwd`, the
+  wrapper of the CUDA kernels. :func:`_paged_route` picks them: bf16 on
+  the tensor cores (``csrc/paged_mma.cu``, counted as ``paged_mma_fwd``),
+  fp32 on the CUDA cores (``csrc/paged_attention.cu``,
+  ``paged_attention_fwd``), every head_dim % 8 == 0 up to
+  :data:`PAGED_MAX_HEAD_DIM`. Both walk the context in splits of a length
+  :func:`_paged_splits` takes from the block table's capacity alone, rows
+  of one group (``rows_per_table``) sharing each K/V tile, and merge the
+  splits in order (:func:`paged_attention_split_reference` is the plain
+  emulation). :func:`paged_attention` takes the plain version for CPU
+  tensors and the kernels for CUDA tensors.
 
 * **serve programs** — :func:`gpt_paged_forward` runs q tokens per slot
   against the paged cache (per-row math independent of q); the engine's
@@ -37,18 +45,24 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _kernel_util as ku
-from apex_tpu_torch.ops.attention import attention_reference
+from apex_tpu_torch.ops.attention import NEG_INF, attention_reference
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, _dequant_rows_int4,
                                            gather_kv, paged_write)
 
 Params = Dict[str, Any]
 
-_SIGNATURES = {
-    "paged_attention_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 8
-    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-}
-_HEAD_DIMS = (32, 64, 128)
+_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+         + [ctypes.c_float, ctypes.c_void_p])
+_SIGNATURES = {"paged_attention_fwd": _ARGS}
+_MMA_SIGNATURES = {"paged_mma_fwd": _ARGS}
+# entry -> (csrc/<source>.cu, its ctypes table)
+_ROUTES = {"paged_mma_fwd": ("paged_mma", _MMA_SIGNATURES),
+           "paged_attention_fwd": ("paged_attention", _SIGNATURES)}
+PAGED_MAX_HEAD_DIM = 256
+PAGED_TILE = 64           # positions of the tensor-core kernel's K/V tile
+_SPLIT_MIN_TILES = 2      # a split walks at least two tiles ...
+_SPLITS_MAX = 64          # ... and a table at most this many splits
 GEMM_ROW_TILE = 64
 
 
@@ -118,22 +132,127 @@ def check_pools(what: str, cache_layer, cfg: KVCacheConfig, device,
                              f"{device}, got {got}")
 
 
+def _paged_route(dtype, d: int) -> str:
+    """The kernel entry that runs paged attention for ``dtype`` queries of
+    head dim ``d`` on the card: ``paged_mma_fwd`` (bf16, tensor cores) or
+    ``paged_attention_fwd`` (fp32, CUDA cores: the tensor cores would take
+    fp32 as TF32). Both take every d % 8 == 0 up to
+    :data:`PAGED_MAX_HEAD_DIM`; anything else raises."""
+    ku.require(dtype in (torch.float32, torch.bfloat16),
+               f"paged attention takes fp32 or bf16 queries, got {dtype}")
+    ku.require(d > 0 and d % 8 == 0,
+               f"paged attention: head_dim {d} is not a multiple of 8 (the "
+               f"kernels take d % 8 == 0, as JAX's gate)")
+    ku.require(d <= PAGED_MAX_HEAD_DIM,
+               f"paged attention: head_dim {d} is above the kernels' limit "
+               f"of {PAGED_MAX_HEAD_DIM}")
+    return "paged_mma_fwd" if dtype == torch.bfloat16 else \
+        "paged_attention_fwd"
+
+
+def _paged_splits(capacity: int) -> Tuple[int, int]:
+    """``(splits, positions a split covers)`` for a block table of
+    ``capacity`` = max_blocks · block_size positions: splits of at least
+    two 64-position tiles, at most :data:`_SPLITS_MAX` of them. A function
+    of the capacity alone, never of the row count or the groups, so a
+    token's partials start at the same positions in a decode, verify or
+    prefill call."""
+    tiles = max(1, -(-capacity // PAGED_TILE))
+    per = max(_SPLIT_MIN_TILES, -(-tiles // _SPLITS_MAX))
+    return -(-tiles // per), per * PAGED_TILE
+
+
+def _check_groups(n: int, rows_per_table: int) -> None:
+    ku.require(rows_per_table >= 1 and n % rows_per_table == 0,
+               f"paged attention: {n} rows are not whole groups of "
+               f"rows_per_table={rows_per_table}")
+
+
+def paged_attention_split_reference(q, cache_layer, cfg: KVCacheConfig,
+                                    block_tables, ctx_lens,
+                                    scale: Optional[float] = None, *,
+                                    rows_per_table: int = 1, parts: int = 1):
+    """The plain emulation of the kernels' walk: each row reads the block
+    table of its group's first row, its context is cut into
+    :func:`_paged_splits` splits, each split into ``parts`` parts (4: the
+    tensor-core kernel's warps, a quarter of every 64-position tile each),
+    every part gives (m, l, acc) in fp32, a split's parts merge in order,
+    then the row's live splits in order. Returns (n, H, D) in q.dtype,
+    zeros where ctx == 0. Each row is computed alone, at shapes that do
+    not depend on n or the groups."""
+    n, h, d = q.shape
+    _check_groups(n, rows_per_table)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    mb = block_tables.shape[1]
+    cap = mb * cfg.block_size
+    splits, split_len = _paged_splits(cap)
+    tables = block_tables[(torch.arange(n) // rows_per_table
+                           * rows_per_table).to(block_tables.device)]
+    k_all, v_all = gather_kv(cache_layer, cfg, tables)    # (n, H, cap, D)
+    pad = splits * split_len - cap
+    k_all = F.pad(k_all.float(), (0, 0, 0, pad))
+    v_all = F.pad(v_all.float(), (0, 0, 0, pad))
+    j = torch.arange(split_len, device=q.device)
+    part_of = (j % PAGED_TILE) // (PAGED_TILE // parts)
+    pos = torch.arange(splits * split_len, device=q.device).reshape(
+        splits, split_len)
+    out = torch.zeros_like(q)
+    for i in range(n):
+        c = min(max(int(ctx_lens[i]), 0), cap)
+        if c == 0:
+            continue
+        kk = k_all[i].reshape(h, splits, split_len, d)
+        vv = v_all[i].reshape(h, splits, split_len, d)
+        s = (q[i].float()[:, None, None, :] * kk).sum(-1) * scale
+        ms, ls, accs = [], [], []
+        for w in range(parts):
+            live = (part_of == w)[None, :] & (pos < c)       # (splits, SL)
+            sw = torch.where(live, s, NEG_INF)
+            m = sw.amax(-1)                                   # (H, splits)
+            p = torch.where(live, torch.exp(sw - m[..., None]), 0.0)
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append((p[..., None] * vv).sum(-2))          # (H, S, D)
+        # a split's parts merge first, in part order; then the row's live
+        # splits, in split order
+        m_s = torch.stack(ms).amax(0)                     # (H, splits)
+        l_s = torch.zeros_like(m_s)
+        acc_s = torch.zeros_like(accs[0])
+        for m, l, acc in zip(ms, ls, accs):
+            wgt = torch.exp(m - m_s)
+            l_s = l_s + l * wgt
+            acc_s = acc_s + acc * wgt[..., None]
+        live = -(-c // split_len)
+        mx = m_s[:, :live].amax(-1)
+        tot_l = torch.zeros(h, device=q.device)
+        tot = torch.zeros(h, d, device=q.device)
+        for si in range(live):
+            wgt = torch.exp(m_s[:, si] - mx)
+            tot_l = tot_l + l_s[:, si] * wgt
+            tot = tot + acc_s[:, si] * wgt[:, None]
+        out[i] = (tot / tot_l[:, None]).to(q.dtype)
+    return out
+
+
 def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
-                        ctx_lens, scale: float):
-    """Launch the paged-attention kernel on CUDA tensors. ``q`` (n, H, D)
-    contiguous, fp32 or bf16; one layer's pools as ``cfg`` lays them out
-    (full-precision pools in q's dtype; int8 codes + fp32 scales; int4
-    nibble pairs + bf16 group scales); ``block_tables`` (n, max_blocks) and
-    ``ctx_lens`` (n,) integer. A context longer than the row's blocks
-    attends to the blocks it has."""
+                        ctx_lens, scale: float, *, rows_per_table: int = 1):
+    """Launch the paged-attention kernel :func:`_paged_route` picks on
+    CUDA tensors (and the merge of its splits; one count under the entry's
+    name). ``q`` (n, H, D) contiguous, fp32 or bf16; one layer's pools as
+    ``cfg`` lays them out (full-precision pools in q's dtype; int8 codes +
+    fp32 scales; int4 nibble pairs + bf16 group scales); ``block_tables``
+    (n, max_blocks) and ``ctx_lens`` (n,) integer. The rows [i·g, (i+1)·g)
+    of a group (g = ``rows_per_table``, n % g == 0) share block-table row
+    i·g, which the kernel reads for all of them (the other rows of the
+    group are not read). A context longer than the row's blocks attends to
+    the blocks it has."""
     ku.require(q.is_cuda and q.dim() == 3,
                f"paged_attention_fwd takes a 3-d CUDA q, got {q.device} "
                f"{tuple(q.shape)}")
     n, h, d = q.shape
-    ku.require(q.dtype in (torch.float32, torch.bfloat16),
-               f"paged_attention_fwd takes fp32 or bf16, got {q.dtype}")
-    ku.require(d in _HEAD_DIMS,
-               f"paged_attention_fwd: head_dim {d} not in {_HEAD_DIMS}")
+    entry = _paged_route(q.dtype, d)
+    _check_groups(n, rows_per_table)
     ku.require(h == cfg.num_heads and d == cfg.head_dim,
                f"paged_attention_fwd: q ({h} heads x {d}) does not match "
                f"the cache ({cfg.num_heads} x {cfg.head_dim})")
@@ -153,33 +272,42 @@ def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
     bt = block_tables.to(torch.int32).contiguous()
     lens = ctx_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    source, table = _ROUTES[entry]
+    splits, split_len = _paged_splits(bt.shape[1] * cfg.block_size)
+    part = torch.empty(n * h * splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
     kp, vp = cache_layer["k"], cache_layer["v"]
     ks, vs = cache_layer.get("k_scale"), cache_layer.get("v_scale")
-    lib = ku.load_kernel("paged_attention", _SIGNATURES)
-    status = lib.paged_attention_fwd(
+    lib = ku.load_kernel(source, table)
+    status = getattr(lib, entry)(
         q.device.index, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         None if ks is None else ks.data_ptr(),
         None if vs is None else vs.data_ptr(), bt.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), n, h, d, kp.shape[1],
-        cfg.block_size, bt.shape[1], kv_mode(cfg), cfg.kv_group,
-        float(scale), int(q.dtype == torch.bfloat16), ku.stream_handle(q))
-    ku.count_launch("paged_attention_fwd")
-    ku.check_status(lib, status, "paged_attention_fwd")
+        lens.data_ptr(), out.data_ptr(), part.data_ptr(), n, h, d,
+        kp.shape[1], cfg.block_size, bt.shape[1], kv_mode(cfg),
+        cfg.kv_group, rows_per_table, splits, split_len, float(scale),
+        ku.stream_handle(q))
+    ku.count_launch(entry)
+    ku.check_status(lib, status, entry)
     return out
 
 
 def paged_attention(q, cache_layer, cfg: KVCacheConfig, block_tables,
-                    ctx_lens, scale: Optional[float] = None):
-    """The plain version for CPU tensors, the kernel for CUDA tensors
-    (raises on a shape the kernel does not take). Same result as
-    :func:`paged_attention_reference`."""
+                    ctx_lens, scale: Optional[float] = None, *,
+                    rows_per_table: int = 1):
+    """The plain version for CPU tensors, the kernels for CUDA tensors
+    (raises on a shape they do not take). Same result as
+    :func:`paged_attention_reference`, which ignores ``rows_per_table``:
+    rows [i·g, (i+1)·g) share block-table row i·g (n % g == 0), so the
+    kernels read each K/V tile once for the group."""
+    _check_groups(q.shape[0], rows_per_table)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not ku.use_kernel(q):
         return paged_attention_reference(q, cache_layer, cfg, block_tables,
                                          ctx_lens, scale=scale)
     return paged_attention_fwd(q, cache_layer, cfg, block_tables, ctx_lens,
-                               scale)
+                               scale, rows_per_table=rows_per_table)
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +409,7 @@ def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
                     v.reshape(n * q, heads, hd).transpose(0, 1), bt_rows,
                     pos_flat, valid_flat)
         ctx = paged_attention(qh.reshape(n * q, heads, hd).contiguous(), cl,
-                              kv_cfg, bt_rows, ctx_lens)
+                              kv_cfg, bt_rows, ctx_lens, rows_per_table=q)
         ctx = ctx.reshape(n, q, heads * hd)
         x = x + _dense(ctx, lp["out_kernel"], lp["out_bias"])
         h2 = layer_norm(x, lp["ln2_w"], lp["ln2_b"])

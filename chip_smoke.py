@@ -10,10 +10,16 @@
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    fp32 and bf16, with the tolerance stated; times of kernel, plain version
    and the nearest library call, and each kernel's bound:
-   * LayerNorm forward and paged attention at the serving path's shapes
-     (``F.layer_norm``; SDPA over pre-gathered K/V), paged attention also
-     over int8 and int4 pools, and LayerNorm forward with its mean/rstd
-     at the training paths' (GPT's (8192, 768), T5's (4096 | 1024, 512));
+   * LayerNorm forward at the serving path's shapes (``F.layer_norm``)
+     and with its mean/rstd at the training paths' (GPT's (8192, 768),
+     T5's (4096 | 1024, 512));
+   * paged attention on its route (bf16 on the tensor cores,
+     ``paged_mma_fwd``; fp32 on the CUDA cores, ``paged_attention_fwd``)
+     at the serve programs' calls: decode (8 rows; 32 too), verify (8
+     slots x 5 rows) and a prefill chunk (1 slot x 32 rows), full-
+     precision, int8 and int4 pools (SDPA over each slot's K/V gathered
+     beforehand); head_dim 80, 96 and 256 checked; the same rows as
+     groups of 32, 5 and 1, and a repeat, bitwise equal;
    * the fused layer (the megakernel) for one GPT-2-124M layer, decode (8
      rows) and verify (8 x 5 rows), fp32 and bf16, fp / int8 / int4
      pools: x', K, V and fp pools within tolerance of its plain version,
@@ -109,9 +115,16 @@
      equal streams; the launches of one decode and one verify call
      (megakernel 12, LayerNorm 1, no paged attention); int8 and int4
      pools with ``spec_k`` 0 and 4 (equal streams, tokens/s, pool bytes);
-     the per-op path with its launches;
+     the per-op path with its launches; the main path's prefill chunks
+     launch ``paged_mma_fwd`` (fp32's ``paged_attention_fwd``);
    * where a steady-state bf16 step's time goes (torch.profiler), fused
-     and per-op: the card's busy share and the top kernels.
+     and per-op: the card's busy share and the top kernels; and where a
+     per-op prefill chunk's goes (host ms, device busy ms, the paged
+     kernels' share);
+   * a GPT of head_dim 80 (12 x 80, hidden 960, 2 layers, 4 requests):
+     the fused layer refuses it, ``megakernel="auto"`` serves through the
+     per-op path; fp32 streams equal to the plain versions', bf16 through
+     ``paged_mma_fwd``.
 4. Train phase: GPT-2-124M at full width and depth, full remat, the JAX
    defaults ``fused_loss=True`` and ``FusedAdam(lr=1e-4,
    fused_tail="auto")``:
@@ -390,6 +403,16 @@ def varlen_mma_kernel_info(ku, built):
         "dkv": ("varlen_mma_dkv_kernel", 4, "varlen_mma_dkv_kernel")})
 
 
+def paged_mma_kernel_info(ku, built):
+    """The tensor-core paged attention (``csrc/paged_mma.cu``, 12
+    instantiations: D 32-256 x full-precision, int8 and int4 pools)."""
+    counts = sass_hmma_counts(
+        ku, "paged_mma", r"(paged_mma_kernel)ILi(\d+)ELi(\d+)E",
+        lambda m: f"{m.group(1)}[{m.group(2)}, {m.group(3)}]")
+    return tensor_core_info(ku, built, "paged_mma", counts, {
+        "fwd": ("paged_mma_kernel", 12, "paged_mma_kernel")})
+
+
 def start_builds(ku):
     """Start one ``nvcc`` per kernel source, all together, each from its
     own thread, so a phase can begin once its sources are built while a
@@ -534,90 +557,181 @@ def paged_draws():
     return out
 
 
+# the per-op serve calls' row groups: decode (8 slots x 1 row), verify (8
+# slots x spec_k + 1 = 5 rows) and a prefill chunk (1 slot x 32 rows)
+PAGED_KINDS = {"decode": (8, 1), "verify": (8, 5), "prefill": (1, 32)}
+PAGED_HEAD_DIMS = (80, 96, 256)    # checked beside the serving 64
+
+
+def paged_case(torch, dev, dt, mode, kind, hd=SERVE_HD, rows=None):
+    """One paged-attention call of a serve program at the serving shapes
+    (12 heads, block 16, 1024 positions a slot): ``decode`` the 8 (or
+    ``rows``) rows of ``paged_draws`` (an idle row, a full one); ``verify``
+    8 slots' next 5 positions from lengths of numpy seed 1, slot 0 idle;
+    ``prefill`` one slot's chunk of 32 rows, contexts 481-512. Pools of
+    random K/V, quantized through the plain codec. Returns (q, pools, cfg,
+    block-table rows, contexts, group size, slot tables)."""
+    import numpy as np
+
+    from apex_tpu_torch.serve.kv_cache import KVCacheConfig
+
+    dname = str(dt).split(".")[1]
+    heads, bs, cap = SERVE_HEADS, SERVE_BS, SERVE_CTX
+    mb = cap // bs
+    slots, g = PAGED_KINDS[kind]
+    if kind == "decode":
+        ctx, tables = paged_draws()[(dname, rows or slots)]
+        slots = len(ctx)
+    else:
+        rng = np.random.default_rng(1)
+        tables = rng.permutation(slots * mb).reshape(slots, mb)
+        if kind == "verify":
+            seq = rng.integers(1, cap - g, slots)
+            ctx = (seq[:, None] + np.arange(1, g + 1)[None, :])
+            ctx[0] = 0
+        else:
+            ctx = 480 + np.arange(1, g + 1)[None, :]
+        ctx = ctx.reshape(-1)
+    blocks = slots * mb
+    cfg = KVCacheConfig(num_layers=1, num_heads=heads, head_dim=hd,
+                        num_blocks=blocks, block_size=bs, dtype=dt,
+                        **KV_MODES[mode])
+    bt_t = torch.from_numpy(tables.astype(np.int32)).to(dev)
+    seed = slots * g + hd
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if mode == "none":
+        pools = {k: torch.randn(heads, blocks + 1, bs, hd, device=dev,
+                                generator=gen).to(dt) for k in "kv"}
+    else:
+        pools = quant_pools(torch, dev, cfg, bt_t, seed=seed)
+    q = torch.randn(slots * g, heads, hd, device=dev, generator=gen).to(dt)
+    ctx_t = torch.from_numpy(np.asarray(ctx, np.int32)).to(dev)
+    return (q, pools, cfg, bt_t.repeat_interleave(g, dim=0), ctx_t, g,
+            bt_t)
+
+
 def paged_attention_phase(torch, dev):
-    """The paged kernel against its plain version at the serving path's
-    shapes (12 heads of 64, block 16, contexts up to 1024, a ctx == 0 row
-    and a full row): full-precision pools at 8 and 32 rows, int8 and int4
-    pools (codes written through the plain codec) at 8 rows, fp32 and
-    bf16 q. The plain version dequantizes into the model dtype (JAX's
-    gather) where the kernel stays fp32, so bf16 with quantized pools is
-    held at atol 1e-2. Bound: live·H·D·2·elem_bytes (1 + 4/D for int8, 0.5
-    + 2/D for int4 at group D) + q and out + tables."""
+    """Paged attention against its plain version on its route
+    (``_paged_route``: bf16 ``paged_mma_fwd`` on the tensor cores, fp32
+    ``paged_attention_fwd``), fp32 and bf16 q, full-precision / int8 /
+    int4 pools, at the serve programs' calls (``PAGED_KINDS``: decode at 8
+    rows, and 32 for full-precision pools; verify 8 x 5; a prefill chunk 1
+    x 32, ``rows_per_table`` as ``paged_layer_stack`` passes it), timed
+    beside the plain version and SDPA (one call over each slot's K/V,
+    gathered and dequantized beforehand, a per-row context mask); every
+    route checked at head_dim 80, 96 and 256 (verify); the same rows
+    launched as groups of 32, 5 and 1 bitwise equal, and repeats bitwise.
+    Tolerances: fp32 (2e-5, 1e-4); bf16 (1e-3, 8e-3) with full-precision
+    pools and (1e-2, 8e-3) with quantized ones (the plain version
+    dequantizes into the model dtype). Bound: each slot's live K/V read
+    once (its largest context) + q and o + tables, or 4·Σctx·H·D
+    operations."""
     import numpy as np
     import torch.nn.functional as F
 
-    from apex_tpu_torch.serve.decode import (paged_attention_fwd,
+    from apex_tpu_torch.serve.decode import (_paged_route,
+                                             paged_attention_fwd,
                                              paged_attention_reference)
-    from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, _elem_bytes,
-                                               gather_kv)
+    from apex_tpu_torch.serve.kv_cache import _elem_bytes, gather_kv
 
-    heads, hd, bs, max_ctx = SERVE_HEADS, SERVE_HD, SERVE_BS, SERVE_CTX
-    mb = max_ctx // bs
-    scale = 1.0 / math.sqrt(hd)
     tol = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 8e-3)}
     quant_tol = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 8e-3)}
-    draws = paged_draws()
-    gen = torch.Generator(device=dev).manual_seed(1)
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    cases = []
+    out = {"cases": [], "head_dims": [], "bitwise": []}
+
+    def check(tag, dt, mode, kind, hd=SERVE_HD, rows=None):
+        q, pools, cfg, bt, ctx, g, tables = paged_case(torch, dev, dt, mode,
+                                                       kind, hd, rows)
+        dname = str(dt).split(".")[1]
+        scale = 1.0 / math.sqrt(hd)
+        got = paged_attention_fwd(q, pools, cfg, bt, ctx, scale,
+                                  rows_per_table=g)
+        want = paged_attention_reference(q, pools, cfg, bt, ctx,
+                                         scale=scale)
+        torch.cuda.synchronize()
+        atol, rtol = (tol if mode == "none" else quant_tol)[dname]
+        err = check_close(f"{tag} {kind} {mode} {dname} d={hd}", got, want,
+                          atol, rtol)
+        idle = ctx == 0
+        if bool(idle.any()) and bool(got[idle].abs().max() != 0):
+            raise AssertionError(f"{tag}: a ctx == 0 row is not zeros")
+        rec = {"kind": kind, "dtype": dname, "kv": mode, "rows": q.shape[0],
+               "rows_per_table": g, "heads": SERVE_HEADS, "head_dim": hd,
+               "block_size": SERVE_BS, "entry": _paged_route(dt, hd),
+               "ctx_sum": int(ctx.sum()), "ctx_max": int(ctx.max()),
+               "max_abs_err": err, "atol": atol, "rtol": rtol}
+        return rec, (q, pools, cfg, bt, ctx, g, tables, scale)
+
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        for mode, n in (("none", 8), ("none", 32), ("int8", 8),
-                        ("int4", 8)):
-            blocks = n * mb
-            cfg = KVCacheConfig(num_layers=1, num_heads=heads, head_dim=hd,
-                                num_blocks=blocks, block_size=bs, dtype=dt,
-                                **KV_MODES[mode])
-            ctx, bt = draws[(dname, n)]
-            bt_t = torch.from_numpy(bt).to(dev)
-            if mode == "none":
-                pools = {k: torch.randn(heads, blocks + 1, bs, hd,
-                                        device=dev, generator=gen).to(dt)
-                         for k in "kv"}
-            else:
-                pools = quant_pools(torch, dev, cfg, bt_t, seed=n)
-            q = torch.randn(n, heads, hd, device=dev, generator=gen).to(dt)
-            ctx_t = torch.from_numpy(ctx.astype(np.int32)).to(dev)
-            got = paged_attention_fwd(q, pools, cfg, bt_t, ctx_t, scale)
-            want = paged_attention_reference(q, pools, cfg, bt_t, ctx_t,
-                                             scale=scale)
-            torch.cuda.synchronize()
-            atol, rtol = (tol if mode == "none" else quant_tol)[dname]
-            err = check_close(f"paged_attention_fwd {mode} {dname} n={n}",
-                              got, want, atol, rtol)
-            if bool(got[0].abs().max() != 0):
-                raise AssertionError("paged_attention_fwd: ctx == 0 row is "
-                                     "not zeros")
-            # library yardstick: SDPA over K/V gathered (and dequantized)
-            # beforehand
-            k_all, v_all = gather_kv(pools, cfg, bt_t)
-            kpos = torch.arange(max_ctx, device=dev)
-            keep = (kpos[None, None, None, :] < ctx_t[:, None, None, None])
-            qs = q[:, :, None]
+        for kind, mode, rows in (
+                ("decode", "none", 8), ("decode", "none", 32),
+                ("decode", "int8", 8), ("decode", "int4", 8),
+                *((k, m, None) for k in ("verify", "prefill")
+                  for m in ("none", "int8", "int4"))):
+            rec, (q, pools, cfg, bt, ctx, g, tables, scale) = check(
+                "paged attention", dt, mode, kind, rows=rows)
+            slots = tables.shape[0]
+            k_all, v_all = gather_kv(pools, cfg, tables)
+            qs = q.reshape(slots, g, SERVE_HEADS, SERVE_HD).transpose(1, 2)
+            kpos = torch.arange(SERVE_CTX, device=dev)
+            keep = kpos[None, None, None, :] < ctx.reshape(slots, 1, g, 1)
+            live = int(ctx.reshape(slots, g).max(1).values.sum())
             esz = q.element_size()
-            live = int(ctx.sum())
             bms, by = bound_ms(
-                live * heads * hd * 2 * _elem_bytes(cfg)
-                + 2 * n * heads * hd * esz + n * mb * 4 + n * 4,
-                4.0 * live * heads * hd, dname)
-            cases.append({
-                "dtype": dname, "kv": mode, "rows": n, "heads": heads,
-                "head_dim": hd, "block_size": bs, "ctx_sum": live,
-                "ctx_max": int(ctx.max()), "max_abs_err": err,
-                "atol": atol, "rtol": rtol,
-                "ms": time_ms(torch, lambda: paged_attention_fwd(
-                    q, pools, cfg, bt_t, ctx_t, scale),
+                live * SERVE_HEADS * SERVE_HD * 2 * _elem_bytes(cfg)
+                + 2 * q.numel() * esz + tables.numel() * 4 + ctx.numel() * 4,
+                4.0 * rec["ctx_sum"] * SERVE_HEADS * SERVE_HD, dname)
+            rec.update(
+                live_slot_positions=live,
+                ms=time_ms(torch, lambda: paged_attention_fwd(
+                    q, pools, cfg, bt, ctx, scale, rows_per_table=g),
                     flush=flush_buf.zero_),
-                "plain_ms": time_ms(torch, lambda: paged_attention_reference(
-                    q, pools, cfg, bt_t, ctx_t, scale=scale),
+                plain_ms=time_ms(torch, lambda: paged_attention_reference(
+                    q, pools, cfg, bt, ctx, scale=scale),
                     flush=flush_buf.zero_),
-                "library_ms": time_ms(
+                library_ms=time_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         qs, k_all, v_all, attn_mask=keep, scale=scale),
                     flush=flush_buf.zero_),
-                "bound_ms": bms, "bound_by": by})
+                bound_ms=bms, bound_by=by)
+            out["cases"].append(rec)
             del pools, k_all, v_all
-    return cases
+        for hd in PAGED_HEAD_DIMS:
+            for mode in ("none", "int8", "int4"):
+                rec, _ = check("paged attention", dt, mode, "verify", hd)
+                out["head_dims"].append(rec)
+        # the same rows as groups of 32 (two slots' prefill chunks), of 5
+        # (the first 30 rows of each slot) and of 1, and a repeat
+        for mode in ("none", "int8", "int4"):
+            q, pools, cfg, bt, _, g, tables, scale = check(
+                "paged attention", dt, mode, "prefill")[1]
+            rng = np.random.default_rng(2)
+            bt = tables.repeat(2, 1).repeat_interleave(g, dim=0)
+            q = torch.cat([q, q.flip(0)])
+            ctx = torch.from_numpy(rng.integers(
+                0, SERVE_CTX + 1, 2 * g).astype(np.int32)).to(dev)
+            keep = (torch.arange(2 * g, device=dev) % g) < 30
+
+            def run(rows, gg):
+                return paged_attention_fwd(q[rows].contiguous(), pools, cfg,
+                                           bt[rows], ctx[rows], scale,
+                                           rows_per_table=gg)
+            every = torch.ones_like(keep)
+            g32, g1, g5, again = (run(every, 32), run(every, 1),
+                                  run(keep, 5), run(every, 32))
+            torch.cuda.synchronize()
+            same = {"groups_1": bool(torch.equal(g32, g1)),
+                    "groups_5": bool(torch.equal(g32[keep], g5)),
+                    "repeat": bool(torch.equal(g32, again))}
+            if not all(same.values()):
+                raise AssertionError(f"paged attention {mode} {dname}: a "
+                                     f"row's bits depend on its group: "
+                                     f"{same}")
+            out["bitwise"].append({"dtype": dname, "kv": mode,
+                                   "entry": _paged_route(dt, SERVE_HD),
+                                   **same})
+    return out
 
 
 def layer_norm_bwd_phase(torch, dev):
@@ -2305,11 +2419,12 @@ def launches_per_call(torch, ku, params, cfg, dev, spec_k: int):
     return {"call": kind, "launches": counts}
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, match=()):
     """Run ``fn`` once under torch.profiler: its wall time, the device's
     busy time (union of its kernel and copy intervals; the device-side
     copies of host annotations such as ``Optimizer.step`` are left out),
-    idle share, and the top kernels by device time."""
+    idle share, the top kernels by device time, and the device time of
+    the kernels whose names hold one of the strings ``match``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2336,7 +2451,9 @@ def profiled(torch, fn):
             "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / profiled_wall_ms,
             "top": [{"name": k[:80], "count": n, "device_ms": us / 1e3}
-                    for k, (n, us) in top]}
+                    for k, (n, us) in top],
+            "matched_device_ms": sum(us for k, (_, us) in by_name.items()
+                                     if any(m in k for m in match)) / 1e3}
 
 
 def first_mismatch(a, b):
@@ -2368,6 +2485,67 @@ def streams_equal(torch, what, a, b, requests, logits_at=None):
                          f"{a[uid][j]} vs {b[uid][j]}{gap}")
 
 
+def profile_prefill(torch, params, cfg, dev, tokens):
+    """Where per-op prefill chunks' time goes: one prompt's chunks of 32
+    through ``gpt_prefill_chunk`` into a fresh one-slot cache, on the host
+    clock (synced at the end), then again under torch.profiler: the
+    device's busy time and the paged-attention kernels' part of it."""
+    last_logits(torch, params, cfg, dev, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last_logits(torch, params, cfg, dev, tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    out = profiled(torch, lambda: last_logits(torch, params, cfg, dev,
+                                              tokens), match=("paged",))
+    chunks = -(-len(tokens) // 32)
+    out.update(chunks=chunks, tokens=len(tokens), wall_ms=wall_ms,
+               host_ms_per_chunk=wall_ms / chunks,
+               device_busy_ms_per_chunk=out["device_busy_ms"] / chunks,
+               paged_device_ms_per_chunk=out["matched_device_ms"] / chunks,
+               paged_share_of_busy=(out["matched_device_ms"]
+                                    / out["device_busy_ms"]))
+    return out
+
+
+# a GPT of head_dim 80: the fused layer takes head_dim 32, 64 and 128 only
+HD80 = dict(hidden=960, num_heads=12, num_layers=2)
+
+
+def engine_hd80_phase(torch, dev, ku, requests):
+    """GPT with 12 heads of 80 (hidden 960, 2 layers), 4 requests:
+    ``megakernel="auto"`` falls back to the per-op path on the card; fp32
+    streams through the kernels equal those with the plain versions
+    forced; each dtype launches its paged route (``paged_attention_fwd``
+    fp32, ``paged_mma_fwd`` bf16) and no fused layer."""
+    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+
+    reqs = requests[:4]
+    out = {}
+    for dt, entry in ((torch.float32, "paged_attention_fwd"),
+                      (torch.bfloat16, "paged_mma_fwd")):
+        dname = str(dt).split(".")[1]
+        cfg = GPTConfig(dtype=dt, **HD80)
+        params = init_gpt_params(cfg, seed=0, device=dev)
+        ku.reset_launch_counts()
+        streams, rec = serve(torch, params, cfg, dev, 0, reqs)
+        rec["launches"] = counts = ku.launch_counts()
+        if (rec["decode_kernel"] != "cuda" or not counts.get(entry)
+                or counts.get("megakernel")):
+            raise AssertionError(f"head_dim 80 {dname}: expected the per-op "
+                                 f"path through {entry}, got "
+                                 f"{rec['decode_kernel']} {counts}")
+        if dt == torch.float32:
+            with ku.force_plain():
+                plain, out["float32_plain"] = serve(torch, params, cfg, dev,
+                                                    0, reqs)
+            streams_equal(torch, "head_dim 80 fp32 kernels vs plain",
+                          streams, plain, reqs)
+        out[dname] = rec
+        del params
+    return out
+
+
 def engine_phase(torch, dev, ku):
     """GPT-2-124M at full width. ``ServeConfig()`` resolves to the fused
     per-layer kernel on the card (``decode_kernel == "fused"``). fp32:
@@ -2378,7 +2556,10 @@ def engine_phase(torch, dev, ku):
     streams equal to it, launches per decode and verify call, int8 and
     int4 pools with spec_k 0 and 4 (equal streams, tokens/s, pool bytes,
     launches), the per-op path (``megakernel="off"``) with its launches,
-    and 20 steady steps profiled on each path."""
+    and 20 steady steps profiled on each path; one prompt's per-op prefill
+    chunks profiled; the head_dim 80 runs (``engine_hd80_phase``). The
+    prefill chunks launch paged attention on its route: ``paged_mma_fwd``
+    in bf16, ``paged_attention_fwd`` in fp32."""
     from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
 
     result = {}
@@ -2407,6 +2588,9 @@ def engine_phase(torch, dev, ku):
     if result["fp32_kernels"]["decode_kernel"] != "fused":
         raise AssertionError("ServeConfig() did not resolve to the fused "
                              "layer on the card")
+    if not result["fp32_kernels"]["launches"].get("paged_attention_fwd"):
+        raise AssertionError("the fp32 prefill chunks never launched "
+                             "paged_attention_fwd")
     with ku.force_plain():
         before = ku.launch_counts()
         s_plain, result["fp32_plain"] = serve(torch, params32, cfg32, dev, 0,
@@ -2421,8 +2605,10 @@ def engine_phase(torch, dev, ku):
                   logits32)
     subset = requests[:6]
     for kvq in ("int8", "int4"):
+        ku.reset_launch_counts()
         s_on, result[f"fp32_{kvq}"] = serve(torch, params32, cfg32, dev, 0,
                                             subset, kv_quant=kvq)
+        result[f"fp32_{kvq}"]["launches"] = ku.launch_counts()
         s_off, result[f"fp32_{kvq}_off"] = serve(
             torch, params32, cfg32, dev, 0, subset, kv_quant=kvq,
             megakernel="off")
@@ -2439,7 +2625,7 @@ def engine_phase(torch, dev, ku):
     result["bf16_spec0"]["launches"] = launches
     if result["bf16_spec0"]["decode_kernel"] != "fused":
         raise AssertionError("the bf16 main path did not run fused")
-    for name in ("megakernel", "layer_norm_fwd", "paged_attention_fwd"):
+    for name in ("megakernel", "layer_norm_fwd", "paged_mma_fwd"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"the main path never launched {name}")
     s16k, result["bf16_spec4"] = serve(torch, params16, cfg16, dev, 4,
@@ -2465,13 +2651,18 @@ def engine_phase(torch, dev, ku):
                                   megakernel="off")
     result["bf16_off"]["launches"] = off = ku.launch_counts()
     if (result["bf16_off"]["decode_kernel"] != "cuda"
-            or off.get("megakernel", 0) or not off.get("paged_attention_fwd")
+            or off.get("megakernel", 0) or not off.get("paged_mma_fwd")
             or not off.get("layer_norm_fwd")):
         raise AssertionError(f"the per-op path's launches look wrong: {off}")
     result["bf16_profile"] = profile_decode(torch, params16, cfg16, dev,
                                             requests)
     result["bf16_profile_off"] = profile_decode(
         torch, params16, cfg16, dev, requests, megakernel="off")
+    result["bf16_prefill_profile"] = profile_prefill(
+        torch, params16, cfg16, dev,
+        max((r.tokens for r in requests), key=len))
+    del params16
+    result["head_dim_80"] = engine_hd80_phase(torch, dev, ku, requests)
     return result, launches, quant_launches
 
 
@@ -2955,8 +3146,9 @@ def main(argv=None) -> int:
                      dev)
     ln_non_affine = phase("layer_norm_non_affine", ("layer_norm",),
                           layer_norm_non_affine_check, torch, dev, ku)
-    pa_cases = phase("paged_attention", ("paged_attention",),
-                     paged_attention_phase, torch, dev)
+    pa = phase("paged_attention", ("paged_attention", "paged_mma"),
+               paged_attention_phase, torch, dev)
+    pa_cases = pa["cases"]
     lnb_cases = phase("layer_norm_bwd", ("layer_norm",),
                       layer_norm_bwd_phase, torch, dev)
     nrm = phase("rms_norm", ("layer_norm",), norm_phase, torch, dev, ku)
@@ -2970,8 +3162,8 @@ def main(argv=None) -> int:
     vl["wide"] = phase("flash_varlen_wide", ("flash_varlen",),
                        varlen_wide_phase, torch, dev)
     mk_cases = phase("megakernel", ("megakernel", "paged_attention",
-                                    "layer_norm"), megakernel_phase, torch,
-                     dev)
+                                    "paged_mma", "layer_norm"),
+                     megakernel_phase, torch, dev)
     lm_cases = phase("lm_head_loss", ("lm_head_loss", "lm_head_mma"),
                      lm_head_phase, torch, dev)
     wait()
@@ -3002,7 +3194,7 @@ def main(argv=None) -> int:
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
               "engine_phase_s": seconds["engine"],
               "train_phase_s": seconds["train"], "seconds": seconds,
-              "layer_norm": ln_cases, "paged_attention": pa_cases,
+              "layer_norm": ln_cases, "paged_attention": pa,
               "layer_norm_bwd": lnb_cases, "flash_attention": fa_cases,
               "lm_head_loss": lm_cases, "adam_tail": adam,
               "megakernel": mk_cases, "flash_varlen": vl, "fmha": fmha,
@@ -3019,7 +3211,6 @@ def main(argv=None) -> int:
 
     # the serving main path's shapes: bf16, 8 decode rows
     ln = pick(ln_cases, dtype="bfloat16", rows=8)
-    pa = pick(pa_cases, dtype="bfloat16", rows=8, kv="none")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # LN forward also runs on the training main path, at (8192, 768) with
     # its statistics: that path's launches and times beside the serving
@@ -3057,28 +3248,42 @@ def main(argv=None) -> int:
                    **{k: ln_train[k] for k in timing}},
          "t5": {"rows": list(T5_LN_ROWS), "hidden": T5_HIDDEN,
                 **t5_entry("layer_norm_fwd", ln_cases, hidden=T5_HIDDEN)}},
-        {"name": "paged_attention_fwd", "route": "cuda",
-         "source": "apex_tpu_torch/csrc/paged_attention.cu",
-         "replaces": "apex_tpu/serve/decode.py:228",
-         "launches": launches.get("paged_attention_fwd", 0),
-         "max_abs_err": max(c["max_abs_err"] for c in pa_cases
-                            if c["kv"] == "none"),
-         "ms": pa["ms"], "plain_ms": pa["plain_ms"],
-         "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
-         "library_ms": pa["library_ms"]},
     ]
-    # the paged kernel's quantized branches: launched by the prefill chunks
-    # of the bf16 int8 / int4 engine runs; timed at 8 bf16 rows
-    for kvq in ("int8", "int4"):
-        c = pick(pa_cases, dtype="bfloat16", rows=8, kv=kvq)
-        kernels.append(
-            {"name": f"paged_attention_fwd[{kvq}]", "route": "cuda",
-             "source": "apex_tpu_torch/csrc/paged_attention.cu",
-             "replaces": "apex_tpu/serve/decode.py:228",
-             "launches": quant_launches[kvq].get("paged_attention_fwd", 0),
-             "max_abs_err": max(x["max_abs_err"] for x in pa_cases
-                                if x["kv"] == kvq),
-             **{k: c[k] for k in timing}})
+    # Paged attention, one entry per route and pool format: bf16 on the
+    # tensor cores (launched by the bf16 main path's prefill chunks, and
+    # the int8 / int4 runs'), fp32 on the CUDA cores (the fp32 engine
+    # runs' prefill chunks). Times at 8 decode rows, with the verify (8 x
+    # 5) and prefill-chunk (1 x 32) calls beside them; errors over every
+    # case of the route and format, head dims 80, 96 and 256 included.
+    pm_info = paged_mma_kernel_info(ku, built)
+    fp32_launches_of = {"none": engine["fp32_kernels"]["launches"],
+                        "int8": engine["fp32_int8"]["launches"],
+                        "int4": engine["fp32_int4"]["launches"]}
+    bf16_launches_of = {"none": launches, **quant_launches}
+    for entry, source, dname, runs in (
+            ("paged_mma_fwd", "paged_mma", "bfloat16", bf16_launches_of),
+            ("paged_attention_fwd", "paged_attention", "float32",
+             fp32_launches_of)):
+        for kvq in ("none", "int8", "int4"):
+            c = pick(pa_cases, dtype=dname, rows=8, kv=kvq)
+            mine = [x for x in pa_cases + pa["head_dims"]
+                    if x["entry"] == entry and x["kv"] == kvq]
+            kernels.append(
+                {"name": entry if kvq == "none" else f"{entry}[{kvq}]",
+                 "route": "cuda",
+                 "source": f"apex_tpu_torch/csrc/{source}.cu",
+                 "replaces": "apex_tpu/serve/decode.py:228",
+                 "launches": runs[kvq].get(entry, 0),
+                 "max_abs_err": max(x["max_abs_err"] for x in mine),
+                 **{k: c[k] for k in timing},
+                 **{kind: {k: pick(pa_cases, dtype=dname, kv=kvq,
+                                   kind=kind)[k] for k in timing}
+                    for kind in ("verify", "prefill")},
+                 "head_dims_checked": sorted({x["head_dim"] for x in mine}),
+                 "bitwise_over_groups_and_repeats": all(
+                     pick(pa["bitwise"], dtype=dname, kv=kvq)[k]
+                     for k in ("groups_1", "groups_5", "repeat")),
+                 **(pm_info["fwd"] if entry == "paged_mma_fwd" else {})})
     # the fused layer: launched by the serving main path's decode calls;
     # timed for bf16 decode at 8 rows; its comparator is the per-op layer
     mk = pick(mk_cases, dtype="bfloat16", kv="none", case="decode")
@@ -3429,11 +3634,25 @@ def main(argv=None) -> int:
               f"{c['max_abs_err']:.3e}, K/V err {c['kv_max_abs_err']:.3e}, "
               f"codes differ {c['codes_differ']}")
     for c in pa_cases:
-        if c["kv"] != "none":
-            print(f"paged_attention_fwd {c['kv']} {c['dtype']} rows "
-                  f"{c['rows']}: {c['ms']:.4f} ms (plain {c['plain_ms']:.4f},"
-                  f" library {c['library_ms']:.4f}, bound "
-                  f"{c['bound_ms']:.5f}); err {c['max_abs_err']:.3e}")
+        print(f"{c['entry']} {c['kind']} {c['kv']} {c['dtype']} rows "
+              f"{c['rows']} (groups of {c['rows_per_table']}, ctx sum "
+              f"{c['ctx_sum']}): {c['ms']:.4f} ms (plain "
+              f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
+              f"{c['bound_ms']:.5f}); err {c['max_abs_err']:.3e} on {card}")
+    print("paged head dims checked: " + ", ".join(
+        f"{c['entry']} d{c['head_dim']} {c['kv']} err "
+        f"{c['max_abs_err']:.2e}" for c in pa["head_dims"]))
+    print(f"paged groups 32 / 5 / 1 and repeats bitwise: {pa['bitwise']}")
+    pp = engine["bf16_prefill_profile"]
+    print(f"per-op prefill chunks bf16 ({pp['chunks']} of 32 tokens): host "
+          f"{pp['host_ms_per_chunk']:.3f} ms a chunk, device busy "
+          f"{pp['device_busy_ms_per_chunk']:.3f} ms, paged attention "
+          f"{pp['paged_device_ms_per_chunk']:.4f} ms "
+          f"({pp['paged_share_of_busy']:.3f} of busy) on {card}")
+    for dname in ("float32", "bfloat16"):
+        e = engine["head_dim_80"][dname]
+        print(f"head_dim 80 {dname} ({e['decode_kernel']}): tokens/s "
+              f"{e['tokens_per_s']} launches {e['launches']}")
     fp, prof = train["fp32_check"], train["profile_3_steps"]
     print(f"train fp32 check (batch 2 x 1024): loss kernels "
           f"{fp['loss_kernels']} plain {fp['loss_plain']} grad max rel err "

@@ -345,6 +345,7 @@ def test_bf16_plain_dq_and_dbias_match_jax_kernels(causal, sq, sk, rate):
 _TABLES = {
     "layer_norm": ("apex_tpu_torch.ops.layer_norm", "_SIGNATURES"),
     "paged_attention": ("apex_tpu_torch.serve.decode", "_SIGNATURES"),
+    "paged_mma": ("apex_tpu_torch.serve.decode", "_MMA_SIGNATURES"),
     "flash_attention": ("apex_tpu_torch.ops.attention", "_SIGNATURES"),
     "flash_mma": ("apex_tpu_torch.ops.attention", "_MMA_SIGNATURES"),
     "flash_varlen": ("apex_tpu_torch.ops.attention_varlen", "_SIGNATURES"),

@@ -51,7 +51,8 @@ from apex_tpu_torch.ops.lm_head_loss import (_lm_head_route, lm_head_loss,
                                              lm_head_loss_bwd_reference,
                                              lm_head_loss_fwd,
                                              lm_head_loss_fwd_reference)
-from apex_tpu_torch.serve.decode import (paged_attention, paged_attention_fwd,
+from apex_tpu_torch.serve.decode import (_paged_route, paged_attention,
+                                         paged_attention_fwd,
                                          paged_attention_reference)
 from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, init_kv_cache,
                                            paged_write)
@@ -166,9 +167,10 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, n, heads, hd, bs,
                                               mb):
     q, pools, cfg, bt, ctx = _paged(dev, dtype, n, heads, hd, bs, mb,
                                     seed=n + hd)
-    before = ku.launch_counts().get("paged_attention_fwd", 0)
+    entry = _paged_route(dtype, hd)
+    before = ku.launch_counts().get(entry, 0)
     got = paged_attention(q, pools, cfg, bt, ctx)
-    assert ku.launch_counts()["paged_attention_fwd"] == before + 1
+    assert ku.launch_counts()[entry] == before + 1
     want = paged_attention_reference(q, pools, cfg, bt, ctx)
     _close(got, want, dtype)
     assert not got[0].float().abs().max()        # ctx == 0 -> zeros
@@ -178,11 +180,12 @@ def test_paged_attention_kernel_refuses_what_it_cannot_take(dev):
     q, pools, cfg, bt, ctx = _paged(dev, torch.float32, 4, 2, 64, 16, 2, 1)
     scale = 1 / math.sqrt(64)
     paged_attention_fwd(q, pools, cfg, bt, ctx, scale)
-    with pytest.raises(ValueError, match="head_dim"):
-        paged_attention_fwd(q[..., :48].contiguous(),
-                            {k: v[..., :48].contiguous()
-                             for k, v in pools.items()},
-                            cfg, bt, ctx, scale)
+    for hd, what in ((44, "multiple of 8"), (264, "limit of 256")):
+        qd, pd, cd, _, _ = _paged(dev, torch.float32, 4, 2, hd, 16, 2, 1)
+        with pytest.raises(ValueError, match=f"head_dim {hd} .*{what}"):
+            paged_attention_fwd(qd, pd, cd, bt, ctx, scale)
+    with pytest.raises(ValueError, match="rows_per_table=3"):
+        paged_attention_fwd(q, pools, cfg, bt, ctx, scale, rows_per_table=3)
     with pytest.raises(ValueError, match="pool"):
         paged_attention_fwd(q, {k: v.bfloat16() for k, v in pools.items()},
                             cfg, bt, ctx, scale)
@@ -992,21 +995,107 @@ def _quant_pools(dev, dtype, mode, n, heads, hd, bs, mb, seed):
     (8, 12, 64, 16, 8), (3, 2, 32, 8, 3), (5, 4, 128, 16, 5)])
 def test_quant_paged_attention_kernel_matches_plain(dev, dtype, mode, n,
                                                     heads, hd, bs, mb):
-    """int8 / int4 pools: the kernel dequantizes in fp32; the plain
-    version dequantizes into the model dtype (JAX's gather), so bf16 is
-    held at atol 1e-2 (one bf16 rounding of K, moving a score by up to
-    |q|·|k|·2⁻⁹, and of V), fp32 at 2e-5."""
+    """int8 / int4 pools: bf16 at atol 1e-2 (the codes dequantized and the
+    products summed on the tensor cores, p as two bf16 terms), fp32 at
+    2e-5."""
     q, layer, cfg, bt, ctx = _quant_pools(dev, dtype, mode, n, heads, hd,
                                           bs, mb, seed=n + hd)
-    before = ku.launch_counts().get("paged_attention_fwd", 0)
+    entry = _paged_route(dtype, hd)
+    before = ku.launch_counts().get(entry, 0)
     got = paged_attention(q, layer, cfg, bt, ctx)
-    assert ku.launch_counts()["paged_attention_fwd"] == before + 1
+    assert ku.launch_counts()[entry] == before + 1
     want = paged_attention_reference(q, layer, cfg, bt, ctx)
     torch.cuda.synchronize()
     atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 2 ** -7)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     assert not got[0].float().abs().max()
+
+
+# the split walk: every head_dim % 8 up to 256, groups of rows sharing a
+# block table (verify's k + 1 rows a slot, a prefill chunk's 32), pools of
+# each format; a row's bits do not depend on its group
+
+PAGED_POOLS = {"none": {}, "int8": dict(quantized=True, bits=8),
+               "int4": dict(quantized=True, bits=4),
+               "int4_g8": dict(quantized=True, bits=4, group_size=8)}
+
+
+def _paged_groups(dev, dtype, mode, slots, g, hd, seed, heads=3, bs=16,
+                  mb=24):
+    """``slots`` block-table rows of ``mb`` blocks, each shared by ``g``
+    flat rows (``bt`` repeated, as ``paged_layer_stack`` builds it), pools
+    holding random K/V at every position of every slot (written through
+    the plain codec for quantized formats); contexts in [0, capacity + 7],
+    one slot's rows all past its blocks and one row 0."""
+    rng = np.random.default_rng(seed)
+    blocks = slots * mb
+    cfg = KVCacheConfig(num_layers=1, num_heads=heads, head_dim=hd,
+                        num_blocks=blocks, block_size=bs, dtype=dtype,
+                        **PAGED_POOLS[mode])
+    layer = {k: v[0] for k, v in init_kv_cache(cfg, dev).items()}
+    tables = torch.from_numpy(rng.permutation(blocks).reshape(slots, mb)
+                              .astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.arange(mb * bs, device=dev).repeat(slots)
+    k = torch.randn(heads, blocks * bs, hd, device=dev, generator=gen) * 2
+    v = torch.randn(heads, blocks * bs, hd, device=dev, generator=gen)
+    paged_write(layer, cfg, k.to(dtype), v.to(dtype),
+                tables.repeat_interleave(mb * bs, dim=0), pos,
+                torch.ones_like(pos, dtype=torch.bool))
+    n = slots * g
+    q = torch.randn(n, heads, hd, device=dev, generator=gen).to(dtype)
+    ctx = rng.integers(0, mb * bs + 8, n)
+    ctx[0] = 0
+    ctx[-g:] = mb * bs + 3
+    return (q, layer, cfg, tables.repeat_interleave(g, dim=0),
+            torch.from_numpy(ctx.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(PAGED_POOLS))
+@pytest.mark.parametrize("hd", [8, 40, 80, 96, 136, 256])
+@pytest.mark.parametrize("g", [1, 5, 32])
+def test_paged_routes_match_plain(dev, dtype, mode, hd, g):
+    """Each route against the plain version: fp32 at 2e-5; bf16 at atol
+    1e-3 (fp pools) and 1e-2 (quantized pools, as the quantized test
+    above), rtol one bf16 rounding."""
+    q, layer, cfg, bt, ctx = _paged_groups(dev, dtype, mode, 3, g, hd,
+                                           seed=hd + g)
+    entry = _paged_route(dtype, hd)
+    before = ku.launch_counts().get(entry, 0)
+    got = paged_attention(q, layer, cfg, bt, ctx, rows_per_table=g)
+    assert ku.launch_counts()[entry] == before + 1
+    want = paged_attention_reference(q, layer, cfg, bt, ctx)
+    torch.cuda.synchronize()
+    atol = {torch.float32: 2e-5,
+            torch.bfloat16: 1e-3 if mode == "none" else 1e-2}[dtype]
+    rtol = 2e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert not got[0].float().abs().max()        # ctx == 0 -> zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["none", "int8", "int4"])
+@pytest.mark.parametrize("hd", [64, 80])
+def test_paged_rows_bitwise_whatever_their_group(dev, dtype, mode, hd):
+    """The same rows launched as groups of 32 (a prefill chunk), of 5 (a
+    verify call; the first 30 rows of each slot) and of 1 (decode rows,
+    all slots' rows in one launch) give identical bits, and a launch
+    repeats bitwise."""
+    q, layer, cfg, bt, ctx = _paged_groups(dev, dtype, mode, 3, 32, hd,
+                                           seed=hd)
+    g32 = paged_attention(q, layer, cfg, bt, ctx, rows_per_table=32)
+    g1 = paged_attention(q, layer, cfg, bt, ctx, rows_per_table=1)
+    keep = (torch.arange(q.shape[0], device=dev) % 32) < 30
+    g5 = paged_attention(q[keep].contiguous(), layer, cfg, bt[keep],
+                         ctx[keep], rows_per_table=5)
+    again = paged_attention(q, layer, cfg, bt, ctx, rows_per_table=32)
+    torch.cuda.synchronize()
+    assert torch.equal(g32, g1)
+    assert torch.equal(g32[keep], g5)
+    assert torch.equal(g32, again)
 
 
 def _fused_case(dev, dtype, mode, n, q, hidden=256, heads=4, seed=0):
