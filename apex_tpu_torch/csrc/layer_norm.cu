@@ -32,33 +32,51 @@
 // hidden * sizeof(T)); backward: read dy and x, write dx (3 * rows *
 // hidden * sizeof(T)). The arithmetic is a few operations per element.
 //
-// Design. Forward and dx: one warp per row, four rows per 128-thread
-// block, so any row count works. Loads and stores are 16-byte vectors of
-// T (8 bf16 or 4 fp32 per lane; the weight's N values of TW beside them),
-// the row sums are warp shuffle reductions, and a row is read a second
-// time (from the cache) to normalize it, so no register or shared memory
-// grows with hidden. hidden must be a multiple of the vector width.
+// Forward: one warp per row, four rows per 128-thread block, so any row
+// count works. Loads and stores are 16-byte vectors of T (8 bf16 or 4 fp32
+// per lane; the weight's N values of TW beside them), the row sums are
+// warp shuffle reductions, and a row is read a second time (from the
+// cache) to normalize it, so no register or shared memory grows with
+// hidden. hidden must be a multiple of the vector width.
 //
-// dw/db without atomics: the TPU kernel summed them across its sequential
-// grid into one output block. Here blocks run in parallel, so the sum is
-// two-stage and deterministic, and needs no row statistic but the saved
-// mean/rstd. Stage 1 (`norm_bwd_part_kernel`): block (p, c) owns the
-// fixed rows [p * rows_per_part, (p + 1) * rows_per_part) and one 16-byte
-// column vector per thread of column tile c; each thread walks its rows in
-// order, summing dy * xhat (and dy) in registers, and writes its columns
-// of row p of a (parts, hidden) fp32 workspace. Stage 2
-// (`norm_bwd_reduce_kernel`): one thread per column adds the parts in
-// order 0..parts-1 and writes dw/db in the weight's type. Neither stage's
-// memory grows with hidden, so every width JAX's gate admits runs (its
-// 8-row blocks take hidden up to 37,449), and the same input gives bitwise
-// the same dw/db on every run.
+// Backward: one pass over dy and x and one ordered sum, two launches
+// (`norm_bwd_pass_kernel`, `norm_bwd_sum_kernel`). The TPU kernel summed
+// dw/db across its sequential grid into one output block; blocks here run
+// in parallel, so the sum is two-stage and deterministic. The pass: a
+// block (or a cluster of blocks) owns a fixed, contiguous part of the
+// rows; its threads keep the same 8-column chunks in every row, so w is
+// loaded once and dy * xhat (and dy) sum in registers; each thread copies
+// its own chunks of the rows ahead with cp.async into its own slots of a
+// ring in shared memory (3 stages of bf16, 2 of fp32), so the next rows'
+// bytes are in flight while a row is reduced, and dy and x are read from
+// device memory once. A row belongs to one
+// warp up to 768 columns (eight such teams a block, walking the part's
+// rows in turn), to a team of up to eight warps above, and past 8 warps'
+// registers (3 chunks a thread: at 4, LayerNorm's 170 registers left one
+// block an SM) to a cluster of blocks, each owning every cluster-th
+// chunk, its row sums exchanged through distributed shared memory. The row's sums go in a fixed order (a thread's chunks, the
+// warp's xor tree, the team's warps, the cluster's ranks), so dx repeats
+// bitwise. The block adds its teams' sums in team order and writes one
+// fp32 partial row: parts * hidden * 4 B each for dw and db, at least 16
+// rows a part, so the partials stay under 8.3 % of the bound's bytes. The
+// sum: a second launch, a programmatic dependent of the pass (its launch
+// latency hides behind the pass), parallel over columns and over 32
+// slices of the parts, each slice in part order and the slices in a
+// fixed tree; dw/db are written in the weight's type. The geometry is a
+// function of (rows, hidden) alone (ops/layer_norm.py `_bwd_plan`, which
+// also sizes the workspace), never of the SM count or the stream, so
+// dx/dw/db are bitwise the same for the same inputs on every run. No
+// shared memory or register grows with hidden beyond the plan's chunks,
+// so every width JAX's gate admits runs (37,376 at 8-row blocks: a
+// cluster of 7).
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;      // rows of a forward / dx block
-constexpr int kPartCols = 128;  // threads (column vectors) of a stage-1 block
 
 // N consecutive values of TW (the weight) at p as fp32; p is aligned to
 // N * sizeof(TW) bytes (a multiple of 8)
@@ -132,119 +150,6 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward, dx: one warp per row
-
-template <typename T, typename TW, bool RMS>
-__global__ void __launch_bounds__(32 * kWarps)
-    norm_bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                       const float* __restrict__ mean,
-                       const float* __restrict__ rstd,
-                       const TW* __restrict__ w, T* __restrict__ dx, int rows,
-                       int hidden) {
-  constexpr int N = apex::Vec<T>::N;
-  const int lane = threadIdx.x % 32;
-  const long row = static_cast<long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const T* dyr = dy + row * hidden;
-  const T* xr = x + row * hidden;
-  T* dxr = dx + row * hidden;
-  const int nvec = hidden / N;
-  const float mu = RMS ? 0.f : mean[row], rs = rstd[row];
-  const float inv_h = 1.f / hidden;
-  float c1 = 0.f, c2 = 0.f;
-  for (int v = lane; v < nvec; v += 32) {
-    float fdy[N], fx[N], fw[N];
-    apex::load_vec(dyr + v * N, fdy);
-    apex::load_vec(xr + v * N, fx);
-    load_n<TW, N>(w + v * N, fw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float g = fdy[i] * fw[i];
-      if (!RMS) c1 += g;
-      c2 += g * ((fx[i] - mu) * rs);
-    }
-  }
-  c1 = RMS ? 0.f : apex::warp_sum(c1) * inv_h;
-  c2 = apex::warp_sum(c2) * inv_h;
-  for (int v = lane; v < nvec; v += 32) {
-    float fdy[N], fx[N], fw[N], o[N];
-    apex::load_vec(dyr + v * N, fdy);
-    apex::load_vec(xr + v * N, fx);
-    load_n<TW, N>(w + v * N, fw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float xhat = (fx[i] - mu) * rs;
-      const float g = fdy[i] * fw[i];
-      o[i] = RMS ? (g - xhat * c2) * rs : (g - c1 - xhat * c2) * rs;
-    }
-    apex::store_vec(dxr + v * N, o);
-  }
-}
-
-// Stage 1 of dw/db: block (p, c) sums the rows of part p over its column
-// vectors (thread t: vector c * kPartCols + t) in row order, in registers,
-// and writes row p of the fp32 partial rows (db's only for LayerNorm).
-template <typename T, bool RMS>
-__global__ void __launch_bounds__(kPartCols)
-    norm_bwd_part_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                         const float* __restrict__ mean,
-                         const float* __restrict__ rstd,
-                         float* __restrict__ part_dw,
-                         float* __restrict__ part_db, int rows, int hidden,
-                         int rows_per_part) {
-  constexpr int N = apex::Vec<T>::N;
-  const int vec = blockIdx.y * kPartCols + threadIdx.x;
-  if (vec >= hidden / N) return;
-  const long first = static_cast<long>(blockIdx.x) * rows_per_part;
-  long last = first + rows_per_part;
-  if (last > rows) last = rows;
-  float sw[N], sb[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) sw[i] = sb[i] = 0.f;
-#pragma unroll 4
-  for (long row = first; row < last; ++row) {
-    float fdy[N], fx[N];
-    apex::load_vec(dy + row * hidden + vec * N, fdy);
-    apex::load_vec(x + row * hidden + vec * N, fx);
-    const float mu = RMS ? 0.f : mean[row], rs = rstd[row];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      sw[i] += fdy[i] * ((fx[i] - mu) * rs);
-      if (!RMS) sb[i] += fdy[i];
-    }
-  }
-  const long out = static_cast<long>(blockIdx.x) * hidden + vec * N;
-#pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    *reinterpret_cast<float4*>(part_dw + out + i) =
-        make_float4(sw[i], sw[i + 1], sw[i + 2], sw[i + 3]);
-    if (!RMS)
-      *reinterpret_cast<float4*>(part_db + out + i) =
-          make_float4(sb[i], sb[i + 1], sb[i + 2], sb[i + 3]);
-  }
-}
-
-// Stage 2: dw[c] = sum over parts in order; written in the weight's type
-// (db too, when part_db is not null).
-template <typename TW>
-__global__ void norm_bwd_reduce_kernel(const float* __restrict__ part_dw,
-                                       const float* __restrict__ part_db,
-                                       TW* __restrict__ dw,
-                                       TW* __restrict__ db, int parts,
-                                       int hidden) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= hidden) return;
-  float sw = 0.f, sb = 0.f;
-#pragma unroll 8
-  for (int p = 0; p < parts; ++p) {
-    sw += part_dw[static_cast<long>(p) * hidden + c];
-    if (part_db != nullptr) sb += part_db[static_cast<long>(p) * hidden + c];
-  }
-  apex::from_f(sw, dw + c);
-  if (part_db != nullptr) apex::from_f(sb, db + c);
-}
-
 template <typename T, typename TW, bool RMS>
 int launch_fwd(const void* x, const void* w, const void* b, void* y,
                void* mean, void* rstd, int rows, int hidden, float eps,
@@ -259,35 +164,425 @@ int launch_fwd(const void* x, const void* w, const void* b, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// backward: one pass over dy and x, then the ordered sum of the partials
+
+constexpr int kUnit = 8;       // elements of a chunk: 16 B of bf16, 32 B fp32
+constexpr int kSlices = 32;     // part slices (warps) of a sum block
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 8 values of T at p (aligned to 8 * sizeof(T)) as fp32
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float* out) {
+#pragma unroll
+  for (int h = 0; h < 8; h += apex::Vec<T>::N) apex::load_vec(p + h, out + h);
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float* in) {
+#pragma unroll
+  for (int h = 0; h < 8; h += apex::Vec<T>::N) apex::store_vec(p + h, in + h);
+}
+
+// cp.async stages in flight per thread: the same bytes either way
+template <typename T>
+constexpr int kStages = sizeof(T) == 2 ? 3 : 2;
+
+// The pass. Geometry (ops/layer_norm.py `_bwd_plan`, a function of rows
+// and hidden alone): part p = blockIdx.x / cluster owns rows [p * rpp,
+// min((p + 1) * rpp, rows)). A row belongs to a team of `team_warps`
+// warps of each of the `cluster` blocks of a cluster; a block holds
+// `teams` teams (cluster == 1) and team k walks the part's rows k, k +
+// teams, ... in order. Thread tt of a team (tt = rank * team_warps * 32 +
+// lane index in its block's share) owns the chunks u = tt + j * (cluster *
+// team_warps * 32), j < V, of every row: the same columns in every row,
+// so its slice of w is loaded once and its dw/db sums stay in registers.
+// Each thread copies its own chunks (and the row's statistics) with
+// cp.async into its own slots of a kStages ring, so the rows ahead are in
+// flight while a row is reduced and no barrier guards the ring. A row's
+// two sums: the thread's chunks in order, the warp's xor tree, then the
+// team's warps in order (and the cluster's blocks in rank order, through
+// distributed shared memory), slots double-buffered by row parity so one
+// barrier a row suffices. At the end a block adds its teams' sums in team
+// order (shared memory) and writes one fp32 partial row of its columns.
+template <typename T, typename TW, bool RMS, int V>
+__global__ void __launch_bounds__(256)
+    norm_bwd_pass_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                         const float* __restrict__ mean,
+                         const float* __restrict__ rstd,
+                         const TW* __restrict__ w, T* __restrict__ dx,
+                         float* __restrict__ part_dw,
+                         float* __restrict__ part_db, int rows, int hidden,
+                         int rows_per_part, int team_warps, int teams,
+                         int cluster) {
+  constexpr int S = kStages<T>;
+  constexpr int H = 8 / apex::Vec<T>::N;  // 16-byte pieces of a chunk
+  // the sum launch may start; it waits for this grid's end itself
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 red[2][8][8];  // [parity][team][warp]: a row's sums
+  namespace cg = cooperative_groups;
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int team_threads = team_warps * 32;
+  const int team = tid / team_threads, tw = (tid % team_threads) / 32;
+  const int rank = cluster > 1 ? static_cast<int>(
+                                     cg::this_cluster().block_rank())
+                               : 0;
+  const int tt = rank * team_threads + tid % team_threads;
+  const int stride = cluster * team_threads;  // between a thread's chunks
+  const int units = hidden / kUnit;
+  const long part = blockIdx.x / cluster;
+  const long first = part * rows_per_part;
+  const long last = min(first + rows_per_part, static_cast<long>(rows));
+  const long mine = last - first - team;
+  const int cnt = mine > 0 ? static_cast<int>((mine + teams - 1) / teams) : 0;
+
+  // a 16-byte slot of this thread: stage s, array a (0 dy, 1 x), chunk j,
+  // piece h
+  uint4* slots = reinterpret_cast<uint4*>(smem);
+  auto slot = [&](int s, int a, int j, int h) {
+    return slots + ((((s * 2 + a) * V + j) * H + h) * nthreads + tid);
+  };
+  float2* stats = reinterpret_cast<float2*>(smem + S * 2 * V * H *
+                                                       nthreads * 16) +
+                  tid;  // [s * nthreads]: (mean, rstd) of stage s's row
+
+  float wf[V][kUnit], aw[V][kUnit], ab[V][kUnit];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int u = tt + j * stride;
+#pragma unroll
+    for (int e = 0; e < kUnit; ++e) wf[j][e] = aw[j][e] = ab[j][e] = 0.f;
+    if (u < units) load8(w + u * kUnit, wf[j]);
+  }
+
+  auto issue = [&](int i) {
+    const long row = first + team + static_cast<long>(i) * teams;
+    const int s = i % S;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int u = tt + j * stride;
+      if (u < units) {
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const long at = row * hidden + u * kUnit + h * apex::Vec<T>::N;
+          cp_async16(slot(s, 0, j, h), dy + at);
+          cp_async16(slot(s, 1, j, h), x + at);
+        }
+      }
+    }
+    if (!RMS) cp_async4(&stats[s * nthreads].x, mean + row);
+    cp_async4(&stats[s * nthreads].y, rstd + row);
+  };
+  auto load_chunk = [&](int s, int a, int j, float* f) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const uint4 raw = *slot(s, a, j, h);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < apex::Vec<T>::N; ++k)
+        f[h * apex::Vec<T>::N + k] = apex::to_f(e[k]);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < cnt) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < cnt; ++i) {
+    if (i + S - 1 < cnt) issue(i + S - 1);
+    cp_async_commit();
+    cp_async_wait<S - 1>();  // this thread's copies of row i have landed
+    const int s = i % S, par = i & 1;
+    const long row = first + team + static_cast<long>(i) * teams;
+    const float2 st = stats[s * nthreads];
+    const float mu = RMS ? 0.f : st.x, rs = st.y;
+    float c1 = 0.f, c2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (tt + j * stride < units) {
+        float fdy[kUnit], fx[kUnit];
+        load_chunk(s, 0, j, fdy);
+        load_chunk(s, 1, j, fx);
+#pragma unroll
+        for (int e = 0; e < kUnit; ++e) {
+          const float g = fdy[e] * wf[j][e];
+          if (!RMS) c1 += g;
+          c2 += g * ((fx[e] - mu) * rs);
+        }
+      }
+    }
+    c2 = apex::warp_sum(c2);
+    if (!RMS) c1 = apex::warp_sum(c1);
+    if (team_warps > 1 || cluster > 1) {
+      if (tid % 32 == 0) red[par][team][tw] = make_float2(c1, c2);
+      if (cluster > 1) {
+        cg::this_cluster().sync();
+      } else {
+        asm volatile("bar.sync %0, %1;\n" ::"r"(team + 1),
+                     "r"(team_threads)
+                     : "memory");
+      }
+      c1 = c2 = 0.f;
+      for (int r = 0; r < cluster; ++r) {
+        const float2* src =
+            cluster > 1 ? cg::this_cluster().map_shared_rank(&red[par][0][0],
+                                                             r)
+                        : &red[par][team][0];
+        for (int k = 0; k < team_warps; ++k) {
+          const float2 v = src[k];
+          c1 += v.x;
+          c2 += v.y;
+        }
+      }
+    }
+    c1 /= hidden;
+    c2 /= hidden;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int u = tt + j * stride;
+      if (u < units) {
+        float fdy[kUnit], fx[kUnit], o[kUnit];
+        load_chunk(s, 0, j, fdy);
+        load_chunk(s, 1, j, fx);
+#pragma unroll
+        for (int e = 0; e < kUnit; ++e) {
+          const float xhat = (fx[e] - mu) * rs;
+          const float g = fdy[e] * wf[j][e];
+          o[e] = RMS ? (g - xhat * c2) * rs : (g - c1 - xhat * c2) * rs;
+          aw[j][e] += fdy[e] * xhat;
+          if (!RMS) ab[j][e] += fdy[e];
+        }
+        store8(dx + row * hidden + u * kUnit, o);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the block's partial row: its teams' sums added in team order
+  float* pdw = part_dw + part * hidden;
+  float* pdb = RMS ? nullptr : part_db + part * hidden;
+  if (teams > 1) {
+    __syncthreads();  // every team is done with the ring
+    float* bw = reinterpret_cast<float*>(smem);
+    float* bb = bw + teams * hidden;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int u = tt + j * stride;
+      if (u < units) {
+#pragma unroll
+        for (int e = 0; e < kUnit; e += 4) {
+          *reinterpret_cast<float4*>(bw + team * hidden + u * kUnit + e) =
+              make_float4(aw[j][e], aw[j][e + 1], aw[j][e + 2], aw[j][e + 3]);
+          if (!RMS)
+            *reinterpret_cast<float4*>(bb + team * hidden + u * kUnit + e) =
+                make_float4(ab[j][e], ab[j][e + 1], ab[j][e + 2],
+                            ab[j][e + 3]);
+        }
+      }
+    }
+    __syncthreads();
+    for (int c = tid * 4; c < hidden; c += nthreads * 4) {
+      float4 sw = *reinterpret_cast<const float4*>(bw + c);
+      float4 sb = RMS ? sw : *reinterpret_cast<const float4*>(bb + c);
+      for (int k = 1; k < teams; ++k) {
+        const float4 vw = *reinterpret_cast<const float4*>(bw + k * hidden + c);
+        sw.x += vw.x; sw.y += vw.y; sw.z += vw.z; sw.w += vw.w;
+        if (!RMS) {
+          const float4 vb =
+              *reinterpret_cast<const float4*>(bb + k * hidden + c);
+          sb.x += vb.x; sb.y += vb.y; sb.z += vb.z; sb.w += vb.w;
+        }
+      }
+      *reinterpret_cast<float4*>(pdw + c) = sw;
+      if (!RMS) *reinterpret_cast<float4*>(pdb + c) = sb;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int u = tt + j * stride;
+      if (u < units) {
+#pragma unroll
+        for (int e = 0; e < kUnit; e += 4) {
+          *reinterpret_cast<float4*>(pdw + u * kUnit + e) =
+              make_float4(aw[j][e], aw[j][e + 1], aw[j][e + 2], aw[j][e + 3]);
+          if (!RMS)
+            *reinterpret_cast<float4*>(pdb + u * kUnit + e) = make_float4(
+                ab[j][e], ab[j][e + 1], ab[j][e + 2], ab[j][e + 3]);
+        }
+      }
+    }
+  }
+  // no block leaves while another may still read its row sums
+  if (cluster > 1) cg::this_cluster().sync();
+}
+
+// The final sum, launched as a programmatic dependent of the pass: block
+// b takes columns [32 b, 32 b + 32), lane = column; warp s adds the parts
+// [s * per, (s + 1) * per) in order (per = ceil(parts / 32): at most 8,
+// every load in flight at once), and the 32 slice sums are combined in a
+// fixed tree, slice s += slice s + w for w = 16, 8, 4, 2, 1, then written
+// in the weight's type (db too unless null).
+template <typename TW>
+__global__ void __launch_bounds__(32 * kSlices)
+    norm_bwd_sum_kernel(const float* __restrict__ part_dw,
+                        const float* __restrict__ part_db,
+                        TW* __restrict__ dw, TW* __restrict__ db, int parts,
+                        int hidden) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __shared__ float red[2][kSlices][33];
+  const int lane = threadIdx.x % 32, sl = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + lane;
+  const int per = (parts + kSlices - 1) / kSlices;
+  const int p0 = sl * per, p1 = min(p0 + per, parts);
+  float sw = 0.f, sb = 0.f;
+  if (c < hidden) {
+    for (int p = p0; p < p1; p += 8) {
+      float vw[8], vb[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long at = static_cast<long>(p + i) * hidden + c;
+        vw[i] = p + i < p1 ? part_dw[at] : 0.f;
+        vb[i] = p + i < p1 && part_db != nullptr ? part_db[at] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (p + i < p1) {
+          sw += vw[i];
+          sb += vb[i];
+        }
+      }
+    }
+  }
+  red[0][sl][lane] = sw;
+  red[1][sl][lane] = sb;
+#pragma unroll
+  for (int w = kSlices / 2; w > 0; w /= 2) {
+    __syncthreads();
+    if (sl < w) {
+      red[0][sl][lane] += red[0][sl + w][lane];
+      red[1][sl][lane] += red[1][sl + w][lane];
+    }
+  }
+  __syncthreads();
+  if (sl < 2 && c < hidden && (sl == 0 || part_db != nullptr))
+    apex::from_f(red[sl][0][lane], (sl == 0 ? dw : db) + c);
+}
+
+// the pass's dynamic shared memory: the ring and the statistics, or the
+// teams' sums at the end, whichever is larger
+template <typename T, bool RMS>
+int pass_smem_bytes(int threads, int V, int teams, int hidden) {
+  const int S = kStages<T>, H = 8 / apex::Vec<T>::N;
+  const int ring = S * 2 * V * H * threads * 16 + S * threads * 8;
+  const int sums = teams > 1 ? (RMS ? 1 : 2) * teams * hidden * 4 : 0;
+  return ring > sums ? ring : sums;
+}
+
+template <typename T, typename TW, bool RMS, int V>
+cudaError_t launch_pass(const void* dy, const void* x, const void* mean,
+                        const void* rstd, const void* w, void* dx,
+                        float* part_dw, float* part_db, int rows, int hidden,
+                        int parts, int rows_per_part, int cluster,
+                        int team_warps, int teams, cudaStream_t s) {
+  auto kernel = norm_bwd_pass_kernel<T, TW, RMS, V>;
+  const int threads = teams * team_warps * 32;
+  const int bytes = pass_smem_bytes<T, RMS>(threads, V, teams, hidden);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(parts * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;  // a plain launch without a cluster
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(dy), static_cast<const T*>(x),
+      static_cast<const float*>(mean), static_cast<const float*>(rstd),
+      static_cast<const TW*>(w), static_cast<T*>(dx), part_dw, part_db, rows,
+      hidden, rows_per_part, team_warps, teams, cluster);
+}
+
 template <typename T, typename TW, bool RMS>
 int launch_bwd(const void* dy, const void* x, const void* mean,
                const void* rstd, const void* w, void* dx, void* dw, void* db,
                void* workspace, int rows, int hidden, int parts,
-               cudaStream_t s) {
-  constexpr int N = apex::Vec<T>::N;
+               int rows_per_part, int cluster, int team_warps, int teams,
+               int chunks, cudaStream_t s) {
+  // the plan's own rules (ops/layer_norm.py `_bwd_plan`)
+  if (hidden % kUnit || rows < 0 || parts < 1 || rows_per_part < 1 ||
+      static_cast<long>(parts) * rows_per_part < rows || cluster < 1 ||
+      cluster > 8 || team_warps < 1 || teams < 1 ||
+      teams * team_warps > 8 || (cluster > 1 && teams > 1) ||
+      static_cast<long>(chunks) * cluster * team_warps * 32 * kUnit <
+          hidden)
+    return static_cast<int>(cudaErrorInvalidValue);
   float* part_dw = static_cast<float*>(workspace);
   float* part_db = RMS ? nullptr : part_dw + static_cast<long>(parts) * hidden;
-  if (rows > 0) {
-    norm_bwd_dx_kernel<T, TW, RMS>
-        <<<(rows + kWarps - 1) / kWarps, 32 * kWarps, 0, s>>>(
-            static_cast<const T*>(dy), static_cast<const T*>(x),
-            static_cast<const float*>(mean), static_cast<const float*>(rstd),
-            static_cast<const TW*>(w), static_cast<T*>(dx), rows, hidden);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t err;
+  switch (chunks) {
+#define APEX_PASS(V)                                                        \
+  case V:                                                                   \
+    err = launch_pass<T, TW, RMS, V>(dy, x, mean, rstd, w, dx, part_dw,     \
+                                     part_db, rows, hidden, parts,          \
+                                     rows_per_part, cluster, team_warps,    \
+                                     teams, s);                             \
+    break;
+    APEX_PASS(1)
+    APEX_PASS(2)
+    APEX_PASS(3)
+#undef APEX_PASS
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int rows_per_part = (rows + parts - 1) / parts;
-  const int col_tiles = (hidden / N + kPartCols - 1) / kPartCols;
-  norm_bwd_part_kernel<T, RMS><<<dim3(parts, col_tiles), kPartCols, 0, s>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(x),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      part_dw, part_db, rows, hidden, rows_per_part);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  norm_bwd_reduce_kernel<TW><<<(hidden + 127) / 128, 128, 0, s>>>(
-      part_dw, part_db, static_cast<TW*>(dw), static_cast<TW*>(db), parts,
-      hidden);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the ordered sum, launched while the pass runs (it waits for the pass's
+  // grid inside)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((hidden + 31) / 32);
+  cfg.blockDim = dim3(32 * kSlices);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, norm_bwd_sum_kernel<TW>, static_cast<const float*>(part_dw),
+      static_cast<const float*>(part_db), static_cast<TW*>(dw),
+      static_cast<TW*>(db), parts, hidden));
 }
 
 }  // namespace
@@ -334,22 +629,25 @@ extern "C" int rms_norm_fwd(int device, const void* x, const void* w,
                                              rows, hidden, eps, s));
 }
 
-// dy, x, dx: (rows, hidden) of T; w, dw, db: (hidden,) of TW; as above.
-// mean, rstd: (rows,) fp32 from the forward. workspace: 2 * parts * hidden
-// fp32 (the partial dw and db rows); parts >= 1 blocks of rows each own
-// ceil(rows / parts) consecutive rows.
+// dy, x, dx: (rows, hidden) of T; w, dw, db: (hidden,) of TW; 16-byte
+// aligned, hidden % 8 == 0. mean, rstd: (rows,) fp32 from the forward.
+// The geometry is ops/layer_norm.py `_bwd_plan(rows, hidden)`'s: `parts`
+// parts of `rows_per_part` rows, each `cluster` blocks of `teams` teams of
+// `team_warps` warps, `chunks` chunks of 8 columns a thread. workspace: 2
+// * parts * hidden fp32 (the partial dw and db rows).
 extern "C" int layer_norm_bwd(int device, const void* dy, const void* x,
                               const void* mean, const void* rstd,
                               const void* w, void* dx, void* dw, void* db,
                               void* workspace, int rows, int hidden,
-                              int parts, int x_bf16, int w_bf16,
-                              void* stream) {
+                              int parts, int rows_per_part, int cluster,
+                              int team_warps, int teams, int chunks,
+                              int x_bf16, int w_bf16, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_NORM_DISPATCH(launch_bwd<T, TW, false>(dy, x, mean, rstd, w, dx, dw,
-                                              db, workspace, rows, hidden,
-                                              parts, s));
+  APEX_NORM_DISPATCH(launch_bwd<T, TW, false>(
+      dy, x, mean, rstd, w, dx, dw, db, workspace, rows, hidden, parts,
+      rows_per_part, cluster, team_warps, teams, chunks, s));
 }
 
 // As layer_norm_bwd without mean, db and db's half of the workspace
@@ -357,11 +655,13 @@ extern "C" int layer_norm_bwd(int device, const void* dy, const void* x,
 extern "C" int rms_norm_bwd(int device, const void* dy, const void* x,
                             const void* rstd, const void* w, void* dx,
                             void* dw, void* workspace, int rows, int hidden,
-                            int parts, int x_bf16, int w_bf16, void* stream) {
+                            int parts, int rows_per_part, int cluster,
+                            int team_warps, int teams, int chunks,
+                            int x_bf16, int w_bf16, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  APEX_NORM_DISPATCH(launch_bwd<T, TW, true>(dy, x, nullptr, rstd, w, dx, dw,
-                                             nullptr, workspace, rows, hidden,
-                                             parts, s));
+  APEX_NORM_DISPATCH(launch_bwd<T, TW, true>(
+      dy, x, nullptr, rstd, w, dx, dw, nullptr, workspace, rows, hidden,
+      parts, rows_per_part, cluster, team_warps, teams, chunks, s));
 }

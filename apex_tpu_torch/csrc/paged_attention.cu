@@ -1,5 +1,7 @@
-// Paged attention on the CUDA cores, fp32, head dim d % 8 == 0 up to 256,
-// full-precision, int8 and int4 pools, for Hopper (sm_90a).
+// Paged attention on the CUDA cores, for Hopper (sm_90a): fp32 queries at
+// head dim d % 8 == 0 up to 256 (`paged_attention_fwd`), and fp32 or bf16
+// queries at every d % 8 == 0 above 256 (`paged_wide_fwd`), over
+// full-precision, int8 and int4 pools.
 //
 // Replaces, for fp32 queries, the TPU kernel apex_tpu/serve/decode.py
 // `_paged_kernel` (reached through `_paged_pallas`, pallas_call at
@@ -40,6 +42,25 @@
 // Shared memory (D = 256): q 8 KB; full-precision K and V, two stages,
 // 130 KB; quantized: one fp32 stage of K and V 65 KB + two stages of codes
 // and scales.
+
+// The wide walk (`paged_wide_fwd`, d > 256, fp32 or bf16 q). Neither
+// kernel above fits there: their q and K/V tiles hold whole head dims in
+// shared memory (281 KB at d = 512 here, 300 KB on the tensor cores). So
+// the head dim goes in chunks of kWideChunk channels, as flash_wide.cuh
+// does for flash: per tile of 32 positions, each chunk of q and K is
+// staged in turn and a row's score continues one fp32 chain through the
+// chunks in channel order; then each chunk of V is staged and the rows'
+// accumulators for that chunk take p V in position order. The
+// accumulators live in the block's own slice of the partials in device
+// memory (read and written by the thread that owns the (row, channel)
+// pair, so no barrier guards them), so nothing a block holds grows with
+// d: every head dim runs. The same split walk, the same merge, masks by
+// value, and every row takes the same code path whatever its group, so
+// a row's bits do not depend on its group size or on repeats. Pools are
+// read with plain vector loads (8 channels an item) and dequantized in
+// registers into the fp32 tile: code * scale in fp32, rounded to the
+// query's type first (the plain version's gather into the model dtype).
+// Shared memory: 4 KB of q, 16.5 KB of K or V, the scores' p.
 
 #include "paged_split.cuh"
 
@@ -220,6 +241,218 @@ cudaError_t launch_mode(const Args& a, cudaStream_t s) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// the wide walk: d > 256, fp32 or bf16 q, the head dim in chunks
+
+constexpr int kWideChunk = 128;  // channels of a staged chunk
+constexpr int kWideTP = 32;      // positions of a tile: one a lane
+constexpr int kWideRows = 8;     // rows of a group a block takes
+
+// channels [c, c + 8) of position t's K or V row (the pool's row of token
+// `tok`) as fp32; a quantized pool's values rounded to T first
+template <typename T, int MODE>
+__device__ __forceinline__ void load8(const Args& a, const void* pool,
+                                      const void* scales, long tok, int c,
+                                      float* f) {
+  if constexpr (MODE == 0) {
+    const T* row = static_cast<const T*>(pool) + tok * a.d + c;
+    if constexpr (sizeof(T) == 4) {
+      apex::load_vec(row, f);
+      apex::load_vec(row + 4, f + 4);
+    } else {
+      apex::load_vec(row, f);
+    }
+  } else {
+    if constexpr (MODE == 1) {
+      const uint2 b = *reinterpret_cast<const uint2*>(
+          static_cast<const signed char*>(pool) + tok * a.d + c);
+      const float s = static_cast<const float*>(scales)[tok];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        f[i] = static_cast<float>(static_cast<signed char>(
+                   ((i < 4 ? b.x : b.y) >> (8 * (i % 4))) & 0xFFu)) *
+               s;
+    } else {
+      const unsigned bits = *reinterpret_cast<const uint32_t*>(
+          static_cast<const unsigned char*>(pool) + tok * (a.d / 2) + c / 2);
+      const __nv_bfloat16* sr = static_cast<const __nv_bfloat16*>(scales) +
+                                tok * (a.d / a.group);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        f[i] = static_cast<float>(paged::nibble(bits >> (4 * i))) *
+               __bfloat162float(sr[(c + i) / a.group]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      T r;
+      apex::from_f(f[i], &r);
+      f[i] = apex::to_f(r);
+    }
+  }
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    paged_wide_kernel(const Args a) {
+  constexpr int TP = kWideTP, DC = kWideChunk, LD = DC + 4, R = kWideRows;
+  constexpr int ROWS_A_WARP = R / (kThreads / 32);
+  constexpr int ITEMS = R * DC / kThreads;  // (row, channel) pairs a thread
+  __shared__ __align__(16) float sQ[R][DC];
+  __shared__ __align__(16) float sKV[TP][LD];
+  __shared__ int s_ctx[paged::kMaxRows];
+  __shared__ int s_max;
+  __shared__ float sP[R][TP];
+  __shared__ float sCorr[R];
+  paged::let_merge_launch();
+  const Walk w = paged::walk_of(a, R, s_ctx, &s_max);
+  if (w.t_begin >= w.t_end) return;  // past every row's context
+  const int ntiles = (w.t_end - w.t_begin + TP - 1) / TP;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int parts = a.splits;
+  auto part_of = [&](int r) {
+    return ((w.row0 + r) * a.heads + blockIdx.y) * parts + blockIdx.x;
+  };
+  const T* q = static_cast<const T*>(a.q);
+
+  // positions [t0, t0 + TP) x channels [c0, c0 + DC) of K or V into sKV,
+  // zeros past the head dim and from t_end on
+  auto stage = [&](const void* pool, const void* scales, int t0, int c0) {
+    for (int u = tid; u < TP * DC / 8; u += kThreads) {
+      const int p = u / (DC / 8), c = (u % (DC / 8)) * 8;
+      float f[8];
+      if (t0 + p < w.t_end && c0 + c < a.d) {
+        load8<T, MODE>(a, pool, scales, w.tok(t0 + p, a.bs), c0 + c, f);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] = 0.f;
+      }
+      *reinterpret_cast<float4*>(&sKV[p][c]) =
+          make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(&sKV[p][c + 4]) =
+          make_float4(f[4], f[5], f[6], f[7]);
+    }
+  };
+
+  float m[ROWS_A_WARP], l[ROWS_A_WARP];
+#pragma unroll
+  for (int k = 0; k < ROWS_A_WARP; ++k) {
+    m[k] = apex::kNegInf;
+    l[k] = 0.f;
+  }
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int t0 = w.t_begin + kt * TP;
+    // scores: one chain a (row, position) through the chunks in order
+    float dot[ROWS_A_WARP];
+#pragma unroll
+    for (int k = 0; k < ROWS_A_WARP; ++k) dot[k] = 0.f;
+    for (int c0 = 0; c0 < a.d; c0 += DC) {
+      __syncthreads();  // the previous chunk's readers are done
+      for (int u = tid; u < R * DC / 8; u += kThreads) {
+        const int r = u / (DC / 8), c = (u % (DC / 8)) * 8;
+        float f[8];
+        if (r < w.rows && c0 + c < a.d) {
+          const T* src = q + ((w.row0 + r) * a.heads + blockIdx.y) * a.d +
+                         c0 + c;
+          if constexpr (sizeof(T) == 4) {
+            apex::load_vec(src, f);
+            apex::load_vec(src + 4, f + 4);
+          } else {
+            apex::load_vec(src, f);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) f[i] = 0.f;
+        }
+        *reinterpret_cast<float4*>(&sQ[r][c]) =
+            make_float4(f[0], f[1], f[2], f[3]);
+        *reinterpret_cast<float4*>(&sQ[r][c + 4]) =
+            make_float4(f[4], f[5], f[6], f[7]);
+      }
+      stage(a.k_pool, a.k_scale, t0, c0);
+      __syncthreads();
+      const int cols = min(DC, a.d - c0);
+#pragma unroll
+      for (int k = 0; k < ROWS_A_WARP; ++k) {
+        const int r = warp + 4 * k;
+        if (r >= w.rows) continue;
+        float v = dot[k];
+#pragma unroll 4
+        for (int c = 0; c < cols; c += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(&sQ[r][c]);
+          const float4 kv = *reinterpret_cast<const float4*>(&sKV[lane][c]);
+          v = fmaf(qv.x, kv.x, v);
+          v = fmaf(qv.y, kv.y, v);
+          v = fmaf(qv.z, kv.z, v);
+          v = fmaf(qv.w, kv.w, v);
+        }
+        dot[k] = v;
+      }
+    }
+    // the online-softmax update, a warp per row
+#pragma unroll
+    for (int k = 0; k < ROWS_A_WARP; ++k) {
+      const int r = warp + 4 * k;
+      if (r >= w.rows) continue;
+      const bool live = t0 + lane < s_ctx[r];
+      const float sv = live ? dot[k] * a.scale : apex::kNegInf;
+      const float m_new = fmaxf(m[k], apex::warp_max(sv));
+      const float corr = expf(m[k] - m_new);
+      const float p = live ? expf(sv - m_new) : 0.f;
+      l[k] = l[k] * corr + apex::warp_sum(p);
+      m[k] = m_new;
+      sP[r][lane] = p;
+      if (lane == 0) sCorr[r] = corr;
+    }
+    // acc = acc * corr + sum_i p_i v_i, positions in order, a chunk of
+    // channels at a time
+    for (int c0 = 0; c0 < a.d; c0 += DC) {
+      __syncthreads();  // sP / sCorr written; the previous chunk read
+      stage(a.v_pool, a.v_scale, t0, c0);
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        const int e = tid + kThreads * k, r = e / DC, c = e % DC;
+        if (r < w.rows && c0 + c < a.d) {
+          float* at = a.part + part_of(r) * a.d + c0 + c;
+          float v = kt == 0 ? 0.f : *at * sCorr[r];
+#pragma unroll 8
+          for (int i = 0; i < TP; ++i) v = fmaf(sP[r][i], sKV[i][c], v);
+          *at = v;
+        }
+      }
+    }
+  }
+  float* ml = a.part + static_cast<long>(a.n) * a.heads * parts * a.d;
+#pragma unroll
+  for (int k = 0; k < ROWS_A_WARP; ++k) {
+    const int r = warp + 4 * k;
+    if (r < w.rows && lane == 0) {
+      ml[2 * part_of(r)] = m[k];
+      ml[2 * part_of(r) + 1] = l[k];
+    }
+  }
+}
+
+template <typename T, int MODE>
+cudaError_t launch_wide(const Args& a, cudaStream_t s) {
+  paged_wide_kernel<T, MODE><<<paged::walk_grid(a, kWideRows), kThreads, 0,
+                               s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return paged::launch_merge<T>(a, s);
+}
+
+template <typename T>
+cudaError_t launch_wide_mode(const Args& a, cudaStream_t s) {
+  switch (a.mode) {
+    case 0: return launch_wide<T, 0>(a, s);
+    case 1: return launch_wide<T, 1>(a, s);
+    case 2: return launch_wide<T, 2>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // On CUDA device `device`, on `stream`:
@@ -268,5 +501,36 @@ extern "C" int paged_attention_fwd(int device, const void* q,
     case 2: err = launch_mode<2>(a, s); break;
     default: err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// As paged_attention_fwd, for head_dim % 8 == 0 above 256 (any size; the
+// head dim goes in chunks), q and out fp32 (q_bf16 0) or bf16 (q_bf16 1),
+// a full-precision pool in q's type.
+extern "C" int paged_wide_fwd(int device, const void* q, const void* k_pool,
+                              const void* v_pool, const void* k_scale,
+                              const void* v_scale, const void* block_tables,
+                              const void* ctx_lens, void* out, void* part,
+                              int n, int heads, int head_dim,
+                              int pool_blocks, int block_size,
+                              int max_blocks, int kv_mode, int group,
+                              int rows_per_table, int splits, int split_len,
+                              float scale, int q_bf16, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (head_dim % 8 || head_dim <= 256 || rows_per_table <= 0 ||
+      n % rows_per_table || split_len % kB || splits <= 0 ||
+      splits > paged::kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pool, v_pool, k_scale, v_scale,
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(ctx_lens), out,
+               static_cast<float*>(part), n, heads, head_dim, pool_blocks,
+               block_size, max_blocks, kv_mode, group, rows_per_table,
+               splits, split_len, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = q_bf16 ? launch_wide_mode<__nv_bfloat16>(a, s)
+                                 : launch_wide_mode<float>(a, s);
   return static_cast<int>(err);
 }

@@ -1,6 +1,6 @@
 // The split walk of paged attention, shared by csrc/paged_attention.cu
-// (fp32 on the CUDA cores) and csrc/paged_mma.cu (bf16 on the tensor
-// cores): the launch geometry, the copies of one tile of pool positions
+// (fp32 on the CUDA cores, and both types above head dim 256) and
+// csrc/paged_mma.cu (bf16 on the tensor cores): the launch geometry, the copies of one tile of pool positions
 // into shared memory, the dequantization of int8 / int4 tiles, and the
 // second launch that merges the partials.
 //
@@ -370,7 +370,8 @@ __device__ __forceinline__ void dequant(
 // ---------------------------------------------------------------------------
 // the merge: one warp per (row, head), 8 a block. Lane i holds the (m, l)
 // of parts i and i + 32 (kMaxSplits = 64); M and L over the lanes by the
-// xor trees; the output channels: lane i owns channels i, i + 32, ...,
+// xor trees; the output channels, in chunks of 256 (d > 256 takes more
+// than one): lane i owns channels i, i + 32, ... of the chunk,
 // adding the parts in order with their weights passed by shuffles, the
 // loads of kMergeBatch parts in flight at once.
 
@@ -422,38 +423,43 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
     l += pl[j] * wl[j];
   }
   l = apex::warp_sum(l);
-  constexpr int PER = 256 / 32;  // channels a lane, d <= 256
-  float acc[PER];
+  constexpr int PER = 256 / 32;  // channels a lane of a 256-channel chunk
+  // the channels in chunks of 256 (one chunk up to d = 256), each the
+  // same sum over the splits in order
+  for (int c0 = 0; c0 < d; c0 += 256) {
+    float acc[PER];
 #pragma unroll
-  for (int k = 0; k < PER; ++k) acc[k] = 0.f;
+    for (int k = 0; k < PER; ++k) acc[k] = 0.f;
 #pragma unroll
-  for (int j = 0; j < PL; ++j) {
-    const int cnt = min(32, splits - 32 * j);
-    for (int i0 = 0; i0 < cnt; i0 += kMergeBatch) {
-      float v[kMergeBatch][PER];
+    for (int j = 0; j < PL; ++j) {
+      const int cnt = min(32, splits - 32 * j);
+      for (int i0 = 0; i0 < cnt; i0 += kMergeBatch) {
+        float v[kMergeBatch][PER];
 #pragma unroll
-      for (int i = 0; i < kMergeBatch; ++i) {
-        const float* row = pr + static_cast<long>(32 * j + i0 + i) * d;
+        for (int i = 0; i < kMergeBatch; ++i) {
+          const float* row = pr + static_cast<long>(32 * j + i0 + i) * d;
 #pragma unroll
-        for (int k = 0; k < PER; ++k) {
-          const int cc = lane + 32 * k;
-          v[i][k] = i0 + i < cnt && cc < d ? row[cc] : 0.f;
+          for (int k = 0; k < PER; ++k) {
+            const int cc = c0 + lane + 32 * k;
+            v[i][k] = i0 + i < cnt && cc < d ? row[cc] : 0.f;
+          }
         }
-      }
 #pragma unroll
-      for (int i = 0; i < kMergeBatch; ++i) {
-        const float wgt = __shfl_sync(0xffffffffu, wl[j], (i0 + i) & 31);
-        if (32 * j + i0 + i < live) {
+        for (int i = 0; i < kMergeBatch; ++i) {
+          const float wgt = __shfl_sync(0xffffffffu, wl[j], (i0 + i) & 31);
+          if (32 * j + i0 + i < live) {
 #pragma unroll
-          for (int k = 0; k < PER; ++k) acc[k] += v[i][k] * wgt;
+            for (int k = 0; k < PER; ++k) acc[k] += v[i][k] * wgt;
+          }
         }
       }
     }
-  }
 #pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int cc = lane + 32 * k;
-    if (cc < d) apex::from_f(l > 0.f ? acc[k] / l : 0.f, out + idx * d + cc);
+    for (int k = 0; k < PER; ++k) {
+      const int cc = c0 + lane + 32 * k;
+      if (cc < d)
+        apex::from_f(l > 0.f ? acc[k] / l : 0.f, out + idx * d + cc);
+    }
   }
 }
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,17 +36,69 @@ _SIGNATURES = {
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
        ctypes.c_int, ctypes.c_void_p],
     "layer_norm_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     "rms_norm_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 4
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
        ctypes.c_int, ctypes.c_void_p],
     "rms_norm_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 }
 _DTYPES = (torch.float32, torch.bfloat16)
-# blocks of rows of the backward's first stage (each owns ceil(rows /
-# parts) rows); a function of the row count alone, so dw/db repeat bitwise
-_BWD_PARTS = 256
+
+
+# ---------------------------------------------------------------------------
+# the backward's geometry (``csrc/layer_norm.cu``): a function of (rows,
+# hidden) alone, so dx/dw/db repeat bitwise
+
+_BWD_UNIT = 8            # columns of a chunk (16 B of bf16, 32 B of fp32)
+# chunks a thread holds in registers, at most (at 4 LayerNorm's pass takes
+# 170 registers a thread: one block an SM)
+_BWD_MAX_CHUNKS = 3
+_BWD_BLOCK_WARPS = 8     # warps of a block, at most
+_BWD_MAX_CLUSTER = 8     # blocks of a cluster (the portable limit)
+_BWD_TARGET_BLOCKS = 256  # ~2 blocks a streaming multiprocessor
+# rows of a part, at least: its fp32 dw and db rows (8 B a column) stay
+# under 8/(6·16) = 8.3 % of a bf16 LN backward's bound bytes (6 B a
+# column a row: dy, x read, dx written)
+_BWD_MIN_ROWS = 16
+_BWD_SLICES = 32         # part slices of the final sum
+
+
+class BwdPlan(NamedTuple):
+    """The backward's launch geometry: ``parts`` parts of
+    ``rows_per_part`` consecutive rows, each one block or a cluster of
+    ``cluster`` blocks (each owning every cluster-th chunk of 8 columns);
+    a block holds ``teams`` teams of ``team_warps`` warps, a team walking
+    the part's rows ``team, team + teams, ...`` in order; a thread holds
+    ``chunks`` chunks of every row."""
+    parts: int
+    rows_per_part: int
+    cluster: int
+    team_warps: int
+    teams: int
+    chunks: int
+
+
+def _bwd_plan(rows: int, hidden: int) -> BwdPlan:
+    """The backward's geometry for (rows, hidden), hidden % 8 == 0: the
+    fewest warps that hold a row at up to 3 chunks a thread (one warp up
+    to 768 columns), eight to a block, past that a cluster; at least
+    :data:`_BWD_MIN_ROWS` rows a part and about
+    :data:`_BWD_TARGET_BLOCKS` blocks."""
+    units = hidden // _BWD_UNIT
+    warps = max(1, -(-units // (32 * _BWD_MAX_CHUNKS)))
+    cluster = -(-warps // _BWD_BLOCK_WARPS)
+    if cluster > _BWD_MAX_CLUSTER:
+        raise ValueError(f"layer-norm backward: hidden {hidden} needs a "
+                         f"cluster of {cluster} blocks (at most "
+                         f"{_BWD_MAX_CLUSTER})")
+    team_warps = -(-warps // cluster)
+    chunks = max(1, -(-units // (32 * team_warps * cluster)))
+    teams = _BWD_BLOCK_WARPS // team_warps if cluster == 1 else 1
+    rows_per_part = max(_BWD_MIN_ROWS,
+                        -(-rows // (_BWD_TARGET_BLOCKS // cluster)))
+    parts = max(1, -(-rows // rows_per_part))
+    return BwdPlan(parts, rows_per_part, cluster, team_warps, teams, chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +223,64 @@ def rms_norm_bwd_reference(dy, x2d, rstd, weight):
     return dx.to(x2d.dtype), dw.to(weight.dtype)
 
 
+def _ordered_part_sums(terms, plan: BwdPlan):
+    """The kernels' sum of ``terms`` (rows, hidden) fp32 over the rows:
+    per part, each team's rows in order, the teams in team order; then the
+    parts in :data:`_BWD_SLICES` slices, each in part order, the slices in
+    a fixed tree (slice s += slice s + w, w = 16, 8, 4, 2, 1)."""
+    rows, hidden = terms.shape
+    p, rpp, teams = plan.parts, plan.rows_per_part, plan.teams
+    per_team = -(-rpp // teams)
+    # [part, step, team] -> row part·rpp + step·teams + team, or the zero
+    # row past the part or the rows (adding an fp32 zero is exact)
+    at = (torch.arange(per_team)[:, None] * teams
+          + torch.arange(teams)[None, :])
+    row = torch.arange(p)[:, None, None] * rpp + at[None]
+    row = torch.where((at[None] < rpp) & (row < rows), row, rows)
+    by = torch.cat([terms, terms.new_zeros(1, hidden)])[row.to(terms.device)]
+    acc = torch.zeros(p, teams, hidden, dtype=torch.float32,
+                      device=terms.device)
+    for i in range(per_team):
+        acc = acc + by[:, i]
+    parts = acc[:, 0]
+    for k in range(1, teams):
+        parts = parts + acc[:, k]
+    per = -(-p // _BWD_SLICES)
+    sl = []
+    for i in range(_BWD_SLICES):
+        s = torch.zeros(hidden, dtype=torch.float32, device=terms.device)
+        for q in range(i * per, min((i + 1) * per, p)):
+            s = s + parts[q]
+        sl.append(s)
+    w = _BWD_SLICES // 2
+    while w:
+        sl = [sl[i] + sl[i + w] for i in range(w)]
+        w //= 2
+    return sl[0]
+
+
+def norm_bwd_split_reference(dy, x2d, mean, rstd, weight):
+    """The plain emulation of the backward kernels' sum order, for the
+    tests: dx as :func:`layer_norm_bwd_reference` (RMSNorm's when ``mean``
+    is None), dw (and db for LayerNorm) summed over the rows in
+    :func:`_bwd_plan`'s parts, teams and slices in the kernels' order
+    (:func:`_ordered_part_sums`). Returns ``(dx, dw, db)`` or ``(dx,
+    dw)``."""
+    rows, hidden = x2d.shape
+    plan = _bwd_plan(rows, hidden)
+    dy32, x32 = dy.float(), x2d.float()
+    if mean is None:
+        dx, _ = rms_norm_bwd_reference(dy, x2d, rstd, weight)
+        xhat = x32 * rstd[:, None]
+    else:
+        dx, _, _ = layer_norm_bwd_reference(dy, x2d, mean, rstd, weight)
+        xhat = (x32 - mean[:, None]) * rstd[:, None]
+    dw = _ordered_part_sums(dy32 * xhat, plan).to(weight.dtype)
+    if mean is None:
+        return dx, dw
+    return dx, dw, _ordered_part_sums(dy32, plan).to(weight.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
@@ -228,11 +338,17 @@ def _types(x2d, weight):
 
 
 def _workspace(x2d, vectors: int):
-    """(parts, the fp32 partial rows of ``vectors`` sums)."""
+    """(the backward's plan, its fp32 partial rows of ``vectors`` sums)."""
     rows, hidden = x2d.shape
-    parts = max(1, min(rows, _BWD_PARTS))
-    return parts, torch.empty(vectors * parts * hidden, dtype=torch.float32,
-                              device=x2d.device)
+    plan = _bwd_plan(rows, hidden)
+    return plan, torch.empty(vectors * plan.parts * hidden,
+                             dtype=torch.float32, device=x2d.device)
+
+
+def _check_bwd_width(what, hidden):
+    ku.require(hidden % _BWD_UNIT == 0,
+               f"{what}: hidden ({hidden}) must be a multiple of "
+               f"{_BWD_UNIT} (the backward's 8-column chunks)")
 
 
 def layer_norm_fwd(x2d, weight, bias, eps: float = 1e-5, stats: bool = False):
@@ -259,22 +375,24 @@ def layer_norm_fwd(x2d, weight, bias, eps: float = 1e-5, stats: bool = False):
 
 
 def layer_norm_bwd(dy, x2d, mean, rstd, weight):
-    """Launch the LayerNorm backward kernels on CUDA tensors (dx by rows,
-    then the per-part fp32 dw/db rows and their in-order sum): returns
-    ``(dx, dw, db)``, dx like x2d, dw and db in the weight's type. dw/db
-    are bitwise the same for the same inputs (no atomics)."""
+    """Launch the LayerNorm backward on CUDA tensors (one pass over dy and
+    x writing dx and the per-part fp32 dw/db rows, then their ordered
+    sum; one count): returns ``(dx, dw, db)``, dx like x2d, dw and db in
+    the weight's type. dx/dw/db are bitwise the same for the same inputs
+    (no atomics; :func:`_bwd_plan` depends on the shape alone)."""
     rows, hidden = _check_rows("layer_norm_bwd", x2d, ("weight", weight))
+    _check_bwd_width("layer_norm_bwd", hidden)
     _check_grad_in("layer_norm_bwd", dy, x2d, (("mean", mean),
                                                ("rstd", rstd)))
     dx = torch.empty_like(x2d)
     dw = torch.empty_like(weight)
     db = torch.empty_like(weight)
-    parts, work = _workspace(x2d, 2)
+    plan, work = _workspace(x2d, 2)
     lib = ku.load_kernel("layer_norm", _SIGNATURES)
     status = lib.layer_norm_bwd(
         x2d.device.index, dy.data_ptr(), x2d.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), weight.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), work.data_ptr(), rows, hidden, parts,
+        db.data_ptr(), work.data_ptr(), rows, hidden, *plan,
         *_types(x2d, weight), ku.stream_handle(x2d))
     ku.count_launch("layer_norm_bwd")
     ku.check_status(lib, status, "layer_norm_bwd")
@@ -300,20 +418,20 @@ def rms_norm_fwd(x2d, weight, eps: float = 1e-5, stats: bool = False):
 
 
 def rms_norm_bwd(dy, x2d, rstd, weight):
-    """Launch the RMSNorm backward kernels on CUDA tensors (dx by rows,
-    then the per-part fp32 dw rows and their in-order sum): returns ``(dx,
-    dw)``, dx like x2d, dw in the weight's type, bitwise the same for the
-    same inputs."""
+    """Launch the RMSNorm backward on CUDA tensors (as
+    :func:`layer_norm_bwd`, without db): returns ``(dx, dw)``, dx like
+    x2d, dw in the weight's type, bitwise the same for the same inputs."""
     rows, hidden = _check_rows("rms_norm_bwd", x2d, ("weight", weight))
+    _check_bwd_width("rms_norm_bwd", hidden)
     _check_grad_in("rms_norm_bwd", dy, x2d, (("rstd", rstd),))
     dx = torch.empty_like(x2d)
     dw = torch.empty_like(weight)
-    parts, work = _workspace(x2d, 1)
+    plan, work = _workspace(x2d, 1)
     lib = ku.load_kernel("layer_norm", _SIGNATURES)
     status = lib.rms_norm_bwd(
         x2d.device.index, dy.data_ptr(), x2d.data_ptr(), rstd.data_ptr(),
         weight.data_ptr(), dx.data_ptr(), dw.data_ptr(), work.data_ptr(),
-        rows, hidden, parts, *_types(x2d, weight), ku.stream_handle(x2d))
+        rows, hidden, *plan, *_types(x2d, weight), ku.stream_handle(x2d))
     ku.count_launch("rms_norm_bwd")
     ku.check_status(lib, status, "rms_norm_bwd")
     return dx, dw

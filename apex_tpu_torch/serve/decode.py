@@ -10,13 +10,18 @@ Two halves:
   wrapper of the CUDA kernels. :func:`_paged_route` picks them: bf16 on
   the tensor cores (``csrc/paged_mma.cu``, counted as ``paged_mma_fwd``),
   fp32 on the CUDA cores (``csrc/paged_attention.cu``,
-  ``paged_attention_fwd``), every head_dim % 8 == 0 up to
-  :data:`PAGED_MAX_HEAD_DIM`. Both walk the context in splits of a length
-  :func:`_paged_splits` takes from the block table's capacity alone, rows
-  of one group (``rows_per_table``) sharing each K/V tile, and merge the
-  splits in order (:func:`paged_attention_split_reference` is the plain
-  emulation). :func:`paged_attention` takes the plain version for CPU
-  tensors and the kernels for CUDA tensors.
+  ``paged_attention_fwd``), each at every head_dim % 8 == 0 up to
+  :data:`PAGED_NARROW_HEAD_DIM`; above it both types take the CUDA-core
+  wide walk (``paged_wide_fwd``, the head dim in chunks), so every
+  head_dim % 8 == 0 runs on the card. All walk the context in splits of a
+  length :func:`_paged_splits` takes from the block table's capacity
+  alone, rows of one group (``rows_per_table``) sharing each K/V tile,
+  and merge the splits in order (:func:`paged_attention_split_reference`
+  is the plain emulation). :func:`paged_attention` takes the plain
+  version for CPU tensors and the kernels for CUDA tensors; a head_dim
+  that is not a multiple of 8 takes the plain version on every device,
+  with one warning per head_dim on the card, as JAX's gate sends it to
+  its reference.
 
 * **serve programs** — :func:`gpt_paged_forward` runs q tokens per slot
   against the paged cache (per-row math independent of q); the engine's
@@ -38,6 +43,7 @@ card, the property the JAX engine guarantees.
 from __future__ import annotations
 
 import ctypes
+import logging
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -51,15 +57,20 @@ from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, _dequant_rows_int4,
                                            gather_kv, paged_write)
 
 Params = Dict[str, Any]
+_log = logging.getLogger("apex_tpu_torch.serve")
 
 _ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
          + [ctypes.c_float, ctypes.c_void_p])
-_SIGNATURES = {"paged_attention_fwd": _ARGS}
+# the wide walk takes q's type too (1: bf16), before the stream
+_WIDE_ARGS = _ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p]
+_SIGNATURES = {"paged_attention_fwd": _ARGS, "paged_wide_fwd": _WIDE_ARGS}
 _MMA_SIGNATURES = {"paged_mma_fwd": _ARGS}
 # entry -> (csrc/<source>.cu, its ctypes table)
 _ROUTES = {"paged_mma_fwd": ("paged_mma", _MMA_SIGNATURES),
-           "paged_attention_fwd": ("paged_attention", _SIGNATURES)}
-PAGED_MAX_HEAD_DIM = 256
+           "paged_attention_fwd": ("paged_attention", _SIGNATURES),
+           "paged_wide_fwd": ("paged_attention", _SIGNATURES)}
+# the largest head dim of the two narrow walks; above it, paged_wide_fwd
+PAGED_NARROW_HEAD_DIM = 256
 PAGED_TILE = 64           # positions of the tensor-core kernel's K/V tile
 _SPLIT_MIN_TILES = 2      # a split walks at least two tiles ...
 _SPLITS_MAX = 64          # ... and a table at most this many splits
@@ -134,18 +145,19 @@ def check_pools(what: str, cache_layer, cfg: KVCacheConfig, device,
 
 def _paged_route(dtype, d: int) -> str:
     """The kernel entry that runs paged attention for ``dtype`` queries of
-    head dim ``d`` on the card: ``paged_mma_fwd`` (bf16, tensor cores) or
-    ``paged_attention_fwd`` (fp32, CUDA cores: the tensor cores would take
-    fp32 as TF32). Both take every d % 8 == 0 up to
-    :data:`PAGED_MAX_HEAD_DIM`; anything else raises."""
+    head dim ``d`` on the card, every d % 8 == 0: up to
+    :data:`PAGED_NARROW_HEAD_DIM`, ``paged_mma_fwd`` (bf16, tensor cores)
+    or ``paged_attention_fwd`` (fp32, CUDA cores: the tensor cores would
+    take fp32 as TF32); above it ``paged_wide_fwd`` for both (CUDA cores,
+    the head dim in chunks). d % 8 != 0 raises (:func:`paged_attention`
+    sends it to the plain version before it gets here)."""
     ku.require(dtype in (torch.float32, torch.bfloat16),
                f"paged attention takes fp32 or bf16 queries, got {dtype}")
     ku.require(d > 0 and d % 8 == 0,
                f"paged attention: head_dim {d} is not a multiple of 8 (the "
                f"kernels take d % 8 == 0, as JAX's gate)")
-    ku.require(d <= PAGED_MAX_HEAD_DIM,
-               f"paged attention: head_dim {d} is above the kernels' limit "
-               f"of {PAGED_MAX_HEAD_DIM}")
+    if d > PAGED_NARROW_HEAD_DIM:
+        return "paged_wide_fwd"
     return "paged_mma_fwd" if dtype == torch.bfloat16 else \
         "paged_attention_fwd"
 
@@ -278,6 +290,8 @@ def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
                        device=q.device)
     kp, vp = cache_layer["k"], cache_layer["v"]
     ks, vs = cache_layer.get("k_scale"), cache_layer.get("v_scale")
+    wide = (int(q.dtype == torch.bfloat16),) if entry == "paged_wide_fwd" \
+        else ()
     lib = ku.load_kernel(source, table)
     status = getattr(lib, entry)(
         q.device.index, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
@@ -286,10 +300,26 @@ def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
         lens.data_ptr(), out.data_ptr(), part.data_ptr(), n, h, d,
         kp.shape[1], cfg.block_size, bt.shape[1], kv_mode(cfg),
         cfg.kv_group, rows_per_table, splits, split_len, float(scale),
-        ku.stream_handle(q))
+        *wide, ku.stream_handle(q))
     ku.count_launch(entry)
     ku.check_status(lib, status, entry)
     return out
+
+
+# head dims whose reference dispatch on the card was already logged
+_FALLBACK_WARNED: set = set()
+
+
+def _warn_reference_fallback(head_dim: int) -> None:
+    """Log once per head dim that a CUDA call took the plain version
+    because head_dim % 8 != 0 (JAX's ``_warn_reference_fallback``)."""
+    if head_dim in _FALLBACK_WARNED:
+        return
+    _FALLBACK_WARNED.add(head_dim)
+    _log.warning("paged_attention: head_dim %d %% 8 != 0 — taking the "
+                 "plain gather + reference path on the card (expect a much "
+                 "slower decode step; pad head_dim to a multiple of 8 to "
+                 "get the kernels)", head_dim)
 
 
 def paged_attention(q, cache_layer, cfg: KVCacheConfig, block_tables,
@@ -299,11 +329,18 @@ def paged_attention(q, cache_layer, cfg: KVCacheConfig, block_tables,
     (raises on a shape they do not take). Same result as
     :func:`paged_attention_reference`, which ignores ``rows_per_table``:
     rows [i·g, (i+1)·g) share block-table row i·g (n % g == 0), so the
-    kernels read each K/V tile once for the group."""
+    kernels read each K/V tile once for the group. JAX's gate first: a
+    head_dim that is not a multiple of 8 takes the plain version on every
+    device, logged once per head_dim where the kernels would have run
+    (a shape gate, not a fallback: a kernel that fails still raises)."""
     _check_groups(q.shape[0], rows_per_table)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not ku.use_kernel(q):
+    kernel = ku.use_kernel(q)
+    if kernel and q.shape[-1] % 8 != 0:
+        _warn_reference_fallback(q.shape[-1])
+        kernel = False
+    if not kernel:
         return paged_attention_reference(q, cache_layer, cfg, block_tables,
                                          ctx_lens, scale=scale)
     return paged_attention_fwd(q, cache_layer, cfg, block_tables, ctx_lens,

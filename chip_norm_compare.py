@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Time the LayerNorm and RMSNorm backward kernels for one checkout.
+
+    python3 chip_norm_compare.py --root PATH [--out FILE]
+
+Imports ``apex_tpu_torch`` from the checkout at PATH (this repo, or an
+unpacked earlier commit of it) and times its ``layer_norm_bwd`` and
+``rms_norm_bwd`` at ``chip_smoke.py``'s shapes: LayerNorm at the
+``layer_norm_bwd`` phase's (GPT-2's 8192 rows of 768, T5-small's 4096 and
+1024 rows of 512; fp32 and bf16) and both kinds at the ``norm`` phase's
+``NORM_SHAPES`` in their (x, weight) types (GPT-3's 2048 rows of 12,288
+among them), the L2 flushed between calls (the shapes and the timing are
+this directory's ``chip_smoke.py``'s). The statistics come from the
+checkout's own forward. Each case prints one JSON line (the tree, the
+case, the largest error of dx / dw / db against the plain version, the
+kernel's mean ms) and the card's name and power limit. To compare two
+commits, run it for each in one call on one card, in turns (parent,
+change, change, parent).
+"""
+
+import argparse
+import importlib
+import importlib.util
+import json
+import pathlib
+import sys
+
+
+def cases(cs):
+    """(kind, rows, hidden, x type, weight type) of both phases."""
+    out = []
+    for rows, hidden in ((cs.TRAIN_ROWS, 768),
+                         *((r, cs.T5_HIDDEN) for r in cs.T5_LN_ROWS)):
+        for dt in ("float32", "bfloat16"):
+            out.append(("ln", rows, hidden, dt, dt))
+    for name, rows, hidden, types in cs.NORM_SHAPES:
+        for kind in ("rms", "ln"):
+            for xt, wt in types:
+                if (kind, rows, hidden, xt, wt) not in out:
+                    out.append((kind, rows, hidden, xt, wt))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_norm_compare: no CUDA device", file=sys.stderr)
+        return 2
+    here = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  here / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    dt_of = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lines = []
+    for kind, rows, hidden, xt, wt in cases(cs):
+        x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
+             + 1).to(dt_of[xt])
+        w = (1 + 0.1 * torch.randn(hidden, device=dev,
+                                   generator=gen)).to(dt_of[wt])
+        b = (0.1 * torch.randn(hidden, device=dev,
+                               generator=gen)).to(dt_of[wt])
+        dy = torch.randn(rows, hidden, device=dev,
+                         generator=gen).to(dt_of[xt])
+        if kind == "ln":
+            _, mean, rstd = ln.layer_norm_fwd(x, w, b, stats=True)
+
+            def call():
+                return ln.layer_norm_bwd(dy, x, mean, rstd, w)
+            want = ln.layer_norm_bwd_reference(dy, x, mean, rstd, w)
+        else:
+            _, rstd = ln.rms_norm_fwd(x, w, stats=True)
+
+            def call():
+                return ln.rms_norm_bwd(dy, x, rstd, w)
+            want = ln.rms_norm_bwd_reference(dy, x, rstd, w)
+        err = max(float((g.float() - c.float()).abs().max())
+                  for g, c in zip(call(), want))
+        rec = {"root": args.root, "kind": kind, "rows": rows,
+               "hidden": hidden, "x_dtype": xt, "w_dtype": wt,
+               "max_abs_err": err,
+               "ms": cs.time_ms(torch, call, flush=flush.zero_)}
+        lines.append(rec)
+        print(json.dumps(rec), flush=True)
+        del x, w, b, dy, want
+    card = cs.card_line()
+    print(card)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "cases": lines}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

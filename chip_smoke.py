@@ -560,7 +560,8 @@ def paged_draws():
 # the per-op serve calls' row groups: decode (8 slots x 1 row), verify (8
 # slots x spec_k + 1 = 5 rows) and a prefill chunk (1 slot x 32 rows)
 PAGED_KINDS = {"decode": (8, 1), "verify": (8, 5), "prefill": (1, 32)}
-PAGED_HEAD_DIMS = (80, 96, 256)    # checked beside the serving 64
+# checked and timed beside the serving 64; above 256 the wide walk
+PAGED_HEAD_DIMS = (80, 96, 256, 264, 320, 512, 1024, 2056)
 
 
 def paged_case(torch, dev, dt, mode, kind, hd=SERVE_HD, rows=None):
@@ -618,9 +619,11 @@ def paged_attention_phase(torch, dev):
     rows, and 32 for full-precision pools; verify 8 x 5; a prefill chunk 1
     x 32, ``rows_per_table`` as ``paged_layer_stack`` passes it), timed
     beside the plain version and SDPA (one call over each slot's K/V,
-    gathered and dequantized beforehand, a per-row context mask); every
-    route checked at head_dim 80, 96 and 256 (verify); the same rows
-    launched as groups of 32, 5 and 1 bitwise equal, and repeats bitwise.
+    gathered and dequantized beforehand, a per-row context mask); checked
+    and timed (verify) at every PAGED_HEAD_DIMS, up to 256 on the route
+    of the query's type, above it the wide walk (``paged_wide_fwd``, both
+    types); the same rows launched as groups of 32, 5 and 1 bitwise
+    equal, and repeats bitwise, at head_dim 64 and 512.
     Tolerances: fp32 (2e-5, 1e-4); bf16 (1e-3, 8e-3) with full-precision
     pools and (1e-2, 8e-3) with quantized ones (the plain version
     dequantizes into the model dtype). Bound: each slot's live K/V read
@@ -662,6 +665,37 @@ def paged_attention_phase(torch, dev):
                "max_abs_err": err, "atol": atol, "rtol": rtol}
         return rec, (q, pools, cfg, bt, ctx, g, tables, scale)
 
+    def timed(rec, args, iters=KERNEL_ITERS):
+        """``rec`` with the call's times (kernel, plain version, SDPA over
+        each slot's gathered K/V with a per-row context mask) and bound."""
+        q, pools, cfg, bt, ctx, g, tables, scale = args
+        hd = cfg.head_dim
+        slots = tables.shape[0]
+        k_all, v_all = gather_kv(pools, cfg, tables)
+        qs = q.reshape(slots, g, SERVE_HEADS, hd).transpose(1, 2)
+        kpos = torch.arange(SERVE_CTX, device=dev)
+        keep = kpos[None, None, None, :] < ctx.reshape(slots, 1, g, 1)
+        live = int(ctx.reshape(slots, g).max(1).values.sum())
+        esz = q.element_size()
+        bms, by = bound_ms(
+            live * SERVE_HEADS * hd * 2 * _elem_bytes(cfg)
+            + 2 * q.numel() * esz + tables.numel() * 4 + ctx.numel() * 4,
+            4.0 * rec["ctx_sum"] * SERVE_HEADS * hd, rec["dtype"])
+        rec.update(
+            live_slot_positions=live,
+            ms=time_ms(torch, lambda: paged_attention_fwd(
+                q, pools, cfg, bt, ctx, scale, rows_per_table=g),
+                iters=iters, flush=flush_buf.zero_),
+            plain_ms=time_ms(torch, lambda: paged_attention_reference(
+                q, pools, cfg, bt, ctx, scale=scale), iters=iters,
+                flush=flush_buf.zero_),
+            library_ms=time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qs, k_all, v_all, attn_mask=keep, scale=scale),
+                iters=iters, flush=flush_buf.zero_),
+            bound_ms=bms, bound_by=by)
+        return rec
+
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
         for kind, mode, rows in (
@@ -669,43 +703,24 @@ def paged_attention_phase(torch, dev):
                 ("decode", "int8", 8), ("decode", "int4", 8),
                 *((k, m, None) for k in ("verify", "prefill")
                   for m in ("none", "int8", "int4"))):
-            rec, (q, pools, cfg, bt, ctx, g, tables, scale) = check(
-                "paged attention", dt, mode, kind, rows=rows)
-            slots = tables.shape[0]
-            k_all, v_all = gather_kv(pools, cfg, tables)
-            qs = q.reshape(slots, g, SERVE_HEADS, SERVE_HD).transpose(1, 2)
-            kpos = torch.arange(SERVE_CTX, device=dev)
-            keep = kpos[None, None, None, :] < ctx.reshape(slots, 1, g, 1)
-            live = int(ctx.reshape(slots, g).max(1).values.sum())
-            esz = q.element_size()
-            bms, by = bound_ms(
-                live * SERVE_HEADS * SERVE_HD * 2 * _elem_bytes(cfg)
-                + 2 * q.numel() * esz + tables.numel() * 4 + ctx.numel() * 4,
-                4.0 * rec["ctx_sum"] * SERVE_HEADS * SERVE_HD, dname)
-            rec.update(
-                live_slot_positions=live,
-                ms=time_ms(torch, lambda: paged_attention_fwd(
-                    q, pools, cfg, bt, ctx, scale, rows_per_table=g),
-                    flush=flush_buf.zero_),
-                plain_ms=time_ms(torch, lambda: paged_attention_reference(
-                    q, pools, cfg, bt, ctx, scale=scale),
-                    flush=flush_buf.zero_),
-                library_ms=time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qs, k_all, v_all, attn_mask=keep, scale=scale),
-                    flush=flush_buf.zero_),
-                bound_ms=bms, bound_by=by)
-            out["cases"].append(rec)
-            del pools, k_all, v_all
+            rec, args = check("paged attention", dt, mode, kind, rows=rows)
+            out["cases"].append(timed(rec, args))
+            del args
+        # every head dim beside the serving 64 at the verify call, the wide
+        # walk's (above 256) among them, timed with fewer calls
         for hd in PAGED_HEAD_DIMS:
             for mode in ("none", "int8", "int4"):
-                rec, _ = check("paged attention", dt, mode, "verify", hd)
-                out["head_dims"].append(rec)
+                rec, args = check("paged attention", dt, mode, "verify", hd)
+                out["head_dims"].append(timed(rec, args, iters=10))
+                del args
+                torch.cuda.empty_cache()
         # the same rows as groups of 32 (two slots' prefill chunks), of 5
-        # (the first 30 rows of each slot) and of 1, and a repeat
-        for mode in ("none", "int8", "int4"):
+        # (the first 30 rows of each slot) and of 1, and a repeat; at the
+        # serving head dim and at a wide one
+        for hd, mode in itertools.product((SERVE_HD, 512),
+                                          ("none", "int8", "int4")):
             q, pools, cfg, bt, _, g, tables, scale = check(
-                "paged attention", dt, mode, "prefill")[1]
+                "paged attention", dt, mode, "prefill", hd)[1]
             rng = np.random.default_rng(2)
             bt = tables.repeat(2, 1).repeat_interleave(g, dim=0)
             q = torch.cat([q, q.flip(0)])
@@ -725,12 +740,13 @@ def paged_attention_phase(torch, dev):
                     "groups_5": bool(torch.equal(g32[keep], g5)),
                     "repeat": bool(torch.equal(g32, again))}
             if not all(same.values()):
-                raise AssertionError(f"paged attention {mode} {dname}: a "
-                                     f"row's bits depend on its group: "
+                raise AssertionError(f"paged attention {mode} {dname} d{hd}:"
+                                     f" a row's bits depend on its group: "
                                      f"{same}")
             out["bitwise"].append({"dtype": dname, "kv": mode,
-                                   "entry": _paged_route(dt, SERVE_HD),
-                                   **same})
+                                   "head_dim": hd,
+                                   "entry": _paged_route(dt, hd), **same})
+            del pools
     return out
 
 
@@ -822,6 +838,10 @@ NORM_MODULE_RUNS = [
     ("wide", (2, 1024, 12288), "MixedFusedRMSNorm", "float32"),
     ("gpt2_ln", (8, 1024, 768), "MixedFusedLayerNorm", "float32"),
 ]
+# the backward's design, named beside its times in the kernels line
+NORM_BWD_DESIGN = ("one pass over dy and x (cp.async ring, a part of the "
+                   "rows a block or cluster) + an ordered sum of the "
+                   "partial rows (programmatic dependent launch)")
 # y, dx: fp32 1e-5; bf16 one bf16 step of the output (rtol 2**-7) over a
 # small atol (dx's fp32 sums round in another order before the cast);
 # dw, db sum the rows: their atol grows with sqrt(rows)
@@ -2546,6 +2566,42 @@ def engine_hd80_phase(torch, dev, ku, requests):
     return out
 
 
+HD320 = dict(hidden=640, num_heads=2, num_layers=2)
+
+
+def engine_hd320_phase(torch, dev, ku, requests):
+    """GPT with 2 heads of 320 (hidden 640, 2 layers), 4 requests: the
+    per-op path on the card (``megakernel="auto"`` falls back), paged
+    attention above head_dim 256 through the wide walk
+    (``paged_wide_fwd``) in both types; fp32 streams through the kernels
+    equal those with the plain versions forced."""
+    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+
+    reqs = requests[:4]
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        cfg = GPTConfig(dtype=dt, **HD320)
+        params = init_gpt_params(cfg, seed=0, device=dev)
+        ku.reset_launch_counts()
+        streams, rec = serve(torch, params, cfg, dev, 0, reqs)
+        rec["launches"] = counts = ku.launch_counts()
+        if (rec["decode_kernel"] != "cuda" or not counts.get("paged_wide_fwd")
+                or counts.get("megakernel")):
+            raise AssertionError(f"head_dim 320 {dname}: expected the per-op "
+                                 f"path through paged_wide_fwd, got "
+                                 f"{rec['decode_kernel']} {counts}")
+        if dt == torch.float32:
+            with ku.force_plain():
+                plain, out["float32_plain"] = serve(torch, params, cfg, dev,
+                                                    0, reqs)
+            streams_equal(torch, "head_dim 320 fp32 kernels vs plain",
+                          streams, plain, reqs)
+        out[dname] = rec
+        del params
+    return out
+
+
 def engine_phase(torch, dev, ku):
     """GPT-2-124M at full width. ``ServeConfig()`` resolves to the fused
     per-layer kernel on the card (``decode_kernel == "fused"``). fp32:
@@ -2557,7 +2613,8 @@ def engine_phase(torch, dev, ku):
     int4 pools with spec_k 0 and 4 (equal streams, tokens/s, pool bytes,
     launches), the per-op path (``megakernel="off"``) with its launches,
     and 20 steady steps profiled on each path; one prompt's per-op prefill
-    chunks profiled; the head_dim 80 runs (``engine_hd80_phase``). The
+    chunks profiled; the head_dim 80 and 320 runs (``engine_hd80_phase``,
+    ``engine_hd320_phase``). The
     prefill chunks launch paged attention on its route: ``paged_mma_fwd``
     in bf16, ``paged_attention_fwd`` in fp32."""
     from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
@@ -2663,6 +2720,7 @@ def engine_phase(torch, dev, ku):
         max((r.tokens for r in requests), key=len))
     del params16
     result["head_dim_80"] = engine_hd80_phase(torch, dev, ku, requests)
+    result["head_dim_320"] = engine_hd320_phase(torch, dev, ku, requests)
     return result, launches, quant_launches
 
 
@@ -3281,9 +3339,34 @@ def main(argv=None) -> int:
                     for kind in ("verify", "prefill")},
                  "head_dims_checked": sorted({x["head_dim"] for x in mine}),
                  "bitwise_over_groups_and_repeats": all(
-                     pick(pa["bitwise"], dtype=dname, kv=kvq)[k]
+                     pick(pa["bitwise"], dtype=dname, kv=kvq,
+                          head_dim=SERVE_HD)[k]
                      for k in ("groups_1", "groups_5", "repeat")),
                  **(pm_info["fwd"] if entry == "paged_mma_fwd" else {})})
+    # The wide walk (head_dim > 256, both types): launched by the head_dim
+    # 320 GPT's per-op serving runs (counts reset just before each, read
+    # just after); timed at the verify call, bf16 d320 at the top level,
+    # every wide head dim, type and pool format beside it.
+    wide = [x for x in pa["head_dims"] if x["entry"] == "paged_wide_fwd"]
+    w320 = pick(wide, dtype="bfloat16", kv="none", head_dim=320)
+    hd320 = engine["head_dim_320"]
+    kernels.append(
+        {"name": "paged_wide_fwd", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "apex_tpu/serve/decode.py:228",
+         "launches": hd320["bfloat16"]["launches"].get("paged_wide_fwd", 0),
+         "launches_fp32": hd320["float32"]["launches"].get("paged_wide_fwd",
+                                                           0),
+         "path": "InferenceEngine, GPT 2 x 320 heads, per-op",
+         "shape": "verify 8 x 5 rows, 12 heads, d 320, bf16",
+         "max_abs_err": max(x["max_abs_err"] for x in wide),
+         **{k: w320[k] for k in timing},
+         **{f"d{x['head_dim']}_{x['dtype']}_{x['kv']}": {
+             "max_abs_err": x["max_abs_err"], **{k: x[k] for k in timing}}
+            for x in wide if x is not w320},
+         "bitwise_over_groups_and_repeats": all(
+             x[k] for x in pa["bitwise"] if x["head_dim"] != SERVE_HD
+             for k in ("groups_1", "groups_5", "repeat"))})
     # the fused layer: launched by the serving main path's decode calls;
     # timed for bf16 decode at 8 rows; its comparator is the per-op layer
     mk = pick(mk_cases, dtype="bfloat16", kv="none", case="decode")
@@ -3302,6 +3385,7 @@ def main(argv=None) -> int:
         {"name": "layer_norm_bwd", "route": "cuda",
          "source": "apex_tpu_torch/csrc/layer_norm.cu",
          "replaces": "apex_tpu/ops/layer_norm.py:224",
+         "design": NORM_BWD_DESIGN,
          "launches": train_launches["layer_norm_bwd"],
          "max_abs_err": max(c["max_abs_err"] for c in lnb_cases),
          **{k: lnb[k] for k in timing},
@@ -3338,6 +3422,7 @@ def main(argv=None) -> int:
             {"name": kname, "route": "cuda",
              "source": "apex_tpu_torch/csrc/layer_norm.cu",
              "replaces": f"apex_tpu/ops/layer_norm.py:{line}",
+             **({"design": NORM_BWD_DESIGN} if key == "bwd" else {}),
              "launches": rms_run["launches"][kname],
              "path": "normalization.MixedFusedRMSNorm",
              "shape": f"({rms_main['rows']}, {rms_main['hidden']}) bf16 x, "
@@ -3639,9 +3724,11 @@ def main(argv=None) -> int:
               f"{c['ctx_sum']}): {c['ms']:.4f} ms (plain "
               f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
               f"{c['bound_ms']:.5f}); err {c['max_abs_err']:.3e} on {card}")
-    print("paged head dims checked: " + ", ".join(
-        f"{c['entry']} d{c['head_dim']} {c['kv']} err "
-        f"{c['max_abs_err']:.2e}" for c in pa["head_dims"]))
+    for c in pa["head_dims"]:
+        print(f"{c['entry']} head_dim {c['head_dim']} verify {c['kv']} "
+              f"{c['dtype']}: {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, "
+              f"library {c['library_ms']:.4f}, bound {c['bound_ms']:.5f}); "
+              f"err {c['max_abs_err']:.3e} on {card}")
     print(f"paged groups 32 / 5 / 1 and repeats bitwise: {pa['bitwise']}")
     pp = engine["bf16_prefill_profile"]
     print(f"per-op prefill chunks bf16 ({pp['chunks']} of 32 tokens): host "
@@ -3649,9 +3736,9 @@ def main(argv=None) -> int:
           f"{pp['device_busy_ms_per_chunk']:.3f} ms, paged attention "
           f"{pp['paged_device_ms_per_chunk']:.4f} ms "
           f"({pp['paged_share_of_busy']:.3f} of busy) on {card}")
-    for dname in ("float32", "bfloat16"):
-        e = engine["head_dim_80"][dname]
-        print(f"head_dim 80 {dname} ({e['decode_kernel']}): tokens/s "
+    for hd, dname in itertools.product((80, 320), ("float32", "bfloat16")):
+        e = engine[f"head_dim_{hd}"][dname]
+        print(f"head_dim {hd} {dname} ({e['decode_kernel']}): tokens/s "
               f"{e['tokens_per_s']} launches {e['launches']}")
     fp, prof = train["fp32_check"], train["profile_3_steps"]
     print(f"train fp32 check (batch 2 x 1024): loss kernels "
@@ -3823,6 +3910,9 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels its path never launched: {idle}")
     print(json.dumps({"seconds": seconds}))
     print(card)
     print(json.dumps({"kernels": kernels}))

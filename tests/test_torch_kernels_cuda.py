@@ -38,6 +38,7 @@ from apex_tpu_torch.ops.fused_update import (adam_tail_reference,
 from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                            layer_norm_bwd_reference,
                                            layer_norm_fwd,
+                                           norm_bwd_split_reference,
                                            layer_norm_fwd_reference,
                                            layer_norm_reference, rms_norm,
                                            rms_norm_bwd,
@@ -180,10 +181,14 @@ def test_paged_attention_kernel_refuses_what_it_cannot_take(dev):
     q, pools, cfg, bt, ctx = _paged(dev, torch.float32, 4, 2, 64, 16, 2, 1)
     scale = 1 / math.sqrt(64)
     paged_attention_fwd(q, pools, cfg, bt, ctx, scale)
-    for hd, what in ((44, "multiple of 8"), (264, "limit of 256")):
-        qd, pd, cd, _, _ = _paged(dev, torch.float32, 4, 2, hd, 16, 2, 1)
-        with pytest.raises(ValueError, match=f"head_dim {hd} .*{what}"):
-            paged_attention_fwd(qd, pd, cd, bt, ctx, scale)
+    qd, pd, cd, _, _ = _paged(dev, torch.float32, 4, 2, 44, 16, 2, 1)
+    with pytest.raises(ValueError, match="head_dim 44 .*multiple of 8"):
+        paged_attention_fwd(qd, pd, cd, bt, ctx, scale)
+    # above 256: the wide walk, no longer refused
+    qd, pd, cd, _, _ = _paged(dev, torch.float32, 4, 2, 264, 16, 2, 1)
+    before = ku.launch_counts().get("paged_wide_fwd", 0)
+    paged_attention_fwd(qd, pd, cd, bt, ctx, 1 / math.sqrt(264))
+    assert ku.launch_counts()["paged_wide_fwd"] == before + 1
     with pytest.raises(ValueError, match="rows_per_table=3"):
         paged_attention_fwd(q, pools, cfg, bt, ctx, scale, rows_per_table=3)
     with pytest.raises(ValueError, match="pool"):
@@ -1974,3 +1979,105 @@ def test_varlen_head_dims_264_to_512_match_plain(dev, dtype, s, d, causal):
                                    rtol=rtol, msg=name)
     pad_q = (seg_q < 0)[:, None, :].expand(-1, 2, -1)
     assert not bool(o[pad_q].any()) and not bool(dq[pad_q].any())
+
+
+
+# ---------------------------------------------------------------------------
+# thirteenth slice: the one-pass norm backward; paged attention above 256
+
+# the shapes the card's main paths run (GPT-2's, T5-small's encoder and
+# decoder rows, GPT-3's width: a cluster of two), ragged row counts, and
+# the widest row JAX's gate admits (a cluster of five)
+NORM_BWD_SHAPES = [(8192, 768), (4096, 512), (1024, 512), (2048, 12288),
+                   (1000, 768), (7, 384), (333, 2560), (40, 37376)]
+
+
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+@pytest.mark.parametrize("xt,wt", NORM_TYPES)
+@pytest.mark.parametrize("rows,hidden", NORM_BWD_SHAPES)
+def test_norm_bwd_one_pass_matches_plain(dev, kind, xt, wt, rows, hidden):
+    """The one-pass backward (LayerNorm and RMSNorm) against its plain
+    version and the emulation of its sum order, in all four type pairs:
+    dx at the file's tolerance, dw/db at the sums' (sqrt(rows) atol); one
+    launch counted; dx, dw and db bitwise equal over three repeats."""
+    x, w, b, dy = _norm_case(dev, xt, wt, rows, hidden, rows + 3 * hidden)
+    name = "layer_norm_bwd" if kind == "ln" else "rms_norm_bwd"
+    if kind == "ln":
+        _, mean, rstd = layer_norm_fwd(x, w, b, stats=True)
+        run = lambda: layer_norm_bwd(dy, x, mean, rstd, w)
+        plain = layer_norm_bwd_reference(dy, x, mean, rstd, w)
+    else:
+        mean = None
+        _, rstd = rms_norm_fwd(x, w, stats=True)
+        run = lambda: rms_norm_bwd(dy, x, rstd, w)
+        plain = rms_norm_bwd_reference(dy, x, rstd, w)
+    before = ku.launch_counts().get(name, 0)
+    got = run()
+    assert ku.launch_counts()[name] == before + 1
+    emulated = norm_bwd_split_reference(dy, x, mean, rstd, w)
+    for want in (plain, emulated):
+        _close_norm(got[0], want[0], xt)
+        for g, wnt in zip(got[1:], want[1:]):
+            _close_norm(g, wnt, wt, rows)
+    for _ in range(3):
+        again = run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_norm_bwd_refuses_a_width_off_its_chunks(dev):
+    """The backward takes hidden % 8 == 0 (its 8-column chunks): an fp32
+    row of 100 columns, which the forward takes, is refused by name."""
+    x = torch.randn(8, 100, device=dev)
+    w = torch.ones(100, device=dev)
+    _, mean, rstd = layer_norm_fwd(x, w, w, stats=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layer_norm_bwd(x, x, mean, rstd, w)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rms_norm_bwd(x, x, rstd, w)
+
+
+PAGED_WIDE_DIMS = [264, 320, 512, 1024, 2056]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["none", "int8", "int4"])
+@pytest.mark.parametrize("hd", PAGED_WIDE_DIMS)
+def test_paged_wide_head_dims_match_plain(dev, dtype, mode, hd):
+    """Above head_dim 256 both types take ``paged_wide_fwd``: against the
+    plain version at the paged routes' tolerances (fp32 2e-5; bf16 1e-3
+    with full-precision pools, 1e-2 with quantized ones), groups of 5,
+    one slot's rows past its blocks, a ctx == 0 row zeros."""
+    q, layer, cfg, bt, ctx = _paged_groups(dev, dtype, mode, 3, 5, hd,
+                                           seed=hd, mb=12)
+    assert _paged_route(dtype, hd) == "paged_wide_fwd"
+    before = ku.launch_counts().get("paged_wide_fwd", 0)
+    got = paged_attention(q, layer, cfg, bt, ctx, rows_per_table=5)
+    assert ku.launch_counts()["paged_wide_fwd"] == before + 1
+    want = paged_attention_reference(q, layer, cfg, bt, ctx)
+    torch.cuda.synchronize()
+    atol = {torch.float32: 2e-5,
+            torch.bfloat16: 1e-3 if mode == "none" else 1e-2}[dtype]
+    rtol = 2e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert not got[0].float().abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["none", "int8", "int4"])
+def test_paged_wide_rows_bitwise_whatever_their_group(dev, dtype, mode):
+    """At head_dim 512 the same rows as groups of 32, 5 and 1 give
+    identical bits, and a launch repeats bitwise."""
+    q, layer, cfg, bt, ctx = _paged_groups(dev, dtype, mode, 3, 32, 512,
+                                           seed=9, mb=8)
+    g32 = paged_attention(q, layer, cfg, bt, ctx, rows_per_table=32)
+    g1 = paged_attention(q, layer, cfg, bt, ctx, rows_per_table=1)
+    keep = (torch.arange(q.shape[0], device=dev) % 32) < 30
+    g5 = paged_attention(q[keep].contiguous(), layer, cfg, bt[keep],
+                         ctx[keep], rows_per_table=5)
+    again = paged_attention(q, layer, cfg, bt, ctx, rows_per_table=32)
+    torch.cuda.synchronize()
+    assert torch.equal(g32, g1)
+    assert torch.equal(g32[keep], g5)
+    assert torch.equal(g32, again)

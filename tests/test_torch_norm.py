@@ -10,10 +10,16 @@ PyTorch versions; the CUDA kernels are held against those on the card
 (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 
 Tolerances (JAX's own, ``tests/test_ops.py``): fp32 forward 1e-5,
-gradients 2e-4, anything with a bf16 input or output 3e-2.
+gradients 2e-4, anything with a bf16 input or output 3e-2. The backward
+kernels' partition (``_bwd_plan``) and a plain emulation of their sum
+order (``norm_bwd_split_reference``) are held here too: the emulation
+against JAX's backward kernels at fp32 1e-5 (atol and rtol: the same
+fp32 terms added in another order).
 """
 
+import functools
 import importlib
+import inspect
 
 import numpy as np
 import pytest
@@ -21,6 +27,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
 from apex_tpu import normalization as jnorm
 
@@ -321,3 +328,113 @@ def test_cpu_tensors_take_the_plain_versions():
     assert ku.launch_counts() == before
     with pytest.raises(ValueError, match="CUDA"):
         pln.rms_norm_fwd(x.detach(), w.detach())
+
+
+# ---------------------------------------------------------------------------
+# the backward's partition and sum order (csrc/layer_norm.cu)
+
+# the shapes the card runs (chip_smoke's layer_norm_bwd and norm phases):
+# GPT-2's training rows, T5-small's encoder and decoder rows, GPT-3's width
+BWD_SHAPES = [(8192, 768), (4096, 512), (1024, 512), (2048, 12288)]
+
+
+@pytest.mark.parametrize("rows,hidden", BWD_SHAPES)
+def test_bwd_plan_is_the_shapes_and_its_partials_are_small(rows, hidden):
+    """The partition is a function of (rows, hidden) alone, covers every
+    row once and every column, fits a block (<= 256 threads) and a
+    portable cluster, and the workspace it sizes (fp32 dw and db rows) is
+    under 10 % of a bf16 LayerNorm backward's bound bytes (dy and x read,
+    dx written, the vectors and statistics)."""
+    assert list(inspect.signature(pln._bwd_plan).parameters) == [
+        "rows", "hidden"]
+    plan = pln._bwd_plan(rows, hidden)
+    assert plan == pln._bwd_plan(rows, hidden)
+    assert plan.rows_per_part * plan.parts >= rows
+    assert plan.rows_per_part * (plan.parts - 1) < rows
+    assert plan.teams * plan.team_warps * 32 <= 256
+    assert plan.cluster == 1 or plan.teams == 1
+    assert 1 <= plan.cluster <= 8 and 1 <= plan.chunks <= 3
+    assert plan.chunks * plan.cluster * plan.team_warps * 32 * 8 >= hidden
+    x = torch.empty(rows, hidden, dtype=torch.bfloat16)
+    got_plan, work = pln._workspace(x, 2)
+    assert got_plan == plan and work.dtype == torch.float32
+    bound = 3 * rows * hidden * 2 + 3 * hidden * 2 + 8 * rows
+    assert work.numel() * 4 < 0.1 * bound
+    # wide rows take a cluster, each block a slice of the columns
+    assert (plan.cluster > 1) == (hidden > 6144)
+
+
+@pytest.mark.parametrize("hidden", range(128, 37377, 128))
+def test_bwd_plan_takes_every_width_the_gate_admits(hidden):
+    """Every hidden % 128 up to 37,376 (the widest JAX's gate admits, at
+    8-row blocks) has a partition within the kernel's limits."""
+    plan = pln._bwd_plan(8, hidden)
+    assert 1 <= plan.cluster <= 8 and 1 <= plan.chunks <= 3
+    assert plan.teams * plan.team_warps <= 8
+    assert plan.chunks * plan.cluster * plan.team_warps * 32 * 8 >= hidden
+    # no chunk is left to a thread past the row's end but the last's
+    assert (plan.chunks - 1) * plan.cluster * plan.team_warps * 32 * 8 \
+        < hidden
+
+
+def _jax_norm_bwd(kind, x, w, dy, mean, rstd):
+    """JAX's backward kernel (``_ln_bwd_kernel`` / ``_rms_bwd_kernel``)
+    in interpret mode over the whole input: JAX's row block where its
+    gate admits the shape (as ``_layer_norm_affine_bwd`` launches it),
+    else one block of all the rows. dw/db cast to the weight's type."""
+    rows, hidden = x.shape
+    block = jln._pick_block_rows(rows, hidden) or rows
+    row_spec = pl.BlockSpec((block, hidden), lambda i: (i, 0))
+    col_spec = pl.BlockSpec((block, 1), lambda i: (i, 0))
+    vec_spec = pl.BlockSpec((1, hidden), lambda i: (0, 0))
+    sds = jax.ShapeDtypeStruct
+    stats = ([jnp.asarray(mean)[:, None]] if kind == "ln" else []) + [
+        jnp.asarray(rstd)[:, None]]
+    kernel = jln._ln_bwd_kernel if kind == "ln" else jln._rms_bwd_kernel
+    nvec = 2 if kind == "ln" else 1
+    outs = pl.pallas_call(
+        functools.partial(kernel, hidden=hidden),
+        grid=(rows // block,),
+        in_specs=[row_spec, row_spec] + [col_spec] * len(stats) + [vec_spec],
+        out_specs=[row_spec] + [vec_spec] * nvec,
+        out_shape=[sds((rows, hidden), x.dtype)]
+        + [sds((1, hidden), jnp.float32)] * nvec,
+        interpret=True,
+    )(jnp.asarray(dy), jnp.asarray(x), *stats, jnp.asarray(w)[None, :])
+    return [np.asarray(outs[0], np.float32)] + [
+        np.asarray(o.reshape(-1).astype(w.dtype), np.float32)
+        for o in outs[1:]]
+
+
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+@pytest.mark.parametrize("xt,wt", TYPES)
+@pytest.mark.parametrize("rows,hidden", [
+    (40, 256),     # three parts: the last holds 8 of its 16 rows
+    (1, 128), (7, 128),   # one part, most of its teams idle
+    (24, 384),     # 48 chunks: a second chunk on half the lanes
+    (16, 768),     # one warp a row at its widest (3 chunks a lane)
+    (8, 896),      # two warps a row
+    (8, 6272),     # past one block's 8 warps: a cluster of two
+])
+def test_norm_bwd_sum_order_matches_jax_kernel(kind, xt, wt, rows, hidden):
+    """The plain emulation of the backward kernels' sum order (parts,
+    teams, slices) against JAX's backward kernel in interpret mode on the
+    same numpy inputs and saved statistics: dx, dw (and db); fp32 within
+    1e-5, bf16 within the tolerance the tests above state."""
+    x, w, _, dy = _case(rows + hidden, rows, hidden, xt, wt)
+    xp = _port(x)
+    if kind == "ln":
+        _, mean, rstd = pln.layer_norm_fwd_reference(xp, _port(w))
+    else:
+        mean = None
+        _, rstd = pln.rms_norm_fwd_reference(xp, _port(w))
+    got = pln.norm_bwd_split_reference(_port(dy), xp, mean, rstd, _port(w))
+    assert len(got) == (3 if kind == "ln" else 2)
+    assert got[0].dtype == xp.dtype and got[1].dtype == _port(w).dtype
+    want = _jax_norm_bwd(kind, x, w, dy,
+                         None if mean is None else mean.numpy(),
+                         rstd.numpy())
+    tol = _tol(xt, wt) or 1e-5
+    for g, wnt, name in zip(got, want, ("dx", "dw", "db")):
+        np.testing.assert_allclose(_np(g), wnt, atol=tol, rtol=tol,
+                                   err_msg=name)

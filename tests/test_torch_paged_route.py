@@ -2,8 +2,11 @@
 
 On the card ``serve.decode._paged_route`` sends bf16 queries to the
 tensor-core kernel (``paged_mma_fwd``) and fp32 ones to the CUDA-core
-kernel (``paged_attention_fwd``), every head_dim % 8 == 0 up to 256; both
-walk a row's context in splits whose length is a function of the block
+kernel (``paged_attention_fwd``), every head_dim % 8 == 0 up to 256, and
+both types above 256 to the CUDA-core wide walk (``paged_wide_fwd``, the
+head dim in chunks); a head_dim that is not a multiple of 8 takes the
+plain version with one warning, as JAX's gate sends it to its reference.
+All walk a row's context in splits whose length is a function of the block
 table's capacity alone (``_paged_splits``), the rows of one group
 (``rows_per_table``) sharing each K/V tile, and merge the splits' partials
 in order. Here: JAX parity of the port's plain version and of the plain
@@ -17,6 +20,7 @@ plain version on the card (``tests/test_torch_kernels_cuda.py``).
 """
 
 import inspect
+import logging
 
 import numpy as np
 import pytest
@@ -156,13 +160,15 @@ def test_route_table():
         with pytest.raises(ValueError, match=f"head_dim {d} is not a "
                                              f"multiple of 8"):
             dec._paged_route(torch.bfloat16, d)
-    for d in (264, 512):
-        with pytest.raises(ValueError, match="limit of 256"):
-            dec._paged_route(torch.float32, d)
+    for d in (264, 512, 1024, 2056, 4096):
+        for dt in (torch.float32, torch.bfloat16):
+            assert dec._paged_route(dt, d) == "paged_wide_fwd"
     with pytest.raises(ValueError, match="fp32 or bf16"):
         dec._paged_route(torch.float16, 64)
-    assert set(dec._ROUTES) == {"paged_mma_fwd", "paged_attention_fwd"}
+    assert set(dec._ROUTES) == {"paged_mma_fwd", "paged_attention_fwd",
+                                "paged_wide_fwd"}
     assert dec._ROUTES["paged_mma_fwd"][0] == "paged_mma"
+    assert dec._ROUTES["paged_wide_fwd"][0] == "paged_attention"
 
 
 def test_rows_per_table_must_make_whole_groups():
@@ -214,3 +220,70 @@ def test_serve_programs_pass_their_rows_per_slot_as_the_group(monkeypatch):
     dec.gpt_decode_step(params, torch.ones(2, dtype=torch.int32), lens, on,
                         cache, tables, cfg, kv)
     assert seen == [8] * 2 + [4] * 2 + [1] * 2      # per call, per layer
+
+
+# ---------------------------------------------------------------------------
+# above head_dim 256, and head dims that are not a multiple of 8
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "int4"])
+@pytest.mark.parametrize("hd", [264, 512])
+def test_wide_head_dims_match_jax(mode, hd):
+    """The wide walk's head dims (``paged_wide_fwd`` on the card): the
+    plain version and the split emulation (one part a split, the wide
+    walk's) against JAX's kernel in interpret mode, groups of 3, ctx == 0
+    rows zeros."""
+    assert dec._paged_route(torch.float32, hd) == "paged_wide_fwd"
+    cfg, pl, perm, jcfg, jl = _pools(mode, hd, seed=hd)
+    rng = np.random.default_rng(hd + 2)
+    tables = np.repeat(np.stack([perm, np.roll(perm, 3)]), 3, axis=0)
+    ctx = np.array([0, 11, 29, 48, 5, 60], np.int32)
+    q = rng.standard_normal((6, 2, hd)).astype(np.float32)
+    want = np.asarray(jax_paged(jnp.asarray(q), jl, jcfg,
+                                jnp.asarray(tables), jnp.asarray(ctx),
+                                use_pallas=True, interpret=True))
+    got = paged_attention(_t(q), pl, cfg, _t(tables), _t(ctx),
+                          rows_per_table=3)
+    split = dec.paged_attention_split_reference(
+        _t(q), pl, cfg, _t(tables), _t(ctx), rows_per_table=3, parts=1)
+    live = ctx > 0
+    for out in (got, split):
+        np.testing.assert_allclose(out.numpy()[live], want[live], atol=2e-5,
+                                   rtol=0)
+        assert not out.numpy()[~live].any()
+
+
+def test_head_dim_off_the_gate_takes_the_reference_and_warns_once(
+        monkeypatch, caplog):
+    """head_dim 100 (not a multiple of 8) where the kernels would run: the
+    plain version, no kernel reached, one warning for the head dim however
+    many calls, as JAX's ``_warn_reference_fallback``; JAX's own dispatch
+    gives the same result. The route itself still refuses it."""
+    cfg, pl, perm, jcfg, jl = _pools("none", 100, seed=3)
+    tables = np.repeat(perm[None], 4, axis=0)
+    ctx = np.array([0, 7, 20, 48], np.int32)
+    q = np.random.default_rng(4).standard_normal((4, 2, 100)).astype(
+        np.float32)
+
+    def refuse(*a, **k):
+        raise AssertionError("reached the kernels")
+
+    monkeypatch.setattr(dec.ku, "use_kernel", lambda t: True)
+    monkeypatch.setattr(dec, "paged_attention_fwd", refuse)
+    monkeypatch.setattr(dec, "_FALLBACK_WARNED", set())
+    with caplog.at_level(logging.WARNING, logger="apex_tpu_torch.serve"):
+        outs = [paged_attention(_t(q), pl, cfg, _t(tables), _t(ctx))
+                for _ in range(3)]
+    assert len(caplog.records) == 1
+    assert "head_dim 100" in caplog.records[0].getMessage()
+    want = dec.paged_attention_reference(_t(q), pl, cfg, _t(tables),
+                                         _t(ctx))
+    for out in outs:
+        assert torch.equal(out, want)
+    jax_out = np.asarray(jax_paged(jnp.asarray(q), jl, jcfg,
+                                   jnp.asarray(tables), jnp.asarray(ctx)))
+    live = ctx > 0
+    np.testing.assert_allclose(want.numpy()[live], jax_out[live], atol=2e-5,
+                               rtol=0)
+    with pytest.raises(ValueError, match="head_dim 100 is not a multiple"):
+        dec._paged_route(torch.float32, 100)
