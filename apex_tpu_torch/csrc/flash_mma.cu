@@ -147,22 +147,7 @@ __global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 4 : D == 128 ? 2 : 1)
     const bf16* cV = sV + (kt & 1) * kB * S;
 
     float s[NB][4];
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; c += 16) {
-      uint32_t a[4];
-      load_a<D>(a, sQ, warp * 16, c, lane);
-#pragma unroll
-      for (int j = 0; j < NB; j += 2) {
-        uint32_t b[4];
-        load_bt<D>(b, cK, j * 8, c, lane);
-        mma_bf16(s[j], a, b[0], b[1]);
-        mma_bf16(s[j + 1], a, b[2], b[3]);
-      }
-    }
+    mma_abt<D>(s, sQ, warp * 16, cK, lane);
 
     // scale, bias, masks; the tile's row max
     const bool diag = causal && kt == qt;
@@ -216,18 +201,7 @@ __global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 4 : D == 128 ? 2 : 1)
       acc[j][3] *= corr[1];
     }
     // O += round_bf16(P) V
-#pragma unroll
-    for (int kk = 0; kk < kB / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a<NB>(a, s, kk);
-#pragma unroll
-      for (int c = 0; c < ND; c += 2) {
-        uint32_t b[4];
-        load_b<D>(b, cV, kk * 16, c * 8, lane);
-        mma_bf16(acc[c], a, b[0], b[1]);
-        mma_bf16(acc[c + 1], a, b[2], b[3]);
-      }
-    }
+    mma_pv<D, ND>(acc, s, cV, 0, lane);
   }
 
 #pragma unroll
@@ -340,26 +314,8 @@ __global__ void __launch_bounds__(128 * dkv_split<D>(), D <= 64 ? 3 : 1)
 
     // S^T = K Q^T and dP^T = V dO^T, 16 keys x 64 q rows a warp
     float sc[NB][4], dp[NB][4];
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; c += 16) {
-      uint32_t ak[4], av[4];
-      load_a<D>(ak, sK, slab * 16, c, lane);
-      load_a<D>(av, sV, slab * 16, c, lane);
-#pragma unroll
-      for (int j = 0; j < NB; j += 2) {
-        uint32_t b[4];
-        load_bt<D>(b, cQ, j * 8, c, lane);
-        mma_bf16(sc[j], ak, b[0], b[1]);
-        mma_bf16(sc[j + 1], ak, b[2], b[3]);
-        load_bt<D>(b, cO, j * 8, c, lane);
-        mma_bf16(dp[j], av, b[0], b[1]);
-        mma_bf16(dp[j + 1], av, b[2], b[3]);
-      }
-    }
+    mma_abt<D>(sc, sK, slab * 16, cQ, lane);
+    mma_abt<D>(dp, sV, slab * 16, cO, lane);
 
     // p, the dropped p (into sc) and ds (into dp)
     const bool diag = causal && kt == qt;
@@ -391,22 +347,8 @@ __global__ void __launch_bounds__(128 * dkv_split<D>(), D <= 64 ? 3 : 1)
 
     // dV += round_bf16(P dropped)^T dO, dK += round_bf16(dS)^T Q over this
     // warp's columns c0 .. c0 + DC - 1
-#pragma unroll
-    for (int kk = 0; kk < kB / 16; ++kk) {
-      uint32_t ap[4], as[4];
-      acc_to_a<NB>(ap, sc, kk);
-      acc_to_a<NB>(as, dp, kk);
-#pragma unroll
-      for (int c = 0; c < NC; c += 2) {
-        uint32_t b[4];
-        load_b<D>(b, cO, kk * 16, c0 + c * 8, lane);
-        mma_bf16(dva[c], ap, b[0], b[1]);
-        mma_bf16(dva[c + 1], ap, b[2], b[3]);
-        load_b<D>(b, cQ, kk * 16, c0 + c * 8, lane);
-        mma_bf16(dka[c], as, b[0], b[1]);
-        mma_bf16(dka[c + 1], as, b[2], b[3]);
-      }
-    }
+    mma_pv<D, NC>(dva, sc, cO, c0, lane);
+    mma_pv<D, NC>(dka, dp, cQ, c0, lane);
   }
 
 #pragma unroll
@@ -510,26 +452,8 @@ __global__ void __launch_bounds__(128 * dq_split<D>(),
 
     // S = Q K^T and dP = dO V^T, 16 q rows x 64 keys a warp
     float sc[NB][4], dp[NB][4];
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; c += 16) {
-      uint32_t aq[4], ao[4];
-      load_a<D>(aq, sQ, slab * 16, c, lane);
-      load_a<D>(ao, sO, slab * 16, c, lane);
-#pragma unroll
-      for (int j = 0; j < NB; j += 2) {
-        uint32_t b[4];
-        load_bt<D>(b, cK, j * 8, c, lane);
-        mma_bf16(sc[j], aq, b[0], b[1]);
-        mma_bf16(sc[j + 1], aq, b[2], b[3]);
-        load_bt<D>(b, cV, j * 8, c, lane);
-        mma_bf16(dp[j], ao, b[0], b[1]);
-        mma_bf16(dp[j + 1], ao, b[2], b[3]);
-      }
-    }
+    mma_abt<D>(sc, sQ, slab * 16, cK, lane);
+    mma_abt<D>(dp, sO, slab * 16, cV, lane);
 
     // ds = p * (dp - delta) * scale (into sc), p = exp(s - lse)
     const bool diag = causal && kt == qt;
@@ -554,18 +478,7 @@ __global__ void __launch_bounds__(128 * dq_split<D>(),
     }
 
     // dQ += round_bf16(dS) K over this warp's columns c0 .. c0 + DC - 1
-#pragma unroll
-    for (int kk = 0; kk < kB / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a<NB>(a, sc, kk);
-#pragma unroll
-      for (int c = 0; c < NC; c += 2) {
-        uint32_t b[4];
-        load_b<D>(b, cK, kk * 16, c0 + c * 8, lane);
-        mma_bf16(acc[c], a, b[0], b[1]);
-        mma_bf16(acc[c + 1], a, b[2], b[3]);
-      }
-    }
+    mma_pv<D, NC>(acc, sc, cK, c0, lane);
   }
 
 #pragma unroll
@@ -690,26 +603,8 @@ __global__ void __launch_bounds__(128, D <= 64 ? 2 : 1)
     const uint32_t base = drop.seed * 0xC2B2AE3Du + bh * 0x27D4EB2Fu;
 
     float sc[NB][4], dp[NB][4];
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; c += 16) {
-      uint32_t aq[4], ao[4];
-      load_a<D>(aq, cQ, warp * 16, c, lane);
-      load_a<D>(ao, cO, warp * 16, c, lane);
-#pragma unroll
-      for (int j = 0; j < NB; j += 2) {
-        uint32_t bb[4];
-        load_bt<D>(bb, cK, j * 8, c, lane);
-        mma_bf16(sc[j], aq, bb[0], bb[1]);
-        mma_bf16(sc[j + 1], aq, bb[2], bb[3]);
-        load_bt<D>(bb, cV, j * 8, c, lane);
-        mma_bf16(dp[j], ao, bb[0], bb[1]);
-        mma_bf16(dp[j + 1], ao, bb[2], bb[3]);
-      }
-    }
+    mma_abt<D>(sc, cQ, warp * 16, cK, lane);
+    mma_abt<D>(dp, cO, warp * 16, cV, lane);
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
 #pragma unroll

@@ -1,6 +1,6 @@
 // Tensor-core tile code for bf16 kernels (the attention kernels of
-// flash_mma.cu, the LM-head backward of lm_head_mma.cu; the varlen kernels
-// can take it up): warp-level mma.sync.m16n8k16 products
+// flash_mma.cu and flash_varlen_mma.cu, the LM-head of lm_head_mma.cu):
+// warp-level mma.sync.m16n8k16 products
 // with fp32 accumulation, operands loaded from shared memory by ldmatrix,
 // tiles filled by 16-byte cp.async copies.
 //
@@ -158,6 +158,52 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4],
   a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
   a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
   a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+}
+
+// s = rows r0..r0+15 of tile `a` times the transpose of tile `b`'s 64
+// rows, over D columns (a warp's 16 x 64 of S = Q K^T, dP = dO V^T); the
+// products of each element summed in ascending column order
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&s)[kB / 8][4],
+                                        const bf16* a, int r0,
+                                        const bf16* b, int lane) {
+#pragma unroll
+  for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += 16) {
+    uint32_t af[4];
+    load_a<D>(af, a, r0, c, lane);
+#pragma unroll
+    for (int j = 0; j < kB / 8; j += 2) {
+      uint32_t bf[4];
+      load_bt<D>(bf, b, j * 8, c, lane);
+      mma_bf16(s[j], af, bf[0], bf[1]);
+      mma_bf16(s[j + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc += round_bf16(p) times the 64 rows of `tile`, over its columns c0
+// .. c0 + 8 NC - 1 (a warp's O += P V, dQ += dS K); p is the warp's 16 x
+// 64 fp32 accumulator, the keys in ascending order
+template <int D, int NC>
+__device__ __forceinline__ void mma_pv(float (&acc)[NC][4],
+                                       const float (&p)[kB / 8][4],
+                                       const bf16* tile, int c0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kB / 16; ++kk) {
+    uint32_t a[4];
+    acc_to_a<kB / 8>(a, p, kk);
+#pragma unroll
+    for (int c = 0; c < NC; c += 2) {
+      uint32_t b[4];
+      load_b<D>(b, tile, kk * 16, c0 + c * 8, lane);
+      mma_bf16(acc[c], a, b[0], b[1]);
+      mma_bf16(acc[c + 1], a, b[2], b[3]);
+    }
+  }
 }
 
 }  // namespace

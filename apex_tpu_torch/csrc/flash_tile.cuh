@@ -240,32 +240,10 @@ inline int status_of(cudaError_t launched) {
 
 // runs the launch given, as written, with T and D bound to the input type
 // and the instantiated head dim that takes d (BR to its tile rows), and
-// returns its status from the calling entry point (cudaErrorInvalidValue
-// for a d above 2048)
-#define APEX_FLASH_DISPATCH_TD(...)                                   \
-  do {                                                                \
-    switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \
-      APEX_FLASH_CASE(64, float, 32, __VA_ARGS__)                     \
-      APEX_FLASH_CASE(65, __nv_bfloat16, 32, __VA_ARGS__)             \
-      APEX_FLASH_CASE(128, float, 64, __VA_ARGS__)                    \
-      APEX_FLASH_CASE(129, __nv_bfloat16, 64, __VA_ARGS__)            \
-      APEX_FLASH_CASE(256, float, 128, __VA_ARGS__)                   \
-      APEX_FLASH_CASE(257, __nv_bfloat16, 128, __VA_ARGS__)           \
-      APEX_FLASH_CASE(512, float, 256, __VA_ARGS__)                   \
-      APEX_FLASH_CASE(513, __nv_bfloat16, 256, __VA_ARGS__)           \
-      APEX_FLASH_CASE(1024, float, 512, __VA_ARGS__)                  \
-      APEX_FLASH_CASE(1025, __nv_bfloat16, 512, __VA_ARGS__)          \
-      APEX_FLASH_CASE(2048, float, 1024, __VA_ARGS__)                 \
-      APEX_FLASH_CASE(2049, __nv_bfloat16, 1024, __VA_ARGS__)         \
-      APEX_FLASH_CASE(4096, float, 2048, __VA_ARGS__)                 \
-      APEX_FLASH_CASE(4097, __nv_bfloat16, 2048, __VA_ARGS__)         \
-      default: return static_cast<int>(cudaErrorInvalidValue);        \
-    }                                                                 \
-  } while (0)
-
-// as APEX_FLASH_DISPATCH_TD, for a kernel whose bf16 inputs at d <= 256
-// run on the tensor cores (flash_mma.cu, flash_varlen_mma.cu): here fp32 at
-// every D and bf16 from D = 512 on
+// returns its status from the calling entry point: fp32 at every D and
+// bf16 from D = 512 on (bf16 inputs at d <= 256 run on the tensor cores,
+// flash_mma.cu and flash_varlen_mma.cu); cudaErrorInvalidValue for the
+// rest and for a d above 2048
 #define APEX_FLASH_DISPATCH_CORE(...)                                 \
   do {                                                                \
     switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \

@@ -1,13 +1,13 @@
 // Packed variable-length flash attention, forward and backward, for Hopper
 // (sm_90a).
 //
-// Replaces the TPU kernels of apex_tpu/ops/attention_varlen.py:
+// Replaces the TPU kernels of apex_tpu/ops/attention_varlen.py, for fp32
+// inputs and bf16 above head_dim 256 (bf16 up to 256 runs the tensor-core
+// kernels of flash_varlen_mma.cu):
 //   * `_vl_fwd_kernel` (reached through `_vl_call`, pallas_call at :377):
 //     o and the row log-sum-exp lse;
 //   * `_vl_bwd_dq_kernel` (`_vl_bwd_call`, pallas_call at :414): dQ;
-//   * `_vl_bwd_dkv_kernel` (`_vl_bwd_call`, pallas_call at :451): dK, dV
-//     (here for fp32 inputs and bf16 above head_dim 256; bf16 up to 256
-//     runs the tensor-core dK/dV of flash_varlen_mma.cu).
+//   * `_vl_bwd_dkv_kernel` (`_vl_bwd_call`, pallas_call at :451): dK, dV.
 //
 // Math, exactly the JAX kernels' (all accumulation in fp32): a score
 // s = (q . k) * scale is allowed where seg_q == seg_k >= 0 (and kpos <=
@@ -26,9 +26,9 @@
 // L(L+1)/2 causal) per head set the operations, 4, 6 and 8 * h * S * d for
 // the three kernels; at GPT-2's attention width (12 heads of 64) and
 // documents of 64-1024 tokens they bound all three on the tensor cores'
-// rate. These first kernels run their products on the CUDA cores in fp32
-// (the flash kernels' tiling), so they sit far above that bound: a simple
-// kernel that is right comes first, wgmma and TMA come later.
+// rate. These kernels run their products on the CUDA cores in fp32 (the
+// flash kernels' tiling), so they sit far above that bound: fp32 keeps
+// them, as TF32 on the tensor cores would break the fp32 gates.
 //
 // Design: the flash kernels' tiles and row layout (flash_tile.cuh), over a
 // packed row padded to a multiple of 64 with segment -1. JAX clamps its K/V
@@ -661,8 +661,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // multiples of 64; d is any multiple of 8 (from D = 512 on the kernels'
 // 32-, 16- and 8-row tiles read a half, a quarter and an eighth of a
 // 64-row table entry each; above 2048 the wide kernels, 8-row tiles).
-// flash_varlen_bwd_dkv takes bf16 only above d 256 (cudaErrorInvalidValue
-// below: flash_varlen_mma.cu's tensor-core dK/dV serves those).
+// bf16 is taken only above d 256 (cudaErrorInvalidValue below:
+// flash_varlen_mma.cu's tensor-core kernels serve those).
 extern "C" int flash_varlen_fwd(int device, const void* q, const void* k,
                                 const void* v, const void* seg_q,
                                 const void* seg_k, const void* qr,
@@ -676,7 +676,7 @@ extern "C" int flash_varlen_fwd(int device, const void* q, const void* k,
   if (d > kWideCols)
     APEX_WIDE_DISPATCH_T(launch_wide_fwd, q, k, v, seg_q, seg_k, qr, kr, o,
                          lse, b, n, scale, causal, s);
-  APEX_FLASH_DISPATCH_TD(launch_fwd<T, D, BR>(
+  APEX_FLASH_DISPATCH_CORE(launch_fwd<T, D, BR>(
       q, k, v, seg_q, seg_k, qr, kr, o, lse, b, n, scale, causal, s));
 }
 
@@ -695,9 +695,9 @@ extern "C" int flash_varlen_bwd_dq(int device, const void* q, const void* k,
   if (d > kWideCols)
     APEX_WIDE_DISPATCH_T(launch_wide_dq, q, k, v, seg_q, seg_k, qr, kr, dout,
                          lse, delta, dq, b, n, scale, causal, s);
-  APEX_FLASH_DISPATCH_TD(launch_dq<T, D, BR>(q, k, v, seg_q, seg_k, qr, kr,
-                                             dout, lse, delta, dq, b, n,
-                                             scale, causal, s));
+  APEX_FLASH_DISPATCH_CORE(launch_dq<T, D, BR>(q, k, v, seg_q, seg_k, qr,
+                                               kr, dout, lse, delta, dq, b,
+                                               n, scale, causal, s));
 }
 
 extern "C" int flash_varlen_bwd_dkv(int device, const void* q, const void* k,

@@ -11,12 +11,13 @@ backward is two kernels, :func:`flash_varlen_bwd_dq` and
 :func:`flash_varlen_bwd_dkv`, which mask p by value (a pad row's lse is
 NEG_INF and ``exp(s - lse)`` would give 1). :class:`VarlenAttention` ties
 them into autograd; each dispatches by device (the kernel for a CUDA
-tensor, its plain version for a CPU tensor). dK/dV has two routes
-(:func:`_varlen_dkv_route`): bf16 at head_dim <= 256 runs on the tensor
-cores (``csrc/flash_varlen_mma.cu``, counted as
+tensor, its plain version for a CPU tensor). One route
+(:func:`_varlen_route`) decides all three kernels: bf16 at head_dim <= 256
+runs on the tensor cores (``csrc/flash_varlen_mma.cu``, counted as
+``flash_varlen_mma_fwd``, ``flash_varlen_mma_bwd_dq`` and
 ``flash_varlen_mma_bwd_dkv``), fp32 at every head_dim and bf16 above 256
-on the CUDA cores (``csrc/flash_varlen.cu``, ``flash_varlen_bwd_dkv``);
-the forward and dQ are ``flash_varlen.cu``'s for both types.
+on the CUDA cores (``csrc/flash_varlen.cu``, ``flash_varlen_fwd``,
+``flash_varlen_bwd_dq`` and ``flash_varlen_bwd_dkv``).
 
 Block skipping, as JAX does it: per 64-row tile the [min, max] segment id
 (:func:`_block_ranges`; the kernels take the min over real tokens,
@@ -51,16 +52,18 @@ _SIGNATURES = {
     "flash_varlen_bwd_dq": _HEAD + [ctypes.c_void_p] * 4 + _TAIL,
     "flash_varlen_bwd_dkv": _HEAD + [ctypes.c_void_p] * 5 + _TAIL,
 }
-# the tensor-core dK/dV (csrc/flash_varlen_mma.cu): flash_varlen_bwd_dkv's
-# arguments, with its block order after the tables
+# the tensor-core kernels (csrc/flash_varlen_mma.cu): the CUDA-core
+# entries' arguments, with the block order after the tables
 _MMA_SIGNATURES = {
+    "flash_varlen_mma_fwd": _HEAD + [ctypes.c_void_p] * 3 + _TAIL,
+    "flash_varlen_mma_bwd_dq": _HEAD + [ctypes.c_void_p] * 5 + _TAIL,
     "flash_varlen_mma_bwd_dkv": _HEAD + [ctypes.c_void_p] * 6 + _TAIL,
 }
 
 
-def _varlen_dkv_route(dtype, d: int) -> str:
-    """Which kernel runs the varlen dK/dV at this input dtype and head dim
-    on the card: ``"tensor_core"`` (bf16, d <= 256:
+def _varlen_route(dtype, d: int) -> str:
+    """Which kernels run the varlen forward, dQ and dK/dV at this input
+    dtype and head dim on the card: ``"tensor_core"`` (bf16, d <= 256:
     ``flash_varlen_mma.cu``) or ``"cuda_core"`` (fp32 at every d, bf16
     above 256: ``flash_varlen.cu``, fp32 products). A head dim that is not
     a positive multiple of 8 raises, as the kernels' gate refuses it."""
@@ -217,18 +220,24 @@ def _tile_ranges(seg_q, seg_k, causal: bool):
 
 
 def _tables(seg_q, seg_k, causal: bool, with_order: bool):
-    """What the kernels read beside the tensors: ``(qr, kr, order)``, the
-    per-tile tables of :func:`_tile_ranges` and, when ``with_order`` (the
-    tensor-core dK/dV's route, its only reader; else None), that kernel's
-    block order, (b, nk) int32: each batch row's K/V tiles by live q range
-    (``ihi - ilo``), longest first (a stable sort: ties in tile order),
-    so the blocks that walk the most q tiles start first. Built once per
-    :class:`VarlenAttention` call, with torch on the tensors' device."""
+    """What the kernels read beside the tensors: ``(qr, kr, kv_order,
+    q_order)``, the per-tile tables of :func:`_tile_ranges` and, when
+    ``with_order`` (the tensor-core route, their only reader; else None
+    and None), the block orders: ``kv_order`` (b, nk) int32, dK/dV's,
+    each batch row's K/V tiles by live q range (``ihi - ilo``), and
+    ``q_order`` (b, nq) int32, the forward's and dQ's, its q tiles by live
+    K/V range (``jhi - jlo``); longest first (a stable sort: ties in tile
+    order), so the blocks that walk the most tiles start first. Built once
+    per :class:`VarlenAttention` call, with torch on the tensors'
+    device."""
     qr, kr = _tile_ranges(seg_q, seg_k, causal)
     if not with_order:
-        return qr, kr, None
-    order = torch.argsort(kr[..., 2] - kr[..., 3], dim=1, stable=True)
-    return qr, kr, order.to(torch.int32).contiguous()
+        return qr, kr, None, None
+    kv_order, q_order = (
+        torch.argsort(r[..., 2] - r[..., 3], dim=1,
+                      stable=True).to(torch.int32).contiguous()
+        for r in (kr, qr))
+    return qr, kr, kv_order, q_order
 
 
 # ---------------------------------------------------------------------------
@@ -267,19 +276,23 @@ def _check_varlen(what, q, k, v, seg_q, seg_k, *others):
 def _launch(entry, q, k, v, seg_q, seg_k, scale, causal, pointers, others,
             tables=None):
     """Check the inputs, take the tables (``tables``, from :func:`_tables`
-    of these segment ids and ``causal``, with the block order for the
+    of these segment ids and ``causal``, with the block orders for a
     tensor-core entry; built here when None), launch
     ``entry`` with the tensors of ``pointers`` (in the C order, after q,
     k, v, the segment ids and the tables), count the launch and raise on a
     CUDA error."""
     b, h, sq, sk, d = _check_varlen(entry, q, k, v, seg_q, seg_k, *others)
     mma = entry in _MMA_SIGNATURES
-    qr, kr, order = (tables if tables is not None
-                     else _tables(seg_q, seg_k, causal, mma))
+    qr, kr, kv_order, q_order = (tables if tables is not None
+                                 else _tables(seg_q, seg_k, causal, mma))
     if mma:
+        # dK/dV's blocks take K/V tiles, the forward's and dQ's q tiles
+        order = kv_order if entry == "flash_varlen_mma_bwd_dkv" else q_order
         ku.require(order is not None,
                    f"{entry}: its tables need the block order "
                    f"(_tables(..., with_order=True))")
+        ku.require(max(sq, sk) // _TILE < 65536,
+                   f"{entry}: at most 65,535 tiles of {_TILE} a row")
         lib = ku.load_kernel("flash_varlen_mma", _MMA_SIGNATURES)
         tabs = (qr, kr, order)
     else:
@@ -301,36 +314,41 @@ def _bwd_others(q, do, lse, delta):
             ("delta", delta, rows, torch.float32))
 
 
+def _entry(kernel: str, q) -> str:
+    """The C entry of ``kernel`` (``"fwd"``, ``"bwd_dq"``, ``"bwd_dkv"``)
+    on :func:`_varlen_route`'s route for q's type and head dim."""
+    mma = _varlen_route(q.dtype, q.shape[-1]) == "tensor_core"
+    return f"flash_varlen_{'mma_' if mma else ''}{kernel}"
+
+
 def flash_varlen_fwd(q, k, v, seg_q, seg_k, scale: float, causal: bool,
                      tables=None):
-    """Launch the varlen forward kernel on (b, h, s, d) CUDA tensors with
-    int32 (b, s) segment ids, s a multiple of 64: returns ``(o, lse)``,
-    lse fp32 (b, h, sq, 1). ``tables``: :func:`_tables` of these segment
-    ids, or None to build them."""
+    """Launch the varlen forward kernel of :func:`_varlen_route` on (b, h,
+    s, d) CUDA tensors with int32 (b, s) segment ids, s a multiple of 64:
+    returns ``(o, lse)``, lse fp32 (b, h, sq, 1). ``tables``:
+    :func:`_tables` of these segment ids, or None to build them."""
     o = torch.empty_like(q)
     lse = torch.empty(*q.shape[:3], 1, dtype=torch.float32, device=q.device)
-    _launch("flash_varlen_fwd", q, k, v, seg_q, seg_k, scale, causal,
+    _launch(_entry("fwd", q), q, k, v, seg_q, seg_k, scale, causal,
             (o, lse), (), tables)
     return o, lse
 
 
 def flash_varlen_bwd_dq(q, k, v, seg_q, seg_k, do, lse, delta, scale: float,
                         causal: bool, tables=None):
-    """Launch the varlen dQ kernel; ``lse`` and ``delta`` are fp32 (b, h,
-    sq, 1)."""
+    """Launch the varlen dQ kernel of :func:`_varlen_route`; ``lse`` and
+    ``delta`` are fp32 (b, h, sq, 1)."""
     dq = torch.empty_like(q)
-    _launch("flash_varlen_bwd_dq", q, k, v, seg_q, seg_k, scale, causal,
+    _launch(_entry("bwd_dq", q), q, k, v, seg_q, seg_k, scale, causal,
             (do, lse, delta, dq), _bwd_others(q, do, lse, delta), tables)
     return dq
 
 
 def flash_varlen_bwd_dkv(q, k, v, seg_q, seg_k, do, lse, delta, scale: float,
                          causal: bool, tables=None):
-    """Launch the varlen dK/dV kernel of :func:`_varlen_dkv_route`;
-    returns ``(dk, dv)``."""
-    entry = ("flash_varlen_mma_bwd_dkv"
-             if _varlen_dkv_route(q.dtype, q.shape[-1]) == "tensor_core"
-             else "flash_varlen_bwd_dkv")
+    """Launch the varlen dK/dV kernel of :func:`_varlen_route`; returns
+    ``(dk, dv)``."""
+    entry = _entry("bwd_dkv", q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch(entry, q, k, v, seg_q, seg_k, scale, causal,
@@ -351,7 +369,7 @@ class VarlenAttention(torch.autograd.Function):
         ctx.kernel = ku.use_kernel(q)
         ctx.args = (scale, causal)
         if ctx.kernel:
-            ctx.tables = _tables(seg_q, seg_k, causal, _varlen_dkv_route(
+            ctx.tables = _tables(seg_q, seg_k, causal, _varlen_route(
                 q.dtype, q.shape[-1]) == "tensor_core")
             o, lse = flash_varlen_fwd(q, k, v, seg_q, seg_k, *ctx.args,
                                       tables=ctx.tables)

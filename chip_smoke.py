@@ -74,15 +74,18 @@
      (one row of 8192 tokens, 12 heads of 64, documents of 64-1024
      tokens from numpy seed 1, the rest padding), fp32 and bf16, causal
      and not, the same row at 4 heads of 256 and 2 of 512, causal; pad rows
-     exactly 0, dK/dV on its route (bf16 up to head_dim 256: the
-     tensor-core kernel of ``csrc/flash_varlen_mma.cu``, its ptxas lines
-     and SASS ``HMMA`` counts reported) and bitwise over two launches, and
-     through ``flash_attention_varlen``
+     exactly 0 (their lse NEG_INF), the three kernels on their route
+     (bf16 up to head_dim 256: the tensor-core kernels of
+     ``csrc/flash_varlen_mma.cu``, their ptxas lines and SASS ``HMMA``
+     counts reported), o, lse, dq, dk and dv bitwise over two launches,
+     and through ``flash_attention_varlen``
      at a misaligned total (8100); times (the tile tables built
      beforehand, once per call as the packed path does; their build timed
-     beside) next to SDPA with the dense block-diagonal mask and the dense
-     causal flash kernels at the same T, the CUDA-core dK/dV beside the
-     tensor-core one;
+     beside) next to SDPA with the dense block-diagonal mask, PyTorch's
+     own varlen flash attention on the same documents (bf16 up to
+     head_dim 256, a yardstick outside every gate) and the dense causal
+     flash kernels at the same T, the CUDA-core kernels (fp32) beside the
+     tensor-core ones;
      and a short packed row (256 tokens, 2 heads) at head_dim 2056 causal
      and 4096 bidirectional (the wide kernels), fp32 and bf16, checked;
    * ``layer_norm`` without weight or bias on CUDA: the plain version,
@@ -166,7 +169,7 @@
 6. Packed path: ``contrib.fmha.FMHA`` (12 heads of 64) over the packed
    row of 8192 tokens, forward plus backward through autograd, bf16 and
    fp32, causal and bidirectional: one launch of each varlen kernel per
-   run (dK/dV on its route; counts reset just before it and read just
+   run (each on its route; counts reset just before it and read just
    after), pad rows of o
    and dqkv exactly 0, a second run bitwise equal, and in fp32 o and dqkv
    equal to ``flash_attention`` run document by document (1e-5); device
@@ -394,13 +397,15 @@ def lm_mma_kernel_info(ku, built):
 
 
 def varlen_mma_kernel_info(ku, built):
-    """The tensor-core varlen dK/dV (``csrc/flash_varlen_mma.cu``, 4
-    instantiations: D 32-256)."""
+    """The tensor-core varlen forward, dQ and dK/dV
+    (``csrc/flash_varlen_mma.cu``, 4 instantiations each: D 32-256)."""
     counts = sass_hmma_counts(
-        ku, "flash_varlen_mma", r"(varlen_mma_dkv_kernel)ILi(\d+)E",
+        ku, "flash_varlen_mma",
+        r"(varlen_mma_(?:fwd|dq|dkv)_kernel)ILi(\d+)E",
         lambda m: f"{m.group(1)}[{m.group(2)}]")
     return tensor_core_info(ku, built, "flash_varlen_mma", counts, {
-        "dkv": ("varlen_mma_dkv_kernel", 4, "varlen_mma_dkv_kernel")})
+        key: (f"varlen_mma_{key}_kernel", 4, f"varlen_mma_{key}_kernel")
+        for key in ("fwd", "dq", "dkv")})
 
 
 def paged_mma_kernel_info(ku, built):
@@ -1378,14 +1383,60 @@ PACK_WIDE_T, PACK_WIDE_HEADS = 256, 2
 PACK_WIDE_CASES = ((2056, True), (4096, False))
 def varlen_entries(dtype, d: int):
     """The varlen forward, dQ and dK/dV entries one packed forward plus
-    backward launches at this dtype and head dim: dK/dV on its route
-    (``_varlen_dkv_route``: bf16 up to 256 on the tensor cores)."""
-    from apex_tpu_torch.ops.attention_varlen import _varlen_dkv_route
+    backward launches at this dtype and head dim, on their route
+    (``_varlen_route``: bf16 up to 256 on the tensor cores)."""
+    from apex_tpu_torch.ops.attention_varlen import _varlen_route
 
-    dkv = ("flash_varlen_mma_bwd_dkv"
-           if _varlen_dkv_route(dtype, d) == "tensor_core"
-           else "flash_varlen_bwd_dkv")
-    return ("flash_varlen_fwd", "flash_varlen_bwd_dq", dkv)
+    mma = "mma_" if _varlen_route(dtype, d) == "tensor_core" else ""
+    return tuple(f"flash_varlen_{mma}{k}" for k in ("fwd", "bwd_dq",
+                                                     "bwd_dkv"))
+
+
+def varlen_library(torch, q, k, v, do, lens, causal):
+    """PyTorch's own varlen flash attention on the documents ``lens`` of
+    the packed row in q, k, v, dO ((1, heads, T, d) bf16): q, k, v as
+    (tokens, heads, d) cut to the real tokens, with their cu_seqlens.
+    ``torch.nn.attention.varlen.varlen_attn`` (``window_size=(-1, 0)``
+    when causal) where this torch has it, else
+    ``aten._flash_attention_forward`` / ``_backward`` with ``cum_seq_q`` /
+    ``cum_seq_k``. Returns ``(api, fwd, bwd, o)``: the call's name, one
+    forward, one backward (dq, dk, dv) and the forward's output, (1,
+    heads, real tokens, d). A yardstick only: the port never calls it."""
+    n = sum(lens)
+    cu = torch.tensor([0, *itertools.accumulate(lens)], dtype=torch.int32,
+                      device=q.device)
+    q3, k3, v3, do3 = (x[0, :, :n].transpose(0, 1).contiguous()
+                       for x in (q, k, v, do))
+    mx, scale = max(lens), 1.0 / math.sqrt(q.shape[-1])
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError:
+        varlen_attn = None
+    if varlen_attn is not None:
+        window = (-1, 0) if causal else (-1, -1)
+
+        def fwd():
+            return varlen_attn(q3, k3, v3, cu, cu, mx, mx, scale=scale,
+                               window_size=window)
+        leaves = [x.clone().requires_grad_() for x in (q3, k3, v3)]
+        out = varlen_attn(*leaves, cu, cu, mx, mx, scale=scale,
+                          window_size=window)
+
+        def bwd():
+            return torch.autograd.grad(out, leaves, do3, retain_graph=True)
+        api = "torch.nn.attention.varlen.varlen_attn"
+    else:
+        def fwd():
+            return torch.ops.aten._flash_attention_forward(
+                q3, k3, v3, cu, cu, mx, mx, 0.0, causal, False, scale=scale)
+        out, lse, rng, unused, _ = fwd()
+
+        def bwd():
+            return torch.ops.aten._flash_attention_backward(
+                do3, q3, k3, v3, out, lse, cu, cu, mx, mx, 0.0, causal, rng,
+                unused, scale=scale)
+        api = "aten._flash_attention_forward/_backward"
+    return api, fwd, bwd, out.detach().transpose(0, 1)[None]
 
 
 def packed_lengths(total: int = PACK_T, seed: int = 1, lo: int = 64,
@@ -1463,7 +1514,7 @@ def varlen_phase(torch, dev):
                                               flash_attention_bwd_dq,
                                               flash_attention_fwd)
     from apex_tpu_torch.ops.attention_varlen import (
-        NEG_INF, _tables, _varlen_dkv_route, flash_attention_varlen,
+        NEG_INF, _tables, _varlen_route, flash_attention_varlen,
         flash_varlen_bwd_dkv, flash_varlen_bwd_dq, flash_varlen_bwd_reference,
         flash_varlen_fwd, flash_varlen_fwd_reference)
 
@@ -1506,7 +1557,8 @@ def varlen_phase(torch, dev):
                     "heads": heads, "head_dim": d, "documents": len(lens),
                     "pad_tokens": int(pad.sum()), "live_scores": s_live,
                     "atol": atol, "rtol": rtol,
-                    "dkv_entry": varlen_entries(dt, d)[2],
+                    "entries": dict(zip(("fwd", "dq", "dkv"),
+                                        varlen_entries(dt, d))),
                     "fwd": {"max_abs_err": max(
                         check_close(f"{tag} o", o, o_p, atol, rtol),
                         check_close(f"{tag} lse", lse, lse_p, 1e-4, 1e-5))},
@@ -1520,13 +1572,18 @@ def varlen_phase(torch, dev):
                     raise AssertionError(f"{tag}: {name} of pad rows not 0")
             if not bool((lse[0, :, pad] == NEG_INF).all()):
                 raise AssertionError(f"{tag}: pad rows' lse not NEG_INF")
+            o2, lse2 = flash_varlen_fwd(*vargs, *args)
+            dq2 = flash_varlen_bwd_dq(*vargs, do, lse, delta, *args)
             dk2, dv2 = flash_varlen_bwd_dkv(*vargs, do, lse, delta, *args)
-            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-                raise AssertionError(f"{tag}: dk, dv not bitwise equal over "
-                                     f"repeats")
-            case["dkv"]["bitwise_repeat"] = True
-            del o_p, lse_p, want, dk2, dv2
-            mma = _varlen_dkv_route(dt, d) == "tensor_core"
+            for key, pairs in (("fwd", ((o, o2), (lse, lse2))),
+                               ("dq", ((dq, dq2),)),
+                               ("dkv", ((dk, dk2), (dv, dv2)))):
+                if not all(torch.equal(a, b) for a, b in pairs):
+                    raise AssertionError(f"{tag}: {key} not bitwise equal "
+                                         f"over repeats")
+                case[key]["bitwise_repeat"] = True
+            del o_p, lse_p, want, o2, lse2, dq2, dk2, dv2
+            mma = _varlen_route(dt, d) == "tensor_core"
             tabs = _tables(seg, seg, causal, mma)
             case["tables_ms"] = timed(lambda: _tables(seg, seg, causal, mma))
             q4, k4, v4 = (x.clone().requires_grad_() for x in (q, k, v))
@@ -1568,6 +1625,25 @@ def varlen_phase(torch, dev):
                 ms_tables_in_call=timed(lambda: flash_varlen_bwd_dkv(
                     *vargs, do, lse, delta, *args)),
                 plain_ms=plain_bwd, library_ms=lib_bwd)
+            # PyTorch's varlen flash attention on the same documents (bf16,
+            # head_dim <= 256): a yardstick, outside every gate
+            lib = {"api": None, "fwd_ms": None, "bwd_ms": None}
+            if mma:
+                try:
+                    api, lib_f, lib_b, o_lib3 = varlen_library(
+                        torch, q, k, v, do, lens, causal)
+                    lib = {"api": api, "fwd_ms": timed(lib_f, 10),
+                           "bwd_ms": timed(lib_b, 10),
+                           "o_max_abs_diff": float(
+                               (o_lib3.float() - o[:, :, :sum(lens)].float())
+                               .abs().max())}
+                    del o_lib3
+                except Exception as e:     # recorded, not gated
+                    lib["error"] = f"{type(e).__name__}: {e}"[:300]
+            case["varlen_library"] = lib
+            for key, ms in (("fwd", lib["fwd_ms"]), ("dq", lib["bwd_ms"]),
+                            ("dkv", lib["bwd_ms"])):
+                case[key]["varlen_library_ms"] = ms
             for key, (bms, by) in zip(("fwd", "dq", "dkv"), varlen_bounds(
                     heads, t, d, s_live, q.element_size(), dname)):
                 case[key].update(bound_ms=bms, bound_by=by)
@@ -3563,10 +3639,10 @@ def main(argv=None) -> int:
          **rows_of("dbias", D_WIDE_BIAS_SHAPES, "float32")})
     # the packed path's kernels: launches of one bf16 causal forward plus
     # backward through FMHA; times at its shape, bf16 causal, with the
-    # bidirectional times and the dense causal flash kernels beside them.
-    # dK/dV: bf16 up to head_dim 256 on the tensor cores; the CUDA-core
-    # dK/dV now runs fp32 (launched by the fp32 FMHA run, timed fp32) and
-    # bf16 above 256 (d512)
+    # bidirectional times, PyTorch's varlen flash attention and the dense
+    # causal flash kernels beside them. bf16 up to head_dim 256 runs the
+    # tensor-core kernels; the CUDA-core ones now run fp32 (launched by
+    # the fp32 FMHA run, timed fp32) and bf16 above 256 (d512)
     vc = pick(vl["cases"], dtype="bfloat16", causal=True, head_dim=PACK_D)
     vb = pick(vl["cases"], dtype="bfloat16", causal=False, head_dim=PACK_D)
     v256 = pick(vl["cases"], dtype="bfloat16", head_dim=256)
@@ -3578,70 +3654,60 @@ def main(argv=None) -> int:
     packed = (f"packed (1, {vc['heads']}, {vc['tokens']}, {vc['head_dim']}), "
               f"{vc['documents']} documents, causal")
 
-    def varlen_err(key, entry=None):
+    def varlen_err(key, entry):
+        """The largest error of ``entry``: its cases, the misaligned front
+        door in the types it runs, and (CUDA cores) the wide kernels."""
+        mma = "mma" in entry
         return max([c[key]["max_abs_err"] for c in vl["cases"]
-                    if entry is None or c["dkv_entry"] == entry]
-                   + [c["max_abs_err"] for c in vl["misaligned"]]
-                   + [c["max_abs_err"] for c in vl["wide"]])
+                    if c["entries"][key] == entry]
+                   + [c["max_abs_err"] for c in vl["misaligned"]
+                      if (c["dtype"] == "bfloat16") == mma]
+                   + ([] if mma else [c["max_abs_err"] for c in vl["wide"]]))
 
     def varlen_rows(key, case):
         return {"heads": case["heads"], "causal": case["causal"],
                 **{k: case[key][k] for k in timing},
+                "varlen_library_ms": case[key]["varlen_library_ms"],
                 "tables_ms": case["tables_ms"],
                 "ms_tables_in_call": case[key]["ms_tables_in_call"]}
 
-    for key, kname, line in (("fwd", "flash_varlen_fwd", 377),
-                             ("dq", "flash_varlen_bwd_dq", 414)):
+    vl_info = varlen_mma_kernel_info(ku, built)
+    for key, kernel, line in (("fwd", "fwd", 377), ("dq", "bwd_dq", 414),
+                              ("dkv", "bwd_dkv", 451)):
+        mma, core = f"flash_varlen_mma_{kernel}", f"flash_varlen_{kernel}"
         kernels.append(
-            {"name": kname, "route": "cuda",
-             "source": "apex_tpu_torch/csrc/flash_varlen.cu",
+            {"name": mma, "route": "cuda",
+             "source": "apex_tpu_torch/csrc/flash_varlen_mma.cu",
              "replaces": f"apex_tpu/ops/attention_varlen.py:{line}",
-             "launches": main_run["launches"][kname], "path": "fmha",
-             "shape": packed, "max_abs_err": varlen_err(key),
+             **vl_info[key],
+             "launches": main_run["launches"][mma], "path": "fmha",
+             "shape": packed, "max_abs_err": varlen_err(key, mma),
+             "bitwise_repeat": True,
              **{k: vc[key][k] for k in timing},
+             "varlen_library_ms": vc[key]["varlen_library_ms"],
+             "varlen_library_api": vc["varlen_library"]["api"],
              "tables_ms": vc["tables_ms"],
              "ms_tables_in_call": vc[key]["ms_tables_in_call"],
              "dense_causal_flash_ms": vc[key]["dense_causal_flash_ms"],
              "ratio_to_dense_causal_flash":
                  vc[key]["ratio_to_dense_causal_flash"],
              "bidirectional": varlen_rows(key, vb),
-             "d256": varlen_rows(key, v256), "d512": varlen_rows(key, v512),
+             "d256": varlen_rows(key, v256)})
+        kernels.append(
+            {"name": core, "route": "cuda",
+             "source": "apex_tpu_torch/csrc/flash_varlen.cu",
+             "replaces": f"apex_tpu/ops/attention_varlen.py:{line}",
+             "launches": fp32_run["launches"][core],
+             "path": "fmha fp32 (fp32 inputs; bf16 above head_dim 256)",
+             "shape": packed + " fp32", "max_abs_err": varlen_err(key, core),
+             "bitwise_repeat": True,
+             **{k: vc32[key][k] for k in timing},
+             "tables_ms": vc32["tables_ms"],
+             "ms_tables_in_call": vc32[key]["ms_tables_in_call"],
+             "bidirectional_fp32": varlen_rows(key, vb32),
+             "d512": varlen_rows(key, v512),
              "wide": {f"d{c['head_dim']}_{c['dtype']}": c["max_abs_err"]
                       for c in vl["wide"]}})
-    vl_info = varlen_mma_kernel_info(ku, built)
-    kernels.append(
-        {"name": "flash_varlen_mma_bwd_dkv", "route": "cuda",
-         "source": "apex_tpu_torch/csrc/flash_varlen_mma.cu",
-         "replaces": "apex_tpu/ops/attention_varlen.py:451",
-         **vl_info["dkv"],
-         "launches": main_run["launches"]["flash_varlen_mma_bwd_dkv"],
-         "path": "fmha", "shape": packed,
-         "max_abs_err": max(c["dkv"]["max_abs_err"] for c in vl["cases"]
-                            if c["dkv_entry"] == "flash_varlen_mma_bwd_dkv"),
-         "bitwise_repeat": True,
-         **{k: vc["dkv"][k] for k in timing},
-         "tables_ms": vc["tables_ms"],
-         "ms_tables_in_call": vc["dkv"]["ms_tables_in_call"],
-         "dense_causal_flash_ms": vc["dkv"]["dense_causal_flash_ms"],
-         "ratio_to_dense_causal_flash":
-             vc["dkv"]["ratio_to_dense_causal_flash"],
-         "bidirectional": varlen_rows("dkv", vb),
-         "d256": varlen_rows("dkv", v256)})
-    kernels.append(
-        {"name": "flash_varlen_bwd_dkv", "route": "cuda",
-         "source": "apex_tpu_torch/csrc/flash_varlen.cu",
-         "replaces": "apex_tpu/ops/attention_varlen.py:451",
-         "launches": fp32_run["launches"]["flash_varlen_bwd_dkv"],
-         "path": "fmha fp32 (fp32 inputs; bf16 above head_dim 256)",
-         "shape": packed + " fp32",
-         "max_abs_err": varlen_err("dkv", "flash_varlen_bwd_dkv"),
-         **{k: vc32["dkv"][k] for k in timing},
-         "tables_ms": vc32["tables_ms"],
-         "ms_tables_in_call": vc32["dkv"]["ms_tables_in_call"],
-         "bidirectional_fp32": varlen_rows("dkv", vb32),
-         "d512": varlen_rows("dkv", v512),
-         "wide": {f"d{c['head_dim']}_{c['dtype']}": c["max_abs_err"]
-                  for c in vl["wide"]}})
     # the fused loss at the training shape (8192, 768, 50304) bf16: the
     # tensor-core forward, dX and dW, with T5's shape beside it; the
     # CUDA-core forward, dX and dW now run fp32 inputs: their launches from
@@ -3789,8 +3855,9 @@ def main(argv=None) -> int:
     for c in vl["cases"]:
         text = " ".join(
             f"{k} {c[k]['ms']:.4f} ms (plain {c[k]['plain_ms']:.4f}, library "
-            f"{c[k]['library_ms']:.4f}, bound {c[k]['bound_ms']:.4f} "
-            f"{c[k]['bound_by']}, dense causal flash "
+            f"{c[k]['library_ms']:.4f}, varlen library "
+            f"{c[k]['varlen_library_ms'] or float('nan'):.4f}, bound "
+            f"{c[k]['bound_ms']:.4f} {c[k]['bound_by']}, dense causal flash "
             f"{c[k].get('dense_causal_flash_ms', float('nan')):.4f}) err "
             f"{c[k]['max_abs_err']:.3e}" for k in ("fwd", "dq", "dkv"))
         text += "; tables built in the call: " + ", ".join(
@@ -3799,8 +3866,11 @@ def main(argv=None) -> int:
         print(f"flash_varlen {'causal' if c['causal'] else 'bidirectional'} "
               f"{c['dtype']} (1, {c['heads']}, {c['tokens']}, "
               f"{c['head_dim']}; {c['documents']} documents, "
-              f"{c['pad_tokens']} pad; dkv {c['dkv_entry']}, tables "
+              f"{c['pad_tokens']} pad; {'/'.join(c['entries'].values())}"
+              f", tables "
               f"{c['tables_ms']:.4f} ms): {text} on {card}")
+        if c["varlen_library"]["api"] or "error" in c["varlen_library"]:
+            print(f"  varlen library: {c['varlen_library']}")
     for c in vl["misaligned"]:
         print(f"flash_varlen misaligned T={c['tokens']} causal {c['causal']} "
               f"{c['dtype']}: kernels vs plain err {c['max_abs_err']:.3e}")

@@ -1306,10 +1306,11 @@ def test_varlen_kernels_match_plain(dev, dtype, b, h, s, d, causal, foreign):
     """o, lse, dq, dk, dv of the three varlen kernels vs their plain
     versions at the same inputs (fp32 atol/rtol 1e-4, bf16 atol 1e-2 +
     rtol 2**-7, as flash); pad rows, an all-padding tile and a K/V tile no
-    query meets give exact zeros (lse NEG_INF on pad rows). dK/dV runs on
-    its route (bf16 up to head_dim 256: ``flash_varlen_mma_bwd_dkv``)."""
+    query meets give exact zeros (lse NEG_INF on pad rows). The kernels
+    run on their route (bf16 up to head_dim 256: ``flash_varlen_mma_*``,
+    and then none of the CUDA-core kernels)."""
     from apex_tpu_torch.ops.attention_varlen import (
-        NEG_INF, _varlen_dkv_route, flash_varlen_bwd_dkv,
+        NEG_INF, _varlen_route, flash_varlen_bwd_dkv,
         flash_varlen_bwd_dq, flash_varlen_bwd_reference, flash_varlen_fwd,
         flash_varlen_fwd_reference)
     q, k, v, do, seg_q, seg_k = _varlen_case(dev, dtype, b, h, s, d,
@@ -1341,11 +1342,11 @@ def test_varlen_kernels_match_plain(dev, dtype, b, h, s, d, causal, foreign):
     for t in (dk, dv):
         assert not bool(t[no_q.expand(-1, h, -1)].any())
     after = ku.launch_counts()
-    dkv = ("flash_varlen_mma_bwd_dkv"
-           if _varlen_dkv_route(dtype, d) == "tensor_core"
-           else "flash_varlen_bwd_dkv")
-    for name in ("flash_varlen_fwd", "flash_varlen_bwd_dq", dkv):
-        assert after[name] == counts.get(name, 0) + 1
+    mma = _varlen_route(dtype, d) == "tensor_core"
+    for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
+        for routed in (True, False):
+            name = f"flash_varlen_{'mma_' if mma == routed else ''}{kernel}"
+            assert after.get(name, 0) == counts.get(name, 0) + routed, name
 
 
 def _packed_case(dev, heads, total, d, seed):
@@ -1403,23 +1404,101 @@ def test_varlen_mma_dkv_matches_plain_and_repeats_bitwise(dev, heads, total,
         torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
                                    rtol=2 ** -7, msg=name)
         assert not bool(got[0][:, seg[0] < 0].any()), name
-    qr, kr, order = _tables(seg, seg, causal, True)
+    qr, kr, order, q_order = _tables(seg, seg, causal, True)
     tile_order = torch.arange(order.shape[1], dtype=torch.int32,
                               device=dev)[None].contiguous()
-    for tables in (None, (qr, kr, order), (qr, kr, tile_order)):
+    for tables in (None, (qr, kr, order, q_order),
+                   (qr, kr, tile_order, q_order)):
         dk2, dv2 = flash_varlen_bwd_dkv(q, k, v, seg, seg, do, lse, delta,
                                         *args, tables=tables)
         assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     with pytest.raises(ValueError, match="block order"):
         flash_varlen_bwd_dkv(q, k, v, seg, seg, do, lse, delta, *args,
-                             tables=(qr, kr, None))
+                             tables=(qr, kr, None, q_order))
+
+
+def _case_a(dev, heads, d, seed):
+    """One packed row of 320 tokens: document 0 (100 tokens) ends inside
+    q tile 1 and document 1 (70) starts there, so tile 1's first live K/V
+    tile (tile 0) allows nothing for document 1's rows; document 2 (80)
+    ends mid-tile; a pad tail of 70 leaves tile 4 all padding (an empty
+    live range). bf16 q, k, v, dO."""
+    seg = torch.tensor([[0] * 100 + [1] * 70 + [2] * 80 + [-1] * 70],
+                       dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(1, heads, 320, d, device=dev,
+                               generator=g).bfloat16() for _ in range(4))
+    return q, k, v, do, seg
+
+
+# the tensor-core forward and dQ: the dK/dV's packed rows, case (a) at
+# head_dims 40-256 (d < D zero-filled in the tiles), causal and not
+VARLEN_MMA_FWD_CASES = (
+    [("packed", *c) for c in VARLEN_MMA_CASES]
+    + [("case_a", 2, 320, d, causal) for d in (40, 64, 128, 200, 256)
+       for causal in (False, True)])
+
+
+@pytest.mark.parametrize("kind,heads,total,d,causal", VARLEN_MMA_FWD_CASES)
+def test_varlen_mma_fwd_dq_match_plain_and_repeat_bitwise(dev, kind, heads,
+                                                          total, d, causal):
+    """The tensor-core varlen forward and dQ (bf16) vs their plain
+    versions: o and dq within flash's bf16 tolerance (atol 1e-2 + rtol
+    2**-7), lse within 1e-4 / 1e-5; pad rows' o and dq exactly 0 and their
+    lse NEG_INF; one launch each of ``flash_varlen_mma_fwd`` and
+    ``flash_varlen_mma_bwd_dq``, none of the CUDA-core forward and dQ; the
+    same bits on every launch, with the tables built in the call or
+    given, in the block order or in tile order."""
+    from apex_tpu_torch.ops.attention_varlen import (
+        NEG_INF, _tables, flash_varlen_bwd_dq, flash_varlen_bwd_reference,
+        flash_varlen_fwd, flash_varlen_fwd_reference)
+    if kind == "packed":
+        q, k, v, do, seg = _packed_case(dev, heads, total, d, 7 * total + d)
+    else:
+        q, k, v, do, seg = _case_a(dev, heads, d, d)
+    args = (1 / math.sqrt(d), causal)
+    before = ku.launch_counts()
+    o, lse = flash_varlen_fwd(q, k, v, seg, seg, *args)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = flash_varlen_bwd_dq(q, k, v, seg, seg, do, lse, delta, *args)
+    after = ku.launch_counts()
+    for name, n in (("flash_varlen_mma_fwd", 1), ("flash_varlen_fwd", 0),
+                    ("flash_varlen_mma_bwd_dq", 1),
+                    ("flash_varlen_bwd_dq", 0)):
+        assert after.get(name, 0) == before.get(name, 0) + n, name
+    o_p, lse_p = flash_varlen_fwd_reference(q, k, v, seg, seg, *args)
+    want = flash_varlen_bwd_reference(q, k, v, seg, seg, o, lse, do, *args)
+    torch.cuda.synchronize()
+    assert o.dtype == dq.dtype == torch.bfloat16
+    torch.testing.assert_close(o.float(), o_p.float(), atol=1e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(dq.float(), want[0].float(), atol=1e-2,
+                               rtol=2 ** -7)
+    pad = seg[0] < 0
+    assert not bool(o[0][:, pad].any()) and not bool(dq[0][:, pad].any())
+    assert bool((lse[0][:, pad] == NEG_INF).all())
+    qr, kr, order, q_order = _tables(seg, seg, causal, True)
+    tile_order = torch.arange(q_order.shape[1], dtype=torch.int32,
+                              device=dev)[None].contiguous()
+    for tables in (None, (qr, kr, order, q_order),
+                   (qr, kr, order, tile_order)):
+        o2, lse2 = flash_varlen_fwd(q, k, v, seg, seg, *args, tables=tables)
+        dq2 = flash_varlen_bwd_dq(q, k, v, seg, seg, do, lse, delta, *args,
+                                  tables=tables)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        assert torch.equal(dq, dq2)
+    with pytest.raises(ValueError, match="block order"):
+        flash_varlen_fwd(q, k, v, seg, seg, *args,
+                         tables=(qr, kr, order, None))
 
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_varlen_mma_dkv_misaligned_front_door(dev, causal):
     """``flash_attention_varlen`` on bf16 at a total that is not a
     multiple of the 64-row tile (1000 tokens, 4 heads of 64): one launch
-    of the tensor-core dK/dV per forward plus backward, k and v gradients
+    of each tensor-core kernel per forward plus backward (none of the
+    CUDA-core ones), k and v gradients
     within the bf16 tolerance of the plain versions forced, pad keys 0."""
     from apex_tpu_torch.ops.attention_varlen import flash_attention_varlen
     q, k, v, do, seg = _packed_case(dev, 4, 1000, 64, 5)
@@ -1431,10 +1510,10 @@ def test_varlen_mma_dkv_misaligned_front_door(dev, causal):
             o = flash_attention_varlen(*leaves, seg, causal=causal)
             o.backward(do)
         after = ku.launch_counts()
-        assert after.get("flash_varlen_mma_bwd_dkv", 0) - \
-            before.get("flash_varlen_mma_bwd_dkv", 0) == (not plain)
-        assert after.get("flash_varlen_bwd_dkv", 0) == \
-            before.get("flash_varlen_bwd_dkv", 0)
+        for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
+            mma, core = f"flash_varlen_mma_{kernel}", f"flash_varlen_{kernel}"
+            assert after.get(mma, 0) - before.get(mma, 0) == (not plain)
+            assert after.get(core, 0) == before.get(core, 0)
         assert leaves[1].grad.shape == (1, 4, 1000, 64)
         runs.append([t.grad for t in leaves[1:]])
     for got, ref in zip(*runs):

@@ -287,8 +287,8 @@ def test_varlen_cpu_tensors_take_the_plain_versions():
 
 
 # ---------------------------------------------------------------------------
-# the dK/dV route (bf16 up to head_dim 256 on the tensor cores) and an
-# emulation of its owner-block walk
+# the route (bf16 up to head_dim 256 on the tensor cores, all three
+# kernels) and emulations of the tensor-core kernels' owner-block walks
 
 
 @pytest.mark.parametrize("dtype,d,want", [
@@ -298,17 +298,18 @@ def test_varlen_cpu_tensors_take_the_plain_versions():
     (torch.float32, 64, "cuda_core"), (torch.float32, 256, "cuda_core"),
     (torch.float32, 4096, "cuda_core")])
 def test_varlen_dkv_route(dtype, d, want):
-    """bf16 at head_dim <= 256 runs dK/dV on the tensor cores
-    (``csrc/flash_varlen_mma.cu``); fp32 at every head_dim and bf16 above
-    256 on the CUDA cores (``csrc/flash_varlen.cu``)."""
-    assert vl._varlen_dkv_route(dtype, d) == want
+    """bf16 at head_dim <= 256 runs the varlen kernels (dK/dV, the forward
+    and dQ alike) on the tensor cores (``csrc/flash_varlen_mma.cu``); fp32
+    at every head_dim and bf16 above 256 on the CUDA cores
+    (``csrc/flash_varlen.cu``)."""
+    assert vl._varlen_route(dtype, d) == want
 
 
 @pytest.mark.parametrize("d", [36, 0, -8, 12])
 def test_varlen_dkv_route_refuses_what_no_kernel_takes(d):
     with pytest.raises(ValueError,
                        match=f"head_dim {d} must be a positive multiple of 8"):
-        vl._varlen_dkv_route(torch.bfloat16, d)
+        vl._varlen_route(torch.bfloat16, d)
 
 
 @pytest.mark.parametrize("dtype,d,entry", [
@@ -345,11 +346,12 @@ def test_dkv_block_order_is_longest_live_range_first():
     rng = np.random.default_rng(11)
     seg = _t(_packed_segs(rng, 2, 640, 20, 300, 60))
     for causal in (False, True):
-        qr, kr, order = vl._tables(seg, seg, causal, True)
+        qr, kr, order, _ = vl._tables(seg, seg, causal, True)
         want_qr, want_kr = vl._tile_ranges(seg, seg, causal)
         assert torch.equal(qr, want_qr) and torch.equal(kr, want_kr)
-        qr0, kr0, none = vl._tables(seg, seg, causal, False)
-        assert torch.equal(qr0, qr) and torch.equal(kr0, kr) and none is None
+        qr0, kr0, none, none_q = vl._tables(seg, seg, causal, False)
+        assert torch.equal(qr0, qr) and torch.equal(kr0, kr)
+        assert none is None and none_q is None
         assert order.dtype == torch.int32 and order.shape == (2, 10)
         for row in range(2):
             assert sorted(order[row].tolist()) == list(range(10))
@@ -358,6 +360,14 @@ def test_dkv_block_order_is_longest_live_range_first():
             assert [span[t] for t in walk] == sorted(span, reverse=True)
             for a, b in zip(walk[:-1], walk[1:]):
                 assert span[a] > span[b] or a < b
+
+
+def _meets(causal):
+    """``tiles_meet`` (csrc/flash_tile.cuh) over 64-row table entries."""
+    def meet(qi, ki, qt, kt):
+        ok = not (qi[0] > ki[1] or qi[1] < ki[0]) and qi[1] >= 0 and ki[1] >= 0
+        return ok and (not causal or kt * 64 <= qt * 64 + 63)
+    return meet
 
 
 def _dkv_owner_walk(q, k, v, seg, do, lse, delta, scale, causal):
@@ -369,13 +379,10 @@ def _dkv_owner_walk(q, k, v, seg, do, lse, delta, scale, causal):
     (by value) and ds = p·(dp − delta)·scale rounded to the input type
     before each product; a K/V tile that no q meets stays zero."""
     b, h, s, d = q.shape
-    qr, kr, order = vl._tables(seg, seg, causal, True)
+    qr, kr, order, _ = vl._tables(seg, seg, causal, True)
     dk = torch.zeros(b, h, s, d)
     dv = torch.zeros(b, h, s, d)
-
-    def meet(qi, ki, qt, kt):
-        ok = not (qi[0] > ki[1] or qi[1] < ki[0]) and qi[1] >= 0 and ki[1] >= 0
-        return ok and (not causal or kt * 64 <= qt * 64 + 63)
+    meet = _meets(causal)
 
     for bb in range(b):
         for kt in order[bb].tolist():
@@ -457,4 +464,266 @@ def test_dkv_owner_walk_matches_jax_kernel(causal):
     np.testing.assert_allclose(_np(dk), np.asarray(dk_j), atol=ATOL,
                                rtol=RTOL)
     np.testing.assert_allclose(_np(dv), np.asarray(dv_j), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype,d,kernel,entry", [
+    (torch.bfloat16, 64, "fwd", "flash_varlen_mma_fwd"),
+    (torch.bfloat16, 256, "fwd", "flash_varlen_mma_fwd"),
+    (torch.bfloat16, 512, "fwd", "flash_varlen_fwd"),
+    (torch.float32, 64, "fwd", "flash_varlen_fwd"),
+    (torch.bfloat16, 40, "dq", "flash_varlen_mma_bwd_dq"),
+    (torch.bfloat16, 256, "dq", "flash_varlen_mma_bwd_dq"),
+    (torch.bfloat16, 264, "dq", "flash_varlen_bwd_dq"),
+    (torch.float32, 128, "dq", "flash_varlen_bwd_dq")])
+def test_fwd_dq_wrappers_launch_the_routed_entry(monkeypatch, dtype, d,
+                                                 kernel, entry):
+    """``flash_varlen_fwd`` and ``flash_varlen_bwd_dq`` launch their
+    route's entry (``_launch`` stubbed: nothing runs) with the tables they
+    are given; a tensor-core entry's ctypes table has one pointer more
+    than its CUDA-core twin's (the block order)."""
+    seen = []
+    monkeypatch.setattr(vl, "_launch", lambda e, *a: seen.append((e, a[-1])))
+    q = torch.zeros(1, 2, 64, d, dtype=dtype)
+    seg = torch.zeros(1, 64, dtype=torch.int32)
+    row = torch.zeros(1, 2, 64, 1)
+    tables = vl._tables(seg, seg, False, "mma" in entry)
+    if kernel == "fwd":
+        o, lse = vl.flash_varlen_fwd(q, q, q, seg, seg, 0.1, False,
+                                     tables=tables)
+        assert o.shape == q.shape and lse.shape == row.shape
+    else:
+        assert vl.flash_varlen_bwd_dq(q, q, q, seg, seg, q, row, row, 0.1,
+                                      False, tables=tables).shape == q.shape
+    assert seen == [(entry, tables)]
+    assert entry in (vl._MMA_SIGNATURES if "mma" in entry
+                     else vl._SIGNATURES)
+    twin = entry.replace("mma_", "")
+    assert len(vl._MMA_SIGNATURES[twin.replace("varlen_", "varlen_mma_")]) \
+        == len(vl._SIGNATURES[twin]) + 1
+
+
+def test_q_block_order_is_longest_live_range_first():
+    """``_tables``'s q-tile order (the tensor-core forward's and dQ's):
+    per batch row a permutation of the q tiles, by live K/V range (``jhi
+    - jlo``) longest first, ties in tile order."""
+    rng = np.random.default_rng(14)
+    seg = _t(_packed_segs(rng, 2, 640, 20, 300, 60))
+    for causal in (False, True):
+        qr, _, _, order = vl._tables(seg, seg, causal, True)
+        assert order.dtype == torch.int32 and order.shape == (2, 10)
+        for row in range(2):
+            assert sorted(order[row].tolist()) == list(range(10))
+            span = (qr[row, :, 3] - qr[row, :, 2]).tolist()
+            walk = order[row].tolist()
+            assert [span[t] for t in walk] == sorted(span, reverse=True)
+            for a, b in zip(walk[:-1], walk[1:]):
+                assert span[a] > span[b] or a < b
+
+
+# case (a): q tile 1 (64-127) holds document 0's end (64-99) and document
+# 1's start (100-127); its live K/V range starts at tile 0, where document
+# 1's rows have no allowed column. Documents end mid-tile, and the pad
+# tail (250-319) leaves tile 4 all padding, with an empty live range.
+CASE_A = [0] * 100 + [1] * 70 + [2] * 80 + [-1] * 70
+
+
+def _case_a_segs(rng, rows):
+    """Row 0 is CASE_A; the others random packed rows of documents of
+    30-110 tokens with a pad tail of 70 (320 tokens)."""
+    rest = _packed_segs(rng, rows - 1, 320, 30, 110, 70)
+    return np.concatenate([np.asarray([CASE_A], np.int32), rest])
+
+
+def _fwd_owner_walk(q, k, v, seg, scale, causal):
+    """The tensor-core forward's walk, emulated on the CPU: one owner per
+    (batch row, head, 64-row q tile), taken in ``_tables``' q order,
+    walks exactly the live K/V range [jlo, jhi] of its ``qr`` entry in
+    order, skips the tiles that cannot meet it (``tiles_meet``), and keeps
+    an online softmax a 64-key tile at a time: p = allowed ? exp(s −
+    m_new) : 0 by value, the correction 0 while m_prev <= NEG_INF / 2, p
+    rounded to the input type against the running max before p·v. o =
+    acc / l and lse = m + log l, or 0 and NEG_INF where l == 0."""
+    b, h, s, d = q.shape
+    qr, kr, _, order = vl._tables(seg, seg, causal, True)
+    o = torch.zeros(b, h, s, d)
+    lse = torch.full((b, h, s, 1), vl.NEG_INF)
+    meet = _meets(causal)
+    for bb in range(b):
+        for qt in order[bb].tolist():
+            qi = qr[bb, qt].tolist()
+            qs = slice(qt * 64, qt * 64 + 64)
+            qpos = torch.arange(qt * 64, qt * 64 + 64)
+            for hh in range(h):
+                m = torch.full((64,), vl.NEG_INF)
+                l = torch.zeros(64)
+                acc = torch.zeros(64, d)
+                for kt in range(qi[2], qi[3] + 1):
+                    if not meet(qi, kr[bb, kt].tolist(), qt, kt):
+                        continue
+                    ks = slice(kt * 64, kt * 64 + 64)
+                    kpos = torch.arange(kt * 64, kt * 64 + 64)
+                    sq, sk = seg[bb, qs], seg[bb, ks]
+                    ok = (sq[:, None] == sk[None, :]) & (sq[:, None] >= 0)
+                    if causal:
+                        ok &= kpos[None, :] <= qpos[:, None]
+                    st = q[bb, hh, qs].float() @ k[bb, hh, ks].float().t()
+                    st = torch.where(ok, st * scale, vl.NEG_INF)
+                    m_new = torch.maximum(m, st.amax(1))
+                    p = torch.where(ok, torch.exp(st - m_new[:, None]), 0.0)
+                    corr = torch.where(m <= vl.NEG_INF / 2, 0.0,
+                                       torch.exp(m - m_new))
+                    l = corr * l + p.sum(1)
+                    acc = acc * corr[:, None] + (p.to(v.dtype).float()
+                                                 @ v[bb, hh, ks].float())
+                    m = m_new
+                empty = l == 0.0
+                safe = torch.where(empty, 1.0, l)
+                o[bb, hh, qs] = acc / safe[:, None]
+                lse[bb, hh, qs, 0] = torch.where(empty, vl.NEG_INF,
+                                                 m + torch.log(safe))
+    return o.to(q.dtype), lse
+
+
+def _dq_owner_walk(q, k, v, seg, do, lse, delta, scale, causal):
+    """The tensor-core dQ's walk, emulated on the CPU: the forward's owners
+    and live K/V tiles, adding ds·k into an fp32 tile, p = allowed ?
+    exp(s − lse) : 0 by value (a pad row's lse is NEG_INF) and ds = p·(dp
+    − delta)·scale rounded to the input type before the product; a q tile
+    with nothing live stays zero."""
+    b, h, s, d = q.shape
+    qr, kr, _, order = vl._tables(seg, seg, causal, True)
+    dq = torch.zeros(b, h, s, d)
+    meet = _meets(causal)
+    for bb in range(b):
+        for qt in order[bb].tolist():
+            qi = qr[bb, qt].tolist()
+            qs = slice(qt * 64, qt * 64 + 64)
+            qpos = torch.arange(qt * 64, qt * 64 + 64)
+            for hh in range(h):
+                acc = torch.zeros(64, d)
+                for kt in range(qi[2], qi[3] + 1):
+                    if not meet(qi, kr[bb, kt].tolist(), qt, kt):
+                        continue
+                    ks = slice(kt * 64, kt * 64 + 64)
+                    kpos = torch.arange(kt * 64, kt * 64 + 64)
+                    sq, sk = seg[bb, qs], seg[bb, ks]
+                    ok = (sq[:, None] == sk[None, :]) & (sq[:, None] >= 0)
+                    if causal:
+                        ok &= kpos[None, :] <= qpos[:, None]
+                    kf = k[bb, hh, ks].float()
+                    st = q[bb, hh, qs].float() @ kf.t() * scale
+                    p = torch.where(ok, torch.exp(st - lse[bb, hh, qs]), 0.0)
+                    dp = do[bb, hh, qs].float() @ v[bb, hh, ks].float().t()
+                    ds = p * (dp - delta[bb, hh, qs]) * scale
+                    acc += ds.to(q.dtype).float() @ kf
+                dq[bb, hh, qs] = acc
+    return dq.to(q.dtype)
+
+
+def test_case_a_meets_the_finite_neg_inf_trouble():
+    """Case (a) is what it is meant to be: q tile 1's live K/V range
+    starts at tile 0, where document 1's rows have no allowed column (the
+    tile max is NEG_INF, and exp(s − m) would be 1 but for the mask by
+    value), and the all-pad tile 4 has the empty range (0, 0), which
+    ``tiles_meet`` then skips."""
+    seg = _t(np.asarray([CASE_A], np.int32))
+    for causal in (False, True):
+        qr, kr, _, _ = vl._tables(seg, seg, causal, True)
+        assert qr[0, 1, 2] == 0
+        rows = seg[0, 64:128]
+        assert bool(((rows[:, None] == seg[0, None, :64]).any(1)
+                     == (rows == 0)).all())
+        assert qr[0, 4].tolist()[2:] == [0, 0]
+        assert not _meets(causal)(qr[0, 4].tolist(), kr[0, 0].tolist(), 4, 0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_owner_walk_matches_plain_version(dtype, causal):
+    """The emulated forward walk equals the plain forward
+    (``flash_varlen_fwd_reference``) on case (a) and a random packed row
+    (2 heads of 32, 320 tokens): fp32 atol 2e-5 + rtol 1e-5, bf16 atol
+    1e-2 + rtol 2**-7 (p rounded against the running max, the plain
+    version against the row's max); lse within 1e-4 / 1e-5 in bf16; pad
+    rows exactly 0 with lse NEG_INF."""
+    (q, k, v, _), rng = _inputs(15, 2, 2, 320, 32)
+    ts = _t(_case_a_segs(rng, 2))
+    q, k, v = (_t(a).to(dtype) for a in (q, k, v))
+    scale = 32 ** -0.5
+    o, lse = _fwd_owner_walk(q, k, v, ts, scale, causal)
+    o_p, lse_p = vl.flash_varlen_fwd_reference(q, k, v, ts, ts, scale,
+                                               causal)
+    atol, rtol = (ATOL, RTOL) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    assert o.dtype == dtype
+    np.testing.assert_allclose(_np(o), _np(o_p), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(_np(lse), _np(lse_p),
+                               atol=ATOL if dtype == torch.float32 else 1e-4,
+                               rtol=RTOL)
+    pad = (ts < 0)[:, None, :].expand(-1, 2, -1)
+    assert not bool(o[pad].any())
+    assert bool((lse[..., 0][pad] == vl.NEG_INF).all())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_owner_walk_matches_jax_kernel(causal):
+    """The emulated forward walk against JAX's varlen forward kernel
+    (``_vl_call``, interpret mode, 64-row blocks), fp32, on case (a):
+    o and lse within atol 2e-5 + rtol 1e-5, including document 1's rows
+    of q tile 1, whose first live K/V tile allows nothing."""
+    (q, k, v, _), _ = _inputs(16, 1, 2, 320, 32)
+    seg = np.asarray([CASE_A], np.int32)
+    scale = 32 ** -0.5
+    o_j, lse_j = jvl._vl_call(*(jnp.asarray(a) for a in (q, k, v)),
+                              jnp.asarray(seg), jnp.asarray(seg), scale,
+                              causal, 64, 64, True)
+    o, lse = _fwd_owner_walk(_t(q), _t(k), _t(v), _t(seg), scale, causal)
+    np.testing.assert_allclose(_np(o), np.asarray(o_j), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(_np(lse), np.asarray(lse_j), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_owner_walk_matches_plain_version(dtype, causal):
+    """The emulated dQ walk equals the plain dQ
+    (``flash_varlen_bwd_reference``) on case (a) and a random packed row,
+    from the plain forward's o and lse: fp32 atol 2e-5 + rtol 1e-5, bf16
+    atol 1e-2 + rtol 2**-7; pad rows exactly 0 (their lse is NEG_INF:
+    exp(s − lse) is inf there, masked by a select)."""
+    (q, k, v, do), rng = _inputs(17, 2, 2, 320, 32)
+    ts = _t(_case_a_segs(rng, 2))
+    q, k, v, do = (_t(a).to(dtype) for a in (q, k, v, do))
+    scale = 32 ** -0.5
+    o, lse = vl.flash_varlen_fwd_reference(q, k, v, ts, ts, scale, causal)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = _dq_owner_walk(q, k, v, ts, do, lse, delta, scale, causal)
+    want, _, _ = vl.flash_varlen_bwd_reference(q, k, v, ts, ts, o, lse, do,
+                                               scale, causal)
+    atol, rtol = (ATOL, RTOL) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    assert dq.dtype == dtype
+    np.testing.assert_allclose(_np(dq), _np(want), atol=atol, rtol=rtol)
+    assert not bool(dq[(ts < 0)[:, None, :].expand(-1, 2, -1)].any())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dq_owner_walk_matches_jax_kernel(causal):
+    """The emulated dQ walk against JAX's varlen dQ kernel
+    (``_vl_bwd_call``, interpret mode, 64-row blocks) from JAX's own o and
+    lse, fp32, on case (a): atol 2e-5 + rtol 1e-5."""
+    (q, k, v, do), _ = _inputs(18, 1, 2, 320, 32)
+    seg = np.asarray([CASE_A], np.int32)
+    scale = 32 ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    js = jnp.asarray(seg)
+    o_j, lse_j = jvl._vl_call(jq, jk, jv, js, js, scale, causal, 64, 64,
+                              True)
+    dq_j, _, _ = jvl._vl_bwd_call(jq, jk, jv, js, js, o_j, lse_j, jdo,
+                                  scale, causal, 64, 64, True)
+    o, lse = _t(np.asarray(o_j)), _t(np.asarray(lse_j))
+    delta = (_t(do) * o).sum(-1, keepdim=True)
+    dq = _dq_owner_walk(_t(q), _t(k), _t(v), _t(seg), _t(do), lse, delta,
+                        scale, causal)
+    np.testing.assert_allclose(_np(dq), np.asarray(dq_j), atol=ATOL,
                                rtol=RTOL)
