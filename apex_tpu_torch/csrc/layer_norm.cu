@@ -32,12 +32,42 @@
 // hidden * sizeof(T)); backward: read dy and x, write dx (3 * rows *
 // hidden * sizeof(T)). The arithmetic is a few operations per element.
 //
-// Forward: one warp per row, four rows per 128-thread block, so any row
-// count works. Loads and stores are 16-byte vectors of T (8 bf16 or 4 fp32
-// per lane; the weight's N values of TW beside them), the row sums are
-// warp shuffle reductions, and a row is read a second time (from the
-// cache) to normalize it, so no register or shared memory grows with
-// hidden. hidden must be a multiple of the vector width.
+// Forward (`norm_fwd_kernel`): x is read from device memory once, and a
+// row's sum order is a function of hidden alone. The geometry is
+// ops/layer_norm.py `_fwd_plan(hidden)`'s, passed in: a row is cut into
+// chunks of 4 columns (16 B of fp32, 8 B of bf16, so a warp's loads of
+// consecutive chunks are consecutive bytes whatever the type) and belongs
+// to a team of `team_warps` warps, thread tt of a team owning the chunks
+// tt + j * (32 * team_warps), j < C, of every row. A thread holds its
+// chunks of a row in registers, packed, from the load to the store of y,
+// and issues all their loads before the row's first sum, so the row's
+// bytes are in flight together.
+//   * Up to 12,288 columns (narrow: one warp of up to 6 chunks to 768
+//     columns, eight such teams a block; up to 16 warps of up to 6) the
+//     block copies w and b once into shared memory, behind its first rows'
+//     loads, and its teams read them there, and a team issues the next
+//     row's loads before the current row's sums. The grid holds as many
+//     blocks as the card keeps resident (fewer when the rows are fewer),
+//     and team k of the grid walks rows k, k + (teams in the grid), ...
+//   * Above that (wide: up to 32 warps of 12 chunks, 49,152 columns as the
+//     backward; JAX's widest gated row, 37,376, takes 30 warps of 10) a
+//     team is one block of up to 1,024 threads, whose 64 registers a thread
+//     hold one row and no more: w and b are read per row from the cache,
+//     and the rows in flight are the other SMs'. No cluster is needed.
+// Measured on an H100 (chip_norm_compare.py beside the earlier kernel;
+// PERF.md §6): keeping w and b, or the next row, in registers took 80-128
+// registers a thread at GPT-2's 768 columns, too few warps an SM; a ring
+// of rows in shared memory filled by cp.async.bulk added its latency to
+// every short call; 8-column chunks of fp32 (two 16-byte loads 32 bytes
+// apart) used half of every sector a warp's load touched.
+// A row's two sums go in one order: a thread's chunks in order (4 columns
+// each in order), the warp's xor tree, then the team's warps in order
+// (through shared memory, slots by row parity, one named barrier a row).
+// Nothing of that order depends on the grid, the row count, the row's
+// place or the type, so y, mean and rstd repeat bitwise and a row's bits
+// do not depend on the call that holds it (the engine's `spec_k` streams
+// and the remat replay rest on that). `norm_fwd_split_reference` is the
+// plain emulation of this order.
 //
 // Backward: one pass over dy and x and one ordered sum, two launches
 // (`norm_bwd_pass_kernel`, `norm_bwd_sum_kernel`). The TPU kernel summed
@@ -72,96 +102,344 @@
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;      // rows of a forward / dx block
-
-// N consecutive values of TW (the weight) at p as fp32; p is aligned to
-// N * sizeof(TW) bytes (a multiple of 8)
-template <typename TW, int N>
-__device__ __forceinline__ void load_n(const TW* p, float* out) {
-  if constexpr (N * sizeof(TW) >= 16) {
-#pragma unroll
-    for (int c = 0; c < N; c += apex::Vec<TW>::N)
-      apex::load_vec(p + c, out + c);
-  } else {  // 8 bytes: 4 bf16 beside 4 fp32 of x
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const TW* e = reinterpret_cast<const TW*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = apex::to_f(e[i]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // forward
 
-template <typename T, typename TW, bool RMS>
-__global__ void __launch_bounds__(32 * kWarps)
+constexpr int kFwdUnit = 4;         // columns of a chunk
+constexpr int kFwdTeamWarps = 16;   // warps of a narrow team, at most
+constexpr int kFwdTeamChunks = 6;   // chunks a thread there
+constexpr int kFwdWideChunks = 12;  // and in a wide (up to 32-warp) team
+constexpr int kFwdBlockWarps = 32;
+constexpr int kFwdMaxDevices = 16;
+
+// 4 consecutive values of T as loaded: 16 B of fp32, 8 B of bf16, so a
+// warp's loads of consecutive chunks are consecutive bytes
+template <typename T>
+struct Chunk {
+  using Raw = typename std::conditional<sizeof(T) == 4, uint4, uint2>::type;
+  Raw v;
+};
+
+// chunk u of a row of T at p (zeros at u == units: past the row)
+template <typename T>
+__device__ __forceinline__ void load_chunk(Chunk<T>& c, const T* p, int u,
+                                           int units) {
+  using Raw = typename Chunk<T>::Raw;
+  c.v = u < units ? *reinterpret_cast<const Raw*>(p + u * kFwdUnit) : Raw{};
+}
+
+// chunk u (inside the row) of the weight or bias through the read-only
+// cache; volatile, so the wide kernel reads it per row where it is used and
+// the compiler does not hoist a row's weights into registers
+template <typename TW>
+__device__ __forceinline__ void load_vec_chunk(Chunk<TW>& c, const TW* p,
+                                               int u) {
+  if constexpr (sizeof(TW) == 4) {
+    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(c.v.x), "=r"(c.v.y), "=r"(c.v.z), "=r"(c.v.w)
+                 : "l"(p + u * kFwdUnit));
+  } else {
+    asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(c.v.x), "=r"(c.v.y)
+                 : "l"(p + u * kFwdUnit));
+  }
+}
+
+// a chunk as fp32; bf16 widens through opaque instructions, so the compiler
+// widens a chunk again where it is used rather than keep the fp32 copy of
+// a row live beside the packed one
+__device__ __forceinline__ void unpack(const Chunk<float>& c, float* f) {
+  f[0] = __uint_as_float(c.v.x);
+  f[1] = __uint_as_float(c.v.y);
+  f[2] = __uint_as_float(c.v.z);
+  f[3] = __uint_as_float(c.v.w);
+}
+__device__ __forceinline__ void unpack(const Chunk<__nv_bfloat16>& c,
+                                       float* f) {
+  const uint32_t v[2] = {c.v.x, c.v.y};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    uint32_t lo, hi;
+    asm volatile("shl.b32 %0, %2, 16;\n and.b32 %1, %2, 0xffff0000;\n"
+                 : "=r"(lo), "=r"(hi)
+                 : "r"(v[k]));
+    f[2 * k] = __uint_as_float(lo);
+    f[2 * k + 1] = __uint_as_float(hi);
+  }
+}
+
+// 4 values to a chunk of y (round to nearest even for bf16)
+__device__ __forceinline__ void store_chunk(float* p, const float* o) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* p, const float* o) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// A team's geometry within its block
+struct Team {
+  int team_warps, team, tt, tw, lane;
+};
+
+// The statistics of one row from the thread's chunks c (zeros past the
+// row) in the fixed order: the thread's chunks in order, the warp's xor
+// tree, the team's warps in order (`slots`: the team's warps' sums in
+// shared memory, one set a row parity, so one barrier a row suffices).
+// Returns (mean, rstd) (mean 0 for RMSNorm).
+template <typename T, bool RMS, int C>
+__device__ __forceinline__ float2 row_stats(const Chunk<T> (&c)[C],
+                                            const Team& t, float2* slots,
+                                            int hidden, float eps) {
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    float f[kFwdUnit];
+    unpack(c[j], f);
+#pragma unroll
+    for (int e = 0; e < kFwdUnit; ++e) {
+      if (!RMS) s += f[e];
+      ss += f[e] * f[e];
+    }
+  }
+  ss = apex::warp_sum(ss);
+  if (!RMS) s = apex::warp_sum(s);
+  if (t.team_warps > 1) {
+    if (t.lane == 0) slots[t.tw] = make_float2(s, ss);
+    asm volatile("bar.sync %0, %1;\n" ::"r"(t.team + 1),
+                 "r"(t.team_warps * 32)
+                 : "memory");
+    s = ss = 0.f;
+    for (int k = 0; k < t.team_warps; ++k) {
+      const float2 v = slots[k];
+      s += v.x;
+      ss += v.y;
+    }
+  }
+  if constexpr (RMS) return make_float2(0.f, rsqrtf(ss / hidden + eps));
+  const float mean = s / hidden;
+  const float var = fmaxf(ss / hidden - mean * mean, 0.f);
+  return make_float2(mean, rsqrtf(var + eps));
+}
+
+// The kernel. A team walks the rows first, first + stride, ... (stride:
+// the teams in the grid) in order; the thread's C chunks of a row are in
+// registers from the load to the store, all their loads issued before the
+// row's first sum.
+//   NARROW (teams of up to 16 warps, up to 6 chunks a thread): the block
+//     copies w and b once into shared memory (`vecs`: hidden values of TW
+//     each, behind the first row's loads; the teams of a block share it),
+//     and a team issues the next row's loads before this row's sums.
+//   wide (one team of up to 32 warps a block, up to 12 chunks): one row in
+//     the 64 registers a thread has; w and b are read per row from the
+//     cache.
+template <typename T, typename TW, bool RMS, int C, bool NARROW>
+__global__ void __launch_bounds__(NARROW ? 32 * kFwdTeamWarps
+                                         : 32 * kFwdBlockWarps)
     norm_fwd_kernel(const T* __restrict__ x, const TW* __restrict__ w,
                     const TW* __restrict__ b, T* __restrict__ y,
                     float* __restrict__ mean_out,
                     float* __restrict__ rstd_out, int rows, int hidden,
-                    float eps) {
-  constexpr int N = apex::Vec<T>::N;
-  const int lane = threadIdx.x % 32;
-  const long row = static_cast<long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (row >= rows) return;  // whole warp leaves together
-  const T* xr = x + row * hidden;
-  T* yr = y + row * hidden;
-  const int nvec = hidden / N;
-
-  float s = 0.f, ss = 0.f;
-  for (int v = lane; v < nvec; v += 32) {
-    float f[N];
-    apex::load_vec(xr + v * N, f);
+                    float eps, int team_warps, int teams) {
+  using RawW = typename Chunk<TW>::Raw;
+  extern __shared__ __align__(16) unsigned char vecs[];
+  __shared__ float2 red[2][kFwdBlockWarps];  // [row parity][warp]: sums
+  const int team_threads = team_warps * 32;
+  const Team t{team_warps, static_cast<int>(threadIdx.x) / team_threads,
+               static_cast<int>(threadIdx.x) % team_threads,
+               static_cast<int>(threadIdx.x % team_threads) / 32,
+               static_cast<int>(threadIdx.x) % 32};
+  const int units = hidden / kFwdUnit;
+  const long stride = static_cast<long>(gridDim.x) * teams;
+  long row = static_cast<long>(blockIdx.x) * teams + t.team;
+  auto load_row = [&](Chunk<T>(&c)[C], long r) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (!RMS) s += f[i];
-      ss += f[i] * f[i];
+    for (int j = 0; j < C; ++j)
+      load_chunk(c[j], x + r * hidden, min(t.tt + j * team_threads, units),
+                 units);
+  };
+  Chunk<T> cur[C], nxt[NARROW ? C : 1];
+  if (row < rows) load_row(cur, row);
+  RawW* sw = reinterpret_cast<RawW*>(vecs);  // [units] w, then [units] b
+  if constexpr (NARROW) {
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+      Chunk<TW> c;
+      load_vec_chunk(c, w, u);
+      sw[u] = c.v;
+      if constexpr (!RMS) {
+        load_vec_chunk(c, b, u);
+        sw[units + u] = c.v;
+      }
+    }
+    __syncthreads();
+  }
+  if (row >= rows) return;  // the whole team: it has no row
+
+  for (int par = 0;; par ^= 1) {
+    const long next = row + stride;
+    if constexpr (NARROW) {
+      if (next < rows) load_row(nxt, next);
+      asm volatile("" ::: "memory");  // issued before this row's sums
+    }
+    const float2 st = row_stats<T, RMS, C>(
+        cur, t, &red[par][t.team * team_warps], hidden, eps);
+    if (t.tt == 0 && rstd_out != nullptr) {
+      if (!RMS) mean_out[row] = st.x;
+      rstd_out[row] = st.y;
+    }
+    T* yr = y + row * hidden;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int u = t.tt + j * team_threads;
+      if (u < units) {
+        Chunk<TW> cw, cb;
+        if constexpr (NARROW) {
+          cw.v = sw[u];
+          if constexpr (!RMS) cb.v = sw[units + u];
+        } else {
+          load_vec_chunk(cw, w, u);
+          if constexpr (!RMS) load_vec_chunk(cb, b, u);
+        }
+        float f[kFwdUnit], wf[kFwdUnit], bf[kFwdUnit], o[kFwdUnit];
+        unpack(cur[j], f);
+        unpack(cw, wf);
+        if constexpr (!RMS) unpack(cb, bf);
+#pragma unroll
+        for (int e = 0; e < kFwdUnit; ++e)
+          o[e] = RMS ? (f[e] * st.y) * wf[e]
+                     : (f[e] - st.x) * st.y * wf[e] + bf[e];
+        store_chunk(yr + u * kFwdUnit, o);
+      }
+    }
+    if (next >= rows) break;
+    row = next;
+    if constexpr (NARROW) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) cur[j] = nxt[j];
+    } else {
+      load_row(cur, row);
     }
   }
-  ss = apex::warp_sum(ss);
-  float mean = 0.f, rstd;
-  if constexpr (RMS) {
-    rstd = rsqrtf(ss / hidden + eps);
-  } else {
-    s = apex::warp_sum(s);
-    mean = s / hidden;
-    const float var = fmaxf(ss / hidden - mean * mean, 0.f);
-    rstd = rsqrtf(var + eps);
-  }
-  if (lane == 0 && rstd_out != nullptr) {
-    if (!RMS) mean_out[row] = mean;
-    rstd_out[row] = rstd;
-  }
+}
 
-  for (int v = lane; v < nvec; v += 32) {
-    float f[N], wf[N], bf[N], o[N];
-    apex::load_vec(xr + v * N, f);
-    load_n<TW, N>(w + v * N, wf);
-    if (!RMS) load_n<TW, N>(b + v * N, bf);
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      o[i] = RMS ? (f[i] * rstd) * wf[i]
-                 : (f[i] - mean) * rstd * wf[i] + bf[i];
-    apex::store_vec(yr + v * N, o);
-  }
+// The blocks the card keeps resident for `kernel` at this block size and
+// dynamic shared memory (the grid's most), found once a device, kernel and
+// shape.
+template <typename K>
+cudaError_t resident_blocks(K kernel, int threads, int smem, int* blocks) {
+  struct Entry {
+    const void* fn;
+    int threads, smem, blocks;
+  };
+  constexpr int kEntries = 32;
+  static Entry cache[kFwdMaxDevices][kEntries];
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  Entry* row = dev < kFwdMaxDevices ? cache[dev] : nullptr;
+  for (int i = 0; row != nullptr && i < kEntries && row[i].blocks; ++i)
+    if (row[i].fn == fn && row[i].threads == threads &&
+        row[i].smem == smem) {
+      *blocks = row[i].blocks;
+      return cudaSuccess;
+    }
+  // the kernel's dynamic shared memory only grows, so every shape found
+  // before still launches
+  cudaFuncAttributes attr;
+  int per_sm = 0, sms = 0;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && smem > attr.maxDynamicSharedSizeBytes)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *blocks = (per_sm > 0 ? per_sm : 1) * sms;
+  for (int i = 0; row != nullptr && i < kEntries; ++i)
+    if (!row[i].blocks) {
+      row[i] = Entry{fn, threads, smem, *blocks};
+      break;
+    }
+  return cudaSuccess;
+}
+
+template <typename T, typename TW, bool RMS, int C, bool NARROW>
+cudaError_t launch_fwd_c(const void* x, const void* w, const void* b,
+                         void* y, void* mean, void* rstd, int rows,
+                         int hidden, float eps, int team_warps, int teams,
+                         cudaStream_t s) {
+  auto kernel = norm_fwd_kernel<T, TW, RMS, C, NARROW>;
+  const int threads = teams * team_warps * 32;
+  const int smem =
+      NARROW ? (RMS ? 1 : 2) * hidden * static_cast<int>(sizeof(TW)) : 0;
+  int blocks = 0;
+  const cudaError_t err = resident_blocks(kernel, threads, smem, &blocks);
+  if (err != cudaSuccess) return err;
+  const long need = (static_cast<long>(rows) + teams - 1) / teams;
+  kernel<<<static_cast<int>(need < blocks ? need : blocks), threads, smem,
+           s>>>(static_cast<const T*>(x), static_cast<const TW*>(w),
+                static_cast<const TW*>(b), static_cast<T*>(y),
+                static_cast<float*>(mean), static_cast<float*>(rstd), rows,
+                hidden, eps, team_warps, teams);
+  return cudaGetLastError();
 }
 
 template <typename T, typename TW, bool RMS>
 int launch_fwd(const void* x, const void* w, const void* b, void* y,
                void* mean, void* rstd, int rows, int hidden, float eps,
-               cudaStream_t s) {
-  if (rows > 0)
-    norm_fwd_kernel<T, TW, RMS>
-        <<<(rows + kWarps - 1) / kWarps, 32 * kWarps, 0, s>>>(
-            static_cast<const T*>(x), static_cast<const TW*>(w),
-            static_cast<const TW*>(b), static_cast<T*>(y),
-            static_cast<float*>(mean), static_cast<float*>(rstd), rows,
-            hidden, eps);
-  return static_cast<int>(cudaGetLastError());
+               int team_warps, int teams, int chunks, cudaStream_t s) {
+  // the plan's own rules (ops/layer_norm.py `_fwd_plan`)
+  const bool narrow = team_warps <= kFwdTeamWarps;
+  if (hidden < 1 || hidden % apex::Vec<T>::N || rows < 0 ||
+      team_warps < 1 || team_warps > kFwdBlockWarps || teams < 1 ||
+      teams * team_warps > (narrow ? kFwdTeamWarps : kFwdBlockWarps) ||
+      (team_warps > 8 && teams > 1) || chunks < (team_warps == 1 ? 1 : 4) ||
+      chunks > (narrow ? kFwdTeamChunks : kFwdWideChunks) ||
+      static_cast<long>(chunks) * team_warps * 32 * kFwdUnit <
+          static_cast<long>(hidden))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err;
+  switch (chunks * 2 + narrow) {
+#define APEX_FWD(C, NARROW)                                                  \
+  case C * 2 + NARROW:                                                       \
+    err = launch_fwd_c<T, TW, RMS, C, NARROW>(x, w, b, y, mean, rstd, rows,  \
+                                              hidden, eps, team_warps,       \
+                                              teams, s);                     \
+    break;
+    APEX_FWD(1, true)
+    APEX_FWD(2, true)
+    APEX_FWD(3, true)
+    APEX_FWD(4, true)
+    APEX_FWD(5, true)
+    APEX_FWD(6, true)
+    APEX_FWD(4, false)
+    APEX_FWD(5, false)
+    APEX_FWD(6, false)
+    APEX_FWD(7, false)
+    APEX_FWD(8, false)
+    APEX_FWD(9, false)
+    APEX_FWD(10, false)
+    APEX_FWD(11, false)
+    APEX_FWD(12, false)
+#undef APEX_FWD
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 // ---------------------------------------------------------------------------
@@ -606,27 +884,33 @@ int launch_bwd(const void* dy, const void* x, const void* mean,
 // x, y: (rows, hidden) contiguous, T = (x_bf16 ? bf16 : fp32); w, b:
 // (hidden,), TW = (w_bf16 ? bf16 : fp32); 16-byte aligned, hidden %
 // (16/sizeof(T)) == 0. mean, rstd: (rows,) fp32, or both null when the
-// statistics are not needed.
+// statistics are not needed. The geometry is ops/layer_norm.py
+// `_fwd_plan(hidden)`'s: teams of `team_warps` warps, `teams` a block,
+// `chunks` chunks of 8 columns a thread.
 extern "C" int layer_norm_fwd(int device, const void* x, const void* w,
                               const void* b, void* y, void* mean, void* rstd,
-                              int rows, int hidden, float eps, int x_bf16,
-                              int w_bf16, void* stream) {
+                              int rows, int hidden, float eps,
+                              int team_warps, int teams, int chunks,
+                              int x_bf16, int w_bf16, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   APEX_NORM_DISPATCH(launch_fwd<T, TW, false>(x, w, b, y, mean, rstd, rows,
-                                              hidden, eps, s));
+                                              hidden, eps, team_warps, teams,
+                                              chunks, s));
 }
 
 // As layer_norm_fwd, without a bias; rstd: (rows,) fp32 or null.
 extern "C" int rms_norm_fwd(int device, const void* x, const void* w,
                             void* y, void* rstd, int rows, int hidden,
-                            float eps, int x_bf16, int w_bf16, void* stream) {
+                            float eps, int team_warps, int teams, int chunks,
+                            int x_bf16, int w_bf16, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   APEX_NORM_DISPATCH(launch_fwd<T, TW, true>(x, w, nullptr, y, nullptr, rstd,
-                                             rows, hidden, eps, s));
+                                             rows, hidden, eps, team_warps,
+                                             teams, chunks, s));
 }
 
 // dy, x, dx: (rows, hidden) of T; w, dw, db: (hidden,) of TW; 16-byte

@@ -33,17 +33,67 @@ from apex_tpu_torch.ops import _kernel_util as ku
 
 _SIGNATURES = {
     "layer_norm_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-       ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
     "layer_norm_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 9
     + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     "rms_norm_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 4
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-       ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
     "rms_norm_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 }
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the forward's geometry (``csrc/layer_norm.cu``): a function of hidden
+# alone, so a row's y, mean and rstd do not depend on the call holding it
+
+_FWD_UNIT = 4            # columns of a chunk (16 B of fp32, 8 B of bf16)
+# a team of up to 16 warps holds up to 6 chunks a thread of a row: one warp
+# up to 768 columns, eight one-warp teams a block
+_FWD_TEAM_CHUNKS = 6
+_FWD_TEAM_WARPS = 16
+# above 16 warps' 6 chunks (12,288 columns) a team is one block of up to
+# 32 warps, up to 12 chunks a thread (49,152 columns, the backward's
+# widest too)
+_FWD_WIDE_CHUNKS = 12
+_FWD_MAX_WARPS = 32
+_FWD_BLOCK_WARPS = 8     # narrow teams share a block of up to 8 warps
+
+
+class FwdPlan(NamedTuple):
+    """The forward's launch geometry: a row belongs to a team of
+    ``team_warps`` warps, ``teams`` teams a block; thread t of a team owns
+    the 4-column chunks ``t + j·32·team_warps``, j < ``chunks``, of every
+    row."""
+    team_warps: int
+    teams: int
+    chunks: int
+
+
+def _fwd_plan(hidden: int) -> FwdPlan:
+    """The forward's geometry for a row of ``hidden`` columns (a multiple
+    of 4): the fewest warps that hold it at up to 6 chunks a thread (eight
+    one-warp teams a block up to 768 columns, up to 16 warps to 12,288),
+    past that one team of up to 32 warps at the fewest chunks that hold
+    it, at most 12 (49,152 columns)."""
+    units = -(-hidden // _FWD_UNIT)
+    warps = max(1, -(-units // (32 * _FWD_TEAM_CHUNKS)))
+    if warps > _FWD_TEAM_WARPS:
+        chunks = -(-units // (32 * _FWD_MAX_WARPS))
+        if chunks > _FWD_WIDE_CHUNKS:
+            raise ValueError(
+                f"norm forward: hidden {hidden} needs {chunks} chunks of "
+                f"{_FWD_UNIT} columns a thread of a 1,024-thread block (at "
+                f"most {_FWD_WIDE_CHUNKS}: "
+                f"{_FWD_WIDE_CHUNKS * 32 * _FWD_MAX_WARPS * _FWD_UNIT} "
+                f"columns)")
+        warps = -(-units // (32 * chunks))
+        return FwdPlan(warps, 1, chunks)
+    chunks = -(-units // (32 * warps))
+    return FwdPlan(warps, max(1, _FWD_BLOCK_WARPS // warps), chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +273,57 @@ def rms_norm_bwd_reference(dy, x2d, rstd, weight):
     return dx.to(x2d.dtype), dw.to(weight.dtype)
 
 
+def _ordered_row_sums(v, plan: FwdPlan):
+    """The forward kernel's sum of ``v`` (rows, hidden) fp32 over each
+    row: each thread's chunks in order (4 columns each in order, zeros past
+    the row), the warp's xor tree, then the team's warps in order."""
+    rows, hidden = v.shape
+    threads = plan.team_warps * 32
+    width = plan.chunks * threads * _FWD_UNIT
+    # [row, chunk j, thread t, column e] -> column (t + j·threads)·4 + e
+    at = torch.nn.functional.pad(v, (0, width - hidden)).view(
+        rows, plan.chunks, threads, _FWD_UNIT)
+    acc = torch.zeros(rows, threads, dtype=torch.float32, device=v.device)
+    for j in range(plan.chunks):
+        for e in range(_FWD_UNIT):
+            acc = acc + at[:, j, :, e]
+    acc = acc.view(rows, plan.team_warps, 32)
+    lane = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ o]
+    total = acc[:, 0, 0]
+    for k in range(1, plan.team_warps):
+        total = total + acc[:, k, 0]
+    return total
+
+
+def norm_fwd_split_reference(x2d, weight, bias=None, eps: float = 1e-5,
+                             rms: bool = False):
+    """The plain emulation of the forward kernel's sum order, for the
+    tests: the row sums of x (LayerNorm) and x² in :func:`_fwd_plan`'s
+    order (:func:`_ordered_row_sums`), then the kernel's statistics and y
+    as :func:`layer_norm_fwd_reference` / :func:`rms_norm_fwd_reference`
+    form them. Returns ``(y, mean, rstd)``, or ``(y, rstd)`` with
+    ``rms``."""
+    hidden = x2d.shape[1]
+    plan = _fwd_plan(hidden)
+    x32 = x2d.float()
+    # a true division (torch divides by a Python number through its
+    # reciprocal); the kernel divides by hidden
+    h = torch.full((x2d.shape[0],), float(hidden), device=x2d.device)
+    ss = _ordered_row_sums(x32 * x32, plan)
+    if rms:
+        rstd = torch.rsqrt(ss / h + eps)
+        y = (x32 * rstd[:, None]) * weight.float()
+        return y.to(x2d.dtype), rstd
+    mean = _ordered_row_sums(x32, plan) / h
+    var = torch.clamp(ss / h - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    y = ((x32 - mean[:, None]) * rstd[:, None]) * weight.float()
+    y = y + bias.float()
+    return y.to(x2d.dtype), mean, rstd
+
+
 def _ordered_part_sums(terms, plan: BwdPlan):
     """The kernels' sum of ``terms`` (rows, hidden) fp32 over the rows:
     per part, each team's rows in order, the teams in team order; then the
@@ -354,8 +455,10 @@ def _check_bwd_width(what, hidden):
 def layer_norm_fwd(x2d, weight, bias, eps: float = 1e-5, stats: bool = False):
     """Launch the LayerNorm forward kernel on CUDA tensors: ``x2d`` (rows,
     hidden) contiguous in fp32 or bf16, ``weight``/``bias`` (hidden,) of
-    one type, fp32 or bf16. Returns y like x2d, or ``(y, mean, rstd)``
-    (fp32, (rows,)) with ``stats``."""
+    one type, fp32 or bf16, hidden up to 49,152 (:func:`_fwd_plan` raises
+    ``ValueError`` above). Returns y like x2d, or ``(y, mean, rstd)``
+    (fp32, (rows,)) with ``stats``; a row's bits do not depend on the
+    other rows of the call."""
     rows, hidden = _check_rows("layer_norm_fwd", x2d, ("weight", weight),
                                ("bias", bias))
     y = torch.empty_like(x2d)
@@ -363,11 +466,12 @@ def layer_norm_fwd(x2d, weight, bias, eps: float = 1e-5, stats: bool = False):
     if stats:
         mean = torch.empty(rows, dtype=torch.float32, device=x2d.device)
         rstd = torch.empty_like(mean)
+    plan = _fwd_plan(hidden)
     lib = ku.load_kernel("layer_norm", _SIGNATURES)
     status = lib.layer_norm_fwd(
         x2d.device.index, x2d.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         y.data_ptr(), mean.data_ptr() if stats else None,
-        rstd.data_ptr() if stats else None, rows, hidden, float(eps),
+        rstd.data_ptr() if stats else None, rows, hidden, float(eps), *plan,
         *_types(x2d, weight), ku.stream_handle(x2d))
     ku.count_launch("layer_norm_fwd")
     ku.check_status(lib, status, "layer_norm_fwd")
@@ -401,16 +505,18 @@ def layer_norm_bwd(dy, x2d, mean, rstd, weight):
 
 def rms_norm_fwd(x2d, weight, eps: float = 1e-5, stats: bool = False):
     """Launch the RMSNorm forward kernel on CUDA tensors: ``x2d`` (rows,
-    hidden) contiguous in fp32 or bf16, ``weight`` (hidden,) fp32 or bf16.
-    Returns y like x2d, or ``(y, rstd)`` (fp32, (rows,)) with ``stats``."""
+    hidden) contiguous in fp32 or bf16, ``weight`` (hidden,) fp32 or bf16,
+    hidden up to 49,152 as :func:`layer_norm_fwd`. Returns y like x2d, or
+    ``(y, rstd)`` (fp32, (rows,)) with ``stats``."""
     rows, hidden = _check_rows("rms_norm_fwd", x2d, ("weight", weight))
     y = torch.empty_like(x2d)
     rstd = (torch.empty(rows, dtype=torch.float32, device=x2d.device)
             if stats else None)
+    plan = _fwd_plan(hidden)
     lib = ku.load_kernel("layer_norm", _SIGNATURES)
     status = lib.rms_norm_fwd(
         x2d.device.index, x2d.data_ptr(), weight.data_ptr(), y.data_ptr(),
-        rstd.data_ptr() if stats else None, rows, hidden, float(eps),
+        rstd.data_ptr() if stats else None, rows, hidden, float(eps), *plan,
         *_types(x2d, weight), ku.stream_handle(x2d))
     ku.count_launch("rms_norm_fwd")
     ku.check_status(lib, status, "rms_norm_fwd")

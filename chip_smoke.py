@@ -12,7 +12,8 @@
    and the nearest library call, and each kernel's bound:
    * LayerNorm forward at the serving path's shapes (``F.layer_norm``)
      and with its mean/rstd at the training paths' (GPT's (8192, 768),
-     T5's (4096 | 1024, 512));
+     T5's (4096 | 1024, 512)), y and the statistics bitwise over two
+     launches and for 8 of the rows launched alone;
    * paged attention on its route (bf16 on the tensor cores,
      ``paged_mma_fwd``; fp32 on the CUDA cores, ``paged_attention_fwd``)
      at the serve programs' calls: decode (8 rows; 32 too), verify (8
@@ -32,7 +33,8 @@
      768), T5-small's (4096, 512) and a wide row (2048, 12288), x and
      weight as fp32/fp32, bf16/bf16 and bf16/fp32, and LayerNorm with a
      bf16 x and an fp32 weight and at hidden 12,288: within tolerance of
-     the plain versions, the backward bitwise over two launches
+     the plain versions, the forward bitwise over two launches and for 8
+     of the rows alone, the backward bitwise over two launches
      (``F.rms_norm`` / ``F.layer_norm``); then the normalization main
      path: ``MixedFusedRMSNorm``, ``FusedRMSNorm`` (bf16 params) and
      ``MixedFusedLayerNorm`` forward + backward on bf16 batches, one
@@ -205,6 +207,9 @@ TRAIN_ROWS = 8 * 1024              # b·s of the training main path
 T5_BATCH, T5_ENC, T5_DEC = 8, 512, 128
 T5_HIDDEN = 512                    # T5-small's width
 T5_LN_ROWS = (T5_BATCH * T5_ENC, T5_BATCH * T5_DEC)   # encoder, decoder
+# the serving path's LayerNorm calls at GPT-2's width: 4-256 rows (decode
+# and verify steps, prefill chunks), no statistics
+LN_SERVE_ROWS = (4, 8, 32, 8 * 32)
 KV_MODES = {"none": {}, "int8": dict(quantized=True, bits=8),
             "int4": dict(quantized=True, bits=4)}
 
@@ -452,13 +457,37 @@ def start_builds(ku):
 # kernel phase
 
 
+def norm_fwd_bitwise(torch, tag, fwd, x):
+    """The norm forward's bitwise gates (a row's sum order is set by
+    hidden alone): ``fwd(x)`` (a tuple, y and any statistics) gives the
+    same bits twice, and ``min(8, rows // 2)`` rows from the middle of x,
+    launched alone, give the bits they have inside the whole call (the
+    engine's 8-row decode and 64-row chunk calls, the remat replay).
+    Raises otherwise."""
+    first, again = fwd(x), fwd(x)
+    rows = x.shape[0]
+    n = max(1, min(8, rows // 2))
+    at = (rows - n) // 2
+    alone = fwd(x[at:at + n].contiguous())
+    torch.cuda.synchronize()
+    if not all(bool(torch.equal(a, c)) for a, c in zip(first, again)):
+        raise AssertionError(f"{tag}: forward not bitwise equal over two "
+                             f"launches")
+    if not all(bool(torch.equal(a[at:at + n], c))
+               for a, c in zip(first, alone)):
+        raise AssertionError(f"{tag}: rows {at}-{at + n - 1} alone differ "
+                             f"from the same rows in the {rows}-row call")
+
+
 def layer_norm_phase(torch, dev):
     """LayerNorm forward at the serving path's shapes (4-256 rows of 768,
     no statistics) and at the training paths' (GPT's b·s = 8192 rows of
     768, T5's 4096 encoder and 1024 decoder rows of 512, with the fp32
     mean/rstd the backward reads): y within tol[dtype] of the plain
     version, mean and rstd within atol/rtol 2e-5 (fp32 sums over the
-    columns in another order). The training shapes are timed with the L2
+    columns in another order); y (and mean, rstd) bitwise over two
+    launches and for the middle rows launched alone
+    (:func:`norm_fwd_bitwise`). The training shapes are timed with the L2
     flushed between calls, as the backward is."""
     import torch.nn.functional as F
 
@@ -474,8 +503,8 @@ def layer_norm_phase(torch, dev):
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
         for rows, hidden, stats in (
-                (4, 768, False), (8, 768, False), (32, 768, False),
-                (8 * 32, 768, False), (TRAIN_ROWS, 768, True),
+                *((r, 768, False) for r in LN_SERVE_ROWS),
+                (TRAIN_ROWS, 768, True),
                 *((r, T5_HIDDEN, True) for r in T5_LN_ROWS)):
             x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
                  + 1).to(dt)
@@ -498,6 +527,11 @@ def layer_norm_phase(torch, dev):
             else:
                 err = check_close(f"layer_norm_fwd {tag}", got, want[0],
                                   atol, rtol)
+            norm_fwd_bitwise(
+                torch, f"layer_norm_fwd {tag}",
+                lambda xx: (layer_norm_fwd(xx, w, b, eps, stats=True)
+                            if stats else (layer_norm_fwd(xx, w, b, eps),)),
+                x)
             esz = x.element_size()
             bms, by = bound_ms((2 * rows * hidden + 2 * hidden) * esz
                                + (8 * rows if stats else 0),
@@ -506,7 +540,7 @@ def layer_norm_phase(torch, dev):
             case = {
                 "dtype": dname, "rows": rows, "hidden": hidden,
                 "stats": stats, "max_abs_err": err, "atol": atol,
-                "rtol": rtol,
+                "rtol": rtol, "bitwise_repeat": True, "row_invariant": True,
                 "ms": time_ms(torch, lambda: layer_norm_fwd(
                     x, w, b, eps, stats=stats), flush=flush),
                 "plain_ms": time_ms(torch, lambda: layer_norm_fwd_reference(
@@ -843,7 +877,14 @@ NORM_MODULE_RUNS = [
     ("wide", (2, 1024, 12288), "MixedFusedRMSNorm", "float32"),
     ("gpt2_ln", (8, 1024, 768), "MixedFusedLayerNorm", "float32"),
 ]
-# the backward's design, named beside its times in the kernels line
+# the forward's and the backward's designs, named beside their times in
+# the kernels line
+NORM_FWD_DESIGN = ("x read once, a row's chunks in registers from load to "
+                   "store; one-warp teams (eight a block) to 768 columns, "
+                   "teams of up to 16 warps to 12,288 (w and b in shared "
+                   "memory once a block, the next row's loads before this "
+                   "row's sums), one team of up to 32 warps above; the sum "
+                   "order set by _fwd_plan(hidden) alone")
 NORM_BWD_DESIGN = ("one pass over dy and x (cp.async ring, a part of the "
                    "rows a block or cluster) + an ordered sum of the "
                    "partial rows (programmatic dependent launch)")
@@ -859,7 +900,9 @@ def norm_phase(torch, dev, ku):
     and an fp32 weight and at hidden 12,288 (the repairs), vs their plain
     versions at NORM_SHAPES in each (x, weight) type: y, dx and the fp32
     row statistics within NORM_TOL (rstd, mean 2e-5), dw (and db) within
-    NORM_SUM_ATOL·sqrt(rows), and dx, dw (db) bitwise over two launches.
+    NORM_SUM_ATOL·sqrt(rows), y and the statistics bitwise over two
+    launches and for the middle rows alone (:func:`norm_fwd_bitwise`), and
+    dx, dw (db) bitwise over two launches.
     Times with the L2 flushed between calls beside the bound, the plain
     version and ``F.rms_norm`` / ``F.layer_norm`` (forward, autograd for
     the backward; the weight cast to x's type where they differ, which
@@ -921,6 +964,8 @@ def norm_phase(torch, dev, ku):
             err = check_close(f"{tag} y", got[0], want[0], atol, rtol)
             stats_err = max(check_close(f"{tag} stats", a, c, 2e-5, 2e-5)
                             for a, c in zip(got[1:], want[1:]))
+            norm_fwd_bitwise(torch, f"{tag} forward",
+                             lambda xx: fwd(xx, *vecs, eps, stats=True), x)
             stats = got[1:]
             grads = bwd(stats)
             grads_p = bwd_ref(stats)
@@ -944,6 +989,7 @@ def norm_phase(torch, dev, ku):
                 "kind": kind, "shape": name, "rows": rows, "hidden": hidden,
                 "x_dtype": xt, "w_dtype": wt, "atol": atol, "rtol": rtol,
                 "sum_atol": sum_atol, "bitwise_repeat": True,
+                "fwd_row_invariant": True,
                 "max_abs_err": err, "stats_max_abs_err": stats_err,
                 "sum_max_abs_err": sum_err,
                 "fwd": dict(zip(("bound_ms", "bound_by"), bound_ms(
@@ -3372,6 +3418,7 @@ def main(argv=None) -> int:
         {"name": "layer_norm_fwd", "route": "cuda",
          "source": "apex_tpu_torch/csrc/layer_norm.cu",
          "replaces": "apex_tpu/ops/layer_norm.py:191",
+         "design": NORM_FWD_DESIGN,
          "launches": launches.get("layer_norm_fwd", 0),
          "max_abs_err": max(c["max_abs_err"] for c in ln_cases),
          **{k: ln[k] for k in timing},
@@ -3498,7 +3545,7 @@ def main(argv=None) -> int:
             {"name": kname, "route": "cuda",
              "source": "apex_tpu_torch/csrc/layer_norm.cu",
              "replaces": f"apex_tpu/ops/layer_norm.py:{line}",
-             **({"design": NORM_BWD_DESIGN} if key == "bwd" else {}),
+             "design": NORM_BWD_DESIGN if key == "bwd" else NORM_FWD_DESIGN,
              "launches": rms_run["launches"][kname],
              "path": "normalization.MixedFusedRMSNorm",
              "shape": f"({rms_main['rows']}, {rms_main['hidden']}) bf16 x, "

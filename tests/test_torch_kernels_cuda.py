@@ -2160,3 +2160,63 @@ def test_paged_wide_rows_bitwise_whatever_their_group(dev, dtype, mode):
     assert torch.equal(g32, g1)
     assert torch.equal(g32[keep], g5)
     assert torch.equal(g32, again)
+
+
+# ---------------------------------------------------------------------------
+# fifteenth slice: the LayerNorm and RMSNorm forward, x read once, a row's
+# sum order set by ops.layer_norm._fwd_plan(hidden) alone
+
+
+def _norm_fwd(kind, x, w, b, stats=True):
+    if kind == "ln":
+        return layer_norm_fwd(x, w, b, stats=stats)
+    return rms_norm_fwd(x, w, stats=stats)
+
+
+def _norm_fwd_plain(kind, x, w, b):
+    if kind == "ln":
+        return layer_norm_fwd_reference(x, w, b)
+    return rms_norm_fwd_reference(x, w)
+
+
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+@pytest.mark.parametrize("xt,wt", NORM_TYPES)
+@pytest.mark.parametrize("hidden", [128, 512, 768, 896, 4096, 12288, 37376])
+def test_norm_fwd_kernel_at_the_plan_edges(dev, kind, xt, wt, hidden):
+    """The forward at the plan's edges (one warp of 1-3 chunks, a two-warp
+    team, 6- and 16-warp teams, a wide team of 30 warps of 5 chunks) and
+    at 1, 3, 7, 37 and 8192 rows: one launch, y within the file's
+    tolerance of the plain version, mean and rstd within 2e-5; y, mean and
+    rstd bitwise over two launches, and y the same without statistics."""
+    name = "layer_norm_fwd" if kind == "ln" else "rms_norm_fwd"
+    for rows in (1, 3, 7, 37, 8192):
+        x, w, b, _ = _norm_case(dev, xt, wt, rows, hidden, rows + hidden)
+        before = ku.launch_counts().get(name, 0)
+        got = _norm_fwd(kind, x, w, b)
+        assert ku.launch_counts()[name] == before + 1
+        want = _norm_fwd_plain(kind, x, w, b)
+        _close_norm(got[0], want[0], xt)
+        for g, c in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, c, atol=2e-5, rtol=2e-5)
+        again = _norm_fwd(kind, x, w, b)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(got, again)), rows
+        assert torch.equal(_norm_fwd(kind, x, w, b, stats=False), got[0])
+        del x, got, want, again
+
+
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+@pytest.mark.parametrize("xt,wt", NORM_TYPES)
+@pytest.mark.parametrize("hidden", [512, 768, 12288])
+def test_norm_fwd_rows_bitwise_whatever_the_call(dev, kind, xt, wt, hidden):
+    """Row-count invariance: 8 rows alone give the same y, mean and rstd
+    bits as the same 8 rows inside an 8192-row call, first, in the middle
+    and last (the engine's 8-row decode and 64-row chunk calls rest on
+    it)."""
+    x, w, b, _ = _norm_case(dev, xt, wt, 8192, hidden, hidden + 1)
+    full = _norm_fwd(kind, x, w, b)
+    for start in (0, 4001, 8184):
+        part = _norm_fwd(kind, x[start:start + 8].contiguous(), w, b)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a[start:start + 8], c)
+                   for a, c in zip(full, part)), start

@@ -438,3 +438,137 @@ def test_norm_bwd_sum_order_matches_jax_kernel(kind, xt, wt, rows, hidden):
     for g, wnt, name in zip(got, want, ("dx", "dw", "db")):
         np.testing.assert_allclose(_np(g), wnt, atol=tol, rtol=tol,
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the forward's geometry and sum order (csrc/layer_norm.cu)
+
+# small widths the wrapper takes beside the gate's: fp32 ones that are not
+# a multiple of 8 (4, 100) and a two-warp team off the 128 grid
+FWD_SMALL_WIDTHS = [4, 8, 100, 136, 8 * 97]
+
+
+@pytest.mark.parametrize(
+    "hidden", FWD_SMALL_WIDTHS + list(range(128, 37377, 128)))
+def test_fwd_plan_takes_every_width_the_gate_admits(hidden):
+    """The forward's geometry is a function of hidden alone (the same
+    answer twice), its teams cover every 4-column chunk of the row exactly
+    once and stay within a block's limits: <= 1,024 threads, <= 6 chunks a
+    thread in teams of <= 16 warps (at least 4 in a team of several warps),
+    <= 12 in one wide team, eight warps a block of narrow teams."""
+    assert list(inspect.signature(pln._fwd_plan).parameters) == ["hidden"]
+    plan = pln._fwd_plan(hidden)
+    assert plan == pln._fwd_plan(hidden)
+    threads = plan.team_warps * 32
+    assert plan.teams * threads <= 1024
+    if plan.team_warps == 1:
+        assert 1 <= plan.chunks <= 6 and plan.teams == 8
+    elif plan.team_warps <= 16:
+        assert 4 <= plan.chunks <= 6
+        assert plan.teams * plan.team_warps <= 8 or plan.teams == 1
+    else:
+        assert plan.teams == 1 and 4 <= plan.chunks <= 12
+        assert hidden > 16 * 32 * 6 * 4
+    units = hidden // pln._FWD_UNIT
+    owned = (np.arange(threads)[:, None]
+             + np.arange(plan.chunks)[None, :] * threads).ravel()
+    owned = np.sort(owned[owned < units])
+    np.testing.assert_array_equal(owned, np.arange(units))
+    # the fewest warps at the chunk cap, and no thread past the row but
+    # in its last chunk
+    assert (plan.chunks - 1) * threads < units
+    if 1 < plan.team_warps <= 16:
+        assert (plan.team_warps - 1) * 32 * 6 < units
+
+
+def test_fwd_plan_is_one_warp_up_to_gpt2s_width():
+    """GPT-2's 768 columns: one warp of 6 chunks, eight teams a block;
+    T5-small's 512: one warp of 4; GPT-3's 12,288: 16 warps of 6; the
+    widest gated row, 37,376: one team of 30 warps of 10."""
+    assert pln._fwd_plan(768) == pln.FwdPlan(1, 8, 6)
+    assert pln._fwd_plan(512) == pln.FwdPlan(1, 8, 4)
+    assert pln._fwd_plan(12288) == pln.FwdPlan(16, 1, 6)
+    assert pln._fwd_plan(37376) == pln.FwdPlan(30, 1, 10)
+    with pytest.raises(ValueError, match="chunks of 4"):
+        pln._fwd_plan(49152 + 8)
+
+
+def _jax_norm_fwd(kind, x, w, b):
+    """JAX's forward kernel (``_ln_fwd_kernel`` / ``_rms_fwd_kernel``) in
+    interpret mode over the whole input, one block of all the rows (JAX's
+    row block where its gate admits the shape: the kernel is per row).
+    Returns y (fp32), then mean and rstd (or rstd) of shape (rows,)."""
+    rows, hidden = x.shape
+    block = jln._pick_block_rows(rows, hidden) or rows
+    row_spec = pl.BlockSpec((block, hidden), lambda i: (i, 0))
+    col_spec = pl.BlockSpec((block, 1), lambda i: (i, 0))
+    vec_spec = pl.BlockSpec((1, hidden), lambda i: (0, 0))
+    sds = jax.ShapeDtypeStruct
+    nstats = 2 if kind == "ln" else 1
+    kernel = functools.partial(
+        jln._ln_fwd_kernel if kind == "ln" else jln._rms_fwd_kernel,
+        eps=1e-5, hidden=hidden)
+    vecs = [jnp.asarray(w)[None, :]] + (
+        [jnp.asarray(b)[None, :]] if kind == "ln" else [])
+    outs = pl.pallas_call(
+        kernel,
+        grid=(rows // block,),
+        in_specs=[row_spec] + [vec_spec] * len(vecs),
+        out_specs=[row_spec] + [col_spec] * nstats,
+        out_shape=[sds((rows, hidden), x.dtype)]
+        + [sds((rows, 1), jnp.float32)] * nstats,
+        interpret=True,
+    )(jnp.asarray(x), *vecs)
+    return [np.asarray(outs[0], np.float32)] + [
+        np.asarray(o)[:, 0] for o in outs[1:]]
+
+
+FWD_TYPES = TYPES + [("float32", "bfloat16")]
+# widths reaching each branch of the plan: one warp at its narrowest (one
+# chunk) and widest (6 chunks), a two-warp team, GPT-3's 16-warp team, a
+# wide team (30 warps of 10), and fp32 widths that are not a multiple of 8
+FWD_ORDER_CASES = [
+    (rows, hidden, xt, wt)
+    for rows, hidden in ((8, 128), (16, 768), (8, 896), (4, 12288),
+                         (2, 37376), (3, 100), (5, 4))
+    for xt, wt in FWD_TYPES
+    if hidden % 8 == 0 or xt == "float32"]
+
+
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+@pytest.mark.parametrize("rows,hidden,xt,wt", FWD_ORDER_CASES)
+def test_norm_fwd_sum_order_matches_jax_kernel(kind, rows, hidden, xt, wt):
+    """The plain emulation of the forward kernel's sum order (a thread's
+    chunks, the warp's xor tree, the team's warps) against JAX's forward
+    kernel in interpret mode on the same numpy inputs: y, mean and rstd in
+    every (x, weight) type pair; the fp32 statistics within 1e-5, y within
+    1e-5 in fp32 and the tolerance above with a bf16 input or output."""
+    x, w, b, _ = _case(rows * 7 + hidden, rows, hidden, xt, wt)
+    got = pln.norm_fwd_split_reference(_port(x), _port(w), _port(b),
+                                       rms=kind == "rms")
+    assert len(got) == (3 if kind == "ln" else 2)
+    assert got[0].dtype == _port(x).dtype
+    assert all(t.dtype == torch.float32 and t.shape == (rows,)
+               for t in got[1:])
+    want = _jax_norm_fwd(kind, x, w, b)
+    tol = _tol(xt, wt) or FWD_TOL
+    np.testing.assert_allclose(_np(got[0]), want[0], atol=tol, rtol=tol,
+                               err_msg="y")
+    for g, wnt, name in zip(got[1:], want[1:], ("mean", "rstd")
+                            if kind == "ln" else ("rstd",)):
+        np.testing.assert_allclose(_np(g), wnt, atol=FWD_TOL, rtol=FWD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+def test_norm_fwd_split_reference_is_row_count_invariant(kind):
+    """The emulated order holds a row's bits whatever rows share its call:
+    8 rows alone equal the same rows inside a 64-row call, bitwise."""
+    x, w, b, _ = _case(9, 64, 896, "float32", "float32")
+    rms = kind == "rms"
+    full = pln.norm_fwd_split_reference(_port(x), _port(w), _port(b),
+                                        rms=rms)
+    part = pln.norm_fwd_split_reference(_port(x[24:32]), _port(w), _port(b),
+                                        rms=rms)
+    for a, c in zip(full, part):
+        assert torch.equal(a[24:32], c)
