@@ -23,262 +23,52 @@
 // 2/group int4) + q and o over 3.35 TB/s; the products are 4 * sum(ctx) *
 // H * d operations.
 //
-// Design. The walk of paged_split.cuh: one owner block per (context split,
-// head, tile of up to 32 rows of one group), the splits merged in order by
-// a second launch, counted once with this one. So 8 decode rows x 12
-// heads give 96 * (live splits) blocks, where one block per (row, head)
-// gave 96 on 132 SMs, and a prefill chunk's 32 rows read the slot's K/V
-// once, not 32 times. Inside a block, K/V tiles of 64 positions arrive
-// through a two-stage cp.async ring (codes and scales for quantized
+// Design. The walk of paged_split.cuh (its body, mma_walk, is in
+// paged_walks.cuh, shared with the fused layer): one owner block per
+// (context split, head, tile of up to 32 rows of one group), the splits
+// merged in order by a second launch, counted once with this one. So 8
+// decode rows x 12 heads give 96 * (live splits) blocks, where one block per
+// (row, head) gave 96 on 132 SMs, and a prefill chunk's 32 rows read the
+// slot's K/V once, not 32 times. Inside a block, K/V tiles of 64 positions
+// arrive through a two-stage cp.async ring (codes and scales for quantized
 // pools, dequantized into one bf16 tile after they land, each warp's 16
 // positions by the warps that read them, behind their own barrier). Layout:
-// rows on M, positions on N, as flash_mma.cu's forward: S = Q K^T, then O
-// += P V with S's C fragments as P's A operand and V through
-// ldmatrix.trans, so nothing moves between lanes or through shared memory
-// between the two products. A 16-row tile wastes 15/16 of the products at
-// q = 1 and 11/16 at q = 5, against 7/8 with positions on M, but the
-// kernel is bound by its bytes by two orders of magnitude, and this layout
-// reuses the forward's fragments unchanged. The 32 rows of a tile are two
-// 16-row halves; each half has four warps, warp w taking positions [16w,
-// 16w + 16) of every tile with its own (m, l, acc), the four merged in
-// slice order through shared memory at the end. A launch runs 128 threads
-// when its groups have at most 16 rows, 256 otherwise: one code path for
-// every group size, the thread count only deciding whether the second
-// half has warps. D is padded to the next 16 (zeros in shared memory) for
-// the mma depth; the instantiations are D = 32, 64, 128 and 256, and the
-// products stop at the true d rounded up to 16. Masks by value (p = 0 at
-// a dead position, so a tile past a row's context leaves its state as it
-// was), loads from clamped addresses, no atomics: a row's bits are the
-// same whatever its group size and whatever else is in the launch, and
-// over repeated launches.
+// rows on M, positions on N, as flash_mma.cu's forward: S = Q K^T, then O +=
+// P V with S's C fragments as P's A operand and V through ldmatrix.trans, so
+// nothing moves between lanes or through shared memory between the two
+// products. A 16-row tile wastes 15/16 of the products at q = 1 and 11/16 at
+// q = 5, against 7/8 with positions on M, but the kernel is bound by its
+// bytes by two orders of magnitude, and this layout reuses the forward's
+// fragments unchanged. The 32 rows of a tile are two 16-row halves; each
+// half has four warps, warp w taking positions [16w, 16w + 16) of every tile
+// with its own (m, l, acc), the four merged in slice order through shared
+// memory at the end. A launch runs 128 threads when its groups have at most
+// 16 rows, 256 otherwise: one code path for every group size, the thread
+// count only deciding whether the second half has warps. D is padded to the
+// next 16 (zeros in shared memory) for the mma depth; the instantiations are
+// D = 32, 64, 128 and 256, and the products stop at the true d rounded up to
+// 16. Masks by value (p = 0 at a dead position, so a tile past a row's
+// context leaves its state as it was), loads from clamped addresses, no
+// atomics: a row's bits are the same whatever its group size and whatever
+// else is in the launch, and over repeated launches.
 //
 // Shared memory (D = 256): q 16.5 KB; full-precision K and V, two stages,
 // 132 KB; quantized: one bf16 stage of K and V 66 KB + two stages of codes
 // (int8 64 KB, int4 32 KB) and scales.
 
-#include "paged_split.cuh"
+#include "paged_walks.cuh"
 
 namespace {
 
 using paged::Args;
 using paged::Layout;
-using paged::Walk;
 
 template <int D, int MODE>
 __global__ void __launch_bounds__(256)
     paged_mma_kernel(const Args a, const Layout L) {
-  constexpr int S = kStride<D>, TP = kB, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_ctx[paged::kMaxRows];
-  __shared__ int s_max;
   paged::let_merge_launch();
-  const Walk w = paged::walk_of(a, paged::kMaxRows, s_ctx, &s_max);
-  if (w.t_begin >= w.t_end) return;  // past every row's context
-  const int ntiles = (w.t_end - w.t_begin + TP - 1) / TP;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-  const int d16 = (a.d + 15) & ~15;
-
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L.v);
-  unsigned char* raw_k = smem + L.raw_k;
-  unsigned char* raw_v = smem + L.raw_v;
-  unsigned char* sc_k = smem + L.sc_k;
-  unsigned char* sc_v = smem + L.sc_v;
-  int* offs = reinterpret_cast<int*>(smem + L.offs);
-
-  paged::stage_q(sQ, S, paged::kMaxRows, a, w, d16, tid, nthreads);
-  auto stage = [&](int kt) {
-    const int t0 = w.t_begin + kt * TP, st = kt & 1;
-    if constexpr (MODE == 0) {
-      paged::stage_fp<TP>(sK + st * TP * S, sV + st * TP * S, S, a, w,
-                          t0, d16, tid, nthreads);
-    } else {
-      paged::stage_quant<TP>(raw_k + st * TP * L.rs, raw_v + st * TP * L.rs,
-                             sc_k + st * TP * L.sw, sc_v + st * TP * L.sw,
-                             offs + st * TP, a, w, L, t0, tid, nthreads);
-    }
-  };
-  stage(0);
-  cp_async_commit();
-
-  // this warp: rows 16 half + (g, g + 8) of the tile, positions [16 slice,
-  // 16 slice + 16) of every K/V tile
-  const int half = warp / 4, slice = warp % 4;
-  const bool active = half * 16 < w.rows;
-  const int r[2] = {half * 16 + g, half * 16 + g + 8};
-  const int ctx[2] = {s_ctx[r[0]], s_ctx[r[1]]};
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {apex::kNegInf, apex::kNegInf}, l[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    __syncthreads();  // every warp is done with the stage refilled next
-    if (kt + 1 < ntiles) stage(kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and q) have landed
-    __syncthreads();
-    const int t0 = w.t_begin + kt * TP;
-    const bf16* cK = sK;
-    const bf16* cV = sV;
-    if constexpr (MODE == 0) {
-      cK += (kt & 1) * TP * S;
-      cV += (kt & 1) * TP * S;
-    } else {
-      // each slice's warps (one per half) dequantize the 16 positions
-      // they read, then meet at the slice's own barrier
-      const int st = kt & 1, sid = lane + 32 * half, sn = nthreads / 4;
-      paged::dequant<8>(sK, S, raw_k + st * TP * L.rs, sc_k + st * TP * L.sw,
-                        offs + st * TP, a, w, L, t0, d16, slice * 16, 16,
-                        sid, sn);
-      paged::dequant<8>(sV, S, raw_v + st * TP * L.rs, sc_v + st * TP * L.sw,
-                        offs + st * TP, a, w, L, t0, d16, slice * 16, 16,
-                        sid, sn);
-      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + slice), "r"(sn)
-                   : "memory");
-    }
-    if (!active) continue;
-
-    // S = Q K^T over this warp's 16 positions
-    float s[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; c += 16) {
-      if (c < d16) {
-        uint32_t af[4], b[4];
-        load_a<D>(af, sQ, half * 16, c, lane);
-        load_bt<D>(b, cK, slice * 16, c, lane);
-        mma_bf16(s[0], af, b[0], b[1]);
-        mma_bf16(s[1], af, b[2], b[3]);
-      }
-    }
-    // scale and mask by value; the row max over the 4 lanes of a row
-    float mx[2] = {apex::kNegInf, apex::kNegInf};
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int pos = t0 + slice * 16 + j * 8 + 2 * t + (e & 1);
-        const float sv =
-            pos < ctx[e >> 1] ? s[j][e] * a.scale : apex::kNegInf;
-        s[j][e] = sv;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
-      }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr[i];  // this lane's part of the row sum
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int pos = t0 + slice * 16 + j * 8 + 2 * t + (e & 1);
-        const float p =
-            pos < ctx[e >> 1] ? expf(s[j][e] - m[e >> 1]) : 0.f;
-        l[e >> 1] += p;
-        s[j][e] = p;
-      }
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-    // O += P V over the same 16 positions, p as two bf16 terms: hi =
-    // round(p), lo = round(p - hi) (p - hi is exact), so the products keep
-    // about 16 bits of p
-    float lo[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        lo[j][e] = s[j][e] - round_to<bf16>(s[j][e]);
-    uint32_t pa[4], pb[4];
-    acc_to_a<2>(pa, s, 0);
-    acc_to_a<2>(pb, lo, 0);
-#pragma unroll
-    for (int c = 0; c < ND; c += 2) {
-      if (c * 8 < d16) {
-        uint32_t b[4];
-        load_b<D>(b, cV, slice * 16, c * 8, lane);
-        mma_bf16(acc[c], pa, b[0], b[1]);
-        mma_bf16(acc[c + 1], pa, b[2], b[3]);
-        mma_bf16(acc[c], pb, b[0], b[1]);
-        mma_bf16(acc[c + 1], pb, b[2], b[3]);
-      }
-    }
-  }
-
-  // the four slices' (m, l, acc) of each row merged in slice order, one
-  // half of the rows at a time through the freed tile memory, into the
-  // split's partial
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  constexpr int RS = D + 2;  // a row of a slice: acc, m, l
-  float* red = reinterpret_cast<float*>(smem + L.k);
-  float* ml = a.part + static_cast<long>(a.n) * a.heads * a.splits * a.d;
-  for (int hh = 0; hh * 16 < w.rows; ++hh) {
-    __syncthreads();  // the tiles, or the previous half, are consumed
-    if (half == hh) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float* row = red + (slice * 16 + g + 8 * i) * RS;
-        if (t == 0) {
-          row[D] = m[i];
-          row[D + 1] = l[i];
-        }
-#pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          const int col = j * 8 + 2 * t;
-          if (col < a.d)
-            *reinterpret_cast<float2*>(row + col) =
-                make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
-        }
-      }
-    }
-    __syncthreads();
-    const int rows = min(16, w.rows - hh * 16);
-    for (int u = tid; u < rows * (a.d + 1); u += nthreads) {
-      const int rr = u / (a.d + 1), c = u % (a.d + 1);
-      float mw[4], mx = apex::kNegInf;
-#pragma unroll
-      for (int sl = 0; sl < 4; ++sl) {
-        mw[sl] = red[(sl * 16 + rr) * RS + D];
-        mx = fmaxf(mx, mw[sl]);
-      }
-      const long pi = (w.row0 + hh * 16 + rr) * a.heads * a.splits +
-                      static_cast<long>(blockIdx.y) * a.splits + blockIdx.x;
-      float sum = 0.f;
-#pragma unroll
-      for (int sl = 0; sl < 4; ++sl) {
-        const float* row = red + (sl * 16 + rr) * RS;
-        sum += (c < a.d ? row[c] : row[D + 1]) * expf(mw[sl] - mx);
-      }
-      if (c < a.d) {
-        a.part[pi * a.d + c] = sum;
-      } else {
-        ml[2 * pi] = mx;
-        ml[2 * pi + 1] = sum;
-      }
-    }
-  }
+  paged::mma_walk<D, MODE, false>(a, L, blockIdx, smem);
 }
 
 template <int D, int MODE>
@@ -347,7 +137,7 @@ extern "C" int paged_mma_fwd(int device, const void* q, const void* k_pool,
                static_cast<const int*>(ctx_lens), out,
                static_cast<float*>(part), n, heads, head_dim, pool_blocks,
                block_size, max_blocks, kv_mode, group, rows_per_table,
-               splits, split_len, scale};
+               splits, split_len, scale, rows_per_table};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (kv_mode) {

@@ -1,14 +1,19 @@
 // The split walk of paged attention, shared by csrc/paged_attention.cu
-// (fp32 on the CUDA cores, and both types above head dim 256) and
-// csrc/paged_mma.cu (bf16 on the tensor cores): the launch geometry, the copies of one tile of pool positions
-// into shared memory, the dequantization of int8 / int4 tiles, and the
-// second launch that merges the partials.
+// (fp32 on the CUDA cores, and both types above head dim 256),
+// csrc/paged_mma.cu (bf16 on the tensor cores) and the fused decode/verify
+// layer csrc/megakernel.cu (its attention phase walks the same items with
+// the bodies of paged_walks.cuh, and its merge phase runs merge_row): the
+// geometry, the copies of one tile of pool positions into shared memory,
+// the dequantization of int8 / int4 tiles, and the merge of the partials
+// (a second launch for the per-op kernels, a later phase of the fused
+// layer's launch).
 //
 // Geometry. Rows are flat (slots * q). The rows [i*g, (i+1)*g) of a group
 // (g = rows_per_table; q in the serve programs) share block-table row i*g,
 // so a block reads each K/V tile once for a tile of up to 32 rows of one
 // group (32 on the tensor cores, 8 on the CUDA cores, whose products cost
-// more a row). One owner block per (context split, head, row tile). Split
+// more a row; the fused layer's block tables have one row a group: `gtab`,
+// the table rows a group spans, is g for the per-op kernels and 1 there). One owner block per (context split, head, row tile). Split
 // s covers positions [s*split_len, (s+1)*split_len); split_len is a
 // multiple of 64 and a function of the table's capacity (max_blocks * bs)
 // alone (serve/decode.py `_paged_splits`), so a token's splits, and the
@@ -62,6 +67,7 @@ struct Args {
   float* part;     // partials, as above
   int n, heads, d, pool_blocks, bs, mb, mode, group, g, splits, split_len;
   float scale;
+  int gtab;  // block-table rows a group spans (its first is read)
 };
 
 // byte offsets of a kernel's dynamic shared memory
@@ -77,13 +83,15 @@ __host__ __device__ inline int scale_window_bytes(int sb) {
   return sb % 4 ? (sb + 2 + 3) / 4 * 4 : sb;
 }
 
-// q rows of q_bytes; K and V tiles of tile_bytes, two stages each for
+// q rows of q_bytes; K and V tiles of tile_bytes, `ring` stages each for
 // full-precision pools; for quantized pools one dequantized stage each and
-// two stages of codes, scales and scale offsets
+// `ring` stages of codes, scales and scale offsets (the per-op kernels
+// take 2; the fused layer more, where its shared memory allows)
 inline Layout make_layout(int q_bytes, int tile_bytes, int tp, int mode,
-                          int code_row_bytes, int scale_row_bytes) {
+                          int code_row_bytes, int scale_row_bytes,
+                          int ring = 2) {
   Layout L{};
-  const int stages = mode == 0 ? 2 : 1;
+  const int stages = mode == 0 ? ring : 1;
   L.q = 0;
   L.k = q_bytes;
   L.v = L.k + stages * tile_bytes;
@@ -92,16 +100,16 @@ inline Layout make_layout(int q_bytes, int tile_bytes, int tp, int mode,
     L.rs = (code_row_bytes + 15) / 16 * 16;
     L.sw = scale_window_bytes(scale_row_bytes);
     L.raw_k = at;
-    at += 2 * tp * L.rs;
+    at += ring * tp * L.rs;
     L.raw_v = at;
-    at += 2 * tp * L.rs;
+    at += ring * tp * L.rs;
     L.sc_k = at;
-    at += 2 * tp * L.sw;
+    at += ring * tp * L.sw;
     L.sc_v = at;
-    at += 2 * tp * L.sw;
+    at += ring * tp * L.sw;
     at = (at + 15) / 16 * 16;
     L.offs = at;
-    at += 2 * tp * 4;
+    at += ring * tp * 4;
   }
   L.bytes = at;
   return L;
@@ -122,6 +130,7 @@ __host__ __device__ inline int scale_row_bytes(int mode, int d, int group) {
 // context) and each row's context (s_ctx, 0 past the rows). Every thread
 // calls it; it ends in a barrier.
 struct Walk {
+  int split, head;     // the item's context split and head
   long row0;           // first row
   int rows;            // rows of the tile (<= tile_rows)
   const int* bt;       // the group's block-table row
@@ -137,17 +146,20 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
   asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
 }
 
-// tile_rows (<= kMaxRows): the rows of one group a block takes
+// tile_rows (<= kMaxRows): the rows of one group a block takes; item:
+// (split, head, group x row tile), the per-op kernels' blockIdx
 __device__ __forceinline__ Walk walk_of(const Args& a, int tile_rows,
-                                        int* s_ctx, int* s_max) {
+                                        uint3 item, int* s_ctx, int* s_max) {
   const int tiles_per_group = (a.g + tile_rows - 1) / tile_rows;
-  const int group = blockIdx.z / tiles_per_group;
-  const int rtile = blockIdx.z % tiles_per_group;
+  const int group = item.z / tiles_per_group;
+  const int rtile = item.z % tiles_per_group;
   Walk w;
+  w.split = item.x;
+  w.head = item.y;
   w.row0 = static_cast<long>(group) * a.g + rtile * tile_rows;
   w.rows = min(tile_rows, a.g - rtile * tile_rows);
-  w.bt = a.bt + static_cast<long>(group) * a.g * a.mb;
-  w.head_tok0 = static_cast<long>(blockIdx.y) * a.pool_blocks * a.bs;
+  w.bt = a.bt + static_cast<long>(group) * a.gtab * a.mb;
+  w.head_tok0 = static_cast<long>(item.y) * a.pool_blocks * a.bs;
   if (threadIdx.x < 32) {
     // a context past the row's blocks attends to the blocks it has
     const int c = threadIdx.x < w.rows
@@ -162,7 +174,7 @@ __device__ __forceinline__ Walk walk_of(const Args& a, int tile_rows,
   } else {
     // meanwhile, the split's block-table entries into L1: one address
     // every 128 bytes and the last, so every line they span
-    const int t0 = blockIdx.x * a.split_len;
+    const int t0 = item.x * a.split_len;
     const int e0 = t0 / a.bs;
     const int e1 = min((t0 + a.split_len - 1) / a.bs, a.mb - 1);
     const int e = e0 + 32 * (threadIdx.x - 32);
@@ -170,7 +182,7 @@ __device__ __forceinline__ Walk walk_of(const Args& a, int tile_rows,
     if (threadIdx.x == 32 && e0 <= e1) prefetch_l1(w.bt + e1);
   }
   __syncthreads();
-  w.t_begin = blockIdx.x * a.split_len;
+  w.t_begin = item.x * a.split_len;
   w.t_end = min(w.t_begin + a.split_len, *s_max);
   return w;
 }
@@ -206,7 +218,7 @@ __device__ __forceinline__ void stage_q(T* dst, int ld, int tile_rows,
   const T* q = static_cast<const T*>(a.q);
   for (int u = tid; u < tile_rows * chunks; u += nthreads) {
     const int r = u / chunks, c = (u % chunks) * E;
-    const T* src = q + ((w.row0 + min(r, w.rows - 1)) * a.heads + blockIdx.y) *
+    const T* src = q + ((w.row0 + min(r, w.rows - 1)) * a.heads + w.head) *
                            a.d +
                    min(c, a.d - E);
     cp_async16(dst + r * ld + c, src, r < w.rows && c < a.d);
@@ -379,23 +391,31 @@ constexpr int kMergeWarps = 8;
 constexpr int kMaxSplits = 64;
 constexpr int kMergeBatch = 8;
 
-template <typename Out>
-__global__ void __launch_bounds__(32 * kMergeWarps)
-    paged_merge_kernel(const float* __restrict__ part,
-                       const int* __restrict__ ctx, Out* __restrict__ out,
-                       int n, int heads, int d, int splits, int split_len,
-                       int cap) {
-  // launched early (programmatic dependent launch): wait for the walk's
-  // grid to finish and its partials to be visible
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const long idx = static_cast<long>(blockIdx.x) * kMergeWarps +
-                   threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (idx >= static_cast<long>(n) * heads) return;
+// The merge of (row, head) pair idx by one warp into out[idx * d ..]. kCg
+// reads the partials through L2 (ld.global.cg): the fused layer's merge
+// phase reads what other blocks of its launch wrote, and L1 is not coherent
+// across SMs.
+template <typename Out, bool kCg>
+__device__ __forceinline__ void merge_row(const float* __restrict__ part,
+                                          const int* __restrict__ ctx,
+                                          Out* __restrict__ out, int n,
+                                          int heads, int d, int splits,
+                                          int split_len, int cap, long idx,
+                                          int lane) {
+  auto ld = [](const float* p) {
+    if constexpr (kCg) return __ldcg(p);
+    return *p;
+  };
   // every load below is issued before the row's context arrives: the
   // (m, l) and partials of all splits the scratch holds, the dead ones
   // (never written) read but masked out by value
-  const int c = min(max(ctx[idx / heads], 0), cap);
+  int cv;
+  if constexpr (kCg) {
+    cv = __ldcg(ctx + idx / heads);
+  } else {
+    cv = ctx[idx / heads];
+  }
+  const int c = min(max(cv, 0), cap);
   const float2* ml = reinterpret_cast<const float2*>(
                          part + static_cast<long>(n) * heads * splits * d) +
                      idx * splits;
@@ -403,8 +423,17 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
   constexpr int PL = kMaxSplits / 32;  // parts a lane
   float2 raw[PL];
 #pragma unroll
-  for (int j = 0; j < PL; ++j)
-    raw[j] = lane + 32 * j < splits ? ml[lane + 32 * j] : make_float2(0.f, 0.f);
+  for (int j = 0; j < PL; ++j) {
+    if (lane + 32 * j < splits) {
+      if constexpr (kCg) {
+        raw[j] = __ldcg(ml + lane + 32 * j);
+      } else {
+        raw[j] = ml[lane + 32 * j];
+      }
+    } else {
+      raw[j] = make_float2(0.f, 0.f);
+    }
+  }
   const int live = (c + split_len - 1) / split_len;
   float pm[PL], pl[PL], wl[PL];
   float mx = apex::kNegInf;
@@ -441,7 +470,7 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
 #pragma unroll
           for (int k = 0; k < PER; ++k) {
             const int cc = c0 + lane + 32 * k;
-            v[i][k] = i0 + i < cnt && cc < d ? row[cc] : 0.f;
+            v[i][k] = i0 + i < cnt && cc < d ? ld(row + cc) : 0.f;
           }
         }
 #pragma unroll
@@ -461,6 +490,22 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
         apex::from_f(l > 0.f ? acc[k] / l : 0.f, out + idx * d + cc);
     }
   }
+}
+
+template <typename Out>
+__global__ void __launch_bounds__(32 * kMergeWarps)
+    paged_merge_kernel(const float* __restrict__ part,
+                       const int* __restrict__ ctx, Out* __restrict__ out,
+                       int n, int heads, int d, int splits, int split_len,
+                       int cap) {
+  // launched early (programmatic dependent launch): wait for the walk's
+  // grid to finish and its partials to be visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const long idx = static_cast<long>(blockIdx.x) * kMergeWarps +
+                   threadIdx.x / 32;
+  if (idx >= static_cast<long>(n) * heads) return;
+  merge_row<Out, false>(part, ctx, out, n, heads, d, splits, split_len, cap,
+                        idx, threadIdx.x % 32);
 }
 
 template <typename Out>

@@ -84,8 +84,8 @@ GEMM_ROW_TILE = 64
 def _nibble_dequant(packed, s, group: int):
     """int4 pool dequant: (.., bs, D/2) packed uint8 codes + (.., bs,
     D/group) bf16 group scales -> (.., bs, D) fp32, code x scale. The plain
-    version of what the kernels do per 16-byte load (``Int4Pool`` in
-    ``csrc/paged_attend.cuh``)."""
+    version of what the kernels do per staged tile (``dequant`` in
+    ``csrc/paged_split.cuh``)."""
     return _dequant_rows_int4(packed, s, group, torch.float32)
 
 

@@ -23,11 +23,35 @@ grid; see its header for the design):
   fused layer per layer, final LN + logits.
 * :func:`megakernel_refusal` / :func:`megakernel_ok` gate the shape:
   JAX's rules (no MoE, ``heads * head_dim == hidden``, head_dim matching
-  the model and divisible by 8) and, where the kernel itself must run
-  (``allow_interpret=False``: a CUDA device), the Hopper kernel's limits —
-  its head dims, fed rows per launch and shared memory — in place of the
-  TPU's VMEM budget. :func:`warn_megakernel_fallback` logs an ``auto``
-  fallback once per reason.
+  the model and divisible by 8: every such head dim, any number of slots
+  and fed rows) and, where the kernel itself must run
+  (``allow_interpret=False``: a CUDA device), the Hopper kernel's limits
+  in place of the TPU's VMEM budget: fp32 or bf16, and its shared memory
+  (:func:`kernel_smem_bytes`, reported in bytes) within
+  :data:`SMEM_LIMIT_BYTES`. Every shape it admits launches.
+  :func:`warn_megakernel_fallback` logs an ``auto`` fallback once per
+  reason.
+
+The Hopper kernel (``csrc/megakernel.cu``, whose header has the design):
+one cooperative launch a layer, one 256-thread block an SM, phases
+qkv | (int8 / int4 codec) | attention | merge | out | fc1 | fc2 between 5
+(6) grid syncs. Each GEMM item is 16 output columns over K (fc2, whose K
+is wide, in ordered K splits added by the last to arrive), its weights
+streamed through a cp.async ring in shared memory; bf16 products on the
+tensor cores (mma.sync, the weight's columns on M and the fed rows on N),
+fp32 on the CUDA cores; LN1 and LN2 are computed by every block for the
+rows it stages. Attention is the per-op path's split walk
+(``csrc/paged_split.cuh``, ``paged_walks.cuh``) over :func:`_fused_splits`
+of the table's capacity, its items taken from a queue, merged in order in
+a later phase. Rows go in chunks of up to 64 within the launch, and no
+sum depends on the row count, the chunk or the grid: a verify row equals
+the decode of its token bit for bit, and one launch is made a call,
+whatever the rows. Its bound is device memory: one layer's weights read
+once (14.2 MB in bf16 at GPT-2-124M, 4.2 µs at 3.35 TB/s) plus the
+attended pool blocks; it runs at about 10x that (PERF.md §6 row 20). Its
+limits: the shared memory, whose largest parts are the attention walk's
+tiles at head dims up to 256 and an LN phase's fewest rows of the hidden
+width (refused from a hidden of about 4,500 in either type).
 
 JAX's weight-tile planner (``tiles=``, ``default_tiles``,
 ``fused_live_bytes``) sizes VMEM-resident tiles; the Hopper kernel streams
@@ -47,7 +71,8 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _kernel_util as ku
 from apex_tpu_torch.ops.layer_norm import layer_norm_fwd_reference
-from apex_tpu_torch.serve.decode import (_check_serve_cfg, _embed,
+from apex_tpu_torch.serve.decode import (PAGED_TILE, _SPLITS_MAX,
+                                         _check_serve_cfg, _embed,
                                          _split_qkv, check_pools, kv_mode,
                                          paged_attention_reference,
                                          serve_logits)
@@ -56,19 +81,26 @@ from apex_tpu_torch.serve.kv_cache import KVCacheConfig, paged_write
 Params = Dict[str, Any]
 
 # the Hopper kernel's limits (csrc/megakernel.cu)
-KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-MAX_ROWS = 128                 # fed rows (slots x q) per launch
-SMEM_LIMIT_BYTES = 232448      # dynamic shared memory of one H100 block
-_THREADS, _WARPS, _KC, _NC = 256, 8, 32, 32
+SMEM_LIMIT_BYTES = 229376      # dynamic shared memory a launch takes
+_WARPS, _NT = 8, 16
+# per type: (k of a ring stage, stages, row padding, fewest and most rows
+# of a chunk); csrc/megakernel.cu `Gemm<T>`
+_GEMM = {torch.bfloat16: (128, 12, 8, 16, 64),
+         torch.float32: (128, 6, 4, 8, 64)}
+# 64-position tiles of a fused attention split, at least (the per-op
+# kernels' two make more, shorter items; the fused layer's blocks walk
+# their items one after another)
+_FUSED_SPLIT_TILES = 4
 _EPS = 1e-5
 
 _SIGNATURES = {
     "fused_layer_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 25
-    + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                              ctypes.c_void_p],
-    "fused_layer_smem_bytes": [ctypes.c_int, ctypes.c_int],
-    "fused_layer_scratch_bytes": [ctypes.c_int] * 4,
+    "fused_layer_smem_bytes": [ctypes.c_int] * 6,
+    "fused_layer_smem_budget": [],
+    "fused_layer_scratch_bytes": [ctypes.c_int] * 8,
 }
 
 _log = logging.getLogger("apex_tpu_torch.serve")
@@ -84,16 +116,90 @@ def layer_weight_bytes(cfg) -> int:
     return elems * torch.empty((), dtype=cfg.dtype).element_size()
 
 
-def kernel_smem_bytes(hidden: int, head_dim: int) -> int:
-    """Dynamic shared memory of one block of the fused-layer kernel: its
-    largest phase (GEMM chunks, the attention walk, the pool write's
-    per-warp vectors, one LayerNorm row); ``csrc/megakernel.cu``
-    ``smem_floats`` computes the same."""
-    nt = 4096 // head_dim
-    attend = 2 * nt * (head_dim + 1) + nt + _WARPS + _THREADS
-    floats = max(MAX_ROWS * (_KC + 1) + _KC * _NC, attend + head_dim,
-                 _WARPS * (head_dim + head_dim // 2), hidden + _WARPS)
-    return 4 * floats
+def _walk_layout_bytes(q_bytes: int, tile_bytes: int, tp: int, mode: int,
+                       code_row: int, scale_row: int, ring: int) -> int:
+    """Bytes of a paged walk's shared memory (``csrc/paged_split.cuh``
+    ``make_layout``): q, the K and V tiles (``ring`` stages for
+    full-precision pools, one dequantized stage beside ``ring`` stages of
+    codes, scales and scale offsets for quantized ones)."""
+    stages = ring if mode == 0 else 1
+    at = q_bytes + 2 * stages * tile_bytes
+    if mode:
+        rs = -(-code_row // 16) * 16
+        sw = (scale_row + 2 + 3) // 4 * 4 if scale_row % 4 else scale_row
+        at = (-(-(at + 2 * ring * tp * rs + 2 * ring * tp * sw) // 16) * 16
+              + ring * tp * 4)
+    return at
+
+
+def _fused_splits(capacity: int) -> Tuple[int, int]:
+    """``(splits, positions a split covers)`` of the fused layer's attention
+    walk for a block table of ``capacity`` positions: ``decode._paged_splits``
+    with splits of at least ``_FUSED_SPLIT_TILES`` tiles, at most
+    ``_SPLITS_MAX`` of them. A function of the capacity alone."""
+    tiles = max(1, -(-capacity // PAGED_TILE))
+    per = max(_FUSED_SPLIT_TILES, -(-tiles // _SPLITS_MAX))
+    return -(-tiles // per), per * PAGED_TILE
+
+
+def _gemm_kw(k: int, split: bool, dtype) -> int:
+    """Columns a GEMM phase stages a row (``gemm_geo``'s kw): the whole K
+    in ring chunks, or, where a copied phase (out, fc2) would not fit its
+    most rows with the whole K, one of the fewest K splits that do."""
+    kc, most = _GEMM[dtype][0], _GEMM[dtype][4]
+    nch, s = -(-k // kc), 1
+    while (split and s < nch and _gemm_smem_bytes(-(-nch // s) * kc, k, most,
+                                                  False, 0, dtype)
+           > SMEM_LIMIT_BYTES):
+        s += 1
+    return -(-nch // s) * kc
+
+
+def _gemm_smem_bytes(kw: int, k: int, rows: int, ln: bool, raw: int,
+                     dtype) -> int:
+    """Bytes of a GEMM phase staging ``kw`` columns of ``rows`` rows
+    (``gemm_smem``): the rows, the weight ring, the warps' sums, the LN
+    weights (``ln``), the rows' pool tokens, and ``raw`` raw fp32 rows (an
+    LN of fp32 rows into bf16: at least one)."""
+    kc, stages, apad, _, _ = _GEMM[dtype]
+    esz = torch.empty((), dtype=dtype).element_size()
+    lnw = (rows * (kw + apad) * esz + stages * kc * _NT * esz
+           + _WARPS * _NT * rows * 4)
+    tok = lnw + (-(-(2 * k * esz) // 16) * 16 if ln else 0)
+    return tok + -(-(rows * 4) // 16) * 16 + raw * k * 4
+
+
+def kernel_smem_bytes(hidden: int, head_dim: int, ffn: int, dtype,
+                      mode: int = 0, group: int = 0) -> int:
+    """Dynamic shared memory the fused-layer kernel needs at this shape
+    (``csrc/megakernel.cu`` ``fused_layer_smem_bytes`` computes the
+    same): the largest of the attention walk's layout at the head dim's
+    bucket (64, 128, 256; above 256 the wide walk's chunks), the codec
+    phase's per-warp vectors (int8 / int4 pools) and a GEMM phase's fewest
+    rows of the widest K beside the weight ring. ``mode``: the pools'
+    ``kv_mode``; ``group``: the int4 group."""
+    d = head_dim
+    db = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 0
+    code = (db if mode == 1 else db // 2) if mode else 0
+    scale = (4 if mode == 1 else 2 * (d // group)) if mode else 0
+    ring = 4 if db <= 128 else 2        # kWalkRing
+    if db == 0:
+        att = (8 * 128 + 32 * (128 + 4)) * 4
+    elif dtype == torch.bfloat16:   # q as two bf16 terms hi + lo
+        att = _walk_layout_bytes(2 * 32 * (db + 8) * 2, PAGED_TILE * (db + 8)
+                                 * 2, PAGED_TILE, mode, code, scale, ring)
+    else:
+        att = _walk_layout_bytes(8 * db * 4, 32 * (db + 4) * 4, 32, mode,
+                                 code, scale, ring)
+    need = max(att, _WARPS * 2 * d * 4 if mode else 0)
+    rows = _GEMM[dtype][3]
+    return max(need,
+               _gemm_smem_bytes(_gemm_kw(hidden, False, dtype), hidden, rows,
+                                True, int(dtype == torch.bfloat16), dtype),
+               _gemm_smem_bytes(_gemm_kw(hidden, True, dtype), hidden, rows,
+                                False, 0, dtype),
+               _gemm_smem_bytes(_gemm_kw(ffn, True, dtype), ffn, rows, False,
+                                0, dtype))
 
 
 def megakernel_refusal(cfg, kv_cfg: KVCacheConfig,
@@ -102,9 +208,10 @@ def megakernel_refusal(cfg, kv_cfg: KVCacheConfig,
     """Why the fused layer refuses this model/cache shape; ``None`` when it
     is supported. ``allow_interpret=True`` lets the plain version stand in
     (a CPU engine, as JAX's interpret mode); ``False`` asks for the Hopper
-    kernel itself, for ``slots`` slots of ``q`` fed rows: a CUDA device,
-    its dtypes and head dims, at most ``MAX_ROWS`` fed rows per launch, and
-    its shared memory within the block's limit (reported in bytes)."""
+    kernel itself: a CUDA device, its dtypes, and its shared memory within
+    :data:`SMEM_LIMIT_BYTES` (reported in bytes). It takes every head_dim %
+    8 == 0 and any ``slots`` x ``q`` fed rows (one launch a call), as JAX's
+    grid does; the C entry refuses nothing this admits."""
     if getattr(cfg, "num_experts", 0):
         return ("MoE layers (num_experts > 0) — the fused block assumes a "
                 "dense FFN")
@@ -123,17 +230,16 @@ def megakernel_refusal(cfg, kv_cfg: KVCacheConfig,
     if cfg.dtype not in KERNEL_DTYPES or kv_cfg.dtype != cfg.dtype:
         return (f"the Hopper kernel takes fp32 or bf16 models with pools "
                 f"in the model dtype, got {cfg.dtype} / {kv_cfg.dtype}")
-    if cfg.head_dim not in KERNEL_HEAD_DIMS:
-        return (f"the Hopper kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
-                f"got {cfg.head_dim}")
-    if slots * q > MAX_ROWS:
-        return (f"{slots} slots x {q} fed rows = {slots * q} rows per "
-                f"launch, over the Hopper kernel's {MAX_ROWS}")
-    smem = kernel_smem_bytes(cfg.hidden, cfg.head_dim)
+    if cfg.ffn_hidden % 8:
+        return (f"ffn_hidden {cfg.ffn_hidden} is not a multiple of 8 (the "
+                f"Hopper kernel's 16-byte rows)")
+    smem = kernel_smem_bytes(cfg.hidden, cfg.head_dim, cfg.ffn_hidden,
+                             cfg.dtype, kv_mode(kv_cfg), kv_cfg.kv_group)
     if smem > SMEM_LIMIT_BYTES:
         return (f"the Hopper kernel's blocks need {smem} B of shared "
-                f"memory at hidden {cfg.hidden}, over the "
-                f"{SMEM_LIMIT_BYTES} B limit")
+                f"memory at hidden {cfg.hidden}, ffn {cfg.ffn_hidden}, "
+                f"head_dim {cfg.head_dim}, over the {SMEM_LIMIT_BYTES} B "
+                f"limit")
     return None
 
 
@@ -271,11 +377,13 @@ def fused_layer_fwd(x, layer_params, cache_layer, cfg,
     act = active.to(torch.bool).contiguous()
     lib = ku.load_kernel("megakernel", _SIGNATURES)
     lib.fused_layer_scratch_bytes.restype = ctypes.c_longlong
+    splits, split_len = _fused_splits(bt.shape[1] * kv_cfg.block_size)
     x_out = torch.empty_like(x)
     k_out = torch.empty((n, q, heads, d), dtype=dt, device=dev)
     v_out = torch.empty_like(k_out)
     scratch = torch.empty(
-        lib.fused_layer_scratch_bytes(n * q, h, f, int(dt == torch.bfloat16)),
+        lib.fused_layer_scratch_bytes(n * q, h, f, heads, d, splits, q,
+                                      int(dt == torch.bfloat16)),
         dtype=torch.uint8, device=dev)
     pools = [cache_layer.get(k) for k in ("k", "v", "k_scale", "v_scale")]
     lp = [layer_params[k] for k in shapes]
@@ -287,7 +395,8 @@ def fused_layer_fwd(x, layer_params, cache_layer, cfg,
         x_out.data_ptr(), k_out.data_ptr(), v_out.data_ptr(),
         scratch.data_ptr(), n, q, h, heads, d, f, pools[0].shape[1],
         kv_cfg.block_size, bt.shape[1], kv_mode(kv_cfg), kv_cfg.kv_group,
-        1.0 / math.sqrt(d), _EPS, int(dt == torch.bfloat16),
+        splits, split_len, 1.0 / math.sqrt(d), _EPS,
+        int(dt == torch.bfloat16),
         ku.stream_handle(x))
     ku.count_launch("megakernel")
     ku.check_status(lib, status, "fused_layer_fwd")

@@ -23,10 +23,15 @@
      groups of 32, 5 and 1, and a repeat, bitwise equal;
    * the fused layer (the megakernel) for one GPT-2-124M layer, decode (8
      rows) and verify (8 x 5 rows), fp32 and bf16, fp / int8 / int4
-     pools: x', K, V and fp pools within tolerance of its plain version,
-     quantized codes and scales equal to the plain codec's write of its
-     K/V, two launches bitwise equal; timed beside the plain version and
-     the per-op layer (no single PyTorch call computes a layer);
+     pools, and for one layer of the head_dim-80 and 2 x 320 GPTs and a
+     32-slot verify call (160 rows): x', K, V and fp pools within
+     tolerance of its plain version, quantized codes and scales equal to
+     the plain codec's write of its K/V, two launches bitwise equal, a
+     slot launched alone bitwise equal to its rows in the call, the
+     shared memory the gate counts equal to the kernel's; timed beside
+     the plain version and the per-op layer (no single PyTorch call
+     computes a layer); its ptxas lines and SASS ``HMMA`` counts (every
+     bf16 instantiation has some, no fp32 one);
    * LayerNorm backward at the same training shapes, with a bitwise
      repeat check of dW/dB (autograd through ``F.layer_norm``);
    * RMSNorm forward and backward at GPT-2-124M's training rows (8192,
@@ -126,10 +131,14 @@
      and per-op: the card's busy share and the top kernels; and where a
      per-op prefill chunk's goes (host ms, device busy ms, the paged
      kernels' share);
-   * a GPT of head_dim 80 (12 x 80, hidden 960, 2 layers, 4 requests):
-     the fused layer refuses it, ``megakernel="auto"`` serves through the
-     per-op path; fp32 streams equal to the plain versions', bf16 through
-     ``paged_mma_fwd``.
+   * bf16 at 32 slots (32 requests, 16 new tokens each), ``spec_k`` 0
+     and 4, both fused (a verify call is 160 rows): equal streams;
+   * GPTs of head_dim 80 (12 x 80, hidden 960) and 320 (2 x 320, hidden
+     640), 2 layers, 4 requests, each type twice: ``megakernel="auto"``
+     fuses them (fused-layer launches; fp32 streams equal to the plain
+     versions' and to the per-op path's) and ``megakernel="off"`` serves
+     per-op through paged attention's route (``paged_attention_fwd`` /
+     ``paged_mma_fwd`` at 80, ``paged_wide_fwd`` at 320).
 4. Train phase: GPT-2-124M at full width and depth, full remat, the JAX
    defaults ``fused_loss=True`` and ``FusedAdam(lr=1e-4,
    fused_tail="auto")``:
@@ -421,6 +430,43 @@ def paged_mma_kernel_info(ku, built):
         lambda m: f"{m.group(1)}[{m.group(2)}, {m.group(3)}]")
     return tensor_core_info(ku, built, "paged_mma", counts, {
         "fwd": ("paged_mma_kernel", 12, "paged_mma_kernel")})
+
+
+def _type_name(mangled: str) -> str:
+    """f32 / bf16 for a mangled template argument (``f``,
+    ``13__nv_bfloat16``)."""
+    return "f32" if mangled == "f" else "bf16"
+
+
+def megakernel_kernel_info(ku, built):
+    """The fused layer (``csrc/megakernel.cu``, 24 instantiations: fp32
+    and bf16 x full-precision, int8 and int4 pools x the attention walk's
+    head-dim buckets 64, 128, 256 and the wide walk, and its GEMM routine,
+    not inlined, one a type): the ptxas lines and the tensor-core
+    instructions of each. The bf16 GEMM and every bf16 walk below 256 must
+    have some (where the routine is listed inside each kernel, every bf16
+    kernel must); nothing fp32 any (no TF32)."""
+    counts = sass_hmma_counts(
+        ku, "megakernel",
+        r"(?:fused_layer_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)E"
+        r"|(gemm)I(13__nv_bfloat16|f)E)",
+        lambda m: (f"fused_layer_kernel[{_type_name(m.group(1))}, "
+                   f"{m.group(2)}, {m.group(3)}]" if m.group(4) is None
+                   else f"gemm[{_type_name(m.group(5))}]"))
+    kern = {k: v for k, v in counts.items() if k.startswith("fused")}
+    gemm = {k: v for k, v in counts.items() if k.startswith("gemm")}
+    bf = {k: v for k, v in kern.items() if "bf16" in k}
+    ok = (len(kern) == 24 and not any(v for k, v in counts.items()
+                                      if "f32" in k)
+          and all(v for k, v in bf.items() if not k.endswith(", 0]"))
+          and (all(bf.values()) or gemm.get("gemm[bf16]", 0) > 0))
+    if not ok:
+        raise AssertionError(f"fused_layer_kernel: tensor-core instructions "
+                             f"per instantiation {counts}")
+    log = built.get("megakernel", {}).get("log", "")
+    return {"sass_hmma": counts, "ptxas": [
+        f"{k}: {line}" for k, line in ptxas_lines(log)
+        if k.startswith("fused_layer_kernel")]}
 
 
 def start_builds(ku):
@@ -2240,11 +2286,42 @@ MEGA_TOL = {("float32", False): (1e-4, 1e-4), ("float32", True): (2e-3, 1e-3),
             ("bfloat16", False): (2e-2, 2 ** -6),
             ("bfloat16", True): (2e-2, 2 ** -6)}
 MEGA_KV_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 2 ** -7)}
-def megakernel_case(torch, dev, dtype, mode, q):
-    """One GPT-2-124M layer (weights from numpy seed 0, biases and LN
-    weights perturbed so every vector shows), 8 slots holding the paged
-    phase's bf16 contexts (slot 0 idle, slot 1 full: its verify rows run
-    past its blocks), fed rows at the end of each context (decode q=1,
+# the fused layer's widths beside GPT-2-124M's: head_dim 80 (12 x 80) and
+# 320 (2 x 320), the engine phase's two other GPTs
+MEGA_WIDTHS = {64: {}, 80: dict(hidden=960, num_heads=12),
+               320: dict(hidden=640, num_heads=2)}
+
+
+def megakernel_cases():
+    """The megakernel phase's cases (dtype name, pool format, call, fed
+    rows a slot, head_dim, slots): GPT-2-124M decode (8 x 1) and verify
+    (8 x 5) in both types and every pool format; head_dim 80 and 320
+    decode and verify in both types (fp pools; bf16 verify with int8 and
+    int4 too); and a 32-slot verify call (32 x 5 = 160 rows, past one
+    64-row tile) in both types, bf16 with every pool format."""
+    out = []
+    for dname in ("float32", "bfloat16"):
+        for mode in KV_MODES:
+            for what, q in (("decode", 1), ("verify", 5)):
+                out.append((dname, mode, what, q, 64, 8))
+    for hd in (80, 320):
+        for dname in ("float32", "bfloat16"):
+            for what, q in (("decode", 1), ("verify", 5)):
+                out.append((dname, "none", what, q, hd, 8))
+        for mode in ("int8", "int4"):
+            out.append(("bfloat16", mode, "verify", 5, hd, 8))
+    out.append(("float32", "none", "verify", 5, 64, 32))
+    for mode in KV_MODES:
+        out.append(("bfloat16", mode, "verify", 5, 64, 32))
+    return out
+
+
+def megakernel_case(torch, dev, dtype, mode, q, hd=64, n=8):
+    """One layer of GPT-2-124M (or of the head_dim-``hd`` GPT of
+    ``MEGA_WIDTHS``; weights from numpy seed 0, biases and LN weights
+    perturbed so every vector shows), ``n`` slots (8 or 32) holding the
+    paged phase's bf16 contexts (slot 0 idle, slot 1 full: its verify rows
+    run past its blocks), fed rows at the end of each context (decode q=1,
     verify q=5, every row real)."""
     import numpy as np
 
@@ -2252,8 +2329,8 @@ def megakernel_case(torch, dev, dtype, mode, q):
                                                paged_write)
     from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
 
-    cfg = GPTConfig(num_layers=1, dtype=dtype)
-    n, bs, max_ctx = 8, SERVE_BS, SERVE_CTX
+    cfg = GPTConfig(num_layers=1, dtype=dtype, **MEGA_WIDTHS[hd])
+    bs, max_ctx = SERVE_BS, SERVE_CTX
     mb = max_ctx // bs
     heads, hd, h = cfg.num_heads, cfg.head_dim, cfg.hidden
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -2311,18 +2388,22 @@ def megakernel_bound(cfg, kv, start, active, q, dname):
 
 
 def megakernel_phase(torch, dev):
-    """The fused layer against its plain version for one GPT-2-124M layer,
-    decode (8 rows) and verify (8 x 5 rows), fp32 and bf16, each pool
-    format: x', K and V within MEGA_TOL / MEGA_KV_TOL; fp pools within
-    MEGA_KV_TOL; int8/int4 codes and scales equal to the plain codec's
-    write of the kernel's own K/V (the count that differ, which must be
-    0); two launches bitwise equal (x', K, V, pools). Times: the kernel,
-    its plain version, and the per-op layer (the eager layer body with the
-    port's LayerNorm and paged-attention kernels, ``paged_layer_stack`` on
-    one layer: no single PyTorch call computes a layer), the L2 flushed
+    """The fused layer against its plain version at ``megakernel_cases()``
+    (GPT-2-124M decode (8 rows) and verify (8 x 5 rows), fp32 and bf16,
+    each pool format; head_dim 80 and 320; 32 x 5 = 160 rows): x', K and
+    V within MEGA_TOL / MEGA_KV_TOL; fp pools within MEGA_KV_TOL;
+    int8/int4 codes and scales equal to the plain codec's write of the
+    kernel's own K/V (the count that differ, which must be 0); two
+    launches bitwise equal (x', K, V, pools); slot 2 launched alone (and,
+    at 32 slots, slot 12, whose rows 60-64 straddle the first 64-row
+    chunk) bitwise equal to its rows in the call; the shared memory the
+    gate counts equal to the C entry's. Times: the kernel, its plain
+    version, and the per-op layer (the eager layer body with the port's
+    LayerNorm and paged-attention kernels, ``paged_layer_stack`` on one
+    layer: no single PyTorch call computes a layer), the L2 flushed
     between calls as 12 layers in a row would find it."""
     from apex_tpu_torch.ops import _kernel_util as ku
-    from apex_tpu_torch.serve.decode import paged_layer_stack
+    from apex_tpu_torch.serve.decode import kv_mode, paged_layer_stack
     from apex_tpu_torch.serve.kv_cache import paged_write
     from apex_tpu_torch.serve.megakernel import (fused_layer_fwd,
                                                  fused_layer_reference,
@@ -2332,92 +2413,97 @@ def megakernel_phase(torch, dev):
 
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     lib = ku.load_kernel("megakernel", mk._SIGNATURES)
+    dt_of = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     cases = []
-    for dt in (torch.float32, torch.bfloat16):
-        dname = str(dt).split(".")[1]
-        for mode in KV_MODES:
-            for what, q in (("decode", 1), ("verify", 5)):
-                cfg, kv, lp, layer, x, bt, start, n_fed, active = \
-                    megakernel_case(torch, dev, dt, mode, q)
-                if mode == "none" and q == 1 and dt == torch.float32:
-                    smem = lib.fused_layer_smem_bytes(cfg.hidden,
-                                                      cfg.head_dim)
-                    if smem != kernel_smem_bytes(cfg.hidden, cfg.head_dim):
-                        raise AssertionError(
-                            f"megakernel shared memory: the kernel uses "
-                            f"{smem} B, megakernel_refusal counts "
-                            f"{kernel_smem_bytes(cfg.hidden, cfg.head_dim)}")
-                nv = None if q == 1 else n_fed
-                args = (cfg, kv, bt, start, nv, active)
-                pools = {}
+    for dname, mode, what, q, hd, n in megakernel_cases():
+        dt = dt_of[dname]
+        cfg, kv, lp, layer, x, bt, start, n_fed, active = \
+            megakernel_case(torch, dev, dt, mode, q, hd, n)
+        smem = lib.fused_layer_smem_bytes(cfg.hidden, hd, cfg.ffn_hidden,
+                                          kv_mode(kv), kv.kv_group,
+                                          int(dt == torch.bfloat16))
+        counted = kernel_smem_bytes(cfg.hidden, hd, cfg.ffn_hidden, dt,
+                                    kv_mode(kv), kv.kv_group)
+        if smem != counted:
+            raise AssertionError(
+                f"megakernel shared memory: the kernel needs {smem} B, "
+                f"megakernel_refusal counts {counted}")
+        nv = None if q == 1 else n_fed
+        args = (cfg, kv, bt, start, nv, active)
+        pools = {}
 
-                def run(fn, key):
-                    pools[key] = {k: v.clone() for k, v in layer.items()}
-                    return fn(x, lp, pools[key], *args)
+        def run(fn, key, sl=slice(None)):
+            pools[key] = {k: v.clone() for k, v in layer.items()}
+            return fn(x[sl].contiguous(), lp, pools[key], cfg, kv, bt[sl],
+                      start[sl], None if nv is None else nv[sl], active[sl])
 
-                got = run(fused_layer_fwd, "kernel")
-                want = run(fused_layer_reference, "plain")
-                again = run(fused_layer_fwd, "again")
-                torch.cuda.synchronize()
-                tag = f"megakernel {what} {mode} {dname}"
-                atol, rtol = MEGA_TOL[(dname, mode != "none")]
-                err = check_close(f"{tag} x'", got[0], want[0], atol, rtol)
-                kv_atol, kv_rtol = MEGA_KV_TOL[dname]
-                kv_err = max(check_close(f"{tag} {nm}", a, b, kv_atol,
-                                         kv_rtol)
-                             for nm, a, b in zip("kv", got[1:], want[1:]))
-                differ = 0
-                if mode == "none":
-                    for nm in layer:   # the plain version fills the trash
-                        kv_err = max(kv_err, check_close(
-                            f"{tag} pool {nm}", pools["kernel"][nm][:, :-1],
-                            pools["plain"][nm][:, :-1], kv_atol, kv_rtol))
-                else:
-                    codec = {k: v.clone() for k, v in layer.items()}
-                    offs = torch.arange(q, device=dev)
-                    pos = (start.long()[:, None] + offs).reshape(-1)
-                    valid = (active[:, None] & (offs[None, :] < q)).reshape(-1)
-                    heads, hd = kv.num_heads, kv.head_dim
-                    paged_write(codec, kv,
-                                got[1].reshape(-1, heads, hd).transpose(0, 1),
-                                got[2].reshape(-1, heads, hd).transpose(0, 1),
-                                bt.repeat_interleave(q, dim=0), pos, valid)
-                    differ = sum(int((pools["kernel"][nm][:, :-1]
-                                      != codec[nm][:, :-1]).sum())
-                                 for nm in layer)
-                    if differ:
-                        raise AssertionError(
-                            f"{tag}: {differ} pool codes/scales differ from "
-                            f"the plain codec's write of the kernel's K/V")
-                if not (all(bool(torch.equal(a, b))
-                            for a, b in zip(got, again))
-                        and all(bool(torch.equal(pools["kernel"][nm][:, :-1],
-                                                 pools["again"][nm][:, :-1]))
-                                for nm in layer)):
-                    raise AssertionError(f"{tag}: two launches differ")
-                layers1 = {k: v[None] for k, v in lp.items()}
-                cache1 = {k: v[None].clone() for k, v in layer.items()}
-                n_valid = (n_fed if nv is not None else
-                           torch.ones_like(n_fed))
-                bms, by = megakernel_bound(cfg, kv, start, active, q, dname)
-                timed = {k: v.clone() for k, v in layer.items()}
-                cases.append({
-                    "case": what, "dtype": dname, "kv": mode,
-                    "rows": x.shape[0] * q,
-                    "max_abs_err": err, "atol": atol, "rtol": rtol,
-                    "kv_max_abs_err": kv_err, "kv_atol": kv_atol,
-                    "kv_rtol": kv_rtol, "codes_differ": differ,
-                    "bitwise_repeat": True,
-                    "ms": time_ms(torch, lambda: fused_layer_fwd(
-                        x, lp, timed, *args), flush=flush_buf.zero_),
-                    "plain_ms": time_ms(torch, lambda: fused_layer_reference(
-                        x, lp, timed, *args), iters=10,
-                        flush=flush_buf.zero_),
-                    "per_op_layer_ms": time_ms(torch, lambda: paged_layer_stack(
-                        x, layers1, start, n_valid, active, cache1, bt, cfg,
-                        kv), flush=flush_buf.zero_),
-                    "library_ms": None, "bound_ms": bms, "bound_by": by})
-                del pools, timed, cache1, layer
+        got = run(fused_layer_fwd, "kernel")
+        want = run(fused_layer_reference, "plain")
+        again = run(fused_layer_fwd, "again")
+        alone = {i: run(fused_layer_fwd, f"alone{i}", slice(i, i + 1))
+                 for i in ((2, 12) if n == 32 else (2,))}
+        torch.cuda.synchronize()
+        tag = f"megakernel {what} {mode} {dname} d{hd} {n}x{q}"
+        atol, rtol = MEGA_TOL[(dname, mode != "none")]
+        err = check_close(f"{tag} x'", got[0], want[0], atol, rtol)
+        kv_atol, kv_rtol = MEGA_KV_TOL[dname]
+        kv_err = max(check_close(f"{tag} {nm}", a, b, kv_atol, kv_rtol)
+                     for nm, a, b in zip("kv", got[1:], want[1:]))
+        differ = 0
+        if mode == "none":
+            for nm in layer:   # the plain version fills the trash
+                kv_err = max(kv_err, check_close(
+                    f"{tag} pool {nm}", pools["kernel"][nm][:, :-1],
+                    pools["plain"][nm][:, :-1], kv_atol, kv_rtol))
+        else:
+            codec = {k: v.clone() for k, v in layer.items()}
+            offs = torch.arange(q, device=dev)
+            pos = (start.long()[:, None] + offs).reshape(-1)
+            valid = (active[:, None] & (offs[None, :] < q)).reshape(-1)
+            heads = kv.num_heads
+            paged_write(codec, kv,
+                        got[1].reshape(-1, heads, hd).transpose(0, 1),
+                        got[2].reshape(-1, heads, hd).transpose(0, 1),
+                        bt.repeat_interleave(q, dim=0), pos, valid)
+            differ = sum(int((pools["kernel"][nm][:, :-1]
+                              != codec[nm][:, :-1]).sum())
+                         for nm in layer)
+            if differ:
+                raise AssertionError(
+                    f"{tag}: {differ} pool codes/scales differ from "
+                    f"the plain codec's write of the kernel's K/V")
+        if not (all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+                and all(bool(torch.equal(pools["kernel"][nm][:, :-1],
+                                         pools["again"][nm][:, :-1]))
+                        for nm in layer)):
+            raise AssertionError(f"{tag}: two launches differ")
+        for i, one in alone.items():
+            if not all(bool(torch.equal(a[i:i + 1], b))
+                       for a, b in zip(got, one)):
+                raise AssertionError(f"{tag}: slot {i} alone differs from "
+                                     f"its rows in the call")
+        layers1 = {k: v[None] for k, v in lp.items()}
+        cache1 = {k: v[None].clone() for k, v in layer.items()}
+        n_valid = (n_fed if nv is not None else torch.ones_like(n_fed))
+        bms, by = megakernel_bound(cfg, kv, start, active, q, dname)
+        timed = {k: v.clone() for k, v in layer.items()}
+        cases.append({
+            "case": what, "dtype": dname, "kv": mode, "head_dim": hd,
+            "slots": n, "rows": n * q,
+            "max_abs_err": err, "atol": atol, "rtol": rtol,
+            "kv_max_abs_err": kv_err, "kv_atol": kv_atol,
+            "kv_rtol": kv_rtol, "codes_differ": differ,
+            "bitwise_repeat": True, "rows_independent_of_batch": True,
+            "smem_bytes": smem,
+            "ms": time_ms(torch, lambda: fused_layer_fwd(
+                x, lp, timed, *args), flush=flush_buf.zero_),
+            "plain_ms": time_ms(torch, lambda: fused_layer_reference(
+                x, lp, timed, *args), iters=10, flush=flush_buf.zero_),
+            "per_op_layer_ms": time_ms(torch, lambda: paged_layer_stack(
+                x, layers1, start, n_valid, active, cache1, bt, cfg,
+                kv), iters=20, flush=flush_buf.zero_),
+            "library_ms": None, "bound_ms": bms, "bound_by": by})
+        del pools, timed, cache1, layer, got, want, again, alone
     torch.cuda.empty_cache()
     return cases
 
@@ -2426,14 +2512,15 @@ def megakernel_phase(torch, dev):
 # engine phase
 
 
-def make_requests(vocab: int, seed: int = 1):
+def make_requests(vocab: int, seed: int = 1, count: int = 16,
+                  max_new_tokens: int = 32):
     import numpy as np
 
     from apex_tpu_torch.serve import Request
 
     rng = np.random.default_rng(seed)
     prefix = rng.integers(0, vocab, 64).tolist()
-    lens = rng.integers(64, 513, 16)
+    lens = rng.integers(64, 513, count)
     reqs = []
     for i, n in enumerate(lens):
         if i == 13:
@@ -2442,18 +2529,21 @@ def make_requests(vocab: int, seed: int = 1):
             toks = prefix + rng.integers(0, vocab, int(n) - 64).tolist()
         else:
             toks = rng.integers(0, vocab, int(n)).tolist()
-        reqs.append(Request(f"r{i:02d}", toks, max_new_tokens=32))
+        reqs.append(Request(f"r{i:02d}", toks, max_new_tokens=max_new_tokens))
     return reqs
 
 
-def serve(torch, params, cfg, dev, spec_k: int, requests, **scfg):
+def serve(torch, params, cfg, dev, spec_k: int, requests, drafter=None,
+          **scfg):
     """Serve ``requests`` to completion on a fresh engine
-    (``ServeConfig(num_slots=8, prefill_chunk=32, spec_k=..., **scfg)``);
-    returns the streams and the run's figures."""
+    (``ServeConfig(num_slots=8, prefill_chunk=32, spec_k=..., **scfg)``,
+    ``scfg`` may set ``num_slots``; the engine's default drafter unless
+    ``drafter``); returns the streams and the run's figures."""
     from apex_tpu_torch.serve import InferenceEngine, ServeConfig
 
     eng = InferenceEngine(params, cfg, ServeConfig(
-        num_slots=8, prefill_chunk=32, spec_k=spec_k, **scfg), device=dev)
+        **{"num_slots": 8, "prefill_chunk": 32, **scfg}, spec_k=spec_k),
+        device=dev, drafter=drafter)
     t0 = time.perf_counter()
     streams = eng.run(requests)
     torch.cuda.synchronize()
@@ -2650,77 +2740,99 @@ def profile_prefill(torch, params, cfg, dev, tokens):
     return out
 
 
-# a GPT of head_dim 80: the fused layer takes head_dim 32, 64 and 128 only
+# the engine phase's other GPTs: 12 heads of 80 (the walks' 128 bucket)
+# and 2 heads of 320 (the wide walk), 2 layers each
 HD80 = dict(hidden=960, num_heads=12, num_layers=2)
+HD320 = dict(hidden=640, num_heads=2, num_layers=2)
 
 
-def engine_hd80_phase(torch, dev, ku, requests):
-    """GPT with 12 heads of 80 (hidden 960, 2 layers), 4 requests:
-    ``megakernel="auto"`` falls back to the per-op path on the card; fp32
-    streams through the kernels equal those with the plain versions
-    forced; each dtype launches its paged route (``paged_attention_fwd``
-    fp32, ``paged_mma_fwd`` bf16) and no fused layer."""
+def engine_width_phase(torch, dev, ku, requests, widths, per_op_entry):
+    """A GPT of ``widths`` (``HD80``, ``HD320``), 4 requests, run twice
+    in each type: ``megakernel="auto"``, which fuses it on the card (its
+    calls launch the fused layer), and ``megakernel="off"``, the per-op
+    path through paged attention's route (``per_op_entry[dtype]``; no
+    fused layer). fp32 streams through the fused layer equal those with
+    the plain versions forced and those of the per-op path."""
     from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
 
     reqs = requests[:4]
+    hd = widths["hidden"] // widths["num_heads"]
     out = {}
-    for dt, entry in ((torch.float32, "paged_attention_fwd"),
-                      (torch.bfloat16, "paged_mma_fwd")):
+    for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        cfg = GPTConfig(dtype=dt, **HD80)
+        cfg = GPTConfig(dtype=dt, **widths)
         params = init_gpt_params(cfg, seed=0, device=dev)
         ku.reset_launch_counts()
-        streams, rec = serve(torch, params, cfg, dev, 0, reqs)
+        fused, rec = serve(torch, params, cfg, dev, 0, reqs)
         rec["launches"] = counts = ku.launch_counts()
-        if (rec["decode_kernel"] != "cuda" or not counts.get(entry)
+        if rec["decode_kernel"] != "fused" or not counts.get("megakernel"):
+            raise AssertionError(f"head_dim {hd} {dname}: expected the "
+                                 f"fused layer, got {rec['decode_kernel']} "
+                                 f"{counts}")
+        ku.reset_launch_counts()
+        per_op, off = serve(torch, params, cfg, dev, 0, reqs,
+                            megakernel="off")
+        off["launches"] = counts = ku.launch_counts()
+        entry = per_op_entry[dname]
+        if (off["decode_kernel"] != "cuda" or not counts.get(entry)
                 or counts.get("megakernel")):
-            raise AssertionError(f"head_dim 80 {dname}: expected the per-op "
-                                 f"path through {entry}, got "
-                                 f"{rec['decode_kernel']} {counts}")
+            raise AssertionError(f"head_dim {hd} {dname} off: expected the "
+                                 f"per-op path through {entry}, got "
+                                 f"{off['decode_kernel']} {counts}")
         if dt == torch.float32:
             with ku.force_plain():
                 plain, out["float32_plain"] = serve(torch, params, cfg, dev,
                                                     0, reqs)
-            streams_equal(torch, "head_dim 80 fp32 kernels vs plain",
-                          streams, plain, reqs)
+            streams_equal(torch, f"head_dim {hd} fp32 fused vs plain",
+                          fused, plain, reqs)
+            streams_equal(torch, f"head_dim {hd} fp32 fused vs per-op",
+                          fused, per_op, reqs)
         out[dname] = rec
+        out[f"{dname}_off"] = off
         del params
     return out
 
 
-HD320 = dict(hidden=640, num_heads=2, num_layers=2)
+def engine_hd80_phase(torch, dev, ku, requests):
+    """The head_dim-80 GPT (``HD80``): fused, and per-op through
+    ``paged_attention_fwd`` (fp32) and ``paged_mma_fwd`` (bf16)."""
+    return engine_width_phase(torch, dev, ku, requests, HD80, {
+        "float32": "paged_attention_fwd", "bfloat16": "paged_mma_fwd"})
 
 
 def engine_hd320_phase(torch, dev, ku, requests):
-    """GPT with 2 heads of 320 (hidden 640, 2 layers), 4 requests: the
-    per-op path on the card (``megakernel="auto"`` falls back), paged
-    attention above head_dim 256 through the wide walk
-    (``paged_wide_fwd``) in both types; fp32 streams through the kernels
-    equal those with the plain versions forced."""
-    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+    """The 2 x 320 GPT (``HD320``): fused, and per-op through the wide
+    walk (``paged_wide_fwd``) in both types."""
+    return engine_width_phase(torch, dev, ku, requests, HD320, {
+        "float32": "paged_wide_fwd", "bfloat16": "paged_wide_fwd"})
 
-    reqs = requests[:4]
+
+def engine_32_slots(torch, dev, ku, params, cfg):
+    """The bf16 GPT-2-124M engine at 32 slots: 32 requests (numpy seed 2,
+    16 new tokens each) with ``spec_k=0`` and ``spec_k=4`` (drafts from
+    ``RepeatDrafter``, so every step with room verifies), both fused (a
+    verify call is 32 x 5 = 160 rows, one launch a layer): equal
+    streams."""
+    reqs = make_requests(cfg.vocab_size, seed=2, count=32, max_new_tokens=16)
     out = {}
-    for dt in (torch.float32, torch.bfloat16):
-        dname = str(dt).split(".")[1]
-        cfg = GPTConfig(dtype=dt, **HD320)
-        params = init_gpt_params(cfg, seed=0, device=dev)
+    streams = {}
+    for k in (0, 4):
         ku.reset_launch_counts()
-        streams, rec = serve(torch, params, cfg, dev, 0, reqs)
-        rec["launches"] = counts = ku.launch_counts()
-        if (rec["decode_kernel"] != "cuda" or not counts.get("paged_wide_fwd")
-                or counts.get("megakernel")):
-            raise AssertionError(f"head_dim 320 {dname}: expected the per-op "
-                                 f"path through paged_wide_fwd, got "
-                                 f"{rec['decode_kernel']} {counts}")
-        if dt == torch.float32:
-            with ku.force_plain():
-                plain, out["float32_plain"] = serve(torch, params, cfg, dev,
-                                                    0, reqs)
-            streams_equal(torch, "head_dim 320 fp32 kernels vs plain",
-                          streams, plain, reqs)
-        out[dname] = rec
-        del params
+        streams[k], out[f"spec{k}"] = serve(
+            torch, params, cfg, dev, k, reqs, num_slots=32,
+            drafter=RepeatDrafter() if k else None)
+        out[f"spec{k}"]["launches"] = counts = ku.launch_counts()
+        rec = out[f"spec{k}"]
+        if (rec["decode_kernel"] != "fused" or not counts.get("megakernel")
+                or (k and (rec["verify_kernel"] != "fused" or not
+                           rec["speculative"]["verify_steps"]))):
+            raise AssertionError(f"32 slots spec_k={k}: expected fused "
+                                 f"decode and verify calls, got "
+                                 f"{rec['decode_kernel']} "
+                                 f"{rec['verify_kernel']} "
+                                 f"{rec['speculative']} {counts}")
+    streams_equal(torch, "bf16 32 slots spec_k=4 vs spec_k=0 (fused)",
+                  streams[4], streams[0], reqs)
     return out
 
 
@@ -2735,8 +2847,9 @@ def engine_phase(torch, dev, ku):
     int4 pools with spec_k 0 and 4 (equal streams, tokens/s, pool bytes,
     launches), the per-op path (``megakernel="off"``) with its launches,
     and 20 steady steps profiled on each path; one prompt's per-op prefill
-    chunks profiled; the head_dim 80 and 320 runs (``engine_hd80_phase``,
-    ``engine_hd320_phase``). The
+    chunks profiled; the 32-slot ``spec_k`` 0 / 4 runs (``engine_32_slots``,
+    160-row verify calls); the head_dim 80 and 320 runs, fused and per-op
+    (``engine_hd80_phase``, ``engine_hd320_phase``). The
     prefill chunks launch paged attention on its route: ``paged_mma_fwd``
     in bf16, ``paged_attention_fwd`` in fp32."""
     from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
@@ -2811,6 +2924,8 @@ def engine_phase(torch, dev, ku):
                                        requests)
     streams_equal(torch, "bf16 spec_k=4 vs spec_k=0 (fused)", s16k, s16,
                   requests)
+    result["bf16_32_slots"] = engine_32_slots(torch, dev, ku, params16,
+                                              cfg16)
     result["launches_per_call"] = {
         "decode": launches_per_call(torch, ku, params16, cfg16, dev, 0),
         "verify": launches_per_call(torch, ku, params16, cfg16, dev, 4)}
@@ -3477,9 +3592,10 @@ def main(argv=None) -> int:
         {"name": "paged_wide_fwd", "route": "cuda",
          "source": "apex_tpu_torch/csrc/paged_attention.cu",
          "replaces": "apex_tpu/serve/decode.py:228",
-         "launches": hd320["bfloat16"]["launches"].get("paged_wide_fwd", 0),
-         "launches_fp32": hd320["float32"]["launches"].get("paged_wide_fwd",
-                                                           0),
+         "launches": hd320["bfloat16_off"]["launches"].get(
+             "paged_wide_fwd", 0),
+         "launches_fp32": hd320["float32_off"]["launches"].get(
+             "paged_wide_fwd", 0),
          "path": "InferenceEngine, GPT 2 x 320 heads, per-op",
          "shape": "verify 8 x 5 rows, 12 heads, d 320, bf16",
          "max_abs_err": max(x["max_abs_err"] for x in wide),
@@ -3491,8 +3607,12 @@ def main(argv=None) -> int:
              x[k] for x in pa["bitwise"] if x["head_dim"] != SERVE_HD
              for k in ("groups_1", "groups_5", "repeat"))})
     # the fused layer: launched by the serving main path's decode calls;
-    # timed for bf16 decode at 8 rows; its comparator is the per-op layer
-    mk = pick(mk_cases, dtype="bfloat16", kv="none", case="decode")
+    # timed for bf16 decode at 8 rows (GPT-2-124M), verify (8 x 5) beside
+    # it; its comparator is the per-op layer; the tensor cores' proof
+    mk = pick(mk_cases, dtype="bfloat16", kv="none", case="decode",
+              head_dim=SERVE_HD, slots=8)
+    mkv = pick(mk_cases, dtype="bfloat16", kv="none", case="verify",
+               head_dim=SERVE_HD, slots=8)
     kernels.append(
         {"name": "megakernel", "route": "cuda",
          "source": "apex_tpu_torch/csrc/megakernel.cu",
@@ -3500,7 +3620,10 @@ def main(argv=None) -> int:
          "launches": launches.get("megakernel", 0),
          "max_abs_err": max(c["max_abs_err"] for c in mk_cases),
          "per_op_layer_ms": mk["per_op_layer_ms"],
-         **{k: mk[k] for k in timing}})
+         **{k: mk[k] for k in timing},
+         "verify": {k: mkv[k] for k in (*timing, "per_op_layer_ms")},
+         "cases_checked": len(mk_cases),
+         **megakernel_kernel_info(ku, built)})
     # the training main path's shapes: bf16, LN (8192, 768), attention
     # (96, 1024, 64) causal
     lnb = pick(lnb_cases, dtype="bfloat16", rows=TRAIN_ROWS)
@@ -3825,8 +3948,9 @@ def main(argv=None) -> int:
             print(f"  top kernel: {t['device_ms']:.3f} ms x{t['count']} "
                   f"{t['name']}")
     for c in mk_cases:
-        print(f"megakernel {c['case']} {c['kv']} {c['dtype']} rows "
-              f"{c['rows']}: {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, "
+        print(f"megakernel {c['case']} {c['kv']} {c['dtype']} head_dim "
+              f"{c['head_dim']} rows {c['rows']}: {c['ms']:.4f} ms "
+              f"(plain {c['plain_ms']:.4f}, "
               f"per-op layer {c['per_op_layer_ms']:.4f}, bound "
               f"{c['bound_ms']:.4f} {c['bound_by']}); x' err "
               f"{c['max_abs_err']:.3e}, K/V err {c['kv_max_abs_err']:.3e}, "

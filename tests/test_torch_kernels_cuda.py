@@ -59,6 +59,7 @@ from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, init_kv_cache,
                                            paged_write)
 from apex_tpu_torch.serve.megakernel import (fused_layer_fwd,
                                              fused_layer_reference)
+from apex_tpu_torch.serve import megakernel as mk
 from apex_tpu_torch.transformer.testing import (GPTConfig, T5Config,
                                                 build_t5_train_step,
                                                 init_gpt_params, t5_loss)
@@ -1156,16 +1157,24 @@ MK_TOL = {(torch.float32, False): (1e-4, 1e-4),
           (torch.bfloat16, True): (2e-2, 2 ** -6)}
 
 
+# (hidden, heads) of the fused layer's head dims: the walks' buckets 64
+# (32 and 64), 128 (80) and the wide walk (320)
+MK_WIDTHS = {32: (128, 4), 64: (256, 4), 80: (320, 4), 320: (640, 2)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["none", "int8", "int4"])
-@pytest.mark.parametrize("n,q", [(8, 1), (8, 5), (3, 3)])
-def test_megakernel_matches_plain(dev, dtype, mode, n, q):
-    """The fused layer against its plain version: x', K and V within
-    tolerance; the pool it wrote equal to the plain codec's write of its
-    own K/V (codes and scales bitwise) or within tolerance (fp pools);
-    two launches bitwise equal."""
+@pytest.mark.parametrize("n,q", [(8, 1), (8, 5), (3, 3), (32, 5)])
+@pytest.mark.parametrize("hd", sorted(MK_WIDTHS))
+def test_megakernel_matches_plain(dev, dtype, mode, n, q, hd):
+    """The fused layer against its plain version at head dims 32, 64, 80
+    and 320 and up to 160 rows: x', K and V within tolerance; the pool it
+    wrote equal to the plain codec's write of its own K/V (codes and
+    scales bitwise) or within tolerance (fp pools); two launches bitwise
+    equal."""
+    hidden, heads = MK_WIDTHS[hd]
     x, lp, layer, cfg, kv, bt, start, n_fed, active = _fused_case(
-        dev, dtype, mode, n, q)
+        dev, dtype, mode, n, q, hidden=hidden, heads=heads)
     nv = None if q == 1 else n_fed
     got_pool = _clone(layer)
     before = ku.launch_counts().get("megakernel", 0)
@@ -1213,16 +1222,21 @@ def test_megakernel_matches_plain(dev, dtype, mode, n, q):
 
 
 @pytest.mark.parametrize("mode", ["none", "int4"])
-def test_megakernel_rows_do_not_depend_on_the_batch(dev, mode):
-    """Each slot launched alone gives the bits it gets among eight, and a
-    q=1 launch (decode) the bits of the same row in a q=5 launch whose
-    other rows are padding (verify)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 80, 320])
+@pytest.mark.parametrize("n", [8, 32])
+def test_megakernel_rows_do_not_depend_on_the_batch(dev, mode, dtype, hd, n):
+    """Each slot launched alone gives the bits it gets among n (n = 32:
+    160 rows, whose row chunks of 64 (8-64 at wide K) put slots 12 and 25
+    across a chunk boundary), and a q=1 launch (decode) the bits of the
+    same row in a q=5 launch whose other rows are padding (verify)."""
+    hidden, heads = MK_WIDTHS[hd]
     x, lp, layer, cfg, kv, bt, start, n_fed, active = _fused_case(
-        dev, torch.bfloat16, mode, 8, 5, seed=3)
+        dev, dtype, mode, n, 5, hidden=hidden, heads=heads, seed=3)
     full_pool = _clone(layer)
     full = fused_layer_fwd(x, lp, full_pool, cfg, kv, bt, start, n_fed,
                            active)
-    for i in range(1, 8):
+    for i in ((1, 2, 3, 4, 5, 6, 7) if n == 8 else (1, 12, 25, 31)):
         alone_pool = _clone(layer)
         alone = fused_layer_fwd(x[i:i + 1], lp, alone_pool, cfg, kv,
                                 bt[i:i + 1], start[i:i + 1],
@@ -1245,23 +1259,46 @@ def test_megakernel_rows_do_not_depend_on_the_batch(dev, mode):
 def test_megakernel_refuses_what_it_cannot_take(dev):
     x, lp, layer, cfg, kv, bt, start, n_fed, active = _fused_case(
         dev, torch.float32, "none", 2, 1)
-    with pytest.raises(ValueError, match="head_dim in"):
-        cfg16 = GPTConfig(vocab_size=128, max_seq=256, hidden=64,
-                          num_layers=1, num_heads=4, dtype=torch.float32)
-        kv16 = KVCacheConfig(num_layers=1, num_heads=4, head_dim=16,
-                             num_blocks=16, block_size=16,
-                             dtype=torch.float32)
-        fused_layer_fwd(x[..., :64].contiguous(), lp, layer, cfg16, kv16,
-                        bt, start, None, active)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = GPTConfig(vocab_size=128, max_seq=256, hidden=8192,
+                         num_layers=1, num_heads=64, dtype=torch.float32)
+        kvw = KVCacheConfig(num_layers=1, num_heads=64, head_dim=128,
+                            num_blocks=16, block_size=16,
+                            dtype=torch.float32)
+        fused_layer_fwd(x, lp, layer, wide, kvw, bt, start, None, active)
     with pytest.raises(ValueError, match="qkv_kernel"):
         fused_layer_fwd(x, {**lp, "qkv_kernel": lp["qkv_kernel"].t()},
                         layer, cfg, kv, bt, start, None, active)
     with pytest.raises(ValueError, match="pool"):
         fused_layer_fwd(x, lp, {k: v.bfloat16() for k, v in layer.items()},
                         cfg, kv, bt, start, None, active)
-    with pytest.raises(ValueError, match="rows per launch"):
-        fused_layer_fwd(x.repeat(1, 65, 1), lp, layer, cfg, kv, bt, start,
-                        None, active)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fused_layer_fwd(x.half(), lp, layer,
+                        GPTConfig(vocab_size=128, max_seq=256, hidden=256,
+                                  num_layers=1, num_heads=4,
+                                  dtype=torch.float16),
+                        KVCacheConfig(num_layers=1, num_heads=4,
+                                      head_dim=64, num_blocks=16,
+                                      block_size=16, dtype=torch.float16),
+                        bt, start, None, active)
+
+
+def test_megakernel_smem_mirror_matches_the_kernel(dev):
+    """The shared memory the gate counts (kernel_smem_bytes) equals what
+    the kernel's C entry reports, over head dims, both types and every
+    pool format; the budget equals SMEM_LIMIT_BYTES."""
+    lib = ku.load_kernel("megakernel", mk._SIGNATURES)
+    assert lib.fused_layer_smem_budget() == mk.SMEM_LIMIT_BYTES
+    for d in (8, 40, 64, 80, 128, 136, 256, 264, 320, 1024):
+        for heads in (1, 12):
+            for dt in (torch.float32, torch.bfloat16):
+                for mode, group in ((0, d), (1, d), (2, d), (2, 8)):
+                    h = heads * d
+                    got = lib.fused_layer_smem_bytes(
+                        h, d, 4 * h, mode, group, int(dt == torch.bfloat16))
+                    assert got == mk.kernel_smem_bytes(h, d, 4 * h, dt, mode,
+                                                       group), (d, heads, dt,
+                                                                mode, group)
 
 
 # ---------------------------------------------------------------------------

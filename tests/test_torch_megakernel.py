@@ -24,6 +24,7 @@ from apex_tpu.serve import KVCacheConfig as JKV
 from apex_tpu.serve import init_kv_cache as jax_init_cache
 from apex_tpu.serve.decode import gpt_prefill as jax_prefill
 from apex_tpu.serve.megakernel import fused_layer_decode as jax_layer_decode
+from apex_tpu.serve.megakernel import fused_layer_verify as jax_layer_verify
 from apex_tpu.serve.megakernel import gpt_decode_step_fused as jax_decode_f
 from apex_tpu.serve.megakernel import gpt_verify_step_fused as jax_verify_f
 from apex_tpu.transformer.testing import GPTConfig as JGPTConfig
@@ -263,6 +264,216 @@ def test_fused_layer_matches_jax_layer_and_single_block_table():
             assert torch.equal(cl["v"][:, blk, off], got[2][i])
 
 
+def _wide_model(heads, head_dim, seed=1):
+    """A one-layer GPT of ``heads`` x ``head_dim`` (JAX and port params
+    from one JAX init), an fp32 pool of 2 slots x 4 blocks of 4 whose
+    positions hold numpy-seeded K/V (JAX's cache and the port's copy),
+    and its block tables."""
+    h = heads * head_dim
+    jcfg = JGPTConfig(vocab_size=97, max_seq=64, hidden=h, num_layers=1,
+                      num_heads=heads, dtype=jnp.float32, fused_loss=False)
+    cfg = GPTConfig(vocab_size=97, max_seq=64, hidden=h, num_layers=1,
+                    num_heads=heads, dtype=torch.float32)
+    jp = jax_init(jax.random.PRNGKey(seed), jcfg)
+    pp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    kw = dict(num_layers=1, num_heads=heads, head_dim=head_dim,
+              num_blocks=8, block_size=4)
+    jkv = JKV(dtype=jnp.float32, **kw)
+    kv = KVCacheConfig(dtype=torch.float32, **kw)
+    rng = np.random.default_rng(seed)
+    jc = {name: jnp.asarray(rng.standard_normal(leaf.shape)
+                            .astype(np.float32))
+          for name, leaf in jax_init_cache(jkv).items()}
+    bt = np.arange(8, dtype=np.int32).reshape(2, 4)[:, ::-1].copy()
+    return jcfg, cfg, jp, pp, jkv, kv, jc, _port_cache(jc), bt
+
+
+@pytest.mark.parametrize("heads,head_dim", [(2, 40), (1, 264)])
+def test_fused_layer_matches_jax_at_head_dims_the_first_kernel_refused(
+        monkeypatch, heads, head_dim):
+    """Head dims outside the first Hopper kernel's 32 / 64 / 128: 40 (2
+    heads) and 264 (1 head, above the narrow walks' 256). The port's fused
+    layer (its plain version) against JAX's interpret-mode
+    fused_layer_decode and fused_layer_verify: x' within 5e-5, the emitted
+    K/V within 1e-5, the fed rows' K/V in the port's pool; the fused
+    decode program's logits within 5e-5 of JAX's; and the gate admits the
+    shape where the kernel itself must run."""
+    jcfg, cfg, jp, pp, jkv, kv, jc, pc, bt = _wide_model(heads, head_dim)
+    h = cfg.hidden
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 3, h)).astype(np.float32)
+    lens = np.array([5, 9], np.int32)
+    lp_j = jax.tree.map(lambda a: a[0], jp["layers"])
+    lp = {k: v[0] for k, v in pp["layers"].items()}
+    for q in (1, 3):
+        cl_j = {k: v[0] for k, v in jc.items()}
+        cl = {k: v[0].clone() for k, v in pc.items()}
+        if q == 1:
+            want = jax_layer_decode(jnp.asarray(x[:, 0]), lp_j, cl_j, jcfg,
+                                    jkv, jnp.asarray(bt), jnp.asarray(lens))
+            got = fused_layer_decode(_t(x[:, 0]), lp, cl, cfg, kv, _t(bt),
+                                     _t(lens), _t([True, True]))
+        else:
+            want = jax_layer_verify(jnp.asarray(x), lp_j, cl_j, jcfg, jkv,
+                                    jnp.asarray(bt), jnp.asarray(lens))
+            got = fused_layer_verify(_t(x), lp, cl, cfg, kv, _t(bt),
+                                     _t(lens), _t([3, 3]), _t([True, True]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   atol=5e-5, rtol=0)
+        for a, b in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                       rtol=0)
+        k_new = got[1].reshape(2, q, heads, head_dim)
+        for i in range(2):
+            for w in range(q):
+                pos = lens[i] + w
+                blk, off = bt[i, pos // 4], pos % 4
+                assert torch.equal(cl["k"][:, blk, off], k_new[i, w])
+    active = np.array([True, True])
+    last = np.array([10, 20], np.int32)
+    _, lg_j = jax_decode_f(jp, jnp.asarray(last), jnp.asarray(lens),
+                           jnp.asarray(active), jc, jnp.asarray(bt), jcfg,
+                           jkv)
+    _, lg_f = gpt_decode_step_fused(pp, _t(last), _t(lens), _t(active),
+                                    _clone(pc), _t(bt), cfg, kv)
+    np.testing.assert_allclose(lg_f.numpy(), np.asarray(lg_j), atol=5e-5,
+                               rtol=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert megakernel_refusal(cfg, kv, allow_interpret=False, q=3,
+                              slots=2) is None
+
+
+def test_fused_layer_rows_independent_of_the_batch_past_128_rows():
+    """A call wider than 128 fed rows (33 slots x 4, one launch on the
+    card): each slot's rows equal the same slot verified alone, bitwise,
+    and its fed rows' K/V are in the pool."""
+    jkv, kv = _kv("none", num_blocks=33 * 4, block_size=4)
+    rng = np.random.default_rng(4)
+    pools = {name: torch.from_numpy(
+        rng.standard_normal(leaf.shape).astype(np.float32))
+        for name, leaf in jax_init_cache(jkv).items()}
+    pc = {k: torch.cat([v, torch.zeros_like(v[:, :, :1])], dim=2)
+          for k, v in pools.items()}
+    bt = torch.from_numpy(rng.permutation(33 * 4).reshape(33, 4)
+                          .astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((33, 4, 32)).astype(np.float32))
+    lp = {k: v[0] for k, v in PARAMS["layers"].items()}
+    lens = torch.from_numpy(rng.integers(0, 12, 33).astype(np.int32))
+    n_fed = torch.from_numpy(rng.integers(1, 5, 33).astype(np.int32))
+    active = torch.ones(33, dtype=torch.bool)
+    active[7] = False
+    wide = {k: v[0].clone() for k, v in pc.items()}
+    got = fused_layer_verify(x, lp, wide, CFG, kv, bt, lens, n_fed, active)
+    assert got[0].shape == (33, 4, 32)
+    for i in (0, 7, 16, 32):
+        alone = {k: v[0].clone() for k, v in pc.items()}
+        one = fused_layer_verify(x[i:i + 1], lp, alone, CFG, kv, bt[i:i + 1],
+                                 lens[i:i + 1], n_fed[i:i + 1],
+                                 active[i:i + 1])
+        for a, b in zip(got, one):
+            assert torch.equal(a[i:i + 1], b), i
+    for name in wide:
+        for i in range(33):
+            for w in range(int(n_fed[i]) if active[i] else 0):
+                pos = int(lens[i]) + w
+                blk, off = int(bt[i, pos // 4]), pos % 4
+                assert torch.equal(wide[name][:, blk, off],
+                                   got[1 if name == "k" else 2][i, w])
+
+
+def _c_entry_accepts(cfg, kv_cfg) -> bool:
+    """A mirror of what csrc/megakernel.cu's fused_layer_fwd and its
+    launch accept, from the constants in that source: the shape rules of
+    the C entry, then the shared memory its launch needs (the attention
+    walk's layout at the head dim's bucket, the codec's vectors, a GEMM
+    phase's fewest rows of the widest K beside the ring and the warp sums)
+    within its budget."""
+    import pathlib
+    import re
+    src = (pathlib.Path(mk.__file__).resolve().parent.parent / "csrc"
+           / "megakernel.cu").read_text()
+    budget = int(re.search(r"kSmemBudget = (\d+);", src).group(1))
+    gemm = {}
+    for tname, body in re.findall(r"struct Gemm<(\w+)> \{(.*?)\};", src,
+                                  re.S):
+        vals = dict(re.findall(r"(\w+) = (\d+)", body))
+        gemm[tname] = {k: int(v) for k, v in vals.items()}
+    h, heads, d, f = (cfg.hidden, cfg.num_heads, cfg.head_dim,
+                      cfg.ffn_hidden)
+    if h != heads * d or d % 8 or f % 8 or f <= 0:
+        return False
+    bf16 = cfg.dtype == torch.bfloat16
+    g = gemm["bf16" if bf16 else "float"]
+    esz = 2 if bf16 else 4
+
+    def gemm_bytes(kw, k, rows, ln, raw=False):
+        kc = g["KC"]
+        as_ = rows * (kw + g["APAD"]) * esz
+        ring, red = g["STAGES"] * kc * 16 * esz, 8 * 16 * rows * 4
+        lnw = -(-(2 * k * esz) // 16) * 16 if ln else 0
+        # an LN of fp32 rows into bf16 stages one raw row at the least
+        return (as_ + ring + red + lnw + -(-(4 * rows) // 16) * 16
+                + (k * 4 if raw else 0))
+
+    def phase_bytes(k, split, ln):
+        kc, nch, s = g["KC"], -(-k // g["KC"]), 1
+        while split and s < nch and gemm_bytes(
+                -(-nch // s) * kc, k, g["RC_MAX"], False) > budget:
+            s += 1
+        return gemm_bytes(-(-nch // s) * kc, k, g["RC_MIN"], ln, ln and bf16)
+
+    mode = 0 if not kv_cfg.quantized else (2 if kv_cfg.bits == 4 else 1)
+    db = next((b for b in (64, 128, 256) if d <= b), 0)
+    if db == 0:
+        att = (8 * 128 + 32 * 132) * 4
+    else:
+        qb, tile, tp = ((2 * 32 * (db + 8) * 2, 64 * (db + 8) * 2, 64)
+                        if bf16 else (8 * db * 4, 32 * (db + 4) * 4, 32))
+        lim, deep, shallow = map(int, re.search(
+            r"kWalkRing = DB <= (\d+) \? (\d+) : (\d+);", src).groups())
+        ring = deep if db <= lim else shallow
+        att = qb + 2 * (ring if mode == 0 else 1) * tile
+        if mode:
+            rs = -(-(db if mode == 1 else db // 2) // 16) * 16
+            sb = 4 if mode == 1 else 2 * (d // kv_cfg.kv_group)
+            sw = -(-(sb + 2) // 4) * 4 if sb % 4 else sb
+            att = (-(-(att + 2 * ring * tp * (rs + sw)) // 16) * 16
+                   + ring * tp * 4)
+    need = max(att, 8 * 2 * d * 4 if mode else 0, phase_bytes(h, False, True),
+               phase_bytes(h, True, False), phase_bytes(f, True, False))
+    return need <= budget
+
+
+def test_megakernel_gate_agrees_with_the_kernels_limits(monkeypatch):
+    """Over head dims 8-1024, 1-64 heads, both types and every pool
+    format, the gate (where the kernel itself must run) admits exactly
+    the shapes the C entry and its launch take, mirrored from the
+    source's constants; every refusal names the shared memory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = {True: 0, False: 0}
+    for d in (8, 16, 40, 64, 80, 96, 128, 136, 200, 256, 264, 320, 512,
+              1024):
+        for heads in (1, 2, 12, 25, 64):
+            for dt in (torch.float32, torch.bfloat16):
+                for mode in KV_MODES:
+                    cfg = GPTConfig(hidden=heads * d, num_heads=heads,
+                                    vocab_size=97, dtype=dt)
+                    kvc = KVCacheConfig(num_layers=12, num_heads=heads,
+                                        head_dim=d, num_blocks=8,
+                                        block_size=16, dtype=dt,
+                                        **KV_MODES[mode])
+                    reason = megakernel_refusal(cfg, kvc,
+                                                allow_interpret=False,
+                                                q=5, slots=32)
+                    ok = _c_entry_accepts(cfg, kvc)
+                    assert (reason is None) == ok, (d, heads, dt, mode,
+                                                    reason)
+                    if reason is not None:
+                        assert "shared memory" in reason
+                    seen[ok] += 1
+    assert seen[True] and seen[False]
+
+
 def test_fused_layer_reference_keeps_q_and_residual_fp32():
     """bf16: the plain version rounds where the kernel does — K, V and x'
     in bf16 — and keeps q and the residual fp32, so it differs from the
@@ -362,25 +573,27 @@ def test_auto_on_the_cpu_is_per_op_without_a_warning(caplog):
 
 def test_auto_fallback_on_a_cuda_engine_warns_once(monkeypatch, caplog):
     """On a CUDA engine (its device and CUDA's presence simulated here)
-    ``auto`` takes the kernel when the shape allows it; a shape the
-    Hopper kernel refuses (head_dim 8) falls back to per-op with the
-    reason, logged once per reason."""
+    ``auto`` takes the kernel at every head_dim % 8 (8 here, which the
+    first Hopper kernel refused); a shape the kernel refuses (its shared
+    memory, at an fp32 hidden of 8,192: 8 normalized rows do not fit)
+    falls back to per-op with the reason, logged once per reason."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(mk, "_FALLBACK_WARNED", set())
     eng = _engine("auto", spec_k=2)
     eng.device = torch.device("cuda", 0)
     with caplog.at_level(logging.WARNING, logger="apex_tpu_torch.serve"):
+        assert eng._resolve_megakernel() is True
+    assert not caplog.records
+    eng.cfg = GPTConfig(vocab_size=97, max_seq=64, hidden=8192,
+                        num_layers=2, num_heads=64, dtype=torch.float32)
+    eng.kv_cfg = KVCacheConfig(num_layers=2, num_heads=64, head_dim=128,
+                               num_blocks=8, block_size=8,
+                               dtype=torch.float32)
+    with caplog.at_level(logging.WARNING, logger="apex_tpu_torch.serve"):
         assert eng._resolve_megakernel() is False
         assert eng._resolve_megakernel() is False
     assert len(caplog.records) == 1
-    assert "head_dim" in caplog.records[0].getMessage()
-    cfg = GPTConfig(vocab_size=97, max_seq=64, hidden=128, num_layers=2,
-                    num_heads=4, dtype=torch.float32)
-    eng.cfg = cfg
-    eng.kv_cfg = KVCacheConfig(num_layers=2, num_heads=4, head_dim=32,
-                               num_blocks=8, block_size=8,
-                               dtype=torch.float32)
-    assert eng._resolve_megakernel() is True
+    assert "shared memory" in caplog.records[0].getMessage()
 
 
 def test_megakernel_refusal_reasons(monkeypatch):
@@ -410,24 +623,53 @@ def test_megakernel_refusal_reasons(monkeypatch):
         assert "no CUDA device" in megakernel_refusal(
             CFG, kv, allow_interpret=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert "head_dim in (32, 64, 128)" in megakernel_refusal(
-        CFG, kv, allow_interpret=False)
+    # every head_dim % 8 and any row count: head_dim 8 here, GPT-2-124M at
+    # 32 slots of spec_k + 1 = 5 rows (160 a call), head_dim 80 and 2 x 320
+    assert megakernel_refusal(CFG, kv, allow_interpret=False) is None
     flag = GPTConfig()                   # GPT-2-124M, bf16
     kv_flag = KVCacheConfig(num_layers=12, num_heads=12, head_dim=64,
                             num_blocks=64, block_size=16)
     assert megakernel_ok(flag, kv_flag, allow_interpret=False, q=5, slots=8)
-    assert "rows per launch" in megakernel_refusal(
-        flag, kv_flag, allow_interpret=False, q=5, slots=32)
+    assert megakernel_refusal(flag, kv_flag, allow_interpret=False, q=5,
+                              slots=32) is None
+    for hidden, heads in ((960, 12), (640, 2)):
+        for dt in (torch.float32, torch.bfloat16):
+            cfg = GPTConfig(hidden=hidden, num_heads=heads, dtype=dt)
+            kvc = KVCacheConfig(num_layers=12, num_heads=heads,
+                                head_dim=hidden // heads, num_blocks=64,
+                                block_size=16, dtype=dt)
+            assert megakernel_refusal(cfg, kvc, allow_interpret=False, q=5,
+                                      slots=32) is None, (hidden, dt)
+
+
+@pytest.mark.parametrize("what", ["dtype", "shared memory"])
+def test_megakernel_refuses_the_dtype_and_its_shared_memory(monkeypatch,
+                                                            what):
+    """The two refusals left where the kernel itself must run, each named
+    in its reason: a model type other than fp32 / bf16, and a shape whose
+    shared memory (reported in bytes) is over the kernel's budget."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    if what == "dtype":
+        cfg = GPTConfig(dtype=torch.float16)
+        kvc = KVCacheConfig(num_layers=12, num_heads=12, head_dim=64,
+                            num_blocks=8, dtype=torch.float16)
+        assert "fp32 or bf16" in megakernel_refusal(cfg, kvc,
+                                                    allow_interpret=False)
+        flag = GPTConfig()
+        f32 = KVCacheConfig(num_layers=12, num_heads=12, head_dim=64,
+                            num_blocks=8, dtype=torch.float32)
+        assert "fp32 or bf16" in megakernel_refusal(flag, f32,
+                                                    allow_interpret=False)
+        return
     big = GPTConfig(hidden=64 * 1024, num_heads=512, vocab_size=128)
     kv_big = KVCacheConfig(num_layers=12, num_heads=512, head_dim=128,
                            num_blocks=8)
     reason = megakernel_refusal(big, kv_big, allow_interpret=False)
     assert "shared memory" in reason
-    assert str(mk.kernel_smem_bytes(64 * 1024, 128)) in reason
-    f16 = KVCacheConfig(num_layers=12, num_heads=12, head_dim=64,
-                        num_blocks=8, dtype=torch.float32)
-    assert "fp32 or bf16" in megakernel_refusal(flag, f16,
-                                                allow_interpret=False)
+    need = mk.kernel_smem_bytes(64 * 1024, 128, 4 * 64 * 1024,
+                                torch.bfloat16)
+    assert need > mk.SMEM_LIMIT_BYTES and f"{need} B" in reason
+    assert megakernel_ok(big, kv_big)    # the plain version takes it
 
 
 def test_fused_programs_raise_on_an_unsupported_shape():
