@@ -6,8 +6,9 @@ Flat fp buffers are split into fixed-size blocks; each block carries one
 fp32 scale ``absmax / qmax`` (1 for an all-zero block) and its codes
 ``clip(round(x / scale), -qmax, qmax)``, with round-half-to-even as
 ``jnp.round`` rounds. int4 codes are nibble-packed two per byte, the even
-index in the low nibble; the pack and unpack stay plain tensor ops outside
-the kernels, as in JAX.
+index in the low nibble: on the kernel path the quantize kernel writes the
+nibbles and the dequantize kernel reads them (JAX packs and unpacks around
+its kernels); elsewhere :func:`pack_int4` / :func:`unpack_int4` do.
 
 Dispatch is JAX's (``_pallas_ok``, ``_ROWS_PER_STEP``, under their names):
 ``use_pallas=None`` launches the kernels for a CUDA tensor where the block
@@ -34,7 +35,7 @@ the seed and its index.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,9 +48,9 @@ QMAX4 = 7.0   # symmetric int4 code range; -8 is never emitted
 _SIGNATURES = {
     "quantize_blockwise": [ctypes.c_int] + [ctypes.c_void_p] * 3
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-       ctypes.c_uint, ctypes.c_int, ctypes.c_void_p],
+       ctypes.c_uint] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "dequantize_blockwise": [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -123,12 +124,15 @@ def _pallas_ok(n: int, block_size: int) -> bool:
 
 
 def _use_pallas(t: torch.Tensor, size: int, use_pallas: Optional[bool],
-                what: str, arg: str = "block_size") -> bool:
+                what: str, arg: str = "block_size",
+                n: Optional[int] = None) -> bool:
     """JAX's choice between its kernels and its reference: None takes the
     kernels inside the gate on a CUDA tensor (JAX: on a compiled backend)
     and the reference elsewhere; True takes them, raising JAX's message
-    outside the gate; False takes the reference."""
-    n = t.numel()
+    outside the gate; False takes the reference. ``n`` is the element
+    count the gate sees (``t.numel()`` unless given: the unpacked length
+    for packed int4 codes, as JAX gates after ``unpack_int4``)."""
+    n = t.numel() if n is None else n
     if use_pallas is None:
         return _pallas_ok(n, size) and ku.use_kernel(t)
     if use_pallas and not _pallas_ok(n, size):
@@ -167,10 +171,12 @@ def _codes(xb, scales, qmax: float, seed: Optional[int]):
 
 
 def quantize_blocks_reference(x2d: torch.Tensor, qmax: float = QMAX,
-                              seed: Optional[int] = None
+                              seed: Optional[int] = None,
+                              packed: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the quantize kernel: (rows, block) -> (int8 codes
-    (rows, block), fp32 scales (rows,)); nearest rounding, or stochastic
+    (rows, block), or with ``packed`` their :func:`pack_int4` bytes (rows,
+    block / 2); fp32 scales (rows,)); nearest rounding, or stochastic
     with ``seed``. The scale is amax · fp32(1/qmax), as JAX's kernel
     computes it (XLA turns its division by the constant qmax into that
     product): one ulp off :func:`_block_scales`' quotient in a few blocks
@@ -179,13 +185,17 @@ def quantize_blocks_reference(x2d: torch.Tensor, qmax: float = QMAX,
     amax = xb.abs().amax(dim=1)
     inv = torch.tensor(1.0 / qmax, dtype=torch.float32, device=xb.device)
     scales = torch.where(amax > 0, amax * inv, torch.ones_like(amax))
-    return _codes(xb, scales, qmax, seed), scales
+    codes = _codes(xb, scales, qmax, seed)
+    return (pack_int4(codes) if packed else codes), scales
 
 
-def dequantize_blocks_reference(q2d: torch.Tensor,
-                                scales: torch.Tensor) -> torch.Tensor:
-    """Plain version of the dequantize kernel: codes × per-row scale, fp32
-    (rows, block)."""
+def dequantize_blocks_reference(q2d: torch.Tensor, scales: torch.Tensor,
+                                packed: bool = False) -> torch.Tensor:
+    """Plain version of the dequantize kernel: codes (or, with ``packed``,
+    the :func:`unpack_int4` codes of (rows, block / 2) bytes) × per-row
+    scale, fp32 (rows, block)."""
+    if packed:
+        q2d = unpack_int4(q2d)
     return q2d.float() * scales[:, None]
 
 
@@ -193,29 +203,71 @@ def dequantize_blocks_reference(q2d: torch.Tensor,
 # kernel wrappers
 
 
-def _check_flat(what, t, dtypes):
+class QuantPlan(NamedTuple):
+    """Quantize kernel geometry: ``team`` lanes own a row (a power of 2 up
+    to a warp), holding ``_VECS`` of its 16-byte vectors a lane at a time;
+    ``resident``: a grid of resident CTAs walking the rows (else one row a
+    team)."""
+    team: int
+    resident: bool
+
+
+# 16-byte vectors of x a quantize lane holds at a time, and a CTA's
+# threads (csrc/quantize.cu kVecs, kCta)
+_VECS, _CTA = 4, 256
+
+
+def _quant_plan(block: int, dtype: torch.dtype,
+                stochastic: bool = False) -> QuantPlan:
+    """The quantize kernel's geometry at (block, x type, rounding mode),
+    block % 128 == 0: the fewest lanes, a power of 2 up to a warp, that
+    hold the row's ``block / (16 / itemsize)`` vectors ``_VECS`` a lane.
+    At a power-of-2 row of 16-128 vectors (the main path's B 256 and G
+    128) every lane holds ``_VECS`` and the row stays in registers; a
+    longer row is walked by a warp in chunks, read twice. A resident grid
+    for bf16 stochastic rounding, the cells whose arithmetic, not their
+    bytes, bounds them; one row a team elsewhere (both timed by
+    chip_codec_compare.py)."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    if block <= 0 or block % 128:
+        raise ValueError(f"quantize kernel: block ({block}) must be a "
+                         f"positive multiple of 128")
+    lanes = -(-(block // per) // _VECS)
+    return QuantPlan(min(32, 1 << (lanes - 1).bit_length()),
+                     stochastic and per == 8)
+
+
+def _check_flat(what, t, dtypes, block):
     ku.require(t.is_cuda and t.dim() == 2 and t.is_contiguous(),
                f"{what} takes a contiguous 2-d (rows, block) CUDA tensor, "
                f"got {t.device} {tuple(t.shape)}")
     ku.require(t.dtype in dtypes,
                f"{what} takes {' or '.join(map(str, dtypes))}, got {t.dtype}")
-    ku.require(t.shape[1] % 128 == 0,
-               f"{what}: block ({t.shape[1]}) must be a multiple of 128")
+    ku.require(block % 128 == 0,
+               f"{what}: block ({block}) must be a multiple of 128")
     ku.require(t.data_ptr() % 16 == 0, f"{what}: tensors must be 16-byte "
                                        f"aligned")
 
 
 def quantize_blocks(x2d: torch.Tensor, qmax: float = QMAX,
-                    seed: Optional[int] = None
+                    seed: Optional[int] = None, packed: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the quantize kernel on a CUDA (rows, block) fp32 or bf16
-    tensor, block % 128 == 0: returns (int8 codes (rows, block), fp32
-    scales (rows,)), rounded to nearest, or stochastically with ``seed``.
-    Launches count as ``quantize_blockwise[nearest]`` or
-    ``quantize_blockwise[stochastic]``."""
-    _check_flat("quantize_blocks", x2d, (torch.float32, torch.bfloat16))
+    tensor, block % 128 == 0: returns (int8 codes (rows, block), or with
+    ``packed`` (qmax <= 7) their nibble pairs, uint8 (rows, block / 2) in
+    :func:`pack_int4`'s layout; fp32 scales (rows,)), rounded to nearest,
+    or stochastically with ``seed``. Launches count as
+    ``quantize_blockwise[nearest]`` or ``quantize_blockwise[stochastic]``."""
+    _check_flat("quantize_blocks", x2d, (torch.float32, torch.bfloat16),
+                x2d.shape[-1] if x2d.dim() == 2 else 0)
+    ku.require(not packed or qmax <= QMAX4,
+               f"quantize_blocks: packed codes need qmax <= {QMAX4:g}, got "
+               f"{qmax:g}")
     rows, block = x2d.shape
-    q = torch.empty(rows, block, dtype=torch.int8, device=x2d.device)
+    plan = _quant_plan(block, x2d.dtype, seed is not None)
+    q = torch.empty(rows, block // 2 if packed else block,
+                    dtype=torch.uint8 if packed else torch.int8,
+                    device=x2d.device)
     scales = torch.empty(rows, dtype=torch.float32, device=x2d.device)
     stochastic = seed is not None
     lib = ku.load_kernel("quantize", _SIGNATURES)
@@ -223,19 +275,23 @@ def quantize_blocks(x2d: torch.Tensor, qmax: float = QMAX,
         x2d.device.index, x2d.data_ptr(), q.data_ptr(), scales.data_ptr(),
         rows, block, float(qmax), int(stochastic),
         fmix32(int(seed) & M32) if stochastic else 0,
-        int(x2d.dtype == torch.bfloat16), ku.stream_handle(x2d))
+        int(x2d.dtype == torch.bfloat16), int(packed), plan.team,
+        int(plan.resident), ku.stream_handle(x2d))
     name = "stochastic" if stochastic else "nearest"
     ku.count_launch(f"quantize_blockwise[{name}]")
     ku.check_status(lib, status, "quantize_blocks")
     return q, scales
 
 
-def dequantize_blocks(q2d: torch.Tensor, scales: torch.Tensor
-                      ) -> torch.Tensor:
-    """Launch the dequantize kernel: CUDA int8 codes (rows, block), block %
-    128 == 0, and fp32 scales (rows,) -> fp32 (rows, block)."""
-    _check_flat("dequantize_blocks", q2d, (torch.int8,))
-    rows, block = q2d.shape
+def dequantize_blocks(q2d: torch.Tensor, scales: torch.Tensor,
+                      packed: bool = False) -> torch.Tensor:
+    """Launch the dequantize kernel: CUDA int8 codes (rows, block), or with
+    ``packed`` uint8 nibble pairs (rows, block / 2), block % 128 == 0, and
+    fp32 scales (rows,) -> fp32 (rows, block)."""
+    block = (2 if packed else 1) * (q2d.shape[-1] if q2d.dim() == 2 else 0)
+    _check_flat("dequantize_blocks", q2d,
+                (torch.uint8,) if packed else (torch.int8,), block)
+    rows = q2d.shape[0]
     ku.require(scales.device == q2d.device and scales.dtype == torch.float32
                and tuple(scales.shape) == (rows,) and scales.is_contiguous(),
                f"dequantize_blocks: scales must be a contiguous ({rows},) "
@@ -244,7 +300,7 @@ def dequantize_blocks(q2d: torch.Tensor, scales: torch.Tensor
     lib = ku.load_kernel("quantize", _SIGNATURES)
     status = lib.dequantize_blockwise(
         q2d.device.index, q2d.data_ptr(), scales.data_ptr(), y.data_ptr(),
-        q2d.numel(), block, ku.stream_handle(q2d))
+        rows * block, block, int(packed), ku.stream_handle(q2d))
     ku.count_launch("dequantize_blockwise")
     ku.check_status(lib, status, "dequantize_blocks")
     return y
@@ -270,23 +326,25 @@ def _check_quantize_args(x_flat, size: int, stochastic: bool, seed,
 
 
 def _quantize(x_flat, block_size: int, stochastic: bool, seed, qmax: float,
-              use_pallas: bool):
+              use_pallas: bool, packed: bool = False):
     """JAX's two paths: the kernel's math (``use_pallas``: the kernel on
     CUDA, its plain version on the CPU) or its reference (the scale a
-    true quotient, as ``_quantize_jax`` divides)."""
+    true quotient, as ``_quantize_jax`` divides). ``packed``: the codes as
+    nibble pairs (written by the kernel on its path)."""
     seed = int(seed) if stochastic else None
     x2d = x_flat.reshape(-1, block_size)
     if not use_pallas:
         xb = x2d.float()
         scales = _block_scales(xb, qmax)
-        return _codes(xb, scales, qmax, seed).reshape(-1), scales
+        q = _codes(xb, scales, qmax, seed).reshape(-1)
+        return (pack_int4(q) if packed else q), scales
     if ku.use_kernel(x_flat):
         x = x2d.contiguous()
         if x.dtype not in (torch.float32, torch.bfloat16):
             x = x.float()
-        q, s = quantize_blocks(x, qmax, seed)
+        q, s = quantize_blocks(x, qmax, seed, packed)
     else:
-        q, s = quantize_blocks_reference(x2d, qmax, seed)
+        q, s = quantize_blocks_reference(x2d, qmax, seed, packed)
     return q.reshape(-1), s
 
 
@@ -303,19 +361,31 @@ def quantize_blockwise(x_flat: torch.Tensor, block_size: int = 256,
                      _use_pallas(x_flat, block_size, use_pallas, "quantize"))
 
 
+def _dequantize(q_flat, scales, block_size: int, use_pallas, packed: bool):
+    """JAX's checks and gate on the codes' length (for nibble pairs the
+    unpacked length, as JAX gates after ``unpack_int4``); the kernel reads
+    the codes or nibbles on its path, elsewhere the reference runs on the
+    (unpacked) codes."""
+    n = (2 if packed else 1) * q_flat.numel()
+    if n % block_size != 0:
+        raise ValueError(f"size {n} not a multiple of block_size "
+                         f"{block_size}")
+    if (_use_pallas(q_flat, block_size, use_pallas, "dequantize", n=n)
+            and ku.use_kernel(q_flat)):
+        width = block_size // 2 if packed else block_size
+        return dequantize_blocks(q_flat.reshape(-1, width).contiguous(),
+                                 scales.float().contiguous(),
+                                 packed).reshape(-1)
+    codes = unpack_int4(q_flat) if packed else q_flat
+    return dequantize_blocks_reference(codes.reshape(-1, block_size),
+                                       scales).reshape(-1)
+
+
 def dequantize_blockwise(q_flat: torch.Tensor, scales: torch.Tensor,
                          block_size: int = 256,
                          use_pallas: Optional[bool] = None) -> torch.Tensor:
     """(int8 codes, fp32 scales) -> fp32 flat buffer."""
-    if q_flat.numel() % block_size != 0:
-        raise ValueError(f"size {q_flat.numel()} not a multiple of "
-                         f"block_size {block_size}")
-    q2d = q_flat.reshape(-1, block_size)
-    if (_use_pallas(q_flat, block_size, use_pallas, "dequantize")
-            and ku.use_kernel(q_flat)):
-        return dequantize_blocks(q2d.contiguous(),
-                                 scales.float().contiguous()).reshape(-1)
-    return dequantize_blocks_reference(q2d, scales).reshape(-1)
+    return _dequantize(q_flat, scales, block_size, use_pallas, False)
 
 
 def quantization_error(x_flat: torch.Tensor,
@@ -334,19 +404,20 @@ def quantize_blockwise_int4(x_flat: torch.Tensor, group_size: int = 128,
     (n/G,)). ``x_flat.numel()`` must be a multiple of the (even) group;
     ``seed`` and ``use_pallas`` as in :func:`quantize_blockwise`."""
     _check_quantize_args(x_flat, group_size, stochastic, seed, "group_size")
-    q, s = _quantize(x_flat, group_size, stochastic, seed, QMAX4,
+    return _quantize(x_flat, group_size, stochastic, seed, QMAX4,
                      _use_pallas(x_flat, group_size, use_pallas,
-                                 "int4 quantize", "group_size"))
-    return pack_int4(q), s
+                                 "int4 quantize", "group_size"), packed=True)
 
 
 def dequantize_blockwise_int4(packed: torch.Tensor, scales: torch.Tensor,
                               group_size: int = 128,
                               use_pallas: Optional[bool] = None
                               ) -> torch.Tensor:
-    """(packed uint8 codes, fp32 group scales) -> fp32 flat buffer."""
-    return dequantize_blockwise(unpack_int4(packed), scales, group_size,
-                                use_pallas=use_pallas)
+    """(packed uint8 codes, fp32 group scales) -> fp32 flat buffer. JAX's
+    checks and gate on the unpacked length; on the kernel path the
+    kernel reads the nibbles, elsewhere :func:`unpack_int4` and the
+    reference."""
+    return _dequantize(packed, scales, group_size, use_pallas, True)
 
 
 def quantization_error_int4(x_flat: torch.Tensor,

@@ -45,13 +45,14 @@
      ``MixedFusedLayerNorm`` forward + backward on bf16 batches, one
      launch of each kernel (counts reset just before, read just after);
    * the codec at GPT-2-124M's gradient as one flat buffer (124,477,440
-     elements), fp32 and bf16, int8 (block 256) and int4 (group 128),
-     nearest and stochastic: codes, scales and dequantized values bitwise
-     the plain versions' (no single PyTorch call computes the codec);
-     then the codec main path, ``quantize_blockwise`` +
-     ``dequantize_blockwise`` and the int4 pair through the public entry
-     points, one launch each, the round trip within half a step (one
-     step stochastic);
+     elements), fp32 and bf16, int8 (block 256) and int4 (group 128, the
+     nibbles packed and unpacked in the kernels), nearest and
+     stochastic: codes, scales and dequantized values bitwise the plain
+     versions' (no single PyTorch call computes the codec), each kernel
+     timed alone and through its public entry point; then the codec main
+     path, ``quantize_blockwise`` + ``dequantize_blockwise`` and the int4
+     pair through the public entry points, one launch each, the round
+     trip within half a step (one step stochastic), the pair's time;
    * flash attention forward, dQ and dK/dV at GPT's flagship shape (8 x
      12 heads, 1024, 64) causal, at a non-causal and at a dropout shape,
      and with a bias, beside the d(bias) kernel, at T5-small's: the
@@ -1124,83 +1125,98 @@ CODEC_SEED = 1234
 def codec_phase(torch, dev, ku):
     """The codec kernels (B #16-18) vs their plain versions at
     ``padded_size(124,475,904, 256·32)`` elements, fp32 and bf16, int8
-    (block 256) and int4 (group 128), nearest and stochastic: codes and
-    scales bitwise equal (the same IEEE quotient, rint and counter hash),
-    the stochastic codes bitwise over two launches, dequantize bitwise;
-    times beside the bound and the plain version (no single PyTorch call
-    computes the codec). Then the main path: ``quantize_blockwise`` +
-    ``dequantize_blockwise`` (and the int4 pair) on the fp32 buffer
-    through the public entry points, nearest and stochastic, the launch
-    counts reset just before and read just after (one quantize and one
-    dequantize launch each), the round trip within half a step (nearest)
-    or one step (stochastic) of x, finite."""
+    (block 256) and int4 (group 128, the nibbles packed and unpacked in
+    the kernels), nearest and stochastic: codes and scales bitwise equal
+    (the same IEEE quotient, rint and counter hash), the codes bitwise
+    over two launches, dequantize bitwise (from the nearest codes of both
+    types); times beside the bound, the plain version and the public
+    entry point's (which includes any reshape, pack or unpack around the
+    kernel); no single PyTorch call computes the codec. Then the main
+    path: ``quantize_blockwise`` + ``dequantize_blockwise`` (and the int4
+    pair) on the fp32 buffer through the public entry points, nearest and
+    stochastic, the launch counts reset just before and read just after
+    (one quantize and one dequantize launch each), the round trip within
+    half a step (nearest) or one step (stochastic) of x, finite; the
+    pair's device time."""
     from apex_tpu_torch.comm import quantize as pq
 
     n = pq.padded_size(CODEC_GRAD_ELEMS, 256 * pq._ROWS_PER_STEP)
     gen = torch.Generator(device=dev).manual_seed(11)
     base = torch.randn(n, device=dev, generator=gen) * 1e-3
+    public = {8: (pq.quantize_blockwise, pq.dequantize_blockwise),
+              4: (pq.quantize_blockwise_int4, pq.dequantize_blockwise_int4)}
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
         x = base.to(dt)
         for bits, block in ((8, 256), (4, 128)):
             qmax = pq.qmax_for_bits(bits)
+            packed = bits == 4
+            code_bytes = n / 2 if packed else n
+            quant, dequant = public[bits]
             x2d = x.view(-1, block)
             for seed in (None, CODEC_SEED):
                 mode = "nearest" if seed is None else "stochastic"
                 tag = f"codec {dname} int{bits} {mode}"
-                q, s = pq.quantize_blocks(x2d, qmax, seed)
-                q_p, s_p = pq.quantize_blocks_reference(x2d, qmax, seed)
+                q, s = pq.quantize_blocks(x2d, qmax, seed, packed)
+                q_p, s_p = pq.quantize_blocks_reference(x2d, qmax, seed,
+                                                        packed)
                 torch.cuda.synchronize()
                 if not (torch.equal(q, q_p) and torch.equal(s, s_p)):
                     raise AssertionError(
                         f"{tag}: codes differ at "
-                        f"{int((q != q_p).sum())} of {n}, scales at "
-                        f"{int((s != s_p).sum())}")
-                if not torch.equal(q, pq.quantize_blocks(x2d, qmax, seed)[0]):
+                        f"{int((q != q_p).sum())} of {q.numel()} bytes, "
+                        f"scales at {int((s != s_p).sum())}")
+                if not torch.equal(q, pq.quantize_blocks(x2d, qmax, seed,
+                                                         packed)[0]):
                     raise AssertionError(f"{tag}: two launches differ")
                 del q_p, s_p
                 case = {"dtype": dname, "bits": bits, "block": block,
-                        "mode": mode, "elements": n, "bitwise": True,
-                        "max_abs_err": 0.0, "library_ms": None}
+                        "mode": mode, "packed": packed, "elements": n,
+                        "bitwise": True, "max_abs_err": 0.0,
+                        "library_ms": None}
                 case.update(zip(("bound_ms", "bound_by"), bound_ms(
-                    n * x.element_size() + n + 4 * n / block, 3.0 * n,
-                    "float32")))
+                    n * x.element_size() + code_bytes + 4 * n / block,
+                    3.0 * n, "float32")))
                 case.update(
                     ms=time_ms(torch, lambda: pq.quantize_blocks(
-                        x2d, qmax, seed), iters=20),
+                        x2d, qmax, seed, packed), iters=20),
                     plain_ms=time_ms(torch, lambda: pq.quantize_blocks_reference(
-                        x2d, qmax, seed), iters=5))
-                if dname == "float32" and seed is None:
-                    y = pq.dequantize_blocks(q, s)
-                    if not torch.equal(y, pq.dequantize_blocks_reference(q,
-                                                                         s)):
+                        x2d, qmax, seed, packed), iters=5),
+                    public_ms=time_ms(torch, lambda: quant(
+                        x, block, seed is not None, seed), iters=20))
+                if seed is None:
+                    y = pq.dequantize_blocks(q, s, packed)
+                    if not torch.equal(y, pq.dequantize_blocks_reference(
+                            q, s, packed)):
                         raise AssertionError(f"{tag}: dequantize differs")
+                    flat = q.view(-1)
                     deq = {"max_abs_err": 0.0, "bitwise": True,
                            "library_ms": None}
                     deq.update(zip(("bound_ms", "bound_by"), bound_ms(
-                        n + 4 * n / block + 4 * n, 1.0 * n, "float32")))
+                        code_bytes + 4 * n / block + 4 * n, 1.0 * n,
+                        "float32")))
                     deq.update(
-                        ms=time_ms(torch, lambda: pq.dequantize_blocks(q, s),
-                                   iters=20),
+                        ms=time_ms(torch, lambda: pq.dequantize_blocks(
+                            q, s, packed), iters=20),
                         plain_ms=time_ms(
                             torch, lambda: pq.dequantize_blocks_reference(
-                                q, s), iters=5))
+                                q, s, packed), iters=5),
+                        public_ms=time_ms(torch, lambda: dequant(
+                            flat, s, block), iters=20))
                     case["dequantize"] = deq
-                    del y
+                    del y, flat
                 cases.append(case)
                 del q, s
         del x, x2d
     # the main path: the public entry points on the fp32 gradient buffer
     runs = []
     for bits, block in ((8, 256), (4, 128)):
-        quant, dequant = ((pq.quantize_blockwise, pq.dequantize_blockwise)
-                          if bits == 8 else (pq.quantize_blockwise_int4,
-                                             pq.dequantize_blockwise_int4))
+        quant, dequant = public[bits]
         for stochastic in (False, True):
+            seed = CODEC_SEED if stochastic else None
             ku.reset_launch_counts()
-            codes, scales = quant(base, block, stochastic,
-                                  CODEC_SEED if stochastic else None)
+            codes, scales = quant(base, block, stochastic, seed)
             back = dequant(codes, scales, block)
             torch.cuda.synchronize()
             launches = ku.launch_counts()
@@ -1224,6 +1240,8 @@ def codec_phase(torch, dev, ku):
                          "max_err_in_steps": float((err / scales[:, None])
                                                    .max())})
             del codes, scales, back, err, step
+            runs[-1]["pair_ms"] = time_ms(torch, lambda: dequant(
+                *quant(base, block, stochastic, seed), block), iters=20)
     del base
     torch.cuda.empty_cache()
     return {"cases": cases, "runs": runs}
@@ -3683,8 +3701,10 @@ def main(argv=None) -> int:
                 and c is not rms_main}})
     # the codec (B #16-18): launched by the main path's quantize_blockwise
     # and _int4 pairs on GPT-2-124M's fp32 gradient, timed there (int8,
-    # block 256); bf16 and int4 beside it; no single PyTorch call computes
+    # block 256); bf16 and int4 (packed in the kernels) beside it, each
+    # with its public entry point's time; no single PyTorch call computes
     # it (library_ms null)
+    codec_timing = timing + ("public_ms",)
     for mode, line in (("nearest", 213), ("stochastic", 201)):
         kname = f"quantize_blockwise[{mode}]"
         c = pick(codec["cases"], dtype="float32", bits=8, mode=mode)
@@ -3697,11 +3717,12 @@ def main(argv=None) -> int:
              "path": "comm.quantize_blockwise(_int4)",
              "shape": f"{c['elements']} elements fp32, int8, block 256",
              "max_abs_err": 0.0, "bitwise": True,
-             **{k: c[k] for k in timing},
-             **{f"{x['dtype']}_int{x['bits']}": {k: x[k] for k in timing}
+             **{k: c[k] for k in codec_timing},
+             **{f"{x['dtype']}_int{x['bits']}": {k: x[k]
+                                                 for k in codec_timing}
                 for x in codec["cases"] if x["mode"] == mode
                 and x is not c}})
-    deq = {x["bits"]: x["dequantize"] for x in codec["cases"]
+    deq = {(x["dtype"], x["bits"]): x["dequantize"] for x in codec["cases"]
            if "dequantize" in x}
     kernels.append(
         {"name": "dequantize_blockwise", "route": "cuda",
@@ -3712,8 +3733,9 @@ def main(argv=None) -> int:
          "path": "comm.dequantize_blockwise(_int4)",
          "shape": f"{codec['cases'][0]['elements']} codes, block 256",
          "max_abs_err": 0.0, "bitwise": True,
-         **{k: deq[8][k] for k in timing},
-         "int4_group128": {k: deq[4][k] for k in timing}})
+         **{k: deq["float32", 8][k] for k in codec_timing},
+         **{f"{d}_int{b}": {k: v[k] for k in codec_timing}
+            for (d, b), v in deq.items() if (d, b) != ("float32", 8)}})
     # The flash kernels. Main paths: the bf16 GPT and T5 steps run the
     # tensor-core forward, dQ, dK/dV and d(bias) (flash_mma_*); their
     # launches and bf16 times at the steps' shapes (GPT's flagship, T5's
@@ -4139,15 +4161,16 @@ def main(argv=None) -> int:
         d = c.get("dequantize")
         print(f"codec {c['dtype']} int{c['bits']} block {c['block']} "
               f"{c['mode']} ({c['elements']} elements): quantize "
-              f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
-              f"{c['bound_ms']:.4f}) bitwise"
-              + (f"; dequantize {d['ms']:.4f} ms (plain {d['plain_ms']:.4f},"
-                 f" bound {d['bound_ms']:.4f}) bitwise" if d else "")
+              f"{c['ms']:.4f} ms (public {c['public_ms']:.4f}, plain "
+              f"{c['plain_ms']:.4f}, bound {c['bound_ms']:.4f}) bitwise"
+              + (f"; dequantize {d['ms']:.4f} ms (public "
+                 f"{d['public_ms']:.4f}, plain {d['plain_ms']:.4f}, bound "
+                 f"{d['bound_ms']:.4f}) bitwise" if d else "")
               + f" on {card}")
     for r in codec["runs"]:
         print(f"codec main path int{r['bits']} {r['mode']}: launches "
               f"{r['launches']}, round trip max {r['max_err_in_steps']:.4f}"
-              f" steps")
+              f" steps, pair {r['pair_ms']:.4f} ms")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)

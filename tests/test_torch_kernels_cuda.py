@@ -1767,27 +1767,55 @@ def test_rms_norm_gate_on_the_card(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bits,block", [(8, 256), (4, 128), (8, 512)])
+@pytest.mark.parametrize("bits,block", [(8, 128), (8, 256), (8, 384),
+                                        (8, 512), (8, 1024), (8, 1152),
+                                        (8, 2048), (8, 8320), (4, 128),
+                                        (4, 256), (4, 384), (4, 1024),
+                                        (4, 4224), (4, 16512)])
 @pytest.mark.parametrize("seed", [None, 7])
-def test_codec_kernels_match_plain_bitwise(dev, dtype, bits, block, seed):
+@pytest.mark.parametrize("rows", [32, 97])
+def test_codec_kernels_match_plain_bitwise(dev, dtype, bits, block, seed,
+                                           rows):
     """Quantize (nearest, or stochastic with a seed) and dequantize: codes
-    and scales bitwise the plain versions' (IEEE division, rint, the same
-    counter hash), the dequantized values bitwise too; one launch each
-    through the public entry points, the int4 codes packed outside."""
+    and scales bitwise the plain versions' (the IEEE quotient, rint, the
+    same counter hash), int4 as nibbles written by the kernel (its plain
+    version ``pack_int4`` of the codes) and read by the dequantize kernel
+    (its plain version the reference on ``unpack_int4`` of the bytes), the
+    dequantized values bitwise too, at blocks 128-1024 (384: no power of
+    2, lanes of a team idle), 1152 (bf16: a chunk and a partial one),
+    2048, 4224, 8320 and 16512 (rows walked in chunks of 128 vectors, read
+    twice, past what one CTA's registers hold in both types), rows 32 and
+    97 (3 · 32 + 1: a partial CTA of rows), both grids (bf16 stochastic:
+    resident); one launch each through the public entry points (rows % 32
+    == 0)."""
     from apex_tpu_torch.comm import quantize as pq
     g = torch.Generator(device=dev).manual_seed(block + bits)
-    n = 64 * block
+    n = rows * block
     x = (torch.randn(n, device=dev, generator=g) * 3).to(dtype)
     x[:block] = 0                                   # an all-zero block
     x[block:2 * block] = 0.5 * torch.arange(block, device=dev) - 7
     qmax = pq.qmax_for_bits(bits)
-    q, s = pq.quantize_blocks(x.reshape(-1, block), qmax, seed)
-    q_p, s_p = pq.quantize_blocks_reference(x.reshape(-1, block), qmax, seed)
+    x2d = x.reshape(-1, block)
+    q, s = pq.quantize_blocks(x2d, qmax, seed)
+    q_p, s_p = pq.quantize_blocks_reference(x2d, qmax, seed)
     torch.cuda.synchronize()
     assert torch.equal(q, q_p) and torch.equal(s, s_p)
     assert int(q.abs().max()) <= qmax and float(s[0]) == 1.0
     y = pq.dequantize_blocks(q, s)
     assert torch.equal(y, pq.dequantize_blocks_reference(q, s))
+    if bits == 4:
+        packed, s4 = pq.quantize_blocks(x2d, qmax, seed, packed=True)
+        assert packed.dtype == torch.uint8 and packed.shape == (rows,
+                                                                block // 2)
+        assert torch.equal(packed, pq.pack_int4(q_p)) and torch.equal(s4, s)
+        assert torch.equal(packed, pq.quantize_blocks_reference(
+            x2d, qmax, seed, packed=True)[0])
+        y4 = pq.dequantize_blocks(packed, s, packed=True)
+        assert torch.equal(y4, pq.dequantize_blocks_reference(
+            pq.unpack_int4(packed), s))
+        assert torch.equal(y4, y)
+    if rows % 32:
+        return
     stoch = seed is not None
     kind = "stochastic" if stoch else "nearest"
     before = ku.launch_counts()
@@ -1804,6 +1832,63 @@ def test_codec_kernels_match_plain_bitwise(dev, dtype, bits, block, seed):
     assert after["dequantize_blockwise"] == \
         before.get("dequantize_blockwise", 0) + 1
     assert torch.equal(scales, s) and torch.equal(back, y.reshape(-1))
+
+
+def test_codec_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """The wrappers raise for a block that is odd or no multiple of 128, a
+    misaligned pointer, a wrong type, packed codes at qmax 127; the C
+    entries refuse such blocks, and a team that is no power of 2 up to 32,
+    themselves (no launch, a nonzero status)."""
+    from apex_tpu_torch.comm import quantize as pq
+    for block in (129, 192, 100):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            pq.quantize_blocks(torch.randn(32, block, device=dev),
+                               pq.QMAX4, packed=True)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        pq.dequantize_blocks(torch.zeros(32, 50, dtype=torch.uint8,
+                                         device=dev),
+                             torch.ones(32, device=dev), packed=True)
+    flat = torch.randn(32 * 128 + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        pq.quantize_blocks(flat[1:].view(32, 128))
+    codes = torch.zeros(32 * 128 + 1, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        pq.dequantize_blocks(codes[1:].view(32, 128),
+                             torch.ones(32, device=dev))
+    with pytest.raises(ValueError, match="torch.float32 or torch.bfloat16"):
+        pq.quantize_blocks(torch.randn(32, 128, device=dev).half())
+    with pytest.raises(ValueError, match="torch.uint8"):
+        pq.dequantize_blocks(torch.zeros(32, 64, dtype=torch.int8,
+                                         device=dev),
+                             torch.ones(32, device=dev), packed=True)
+    with pytest.raises(ValueError, match="torch.int8"):
+        pq.dequantize_blocks(torch.zeros(32, 128, dtype=torch.uint8,
+                                         device=dev),
+                             torch.ones(32, device=dev))
+    with pytest.raises(ValueError, match="qmax"):
+        pq.quantize_blocks(torch.randn(32, 128, device=dev), pq.QMAX,
+                           packed=True)
+    lib = ku.load_kernel("quantize", pq._SIGNATURES)
+    x = torch.randn(32 * 130, device=dev)
+    q = torch.empty(32 * 130, dtype=torch.int8, device=dev)
+    s = torch.empty(32, device=dev)
+    stream = ku.stream_handle(x)
+    for block, packed, qmax, plan in ((130, 1, 7.0, (32, 0)),
+                                      (100, 0, 127.0, (32, 0)),
+                                      (128, 1, 127.0, (32, 0)),
+                                      (128, 0, 127.0, (24, 1)),
+                                      (128, 0, 127.0, (64, 0)),
+                                      (256, 0, 127.0, (0, 1))):
+        rows = 32 * 128 // block
+        assert lib.quantize_blockwise(dev.index or 0, x.data_ptr(),
+                                      q.data_ptr(), s.data_ptr(), rows,
+                                      block, qmax, 0, 0, 0, packed, *plan,
+                                      stream) != 0
+    for block in (100, 130):
+        assert lib.dequantize_blockwise(dev.index or 0, q.data_ptr(),
+                                        s.data_ptr(), x.data_ptr(),
+                                        32 * block, block, 0, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_codec_gate_on_the_card(dev):
