@@ -1,4 +1,5 @@
-"""Parameter trees from numpy: the JAX package's param pytree, taken out as
+"""Parameter trees from numpy: the JAX package's param pytree (and its LoRA
+adapter weights, :func:`adapter_weights_from_numpy`), taken out as
 numpy arrays (``jax.tree.map(np.asarray, params)``), becomes the port's
 dict of torch tensors with the same keys, shapes and layout (stacked
 layers, per-head interleaved QKV), so weights carry across one to one.
@@ -106,3 +107,19 @@ def norm_state_from_numpy(params: Any, device: DeviceLike = None,
     dev = resolve_device(device)
     return {names[k]: tensor_from_numpy(v, dev, dtype)
             for k, v in params.items()}
+
+
+def adapter_weights_from_numpy(weights: Any, device: DeviceLike = None,
+                               dtype: Optional[torch.dtype] = None) -> dict:
+    """JAX's ``serve.adapters.make_adapter_weights`` output, taken out as
+    numpy (``jax.tree.map(np.asarray, w)``): ``{f"{t}_a", f"{t}_b"}`` for
+    each adapted projection t -> the same dict of tensors on ``device``,
+    for ``InferenceEngine.load_adapter`` / ``write_adapter``. Raises on a
+    missing or unknown key."""
+    from apex_tpu_torch.serve.adapters import ADAPTER_TARGETS
+
+    want = {f"{t}_{side}" for t in ADAPTER_TARGETS for side in ("a", "b")}
+    if set(weights) != want:
+        raise ValueError(f"adapter weights have keys {sorted(weights)}, "
+                         f"want {sorted(want)}")
+    return params_from_numpy(dict(weights), device, dtype)

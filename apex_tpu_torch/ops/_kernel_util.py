@@ -67,6 +67,21 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def use_kernel_as_asked(t: torch.Tensor, use_pallas) -> bool:
+    """:func:`use_kernel` under a caller's ``use_pallas``: ``None`` is
+    :func:`use_kernel`, ``False`` the plain version on every device, and
+    ``True`` the kernel, raising for a tensor that is not on a CUDA device
+    (there is no interpret mode to run it in)."""
+    if use_pallas is None:
+        return use_kernel(t)
+    if not use_pallas:
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"use_pallas=True needs CUDA tensors (the kernels "
+                         f"have no interpret mode), got {t.device}")
+    return use_kernel(t)
+
+
 @contextlib.contextmanager
 def force_plain() -> Iterator[None]:
     """Run every wrapper's plain PyTorch version, even on CUDA tensors.

@@ -15,10 +15,24 @@
 * :mod:`~apex_tpu_torch.serve.sampling` — greedy / temperature / top-k /
   top-p with counter-hash position-keyed draws;
 * :mod:`~apex_tpu_torch.serve.drafter` — prompt-lookup n-gram drafter;
+* :mod:`~apex_tpu_torch.serve.adapters` — per-tenant paged LoRA: the
+  adapter pool, the gathered ``lora_delta``, the merged-weight oracle and
+  the :class:`AdapterRegistry`;
 * :mod:`~apex_tpu_torch.serve.engine` — the continuous-batching
   :class:`InferenceEngine` (chunked prefill, prefix cache, speculative
-  decode).
+  decode, adapters, the ``monitor`` telemetry, slot eviction).
 """
+
+from apex_tpu_torch.serve.adapters import (  # noqa: F401
+    ADAPTER_TARGETS,
+    AdapterRegistry,
+    adapter_pool_bytes,
+    init_adapter_pool,
+    lora_delta,
+    make_adapter_weights,
+    merge_adapter_params,
+    write_adapter,
+)
 
 from apex_tpu_torch.serve.decode import (  # noqa: F401
     gpt_decode_step,
@@ -36,6 +50,7 @@ from apex_tpu_torch.serve.engine import (  # noqa: F401
     InferenceEngine,
     Request,
     ServeConfig,
+    decode_flops_per_token,
 )
 from apex_tpu_torch.serve.kv_cache import (  # noqa: F401
     BlockAllocator,

@@ -29,7 +29,11 @@ Two halves:
   :func:`gpt_verify_step` (q=k+1) and :func:`gpt_prefill_chunk` (one
   slot, q=chunk). The layer stack is a Python loop over the stacked layer
   params (the JAX ``lax.scan``), and the K/V pools are written in place
-  (where the JAX programs donated them).
+  (where the JAX programs donated them). With ``adapters=`` each slot's
+  rows add their LoRA adapter's delta (``serve.adapters.lora_delta``)
+  after the qkv, out, fc1 and fc2 projections; ``gather_layer=`` is JAX's
+  per-layer parameter hook; ``use_pallas=False`` runs the plain versions
+  on every device.
 
 Row-count invariance: cuBLAS picks its GEMM algorithm per shape, and two
 algorithms may sum a row's products in different orders. So every
@@ -53,6 +57,7 @@ import torch.nn.functional as F
 from apex_tpu_torch.ops import _kernel_util as ku
 from apex_tpu_torch.ops.attention import NEG_INF, attention_reference
 from apex_tpu_torch.ops.layer_norm import layer_norm
+from apex_tpu_torch.serve.adapters import lora_delta_rows, lora_rows
 from apex_tpu_torch.serve.kv_cache import (KVCacheConfig, _dequant_rows_int4,
                                            gather_kv, paged_write)
 
@@ -324,7 +329,8 @@ def _warn_reference_fallback(head_dim: int) -> None:
 
 def paged_attention(q, cache_layer, cfg: KVCacheConfig, block_tables,
                     ctx_lens, scale: Optional[float] = None, *,
-                    rows_per_table: int = 1):
+                    rows_per_table: int = 1,
+                    use_pallas: Optional[bool] = None):
     """The plain version for CPU tensors, the kernels for CUDA tensors
     (raises on a shape they do not take). Same result as
     :func:`paged_attention_reference`, which ignores ``rows_per_table``:
@@ -332,11 +338,13 @@ def paged_attention(q, cache_layer, cfg: KVCacheConfig, block_tables,
     kernels read each K/V tile once for the group. JAX's gate first: a
     head_dim that is not a multiple of 8 takes the plain version on every
     device, logged once per head_dim where the kernels would have run
-    (a shape gate, not a fallback: a kernel that fails still raises)."""
+    (a shape gate, not a fallback: a kernel that fails still raises).
+    ``use_pallas``: ``False`` takes the plain version on every device,
+    ``True`` the kernels (raising for CPU tensors)."""
     _check_groups(q.shape[0], rows_per_table)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    kernel = ku.use_kernel(q)
+    kernel = ku.use_kernel_as_asked(q, use_pallas)
     if kernel and q.shape[-1] % 8 != 0:
         _warn_reference_fallback(q.shape[-1])
         kernel = False
@@ -380,11 +388,18 @@ def _embed(embed, tokens, positions):
     return x + pos.to(x.dtype)
 
 
-def serve_logits(params: Params, x, cfg):
+def _ln_pallas(use_pallas: Optional[bool]) -> Optional[bool]:
+    """The ``use_pallas`` a serve program hands ``layer_norm``: ``False``
+    (the plain versions) passes on; otherwise the norm's own gate."""
+    return False if use_pallas is False else None
+
+
+def serve_logits(params: Params, x, cfg, use_pallas: Optional[bool] = None):
     """Final LN + LM head -> full-vocab fp32 logits. The tied head is a
     product in the model dtype, then cast to fp32 (as in JAX)."""
     head = params["head"]
-    x = layer_norm(x, head["ln_w"], head["ln_b"])
+    x = layer_norm(x, head["ln_w"], head["ln_b"],
+                   use_pallas=_ln_pallas(use_pallas))
     if cfg.tie_embeddings:
         w = params["embed"]["tok"].to(x.dtype).t()
     else:
@@ -419,12 +434,29 @@ def _check_serve_cfg(cfg, kv_cfg: KVCacheConfig) -> None:
 
 def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
                       cache: Dict[str, torch.Tensor], block_tables, cfg,
-                      kv_cfg: KVCacheConfig
+                      kv_cfg: KVCacheConfig, *,
+                      use_pallas: Optional[bool] = None,
+                      adapters: Optional[Dict[str, torch.Tensor]] = None,
+                      adapter_ids=None, gather_layer=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run embedded activations ``x`` (n, q, h) through the stacked layers
     against their paged pools; ``cache`` is updated in place. Returns
-    ``(x', cache)``."""
+    ``(x', cache)``.
+
+    ``adapters``: an optional ``serve.adapters`` pool; each slot's rows add
+    their adapter's ``lora_delta`` after the qkv, out, fc1 and fc2
+    projections, ``adapter_ids`` (n,) picking the pool slot per slot (0:
+    the base model, an exact zero). ``gather_layer``: JAX's per-layer
+    parameter hook, applied to each layer's dict before use.
+    ``use_pallas``: as :func:`paged_attention`; ``False`` also takes the
+    plain LayerNorm."""
+    if adapters is not None and adapter_ids is None:
+        raise ValueError("adapters given without adapter_ids")
+    ln_pallas = _ln_pallas(use_pallas)
     n, q = x.shape[:2]
+    # every flat row's pool slot, once a call for all layers and targets
+    rows = (None if adapters is None
+            else lora_rows(adapter_ids, q, x.device))
     heads, hd = cfg.num_heads, cfg.head_dim
     offs = torch.arange(q, device=x.device)
     positions = start_lens.long()[:, None] + offs[None, :]      # (n, q)
@@ -438,27 +470,45 @@ def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
     valid_flat = valid.reshape(-1)
     for li in range(cfg.num_layers):
         lp = {name: t[li] for name, t in layers.items()}
+        if gather_layer is not None:
+            lp = gather_layer(lp)
         cl = {name: pool[li] for name, pool in cache.items()}
-        h1 = layer_norm(x, lp["ln1_w"], lp["ln1_b"])
+        ad = (None if adapters is None
+              else {name: t[li] for name, t in adapters.items()})
+        h1 = layer_norm(x, lp["ln1_w"], lp["ln1_b"], use_pallas=ln_pallas)
         qkv = _dense(h1, lp["qkv_kernel"], lp["qkv_bias"])
+        if ad is not None:
+            qkv = qkv + lora_delta_rows(h1, ad["qkv_a"], ad["qkv_b"], rows)
         qh, k, v = _split_qkv(qkv, heads, hd)                  # (n,q,H,D)
         paged_write(cl, kv_cfg, k.reshape(n * q, heads, hd).transpose(0, 1),
                     v.reshape(n * q, heads, hd).transpose(0, 1), bt_rows,
                     pos_flat, valid_flat)
         ctx = paged_attention(qh.reshape(n * q, heads, hd).contiguous(), cl,
-                              kv_cfg, bt_rows, ctx_lens, rows_per_table=q)
+                              kv_cfg, bt_rows, ctx_lens, rows_per_table=q,
+                              use_pallas=use_pallas)
         ctx = ctx.reshape(n, q, heads * hd)
-        x = x + _dense(ctx, lp["out_kernel"], lp["out_bias"])
-        h2 = layer_norm(x, lp["ln2_w"], lp["ln2_b"])
-        y = F.gelu(_dense(h2, lp["fc1_kernel"], lp["fc1_bias"]),
-                   approximate="tanh")
-        x = x + _dense(y, lp["fc2_kernel"], lp["fc2_bias"])
+        a = _dense(ctx, lp["out_kernel"], lp["out_bias"])
+        if ad is not None:
+            a = a + lora_delta_rows(ctx, ad["out_a"], ad["out_b"], rows)
+        x = x + a
+        h2 = layer_norm(x, lp["ln2_w"], lp["ln2_b"], use_pallas=ln_pallas)
+        pre = _dense(h2, lp["fc1_kernel"], lp["fc1_bias"])
+        if ad is not None:
+            pre = pre + lora_delta_rows(h2, ad["fc1_a"], ad["fc1_b"], rows)
+        y = F.gelu(pre, approximate="tanh")
+        m = _dense(y, lp["fc2_kernel"], lp["fc2_bias"])
+        if ad is not None:
+            m = m + lora_delta_rows(y, ad["fc2_a"], ad["fc2_b"], rows)
+        x = x + m
     return x, cache
 
 
 def gpt_paged_forward(params: Params, tokens, start_lens, n_valid, active,
                       cache: Dict[str, torch.Tensor], block_tables, cfg,
-                      kv_cfg: KVCacheConfig):
+                      kv_cfg: KVCacheConfig, *,
+                      use_pallas: Optional[bool] = None,
+                      adapters: Optional[Dict[str, torch.Tensor]] = None,
+                      adapter_ids=None, gather_layer=None):
     """Process ``tokens`` (n, q) — per slot, q consecutive tokens starting
     at position ``start_lens[slot]`` — against the paged cache.
 
@@ -467,6 +517,8 @@ def gpt_paged_forward(params: Params, tokens, start_lens, n_valid, active,
     ``active``: (n,) bool. Returns ``(cache, logits (n, q, vocab) fp32)``;
     ``cache`` is updated in place. logits[i, j] is the next-token
     distribution after tokens[i, j] at position ``start_lens[i] + j``.
+    ``use_pallas`` / ``adapters`` / ``adapter_ids`` / ``gather_layer``: see
+    :func:`paged_layer_stack`.
     """
     _check_serve_cfg(cfg, kv_cfg)
     q = tokens.shape[1]
@@ -475,44 +527,66 @@ def gpt_paged_forward(params: Params, tokens, start_lens, n_valid, active,
     # JAX's take clamps; torch indexing raises, so clamp explicitly
     positions_c = torch.clamp(positions, max=cfg.max_seq - 1)
     x = _embed(params["embed"], tokens, positions_c)           # (n, q, h)
-    x, cache = paged_layer_stack(x, params["layers"], start_lens, n_valid,
-                                 active, cache, block_tables, cfg, kv_cfg)
-    return cache, serve_logits(params, x, cfg)
+    x, cache = paged_layer_stack(
+        x, params["layers"], start_lens, n_valid, active, cache,
+        block_tables, cfg, kv_cfg, use_pallas=use_pallas, adapters=adapters,
+        adapter_ids=adapter_ids, gather_layer=gather_layer)
+    return cache, serve_logits(params, x, cfg, use_pallas)
 
 
 def gpt_decode_step(params: Params, last_tokens, seq_lens, active, cache,
-                    block_tables, cfg, kv_cfg: KVCacheConfig):
+                    block_tables, cfg, kv_cfg: KVCacheConfig, *,
+                    use_pallas: Optional[bool] = None, adapters=None,
+                    adapter_ids=None, gather_layer=None):
     """Advance every active slot by one token (q=1). ``last_tokens`` (n,)
     the token each slot feeds; ``seq_lens`` (n,) tokens already cached.
-    Returns ``(cache, logits (n, vocab) fp32)``."""
+    Returns ``(cache, logits (n, vocab) fp32)``. The keywords: see
+    :func:`paged_layer_stack`."""
     n = last_tokens.shape[0]
     ones = torch.ones((n,), dtype=torch.int32, device=last_tokens.device)
     cache, logits = gpt_paged_forward(
         params, last_tokens[:, None], seq_lens, ones, active, cache,
-        block_tables, cfg, kv_cfg)
+        block_tables, cfg, kv_cfg, use_pallas=use_pallas, adapters=adapters,
+        adapter_ids=adapter_ids, gather_layer=gather_layer)
     return cache, logits[:, 0]
 
 
 def gpt_verify_step(params: Params, fed_tokens, seq_lens, n_fed, active,
-                    cache, block_tables, cfg, kv_cfg: KVCacheConfig):
+                    cache, block_tables, cfg, kv_cfg: KVCacheConfig, *,
+                    use_pallas: Optional[bool] = None, adapters=None,
+                    adapter_ids=None, gather_layer=None):
     """Speculative verify: ``fed_tokens`` (n, k+1) — each slot's last
     token then up to k drafts — in one paged call. Returns ``(cache,
     logits (n, k+1, vocab))``. Rejected drafts' K/V need no rollback: the
     accepted length caps the context, and later writes overwrite them."""
     return gpt_paged_forward(params, fed_tokens, seq_lens, n_fed, active,
-                             cache, block_tables, cfg, kv_cfg)
+                             cache, block_tables, cfg, kv_cfg,
+                             use_pallas=use_pallas, adapters=adapters,
+                             adapter_ids=adapter_ids,
+                             gather_layer=gather_layer)
 
 
 def gpt_prefill_chunk(params: Params, tokens, start: int, n_valid: int,
-                      cache, block_row, cfg, kv_cfg: KVCacheConfig):
+                      cache, block_row, cfg, kv_cfg: KVCacheConfig, *,
+                      use_pallas: Optional[bool] = None, adapters=None,
+                      adapter_id=None, gather_layer=None):
     """One fixed-size chunk of ONE prompt: ``tokens`` (chunk,) holding
     prompt positions ``start .. start + n_valid - 1``, padded. Returns
-    ``(cache, logits (vocab,))`` after the chunk's last valid token."""
+    ``(cache, logits (vocab,))`` after the chunk's last valid token.
+    ``adapter_id``: the prefilling slot's pool slot with ``adapters`` (an
+    int or a 0-d / (1,) tensor; the prompt's K/V are written with the
+    adapted projections decode will use)."""
     dev = tokens.device
+    aids = None
+    if adapters is not None:
+        aids = (adapter_id.reshape(1) if isinstance(adapter_id, torch.Tensor)
+                else torch.full((1,), int(adapter_id or 0),
+                                dtype=torch.int32, device=dev))
     start_lens = torch.full((1,), int(start), dtype=torch.int32, device=dev)
     nv = torch.full((1,), int(n_valid), dtype=torch.int32, device=dev)
     active = torch.ones((1,), dtype=torch.bool, device=dev)
     cache, logits = gpt_paged_forward(
         params, tokens[None, :], start_lens, nv, active, cache,
-        block_row[None, :], cfg, kv_cfg)
+        block_row[None, :], cfg, kv_cfg, use_pallas=use_pallas,
+        adapters=adapters, adapter_ids=aids, gather_layer=gather_layer)
     return cache, logits[0, max(int(n_valid) - 1, 0)]

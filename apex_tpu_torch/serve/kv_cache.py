@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -253,12 +253,16 @@ def hash_block_tokens(prev_hash: int, tokens: Sequence[int]) -> int:
     return hash((prev_hash,) + tuple(int(t) for t in tokens))
 
 
-def prefix_block_hashes(tokens: Sequence[int],
-                        block_size: int) -> List[int]:
+def prefix_block_hashes(tokens: Sequence[int], block_size: int,
+                        salt: Any = None) -> List[int]:
     """Chain hashes of every FULL block of ``tokens`` (the partial tail
-    block has no content address — it is never shared)."""
+    block has no content address — it is never shared). ``salt`` (any
+    hashable, default none) starts a separate chain: the engine salts an
+    adapter-bound request's blocks with its adapter, whose K/V differ
+    from the base model's for the same tokens."""
     out: List[int] = []
-    h = hash(("apex_tpu.serve.prefix", block_size))
+    h = hash(("apex_tpu.serve.prefix", block_size) if salt is None
+             else ("apex_tpu.serve.prefix", block_size, salt))
     for j in range(len(tokens) // block_size):
         h = hash_block_tokens(h, tokens[j * block_size:(j + 1) * block_size])
         out.append(h)

@@ -404,9 +404,13 @@ def fused_layer_fwd(x, layer_params, cache_layer, cfg,
 
 
 def fused_layer(x, layer_params, cache_layer, cfg, kv_cfg: KVCacheConfig,
-                block_tables, start_lens, n_valid, active):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
-    fn = fused_layer_fwd if ku.use_kernel(x) else fused_layer_reference
+                block_tables, start_lens, n_valid, active,
+                use_pallas: Optional[bool] = None):
+    """The plain version for CPU tensors, the kernel for CUDA tensors;
+    ``use_pallas=False`` takes the plain version on every device, ``True``
+    the kernel (raising for CPU tensors)."""
+    fn = (fused_layer_fwd if ku.use_kernel_as_asked(x, use_pallas)
+          else fused_layer_reference)
     return fn(x, layer_params, cache_layer, cfg, kv_cfg, block_tables,
               start_lens, n_valid, active)
 
@@ -439,11 +443,12 @@ def fused_layer_verify(x, layer_params, cache_layer, cfg,
 
 
 def _fused_program(params: Params, tokens, seq_lens, n_fed, active, cache,
-                   block_tables, cfg, kv_cfg: KVCacheConfig, what: str):
+                   block_tables, cfg, kv_cfg: KVCacheConfig, what: str,
+                   use_pallas: Optional[bool]):
     _check_serve_cfg(cfg, kv_cfg)
     n, q = tokens.shape
-    refusal = megakernel_refusal(cfg, kv_cfg,
-                                 allow_interpret=not ku.use_kernel(tokens),
+    kernel = ku.use_kernel_as_asked(tokens, use_pallas)
+    refusal = megakernel_refusal(cfg, kv_cfg, allow_interpret=not kernel,
                                  q=q, slots=n)
     if refusal is not None:
         raise ValueError(f"megakernel unsupported: {refusal} — use "
@@ -457,30 +462,34 @@ def _fused_program(params: Params, tokens, seq_lens, n_fed, active, cache,
         lp = {name: t[li] for name, t in layers.items()}
         cl = {name: pool[li] for name, pool in cache.items()}
         x, _, _ = fused_layer(x, lp, cl, cfg, kv_cfg, block_tables,
-                              seq_lens, n_fed, active)
-    return cache, serve_logits(params, x, cfg)
+                              seq_lens, n_fed, active, use_pallas)
+    return cache, serve_logits(params, x, cfg, use_pallas)
 
 
 def gpt_decode_step_fused(params: Params, last_tokens, seq_lens, active,
-                          cache, block_tables, cfg, kv_cfg: KVCacheConfig
+                          cache, block_tables, cfg, kv_cfg: KVCacheConfig, *,
+                          use_pallas: Optional[bool] = None
                           ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Advance every active slot by one token with the fused layer: the
     contract of ``decode.gpt_decode_step`` (same pool writes, junk but
     finite logits for inactive slots). Returns ``(cache, logits (n,
-    vocab) fp32)``; ``cache`` is updated in place."""
+    vocab) fp32)``; ``cache`` is updated in place. ``use_pallas`` as
+    :func:`fused_layer`."""
     cache, logits = _fused_program(params, last_tokens[:, None], seq_lens,
                                    None, active, cache, block_tables, cfg,
-                                   kv_cfg, "gpt_decode_step")
+                                   kv_cfg, "gpt_decode_step", use_pallas)
     return cache, logits[:, 0]
 
 
 def gpt_verify_step_fused(params: Params, fed_tokens, seq_lens, n_fed,
                           active, cache, block_tables, cfg,
-                          kv_cfg: KVCacheConfig
+                          kv_cfg: KVCacheConfig, *,
+                          use_pallas: Optional[bool] = None
                           ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Speculative verify with the fused layer: the contract of
     ``decode.gpt_verify_step`` — ``fed_tokens`` (n, k+1), logits (n, k+1,
     vocab) scoring the token after each fed one; rejected drafts' K/V need
     no rollback."""
     return _fused_program(params, fed_tokens, seq_lens, n_fed, active, cache,
-                          block_tables, cfg, kv_cfg, "gpt_verify_step")
+                          block_tables, cfg, kv_cfg, "gpt_verify_step",
+                          use_pallas)

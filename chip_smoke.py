@@ -140,6 +140,29 @@
      versions' and to the per-op path's) and ``megakernel="off"`` serves
      per-op through paged attention's route (``paged_attention_fwd`` /
      ``paged_mma_fwd`` at 80, ``paged_wide_fwd`` at 320).
+   * the engine's telemetry (``engine_monitor``, bf16, the same 16
+     requests, the fused main path; launch counts reset just before the
+     monitored run, read just after): a ``JsonlSink``, an
+     ``EventLog(keep=True)``, an ``SloSpec``, a ``Meter`` and
+     ``peak_flops_per_s`` at the card's bf16 peak; streams bitwise equal
+     to the run without telemetry, one sink record a step, every
+     request's events in lifecycle order, the Chrome trace built,
+     ``stats()``'s ``hists`` / ``slo_report`` / ``meter`` (meter tokens =
+     generated tokens), and two requests evicted mid-decode and restored
+     giving the uninterrupted streams; decode-step p50 and host ms a step
+     with telemetry off and on, two runs each in turns;
+   * per-tenant LoRA (``engine_lora``, bf16, ``lora_rank=16``,
+     ``max_adapters=4``, two adapters from numpy seeds, 8 of the 16
+     requests bound; the main run's counts reset just before it and read
+     just after): the per-op kernels (``decode_kernel == "cuda"``) with
+     the megakernel fallback reason logged; base-traffic streams bitwise
+     equal to a ``megakernel="off"`` engine without adapters; ``spec_k=4``
+     equal to ``spec_k=0`` for all 16; LayerNorm 25 and ``paged_mma_fwd``
+     12 launches a decode and a verify call, as the per-op base; in fp32
+     a tenant's prefill logits within 1e-4 (+ 1e-4 relative) of the
+     merged-weight model and its greedy streams equal to the merged
+     engine's up to the first near-tie (top-2 gap < ``NEAR_TIE``);
+     adapter-load ms, pool bytes, tokens/s, decode-step p50.
 4. Train phase: GPT-2-124M at full width and depth, full remat, the JAX
    defaults ``fused_loss=True`` and ``FusedAdam(lr=1e-4,
    fused_tail="auto")``:
@@ -2640,18 +2663,19 @@ class RepeatDrafter:
         return [tokens[-1]] * k
 
 
-def launches_per_call(torch, ku, params, cfg, dev, spec_k: int):
+def launches_per_call(torch, ku, eng, spec_k: int, want):
     """Kernel launches of one decode (spec_k 0) or verify (spec_k > 0)
-    call of the default engine, counted over one step taken once all eight
-    slots are decoding and no prompt is left to prefill."""
-    from apex_tpu_torch.serve import InferenceEngine, Request, ServeConfig
+    call of ``eng`` (``ServeConfig(num_slots=8, ...)``), counted over one
+    step taken once all eight slots are decoding (a third of them on
+    adapters t1 / t2 when the engine has adapters) and no prompt is left
+    to prefill; raises unless they are ``want``."""
+    from apex_tpu_torch.serve import Request
 
-    eng = InferenceEngine(params, cfg, ServeConfig(
-        num_slots=8, prefill_chunk=32, spec_k=spec_k), device=dev,
-        drafter=RepeatDrafter() if spec_k else None)
     for i in range(8):
         eng.submit(Request(f"p{i}", list(range(1 + i, 17 + i)),
-                           max_new_tokens=24))
+                           max_new_tokens=24,
+                           adapter=("t1", "t2", None)[i % 3]
+                           if eng.adapters is not None else None))
     while eng._pending or eng._prefill_queue:
         eng.step()
     torch.cuda.synchronize()
@@ -2662,11 +2686,22 @@ def launches_per_call(torch, ku, params, cfg, dev, spec_k: int):
     counts = ku.launch_counts()
     kind = ("verify" if eng._verify_steps > calls[1] else
             "decode" if eng._decode_steps > calls[0] else "none")
-    want = {"megakernel": cfg.num_layers, "layer_norm_fwd": 1}
     if kind != ("verify" if spec_k else "decode") or counts != want:
-        raise AssertionError(f"one {kind} call of the fused engine launched "
-                             f"{counts}, expected {want}")
+        raise AssertionError(f"one {kind} call ({eng.decode_kernel}) "
+                             f"launched {counts}, expected {want}")
     return {"call": kind, "launches": counts}
+
+
+def fused_launches_per_call(torch, ku, params, cfg, dev, spec_k: int):
+    """:func:`launches_per_call` of the default (fused) engine: the fused
+    layer a layer and the head's LayerNorm."""
+    from apex_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    eng = InferenceEngine(params, cfg, ServeConfig(
+        num_slots=8, prefill_chunk=32, spec_k=spec_k), device=dev,
+        drafter=RepeatDrafter() if spec_k else None)
+    return launches_per_call(torch, ku, eng, spec_k, {
+        "megakernel": cfg.num_layers, "layer_norm_fwd": 1})
 
 
 def profiled(torch, fn, match=()):
@@ -2945,8 +2980,9 @@ def engine_phase(torch, dev, ku):
     result["bf16_32_slots"] = engine_32_slots(torch, dev, ku, params16,
                                               cfg16)
     result["launches_per_call"] = {
-        "decode": launches_per_call(torch, ku, params16, cfg16, dev, 0),
-        "verify": launches_per_call(torch, ku, params16, cfg16, dev, 4)}
+        "decode": fused_launches_per_call(torch, ku, params16, cfg16, dev, 0),
+        "verify": fused_launches_per_call(torch, ku, params16, cfg16, dev,
+                                          4)}
     quant_launches = {}
     for kvq in ("int8", "int4"):
         ku.reset_launch_counts()
@@ -2977,6 +3013,402 @@ def engine_phase(torch, dev, ku):
     result["head_dim_80"] = engine_hd80_phase(torch, dev, ku, requests)
     result["head_dim_320"] = engine_hd320_phase(torch, dev, ku, requests)
     return result, launches, quant_launches
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's telemetry and per-tenant LoRA adapters
+
+LIFECYCLE = ("submitted", "admitted", "prefill_start", "prefill_end",
+             "first_token")
+LORA_RANK, LORA_ADAPTERS = 16, 4
+# the requests bound to an adapter (make_requests' 8 of 16; the even ones
+# share the 64-token prefix, 13 is that prefix alone): t1, t2 in turn
+LORA_BOUND = (0, 3, 4, 7, 8, 11, 12, 13)
+LORA_SCALE = 2.0
+LORA_ATOL, LORA_RTOL = 1e-4, 1e-4    # JAX's merged-weight tolerance
+NEAR_TIE = 1e-3                       # top-2 gap below which a flip is a tie
+
+
+def run_engine(torch, eng, requests):
+    """Serve ``requests`` on ``eng``; the streams, wall seconds, host ms a
+    step (wall / engine steps) and ``stats()``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = eng.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    return streams, {"wall_s": wall, "steps": st["steps"],
+                     "host_ms_per_step": wall * 1e3 / st["steps"],
+                     "decode_step_ms_p50": st["decode_step_ms_p50"],
+                     "decode_step_ms_p99": st["decode_step_ms_p99"],
+                     "tokens_per_s": st["tokens_per_s"],
+                     "decode_kernel": st["decode_kernel"]}, st
+
+
+def check_lifecycles(records, uids):
+    """Every request's events in lifecycle order, its stamps on the one
+    clock non-decreasing: submitted, admitted, prefill_start, prefill_end,
+    first_token, decode_chunk*, retired. (Across requests the log is in
+    emission order: a step stamps its decode chunks once, after the token
+    fence, as JAX's engine does, and a retirement in the same step is
+    stamped when it happens.)"""
+    by_uid, last_t = {}, {}
+    for r in records:
+        if r.get("kind") != "event" or "uid" not in r:
+            continue
+        uid = r["uid"]
+        if r["t_ms"] < last_t.get(uid, float("-inf")):
+            raise AssertionError(f"{uid}: event clock went back at {r}")
+        last_t[uid] = r["t_ms"]
+        by_uid.setdefault(uid, []).append(r["event"])
+    if set(by_uid) != set(uids):
+        raise AssertionError(f"events for {sorted(by_uid)}, expected "
+                             f"{sorted(uids)}")
+    for uid, evs in by_uid.items():
+        head, tail = tuple(evs[:len(LIFECYCLE)]), evs[len(LIFECYCLE):]
+        if (head != LIFECYCLE or not tail or tail[-1] != "retired"
+                or any(e != "decode_chunk" for e in tail[:-1])):
+            raise AssertionError(f"{uid}: events out of lifecycle order: "
+                                 f"{evs}")
+    return {uid: len(evs) for uid, evs in by_uid.items()}
+
+
+def evict_restore_run(torch, eng, requests, victims, after=4, away=3):
+    """Serve ``requests``, evicting each victim once it has decoded
+    ``after`` tokens and restoring it ``away`` steps later (or as soon as
+    a slot is free); returns the streams."""
+    for r in requests:
+        eng.submit(r)
+    evicted, done = {}, set()
+    while eng.active or evicted:
+        eng.step()
+        for uid in victims:
+            if uid in done or uid in evicted:
+                continue
+            slot = next((i for i, s in enumerate(eng._slots)
+                         if s is not None and s.request.uid == uid), None)
+            if (slot is not None and eng._active[slot]
+                    and len(eng._slots[slot].generated) >= after):
+                evicted[uid] = [eng.evict_slot(uid), away]
+        for uid in list(evicted):
+            evicted[uid][1] -= 1
+            if evicted[uid][1] < 0 and eng._free_slot() is not None:
+                eng.restore_slot(evicted.pop(uid)[0])
+                done.add(uid)
+    torch.cuda.synchronize()
+    if done != set(victims):
+        raise AssertionError(f"evicted and restored {sorted(done)}, "
+                             f"expected {sorted(victims)}")
+    return eng.finished
+
+
+def engine_monitor_phase(torch, dev, ku, card):
+    """GPT-2-124M bf16 on the fused main path with every telemetry piece
+    on: a ``JsonlSink`` in a temporary directory, ``EventLog(keep=True)``,
+    an ``SloSpec``, a ``Meter`` and ``peak_flops_per_s`` set to the card's
+    bf16 dense peak (launch counts reset just before the run, read just
+    after). Gates: streams bitwise equal to the run without telemetry;
+    one sink record per engine step; every request's events in lifecycle
+    order; the Chrome trace builds; ``stats()`` has ``hists``,
+    ``slo_report`` and ``meter``, and the meter's tokens are the generated
+    tokens; two requests evicted mid-decode and restored give the
+    uninterrupted streams. The decode-step p50 and host ms a step with
+    telemetry on and off (two runs each, in turns)."""
+    import os
+    import tempfile
+
+    from apex_tpu_torch.monitor import (EventLog, Meter, SloSpec,
+                                        JsonlSink, chrome_trace, read_jsonl)
+    from apex_tpu_torch.serve import InferenceEngine, ServeConfig
+    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+
+    cfg = GPTConfig(dtype=torch.bfloat16)
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    requests = make_requests(cfg.vocab_size)
+    scfg = ServeConfig(num_slots=8, prefill_chunk=32)
+    out = {"off": [], "on": []}
+    ref = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for turn in range(2):
+            eng = InferenceEngine(params, cfg, scfg, device=dev)
+            streams, rec, _ = run_engine(torch, eng, requests)
+            out["off"].append(rec)
+            if ref is None:
+                ref = streams
+            streams_equal(torch, "telemetry off, two runs", streams, ref,
+                          requests)
+            path = os.path.join(tmp, f"steps{turn}.jsonl")
+            sink = JsonlSink(path)
+            events = EventLog(keep=True)
+            eng = InferenceEngine(
+                params, cfg, scfg, device=dev, sink=sink, events=events,
+                slo=SloSpec(ttft_ms=2000.0, tpot_ms=50.0), meter=Meter(),
+                peak_flops_per_s=PEAK_OPS_PER_S["bfloat16"])
+            ku.reset_launch_counts()
+            streams, rec, st = run_engine(torch, eng, requests)
+            rec["launches"] = ku.launch_counts()
+            sink.close()
+            out["on"].append(rec)
+            streams_equal(torch, "telemetry on vs off", streams, ref,
+                          requests)
+            if rec["decode_kernel"] != "fused" or not all(
+                    rec["launches"].get(k) for k in (
+                        "megakernel", "layer_norm_fwd", "paged_mma_fwd")):
+                raise AssertionError(f"the monitored run did not take the "
+                                     f"fused main path: "
+                                     f"{rec['decode_kernel']} "
+                                     f"{rec['launches']}")
+            sink_recs = list(read_jsonl(path))
+            if len(sink_recs) != st["steps"]:
+                raise AssertionError(f"{len(sink_recs)} sink records for "
+                                     f"{st['steps']} engine steps")
+            decode_recs = [r for r in sink_recs if r["phase"] == "decode"]
+            if not decode_recs or not all(
+                    "decode_mfu" in r and r["active_slots"] >= 1
+                    for r in decode_recs):
+                raise AssertionError("decode records without decode_mfu or "
+                                     "active slots")
+            n_events = check_lifecycles(events.records,
+                                        [r.uid for r in requests])
+            trace = chrome_trace(events.records)
+            json.dumps(trace)
+            for key in ("hists", "slo_report", "meter"):
+                if key not in st:
+                    raise AssertionError(f"stats() lacks {key}")
+            meter_tokens = st["meter"]["totals"]["tokens"]
+            if meter_tokens != st["generated_tokens"]:
+                raise AssertionError(f"meter tokens {meter_tokens} != "
+                                     f"generated {st['generated_tokens']}")
+            rec.update(sink_records=len(sink_recs),
+                       events=len(events.records),
+                       events_per_request_max=max(n_events.values()),
+                       trace_events=len(trace["traceEvents"]),
+                       slo_good=st["slo_report"]["good"],
+                       mfu_median=sorted(r["decode_mfu"] for r in
+                                         decode_recs)[len(decode_recs) // 2])
+            del eng, sink, events
+    victims = [requests[2].uid, requests[5].uid]
+    eng = InferenceEngine(params, cfg, scfg, device=dev)
+    got = evict_restore_run(torch, eng, requests, victims)
+    streams_equal(torch, "evict + restore vs uninterrupted", got, ref,
+                  requests)
+    out["evicted"] = victims
+    out["card"] = card
+    for key in ("decode_step_ms_p50", "host_ms_per_step"):
+        out[f"{key}_off"] = sorted(r[key] for r in out["off"])
+        out[f"{key}_on"] = sorted(r[key] for r in out["on"])
+    out["launches"] = out["on"][-1]["launches"]
+    del params
+    return out
+
+
+def numpy_adapter(torch, cfg, seed: int, dev, dtype=None, std=0.02):
+    """One LoRA adapter's factors for ``cfg`` at rank :data:`LORA_RANK`
+    from numpy seed ``seed`` (normal(std)), carried to the card with
+    ``convert.adapter_weights_from_numpy``."""
+    import numpy as np
+
+    from apex_tpu_torch.convert import adapter_weights_from_numpy
+    from apex_tpu_torch.serve import ADAPTER_TARGETS
+
+    h, f, L = cfg.hidden, cfg.ffn_hidden, cfg.num_layers
+    dims = {"qkv": (h, 3 * h), "out": (h, h), "fc1": (h, f), "fc2": (f, h)}
+    rng = np.random.default_rng(seed)
+    w = {}
+    for t in ADAPTER_TARGETS:
+        d_in, d_out = dims[t]
+        w[f"{t}_a"] = (rng.standard_normal((L, d_in, LORA_RANK))
+                       * std).astype(np.float32)
+        w[f"{t}_b"] = (rng.standard_normal((L, LORA_RANK, d_out))
+                       * std).astype(np.float32)
+    return adapter_weights_from_numpy(w, dev, dtype or cfg.dtype)
+
+
+def lora_requests(requests):
+    """``requests`` with :data:`LORA_BOUND` bound to t1 and t2 in turn."""
+    import dataclasses
+
+    bound = {requests[i].uid: ("t1", "t2")[j % 2]
+             for j, i in enumerate(LORA_BOUND)}
+    return [dataclasses.replace(r, adapter=bound.get(r.uid))
+            for r in requests], bound
+
+
+def lora_engine(torch, params, cfg, dev, spec_k=0, weights=(), **kw):
+    from apex_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    eng = InferenceEngine(params, cfg, ServeConfig(
+        num_slots=8, prefill_chunk=32, spec_k=spec_k, lora_rank=LORA_RANK,
+        max_adapters=LORA_ADAPTERS), device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, w in weights:
+        eng.load_adapter(name, w, scale=LORA_SCALE)
+    torch.cuda.synchronize()
+    return eng, (time.perf_counter() - t0) * 1e3 / max(1, len(weights))
+
+
+def engine_lora_phase(torch, dev, ku, card):
+    """GPT-2-124M bf16 with per-tenant LoRA (``lora_rank=16``,
+    ``max_adapters=4``, two adapters from numpy seeds 11 and 12, scale 2)
+    and :data:`LORA_BOUND` (8 of the 16 requests) bound to them: the
+    engine resolves to the per-op kernels (``decode_kernel == "cuda"``)
+    with the fallback reason logged; the main run's launch counts reset
+    just before it and read just after; base-traffic streams bitwise
+    equal to a ``megakernel="off"`` engine without adapters; ``spec_k=4``
+    streams (every step with room a verify call) equal to ``spec_k=0``
+    for all 16; launches of one decode and one verify call equal to the
+    per-op base's; in fp32, a tenant's prefill logits through the adapter
+    pool within 1e-4 of the merged-weight model and its greedy streams
+    equal to the merged engine's up to the first near-tie."""
+    import dataclasses
+    import logging
+
+    from apex_tpu_torch.serve import (InferenceEngine, ServeConfig,
+                                      adapter_pool_bytes, gpt_prefill_chunk,
+                                      init_adapter_pool, init_kv_cache,
+                                      merge_adapter_params, write_adapter)
+    from apex_tpu_torch.serve.kv_cache import KVCacheConfig
+    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+
+    class Capture(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    out = {"card": card}
+    cfg = GPTConfig(dtype=torch.bfloat16)
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    requests = make_requests(cfg.vocab_size)
+    bound_reqs, bound = lora_requests(requests)
+    weights = [("t1", numpy_adapter(torch, cfg, 11, dev)),
+               ("t2", numpy_adapter(torch, cfg, 12, dev))]
+    cap = Capture()
+    log = logging.getLogger("apex_tpu_torch.serve")
+    log.addHandler(cap)
+    try:
+        eng, load_ms = lora_engine(torch, params, cfg, dev, weights=weights)
+    finally:
+        log.removeHandler(cap)
+    if eng.decode_kernel != "cuda" or eng.megakernel_enabled:
+        raise AssertionError(f"the adapter engine runs {eng.decode_kernel}, "
+                             f"expected the per-op kernels ('cuda')")
+    if not any("LoRA" in line for line in cap.lines):
+        raise AssertionError(f"the megakernel fallback reason was not "
+                             f"logged: {cap.lines}")
+    out["fallback_log"] = cap.lines
+    ku.reset_launch_counts()
+    s0, rec, st = run_engine(torch, eng, bound_reqs)
+    rec["launches"] = launches = ku.launch_counts()
+    if launches.get("megakernel") or not all(
+            launches.get(k) for k in ("layer_norm_fwd", "paged_mma_fwd")):
+        raise AssertionError(f"the LoRA main path's launches look wrong: "
+                             f"{launches}")
+    ad = st["adapters"]
+    if ad["hits"] != len(LORA_BOUND) or ad["resident"] != 2:
+        raise AssertionError(f"adapter counters: {ad}")
+    out["spec0"] = rec
+    out["adapter_load_ms"] = load_ms
+    out["pool_bytes"] = ad["pool_bytes"]
+    if ad["pool_bytes"] != adapter_pool_bytes(cfg, LORA_RANK, LORA_ADAPTERS):
+        raise AssertionError("pool bytes do not match the pool")
+    out["stats_adapters"] = ad
+    base, out["base_off"] = serve(torch, params, cfg, dev, 0, requests,
+                                  megakernel="off")
+    unbound = [r for r in requests if r.uid not in bound]
+    streams_equal(torch, "LoRA engine base traffic vs engine without "
+                  "adapters", {r.uid: s0[r.uid] for r in unbound},
+                  {r.uid: base[r.uid] for r in unbound}, unbound)
+    differs = sum(s0[u] != base[u] for u in bound)
+    out["bound_streams_differing_from_base"] = differs
+    if not differs:
+        raise AssertionError("no adapter-bound stream differs from the "
+                             "base model's: the adapters did nothing")
+    eng4, _ = lora_engine(torch, params, cfg, dev, spec_k=4,
+                          weights=weights, drafter=RepeatDrafter())
+    s4, out["spec4"], st4 = run_engine(torch, eng4, bound_reqs)
+    if not st4["speculative"]["verify_steps"]:
+        raise AssertionError("the spec_k=4 LoRA run made no verify call")
+    streams_equal(torch, "LoRA spec_k=4 vs spec_k=0", s4, s0, bound_reqs)
+    # the per-op table: LayerNorm 2 a layer + the head's, paged
+    # attention one a layer
+    per_op = {"layer_norm_fwd": 2 * cfg.num_layers + 1,
+              "paged_mma_fwd": cfg.num_layers}
+    out["launches_per_call"] = {
+        "lora_decode": launches_per_call(
+            torch, ku, lora_engine(torch, params, cfg, dev,
+                                   weights=weights)[0], 0, per_op),
+        "lora_verify": launches_per_call(
+            torch, ku, lora_engine(torch, params, cfg, dev, spec_k=4,
+                                   weights=weights,
+                                   drafter=RepeatDrafter())[0], 4, per_op),
+        "base_decode": launches_per_call(
+            torch, ku, InferenceEngine(params, cfg, ServeConfig(
+                num_slots=8, prefill_chunk=32, megakernel="off"),
+                device=dev), 0, per_op)}
+    del eng, eng4, params
+
+    # fp32: the adapter pool against the merged-weight model
+    cfg32 = GPTConfig(dtype=torch.float32)
+    params32 = init_gpt_params(cfg32, seed=0, device=dev)
+    w1 = numpy_adapter(torch, cfg32, 11, dev)
+    merged = merge_adapter_params(params32, w1, scale=LORA_SCALE)
+    pool = init_adapter_pool(cfg32, LORA_RANK, LORA_ADAPTERS, device=dev)
+    write_adapter(pool, 1, w1, scale=LORA_SCALE)
+    bs, chunk = 16, 32
+    mb = -(-cfg32.max_seq // bs)
+    kv = KVCacheConfig(num_layers=cfg32.num_layers,
+                       num_heads=cfg32.num_heads, head_dim=cfg32.head_dim,
+                       num_blocks=mb, block_size=bs, dtype=cfg32.dtype)
+
+    def logits_of(p, tokens, **kw):
+        cache = init_kv_cache(kv, dev)
+        row = torch.arange(mb, dtype=torch.int32, device=dev)
+        logits = None
+        for c in range(0, len(tokens), chunk):
+            part = tokens[c:c + chunk]
+            t = torch.zeros(chunk, dtype=torch.int32, device=dev)
+            t[:len(part)] = torch.tensor(part, dtype=torch.int32,
+                                         device=dev)
+            cache, logits = gpt_prefill_chunk(p, t, c, len(part), cache,
+                                              row, cfg32, kv, **kw)
+        return logits
+
+    probe = requests[0].tokens[:100]
+    got = logits_of(params32, probe, adapters=pool, adapter_id=1)
+    want = logits_of(merged, probe)
+    torch.testing.assert_close(got, want, atol=LORA_ATOL, rtol=LORA_RTOL)
+    out["fp32_logits_max_abs_err"] = float((got - want).abs().max())
+    out["fp32_logits_differ_from_base"] = float(
+        (want - logits_of(params32, probe)).abs().max())
+    t1_reqs = [r for r in bound_reqs if r.adapter == "t1"]
+    eng32, _ = lora_engine(torch, params32, cfg32, dev,
+                           weights=[("t1", w1)])
+    got_s = eng32.run(t1_reqs)
+    want_s, _ = serve(torch, merged, cfg32, dev, 0,
+                      [dataclasses.replace(r, adapter=None)
+                       for r in t1_reqs], megakernel="off")
+    ties = {}
+    for r in t1_reqs:
+        a, b = got_s[r.uid], want_s[r.uid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        gap = top2_gap(torch, logits_of(merged, list(r.tokens) + b[:j]))
+        if gap >= NEAR_TIE:
+            raise AssertionError(f"fp32 LoRA vs merged: {r.uid} differs at "
+                                 f"token {j} ({a[j]} vs {b[j]}) where the "
+                                 f"top-2 gap is {gap:.3e} (>= {NEAR_TIE})")
+        ties[r.uid] = {"token": j, "top2_gap": gap}
+    out["fp32_merged_streams"] = {"requests": len(t1_reqs),
+                                  "equal": len(t1_reqs) - len(ties),
+                                  "near_ties": ties}
+    del params32, merged, eng32, pool
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3495,6 +3927,9 @@ def main(argv=None) -> int:
     seconds["builds_and_kernel_phases"] = time.perf_counter() - t0
     engine, launches, quant_launches = phase("engine", (), engine_phase,
                                              torch, dev, ku)
+    mon = phase("engine_monitor", (), engine_monitor_phase, torch, dev, ku,
+                card)
+    lora = phase("engine_lora", (), engine_lora_phase, torch, dev, ku, card)
     train = phase("train", (), train_phase, torch, dev, ku)
     seconds["train_parts"] = train["phase_s"]
     train_launches = train["launches_per_step"]
@@ -3513,7 +3948,8 @@ def main(argv=None) -> int:
               "megakernel": mk_cases, "flash_varlen": vl, "fmha": fmha,
               "layer_norm_non_affine": ln_non_affine, "norm": nrm,
               "codec": codec,
-              "engine": engine, "train": train, "t5_train": t5}
+              "engine": engine, "engine_monitor": mon,
+              "engine_lora": lora, "train": train, "t5_train": t5}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -4174,6 +4610,50 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
+    # the telemetry and LoRA main paths' launches beside each kernel they
+    # run: the monitored fused run (megakernel, the head's LN, the prefill
+    # chunks' paged attention) and the LoRA per-op run, with its launches
+    # a decode and a verify call
+    by_name = {k["name"]: k for k in kernels}
+    calls = lora["launches_per_call"]
+    for kname in ("megakernel", "layer_norm_fwd", "paged_mma_fwd"):
+        by_name[kname]["monitored"] = {
+            "launches": mon["launches"].get(kname, 0),
+            "path": "InferenceEngine + JsonlSink, EventLog, SloSpec, Meter"}
+    for kname in ("layer_norm_fwd", "paged_mma_fwd"):
+        by_name[kname]["lora"] = {
+            "launches": lora["spec0"]["launches"].get(kname, 0),
+            "per_decode_call": calls["lora_decode"]["launches"][kname],
+            "per_verify_call": calls["lora_verify"]["launches"][kname],
+            "path": f"InferenceEngine lora_rank={LORA_RANK}, per-op"}
+    for what in ("off", "on"):
+        p50 = mon[f"decode_step_ms_p50_{what}"]
+        host = mon[f"host_ms_per_step_{what}"]
+        print(f"engine_monitor bf16 GPT-2-124M fused, telemetry {what}: "
+              f"decode_step_ms_p50 {p50} host_ms_per_step "
+              f"{[round(h, 4) for h in host]} on {card}")
+    on = mon["on"][-1]
+    print(f"engine_monitor telemetry on: {on['sink_records']} sink records "
+          f"for {on['steps']} steps, {on['events']} events, "
+          f"{on['trace_events']} trace events, slo good {on['slo_good']}, "
+          f"decode_mfu median {on['mfu_median']:.4f}, launches "
+          f"{on['launches']}; evicted + restored {mon['evicted']} bitwise")
+    sp = lora["spec0"]
+    print(f"engine_lora bf16 GPT-2-124M rank {LORA_RANK}, "
+          f"{len(LORA_BOUND)} of 16 requests on 2 adapters "
+          f"({sp['decode_kernel']}): adapter load "
+          f"{lora['adapter_load_ms']:.3f} ms, pool {lora['pool_bytes']} "
+          f"bytes, tokens/s {sp['tokens_per_s']}, decode_step_ms_p50 "
+          f"{sp['decode_step_ms_p50']} (spec_k=4 "
+          f"{lora['spec4']['decode_step_ms_p50']}), host_ms_per_step "
+          f"{sp['host_ms_per_step']:.4f}; per-op base without adapters "
+          f"tokens/s {lora['base_off']['tokens_per_s']} decode_step_ms_p50 "
+          f"{lora['base_off']['decode_step_ms_p50']} on {card}")
+    print(f"engine_lora launches a call: "
+          f"{ {k: v['launches'] for k, v in calls.items()} }; fp32 logits "
+          f"vs merged weights {lora['fp32_logits_max_abs_err']:.3e} "
+          f"(limit {LORA_ATOL} + {LORA_RTOL} rel); merged-engine streams "
+          f"{lora['fp32_merged_streams']}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels its path never launched: {idle}")

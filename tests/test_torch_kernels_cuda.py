@@ -2342,3 +2342,150 @@ def test_norm_fwd_rows_bitwise_whatever_the_call(dev, kind, xt, wt, hidden):
         torch.cuda.synchronize()
         assert all(torch.equal(a[start:start + 8], c)
                    for a, c in zip(full, part)), start
+
+
+# ---------------------------------------------------------------------------
+# eighteenth slice: per-tenant LoRA on the per-op path, and use_pallas
+
+
+def _lora_case(dev, dtype, n, q=5, hidden=256, heads=4, seed=0):
+    """A 2-layer GPT, an adapter pool with two adapters (slots 1, 2), pools
+    holding random context for every slot, and fed rows whose slots use
+    adapters 0, 1 and 2 in turn."""
+    from apex_tpu_torch.serve.adapters import (init_adapter_pool,
+                                               make_adapter_weights,
+                                               write_adapter)
+
+    cfg = GPTConfig(vocab_size=128, max_seq=256, hidden=hidden,
+                    num_layers=2, num_heads=heads, dtype=dtype)
+    params = init_gpt_params(cfg, seed=seed, device=dev)
+    pool = init_adapter_pool(cfg, 8, 2, device=dev)
+    for slot in (1, 2):
+        w = make_adapter_weights(cfg, 8, torch.Generator().manual_seed(
+            seed + slot), std=0.05, device=dev)
+        write_adapter(pool, slot, w, scale=2.0)
+    hd, bs, mb = hidden // heads, 16, 8
+    kv = KVCacheConfig(num_layers=2, num_heads=heads, head_dim=hd,
+                       num_blocks=n * mb, block_size=bs, dtype=dtype)
+    cache = init_kv_cache(kv, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    bt = torch.from_numpy(rng.permutation(n * mb).reshape(n, mb)
+                          .astype(np.int32)).to(dev)
+    start = torch.from_numpy(rng.integers(1, 100, n).astype(np.int32)).to(
+        dev)
+    pos = torch.arange(mb * bs, device=dev).repeat(n)
+    old = pos < start.repeat_interleave(mb * bs)
+    for li in range(2):
+        layer = {k: v[li] for k, v in cache.items()}
+        kk = torch.randn(heads, n * mb * bs, hd, device=dev, generator=g)
+        vv = torch.randn(heads, n * mb * bs, hd, device=dev, generator=g)
+        paged_write(layer, kv, kk.to(dtype), vv.to(dtype),
+                    bt.repeat_interleave(mb * bs, dim=0), pos, old)
+    toks = torch.from_numpy(rng.integers(0, 128, (n, q)).astype(
+        np.int32)).to(dev)
+    n_fed = torch.from_numpy(rng.integers(1, q + 1, n).astype(
+        np.int32)).to(dev)
+    ids = (torch.arange(n, device=dev) % 3).to(torch.int32)
+    return params, cfg, kv, cache, pool, bt, start, toks, n_fed, ids
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_rows_do_not_depend_on_the_batch(dev, dtype):
+    """Adapter traffic through the per-op verify (q=5) and decode calls:
+    a slot's logits are bitwise the same when it is the only active slot
+    of an 8-slot call, among 8 active slots and among 32; and its decode
+    row equals its first verify row (the property that keeps spec_k > 0
+    streams equal to spec_k = 0 ones under adapters)."""
+    from apex_tpu_torch.serve.decode import gpt_decode_step, gpt_verify_step
+
+    (params, cfg, kv, cache, pool, bt, start, toks, n_fed,
+     ids) = _lora_case(dev, dtype, 32)
+
+    def run(n, only=None, q=5):
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        if only is not None:
+            active = torch.arange(n, device=dev) == only
+        c = {k: v.clone() for k, v in cache.items()}
+        if q == 1:
+            return gpt_decode_step(params, toks[:n, 0].contiguous(),
+                                   start[:n], active, c, bt[:n], cfg, kv,
+                                   adapters=pool, adapter_ids=ids[:n])[1]
+        return gpt_verify_step(params, toks[:n], start[:n], n_fed[:n],
+                               active, c, bt[:n], cfg, kv, adapters=pool,
+                               adapter_ids=ids[:n])[1]
+
+    before = ku.launch_counts().get("layer_norm_fwd", 0)
+    v32, v8, d32, d8 = run(32), run(8), run(32, q=1), run(8, q=1)
+    assert ku.launch_counts()["layer_norm_fwd"] > before
+    for i in (1, 2, 5):
+        nf = int(n_fed[i])
+        alone_v, alone_d = run(8, only=i), run(8, only=i, q=1)
+        torch.cuda.synchronize()
+        for got in (v8[i, :nf], alone_v[i, :nf]):
+            assert torch.equal(got, v32[i, :nf]), i
+        for got in (d8[i], alone_d[i], v32[i, 0]):
+            assert torch.equal(got, d32[i]), i
+
+
+def _small_engine(dev, dtype=torch.bfloat16, **kw):
+    from apex_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    cfg = GPTConfig(vocab_size=128, max_seq=256, hidden=256, num_layers=2,
+                    num_heads=4, dtype=dtype)
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    scfg = {k: v for k, v in kw.items() if k in (
+        "spec_k", "lora_rank", "max_adapters", "megakernel")}
+    eng_kw = {k: v for k, v in kw.items() if k not in scfg}
+    return cfg, InferenceEngine(params, cfg, ServeConfig(
+        num_slots=8, block_size=16, prefill_chunk=32, **scfg), device=dev,
+        **eng_kw)
+
+
+def _requests(n=8, adapters=()):
+    from apex_tpu_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    return [Request(f"r{i}", rng.integers(0, 128, 20 + 7 * i).tolist(),
+                    max_new_tokens=12,
+                    adapter=adapters[i % len(adapters)] if adapters
+                    else None) for i in range(n)]
+
+
+def test_engine_use_pallas_false_launches_no_kernel(dev):
+    """use_pallas=False on a CUDA engine runs the plain versions: no
+    kernel launch in a whole run (decode_kernel 'plain', even with
+    megakernel='auto'); the default launches the kernels."""
+    _, eng = _small_engine(dev, use_pallas=False)
+    assert eng.decode_kernel == "plain" and not eng.megakernel_enabled
+    before = ku.launch_counts()
+    out = eng.run(_requests())
+    torch.cuda.synchronize()
+    assert ku.launch_counts() == before and len(out) == 8
+    _, eng = _small_engine(dev)
+    eng.run(_requests())
+    assert ku.launch_counts() != before
+
+
+def test_engine_lora_on_the_card(dev):
+    """A CUDA adapter engine: megakernel='auto' falls back to the per-op
+    kernels ('cuda') with JAX's reason, 'on' raises; base traffic is
+    bitwise the engine without adapters; spec_k=4 streams equal spec_k=0
+    streams with adapter traffic."""
+    from apex_tpu_torch.serve.adapters import make_adapter_weights
+
+    with pytest.raises(ValueError, match="LoRA adapters"):
+        _small_engine(dev, lora_rank=8, max_adapters=2, megakernel="on")
+    cfg, eng = _small_engine(dev, lora_rank=8, max_adapters=2)
+    assert eng.decode_kernel == "cuda"
+    base = _small_engine(dev, megakernel="off")[1].run(_requests())
+    assert eng.run(_requests()) == base
+    outs = []
+    for k in (0, 4):
+        _, e = _small_engine(dev, lora_rank=8, max_adapters=2, spec_k=k)
+        for name, seed in (("t1", 1), ("t2", 2)):
+            e.load_adapter(name, make_adapter_weights(
+                cfg, 8, torch.Generator().manual_seed(seed), std=0.05,
+                device=dev))
+        outs.append(e.run(_requests(adapters=("t1", "t2", None))))
+    assert outs[0] == outs[1]

@@ -194,13 +194,13 @@ def test_serve_programs_pass_their_rows_per_slot_as_the_group(monkeypatch):
     real = dec.paged_attention
 
     def spy(q, cache_layer, cfg, block_tables, ctx_lens, scale=None, *,
-            rows_per_table=1):
+            rows_per_table=1, use_pallas=None):
         g = rows_per_table
         slots = block_tables[::g]
         assert torch.equal(block_tables, slots.repeat_interleave(g, dim=0))
         seen.append(g)
         return real(q, cache_layer, cfg, block_tables, ctx_lens, scale,
-                    rows_per_table=g)
+                    rows_per_table=g, use_pallas=use_pallas)
 
     monkeypatch.setattr(dec, "paged_attention", spy)
     cfg = GPTConfig(vocab_size=64, max_seq=64, hidden=32, num_layers=2,

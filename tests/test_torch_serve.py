@@ -377,13 +377,24 @@ def test_ngram_drafter_matches_jax():
 @pytest.mark.parametrize("field,value", [
     ("lora_rank", 4), ("plan", object())])
 def test_serve_config_refuses_unported_fields(field, value):
-    """Fields outside this slice raise NotImplementedError naming their
-    ROADMAP item; none is silently ignored."""
+    """A plan (outside the port so far) raises NotImplementedError naming
+    its ROADMAP item; LoRA is ported and validates as JAX's does:
+    lora_rank > 0 without max_adapters, or max_adapters without a rank,
+    raises JAX's ValueError, both together pass. None is silently
+    ignored."""
     kw = {field: value}
     if field == "lora_rank":
-        kw["max_adapters"] = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(**kw).validate()
+        for bad, msg in (({"lora_rank": value}, "needs max_adapters"),
+                         ({"max_adapters": 1}, "needs lora_rank"),
+                         ({"lora_rank": -1}, "lora_rank must be")):
+            with pytest.raises(ValueError, match=msg):
+                ServeConfig(**bad).validate()
+            with pytest.raises(ValueError, match=msg):
+                JServeConfig(**bad).validate()
+        ServeConfig(lora_rank=value, max_adapters=1).validate()
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServeConfig(**kw).validate()
     ServeConfig(megakernel="auto").validate()
     ServeConfig(megakernel="off").validate()
 
