@@ -14,8 +14,13 @@ codec), the GPT-2-124M and T5-small train steps (``transformer.testing``,
 ``ops``, ``optimizers``), packed variable-length attention
 (``contrib.fmha`` over ``ops.attention_varlen``), the engine's latency
 histograms (``monitor.hist``), the LayerNorm / RMSNorm modules
-(``normalization``, ``contrib.layer_norm``) and the blockwise codec's
-kernels (``comm.quantize``): every Pallas kernel of ``apex_tpu`` has its
+(``normalization``, ``contrib.layer_norm``), the blockwise codec's
+kernels (``comm.quantize``), GPT's and T5's dropout under JAX's threefry
+keys with the remat policies (``transformer.tensor_parallel.random``,
+``ops.dropout``: a CUDA kernel with no Pallas counterpart), and the
+Megatron functional ops (``ops.softmax``,
+``transformer.functional``, ``ops.xentropy``, ``contrib.xentropy``,
+``mlp``, ``fused_dense``): every Pallas kernel of ``apex_tpu`` has its
 CUDA counterpart.
 """
 

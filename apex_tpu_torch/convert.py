@@ -123,3 +123,25 @@ def adapter_weights_from_numpy(weights: Any, device: DeviceLike = None,
         raise ValueError(f"adapter weights have keys {sorted(weights)}, "
                          f"want {sorted(want)}")
     return params_from_numpy(dict(weights), device, dtype)
+
+
+def module_from_numpy(params: Any, module: torch.nn.Module) -> None:
+    """A flax module's params (JAX's ``MLP``, ``FusedDense``,
+    ``FusedDenseGeluDense``: a flat ``{name: array}`` as numpy, optionally
+    under a ``"params"`` key) copied into the port module whose parameters
+    carry the same names and shapes (``kernel_0``, ``bias_0``, ...;
+    ``kernel``, ``bias``; ``kernel1`` ... ``bias2``), in each parameter's
+    own type and device. Raises on a missing or extra name or a shape that
+    differs."""
+    if "params" in params:
+        params = params["params"]
+    own = dict(module.named_parameters())
+    if set(params) != set(own):
+        raise ValueError(f"params {sorted(params)} do not match the module's "
+                         f"{sorted(own)}")
+    with torch.no_grad():
+        for name, p in own.items():
+            if np.shape(params[name]) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {np.shape(params[name])} "
+                                 f"does not match {tuple(p.shape)}")
+            p.copy_(tensor_from_numpy(params[name], p.device, p.dtype))

@@ -24,6 +24,12 @@ from apex_tpu_torch.ops.attention_varlen import (  # noqa: F401
     flash_varlen_fwd,
     flash_varlen_fwd_reference,
 )
+from apex_tpu_torch.ops.dropout import (  # noqa: F401
+    HiddenDropout,
+    hidden_dropout,
+    hidden_dropout_fwd,
+    hidden_dropout_reference,
+)
 from apex_tpu_torch.ops.fused_update import (  # noqa: F401
     adam_tail_reference,
     fused_adam_tail,
@@ -57,4 +63,13 @@ from apex_tpu_torch.ops.lm_head_loss import (  # noqa: F401
     lm_head_loss_fwd,
     lm_head_loss_fwd_reference,
     lm_head_loss_reference,
+)
+from apex_tpu_torch.ops.softmax import (  # noqa: F401
+    MASK_FILL,
+    scaled_masked_softmax,
+    scaled_softmax,
+    scaled_upper_triang_masked_softmax,
+)
+from apex_tpu_torch.ops.xentropy import (  # noqa: F401
+    softmax_cross_entropy_loss,
 )

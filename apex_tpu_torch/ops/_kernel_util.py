@@ -42,7 +42,7 @@ BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("layer_norm", "paged_attention", "paged_mma",
                   "flash_attention", "flash_mma", "flash_varlen",
                   "flash_varlen_mma", "lm_head_loss", "lm_head_mma",
-                  "fused_update", "megakernel", "quantize")
+                  "fused_update", "megakernel", "quantize", "dropout")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

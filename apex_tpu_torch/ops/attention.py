@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from apex_tpu_torch._hash import M32, fmix32, mul32
 from apex_tpu_torch.ops import _kernel_util as ku
+from apex_tpu_torch.transformer.tensor_parallel.random import saved_output
 
 # Finite stand-in for -inf: keeps exp() exact zero without nan from
 # (-inf) - (-inf).
@@ -495,7 +496,10 @@ class FlashAttention(torch.autograd.Function):
     saves (q, k, v, o, lse), the backward runs the dQ and dK/dV kernels
     and, with a bias, the d(bias) kernel (or their plain versions) from
     them. The bias is used in fp32; its gradient comes back in the bias's
-    dtype, as ``_flash3_bias_bwd`` casts it."""
+    dtype, as ``_flash3_bias_bwd`` casts it. The forward's (o, lse) are
+    marked ``"attn"`` (JAX's ``attn_out`` / ``attn_lse`` names): a
+    checkpointed region that saves them (GPT's ``dots_attn``) hands them
+    back in its recompute instead of launching the forward again."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, bias, scale, causal, dropout_rate, seed):
@@ -505,7 +509,8 @@ class FlashAttention(torch.autograd.Function):
         bias32 = None if bias is None else bias.float().contiguous()
         fwd = (flash_attention_fwd if ctx.kernel
                else flash_attention_fwd_reference)
-        o, lse = fwd(q3, k3, v3, *ctx.args, bias=bias32)
+        o, lse = saved_output("attn", lambda: fwd(q3, k3, v3, *ctx.args,
+                                                  bias=bias32))
         ctx.save_for_backward(q3, k3, v3, o, lse, bias32)
         return o
 

@@ -3,6 +3,7 @@
 
 from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     GPTConfig,
+    dots_attn_policy,
     embed_tokens,
     gpt_forward,
     gpt_head,

@@ -19,13 +19,23 @@ one to one through :func:`apex_tpu_torch.convert.params_from_numpy`:
 
 Training (single device, the JAX package's tp=1 program): :func:`gpt_loss`
 is the JAX ``gpt_loss`` — embedding, a Python loop over the stacked layers
-(each under ``torch.utils.checkpoint`` when ``remat``), then either the
-fused head (``fused_loss``, the default: final LayerNorm and
+(each under ``torch.utils.checkpoint`` when ``remat``, saving what
+``remat_policy`` names), then either the fused head (``fused_loss``, the
+default: final LayerNorm and
 :func:`~apex_tpu_torch.ops.lm_head_loss.lm_head_loss` over the vocab rows,
 kernels B #12-14 on the card) or the unfused one (final LayerNorm, the
 vocab logits and the port's ``vocab_parallel_cross_entropy``).
 LayerNorm, the attention core and the fused loss go through the port's
 kernels; the projections are plain ``torch.matmul`` over the (b·s) rows.
+
+Dropout (training mode, ``dropout_key`` given: a threefry ``uint32[2]``
+key on the host, ``transformer.tensor_parallel.random``) follows JAX's
+sites and keys at tp = sp = 1: the embedding's hidden dropout under
+``fold_in(key, 0x0E0B)``; layer i under ``fold_in(key, i)``, split in
+three for the attention seed (the flash kernels' in-kernel dropout,
+``attention_dropout_seed``) and the two residual branches' hidden dropout
+(``ops.dropout.hidden_dropout``, bitwise JAX's ``_hidden_dropout``).
+Without a key the model runs in eval mode.
 """
 
 from __future__ import annotations
@@ -37,16 +47,26 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch._device import DeviceLike
 from apex_tpu_torch.convert import params_from_numpy
 from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.ops.dropout import hidden_dropout
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.ops.lm_head_loss import kernel_fits, lm_head_loss
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.transformer.tensor_parallel.random import (
+    attention_dropout_seed,
+    checkpoint_saving,
+    fold_in,
+    saved_product,
+    split,
+)
+
+# the embedding's dropout stream, apart from the per-layer keys
+_EMBED_DROPOUT_SALT = 0x0E0B
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,16 +75,18 @@ class GPTConfig:
     heads (head_dim 64), max_seq 1024, bf16, tied embeddings.
 
     Training fields with the JAX meaning: ``remat`` (recompute each layer
-    in backward), ``remat_policy`` (``"full"`` only; ``"dots"`` and
-    ``"dots_attn"`` raise ``NotImplementedError``), ``fused_loss`` (JAX's
-    default ``True``: the LM head fused into the loss, kernels B #12-14 on
-    the card; ``False`` materializes the logits), ``attention_dropout`` and
-    ``hidden_dropout`` (0.0 only: JAX keys their masks from threefry keys,
-    which the port has no counterpart for yet), ``megatron_sp``,
-    ``overlap_comm`` and ``num_experts`` (defaults only: single device,
-    dense FFN). Left out, as TPU-only tuning: ``scan_unroll``,
-    ``ln_pallas``, ``attn_block_q/k``, ``lm_block_n/v``, and the MoE
-    routing fields.
+    in backward), ``remat_policy`` (what a recomputed layer saves:
+    ``"full"`` nothing, ``"dots"`` the products with no batch dimension —
+    the qkv, out, fc1 and fc2 projections, marked by ``_dense`` — and
+    ``"dots_attn"`` those and flash's forward outputs, so backward replays
+    no attention forward),
+    ``fused_loss`` (JAX's default ``True``: the LM head fused into the
+    loss, kernels B #12-14 on the card; ``False`` materializes the
+    logits), ``attention_dropout`` and ``hidden_dropout`` (active when the
+    loss is given a ``dropout_key``), ``megatron_sp``, ``overlap_comm``
+    and ``num_experts`` (defaults only: single device, dense FFN). Left
+    out, as TPU-only tuning: ``scan_unroll``, ``ln_pallas``,
+    ``attn_block_q/k``, ``lm_block_n/v``, and the MoE routing fields.
     """
 
     vocab_size: int = 50304
@@ -103,15 +125,6 @@ class GPTConfig:
                 f"remat_policy must be 'full', 'dots' or 'dots_attn', "
                 f"got {self.remat_policy!r}")
         refused = {
-            "remat_policy": (self.remat_policy != "full",
-                             "only 'full' is ported (selective policies "
-                             "need saved-tensor naming)"),
-            "attention_dropout": (self.attention_dropout != 0.0,
-                                  "model-level dropout waits for a seed "
-                                  "decision (JAX keys it from threefry)"),
-            "hidden_dropout": (self.hidden_dropout != 0.0,
-                               "model-level dropout waits for a seed "
-                               "decision (JAX keys it from threefry)"),
             "megatron_sp": (self.megatron_sp,
                             "sequence parallelism is multi-device (A7)"),
             "overlap_comm": (self.overlap_comm,
@@ -183,8 +196,9 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0,
 def _dense(x, kernel, bias=None):
     """``x @ kernel (+ bias)`` over the (b·s) rows, in x's dtype, rounded
     after the product and after the bias add as the JAX column/row
-    parallel linears are."""
-    y = torch.matmul(x, kernel)
+    parallel linears are. The product is a "dots" output, saved by a
+    remat policy that saves those."""
+    y = saved_product(x, kernel)
     return y if bias is None else y + bias
 
 
@@ -195,17 +209,26 @@ def embed_tokens(embed, tokens):
     return h + embed["pos"][:tokens.shape[1]][None].to(h.dtype)
 
 
-def _attention(p, x, cfg: GPTConfig, causal: bool = True, mask=None):
+def _attention(p, x, cfg: GPTConfig, causal: bool = True, mask=None,
+               dropout_key=None):
     """Fused QKV, flash core, out-projection (JAX ``_attention`` at tp=1).
     The QKV columns are per-head interleaved, (head, {q,k,v}, head_dim),
-    as in the JAX tree."""
+    as in the JAX tree. With ``dropout_key`` the flash kernels drop the
+    attention probabilities at ``cfg.attention_dropout`` under
+    ``attention_dropout_seed(dropout_key)``."""
     b, s, h = x.shape
     qkv = _dense(x, p["qkv_kernel"], p["qkv_bias"])
     # (b, s, H, 3, D) -> (3, b, H, s, D): one copy, then q, k, v are
     # contiguous (b, H, s, D) views
     qkv = qkv.view(b, s, cfg.num_heads, 3, cfg.head_dim)
     q, k, v = qkv.permute(3, 0, 2, 1, 4).contiguous().unbind(0)
-    ctx = flash_attention(q, k, v, causal=causal, mask=mask)
+    rate = cfg.attention_dropout if dropout_key is not None else 0.0
+    if rate > 0.0:
+        ctx = flash_attention(q, k, v, causal=causal, mask=mask,
+                              dropout_rate=rate,
+                              dropout_seed=attention_dropout_seed(dropout_key))
+    else:
+        ctx = flash_attention(q, k, v, causal=causal, mask=mask)
     ctx = ctx.transpose(1, 2).reshape(b, s, h)
     return _dense(ctx, p["out_kernel"], p["out_bias"])
 
@@ -216,29 +239,65 @@ def _mlp(p, x, cfg: GPTConfig):
     return _dense(y, p["fc2_kernel"], p["fc2_bias"])
 
 
-def _layer(p, x, cfg: GPTConfig, causal: bool = True, mask=None):
-    """Pre-LN transformer layer (JAX ``_layer`` without dropout)."""
-    x = x + _attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg,
-                       causal, mask)
-    return x + _mlp(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), cfg)
+def _layer(p, x, cfg: GPTConfig, causal: bool = True, mask=None,
+           dropout_key=None):
+    """Pre-LN transformer layer (JAX ``_layer`` at tp = sp = 1): attention
+    (with in-kernel attention dropout) -> hidden dropout -> residual; MLP
+    -> hidden dropout -> residual. ``dropout_key`` splits in three:
+    attention, then each branch's hidden dropout."""
+    k_attn = k_h1 = k_h2 = None
+    if dropout_key is not None:
+        k_attn, k_h1, k_h2 = split(dropout_key, 3)
+    a = _attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg, causal,
+                   mask, dropout_key=k_attn)
+    if k_h1 is not None and cfg.hidden_dropout > 0.0:
+        a = hidden_dropout(a, cfg.hidden_dropout, k_h1)
+    x = x + a
+    m = _mlp(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), cfg)
+    if k_h2 is not None and cfg.hidden_dropout > 0.0:
+        m = hidden_dropout(m, cfg.hidden_dropout, k_h2)
+    return x + m
 
 
-def _layer_stack(layers, x, cfg: GPTConfig, causal: bool = True, mask=None):
+def dots_attn_policy():
+    """What the ``"dots_attn"`` policy saves: the products with no batch
+    dimension (``"dots"``) and flash's forward outputs (``"attn"``), o and
+    lse both, as JAX names ``attn_out`` and ``attn_lse``, or backward would
+    replay the forward kernel for lse."""
+    return ("dots", "attn")
+
+
+# what a recomputed layer saves under each remat_policy
+_REMAT_SAVES = {"full": (), "dots": ("dots",), "dots_attn": dots_attn_policy()}
+
+
+def _layer_stack(layers, x, cfg: GPTConfig, causal: bool = True, mask=None,
+                 dropout_key=None):
     """The JAX ``lax.scan`` over the stacked layer params as a Python loop;
     with ``cfg.remat`` (and autograd recording) each layer runs under
-    ``torch.utils.checkpoint`` and is recomputed in backward ("full"
-    policy). The stacked leaves are unbound once, so their gradients are
-    stacked once in backward."""
+    ``torch.utils.checkpoint`` and is recomputed in backward, saving what
+    ``cfg.remat_policy`` names. Layer i's dropout key is ``fold_in(key,
+    i)``, an argument of the recomputed function, so the recompute drops
+    the same elements. The stacked leaves are unbound once, so their
+    gradients are stacked once in backward."""
     names = sorted(layers)
     per_leaf = [layers[k].unbind(0) for k in names]
-    remat = cfg.remat and torch.is_grad_enabled()
-    for vals in zip(*per_leaf):
-        lp = dict(zip(names, vals))
-        if remat:
-            x = checkpoint(_layer, lp, x, cfg, causal, mask,
-                           use_reentrant=False)
-        else:
-            x = _layer(lp, x, cfg, causal, mask)
+    one = _layer
+    if cfg.remat and torch.is_grad_enabled():
+        one = checkpoint_saving(_layer, _REMAT_SAVES[cfg.remat_policy])
+    for i, vals in enumerate(zip(*per_leaf)):
+        key = None if dropout_key is None else fold_in(dropout_key, i)
+        x = one(dict(zip(names, vals)), x, cfg, causal, mask, key)
+    return x
+
+
+def _embed_with_dropout(embed, tokens, cfg: GPTConfig, dropout_key):
+    """The embedding, then (training) its hidden dropout under
+    ``fold_in(key, 0x0E0B)``, a stream apart from the layers'."""
+    x = embed_tokens(embed, tokens)
+    if dropout_key is not None and cfg.hidden_dropout > 0.0:
+        x = hidden_dropout(x, cfg.hidden_dropout,
+                           fold_in(dropout_key, _EMBED_DROPOUT_SALT))
     return x
 
 
@@ -256,11 +315,12 @@ def gpt_head(params, x, cfg: GPTConfig):
     return _dense(x, head["lm"])
 
 
-def gpt_forward(params, tokens, cfg: GPTConfig):
-    """tokens (b, s) -> logits (b, s, vocab)."""
+def gpt_forward(params, tokens, cfg: GPTConfig, dropout_key=None):
+    """tokens (b, s) -> logits (b, s, vocab). ``dropout_key`` (a threefry
+    ``uint32[2]``) turns on cfg's dropout rates: training mode."""
     cfg.validate()
-    x = embed_tokens(params["embed"], tokens)
-    x = _layer_stack(params["layers"], x, cfg)
+    x = _embed_with_dropout(params["embed"], tokens, cfg, dropout_key)
+    x = _layer_stack(params["layers"], x, cfg, dropout_key=dropout_key)
     return gpt_head(params, x, cfg)
 
 
@@ -285,15 +345,17 @@ def fused_head_loss(head_rows_w, ln_w, ln_b, x, targets):
     return lm_head_loss(x, head_rows_w, targets).mean()
 
 
-def gpt_loss(params, tokens, targets, cfg: GPTConfig):
+def gpt_loss(params, tokens, targets, cfg: GPTConfig, dropout_key=None):
     """Mean cross-entropy of the next-token logits (the JAX ``gpt_loss``):
     a 0-d fp32 tensor. With ``cfg.fused_loss`` (and the kernel's shape
     gate on the card) the head is fused into the loss and the logits are
     never materialized; otherwise logits + ``vocab_parallel_cross_entropy``.
+    ``dropout_key`` (a threefry ``uint32[2]``, JAX's key data) turns on
+    cfg's dropout rates; None is eval mode.
     """
     cfg.validate()
-    x = embed_tokens(params["embed"], tokens)
-    x = _layer_stack(params["layers"], x, cfg)
+    x = _embed_with_dropout(params["embed"], tokens, cfg, dropout_key)
+    x = _layer_stack(params["layers"], x, cfg, dropout_key=dropout_key)
     if not _use_fused_loss(cfg, tokens.numel(), tokens.device):
         logits = gpt_head(params, x, cfg)
         return vocab_parallel_cross_entropy(logits, targets).mean()

@@ -34,7 +34,15 @@ fused LM head (kernels B #12-14 on the card) or LN + tied logits + CE.
 With ``relative_position_bias`` every self-attention feeds a (heads, s,
 s) fp32 logit bias, built once per stack from that stack's table, into
 :func:`~apex_tpu_torch.ops.attention.flash_attention` (kernels B #5-8 on
-the card); cross-attention carries none. The pipeline and sharding
+the card); cross-attention carries none. With a ``dropout_key`` (a
+threefry ``uint32[2]`` on the host) the model trains with JAX's dropout
+sites and keys: the encoder under ``fold_in(key, 0)``, the decoder under
+``fold_in(key, 1)``, each stack's embedding dropout under ``fold_in(·,
+100)`` (101 for the decoder) then salt 0, layer i under ``fold_in(·,
+i)``; in a layer the attention seeds from ``fold_in(k, 0)`` (self) and
+``fold_in(k, 3)`` (cross), the hidden dropout after self-attention,
+cross-attention and the MLP under ``fold_in(k, 1)``, ``fold_in(k, 4)``
+and ``fold_in(k, 2)``. The pipeline and sharding
 functions of the JAX module (``t5_param_specs``, ``t5_pipeline_params``,
 ``t5_pipeline_specs_tree``, ``t5_enc_dec_spec``) are multi-device and not
 ported.
@@ -50,14 +58,19 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch._device import DeviceLike
 from apex_tpu_torch.convert import params_from_numpy
 from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.ops.dropout import hidden_dropout
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
+)
+from apex_tpu_torch.transformer.tensor_parallel.random import (
+    attention_dropout_seed,
+    checkpoint_saving,
+    fold_in,
 )
 from apex_tpu_torch.transformer.testing.standalone_gpt import (
     _dense,
@@ -79,11 +92,12 @@ class T5Config:
     ``rel_pos_max_distance``) logit biases, bidirectional in the encoder
     and causal in the decoder, one (buckets, heads) table per stack, no
     absolute positions. ``encoder_final_ln``: the encoder-exit LayerNorm,
-    applied to the memory where the decoder takes it. Refused with
-    ``NotImplementedError``: ``attention_dropout`` / ``hidden_dropout`` >
-    0 (JAX keys their masks from threefry keys; the port has no seed
-    scheme yet) and ``megatron_sp`` (multi-device). Left out, as TPU-only
-    tuning: ``attn_block_q/k``.
+    applied to the memory where the decoder takes it.
+    ``attention_dropout`` / ``hidden_dropout``: the rates, active when the
+    loss is given a ``dropout_key``. ``remat`` recomputes every layer (JAX
+    has no T5 save policy). Refused with ``NotImplementedError``:
+    ``megatron_sp`` (multi-device). Left out, as TPU-only tuning:
+    ``attn_block_q/k``.
     """
 
     vocab_size: int = 32128
@@ -130,12 +144,6 @@ class T5Config:
                     f"must exceed rel_pos_buckets/2 "
                     f"({self.rel_pos_buckets // 2})")
         refused = {
-            "attention_dropout": (self.attention_dropout != 0.0,
-                                  "model-level dropout waits for a seed "
-                                  "decision (JAX keys it from threefry)"),
-            "hidden_dropout": (self.hidden_dropout != 0.0,
-                               "model-level dropout waits for a seed "
-                               "decision (JAX keys it from threefry)"),
             "megatron_sp": (self.megatron_sp,
                             "sequence parallelism is multi-device (A7)"),
         }
@@ -332,21 +340,36 @@ def _merge_heads(ctx):
     return ctx.transpose(1, 2).reshape(b, s, heads * d)
 
 
-def _self_attention(p, x, cfg: T5Config, causal: bool, rel_bias=None):
+def _attn_core(q, k, v, cfg: T5Config, causal: bool, dropout_key,
+               bias=None):
+    """The flash core (JAX ``_attn_core`` at sp = 1): with ``dropout_key``
+    the kernels drop the probabilities at ``cfg.attention_dropout`` under
+    ``attention_dropout_seed(dropout_key)``."""
+    rate = cfg.attention_dropout if dropout_key is not None else 0.0
+    if rate > 0.0:
+        return flash_attention(q, k, v, causal=causal, bias=bias,
+                               dropout_rate=rate,
+                               dropout_seed=attention_dropout_seed(
+                                   dropout_key))
+    return flash_attention(q, k, v, causal=causal, bias=bias)
+
+
+def _self_attention(p, x, cfg: T5Config, causal: bool, dropout_key=None,
+                    rel_bias=None):
     """Fused per-head interleaved QKV, flash core (with the relative bias),
     out-projection (JAX ``_self_attention`` at tp = 1)."""
     q, k, v = _split_heads(_dense(x, p["qkv_kernel"], p["qkv_bias"]), cfg, 3)
-    ctx = flash_attention(q, k, v, causal=causal, bias=rel_bias)
+    ctx = _attn_core(q, k, v, cfg, causal, dropout_key, bias=rel_bias)
     return _dense(_merge_heads(ctx), p["out_kernel"], p["out_bias"])
 
 
-def _cross_attention(p, x, mem, cfg: T5Config):
+def _cross_attention(p, x, mem, cfg: T5Config, dropout_key=None):
     """Q from the decoder stream, packed KV from the memory, a rectangular
     (s_dec x s_enc) non-causal flash core with no bias (JAX
     ``_cross_attention`` at tp = 1)."""
     (q,) = _split_heads(_dense(x, p["q_kernel"], p["q_bias"]), cfg, 1)
     k, v = _split_heads(_dense(mem, p["kv_kernel"], p["kv_bias"]), cfg, 2)
-    ctx = flash_attention(q, k, v, causal=False)
+    ctx = _attn_core(q, k, v, cfg, False, dropout_key)
     return _dense(_merge_heads(ctx), p["xout_kernel"], p["xout_bias"])
 
 
@@ -356,38 +379,59 @@ def _mlp(p, x, cfg: T5Config):
     return _dense(y, p["fc2_kernel"], p["fc2_bias"])
 
 
-def enc_layer_fn(p, x, cfg: T5Config, rel_bias=None):
+def _maybe_hidden_dropout(x, cfg: T5Config, key, salt: int):
+    """JAX's ``_maybe_hidden_dropout``: hidden dropout under ``fold_in(key,
+    salt)`` when training (a key) with a rate."""
+    if key is None or cfg.hidden_dropout <= 0.0:
+        return x
+    return hidden_dropout(x, cfg.hidden_dropout, fold_in(key, salt))
+
+
+def _fold(key, data: int):
+    return None if key is None else fold_in(key, data)
+
+
+def enc_layer_fn(p, x, cfg: T5Config, rel_bias=None, dropout_key=None):
     """Pre-LN encoder layer: bidirectional self-attention, MLP."""
-    x = x + _self_attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg,
-                            causal=False, rel_bias=rel_bias)
-    return x + _mlp(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), cfg)
+    k = dropout_key
+    a = _self_attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg,
+                        causal=False, dropout_key=_fold(k, 0),
+                        rel_bias=rel_bias)
+    x = x + _maybe_hidden_dropout(a, cfg, k, 1)
+    m = _mlp(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), cfg)
+    return x + _maybe_hidden_dropout(m, cfg, k, 2)
 
 
-def dec_layer_fn(p, x, mem, cfg: T5Config, rel_bias=None):
+def dec_layer_fn(p, x, mem, cfg: T5Config, rel_bias=None, dropout_key=None):
     """Pre-LN decoder layer: causal self-attention, cross-attention to the
     memory (no position bias, the T5 scheme), MLP."""
-    x = x + _self_attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg,
-                            causal=True, rel_bias=rel_bias)
-    x = x + _cross_attention(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), mem,
-                             cfg)
-    return x + _mlp(p, layer_norm(x, p["ln3_w"], p["ln3_b"]), cfg)
+    k = dropout_key
+    a = _self_attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg,
+                        causal=True, dropout_key=_fold(k, 0),
+                        rel_bias=rel_bias)
+    x = x + _maybe_hidden_dropout(a, cfg, k, 1)
+    c = _cross_attention(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), mem, cfg,
+                         dropout_key=_fold(k, 3))
+    x = x + _maybe_hidden_dropout(c, cfg, k, 4)
+    m = _mlp(p, layer_norm(x, p["ln3_w"], p["ln3_b"]), cfg)
+    return x + _maybe_hidden_dropout(m, cfg, k, 2)
 
 
-def _scan_layers(layer_fn, layers, x, cfg: T5Config, *extra):
+def _scan_layers(layer_fn, layers, x, cfg: T5Config, *extra,
+                 dropout_key=None):
     """JAX's ``lax.scan`` over the stacked layer params as a Python loop
     (the port GPT's ``_layer_stack``): with ``cfg.remat`` (and autograd
     recording) each layer runs under ``torch.utils.checkpoint`` and is
     recomputed in backward. ``extra`` (the memory, the relative bias) goes
-    to every layer."""
+    to every layer, and layer i's dropout key is ``fold_in(dropout_key,
+    i)``."""
     names = sorted(layers)
     per_leaf = [layers[k].unbind(0) for k in names]
-    remat = cfg.remat and torch.is_grad_enabled()
-    for vals in zip(*per_leaf):
-        lp = dict(zip(names, vals))
-        if remat:
-            x = checkpoint(layer_fn, lp, x, *extra, use_reentrant=False)
-        else:
-            x = layer_fn(lp, x, *extra)
+    fn = layer_fn
+    if cfg.remat and torch.is_grad_enabled():
+        fn = checkpoint_saving(layer_fn)
+    for i, vals in enumerate(zip(*per_leaf)):
+        x = fn(dict(zip(names, vals)), x, *extra, _fold(dropout_key, i))
     return x
 
 
@@ -400,19 +444,21 @@ def _embed(embed, tokens, pos_table):
     return h + pos_table[:tokens.shape[1]][None].to(h.dtype)
 
 
-def t5_encode(params, enc_tokens, cfg: T5Config):
+def t5_encode(params, enc_tokens, cfg: T5Config, dropout_key=None):
     """Encoder tokens (b, s_enc) -> memory (b, s_enc, hidden)."""
     rel_on = cfg.relative_position_bias
     embed = params["embed"]
     x = _embed(embed, enc_tokens, None if rel_on else embed["pos_enc"])
+    x = _maybe_hidden_dropout(x, cfg, _fold(dropout_key, 100), 0)
     s = enc_tokens.shape[1]
     rel = (t5_relative_bias(embed["rel_enc"], s, s, bidirectional=True,
                             cfg=cfg) if rel_on else None)
-    return _scan_layers(lambda lp, h, r: enc_layer_fn(lp, h, cfg, r),
-                        params["enc_layers"], x, cfg, rel)
+    return _scan_layers(lambda lp, h, r, k: enc_layer_fn(lp, h, cfg, r, k),
+                        params["enc_layers"], x, cfg, rel,
+                        dropout_key=dropout_key)
 
 
-def t5_decode(params, dec_tokens, mem, cfg: T5Config):
+def t5_decode(params, dec_tokens, mem, cfg: T5Config, dropout_key=None):
     """Decoder tokens (b, s_dec) and memory -> (b, s_dec, hidden). With
     ``encoder_final_ln`` the memory is normalized here, once, before the
     decoder stack (JAX's encoder-exit LayerNorm)."""
@@ -421,23 +467,28 @@ def t5_decode(params, dec_tokens, mem, cfg: T5Config):
     if cfg.encoder_final_ln:
         mem = layer_norm(mem, embed["enc_ln_w"], embed["enc_ln_b"])
     x = _embed(embed, dec_tokens, None if rel_on else embed["pos_dec"])
+    x = _maybe_hidden_dropout(x, cfg, _fold(dropout_key, 101), 0)
     s = dec_tokens.shape[1]
     rel = (t5_relative_bias(embed["rel_dec"], s, s, bidirectional=False,
                             cfg=cfg) if rel_on else None)
-    return _scan_layers(lambda lp, h, m, r: dec_layer_fn(lp, h, m, cfg, r),
-                        params["dec_layers"], x, cfg, mem, rel)
+    return _scan_layers(
+        lambda lp, h, m, r, k: dec_layer_fn(lp, h, m, cfg, r, k),
+        params["dec_layers"], x, cfg, mem, rel, dropout_key=dropout_key)
 
 
-def t5_loss(params, enc_tokens, dec_tokens, targets, cfg: T5Config):
+def t5_loss(params, enc_tokens, dec_tokens, targets, cfg: T5Config,
+            dropout_key=None):
     """Mean cross-entropy of the decoder's logits against ``targets`` (JAX's
     sequential ``t5_loss``): a 0-d fp32 tensor. With ``cfg.fused_loss``
     (and, on the card, the kernel's shape gate, as JAX takes its Pallas
     kernel only where ``pallas_fits``) the head LN and the fused LM head +
     CE over ``embed.tok``; otherwise LN, tied logits and
-    ``vocab_parallel_cross_entropy``."""
+    ``vocab_parallel_cross_entropy``. ``dropout_key`` (a threefry
+    ``uint32[2]``) turns on cfg's dropout rates, the encoder under its
+    ``fold_in(key, 0)`` and the decoder under ``fold_in(key, 1)``."""
     cfg.validate()
-    mem = t5_encode(params, enc_tokens, cfg)
-    x = t5_decode(params, dec_tokens, mem, cfg)
+    mem = t5_encode(params, enc_tokens, cfg, _fold(dropout_key, 0))
+    x = t5_decode(params, dec_tokens, mem, cfg, _fold(dropout_key, 1))
     head, tok = params["head"], params["embed"]["tok"]
     if _use_fused_loss(cfg, dec_tokens.numel(), dec_tokens.device):
         return fused_head_loss(tok, head["ln_w"], head["ln_b"], x, targets)

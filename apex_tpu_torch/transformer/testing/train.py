@@ -7,6 +7,13 @@ step for the T5 encoder-decoder (JAX's sequential ``t5_loss``).
     step, params, opt, tok, tgt = build_train_step(cfg, 8, 1024)
     loss = step()            # 0-d fp32 tensor, no host sync inside
 
+    # GPT-2's published dropout, a fresh threefry key each step
+    cfg = GPTConfig(attention_dropout=0.1, hidden_dropout=0.1,
+                    remat_policy="dots_attn")
+    step = build_train_step(cfg, 8, 1024)[0]
+    base = prng_key(0)       # transformer.tensor_parallel.random
+    losses = [step(fold_in(base, i)) for i in range(10)]
+
     cfg = T5Config(relative_position_bias=True, encoder_final_ln=True)
     step, params, opt, (enc, dec, tgt) = build_t5_train_step(cfg, 8, 512,
                                                              128)
@@ -50,12 +57,14 @@ def build_train_step(cfg: GPTConfig, batch: int, seq: int,
                      ) -> Tuple[Callable[[], torch.Tensor], Dict[str, Any],
                                 FusedAdam, torch.Tensor, torch.Tensor]:
     """Returns ``(train_step, params, optimizer, tok, tgt)``; each call of
-    ``train_step()`` runs one fwd + bwd + ``FusedAdam(lr=1e-4,
-    fused_tail=fused_tail)`` update on the fixed batch and returns the
-    loss before the update (a 0-d tensor on the device). The defaults are
-    JAX's: the loss follows ``cfg.fused_loss`` and the Adam tail is one
-    kernel per leaf (``"auto"``); ``fused_tail="off"`` keeps the op
-    chain."""
+    ``train_step(dropout_key=None)`` runs one fwd + bwd +
+    ``FusedAdam(lr=1e-4, fused_tail=fused_tail)`` update on the fixed
+    batch and returns the loss before the update (a 0-d tensor on the
+    device). The defaults are JAX's: the loss follows ``cfg.fused_loss``
+    and the Adam tail is one kernel per leaf (``"auto"``);
+    ``fused_tail="off"`` keeps the op chain. ``dropout_key`` (a threefry
+    ``uint32[2]`` the caller derives per step, as JAX's callers do) turns
+    on cfg's dropout rates for that step."""
     cfg.validate()
     if seq > cfg.max_seq:
         raise ValueError(f"seq ({seq}) exceeds max_seq ({cfg.max_seq})")
@@ -64,8 +73,9 @@ def build_train_step(cfg: GPTConfig, batch: int, seq: int,
     tok = _tokens(np.random.default_rng(seed + 1), cfg.vocab_size, batch,
                   seq, dev)
     tgt = torch.roll(tok, -1, dims=1)
-    step, optimizer = _step_over(params, fused_tail,
-                                 lambda: gpt_loss(params, tok, tgt, cfg))
+    step, optimizer = _step_over(
+        params, fused_tail,
+        lambda key: gpt_loss(params, tok, tgt, cfg, dropout_key=key))
     return step, params, optimizer, tok, tgt
 
 
@@ -75,11 +85,12 @@ def build_t5_train_step(cfg: T5Config, batch: int, seq_enc: int,
                                    Dict[str, Any], FusedAdam,
                                    Tuple[torch.Tensor, ...]]:
     """Returns ``(train_step, params, optimizer, (enc, dec, tgt))``: each
-    call of ``train_step()`` runs one ``t5_loss`` fwd + bwd and the
-    ``FusedAdam(lr=1e-4, fused_tail="auto")`` update on the fixed
-    batch (encoder tokens (batch, seq_enc), decoder tokens (batch,
+    call of ``train_step(dropout_key=None)`` runs one ``t5_loss`` fwd +
+    bwd and the ``FusedAdam(lr=1e-4, fused_tail="auto")`` update on the
+    fixed batch (encoder tokens (batch, seq_enc), decoder tokens (batch,
     seq_dec), targets the decoder tokens rolled by one) and returns the
-    loss before the update."""
+    loss before the update; ``dropout_key`` as in
+    :func:`build_train_step`."""
     cfg.validate()
     for what, seq, most in (("seq_enc", seq_enc, cfg.max_seq_enc),
                             ("seq_dec", seq_dec, cfg.max_seq_dec)):
@@ -91,8 +102,9 @@ def build_t5_train_step(cfg: T5Config, batch: int, seq_enc: int,
     enc = _tokens(rng, cfg.vocab_size, batch, seq_enc, dev)
     dec = _tokens(rng, cfg.vocab_size, batch, seq_dec, dev)
     tgt = torch.roll(dec, -1, dims=1)
-    step, optimizer = _step_over(params, "auto",
-                                 lambda: t5_loss(params, enc, dec, tgt, cfg))
+    step, optimizer = _step_over(
+        params, "auto",
+        lambda key: t5_loss(params, enc, dec, tgt, cfg, dropout_key=key))
     return step, params, optimizer, (enc, dec, tgt)
 
 
@@ -102,16 +114,17 @@ def _tokens(rng, vocab: int, batch: int, seq: int, dev) -> torch.Tensor:
 
 
 def _step_over(params, fused_tail: str, loss_fn):
-    """The step closure over ``loss_fn`` and a ``FusedAdam(lr=1e-4)`` over
-    every leaf of ``params`` (made trainable here)."""
+    """The step closure over ``loss_fn(dropout_key)`` and a
+    ``FusedAdam(lr=1e-4)`` over every leaf of ``params`` (made trainable
+    here)."""
     for p in param_leaves(params):
         p.requires_grad_(True)
     optimizer = FusedAdam(param_leaves(params), lr=1e-4,
                           fused_tail=fused_tail)
 
-    def train_step() -> torch.Tensor:
+    def train_step(dropout_key=None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn()
+        loss = loss_fn(dropout_key)
         loss.backward()
         optimizer.step()
         return loss.detach()

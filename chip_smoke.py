@@ -110,7 +110,13 @@
      forward and autograd);
    * the Adam tail on each of GPT-2-124M's 16 and T5-small's 39 leaf
      shapes in both decay modes, the LAMB sums with a bitwise repeat, and
-     each step's launches timed (``torch.optim.AdamW(fused=True).step()``).
+     each step's launches timed (``torch.optim.AdamW(fused=True).step()``);
+   * hidden dropout (``csrc/dropout.cu``, JAX's threefry bits; no TPU
+     kernel) at GPT-2's (8, 1024, 768), T5's (8, 512, 512) and an odd
+     count, fp32 and bf16, rate 0.1: y and dx bitwise the plain version's
+     (the int64 draw), two launches a call, the keep share within 5σ of
+     0.9; timed against its bound (bytes or int32 operations, the larger)
+     beside ``F.dropout`` (Philox: not the same function).
 3. Engine phase: GPT-2-124M at full width (random weights from a numpy
    seed), ``ServeConfig(num_slots=8, prefill_chunk=32)`` — whose default
    ``megakernel="auto"`` runs decode and verify through the fused layer —
@@ -201,7 +207,23 @@
      repeats the losses bitwise; train tokens/s (encoder + decoder), step
      ms p50, peak memory, busy share and top kernels over 3 profiled
      steps.
-6. Packed path: ``contrib.fmha.FMHA`` (12 heads of 64) over the packed
+6. Dropout phases (``train_dropout``, ``t5_dropout``): GPT-2-124M bf16 at
+   8 x 1024 with GPT-2's dropout (attention and hidden 0.1) under each
+   remat policy (``full``, ``dots``, ``dots_attn``), step i's key
+   ``fold_in(prng_key(0), i)``: launches a step (reset just before the
+   first step, read just after; ``dots_attn``'s is the main path of the
+   ``hidden_dropout`` entry), the first step's loss and gradients bitwise
+   equal across the policies, a falling loss, ``dots_attn`` repeating
+   bitwise, no key equal to the rates-0 step; an fp32 check at 2 layers
+   (kernels vs plain); step ms, busy ms, tokens/s and peak memory per
+   policy. T5-small the same way at 8 x (512 + 128) (full remat, its only
+   policy), fp32 check at 2 + 2 layers.
+7. Functional phase: ``FusedScaleMaskSoftmax`` at (8, 12, 1024, 1024)
+   causal and padding, ``softmax_cross_entropy_loss`` at (8192, 50304)
+   with smoothing 0.1, ``MLP([1024, 4096, 4096, 1024])`` and
+   ``FusedDenseGeluDense(768 -> 3072 -> 768)``: forward and backward on
+   the card held to the CPU's in fp32; device ms in bf16 and fp32.
+8. Packed path: ``contrib.fmha.FMHA`` (12 heads of 64) over the packed
    row of 8192 tokens, forward plus backward through autograd, bf16 and
    fp32, causal and bidirectional: one launch of each varlen kernel per
    run (each on its route; counts reset just before it and read just
@@ -209,7 +231,7 @@
    and dqkv exactly 0, a second run bitwise equal, and in fp32 o and dqkv
    equal to ``flash_attention`` run document by document (1e-5); device
    and wall ms, tokens/s, and a profile of the bf16 causal run.
-7. Prints detail lines, the wall seconds of each phase (and of each
+9. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -355,6 +377,33 @@ def ptxas_lines(log: str):
         elif "registers" in line or "spill" in line or "error" in line:
             out.append((kernel, line.strip()))
     return out
+
+
+def sass_opcode_counts(ku, source, function):
+    """{SASS function: {opcode: count}} for the functions of the built
+    library of ``csrc/<source>.cu`` whose names match the regex
+    ``function`` (``cuobjdump --dump-sass``; an opcode without its
+    modifiers)."""
+    import os
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(ku.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass",
+                           str(ku._lib_path(source))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S*" + function + r"\S*)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if fn and m:
+            counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+    return counts
 
 
 def sass_hmma_counts(ku, source, function, name):
@@ -3447,40 +3496,9 @@ def train_fp32_check(torch, dev, ku):
     rng = np.random.default_rng(1)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1024))).to(dev)
     tgt = torch.roll(tok, -1, dims=1)
-
-    def loss_and_grads():
-        for _, p in leaves:
-            p.grad = None
-        loss = gpt_loss(params, tok, tgt, cfg)
-        loss.backward()
-        return loss.item(), [p.grad for _, p in leaves]
-
-    ku.reset_launch_counts()
-    lk, gk = loss_and_grads()
-    counts = ku.launch_counts()
-    if counts.get("lm_head_loss_bwd_dw", 0) != 1:
-        raise AssertionError(f"fp32 check did not take the fused loss: "
-                             f"{counts}")
-    with ku.force_plain():
-        before = ku.launch_counts()
-        lp, gp = loss_and_grads()
-        if ku.launch_counts() != before:
-            raise AssertionError("force_plain train step launched a kernel")
-    loss_err = abs(lk - lp) / abs(lp)
-    if not math.isfinite(lk) or loss_err > 1e-5:
-        raise AssertionError(f"fp32 train loss: kernels {lk} vs plain {lp}")
-    worst = 0.0
-    for (name, _), a, b in zip(leaves, gk, gp):
-        scale = float(b.abs().max())
-        err = float((a - b).abs().max())
-        if not bool(a.isfinite().all()) or err > 1e-5 * scale:
-            raise AssertionError(
-                f"fp32 grad {name}: kernels vs plain max abs err {err:.3e} "
-                f"(limit 1e-5 * {scale:.3e})")
-        worst = max(worst, err / scale if scale else 0.0)
-    return {"batch": 2, "seq": 1024, "loss_kernels": lk, "loss_plain": lp,
-            "loss_rel_err": loss_err, "grad_max_rel_err": worst,
-            "launches": counts}
+    return {"batch": 2, "seq": 1024, **fp32_gate(
+        torch, ku, "train", leaves, lambda: gpt_loss(params, tok, tgt, cfg),
+        {"lm_head_loss_bwd_dw": 1})}
 
 
 # the bf16 gates of the GPT and T5 phases: loss relative error, and each
@@ -3714,45 +3732,11 @@ def t5_fp32_check(torch, dev, ku):
     _, params, _, (enc, dec, tgt) = build_t5_train_step(
         cfg, 2, T5_ENC, T5_DEC, device=dev, seed=0)
     leaves = list(named_leaves(params))
-
-    def loss_and_grads():
-        for _, p in leaves:
-            p.grad = None
-        loss = t5_loss(params, enc, dec, tgt, cfg)
-        loss.backward()
-        return loss.item(), [p.grad for _, p in leaves]
-
-    ku.reset_launch_counts()
-    lk, gk = loss_and_grads()
-    counts = ku.launch_counts()
-    if counts.get("flash_attention_bwd_dbias", 0) != 12:
-        raise AssertionError(f"fp32 T5 check did not run d(bias) 12 times: "
-                             f"{counts}")
-    with ku.force_plain():
-        before = ku.launch_counts()
-        lp, gp = loss_and_grads()
-        if ku.launch_counts() != before:
-            raise AssertionError("force_plain T5 step launched a kernel")
-    loss_err = abs(lk - lp) / abs(lp)
-    if not math.isfinite(lk) or loss_err > 1e-5:
-        raise AssertionError(f"fp32 T5 loss: kernels {lk} vs plain {lp}")
-    worst, rel_scale = 0.0, {}
-    for (name, _), a, b in zip(leaves, gk, gp):
-        scale = float(b.abs().max())
-        err = float((a - b).abs().max())
-        if not bool(a.isfinite().all()) or err > 1e-5 * scale:
-            raise AssertionError(
-                f"fp32 T5 grad {name}: kernels vs plain max abs err "
-                f"{err:.3e} (limit 1e-5 * {scale:.3e})")
-        worst = max(worst, err / scale if scale else 0.0)
-        if name in ("embed.rel_enc", "embed.rel_dec"):
-            rel_scale[name] = float(a.abs().max())
-            if rel_scale[name] <= 0.0:
-                raise AssertionError(f"fp32 T5 grad {name} is zero")
-    return {"batch": 2, "seq_enc": T5_ENC, "seq_dec": T5_DEC,
-            "loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_err,
-            "grad_max_rel_err": worst, "rel_table_grad_max_abs": rel_scale,
-            "launches": counts}
+    out = fp32_gate(torch, ku, "T5", leaves,
+                    lambda: t5_loss(params, enc, dec, tgt, cfg),
+                    {"flash_attention_bwd_dbias": 12},
+                    nonzero=("embed.rel_enc", "embed.rel_dec"))
+    return {"batch": 2, "seq_enc": T5_ENC, "seq_dec": T5_DEC, **out}
 
 
 def t5_bf16_check(torch, dev, ku):
@@ -3851,6 +3835,480 @@ def t5_train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
     return result
 
 
+# ---------------------------------------------------------------------------
+# hidden dropout (csrc/dropout.cu), GPT and T5 training with dropout and
+# the remat policies, and the Megatron functional ops
+
+# instructions one element of the dropout kernel needs at least: threefry's
+# 20 rounds of add, rotate (one funnel shift) and xor (60), the key
+# injections an add cannot absorb (x1's five and the last of x0's; x0's
+# others fold into the next round's three-input add), the xor of the two
+# hashed words, the compare against the threshold, the product, the select
+# and the counter's step
+DROPOUT_OPS_PER_ELEMENT = 71
+# the most instructions the H100 issues: 4 warp instructions (128 lanes) a
+# clock on each of 132 SMs at 1.98 GHz, whatever their pipe (integer adds
+# also issue on the FMA pipe as IMAD)
+PEAK_INSTR_PER_S = 132 * 128 * 1.98e9
+DROPOUT_RATE = 0.1
+DROPOUT_SHAPES = [("gpt", (8, 1024, 768)), ("t5", (8, 512, 512)),
+                  ("odd", (1_000_003,))]
+DROPOUT_POLICIES = ("full", "dots", "dots_attn")
+
+
+def dropout_bound(n: int, esz: int):
+    """The dropout's bound: each element read and written once (bytes), or
+    DROPOUT_OPS_PER_ELEMENT instructions at PEAK_INSTR_PER_S."""
+    t_bytes = 2 * n * esz / HBM_BYTES_PER_S * 1e3
+    t_ops = DROPOUT_OPS_PER_ELEMENT * n / PEAK_INSTR_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+            "bound_formula": f"max(2·n·{esz} B / 3.35e12 B/s, "
+                             f"{DROPOUT_OPS_PER_ELEMENT}·n instructions / "
+                             f"{PEAK_INSTR_PER_S:.4g} issued/s)"}
+
+
+def dropout_phase(torch, dev, ku):
+    """The hidden-dropout kernel at GPT-2's site (8, 1024, 768), T5-small's
+    (8, 512, 512) and an odd count (1,000,003), fp32 and bf16, rate 0.1:
+    y bitwise the plain version's (the int64 threefry draw) and over two
+    launches; through ``hidden_dropout``'s autograd, y and dx bitwise, two
+    launches counted a call; the keep share within 5σ of 0.9. Times the
+    kernel, the plain version and ``F.dropout`` (Philox: not the same
+    function, a rate yardstick only) against the bound."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.dropout import (hidden_dropout,
+                                            hidden_dropout_fwd,
+                                            hidden_dropout_reference)
+    from apex_tpu_torch.transformer.tensor_parallel import prng_key
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rate, cases = DROPOUT_RATE, []
+    for shape_name, shape in DROPOUT_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(*shape, device=dev, generator=gen).to(dt)
+            dy = torch.randn(*shape, device=dev, generator=gen).to(dt)
+            key = prng_key(len(cases) + 1)
+            tag = f"dropout {shape_name} {dt}"
+            y = hidden_dropout_fwd(x, rate, key)
+            again = hidden_dropout_fwd(x, rate, key)
+            plain = hidden_dropout_reference(x, rate, key)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, plain) and torch.equal(y, again)):
+                raise AssertionError(f"{tag}: kernel not bitwise its plain "
+                                     f"version or its repeat")
+            xr = x.clone().requires_grad_()
+            before = ku.launch_counts().get("hidden_dropout", 0)
+            out = hidden_dropout(xr, rate, key)
+            out.backward(dy)
+            torch.cuda.synchronize()
+            launches = ku.launch_counts()["hidden_dropout"] - before
+            if launches != 2 or not torch.equal(out, y) or not torch.equal(
+                    xr.grad, hidden_dropout_reference(dy, rate, key)):
+                raise AssertionError(f"{tag}: autograd launches {launches} "
+                                     f"or y / dx not bitwise the plain "
+                                     f"version's")
+            live = x != 0
+            n_live = int(live.sum())
+            keep = int(((y != 0) & live).sum()) / n_live
+            sigma = math.sqrt(rate * (1 - rate) / n_live)
+            if abs(keep - (1 - rate)) > 5 * sigma:
+                raise AssertionError(f"{tag}: keep share {keep} is more than "
+                                     f"5 sigma ({sigma:.2e}) from {1 - rate}")
+            n = x.numel()
+            cases.append({
+                "shape": shape_name, "dims": list(shape), "elements": n,
+                "dtype": str(dt).split(".")[-1], "rate": rate,
+                "max_abs_err": 0.0, "bitwise": True, "keep_share": keep,
+                "keep_sigma": sigma, "launches_per_call": launches,
+                "ms": time_ms(torch, lambda: hidden_dropout_fwd(x, rate, key)),
+                "plain_ms": time_ms(torch, lambda: hidden_dropout_reference(
+                    x, rate, key), iters=5),
+                "library_ms": None,
+                "f_dropout_ms_not_the_same_function": time_ms(
+                    torch, lambda: F.dropout(x, rate, training=True)),
+                **dropout_bound(n, x.element_size())})
+            del x, dy, y, again, plain, xr, out
+            torch.cuda.empty_cache()
+    return cases
+
+
+def dropout_train_launches(policy: str):
+    """Kernel launches of one GPT-2-124M step with both rates 0.1: the
+    default step's table, the flash forward not replayed under
+    ``dots_attn`` (it saves (o, lse)), and hidden dropout at 25 sites (the
+    embedding's and two a layer): 25 forward, 12 in the recompute (a
+    layer's recompute stops after the attention branch's, the last of its
+    outputs that backward reads), 25 backward."""
+    want = dict(TRAIN_LAUNCHES, hidden_dropout=25 + 12 + 25)
+    if policy == "dots_attn":
+        want["flash_mma_fwd"] = 12
+    return want
+
+
+# one T5-small step with both rates 0.1: the T5 table and hidden dropout at
+# 32 sites (each stack's embedding, 2 a encoder and 3 a decoder layer): 32
+# forward, 18 in the recompute (an encoder layer's 1, a decoder layer's 2:
+# the MLP branch's is not replayed), 32 backward
+T5_DROPOUT_LAUNCHES = dict(T5_LAUNCHES, hidden_dropout=32 + 18 + 32)
+
+
+def fp32_gate(torch, ku, what, leaves, loss_fn, want_launches, nonzero=()):
+    """One fp32 forward + backward through the kernels (launch counts
+    reset just before, read just after, each of ``want_launches`` as
+    given) vs the same with the plain versions forced: loss relative 1e-5,
+    every gradient leaf max |kernels - plain| <= 1e-5 · max |plain| (the
+    train phases' fp32 gate); the leaves named in ``nonzero`` must get a
+    nonzero gradient through the kernels (their max |grad| reported as
+    ``rel_table_grad_max_abs``)."""
+
+    def loss_and_grads():
+        for _, p in leaves:
+            p.grad = None
+        loss = loss_fn()
+        loss.backward()
+        return loss.item(), [p.grad for _, p in leaves]
+
+    ku.reset_launch_counts()
+    lk, gk = loss_and_grads()
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    wrong = {k: (counts.get(k, 0), v) for k, v in want_launches.items()
+             if counts.get(k, 0) != v}
+    if wrong:
+        raise AssertionError(f"fp32 {what} launches (got, want): {wrong}")
+    with ku.force_plain():
+        before = ku.launch_counts()
+        lp, gp = loss_and_grads()
+        if ku.launch_counts() != before:
+            raise AssertionError(f"force_plain {what} launched a kernel")
+    loss_err = abs(lk - lp) / abs(lp)
+    if not math.isfinite(lk) or loss_err > 1e-5:
+        raise AssertionError(f"fp32 {what} loss: kernels {lk} vs plain {lp}")
+    worst, named = 0.0, {}
+    for (name, _), a, b in zip(leaves, gk, gp):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not bool(a.isfinite().all()) or err > 1e-5 * scale:
+            raise AssertionError(
+                f"fp32 {what} grad {name}: kernels vs plain max abs err "
+                f"{err:.3e} (limit 1e-5 * {scale:.3e})")
+        worst = max(worst, err / scale if scale else 0.0)
+        if name in nonzero:
+            named[name] = float(a.abs().max())
+            if named[name] <= 0.0:
+                raise AssertionError(f"fp32 {what} grad {name} is zero")
+    out = {"loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_err,
+           "grad_max_rel_err": worst, "launches": counts}
+    if nonzero:
+        out["rel_table_grad_max_abs"] = named
+    return out
+
+
+def dropout_step_run(torch, ku, step, keys, timed_keys, want, tokens):
+    """One policy's run of a dropout train step: the first step's launches
+    (counts reset just before, read just after) equal to ``want``, the
+    loss finite and falling over ``keys``, then step ms and tokens/s
+    (``tokens`` a step) over all but 3 of ``timed_keys``, peak memory and
+    the last 3 steps profiled."""
+    ku.reset_launch_counts()
+    losses = [step(keys[0])]
+    torch.cuda.synchronize()
+    launches = ku.launch_counts()
+    if launches != want:
+        raise AssertionError(f"dropout step launches {launches}, expected "
+                             f"{want}")
+    losses += [step(k) for k in keys[1:]]
+    vals = torch.stack(losses).tolist()
+    if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+        raise AssertionError(f"dropout train loss did not fall: {vals}")
+    it = iter(timed_keys)
+    durs = timed_steps_of(torch, lambda: step(next(it)), len(timed_keys) - 3)
+    prof = profiled(torch, lambda: [step(next(it)) for _ in range(3)])
+    return {"launches_per_step": launches, "losses": vals,
+            "losses_t": torch.stack(losses),
+            "tokens_per_s": tokens * len(durs) / sum(durs),
+            "step_ms_p50": sorted(durs)[len(durs) // 2] * 1e3,
+            "step_ms": [d * 1e3 for d in durs],
+            "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "top": prof["top"][:6]}
+
+
+def train_dropout_phase(torch, dev, ku, steps: int = 10):
+    """GPT-2-124M bf16 at 8 x 1024 with GPT-2's dropout (attention and
+    hidden 0.1) under each remat policy, the key of step i
+    ``fold_in(prng_key(0), i)`` (the caller's stream): launches a step equal
+    to ``dropout_train_launches``; the first step's loss and every gradient
+    bitwise equal across the three policies; the loss falls over 10 steps
+    and (``dots_attn``, the main path) repeats bitwise from a second build;
+    the step without a key equals the rates-0 config's bitwise. An fp32
+    check at 2 layers: kernels vs plain within the train phase's gate.
+    Step ms p50, busy ms, tokens/s and peak memory for each policy."""
+    import numpy as np
+
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.tensor_parallel import fold_in, prng_key
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step,
+                                                    gpt_loss,
+                                                    init_gpt_params)
+
+    rates = dict(attention_dropout=DROPOUT_RATE, hidden_dropout=DROPOUT_RATE)
+    base = prng_key(0)
+    key = fold_in(base, 0)
+    cfg32 = GPTConfig(dtype=torch.float32, num_layers=2,
+                      remat_policy="dots_attn", **rates)
+    params = init_gpt_params(cfg32, seed=0, device=dev)
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg32.vocab_size,
+                                        (2, 1024))).to(dev)
+    tgt = torch.roll(tok, -1, dims=1)
+    result = {"fp32_check": {"layers": 2, "batch": 2, "seq": 1024, **fp32_gate(
+        torch, ku, "train_dropout", leaves,
+        lambda: gpt_loss(params, tok, tgt, cfg32, dropout_key=key),
+        {"hidden_dropout": 5 + 2 + 5, "flash_attention_fwd": 2})}}
+    del params, leaves
+    torch.cuda.empty_cache()
+    batch, seq = 8, 1024
+    keys = [fold_in(base, i) for i in range(steps)]
+    timed = [fold_in(base, steps + i) for i in range(13)]
+    firsts, runs = {}, {}
+    for policy in DROPOUT_POLICIES:
+        cfg = GPTConfig(remat_policy=policy, **rates)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, params, _, _, _ = build_train_step(cfg, batch, seq, device=dev,
+                                                 seed=0)
+        first_grads = []
+
+        def first_step(k, step=step, params=params, out=first_grads):
+            loss = step(k)
+            if not out:
+                out.extend(p.grad.clone() for _, p in named_leaves(params))
+            return loss
+
+        run = dropout_step_run(torch, ku, first_step, keys, timed,
+                               dropout_train_launches(policy), batch * seq)
+        firsts[policy] = (run["losses_t"][0], first_grads)
+        runs[policy] = run
+        del step, params, first_step
+    loss0, grads0 = firsts["full"]
+    for policy in ("dots", "dots_attn"):
+        loss, grads = firsts[policy]
+        if not torch.equal(loss, loss0) or not all(
+                torch.equal(a, b) for a, b in zip(grads, grads0)):
+            raise AssertionError(f"{policy}: first step's loss or gradients "
+                                 f"not bitwise full remat's")
+    del firsts, grads0
+    torch.cuda.empty_cache()
+    cfg = GPTConfig(remat_policy="dots_attn", **rates)
+    step = build_train_step(cfg, batch, seq, device=dev, seed=0)[0]
+    again = torch.stack([step(k) for k in keys])
+    if not torch.equal(again, runs["dots_attn"]["losses_t"]):
+        raise AssertionError(f"dots_attn dropout losses differ between two "
+                             f"runs: {again.tolist()}")
+    step = build_train_step(cfg, batch, seq, device=dev, seed=0)[0]
+    eval_loss = step()
+    step = build_train_step(GPTConfig(remat_policy="dots_attn"), batch, seq,
+                            device=dev, seed=0)[0]
+    rates0_loss = step()
+    if not torch.equal(eval_loss, rates0_loss):
+        raise AssertionError(f"the step without a key ({eval_loss.item()}) "
+                             f"is not the rates-0 step ({rates0_loss.item()})")
+    del step
+    torch.cuda.empty_cache()
+    for run in runs.values():
+        del run["losses_t"]
+    result.update({"batch": batch, "seq": seq, "rate": DROPOUT_RATE,
+                   "policies": runs, "bitwise_across_policies": True,
+                   "bitwise_repeat": True,
+                   "no_key_equals_rates_0": eval_loss.item()})
+    return result
+
+
+def t5_dropout_phase(torch, dev, ku, steps: int = 5):
+    """T5-small (the T5 phase's config) bf16 at 8 x (512 + 128) with both
+    rates 0.1, the key of step i ``fold_in(prng_key(1), i)``: the first
+    step's launches equal T5_DROPOUT_LAUNCHES; the loss finite and
+    repeating bitwise from a second build; an fp32 check at 2 + 2 layers,
+    kernels vs plain within the train phase's gate. Step ms p50, busy ms,
+    tokens/s, peak memory."""
+    import dataclasses
+
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.tensor_parallel import fold_in, prng_key
+    from apex_tpu_torch.transformer.testing import (build_t5_train_step,
+                                                    t5_loss)
+
+    rates = dict(attention_dropout=DROPOUT_RATE, hidden_dropout=DROPOUT_RATE)
+    base = prng_key(1)
+    cfg32 = dataclasses.replace(t5_config(torch.float32), enc_layers=2,
+                                dec_layers=2, **rates)
+    _, params, _, (enc, dec, tgt) = build_t5_train_step(
+        cfg32, 2, T5_ENC, T5_DEC, device=dev, seed=0)
+    key = fold_in(base, 0)
+    result = {"fp32_check": {"layers": "2 + 2", "batch": 2, **fp32_gate(
+        torch, ku, "t5_dropout", list(named_leaves(params)),
+        lambda: t5_loss(params, enc, dec, tgt, cfg32, dropout_key=key),
+        # 12 sites (2 embeddings, 2 + 2 encoder, 3 + 3 decoder) forward and
+        # backward, 2 + 4 in the recompute
+        {"hidden_dropout": 12 + 6 + 12, "flash_attention_bwd_dbias": 4})}}
+    del params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(t5_config(torch.bfloat16), **rates)
+    keys = [fold_in(base, i) for i in range(steps)]
+    timed = [fold_in(base, steps + i) for i in range(13)]
+    torch.cuda.reset_peak_memory_stats()
+    step = build_t5_train_step(cfg, T5_BATCH, T5_ENC, T5_DEC, device=dev,
+                               seed=0)[0]
+    run = dropout_step_run(torch, ku, step, keys, timed, T5_DROPOUT_LAUNCHES,
+                           T5_BATCH * (T5_ENC + T5_DEC))
+    del step
+    torch.cuda.empty_cache()
+    step = build_t5_train_step(cfg, T5_BATCH, T5_ENC, T5_DEC, device=dev,
+                               seed=0)[0]
+    again = torch.stack([step(k) for k in keys])
+    if not torch.equal(again, run.pop("losses_t")):
+        raise AssertionError(f"T5 dropout losses differ between two runs: "
+                             f"{again.tolist()}")
+    del step
+    torch.cuda.empty_cache()
+    result.update({"batch": T5_BATCH, "seq_enc": T5_ENC, "seq_dec": T5_DEC,
+                   "rate": DROPOUT_RATE, "bitwise_repeat": True, **run})
+    return result
+
+
+def functional_phase(torch, dev):
+    """The Megatron functional ops at realistic sizes, each module's forward
+    and backward on the card held to the same module on the CPU in fp32
+    (TF32 off): the output and every gradient within ``tol`` of the CPU
+    tensor in norm, |card - CPU| / |CPU| (fp32 sums in other orders; for
+    the MLP, ReLU's gradient steps where a pre-activation lies within a
+    rounding of 0, and the two sum orders put some on either side: fp32
+    against fp64 on the CPU differ by 1.0e-3 in dx and the first kernel's
+    gradient); then its device ms a forward + backward in bf16 (fp32
+    too): ``FusedScaleMaskSoftmax``
+    at (8, 12, 1024, 1024) causal and padding (the fused path, bf16
+    input), ``softmax_cross_entropy_loss`` at (8192, 50304), smoothing
+    0.1, ``MLP([1024, 4096, 4096, 1024])`` on 4096 rows and
+    ``FusedDenseGeluDense(768 -> 3072 -> 768)`` on 8192 rows."""
+    import numpy as np
+
+    from apex_tpu_torch.convert import module_from_numpy
+    from apex_tpu_torch.fused_dense import FusedDenseGeluDense
+    from apex_tpu_torch.mlp import MLP
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+
+    rng = np.random.default_rng(11)
+    torch.manual_seed(11)      # the modules' initial weights
+    cpu = torch.device("cpu")
+
+    def softmax_case(mask_type):
+        shape = (8, 12, 1024, 1024)
+        x = rng.standard_normal(shape, dtype=np.float32) * 3
+        dy = rng.standard_normal(shape, dtype=np.float32)
+        mask = np.zeros((8, 1, 1024, 1024), bool)
+        mask[:, :, :, 896:] = True
+
+        def make(device, dtype):
+            mod = FusedScaleMaskSoftmax(
+                input_in_bf16=dtype == torch.bfloat16,
+                attn_mask_type=getattr(AttnMaskType, mask_type),
+                scale=0.125)
+            # the fused path for bf16 input; fp32 takes the torch path, so
+            # the fp32 check runs the fused functions themselves
+            if dtype == torch.float32:
+                mod.is_kernel_available = lambda *a: True
+            xt = torch.from_numpy(x).to(device, dtype).requires_grad_()
+            m = (None if mask_type == "causal"
+                 else torch.from_numpy(mask).to(device))
+            return (lambda: mod(xt, m)), [("x", xt)], \
+                torch.from_numpy(dy).to(device, dtype)
+        return make, 1e-5
+
+    def xent_case():
+        logits = rng.standard_normal((8192, 50304), dtype=np.float32) * 4
+        labels = rng.integers(0, 50304, 8192)
+        dloss = rng.standard_normal(8192, dtype=np.float32)
+
+        def make(device, dtype):
+            xt = torch.from_numpy(logits).to(device, dtype).requires_grad_()
+            lt = torch.from_numpy(labels).to(device)
+            return (lambda: softmax_cross_entropy_loss(
+                xt, lt, 0.1, half_to_float=True)), [("logits", xt)], \
+                torch.from_numpy(dloss).to(device)
+        return make, 1e-5
+
+    def module_case(build, rows, width, out_width):
+        ref = build(torch.float32, cpu)
+        params = {n: p.detach().numpy().copy()
+                  for n, p in ref.named_parameters()}
+        x = rng.standard_normal((rows, width), dtype=np.float32)
+
+        def make(device, dtype):
+            mod = build(dtype, device)
+            module_from_numpy(params, mod)
+            xt = torch.from_numpy(x).to(device, dtype).requires_grad_()
+            dy = torch.from_numpy(np.random.default_rng(12).standard_normal(
+                (rows, out_width), dtype=np.float32)).to(device, dtype)
+            return (lambda: mod(xt)), [("x", xt), *mod.named_parameters()], \
+                dy
+        return make
+
+    cases = {
+        "FusedScaleMaskSoftmax causal (8, 12, 1024, 1024)":
+            softmax_case("causal"),
+        "FusedScaleMaskSoftmax padding (8, 12, 1024, 1024)":
+            softmax_case("padding"),
+        "softmax_cross_entropy_loss (8192, 50304) smoothing 0.1":
+            xent_case(),
+        "MLP([1024, 4096, 4096, 1024]) x 4096 rows": (module_case(
+            lambda dt, d: MLP([1024, 4096, 4096, 1024], dtype=dt, device=d),
+            4096, 1024, 1024), 5e-3),
+        "FusedDenseGeluDense(768 -> 3072 -> 768) x 8192 rows": (module_case(
+            lambda dt, d: FusedDenseGeluDense(768, 3072, 768, dtype=dt,
+                                              device=d), 8192, 768, 768),
+            1e-4),
+    }
+    out = []
+    for name, (make, tol) in cases.items():
+        results = {}
+        for side, device in (("cpu", cpu), ("card", dev)):
+            fn, leaves, dy = make(device, torch.float32)
+            y = fn()
+            y.backward(dy)
+            results[side] = [("out", y.detach())] + [
+                (n, t.grad) for n, t in leaves]
+            del fn, leaves, dy, y
+        norm_err, max_err = {}, {}
+        for (n, want), (_, got) in zip(results["cpu"], results["card"]):
+            diff = got.cpu() - want
+            norm_err[n] = float(diff.norm() / want.norm())
+            max_err[n] = float(diff.abs().max() / want.abs().max())
+            if not bool(got.isfinite().all()) or norm_err[n] > tol:
+                raise AssertionError(f"{name} {n}: card vs CPU |diff| / |CPU|"
+                                     f" = {norm_err[n]:.3e} (limit {tol})")
+        del results
+        rec = {"case": name, "norm_tol": tol, "norm_err": norm_err,
+               "max_err_of_max": max_err}
+        for dtype in (torch.bfloat16, torch.float32):
+            fn, leaves, dy = make(dev, dtype)
+            rec[f"fwd_bwd_ms_{str(dtype).split('.')[-1]}"] = time_ms(
+                torch, lambda: fn().backward(dy), iters=10)
+            del fn, leaves, dy
+            torch.cuda.empty_cache()
+        out.append(rec)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full JSON record here")
@@ -3899,6 +4357,7 @@ def main(argv=None) -> int:
     nrm = phase("rms_norm", ("layer_norm",), norm_phase, torch, dev, ku)
     codec = phase("codec", ("quantize",), codec_phase, torch, dev, ku)
     adam = phase("adam_tail", ("fused_update",), adam_tail_phase, torch, dev)
+    drop_cases = phase("dropout", ("dropout",), dropout_phase, torch, dev, ku)
     fa_cases = phase("flash_attention", ("flash_attention", "flash_mma"),
                      flash_phase, torch, dev)
     vl = phase("flash_varlen", ("flash_attention", "flash_mma",
@@ -3923,7 +4382,7 @@ def main(argv=None) -> int:
         "layer_norm", "layer_norm_non_affine", "paged_attention",
         "layer_norm_bwd", "rms_norm", "codec", "flash_attention",
         "flash_varlen", "flash_varlen_wide", "lm_head_loss", "adam_tail",
-        "megakernel"))
+        "megakernel", "dropout"))
     seconds["builds_and_kernel_phases"] = time.perf_counter() - t0
     engine, launches, quant_launches = phase("engine", (), engine_phase,
                                              torch, dev, ku)
@@ -3933,10 +4392,13 @@ def main(argv=None) -> int:
     train = phase("train", (), train_phase, torch, dev, ku)
     seconds["train_parts"] = train["phase_s"]
     train_launches = train["launches_per_step"]
+    trd = phase("train_dropout", (), train_dropout_phase, torch, dev, ku)
     t5 = phase("t5_train", (), t5_train_phase, torch, dev, ku)
     seconds["t5_train_parts"] = t5["phase_s"]
     t5_launches = t5["launches_per_step"]
+    t5d = phase("t5_dropout", (), t5_dropout_phase, torch, dev, ku)
     fmha = phase("fmha", (), fmha_phase, torch, dev, ku)
+    func = phase("functional", (), functional_phase, torch, dev)
     name = torch.cuda.get_device_name(0)
     # the phases' record, written before the kernels line is assembled
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
@@ -3949,7 +4411,9 @@ def main(argv=None) -> int:
               "layer_norm_non_affine": ln_non_affine, "norm": nrm,
               "codec": codec,
               "engine": engine, "engine_monitor": mon,
-              "engine_lora": lora, "train": train, "t5_train": t5}
+              "engine_lora": lora, "train": train, "t5_train": t5,
+              "dropout": drop_cases, "train_dropout": trd,
+              "t5_dropout": t5d, "functional": func}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -4385,6 +4849,34 @@ def main(argv=None) -> int:
          "t5": {"launches": t5_launches["fused_adam_tail"],
                 **{k: adam["t5"][k] for k in ("max_abs_err", "per",
                                               *timing)}}})
+    # the hidden-dropout kernel: no TPU counterpart (JAX's dropout is XLA);
+    # its main path is the dots_attn dropout step's
+    gd = pick(drop_cases, shape="gpt", dtype="bfloat16")
+    td = pick(drop_cases, shape="t5", dtype="bfloat16")
+    drop_extra = ("f_dropout_ms_not_the_same_function", "bound_formula",
+                  "bytes_bound_ms", "ops_bound_ms")
+    drop_sass = sass_opcode_counts(ku, "dropout", "dropout_kernel")
+    kernels.append(
+        {"name": "hidden_dropout", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/dropout.cu",
+         "replaces": "none: XLA's bernoulli + where of JAX's _hidden_dropout "
+                     "(apex_tpu/transformer/testing/standalone_gpt.py:314)",
+         "launches": trd["policies"]["dots_attn"]["launches_per_step"][
+             "hidden_dropout"],
+         "path": "build_train_step(GPTConfig(attention_dropout=0.1, "
+                 "hidden_dropout=0.1, remat_policy='dots_attn'), 8, 1024)",
+         "shape": "(8, 1024, 768) bf16",
+         "max_abs_err": max(c["max_abs_err"] for c in drop_cases),
+         **{k: gd[k] for k in (*timing, *drop_extra)},
+         "cases": [{k: c[k] for k in ("shape", "dtype", "elements", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "keep_share",
+                                      "f_dropout_ms_not_the_same_function")}
+                   for c in drop_cases],
+         "t5": {"launches": t5d["launches_per_step"]["hidden_dropout"],
+                "shape": "(8, 512, 512) bf16",
+                **{k: td[k] for k in (*timing, *drop_extra)}},
+         "sass_opcodes": drop_sass})
     for run in ("fp32_kernels", "fp32_plain", "fp32_off", "fp32_int8",
                 "fp32_int8_off", "fp32_int4", "fp32_int4_off", "bf16_spec0",
                 "bf16_spec4", "bf16_int8_spec0", "bf16_int8_spec4",
@@ -4654,6 +5146,45 @@ def main(argv=None) -> int:
           f"vs merged weights {lora['fp32_logits_max_abs_err']:.3e} "
           f"(limit {LORA_ATOL} + {LORA_RTOL} rel); merged-engine streams "
           f"{lora['fp32_merged_streams']}")
+    by_name["flash_mma_fwd"]["train_dropout"] = {
+        policy: run["launches_per_step"]["flash_mma_fwd"]
+        for policy, run in trd["policies"].items()}
+    for c in drop_cases:
+        print(f"hidden_dropout {c['shape']} {c['dims']} {c['dtype']}: "
+              f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
+              f"{c['bound_ms']:.4f} {c['bound_by']}: bytes "
+              f"{c['bytes_bound_ms']:.4f}, instructions "
+              f"{c['ops_bound_ms']:.4f} = {c['bound_formula']}; F.dropout "
+              f"{c['f_dropout_ms_not_the_same_function']:.4f}, not the same "
+              f"function (Philox)); bitwise, keep {c['keep_share']:.5f} on "
+              f"{card}")
+    for fn, ops in drop_sass.items():
+        print(f"hidden_dropout SASS {fn}: {sum(ops.values())} instructions "
+              f"{dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    for policy, r in trd["policies"].items():
+        print(f"train_dropout GPT-2-124M bf16 8 x 1024 rates 0.1 {policy}: "
+              f"step_ms_p50 {r['step_ms_p50']:.2f} busy ms "
+              f"{r['device_busy_ms_per_step']:.2f} tokens/s "
+              f"{r['tokens_per_s']:.1f} peak {r['peak_mem_gib']:.2f} GiB "
+              f"launches {r['launches_per_step']} losses "
+              f"{[round(v, 4) for v in r['losses']]} on {card}")
+    fp32d = {k: v for k, v in trd["fp32_check"].items() if k != "launches"}
+    print(f"train_dropout fp32 check (2 layers): {fp32d}"
+          f"; policies bitwise equal, dots_attn repeats bitwise, no key = "
+          f"rates 0 ({trd['no_key_equals_rates_0']})")
+    print(f"t5_dropout T5-small bf16 {T5_BATCH} x ({T5_ENC} + {T5_DEC}) "
+          f"rates 0.1: step_ms_p50 {t5d['step_ms_p50']:.2f} busy ms "
+          f"{t5d['device_busy_ms_per_step']:.2f} tokens/s "
+          f"{t5d['tokens_per_s']:.1f} peak {t5d['peak_mem_gib']:.2f} GiB "
+          f"launches {t5d['launches_per_step']}; fp32 check (2 + 2) loss "
+          f"rel {t5d['fp32_check']['loss_rel_err']:.3e} grad "
+          f"{t5d['fp32_check']['grad_max_rel_err']:.3e} on {card}")
+    for c in func:
+        print(f"functional {c['case']}: card vs CPU fp32 "
+              f"{ {k: f'{v:.2e}' for k, v in c['norm_err'].items()} } in "
+              f"norm (limit {c['norm_tol']}); fwd + bwd "
+              f"{c['fwd_bwd_ms_bfloat16']:.4f} ms bf16, "
+              f"{c['fwd_bwd_ms_float32']:.4f} ms fp32 on {card}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels its path never launched: {idle}")

@@ -356,6 +356,7 @@ _TABLES = {
     "fused_update": ("apex_tpu_torch.ops.fused_update", "_SIGNATURES"),
     "megakernel": ("apex_tpu_torch.serve.megakernel", "_SIGNATURES"),
     "quantize": ("apex_tpu_torch.comm.quantize", "_SIGNATURES"),
+    "dropout": ("apex_tpu_torch.ops.dropout", "_SIGNATURES"),
 }
 _C_TYPES = {"int": ctypes.c_int, "unsigned": ctypes.c_uint,
             "float": ctypes.c_float, "long long": ctypes.c_longlong}

@@ -2489,3 +2489,132 @@ def test_engine_lora_on_the_card(dev):
                 device=dev))
         outs.append(e.run(_requests(adapters=("t1", "t2", None))))
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# hidden dropout (csrc/dropout.cu) and the remat policies
+
+
+def _dropout_key(seed):
+    from apex_tpu_torch.transformer.tensor_parallel import prng_key
+    return prng_key(seed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1024, 768), (8, 512, 512), (1001,),
+                                   (3, 7), (5,)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_hidden_dropout_kernel_bitwise_equals_plain(dev, dtype, shape, rate):
+    """The kernel's y and dx bitwise the plain version's (the int64
+    threefry draw) at GPT's and T5's sites, odd counts and a count below
+    one vector; one launch a forward and one a backward."""
+    from apex_tpu_torch.ops.dropout import (hidden_dropout,
+                                            hidden_dropout_fwd,
+                                            hidden_dropout_reference)
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    x = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    dy = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    key = _dropout_key(sum(shape))
+    got = hidden_dropout_fwd(x, rate, key)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hidden_dropout_reference(x, rate, key))
+    xr = x.clone().requires_grad_()
+    before = ku.launch_counts().get("hidden_dropout", 0)
+    y = hidden_dropout(xr, rate, key)
+    y.backward(dy)
+    assert ku.launch_counts()["hidden_dropout"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(y, got)
+    assert torch.equal(xr.grad, hidden_dropout_reference(dy, rate, key))
+    if x.numel() > 10000:
+        keep = (got != 0).float().mean().item()
+        sigma = math.sqrt(rate * (1 - rate) / x.numel())
+        assert abs(keep - (1 - rate)) < 5 * sigma
+
+
+def test_hidden_dropout_kernel_counter_high_word(dev):
+    """Past 2**32 elements the counter's high word is the index's upper
+    bits: the last elements of a (2**32 + 40)-element bf16 tensor equal
+    the threefry draw at their own (hi, lo) words."""
+    from apex_tpu_torch.ops.dropout import hidden_dropout_fwd
+    from apex_tpu_torch.transformer.tensor_parallel import random as trandom
+    n = 2 ** 32 + 40
+    x = torch.ones(n, dtype=torch.bfloat16, device=dev)
+    key = _dropout_key(5)
+    y = hidden_dropout_fwd(x, 0.5, key)[-80:].float().cpu()
+    del x
+    torch.cuda.empty_cache()
+    idx = torch.arange(n - 80, n, dtype=torch.int64)
+    b0, b1 = trandom.threefry2x32(key, idx >> 32, idx & trandom.M32)
+    keep = ((b0 ^ b1) >> 9) < trandom.keep_threshold(0.5)
+    assert torch.equal(y, torch.where(keep, 2.0, 0.0))
+
+
+def test_hidden_dropout_kernel_refuses_other_types(dev):
+    from apex_tpu_torch.ops.dropout import hidden_dropout_fwd
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        hidden_dropout_fwd(torch.ones(8, device=dev, dtype=torch.float16),
+                           0.1, _dropout_key(0))
+    x = torch.arange(20, device=dev, dtype=torch.float32)
+    sliced = x[1:]  # 4 bytes past a 16-byte boundary
+    from apex_tpu_torch.ops.dropout import hidden_dropout_reference
+    assert torch.equal(hidden_dropout_fwd(sliced, 0.3, _dropout_key(1)),
+                       hidden_dropout_reference(sliced, 0.3,
+                                                _dropout_key(1)))
+
+
+@pytest.mark.parametrize("policy,flash_fwd", [("full", 4), ("dots", 4),
+                                              ("dots_attn", 2)])
+def test_remat_policy_flash_launches_and_bitwise_grads(dev, policy,
+                                                       flash_fwd):
+    """A 2-layer bf16 GPT step with both dropout rates 0.1: the flash
+    forward launches 4 times under ``full`` and ``dots`` (forward and
+    recompute), 2 under ``dots_attn``; ``hidden_dropout`` 12 times under
+    each; loss and gradients bitwise ``full``'s."""
+    from apex_tpu_torch.transformer.testing import gpt_loss
+    base = dict(num_layers=2, attention_dropout=0.1, hidden_dropout=0.1)
+    params = init_gpt_params(GPTConfig(**base), seed=0, device=dev)
+    leaves = [p for _, p in named_leaves(params)]
+    for p in leaves:
+        p.requires_grad_(True)
+    tok = torch.randint(0, 50304, (2, 1024), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    tgt = torch.roll(tok, -1, dims=1)
+    key = _dropout_key(3)
+
+    def run(pol):
+        for p in leaves:
+            p.grad = None
+        ku.reset_launch_counts()
+        loss = gpt_loss(params, tok, tgt, GPTConfig(remat_policy=pol, **base),
+                        dropout_key=key)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), [p.grad.clone() for p in leaves], \
+            ku.launch_counts()
+
+    loss_f, grads_f, _ = run("full")
+    loss, grads, counts = run(policy)
+    assert counts["flash_mma_fwd"] == flash_fwd
+    assert counts["hidden_dropout"] == 12
+    assert torch.equal(loss, loss_f)
+    for a, b in zip(grads, grads_f):
+        assert torch.equal(a, b)
+
+
+def test_no_dropout_launch_when_rates_are_zero(dev):
+    """A GPT step with a key but both rates 0 (and one without a key) runs
+    no dropout kernel and gives the eval loss bitwise."""
+    from apex_tpu_torch.transformer.testing import gpt_loss
+    cfg = GPTConfig(num_layers=2)
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    tok = torch.randint(0, 50304, (2, 256), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+    tgt = torch.roll(tok, -1, dims=1)
+    ku.reset_launch_counts()
+    with torch.no_grad():
+        a = gpt_loss(params, tok, tgt, cfg, dropout_key=_dropout_key(1))
+        b = gpt_loss(params, tok, tgt, cfg)
+    torch.cuda.synchronize()
+    assert "hidden_dropout" not in ku.launch_counts()
+    assert torch.equal(a, b)

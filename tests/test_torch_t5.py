@@ -427,8 +427,23 @@ def test_build_t5_train_step_on_cpu_falls_and_repeats():
     ("megatron_sp", True)])
 def test_refused_t5_fields_raise(field, value):
     """Each refused field raises from ``validate()``, ``init_t5_params``,
-    ``t5_loss`` and ``build_t5_train_step``."""
+    ``t5_loss`` and ``build_t5_train_step``. The dropout rates, ported
+    since, are accepted: ``validate()`` passes and ``t5_loss`` and a
+    ``build_t5_train_step`` step run on the CPU with a dropout key."""
     cfg = dataclasses.replace(_configs(True, True, True)[1], **{field: value})
+    if field in ("attention_dropout", "hidden_dropout"):
+        cfg.validate()
+        key = np.asarray(jax.random.PRNGKey(1))
+        params = init_t5_params(cfg, device="cpu")
+        for p in param_leaves(params):
+            p.requires_grad_(True)
+        z = torch.zeros(1, 8, dtype=torch.long)
+        loss = t5_loss(params, z, z, z, cfg, dropout_key=key)
+        loss.backward()
+        assert np.isfinite(loss.item())
+        step = build_t5_train_step(cfg, 1, 8, 8, device="cpu")[0]
+        assert np.isfinite(float(step(key)))
+        return
     with pytest.raises(NotImplementedError, match=field):
         cfg.validate()
     with pytest.raises(NotImplementedError, match=field):

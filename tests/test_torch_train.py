@@ -484,21 +484,41 @@ def test_build_train_step_on_cpu_falls_and_repeats():
     assert all(np.isfinite(runs[0]))
 
 
+# ported since the dropout slice: accepted now, the rest still refused (A7)
+ACCEPTED_FIELDS = ("remat_policy", "attention_dropout", "hidden_dropout")
+
+
 @pytest.mark.parametrize("field,value", [
     ("remat_policy", "dots"), ("remat_policy", "dots_attn"),
     ("attention_dropout", 0.1),
     ("hidden_dropout", 0.1), ("megatron_sp", True), ("overlap_comm", True),
-    ("num_experts", 4)])
+    ("num_experts", 4), ("remat_policy", "bogus")])
 def test_refused_training_fields_raise(field, value):
-    """Each refused field raises from ``validate()``, ``gpt_loss`` and
-    ``build_train_step``."""
+    """Each refused field raises ``NotImplementedError`` from
+    ``validate()``, ``gpt_loss`` and ``build_train_step``; an unknown
+    ``remat_policy`` raises ``ValueError`` there, as JAX's ``validate``.
+    The fields ported since (the remat policies, both dropout rates) are
+    accepted: ``validate()`` passes and ``gpt_loss`` and a
+    ``build_train_step`` step run on the CPU with a dropout key."""
     cfg = dataclasses.replace(TCFG, **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
+    tok = torch.zeros(1, 4, dtype=torch.long)
+    if field in ACCEPTED_FIELDS and value != "bogus":
         cfg.validate()
-    with pytest.raises(NotImplementedError, match=field):
-        gpt_loss({}, torch.zeros(1, 4, dtype=torch.long),
-                 torch.zeros(1, 4, dtype=torch.long), cfg)
-    with pytest.raises(NotImplementedError, match=field):
+        key = np.asarray(jax.random.PRNGKey(1))
+        params = _trainable(jax.tree.map(np.asarray, jax_init(
+            jax.random.PRNGKey(0), JCFG)))
+        loss = gpt_loss(params, tok, tok, cfg, dropout_key=key)
+        loss.backward()
+        assert np.isfinite(loss.item())
+        step = build_train_step(cfg, 1, 4, device="cpu")[0]
+        assert np.isfinite(float(step(key)))
+        return
+    err = ValueError if value == "bogus" else NotImplementedError
+    with pytest.raises(err, match=field):
+        cfg.validate()
+    with pytest.raises(err, match=field):
+        gpt_loss({}, tok, tok, cfg)
+    with pytest.raises(err, match=field):
         build_train_step(cfg, 1, 4, device="cpu")
 
 
