@@ -145,3 +145,102 @@ def module_from_numpy(params: Any, module: torch.nn.Module) -> None:
                 raise ValueError(f"{name}: shape {np.shape(params[name])} "
                                  f"does not match {tuple(p.shape)}")
             p.copy_(tensor_from_numpy(params[name], p.device, p.dtype))
+
+
+# the port optimizers' per-param state names for the JAX state fields
+_OPT_STATE_FIELDS = {"momentum_buffer": "momentum_buffer", "sum": "sum",
+                     "mu": "exp_avg", "nu": "exp_avg_sq"}
+
+
+def optimizer_state_from_numpy(jax_state_as_numpy: Any, params: Any,
+                               optimizer) -> None:
+    """Carry a JAX ``FusedSGDState`` / ``FusedAdagradState`` /
+    ``FusedNovoGradState`` / ``FusedLAMBState`` (as numpy:
+    ``jax.tree.map(np.asarray, state)``) into the port optimizer of the
+    same name over the leaves of ``params``: each per-leaf field becomes
+    the param's fp32 state entry (``momentum_buffer``, ``sum``,
+    ``exp_avg`` for ``mu``, ``exp_avg_sq`` for ``nu``) and ``count`` every
+    group's device step count."""
+    state = (jax_state_as_numpy if isinstance(jax_state_as_numpy, dict)
+             else jax_state_as_numpy._asdict())
+    leaves = dict(named_leaves(params))
+    owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    fields = {f: dict(named_leaves(state[f])) for f in state
+              if f in _OPT_STATE_FIELDS}
+    for name, p in leaves.items():
+        if id(p) not in owned:
+            raise ValueError(f"param {name} is not in the optimizer")
+        entry = {}
+        for f, tree in fields.items():
+            if name not in tree:
+                raise ValueError(f"state field {f} has no leaf {name}")
+            entry[_OPT_STATE_FIELDS[f]] = tensor_from_numpy(
+                tree[name], p.device, torch.float32)
+        optimizer.state[p] = entry
+    for g in optimizer.param_groups:
+        dev = g["params"][0].device
+        g["step"] = torch.full((), int(np.asarray(state["count"])),
+                               dtype=torch.int32, device=dev)
+
+
+def scaler_state_from_numpy(jax_scaler_as_numpy: Any,
+                            device: DeviceLike = None):
+    """A JAX ``LossScalerState`` (as numpy) -> the port's, on ``device``."""
+    from apex_tpu_torch.amp.scaler import LossScalerState
+
+    dev = resolve_device(device)
+    s = jax_scaler_as_numpy
+    return LossScalerState(
+        torch.full((), float(np.asarray(s.loss_scale)), dtype=torch.float32,
+                   device=dev),
+        torch.full((), int(np.asarray(s.unskipped)), dtype=torch.int32,
+                   device=dev),
+        torch.full((), int(np.asarray(s.hysteresis_left)),
+                   dtype=torch.int32, device=dev))
+
+
+def _torch_dtype(dt):
+    if dt is None:
+        return None
+    return getattr(torch, np.dtype(dt).name)
+
+
+def amp_state_from_numpy(jax_amp_state_as_numpy: Any,
+                         device: DeviceLike = None, is_norm_param=None):
+    """A JAX ``AmpState`` (``jax.tree.map(np.asarray, state)``: masters and
+    scaler as numpy, the policy as it was) -> the port's ``AmpState`` on
+    ``device``: the masters in their dtypes, the scaler state, the policy
+    with torch dtypes and ``is_norm_param`` (default: the port's
+    ``default_norm_predicate``, JAX's rule)."""
+    from apex_tpu_torch.amp.frontend import AmpState, default_norm_predicate
+    from apex_tpu_torch.config import PrecisionConfig
+
+    s = jax_amp_state_as_numpy
+    pol = s.policy
+    policy = PrecisionConfig(
+        opt_level=pol.opt_level,
+        cast_model_type=_torch_dtype(pol.cast_model_type),
+        compute_dtype=_torch_dtype(pol.compute_dtype),
+        keep_batchnorm_fp32=pol.keep_batchnorm_fp32,
+        master_weights=pol.master_weights, loss_scale=pol.loss_scale)
+    return AmpState(params_from_numpy(s.master_params, device),
+                    scaler_state_from_numpy(s.scaler, device), policy,
+                    is_norm_param or default_norm_predicate)
+
+
+def fp8_state_from_numpy(jax_fp8_state_as_numpy: Any,
+                         device: DeviceLike = None):
+    """A JAX fp8 state (a nested dict of ``Fp8DotState``, as numpy) -> the
+    port's (``amp.fp8.Fp8DotState`` of fp32 tensors) on ``device``."""
+    from apex_tpu_torch.amp.fp8 import Fp8DotState, Fp8TensorState
+
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return Fp8DotState(*(Fp8TensorState(*(
+            tensor_from_numpy(a, dev, torch.float32) for a in half))
+            for half in (node.x, node.w, node.g)))
+
+    return conv(jax_fp8_state_as_numpy)

@@ -16,6 +16,13 @@
 // written in fp32 and m', v' overwrite m and v in place. The constants
 // (1 - b1), (1 - b2), c1 and c2 come from the host as fp32.
 //
+// Two optional device pointers keep a step on the card (JAX's always
+// capturable FusedAdam, and amp's overflow guard): `corr` holds (c1, c2),
+// computed on the card from a device step count, in place of the host's
+// values; `found_inf` is an fp32 flag: when it is nonzero the kernel leaves
+// m and v unwritten and writes u = 0 (and LAMB sums of 0), so the caller's
+// p + (-lr * u) leaves p as it was. Null pointers are the host path.
+//
 // Bound on this card: bytes. Per element it reads g, p, m, v and writes u,
 // m', v': 24 bytes with bf16 g and p, so GPT-2-124M's 124,475,904 elements
 // need 2.99 GB, 0.892 ms at 3.35 TB/s; the arithmetic is a few flops.
@@ -45,21 +52,34 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ m, float* __restrict__ v,
                      float* __restrict__ u, long long n, Adam a,
                      float* __restrict__ wsq_part,
-                     float* __restrict__ usq_part) {
+                     float* __restrict__ usq_part,
+                     const float* __restrict__ corr,
+                     const float* __restrict__ found_inf) {
   __shared__ float red[kThreads / 32];
   float wsq = 0.f, usq = 0.f;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < n; i += stride) {
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (found_inf != nullptr && *found_inf != 0.f) {
+    // a skipped step: m and v stay, u = 0, the LAMB partials 0
+    for (long long i = first; i < n; i += stride) u[i] = 0.f;
+    if (kNorms && threadIdx.x == 0) {
+      wsq_part[blockIdx.x] = 0.f;
+      usq_part[blockIdx.x] = 0.f;
+    }
+    return;
+  }
+  const float c1 = corr != nullptr ? corr[0] : a.c1;
+  const float c2 = corr != nullptr ? corr[1] : a.c2;
+  for (long long i = first; i < n; i += stride) {
     float gi = apex::to_f(g[i]);
     const float pi = apex::to_f(p[i]);
     if (!a.adam_w && a.wd != 0.f) gi = __fadd_rn(gi, __fmul_rn(a.wd, pi));
     const float mi = __fadd_rn(__fmul_rn(a.b1, m[i]), __fmul_rn(a.omb1, gi));
     const float vi = __fadd_rn(__fmul_rn(a.b2, v[i]),
                                __fmul_rn(__fmul_rn(a.omb2, gi), gi));
-    float ui = __fdiv_rn(__fdiv_rn(mi, a.c1),
-                         __fadd_rn(__fsqrt_rn(__fdiv_rn(vi, a.c2)), a.eps));
+    float ui = __fdiv_rn(__fdiv_rn(mi, c1),
+                         __fadd_rn(__fsqrt_rn(__fdiv_rn(vi, c2)), a.eps));
     if (a.adam_w && a.wd != 0.f) ui = __fadd_rn(ui, __fmul_rn(a.wd, pi));
     m[i] = mi;
     v[i] = vi;
@@ -102,18 +122,20 @@ __global__ void __launch_bounds__(kThreads)
 template <typename TG, typename TP>
 void launch(const void* g, const void* p, void* m, void* v, void* u,
             long long n, const Adam& a, void* wsq_part, void* usq_part,
-            void* sums, int blocks, cudaStream_t s) {
+            void* sums, const float* corr, const float* found_inf,
+            int blocks, cudaStream_t s) {
   if (wsq_part == nullptr) {
     adam_tail_kernel<TG, TP, false><<<blocks, kThreads, 0, s>>>(
         static_cast<const TG*>(g), static_cast<const TP*>(p),
         static_cast<float*>(m), static_cast<float*>(v),
-        static_cast<float*>(u), n, a, nullptr, nullptr);
+        static_cast<float*>(u), n, a, nullptr, nullptr, corr, found_inf);
     return;
   }
   adam_tail_kernel<TG, TP, true><<<blocks, kThreads, 0, s>>>(
       static_cast<const TG*>(g), static_cast<const TP*>(p),
       static_cast<float*>(m), static_cast<float*>(v), static_cast<float*>(u),
-      n, a, static_cast<float*>(wsq_part), static_cast<float*>(usq_part));
+      n, a, static_cast<float*>(wsq_part), static_cast<float*>(usq_part),
+      corr, found_inf);
   if (cudaPeekAtLastError() != cudaSuccess) return;
   sum_parts_kernel<<<1, kThreads, 0, s>>>(
       static_cast<const float*>(wsq_part),
@@ -135,30 +157,34 @@ extern "C" int fused_update_blocks(long long n) {
 // (g_bf16, p_bf16); m, v, u: n fp32, m and v updated in place; all
 // contiguous. With wsq_part non-null (LAMB): wsq_part and usq_part hold
 // fused_update_blocks(n) floats each, and sums[0], sums[1] receive the sums
-// of p^2 and u^2.
+// of p^2 and u^2. corr (2 fp32: c1, c2, read in place of the c1 and c2
+// arguments) and found_inf (1 fp32) are device pointers or null.
 extern "C" int fused_adam_tail(int device, const void* g, const void* p,
                                void* m, void* v, void* u, long long n,
                                float b1, float omb1, float b2, float omb2,
                                float eps, float wd, int adam_w, float c1,
                                float c2, int g_bf16, int p_bf16,
                                void* wsq_part, void* usq_part, void* sums,
+                               const void* corr, const void* found_inf,
                                void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Adam a{b1, omb1, b2, omb2, eps, wd, c1, c2, adam_w};
   const int blocks = fused_update_blocks(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* cr = static_cast<const float*>(corr);
+  const float* fi = static_cast<const float*>(found_inf);
   if (g_bf16 && p_bf16)
     launch<__nv_bfloat16, __nv_bfloat16>(g, p, m, v, u, n, a, wsq_part,
-                                         usq_part, sums, blocks, s);
+                                         usq_part, sums, cr, fi, blocks, s);
   else if (g_bf16)
     launch<__nv_bfloat16, float>(g, p, m, v, u, n, a, wsq_part, usq_part,
-                                 sums, blocks, s);
+                                 sums, cr, fi, blocks, s);
   else if (p_bf16)
     launch<float, __nv_bfloat16>(g, p, m, v, u, n, a, wsq_part, usq_part,
-                                 sums, blocks, s);
+                                 sums, cr, fi, blocks, s);
   else
-    launch<float, float>(g, p, m, v, u, n, a, wsq_part, usq_part, sums,
-                         blocks, s);
+    launch<float, float>(g, p, m, v, u, n, a, wsq_part, usq_part, sums, cr,
+                         fi, blocks, s);
   return static_cast<int>(cudaGetLastError());
 }

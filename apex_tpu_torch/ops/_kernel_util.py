@@ -96,6 +96,39 @@ def force_plain() -> Iterator[None]:
 
 
 # ---------------------------------------------------------------------------
+# custom-gradient regions under amp's autocast
+
+# set by amp.autocast while its mode is active: (apply, args, kwargs) ->
+# outputs, the region run at its un-autocast input dtypes, mode suspended
+_OPAQUE_HOOK = [None]
+
+
+class OpaqueFunction(torch.autograd.Function):
+    """Base of the port's custom-gradient regions over its kernels (JAX's
+    ``custom_vjp``s: flash, LayerNorm / RMSNorm, the LM-head loss, dropout,
+    the softmaxes, the cross entropies). Outside amp's autocast it is a
+    plain ``torch.autograd.Function``; under it the region is opaque, as
+    JAX's autocast binds a custom-VJP region unchanged: its float inputs
+    go back to the dtypes they would have had without autocast and its
+    body runs with no per-op casting."""
+
+    @classmethod
+    def apply(cls, *args, **kwargs):
+        return opaque_call(super(OpaqueFunction, cls).apply, *args,
+                           **kwargs)
+
+
+def opaque_call(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` as an opaque region under amp's autocast
+    (:class:`OpaqueFunction`'s rule; for a kernel wrapper's branch that
+    runs without autograd), a plain call otherwise."""
+    hook = _OPAQUE_HOOK[0]
+    if hook is None:
+        return fn(*args, **kwargs)
+    return hook(fn, args, kwargs)
+
+
+# ---------------------------------------------------------------------------
 # launch counters
 
 

@@ -490,7 +490,7 @@ def flash_attention_bwd_dbias(q3, k3, v3, do3, lse, delta, scale: float,
     return db if db.shape[1:] == (sq, sk) else db[:, :sq, :sk].contiguous()
 
 
-class FlashAttention(torch.autograd.Function):
+class FlashAttention(ku.OpaqueFunction):
     """Flash attention over (bh, s, d) with its JAX ``custom_vjp``
     (``_flash3``, and ``_flash3_bias`` when a bias is given): the forward
     saves (q, k, v, o, lse), the backward runs the dQ and dK/dV kernels

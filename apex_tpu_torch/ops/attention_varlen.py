@@ -356,7 +356,7 @@ def flash_varlen_bwd_dkv(q, k, v, seg_q, seg_k, do, lse, delta, scale: float,
     return dk, dv
 
 
-class VarlenAttention(torch.autograd.Function):
+class VarlenAttention(ku.OpaqueFunction):
     """Varlen flash attention over (b, h, s, d), s a multiple of 64, with
     its JAX ``custom_vjp`` (``_varlen``): the forward saves (q, k, v, o,
     lse), the backward runs the dQ and dK/dV kernels (or their plain

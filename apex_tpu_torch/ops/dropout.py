@@ -113,7 +113,7 @@ def _apply(x, rate, key):
     return hidden_dropout_reference(x, rate, key)
 
 
-class HiddenDropout(torch.autograd.Function):
+class HiddenDropout(ku.OpaqueFunction):
     """JAX's ``_hidden_dropout`` and its vjp: dx = the same dropout of dy
     (same key, same index), so the mask is never stored."""
 

@@ -547,7 +547,7 @@ def rms_norm_bwd(dy, x2d, rstd, weight):
 # differentiable affine forms
 
 
-class LayerNormAffine(torch.autograd.Function):
+class LayerNormAffine(ku.OpaqueFunction):
     """Differentiable affine LayerNorm over (rows, hidden): the kernels for
     CUDA tensors, their plain versions for CPU tensors (or under
     ``force_plain``)."""
@@ -574,7 +574,7 @@ class LayerNormAffine(torch.autograd.Function):
         return dx, dw, db, None
 
 
-class RMSNormAffine(torch.autograd.Function):
+class RMSNormAffine(ku.OpaqueFunction):
     """Differentiable affine RMSNorm over (rows, hidden) (JAX's
     ``_rms_norm_affine``): the kernels for CUDA tensors, their plain
     versions for CPU tensors (or under ``force_plain``)."""
@@ -613,9 +613,9 @@ def _affine(x, vectors, autograd_fn, fwd, reference, eps):
                                        for t in (x, *vectors)):
         y = autograd_fn.apply(x2d, *vectors, eps)
     elif kernel:
-        y = fwd(x2d, *vectors, eps)
+        y = ku.opaque_call(fwd, x2d, *vectors, eps)
     else:
-        return reference(x, *vectors, eps)
+        return ku.opaque_call(reference, x, *vectors, eps)
     return y.reshape(x.shape)
 
 

@@ -372,7 +372,7 @@ def lm_head_loss_bwd_dw(x2, w, t, lse, g):
     return _launch_bwd("dw", x2, w, t, lse, g, torch.empty_like(w))
 
 
-class LMHeadLoss(torch.autograd.Function):
+class LMHeadLoss(ku.OpaqueFunction):
     """Per-row loss ``lse − pred`` of ``x2 · wᵀ`` (fp32, (n,)),
     differentiable in ``x2`` and ``w``: the kernels for CUDA tensors,
     their plain versions for CPU tensors (or under ``force_plain``). Saves

@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.ops import _kernel_util as ku
+
 MASK_FILL = -10000.0
 
 
@@ -37,7 +39,7 @@ def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
     return k > q
 
 
-class _ScaledMaskedSoftmax(torch.autograd.Function):
+class _ScaledMaskedSoftmax(ku.OpaqueFunction):
 
     @staticmethod
     def forward(ctx, x, mask, scale, causal):

@@ -14,8 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from apex_tpu_torch.ops import _kernel_util as ku
 
-class _SoftmaxCrossEntropy(torch.autograd.Function):
+
+class _SoftmaxCrossEntropy(ku.OpaqueFunction):
 
     @staticmethod
     def forward(ctx, logits, labels, smoothing, half_to_float):

@@ -13,8 +13,10 @@ from __future__ import annotations
 
 import torch
 
+from apex_tpu_torch.ops import _kernel_util as ku
 
-class VocabParallelCrossEntropy(torch.autograd.Function):
+
+class VocabParallelCrossEntropy(ku.OpaqueFunction):
     """Per-position loss (target's shape, fp32) with the JAX residuals."""
 
     @staticmethod

@@ -389,6 +389,29 @@ CHECKPOINT_POLICIES = {
 }
 
 
+class _both:
+    """The save tape's phase (when there is a tape) and, in the recompute,
+    amp's autocast mode that was active in the forward (when one was), so
+    the recomputed layer runs under the forward's casts. Reusable, as a
+    recompute may run again."""
+
+    def __init__(self, tape, recompute: bool, mode):
+        self.tape, self.recompute, self.mode = tape, recompute, mode
+        self.stacks = []
+
+    def __enter__(self):
+        stack = contextlib.ExitStack()
+        if self.tape is not None:
+            stack.enter_context(self.tape.phase(self.recompute))
+        if self.mode is not None:
+            stack.enter_context(self.mode)
+        self.stacks.append(stack)
+        return self
+
+    def __exit__(self, *exc):
+        return self.stacks.pop().__exit__(*exc)
+
+
 def checkpoint_saving(function: Callable, kinds: Iterable[str] = ()
                       ) -> Callable:
     """``function`` recomputed in backward (``torch.utils.checkpoint``,
@@ -403,10 +426,14 @@ def checkpoint_saving(function: Callable, kinds: Iterable[str] = ()
 
     @functools.wraps(function)
     def run(*args, **kwargs):
+        from apex_tpu_torch.amp.autocast import active_mode
+
         kw = {}
-        if kinds:
-            tape = _SavedOutputs(kinds)
-            kw["context_fn"] = lambda: (tape.phase(False), tape.phase(True))
+        mode = active_mode()
+        if kinds or mode is not None:
+            tape = _SavedOutputs(kinds) if kinds else None
+            kw["context_fn"] = lambda: (_both(tape, False, None),
+                                        _both(tape, True, mode))
         return _checkpoint(function, *args, use_reentrant=False, **kw,
                            **kwargs)
 

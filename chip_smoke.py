@@ -231,7 +231,28 @@
    and dqkv exactly 0, a second run bitwise equal, and in fp32 o and dqkv
    equal to ``flash_attention`` run document by document (1e-5); device
    and wall ms, tokens/s, and a profile of the bf16 causal run.
-9. Prints detail lines, the wall seconds of each phase (and of each
+9. Amp phase (mixed precision on the training main path):
+   * O2 GPT-2-124M bf16 at 8 x 1024 (fp32 masters, LN params fp32,
+     dynamic scale 2**16) with ``FusedAdam(lr=1e-4)`` over the masters,
+     composed from ``amp``'s public pieces: the launches of 10 steps
+     (counts reset just before, read just after) equal 10 x the train
+     table; a falling loss repeating bitwise from the same seed; no more
+     synchronizing calls a step than the plain bf16 step (timed beside it:
+     step ms p50, busy ms, tokens/s); the model copy and the unscale
+     timed alone; a step at scale 2**127 (the scaled loss is inf; one
+     gradient leaf made inf) keeps masters, m, v and the count bitwise and
+     halves the scale, and a step after restoring 2**16 trains;
+   * at GPT-2's widths and 2 layers, fp32: O0 and O2 with FusedAdam,
+     FusedLAMB, FusedSGD (Nesterov), FusedAdagrad, FusedNovoGrad and
+     LARC(SGD), 3 steps on the card held to the same on the CPU; O1
+     (``autocast``) one forward + backward held to the CPU's within the
+     bf16 gate, flash and the LM head on their fp32 routes;
+   * ``fp8_dot`` through ``MLP([1024, 4096, 4096, 1024])`` on 4096 rows,
+     10 steps: every cast's codes and the delayed-scaling state bitwise
+     the CPU's from the same values; the product's two routes
+     (``torch._scaled_mm``, the fp32 product of the upcast codes) held to
+     each other and timed.
+10. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -2273,7 +2294,11 @@ def adam_tail_phase(torch, dev):
     of the plain sums, bitwise equal over repeats. Times each model's
     train-step launches (one per leaf, no decay, as FusedAdam(lr=1e-4))
     against the bound of 24 bytes an element, beside the plain version and
-    torch.optim.AdamW(fused=True) over the same leaves (timed only).
+    torch.optim.AdamW(fused=True) over the same leaves (timed only). The
+    device pointers of the amp path: a clear found_inf flag with c1, c2
+    read from the card gives the null-pointer launch's bits, a set flag
+    leaves m and v and writes u = 0 (p unchanged); that variant's step
+    timed beside the null one (``flagged_ms``).
     Returns GPT's record with T5's under "t5"."""
     import numpy as np
 
@@ -2334,9 +2359,40 @@ def adam_tail_phase(torch, dev):
                 raise AssertionError(f"lamb tail {name}: not bitwise equal "
                                      f"over repeats")
 
+        # the device pointers (the amp path's): a clear flag and the
+        # corrections from the card give the null-pointer launch's bits; a
+        # set flag keeps m and v, writes u = 0 and so keeps p
+        corr = torch.full((2,), c1, dtype=torch.float32, device=dev)
+        corr[1:].fill_(c2)
+        clear = torch.zeros(1, device=dev)
+        for name, g, m, v, p in leaves:
+            null = fused_adam_tail(g, m.clone(), v.clone(), p, c1, c2, **kw)
+            flagged = fused_adam_tail(g, m.clone(), v.clone(), p, c1, c2,
+                                      corr=corr, found_inf=clear, **kw)
+            m_s, v_s = m.clone(), v.clone()
+            u_s, _, _ = fused_adam_tail(g, m_s, v_s, p, c1, c2, corr=corr,
+                                        found_inf=torch.ones(1, device=dev),
+                                        **kw)
+            torch.cuda.synchronize()
+            if not all(bool(torch.equal(a, b))
+                       for a, b in zip(null, flagged)):
+                raise AssertionError(f"adam tail {name}: a clear flag with "
+                                     f"device corrections is not bitwise "
+                                     f"the null-pointer launch")
+            if not (torch.equal(m_s, m) and torch.equal(v_s, v)
+                    and torch.equal(u_s, torch.zeros_like(u_s))
+                    and torch.equal(p + (-1e-4 * u_s).to(p.dtype), p)):
+                raise AssertionError(f"adam tail {name}: a set flag changed "
+                                     f"m, v or p")
+
         def step_kernel():
             for _, g, m, v, p in leaves:
                 fused_adam_tail(g, m, v, p, c1, c2, **kw)
+
+        def step_flagged():
+            for _, g, m, v, p in leaves:
+                fused_adam_tail(g, m, v, p, c1, c2, corr=corr,
+                                found_inf=clear, **kw)
 
         def step_plain():
             for _, g, m, v, p in leaves:
@@ -2355,6 +2411,8 @@ def adam_tail_phase(torch, dev):
                "lamb_bitwise_repeat": True,
                "per": f"{model} train step ({len(leaves)} launches)",
                "ms": time_ms(torch, step_kernel, iters=20),
+               "flagged_ms": time_ms(torch, step_flagged, iters=20),
+               "flag_clear_bitwise_null": True, "flag_set_keeps_state": True,
                "plain_ms": time_ms(torch, step_plain, iters=5),
                "library_ms": time_ms(torch, lib.step, iters=20),
                "bound_ms": bms, "bound_by": by}
@@ -4309,6 +4367,529 @@ def functional_phase(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# amp phase: mixed precision on the training main path
+
+AMP_PATH = "amp O2, GPT-2-124M bf16, 8 x 1024, FusedAdam(lr=1e-4)"
+AMP_BATCH, AMP_SEQ = 8, 1024       # the O2 main path's tokens a step
+AMP_CHECK_ROWS = (1, 64)           # batch, seq of the 2-layer card checks
+AMP_STATE_RTOL = 1e-4              # each state tensor, in norm
+AMP_MASTER_RTOL = 1e-5             # each master leaf (or the model), in norm
+# optimizers whose steps divide each element's gradient by its own running
+# magnitude (u = g/|g| at step 1), by the state entry holding it. The train
+# phases' fp32 gate holds a gradient to 1e-5 of its leaf's largest, so an
+# element AMP_NOISE below that largest may carry a relative error of 1e-2
+# and, where its exact gradient is zero (the key bias: softmax is shift-
+# invariant), its step's sign is summation noise on either side. For
+# these optimizers each leaf's update (master - initial) over its other
+# elements is held to AMP_UPDATE_RTOL in norm, and the noise elements
+# within 2·steps·lr·1.05 (a step of opposite sign each time, |u| <= 1.05
+# in the first steps)
+AMP_ELEMENTWISE = {"FusedAdam": "exp_avg_sq", "FusedLAMB": "exp_avg_sq",
+                   "FusedAdagrad": "sum"}
+AMP_NOISE = 1e-3
+AMP_UPDATE_RTOL = 1e-2
+
+
+def amp_optimizers():
+    """The optimizers of the fp32 card check, by name."""
+    from apex_tpu_torch.optimizers import (LARC, FusedAdagrad, FusedAdam,
+                                           FusedLAMB, FusedNovoGrad,
+                                           FusedSGD)
+
+    return {
+        "FusedAdam": lambda ps: FusedAdam(ps, lr=1e-4),
+        "FusedLAMB": lambda ps: FusedLAMB(ps, lr=1e-3),
+        "FusedSGD": lambda ps: FusedSGD(ps, lr=1e-2, momentum=0.9,
+                                        nesterov=True),
+        "FusedAdagrad": lambda ps: FusedAdagrad(ps, lr=1e-4),
+        "FusedNovoGrad": lambda ps: FusedNovoGrad(ps, lr=1e-3),
+        "LARC(SGD)": lambda ps: LARC(FusedSGD(ps, lr=1e-2, momentum=0.9),
+                                     lr=1e-2),
+    }
+
+
+class AmpRun:
+    """A GPT train step composed from amp's public pieces, as a user
+    writes it: ``initialize``, the model copy written in place each step
+    (``model_params(out=)``), the scaled loss's gradients, and
+    ``apply_grads_with_optimizer`` (unscale, overflow check, scale update
+    and the optimizer's guarded step, all on the device). ``autocast``
+    runs the loss under O1's per-op casts."""
+
+    def __init__(self, torch, cfg, params_np, tok, tgt, dev, level="O2",
+                 half_dtype=None, make_opt=None, autocast=False):
+        from apex_tpu_torch import amp
+        from apex_tpu_torch.convert import params_from_numpy
+        from apex_tpu_torch.optimizers import FusedAdam
+        from apex_tpu_torch.optimizers._common import tree_leaves, tree_map
+
+        self.torch, self.amp, self.cfg = torch, amp, cfg
+        self.tok, self.tgt = tok.to(dev), tgt.to(dev)
+        # cloned: a CPU tensor from numpy shares the array's memory
+        params = tree_map(lambda t: t.clone(),
+                          params_from_numpy(params_np, dev, dtype=cfg.dtype))
+        self.state, _ = amp.initialize(
+            params, level, half_dtype=half_dtype or torch.bfloat16)
+        del params
+        self.model = amp.model_params(self.state)
+        self.leaves = amp.trainable_leaves(self.model)
+        self.masters = tree_leaves(self.state.master_params)
+        self.opt = (make_opt or (lambda ps: FusedAdam(ps, lr=1e-4)))(
+            self.masters)
+        self.autocast = autocast
+        self.skipped = None
+
+    def loss(self):
+        from apex_tpu_torch.transformer.testing import gpt_loss
+
+        fn = lambda: gpt_loss(self.model, self.tok, self.tgt, self.cfg)
+        return self.amp.autocast(fn)() if self.autocast else fn()
+
+    def step(self):
+        amp = self.amp
+        amp.model_params(self.state, out=self.model)
+        loss = self.loss()
+        grads = self.torch.autograd.grad(amp.scale_loss(loss, self.state),
+                                         self.leaves)
+        self.state, _, self.skipped = amp.apply_grads_with_optimizer(
+            self.state, grads, self.opt)
+        return loss.detach()
+
+    def snapshot(self):
+        """Copies of the masters, every optimizer state tensor and the
+        step count."""
+        t = self.torch
+        state = [v.clone() for p in self.masters
+                 for v in self.opt.state[p].values() if t.is_tensor(v)]
+        count = self.opt.param_groups[0]["step"]
+        return ([p.detach().clone() for p in self.masters], state,
+                count.clone() if t.is_tensor(count) else count)
+
+
+def count_syncs(torch, fn) -> int:
+    """Synchronizing CUDA calls ``fn`` makes (``set_sync_debug_mode``
+    warnings, every one recorded)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _gpt_batch(torch, vocab, batch, seq, seed=0):
+    """``build_train_step``'s tokens: numpy seed + 1, targets rolled by
+    one."""
+    import numpy as np
+
+    tok = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, vocab, (batch, seq)).astype(np.int64))
+    return tok, torch.roll(tok, -1, dims=1)
+
+
+def amp_main_path(torch, dev, ku, steps: int = 10):
+    """O2 GPT-2-124M (bf16 model, fp32 masters, LN params fp32, dynamic
+    scale 2**16) at 8 x 1024 with FusedAdam over the masters: the main
+    path's launches over ``steps`` steps (counts reset just before, read
+    just after) equal ``steps`` x the train table; a falling, finite and
+    bitwise repeatable loss; no more synchronizing calls a step than the
+    plain bf16 step, which is timed beside it; the model copy and the
+    unscale timed alone; then an overflow step (scale 2**127: the scaled
+    loss is inf in fp32; one gradient leaf made inf, as the gradients
+    need not overflow) that keeps masters, m, v and the count bitwise and
+    halves the scale, and a step after restoring 2**16 that trains."""
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.optimizers._common import tree_leaves
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step)
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        init_gpt_params_numpy)
+
+    cfg = GPTConfig()
+    batch, seq = AMP_BATCH, AMP_SEQ
+    plain = build_train_step(cfg, batch, seq, device=dev, seed=0)[0]
+    plain(), plain()
+    plain_syncs = count_syncs(torch, plain)
+    plain_durs = timed_steps_of(torch, plain, steps)
+    plain_prof = profiled(torch, lambda: [plain() for _ in range(3)])
+    del plain
+    torch.cuda.empty_cache()
+    params_np = init_gpt_params_numpy(cfg, 0)
+    tok, tgt = _gpt_batch(torch, cfg.vocab_size, batch, seq)
+    torch.cuda.reset_peak_memory_stats()
+    run = AmpRun(torch, cfg, params_np, tok, tgt, dev)
+    ku.reset_launch_counts()
+    losses = torch.stack([run.step() for _ in range(steps)])
+    torch.cuda.synchronize()
+    launches = ku.launch_counts()
+    want = {k: steps * v for k, v in TRAIN_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"amp O2 launches over {steps} steps "
+                             f"{launches}, expected {want}")
+    vals = losses.tolist()
+    if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+        raise AssertionError(f"amp O2 loss did not fall: {vals}")
+    scaler = run.amp.state_dict(run.state)["loss_scaler0"]
+    if scaler != {"loss_scale": 2.0 ** 16, "unskipped": steps,
+                  "hysteresis_left": 1}:
+        raise AssertionError(f"amp O2 scaler after {steps} clean steps: "
+                             f"{scaler}")
+    amp_syncs = count_syncs(torch, run.step)
+    if amp_syncs > plain_syncs:
+        raise AssertionError(f"amp step makes {amp_syncs} synchronizing "
+                             f"calls, the plain step {plain_syncs}")
+    durs = timed_steps_of(torch, run.step, steps)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profiled(torch, lambda: [run.step() for _ in range(3)])
+    copy_ms = time_ms(torch, lambda: run.amp.model_params(
+        run.state, out=run.model), iters=10)
+    grads = list(torch.autograd.grad(
+        run.amp.scale_loss(run.loss(), run.state), run.leaves))
+    unscale_ms = time_ms(torch, lambda: LossScaler("dynamic").unscale(
+        grads, run.state.scaler), iters=10)
+    del grads
+    # the overflow step: at 2**127 the scaled loss is inf in fp32, but its
+    # gradients (2**127 times the loss's) need not overflow, so one leaf's
+    # gradient is made inf as well
+    before = run.snapshot()
+    run.state = run.state._replace(scaler=run.state.scaler._replace(
+        loss_scale=torch.full((), 2.0 ** 127, device=dev)))
+    run.amp.model_params(run.state, out=run.model)
+    scaled = run.amp.scale_loss(run.loss(), run.state)
+    grads = list(torch.autograd.grad(scaled, run.leaves))
+    natural = not all(bool(torch.isfinite(g).all()) for g in grads)
+    grads[0] = grads[0] * float("inf")
+    run.state, _, run.skipped = run.amp.apply_grads_with_optimizer(
+        run.state, grads, run.opt)
+    loss_inf = float(scaled.detach())
+    del grads
+    after = run.snapshot()
+    same = (all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+            and all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
+            and torch.equal(before[2], after[2]))
+    scale_after = float(run.state.scaler.loss_scale)
+    if not same or not bool(run.skipped) or scale_after != 2.0 ** 126:
+        raise AssertionError(f"amp overflow step: state kept bitwise {same}, "
+                             f"skipped {bool(run.skipped)}, scale "
+                             f"{scale_after}")
+    run.state = run.amp.load_state_dict(run.state, {"loss_scaler0": {
+        "loss_scale": 2.0 ** 16, "unskipped": 0, "hysteresis_left": 1}})
+    loss_next = float(run.step())
+    trained = run.snapshot()
+    moved = any(not torch.equal(a, b) for a, b in zip(after[0], trained[0]))
+    if bool(run.skipped) or not moved or int(trained[2]) != int(after[2]) + 1:
+        raise AssertionError("amp: the step after the overflow did not train")
+    n_params = sum(p.numel() for p in tree_leaves(run.state.master_params))
+    del run, before, after, trained
+    torch.cuda.empty_cache()
+    again_run = AmpRun(torch, cfg, params_np, tok, tgt, dev)
+    again = torch.stack([again_run.step() for _ in range(steps)])
+    if not torch.equal(losses, again):
+        raise AssertionError(f"amp O2 losses differ between two runs from "
+                             f"one seed: {vals} vs {again.tolist()}")
+    del again_run
+    torch.cuda.empty_cache()
+    p50 = lambda d: sorted(d)[len(d) // 2] * 1e3
+    return {"path": AMP_PATH, "steps": steps, "losses": vals,
+            "bitwise_repeat": True, "launches": launches,
+            "launches_per_step": {k: v // steps for k, v in launches.items()},
+            "syncs_per_step": amp_syncs, "plain_syncs_per_step": plain_syncs,
+            "step_ms_p50": p50(durs), "step_ms": [d * 1e3 for d in durs],
+            "tokens_per_s": batch * seq * steps / sum(durs),
+            "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
+            "peak_mem_gib": peak_gib, "top": prof["top"],
+            "plain_step_ms_p50": p50(plain_durs),
+            "plain_tokens_per_s": batch * seq * steps / sum(plain_durs),
+            "plain_device_busy_ms_per_step":
+                plain_prof["device_busy_ms"] / 3,
+            "model_copy_ms": copy_ms,
+            "model_copy_bytes": n_params * (4 + 2),
+            "unscale_ms": unscale_ms, "n_params": n_params,
+            "overflow": {"scale_in": 2.0 ** 127, "scale_out": scale_after,
+                         "scaled_loss": loss_inf,
+                         "grads_overflowed_at_2_127": natural,
+                         "state_kept_bitwise": True,
+                         "next_loss": loss_next, "next_trained": True}}
+
+
+def _tree_rel(torch, a, b):
+    """‖a − b‖ / ‖b‖ over fp32 copies (b on a's device)."""
+    a, b = a.detach().float(), b.detach().float().to(a.device)
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def amp_fp32_check(torch, dev, ku, steps: int = 3):
+    """At GPT-2's widths and 2 layers, fp32: O0 and O2 (fp32 masters, an
+    fp32 model: ``half_dtype=float32``) with each optimizer, ``steps``
+    steps on the card (kernels) and on the CPU (plain versions) from the
+    same params: the loss within rel 1e-5 each step, every master leaf
+    within AMP_MASTER_RTOL of the CPU's in norm (for the AMP_ELEMENTWISE
+    optimizers its update within AMP_UPDATE_RTOL, its noise elements
+    within the flip bound), every optimizer state tensor within
+    AMP_STATE_RTOL, the step count and the scaler state equal."""
+    import dataclasses
+
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.testing import GPTConfig
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        init_gpt_params_numpy)
+
+    cfg = dataclasses.replace(GPTConfig(dtype=torch.float32), num_layers=2)
+    params_np = init_gpt_params_numpy(cfg, 0)
+    tok, tgt = _gpt_batch(torch, cfg.vocab_size, *AMP_CHECK_ROWS)
+    cpu = torch.device("cpu")
+    out, failed = {}, []
+    for level in ("O0", "O2"):
+        for name, make in amp_optimizers().items():
+            card, host = (AmpRun(torch, cfg, params_np, tok, tgt, d, level,
+                                 half_dtype=torch.float32, make_opt=make)
+                          for d in (dev, cpu))
+            worst = {"loss": 0.0, "master": 0.0, "update": 0.0,
+                     "state": 0.0, "master_worst_leaf": "",
+                     "noise_elements": 0, "noise_max_abs_diff": 0.0}
+            initial = [b.detach().clone() for b in host.masters]
+            for _ in range(steps):
+                lk, lp = float(card.step()), float(host.step())
+                worst["loss"] = max(worst["loss"], abs(lk - lp) / abs(lp))
+            lr = host.opt.param_groups[0]["lr"]
+            flip = 2.0 * steps * lr * 1.05
+            names = [k for k, _ in named_leaves(host.state.master_params)]
+            for leaf, a, b, b0 in zip(names, card.masters, host.masters,
+                                      initial):
+                diff = a.detach().cpu() - b.detach()
+                for key, v in card.opt.state[a].items():
+                    if torch.is_tensor(v):
+                        worst["state"] = max(worst["state"], _tree_rel(
+                            torch, v, host.opt.state[b][key]))
+                if name in AMP_ELEMENTWISE:
+                    mag = host.opt.state[b][AMP_ELEMENTWISE[name]].sqrt()
+                    keep = mag > AMP_NOISE * mag.max()
+                    noisy = diff[~keep].abs()
+                    worst["noise_elements"] += int(noisy.numel())
+                    if noisy.numel():
+                        worst["noise_max_abs_diff"] = max(
+                            worst["noise_max_abs_diff"], float(noisy.max()))
+                    upd = (b.detach() - b0)[keep]
+                    rel = float(diff[keep].norm() / upd.norm().clamp_min(
+                        1e-30)) if upd.numel() else 0.0
+                    if rel > worst["update"]:
+                        worst["update"], worst["master_worst_leaf"] = \
+                            rel, leaf
+                    continue
+                rel = float(diff.norm() / b.detach().norm().clamp_min(1e-30))
+                if rel > worst["master"]:
+                    worst["master"], worst["master_worst_leaf"] = rel, leaf
+            master = worst["master"]
+            if (worst["noise_max_abs_diff"] > flip
+                    or worst["update"] > AMP_UPDATE_RTOL):
+                master = float("inf")
+            counts = [int(r.opt.param_groups[0]["step"])
+                      for r in (card, host)]
+            scalers = [r.amp.state_dict(r.state) for r in (card, host)]
+            if (worst["loss"] > 1e-5 or master > AMP_MASTER_RTOL
+                    or worst["state"] > AMP_STATE_RTOL
+                    or counts != [steps, steps] or scalers[0] != scalers[1]):
+                failed.append(f"{level} {name}: card vs CPU {worst}, counts "
+                              f"{counts}, scalers {scalers}")
+            out[f"{level} {name}"] = worst
+            del card, host
+    if failed:
+        raise AssertionError("amp fp32 check: " + "; ".join(failed))
+    return {"rows": AMP_CHECK_ROWS, "layers": 2, "steps": steps,
+            "loss_rtol": 1e-5, "master_rtol_norm": AMP_MASTER_RTOL,
+            "state_rtol_norm": AMP_STATE_RTOL, "cases": out}
+
+
+def amp_o1_check(torch, dev, ku):
+    """O1 at GPT-2's widths and 2 layers: fp32 params, the loss under
+    ``autocast`` (bf16 products), one forward + backward on the card
+    (kernels; counts reset just before, read just after) and on the CPU
+    (plain versions): the loss within BF16_LOSS_RTOL, every gradient leaf
+    within BF16_GRAD_NORM_RTOL of the CPU's in norm. The bias adds promote
+    each product back to fp32, so flash, LayerNorm and the LM head get
+    fp32 inputs, as JAX traces its custom-VJP regions: their fp32 routes
+    (``flash_attention_*``, ``lm_head_loss_*``) launch, no ``*_mma_*``."""
+    import dataclasses
+
+    from apex_tpu_torch.transformer.testing import GPTConfig
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        init_gpt_params_numpy)
+
+    cfg = dataclasses.replace(GPTConfig(dtype=torch.float32), num_layers=2)
+    params_np = init_gpt_params_numpy(cfg, 0)
+    tok, tgt = _gpt_batch(torch, cfg.vocab_size, *AMP_CHECK_ROWS)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        run = AmpRun(torch, cfg, params_np, tok, tgt, d, "O1",
+                     autocast=True)
+        ku.reset_launch_counts()
+        loss = run.loss()
+        loss.backward()
+        torch.cuda.synchronize()
+        res.append((float(loss.detach()), [p.grad.detach().float().cpu()
+                                  for p in run.leaves],
+                    ku.launch_counts(), loss.dtype))
+    (lk, gk, launches, dtype), (lp, gp, _, _) = res
+    loss_err = abs(lk - lp) / abs(lp)
+    worst = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(gk, gp))
+    mma = [k for k in launches if "_mma_" in k]
+    if (loss_err > BF16_LOSS_RTOL or worst > BF16_GRAD_NORM_RTOL
+            or dtype != torch.float32 or mma
+            or not launches.get("flash_attention_fwd")
+            or not launches.get("lm_head_loss_fwd")):
+        raise AssertionError(f"amp O1 card vs CPU: loss rel {loss_err:.3e}, "
+                             f"grads {worst:.3e}, launches {launches}")
+    return {"rows": AMP_CHECK_ROWS, "layers": 2, "loss_card": lk,
+            "loss_cpu": lp, "loss_rel_err": loss_err,
+            "grad_max_norm_rel_err": worst, "launches": launches,
+            "flash_dtype": "float32"}
+
+
+FP8_SIZES = (1024, 4096, 4096, 1024)   # mlp.MLP([1024, 4096, 4096, 1024])
+# the routes' agreement, of the output's largest magnitude: Hopper's fp8
+# MMA keeps about 14 bits of its running sum (DeepSeek-V3, 2024, §3.3.2)
+# between cuBLAS's promotions to fp32; the upcast route sums in fp32
+FP8_ROUTE_TOL = 1e-3
+FP8_ROWS = 4096
+
+
+def amp_fp8_check(torch, dev, steps: int = 10):
+    """``mlp.MLP(FP8_SIZES)``'s products through ``fp8_dot`` (e4m3
+    forward, e5m2 gradient, history 4), ReLU between, mean-square loss,
+    SGD 0.1, ``steps`` steps on the card. Each step, every cast of the
+    step's tensors (x, w and the incoming gradient of each product) gives
+    the same codes on the card and on the CPU from the same values, and
+    the delayed-scaling state after the step equals the CPU's update from
+    the same amaxes, bitwise. The product's two routes (``_scaled_mm`` on
+    the fp8 tensor cores and the fp32 product of the upcast codes) are
+    held to each other at each layer's forward and backward shapes on the
+    last step's codes, a nonzero product (the
+    same codes, sums in other orders and precisions: the max abs
+    difference within FP8_ROUTE_TOL of the output's largest magnitude) and
+    timed."""
+    import numpy as np
+
+    from apex_tpu_torch.amp import fp8
+    from apex_tpu_torch.mlp import MLP
+
+    rec = fp8.Fp8Recipe(history_len=4)
+    torch.manual_seed(0)
+    mlp = MLP(list(FP8_SIZES))
+    n = len(FP8_SIZES) - 1
+    params = {k: v.detach().to(dev) for k, v in mlp.named_parameters()}
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (FP8_ROWS, FP8_SIZES[0])).astype(np.float32)).to(dev)
+    st = fp8.init_fp8_state([str(i) for i in range(n)], rec, device=dev)
+    cpu = lambda t: t.detach().cpu()
+
+    def codes_equal(t, scale, dtype):
+        a = fp8.cast_fp8(t, scale, dtype).view(torch.uint8).cpu()
+        b = fp8.cast_fp8(cpu(t), cpu(scale), dtype).view(torch.uint8)
+        return bool(torch.equal(a, b))
+
+    def state_cpu(old, t, dtype):
+        amax, over = fp8._observe(cpu(t), cpu(old.scale), dtype)
+        return fp8.update_tensor_state(fp8.Fp8TensorState(
+            *(cpu(v) for v in old)), amax, over, dtype, rec)
+
+    def same_state(a, b):
+        return all(bool(torch.equal(cpu(u), v)) for u, v in zip(a, b))
+
+    losses, routes = [], {}
+    for step in range(steps):
+        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+        h, ins, outs, fwd = x, [], [], {}
+        for i in range(n):
+            ins.append(h.detach())
+            y, fwd[str(i)] = fp8.fp8_dot(h, leaves[f"kernel_{i}"],
+                                         st[str(i)], rec)
+            y.retain_grad()
+            outs.append(y)
+            h = y + leaves[f"bias_{i}"]
+            if i < n - 1:
+                h = torch.relu(h)
+        loss = torch.mean(h ** 2)
+        loss.backward()
+        new = fp8.merge_state_grads(fwd)
+        for i in range(n):
+            old, w, dy = st[str(i)], leaves[f"kernel_{i}"], outs[i].grad
+            for t, scale, dt in ((ins[i], old.x.scale, rec.fwd_dtype),
+                                 (w, old.w.scale, rec.fwd_dtype),
+                                 (dy, old.g.scale, rec.grad_dtype)):
+                if not codes_equal(t, scale, dt):
+                    raise AssertionError(f"fp8 step {step} product {i}: "
+                                         f"card codes differ from the CPU's")
+            for half, t, dt in (("x", ins[i], rec.fwd_dtype),
+                                ("w", w, rec.fwd_dtype),
+                                ("g", dy, rec.grad_dtype)):
+                if not same_state(getattr(new[str(i)], half),
+                                  state_cpu(getattr(old, half), t, dt)):
+                    raise AssertionError(f"fp8 step {step} product {i}: "
+                                         f"state {half} differs from the "
+                                         f"CPU's update")
+            if step == steps - 1:
+                # the last step: at step 0 the gradient's delayed scale
+                # is still 1 and its e5m2 codes underflow to 0
+                qx = fp8.cast_fp8(ins[i], old.x.scale, rec.fwd_dtype)
+                qw = fp8.cast_fp8(w, old.w.scale, rec.fwd_dtype)
+                qdy = fp8.cast_fp8(dy, old.g.scale, rec.grad_dtype)
+                for what, a, b in (("fwd", qx, qw), ("dx", qdy, qw.t()),
+                                   ("dw", qx.t(), qdy)):
+                    tc = fp8.fp8_matmul(a, b, "scaled_mm")
+                    up = fp8.fp8_matmul(a, b, "upcast")
+                    err = float((tc - up).abs().max().detach())
+                    scale = float(up.abs().max().detach())
+                    if not scale > 0.0 or err > FP8_ROUTE_TOL * scale:
+                        raise AssertionError(f"fp8 product {i} {what}: "
+                                             f"routes differ by {err:.3e}")
+                    routes[f"{i} {what}"] = {
+                        "shape": [a.shape[0], a.shape[1], b.shape[1]],
+                        "types": [str(a.dtype), str(b.dtype)],
+                        "route": fp8.fp8_route(a, b),
+                        "max_abs_err": err, "rel_err": err / scale,
+                        "scaled_mm_ms": time_ms(torch, lambda: fp8.fp8_matmul(
+                            a, b, "scaled_mm"), iters=10),
+                        "upcast_ms": time_ms(torch, lambda: fp8.fp8_matmul(
+                            a, b, "upcast"), iters=10)}
+        with torch.no_grad():
+            params = {k: v - 0.1 * v.grad for k, v in leaves.items()}
+        st = new
+        losses.append(float(loss.detach()))
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fp8 MLP loss did not fall: {losses}")
+    return {"sizes": list(FP8_SIZES), "rows": FP8_ROWS, "steps": steps,
+            "losses": losses, "codes_bitwise_card_cpu": True,
+            "state_bitwise_card_cpu": True, "routes": routes,
+            "metrics": {k: float(v) for k, v in fp8.fp8_metrics(st).items()
+                        if k.endswith("overflow_rate")}}
+
+
+def amp_phase(torch, dev, ku):
+    """The amp phase: the O2 main path, the fp32 and O1 card checks and
+    the fp8 products, each's wall seconds."""
+    out, secs = {}, {}
+    for name, fn in (("o2", amp_main_path), ("fp32_check", amp_fp32_check),
+                     ("o1_check", amp_o1_check)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, dev, ku)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["fp8"] = amp_fp8_check(torch, dev)
+    torch.cuda.empty_cache()
+    secs["fp8"] = time.perf_counter() - t0
+    out["phase_s"] = secs
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full JSON record here")
@@ -4399,6 +4980,8 @@ def main(argv=None) -> int:
     t5d = phase("t5_dropout", (), t5_dropout_phase, torch, dev, ku)
     fmha = phase("fmha", (), fmha_phase, torch, dev, ku)
     func = phase("functional", (), functional_phase, torch, dev)
+    amp_res = phase("amp", (), amp_phase, torch, dev, ku)
+    seconds["amp_parts"] = amp_res["phase_s"]
     name = torch.cuda.get_device_name(0)
     # the phases' record, written before the kernels line is assembled
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
@@ -4413,7 +4996,7 @@ def main(argv=None) -> int:
               "engine": engine, "engine_monitor": mon,
               "engine_lora": lora, "train": train, "t5_train": t5,
               "dropout": drop_cases, "train_dropout": trd,
-              "t5_dropout": t5d, "functional": func}
+              "t5_dropout": t5d, "functional": func, "amp": amp_res}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -5146,6 +5729,42 @@ def main(argv=None) -> int:
           f"vs merged weights {lora['fp32_logits_max_abs_err']:.3e} "
           f"(limit {LORA_ATOL} + {LORA_RTOL} rel); merged-engine streams "
           f"{lora['fp32_merged_streams']}")
+    # the amp main path's launches a step beside each kernel it runs
+    o2 = amp_res["o2"]
+    for kname, per in o2["launches_per_step"].items():
+        by_name[kname]["amp"] = {"launches": per,
+                                 "launches_10_steps": o2["launches"][kname],
+                                 "path": AMP_PATH}
+    by_name["fused_adam_tail"]["amp"].update(
+        flagged_ms=adam["flagged_ms"],
+        flagged="c1, c2 and found_inf read from the card")
+    print(f"amp O2 {AMP_PATH}: step_ms_p50 {o2['step_ms_p50']:.2f} busy ms "
+          f"{o2['device_busy_ms_per_step']:.2f} tokens/s "
+          f"{o2['tokens_per_s']:.1f} peak {o2['peak_mem_gib']:.2f} GiB "
+          f"syncs a step {o2['syncs_per_step']}; plain bf16 step "
+          f"step_ms_p50 {o2['plain_step_ms_p50']:.2f} busy ms "
+          f"{o2['plain_device_busy_ms_per_step']:.2f} tokens/s "
+          f"{o2['plain_tokens_per_s']:.1f} syncs a step "
+          f"{o2['plain_syncs_per_step']}; model copy "
+          f"{o2['model_copy_ms']:.4f} ms, unscale {o2['unscale_ms']:.4f} "
+          f"ms; losses {[round(v, 4) for v in o2['losses']]} on {card}")
+    print(f"amp overflow step: {o2['overflow']}; launches a step "
+          f"{o2['launches_per_step']}")
+    print(f"amp fp32 card vs CPU (2 layers, {AMP_CHECK_ROWS}): "
+          f"{amp_res['fp32_check']['cases']}")
+    o1 = amp_res["o1_check"]
+    print(f"amp O1 card vs CPU (2 layers): loss rel "
+          f"{o1['loss_rel_err']:.3e}, grads {o1['grad_max_norm_rel_err']:.3e}"
+          f" in norm, launches {o1['launches']}")
+    f8 = amp_res["fp8"]
+    for key, r in f8["routes"].items():
+        print(f"amp fp8 product {key} {r['shape']} {r['types']}: "
+              f"route {r['route']}, scaled_mm {r['scaled_mm_ms']:.4f} ms, "
+              f"upcast {r['upcast_ms']:.4f} ms, rel diff {r['rel_err']:.2e} "
+              f"on {card}")
+    print(f"amp fp8 MLP {f8['sizes']} x {f8['rows']}: codes and state "
+          f"bitwise card vs CPU over {f8['steps']} steps, losses "
+          f"{[round(v, 5) for v in f8['losses']]}")
     by_name["flash_mma_fwd"]["train_dropout"] = {
         policy: run["launches_per_step"]["flash_mma_fwd"]
         for policy, run in trd["policies"].items()}

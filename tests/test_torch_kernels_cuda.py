@@ -969,6 +969,138 @@ def test_lamb_tail_kernel_sums_match_and_repeat_bitwise(dev):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lamb", [False, True])
+def test_adam_tail_flag_leaves_state_and_param_unchanged(dev, dtype, lamb):
+    """A set found_inf flag (device fp32): the kernel leaves m and v
+    bitwise, writes u = 0, so p + (-lr·u) is p bitwise, and the LAMB sums
+    are 0; a clear flag gives the unflagged launch's bits."""
+    g, m, v, p = _tail_case(dev, (300, 700), dtype, 11)
+    tail = fused_lamb_tail if lamb else fused_adam_tail
+    kw = dict(TAIL_KW, weight_decay=0.01)
+    m1, v1 = m.clone(), v.clone()
+    out = tail(g, m1, v1, p, C1, C2, found_inf=torch.ones(1, device=dev),
+               **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(m1, m) and torch.equal(v1, v)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.equal(p + (-1e-4 * out[0]).to(p.dtype), p)
+    if lamb:
+        assert float(out[3]) == 0.0 and float(out[4]) == 0.0
+    clear = tail(g, m.clone(), v.clone(), p, C1, C2,
+                 found_inf=torch.zeros(1, device=dev), **kw)
+    plain = tail(g, m.clone(), v.clone(), p, C1, C2, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(clear, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adam_tail_device_corrections(dev, dtype):
+    """c1, c2 from a device pointer holding the host's values give the
+    host launch's bits; computed on the card from a device count (``1 -
+    β**t`` in fp32) they match the plain version given the same tensor
+    (rtol 1e-6, atol 1e-7)."""
+    g, m, v, p = _tail_case(dev, (70001,), dtype, 12)
+    corr = torch.tensor([C1, C2], dtype=torch.float32, device=dev)
+    a = fused_adam_tail(g, m.clone(), v.clone(), p, C1, C2, **TAIL_KW)
+    b = fused_adam_tail(g, m.clone(), v.clone(), p, 0.5, 0.5, corr=corr,
+                        **TAIL_KW)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    count = torch.full((), 3, dtype=torch.int32, device=dev)
+    betas = torch.tensor([0.9, 0.999], dtype=torch.float32, device=dev)
+    corr = 1.0 - torch.pow(betas, count.float())
+    got = fused_adam_tail(g, m.clone(), v.clone(), p, 1.0, 1.0, corr=corr,
+                          **TAIL_KW)
+    want = adam_tail_reference(g, m.clone(), v.clone(), p, 1.0, 1.0,
+                               corr=corr, **TAIL_KW)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
+
+
+def test_fused_adam_device_step_skips_without_a_host_read(dev):
+    """FusedAdam(step(found_inf=...)) on the card: a clean step, then a
+    flagged one that keeps params, moments and the count bitwise; the
+    count stays a device tensor and no synchronizing call is made
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    params = [torch.randn(300, 70, device=dev), torch.randn(7, device=dev)]
+    opt = FusedAdam(params, lr=1e-3)
+    for p in params:
+        p.grad = torch.randn_like(p)
+    opt.step(found_inf=torch.zeros((), device=dev))
+    before = [p.clone() for p in params]
+    moments = [(opt.state[p]["exp_avg"].clone(),
+                opt.state[p]["exp_avg_sq"].clone()) for p in params]
+    count = opt.param_groups[0]["step"].clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.step(found_inf=torch.ones((), device=dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for p, b, (m, v) in zip(params, before, moments):
+        assert torch.equal(p, b)
+        assert torch.equal(opt.state[p]["exp_avg"], m)
+        assert torch.equal(opt.state[p]["exp_avg_sq"], v)
+    assert torch.equal(opt.param_groups[0]["step"], count)
+    assert opt.param_groups[0]["step"].is_cuda
+
+
+def test_kernels_refuse_fp16(dev):
+    """The kernels take fp32 and bf16: fp16 inputs on the card raise (no
+    quiet switch to the plain version), where JAX's Pallas wrappers
+    compute fp16 in interpret mode (ROADMAP §C)."""
+    h = torch.float16
+    x = torch.randn(32, 128, device=dev, dtype=h)
+    w, b = torch.ones(128, device=dev, dtype=h), torch.zeros(128, device=dev,
+                                                            dtype=h)
+    with pytest.raises(ValueError):
+        layer_norm_fwd(x, w, b)
+    with pytest.raises(ValueError):
+        rms_norm_fwd(x, w)
+    q = torch.randn(2, 128, 64, device=dev, dtype=h)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, q, q, 0.125, True)
+    with pytest.raises(ValueError):
+        lm_head_loss_fwd(torch.randn(128, 128, device=dev, dtype=h),
+                         torch.randn(256, 128, device=dev, dtype=h),
+                         torch.zeros(128, dtype=torch.long, device=dev))
+    g = torch.randn(1024, device=dev, dtype=h)
+    m, v = torch.zeros(1024, device=dev), torch.zeros(1024, device=dev)
+    with pytest.raises(ValueError):
+        fused_adam_tail(g, m, v, g, C1, C2, **TAIL_KW)
+
+
+def test_fp8_product_routes_agree(dev):
+    """The fp8 product on the tensor cores (``torch._scaled_mm``) and as
+    the fp32 product of the upcast operands: the same codes, sums in other
+    orders and precisions (Hopper's fp8 MMA keeps about 14 bits of its
+    running sum between cuBLAS's promotions to fp32): max abs difference
+    within 1e-3 of the output's largest magnitude; the route follows the
+    shapes (a dim not % 16 takes the upcast)."""
+    from apex_tpu_torch.amp import fp8
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(256, 1024, device=dev, generator=gen)
+    w = torch.randn(1024, 512, device=dev, generator=gen) * 0.05
+    for da, db in ((fp8.E4M3, fp8.E4M3), (fp8.E5M2, fp8.E4M3),
+                   (fp8.E4M3, fp8.E5M2)):
+        a = fp8.cast_fp8(x, torch.tensor(1.0, device=dev), da)
+        b = fp8.cast_fp8(w, torch.tensor(1.0, device=dev), db)
+        assert fp8.fp8_route(a, b) == "scaled_mm"
+        tc = fp8.fp8_matmul(a, b)
+        up = fp8.fp8_matmul(a, b, route="upcast")
+        assert float((tc - up).abs().max()) <= 1e-3 * float(
+            up.abs().max())
+    assert fp8.fp8_route(a[:, :1000], b[:1000]) == "upcast"
+
+
 # ---------------------------------------------------------------------------
 # quantized paged attention and the fused layer (the megakernel)
 
