@@ -20,8 +20,11 @@ keys with the remat policies (``transformer.tensor_parallel.random``,
 ``ops.dropout``: a CUDA kernel with no Pallas counterpart), and the
 Megatron functional ops (``ops.softmax``,
 ``transformer.functional``, ``ops.xentropy``, ``contrib.xentropy``,
-``mlp``, ``fused_dense``): every Pallas kernel of ``apex_tpu`` has its
-CUDA counterpart.
+``mlp``, ``fused_dense``), mixed precision (``amp``, the optimizer
+suite, ``fp16_utils``; every kernel a training path reaches takes fp32,
+bf16 and fp16), BERT (``transformer.testing.standalone_bert``) and the
+``contrib.multihead_attn`` and ``contrib.transducer`` modules: every
+Pallas kernel of ``apex_tpu`` has its CUDA counterpart.
 """
 
 from apex_tpu_torch._device import resolve_device  # noqa: F401

@@ -1,4 +1,7 @@
 """Contrib layer of the port (counterpart of ``apex_tpu/contrib``): so far
 ``contrib.fmha``, packed variable-length attention over the varlen flash
 kernels, ``contrib.layer_norm``, FastLayerNorm over the LayerNorm
-kernels, and ``contrib.xentropy``, the label-smoothing cross-entropy."""
+kernels, ``contrib.xentropy``, the label-smoothing cross-entropy,
+``contrib.multihead_attn``, the self and encoder-decoder attention
+modules over LayerNorm and flash, and ``contrib.transducer``, the RNN-T
+joint and loss."""

@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -17,11 +18,19 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ void from_f(float v, float* out) { *out = v; }
 // round to nearest even, as torch's and XLA's casts do
 __device__ __forceinline__ void from_f(float v, __nv_bfloat16* out) {
   *out = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void from_f(float v, __half* out) {
+  *out = __float2half_rn(v);
+}
+
+// The input-type code of the C entries (ops/_kernel_util.py
+// `dtype_code`): 0 fp32, 1 bf16, 2 fp16
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
 
 // elements of T in one 16-byte vector
 template <typename T>
@@ -88,6 +97,26 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 }
 
 }  // namespace apex
+
+// Runs the statement given with the type name T bound to the element type
+// of `code` (apex::kF32, kBF16 or kF16); `otherwise` for any other code
+#define APEX_TYPE_SWITCH(code, T, otherwise, ...) \
+  switch (code) {                                 \
+    case apex::kF32: {                            \
+      using T = float;                            \
+      __VA_ARGS__;                                \
+    } break;                                      \
+    case apex::kBF16: {                           \
+      using T = __nv_bfloat16;                    \
+      __VA_ARGS__;                                \
+    } break;                                      \
+    case apex::kF16: {                            \
+      using T = __half;                           \
+      __VA_ARGS__;                                \
+    } break;                                      \
+    default:                                      \
+      otherwise;                                  \
+  }
 
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -10,8 +10,8 @@
 //   (b0, b1) = threefry2x32(k0, k1; x0 = j >> 32, x1 = j & 0xffffffff)
 //   keep     = ((b0 ^ b1) >> 9) < threshold        // JAX: uniform < fp32 p
 //   y[j]     = keep ? x[j] * scale : 0              // rounded to x's type
-// threshold = ceil(fp32(1 - rate) * 2^23) and scale (fp32, or already
-// rounded to bf16 for bf16 x) come from the host (ops/dropout.py), so the
+// threshold = ceil(fp32(1 - rate) * 2^23) and scale (fp32, or already rounded
+// to x's type for bf16 or fp16 x) come from the host (ops/dropout.py), so the
 // bits, the mask and the products are JAX's exactly.
 //
 // Bound on this card: instruction issue. Each element needs at least ~71
@@ -24,11 +24,11 @@
 // is no bound: on GPT-2's (8, 1024, 768) this kernel runs in less than
 // that pipe's 85-operation time.
 //
-// Design: one pass, a grid-stride loop of 16-byte vectors (4 fp32 or 8 bf16
-// elements a thread an iteration), rotations as funnel shifts (one SHF
+// Design: one pass, a grid-stride loop of 16-byte vectors (4 fp32, 8 bf16 or 8
+// fp16 elements a thread an iteration), rotations as funnel shifts (one SHF
 // each), the key schedule's sums hoisted out of the loop; the elements past
-// the last whole vector by single-element steps. No shared memory, no
-// atomics: every element is a pure function of (key, index, x).
+// the last whole vector by single-element steps. No shared memory, no atomics:
+// every element is a pure function of (key, index, x).
 
 #include "common.cuh"
 
@@ -114,27 +114,23 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // On CUDA device `device`, on `stream`: y = dropout(x) over n contiguous,
-// 16-byte aligned elements of fp32 or bf16 (is_bf16); (k0, k1) the threefry
-// key, `threshold` and `scale` as above.
+// 16-byte aligned elements of fp32, bf16 or fp16 (dtype 0, 1 or 2);
+// (k0, k1) the threefry key, `threshold` and `scale` as above.
 extern "C" int hidden_dropout(int device, const void* x, void* y,
                               long long n, unsigned k0, unsigned k1,
-                              unsigned threshold, float scale, int is_bf16,
+                              unsigned threshold, float scale, int dtype,
                               void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Key k{k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int v = is_bf16 ? apex::Vec<__nv_bfloat16>::N : apex::Vec<float>::N;
-  const long long want = (n / v + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(
-      want < 1 ? 1 : (want > kMaxBlocks ? kMaxBlocks : want));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    dropout_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        n, k, threshold, scale);
-  else
-    dropout_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), n, k,
-        threshold, scale);
+  APEX_TYPE_SWITCH(dtype, T, return static_cast<int>(cudaErrorInvalidValue), {
+    const long long want = (n / apex::Vec<T>::N + kThreads - 1) / kThreads;
+    const int blocks = static_cast<int>(
+        want < 1 ? 1 : (want > kMaxBlocks ? kMaxBlocks : want));
+    dropout_kernel<T><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), n, k, threshold,
+        scale);
+  });
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,11 +32,12 @@
 // same bits as `_hash_keep` (:129-144), so the mask regenerates exactly in
 // the forward, its remat replay and both backward kernels.
 //
-// Which kernels run here: fp32 inputs at every head dim, and bf16 inputs
-// from D = 512 on (head dims above 256); bf16 inputs at d <= 256 run all
-// four on the tensor cores (flash_mma.cu; the wrapper's `_flash_route`
-// picks). fp32 products stay here, on the CUDA cores: the tensor cores
-// would take fp32 as TF32, not the fp32 products JAX's reference forms.
+// Which kernels run here: fp32 inputs at every head dim, and bf16 and fp16
+// inputs from D = 512 on (head dims above 256); bf16 and fp16 inputs at d <=
+// 256 run all four on the tensor cores (flash_mma.cu; the wrapper's
+// `_flash_route` picks). fp32 products stay here, on the CUDA cores: the
+// tensor cores would take fp32 as TF32, not the fp32 products JAX's reference
+// forms.
 //
 // Bound on this card: at the flagship shape (bh 96, s 1024, d 64) the
 // operations (4, 6 and 8 * bh * s^2 * d, halved by the causal mask) bound
@@ -804,12 +805,11 @@ cudaError_t launch_wide_dbias(const void* q, const void* k, const void* v,
 // bias kernels for a non-null `bias`
 #define APEX_WIDE_DISPATCH(FN, ...)                                       \
   do {                                                                    \
-    if (is_bf16)                                                          \
-      return status_of(bias != nullptr                                    \
-                           ? FN<__nv_bfloat16, true>(__VA_ARGS__)         \
-                           : FN<__nv_bfloat16, false>(__VA_ARGS__));      \
-    return status_of(bias != nullptr ? FN<float, true>(__VA_ARGS__)       \
-                                     : FN<float, false>(__VA_ARGS__));    \
+    APEX_TYPE_SWITCH(dtype, T,                                            \
+                     return static_cast<int>(cudaErrorInvalidValue),      \
+                     return status_of(bias != nullptr                     \
+                                          ? FN<T, true>(__VA_ARGS__)      \
+                                          : FN<T, false>(__VA_ARGS__)));  \
   } while (0)
 
 // dynamic shared memory of a kernel that stages two (BR, D) fp32 tiles
@@ -894,7 +894,7 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
 
 // FN<T, D, HasBias, BR>(args...): the bias-free kernels for a null
 // `bias`, the bias kernels otherwise; over the types and D the CUDA-core
-// route takes (fp32, and bf16 from D = 512 on)
+// route takes (fp32, and bf16 and fp16 from D = 512 on)
 #define APEX_FLASH_DISPATCH_CORE_FN(FN, ...)                         \
   do {                                                               \
     if (bias != nullptr)                                             \
@@ -905,29 +905,28 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// On CUDA device `device`, on `stream`. q, o, dO, dq: (bh, sq, d); k, v,
-// dk, dv: (bh, sk, d); contiguous, 16-byte aligned, all of one type
-// (is_bf16 ? bf16 : fp32); lse, delta: (bh, sq) fp32. d is any multiple of
-// 8 (run by the instantiation for 32, 64, 128, 256, 512, 1024 or 2048,
-// zeros past d, and above 2048 by the wide kernels); each takes bf16
-// only at d > 256 (below, the entry points of flash_mma.cu run it) and return cudaErrorInvalidValue otherwise. sq and sk are any lengths, equal when causal: the last tile
-// of a length that is not a multiple of the tile masks the rows and
-// columns past it. `bias`
-// is null or a contiguous, 16-byte aligned fp32 (heads, bsq, bsk) tensor
-// shared by the batch (bh = batch * heads, b-major; heads is ignored
-// without a bias), bsq and bsk being sq and sk rounded up to multiples of
-// 64, its entries past sq, sk NEG_INF (they mask the scores of the rows
-// and columns past the end); d(bias) writes db, fp32
-// (heads, bsq, bsk), whose entries past sq, sk are scratch. Dropout is on
-// when `dropout` != 0: keep where hash >= thresh, kept values scaled by
-// inv_keep.
+// On CUDA device `device`, on `stream`. q, o, dO, dq: (bh, sq, d); k, v, dk,
+// dv: (bh, sk, d); contiguous, 16-byte aligned, all of one type (dtype: 0
+// fp32, 1 bf16, 2 fp16); lse, delta: (bh, sq) fp32. d is any multiple of 8
+// (run by the instantiation for 32, 64, 128, 256, 512, 1024 or 2048, zeros
+// past d, and above 2048 by the wide kernels); each takes bf16 and fp16 only
+// at d > 256 (below, the entry points of flash_mma.cu run them) and returns
+// cudaErrorInvalidValue otherwise. sq and sk are any lengths, equal when
+// causal: the last tile of a length that is not a multiple of the tile masks
+// the rows and columns past it. `bias` is null or a contiguous, 16-byte
+// aligned fp32 (heads, bsq, bsk) tensor shared by the batch (bh = batch *
+// heads, b-major; heads is ignored without a bias), bsq and bsk being sq and
+// sk rounded up to multiples of 64, its entries past sq, sk NEG_INF (they mask
+// the scores of the rows and columns past the end); d(bias) writes db, fp32
+// (heads, bsq, bsk), whose entries past sq, sk are scratch. Dropout is on when
+// `dropout` != 0: keep where hash >= thresh, kept values scaled by inv_keep.
 extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
                                    const void* v, const void* bias, void* o,
                                    void* lse, int heads, int bh, int sq,
                                    int sk, int d, float scale, int causal,
                                    int dropout, unsigned seed,
                                    unsigned thresh, float inv_keep,
-                                   int is_bf16, void* stream) {
+                                   int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
@@ -948,7 +947,7 @@ extern "C" int flash_attention_bwd_dq(int device, const void* q,
                                       int sk, int d, float scale, int causal,
                                       int dropout, unsigned seed,
                                       unsigned thresh, float inv_keep,
-                                      int is_bf16, void* stream) {
+                                      int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
@@ -969,7 +968,7 @@ extern "C" int flash_attention_bwd_dkv(int device, const void* q,
                                        int sq, int sk, int d, float scale,
                                        int causal, int dropout, unsigned seed,
                                        unsigned thresh, float inv_keep,
-                                       int is_bf16, void* stream) {
+                                       int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
@@ -990,7 +989,7 @@ extern "C" int flash_attention_bwd_dbias(int device, const void* q,
                                          int sk, int d, float scale,
                                          int causal, int dropout,
                                          unsigned seed, unsigned thresh,
-                                         float inv_keep, int is_bf16,
+                                         float inv_keep, int dtype,
                                          void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);

@@ -1,18 +1,20 @@
-// Flash attention's forward, dQ, dK/dV and d(bias) on the tensor cores,
-// bf16 inputs, head dim d <= 256, with an optional additive logit bias and
-// the counter hash dropout, for Hopper (sm_90a).
+// Flash attention's forward, dQ, dK/dV and d(bias) on the tensor cores, bf16
+// or fp16 inputs (E below), head dim d <= 256, with an optional additive logit
+// bias and the counter hash dropout, for Hopper (sm_90a).
 //
-// Replaces, for bf16 inputs, the TPU kernels of apex_tpu/ops/attention.py:
+// Replaces, for bf16 and fp16 inputs, the TPU kernels of
+// apex_tpu/ops/attention.py:
 //   * `_fa_fwd_kernel` (reached through `_fa_fwd`, pallas_call at :297):
 //     o and the row log-sum-exp lse;
 //   * `_fa_bwd_dq_kernel` (`_fa_bwd`, pallas_call at :532): dQ;
 //   * `_fa_bwd_dkv_kernel` (`_fa_bwd`, pallas_call at :570): dK and dV;
 //   * `_fa_bwd_dbias_kernel` (`_fa_bwd`, pallas_call at :607): dL/dbias,
 //     summed over the batch.
-// JAX runs these products on its matrix unit as bf16 dots with fp32
+// JAX runs these products on its matrix unit as E dots with fp32
 // results (`lax.dot_general(..., preferred_element_type=jnp.float32)`,
 // :205, :228, :355, :367, :373, :410, :429, :432, :437, :475, :486); so do
-// these kernels, with mma.sync.m16n8k16 (flash_mma.cuh). fp32 inputs keep
+// these kernels, with mma.sync.m16n8k16 (flash_mma.cuh; .bf16 or .f16
+// operands, the same fragments). fp32 inputs keep
 // the CUDA-core kernels of flash_attention.cu: on the tensor cores fp32
 // products run as TF32, which keeps 10 bits of mantissa, not the fp32
 // products JAX's reference forms, and the fp32 parity gates (1e-4 a
@@ -23,13 +25,13 @@
 // where causal and kpos > qpos and at the columns past sk; the forward's
 // online softmax keeps per row the running max m and the sum l of the
 // UNdropped p = exp(s - m), p is dropped by the counter hash after l is
-// summed, rounded to bf16 (JAX's cast at :228) and multiplied by V; o = acc
+// summed, rounded to E (JAX's cast at :228) and multiplied by V; o = acc
 // / l, lse = m + log l (o = 0 and lse = NEG_INF where l == 0). The
 // backward: p = exp(s - lse), dp = dO . v (times keep / (1 - rate)),
 // dQ += round(p * (dp - delta) * scale) k (the cast of :373), dV +=
 // round(p dropped)^T dO, dK += round(p * (dp - delta) * scale)^T q (:429,
 // :437); d(bias) sums p * (dp - delta) over the batch in fp32, rounded
-// before each sum, with no scale and no bf16 rounding (:491).
+// before each sum, with no scale and no E rounding (:491).
 //
 // Bound on this card: operations. At the flagship shape (bh 96, s 1024, d
 // 64, causal) the forward does 4 * bh * s^2 * d / 2 = 12.9 GFLOP, dQ 6 *
@@ -46,14 +48,14 @@
 // once; K and V tiles of 64 keys arrive in a two-stage ring filled by
 // cp.async, the next tile copying while this one is used. S = Q K^T (16 x
 // 64 a warp) lands in registers; the scale, the bias, the masks, the
-// online-softmax update (once per 64-key tile), the dropout and the bf16
+// online-softmax update (once per 64-key tile), the dropout and the E
 // rounding apply there, each thread knowing the (q, k) position of each
 // accumulator element from the fragment layout; the C fragments are the A
 // operand of O += P V (V through ldmatrix.trans). The row max and sum are
 // reduced over the 4 lanes that share a row. dQ is the forward's shape
 // with a second product and no online softmax: Q and dO staged once, K
 // and V through the same ring; S = Q K^T and dP = dO V^T in registers, dS
-// packed to bf16 as the A operand of dQ += dS K (K through ldmatrix.trans).
+// packed to E as the A operand of dQ += dS K (K through ldmatrix.trans).
 // dK/dV: one block per (64-row K/V tile, batch * head); K and V stay in
 // shared memory, Q and dO tiles (with their lse and delta) stream through
 // a two-stage cp.async ring, from the causal diagonal on. Each warp owns
@@ -91,19 +93,19 @@ constexpr int kFwdThreads = 128;
 
 // four blocks an SM at D <= 64 (at most 128 registers a thread), two at
 // D = 128, one at D = 256: what their shared memory allows
-template <int D, bool HasBias>
+template <typename E, int D, bool HasBias>
 __global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 4 : D == 128 ? 2 : 1)
-    flash_mma_fwd_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
+    flash_mma_fwd_kernel(const E* __restrict__ q,
+                         const E* __restrict__ k,
+                         const E* __restrict__ v,
                          const float* __restrict__ bias,
-                         bf16* __restrict__ o, float* __restrict__ lse,
+                         E* __restrict__ o, float* __restrict__ lse,
                          Dims n, float scale, int causal, Dropout drop) {
   constexpr int S = kStride<D>, NB = kB / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kB * S;      // two stages
-  bf16* sV = sK + 2 * kB * S;  // two stages
+  E* sQ = reinterpret_cast<E*>(smem);
+  E* sK = sQ + kB * S;      // two stages
+  E* sV = sK + 2 * kB * S;  // two stages
   const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
   const int bh = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -143,8 +145,8 @@ __global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 4 : D == 128 ? 2 : 1)
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) have landed
     __syncthreads();
-    const bf16* cK = sK + (kt & 1) * kB * S;
-    const bf16* cV = sV + (kt & 1) * kB * S;
+    const E* cK = sK + (kt & 1) * kB * S;
+    const E* cV = sV + (kt & 1) * kB * S;
 
     float s[NB][4];
     mma_abt<D>(s, sQ, warp * 16, cK, lane);
@@ -200,7 +202,7 @@ __global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 4 : D == 128 ? 2 : 1)
       acc[j][2] *= corr[1];
       acc[j][3] *= corr[1];
     }
-    // O += round_bf16(P) V
+    // O += round_E(P) V
     mma_pv<D, ND>(acc, s, cV, 0, lane);
   }
 
@@ -214,13 +216,13 @@ __global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 4 : D == 128 ? 2 : 1)
     const int qpos = qt * kB + r[i];
     if (qpos >= n.sq) continue;
     const float safe_l = l[i] == 0.f ? 1.f : l[i];
-    bf16* orow = o + (static_cast<long>(bh) * n.sq + qpos) * n.d;
+    E* orow = o + (static_cast<long>(bh) * n.sq + qpos) * n.d;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
       const int col = j * 8 + 2 * t;
       if (col < n.d)
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(acc[j][2 * i] / safe_l,
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            pack2<E>(acc[j][2 * i] / safe_l,
                                   acc[j][2 * i + 1] / safe_l);
     }
     if (t == 0)
@@ -240,24 +242,24 @@ __host__ __device__ constexpr int dkv_split() {
 }
 
 // three blocks an SM at D <= 64 (at most 168 registers a thread)
-template <int D, bool HasBias>
+template <typename E, int D, bool HasBias>
 __global__ void __launch_bounds__(128 * dkv_split<D>(), D <= 64 ? 3 : 1)
-    flash_mma_dkv_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
+    flash_mma_dkv_kernel(const E* __restrict__ q,
+                         const E* __restrict__ k,
+                         const E* __restrict__ v,
+                         const E* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const float* __restrict__ bias,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         E* __restrict__ dk, E* __restrict__ dv,
                          Dims n, float scale, int causal, Dropout drop) {
   constexpr int S = kStride<D>, NB = kB / 8, SPLIT = dkv_split<D>();
   constexpr int DC = D / SPLIT, NC = DC / 8, NT = 128 * SPLIT;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kB * S;
-  bf16* sQ = sV + kB * S;      // two stages
-  bf16* sO = sQ + 2 * kB * S;  // dO, two stages
+  E* sK = reinterpret_cast<E*>(smem);
+  E* sV = sK + kB * S;
+  E* sQ = sV + kB * S;      // two stages
+  E* sO = sQ + 2 * kB * S;  // dO, two stages
   float* sL = reinterpret_cast<float*>(sO + 2 * kB * S);  // two stages
   float* sD = sL + 2 * kB;                                // two stages
   const int kt = blockIdx.x;  // causal: low tiles have the most q tiles
@@ -307,8 +309,8 @@ __global__ void __launch_bounds__(128 * dkv_split<D>(), D <= 64 ? 3 : 1)
     cp_async_wait<1>();  // this q tile (and K, V) have landed
     __syncthreads();
     const int st = (qt - qt0) & 1;
-    const bf16* cQ = sQ + st * kB * S;
-    const bf16* cO = sO + st * kB * S;
+    const E* cQ = sQ + st * kB * S;
+    const E* cO = sO + st * kB * S;
     const float* cL = sL + st * kB;
     const float* cD = sD + st * kB;
 
@@ -345,7 +347,7 @@ __global__ void __launch_bounds__(128 * dkv_split<D>(), D <= 64 ? 3 : 1)
       }
     }
 
-    // dV += round_bf16(P dropped)^T dO, dK += round_bf16(dS)^T Q over this
+    // dV += round_E(P dropped)^T dO, dK += round_E(dS)^T Q over this
     // warp's columns c0 .. c0 + DC - 1
     mma_pv<D, NC>(dva, sc, cO, c0, lane);
     mma_pv<D, NC>(dka, dp, cQ, c0, lane);
@@ -360,10 +362,10 @@ __global__ void __launch_bounds__(128 * dkv_split<D>(), D <= 64 ? 3 : 1)
     for (int j = 0; j < NC; ++j) {
       const int col = c0 + j * 8 + 2 * t;
       if (col < n.d) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
-            __floats2bfloat162_rn(dka[j][2 * i], dka[j][2 * i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
-            __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dk + row + col) =
+            pack2<E>(dka[j][2 * i], dka[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + row + col) =
+            pack2<E>(dva[j][2 * i], dva[j][2 * i + 1]);
       }
     }
   }
@@ -381,25 +383,25 @@ __host__ __device__ constexpr int dq_split() {
 
 // three blocks an SM at D <= 64 (at most 168 registers a thread), two at
 // D = 128: what their shared memory allows
-template <int D, bool HasBias>
+template <typename E, int D, bool HasBias>
 __global__ void __launch_bounds__(128 * dq_split<D>(),
                                   D <= 64 ? 3 : D == 128 ? 2 : 1)
-    flash_mma_dq_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
+    flash_mma_dq_kernel(const E* __restrict__ q,
+                        const E* __restrict__ k,
+                        const E* __restrict__ v,
+                        const E* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const float* __restrict__ bias,
-                        bf16* __restrict__ dq, Dims n, float scale,
+                        E* __restrict__ dq, Dims n, float scale,
                         int causal, Dropout drop) {
   constexpr int S = kStride<D>, NB = kB / 8, SPLIT = dq_split<D>();
   constexpr int DC = D / SPLIT, NC = DC / 8, NT = 128 * SPLIT;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kB * S;      // dO
-  bf16* sK = sO + kB * S;      // two stages
-  bf16* sV = sK + 2 * kB * S;  // two stages
+  E* sQ = reinterpret_cast<E*>(smem);
+  E* sO = sQ + kB * S;      // dO
+  E* sK = sO + kB * S;      // two stages
+  E* sV = sK + 2 * kB * S;  // two stages
   const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
   const int bh = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -447,8 +449,8 @@ __global__ void __launch_bounds__(128 * dq_split<D>(),
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q, dO) have landed
     __syncthreads();
-    const bf16* cK = sK + (kt & 1) * kB * S;
-    const bf16* cV = sV + (kt & 1) * kB * S;
+    const E* cK = sK + (kt & 1) * kB * S;
+    const E* cV = sV + (kt & 1) * kB * S;
 
     // S = Q K^T and dP = dO V^T, 16 q rows x 64 keys a warp
     float sc[NB][4], dp[NB][4];
@@ -477,7 +479,7 @@ __global__ void __launch_bounds__(128 * dq_split<D>(),
       }
     }
 
-    // dQ += round_bf16(dS) K over this warp's columns c0 .. c0 + DC - 1
+    // dQ += round_E(dS) K over this warp's columns c0 .. c0 + DC - 1
     mma_pv<D, NC>(acc, sc, cK, c0, lane);
   }
 
@@ -485,13 +487,13 @@ __global__ void __launch_bounds__(128 * dq_split<D>(),
   for (int i = 0; i < 2; ++i) {
     const int qpos = qt * kB + r[i];
     if (qpos >= n.sq) continue;
-    bf16* row = dq + (static_cast<long>(bh) * n.sq + qpos) * n.d;
+    E* row = dq + (static_cast<long>(bh) * n.sq + qpos) * n.d;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int col = c0 + j * 8 + 2 * t;
       if (col < n.d)
-        *reinterpret_cast<__nv_bfloat162*>(row + col) =
-            __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(row + col) =
+            pack2<E>(acc[j][2 * i], acc[j][2 * i + 1]);
     }
   }
 }
@@ -512,12 +514,12 @@ template <int D>
 constexpr int dbias_stage_bytes = 4 * tile_bytes<D> + 2 * kB * 4;
 
 // two blocks an SM at D <= 64
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(128, D <= 64 ? 2 : 1)
-    flash_mma_dbias_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
-                           const bf16* __restrict__ dout,
+    flash_mma_dbias_kernel(const E* __restrict__ q,
+                           const E* __restrict__ k,
+                           const E* __restrict__ v,
+                           const E* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            const float* __restrict__ bias,
@@ -546,7 +548,7 @@ __global__ void __launch_bounds__(128, D <= 64 ? 2 : 1)
   unsigned char* const ring = smem;
   auto stage = [&](int b) {
     unsigned char* at = ring + ((b - b0) % ST) * dbias_stage_bytes<D>;
-    bf16* tQ = reinterpret_cast<bf16*>(at);
+    E* tQ = reinterpret_cast<E*>(at);
     const int bh = b * n.heads + head;
     const long qrow0 = static_cast<long>(bh) * n.sq + qt * kB;
     const long krow0 = static_cast<long>(bh) * n.sk + kt * kB;
@@ -593,10 +595,10 @@ __global__ void __launch_bounds__(128, D <= 64 ? 2 : 1)
     }
     __syncthreads();
     const unsigned char* at = ring + ((b - b0) % ST) * dbias_stage_bytes<D>;
-    const bf16* cQ = reinterpret_cast<const bf16*>(at);
-    const bf16* cO = cQ + kB * S;
-    const bf16* cK = cQ + 2 * kB * S;
-    const bf16* cV = cQ + 3 * kB * S;
+    const E* cQ = reinterpret_cast<const E*>(at);
+    const E* cO = cQ + kB * S;
+    const E* cK = cQ + 2 * kB * S;
+    const E* cV = cQ + 3 * kB * S;
     const float* cL = reinterpret_cast<const float*>(cQ + 4 * kB * S);
     const float* cD = cL + kB;
     const int bh = b * n.heads + head;
@@ -649,75 +651,75 @@ __global__ void dbias_merge_kernel(const float4* __restrict__ part,
   db[i] = s;
 }
 
-template <int D, bool HasBias>
+template <typename E, int D, bool HasBias>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* o, void* lse, Dims n, int bh,
                        float scale, int causal, Dropout drop,
                        cudaStream_t s) {
-  auto kernel = flash_mma_fwd_kernel<D, HasBias>;
+  auto kernel = flash_mma_fwd_kernel<E, D, HasBias>;
   constexpr int smem = 5 * tile_bytes<D>;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(tiles(n.sq), bh), kFwdThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(o), static_cast<float*>(lse), n, scale, causal,
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const float*>(bias),
+      static_cast<E*>(o), static_cast<float*>(lse), n, scale, causal,
       drop);
   return cudaSuccess;
 }
 
-template <int D, bool HasBias>
+template <typename E, int D, bool HasBias>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* bias, void* dk, void* dv, Dims n, int bh,
                        float scale, int causal, Dropout drop,
                        cudaStream_t s) {
-  auto kernel = flash_mma_dkv_kernel<D, HasBias>;
+  auto kernel = flash_mma_dkv_kernel<E, D, HasBias>;
   constexpr int smem = 6 * tile_bytes<D> + 4 * kB * 4;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(tiles(n.sk), bh), 128 * dkv_split<D>(), smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const E*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(bias), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), n, scale, causal, drop);
+      static_cast<const float*>(bias), static_cast<E*>(dk),
+      static_cast<E*>(dv), n, scale, causal, drop);
   return cudaSuccess;
 }
 
-template <int D, bool HasBias>
+template <typename E, int D, bool HasBias>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* bias, void* dq, Dims n, int bh, float scale,
                       int causal, Dropout drop, cudaStream_t s) {
-  auto kernel = flash_mma_dq_kernel<D, HasBias>;
+  auto kernel = flash_mma_dq_kernel<E, D, HasBias>;
   constexpr int smem = 6 * tile_bytes<D>;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(tiles(n.sq), bh), 128 * dq_split<D>(), smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const E*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(bias), static_cast<bf16*>(dq), n, scale,
+      static_cast<const float*>(bias), static_cast<E*>(dq), n, scale,
       causal, drop);
   return cudaSuccess;
 }
 
 // with chunks > 1 the main launch writes the chunks' partials to `part`
 // ((chunks, heads, bsq, bsk) fp32) and a second adds them into db
-template <int D>
+template <typename E, int D>
 cudaError_t launch_dbias(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          const void* bias, void* db, void* part, Dims n,
                          int bh, int chunks, float scale, int causal,
                          Dropout drop, cudaStream_t s) {
-  auto kernel = flash_mma_dbias_kernel<D>;
+  auto kernel = flash_mma_dbias_kernel<E, D>;
   constexpr int smem = dbias_stages<D>() * dbias_stage_bytes<D>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(tiles(n.sk), tiles(n.sq), n.heads * chunks), 128, smem,
-           s>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+           s>>>(static_cast<const E*>(q), static_cast<const E*>(k),
+                static_cast<const E*>(v), static_cast<const E*>(dout),
                 static_cast<const float*>(lse),
                 static_cast<const float*>(delta),
                 static_cast<const float*>(bias),
@@ -732,49 +734,67 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
-// FN<D, HasBias>(args...) at the instantiated head dim that takes d (32,
-// 64, 128 or 256), the bias kernels for a non-null `bias`; bf16 only
-#define APEX_MMA_CASE(DIM, FN, ...)                                   \
-  case DIM:                                                           \
-    return status_of(bias != nullptr ? FN<DIM, true>(__VA_ARGS__)     \
-                                     : FN<DIM, false>(__VA_ARGS__));
-#define APEX_MMA_DISPATCH(FN, ...)                                    \
-  do {                                                                \
-    if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);     \
-    switch (flash_head_dim(d)) {                                      \
-      APEX_MMA_CASE(32, FN, __VA_ARGS__)                              \
-      APEX_MMA_CASE(64, FN, __VA_ARGS__)                              \
-      APEX_MMA_CASE(128, FN, __VA_ARGS__)                             \
-      APEX_MMA_CASE(256, FN, __VA_ARGS__)                             \
-      default: return static_cast<int>(cudaErrorInvalidValue);        \
-    }                                                                 \
+// FN<E, D, HasBias>(args...) at the element type of `dtype` (bf16 or
+// fp16) and the instantiated head dim that takes d (32, 64, 128 or 256),
+// the bias kernels for a non-null `bias`
+#define APEX_MMA_CASE(DIM, FN, ...)                                     \
+  case DIM:                                                             \
+    return status_of(bias != nullptr ? FN<E, DIM, true>(__VA_ARGS__)    \
+                                     : FN<E, DIM, false>(__VA_ARGS__));
+#define APEX_MMA_DIMS(FN, ...)                                          \
+  switch (flash_head_dim(d)) {                                          \
+    APEX_MMA_CASE(32, FN, __VA_ARGS__)                                  \
+    APEX_MMA_CASE(64, FN, __VA_ARGS__)                                  \
+    APEX_MMA_CASE(128, FN, __VA_ARGS__)                                 \
+    APEX_MMA_CASE(256, FN, __VA_ARGS__)                                 \
+    default: return static_cast<int>(cudaErrorInvalidValue);            \
+  }
+#define APEX_MMA_DISPATCH(FN, ...)                                      \
+  do {                                                                  \
+    if (dtype == apex::kBF16) {                                         \
+      using E = __nv_bfloat16;                                          \
+      APEX_MMA_DIMS(FN, __VA_ARGS__)                                    \
+    } else if (dtype == apex::kF16) {                                   \
+      using E = __half;                                                 \
+      APEX_MMA_DIMS(FN, __VA_ARGS__)                                    \
+    }                                                                   \
+    return static_cast<int>(cudaErrorInvalidValue);                     \
   } while (0)
 
-// FN<D>(args...) at the instantiated head dim that takes d; bf16 only
-#define APEX_MMA_DISPATCH_D(FN, ...)                                  \
-  do {                                                                \
-    if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);     \
-    switch (flash_head_dim(d)) {                                      \
-      case 32: return status_of(FN<32>(__VA_ARGS__));                 \
-      case 64: return status_of(FN<64>(__VA_ARGS__));                 \
-      case 128: return status_of(FN<128>(__VA_ARGS__));               \
-      case 256: return status_of(FN<256>(__VA_ARGS__));               \
-      default: return static_cast<int>(cudaErrorInvalidValue);        \
-    }                                                                 \
+// FN<E, D>(args...) at the element type of `dtype` and the instantiated
+// head dim that takes d
+#define APEX_MMA_DIMS_D(FN, ...)                                        \
+  switch (flash_head_dim(d)) {                                          \
+    case 32: return status_of(FN<E, 32>(__VA_ARGS__));                  \
+    case 64: return status_of(FN<E, 64>(__VA_ARGS__));                  \
+    case 128: return status_of(FN<E, 128>(__VA_ARGS__));                \
+    case 256: return status_of(FN<E, 256>(__VA_ARGS__));                \
+    default: return static_cast<int>(cudaErrorInvalidValue);            \
+  }
+#define APEX_MMA_DISPATCH_D(FN, ...)                                    \
+  do {                                                                  \
+    if (dtype == apex::kBF16) {                                         \
+      using E = __nv_bfloat16;                                          \
+      APEX_MMA_DIMS_D(FN, __VA_ARGS__)                                  \
+    } else if (dtype == apex::kF16) {                                   \
+      using E = __half;                                                 \
+      APEX_MMA_DIMS_D(FN, __VA_ARGS__)                                  \
+    }                                                                   \
+    return static_cast<int>(cudaErrorInvalidValue);                     \
   } while (0)
 
 }  // namespace
 
 // The entry points of flash_attention.cu's forward, dQ, dK/dV and d(bias),
 // with their arguments (see there; d(bias) takes its batch chunks too),
-// for bf16 inputs (is_bf16 != 0) and d a multiple of 8 up to 256; anything
-// else returns cudaErrorInvalidValue.
+// for bf16 or fp16 inputs (dtype 1 or 2) and d a multiple of 8 up to 256;
+// anything else returns cudaErrorInvalidValue.
 extern "C" int flash_mma_fwd(int device, const void* q, const void* k,
                              const void* v, const void* bias, void* o,
                              void* lse, int heads, int bh, int sq, int sk,
                              int d, float scale, int causal, int dropout,
                              unsigned seed, unsigned thresh, float inv_keep,
-                             int is_bf16, void* stream) {
+                             int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
@@ -791,7 +811,7 @@ extern "C" int flash_mma_bwd_dkv(int device, const void* q, const void* k,
                                  int heads, int bh, int sq, int sk, int d,
                                  float scale, int causal, int dropout,
                                  unsigned seed, unsigned thresh,
-                                 float inv_keep, int is_bf16, void* stream) {
+                                 float inv_keep, int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dropout drop{dropout, seed, thresh, inv_keep};
@@ -807,7 +827,7 @@ extern "C" int flash_mma_bwd_dq(int device, const void* q, const void* k,
                                 const void* bias, void* dq, int heads, int bh,
                                 int sq, int sk, int d, float scale,
                                 int causal, int dropout, unsigned seed,
-                                unsigned thresh, float inv_keep, int is_bf16,
+                                unsigned thresh, float inv_keep, int dtype,
                                 void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -829,7 +849,7 @@ extern "C" int flash_mma_bwd_dbias(int device, const void* q, const void* k,
                                    int heads, int bh, int sq, int sk, int d,
                                    float scale, int causal, int dropout,
                                    unsigned seed, unsigned thresh,
-                                   float inv_keep, int is_bf16, int chunks,
+                                   float inv_keep, int dtype, int chunks,
                                    void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);

@@ -94,6 +94,12 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) out[i] = __bfloat162float(e[i]);
 }
+__device__ __forceinline__ void load4(const __half* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __half* e = reinterpret_cast<const __half*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = __half2float(e[i]);
+}
 __device__ __forceinline__ void store4(float* p, const float* in) {
   *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
 }
@@ -102,6 +108,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* in) {
   __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) e[i] = __float2bfloat16_rn(in[i]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+__device__ __forceinline__ void store4(__half* p, const float* in) {
+  uint2 raw;
+  __half* e = reinterpret_cast<__half*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = __float2half_rn(in[i]);
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
@@ -115,6 +128,10 @@ __device__ __forceinline__ float round_to<float>(float v) {
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <>
+__device__ __forceinline__ float round_to<__half>(float v) {
+  return __half2float(__float2half_rn(v));
 }
 
 // sum over the TPR neighbouring lanes that hold one row
@@ -239,24 +256,29 @@ inline int status_of(cudaError_t launched) {
   }
 
 // runs the launch given, as written, with T and D bound to the input type
-// and the instantiated head dim that takes d (BR to its tile rows), and
-// returns its status from the calling entry point: fp32 at every D and
-// bf16 from D = 512 on (bf16 inputs at d <= 256 run on the tensor cores,
-// flash_mma.cu and flash_varlen_mma.cu); cudaErrorInvalidValue for the
-// rest and for a d above 2048
+// (`dtype`: apex::kF32, kBF16 or kF16) and the instantiated head dim that
+// takes d (BR to its tile rows), and returns its status from the calling
+// entry point: fp32 at every D, bf16 and fp16 from D = 512 on (bf16 and
+// fp16 inputs at d <= 256 run on the tensor cores, flash_mma.cu and
+// flash_varlen_mma.cu); cudaErrorInvalidValue for the rest and for a d
+// above 2048
 #define APEX_FLASH_DISPATCH_CORE(...)                                 \
   do {                                                                \
-    switch (flash_head_dim(d) * 2 + (is_bf16 ? 1 : 0)) {              \
-      APEX_FLASH_CASE(64, float, 32, __VA_ARGS__)                     \
-      APEX_FLASH_CASE(128, float, 64, __VA_ARGS__)                    \
-      APEX_FLASH_CASE(256, float, 128, __VA_ARGS__)                   \
-      APEX_FLASH_CASE(512, float, 256, __VA_ARGS__)                   \
-      APEX_FLASH_CASE(1024, float, 512, __VA_ARGS__)                  \
-      APEX_FLASH_CASE(1025, __nv_bfloat16, 512, __VA_ARGS__)          \
-      APEX_FLASH_CASE(2048, float, 1024, __VA_ARGS__)                 \
-      APEX_FLASH_CASE(2049, __nv_bfloat16, 1024, __VA_ARGS__)         \
-      APEX_FLASH_CASE(4096, float, 2048, __VA_ARGS__)                 \
-      APEX_FLASH_CASE(4097, __nv_bfloat16, 2048, __VA_ARGS__)         \
+    switch (dtype >= 0 && dtype <= 2 ? flash_head_dim(d) * 4 + dtype  \
+                                     : 0) {                           \
+      APEX_FLASH_CASE(128, float, 32, __VA_ARGS__)                    \
+      APEX_FLASH_CASE(256, float, 64, __VA_ARGS__)                    \
+      APEX_FLASH_CASE(512, float, 128, __VA_ARGS__)                   \
+      APEX_FLASH_CASE(1024, float, 256, __VA_ARGS__)                  \
+      APEX_FLASH_CASE(2048, float, 512, __VA_ARGS__)                  \
+      APEX_FLASH_CASE(2049, __nv_bfloat16, 512, __VA_ARGS__)          \
+      APEX_FLASH_CASE(2050, __half, 512, __VA_ARGS__)                 \
+      APEX_FLASH_CASE(4096, float, 1024, __VA_ARGS__)                 \
+      APEX_FLASH_CASE(4097, __nv_bfloat16, 1024, __VA_ARGS__)         \
+      APEX_FLASH_CASE(4098, __half, 1024, __VA_ARGS__)                \
+      APEX_FLASH_CASE(8192, float, 2048, __VA_ARGS__)                 \
+      APEX_FLASH_CASE(8193, __nv_bfloat16, 2048, __VA_ARGS__)         \
+      APEX_FLASH_CASE(8194, __half, 2048, __VA_ARGS__)                \
       default: return static_cast<int>(cudaErrorInvalidValue);        \
     }                                                                 \
   } while (0)

@@ -2,8 +2,8 @@
 // (sm_90a).
 //
 // Replaces the TPU kernels of apex_tpu/ops/attention_varlen.py, for fp32
-// inputs and bf16 above head_dim 256 (bf16 up to 256 runs the tensor-core
-// kernels of flash_varlen_mma.cu):
+// inputs and bf16 and fp16 above head_dim 256 (up to 256 those run the
+// tensor-core kernels of flash_varlen_mma.cu):
 //   * `_vl_fwd_kernel` (reached through `_vl_call`, pallas_call at :377):
 //     o and the row log-sum-exp lse;
 //   * `_vl_bwd_dq_kernel` (`_vl_bwd_call`, pallas_call at :414): dQ;
@@ -653,22 +653,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// On CUDA device `device`, on `stream`. q, o, dO, dq: (b, h, sq, d); k, v,
-// dk, dv: (b, h, sk, d); contiguous, 16-byte aligned, all of one type
-// (is_bf16 ? bf16 : fp32); seg_q (b, sq), seg_k (b, sk) int32; lse, delta:
-// (b, h, sq) fp32; qr (b, sq / 64, 4) and kr (b, sk / 64, 4) int32, the
-// per-tile tables (segment min, max, live range lo, hi). sq and sk are
-// multiples of 64; d is any multiple of 8 (from D = 512 on the kernels'
-// 32-, 16- and 8-row tiles read a half, a quarter and an eighth of a
-// 64-row table entry each; above 2048 the wide kernels, 8-row tiles).
-// bf16 is taken only above d 256 (cudaErrorInvalidValue below:
-// flash_varlen_mma.cu's tensor-core kernels serve those).
+// On CUDA device `device`, on `stream`. q, o, dO, dq: (b, h, sq, d); k, v, dk,
+// dv: (b, h, sk, d); contiguous, 16-byte aligned, all of one type (dtype: 0
+// fp32, 1 bf16, 2 fp16); seg_q (b, sq), seg_k (b, sk) int32; lse, delta: (b,
+// h, sq) fp32; qr (b, sq / 64, 4) and kr (b, sk / 64, 4) int32, the per-tile
+// tables (segment min, max, live range lo, hi). sq and sk are multiples of 64;
+// d is any multiple of 8 (from D = 512 on the kernels' 32-, 16- and 8-row
+// tiles read a half, a quarter and an eighth of a 64-row table entry each;
+// above 2048 the wide kernels, 8-row tiles). bf16 and fp16 are taken only
+// above d 256 (cudaErrorInvalidValue below: flash_varlen_mma.cu's tensor-core
+// kernels serve those).
 extern "C" int flash_varlen_fwd(int device, const void* q, const void* k,
                                 const void* v, const void* seg_q,
                                 const void* seg_k, const void* qr,
                                 const void* kr, void* o, void* lse, int b,
                                 int h, int sq, int sk, int d, float scale,
-                                int causal, int is_bf16, void* stream) {
+                                int causal, int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dims n{h, sq, sk, d};
@@ -687,7 +687,7 @@ extern "C" int flash_varlen_bwd_dq(int device, const void* q, const void* k,
                                    const void* lse, const void* delta,
                                    void* dq, int b, int h, int sq, int sk,
                                    int d, float scale, int causal,
-                                   int is_bf16, void* stream) {
+                                   int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dims n{h, sq, sk, d};
@@ -707,7 +707,7 @@ extern "C" int flash_varlen_bwd_dkv(int device, const void* q, const void* k,
                                     const void* lse, const void* delta,
                                     void* dk, void* dv, int b, int h, int sq,
                                     int sk, int d, float scale, int causal,
-                                    int is_bf16, void* stream) {
+                                    int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Dims n{h, sq, sk, d};

@@ -1,8 +1,8 @@
-// Packed variable-length flash attention on the tensor cores, bf16
-// inputs, head dim d <= 256, for Hopper (sm_90a): the forward, dQ, and dK
-// and dV.
+// Packed variable-length flash attention on the tensor cores, bf16 or fp16
+// inputs (E below), head dim d <= 256, for Hopper (sm_90a): the forward, dQ,
+// and dK and dV.
 //
-// Replaces, for bf16 inputs at d <= 256, the TPU kernels of
+// Replaces, for bf16 and fp16 inputs at d <= 256, the TPU kernels of
 // apex_tpu/ops/attention_varlen.py:
 //   * `_vl_fwd_kernel` (reached through `_vl_call`, pallas_call at :377):
 //     o and the row log-sum-exp lse;
@@ -10,7 +10,7 @@
 //   * `_vl_bwd_dkv_kernel` (`_vl_bwd_call`, pallas_call at :451): dK =
 //     sum_q ds . q and dV = sum_q p . dO over the queries each key may be
 //     attended by.
-// fp32 inputs, and bf16 above d = 256, keep the CUDA-core kernels of
+// fp32 inputs, and bf16 or fp16 above d = 256, keep the CUDA-core kernels of
 // flash_varlen.cu (on the tensor cores fp32 products would run as TF32).
 //
 // Math, flash_varlen.cu's and the JAX kernels': a score s = (q . k) *
@@ -20,12 +20,12 @@
 // order, once per 64-key tile, p = allowed ? exp(s - m_new) : 0 (kNegInf
 // is finite, so a tile with no allowed column for a row would otherwise
 // give it exp(0) = 1), the correction exp(m_prev - m_new) taken as 0
-// while m_prev <= NEG_INF / 2; p rounded to bf16 before p . v; o = acc /
+// while m_prev <= NEG_INF / 2; p rounded to E before p . v; o = acc /
 // l, lse = m + log l, and o = 0, lse = NEG_INF where l == 0 (a pad row,
 // or a q tile with no live K/V tile). Backward: p = allowed ? exp(s -
 // lse) : 0 (a pad row's lse is NEG_INF: exp(s - lse) is inf there, so a
 // select, never a product), dp = dO . v, ds = p * (dp - delta) * scale; p
-// and ds are rounded to bf16 before their products (as JAX's casts),
+// and ds are rounded to E before their products (as JAX's casts),
 // which accumulate in fp32 (mma.sync.m16n8k16, flash_mma.cuh).
 //
 // Bound on this card: over the S live scores of a head (sum over documents
@@ -48,7 +48,7 @@
 // (and dP = dO V^T) in registers, masked from its rows' segment ids (in
 // registers) and the staged keys' with the per-element absolute
 // positions (a live tile below the diagonal can still hold another
-// document's keys), the C fragments packed to bf16 as the A operand of O
+// document's keys), the C fragments packed to E as the A operand of O
 // += P V (dQ += dS K). The forward's row sum l is this lane's share until
 // the end, reduced over the row's 4 lanes once. dQ at D = 256 has 8
 // warps, two per 16 rows, each owning half of dQ's columns. dK/dV: one
@@ -92,23 +92,23 @@ constexpr int varlen_fwd_smem = 5 * tile_bytes<D> + 2 * kB * 4;
 
 // four blocks an SM at D <= 64 (at most 128 registers a thread), two at
 // D = 128, one at D = 256: what their shared memory allows
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(128, D <= 64 ? 4 : D == 128 ? 2 : 1)
-    varlen_mma_fwd_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
+    varlen_mma_fwd_kernel(const E* __restrict__ q,
+                          const E* __restrict__ k,
+                          const E* __restrict__ v,
                           const int* __restrict__ seg_q,
                           const int* __restrict__ seg_k,
                           const int4* __restrict__ qr,
                           const int4* __restrict__ kr,
                           const int* __restrict__ order,
-                          bf16* __restrict__ o, float* __restrict__ lse,
+                          E* __restrict__ o, float* __restrict__ lse,
                           VarlenDims n, float scale, int causal) {
   constexpr int S = kStride<D>, NB = kB / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kB * S;      // two stages
-  bf16* sV = sK + 2 * kB * S;  // two stages
+  E* sQ = reinterpret_cast<E*>(smem);
+  E* sK = sQ + kB * S;      // two stages
+  E* sV = sK + 2 * kB * S;  // two stages
   int* sSeg = reinterpret_cast<int*>(sV + 2 * kB * S);  // two stages
   const int nq = n.sq / kB, nk = n.sk / kB;
   const int bh = blockIdx.x, b = bh / n.h;
@@ -158,8 +158,8 @@ __global__ void __launch_bounds__(128, D <= 64 ? 4 : D == 128 ? 2 : 1)
     cp_async_commit();
     cp_async_wait<1>();  // this K/V tile (and Q) have landed
     __syncthreads();
-    const bf16* cK = sK + st * kB * S;
-    const bf16* cV = sV + st * kB * S;
+    const E* cK = sK + st * kB * S;
+    const E* cV = sV + st * kB * S;
     const int* cSeg = sSeg + st * kB;
 
     float s[NB][4];
@@ -210,7 +210,7 @@ __global__ void __launch_bounds__(128, D <= 64 ? 4 : D == 128 ? 2 : 1)
       acc[j][2] *= corr[1];
       acc[j][3] *= corr[1];
     }
-    // O += round_bf16(P) V
+    // O += round_E(P) V
     mma_pv<D, ND>(acc, s, cV, 0, lane);
     kt = next;
   }
@@ -229,8 +229,8 @@ __global__ void __launch_bounds__(128, D <= 64 ? 4 : D == 128 ? 2 : 1)
     for (int j = 0; j < ND; ++j) {
       const int col = j * 8 + 2 * t;
       if (col < n.d)
-        *reinterpret_cast<__nv_bfloat162*>(o + row * n.d + col) =
-            __floats2bfloat162_rn(acc[j][2 * i] / safe_l,
+        *reinterpret_cast<uint32_t*>(o + row * n.d + col) =
+            pack2<E>(acc[j][2 * i] / safe_l,
                                   acc[j][2 * i + 1] / safe_l);
     }
     if (t == 0)
@@ -254,29 +254,29 @@ constexpr int varlen_dq_smem = 6 * tile_bytes<D> + 2 * kB * 4;
 
 // three blocks an SM at D <= 64 (at most 168 registers a thread), two at
 // D = 128: what their shared memory allows
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(128 * varlen_dq_split<D>(),
                                   D <= 64 ? 3 : D == 128 ? 2 : 1)
-    varlen_mma_dq_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
+    varlen_mma_dq_kernel(const E* __restrict__ q,
+                         const E* __restrict__ k,
+                         const E* __restrict__ v,
                          const int* __restrict__ seg_q,
                          const int* __restrict__ seg_k,
                          const int4* __restrict__ qr,
                          const int4* __restrict__ kr,
                          const int* __restrict__ order,
-                         const bf16* __restrict__ dout,
+                         const E* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dq, VarlenDims n, float scale,
+                         E* __restrict__ dq, VarlenDims n, float scale,
                          int causal) {
   constexpr int S = kStride<D>, NB = kB / 8, SPLIT = varlen_dq_split<D>();
   constexpr int DC = D / SPLIT, NC = DC / 8, NT = 128 * SPLIT;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kB * S;      // dO
-  bf16* sK = sO + kB * S;      // two stages
-  bf16* sV = sK + 2 * kB * S;  // two stages
+  E* sQ = reinterpret_cast<E*>(smem);
+  E* sO = sQ + kB * S;      // dO
+  E* sK = sO + kB * S;      // two stages
+  E* sV = sK + 2 * kB * S;  // two stages
   int* sSeg = reinterpret_cast<int*>(sV + 2 * kB * S);  // two stages
   const int nq = n.sq / kB, nk = n.sk / kB;
   const int bh = blockIdx.x, b = bh / n.h;
@@ -332,8 +332,8 @@ __global__ void __launch_bounds__(128 * varlen_dq_split<D>(),
     cp_async_commit();
     cp_async_wait<1>();  // this K/V tile (and Q, dO) have landed
     __syncthreads();
-    const bf16* cK = sK + st * kB * S;
-    const bf16* cV = sV + st * kB * S;
+    const E* cK = sK + st * kB * S;
+    const E* cV = sV + st * kB * S;
     const int* cSeg = sSeg + st * kB;
 
     // S = Q K^T and dP = dO V^T, 16 q rows x 64 keys a warp
@@ -356,7 +356,7 @@ __global__ void __launch_bounds__(128 * varlen_dq_split<D>(),
       }
     }
 
-    // dQ += round_bf16(dS) K over this warp's columns c0 .. c0 + DC - 1
+    // dQ += round_E(dS) K over this warp's columns c0 .. c0 + DC - 1
     mma_pv<D, NC>(acc, sc, cK, c0, lane);
     kt = next;
   }
@@ -364,13 +364,13 @@ __global__ void __launch_bounds__(128 * varlen_dq_split<D>(),
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    bf16* row = dq + (static_cast<long>(bh) * n.sq + qt * kB + r[i]) * n.d;
+    E* row = dq + (static_cast<long>(bh) * n.sq + qt * kB + r[i]) * n.d;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int col = c0 + j * 8 + 2 * t;
       if (col < n.d)
-        *reinterpret_cast<__nv_bfloat162*>(row + col) =
-            __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(row + col) =
+            pack2<E>(acc[j][2 * i], acc[j][2 * i + 1]);
     }
   }
 }
@@ -391,29 +391,29 @@ template <int D>
 constexpr int varlen_dkv_smem = 6 * tile_bytes<D> + 3 * 2 * kB * 4;
 
 // three blocks an SM at D <= 64 (at most 168 registers a thread)
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(128 * varlen_dkv_split<D>(),
                                   D <= 64 ? 3 : 1)
-    varlen_mma_dkv_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
+    varlen_mma_dkv_kernel(const E* __restrict__ q,
+                          const E* __restrict__ k,
+                          const E* __restrict__ v,
                           const int* __restrict__ seg_q,
                           const int* __restrict__ seg_k,
                           const int4* __restrict__ qr,
                           const int4* __restrict__ kr,
                           const int* __restrict__ order,
-                          const bf16* __restrict__ dout,
+                          const E* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          E* __restrict__ dk, E* __restrict__ dv,
                           VarlenDims n, float scale, int causal) {
   constexpr int S = kStride<D>, NB = kB / 8, SPLIT = varlen_dkv_split<D>();
   constexpr int DC = D / SPLIT, NC = DC / 8, NT = 128 * SPLIT;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kB * S;
-  bf16* sQ = sV + kB * S;      // two stages
-  bf16* sO = sQ + 2 * kB * S;  // dO, two stages
+  E* sK = reinterpret_cast<E*>(smem);
+  E* sV = sK + kB * S;
+  E* sQ = sV + kB * S;      // two stages
+  E* sO = sQ + 2 * kB * S;  // dO, two stages
   float* sL = reinterpret_cast<float*>(sO + 2 * kB * S);  // two stages
   float* sD = sL + 2 * kB;                                // two stages
   int* sSeg = reinterpret_cast<int*>(sD + 2 * kB);        // two stages
@@ -470,8 +470,8 @@ __global__ void __launch_bounds__(128 * varlen_dkv_split<D>(),
     cp_async_commit();
     cp_async_wait<1>();  // this q tile (and K, V) have landed
     __syncthreads();
-    const bf16* cQ = sQ + st * kB * S;
-    const bf16* cO = sO + st * kB * S;
+    const E* cQ = sQ + st * kB * S;
+    const E* cO = sO + st * kB * S;
     const float* cL = sL + st * kB;
     const float* cD = sD + st * kB;
     const int* cSeg = sSeg + st * kB;
@@ -497,7 +497,7 @@ __global__ void __launch_bounds__(128 * varlen_dkv_split<D>(),
       }
     }
 
-    // dV += round_bf16(P)^T dO, dK += round_bf16(dS)^T Q over this warp's
+    // dV += round_E(P)^T dO, dK += round_E(dS)^T Q over this warp's
     // columns c0 .. c0 + DC - 1
     mma_pv<D, NC>(dva, sc, cO, c0, lane);
     mma_pv<D, NC>(dka, dp, cQ, c0, lane);
@@ -512,10 +512,10 @@ __global__ void __launch_bounds__(128 * varlen_dkv_split<D>(),
     for (int j = 0; j < NC; ++j) {
       const int col = c0 + j * 8 + 2 * t;
       if (col < n.d) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
-            __floats2bfloat162_rn(dka[j][2 * i], dka[j][2 * i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
-            __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dk + row + col) =
+            pack2<E>(dka[j][2 * i], dka[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + row + col) =
+            pack2<E>(dva[j][2 * i], dva[j][2 * i + 1]);
       }
     }
   }
@@ -527,70 +527,71 @@ __global__ void __launch_bounds__(128 * varlen_dkv_split<D>(),
 // first, then the next longest (with the tile fast, the last heads' longest
 // walks would start in the last wave)
 
-template <int D>
+template <typename E, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* seg_q, const void* seg_k, const void* qr,
                        const void* kr, const void* order, void* o, void* lse,
                        int b, VarlenDims n, float scale, int causal,
                        cudaStream_t s) {
-  auto kernel = varlen_mma_fwd_kernel<D>;
+  auto kernel = varlen_mma_fwd_kernel<E, D>;
   const cudaError_t e = allow_smem(kernel, varlen_fwd_smem<D>);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(b * n.h, n.sq / kB), 128, varlen_fwd_smem<D>, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(seg_q),
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
       static_cast<const int4*>(kr), static_cast<const int*>(order),
-      static_cast<bf16*>(o), static_cast<float*>(lse), n, scale, causal);
+      static_cast<E*>(o), static_cast<float*>(lse), n, scale, causal);
   return cudaSuccess;
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* seg_q, const void* seg_k, const void* qr,
                       const void* kr, const void* order, const void* dout,
                       const void* lse, const void* delta, void* dq, int b,
                       VarlenDims n, float scale, int causal, cudaStream_t s) {
-  auto kernel = varlen_mma_dq_kernel<D>;
+  auto kernel = varlen_mma_dq_kernel<E, D>;
   const cudaError_t e = allow_smem(kernel, varlen_dq_smem<D>);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(b * n.h, n.sq / kB), 128 * varlen_dq_split<D>(),
            varlen_dq_smem<D>, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(seg_q),
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
       static_cast<const int4*>(kr), static_cast<const int*>(order),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), n, scale,
+      static_cast<const E*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<E*>(dq), n, scale,
       causal);
   return cudaSuccess;
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* seg_q, const void* seg_k, const void* qr,
                        const void* kr, const void* order, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv,
                        int b, VarlenDims n, float scale, int causal,
                        cudaStream_t s) {
-  auto kernel = varlen_mma_dkv_kernel<D>;
+  auto kernel = varlen_mma_dkv_kernel<E, D>;
   const cudaError_t e = allow_smem(kernel, varlen_dkv_smem<D>);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(b * n.h, n.sk / kB), 128 * varlen_dkv_split<D>(),
            varlen_dkv_smem<D>, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(seg_q),
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<const int4*>(qr),
       static_cast<const int4*>(kr), static_cast<const int*>(order),
-      static_cast<const bf16*>(dout),
+      static_cast<const E*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, scale, causal);
+      static_cast<E*>(dk), static_cast<E*>(dv), n, scale, causal);
   return cudaSuccess;
 }
 
-// the launch given, with D bound to the instantiated head dim that takes
-// d, its status returned from the calling entry point (after the checks
-// every entry makes: bf16, d a positive multiple of 8 up to 256, sq and sk
+// the launch given, with E bound to the element type of `dtype` (bf16 or
+// fp16) and D to the instantiated head dim that takes d, its status
+// returned from the calling entry point (after the checks every entry
+// makes: bf16 or fp16, d a positive multiple of 8 up to 256, sq and sk
 // multiples of 64 of at most 65,535 tiles (the grid's y axis), and the
 // device set)
 #define APEX_VARLEN_MMA_CASE(DIM, ...) \
@@ -598,21 +599,30 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
     constexpr int D = DIM;             \
     return status_of(__VA_ARGS__);     \
   }
+#define APEX_VARLEN_MMA_DIMS(...)                                           \
+  switch (flash_head_dim(d)) {                                              \
+    APEX_VARLEN_MMA_CASE(32, __VA_ARGS__)                                   \
+    APEX_VARLEN_MMA_CASE(64, __VA_ARGS__)                                   \
+    APEX_VARLEN_MMA_CASE(128, __VA_ARGS__)                                  \
+    APEX_VARLEN_MMA_CASE(256, __VA_ARGS__)                                  \
+    default: return static_cast<int>(cudaErrorInvalidValue);                \
+  }
 #define APEX_VARLEN_MMA_DISPATCH(...)                                       \
   do {                                                                      \
-    if (!is_bf16 || d <= 0 || d % 8 != 0 || d > 256 || sq % kB != 0 ||     \
-        sk % kB != 0 || sq / kB > 65535 || sk / kB > 65535)                 \
+    if ((dtype != apex::kBF16 && dtype != apex::kF16) || d <= 0 ||          \
+        d % 8 != 0 || d > 256 || sq % kB != 0 || sk % kB != 0 ||            \
+        sq / kB > 65535 || sk / kB > 65535)                                 \
       return static_cast<int>(cudaErrorInvalidValue);                       \
     const cudaError_t set = cudaSetDevice(device);                          \
     if (set != cudaSuccess) return static_cast<int>(set);                   \
     const VarlenDims n{h, sq, sk, d};                                       \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                     \
-    switch (flash_head_dim(d)) {                                            \
-      APEX_VARLEN_MMA_CASE(32, __VA_ARGS__)                                 \
-      APEX_VARLEN_MMA_CASE(64, __VA_ARGS__)                                 \
-      APEX_VARLEN_MMA_CASE(128, __VA_ARGS__)                                \
-      APEX_VARLEN_MMA_CASE(256, __VA_ARGS__)                                \
-      default: return static_cast<int>(cudaErrorInvalidValue);              \
+    if (dtype == apex::kBF16) {                                             \
+      using E = __nv_bfloat16;                                              \
+      APEX_VARLEN_MMA_DIMS(__VA_ARGS__)                                     \
+    } else {                                                                \
+      using E = __half;                                                     \
+      APEX_VARLEN_MMA_DIMS(__VA_ARGS__)                                     \
     }                                                                       \
   } while (0)
 
@@ -622,16 +632,16 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // after the tables: the tiles of each batch row in the order their blocks
 // start, (b, sq / 64) int32 q tiles for the forward and dQ, (b, sk / 64)
 // K/V tiles for dK/dV (each row a permutation of its tiles). They take
-// bf16 inputs (is_bf16 != 0) and d a multiple of 8 up to 256; anything
-// else returns cudaErrorInvalidValue.
+// bf16 or fp16 inputs (dtype 1 or 2) and d a multiple of 8 up to 256;
+// anything else returns cudaErrorInvalidValue.
 extern "C" int flash_varlen_mma_fwd(int device, const void* q, const void* k,
                                     const void* v, const void* seg_q,
                                     const void* seg_k, const void* qr,
                                     const void* kr, const void* order,
                                     void* o, void* lse, int b, int h, int sq,
                                     int sk, int d, float scale, int causal,
-                                    int is_bf16, void* stream) {
-  APEX_VARLEN_MMA_DISPATCH(launch_fwd<D>(q, k, v, seg_q, seg_k, qr, kr,
+                                    int dtype, void* stream) {
+  APEX_VARLEN_MMA_DISPATCH(launch_fwd<E, D>(q, k, v, seg_q, seg_k, qr, kr,
                                          order, o, lse, b, n, scale, causal,
                                          s));
 }
@@ -644,10 +654,10 @@ extern "C" int flash_varlen_mma_bwd_dq(int device, const void* q,
                                        const void* lse, const void* delta,
                                        void* dq, int b, int h, int sq, int sk,
                                        int d, float scale, int causal,
-                                       int is_bf16, void* stream) {
-  APEX_VARLEN_MMA_DISPATCH(launch_dq<D>(q, k, v, seg_q, seg_k, qr, kr, order,
-                                        dout, lse, delta, dq, b, n, scale,
-                                        causal, s));
+                                       int dtype, void* stream) {
+  APEX_VARLEN_MMA_DISPATCH(launch_dq<E, D>(q, k, v, seg_q, seg_k, qr, kr,
+                                           order, dout, lse, delta, dq, b,
+                                           n, scale, causal, s));
 }
 
 extern "C" int flash_varlen_mma_bwd_dkv(int device, const void* q,
@@ -659,9 +669,9 @@ extern "C" int flash_varlen_mma_bwd_dkv(int device, const void* q,
                                         const void* delta, void* dk,
                                         void* dv, int b, int h, int sq,
                                         int sk, int d, float scale,
-                                        int causal, int is_bf16,
+                                        int causal, int dtype,
                                         void* stream) {
-  APEX_VARLEN_MMA_DISPATCH(launch_dkv<D>(q, k, v, seg_q, seg_k, qr, kr,
+  APEX_VARLEN_MMA_DISPATCH(launch_dkv<E, D>(q, k, v, seg_q, seg_k, qr, kr,
                                          order, dout, lse, delta, dk, dv, b,
                                          n, scale, causal, s));
 }

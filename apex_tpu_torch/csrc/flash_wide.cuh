@@ -119,9 +119,12 @@ __device__ __forceinline__ void wide_restage(float* const (&buf)[NP],
 }
 
 // returns FN<T>(args...)'s status from the calling entry point, T the
-// input type (is_bf16 ? bf16 : fp32)
+// input type (`dtype`: apex::kF32, kBF16 or kF16)
 #define APEX_WIDE_DISPATCH_T(FN, ...)                                     \
-  return status_of(is_bf16 ? FN<__nv_bfloat16>(__VA_ARGS__)               \
-                           : FN<float>(__VA_ARGS__))
+  do {                                                                    \
+    APEX_TYPE_SWITCH(dtype, T,                                            \
+                     return static_cast<int>(cudaErrorInvalidValue),      \
+                     return status_of(FN<T>(__VA_ARGS__)));               \
+  } while (0)
 
 }  // namespace

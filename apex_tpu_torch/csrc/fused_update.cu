@@ -12,9 +12,9 @@
 //   v' = b2 * v + (1 - b2) * g * g
 //   u  = (m' / c1) / (sqrt(v' / c2) + eps)
 //   u += wd * p                          (decoupled: adam_w and wd != 0)
-// g and p are read in their own type (fp32 or bf16), m and v in fp32; u is
-// written in fp32 and m', v' overwrite m and v in place. The constants
-// (1 - b1), (1 - b2), c1 and c2 come from the host as fp32.
+// g and p are read in their own type (fp32, bf16 or fp16), m and v in fp32; u
+// is written in fp32 and m', v' overwrite m and v in place. The constants (1 -
+// b1), (1 - b2), c1 and c2 come from the host as fp32.
 //
 // Two optional device pointers keep a step on the card (JAX's always
 // capturable FusedAdam, and amp's overflow guard): `corr` holds (c1, c2),
@@ -153,17 +153,17 @@ extern "C" int fused_update_blocks(long long n) {
                                                             : want));
 }
 
-// On CUDA device `device`, on `stream`. g, p: n elements of fp32 or bf16
-// (g_bf16, p_bf16); m, v, u: n fp32, m and v updated in place; all
+// On CUDA device `device`, on `stream`. g, p: n elements of fp32, bf16 or fp16
+// (g_type, p_type: 0, 1 or 2); m, v, u: n fp32, m and v updated in place; all
 // contiguous. With wsq_part non-null (LAMB): wsq_part and usq_part hold
-// fused_update_blocks(n) floats each, and sums[0], sums[1] receive the sums
-// of p^2 and u^2. corr (2 fp32: c1, c2, read in place of the c1 and c2
-// arguments) and found_inf (1 fp32) are device pointers or null.
+// fused_update_blocks(n) floats each, and sums[0], sums[1] receive the sums of
+// p^2 and u^2. corr (2 fp32: c1, c2, read in place of the c1 and c2 arguments)
+// and found_inf (1 fp32) are device pointers or null.
 extern "C" int fused_adam_tail(int device, const void* g, const void* p,
                                void* m, void* v, void* u, long long n,
                                float b1, float omb1, float b2, float omb2,
                                float eps, float wd, int adam_w, float c1,
-                               float c2, int g_bf16, int p_bf16,
+                               float c2, int g_type, int p_type,
                                void* wsq_part, void* usq_part, void* sums,
                                const void* corr, const void* found_inf,
                                void* stream) {
@@ -174,17 +174,11 @@ extern "C" int fused_adam_tail(int device, const void* g, const void* p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* cr = static_cast<const float*>(corr);
   const float* fi = static_cast<const float*>(found_inf);
-  if (g_bf16 && p_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(g, p, m, v, u, n, a, wsq_part,
-                                         usq_part, sums, cr, fi, blocks, s);
-  else if (g_bf16)
-    launch<__nv_bfloat16, float>(g, p, m, v, u, n, a, wsq_part, usq_part,
-                                 sums, cr, fi, blocks, s);
-  else if (p_bf16)
-    launch<float, __nv_bfloat16>(g, p, m, v, u, n, a, wsq_part, usq_part,
-                                 sums, cr, fi, blocks, s);
-  else
-    launch<float, float>(g, p, m, v, u, n, a, wsq_part, usq_part, sums, cr,
-                         fi, blocks, s);
+  constexpr int bad = static_cast<int>(cudaErrorInvalidValue);
+  APEX_TYPE_SWITCH(g_type, TG, return bad,
+                   APEX_TYPE_SWITCH(p_type, TP, return bad,
+                                    launch<TG, TP>(g, p, m, v, u, n, a,
+                                                   wsq_part, usq_part, sums,
+                                                   cr, fi, blocks, s)));
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,9 +8,10 @@
 //   * `_rms_bwd_kernel` (reached through `_rms_norm_affine_bwd`,
 //     pallas_call at :292).
 //
-// Types: x, y, dy and dx are T; the weight, the bias, dw and db are TW;
-// each fp32 or bf16 on its own (JAX's `FusedLayerNorm` and `MixedFused*`
-// make fp32 params for a bf16 model). Everything is computed in fp32.
+// Types: x, y, dy and dx are T; the weight, the bias, dw and db are TW; T
+// fp32, bf16 or fp16 and TW T's type or the other of fp32 and bf16 for fp32
+// and bf16 x, fp32 for fp16 x (JAX's `FusedLayerNorm` and `MixedFused*` make
+// fp32 params for a half model). Everything is computed in fp32.
 //
 // LayerNorm forward: exactly `layer_norm_reference` (layer_norm.py:46-58),
 // not Welford: fp32 sums of x and x*x, mean = sum/h, var = max(E[x^2] -
@@ -35,10 +36,10 @@
 // Forward (`norm_fwd_kernel`): x is read from device memory once, and a
 // row's sum order is a function of hidden alone. The geometry is
 // ops/layer_norm.py `_fwd_plan(hidden)`'s, passed in: a row is cut into
-// chunks of 4 columns (16 B of fp32, 8 B of bf16, so a warp's loads of
-// consecutive chunks are consecutive bytes whatever the type) and belongs
-// to a team of `team_warps` warps, thread tt of a team owning the chunks
-// tt + j * (32 * team_warps), j < C, of every row. A thread holds its
+// chunks of 4 columns (16 B of fp32, 8 B of bf16 or fp16, so a warp's
+// loads of consecutive chunks are consecutive bytes whatever the type) and
+// belongs to a team of `team_warps` warps, thread tt of a team owning the
+// chunks tt + j * (32 * team_warps), j < C, of every row. A thread holds its
 // chunks of a row in registers, packed, from the load to the store of y,
 // and issues all their loads before the row's first sum, so the row's
 // bytes are in flight together.
@@ -70,35 +71,33 @@
 // plain emulation of this order.
 //
 // Backward: one pass over dy and x and one ordered sum, two launches
-// (`norm_bwd_pass_kernel`, `norm_bwd_sum_kernel`). The TPU kernel summed
-// dw/db across its sequential grid into one output block; blocks here run
-// in parallel, so the sum is two-stage and deterministic. The pass: a
-// block (or a cluster of blocks) owns a fixed, contiguous part of the
-// rows; its threads keep the same 8-column chunks in every row, so w is
-// loaded once and dy * xhat (and dy) sum in registers; each thread copies
-// its own chunks of the rows ahead with cp.async into its own slots of a
-// ring in shared memory (3 stages of bf16, 2 of fp32), so the next rows'
-// bytes are in flight while a row is reduced, and dy and x are read from
-// device memory once. A row belongs to one
-// warp up to 768 columns (eight such teams a block, walking the part's
-// rows in turn), to a team of up to eight warps above, and past 8 warps'
-// registers (3 chunks a thread: at 4, LayerNorm's 170 registers left one
-// block an SM) to a cluster of blocks, each owning every cluster-th
-// chunk, its row sums exchanged through distributed shared memory. The row's sums go in a fixed order (a thread's chunks, the
-// warp's xor tree, the team's warps, the cluster's ranks), so dx repeats
-// bitwise. The block adds its teams' sums in team order and writes one
-// fp32 partial row: parts * hidden * 4 B each for dw and db, at least 16
-// rows a part, so the partials stay under 8.3 % of the bound's bytes. The
-// sum: a second launch, a programmatic dependent of the pass (its launch
-// latency hides behind the pass), parallel over columns and over 32
-// slices of the parts, each slice in part order and the slices in a
+// (`norm_bwd_pass_kernel`, `norm_bwd_sum_kernel`). The TPU kernel summed dw/db
+// across its sequential grid into one output block; blocks here run in
+// parallel, so the sum is two-stage and deterministic. The pass: a block (or a
+// cluster of blocks) owns a fixed, contiguous part of the rows; its threads
+// keep the same 8-column chunks in every row, so w is loaded once and dy *
+// xhat (and dy) sum in registers; each thread copies its own chunks of the
+// rows ahead with cp.async into its own slots of a ring in shared memory (3
+// stages of bf16 or fp16, 2 of fp32), so the next rows' bytes are in flight
+// while a row is reduced, and dy and x are read from device memory once. A row
+// belongs to one warp up to 768 columns (eight such teams a block, walking the
+// part's rows in turn), to a team of up to eight warps above, and past 8
+// warps' registers (3 chunks a thread: at 4, LayerNorm's 170 registers left
+// one block an SM) to a cluster of blocks, each owning every cluster-th chunk,
+// its row sums exchanged through distributed shared memory. The row's sums go
+// in a fixed order (a thread's chunks, the warp's xor tree, the team's warps,
+// the cluster's ranks), so dx repeats bitwise. The block adds its teams' sums
+// in team order and writes one fp32 partial row: parts * hidden * 4 B each for
+// dw and db, at least 16 rows a part, so the partials stay under 8.3 % of the
+// bound's bytes. The sum: a second launch, a programmatic dependent of the
+// pass (its launch latency hides behind the pass), parallel over columns and
+// over 32 slices of the parts, each slice in part order and the slices in a
 // fixed tree; dw/db are written in the weight's type. The geometry is a
-// function of (rows, hidden) alone (ops/layer_norm.py `_bwd_plan`, which
-// also sizes the workspace), never of the SM count or the stream, so
-// dx/dw/db are bitwise the same for the same inputs on every run. No
-// shared memory or register grows with hidden beyond the plan's chunks,
-// so every width JAX's gate admits runs (37,376 at 8-row blocks: a
-// cluster of 7).
+// function of (rows, hidden) alone (ops/layer_norm.py `_bwd_plan`, which also
+// sizes the workspace), never of the SM count or the stream, so dx/dw/db are
+// bitwise the same for the same inputs on every run. No shared memory or
+// register grows with hidden beyond the plan's chunks, so every width JAX's
+// gate admits runs (37,376 at 8-row blocks: a cluster of 7).
 
 #include <cooperative_groups.h>
 
@@ -118,8 +117,8 @@ constexpr int kFwdWideChunks = 12;  // and in a wide (up to 32-warp) team
 constexpr int kFwdBlockWarps = 32;
 constexpr int kFwdMaxDevices = 16;
 
-// 4 consecutive values of T as loaded: 16 B of fp32, 8 B of bf16, so a
-// warp's loads of consecutive chunks are consecutive bytes
+// 4 consecutive values of T as loaded: 16 B of fp32, 8 B of bf16 or fp16,
+// so a warp's loads of consecutive chunks are consecutive bytes
 template <typename T>
 struct Chunk {
   using Raw = typename std::conditional<sizeof(T) == 4, uint4, uint2>::type;
@@ -174,13 +173,31 @@ __device__ __forceinline__ void unpack(const Chunk<__nv_bfloat16>& c,
   }
 }
 
-// 4 values to a chunk of y (round to nearest even for bf16)
+__device__ __forceinline__ void unpack(const Chunk<__half>& c, float* f) {
+  const uint32_t v[2] = {c.v.x, c.v.y};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float2 t = __half22float2(*reinterpret_cast<const __half2*>(&v[k]));
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+
+// 4 values to a chunk of y (round to nearest even for bf16 and fp16)
 __device__ __forceinline__ void store_chunk(float* p, const float* o) {
   *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
 }
 __device__ __forceinline__ void store_chunk(__nv_bfloat16* p, const float* o) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+__device__ __forceinline__ void store_chunk(__half* p, const float* o) {
+  const __half2 lo = __floats2half2_rn(o[0], o[1]);
+  const __half2 hi = __floats2half2_rn(o[2], o[3]);
   *reinterpret_cast<uint2*>(p) =
       make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
                  *reinterpret_cast<const uint32_t*>(&hi));
@@ -445,7 +462,7 @@ int launch_fwd(const void* x, const void* w, const void* b, void* y,
 // ---------------------------------------------------------------------------
 // backward: one pass over dy and x, then the ordered sum of the partials
 
-constexpr int kUnit = 8;       // elements of a chunk: 16 B of bf16, 32 B fp32
+constexpr int kUnit = 8;       // elements of a chunk: 16 B half, 32 B fp32
 constexpr int kSlices = 32;     // part slices (warps) of a sum block
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -865,33 +882,37 @@ int launch_bwd(const void* dy, const void* x, const void* mean,
 
 }  // namespace
 
-// runs the call given with T (x's type) and TW (the weight's) bound
+// runs the call given with T (x's type) and TW (the weight's) bound: fp32
+// x with an fp32 or bf16 weight, bf16 x with a bf16 or fp32 weight, fp16 x
+// with an fp16 or fp32 weight (apex::kF32, kBF16, kF16 codes)
+#define APEX_NORM_CASE(XC, WC, TX, TWX, ...)                          \
+  if (x_type == XC && w_type == WC) {                                  \
+    using T = TX; using TW = TWX; return __VA_ARGS__;                  \
+  }
 #define APEX_NORM_DISPATCH(...)                                        \
   do {                                                                 \
     using bf16 = __nv_bfloat16;                                        \
-    if (x_bf16 && w_bf16) {                                            \
-      using T = bf16; using TW = bf16; return __VA_ARGS__;             \
-    } else if (x_bf16) {                                               \
-      using T = bf16; using TW = float; return __VA_ARGS__;            \
-    } else if (w_bf16) {                                               \
-      using T = float; using TW = bf16; return __VA_ARGS__;            \
-    } else {                                                           \
-      using T = float; using TW = float; return __VA_ARGS__;           \
-    }                                                                  \
+    APEX_NORM_CASE(apex::kF32, apex::kF32, float, float, __VA_ARGS__)  \
+    APEX_NORM_CASE(apex::kF32, apex::kBF16, float, bf16, __VA_ARGS__)  \
+    APEX_NORM_CASE(apex::kBF16, apex::kBF16, bf16, bf16, __VA_ARGS__)  \
+    APEX_NORM_CASE(apex::kBF16, apex::kF32, bf16, float, __VA_ARGS__)  \
+    APEX_NORM_CASE(apex::kF16, apex::kF16, __half, __half, __VA_ARGS__) \
+    APEX_NORM_CASE(apex::kF16, apex::kF32, __half, float, __VA_ARGS__) \
+    return static_cast<int>(cudaErrorInvalidValue);                    \
   } while (0)
 
 // On CUDA device `device`, on `stream`:
-// x, y: (rows, hidden) contiguous, T = (x_bf16 ? bf16 : fp32); w, b:
-// (hidden,), TW = (w_bf16 ? bf16 : fp32); 16-byte aligned, hidden %
-// (16/sizeof(T)) == 0. mean, rstd: (rows,) fp32, or both null when the
-// statistics are not needed. The geometry is ops/layer_norm.py
-// `_fwd_plan(hidden)`'s: teams of `team_warps` warps, `teams` a block,
-// `chunks` chunks of 8 columns a thread.
+// x, y: (rows, hidden) contiguous, T = x's type (x_type); w, b:
+// (hidden,), TW = their type (w_type), a pair APEX_NORM_DISPATCH takes;
+// 16-byte aligned, hidden % (16/sizeof(T)) == 0. mean, rstd: (rows,) fp32, or
+// both null when the statistics are not needed. The geometry is
+// ops/layer_norm.py `_fwd_plan(hidden)`'s: teams of `team_warps` warps,
+// `teams` a block, `chunks` chunks of 8 columns a thread.
 extern "C" int layer_norm_fwd(int device, const void* x, const void* w,
                               const void* b, void* y, void* mean, void* rstd,
                               int rows, int hidden, float eps,
                               int team_warps, int teams, int chunks,
-                              int x_bf16, int w_bf16, void* stream) {
+                              int x_type, int w_type, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -904,7 +925,7 @@ extern "C" int layer_norm_fwd(int device, const void* x, const void* w,
 extern "C" int rms_norm_fwd(int device, const void* x, const void* w,
                             void* y, void* rstd, int rows, int hidden,
                             float eps, int team_warps, int teams, int chunks,
-                            int x_bf16, int w_bf16, void* stream) {
+                            int x_type, int w_type, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -925,7 +946,7 @@ extern "C" int layer_norm_bwd(int device, const void* dy, const void* x,
                               void* workspace, int rows, int hidden,
                               int parts, int rows_per_part, int cluster,
                               int team_warps, int teams, int chunks,
-                              int x_bf16, int w_bf16, void* stream) {
+                              int x_type, int w_type, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -941,7 +962,7 @@ extern "C" int rms_norm_bwd(int device, const void* dy, const void* x,
                             void* dw, void* workspace, int rows, int hidden,
                             int parts, int rows_per_part, int cluster,
                             int team_warps, int teams, int chunks,
-                            int x_bf16, int w_bf16, void* stream) {
+                            int x_type, int w_type, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,7 +1,8 @@
-// Fused LM head + softmax cross-entropy, forward, dX and dW, bf16 on
-// Hopper's tensor cores (sm_90a).
+// Fused LM head + softmax cross-entropy, forward, dX and dW, bf16 or fp16
+// (E below) on Hopper's tensor cores (sm_90a).
 //
-// Replaces, for bf16 inputs, the TPU kernels of apex_tpu/ops/lm_head_loss.py:
+// Replaces, for bf16 and fp16 inputs, the TPU kernels of
+// apex_tpu/ops/lm_head_loss.py:
 //   * `_fwd_kernel` (reached through `_run_fwd`, pallas_call at :198): per
 //     row the log-sum-exp lse of s = x . w^T over the vocab and the
 //     target's score pred;
@@ -15,8 +16,8 @@
 //
 // Math, the JAX kernels' (:130-183): s is accumulated in fp32; a vocab
 // column past V gives dl = 0 (its W row loads as zeros); a target outside
-// [0, V) hits no column; dl is rounded to bf16 before the second product,
-// whose sums are fp32; dx and dw are written in bf16.
+// [0, V) hits no column; dl is rounded to E before the second product,
+// whose sums are fp32; dx and dw are written in E.
 //
 // Bound on this card: tensor-core operations, 4.n.V.h (the scores and the
 // second product): 1.28 ms at the training shape (8192 x 768, V 50304) at
@@ -26,7 +27,7 @@
 // block owns 64 rows of one matrix (dX: x's rows; dW: w's vocab rows; the
 // "own" tile) and streams the other (dX: w; dW: x) in tiles of 64 rows.
 // Per tile: S = own . tile^T (64 x 64, fp32) in registers, dl from S in
-// registers, rounded to bf16 into a small shared tile, then acc += dl .
+// registers, rounded to E into a small shared tile, then acc += dl .
 // tile with the (64 x hk) fp32 accumulator in registers. The register file
 // bounds the accumulator: up to hk = 512 columns (128 fp32 a thread) a CTA
 // covers the hidden axis alone (T5-small's 512). Wider, a thread block
@@ -116,13 +117,14 @@ constexpr int kPairLd = kStreamRows + 4;
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSplits = 16;
 
+template <typename E>
 struct BwdArgs {
-  const bf16* own;       // (own_n, h): x for dX, w for dW
-  const bf16* stream;    // (stream_n, h): w for dX, x for dW
+  const E* own;       // (own_n, h): x for dX, w for dW
+  const E* stream;    // (stream_n, h): w for dX, x for dW
   const long long* t;    // (n,) targets
   const float* lse;      // (n,)
   const float* g;        // (n,) upstream gradient of each row's loss
-  bf16* out;             // (own_n, h), or null when `part` takes the sums
+  E* out;             // (own_n, h), or null when `part` takes the sums
   float* part;           // (splits, own_n, h) fp32 partials, or null
   int own_n, stream_n, h, vocab;
   int tiles_per_split;   // streamed tiles one split walks
@@ -140,11 +142,11 @@ constexpr size_t bwd_smem_bytes(int cluster) {
 }
 
 // Start copying rows [row0, row0 + 64) x columns [col0, col0 + HK) of a
-// (rows, h) bf16 matrix into a (64, HK) tile; rows at or past `limit` and
+// (rows, h) E matrix into a (64, HK) tile; rows at or past `limit` and
 // columns at or past h become zeros (read from a clamped address). Joins
 // the caller's open cp.async group.
-template <int HK>
-__device__ __forceinline__ void panel_async(bf16* dst, const bf16* src,
+template <int HK, typename E>
+__device__ __forceinline__ void panel_async(E* dst, const E* src,
                                             int row0, int limit, int col0,
                                             int h) {
   constexpr int CH = HK / 8;  // 16-byte chunks a row
@@ -169,9 +171,9 @@ __device__ __forceinline__ void panel_async(bf16* dst, const bf16* src,
 
 // s += own . str^T over the HK columns of the two tiles; the warp's 32 x 16
 // block of S: s[m][nb] is rows 32 wm + 16 m, columns 16 wn + 8 nb
-template <int HK>
+template <int HK, typename E>
 __device__ __forceinline__ void score_part(float (&s)[2][2][4],
-                                           const bf16* own, const bf16* str,
+                                           const E* own, const E* str,
                                            int wm, int wn, int lane) {
 #pragma unroll 4
   for (int kk = 0; kk < HK; kk += 16) {
@@ -179,19 +181,19 @@ __device__ __forceinline__ void score_part(float (&s)[2][2][4],
     load_a<HK>(a0, own, wm * 32, kk, lane);
     load_a<HK>(a1, own, wm * 32 + 16, kk, lane);
     load_bt<HK>(b, str, wn * 16, kk, lane);
-    mma_bf16(s[0][0], a0, b[0], b[1]);
-    mma_bf16(s[0][1], a0, b[2], b[3]);
-    mma_bf16(s[1][0], a1, b[0], b[1]);
-    mma_bf16(s[1][1], a1, b[2], b[3]);
+    mma16<E>(s[0][0], a0, b[0], b[1]);
+    mma16<E>(s[0][1], a0, b[2], b[3]);
+    mma16<E>(s[1][0], a1, b[0], b[1]);
+    mma16<E>(s[1][1], a1, b[2], b[3]);
   }
 }
 
-// acc += dl . str: dl (64 x 64 bf16, row stride 72), str the streamed tile
+// acc += dl . str: dl (64 x 64 E, row stride 72), str the streamed tile
 // (64 x HK); the warp's 32 rows x HK/4 columns, acc[m][nt] rows 32 wm +
 // 16 m, columns HK/4 wn + 8 nt
-template <int HK>
+template <int HK, typename E>
 __device__ __forceinline__ void dl_product(float (&acc)[2][HK / 32][4],
-                                           const bf16* dl, const bf16* str,
+                                           const E* dl, const E* str,
                                            int wm, int wn, int lane) {
   constexpr int NT = HK / 32;
 #pragma unroll
@@ -203,10 +205,10 @@ __device__ __forceinline__ void dl_product(float (&acc)[2][HK / 32][4],
     for (int j = 0; j < NT / 2; ++j) {
       uint32_t b[4];
       load_b<HK>(b, str, kk, wn * (HK / 4) + 16 * j, lane);
-      mma_bf16(acc[0][2 * j], a0, b[0], b[1]);
-      mma_bf16(acc[0][2 * j + 1], a0, b[2], b[3]);
-      mma_bf16(acc[1][2 * j], a1, b[0], b[1]);
-      mma_bf16(acc[1][2 * j + 1], a1, b[2], b[3]);
+      mma16<E>(acc[0][2 * j], a0, b[0], b[1]);
+      mma16<E>(acc[0][2 * j + 1], a0, b[2], b[3]);
+      mma16<E>(acc[1][2 * j], a1, b[0], b[1]);
+      mma16<E>(acc[1][2 * j + 1], a1, b[2], b[3]);
     }
   }
 }
@@ -258,7 +260,8 @@ struct RowInfo {
   float lse, g;
 };
 
-__device__ __forceinline__ RowInfo row_info(const BwdArgs& a, int row,
+template <typename E>
+__device__ __forceinline__ RowInfo row_info(const BwdArgs<E>& a, int row,
                                             int n) {
   if (row >= n) return {-1, 0.f, 0.f};
   return {__ldg(a.t + row), __ldg(a.lse + row), __ldg(a.g + row)};
@@ -267,14 +270,14 @@ __device__ __forceinline__ RowInfo row_info(const BwdArgs& a, int row,
 // Block (own tile x cluster rank, output panel, vocab split). DW: own = w,
 // streamed = x, the vocab index is the own row; else own = x, streamed =
 // w, the vocab index is the streamed row.
-template <bool DW, int HK>
+template <typename E, bool DW, int HK>
 __global__ void __launch_bounds__(kLmThreads, 1)
-    lm_mma_bwd_kernel(const BwdArgs a) {
+    lm_mma_bwd_kernel(const BwdArgs<E> a) {
   constexpr int LDH = kStride<HK>, LDL = kStride<64>, NT = HK / 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_own = reinterpret_cast<bf16*>(smem);        // 64 x LDH
-  bf16* s_str = s_own + kOwnRows * LDH;               // 2 x 64 x LDH
-  bf16* s_dl = s_str + 2 * kStreamRows * LDH;         // 64 x LDL
+  E* s_own = reinterpret_cast<E*>(smem);        // 64 x LDH
+  E* s_str = s_own + kOwnRows * LDH;               // 2 x 64 x LDH
+  E* s_dl = s_str + 2 * kStreamRows * LDH;         // 64 x LDL
   // parts of S: a cluster's 2 x 64 x kPartLd, or a pair's 4 x 64 x
   // kPairLd (received [0, 1], sent [2, 3]) and its mbarriers full[2]
   float* s_part = reinterpret_cast<float*>(s_dl + kOwnRows * LDL);
@@ -353,7 +356,7 @@ __global__ void __launch_bounds__(kLmThreads, 1)
       for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
         for (int q = 0; q < 4; ++q) s[m][nb][q] = 0.f;
-    const bf16* str;
+    const E* str;
     if (P == 1) {
       __syncthreads();  // the readers of the other buffer (tile - 1) are done
       if (tile + 1 < t_end) {
@@ -468,7 +471,7 @@ __global__ void __launch_bounds__(kLmThreads, 1)
           for (int q = 0; q < 4; ++q) s[m][nb][q] = sum[m][nb][q];
     }
 
-    // dl = (exp(s - lse) - hit) * g, 0 past the vocab, rounded to bf16
+    // dl = (exp(s - lse) - hit) * g, 0 past the vocab, rounded to E
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -488,7 +491,7 @@ __global__ void __launch_bounds__(kLmThreads, 1)
             d[e] = vocab < a.vocab ? (p - hit) * ri_.g : 0.f;
           }
           *reinterpret_cast<uint32_t*>(s_dl + frag_at(m, nb, hh, LDL)) =
-              pack_bf16(d[0], d[1]);
+              pack2<E>(d[0], d[1]);
         }
     __syncthreads();
     dl_product<HK>(acc, s_dl, str, wm, wn, lane);
@@ -516,16 +519,17 @@ __global__ void __launch_bounds__(kLmThreads, 1)
               a.part + static_cast<long>(blockIdx.z) * a.own_n * a.h + at) =
               make_float2(v0, v1);
         else
-          *reinterpret_cast<uint32_t*>(a.out + at) = pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(a.out + at) = pack2<E>(v0, v1);
       }
     }
 }
 
-// dx = sum of the splits' fp32 partials in split order, in bf16; four
+// dx = sum of the splits' fp32 partials in split order, in E; four
 // elements a thread (count is a multiple of 128)
+template <typename E>
 __global__ void __launch_bounds__(kLmThreads)
     lm_mma_dx_merge_kernel(const float* __restrict__ part,
-                           bf16* __restrict__ dx, long count, int splits) {
+                           E* __restrict__ dx, long count, int splits) {
   const long i = (static_cast<long>(blockIdx.x) * kLmThreads + threadIdx.x) *
                  4;
   if (i >= count) return;
@@ -539,15 +543,15 @@ __global__ void __launch_bounds__(kLmThreads)
     s.w += p.w;
   }
   uint2 out;
-  out.x = pack_bf16(s.x, s.y);
-  out.y = pack_bf16(s.z, s.w);
+  out.x = pack2<E>(s.x, s.y);
+  out.y = pack2<E>(s.z, s.w);
   *reinterpret_cast<uint2*>(dx + i) = out;
 }
 
-template <bool DW, int HK>
-cudaError_t launch_bwd(const BwdArgs& a, int cluster, int own_tiles,
+template <typename E, bool DW, int HK>
+cudaError_t launch_bwd(const BwdArgs<E>& a, int cluster, int own_tiles,
                        int splits, cudaStream_t s) {
-  auto kernel = lm_mma_bwd_kernel<DW, HK>;
+  auto kernel = lm_mma_bwd_kernel<E, DW, HK>;
   const size_t bytes = bwd_smem_bytes<HK>(cluster);
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -568,14 +572,14 @@ cudaError_t launch_bwd(const BwdArgs& a, int cluster, int own_tiles,
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-template <bool DW>
-cudaError_t launch_hk(const BwdArgs& a, int hk, int cluster, int own_tiles,
-                      int splits, cudaStream_t s) {
+template <bool DW, typename E>
+cudaError_t launch_hk(const BwdArgs<E>& a, int hk, int cluster,
+                      int own_tiles, int splits, cudaStream_t s) {
   switch (hk) {
-    case 128: return launch_bwd<DW, 128>(a, cluster, own_tiles, splits, s);
-    case 256: return launch_bwd<DW, 256>(a, cluster, own_tiles, splits, s);
-    case 384: return launch_bwd<DW, 384>(a, cluster, own_tiles, splits, s);
-    case 512: return launch_bwd<DW, 512>(a, cluster, own_tiles, splits, s);
+    case 128: return launch_bwd<E, DW, 128>(a, cluster, own_tiles, splits, s);
+    case 256: return launch_bwd<E, DW, 256>(a, cluster, own_tiles, splits, s);
+    case 384: return launch_bwd<E, DW, 384>(a, cluster, own_tiles, splits, s);
+    case 512: return launch_bwd<E, DW, 512>(a, cluster, own_tiles, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -602,9 +606,10 @@ constexpr size_t kFwdSmem =
     3 * kFwdWarpCols * kFwdRows * 4;
 static_assert(kFwdNJ % 2 == 0 && kFwdRows <= kLmThreads, "fwd tiling");
 
+template <typename E>
 struct FwdArgs {
-  const bf16* x;         // (n, h)
-  const bf16* w;         // (vocab, h)
+  const E* x;         // (n, h)
+  const E* w;         // (vocab, h)
   const long long* t;    // (n,) targets
   float* part;           // (3, splits, n): m, l, p of each split
   int n, vocab, h;
@@ -612,11 +617,11 @@ struct FwdArgs {
 };
 
 // Start copying rows [row0, row0 + ROWS) x columns [col0, col0 + 64) of a
-// (rows, h) bf16 matrix into a (ROWS, 64) ring stage; rows at or past
+// (rows, h) E matrix into a (ROWS, 64) ring stage; rows at or past
 // `limit` become zeros (read from a clamped address). h is a multiple of
 // 64, so no column is past it. Joins the caller's open cp.async group.
-template <int ROWS>
-__device__ __forceinline__ void chunk_async(bf16* dst, const bf16* src,
+template <int ROWS, typename E>
+__device__ __forceinline__ void chunk_async(E* dst, const E* src,
                                             int row0, int limit, int col0,
                                             int h) {
   constexpr int CH = kFwdK / 8;  // 16-byte chunks a row
@@ -643,12 +648,13 @@ __device__ __forceinline__ void merge_ml(float& m, float& l, float m2,
 
 // Block (row tile, vocab split): its rows' (m, l, p) over the split's vocab
 // tiles, written to part[(k * splits + split) * n + row] for k = m, l, p.
+template <typename E>
 __global__ void __launch_bounds__(kLmThreads, kFwdMinBlocks)
-    lm_mma_fwd_kernel(const FwdArgs a) {
+    lm_mma_fwd_kernel(const FwdArgs<E> a) {
   constexpr int MI = kFwdMI, NJ = kFwdNJ, RT = 2 * kFwdMI;
   constexpr int WM = kFwdRows / kFwdWarpRows, WN = kFwdVocab / kFwdWarpCols;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
+  E* ring = reinterpret_cast<E*>(smem);
   float* red = reinterpret_cast<float*>(ring + kFwdStages * kFwdStageElems);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, t4 = lane & 3;
@@ -665,7 +671,7 @@ __global__ void __launch_bounds__(kLmThreads, kFwdMinBlocks)
   // empty group past the end keeps the waits' counts uniform
   auto issue = [&](int it) {
     if (it < total) {
-      bf16* sx = ring + (it % kFwdStages) * kFwdStageElems;
+      E* sx = ring + (it % kFwdStages) * kFwdStageElems;
       const int k0 = (it % nk) * kFwdK;
       chunk_async<kFwdRows>(sx, a.x, row0, a.n, k0, a.h);
       chunk_async<kFwdVocab>(sx + kFwdRows * kStride<kFwdK>, a.w,
@@ -701,8 +707,8 @@ __global__ void __launch_bounds__(kLmThreads, kFwdMinBlocks)
     cp_async_wait<kFwdStages - 2>();  // step it has landed (this thread's)
     __syncthreads();  // ... for every thread; step it - 1's readers done
     issue(it + kFwdStages - 1);       // into step it - 1's stage
-    const bf16* sx = ring + (it % kFwdStages) * kFwdStageElems;
-    const bf16* sw = sx + kFwdRows * kStride<kFwdK>;
+    const E* sx = ring + (it % kFwdStages) * kFwdStageElems;
+    const E* sw = sx + kFwdRows * kStride<kFwdK>;
 #pragma unroll
     for (int kk = 0; kk < kFwdK; kk += 16) {
       uint32_t af[MI][4];
@@ -715,8 +721,8 @@ __global__ void __launch_bounds__(kLmThreads, kFwdMinBlocks)
         load_bt<kFwdK>(b, sw, wn * WN + 16 * j, kk, lane);
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi) {
-          mma_bf16(acc[mi][2 * j], af[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * j + 1], af[mi], b[2], b[3]);
+          mma16<E>(acc[mi][2 * j], af[mi], b[0], b[1]);
+          mma16<E>(acc[mi][2 * j + 1], af[mi], b[2], b[3]);
         }
       }
     }
@@ -830,18 +836,17 @@ bool layout_ok(int h, int cluster, int hk, int panels, int splits) {
          splits <= kMaxSplits;
 }
 
-}  // namespace
 
-// On CUDA device `device`, on `stream`. x: (n, h), w: (V, h), bf16,
+// On CUDA device `device`, on `stream`. x: (n, h), w: (V, h), E,
 // contiguous, 16-byte aligned, h a multiple of 128; t: (n,) int64 target
 // ids (an id outside [0, V) hits no column: pred 0). Writes the (m, l, p)
 // of each of `splits` vocab splits (1 to 64, the caller's) into `part`,
 // (3, splits, n) fp32 scratch, then lse and pred, (n,) fp32, merging the
 // splits in order.
-extern "C" int lm_head_mma_fwd(int device, const void* x, const void* w,
-                               const void* t, void* part, void* lse,
-                               void* pred, int n, int v, int h, int splits,
-                               void* stream) {
+template <typename E>
+int mma_fwd(int device, const void* x, const void* w, const void* t,
+            void* part, void* lse, void* pred, int n, int v, int h,
+            int splits, void* stream) {
   if (h <= 0 || h % 128 != 0 || n <= 0 || v <= 0 || splits < 1 ||
       splits > kFwdMaxSplits || part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -849,14 +854,14 @@ extern "C" int lm_head_mma_fwd(int device, const void* x, const void* w,
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaFuncSetAttribute(
-      lm_mma_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lm_mma_fwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kFwdSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = (v + kFwdVocab - 1) / kFwdVocab;
-  const FwdArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+  const FwdArgs<E> a{static_cast<const E*>(x), static_cast<const E*>(w),
                   static_cast<const long long*>(t), static_cast<float*>(part),
                   n, v, h, (tiles + splits - 1) / splits};
-  lm_mma_fwd_kernel<<<dim3((n + kFwdRows - 1) / kFwdRows, splits),
+  lm_mma_fwd_kernel<E><<<dim3((n + kFwdRows - 1) / kFwdRows, splits),
                       kLmThreads, kFwdSmem, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -867,19 +872,19 @@ extern "C" int lm_head_mma_fwd(int device, const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// On CUDA device `device`, on `stream`. x: (n, h), w: (V, h), bf16,
+// On CUDA device `device`, on `stream`. x: (n, h), w: (V, h), E,
 // contiguous, 16-byte aligned, h a multiple of 128; t: (n,) int64 target
 // ids (an id outside [0, V) hits no column); lse, g: (n,) fp32. The hidden
 // layout (cluster CTAs of `panels` panels of hk in {128, 256, 384}
 // columns) and dX's vocab split count come from the caller. dX writes dx
-// (n, h) bf16; with splits > 1 it first writes `part`, (splits, n, h)
+// (n, h) E; with splits > 1 it first writes `part`, (splits, n, h)
 // fp32 scratch, and then adds the splits in order. dW writes dw (V, h)
-// bf16.
-extern "C" int lm_head_mma_bwd_dx(int device, const void* x, const void* w,
-                                  const void* t, const void* lse,
-                                  const void* g, void* part, void* dx, int n,
-                                  int v, int h, int cluster, int hk,
-                                  int panels, int splits, void* stream) {
+// E.
+template <typename E>
+int mma_bwd_dx(int device, const void* x, const void* w, const void* t,
+               const void* lse, const void* g, void* part, void* dx, int n,
+               int v, int h, int cluster, int hk, int panels, int splits,
+               void* stream) {
   if (!layout_ok(h, cluster, hk, panels, splits) || n <= 0 || v <= 0 ||
       (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -887,12 +892,12 @@ extern "C" int lm_head_mma_bwd_dx(int device, const void* x, const void* w,
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = (v + kStreamRows - 1) / kStreamRows;
-  const BwdArgs a{static_cast<const bf16*>(x),
-                  static_cast<const bf16*>(w),
+  const BwdArgs<E> a{static_cast<const E*>(x),
+                  static_cast<const E*>(w),
                   static_cast<const long long*>(t),
                   static_cast<const float*>(lse),
                   static_cast<const float*>(g),
-                  splits > 1 ? nullptr : static_cast<bf16*>(dx),
+                  splits > 1 ? nullptr : static_cast<E*>(dx),
                   splits > 1 ? static_cast<float*>(part) : nullptr,
                   n, v, h, v, (tiles + splits - 1) / splits, panels};
   cudaError_t e = launch_hk<false>(a, hk, cluster,
@@ -900,33 +905,73 @@ extern "C" int lm_head_mma_bwd_dx(int device, const void* x, const void* w,
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const long count = static_cast<long>(n) * h;
-  lm_mma_dx_merge_kernel<<<(count / 4 + kLmThreads - 1) / kLmThreads,
+  lm_mma_dx_merge_kernel<E><<<(count / 4 + kLmThreads - 1) / kLmThreads,
                            kLmThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<bf16*>(dx), count,
+      static_cast<const float*>(part), static_cast<E*>(dx), count,
       splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int lm_head_mma_bwd_dw(int device, const void* x, const void* w,
-                                  const void* t, const void* lse,
-                                  const void* g, void* dw, int n, int v,
-                                  int h, int cluster, int hk, int panels,
-                                  void* stream) {
+template <typename E>
+int mma_bwd_dw(int device, const void* x, const void* w, const void* t,
+               const void* lse, const void* g, void* dw, int n, int v, int h,
+               int cluster, int hk, int panels, void* stream) {
   if (!layout_ok(h, cluster, hk, panels, 1) || n <= 0 || v <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs a{static_cast<const bf16*>(w),
-                  static_cast<const bf16*>(x),
+  const BwdArgs<E> a{static_cast<const E*>(w),
+                  static_cast<const E*>(x),
                   static_cast<const long long*>(t),
                   static_cast<const float*>(lse),
                   static_cast<const float*>(g),
-                  static_cast<bf16*>(dw),
+                  static_cast<E*>(dw),
                   nullptr,
                   v, n, h, v, (n + kStreamRows - 1) / kStreamRows, panels};
   cudaError_t e = launch_hk<true>(a, hk, cluster,
                                   (v + kOwnRows - 1) / kOwnRows, 1, s);
   if (e == cudaSuccess) e = cudaGetLastError();
   return static_cast<int>(e);
+}
+
+// runs the entry given with E bound to the element type of `dtype` (bf16
+// or fp16); cudaErrorInvalidValue for another type
+#define APEX_LM_MMA_DISPATCH(FN, ...)                              \
+  do {                                                             \
+    if (dtype == apex::kBF16) return FN<__nv_bfloat16>(__VA_ARGS__); \
+    if (dtype == apex::kF16) return FN<__half>(__VA_ARGS__);       \
+    return static_cast<int>(cudaErrorInvalidValue);                \
+  } while (0)
+
+}  // namespace
+
+// The entry points: mma_fwd, mma_bwd_dx and mma_bwd_dw above, for bf16 or
+// fp16 x and w (dtype 1 or 2; dx and dw in their type), anything else
+// returns cudaErrorInvalidValue.
+extern "C" int lm_head_mma_fwd(int device, const void* x, const void* w,
+                               const void* t, void* part, void* lse,
+                               void* pred, int n, int v, int h, int splits,
+                               int dtype, void* stream) {
+  APEX_LM_MMA_DISPATCH(mma_fwd, device, x, w, t, part, lse, pred, n, v, h,
+                       splits, stream);
+}
+
+extern "C" int lm_head_mma_bwd_dx(int device, const void* x, const void* w,
+                                  const void* t, const void* lse,
+                                  const void* g, void* part, void* dx, int n,
+                                  int v, int h, int cluster, int hk,
+                                  int panels, int splits, int dtype,
+                                  void* stream) {
+  APEX_LM_MMA_DISPATCH(mma_bwd_dx, device, x, w, t, lse, g, part, dx, n, v,
+                       h, cluster, hk, panels, splits, stream);
+}
+
+extern "C" int lm_head_mma_bwd_dw(int device, const void* x, const void* w,
+                                  const void* t, const void* lse,
+                                  const void* g, void* dw, int n, int v,
+                                  int h, int cluster, int hk, int panels,
+                                  int dtype, void* stream) {
+  APEX_LM_MMA_DISPATCH(mma_bwd_dw, device, x, w, t, lse, g, dw, n, v, h,
+                       cluster, hk, panels, stream);
 }

@@ -419,8 +419,8 @@ __device__ __forceinline__ void stage_products(float (&acc)[8][4],
       uint32_t b[4];
       ldmatrix_x4(b, As + (p * 16 + r + (lane / 16) * 8) * lda + k +
                          (j % 2) * 8);
-      mma_bf16(acc[2 * p], af, b[0], b[1]);
-      mma_bf16(acc[2 * p + 1], af, b[2], b[3]);
+      mma16<bf16>(acc[2 * p], af, b[0], b[1]);
+      mma16<bf16>(acc[2 * p + 1], af, b[2], b[3]);
     }
   }
 }

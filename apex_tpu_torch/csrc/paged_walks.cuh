@@ -59,9 +59,9 @@ __device__ __forceinline__ void stage_q_split(bf16* hi, bf16* lo, int ld,
 #pragma unroll
     for (int e = 0; e < 4; ++e) rest[e] = f[e] - round_to<bf16>(f[e]);
     *reinterpret_cast<uint2*>(hi + r * ld + c) =
-        make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
-    *reinterpret_cast<uint2*>(lo + r * ld + c) =
-        make_uint2(pack_bf16(rest[0], rest[1]), pack_bf16(rest[2], rest[3]));
+        make_uint2(pack2<bf16>(f[0], f[1]), pack2<bf16>(f[2], f[3]));
+    *reinterpret_cast<uint2*>(lo + r * ld + c) = make_uint2(
+        pack2<bf16>(rest[0], rest[1]), pack2<bf16>(rest[2], rest[3]));
   }
   for (int u = tid + kPer * nthreads; u < kMaxRows * chunks; u += nthreads) {
     const int r = u / chunks, c = (u % chunks) * 4;
@@ -74,9 +74,9 @@ __device__ __forceinline__ void stage_q_split(bf16* hi, bf16* lo, int ld,
 #pragma unroll
     for (int e = 0; e < 4; ++e) rest[e] = f[e] - round_to<bf16>(f[e]);
     *reinterpret_cast<uint2*>(hi + r * ld + c) =
-        make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
-    *reinterpret_cast<uint2*>(lo + r * ld + c) =
-        make_uint2(pack_bf16(rest[0], rest[1]), pack_bf16(rest[2], rest[3]));
+        make_uint2(pack2<bf16>(f[0], f[1]), pack2<bf16>(f[2], f[3]));
+    *reinterpret_cast<uint2*>(lo + r * ld + c) = make_uint2(
+        pack2<bf16>(rest[0], rest[1]), pack2<bf16>(rest[2], rest[3]));
   }
 }
 
@@ -187,12 +187,12 @@ __device__ __forceinline__ void mma_walk(const Args& a, const Layout& L,
         uint32_t af[4], b[4];
         load_a<D>(af, sQ, half * 16, c, lane);
         load_bt<D>(b, cK, slice * 16, c, lane);
-        mma_bf16(s[0], af, b[0], b[1]);
-        mma_bf16(s[1], af, b[2], b[3]);
+        mma16<bf16>(s[0], af, b[0], b[1]);
+        mma16<bf16>(s[1], af, b[2], b[3]);
         if constexpr (QSPLIT) {
           load_a<D>(af, sQlo, half * 16, c, lane);
-          mma_bf16(s[0], af, b[0], b[1]);
-          mma_bf16(s[1], af, b[2], b[3]);
+          mma16<bf16>(s[0], af, b[0], b[1]);
+          mma16<bf16>(s[1], af, b[2], b[3]);
         }
       }
     }
@@ -252,10 +252,10 @@ __device__ __forceinline__ void mma_walk(const Args& a, const Layout& L,
       if (c * 8 < d16) {
         uint32_t b[4];
         load_b<D>(b, cV, slice * 16, c * 8, lane);
-        mma_bf16(acc[c], pa, b[0], b[1]);
-        mma_bf16(acc[c + 1], pa, b[2], b[3]);
-        mma_bf16(acc[c], pb, b[0], b[1]);
-        mma_bf16(acc[c + 1], pb, b[2], b[3]);
+        mma16<bf16>(acc[c], pa, b[0], b[1]);
+        mma16<bf16>(acc[c + 1], pa, b[2], b[3]);
+        mma16<bf16>(acc[c], pb, b[0], b[1]);
+        mma16<bf16>(acc[c + 1], pb, b[2], b[3]);
       }
     }
   }

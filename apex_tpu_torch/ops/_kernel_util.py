@@ -47,6 +47,12 @@ KERNEL_SOURCES = ("layer_norm", "paged_attention", "paged_mma",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the element types the kernels take, by the code their C entries read
+# (csrc/common.cuh: apex::kF32, kBF16, kF16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+KERNEL_DTYPES = tuple(_DTYPE_CODES)
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Dict[str, int] = {}
 _FORCE_PLAIN = [False]
@@ -54,6 +60,14 @@ _FORCE_PLAIN = [False]
 
 # ---------------------------------------------------------------------------
 # dispatch
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The C entries' code of a kernel element type: 0 fp32, 1 bf16, 2
+    fp16; any other type raises."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"the kernels take fp32, bf16 or fp16, got {dtype}")
+    return _DTYPE_CODES[dtype]
 
 
 def use_kernel(t: torch.Tensor) -> bool:

@@ -45,8 +45,8 @@ from apex_tpu_torch.transformer.tensor_parallel.random import saved_output
 # (-inf) - (-inf).
 NEG_INF = -1e30
 
-# the tensor-core kernels' largest head dim (bf16 only): six (64, 256) bf16
-# tiles of dQ or dK/dV take 203-204 KB of shared memory
+# the tensor-core kernels' largest head dim (bf16 and fp16): six (64, 256)
+# half tiles of dQ or dK/dV take 203-204 KB of shared memory
 _MMA_MAX_HEAD_DIM = 256
 # rows of a kernel tile; the kernels read the bias (and write d(bias)) in
 # whole tiles
@@ -55,7 +55,7 @@ _TILE = 64
 # 132 SMs
 _DBIAS_TARGET_BLOCKS = 264
 # heads, bh, sq, sk, d, scale, causal, dropout, seed, thresh, inv_keep,
-# is_bf16, stream
+# dtype code, stream
 _FLASH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
@@ -84,14 +84,14 @@ _MMA_SIGNATURES = {
 
 def _flash_route(dtype, d: int) -> str:
     """Which kernels run flash attention at this input dtype and head dim
-    on the card: ``"tensor_core"`` (bf16, d <= 256: ``flash_mma.cu``) or
-    ``"cuda_core"`` (fp32 at every d, bf16 above 256:
-    ``flash_attention.cu``, fp32 products, as JAX's fp32 reference forms
-    them). A head dim that is not a positive multiple of 8 raises, as
+    on the card: ``"tensor_core"`` (bf16 or fp16, d <= 256:
+    ``flash_mma.cu``) or ``"cuda_core"`` (fp32 at every d, bf16 and fp16
+    above 256: ``flash_attention.cu``, fp32 products, as JAX's fp32
+    reference forms them). A head dim that is not a positive multiple of 8 raises, as
     JAX's gate refuses it."""
     if not (d % 8 == 0 and d > 0):
         raise ValueError(f"head_dim {d} must be a positive multiple of 8")
-    if dtype == torch.bfloat16 and d <= _MMA_MAX_HEAD_DIM:
+    if dtype in ku.HALF_DTYPES and d <= _MMA_MAX_HEAD_DIM:
         return "tensor_core"
     return "cuda_core"
 
@@ -334,8 +334,8 @@ def _check_flash(what, q3, k3, v3, causal, bias, *others):
                f"{tuple(q3.shape)}")
     bh, sq, d = q3.shape
     sk = k3.shape[1]
-    ku.require(q3.dtype in (torch.float32, torch.bfloat16),
-               f"{what} takes fp32 or bf16, got {q3.dtype}")
+    ku.require(q3.dtype in ku.KERNEL_DTYPES,
+               f"{what} takes fp32, bf16 or fp16, got {q3.dtype}")
     ku.require(d % 8 == 0 and d > 0,
                f"{what}: head_dim {d} must be a positive multiple of 8")
     ku.require(sq % 8 == 0 and sk % 8 == 0,
@@ -387,9 +387,9 @@ def _launch(entry, q3, k3, v3, bias, scale, causal, dropout_rate, seed,
             pointers, shapes, extra=()):
     """Check the inputs, launch ``entry`` (of ``flash_mma.cu`` or
     ``flash_attention.cu``) with the tensors of ``pointers`` (in the C
-    order) and the ints of ``extra`` (after is_bf16), count the launch (a
-    launch of the fwd, dQ or dK/dV kernel with a bias also under ``entry
-    + "[bias]"``) and raise on a CUDA error."""
+    order) and the ints of ``extra`` (after the dtype code), count the
+    launch (a launch of the fwd, dQ or dK/dV kernel with a bias also under
+    ``entry + "[bias]"``) and raise on a CUDA error."""
     heads, bh, sq, sk, d = _check_flash(entry, q3, k3, v3, causal, bias,
                                         *shapes)
     if bias is not None:
@@ -401,7 +401,7 @@ def _launch(entry, q3, k3, v3, bias, scale, causal, dropout_rate, seed,
     status = getattr(lib, entry)(
         q3.device.index, *(_ptr(t) for t in pointers), heads, bh, sq, sk, d,
         float(scale), int(causal), *_dropout_args(dropout_rate, seed),
-        int(q3.dtype == torch.bfloat16), *extra, ku.stream_handle(q3))
+        ku.dtype_code(q3.dtype), *extra, ku.stream_handle(q3))
     ku.count_launch(entry)
     if bias is not None and not entry.endswith("_dbias"):
         ku.count_launch(entry + "[bias]")

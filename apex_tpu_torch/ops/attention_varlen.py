@@ -44,7 +44,7 @@ from apex_tpu_torch.ops import _kernel_util as ku
 from apex_tpu_torch.ops.attention import _MMA_MAX_HEAD_DIM, _TILE, NEG_INF
 # device, q, k, v, seg_q, seg_k, q ranges, k ranges
 _HEAD = [ctypes.c_int] + [ctypes.c_void_p] * 7
-# b, h, sq, sk, d, scale, causal, is_bf16, stream
+# b, h, sq, sk, d, scale, causal, dtype code, stream
 _TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                               ctypes.c_void_p]
 _SIGNATURES = {
@@ -63,13 +63,14 @@ _MMA_SIGNATURES = {
 
 def _varlen_route(dtype, d: int) -> str:
     """Which kernels run the varlen forward, dQ and dK/dV at this input
-    dtype and head dim on the card: ``"tensor_core"`` (bf16, d <= 256:
-    ``flash_varlen_mma.cu``) or ``"cuda_core"`` (fp32 at every d, bf16
-    above 256: ``flash_varlen.cu``, fp32 products). A head dim that is not
-    a positive multiple of 8 raises, as the kernels' gate refuses it."""
+    dtype and head dim on the card: ``"tensor_core"`` (bf16 or fp16, d <=
+    256: ``flash_varlen_mma.cu``) or ``"cuda_core"`` (fp32 at every d,
+    bf16 and fp16 above 256: ``flash_varlen.cu``, fp32 products). A head
+    dim that is not a positive multiple of 8 raises, as the kernels' gate
+    refuses it."""
     if not (d % 8 == 0 and d > 0):
         raise ValueError(f"head_dim {d} must be a positive multiple of 8")
-    if dtype == torch.bfloat16 and d <= _MMA_MAX_HEAD_DIM:
+    if dtype in ku.HALF_DTYPES and d <= _MMA_MAX_HEAD_DIM:
         return "tensor_core"
     return "cuda_core"
 
@@ -251,8 +252,8 @@ def _check_varlen(what, q, k, v, seg_q, seg_k, *others):
                f"{tuple(q.shape)}")
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    ku.require(q.dtype in (torch.float32, torch.bfloat16),
-               f"{what} takes fp32 or bf16, got {q.dtype}")
+    ku.require(q.dtype in ku.KERNEL_DTYPES,
+               f"{what} takes fp32, bf16 or fp16, got {q.dtype}")
     ku.require(d % 8 == 0 and d > 0,
                f"{what}: head_dim {d} must be a positive multiple of 8")
     ku.require(sq % _TILE == 0 and sk % _TILE == 0,
@@ -302,7 +303,7 @@ def _launch(entry, q, k, v, seg_q, seg_k, scale, causal, pointers, others,
         q.device.index, *(t.data_ptr() for t in (q, k, v, seg_q, seg_k,
                                                  *tabs, *pointers)),
         b, h, sq, sk, d, float(scale), int(causal),
-        int(q.dtype == torch.bfloat16), ku.stream_handle(q))
+        ku.dtype_code(q.dtype), ku.stream_handle(q))
     ku.count_launch(entry)
     ku.check_status(lib, status, entry)
 

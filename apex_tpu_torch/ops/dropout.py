@@ -39,14 +39,13 @@ from apex_tpu_torch.transformer.tensor_parallel.random import (
     random_bits_tensor,
 )
 
-# device, x, y, n, k0, k1, threshold, scale, is_bf16, stream
+# device, x, y, n, k0, k1, threshold, scale, dtype code, stream
 _SIGNATURES = {
     "hidden_dropout": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
                        ctypes.c_uint, ctypes.c_float, ctypes.c_int,
                        ctypes.c_void_p],
 }
-_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _round_to_bf16(v: float) -> float:
@@ -59,10 +58,13 @@ def _round_to_bf16(v: float) -> float:
 
 
 def dropout_scale(rate: float, dtype: torch.dtype) -> float:
-    """``1 / (1 - rate)`` as x's type holds it: fp32, or bf16."""
+    """``1 / (1 - rate)`` as x's type holds it: fp32, bf16 or fp16 (the
+    weakly typed scalar's conversion in JAX, rounded once)."""
     s = 1.0 / (1.0 - rate)
     if dtype == torch.bfloat16:
         return _round_to_bf16(s)
+    if dtype == torch.float16:
+        return float(np.float16(s))
     return float(np.float32(s))
 
 
@@ -86,8 +88,8 @@ def hidden_dropout_fwd(x: torch.Tensor, rate: float, key) -> torch.Tensor:
     """Launch the dropout kernel on a CUDA tensor: a new tensor of x's
     shape and type."""
     _check_rate(rate)
-    ku.require(x.is_cuda and x.dtype in _DTYPES,
-               f"hidden_dropout takes fp32 or bf16 CUDA tensors, got "
+    ku.require(x.is_cuda and x.dtype in ku.KERNEL_DTYPES,
+               f"hidden_dropout takes fp32, bf16 or fp16 CUDA tensors, got "
                f"{x.dtype} on {x.device}")
     x = x.contiguous()
     if x.data_ptr() % 16:
@@ -101,7 +103,7 @@ def hidden_dropout_fwd(x: torch.Tensor, rate: float, key) -> torch.Tensor:
     status = lib.hidden_dropout(
         x.device.index, x.data_ptr(), y.data_ptr(), n, k0, k1,
         keep_threshold(1.0 - rate), dropout_scale(rate, x.dtype),
-        int(x.dtype == torch.bfloat16), ku.stream_handle(x))
+        ku.dtype_code(x.dtype), ku.stream_handle(x))
     ku.count_launch("hidden_dropout")
     ku.check_status(lib, status, "hidden_dropout")
     return y

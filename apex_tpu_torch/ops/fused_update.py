@@ -12,8 +12,9 @@ sum), so they repeat bitwise.
 Both update ``m`` and ``v`` **in place** (the kernel writes m' and v' over
 them, the plain version updates them with ``mul_``/``add_``) and return
 ``(u, m, v)`` (plus the two sums for LAMB), u in fp32. The caller applies
-``p + (-lr·u)``, as the JAX ``FusedAdam`` leaf does. ``g`` and ``p`` may be
-fp32 or bf16; ``m`` and ``v`` are fp32; the math is fp32 in JAX's order.
+``p + (-lr·u)``, as the JAX ``FusedAdam`` leaf does. ``g`` and ``p`` may
+be fp32, bf16 or fp16; ``m`` and ``v`` are fp32; the math is fp32 in JAX's
+order.
 
 Two optional 0-d/1-d fp32 tensors on the leaf's device keep a step on the
 card with no host read (JAX's always capturable ``FusedAdam``):
@@ -39,7 +40,6 @@ _SIGNATURES = {
     + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6,
     "fused_update_blocks": [ctypes.c_longlong],
 }
-_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def adam_tail_reference(g, m, v, p, c1, c2, *, betas, eps,
@@ -111,7 +111,8 @@ def _check(g, m, v, p):
     n = g.numel()
     ku.require(g.is_cuda, f"fused_adam_tail takes CUDA tensors, got "
                           f"{g.device}")
-    for name, t, dtypes in (("g", g, _DTYPES), ("p", p, _DTYPES),
+    for name, t, dtypes in (("g", g, ku.KERNEL_DTYPES),
+                            ("p", p, ku.KERNEL_DTYPES),
                             ("m", m, (torch.float32,)),
                             ("v", v, (torch.float32,))):
         ku.require(t.device == g.device and t.dtype in dtypes
@@ -143,7 +144,7 @@ def _launch(g, m, v, p, c1, c2, betas, eps, weight_decay, adam_w_mode,
         v.data_ptr(), u.data_ptr(), n, float(b1), float(1.0 - b1),
         float(b2), float(1.0 - b2), float(eps), float(weight_decay),
         int(adam_w_mode), float(np.float32(c1)), float(np.float32(c2)),
-        int(g.dtype == torch.bfloat16), int(p.dtype == torch.bfloat16),
+        ku.dtype_code(g.dtype), ku.dtype_code(p.dtype),
         parts[0].data_ptr() if norms else None,
         parts[1].data_ptr() if norms else None,
         sums.data_ptr() if norms else None,

@@ -12,7 +12,8 @@ raises ``ValueError`` with JAX's wording; ``use_pallas=False`` is the
 reference. Inside the gate a kernel that fails raises: there is no
 fallback.
 
-x and the weight each have their own type (fp32 or bf16): everything is
+x and the weight each have their own type (:data:`_TYPE_PAIRS`: fp32 or
+bf16 beside fp32 or bf16 x, fp16 or fp32 beside fp16 x): everything is
 computed in fp32, y and dx come back in x's type and dw/db in the
 weight's, as JAX's kernels return them. The affine forms are
 differentiable through :class:`LayerNormAffine` and :class:`RMSNormAffine`
@@ -43,7 +44,11 @@ _SIGNATURES = {
     "rms_norm_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 }
-_DTYPES = (torch.float32, torch.bfloat16)
+# x's type -> the weight types the kernels take beside it
+# (csrc/layer_norm.cu APEX_NORM_DISPATCH)
+_TYPE_PAIRS = {torch.float32: (torch.float32, torch.bfloat16),
+               torch.bfloat16: (torch.bfloat16, torch.float32),
+               torch.float16: (torch.float16, torch.float32)}
 
 
 # ---------------------------------------------------------------------------
@@ -388,23 +393,24 @@ def norm_bwd_split_reference(dy, x2d, mean, rstd, weight):
 
 def _check_rows(what, x2d, *vectors):
     """The kernels' shared input rules: 2-d contiguous CUDA (rows, hidden)
-    x in fp32 or bf16; (hidden,) weight vectors of one type (fp32 or
-    bf16, not necessarily x's) on x's device; 16-byte aligned; hidden a
+    x in fp32, bf16 or fp16; (hidden,) weight vectors of one type on x's
+    device, a pair of :data:`_TYPE_PAIRS`; 16-byte aligned; hidden a
     multiple of x's 16-byte vector width."""
     ku.require(x2d.is_cuda and x2d.dim() == 2,
                f"{what} takes a 2-d CUDA tensor, got {x2d.device} "
                f"{tuple(x2d.shape)}")
     rows, hidden = x2d.shape
-    ku.require(x2d.dtype in _DTYPES,
-               f"{what} takes fp32 or bf16, got {x2d.dtype}")
+    ku.require(x2d.dtype in ku.KERNEL_DTYPES,
+               f"{what} takes fp32, bf16 or fp16, got {x2d.dtype}")
     wdtype = vectors[0][1].dtype
+    wants = _TYPE_PAIRS[x2d.dtype]
     for name, t in vectors:
         ku.require(t.device == x2d.device and t.dtype == wdtype
-                   and wdtype in _DTYPES and tuple(t.shape) == (hidden,)
+                   and wdtype in wants and tuple(t.shape) == (hidden,)
                    and t.is_contiguous(),
-                   f"{what}: {name} must be a contiguous ({hidden},) fp32 "
-                   f"or bf16 tensor on {x2d.device}, of the weight's type "
-                   f"({wdtype})")
+                   f"{what}: {name} must be a contiguous ({hidden},) tensor "
+                   f"of one of {wants} on {x2d.device} (for {x2d.dtype} "
+                   f"x), of the weight's type ({wdtype})")
     vec = 16 // x2d.element_size()
     ku.require(hidden % vec == 0,
                f"{what}: hidden ({hidden}) must be a multiple of {vec} for "
@@ -434,8 +440,7 @@ def _check_grad_in(what, dy, x2d, stats):
 
 
 def _types(x2d, weight):
-    return (int(x2d.dtype == torch.bfloat16),
-            int(weight.dtype == torch.bfloat16))
+    return ku.dtype_code(x2d.dtype), ku.dtype_code(weight.dtype)
 
 
 def _workspace(x2d, vectors: int):
@@ -454,9 +459,9 @@ def _check_bwd_width(what, hidden):
 
 def layer_norm_fwd(x2d, weight, bias, eps: float = 1e-5, stats: bool = False):
     """Launch the LayerNorm forward kernel on CUDA tensors: ``x2d`` (rows,
-    hidden) contiguous in fp32 or bf16, ``weight``/``bias`` (hidden,) of
-    one type, fp32 or bf16, hidden up to 49,152 (:func:`_fwd_plan` raises
-    ``ValueError`` above). Returns y like x2d, or ``(y, mean, rstd)``
+    hidden) contiguous in fp32, bf16 or fp16, ``weight``/``bias`` (hidden,)
+    of one type of :data:`_TYPE_PAIRS`, hidden up to 49,152
+    (:func:`_fwd_plan` raises ``ValueError`` above). Returns y like x2d, or ``(y, mean, rstd)``
     (fp32, (rows,)) with ``stats``; a row's bits do not depend on the
     other rows of the call."""
     rows, hidden = _check_rows("layer_norm_fwd", x2d, ("weight", weight),
@@ -505,9 +510,10 @@ def layer_norm_bwd(dy, x2d, mean, rstd, weight):
 
 def rms_norm_fwd(x2d, weight, eps: float = 1e-5, stats: bool = False):
     """Launch the RMSNorm forward kernel on CUDA tensors: ``x2d`` (rows,
-    hidden) contiguous in fp32 or bf16, ``weight`` (hidden,) fp32 or bf16,
-    hidden up to 49,152 as :func:`layer_norm_fwd`. Returns y like x2d, or
-    ``(y, rstd)`` (fp32, (rows,)) with ``stats``."""
+    hidden) contiguous in fp32, bf16 or fp16, ``weight`` (hidden,) of a
+    type of :data:`_TYPE_PAIRS`, hidden up to 49,152 as
+    :func:`layer_norm_fwd`. Returns y like x2d, or ``(y, rstd)`` (fp32,
+    (rows,)) with ``stats``."""
     rows, hidden = _check_rows("rms_norm_fwd", x2d, ("weight", weight))
     y = torch.empty_like(x2d)
     rstd = (torch.empty(rows, dtype=torch.float32, device=x2d.device)
@@ -627,7 +633,7 @@ def layer_norm(x, weight=None, bias=None, eps: float = 1e-5,
     ``bias`` None), :func:`layer_norm_reference` on every device, as JAX
     (``apex_tpu/ops/layer_norm.py:320-347``). ``use_pallas=True`` outside
     the gate raises ``ValueError``; ``False`` takes the reference. x and
-    the weight may differ in type (fp32 or bf16 each): y comes back in
+    the weight may differ in type (:data:`_TYPE_PAIRS`): y comes back in
     x's. Differentiable: with autograd recording, the gated affine form
     goes through :class:`LayerNormAffine`; without it, the forward alone
     runs and no statistics are kept."""

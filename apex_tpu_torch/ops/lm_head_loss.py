@@ -42,18 +42,18 @@ _SIGNATURES = {
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 # the tensor-core forward (csrc/lm_head_mma.cu): x, w, t, the split
-# scratch, lse, pred; n, v, h, the split count; the stream. dX and dW: x,
-# w, t, lse, g, (dX: the split scratch,) out; n, v, h; the hidden layout
-# (cluster, hk, panels) and dX's split count; the stream
+# scratch, lse, pred; n, v, h, the split count; the dtype code; the
+# stream. dX and dW: x, w, t, lse, g, (dX: the split scratch,) out; n, v,
+# h; the hidden layout (cluster, hk, panels) and dX's split count; the
+# dtype code; the stream
 _MMA_SIGNATURES = {
     "lm_head_mma_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "lm_head_mma_bwd_dx": [ctypes.c_int] + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "lm_head_mma_bwd_dw": [ctypes.c_int] + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
-_DTYPES = (torch.float32, torch.bfloat16)
 
 # the tensor-core backward's tiles (csrc/lm_head_mma.cu): 64 own rows a
 # block, 64 streamed rows a tile; a CTA's hidden panel is 128, 256 or 384
@@ -77,18 +77,19 @@ _FWD_MAX_SPLITS = 64
 
 def _lm_head_route(dtype, h: int) -> str:
     """Which kernels run the forward, dX and dW at this input dtype and
-    hidden size on the card: ``"tensor_core"`` (bf16:
+    hidden size on the card: ``"tensor_core"`` (bf16 and fp16:
     ``csrc/lm_head_mma.cu``) or ``"cuda_core"`` (fp32:
     ``csrc/lm_head_loss.cu``, fp32 products, as JAX's fp32 kernel forms
     them). A hidden size that is not a positive multiple of 128, or
     another dtype, raises."""
     if not (h > 0 and h % 128 == 0):
         raise ValueError(f"hidden ({h}) must be a positive multiple of 128")
-    if dtype == torch.bfloat16:
+    if dtype in ku.HALF_DTYPES:
         return "tensor_core"
     if dtype == torch.float32:
         return "cuda_core"
-    raise ValueError(f"the LM-head kernels take fp32 or bf16, got {dtype}")
+    raise ValueError(f"the LM-head kernels take fp32, bf16 or fp16, got "
+                     f"{dtype}")
 
 
 def _mma_layout(h: int):
@@ -272,8 +273,8 @@ def _check(what, x2, w, t, *rows):
                f"{what} takes a 2-d (rows, hidden) CUDA tensor, got "
                f"{x2.device} {tuple(x2.shape)}")
     n, h = x2.shape
-    ku.require(x2.dtype in _DTYPES, f"{what} takes fp32 or bf16, got "
-                                    f"{x2.dtype}")
+    ku.require(x2.dtype in ku.KERNEL_DTYPES,
+               f"{what} takes fp32, bf16 or fp16, got {x2.dtype}")
     ku.require(h % 128 == 0, f"{what}: hidden ({h}) must be a multiple of "
                              f"128")
     ku.require(0 < n < 2 ** 31, f"{what}: rows ({n}) out of range")
@@ -310,7 +311,8 @@ def lm_head_loss_fwd(x2, w, t):
                            device=x2.device)
         status = lib.lm_head_mma_fwd(
             x2.device.index, *ptrs, part.data_ptr(), lse.data_ptr(),
-            pred.data_ptr(), n, v, h, splits, ku.stream_handle(x2))
+            pred.data_ptr(), n, v, h, splits, ku.dtype_code(x2.dtype),
+            ku.stream_handle(x2))
     else:
         entry = "lm_head_loss_fwd"
         lib = ku.load_kernel("lm_head_loss", _SIGNATURES)
@@ -349,11 +351,12 @@ def _launch_bwd(which, x2, w, t, lse, g, out):
             status = lib.lm_head_mma_bwd_dx(
                 x2.device.index, *ptrs,
                 None if part is None else part.data_ptr(), out.data_ptr(),
-                n, v, h, *layout, splits, ku.stream_handle(x2))
+                n, v, h, *layout, splits, ku.dtype_code(x2.dtype),
+                ku.stream_handle(x2))
         else:
             status = lib.lm_head_mma_bwd_dw(
                 x2.device.index, *ptrs, out.data_ptr(), n, v, h, *layout,
-                ku.stream_handle(x2))
+                ku.dtype_code(x2.dtype), ku.stream_handle(x2))
     ku.count_launch(entry)
     ku.check_status(lib, status, entry)
     return out
@@ -405,7 +408,7 @@ def lm_head_loss(x, w, targets, axis_name: Optional[str] = None):
     it (on the card). ``x``: (..., h) hidden states; ``w``: (vocab, h);
     ``targets``: (...) int ids. Returns the fp32 loss shaped like
     ``targets``, differentiable in ``x`` and ``w``. On CUDA the kernels
-    take fp32 or bf16 with ``h % 128 == 0`` and raise on anything else.
+    take fp32, bf16 or fp16 with ``h % 128 == 0`` and raise on anything else.
     ``axis_name`` (the vocab-sharded tensor-parallel form) is
     multi-device and not ported (ROADMAP A7)."""
     if axis_name is not None:

@@ -1,6 +1,13 @@
 """Test/flagship models of the port (counterpart of
 ``apex_tpu/transformer/testing``)."""
 
+from apex_tpu_torch.transformer.testing.standalone_bert import (  # noqa: F401
+    BertConfig,
+    bert_forward,
+    bert_mlm_loss,
+    init_bert_params,
+    init_bert_params_numpy,
+)
 from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     GPTConfig,
     dots_attn_policy,

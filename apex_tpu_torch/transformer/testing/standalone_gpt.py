@@ -117,9 +117,10 @@ class GPTConfig:
     def validate(self) -> None:
         if self.hidden % self.num_heads:
             raise ValueError("hidden must be divisible by num_heads")
-        if self.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype must be float32 or bfloat16, got "
-                             f"{self.dtype}")
+        if self.dtype not in (torch.float32, torch.bfloat16,
+                              torch.float16):
+            raise ValueError(f"dtype must be float32, bfloat16 or float16, "
+                             f"got {self.dtype}")
         if self.remat_policy not in ("full", "dots", "dots_attn"):
             raise ValueError(
                 f"remat_policy must be 'full', 'dots' or 'dots_attn', "

@@ -130,9 +130,10 @@ class T5Config:
     def validate(self) -> None:
         if self.hidden % self.num_heads:
             raise ValueError("hidden must be divisible by num_heads")
-        if self.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype must be float32 or bfloat16, got "
-                             f"{self.dtype}")
+        if self.dtype not in (torch.float32, torch.bfloat16,
+                              torch.float16):
+            raise ValueError(f"dtype must be float32, bfloat16 or float16, "
+                             f"got {self.dtype}")
         if self.relative_position_bias:
             if self.rel_pos_buckets % 2:
                 raise ValueError("rel_pos_buckets must be even (half the "

@@ -252,7 +252,29 @@
      the CPU's from the same values; the product's two routes
      (``torch._scaled_mm``, the fp32 product of the upcast codes) held to
      each other and timed.
-10. Prints detail lines, the wall seconds of each phase (and of each
+10. fp16 (``amp_fp16``): GPT-2-124M at 8 x 1024, 3 steps each, under amp
+   O2 with ``half_dtype=torch.float16`` (fp32 masters), under
+   ``fp16_utils.FP16_Optimizer(FusedAdam)`` and as a pure fp16 step
+   (``GPTConfig(dtype=float16)``): the train table's launches a step, the
+   flash, LN and LM-head kernels' fp16 instantiations in a step's profile
+   (and the Adam tail's in the pure step), finite losses, no more
+   synchronizing calls than the bf16 O2 step, an overflow step keeping
+   masters, m, v and the count bitwise. The kernel phases above hold every
+   kernel a training path reaches in fp16 too (its bf16 gate), timed.
+11. BERT (``bert``): ``BertConfig()`` MLM in bf16 at 8 x 512, 15 % of
+   positions predicted, FusedAdam, 3 steps unpadded (the non-causal
+   tensor-core flash kernels) and 3 with a padded tail on half the rows
+   (reference attention): launches a step, finite losses, step ms, busy
+   ms, tokens/s, peak memory; the bf16 gate at batch 2.
+12. ``multihead_attn``: ``SelfMultiheadAttn(1024, 16, dropout=0.1,
+   include_norm_add=True, bias=True)`` at (32, 128, 1024) bf16 and
+   ``EncdecMultiheadAttn`` over a 256-token memory, forward + backward in
+   training: one launch each of flash fwd / dQ / dK-dV (in-kernel dropout)
+   and LN fwd / bwd, held to the plain path under the same key.
+13. ``transducer``: joint + RNN-T loss forward and backward in fp32 at B 8,
+   T 256, U 64, joint width 512, vocab 1024, the NLL held to an fp64 run
+   of the same recursion on the card.
+14. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -273,7 +295,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# fp16 cases are held to their kernel's bf16 gate: fp16 keeps three more
+# mantissa bits, so that gate is the loosest it may have
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 KERNEL_ITERS = 50
 SLEEP_CYCLES_PER_S = 2.0e9         # above the H100's SM clock: sleeps long
 TRAIN_ROWS = 8 * 1024              # b·s of the training main path
@@ -391,8 +415,8 @@ def ptxas_lines(log: str):
             args = re.findall(r"L[ib](\d+)E", entry)
             # the input type, where the kernel takes one as a template
             # argument
-            kind = re.search(r"_kernelI(13__nv_bfloat16|f)", entry)
-            kind = [{"f": "f32"}.get(kind.group(1), "bf16")] if kind else []
+            kind = re.search(r"_kernelI(13__nv_bfloat16|6__half|f)", entry)
+            kind = [_type_name(kind.group(1))] if kind else []
             kernel = (f"{base[-1] if base else entry[:40]}"
                       f"[{', '.join([*kind, *args])}]")
         elif "registers" in line or "spill" in line or "error" in line:
@@ -427,11 +451,13 @@ def sass_opcode_counts(ku, source, function):
     return counts
 
 
-def sass_hmma_counts(ku, source, function, name):
+def sass_hmma_counts(ku, source, function, name, bf16=None):
     """{instantiation: count of tensor-core instructions (HMMA, HGMMA)} in
     the built library of ``csrc/<source>.cu``, from ``cuobjdump
     --dump-sass``: each SASS function matching the regex ``function`` is
-    named ``name(match)``."""
+    named ``name(match)``. With a dict ``bf16``, each instantiation's
+    count of those with the ``.BF16`` operand type (an fp16 product has
+    none) is written there."""
     import os
     import re
 
@@ -446,8 +472,12 @@ def sass_hmma_counts(ku, source, function, name):
         if m:
             fn = name(m)
             counts[fn] = 0
+            if bf16 is not None:
+                bf16[fn] = 0
         elif fn and re.search(r"\bH(G)?MMA\b", line):
             counts[fn] += 1
+            if bf16 is not None and ".BF16" in line:
+                bf16[fn] += 1
     return counts
 
 
@@ -472,48 +502,73 @@ def tensor_core_info(ku, built, source, counts, kernels):
     return out
 
 
+# the half element types of the tensor-core kernels' mangled names
+HALF_MANGLED = r"(13__nv_bfloat16|6__half)"
+
+
+def half_types(info, bf16):
+    """Each key of ``info``: its instantiations' tensor-core instructions
+    by element type, and how many of them carry the ``.BF16`` operand
+    type (``bf16``, from :func:`sass_hmma_counts`): all of a bf16
+    instantiation's, none of an fp16 one's (f16 ``mma.sync``)."""
+    for entry in info.values():
+        entry["hmma_bf16_operands"] = {
+            k: bf16.get(k, 0) for k in entry["sass_hmma"]}
+    return info
+
+
 def mma_kernel_info(ku, built):
     """The tensor-core flash forward, dQ and dK/dV (``csrc/flash_mma.cu``,
-    8 instantiations each: D 32-256 with and without a bias) and d(bias)
-    (4: D 32-256)."""
+    16 instantiations each: bf16 and fp16, D 32-256 with and without a
+    bias) and d(bias) (8: bf16 and fp16, D 32-256)."""
+    bf16 = {}
     counts = sass_hmma_counts(
         ku, "flash_mma",
-        r"(flash_mma_(?:fwd|dq|dkv|dbias)_kernel)ILi(\d+)E(?:Lb([01])E)?",
-        lambda m: f"{m.group(1)}[{m.group(2)}"
-                  f"{', bias' * int(m.group(3) or 0)}]")
-    return tensor_core_info(ku, built, "flash_mma", counts, {
-        "fwd": ("flash_mma_fwd_kernel", 8, "flash_mma_fwd_kernel"),
-        "dq": ("flash_mma_dq_kernel", 8, "flash_mma_dq_kernel"),
-        "dkv": ("flash_mma_dkv_kernel", 8, "flash_mma_dkv_kernel"),
-        "dbias": ("flash_mma_dbias_kernel", 4, "flash_mma_dbias_kernel")})
+        r"(flash_mma_(?:fwd|dq|dkv|dbias)_kernel)I" + HALF_MANGLED
+        + r"Li(\d+)E(?:Lb([01])E)?",
+        lambda m: f"{m.group(1)}[{_type_name(m.group(2))}, {m.group(3)}"
+                  f"{', bias' * int(m.group(4) or 0)}]", bf16)
+    return half_types(tensor_core_info(ku, built, "flash_mma", counts, {
+        "fwd": ("flash_mma_fwd_kernel", 16, "flash_mma_fwd_kernel"),
+        "dq": ("flash_mma_dq_kernel", 16, "flash_mma_dq_kernel"),
+        "dkv": ("flash_mma_dkv_kernel", 16, "flash_mma_dkv_kernel"),
+        "dbias": ("flash_mma_dbias_kernel", 8, "flash_mma_dbias_kernel")}),
+        bf16)
 
 
 def lm_mma_kernel_info(ku, built):
     """The tensor-core LM-head forward (``csrc/lm_head_mma.cu``, one
-    instantiation), dX and dW (one kernel with 4 instantiations each:
-    panels of 128, 256, 384 and 512 columns)."""
+    instantiation a type), dX and dW (one kernel with 4 instantiations
+    each a type: panels of 128, 256, 384 and 512 columns); bf16 and
+    fp16."""
+    bf16 = {}
     counts = sass_hmma_counts(
         ku, "lm_head_mma",
-        r"lm_mma_(?:bwd_kernelILb([01])ELi(\d+)E|fwd_kernelE)",
-        lambda m: "lm_mma_fwd_kernel[]" if m.group(1) is None else
-        f"lm_mma_bwd_kernel[{'dw' if m.group(1) == '1' else 'dx'}"
-        f", {m.group(2)}]")
-    return tensor_core_info(ku, built, "lm_head_mma", counts, {
-        "fwd": ("lm_mma_fwd_kernel", 1, "lm_mma_fwd_kernel"),
-        "dx": ("lm_mma_bwd_kernel[dx", 4, "lm_mma_bwd_kernel[0"),
-        "dw": ("lm_mma_bwd_kernel[dw", 4, "lm_mma_bwd_kernel[1")})
+        r"lm_mma_(?:bwd_kernelI" + HALF_MANGLED + r"Lb([01])ELi(\d+)E"
+        r"|fwd_kernelI" + HALF_MANGLED + r"E)",
+        lambda m: f"lm_mma_fwd_kernel[{_type_name(m.group(4))}]"
+        if m.group(1) is None else
+        f"lm_mma_bwd_kernel[{'dw' if m.group(2) == '1' else 'dx'}, "
+        f"{_type_name(m.group(1))}, {m.group(3)}]", bf16)
+    return half_types(tensor_core_info(ku, built, "lm_head_mma", counts, {
+        "fwd": ("lm_mma_fwd_kernel", 2, "lm_mma_fwd_kernel"),
+        "dx": ("lm_mma_bwd_kernel[dx", 8, "lm_mma_bwd_kernel["),
+        "dw": ("lm_mma_bwd_kernel[dw", 8, "lm_mma_bwd_kernel[")}), bf16)
 
 
 def varlen_mma_kernel_info(ku, built):
     """The tensor-core varlen forward, dQ and dK/dV
-    (``csrc/flash_varlen_mma.cu``, 4 instantiations each: D 32-256)."""
+    (``csrc/flash_varlen_mma.cu``, 8 instantiations each: bf16 and fp16,
+    D 32-256)."""
+    bf16 = {}
     counts = sass_hmma_counts(
         ku, "flash_varlen_mma",
-        r"(varlen_mma_(?:fwd|dq|dkv)_kernel)ILi(\d+)E",
-        lambda m: f"{m.group(1)}[{m.group(2)}]")
-    return tensor_core_info(ku, built, "flash_varlen_mma", counts, {
-        key: (f"varlen_mma_{key}_kernel", 4, f"varlen_mma_{key}_kernel")
-        for key in ("fwd", "dq", "dkv")})
+        r"(varlen_mma_(?:fwd|dq|dkv)_kernel)I" + HALF_MANGLED + r"Li(\d+)E",
+        lambda m: f"{m.group(1)}[{_type_name(m.group(2))}, {m.group(3)}]",
+        bf16)
+    return half_types(tensor_core_info(ku, built, "flash_varlen_mma", counts, {
+        key: (f"varlen_mma_{key}_kernel", 8, f"varlen_mma_{key}_kernel")
+        for key in ("fwd", "dq", "dkv")}), bf16)
 
 
 def paged_mma_kernel_info(ku, built):
@@ -527,9 +582,9 @@ def paged_mma_kernel_info(ku, built):
 
 
 def _type_name(mangled: str) -> str:
-    """f32 / bf16 for a mangled template argument (``f``,
-    ``13__nv_bfloat16``)."""
-    return "f32" if mangled == "f" else "bf16"
+    """f32 / bf16 / f16 for a mangled template argument (``f``,
+    ``13__nv_bfloat16``, ``6__half``)."""
+    return {"f": "f32", "6__half": "f16"}.get(mangled, "bf16")
 
 
 def megakernel_kernel_info(ku, built):
@@ -623,9 +678,9 @@ def layer_norm_phase(torch, dev):
     """LayerNorm forward at the serving path's shapes (4-256 rows of 768,
     no statistics) and at the training paths' (GPT's b·s = 8192 rows of
     768, T5's 4096 encoder and 1024 decoder rows of 512, with the fp32
-    mean/rstd the backward reads): y within tol[dtype] of the plain
-    version, mean and rstd within atol/rtol 2e-5 (fp32 sums over the
-    columns in another order); y (and mean, rstd) bitwise over two
+    mean/rstd the backward reads; fp16 there too): y within tol[dtype] of
+    the plain version, mean and rstd within atol/rtol 2e-5 (fp32 sums over
+    the columns in another order); y (and mean, rstd) bitwise over two
     launches and for the middle rows launched alone
     (:func:`norm_fwd_bitwise`). The training shapes are timed with the L2
     flushed between calls, as the backward is."""
@@ -635,15 +690,19 @@ def layer_norm_phase(torch, dev):
                                                layer_norm_fwd_reference)
 
     eps = 1e-5
-    tol = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 8e-3)}
+    tol = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 8e-3),
+           "float16": (1e-3, 8e-3)}
     stats_tol = (2e-5, 2e-5)
     gen = torch.Generator(device=dev).manual_seed(0)
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     cases = []
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         dname = str(dt).split(".")[1]
         for rows, hidden, stats in (
-                *((r, 768, False) for r in LN_SERVE_ROWS),
+                # fp16 at the training paths' shapes only: no serving
+                # path runs fp16
+                *((r, 768, False) for r in LN_SERVE_ROWS
+                  if dt != torch.float16),
                 (TRAIN_ROWS, 768, True),
                 *((r, T5_HIDDEN, True) for r in T5_LN_ROWS)):
             x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
@@ -936,7 +995,7 @@ def layer_norm_bwd_phase(torch, dev):
     2e-5·sqrt(rows) in fp32 and one bf16 rounding plus 2e-3·sqrt(rows) in
     bf16), and dw/db bitwise equal over repeats. Both sides read the
     forward kernel's mean/rstd, which ``layer_norm_phase`` holds against
-    the plain version at these shapes."""
+    the plain version at these shapes. fp16 as bf16."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd,
@@ -944,13 +1003,14 @@ def layer_norm_bwd_phase(torch, dev):
                                                layer_norm_fwd)
 
     eps = 1e-5
-    tol = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 8e-3)}
+    tol = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 8e-3),
+           "float16": (2e-3, 8e-3)}
     gen = torch.Generator(device=dev).manual_seed(2)
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     cases = []
     for (rows, hidden), dt in itertools.product(
             ((TRAIN_ROWS, 768), *((r, T5_HIDDEN) for r in T5_LN_ROWS)),
-            (torch.float32, torch.bfloat16)):
+            (torch.float32, torch.bfloat16, torch.float16)):
         dname = str(dt).split(".")[1]
         tag = f"{dname} rows={rows} hidden={hidden}"
         x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
@@ -1002,10 +1062,14 @@ def layer_norm_bwd_phase(torch, dev):
 NORM_SHAPES = [  # (name, rows, hidden, (x, weight) types held)
     ("gpt2", TRAIN_ROWS, 768, (("float32", "float32"),
                                ("bfloat16", "bfloat16"),
-                               ("bfloat16", "float32"))),
+                               ("bfloat16", "float32"),
+                               ("float16", "float16"),
+                               ("float16", "float32"))),
     ("t5_small", T5_LN_ROWS[0], T5_HIDDEN, (("float32", "float32"),
                                             ("bfloat16", "bfloat16"),
-                                            ("bfloat16", "float32"))),
+                                            ("bfloat16", "float32"),
+                                            ("float16", "float16"),
+                                            ("float16", "float32"))),
     ("wide", 2048, 12288, (("bfloat16", "bfloat16"),
                            ("bfloat16", "float32"))),
 ]
@@ -1031,13 +1095,15 @@ NORM_BWD_DESIGN = ("one pass over dy and x (cp.async ring, a part of the "
 # y, dx: fp32 1e-5; bf16 one bf16 step of the output (rtol 2**-7) over a
 # small atol (dx's fp32 sums round in another order before the cast);
 # dw, db sum the rows: their atol grows with sqrt(rows)
-NORM_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
-NORM_SUM_ATOL = {"float32": 2e-5, "bfloat16": 2e-3}
+NORM_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7),
+            "float16": (1e-5, 2 ** -7)}
+NORM_SUM_ATOL = {"float32": 2e-5, "bfloat16": 2e-3, "float16": 2e-3}
 
 
 def norm_phase(torch, dev, ku):
-    """RMSNorm forward and backward (B #3-4), and LayerNorm with a bf16 x
-    and an fp32 weight and at hidden 12,288 (the repairs), vs their plain
+    """RMSNorm forward and backward (B #3-4), and LayerNorm with a bf16 or
+    fp16 x and an fp32 weight and at hidden 12,288 (the repairs; fp16 x
+    with an fp16 or fp32 weight is amp's), vs their plain
     versions at NORM_SHAPES in each (x, weight) type: y, dx and the fp32
     row statistics within NORM_TOL (rstd, mean 2e-5), dw (and db) within
     NORM_SUM_ATOL·sqrt(rows), y and the statistics bitwise over two
@@ -1065,13 +1131,13 @@ def norm_phase(torch, dev, ku):
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     timed = lambda fn, iters=20: time_ms(torch, fn, iters=iters,
                                          flush=flush_buf.zero_)
-    dt_of = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dt_of = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "float16": torch.float16}
     cases = []
     for (name, rows, hidden, types), kind in itertools.product(
             NORM_SHAPES, ("rms", "ln")):
         for xt, wt in types:
-            if kind == "ln" and (xt, wt) != ("bfloat16", "float32") \
-                    and name != "wide":
+            if kind == "ln" and wt != "float32" and name != "wide":
                 continue    # LN's own types: held by the LN phases
             x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
                  + 0.5).to(dt_of[xt])
@@ -1386,6 +1452,11 @@ D_WIDE_BIAS_SHAPES = ("d320_bias", "d2048_bias", "d2056_bias", "d4096_bias")
 # d(bias) in both input types: fp32 products of the same inputs on both
 # sides, fp32 sums over the batch in another order
 DBIAS_TOL = (1e-4, 1e-4)
+# the shapes also held and timed in fp16: GPT-2's (the amp fp16 path's),
+# T5-small's three, head_dim 256 (tensor cores) and above 256 (the
+# CUDA-core kernels, and the wide ones with a bias)
+FLASH_FP16_SHAPES = ("flagship", "dropout", "non_causal", "t5_enc",
+                     "t5_dec", "t5_cross", "d256", "d512", "d2056_bias")
 
 
 def flash_bounds(bh, sq, sk, d, causal, esz, dname, heads=0):
@@ -1419,7 +1490,8 @@ def flash_phase(torch, dev):
     in another order); bf16 one output rounding (rtol 2**-7) plus atol
     1e-2 (p and ds are rounded to bf16 before their products, at other
     running maxima; the largest error measured at these shapes is one
-    bf16 step at |o| < 2, 7.8e-3); d(bias) DBIAS_TOL in both types. Times
+    bf16 step at |o| < 2, 7.8e-3); fp16 at FLASH_FP16_SHAPES under the
+    bf16 gate, on the same routes; d(bias) DBIAS_TOL in every type. Times
     at every shape (flushing the L2 between calls) beside SDPA forward and
     backward on the (batch, heads, s, d) view; with a bias, SDPA takes it
     (and the causal mask) as a float ``attn_mask`` expanded over the
@@ -1432,14 +1504,16 @@ def flash_phase(torch, dev):
         flash_attention_bwd_dq, flash_attention_bwd_reference,
         flash_attention_fwd, flash_attention_fwd_reference)
 
-    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
+    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7),
+           "float16": (1e-2, 2 ** -7)}
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     seed = 1234
     cases = []
     for name, b, heads, sq, sk, d, causal, rate, has_bias in FLASH_SHAPES:
         bh = b * heads
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16,
+                   *((torch.float16,) if name in FLASH_FP16_SHAPES else ())):
             dname = str(dt).split(".")[1]
             q, do = (torch.randn(bh, sq, d, device=dev, generator=gen).to(dt)
                      for _ in range(2))
@@ -1709,7 +1783,8 @@ def varlen_phase(torch, dev):
     256: the tensor-core kernel of ``csrc/flash_varlen_mma.cu``).
     The same row at head_dim 256 (PACK_D256_HEADS heads) and 512
     (PACK_D512_HEADS heads), causal, is held and timed the same way,
-    without the dense flash comparison."""
+    without the dense flash comparison. fp16 (the bf16 gate) at head_dim
+    64 and 512, causal."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import _kernel_util as ku
@@ -1721,7 +1796,8 @@ def varlen_phase(torch, dev):
         flash_varlen_bwd_dkv, flash_varlen_bwd_dq, flash_varlen_bwd_reference,
         flash_varlen_fwd, flash_varlen_fwd_reference)
 
-    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
+    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7),
+           "float16": (1e-2, 2 ** -7)}
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     heads, t, d = PACK_HEADS, PACK_T, PACK_D
@@ -1740,7 +1816,10 @@ def varlen_phase(torch, dev):
         if causal:
             allowed &= torch.ones(t, t, dtype=torch.bool, device=dev).tril()
         sdpa_mask = allowed | torch.eye(t, dtype=torch.bool, device=dev)
-        for dt in (torch.float32, torch.bfloat16):
+        # fp16 on the causal row at head_dim 64 (tensor cores) and 512
+        # (CUDA cores)
+        fp16 = (torch.float16,) if causal and d in (PACK_D, 512) else ()
+        for dt in (torch.float32, torch.bfloat16, *fp16):
             dname = str(dt).split(".")[1]
             q, k, v, do = (torch.randn(1, heads, t, d, device=dev,
                                        generator=gen).to(dt)
@@ -1910,7 +1989,8 @@ def varlen_wide_phase(torch, dev):
     """The varlen kernels above head dim 2048 (the wide kernels) vs their
     plain versions on a short packed row (PACK_WIDE_T tokens, documents of
     24-120 tokens from numpy seed 2, PACK_WIDE_HEADS heads) at the head
-    dims of PACK_WIDE_CASES, fp32 and bf16: o, lse, dq, dk, dv within
+    dims of PACK_WIDE_CASES, fp32 and bf16 (and fp16 on the causal one,
+    under the bf16 gate): o, lse, dq, dk, dv within
     flash's tolerances (fp32 atol/rtol 1e-4, bf16 atol 1e-2 + rtol
     2**-7), pad rows of o, dq, dk and dv exactly 0. Untimed."""
     from apex_tpu_torch.ops.attention_varlen import (
@@ -1918,14 +1998,16 @@ def varlen_wide_phase(torch, dev):
         flash_varlen_bwd_reference, flash_varlen_fwd,
         flash_varlen_fwd_reference)
 
-    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
+    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7),
+           "float16": (1e-2, 2 ** -7)}
     gen = torch.Generator(device=dev).manual_seed(6)
     lens_w = packed_lengths(PACK_WIDE_T, seed=2, lo=24, hi=120)
     seg_w = packed_segments(torch, dev, lens_w, PACK_WIDE_T)
     pad_w = seg_w[0] < 0
     wide = []
     for d, causal in PACK_WIDE_CASES:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16,
+                   *((torch.float16,) if causal else ())):
             dname = str(dt).split(".")[1]
             q, k, v, do = (torch.randn(1, PACK_WIDE_HEADS, PACK_WIDE_T, d,
                                        device=dev, generator=gen).to(dt)
@@ -2090,6 +2172,9 @@ LM_SHAPES = [  # (name, rows, hidden, vocab)
 ]
 # the shapes whose kernels are timed: the training and T5 main paths'
 LM_TIMED = ("train", "t5")
+# the upstream gradient's scale in the fp16 cases: the dynamic loss
+# scaler's initial 2**16 (amp's and FP16_Optimizer's fp16 paths)
+FP16_LOSS_SCALE = 2.0 ** 16
 # the shape whose fp32 dX is also held against an fp64 evaluation of its
 # formula: at h 2048, with no target hit, dx's softmax term cancels to a
 # small row max, where the fp32 gate is tightest
@@ -2160,7 +2245,9 @@ def lm_head_phase(torch, dev):
     Times (bf16, LM_TIMED) beside the unfused pair torch.matmul +
     F.cross_entropy: its forward, and its autograd (dx and dw together)
     for both backward rows; fp32 at the same shapes for the CUDA-core
-    forward, dX and dW."""
+    forward, dX and dW. fp16 at the training, T5 and wide shapes on the
+    tensor-core route under the bf16 gates, timed as bf16, with g =
+    FP16_LOSS_SCALE / n (the loss-scaled gradient fp16 training feeds)."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import _kernel_util as ku
@@ -2174,7 +2261,8 @@ def lm_head_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     cases = []
     for name, n, h, v in LM_SHAPES:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16,
+                   *((torch.float16,) if name != "ragged" else ())):
             dname = str(dt).split(".")[1]
             route = _lm_head_route(dt, h)
             entry = ("lm_head_mma_fwd" if route == "tensor_core"
@@ -2182,7 +2270,12 @@ def lm_head_phase(torch, dev):
             x = torch.randn(n, h, device=dev, generator=gen).to(dt)
             w = (0.05 * torch.randn(v, h, device=dev, generator=gen)).to(dt)
             t = torch.randint(0, v, (n,), device=dev, generator=gen)
-            g = torch.full((n,), 1.0 / n, device=dev)   # d mean / d loss
+            # d mean / d loss; in fp16 times amp's initial loss scale, as
+            # the fp16 paths feed it: unscaled, dl = (p - hit) / n is far
+            # below fp16's smallest normal (6.1e-5) and rounds to its
+            # subnormal steps on both sides
+            g = torch.full((n,), (FP16_LOSS_SCALE if dt == torch.float16
+                                  else 1.0) / n, device=dev)
             before = ku.launch_counts()
             lse, pred = lm_head_loss_fwd(x, w, t)
             if ku.launch_counts().get(entry, 0) != before.get(entry, 0) + 1:
@@ -2195,7 +2288,7 @@ def lm_head_phase(torch, dev):
             dx_p, dw_p = lm_head_loss_bwd_reference(x, w, t, lse, g)
             torch.cuda.synchronize()
             tag = f"{name} {dname}"
-            tol = 2e-5 if dt == torch.float32 else 2e-4
+            tol = 2e-5 if dt == torch.float32 else 2e-4   # fp16 as bf16
             err_fwd = max(
                 check_close(f"lm_head fwd lse {tag}", lse, lse_p, tol, tol),
                 check_close(f"lm_head fwd pred {tag}", pred, pred_p, tol,
@@ -2299,7 +2392,8 @@ def adam_tail_phase(torch, dev):
     read from the card gives the null-pointer launch's bits, a set flag
     leaves m and v and writes u = 0 (p unchanged); that variant's step
     timed beside the null one (``flagged_ms``).
-    Returns GPT's record with T5's under "t5"."""
+    Returns GPT's record with T5's under "t5" and GPT's with fp16 g and p
+    under "float16"."""
     import numpy as np
 
     from apex_tpu_torch.convert import named_leaves
@@ -2317,19 +2411,19 @@ def adam_tail_phase(torch, dev):
     c1 = float(np.float32(1) - np.float32(0.9) ** np.float32(3))
     c2 = float(np.float32(1) - np.float32(0.999) ** np.float32(3))
 
-    def one_model(model, tree):
+    def one_model(model, tree, dt=torch.bfloat16):
         leaves = []
         for name, a in named_leaves(tree):
             shape = tuple(a.shape)
             leaves.append((f"{model} {name}",
                            torch.randn(shape, device=dev, generator=gen)
-                           .bfloat16(),                           # g
+                           .to(dt),                               # g
                            0.01 * torch.randn(shape, device=dev,
                                               generator=gen),
                            1e-4 * torch.rand(shape, device=dev,
                                              generator=gen),
                            torch.randn(shape, device=dev, generator=gen)
-                           .bfloat16()))                          # p
+                           .to(dt)))                              # p
         worst, sums_err = 0.0, 0.0
         for wd, adam_w in ((0.0, True), (0.01, True), (0.01, False)):
             for name, g, m, v, p in leaves:
@@ -2423,6 +2517,8 @@ def adam_tail_phase(torch, dev):
     out = one_model("gpt", init_gpt_params_numpy(GPTConfig(), 0))
     out["t5"] = one_model("t5", init_t5_params_numpy(
         t5_config(torch.bfloat16), 0))
+    out["float16"] = one_model("gpt", init_gpt_params_numpy(GPTConfig(), 0),
+                               torch.float16)
     return out
 
 
@@ -3929,7 +4025,8 @@ def dropout_bound(n: int, esz: int):
 
 def dropout_phase(torch, dev, ku):
     """The hidden-dropout kernel at GPT-2's site (8, 1024, 768), T5-small's
-    (8, 512, 512) and an odd count (1,000,003), fp32 and bf16, rate 0.1:
+    (8, 512, 512) and an odd count (1,000,003), fp32, bf16 and fp16, rate
+    0.1:
     y bitwise the plain version's (the int64 threefry draw) and over two
     launches; through ``hidden_dropout``'s autograd, y and dx bitwise, two
     launches counted a call; the keep share within 5σ of 0.9. Times the
@@ -3945,7 +4042,7 @@ def dropout_phase(torch, dev, ku):
     gen = torch.Generator(device=dev).manual_seed(7)
     rate, cases = DROPOUT_RATE, []
     for shape_name, shape in DROPOUT_SHAPES:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             x = torch.randn(*shape, device=dev, generator=gen).to(dt)
             dy = torch.randn(*shape, device=dev, generator=gen).to(dt)
             key = prng_key(len(cases) + 1)
@@ -4409,6 +4506,24 @@ def amp_optimizers():
     }
 
 
+def kept_bitwise(torch, before, after):
+    """Two snapshots (masters, optimizer state tensors, count) equal."""
+    return (all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+            and all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
+            and torch.equal(torch.as_tensor(before[2]),
+                            torch.as_tensor(after[2])))
+
+
+def opt_snapshot(torch, masters, opt):
+    """Copies of the masters, every optimizer state tensor and the step
+    count."""
+    state = [v.clone() for p in masters for v in opt.state[p].values()
+             if torch.is_tensor(v)]
+    count = opt.param_groups[0]["step"]
+    return ([p.detach().clone() for p in masters], state,
+            count.clone() if torch.is_tensor(count) else count)
+
+
 class AmpRun:
     """A GPT train step composed from amp's public pieces, as a user
     writes it: ``initialize``, the model copy written in place each step
@@ -4457,19 +4572,13 @@ class AmpRun:
         return loss.detach()
 
     def snapshot(self):
-        """Copies of the masters, every optimizer state tensor and the
-        step count."""
-        t = self.torch
-        state = [v.clone() for p in self.masters
-                 for v in self.opt.state[p].values() if t.is_tensor(v)]
-        count = self.opt.param_groups[0]["step"]
-        return ([p.detach().clone() for p in self.masters], state,
-                count.clone() if t.is_tensor(count) else count)
+        return opt_snapshot(self.torch, self.masters, self.opt)
 
 
-def count_syncs(torch, fn) -> int:
+def count_syncs(torch, fn, messages=None) -> int:
     """Synchronizing CUDA calls ``fn`` makes (``set_sync_debug_mode``
-    warnings, every one recorded)."""
+    warnings, every one recorded; their texts appended to ``messages``
+    when given)."""
     import warnings
 
     torch.cuda.synchronize()
@@ -4481,7 +4590,10 @@ def count_syncs(torch, fn) -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    if messages is not None:
+        messages.extend(m[:300] for m in syncs)
+    return len(syncs)
 
 
 def _gpt_batch(torch, vocab, batch, seq, seed=0):
@@ -4571,9 +4683,7 @@ def amp_main_path(torch, dev, ku, steps: int = 10):
     loss_inf = float(scaled.detach())
     del grads
     after = run.snapshot()
-    same = (all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
-            and all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
-            and torch.equal(before[2], after[2]))
+    same = kept_bitwise(torch, before, after)
     scale_after = float(run.state.scaler.loss_scale)
     if not same or not bool(run.skipped) or scale_after != 2.0 ** 126:
         raise AssertionError(f"amp overflow step: state kept bitwise {same}, "
@@ -4890,6 +5000,558 @@ def amp_phase(torch, dev, ku):
     return out
 
 
+# ---------------------------------------------------------------------------
+# fp16 on the training main path (ROADMAP C4), fp16_utils, BERT, the
+# multi-head attention modules and the transducer
+
+AMP16_PATH = ("amp O2 half_dtype=float16, GPT-2-124M, 8 x 1024, "
+              "FusedAdam(lr=1e-4)")
+FP16_OPT_PATH = ("FP16_Optimizer(FusedAdam(lr=1e-4), dynamic 2**16), "
+                 "GPT-2-124M fp16, 8 x 1024")
+PURE_FP16_PATH = "build_train_step(GPTConfig(dtype=float16), 8, 1024)"
+AMP16_STEPS = 3
+# the kernels whose fp16 instantiations a step's profile must show: kernel
+# name stems (the profile's names hold the template arguments, __half)
+HALF_KERNELS = {"flash": "flash_mma_", "layer_norm": "norm_",
+                "lm_head": "lm_mma_", "adam_tail": "adam_tail_kernel"}
+
+
+def half_kernel_counts(torch, fn):
+    """Run ``fn`` under torch.profiler: launches of the CUDA kernels of
+    HALF_KERNELS whose names hold ``__half`` (their fp16
+    instantiations), by family."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or "__half" not in e.name:
+            continue
+        for fam, stem in HALF_KERNELS.items():
+            if stem in e.name:
+                out[fam] = out.get(fam, 0) + 1
+    return out
+
+
+def fp16_steps(torch, ku, what, step, steps, bf16_syncs, want_half):
+    """``steps`` steps of ``step`` (fp16): launches (counts reset just
+    before, read just after) equal ``steps`` x the train table, finite
+    losses; then ``steps`` timed steps, and no more synchronizing calls in
+    the next step than the bf16 O2 step makes after its own warm-up; the
+    fp16 instantiations of ``want_half`` in a step's profile; step ms
+    p50, tokens/s, busy ms and idle share over a profiled step, peak
+    memory."""
+    torch.cuda.reset_peak_memory_stats()
+    ku.reset_launch_counts()
+    losses = torch.stack([step() for _ in range(steps)])
+    torch.cuda.synchronize()
+    launches = ku.launch_counts()
+    want = {k: steps * v for k, v in TRAIN_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launches over {steps} steps "
+                             f"{launches}, expected {want}")
+    vals = losses.float().tolist()
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"{what}: loss not finite {vals}")
+    durs = timed_steps_of(torch, step, steps)
+    why = []
+    syncs = count_syncs(torch, step, why)
+    if syncs > bf16_syncs:
+        raise AssertionError(f"{what}: {syncs} synchronizing calls a step, "
+                             f"the bf16 O2 step {bf16_syncs}: {why}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profiled(torch, step)
+    half = half_kernel_counts(torch, step)
+    missing = [f for f in want_half if not half.get(f)]
+    if missing:
+        raise AssertionError(f"{what}: no fp16 instantiation of {missing} "
+                             f"in a step's profile ({half})")
+    return {"steps": steps, "losses": vals, "launches": launches,
+            "launches_per_step": {k: v // steps for k, v in launches.items()},
+            "syncs_per_step": syncs, "half_kernel_launches_a_step": half,
+            "step_ms_p50": sorted(durs)[len(durs) // 2] * 1e3,
+            "tokens_per_s": AMP_BATCH * AMP_SEQ * steps / sum(durs),
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "peak_mem_gib": peak, "top": prof["top"][:6]}
+
+
+def amp_fp16_phase(torch, dev, ku, bf16_syncs, steps: int = AMP16_STEPS):
+    """fp16 on the training main path (C4): GPT-2-124M at 8 x 1024 three
+    ways, ``steps`` steps each through :func:`fp16_steps`:
+    * amp O2 with ``half_dtype=torch.float16`` (an fp16 model, LN params
+      and the masters fp32, dynamic scale 2**16) and FusedAdam over the
+      masters, as ``AmpRun`` composes it: the flash, LN and LM-head
+      kernels in fp16; then a step at scale 2**127 (one gradient leaf
+      made inf) keeps masters, m, v and the count bitwise and halves the
+      scale;
+    * ``FP16_Optimizer(FusedAdam)`` with a dynamic scaler (2**16) over
+      ``convert_network(params, float16)`` (norm params fp32), the model
+      refreshed from the masters in place each step: the same kernels and
+      the same overflow step;
+    * the pure fp16 step (``build_train_step`` at
+      ``GPTConfig(dtype=float16)``: FusedAdam on the fp16 params), whose
+      Adam tail takes fp16 g and p (the two above step fp32 masters)."""
+    import dataclasses
+
+    from apex_tpu_torch.convert import params_from_numpy
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer, convert_network
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers._common import tree_leaves
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step,
+                                                    gpt_loss)
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        init_gpt_params_numpy)
+
+    cfg = dataclasses.replace(GPTConfig(), dtype=torch.float32)
+    params_np = init_gpt_params_numpy(cfg, 0)
+    # on the card once: a copy from the host each step would synchronize
+    tok, tgt = (t.to(dev) for t in _gpt_batch(torch, cfg.vocab_size,
+                                               AMP_BATCH, AMP_SEQ))
+    fwd_half = ("flash", "layer_norm", "lm_head")
+    out = {}
+
+    run = AmpRun(torch, cfg, params_np, tok, tgt, dev,
+                 half_dtype=torch.float16)
+    if run.model["layers"]["qkv_kernel"].dtype != torch.float16:
+        raise AssertionError("amp O2 fp16: the model is not fp16")
+    out["o2"] = fp16_steps(torch, ku, "amp O2 fp16", run.step, steps,
+                           bf16_syncs, fwd_half)
+    before = run.snapshot()
+    run.state = run.state._replace(scaler=run.state.scaler._replace(
+        loss_scale=torch.full((), 2.0 ** 127, device=dev)))
+    run.amp.model_params(run.state, out=run.model)
+    grads = list(torch.autograd.grad(
+        run.amp.scale_loss(run.loss(), run.state), run.leaves))
+    grads[0] = grads[0] * float("inf")
+    run.state, _, skipped = run.amp.apply_grads_with_optimizer(
+        run.state, grads, run.opt)
+    del grads
+    same = kept_bitwise(torch, before, run.snapshot())
+    scale = float(run.state.scaler.loss_scale)
+    if not (same and bool(skipped) and scale == 2.0 ** 126):
+        raise AssertionError(f"amp O2 fp16 overflow step: kept {same}, "
+                             f"skipped {bool(skipped)}, scale {scale}")
+    out["o2"]["overflow"] = {"scale_in": 2.0 ** 127, "scale_out": scale,
+                             "state_kept_bitwise": True}
+    del run, before
+    torch.cuda.empty_cache()
+
+    model = convert_network(params_from_numpy(params_np, dev), torch.float16)
+    leaves = tree_leaves(model)
+    for x in leaves:
+        x.requires_grad_(True)
+    opt = FP16_Optimizer(FusedAdam(leaves, lr=1e-4), dynamic_loss_scale=True,
+                         dynamic_loss_args={"init_scale": 2.0 ** 16})
+    state = [opt.init(model)]
+
+    def grads_of():
+        loss = gpt_loss(model, tok, tgt, cfg)
+        return loss, list(torch.autograd.grad(
+            opt.scale_loss(loss, state[0]), leaves))
+
+    def refresh(masters):
+        with torch.no_grad():
+            for dst, src in zip(leaves, tree_leaves(masters)):
+                dst.copy_(src)
+
+    def fp16_opt_step():
+        loss, grads = grads_of()
+        masters, state[0], _ = opt.step(grads, state[0])
+        refresh(masters)
+        return loss.detach()
+
+    out["fp16_optimizer"] = fp16_steps(torch, ku, "FP16_Optimizer",
+                                       fp16_opt_step, steps, bf16_syncs,
+                                       fwd_half)
+    masters = tree_leaves(state[0].master_params)
+    before = opt_snapshot(torch, masters, opt.optimizer)
+    scale_in = float(state[0].scaler.loss_scale)
+    _, grads = grads_of()
+    grads[0] = grads[0] * float("inf")
+    _, state[0], skipped = opt.step(grads, state[0])
+    del grads
+    same = kept_bitwise(torch, before,
+                        opt_snapshot(torch, masters, opt.optimizer))
+    scale = float(state[0].scaler.loss_scale)
+    if not (same and bool(skipped) and scale == scale_in / 2):
+        raise AssertionError(f"FP16_Optimizer overflow step: kept {same}, "
+                             f"skipped {bool(skipped)}, scale {scale_in} -> "
+                             f"{scale}")
+    out["fp16_optimizer"]["overflow"] = {
+        "scale_in": scale_in, "scale_out": scale,
+        "state_kept_bitwise": True}
+    del model, leaves, opt, state, masters, before
+    torch.cuda.empty_cache()
+
+    step = build_train_step(dataclasses.replace(GPTConfig(),
+                                                dtype=torch.float16),
+                            AMP_BATCH, AMP_SEQ, device=dev, seed=0)[0]
+    out["pure_fp16"] = fp16_steps(torch, ku, "pure fp16 step", step, steps,
+                                  bf16_syncs, (*fwd_half, "adam_tail"))
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+BERT_BATCH, BERT_SEQ = 8, 512
+BERT_MLM_SHARE = 0.15              # positions predicted, BERT's 15 %
+BERT_STEPS = 3
+BERT_CHECK_BATCH = 2               # rows of the bf16 kernels-vs-plain gate
+
+
+def bert_batch(torch, dev, cfg, batch, seq, padded, seed=0):
+    """MLM inputs from numpy ``seed``: random tokens and targets, 15 % of
+    positions predicted, token types 0 then 1 (two segments of half the
+    row); with ``padded`` every second row ends in a padded tail (keys
+    masked, no prediction there)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab_size, (batch, seq))
+    tgt = rng.integers(0, cfg.vocab_size, (batch, seq))
+    lm = rng.random((batch, seq)) < BERT_MLM_SHARE
+    types = np.broadcast_to(np.arange(seq) >= seq // 2, (batch, seq))
+    pad = None
+    if padded:
+        lens = np.where(np.arange(batch) % 2 == 1,
+                        rng.integers(seq // 4, seq, batch), seq)
+        pad = np.arange(seq)[None, :] >= lens[:, None]
+        lm &= ~pad
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (t(tok), t(tgt), t(lm.astype(np.float32)), t(types.astype(
+        np.int64)), None if pad is None else t(pad))
+
+
+def bert_launches(cfg, n_leaves, padded):
+    """One BERT step's launches: two LNs a layer and the embedding's and
+    the head's (the layers' again in the full-remat recompute), the three
+    non-causal flash kernels a layer (the forward again in the recompute)
+    unless a padding mask sends attention to the reference, one Adam tail
+    a leaf."""
+    L, again = cfg.num_layers, (2 if cfg.remat else 1)
+    out = {"layer_norm_fwd": 2 * L * again + 2, "layer_norm_bwd": 2 * L + 2,
+           "fused_adam_tail": n_leaves}
+    if not padded:
+        out.update(flash_mma_fwd=L * again, flash_mma_bwd_dq=L,
+                   flash_mma_bwd_dkv=L)
+    return out
+
+
+def bert_phase(torch, dev, ku, steps: int = BERT_STEPS):
+    """BERT MLM (``BertConfig()``: GPT-2-124M's widths, 2 token types,
+    full remat) in bf16 at BERT_BATCH x BERT_SEQ with FusedAdam(lr=1e-4),
+    ``steps`` steps twice: without padding (the non-causal tensor-core
+    flash kernels) and with a padded tail on half the rows (a padding
+    mask: reference attention, as JAX's masked call takes its XLA path).
+    Each run's launches (counts reset just before, read just after) equal
+    ``steps`` x :func:`bert_launches`; finite losses; step ms p50,
+    tokens/s, busy ms and idle share over a profiled step, peak memory.
+    Then the bf16 gate at BERT_CHECK_BATCH rows, unpadded: loss and every
+    gradient leaf through the kernels vs the plain versions forced."""
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.transformer.testing import (BertConfig,
+                                                    bert_mlm_loss,
+                                                    init_bert_params)
+    from apex_tpu_torch.transformer.testing.train import _step_over
+
+    cfg = BertConfig()
+    out = {}
+    for padded in (False, True):
+        params = init_bert_params(cfg, seed=0, device=dev)
+        tok, tgt, lm, types, pad = bert_batch(torch, dev, cfg, BERT_BATCH,
+                                              BERT_SEQ, padded)
+        step = _step_over(params, "auto", lambda key: bert_mlm_loss(
+            params, tok, tgt, lm, cfg, token_types=types,
+            padding_mask=pad))[0]
+        n_leaves = len(list(named_leaves(params)))
+        torch.cuda.reset_peak_memory_stats()
+        ku.reset_launch_counts()
+        losses = torch.stack([step() for _ in range(steps)])
+        torch.cuda.synchronize()
+        launches = ku.launch_counts()
+        one = bert_launches(cfg, n_leaves, padded)
+        want = {k: steps * v for k, v in one.items()}
+        what = "bert padded" if padded else "bert"
+        if launches != want:
+            raise AssertionError(f"{what}: launches over {steps} steps "
+                                 f"{launches}, expected {want}")
+        vals = losses.float().tolist()
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{what}: loss not finite {vals}")
+        durs = timed_steps_of(torch, step, steps)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profiled(torch, step)
+        out["padded" if padded else "unpadded"] = {
+            "batch": BERT_BATCH, "seq": BERT_SEQ, "steps": steps,
+            "padded_rows": 0 if pad is None else int(pad.any(1).sum()),
+            "pad_tokens": 0 if pad is None else int(pad.sum()),
+            "predicted": int(lm.sum()), "losses": vals,
+            "launches": launches, "launches_per_step": one,
+            "step_ms_p50": sorted(durs)[len(durs) // 2] * 1e3,
+            "tokens_per_s": BERT_BATCH * BERT_SEQ * steps / sum(durs),
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "peak_mem_gib": peak, "top": prof["top"][:6]}
+        del params, step, tok, tgt, lm, types, pad
+        torch.cuda.empty_cache()
+    params = init_bert_params(cfg, seed=1, device=dev)
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+    tok, tgt, lm, types, _ = bert_batch(torch, dev, cfg, BERT_CHECK_BATCH,
+                                        BERT_SEQ, False, seed=2)
+    out["bf16_check"] = bf16_gate(torch, ku, "bert", leaves,
+                                  lambda: bert_mlm_loss(
+                                      params, tok, tgt, lm, cfg,
+                                      token_types=types))
+    del params, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+MHA_SHAPE = (32, 128, 1024)        # batch, tokens, Transformer-big's width
+MHA_HEADS, MHA_MEMORY, MHA_DROPOUT = 16, 256, 0.1
+MHA_OUT_RTOL = 1e-2                # the output, |kernels - plain| in norm
+# one training forward + backward of either module: flash with in-kernel
+# dropout, the pre-LayerNorm
+MHA_LAUNCHES = {"flash_mma_fwd": 1, "flash_mma_bwd_dq": 1,
+                "flash_mma_bwd_dkv": 1, "layer_norm_fwd": 1,
+                "layer_norm_bwd": 1}
+
+
+def multihead_attn_phase(torch, dev, ku):
+    """``SelfMultiheadAttn(1024, 16, dropout=0.1, include_norm_add=True,
+    bias=True)`` at MHA_SHAPE and ``EncdecMultiheadAttn`` at the same
+    widths over a MHA_MEMORY-token memory, bf16 params and input, one
+    forward and backward in training under one threefry key: one launch
+    each of the flash forward, dQ and dK/dV (in-kernel dropout) and of
+    the LN forward and backward (counts reset just before, read just
+    after); the output within MHA_OUT_RTOL and every gradient within
+    BF16_GRAD_NORM_RTOL of the same call with the plain versions forced
+    (the same keep mask: the counter hash of the same seed), in norm; the
+    eval output differs. Times forward + backward."""
+    from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                       SelfMultiheadAttn)
+    from apex_tpu_torch.transformer.tensor_parallel import prng_key
+
+    b, s, e = MHA_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(b, s, e, device=dev, generator=gen).bfloat16()
+    mem = torch.randn(b, MHA_MEMORY, e, device=dev, generator=gen).bfloat16()
+    dy = torch.randn(b, s, e, device=dev, generator=gen).bfloat16()
+    kw = dict(dropout=MHA_DROPOUT, include_norm_add=True, bias=True,
+              param_dtype=torch.bfloat16, device=dev)
+    key = prng_key(3)
+    want = MHA_LAUNCHES
+    out = {}
+    for name, mod, args in (
+            ("self", SelfMultiheadAttn(e, MHA_HEADS, **kw), (x,)),
+            ("encdec", EncdecMultiheadAttn(e, MHA_HEADS, **kw), (x, mem))):
+        def run():
+            ins = [a.clone().requires_grad_() for a in args]
+            for p in mod.parameters():
+                p.grad = None
+            y = mod(*ins, dropout_rng=key)
+            y.backward(dy)
+            return ([y.detach()] + [a.grad for a in ins]
+                    + [p.grad for p in mod.parameters()])
+
+        ku.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        launches = ku.launch_counts()
+        if launches != want:
+            raise AssertionError(f"multihead_attn {name}: launches "
+                                 f"{launches}, expected {want}")
+        with ku.force_plain():
+            plain = run()
+        names = (["out"] + [f"d{i}" for i in range(len(args))]
+                 + [n for n, _ in mod.named_parameters()])
+        worst = {}
+        for n, a, c in zip(names, got, plain):
+            rel = float((a.float() - c.float()).norm()
+                        / c.float().norm().clamp_min(1e-30))
+            limit = MHA_OUT_RTOL if n == "out" else BF16_GRAD_NORM_RTOL
+            if not bool(a.isfinite().all()) or rel > limit:
+                raise AssertionError(f"multihead_attn {name} {n}: |kernels "
+                                     f"- plain| / |plain| = {rel:.3e} "
+                                     f"(limit {limit})")
+            worst[n] = rel
+        with torch.no_grad():
+            ev = mod(*args, is_training=False)
+            if torch.equal(ev, got[0]):
+                raise AssertionError(f"multihead_attn {name}: training "
+                                     f"output equals eval's (no dropout)")
+        ins = [a.clone().requires_grad_() for a in args]
+        ms = time_ms(torch, lambda: mod(*ins, dropout_rng=key).backward(dy),
+                     iters=10)
+        out[name] = {"shape": list(MHA_SHAPE), "heads": MHA_HEADS,
+                     "memory": MHA_MEMORY if name == "encdec" else None,
+                     "dropout": MHA_DROPOUT, "launches": launches,
+                     "rel_err_in_norm": worst,
+                     "out_rtol": MHA_OUT_RTOL,
+                     "grad_rtol": BF16_GRAD_NORM_RTOL,
+                     "fwd_bwd_ms": ms, "tokens_per_s": b * s / ms * 1e3}
+        del got, plain, ins, mod
+        torch.cuda.empty_cache()
+    return out
+
+
+TRANS_B, TRANS_T, TRANS_U, TRANS_H, TRANS_V = 8, 256, 64, 512, 1024
+TRANS_RTOL = 1e-5                  # each sequence's NLL, fp32 vs fp64
+
+
+def transducer_phase(torch, dev, ku):
+    """RNN-T in fp32 at TRANS_B x TRANS_T frames, TRANS_U labels, joint
+    width TRANS_H, vocab TRANS_V (lengths from numpy seed 3, the first
+    row full): ``TransducerJoint(relu=True)`` of f (B, T, H) and g (B,
+    U+1, H), a linear to the vocab (the (B, T, U+1, V) fp32 lattice, 545
+    MB), ``TransducerLoss`` (log-softmax, the anti-diagonal alpha
+    recursion) and autograd back to f, g and the projection: finite
+    gradients, no kernel launched (the module has none), each sequence's
+    NLL within TRANS_RTOL of an fp64 run of the same functions on the
+    card; forward + backward ms, frames/s, peak memory."""
+    import numpy as np
+
+    from apex_tpu_torch.contrib.transducer import (TransducerJoint,
+                                                   TransducerLoss,
+                                                   transducer_loss)
+
+    B, T, U, H, V = TRANS_B, TRANS_T, TRANS_U, TRANS_H, TRANS_V
+    rng = np.random.default_rng(3)
+    f_len = T - rng.integers(0, T // 4, B)
+    y_len = U - rng.integers(0, U // 4, B)
+    f_len[0], y_len[0] = T, U
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    f_len, y_len = t(f_len), t(y_len)
+    label = t(rng.integers(1, V, (B, U)))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    f = torch.randn(B, T, H, device=dev, generator=gen).requires_grad_()
+    g = torch.randn(B, U + 1, H, device=dev, generator=gen).requires_grad_()
+    w = (torch.randn(H, V, device=dev, generator=gen)
+         / math.sqrt(H)).requires_grad_()
+    joint, loss_mod = TransducerJoint(relu=True), TransducerLoss()
+
+    def fwd_bwd():
+        x = torch.matmul(joint(f, g, f_len, y_len + 1), w)
+        nll = loss_mod(x, label, f_len, y_len)
+        nll.sum().backward()
+        return nll.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    ku.reset_launch_counts()
+    nll = fwd_bwd()
+    torch.cuda.synchronize()
+    launches = ku.launch_counts()
+    if launches:
+        raise AssertionError(f"transducer launched kernels: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, a in (("nll", nll), ("df", f.grad), ("dg", g.grad),
+                    ("dw", w.grad)):
+        if not bool(a.isfinite().all()) or not bool(a.abs().max() > 0):
+            raise AssertionError(f"transducer {name} not finite or zero")
+    with torch.no_grad():
+        x64 = torch.matmul(joint(f.double(), g.double(), f_len, y_len + 1),
+                           w.double())
+        nll64 = transducer_loss(torch.log_softmax(x64, -1), label, f_len,
+                                y_len)
+        del x64
+    rel = float(((nll.double() - nll64).abs() / nll64.abs()).max())
+    if rel > TRANS_RTOL:
+        raise AssertionError(f"transducer NLL vs fp64: rel {rel:.3e} "
+                             f"(limit {TRANS_RTOL})")
+    for p in (f, g, w):
+        p.grad = None
+    ms = time_ms(torch, fwd_bwd, iters=3)
+    out = {"batch": B, "frames": T, "labels": U, "joint_hidden": H,
+           "vocab": V, "lattice_bytes": B * T * (U + 1) * V * 4,
+           "nll_mean": float(nll.mean()), "nll_rel_err_vs_fp64": rel,
+           "rtol": TRANS_RTOL, "launches": launches, "fwd_bwd_ms": ms,
+           "frames_per_s": B * T / ms * 1e3, "peak_mem_gib": peak}
+    del f, g, w, nll, nll64
+    torch.cuda.empty_cache()
+    return out
+
+
+def attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
+                adam, drop_cases):
+    """Each kernel's fp16 cases under its entry's ``float16`` key (as its
+    bf16 ones sit at the top level or by shape): by case, the largest
+    error and the times (kernel, plain version, bound, the library call
+    in fp16); untimed cases their error. Raises if a kernel a training
+    path reaches (C4) has no fp16 case."""
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = {}
+
+    def add(kname, label, err, times=None):
+        rows.setdefault(kname, {})[label] = {
+            "max_abs_err": err,
+            **({k: times[k] for k in timing} if times and "ms" in times
+               else {})}
+
+    f16 = "float16"
+    for c in ln_cases:
+        if c["dtype"] == f16:
+            add("layer_norm_fwd", f"rows_{c['rows']}_h{c['hidden']}",
+                c["max_abs_err"], c)
+    for c in lnb_cases:
+        if c["dtype"] == f16:
+            add("layer_norm_bwd", f"rows_{c['rows']}_h{c['hidden']}",
+                c["max_abs_err"], c)
+    for c in nrm["cases"]:
+        if c["x_dtype"] == f16:
+            kname = "rms_norm" if c["kind"] == "rms" else "layer_norm"
+            for key in ("fwd", "bwd"):
+                add(f"{kname}_{key}", f"{c['shape']}_w_{c['w_dtype']}",
+                    max(c["max_abs_err"], c["sum_max_abs_err"]), c[key])
+    for c in fa_cases:
+        if c["dtype"] != f16:
+            continue
+        prefix = ("flash_mma" if c["route"] == "tensor_core"
+                  else "flash_attention")
+        for key, kn in (("fwd", "fwd"), ("dq", "bwd_dq"), ("dkv", "bwd_dkv"),
+                        ("dbias", "bwd_dbias")):
+            if key in c:
+                tail = "[bias]" if c["bias"] and key != "dbias" else ""
+                add(f"{prefix}_{kn}{tail}", c["shape"],
+                    c[key]["max_abs_err"], c[key])
+    for c in vl["cases"]:
+        if c["dtype"] == f16:
+            for key in ("fwd", "dq", "dkv"):
+                add(c["entries"][key], f"packed_d{c['head_dim']}_causal",
+                    c[key]["max_abs_err"], c[key])
+    for c in vl["wide"]:
+        if c["dtype"] == f16:
+            for kn in ("fwd", "bwd_dq", "bwd_dkv"):
+                add(f"flash_varlen_{kn}", f"wide_d{c['head_dim']}",
+                    c["max_abs_err"])
+    for c in lm_cases:
+        if c["dtype"] == f16:
+            for key, kn in (("fwd", "fwd"), ("dx", "bwd_dx"),
+                            ("dw", "bwd_dw")):
+                add(f"lm_head_mma_{kn}", c["shape"], c[key]["max_abs_err"],
+                    c[key])
+    a = adam[f16]
+    add("fused_adam_tail", a["per"], a["max_abs_err"], a)
+    for c in drop_cases:
+        if c["dtype"] == f16:
+            add("hidden_dropout", c["shape"], c["max_abs_err"], c)
+    c4 = [k["name"] for k in kernels if k["name"].startswith(
+        ("layer_norm", "rms_norm", "flash_", "lm_head_mma",
+         "fused_adam_tail", "hidden_dropout"))]
+    missing = [n for n in c4 if n not in rows]
+    if missing:
+        raise AssertionError(f"no fp16 case for {missing}")
+    for k in kernels:
+        if k["name"] in rows:
+            k[f16] = rows[k["name"]]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full JSON record here")
@@ -4982,6 +5644,11 @@ def main(argv=None) -> int:
     func = phase("functional", (), functional_phase, torch, dev)
     amp_res = phase("amp", (), amp_phase, torch, dev, ku)
     seconds["amp_parts"] = amp_res["phase_s"]
+    amp16 = phase("amp_fp16", (), amp_fp16_phase, torch, dev, ku,
+                  amp_res["o2"]["syncs_per_step"])
+    bert = phase("bert", (), bert_phase, torch, dev, ku)
+    mha = phase("multihead_attn", (), multihead_attn_phase, torch, dev, ku)
+    trans = phase("transducer", (), transducer_phase, torch, dev, ku)
     name = torch.cuda.get_device_name(0)
     # the phases' record, written before the kernels line is assembled
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
@@ -4996,7 +5663,9 @@ def main(argv=None) -> int:
               "engine": engine, "engine_monitor": mon,
               "engine_lora": lora, "train": train, "t5_train": t5,
               "dropout": drop_cases, "train_dropout": trd,
-              "t5_dropout": t5d, "functional": func, "amp": amp_res}
+              "t5_dropout": t5d, "functional": func, "amp": amp_res,
+              "amp_fp16": amp16, "bert": bert, "multihead_attn": mha,
+              "transducer": trans}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -5804,6 +6473,66 @@ def main(argv=None) -> int:
               f"norm (limit {c['norm_tol']}); fwd + bwd "
               f"{c['fwd_bwd_ms_bfloat16']:.4f} ms bf16, "
               f"{c['fwd_bwd_ms_float32']:.4f} ms fp32 on {card}")
+    # fp16 (C4): each kernel's fp16 cases, and the fp16 main paths'
+    # launches beside each kernel they run; then BERT's and the
+    # multi-head attention modules'
+    attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
+                adam, drop_cases)
+    for run, path in (("o2", AMP16_PATH), ("fp16_optimizer", FP16_OPT_PATH),
+                      ("pure_fp16", PURE_FP16_PATH)):
+        for kname, per in amp16[run]["launches_per_step"].items():
+            by_name[kname].setdefault("amp_fp16", {})[run] = {
+                "launches": per, "path": path}
+    for run in ("unpadded", "padded"):
+        for kname, per in bert[run]["launches_per_step"].items():
+            by_name[kname].setdefault("bert", {})[run] = {
+                "launches": per, "path": f"BertConfig() bf16 MLM, "
+                                         f"{BERT_BATCH} x {BERT_SEQ}, {run}"}
+    for run, r in mha.items():
+        for kname, n in r["launches"].items():
+            by_name[kname].setdefault("multihead_attn", {})[run] = {
+                "launches": n, "shape": r["shape"]}
+    for run, path in (("o2", AMP16_PATH), ("fp16_optimizer", FP16_OPT_PATH),
+                      ("pure_fp16", PURE_FP16_PATH)):
+        r = amp16[run]
+        print(f"amp_fp16 {path}: step_ms_p50 {r['step_ms_p50']:.2f} busy ms "
+              f"{r['device_busy_ms']:.2f} (idle share "
+              f"{r['device_idle_share']:.3f}) tokens/s "
+              f"{r['tokens_per_s']:.1f} peak {r['peak_mem_gib']:.2f} GiB "
+              f"syncs a step {r['syncs_per_step']}, fp16 kernels a step "
+              f"{r['half_kernel_launches_a_step']}, losses "
+              f"{[round(v, 4) for v in r['losses']]}"
+              + (f", overflow step {r['overflow']}" if "overflow" in r
+                 else "") + f" on {card}")
+    for run in ("unpadded", "padded"):
+        r = bert[run]
+        print(f"bert BertConfig() bf16 {run} {r['batch']} x {r['seq']} "
+              f"({r['padded_rows']} padded rows, {r['pad_tokens']} pad "
+              f"tokens, {r['predicted']} predicted): step_ms_p50 "
+              f"{r['step_ms_p50']:.2f} busy ms {r['device_busy_ms']:.2f} "
+              f"(idle share {r['device_idle_share']:.3f}) tokens/s "
+              f"{r['tokens_per_s']:.1f} peak {r['peak_mem_gib']:.2f} GiB "
+              f"launches a step {r['launches_per_step']} losses "
+              f"{[round(v, 4) for v in r['losses']]} on {card}")
+    chk = bert["bf16_check"]
+    print(f"bert bf16 check (batch {BERT_CHECK_BATCH}): loss kernels "
+          f"{chk['loss_kernels']} plain {chk['loss_plain']} (rel "
+          f"{chk['loss_rel_err']:.3e}); grad max |k - p| / |p| "
+          f"{chk['grad_max_norm_rel_err']:.3e} at {chk['grad_worst_leaf']}")
+    for run, r in mha.items():
+        print(f"multihead_attn {run} {r['shape']} heads {r['heads']} memory "
+              f"{r['memory']} bf16 dropout {r['dropout']}: fwd+bwd "
+              f"{r['fwd_bwd_ms']:.3f} ms ({r['tokens_per_s']:.0f} tokens/s), "
+              f"launches {r['launches']}, vs plain in norm "
+              f"{ {k: f'{v:.2e}' for k, v in r['rel_err_in_norm'].items()} }"
+              f" on {card}")
+    print(f"transducer fp32 B {trans['batch']} T {trans['frames']} U "
+          f"{trans['labels']} H {trans['joint_hidden']} V {trans['vocab']} "
+          f"(lattice {trans['lattice_bytes']} B): fwd+bwd "
+          f"{trans['fwd_bwd_ms']:.2f} ms ({trans['frames_per_s']:.0f} "
+          f"frames/s), peak {trans['peak_mem_gib']:.2f} GiB, NLL mean "
+          f"{trans['nll_mean']:.3f}, vs fp64 rel "
+          f"{trans['nll_rel_err_vs_fp64']:.2e} on {card}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels its path never launched: {idle}")

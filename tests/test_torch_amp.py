@@ -1079,10 +1079,9 @@ def test_jax_kernels_take_fp16_in_interpret_mode():
     """JAX's Pallas wrappers have no dtype gate: LayerNorm, RMSNorm, flash,
     the LM-head loss and the Adam tail compute fp16 inputs in interpret
     mode (finite outputs, fp16 where JAX returns x's type). The port's
-    kernels take fp32 and bf16 and refuse fp16 on the card
-    (``test_torch_kernels_cuda.py::test_kernels_refuse_fp16``); its plain
-    versions take fp16 on the CPU (the fp16 O2 GPT case above). ROADMAP
-    §C records the gap, §B the fp16 kernel routes."""
+    kernels take fp16 on the card as well
+    (``test_torch_kernels_cuda.py::test_kernels_take_fp16``); its plain
+    versions take fp16 on every device (the fp16 O2 GPT case above)."""
     from apex_tpu.ops.attention import flash_attention as jflash
     from apex_tpu.ops.fused_update import fused_adam_tail as jtail
     from apex_tpu.ops.layer_norm import layer_norm as jln

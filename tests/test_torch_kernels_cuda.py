@@ -9,7 +9,7 @@ jax, so run it there with
 
 Tolerances: fp32 atol/rtol 2e-5 (summation order and fused multiply-adds
 differ from the plain version's kernels); bf16 atol 1e-3, rtol 2**-7 (one
-rounding step of the bf16 output).
+rounding step of the bf16 output); fp16 the bf16 gates.
 """
 
 import contextlib
@@ -69,7 +69,8 @@ port_attention = importlib.import_module("apex_tpu_torch.ops.attention")
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 2 ** -7)}
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 2 ** -7),
+       torch.float16: (1e-3, 2 ** -7)}
 
 
 @pytest.fixture
@@ -1052,29 +1053,111 @@ def test_fused_adam_device_step_skips_without_a_host_read(dev):
     assert opt.param_groups[0]["step"].is_cuda
 
 
-def test_kernels_refuse_fp16(dev):
-    """The kernels take fp32 and bf16: fp16 inputs on the card raise (no
-    quiet switch to the plain version), where JAX's Pallas wrappers
-    compute fp16 in interpret mode (ROADMAP §C)."""
-    h = torch.float16
-    x = torch.randn(32, 128, device=dev, dtype=h)
-    w, b = torch.ones(128, device=dev, dtype=h), torch.zeros(128, device=dev,
-                                                            dtype=h)
+# every kernel of a training path in fp16, through its bf16 test's checks
+# and gates (fp16 keeps 3 more mantissa bits than bf16: the bf16 gates are
+# the loosest these cases may have): LN / RMS with fp16 and fp32 weights,
+# flash on the tensor cores (d <= 256) and the CUDA cores (d 520, 1024)
+# and the wide kernels (2056), with a bias, varlen likewise, the LM head,
+# the Adam tail (its flag and device corrections) and hidden dropout
+FP16 = torch.float16
+FP16_CASES = {
+    "layer_norm_fwd": lambda dev: test_layer_norm_kernel_matches_plain(
+        dev, FP16, 512, 1024),
+    "layer_norm_bwd": lambda dev: test_layer_norm_bwd_kernel_matches_plain(
+        dev, FP16, 8192, 768),
+    "layer_norm_autograd":
+        lambda dev: test_layer_norm_is_differentiable_on_the_card(dev, FP16),
+    "layer_norm_fp32_w": lambda dev: test_layer_norm_mixed_types_match_plain(
+        dev, FP16, torch.float32, 64, 768),
+    "layer_norm_wide": lambda dev: test_layer_norm_mixed_types_match_plain(
+        dev, FP16, FP16, 16, 12288),
+    "rms_norm": lambda dev: test_rms_norm_kernels_match_plain(
+        dev, FP16, FP16, 8192, 768),
+    "rms_norm_fp32_w": lambda dev: test_rms_norm_kernels_match_plain(
+        dev, FP16, torch.float32, 4096, 512),
+    "flash_d64": lambda dev: test_flash_kernels_match_plain(
+        dev, FP16, 6, 256, 64, True, 0.0),
+    "flash_d64_dropout": lambda dev: test_flash_kernels_match_plain(
+        dev, FP16, 4, 128, 64, True, 0.2),
+    "flash_d40_tail": lambda dev: test_flash_kernels_match_plain(
+        dev, FP16, 2, 200, 40, False, 0.1),
+    "flash_d256": lambda dev: test_flash_kernels_match_plain(
+        dev, FP16, 2, 256, 256, True, 0.0),
+    "flash_d520": lambda dev: test_flash_kernels_match_plain(
+        dev, FP16, 1, 40, 520, False, 0.1),
+    "flash_d1024": lambda dev: test_flash_kernels_match_plain(
+        dev, FP16, 2, 72, 1024, True, 0.0),
+    "flash_d2056": lambda dev: test_flash_kernels_match_plain(
+        dev, FP16, 2, 40, 2056, True, 0.0),
+    "flash_bias_d64": lambda dev: test_flash_bias_kernels_match_plain(
+        dev, FP16, 3, 2, 128, 128, 64, True, 0.2),
+    "flash_bias_d1024": lambda dev: test_flash_bias_kernels_match_plain(
+        dev, FP16, 2, 1, 72, 72, 1024, True, 0.0),
+    "varlen_d64": lambda dev: test_varlen_kernels_match_plain(
+        dev, FP16, 2, 3, 320, 64, True, False),
+    "varlen_d256": lambda dev: test_varlen_kernels_match_plain(
+        dev, FP16, 1, 2, 320, 256, True, True),
+    "varlen_d1024": lambda dev: test_varlen_kernels_match_plain(
+        dev, FP16, 1, 1, 320, 1024, True, True),
+    "varlen_d2056": lambda dev: test_varlen_kernels_match_plain(
+        dev, FP16, 1, 1, 256, 2056, True, True),
+    "lm_head": lambda dev: test_lm_head_loss_kernels_match_plain(
+        dev, FP16, 600, 3000, 384),
+    "lm_head_t5": lambda dev: test_lm_head_loss_kernels_match_plain(
+        dev, FP16, 1024, 32128, 512),
+    "lm_head_cluster": lambda dev: test_lm_head_loss_kernels_match_plain(
+        dev, FP16, 128, 257, 1152),
+    "adam_tail": lambda dev: test_adam_tail_kernel_matches_plain(
+        dev, FP16, (300, 700), 0.01, True),
+    "adam_tail_l2": lambda dev: test_adam_tail_kernel_matches_plain(
+        dev, FP16, (70001,), 0.01, False),
+    "adam_tail_flag": lambda dev:
+        test_adam_tail_flag_leaves_state_and_param_unchanged(dev, FP16,
+                                                             False),
+    "lamb_tail_flag": lambda dev:
+        test_adam_tail_flag_leaves_state_and_param_unchanged(dev, FP16,
+                                                             True),
+    "adam_tail_corr": lambda dev: test_adam_tail_device_corrections(dev,
+                                                                    FP16),
+    "dropout": lambda dev: test_hidden_dropout_kernel_bitwise_equals_plain(
+        dev, FP16, (8, 1024, 768), 0.1),
+    "dropout_odd": lambda dev: test_hidden_dropout_kernel_bitwise_equals_plain(
+        dev, FP16, (1001,), 0.5),
+}
+
+
+@pytest.mark.parametrize("case", list(FP16_CASES))
+def test_kernels_take_fp16(dev, case):
+    """Every kernel a training path reaches takes fp16 on the card, as
+    JAX's Pallas wrappers do in interpret mode: launched (counted), in
+    fp16 where JAX returns x's type, and within its bf16 gate of the plain
+    version on the same inputs."""
+    FP16_CASES[case](dev)
+
+
+def test_c6_serving_and_codec_kernels_raise_on_fp16(dev):
+    """The serving kernels (paged attention, the fused layer) and the
+    codec take fp32 and bf16: fp16 raises rather than running another way
+    (ROADMAP C6)."""
+    from apex_tpu_torch.comm import quantize as pq
+    q, pools, cfg, bt, ctx = _paged(dev, torch.float32, 4, 2, 64, 16, 2, 1)
+    h16 = KVCacheConfig(num_layers=1, num_heads=2, head_dim=64,
+                        num_blocks=8, block_size=16, dtype=FP16)
     with pytest.raises(ValueError):
-        layer_norm_fwd(x, w, b)
+        paged_attention_fwd(q.half(), {k: v.half() for k, v in pools.items()},
+                            h16, bt, ctx, 0.125)
+    x, lp, layer, _, _, bt, start, _, active = _fused_case(
+        dev, torch.float32, "none", 2, 1)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fused_layer_fwd(x.half(), lp, layer,
+                        GPTConfig(vocab_size=128, max_seq=256, hidden=256,
+                                  num_layers=1, num_heads=4, dtype=FP16),
+                        KVCacheConfig(num_layers=1, num_heads=4,
+                                      head_dim=64, num_blocks=16,
+                                      block_size=16, dtype=FP16),
+                        bt, start, None, active)
     with pytest.raises(ValueError):
-        rms_norm_fwd(x, w)
-    q = torch.randn(2, 128, 64, device=dev, dtype=h)
-    with pytest.raises(ValueError):
-        flash_attention_fwd(q, q, q, 0.125, True)
-    with pytest.raises(ValueError):
-        lm_head_loss_fwd(torch.randn(128, 128, device=dev, dtype=h),
-                         torch.randn(256, 128, device=dev, dtype=h),
-                         torch.zeros(128, dtype=torch.long, device=dev))
-    g = torch.randn(1024, device=dev, dtype=h)
-    m, v = torch.zeros(1024, device=dev), torch.zeros(1024, device=dev)
-    with pytest.raises(ValueError):
-        fused_adam_tail(g, m, v, g, C1, C2, **TAIL_KW)
+        pq.quantize_blocks(torch.randn(32, 128, device=dev).half())
 
 
 def test_fp8_product_routes_agree(dev):
@@ -2684,8 +2767,8 @@ def test_hidden_dropout_kernel_counter_high_word(dev):
 
 def test_hidden_dropout_kernel_refuses_other_types(dev):
     from apex_tpu_torch.ops.dropout import hidden_dropout_fwd
-    with pytest.raises(ValueError, match="fp32 or bf16"):
-        hidden_dropout_fwd(torch.ones(8, device=dev, dtype=torch.float16),
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        hidden_dropout_fwd(torch.ones(8, device=dev, dtype=torch.float64),
                            0.1, _dropout_key(0))
     x = torch.arange(20, device=dev, dtype=torch.float32)
     sliced = x[1:]  # 4 bytes past a 16-byte boundary

@@ -59,8 +59,13 @@ def test_route_refuses_a_hidden_size_no_kernel_takes(h):
 
 
 def test_route_refuses_other_dtypes():
-    with pytest.raises(ValueError, match="fp32 or bf16"):
-        lm._lm_head_route(torch.float16, 768)
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        lm._lm_head_route(torch.float64, 768)
+
+
+@pytest.mark.parametrize("h", [128, 768, 2048])
+def test_fp16_takes_the_tensor_cores(h):
+    assert lm._lm_head_route(torch.float16, h) == "tensor_core"
 
 
 # ---------------------------------------------------------------------------
@@ -236,12 +241,14 @@ class _Lib:
 
 @pytest.mark.parametrize("dtype,n,v,h", [
     (torch.bfloat16, 1024, 300, 512), (torch.bfloat16, 96, 1000, 768),
-    (torch.bfloat16, 8, 70, 3200), (torch.float32, 96, 1000, 768)])
+    (torch.bfloat16, 8, 70, 3200), (torch.float32, 96, 1000, 768),
+    (torch.float16, 96, 1000, 768)])
 def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, n, v, h):
     """dX and dW launch their route's entry once, count it under that
     name, pass as many arguments as its ctypes table declares, and for
-    bf16 the layout and split count of ``_mma_layout`` / ``_dx_splits``
-    (with a split scratch only when dX splits)."""
+    bf16 and fp16 the layout and split count of ``_mma_layout`` /
+    ``_dx_splits`` (with a split scratch only when dX splits) and the
+    dtype code."""
     libs = {}
 
     def load(name, table):
@@ -261,7 +268,7 @@ def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, n, v, h):
     dx = lm.lm_head_loss_bwd_dx(x, w, t, row, row)
     dw = lm.lm_head_loss_bwd_dw(x, w, t, row, row)
     assert dx.shape == x.shape and dw.shape == w.shape
-    bf16 = dtype == torch.bfloat16
+    bf16 = dtype != torch.float32  # the tensor-core route
     source = "lm_head_mma" if bf16 else "lm_head_loss"
     lib, table = libs[source]
     names = [c[0] for c in lib.calls]
@@ -272,19 +279,21 @@ def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, n, v, h):
     if bf16:
         layout, splits = lm._mma_layout(h), lm._dx_splits(n, v, h)
         dx_args, dw_args = lib.calls[0][1], lib.calls[1][1]
-        assert dx_args[-6:-1] == (h, *layout, splits)
-        assert dw_args[-5:-1] == (h, *layout)
+        assert dx_args[-7:-2] == (h, *layout, splits)
+        assert dw_args[-6:-2] == (h, *layout)
+        assert dx_args[-2] == dw_args[-2] == ku.dtype_code(dtype)
         assert (dx_args[6] is None) == (splits == 1)
 
 
 @pytest.mark.parametrize("dtype,n,v,h", [
     (torch.bfloat16, 1024, 300, 512), (torch.bfloat16, 8192, 50304, 768),
-    (torch.float32, 96, 1000, 768)])
+    (torch.float32, 96, 1000, 768), (torch.float16, 1024, 300, 512)])
 def test_forward_launches_the_routed_entry(monkeypatch, dtype, n, v, h):
     """The forward launches its route's entry once and counts it under
-    that name: bf16 ``lm_head_mma_fwd`` with ``_fwd_splits``'s count (and
-    a (3, splits, n) scratch), fp32 ``lm_head_loss_fwd`` with is_bf16 0;
-    as many arguments as the entry's ctypes table declares."""
+    that name: bf16 and fp16 ``lm_head_mma_fwd`` with ``_fwd_splits``'s
+    count (and a (3, splits, n) scratch) and the dtype code, fp32
+    ``lm_head_loss_fwd`` with is_bf16 0; as many arguments as the entry's
+    ctypes table declares."""
     libs = {}
 
     def load(name, table):
@@ -301,7 +310,7 @@ def test_forward_launches_the_routed_entry(monkeypatch, dtype, n, v, h):
     w = torch.zeros(v, h, dtype=dtype)
     lse, pred = lm.lm_head_loss_fwd(x, w, torch.zeros(n, dtype=torch.long))
     assert lse.shape == pred.shape == (n,)
-    bf16 = dtype == torch.bfloat16
+    bf16 = dtype != torch.float32  # the tensor-core route
     source = "lm_head_mma" if bf16 else "lm_head_loss"
     lib, table = libs[source]
     calls = [c for c in lib.calls if c[0] != "lm_head_loss_fwd_splits"]
@@ -309,8 +318,11 @@ def test_forward_launches_the_routed_entry(monkeypatch, dtype, n, v, h):
     assert ku.launch_counts() == {f"{source}_fwd": 1}
     args = calls[0][1]
     assert len(args) == len(table[f"{source}_fwd"])
-    assert args[-5:-1] == (n, v, h,
-                           lm._fwd_splits(n, v, h) if bf16 else 0)
+    if bf16:
+        assert args[-6:-1] == (n, v, h, lm._fwd_splits(n, v, h),
+                               ku.dtype_code(dtype))
+    else:
+        assert args[-5:-1] == (n, v, h, 0)
 
 
 # ---------------------------------------------------------------------------
