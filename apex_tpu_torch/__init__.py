@@ -22,9 +22,13 @@ Megatron functional ops (``ops.softmax``,
 ``transformer.functional``, ``ops.xentropy``, ``contrib.xentropy``,
 ``mlp``, ``fused_dense``), mixed precision (``amp``, the optimizer
 suite, ``fp16_utils``; every kernel a training path reaches takes fp32,
-bf16 and fp16), BERT (``transformer.testing.standalone_bert``) and the
-``contrib.multihead_attn`` and ``contrib.transducer`` modules: every
-Pallas kernel of ``apex_tpu`` has its CUDA counterpart.
+bf16 and fp16; so do the serving kernels and the codec), BERT
+(``transformer.testing.standalone_bert``), the
+``contrib.multihead_attn``, ``contrib.transducer`` and
+``contrib.sparsity`` (ASP) modules, the example models (``models``:
+ResNet over ``parallel.sync_batchnorm``'s one-device path, DCGAN),
+``RNN``, ``reparameterization`` and ``_autocast_utils``: every Pallas
+kernel of ``apex_tpu`` has its CUDA counterpart.
 """
 
 from apex_tpu_torch._device import resolve_device  # noqa: F401

@@ -225,9 +225,9 @@ def _quant_plan(block: int, dtype: torch.dtype,
     At a power-of-2 row of 16-128 vectors (the main path's B 256 and G
     128) every lane holds ``_VECS`` and the row stays in registers; a
     longer row is walked by a warp in chunks, read twice. A resident grid
-    for bf16 stochastic rounding, the cells whose arithmetic, not their
-    bytes, bounds them; one row a team elsewhere (both timed by
-    chip_codec_compare.py)."""
+    for stochastic rounding of a half type (bf16, fp16), the cells whose
+    arithmetic, not their bytes, bounds them; one row a team elsewhere
+    (both timed by chip_codec_compare.py)."""
     per = 16 // torch.empty((), dtype=dtype).element_size()
     if block <= 0 or block % 128:
         raise ValueError(f"quantize kernel: block ({block}) must be a "
@@ -252,13 +252,14 @@ def _check_flat(what, t, dtypes, block):
 def quantize_blocks(x2d: torch.Tensor, qmax: float = QMAX,
                     seed: Optional[int] = None, packed: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the quantize kernel on a CUDA (rows, block) fp32 or bf16
-    tensor, block % 128 == 0: returns (int8 codes (rows, block), or with
+    """Launch the quantize kernel on a CUDA (rows, block) fp32, bf16 or
+    fp16 tensor (read in its own type, upcast inside the kernel, exactly),
+    block % 128 == 0: returns (int8 codes (rows, block), or with
     ``packed`` (qmax <= 7) their nibble pairs, uint8 (rows, block / 2) in
     :func:`pack_int4`'s layout; fp32 scales (rows,)), rounded to nearest,
     or stochastically with ``seed``. Launches count as
     ``quantize_blockwise[nearest]`` or ``quantize_blockwise[stochastic]``."""
-    _check_flat("quantize_blocks", x2d, (torch.float32, torch.bfloat16),
+    _check_flat("quantize_blocks", x2d, ku.KERNEL_DTYPES,
                 x2d.shape[-1] if x2d.dim() == 2 else 0)
     ku.require(not packed or qmax <= QMAX4,
                f"quantize_blocks: packed codes need qmax <= {QMAX4:g}, got "
@@ -275,7 +276,7 @@ def quantize_blocks(x2d: torch.Tensor, qmax: float = QMAX,
         x2d.device.index, x2d.data_ptr(), q.data_ptr(), scales.data_ptr(),
         rows, block, float(qmax), int(stochastic),
         fmix32(int(seed) & M32) if stochastic else 0,
-        int(x2d.dtype == torch.bfloat16), int(packed), plan.team,
+        ku.dtype_code(x2d.dtype), int(packed), plan.team,
         int(plan.resident), ku.stream_handle(x2d))
     name = "stochastic" if stochastic else "nearest"
     ku.count_launch(f"quantize_blockwise[{name}]")
@@ -330,7 +331,10 @@ def _quantize(x_flat, block_size: int, stochastic: bool, seed, qmax: float,
     """JAX's two paths: the kernel's math (``use_pallas``: the kernel on
     CUDA, its plain version on the CPU) or its reference (the scale a
     true quotient, as ``_quantize_jax`` divides). ``packed``: the codes as
-    nibble pairs (written by the kernel on its path)."""
+    nibble pairs (written by the kernel on its path). The kernel takes
+    fp32, bf16 and fp16 buffers as they are and upcasts inside, as JAX's
+    kernel does (exact: an fp16 buffer's codes and scales are those of its
+    fp32 values); another float type is cast to fp32 first."""
     seed = int(seed) if stochastic else None
     x2d = x_flat.reshape(-1, block_size)
     if not use_pallas:
@@ -340,7 +344,7 @@ def _quantize(x_flat, block_size: int, stochastic: bool, seed, qmax: float,
         return (pack_int4(q) if packed else q), scales
     if ku.use_kernel(x_flat):
         x = x2d.contiguous()
-        if x.dtype not in (torch.float32, torch.bfloat16):
+        if x.dtype not in ku.KERNEL_DTYPES:
             x = x.float()
         q, s = quantize_blocks(x, qmax, seed, packed)
     else:

@@ -3,5 +3,6 @@
 kernels, ``contrib.layer_norm``, FastLayerNorm over the LayerNorm
 kernels, ``contrib.xentropy``, the label-smoothing cross-entropy,
 ``contrib.multihead_attn``, the self and encoder-decoder attention
-modules over LayerNorm and flash, and ``contrib.transducer``, the RNN-T
-joint and loss."""
+modules over LayerNorm and flash, ``contrib.transducer``, the RNN-T
+joint and loss, and ``contrib.sparsity``, ASP's 2:4 masks, the
+channel-permutation search and the pruned optimizer step."""

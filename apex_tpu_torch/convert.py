@@ -125,26 +125,90 @@ def adapter_weights_from_numpy(weights: Any, device: DeviceLike = None,
     return params_from_numpy(dict(weights), device, dtype)
 
 
-def module_from_numpy(params: Any, module: torch.nn.Module) -> None:
-    """A flax module's params (JAX's ``MLP``, ``FusedDense``,
-    ``FusedDenseGeluDense``: a flat ``{name: array}`` as numpy, optionally
-    under a ``"params"`` key) copied into the port module whose parameters
-    carry the same names and shapes (``kernel_0``, ``bias_0``, ...;
-    ``kernel``, ``bias``; ``kernel1`` ... ``bias2``), in each parameter's
-    own type and device. Raises on a missing or extra name or a shape that
-    differs."""
-    if "params" in params:
-        params = params["params"]
-    own = dict(module.named_parameters())
-    if set(params) != set(own):
-        raise ValueError(f"params {sorted(params)} do not match the module's "
-                         f"{sorted(own)}")
-    with torch.no_grad():
-        for name, p in own.items():
-            if np.shape(params[name]) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {np.shape(params[name])} "
-                                 f"does not match {tuple(p.shape)}")
-            p.copy_(tensor_from_numpy(params[name], p.device, p.dtype))
+def _flat(tree: Any, prefix: str = "") -> dict:
+    """A nested dict's leaves under ``.``-joined names."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _owner_layout(module: torch.nn.Module, name: str, to_port: bool):
+    """The function that moves the array of parameter ``name`` between
+    flax's layout and its port module's (the owner's ``from_flax`` /
+    ``to_flax``: conv kernels transposed, transposed-conv kernels
+    flipped); identity for a module that has none."""
+    owner_name, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(owner_name) if owner_name else module
+    fn = getattr(owner, "from_flax" if to_port else "to_flax", None)
+    return (lambda a: fn(leaf, a)) if fn else (lambda a: a)
+
+
+def module_from_numpy(params: Any, module: torch.nn.Module,
+                      batch_stats: Any = None) -> None:
+    """A flax module's variables (as numpy) copied into the port module
+    whose parameters carry the same names and shapes: JAX's ``MLP``,
+    ``FusedDense``, ``FusedDenseGeluDense`` (flat ``{name: array}``), the
+    attention modules, and nested trees (``models``: ``BottleneckBlock_0``
+    / ``Conv_1`` / ``kernel`` -> ``BottleneckBlock_0.Conv_1.kernel``),
+    optionally under a ``"params"`` key with a ``"batch_stats"`` one
+    beside it (or ``batch_stats`` given), whose leaves go into the
+    buffers of the same names. Each array goes through its owner's
+    ``from_flax`` (conv kernels HWIO -> OIHW, transposed-conv kernels
+    flipped) and into the parameter's own type and device. Raises on a
+    missing or extra name or a shape that differs."""
+    if set(params) <= {"params", "batch_stats"}:   # flax's variables
+        batch_stats = params.get("batch_stats", batch_stats)
+        params = params.get("params", {})
+    for tree, own in ((params, dict(module.named_parameters())),
+                      (batch_stats, dict(module.named_buffers()))):
+        if tree is None:
+            continue
+        flat = _flat(tree)
+        if set(flat) != set(own):
+            raise ValueError(f"variables {sorted(flat)} do not match the "
+                             f"module's {sorted(own)}")
+        with torch.no_grad():
+            for name, p in own.items():
+                a = _owner_layout(module, name, True)(np.asarray(flat[name]))
+                if np.shape(a) != tuple(p.shape):
+                    raise ValueError(f"{name}: shape {np.shape(a)} does not "
+                                     f"match {tuple(p.shape)}")
+                p.copy_(tensor_from_numpy(a, p.device, p.dtype))
+
+
+def param_tree(module: torch.nn.Module) -> dict:
+    """The module's parameters as a nested dict under flax's paths
+    (``BottleneckBlock_0`` / ``Conv_1`` / ``kernel``), the tensors
+    themselves: the tree ``amp`` and the optimizers take (amp's norm
+    predicate reads these paths as it reads JAX's)."""
+    out: dict = {}
+    for name, p in module.named_parameters():
+        node = out
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = p
+    return out
+
+
+def module_to_flax(tensors: Any, module: torch.nn.Module) -> Any:
+    """``{name: tensor}`` of a port module's parameters (their values or
+    their gradients) as flax's nested tree of numpy arrays in flax's
+    layouts: the inverse of :func:`module_from_numpy`'s moves, for
+    comparing with JAX."""
+    out: dict = {}
+    for name, t in tensors.items():
+        a = t.detach().float().cpu().numpy()
+        a = _owner_layout(module, name, False)(a)
+        node = out
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+    return out
 
 
 # the port optimizers' per-param state names for the JAX state fields

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel apex_tpu/serve/megakernel.py
 // `_fused_block_kernel` (reached through `_fused_block`, pallas_call at
-// megakernel.py:668). Per fed row (n slots x q rows, R = n * q, any R):
+// megakernel.py:668), in the model type T: fp32, bf16 or fp16. Per fed
+// row (n slots x q rows, R = n * q, any R):
 //   1. LN1 in fp32 (E[x^2] - E[x]^2 clamped at 0, eps), h1 cast to T;
 //   2. qkv = h1 @ Wqkv with fp32 accumulation + fp32 bias, kept fp32: q is
 //      never rounded to T; K and V are emitted in T (per-head interleaved
@@ -45,10 +46,11 @@
 //   in row chunks of up to 64, so each block normalizes the rows it
 //   stages: LN1 of x before qkv, LN2 of x1 before fc1 (a warp a row, fp32
 //   sums in a fixed order; the raw rows and the LN weights land in one
-//   cp.async round). The weights stream through a cp.async ring (bf16: 12
-//   stages of 128 k x 16 columns, 44 KB in flight an SM; fp32: 6 of 128
-//   k, 40 KB) that runs on across a block's items. bf16 products run on
-//   the tensor cores, mma.sync m16n8k16 with fp32 accumulators, the
+//   cp.async round). The weights stream through a cp.async ring (bf16 and
+//   fp16: 12 stages of 128 k x 16 columns, 44 KB in flight an SM; fp32: 6
+//   of 128 k, 40 KB) that runs on across a block's items. bf16 and fp16
+//   products run on the tensor cores, mma.sync m16n8k16 (.bf16 or .f16)
+//   with fp32 accumulators, the
 //   weight's 16 columns on M and the fed rows on N ("swap AB": a decode
 //   call is one n8 tile; wider calls loop over n8 tiles, each weight
 //   fragment loaded once for all of them): A is the weight tile through
@@ -75,9 +77,9 @@
 // * Attention: paged_split.cuh's walk (paged_walks.cuh's bodies), one
 //   item per (context split, head, tile of one slot's rows), the blocks
 //   taking items from a queue (an atomic counter), the last splits first:
-//   a slot's K/V tile is read once for all its fed rows. bf16 on the
-//   tensor cores as paged_mma.cu (q, fp32 here, enters as two bf16 terms
-//   hi + lo, as p does), fp32 on the CUDA cores as paged_attention.cu,
+//   a slot's K/V tile is read once for all its fed rows. bf16 and fp16 on
+//   the tensor cores as paged_mma.cu (q, fp32 here, enters as two terms
+//   of T, hi + lo, as p does), fp32 on the CUDA cores as paged_attention.cu,
 //   head dims above 256 on the wide walk (128-channel chunks). Head dims
 //   are bucketed to 64, 128, 256 (zero-padded) and wide: four
 //   instantiations a type and pool format. The K/V ring is 4 stages deep
@@ -126,6 +128,8 @@ struct Gemm<bf16> {
   static constexpr int APAD = 8;    // a staged row's padding: 16 bytes
   static constexpr int RC_MIN = 16, RC_MAX = 64;  // rows of a chunk
 };
+template <>
+struct Gemm<__half> : Gemm<bf16> {};  // fp16: bf16's geometry
 template <>
 struct Gemm<float> {
   static constexpr int KC = 128;    // k of a ring stage: 16 a warp
@@ -301,7 +305,8 @@ __device__ __forceinline__ uint32_t ld_early(const float* p) {
   asm volatile("ld.global.cg.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
   return v;
 }
-__device__ __forceinline__ uint32_t ld_early(const bf16* p) {
+template <typename S, std::enable_if_t<sizeof(S) == 2, int> = 0>
+__device__ __forceinline__ uint32_t ld_early(const S* p) {
   unsigned short v;
   asm volatile("ld.global.cg.b16 %0, [%1];\n" : "=h"(v) : "l"(p));
   return v;
@@ -310,6 +315,8 @@ template <typename S>
 __device__ __forceinline__ float early_f(uint32_t v) {
   if constexpr (sizeof(S) == 4) {
     return __uint_as_float(v);
+  } else if constexpr (std::is_same_v<S, __half>) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(v)));
   } else {
     return __bfloat162float(
         __ushort_as_bfloat16(static_cast<unsigned short>(v)));
@@ -401,12 +408,12 @@ __device__ __forceinline__ void stage_weights(T* Ws, const T* W, int K,
   }
 }
 
-// This warp's share of one stage: bf16 on the tensor cores, k16 step
-// `warp` of the chunk at kb; acc[j] is n8 tile j of the rows
+// This warp's share of one stage: bf16 or fp16 (E) on the tensor cores,
+// k16 step `warp` of the chunk at kb; acc[j] is n8 tile j of the rows
+template <typename E, std::enable_if_t<sizeof(E) == 2, int> = 0>
 __device__ __forceinline__ void stage_products(float (&acc)[8][4],
-                                               const bf16* Ws,
-                                               const bf16* As, int lda,
-                                               int kb, int pairs) {
+                                               const E* Ws, const E* As,
+                                               int lda, int kb, int pairs) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int j = lane / 8, r = lane % 8;
   const int row = warp * 16 + r + (j / 2) * 8;
@@ -419,8 +426,8 @@ __device__ __forceinline__ void stage_products(float (&acc)[8][4],
       uint32_t b[4];
       ldmatrix_x4(b, As + (p * 16 + r + (lane / 16) * 8) * lda + k +
                          (j % 2) * 8);
-      mma16<bf16>(acc[2 * p], af, b[0], b[1]);
-      mma16<bf16>(acc[2 * p + 1], af, b[2], b[3]);
+      mma16<E>(acc[2 * p], af, b[0], b[1]);
+      mma16<E>(acc[2 * p + 1], af, b[2], b[3]);
     }
   }
 }
@@ -978,7 +985,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (DB == 0) {
         paged::wide_walk<float, T, KV, kThreads>(pa, it, smem);
       } else if constexpr (sizeof(T) == 2) {
-        paged::mma_walk<DB, KV, true, kWalkRing<DB>>(pa, AL, it, smem);
+        paged::mma_walk<DB, KV, true, kWalkRing<DB>, T>(pa, AL, it, smem);
       } else {
         paged::fp32_walk<DB, KV, kThreads, kWalkRing<DB>>(pa, AL, it, smem);
       }
@@ -1105,41 +1112,44 @@ int need_t(int hidden, int ffn, int d, int kv_mode, int group) {
 }  // namespace
 
 // Bytes of the scratch buffer fused_layer_fwd needs for `rows` fed rows.
+// `dtype`: the model type's code (common.cuh: 0 fp32, 1 bf16, 2 fp16).
 extern "C" long long fused_layer_scratch_bytes(int rows, int hidden, int ffn,
                                                int heads, int head_dim,
                                                int splits, int q,
-                                               int is_bf16) {
+                                               int dtype) {
   return static_cast<long long>(scratch_layout(rows, hidden, ffn, heads,
                                                head_dim, splits, q,
-                                               is_bf16 ? 2 : 4).total);
+                                               dtype == apex::kF32 ? 4 : 2)
+                                    .total);
 }
 
 // Dynamic shared memory the fused layer needs at this shape, in bytes
 // (the launch takes kSmemBudget, less the kernel's static shared memory,
 // and refuses a shape whose need is larger).
 extern "C" int fused_layer_smem_bytes(int hidden, int head_dim, int ffn,
-                                      int kv_mode, int group, int is_bf16) {
+                                      int kv_mode, int group, int dtype) {
   if (kv_mode < 0 || kv_mode > 2 || head_dim <= 0) return -1;
-  return is_bf16
-             ? need_t<__nv_bfloat16>(hidden, ffn, head_dim, kv_mode, group)
-             : need_t<float>(hidden, ffn, head_dim, kv_mode, group);
+  int need = -1;
+  APEX_TYPE_SWITCH(dtype, T, need = -1,
+                   need = need_t<T>(hidden, ffn, head_dim, kv_mode, group));
+  return need;
 }
 
 // The dynamic shared memory a launch takes at most, in bytes.
 extern "C" int fused_layer_smem_budget() { return kSmemBudget; }
 
-// One fused layer on CUDA device `device`, on `stream`. Model type T =
-// is_bf16 ? bf16 : fp32 for x, every weight and vector, x_out, k_out and
-// v_out. x, x_out: (n * q, hidden); k_out, v_out: (n * q, heads, head_dim);
-// weights (hidden, 3 hidden), (hidden, hidden), (hidden, ffn), (ffn,
-// hidden) row-major, the qkv columns per-head interleaved; one layer's
+// One fused layer on CUDA device `device`, on `stream`. Model type T (the
+// code `dtype`: 0 fp32, 1 bf16, 2 fp16) for x, every weight and vector,
+// x_out, k_out and v_out. x, x_out: (n * q, hidden); k_out, v_out:
+// (n * q, heads, head_dim); weights (hidden, 3 hidden), (hidden, hidden),
+// (hidden, ffn), (ffn, hidden) row-major, the qkv columns per-head interleaved; one layer's
 // pools as in paged_attention.cu (kv_mode 0: T; 1: int8 + fp32 scales; 2:
 // int4 + bf16 group scales), written in place; block_tables (n, max_blocks)
 // int32; start, n_valid (null: q each) (n,) int32; active (n,) bool;
 // splits x split_len covers max_blocks * block_size (serve/megakernel.py
 // `_fused_splits`: split_len a multiple of 64, at most 64 splits);
 // scratch: fused_layer_scratch_bytes(n * q, hidden, ffn, heads, head_dim,
-// splits, is_bf16) bytes. hidden == heads * head_dim, head_dim % 8 == 0,
+// splits, q, dtype) bytes. hidden == heads * head_dim, head_dim % 8 == 0,
 // ffn % 8 == 0, fused_layer_smem_bytes within the budget; any n * q; all
 // 16-byte aligned.
 extern "C" int fused_layer_fwd(
@@ -1153,7 +1163,7 @@ extern "C" int fused_layer_fwd(
     void* v_out, void* scratch, int n, int q, int hidden, int heads,
     int head_dim, int ffn, int pool_blocks, int block_size, int max_blocks,
     int kv_mode, int group, int splits, int split_len, float scale,
-    float eps, int is_bf16, void* stream) {
+    float eps, int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (n * q == 0) return static_cast<int>(cudaGetLastError());
@@ -1180,8 +1190,8 @@ extern "C" int fused_layer_fwd(
   a.split_len = split_len; a.smem = kSmemBudget; a.scale = scale;
   a.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_t<__nv_bfloat16>(a, kv_mode, device, s)
-              : launch_t<float>(a, kv_mode, device, s);
+  cudaError_t err;
+  APEX_TYPE_SWITCH(dtype, T, err = cudaErrorInvalidValue,
+                   err = launch_t<T>(a, kv_mode, device, s));
   return static_cast<int>(err);
 }

@@ -1,14 +1,15 @@
 // Paged attention on the CUDA cores, for Hopper (sm_90a): fp32 queries at
-// head dim d % 8 == 0 up to 256 (`paged_attention_fwd`), and fp32 or bf16
-// queries at every d % 8 == 0 above 256 (`paged_wide_fwd`), over
+// head dim d % 8 == 0 up to 256 (`paged_attention_fwd`), and fp32, bf16 or
+// fp16 queries at every d % 8 == 0 above 256 (`paged_wide_fwd`), over
 // full-precision, int8 and int4 pools.
 //
 // Replaces, for fp32 queries, the TPU kernel apex_tpu/serve/decode.py
 // `_paged_kernel` (reached through `_paged_pallas`, pallas_call at
 // decode.py:228), for full-precision, int8 and int4 pools (its `quantized`
-// / `kv_bits` branches, decode.py:146-151); bf16 queries run on the tensor
-// cores (paged_mma.cu). The tensor cores would take fp32 as TF32, which
-// the fp32 gates (2e-5 a kernel, equal streams) would not survive.
+// / `kv_bits` branches, decode.py:146-151); bf16 and fp16 queries run on
+// the tensor cores (paged_mma.cu). The tensor cores would take fp32 as
+// TF32, which the fp32 gates (2e-5 a kernel, equal streams) would not
+// survive.
 //
 // Computes, per row n and head h: softmax(q . K^T * scale) V over the
 // first ctx_lens[n] positions of the row's paged context, where position t
@@ -44,7 +45,7 @@
 // 130 KB; quantized: one fp32 stage of K and V 65 KB + two stages of codes
 // and scales.
 
-// The wide walk (`paged_wide_fwd`, d > 256, fp32 or bf16 q). Neither
+// The wide walk (`paged_wide_fwd`, d > 256, fp32, bf16 or fp16 q). Neither
 // kernel above fits there: their q and K/V tiles hold whole head dims in
 // shared memory (281 KB at d = 512 here, 300 KB on the tensor cores). So
 // the head dim goes in chunks of kWideChunk channels, as flash_wide.cuh
@@ -111,7 +112,7 @@ cudaError_t launch_mode(const Args& a, cudaStream_t s) {
 
 
 // ---------------------------------------------------------------------------
-// the wide walk: d > 256, fp32 or bf16 q, the head dim in chunks
+// the wide walk: d > 256, fp32, bf16 or fp16 q, the head dim in chunks
 
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -192,8 +193,8 @@ extern "C" int paged_attention_fwd(int device, const void* q,
 }
 
 // As paged_attention_fwd, for head_dim % 8 == 0 above 256 (any size; the
-// head dim goes in chunks), q and out fp32 (q_bf16 0) or bf16 (q_bf16 1),
-// a full-precision pool in q's type.
+// head dim goes in chunks), q and out of the type `dtype` names (common.cuh's
+// code: 0 fp32, 1 bf16, 2 fp16), a full-precision pool in q's type.
 extern "C" int paged_wide_fwd(int device, const void* q, const void* k_pool,
                               const void* v_pool, const void* k_scale,
                               const void* v_scale, const void* block_tables,
@@ -202,7 +203,7 @@ extern "C" int paged_wide_fwd(int device, const void* q, const void* k_pool,
                               int pool_blocks, int block_size,
                               int max_blocks, int kv_mode, int group,
                               int rows_per_table, int splits, int split_len,
-                              float scale, int q_bf16, void* stream) {
+                              float scale, int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (n == 0) return static_cast<int>(cudaGetLastError());
@@ -217,7 +218,8 @@ extern "C" int paged_wide_fwd(int device, const void* q, const void* k_pool,
                block_size, max_blocks, kv_mode, group, rows_per_table,
                splits, split_len, scale, rows_per_table};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = q_bf16 ? launch_wide_mode<__nv_bfloat16>(a, s)
-                                 : launch_wide_mode<float>(a, s);
+  cudaError_t err;
+  APEX_TYPE_SWITCH(dtype, T, err = cudaErrorInvalidValue,
+                   err = launch_wide_mode<T>(a, s));
   return static_cast<int>(err);
 }

@@ -1,9 +1,10 @@
-// Paged attention on the tensor cores, bf16, head dim d % 8 == 0 up to
-// 256, full-precision, int8 and int4 pools, for Hopper (sm_90a).
+// Paged attention on the tensor cores, bf16 or fp16 (E below), head dim
+// d % 8 == 0 up to 256, full-precision, int8 and int4 pools, for Hopper
+// (sm_90a).
 //
-// Replaces, for bf16 queries, the TPU kernel apex_tpu/serve/decode.py
-// `_paged_kernel` (reached through `_paged_pallas`, pallas_call at
-// decode.py:228). Per flat row n and head h: softmax(q . K^T * scale) V
+// Replaces, for bf16 and fp16 queries, the TPU kernel
+// apex_tpu/serve/decode.py `_paged_kernel` (reached through
+// `_paged_pallas`, pallas_call at decode.py:228). Per flat row n and head h: softmax(q . K^T * scale) V
 // over the row's first ctx[n] positions, position t in pool block
 // block_tables[n, t / bs] at offset t % bs; fp32 scores, positions >= ctx
 // masked, an online softmax, zeros where ctx == 0, a ctx past the row's
@@ -12,10 +13,11 @@
 // (flash_mma.cuh). JAX rounds p to the pool type before P V
 // (`p.astype(v.dtype)`); the plain version keeps it fp32, and one bf16
 // rounding of a dominant p moves o by 2^-9 |v|, past the bf16 gate (atol
-// 1e-3), so p enters P V as two bf16 terms, hi = round(p) and lo =
-// round(p - hi): about 16 bits of p for twice the P V products. int8 /
-// int4 codes are dequantized to bf16 in shared memory, the plain
-// version's gather into the model dtype (paged_split.cuh).
+// 1e-3), so p enters P V as two E terms, hi = round(p) and lo = round(p -
+// hi): about 16 bits of p in bf16 (22 in fp16, where one rounding alone
+// would stay inside the gate) for twice the P V products; one code path
+// for both types. int8 / int4 codes are dequantized to E in shared memory,
+// the plain version's gather into the model dtype (paged_split.cuh).
 //
 // Bound on this card: device memory. Every live K and V vector is read
 // once per group of rows sharing a block table: sum over groups of the
@@ -31,7 +33,7 @@
 // (row, head) gave 96 on 132 SMs, and a prefill chunk's 32 rows read the
 // slot's K/V once, not 32 times. Inside a block, K/V tiles of 64 positions
 // arrive through a two-stage cp.async ring (codes and scales for quantized
-// pools, dequantized into one bf16 tile after they land, each warp's 16
+// pools, dequantized into one E tile after they land, each warp's 16
 // positions by the warps that read them, behind their own barrier). Layout:
 // rows on M, positions on N, as flash_mma.cu's forward: S = Q K^T, then O +=
 // P V with S's C fragments as P's A operand and V through ldmatrix.trans, so
@@ -53,7 +55,7 @@
 // else is in the launch, and over repeated launches.
 //
 // Shared memory (D = 256): q 16.5 KB; full-precision K and V, two stages,
-// 132 KB; quantized: one bf16 stage of K and V 66 KB + two stages of codes
+// 132 KB; quantized: one E stage of K and V 66 KB + two stages of codes
 // (int8 64 KB, int4 32 KB) and scales.
 
 #include "paged_walks.cuh"
@@ -63,15 +65,15 @@ namespace {
 using paged::Args;
 using paged::Layout;
 
-template <int D, int MODE>
+template <int D, int MODE, typename E>
 __global__ void __launch_bounds__(256)
     paged_mma_kernel(const Args a, const Layout L) {
   extern __shared__ __align__(16) unsigned char smem[];
   paged::let_merge_launch();
-  paged::mma_walk<D, MODE, false>(a, L, blockIdx, smem);
+  paged::mma_walk<D, MODE, false, 2, E>(a, L, blockIdx, smem);
 }
 
-template <int D, int MODE>
+template <int D, int MODE, typename E>
 cudaError_t launch_walk(const Args& a, cudaStream_t s) {
   // code rows laid out for the instantiated D (a narrower d fills part of
   // each), scale rows for the true d
@@ -79,7 +81,7 @@ cudaError_t launch_walk(const Args& a, cudaStream_t s) {
       paged::kMaxRows * kStride<D> * 2, kB * kStride<D> * 2, kB, MODE,
       paged::code_row_bytes(MODE, D),
       MODE == 0 ? 0 : paged::scale_row_bytes(MODE, a.d, a.group));
-  auto kernel = paged_mma_kernel<D, MODE>;
+  auto kernel = paged_mma_kernel<D, MODE, E>;
   cudaError_t err = paged::allow_dynamic_smem(kernel, L.bytes);
   if (err != cudaSuccess) return err;
   const int threads = a.g > 16 ? 256 : 128;  // a second half of rows
@@ -87,16 +89,26 @@ cudaError_t launch_walk(const Args& a, cudaStream_t s) {
                                                                         L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return paged::launch_merge<bf16>(a, s);
+  return paged::launch_merge<E>(a, s);
 }
 
-template <int MODE>
+template <int MODE, typename E>
 cudaError_t launch_mode(const Args& a, cudaStream_t s) {
   switch (paged::paged_head_dim(a.d)) {
-    case 32: return launch_walk<32, MODE>(a, s);
-    case 64: return launch_walk<64, MODE>(a, s);
-    case 128: return launch_walk<128, MODE>(a, s);
-    case 256: return launch_walk<256, MODE>(a, s);
+    case 32: return launch_walk<32, MODE, E>(a, s);
+    case 64: return launch_walk<64, MODE, E>(a, s);
+    case 128: return launch_walk<128, MODE, E>(a, s);
+    case 256: return launch_walk<256, MODE, E>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename E>
+cudaError_t launch_type(const Args& a, cudaStream_t s) {
+  switch (a.mode) {
+    case 0: return launch_mode<0, E>(a, s);
+    case 1: return launch_mode<1, E>(a, s);
+    case 2: return launch_mode<2, E>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -104,9 +116,11 @@ cudaError_t launch_mode(const Args& a, cudaStream_t s) {
 }  // namespace
 
 // On CUDA device `device`, on `stream`:
-// q, out: (n, heads, head_dim) bf16, 16-byte aligned. One layer's pools,
-// pool_blocks blocks of block_size tokens:
-//   kv_mode 0: k_pool, v_pool (heads, pool_blocks, bs, head_dim) bf16;
+// q, out: (n, heads, head_dim) of the type `dtype` names (common.cuh's
+// code: 1 bf16, 2 fp16), 16-byte aligned. One layer's pools, pool_blocks
+// blocks of block_size tokens:
+//   kv_mode 0: k_pool, v_pool (heads, pool_blocks, bs, head_dim) in q's
+//              type;
 //              k_scale, v_scale unused;
 //   kv_mode 1: int8 codes of that shape + fp32 scales (heads, pool_blocks,
 //              bs);
@@ -125,7 +139,7 @@ extern "C" int paged_mma_fwd(int device, const void* q, const void* k_pool,
                              int pool_blocks, int block_size, int max_blocks,
                              int kv_mode, int group, int rows_per_table,
                              int splits, int split_len, float scale,
-                             void* stream) {
+                             int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (n == 0) return static_cast<int>(cudaGetLastError());
@@ -140,10 +154,9 @@ extern "C" int paged_mma_fwd(int device, const void* q, const void* k_pool,
                splits, split_len, scale, rows_per_table};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (kv_mode) {
-    case 0: err = launch_mode<0>(a, s); break;
-    case 1: err = launch_mode<1>(a, s); break;
-    case 2: err = launch_mode<2>(a, s); break;
+  switch (dtype) {
+    case apex::kBF16: err = launch_type<__nv_bfloat16>(a, s); break;
+    case apex::kF16: err = launch_type<__half>(a, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

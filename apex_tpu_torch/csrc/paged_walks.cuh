@@ -1,5 +1,5 @@
 // The walk bodies of paged attention, one item (context split, head, row
-// tile) each: the tensor-core walk (bf16, head dim up to 256), the
+// tile) each: the tensor-core walk (bf16 or fp16, head dim up to 256), the
 // CUDA-core walk (fp32, up to 256) and the wide walk (d > 256, the head
 // dim in kWideChunk-channel chunks). csrc/paged_mma.cu and
 // csrc/paged_attention.cu run one item a block (blockIdx); the fused layer
@@ -20,14 +20,14 @@ constexpr int kWideRows = 8;     // ... rows of a group a block takes
 constexpr int kWideSmemBytes =
     (kWideRows * kWideChunk + kWideTP * (kWideChunk + 4)) * 4;
 
-// The fp32 q rows of the tile as two bf16 terms each, hi = round(q) and
-// lo = round(q - hi), into tile_rows rows of `ld` elements; columns [d,
-// cols) and the rows past `rows` are zeros (q was written earlier in the
-// fused layer's launch: read through L2). The loads go first and
+// The fp32 q rows of the tile as two terms of E (bf16 or fp16) each, hi =
+// round(q) and lo = round(q - hi), into tile_rows rows of `ld` elements;
+// columns [d, cols) and the rows past `rows` are zeros (q was written
+// earlier in the fused layer's launch: read through L2). The loads go first and
 // `between` runs before their values are used (the walk issues its first
 // K/V tiles there, so q does not queue behind them).
-template <int D, class Between>
-__device__ __forceinline__ void stage_q_split(bf16* hi, bf16* lo, int ld,
+template <int D, typename E, class Between>
+__device__ __forceinline__ void stage_q_split(E* hi, E* lo, int ld,
                                               const Args& a, const Walk& w,
                                               int cols, int tid,
                                               int nthreads,
@@ -57,11 +57,11 @@ __device__ __forceinline__ void stage_q_split(bf16* hi, bf16* lo, int ld,
     const float f[4] = {v.x, v.y, v.z, v.w};
     float rest[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) rest[e] = f[e] - round_to<bf16>(f[e]);
+    for (int e = 0; e < 4; ++e) rest[e] = f[e] - round_to<E>(f[e]);
     *reinterpret_cast<uint2*>(hi + r * ld + c) =
-        make_uint2(pack2<bf16>(f[0], f[1]), pack2<bf16>(f[2], f[3]));
+        make_uint2(pack2<E>(f[0], f[1]), pack2<E>(f[2], f[3]));
     *reinterpret_cast<uint2*>(lo + r * ld + c) = make_uint2(
-        pack2<bf16>(rest[0], rest[1]), pack2<bf16>(rest[2], rest[3]));
+        pack2<E>(rest[0], rest[1]), pack2<E>(rest[2], rest[3]));
   }
   for (int u = tid + kPer * nthreads; u < kMaxRows * chunks; u += nthreads) {
     const int r = u / chunks, c = (u % chunks) * 4;
@@ -72,21 +72,22 @@ __device__ __forceinline__ void stage_q_split(bf16* hi, bf16* lo, int ld,
     const float f[4] = {v.x, v.y, v.z, v.w};
     float rest[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) rest[e] = f[e] - round_to<bf16>(f[e]);
+    for (int e = 0; e < 4; ++e) rest[e] = f[e] - round_to<E>(f[e]);
     *reinterpret_cast<uint2*>(hi + r * ld + c) =
-        make_uint2(pack2<bf16>(f[0], f[1]), pack2<bf16>(f[2], f[3]));
+        make_uint2(pack2<E>(f[0], f[1]), pack2<E>(f[2], f[3]));
     *reinterpret_cast<uint2*>(lo + r * ld + c) = make_uint2(
-        pack2<bf16>(rest[0], rest[1]), pack2<bf16>(rest[2], rest[3]));
+        pack2<E>(rest[0], rest[1]), pack2<E>(rest[2], rest[3]));
   }
 }
 
-// The tensor-core walk of one item (bf16 pools and tiles). QSPLIT: q is
-// fp32 (the fused layer keeps it unrounded) and enters S = Q K^T as two
-// bf16 terms, hi = round(q) and lo = round(q - hi), like p in P V; else q
-// is bf16 and copied as it is. NS: stages of the K/V ring (the layout's
-// `ring`). Every thread of the block calls it (128 or 256 threads); the
-// caller separates two items by a barrier.
-template <int D, int MODE, bool QSPLIT, int NS = 2>
+// The tensor-core walk of one item, tiles of E (bf16 or fp16: the model
+// type; mma.sync .bf16 or .f16). QSPLIT: q is fp32 (the fused layer keeps
+// it unrounded) and enters S = Q K^T as two E terms, hi = round(q) and lo =
+// round(q - hi), like p in P V; else q is E and copied as it is. NS:
+// stages of the K/V ring (the layout's `ring`). Every thread of the block
+// calls it (128 or 256 threads); the caller separates two items by a
+// barrier.
+template <int D, int MODE, bool QSPLIT, int NS = 2, typename E = bf16>
 __device__ __forceinline__ void mma_walk(const Args& a, const Layout& L,
                                          uint3 item, unsigned char* smem) {
   constexpr int S = kStride<D>, TP = kB, ND = D / 8;
@@ -99,10 +100,10 @@ __device__ __forceinline__ void mma_walk(const Args& a, const Layout& L,
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int d16 = (a.d + 15) & ~15;
 
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* sQlo = sQ + kMaxRows * S;  // QSPLIT only
-  bf16* sK = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L.v);
+  E* sQ = reinterpret_cast<E*>(smem + L.q);
+  E* sQlo = sQ + kMaxRows * S;  // QSPLIT only
+  E* sK = reinterpret_cast<E*>(smem + L.k);
+  E* sV = reinterpret_cast<E*>(smem + L.v);
   unsigned char* raw_k = smem + L.raw_k;
   unsigned char* raw_v = smem + L.raw_v;
   unsigned char* sc_k = smem + L.sc_k;
@@ -157,8 +158,8 @@ __device__ __forceinline__ void mma_walk(const Args& a, const Layout& L,
     cp_async_wait<NS - 1>();  // this tile (and q) have landed
     __syncthreads();
     const int t0 = w.t_begin + kt * TP;
-    const bf16* cK = sK;
-    const bf16* cV = sV;
+    const E* cK = sK;
+    const E* cV = sV;
     if constexpr (MODE == 0) {
       cK += (kt % NS) * TP * S;
       cV += (kt % NS) * TP * S;
@@ -187,12 +188,12 @@ __device__ __forceinline__ void mma_walk(const Args& a, const Layout& L,
         uint32_t af[4], b[4];
         load_a<D>(af, sQ, half * 16, c, lane);
         load_bt<D>(b, cK, slice * 16, c, lane);
-        mma16<bf16>(s[0], af, b[0], b[1]);
-        mma16<bf16>(s[1], af, b[2], b[3]);
+        mma16<E>(s[0], af, b[0], b[1]);
+        mma16<E>(s[1], af, b[2], b[3]);
         if constexpr (QSPLIT) {
           load_a<D>(af, sQlo, half * 16, c, lane);
-          mma16<bf16>(s[0], af, b[0], b[1]);
-          mma16<bf16>(s[1], af, b[2], b[3]);
+          mma16<E>(s[0], af, b[0], b[1]);
+          mma16<E>(s[1], af, b[2], b[3]);
         }
       }
     }
@@ -235,7 +236,7 @@ __device__ __forceinline__ void mma_walk(const Args& a, const Layout& L,
       acc[j][2] *= corr[1];
       acc[j][3] *= corr[1];
     }
-    // O += P V over the same 16 positions, p as two bf16 terms: hi =
+    // O += P V over the same 16 positions, p as two E terms: hi =
     // round(p), lo = round(p - hi) (p - hi is exact), so the products keep
     // about 16 bits of p
     float lo[2][4];
@@ -243,19 +244,19 @@ __device__ __forceinline__ void mma_walk(const Args& a, const Layout& L,
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        lo[j][e] = s[j][e] - round_to<bf16>(s[j][e]);
+        lo[j][e] = s[j][e] - round_to<E>(s[j][e]);
     uint32_t pa[4], pb[4];
-    acc_to_a<2>(pa, s, 0);
-    acc_to_a<2>(pb, lo, 0);
+    acc_to_a<2, E>(pa, s, 0);
+    acc_to_a<2, E>(pb, lo, 0);
 #pragma unroll
     for (int c = 0; c < ND; c += 2) {
       if (c * 8 < d16) {
         uint32_t b[4];
         load_b<D>(b, cV, slice * 16, c * 8, lane);
-        mma16<bf16>(acc[c], pa, b[0], b[1]);
-        mma16<bf16>(acc[c + 1], pa, b[2], b[3]);
-        mma16<bf16>(acc[c], pb, b[0], b[1]);
-        mma16<bf16>(acc[c + 1], pb, b[2], b[3]);
+        mma16<E>(acc[c], pa, b[0], b[1]);
+        mma16<E>(acc[c + 1], pa, b[2], b[3]);
+        mma16<E>(acc[c], pb, b[0], b[1]);
+        mma16<E>(acc[c + 1], pb, b[2], b[3]);
       }
     }
   }

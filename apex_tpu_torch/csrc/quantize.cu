@@ -9,7 +9,10 @@
 //   * `_dequant_kernel` (`_dequantize_pallas`, pallas_call at :226), from
 //     int8 codes or packed nibbles (JAX unpacks them before its call).
 //
-// Math, exactly the JAX kernels' (fp32): a flat buffer is cut into rows of
+// Math, exactly the JAX kernels' (fp32; a bf16 or fp16 x is read in its own
+// type and upcast in registers, exactly, as JAX's kernel upcasts it, so
+// its codes and scales are the fp32 path's on the same values): a flat
+// buffer is cut into rows of
 // B elements (one codec block each); scale = amax * fp32(1 / qmax) over
 // the row's |x| (1 where amax is 0: XLA turns JAX's division by the
 // constant qmax into this product, bit for bit its interpret-mode
@@ -29,10 +32,11 @@
 //
 // Bound on this card: device memory. Quantize reads x once and writes n
 // codes (n / 2 bytes packed) and n / B scales; dequantize reads n (n / 2)
-// + 4n / B bytes and writes 4n. From bf16 a stochastic element's ~28
-// instructions (10 of them the hash) come close to the issue rate, so the
-// element's arithmetic avoids the division, conversion and
-// special-function units, and a bf16 row's amax takes |x| two at a time:
+// + 4n / B bytes and writes 4n. From a half type a stochastic element's
+// ~28 instructions (10 of them the hash) come close to the issue rate, so
+// the element's arithmetic avoids the division, conversion and
+// special-function units, and a bf16 or fp16 row's amax takes |x| two at a
+// time (__hmax2 on bf16 or half pairs, exact):
 //   * y: one correctly rounded reciprocal r of the scale a row, then q0 =
 //     x * r, e = fma(-q0, scale, x) (exact), y = fma(e, r, q0): the
 //     correction step of the card's own IEEE division, which returns the
@@ -104,10 +108,31 @@ template <typename T>
 __device__ __forceinline__ float element(const uint4& v, int e) {
   if constexpr (sizeof(T) == 4) {
     return __uint_as_float(word(v, e));
+  } else if constexpr (std::is_same_v<T, __half>) {
+    const uint32_t w = word(v, e / 2);
+    return __half2float(
+        __ushort_as_half(static_cast<unsigned short>(e % 2 ? w >> 16 : w)));
   } else {
     const uint32_t w = word(v, e / 2);
     return __uint_as_float(e % 2 ? w & 0xFFFF0000u : w << 16);
   }
+}
+
+// the largest |x| of a lane's kVecs vectors of a half type, |x| two at a
+// time in pairs of T2 (__nv_bfloat162 or __half2), exactly (a NaN loses to
+// the other operand of __hmax2, as in fmaxf)
+template <typename T2>
+__device__ __forceinline__ float half_amax(const uint4* vecs) {
+  const uint32_t zero = 0u;  // +0 in both halves
+  T2 pair = *reinterpret_cast<const T2*>(&zero);
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j)
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const uint32_t a = word(vecs[j], w) & 0x7FFF7FFFu;
+      pair = __hmax2(pair, *reinterpret_cast<const T2*>(&a));
+    }
+  return fmaxf(__low2float(pair), __high2float(pair));
 }
 
 // The code of y in kMagic's domain (the float kMagic + code): the low byte
@@ -185,17 +210,10 @@ __global__ void __launch_bounds__(kCta)
     float amax = 0.f;
     for (int c = 0; c < chunks; ++c) {
       if (Chunked) load(row, c, cur);
-      if constexpr (N == 8) {  // bf16: |x| two at a time, exactly
-        __nv_bfloat162 pair = __floats2bfloat162_rn(0.f, 0.f);
-#pragma unroll
-        for (int j = 0; j < kVecs; ++j)
-#pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            const uint32_t a = word(cur[j], w) & 0x7FFF7FFFu;
-            pair =
-                __hmax2(pair, *reinterpret_cast<const __nv_bfloat162*>(&a));
-          }
-        amax = fmaxf(amax, fmaxf(__low2float(pair), __high2float(pair)));
+      if constexpr (std::is_same_v<T, __half>) {  // |x| two at a time
+        amax = fmaxf(amax, half_amax<__half2>(cur));
+      } else if constexpr (N == 8) {
+        amax = fmaxf(amax, half_amax<__nv_bfloat162>(cur));
       } else {
 #pragma unroll
         for (int j = 0; j < kVecs; ++j)
@@ -400,8 +418,9 @@ int pick_mode(const void* x, void* q, void* scales, long rows, int block,
 
 }  // namespace
 
-// On CUDA device `device`, on `stream`: x (rows * block,) contiguous, fp32
-// or bf16 (is_bf16), 16-byte aligned, block % 128 == 0 (so even); q (rows
+// On CUDA device `device`, on `stream`: x (rows * block,) contiguous, of
+// the type `dtype` names (common.cuh's code: 0 fp32, 1 bf16, 2 fp16),
+// 16-byte aligned, block % 128 == 0 (so even); q (rows
 // * block,) int8 codes, or with `packed` (rows * block / 2,) bytes of
 // nibble pairs (qmax <= 7); scales (rows,) fp32. `key` is fmix32(seed),
 // read only when `stochastic` != 0. Geometry as `_quant_plan` gives it:
@@ -411,7 +430,7 @@ int pick_mode(const void* x, void* q, void* scales, long rows, int block,
 extern "C" int quantize_blockwise(int device, const void* x, void* q,
                                   void* scales, long long rows, int block,
                                   float qmax, int stochastic, unsigned key,
-                                  int is_bf16, int packed, int team,
+                                  int dtype, int packed, int team,
                                   int resident, void* stream) {
   if (rows < 0 || block <= 0 || block % 128 || (packed && qmax > 7.f) ||
       team < 1 || team > 32 || (team & (team - 1)))
@@ -420,12 +439,12 @@ extern "C" int quantize_blockwise(int device, const void* x, void* q,
   if (set != cudaSuccess) return static_cast<int>(set);
   if (rows == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return pick_mode<__nv_bfloat16>(x, q, scales, rows, block, team,
-                                    resident, qmax, stochastic, packed, key,
-                                    device, s);
-  return pick_mode<float>(x, q, scales, rows, block, team, resident, qmax,
-                          stochastic, packed, key, device, s);
+  APEX_TYPE_SWITCH(dtype, T,
+                   return static_cast<int>(cudaErrorInvalidValue),
+                   return pick_mode<T>(x, q, scales, rows, block, team,
+                                       resident, qmax, stochastic, packed,
+                                       key, device, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // q: n int8 codes, or with `packed` n / 2 bytes of nibble pairs, 16-byte

@@ -7,11 +7,11 @@ Two halves:
   version (gather through the block tables, dequantizing int8/int4 pools,
   then ``attention_reference`` with a ``kpos >= ctx`` mask; ctx == 0 rows
   are zeros, as in the kernels), and :func:`paged_attention_fwd`, the
-  wrapper of the CUDA kernels. :func:`_paged_route` picks them: bf16 on
-  the tensor cores (``csrc/paged_mma.cu``, counted as ``paged_mma_fwd``),
-  fp32 on the CUDA cores (``csrc/paged_attention.cu``,
+  wrapper of the CUDA kernels. :func:`_paged_route` picks them: bf16 and
+  fp16 on the tensor cores (``csrc/paged_mma.cu``, counted as
+  ``paged_mma_fwd``), fp32 on the CUDA cores (``csrc/paged_attention.cu``,
   ``paged_attention_fwd``), each at every head_dim % 8 == 0 up to
-  :data:`PAGED_NARROW_HEAD_DIM`; above it both types take the CUDA-core
+  :data:`PAGED_NARROW_HEAD_DIM`; above it every type takes the CUDA-core
   wide walk (``paged_wide_fwd``, the head dim in chunks), so every
   head_dim % 8 == 0 runs on the card. All walk the context in splits of a
   length :func:`_paged_splits` takes from the block table's capacity
@@ -66,10 +66,11 @@ _log = logging.getLogger("apex_tpu_torch.serve")
 
 _ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
          + [ctypes.c_float, ctypes.c_void_p])
-# the wide walk takes q's type too (1: bf16), before the stream
-_WIDE_ARGS = _ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p]
-_SIGNATURES = {"paged_attention_fwd": _ARGS, "paged_wide_fwd": _WIDE_ARGS}
-_MMA_SIGNATURES = {"paged_mma_fwd": _ARGS}
+# the tensor-core and wide walks take q's type code too (ku.dtype_code),
+# before the stream
+_TYPED_ARGS = _ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p]
+_SIGNATURES = {"paged_attention_fwd": _ARGS, "paged_wide_fwd": _TYPED_ARGS}
+_MMA_SIGNATURES = {"paged_mma_fwd": _TYPED_ARGS}
 # entry -> (csrc/<source>.cu, its ctypes table)
 _ROUTES = {"paged_mma_fwd": ("paged_mma", _MMA_SIGNATURES),
            "paged_attention_fwd": ("paged_attention", _SIGNATURES),
@@ -151,19 +152,21 @@ def check_pools(what: str, cache_layer, cfg: KVCacheConfig, device,
 def _paged_route(dtype, d: int) -> str:
     """The kernel entry that runs paged attention for ``dtype`` queries of
     head dim ``d`` on the card, every d % 8 == 0: up to
-    :data:`PAGED_NARROW_HEAD_DIM`, ``paged_mma_fwd`` (bf16, tensor cores)
-    or ``paged_attention_fwd`` (fp32, CUDA cores: the tensor cores would
-    take fp32 as TF32); above it ``paged_wide_fwd`` for both (CUDA cores,
-    the head dim in chunks). d % 8 != 0 raises (:func:`paged_attention`
-    sends it to the plain version before it gets here)."""
-    ku.require(dtype in (torch.float32, torch.bfloat16),
-               f"paged attention takes fp32 or bf16 queries, got {dtype}")
+    :data:`PAGED_NARROW_HEAD_DIM`, ``paged_mma_fwd`` (bf16 or fp16, tensor
+    cores) or ``paged_attention_fwd`` (fp32, CUDA cores: the tensor cores
+    would take fp32 as TF32); above it ``paged_wide_fwd`` for all three
+    (CUDA cores, the head dim in chunks). d % 8 != 0 raises
+    (:func:`paged_attention` sends it to the plain version before it gets
+    here)."""
+    ku.require(dtype in ku.KERNEL_DTYPES,
+               f"paged attention takes fp32, bf16 or fp16 queries, got "
+               f"{dtype}")
     ku.require(d > 0 and d % 8 == 0,
                f"paged attention: head_dim {d} is not a multiple of 8 (the "
                f"kernels take d % 8 == 0, as JAX's gate)")
     if d > PAGED_NARROW_HEAD_DIM:
         return "paged_wide_fwd"
-    return "paged_mma_fwd" if dtype == torch.bfloat16 else \
+    return "paged_mma_fwd" if dtype in ku.HALF_DTYPES else \
         "paged_attention_fwd"
 
 
@@ -256,9 +259,10 @@ def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
                         ctx_lens, scale: float, *, rows_per_table: int = 1):
     """Launch the paged-attention kernel :func:`_paged_route` picks on
     CUDA tensors (and the merge of its splits; one count under the entry's
-    name). ``q`` (n, H, D) contiguous, fp32 or bf16; one layer's pools as
-    ``cfg`` lays them out (full-precision pools in q's dtype; int8 codes +
-    fp32 scales; int4 nibble pairs + bf16 group scales); ``block_tables``
+    name). ``q`` (n, H, D) contiguous, fp32, bf16 or fp16; one layer's
+    pools as ``cfg`` lays them out (full-precision pools in q's dtype; int8
+    codes + fp32 scales; int4 nibble pairs + bf16 group scales, also for an
+    fp16 model, as JAX's pools keep them); ``block_tables``
     (n, max_blocks) and ``ctx_lens`` (n,) integer. The rows [i·g, (i+1)·g)
     of a group (g = ``rows_per_table``, n % g == 0) share block-table row
     i·g, which the kernel reads for all of them (the other rows of the
@@ -295,7 +299,7 @@ def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
                        device=q.device)
     kp, vp = cache_layer["k"], cache_layer["v"]
     ks, vs = cache_layer.get("k_scale"), cache_layer.get("v_scale")
-    wide = (int(q.dtype == torch.bfloat16),) if entry == "paged_wide_fwd" \
+    typed = (ku.dtype_code(q.dtype),) if entry != "paged_attention_fwd" \
         else ()
     lib = ku.load_kernel(source, table)
     status = getattr(lib, entry)(
@@ -305,7 +309,7 @@ def paged_attention_fwd(q, cache_layer, cfg: KVCacheConfig, block_tables,
         lens.data_ptr(), out.data_ptr(), part.data_ptr(), n, h, d,
         kp.shape[1], cfg.block_size, bt.shape[1], kv_mode(cfg),
         cfg.kv_group, rows_per_table, splits, split_len, float(scale),
-        *wide, ku.stream_handle(q))
+        *typed, ku.stream_handle(q))
     ku.count_launch(entry)
     ku.check_status(lib, status, entry)
     return out

@@ -26,8 +26,8 @@ grid; see its header for the design):
   the model and divisible by 8: every such head dim, any number of slots
   and fed rows) and, where the kernel itself must run
   (``allow_interpret=False``: a CUDA device), the Hopper kernel's limits
-  in place of the TPU's VMEM budget: fp32 or bf16, and its shared memory
-  (:func:`kernel_smem_bytes`, reported in bytes) within
+  in place of the TPU's VMEM budget: fp32, bf16 or fp16, and its shared
+  memory (:func:`kernel_smem_bytes`, reported in bytes) within
   :data:`SMEM_LIMIT_BYTES`. Every shape it admits launches.
   :func:`warn_megakernel_fallback` logs an ``auto`` fallback once per
   reason.
@@ -37,8 +37,9 @@ one cooperative launch a layer, one 256-thread block an SM, phases
 qkv | (int8 / int4 codec) | attention | merge | out | fc1 | fc2 between 5
 (6) grid syncs. Each GEMM item is 16 output columns over K (fc2, whose K
 is wide, in ordered K splits added by the last to arrive), its weights
-streamed through a cp.async ring in shared memory; bf16 products on the
-tensor cores (mma.sync, the weight's columns on M and the fed rows on N),
+streamed through a cp.async ring in shared memory; bf16 and fp16 products
+on the tensor cores (mma.sync, the weight's columns on M and the fed rows
+on N),
 fp32 on the CUDA cores; LN1 and LN2 are computed by every block for the
 rows it stages. Attention is the per-op path's split walk
 (``csrc/paged_split.cuh``, ``paged_walks.cuh``) over :func:`_fused_splits`
@@ -81,12 +82,13 @@ from apex_tpu_torch.serve.kv_cache import KVCacheConfig, paged_write
 Params = Dict[str, Any]
 
 # the Hopper kernel's limits (csrc/megakernel.cu)
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_DTYPES = ku.KERNEL_DTYPES
 SMEM_LIMIT_BYTES = 229376      # dynamic shared memory a launch takes
 _WARPS, _NT = 8, 16
 # per type: (k of a ring stage, stages, row padding, fewest and most rows
 # of a chunk); csrc/megakernel.cu `Gemm<T>`
 _GEMM = {torch.bfloat16: (128, 12, 8, 16, 64),
+         torch.float16: (128, 12, 8, 16, 64),
          torch.float32: (128, 6, 4, 8, 64)}
 # 64-position tiles of a fused attention split, at least (the per-op
 # kernels' two make more, shorter items; the fused layer's blocks walk
@@ -160,7 +162,7 @@ def _gemm_smem_bytes(kw: int, k: int, rows: int, ln: bool, raw: int,
     """Bytes of a GEMM phase staging ``kw`` columns of ``rows`` rows
     (``gemm_smem``): the rows, the weight ring, the warps' sums, the LN
     weights (``ln``), the rows' pool tokens, and ``raw`` raw fp32 rows (an
-    LN of fp32 rows into bf16: at least one)."""
+    LN of fp32 rows into a half type: at least one)."""
     kc, stages, apad, _, _ = _GEMM[dtype]
     esz = torch.empty((), dtype=dtype).element_size()
     lnw = (rows * (kw + apad) * esz + stages * kc * _NT * esz
@@ -185,7 +187,7 @@ def kernel_smem_bytes(hidden: int, head_dim: int, ffn: int, dtype,
     ring = 4 if db <= 128 else 2        # kWalkRing
     if db == 0:
         att = (8 * 128 + 32 * (128 + 4)) * 4
-    elif dtype == torch.bfloat16:   # q as two bf16 terms hi + lo
+    elif dtype in ku.HALF_DTYPES:   # q as two half terms hi + lo
         att = _walk_layout_bytes(2 * 32 * (db + 8) * 2, PAGED_TILE * (db + 8)
                                  * 2, PAGED_TILE, mode, code, scale, ring)
     else:
@@ -195,7 +197,7 @@ def kernel_smem_bytes(hidden: int, head_dim: int, ffn: int, dtype,
     rows = _GEMM[dtype][3]
     return max(need,
                _gemm_smem_bytes(_gemm_kw(hidden, False, dtype), hidden, rows,
-                                True, int(dtype == torch.bfloat16), dtype),
+                                True, int(dtype in ku.HALF_DTYPES), dtype),
                _gemm_smem_bytes(_gemm_kw(hidden, True, dtype), hidden, rows,
                                 False, 0, dtype),
                _gemm_smem_bytes(_gemm_kw(ffn, True, dtype), ffn, rows, False,
@@ -228,8 +230,9 @@ def megakernel_refusal(cfg, kv_cfg: KVCacheConfig,
         return ("no CUDA device (the plain version stands in for the "
                 "kernel and saves no dispatch)")
     if cfg.dtype not in KERNEL_DTYPES or kv_cfg.dtype != cfg.dtype:
-        return (f"the Hopper kernel takes fp32 or bf16 models with pools "
-                f"in the model dtype, got {cfg.dtype} / {kv_cfg.dtype}")
+        return (f"the Hopper kernel takes fp32, bf16 or fp16 models with "
+                f"pools in the model dtype, got {cfg.dtype} / "
+                f"{kv_cfg.dtype}")
     if cfg.ffn_hidden % 8:
         return (f"ffn_hidden {cfg.ffn_hidden} is not a multiple of 8 (the "
                 f"Hopper kernel's 16-byte rows)")
@@ -383,7 +386,7 @@ def fused_layer_fwd(x, layer_params, cache_layer, cfg,
     v_out = torch.empty_like(k_out)
     scratch = torch.empty(
         lib.fused_layer_scratch_bytes(n * q, h, f, heads, d, splits, q,
-                                      int(dt == torch.bfloat16)),
+                                      ku.dtype_code(dt)),
         dtype=torch.uint8, device=dev)
     pools = [cache_layer.get(k) for k in ("k", "v", "k_scale", "v_scale")]
     lp = [layer_params[k] for k in shapes]
@@ -396,8 +399,7 @@ def fused_layer_fwd(x, layer_params, cache_layer, cfg,
         scratch.data_ptr(), n, q, h, heads, d, f, pools[0].shape[1],
         kv_cfg.block_size, bt.shape[1], kv_mode(kv_cfg), kv_cfg.kv_group,
         splits, split_len, 1.0 / math.sqrt(d), _EPS,
-        int(dt == torch.bfloat16),
-        ku.stream_handle(x))
+        ku.dtype_code(dt), ku.stream_handle(x))
     ku.count_launch("megakernel")
     ku.check_status(lib, status, "fused_layer_fwd")
     return x_out, k_out, v_out

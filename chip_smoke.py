@@ -290,6 +290,7 @@ import argparse
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -571,14 +572,33 @@ def varlen_mma_kernel_info(ku, built):
         for key in ("fwd", "dq", "dkv")}), bf16)
 
 
+def check_half_operands(what, counts, bf16):
+    """Every instantiation of ``counts`` (from :func:`sass_hmma_counts`)
+    named for a half type issues tensor-core instructions of that type:
+    a bf16 one all with the ``.BF16`` operand type, an fp16 one (f16
+    ``mma.sync``) none. Raises otherwise."""
+    bad = {k: (v, bf16.get(k, 0)) for k, v in counts.items()
+           if ("f16" in k and "bf16" not in k and bf16.get(k, 0))
+           or ("bf16" in k and bf16.get(k, 0) != v)}
+    if bad:
+        raise AssertionError(f"{what}: tensor-core operand types wrong "
+                             f"(HMMA, of which .BF16): {bad}")
+
+
 def paged_mma_kernel_info(ku, built):
-    """The tensor-core paged attention (``csrc/paged_mma.cu``, 12
-    instantiations: D 32-256 x full-precision, int8 and int4 pools)."""
+    """The tensor-core paged attention (``csrc/paged_mma.cu``, 24
+    instantiations: D 32-256 x full-precision, int8 and int4 pools x bf16
+    and fp16 tiles): each with tensor-core instructions, a bf16 one's all
+    ``.BF16``, an fp16 one's none (f16 HMMA)."""
+    bf16 = {}
     counts = sass_hmma_counts(
-        ku, "paged_mma", r"(paged_mma_kernel)ILi(\d+)ELi(\d+)E",
-        lambda m: f"{m.group(1)}[{m.group(2)}, {m.group(3)}]")
-    return tensor_core_info(ku, built, "paged_mma", counts, {
-        "fwd": ("paged_mma_kernel", 12, "paged_mma_kernel")})
+        ku, "paged_mma",
+        r"(paged_mma_kernel)ILi(\d+)ELi(\d+)E" + HALF_MANGLED,
+        lambda m: f"{m.group(1)}[{_type_name(m.group(4))}, {m.group(2)}, "
+                  f"{m.group(3)}]", bf16)
+    check_half_operands("paged_mma_kernel", counts, bf16)
+    return half_types(tensor_core_info(ku, built, "paged_mma", counts, {
+        "fwd": ("paged_mma_kernel", 24, "paged_mma_kernel")}), bf16)
 
 
 def _type_name(mangled: str) -> str:
@@ -588,32 +608,37 @@ def _type_name(mangled: str) -> str:
 
 
 def megakernel_kernel_info(ku, built):
-    """The fused layer (``csrc/megakernel.cu``, 24 instantiations: fp32
-    and bf16 x full-precision, int8 and int4 pools x the attention walk's
-    head-dim buckets 64, 128, 256 and the wide walk, and its GEMM routine,
-    not inlined, one a type): the ptxas lines and the tensor-core
-    instructions of each. The bf16 GEMM and every bf16 walk below 256 must
-    have some (where the routine is listed inside each kernel, every bf16
-    kernel must); nothing fp32 any (no TF32)."""
+    """The fused layer (``csrc/megakernel.cu``, 36 instantiations: fp32,
+    bf16 and fp16 x full-precision, int8 and int4 pools x the attention
+    walk's head-dim buckets 64, 128, 256 and the wide walk, and its GEMM
+    routine, not inlined, one a type): the ptxas lines and the tensor-core
+    instructions of each. The half GEMMs and every half walk below 256
+    must have some (where the routine is listed inside each kernel, every
+    half kernel must), a bf16 one's all ``.BF16``, an fp16 one's none (f16
+    HMMA); nothing fp32 any (no TF32)."""
+    bf16 = {}
     counts = sass_hmma_counts(
         ku, "megakernel",
-        r"(?:fused_layer_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)E"
-        r"|(gemm)I(13__nv_bfloat16|f)E)",
+        r"(?:fused_layer_kernelI" + HALF_MANGLED[:-1] + r"|f)Li(\d)ELi(\d+)E"
+        r"|(gemm)I" + HALF_MANGLED[:-1] + r"|f)E)",
         lambda m: (f"fused_layer_kernel[{_type_name(m.group(1))}, "
                    f"{m.group(2)}, {m.group(3)}]" if m.group(4) is None
-                   else f"gemm[{_type_name(m.group(5))}]"))
+                   else f"gemm[{_type_name(m.group(5))}]"), bf16)
     kern = {k: v for k, v in counts.items() if k.startswith("fused")}
     gemm = {k: v for k, v in counts.items() if k.startswith("gemm")}
-    bf = {k: v for k, v in kern.items() if "bf16" in k}
-    ok = (len(kern) == 24 and not any(v for k, v in counts.items()
-                                      if "f32" in k)
-          and all(v for k, v in bf.items() if not k.endswith(", 0]"))
-          and (all(bf.values()) or gemm.get("gemm[bf16]", 0) > 0))
+    ok = len(kern) == 36 and not any(v for k, v in counts.items()
+                                     if "f32" in k)
+    for t in ("bf16", "f16"):
+        half = {k: v for k, v in kern.items() if f"[{t}," in k}
+        ok = ok and all(v for k, v in half.items()
+                        if not k.endswith(", 0]")) and (
+            all(half.values()) or gemm.get(f"gemm[{t}]", 0) > 0)
     if not ok:
         raise AssertionError(f"fused_layer_kernel: tensor-core instructions "
                              f"per instantiation {counts}")
+    check_half_operands("fused_layer_kernel", counts, bf16)
     log = built.get("megakernel", {}).get("log", "")
-    return {"sass_hmma": counts, "ptxas": [
+    return {"sass_hmma": counts, "hmma_bf16_operands": bf16, "ptxas": [
         f"{k}: {line}" for k, line in ptxas_lines(log)
         if k.startswith("fused_layer_kernel")]}
 
@@ -785,7 +810,7 @@ def paged_draws():
     mb = SERVE_CTX // SERVE_BS
     rng = np.random.default_rng(0)
     out = {}
-    for dname in ("float32", "bfloat16"):
+    for dname in ("float32", "bfloat16", "float16"):
         for n in (8, 32):
             ctx = rng.integers(1, SERVE_CTX + 1, n)
             ctx[0] = 0
@@ -851,16 +876,17 @@ def paged_case(torch, dev, dt, mode, kind, hd=SERVE_HD, rows=None):
 
 def paged_attention_phase(torch, dev):
     """Paged attention against its plain version on its route
-    (``_paged_route``: bf16 ``paged_mma_fwd`` on the tensor cores, fp32
-    ``paged_attention_fwd``), fp32 and bf16 q, full-precision / int8 /
+    (``_paged_route``: bf16 and fp16 ``paged_mma_fwd`` on the tensor
+    cores, fp32 ``paged_attention_fwd``), fp32, bf16 and fp16 q (fp16
+    since C6, held to the bf16 gates), full-precision / int8 /
     int4 pools, at the serve programs' calls (``PAGED_KINDS``: decode at 8
     rows, and 32 for full-precision pools; verify 8 x 5; a prefill chunk 1
     x 32, ``rows_per_table`` as ``paged_layer_stack`` passes it), timed
     beside the plain version and SDPA (one call over each slot's K/V,
     gathered and dequantized beforehand, a per-row context mask); checked
     and timed (verify) at every PAGED_HEAD_DIMS, up to 256 on the route
-    of the query's type, above it the wide walk (``paged_wide_fwd``, both
-    types); the same rows launched as groups of 32, 5 and 1 bitwise
+    of the query's type, above it the wide walk (``paged_wide_fwd``, every
+    type); the same rows launched as groups of 32, 5 and 1 bitwise
     equal, and repeats bitwise, at head_dim 64 and 512.
     Tolerances: fp32 (2e-5, 1e-4); bf16 (1e-3, 8e-3) with full-precision
     pools and (1e-2, 8e-3) with quantized ones (the plain version
@@ -875,8 +901,10 @@ def paged_attention_phase(torch, dev):
                                              paged_attention_reference)
     from apex_tpu_torch.serve.kv_cache import _elem_bytes, gather_kv
 
-    tol = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 8e-3)}
-    quant_tol = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 8e-3)}
+    tol = {"float32": (2e-5, 1e-4), "bfloat16": (1e-3, 8e-3),
+           "float16": (1e-3, 8e-3)}
+    quant_tol = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 8e-3),
+                 "float16": (1e-2, 8e-3)}
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     out = {"cases": [], "head_dims": [], "bitwise": []}
 
@@ -934,7 +962,7 @@ def paged_attention_phase(torch, dev):
             bound_ms=bms, bound_by=by)
         return rec
 
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         dname = str(dt).split(".")[1]
         for kind, mode, rows in (
                 ("decode", "none", 8), ("decode", "none", 32),
@@ -949,7 +977,11 @@ def paged_attention_phase(torch, dev):
         for hd in PAGED_HEAD_DIMS:
             for mode in ("none", "int8", "int4"):
                 rec, args = check("paged attention", dt, mode, "verify", hd)
-                out["head_dims"].append(timed(rec, args, iters=10))
+                # fp16 (C6): every head dim checked, the wide walk's d320
+                # timed
+                if dt != torch.float16 or (hd, mode) == (320, "none"):
+                    rec = timed(rec, args, iters=10)
+                out["head_dims"].append(rec)
                 del args
                 torch.cuda.empty_cache()
         # the same rows as groups of 32 (two slots' prefill chunks), of 5
@@ -1283,7 +1315,9 @@ CODEC_SEED = 1234
 
 def codec_phase(torch, dev, ku):
     """The codec kernels (B #16-18) vs their plain versions at
-    ``padded_size(124,475,904, 256·32)`` elements, fp32 and bf16, int8
+    ``padded_size(124,475,904, 256·32)`` elements, fp32, bf16 and fp16
+    (since C6: read in its own type, upcast in the kernel, its codes and
+    scales bitwise the fp32 path's on the same values), int8
     (block 256) and int4 (group 128, the nibbles packed and unpacked in
     the kernels), nearest and stochastic: codes and scales bitwise equal
     (the same IEEE quotient, rint and counter hash), the codes bitwise
@@ -1296,7 +1330,8 @@ def codec_phase(torch, dev, ku):
     stochastic, the launch counts reset just before and read just after
     (one quantize and one dequantize launch each), the round trip within
     half a step (nearest) or one step (stochastic) of x, finite; the
-    pair's device time."""
+    pair's device time; the same main path on the buffer in fp16 beside
+    it, each pair with its byte bound."""
     from apex_tpu_torch.comm import quantize as pq
 
     n = pq.padded_size(CODEC_GRAD_ELEMS, 256 * pq._ROWS_PER_STEP)
@@ -1305,7 +1340,7 @@ def codec_phase(torch, dev, ku):
     public = {8: (pq.quantize_blockwise, pq.dequantize_blockwise),
               4: (pq.quantize_blockwise_int4, pq.dequantize_blockwise_int4)}
     cases = []
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         dname = str(dt).split(".")[1]
         x = base.to(dt)
         for bits, block in ((8, 256), (4, 128)):
@@ -1329,6 +1364,13 @@ def codec_phase(torch, dev, ku):
                 if not torch.equal(q, pq.quantize_blocks(x2d, qmax, seed,
                                                          packed)[0]):
                     raise AssertionError(f"{tag}: two launches differ")
+                if dt == torch.float16:
+                    q32, s32 = pq.quantize_blocks(x2d.float(), qmax, seed,
+                                                  packed)
+                    if not (torch.equal(q, q32) and torch.equal(s, s32)):
+                        raise AssertionError(f"{tag}: not the fp32 path's "
+                                             f"codes on the same values")
+                    del q32, s32
                 del q_p, s_p
                 case = {"dtype": dname, "bits": bits, "block": block,
                         "mode": mode, "packed": packed, "elements": n,
@@ -1368,40 +1410,50 @@ def codec_phase(torch, dev, ku):
                 cases.append(case)
                 del q, s
         del x, x2d
-    # the main path: the public entry points on the fp32 gradient buffer
+    # the main path: the public entry points on the fp32 gradient buffer;
+    # then on the buffer in fp16
     runs = []
-    for bits, block in ((8, 256), (4, 128)):
+    half = base.half()
+    for src, bits, block, stochastic in (
+            *((base, b, bl, st) for b, bl in ((8, 256), (4, 128))
+              for st in (False, True)),
+            *((half, b, bl, st) for b, bl in ((8, 256), (4, 128))
+              for st in (False, True))):
         quant, dequant = public[bits]
-        for stochastic in (False, True):
-            seed = CODEC_SEED if stochastic else None
-            ku.reset_launch_counts()
-            codes, scales = quant(base, block, stochastic, seed)
-            back = dequant(codes, scales, block)
-            torch.cuda.synchronize()
-            launches = ku.launch_counts()
-            mode = "stochastic" if stochastic else "nearest"
-            want = {f"quantize_blockwise[{mode}]": 1,
-                    "dequantize_blockwise": 1}
-            if launches != want:
-                raise AssertionError(f"codec int{bits} {mode}: launches "
-                                     f"{launches}, want {want}")
-            err = (back - base).view(-1, block).abs()
-            step = scales[:, None] * (1.0 if stochastic else 0.5)
-            # fp32 rounding of y and of q·scale: well under 1e-4 of a step
-            if not bool(back.isfinite().all()) or bool(
-                    (err > step * (1 + 1e-4)).any()):
-                raise AssertionError(f"codec int{bits} {mode}: round trip "
-                                     f"beyond {'one' if stochastic else 'half a'}"
-                                     f" step")
-            runs.append({"bits": bits, "block": block, "mode": mode,
-                         "elements": n, "launches": launches,
-                         "max_abs_err": float(err.max()),
-                         "max_err_in_steps": float((err / scales[:, None])
-                                                   .max())})
-            del codes, scales, back, err, step
-            runs[-1]["pair_ms"] = time_ms(torch, lambda: dequant(
-                *quant(base, block, stochastic, seed), block), iters=20)
-    del base
+        seed = CODEC_SEED if stochastic else None
+        ku.reset_launch_counts()
+        codes, scales = quant(src, block, stochastic, seed)
+        back = dequant(codes, scales, block)
+        torch.cuda.synchronize()
+        launches = ku.launch_counts()
+        mode = "stochastic" if stochastic else "nearest"
+        want = {f"quantize_blockwise[{mode}]": 1,
+                "dequantize_blockwise": 1}
+        if launches != want:
+            raise AssertionError(f"codec int{bits} {mode}: launches "
+                                 f"{launches}, want {want}")
+        err = (back - src.float()).view(-1, block).abs()
+        step = scales[:, None] * (1.0 if stochastic else 0.5)
+        # fp32 rounding of y and of q·scale: well under 1e-4 of a step
+        if not bool(back.isfinite().all()) or bool(
+                (err > step * (1 + 1e-4)).any()):
+            raise AssertionError(f"codec int{bits} {mode}: round trip "
+                                 f"beyond {'one' if stochastic else 'half a'}"
+                                 f" step")
+        runs.append({"dtype": str(src.dtype).split(".")[1],
+                     "bits": bits, "block": block, "mode": mode,
+                     "elements": n, "launches": launches,
+                     "max_abs_err": float(err.max()),
+                     "max_err_in_steps": float((err / scales[:, None])
+                                               .max())})
+        del codes, scales, back, err, step
+        runs[-1]["pair_ms"] = time_ms(torch, lambda: dequant(
+            *quant(src, block, stochastic, seed), block), iters=20)
+        code_bytes = n / 2 if bits == 4 else n
+        runs[-1].update(zip(("pair_bound_ms", "pair_bound_by"), bound_ms(
+            n * src.element_size() + 2 * (code_bytes + 4 * n / block)
+            + 4 * n, 4.0 * n, "float32")))
+    del base, half
     torch.cuda.empty_cache()
     return {"cases": cases, "runs": runs}
 
@@ -2528,8 +2580,11 @@ def adam_tail_phase(torch, dev):
 # step of one score); bf16 one rounding of x' and of its intermediates
 MEGA_TOL = {("float32", False): (1e-4, 1e-4), ("float32", True): (2e-3, 1e-3),
             ("bfloat16", False): (2e-2, 2 ** -6),
-            ("bfloat16", True): (2e-2, 2 ** -6)}
-MEGA_KV_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 2 ** -7)}
+            ("bfloat16", True): (2e-2, 2 ** -6),
+            ("float16", False): (2e-2, 2 ** -6),     # fp16: the bf16 gates
+            ("float16", True): (2e-2, 2 ** -6)}
+MEGA_KV_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 2 ** -7),
+               "float16": (1e-2, 2 ** -7)}
 # the fused layer's widths beside GPT-2-124M's: head_dim 80 (12 x 80) and
 # 320 (2 x 320), the engine phase's two other GPTs
 MEGA_WIDTHS = {64: {}, 80: dict(hidden=960, num_heads=12),
@@ -2539,22 +2594,24 @@ MEGA_WIDTHS = {64: {}, 80: dict(hidden=960, num_heads=12),
 def megakernel_cases():
     """The megakernel phase's cases (dtype name, pool format, call, fed
     rows a slot, head_dim, slots): GPT-2-124M decode (8 x 1) and verify
-    (8 x 5) in both types and every pool format; head_dim 80 and 320
-    decode and verify in both types (fp pools; bf16 verify with int8 and
-    int4 too); and a 32-slot verify call (32 x 5 = 160 rows, past one
-    64-row tile) in both types, bf16 with every pool format."""
+    (8 x 5) in the three types and every pool format; head_dim 80 and 320
+    decode and verify in the three types (fp pools; bf16 verify with int8
+    and int4 too); and a 32-slot verify call (32 x 5 = 160 rows, past one
+    64-row tile) in the three types, bf16 with every pool format."""
     out = []
-    for dname in ("float32", "bfloat16"):
+    types = ("float32", "bfloat16", "float16")
+    for dname in types:
         for mode in KV_MODES:
             for what, q in (("decode", 1), ("verify", 5)):
                 out.append((dname, mode, what, q, 64, 8))
     for hd in (80, 320):
-        for dname in ("float32", "bfloat16"):
+        for dname in types:
             for what, q in (("decode", 1), ("verify", 5)):
                 out.append((dname, "none", what, q, hd, 8))
         for mode in ("int8", "int4"):
             out.append(("bfloat16", mode, "verify", 5, hd, 8))
     out.append(("float32", "none", "verify", 5, 64, 32))
+    out.append(("float16", "none", "verify", 5, 64, 32))
     for mode in KV_MODES:
         out.append(("bfloat16", mode, "verify", 5, 64, 32))
     return out
@@ -2614,7 +2671,7 @@ def megakernel_bound(cfg, kv, start, active, q, dname):
 
     h, f, heads, hd = cfg.hidden, cfg.ffn_hidden, cfg.num_heads, cfg.head_dim
     cap = kv.num_blocks // start.shape[0] * kv.block_size
-    esz = 2 if dname == "bfloat16" else 4
+    esz = 4 if dname == "float32" else 2
     rows = start.shape[0] * q
     read_tok, written, att = 0, 0, 0
     for s, a in zip(start.tolist(), active.tolist()):
@@ -2633,9 +2690,10 @@ def megakernel_bound(cfg, kv, start, active, q, dname):
 
 def megakernel_phase(torch, dev):
     """The fused layer against its plain version at ``megakernel_cases()``
-    (GPT-2-124M decode (8 rows) and verify (8 x 5 rows), fp32 and bf16,
-    each pool format; head_dim 80 and 320; 32 x 5 = 160 rows): x', K and
-    V within MEGA_TOL / MEGA_KV_TOL; fp pools within MEGA_KV_TOL;
+    (GPT-2-124M decode (8 rows) and verify (8 x 5 rows), fp32, bf16 and
+    fp16 (since C6, held to the bf16 gates), each pool format; head_dim
+    80 and 320; 32 x 5 = 160 rows): x', K and V within MEGA_TOL /
+    MEGA_KV_TOL; fp pools within MEGA_KV_TOL;
     int8/int4 codes and scales equal to the plain codec's write of the
     kernel's own K/V (the count that differ, which must be 0); two
     launches bitwise equal (x', K, V, pools); slot 2 launched alone (and,
@@ -2657,7 +2715,8 @@ def megakernel_phase(torch, dev):
 
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     lib = ku.load_kernel("megakernel", mk._SIGNATURES)
-    dt_of = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dt_of = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "float16": torch.float16}
     cases = []
     for dname, mode, what, q, hd, n in megakernel_cases():
         dt = dt_of[dname]
@@ -2665,7 +2724,7 @@ def megakernel_phase(torch, dev):
             megakernel_case(torch, dev, dt, mode, q, hd, n)
         smem = lib.fused_layer_smem_bytes(cfg.hidden, hd, cfg.ffn_hidden,
                                           kv_mode(kv), kv.kv_group,
-                                          int(dt == torch.bfloat16))
+                                          ku.dtype_code(dt))
         counted = kernel_smem_bytes(cfg.hidden, hd, cfg.ffn_hidden, dt,
                                     kv_mode(kv), kv.kv_group)
         if smem != counted:
@@ -2731,6 +2790,18 @@ def megakernel_phase(torch, dev):
         n_valid = (n_fed if nv is not None else torch.ones_like(n_fed))
         bms, by = megakernel_bound(cfg, kv, start, active, q, dname)
         timed = {k: v.clone() for k, v in layer.items()}
+        # fp16 (C6): GPT-2's 8-slot calls timed, the other cases checked
+        skip_times = dname == "float16" and (hd, n) != (SERVE_HD, 8)
+        if skip_times:
+            cases.append({
+                "case": what, "dtype": dname, "kv": mode, "head_dim": hd,
+                "slots": n, "rows": n * q, "max_abs_err": err, "atol": atol,
+                "rtol": rtol, "kv_max_abs_err": kv_err, "kv_atol": kv_atol,
+                "kv_rtol": kv_rtol, "codes_differ": differ,
+                "bitwise_repeat": True, "rows_independent_of_batch": True,
+                "smem_bytes": smem, "bound_ms": bms, "bound_by": by})
+            del pools, timed, cache1, layer, got, want, again, alone
+            continue
         cases.append({
             "case": what, "dtype": dname, "kv": mode, "head_dim": hd,
             "slots": n, "rows": n * q,
@@ -3216,6 +3287,119 @@ def engine_phase(torch, dev, ku):
     result["head_dim_80"] = engine_hd80_phase(torch, dev, ku, requests)
     result["head_dim_320"] = engine_hd320_phase(torch, dev, ku, requests)
     return result, launches, quant_launches
+
+
+# the fp16 serving kernels' families in a profiler's kernel names
+SERVE_HALF_KERNELS = {"megakernel": "fused_layer_kernel",
+                      "paged_mma": "paged_mma_kernel",
+                      "layer_norm": "norm_"}
+
+
+class WarningsCaught:
+    """Collects the WARNING records of a logger while installed (the
+    engine's fallback warnings, ``apex_tpu_torch.serve``)."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger = logging.getLogger(name)
+        self.messages = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                outer.messages.append(record.getMessage())
+
+        self.handler = Handler(logging.WARNING)
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+ENGINE16_PATH = ("InferenceEngine, GPT-2-124M fp16, ServeConfig(num_slots=8, "
+                 "prefill_chunk=32), the engine phase's 16 requests")
+
+
+def engine_fp16_phase(torch, dev, ku, bf16_calls):
+    """C6's main path: GPT-2-124M in fp16 (``GPTConfig(dtype=float16)``,
+    weights from numpy seed 0) serving the engine phase's 16 requests
+    (``ServeConfig(num_slots=8, prefill_chunk=32)``), fused by default:
+    decode through the fp16 fused layer, the prefill chunks through the
+    fp16 ``paged_mma_fwd``; launch counts reset just before and read just
+    after. Gates: it resolves to the fused layer; ``spec_k=4`` streams
+    equal ``spec_k=0``'s; one decode and one verify call launch what
+    bf16's do (``bf16_calls``, the engine phase's: the fused layer a
+    layer, the head's LN); ``megakernel="off"`` runs the per-op path (LN
+    and paged attention, no fused layer); int8 and int4 pools serve
+    (fused); no warning is logged (no fallback); a profiled two-request run shows the
+    fused layer's, paged attention's and LN's ``__half`` instantiations.
+    Records tokens/s, TTFT p50 and decode-step ms p50 of each run beside
+    the bf16 engine's main path run in the same process."""
+    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+
+    result = {"path": ENGINE16_PATH}
+    requests = make_requests(GPTConfig().vocab_size)
+    with WarningsCaught("apex_tpu_torch.serve") as caught:
+        cfg_b = GPTConfig(dtype=torch.bfloat16)
+        params_b = init_gpt_params(cfg_b, seed=0, device=dev)
+        _, result["bf16_spec0"] = serve(torch, params_b, cfg_b, dev, 0,
+                                        requests)
+        del params_b
+        cfg = GPTConfig(dtype=torch.float16)
+        params = init_gpt_params(cfg, seed=0, device=dev)
+        ku.reset_launch_counts()
+        s0, result["fp16_spec0"] = serve(torch, params, cfg, dev, 0,
+                                         requests)
+        launches = ku.launch_counts()
+        result["fp16_spec0"]["launches"] = launches
+        if result["fp16_spec0"]["decode_kernel"] != "fused":
+            raise AssertionError("the fp16 engine did not run fused")
+        for name in ("megakernel", "layer_norm_fwd", "paged_mma_fwd"):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"the fp16 main path never launched "
+                                     f"{name}")
+        s4, result["fp16_spec4"] = serve(torch, params, cfg, dev, 4,
+                                         requests)
+        streams_equal(torch, "fp16 spec_k=4 vs spec_k=0 (fused)", s4, s0,
+                      requests)
+        calls = {
+            "decode": fused_launches_per_call(torch, ku, params, cfg, dev, 0),
+            "verify": fused_launches_per_call(torch, ku, params, cfg, dev,
+                                              4)}
+        if calls != bf16_calls:
+            raise AssertionError(f"fp16 launches a call {calls}, bf16's "
+                                 f"{bf16_calls}")
+        result["launches_per_call"] = calls
+        ku.reset_launch_counts()
+        _, result["fp16_off"] = serve(torch, params, cfg, dev, 0, requests,
+                                      megakernel="off")
+        result["fp16_off"]["launches"] = off = ku.launch_counts()
+        if (result["fp16_off"]["decode_kernel"] != "cuda"
+                or off.get("megakernel", 0) or not off.get("paged_mma_fwd")
+                or not off.get("layer_norm_fwd")):
+            raise AssertionError(f"the fp16 per-op path's launches look "
+                                 f"wrong: {off}")
+        for kvq in ("int8", "int4"):
+            ku.reset_launch_counts()
+            _, result[f"fp16_{kvq}_spec0"] = serve(
+                torch, params, cfg, dev, 0, requests, kv_quant=kvq)
+            result[f"fp16_{kvq}_spec0"]["launches"] = ku.launch_counts()
+        result["half_kernels"] = half_kernel_counts(
+            torch, lambda: serve(torch, params, cfg, dev, 0, requests[:2]),
+            SERVE_HALF_KERNELS)
+        if set(result["half_kernels"]) != set(SERVE_HALF_KERNELS):
+            raise AssertionError(f"fp16 instantiations launched: "
+                                 f"{result['half_kernels']}")
+        del params
+    result["warnings"] = caught.messages
+    if caught.messages:
+        raise AssertionError(f"the fp16 engine logged {caught.messages}")
+    torch.cuda.empty_cache()
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -4735,7 +4919,7 @@ def _tree_rel(torch, a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def amp_fp32_check(torch, dev, ku, steps: int = 3):
+def amp_fp32_check(torch, dev, ku, steps: int = 2):
     """At GPT-2's widths and 2 layers, fp32: O0 and O2 (fp32 masters, an
     fp32 model: ``half_dtype=float32``) with each optimizer, ``steps``
     steps on the card (kernels) and on the CPU (plain versions) from the
@@ -5016,10 +5200,10 @@ HALF_KERNELS = {"flash": "flash_mma_", "layer_norm": "norm_",
                 "lm_head": "lm_mma_", "adam_tail": "adam_tail_kernel"}
 
 
-def half_kernel_counts(torch, fn):
+def half_kernel_counts(torch, fn, families=None):
     """Run ``fn`` under torch.profiler: launches of the CUDA kernels of
-    HALF_KERNELS whose names hold ``__half`` (their fp16
-    instantiations), by family."""
+    ``families`` (HALF_KERNELS unless given) whose names hold ``__half``
+    (their fp16 instantiations), by family."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5030,7 +5214,7 @@ def half_kernel_counts(torch, fn):
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or "__half" not in e.name:
             continue
-        for fam, stem in HALF_KERNELS.items():
+        for fam, stem in (families or HALF_KERNELS).items():
             if stem in e.name:
                 out[fam] = out.get(fam, 0) + 1
     return out
@@ -5478,6 +5662,429 @@ def transducer_phase(torch, dev, ku):
     return out
 
 
+# ---------------------------------------------------------------------------
+# contrib.sparsity (ASP) on the flagship step
+
+ASP_STEPS = 3
+ASP_TIMED = 5
+ASP_PERM_BLOCK = (768, 128)    # fc1's rows x its first 128 columns
+ASP_PATH = ("ASP m4n2_1d (JAX's whitelist) over GPT-2-124M bf16, 8 x 1024, "
+            "the fused loss, FusedAdam(lr=1e-4) wrapped by "
+            "init_optimizer_for_pruning")
+
+
+def asp_phase(torch, dev, ku):
+    """``contrib.sparsity`` on the training main path: the dense default
+    step (``build_train_step``) timed first; then ASP's 2:4 masks
+    (``m4n2_1d``, JAX's whitelist) computed on the card over a fresh
+    GPT-2-124M tree (timed; one leaf's mask equal to the CPU's), applied,
+    and ``ASP_STEPS`` steps of the same step with ``FusedAdam`` wrapped by
+    ``init_optimizer_for_pruning`` (counts reset just before the first
+    step and read just after: the train table, the Adam tail 16). Gates:
+    finite losses; every pruned slot exactly 0 after every step. Records
+    the mask time, step ms and busy ms beside the dense step's, the
+    pruned share, and one ``permute_and_mask`` on the host over a (768,
+    128) block of layer 0's dense fc1 kernel (seconds, and the magnitude
+    2:4 keeps with and without the permutation; the whole (768, 3072)
+    kernel is out of reach: the search scores each column against all
+    others every sweep)."""
+    import numpy as np
+
+    from apex_tpu_torch.contrib.sparsity import ASP, create_mask
+    from apex_tpu_torch.contrib.sparsity.permutation import permute_and_mask
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step,
+                                                    gpt_loss,
+                                                    init_gpt_params)
+    from apex_tpu_torch.transformer.testing.train import param_leaves
+
+    cfg = GPTConfig()
+    batch, seq = 8, 1024
+    dense, _, _, tok, tgt = build_train_step(cfg, batch, seq, device=dev,
+                                             seed=0)
+    dense(), dense()
+    dense_durs = timed_steps_of(torch, dense, ASP_TIMED)
+    dense_prof = profiled(torch, lambda: [dense() for _ in range(3)])
+    del dense
+    torch.cuda.empty_cache()
+
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    rows, cols = ASP_PERM_BLOCK      # the dense block the search permutes
+    block = params["layers"]["fc1_kernel"][0][:rows, :cols].float().cpu()
+    asp = ASP()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = asp.compute_sparse_masks(params)
+    torch.cuda.synchronize()
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    pairs = []
+
+    def collect(p, m, path=""):
+        if isinstance(p, dict):
+            for k in p:
+                collect(p[k], m[k], f"{path}{k}/")
+        elif m is not None:
+            pairs.append((path[:-1], p, m))
+
+    collect(params, masks)
+    qkv = params["layers"]["qkv_kernel"]
+    if not torch.equal(masks["layers"]["qkv_kernel"].cpu(),
+                       create_mask(qkv.cpu())):
+        raise AssertionError("asp: the card's qkv mask is not the CPU's")
+    masked = sum(m.numel() for _, _, m in pairs)
+    n_masked = len(pairs)
+    pruned_share = 1.0 - float(sum(int(m.sum()) for _, _, m in pairs)
+                               ) / masked
+    asp.apply_masks(params, masks, in_place=True)
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = asp.init_optimizer_for_pruning(FusedAdam(leaves, lr=1e-4), masks,
+                                         params)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = gpt_loss(params, tok, tgt, cfg)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    zero = torch.ones((), dtype=torch.bool, device=dev)
+    ku.reset_launch_counts()
+    losses = [step()]
+    torch.cuda.synchronize()
+    launches = ku.launch_counts()
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"asp step launches {launches}, expected "
+                             f"{TRAIN_LAUNCHES}")
+    for i in range(ASP_STEPS):
+        if i:
+            losses.append(step())
+        for _, p, m in pairs:
+            zero &= (p.detach()[~m] == 0).all()
+    vals = torch.stack(losses).tolist()
+    if not bool(zero):
+        raise AssertionError("asp: a pruned slot moved off 0 in a step")
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"asp losses not finite: {vals}")
+    durs = timed_steps_of(torch, step, ASP_TIMED)
+    prof = profiled(torch, lambda: [step() for _ in range(3)])
+    for _, p, m in pairs:
+        zero &= (p.detach()[~m] == 0).all()
+    if not bool(zero):
+        raise AssertionError("asp: a pruned slot moved off 0 in a step")
+    del params, opt, leaves, masks, pairs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, perm, base, best = permute_and_mask(block.numpy(), escape_attempts=0)
+    perm_s = time.perf_counter() - t0
+    p50 = lambda d: sorted(d)[len(d) // 2] * 1e3
+    return {"path": ASP_PATH, "steps": ASP_STEPS, "losses": vals,
+            "pruned_slots_stay_zero": True, "launches_per_step": launches,
+            "mask_ms": mask_ms, "masked_leaves": n_masked,
+            "masked_elements": masked, "pruned_share": pruned_share,
+            "step_ms_p50": p50(durs), "step_ms": [d * 1e3 for d in durs],
+            "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
+            "device_idle_share": prof["device_idle_share"],
+            "tokens_per_s": batch * seq * ASP_TIMED / sum(durs),
+            "dense_step_ms_p50": p50(dense_durs),
+            "dense_device_busy_ms_per_step": dense_prof["device_busy_ms"] / 3,
+            "dense_tokens_per_s": batch * seq * ASP_TIMED / sum(dense_durs),
+            "permute_and_mask": {
+                "matrix": f"layers/fc1_kernel[0][:{rows}, :{cols}]",
+                "shape": [rows, cols], "escape_attempts": 0,
+                "host_s": perm_s, "magnitude_unpermuted": base,
+                "magnitude_permuted": best, "gain": best / base,
+                "columns_moved": int((perm != np.arange(cols)).sum())}}
+
+
+# ---------------------------------------------------------------------------
+# models: ResNet-50 (the imagenet example) and DCGAN
+
+RESNET_BATCH, RESNET_PX, RESNET_CLASSES = 64, 224, 1000
+RESNET_STEPS = 5
+RESNET_PATH = ("ResNet50 at examples/imagenet/main_amp.py's defaults: batch "
+               "64 at 224 px, 1000 classes, amp O2 bf16 (BN leaves as amp's "
+               "norm predicate keeps them fp32), FusedSGD(lr 0.1, momentum "
+               "0.9, weight decay 1e-4), one device, local BN")
+
+
+def resnet_run(torch, dev):
+    """One ResNet-50 O2 training run from numpy seed 0 (weights from the
+    model's seed, one fixed batch): returns ``step`` and the model."""
+    import numpy as np
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import param_tree
+    from apex_tpu_torch.models import ResNet50, make_norm
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    model = ResNet50(num_classes=RESNET_CLASSES, norm=make_norm(),
+                     dtype=torch.bfloat16, device=dev, seed=0)
+    tree = param_tree(model)
+    state, _ = amp.initialize(tree, "O2")
+    for p, c in zip(tree_leaves(tree), tree_leaves(amp.model_params(state))):
+        p.data = c                  # the module holds the O2 model copy
+    leaves = tree_leaves(tree)
+    opt = FusedSGD(tree_leaves(state.master_params), lr=0.1, momentum=0.9,
+                   weight_decay=1e-4)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, RESNET_PX, RESNET_PX, 3), dtype=np.float32)).to(
+        dev).to(torch.bfloat16)
+    y = torch.from_numpy(rng.integers(0, RESNET_CLASSES,
+                                      RESNET_BATCH)).to(dev)
+    box = [state]
+
+    def step():
+        amp.model_params(box[0], out=tree)
+        loss = torch.nn.functional.cross_entropy(model(x).float(), y)
+        grads = torch.autograd.grad(amp.scale_loss(loss, box[0]), leaves)
+        box[0], _, _ = amp.apply_grads_with_optimizer(box[0], grads, opt)
+        return loss.detach()
+
+    return step, model
+
+
+def resnet_phase(torch, dev, ku):
+    """ResNet-50 trained at the imagenet example's defaults (RESNET_PATH)
+    for RESNET_STEPS steps, twice from one seed under cuDNN's
+    deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` set before the
+    first cuBLAS handle, ``main``): finite, falling losses and the two
+    loss curves bitwise equal (the reference's ``--deterministic``).
+    Records img/s, step ms, busy ms and idle share (torch.profiler over 2
+    steps), peak memory, the top kernels and the launches of the port's
+    kernels (none: the convolutions are cuDNN's, the head and SGD plain
+    PyTorch, as JAX leaves them to XLA)."""
+    import torch.backends.cudnn as cudnn
+
+    was = (cudnn.deterministic, cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        curves = []
+        torch.cuda.reset_peak_memory_stats()
+        for run in range(2):
+            step, model = resnet_run(torch, dev)
+            if run == 0:
+                ku.reset_launch_counts()
+            curves.append(torch.stack([step() for _ in range(RESNET_STEPS)]))
+            torch.cuda.synchronize()
+            if run == 0:
+                launches = ku.launch_counts()
+                durs = timed_steps_of(torch, step, RESNET_STEPS)
+                prof = profiled(torch, lambda: [step() for _ in range(2)])
+            del step, model
+            torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was[:2]
+        torch.use_deterministic_algorithms(was[2])
+    vals = curves[0].tolist()
+    if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+        raise AssertionError(f"resnet50 loss did not fall: {vals}")
+    if not torch.equal(curves[0], curves[1]):
+        raise AssertionError(f"resnet50 loss curves differ between two runs "
+                             f"from one seed: {vals} vs "
+                             f"{curves[1].tolist()}")
+    p50 = sorted(durs)[len(durs) // 2]
+    return {"path": RESNET_PATH, "steps": RESNET_STEPS, "losses": vals,
+            "bitwise_repeat": True,
+            "cublas_workspace_config": os.environ.get(
+                "CUBLAS_WORKSPACE_CONFIG"),
+            "launches": launches, "step_ms_p50": p50 * 1e3,
+            "step_ms": [d * 1e3 for d in durs],
+            "img_per_s": RESNET_BATCH * len(durs) / sum(durs),
+            "device_busy_ms_per_step": prof["device_busy_ms"] / 2,
+            "device_idle_share": prof["device_idle_share"],
+            "peak_mem_gib": peak, "top": prof["top"]}
+
+
+DCGAN_ISIZE, DCGAN_BATCH, DCGAN_NZ, DCGAN_WIDTH = 64, 64, 100, 64
+DCGAN_ITERS = 3
+DCGAN_PATH = ("DCGAN at PyTorch's DCGAN defaults: 64 x 64 images, batch 64, "
+              "nz 100, ngf = ndf = 64, bf16 compute; errD_real, errD_fake "
+              "and errG each under its own dynamic LossScaler (loss_id "
+              "0-2); FusedAdam(lr 2e-4, betas (0.5, 0.999)) for G and D")
+
+
+def dcgan_phase(torch, dev, ku):
+    """DCGAN_ITERS iterations of the DCGAN example's step (DCGAN_PATH), as
+    JAX's ``examples/dcgan/main_amp.py`` composes it: D on the real batch
+    and on G's detached fakes, each loss scaled and unscaled by its own
+    scaler, the fp32 gradients added, one guarded Adam step (skipped on
+    either overflow); then G through D with the third scaler. Counts reset
+    just before and read just after: the Adam tail once per leaf of each
+    model an iteration. Gates: finite losses, the launches. Records the
+    iteration ms (p50), images/s and peak memory."""
+    import numpy as np
+
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.models import Discriminator, Generator
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    bf = torch.bfloat16
+    g = Generator(isize=DCGAN_ISIZE, nz=DCGAN_NZ, ngf=DCGAN_WIDTH, dtype=bf,
+                  device=dev, seed=0)
+    d = Discriminator(isize=DCGAN_ISIZE, ndf=DCGAN_WIDTH, dtype=bf,
+                      device=dev, seed=1)
+    g_leaves, d_leaves = list(g.parameters()), list(d.parameters())
+    opt_g = FusedAdam(g_leaves, lr=2e-4, betas=(0.5, 0.999))
+    opt_d = FusedAdam(d_leaves, lr=2e-4, betas=(0.5, 0.999))
+    scalers = [LossScaler("dynamic") for _ in range(3)]
+    states = [s.init_state(dev) for s in scalers]
+    rng = np.random.default_rng(0)
+    real = torch.from_numpy(rng.uniform(
+        -1, 1, (DCGAN_BATCH, DCGAN_ISIZE, DCGAN_ISIZE, 3)).astype(
+        np.float32)).to(dev).to(bf)
+    zs = [torch.from_numpy(rng.standard_normal(
+        (DCGAN_BATCH, 1, 1, DCGAN_NZ), dtype=np.float32)).to(dev).to(bf)
+        for _ in range(DCGAN_ITERS + 4)]
+    ones = torch.ones(DCGAN_BATCH, device=dev)
+    zeros = torch.zeros(DCGAN_BATCH, device=dev)
+    bce = torch.nn.functional.binary_cross_entropy_with_logits
+
+    def grads_of(i, loss, leaves):
+        grads = torch.autograd.grad(scalers[i].scale_loss(loss, states[i]),
+                                    leaves)
+        g32, found = scalers[i].unscale(list(grads), states[i])
+        states[i], skip = scalers[i].update_scale(states[i], found)
+        return g32, skip
+
+    def iteration(z):
+        fake = g(z)
+        err_real = bce(d(real).float(), ones)
+        gr, skip0 = grads_of(0, err_real, d_leaves)
+        err_fake = bce(d(fake.detach()).float(), zeros)
+        gf, skip1 = grads_of(1, err_fake, d_leaves)
+        for p, a, b in zip(d_leaves, gr, gf):
+            p.grad = a + b
+        opt_d.step(found_inf=(skip0 | skip1).float())
+        err_g = bce(d(g(z)).float(), ones)
+        gg, skip2 = grads_of(2, err_g, g_leaves)
+        for p, a in zip(g_leaves, gg):
+            p.grad = a
+        opt_g.step(found_inf=skip2.float())
+        return torch.stack([(err_real + err_fake).detach(), err_g.detach()])
+
+    torch.cuda.reset_peak_memory_stats()
+    ku.reset_launch_counts()
+    losses = [iteration(zs[i]) for i in range(DCGAN_ITERS)]
+    torch.cuda.synchronize()
+    launches = ku.launch_counts()
+    want = {"fused_adam_tail": DCGAN_ITERS * (len(g_leaves) + len(d_leaves))}
+    if launches != want:
+        raise AssertionError(f"dcgan launches {launches}, expected {want}")
+    vals = torch.stack(losses).tolist()
+    if not all(math.isfinite(v) for row in vals for v in row):
+        raise AssertionError(f"dcgan losses not finite: {vals}")
+    durs = timed_steps_of(torch, lambda: iteration(zs[DCGAN_ITERS]), 3)
+    prof = profiled(torch, lambda: iteration(zs[DCGAN_ITERS + 1]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del g, d, opt_g, opt_d
+    torch.cuda.empty_cache()
+    p50 = sorted(durs)[len(durs) // 2]
+    return {"path": DCGAN_PATH, "iterations": DCGAN_ITERS,
+            "losses_d_g": vals, "launches": launches,
+            "launches_per_iteration": {k: v // DCGAN_ITERS
+                                       for k, v in launches.items()},
+            "iteration_ms_p50": p50 * 1e3,
+            "iteration_ms": [t * 1e3 for t in durs],
+            "img_per_s": DCGAN_BATCH / p50,
+            "device_busy_ms_per_iteration": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "peak_mem_gib": peak, "top": prof["top"]}
+
+
+# ---------------------------------------------------------------------------
+# RNN: the sentiment-discovery mLSTM
+
+RNN_HIDDEN, RNN_EMBED, RNN_VOCAB = 4096, 64, 256
+RNN_SEQ, RNN_BATCH, RNN_STEPS = 256, 32, 2
+RNN_PATH = ("mLSTM of NVIDIA's sentiment-discovery: hidden 4096, byte "
+            "embedding 64 over 256 bytes, a 4096 -> 256 head; sequence 256, "
+            "batch 32; fp16 under amp O2 (dynamic loss scale), "
+            "FusedAdam(lr=5e-4) over the fp32 masters")
+
+
+def rnn_phase(torch, dev, ku):
+    """RNN_STEPS training steps of the mLSTM (RNN_PATH) on one batch of
+    bytes from numpy seed 0 (next-byte prediction), composed from amp's
+    public pieces as the amp phase's step. Counts reset just before and
+    read just after: the Adam tail once per leaf a step. Gates: finite
+    losses, the launches. Records step ms, tokens/s, peak memory and the
+    profile of one step (busy ms, idle share, top kernels)."""
+    import numpy as np
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.RNN import mLSTM
+    from apex_tpu_torch.convert import param_tree
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    rng = np.random.default_rng(0)
+    cell = mLSTM(RNN_EMBED, RNN_HIDDEN, device=dev, seed=0)
+    head_std = 1.0 / math.sqrt(RNN_HIDDEN)
+    tree = {"embed": torch.from_numpy(rng.standard_normal(
+                (RNN_VOCAB, RNN_EMBED), dtype=np.float32)).to(dev),
+            "rnn": param_tree(cell),
+            "head": {"kernel": torch.from_numpy(
+                         rng.standard_normal((RNN_HIDDEN, RNN_VOCAB),
+                                             dtype=np.float32)
+                         * np.float32(head_std)).to(dev),
+                     "bias": torch.zeros(RNN_VOCAB, device=dev)}}
+    state, _ = amp.initialize(tree, "O2", half_dtype=torch.float16)
+    model = amp.model_params(state)
+    for p, c in zip(tree_leaves(tree["rnn"]), tree_leaves(model["rnn"])):
+        p.data = c
+    model["rnn"] = tree["rnn"]      # the module's own, now fp16, tensors
+    leaves = amp.trainable_leaves(model)
+    opt = FusedAdam(tree_leaves(state.master_params), lr=5e-4)
+    tok = torch.from_numpy(rng.integers(0, RNN_VOCAB,
+                                        (RNN_BATCH, RNN_SEQ + 1))).to(dev)
+    box = [state]
+
+    def step():
+        amp.model_params(box[0], out=model)
+        ys, _ = cell(model["embed"][tok[:, :-1]])
+        logits = ys @ model["head"]["kernel"] + model["head"]["bias"]
+        loss = torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, RNN_VOCAB), tok[:, 1:].reshape(-1))
+        grads = torch.autograd.grad(amp.scale_loss(loss, box[0]), leaves)
+        box[0], _, _ = amp.apply_grads_with_optimizer(box[0], grads, opt)
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    ku.reset_launch_counts()
+    losses = [step() for _ in range(RNN_STEPS)]
+    torch.cuda.synchronize()
+    launches = ku.launch_counts()
+    want = {"fused_adam_tail": RNN_STEPS * len(leaves)}
+    if launches != want:
+        raise AssertionError(f"rnn launches {launches}, expected {want}")
+    vals = torch.stack(losses).tolist()
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"rnn losses not finite: {vals}")
+    durs = timed_steps_of(torch, step, 2)
+    prof = profiled(torch, step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cell, tree, model, opt, leaves
+    torch.cuda.empty_cache()
+    p50 = sorted(durs)[len(durs) // 2]
+    return {"path": RNN_PATH, "steps": RNN_STEPS, "losses": vals,
+            "launches": launches,
+            "launches_per_step": {k: v // RNN_STEPS
+                                  for k, v in launches.items()},
+            "step_ms_p50": p50 * 1e3, "step_ms": [t * 1e3 for t in durs],
+            "tokens_per_s": RNN_BATCH * RNN_SEQ / p50,
+            "device_busy_ms_per_step": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "peak_mem_gib": peak, "top": prof["top"]}
+
+
 def attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
                 adam, drop_cases):
     """Each kernel's fp16 cases under its entry's ``float16`` key (as its
@@ -5552,10 +6159,103 @@ def attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
             k[f16] = rows[k["name"]]
 
 
+def attach_fp16_serving(kernels, pa, mk_cases, codec, e16):
+    """C6: the serving kernels' and the codec's fp16 cases under each
+    entry's ``float16`` key, with the fp16 main paths' launches (the
+    fp16 engine's runs; the codec's fp16 runs): paged attention per pool
+    format (decode 8 rows at the top, verify and prefill beside, the
+    largest error over every fp16 case of the route, head dims included),
+    the wide walk, the fused layer (decode, verify beside), quantize and
+    dequantize (int8 at the top, int4 beside). Raises if one of them has
+    no fp16 case."""
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    f16 = "float16"
+
+    def pick(cases, **where):
+        return next(c for c in cases
+                    if all(c[k] == v for k, v in where.items()))
+
+    def times(c, extra=()):
+        return {k: c[k] for k in (*timing, *extra)}
+
+    runs = {"none": e16["fp16_spec0"]["launches"],
+            "int8": e16["fp16_int8_spec0"]["launches"],
+            "int4": e16["fp16_int4_spec0"]["launches"]}
+    every = pa["cases"] + pa["head_dims"]
+    rows = {}
+    for kvq in ("none", "int8", "int4"):
+        mine = [x for x in every if x["dtype"] == f16 and x["kv"] == kvq
+                and x["entry"] == "paged_mma_fwd"]
+        rows["paged_mma_fwd" if kvq == "none" else
+             f"paged_mma_fwd[{kvq}]"] = {
+            "launches": runs[kvq].get("paged_mma_fwd", 0),
+            "path": e16["path"],
+            "max_abs_err": max(x["max_abs_err"] for x in mine),
+            **times(pick(pa["cases"], dtype=f16, rows=8, kv=kvq)),
+            **{kind: times(pick(pa["cases"], dtype=f16, kv=kvq, kind=kind))
+               for kind in ("verify", "prefill")},
+            "bitwise_over_groups_and_repeats": all(
+                pick(pa["bitwise"], dtype=f16, kv=kvq, head_dim=SERVE_HD)[k]
+                for k in ("groups_1", "groups_5", "repeat"))}
+    wide = [x for x in pa["head_dims"] if x["dtype"] == f16
+            and x["entry"] == "paged_wide_fwd"]
+    rows["paged_wide_fwd"] = {
+        "max_abs_err": max(x["max_abs_err"] for x in wide),
+        **times(pick(wide, kv="none", head_dim=320)),
+        **{f"d{x['head_dim']}_{x['kv']}": {
+            "max_abs_err": x["max_abs_err"], **(times(x) if "ms" in x else {})}
+            for x in wide}}
+    mk16 = [c for c in mk_cases if c["dtype"] == f16]
+    rows["megakernel"] = {
+        "launches": runs["none"].get("megakernel", 0),
+        "path": e16["path"],
+        "max_abs_err": max(c["max_abs_err"] for c in mk16),
+        **times(pick(mk16, kv="none", case="decode", head_dim=SERVE_HD,
+                     slots=8), ("per_op_layer_ms",)),
+        "verify": times(pick(mk16, kv="none", case="verify",
+                             head_dim=SERVE_HD, slots=8),
+                        ("per_op_layer_ms",)),
+        "cases_checked": len(mk16)}
+    ctiming = ("public_ms",)
+    for mode in ("nearest", "stochastic"):
+        kname = f"quantize_blockwise[{mode}]"
+        mine = {x["bits"]: x for x in codec["cases"]
+                if x["dtype"] == f16 and x["mode"] == mode}
+        rows[kname] = {
+            "launches": sum(r["launches"].get(kname, 0)
+                            for r in codec["runs"] if r["dtype"] == f16),
+            "max_abs_err": 0.0, "bitwise": True,
+            "bitwise_fp32_path": True,
+            **times(mine[8], ctiming),
+            "int4": times(mine[4], ctiming),
+            "main_path_pairs": {f"int{r['bits']}": {
+                k: r[k] for k in ("pair_ms", "pair_bound_ms",
+                                  "max_err_in_steps")}
+                for r in codec["runs"] if r["dtype"] == f16
+                and r["mode"] == mode}}
+    deq = {x["bits"]: x["dequantize"] for x in codec["cases"]
+           if x["dtype"] == f16 and "dequantize" in x}
+    rows["dequantize_blockwise"] = {
+        "launches": sum(r["launches"].get("dequantize_blockwise", 0)
+                        for r in codec["runs"] if r["dtype"] == f16),
+        "max_abs_err": 0.0, "bitwise": True,
+        **times(deq[8], ctiming), "int4": times(deq[4], ctiming)}
+    names = {k["name"] for k in kernels}
+    missing = [n for n in rows if n not in names]
+    if missing:
+        raise AssertionError(f"no kernels-line entry for {missing}")
+    for k in kernels:
+        if k["name"] in rows:
+            k[f16] = rows[k["name"]]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full JSON record here")
     args = ap.parse_args(argv)
+    # the resnet phase's deterministic cuBLAS needs a fixed workspace,
+    # set before the first cuBLAS handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -5586,21 +6286,28 @@ def main(argv=None) -> int:
         seconds[name] = time.perf_counter() - t
         return out
 
-    # each kernel phase starts once its own source is built, the quick
-    # sources' first: the LM-head source compiles longest
+    # each kernel phase starts once its own sources are built, in the
+    # order the builds end (quantize, dropout and fused_update build in
+    # seconds, flash_attention.cu takes longest), so the phases run while
+    # the slower sources still compile
+    codec = phase("codec", ("quantize",), codec_phase, torch, dev, ku)
+    drop_cases = phase("dropout", ("dropout",), dropout_phase, torch, dev, ku)
+    adam = phase("adam_tail", ("fused_update",), adam_tail_phase, torch, dev)
+    pa = phase("paged_attention", ("paged_attention", "paged_mma"),
+               paged_attention_phase, torch, dev)
+    pa_cases = pa["cases"]
+    lm_cases = phase("lm_head_loss", ("lm_head_loss", "lm_head_mma"),
+                     lm_head_phase, torch, dev)
     ln_cases = phase("layer_norm", ("layer_norm",), layer_norm_phase, torch,
                      dev)
     ln_non_affine = phase("layer_norm_non_affine", ("layer_norm",),
                           layer_norm_non_affine_check, torch, dev, ku)
-    pa = phase("paged_attention", ("paged_attention", "paged_mma"),
-               paged_attention_phase, torch, dev)
-    pa_cases = pa["cases"]
     lnb_cases = phase("layer_norm_bwd", ("layer_norm",),
                       layer_norm_bwd_phase, torch, dev)
     nrm = phase("rms_norm", ("layer_norm",), norm_phase, torch, dev, ku)
-    codec = phase("codec", ("quantize",), codec_phase, torch, dev, ku)
-    adam = phase("adam_tail", ("fused_update",), adam_tail_phase, torch, dev)
-    drop_cases = phase("dropout", ("dropout",), dropout_phase, torch, dev, ku)
+    mk_cases = phase("megakernel", ("megakernel", "paged_attention",
+                                    "paged_mma", "layer_norm"),
+                     megakernel_phase, torch, dev)
     fa_cases = phase("flash_attention", ("flash_attention", "flash_mma"),
                      flash_phase, torch, dev)
     vl = phase("flash_varlen", ("flash_attention", "flash_mma",
@@ -5608,11 +6315,6 @@ def main(argv=None) -> int:
                varlen_phase, torch, dev)
     vl["wide"] = phase("flash_varlen_wide", ("flash_varlen",),
                        varlen_wide_phase, torch, dev)
-    mk_cases = phase("megakernel", ("megakernel", "paged_attention",
-                                    "paged_mma", "layer_norm"),
-                     megakernel_phase, torch, dev)
-    lm_cases = phase("lm_head_loss", ("lm_head_loss", "lm_head_mma"),
-                     lm_head_phase, torch, dev)
     wait()
     for name, b in built.items():
         for kernel, line in ptxas_lines(b["log"]):
@@ -5629,6 +6331,8 @@ def main(argv=None) -> int:
     seconds["builds_and_kernel_phases"] = time.perf_counter() - t0
     engine, launches, quant_launches = phase("engine", (), engine_phase,
                                              torch, dev, ku)
+    e16 = phase("engine_fp16", (), engine_fp16_phase, torch, dev, ku,
+                engine["launches_per_call"])
     mon = phase("engine_monitor", (), engine_monitor_phase, torch, dev, ku,
                 card)
     lora = phase("engine_lora", (), engine_lora_phase, torch, dev, ku, card)
@@ -5649,6 +6353,10 @@ def main(argv=None) -> int:
     bert = phase("bert", (), bert_phase, torch, dev, ku)
     mha = phase("multihead_attn", (), multihead_attn_phase, torch, dev, ku)
     trans = phase("transducer", (), transducer_phase, torch, dev, ku)
+    asp = phase("asp", (), asp_phase, torch, dev, ku)
+    resnet = phase("resnet", (), resnet_phase, torch, dev, ku)
+    dcgan = phase("dcgan", (), dcgan_phase, torch, dev, ku)
+    rnn = phase("rnn", (), rnn_phase, torch, dev, ku)
     name = torch.cuda.get_device_name(0)
     # the phases' record, written before the kernels line is assembled
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
@@ -5660,12 +6368,13 @@ def main(argv=None) -> int:
               "megakernel": mk_cases, "flash_varlen": vl, "fmha": fmha,
               "layer_norm_non_affine": ln_non_affine, "norm": nrm,
               "codec": codec,
-              "engine": engine, "engine_monitor": mon,
+              "engine": engine, "engine_fp16": e16, "engine_monitor": mon,
               "engine_lora": lora, "train": train, "t5_train": t5,
               "dropout": drop_cases, "train_dropout": trd,
               "t5_dropout": t5d, "functional": func, "amp": amp_res,
               "amp_fp16": amp16, "bert": bert, "multihead_attn": mha,
-              "transducer": trans}
+              "transducer": trans, "asp": asp, "resnet": resnet,
+              "dcgan": dcgan, "rnn": rnn}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -5771,7 +6480,8 @@ def main(argv=None) -> int:
          "max_abs_err": max(x["max_abs_err"] for x in wide),
          **{k: w320[k] for k in timing},
          **{f"d{x['head_dim']}_{x['dtype']}_{x['kv']}": {
-             "max_abs_err": x["max_abs_err"], **{k: x[k] for k in timing}}
+             "max_abs_err": x["max_abs_err"],
+             **{k: x[k] for k in timing if k in x}}
             for x in wide if x is not w320},
          "bitwise_over_groups_and_repeats": all(
              x[k] for x in pa["bitwise"] if x["head_dim"] != SERVE_HD
@@ -5865,7 +6575,8 @@ def main(argv=None) -> int:
              "source": "apex_tpu_torch/csrc/quantize.cu",
              "replaces": f"apex_tpu/comm/quantize.py:{line}",
              "launches": sum(r["launches"].get(kname, 0)
-                             for r in codec["runs"]),
+                             for r in codec["runs"]
+                             if r["dtype"] == "float32"),
              "path": "comm.quantize_blockwise(_int4)",
              "shape": f"{c['elements']} elements fp32, int8, block 256",
              "max_abs_err": 0.0, "bitwise": True,
@@ -5881,7 +6592,7 @@ def main(argv=None) -> int:
          "source": "apex_tpu_torch/csrc/quantize.cu",
          "replaces": "apex_tpu/comm/quantize.py:226",
          "launches": sum(r["launches"].get("dequantize_blockwise", 0)
-                         for r in codec["runs"]),
+                         for r in codec["runs"] if r["dtype"] == "float32"),
          "path": "comm.dequantize_blockwise(_int4)",
          "shape": f"{codec['cases'][0]['elements']} codes, block 256",
          "max_abs_err": 0.0, "bitwise": True,
@@ -6150,11 +6861,12 @@ def main(argv=None) -> int:
             print(f"  top kernel: {t['device_ms']:.3f} ms x{t['count']} "
                   f"{t['name']}")
     for c in mk_cases:
+        times = (f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, per-op "
+                 f"layer {c['per_op_layer_ms']:.4f}, bound "
+                 f"{c['bound_ms']:.4f} {c['bound_by']})" if "ms" in c
+                 else "checked, not timed")
         print(f"megakernel {c['case']} {c['kv']} {c['dtype']} head_dim "
-              f"{c['head_dim']} rows {c['rows']}: {c['ms']:.4f} ms "
-              f"(plain {c['plain_ms']:.4f}, "
-              f"per-op layer {c['per_op_layer_ms']:.4f}, bound "
-              f"{c['bound_ms']:.4f} {c['bound_by']}); x' err "
+              f"{c['head_dim']} rows {c['rows']}: {times}; x' err "
               f"{c['max_abs_err']:.3e}, K/V err {c['kv_max_abs_err']:.3e}, "
               f"codes differ {c['codes_differ']}")
     for c in pa_cases:
@@ -6164,10 +6876,12 @@ def main(argv=None) -> int:
               f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
               f"{c['bound_ms']:.5f}); err {c['max_abs_err']:.3e} on {card}")
     for c in pa["head_dims"]:
+        times = (f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, library "
+                 f"{c['library_ms']:.4f}, bound {c['bound_ms']:.5f})"
+                 if "ms" in c else "checked, not timed")
         print(f"{c['entry']} head_dim {c['head_dim']} verify {c['kv']} "
-              f"{c['dtype']}: {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, "
-              f"library {c['library_ms']:.4f}, bound {c['bound_ms']:.5f}); "
-              f"err {c['max_abs_err']:.3e} on {card}")
+              f"{c['dtype']}: {times}; err {c['max_abs_err']:.3e} on "
+              f"{card}")
     print(f"paged groups 32 / 5 / 1 and repeats bitwise: {pa['bitwise']}")
     pp = engine["bf16_prefill_profile"]
     print(f"per-op prefill chunks bf16 ({pp['chunks']} of 32 tokens): host "
@@ -6348,9 +7062,10 @@ def main(argv=None) -> int:
                  f"{d['bound_ms']:.4f}) bitwise" if d else "")
               + f" on {card}")
     for r in codec["runs"]:
-        print(f"codec main path int{r['bits']} {r['mode']}: launches "
-              f"{r['launches']}, round trip max {r['max_err_in_steps']:.4f}"
-              f" steps, pair {r['pair_ms']:.4f} ms")
+        print(f"codec main path {r['dtype']} int{r['bits']} {r['mode']}: "
+              f"launches {r['launches']}, round trip max "
+              f"{r['max_err_in_steps']:.4f} steps, pair {r['pair_ms']:.4f} "
+              f"ms (bound {r['pair_bound_ms']:.4f}) on {card}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -6478,6 +7193,19 @@ def main(argv=None) -> int:
     # multi-head attention modules'
     attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
                 adam, drop_cases)
+    attach_fp16_serving(kernels, pa, mk_cases, codec, e16)
+    for key in ("bf16_spec0", "fp16_spec0", "fp16_spec4", "fp16_off",
+                "fp16_int8_spec0", "fp16_int4_spec0"):
+        r = e16[key]
+        print(f"engine_fp16 {key} ({r['decode_kernel']}, kv_bits "
+              f"{r['kv_bits']}): {r['tokens_per_s']:.1f} tokens/s, TTFT "
+              f"p50 {r['ttft_ms_p50']:.2f} ms, decode step p50 "
+              f"{r['decode_step_ms_p50']:.3f} ms, wall {r['wall_s']:.2f} s"
+              + (f", launches {r['launches']}" if "launches" in r else "")
+              + f" on {card}")
+    print(f"engine_fp16 launches a call {e16['launches_per_call']}, fp16 "
+          f"instantiations in a profiled run {e16['half_kernels']}, "
+          f"warnings {e16['warnings']}")
     for run, path in (("o2", AMP16_PATH), ("fp16_optimizer", FP16_OPT_PATH),
                       ("pure_fp16", PURE_FP16_PATH)):
         for kname, per in amp16[run]["launches_per_step"].items():
@@ -6533,6 +7261,54 @@ def main(argv=None) -> int:
           f"frames/s), peak {trans['peak_mem_gib']:.2f} GiB, NLL mean "
           f"{trans['nll_mean']:.3f}, vs fp64 rel "
           f"{trans['nll_rel_err_vs_fp64']:.2e} on {card}")
+    # the new slice's main paths' launches beside each kernel they run:
+    # ASP's pruned step (the train table), DCGAN's and the mLSTM's Adam
+    # tails
+    for kname, per in asp["launches_per_step"].items():
+        by_name[kname]["asp"] = {"launches": per, "path": ASP_PATH}
+    by_name["fused_adam_tail"]["dcgan"] = {
+        "launches": dcgan["launches_per_iteration"]["fused_adam_tail"],
+        "path": DCGAN_PATH}
+    by_name["fused_adam_tail"]["rnn"] = {
+        "launches": rnn["launches_per_step"]["fused_adam_tail"],
+        "path": RNN_PATH}
+    pm = asp["permute_and_mask"]
+    print(f"asp {ASP_PATH}: masks {asp['mask_ms']:.2f} ms on the card "
+          f"({asp['masked_leaves']} leaves, {asp['masked_elements']} "
+          f"elements, pruned share {asp['pruned_share']:.4f}); step_ms_p50 "
+          f"{asp['step_ms_p50']:.2f} (dense {asp['dense_step_ms_p50']:.2f}) "
+          f"busy ms {asp['device_busy_ms_per_step']:.2f} (dense "
+          f"{asp['dense_device_busy_ms_per_step']:.2f}), tokens/s "
+          f"{asp['tokens_per_s']:.1f} (dense {asp['dense_tokens_per_s']:.1f})"
+          f", launches a step {asp['launches_per_step']}, losses "
+          f"{[round(v, 4) for v in asp['losses']]}, pruned slots stay 0; "
+          f"permute_and_mask {pm['matrix']} {pm['host_s']:.2f} s on the "
+          f"host, 2:4 magnitude {pm['magnitude_unpermuted']:.3f} -> "
+          f"{pm['magnitude_permuted']:.3f} (x{pm['gain']:.5f}) on {card}")
+    print(f"resnet {RESNET_PATH}: step_ms_p50 {resnet['step_ms_p50']:.2f}, "
+          f"{resnet['img_per_s']:.1f} img/s, busy ms "
+          f"{resnet['device_busy_ms_per_step']:.2f} (idle share "
+          f"{resnet['device_idle_share']:.3f}), peak "
+          f"{resnet['peak_mem_gib']:.2f} GiB, losses "
+          f"{[round(v, 4) for v in resnet['losses']]} (two runs bitwise "
+          f"equal), port kernel launches {resnet['launches']}, top "
+          f"{[(t['name'][:40], round(t['device_ms'], 2))
+              for t in resnet['top'][:4]]}"
+          f" on {card}")
+    print(f"dcgan {DCGAN_PATH}: iteration_ms_p50 "
+          f"{dcgan['iteration_ms_p50']:.2f}, {dcgan['img_per_s']:.1f} img/s, "
+          f"busy ms {dcgan['device_busy_ms_per_iteration']:.2f} (idle share "
+          f"{dcgan['device_idle_share']:.3f}), peak "
+          f"{dcgan['peak_mem_gib']:.2f} GiB, launches an iteration "
+          f"{dcgan['launches_per_iteration']}, losses (D, G) "
+          f"{[[round(v, 4) for v in r] for r in dcgan['losses_d_g']]} on "
+          f"{card}")
+    print(f"rnn {RNN_PATH}: step_ms_p50 {rnn['step_ms_p50']:.1f}, "
+          f"{rnn['tokens_per_s']:.1f} tokens/s, busy ms "
+          f"{rnn['device_busy_ms_per_step']:.1f} (idle share "
+          f"{rnn['device_idle_share']:.3f}), peak {rnn['peak_mem_gib']:.2f} "
+          f"GiB, launches a step {rnn['launches_per_step']}, losses "
+          f"{[round(v, 4) for v in rnn['losses']]} on {card}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels its path never launched: {idle}")

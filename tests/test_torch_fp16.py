@@ -330,9 +330,12 @@ def test_hidden_dropout_fp16_bitwise_jax(rate):
 def test_c6_jax_serving_and_codec_kernels_take_fp16_the_port_refuses(
         monkeypatch):
     """JAX's paged attention (#19), fused decode layer (#20) and codec
-    (#16-18) compute fp16 in interpret mode (finite outputs); the port's
-    paged route, fused-layer gate and quantize kernel wrapper refuse fp16
-    (ROADMAP C6)."""
+    (#16-18) compute fp16 in interpret mode (finite outputs); since C6 was
+    closed the port's paged route, fused-layer gate and quantize kernel
+    wrapper take fp16 as well (the tensor-core route, the fused layer, the
+    codec's own type), and refuse only a type none of the kernels takes
+    (float64). The port's fp16 results themselves are held to JAX's in
+    ``test_torch_fp16_serve.py``."""
     from apex_tpu.comm import quantize as jq
     from apex_tpu.serve import KVCacheConfig as JKV
     from apex_tpu.serve import init_kv_cache as jax_init_cache
@@ -384,15 +387,19 @@ def test_c6_jax_serving_and_codec_kernels_take_fp16_the_port_refuses(
         assert bool(jnp.isfinite(out.astype(jnp.float32)).all()), name
     assert float(jnp.abs(back.astype(jnp.float32)
                          - x.astype(jnp.float32)).max()) < 0.05
-    with pytest.raises(ValueError, match="fp32 or bf16"):
-        _paged_route(H, hd)
+    assert _paged_route(H, hd) == "paged_mma_fwd"
+    assert _paged_route(H, 320) == "paged_wide_fwd"
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        _paged_route(torch.float64, hd)
     cfg = GPTConfig(vocab_size=64, max_seq=64, hidden=64, num_layers=1,
                     num_heads=heads, dtype=H)
     kv = KVCacheConfig(num_layers=1, num_heads=heads, head_dim=hd,
                        num_blocks=blocks, block_size=bs, dtype=H)
     # the fused layer's gate as a card sees it
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert "fp32 or bf16" in megakernel_refusal(cfg, kv,
-                                                allow_interpret=False)
-    with pytest.raises(ValueError):
+    assert megakernel_refusal(cfg, kv, allow_interpret=False) is None
+    # the quantize wrapper's type check takes fp16 (a CPU tensor is
+    # refused for its device; the card tests launch it)
+    assert H in ku.KERNEL_DTYPES
+    with pytest.raises(ValueError, match="CUDA tensor"):
         pq.quantize_blocks(torch.zeros(8, 256, dtype=H))

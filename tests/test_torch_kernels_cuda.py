@@ -162,7 +162,8 @@ def _paged(dev, dtype, n, heads, hd, bs, mb, seed):
     return q, pools, cfg, bt, torch.from_numpy(ctx.astype(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("n,heads,hd,bs,mb", [
     (8, 12, 64, 16, 64), (3, 2, 32, 8, 3), (40, 4, 128, 16, 5),
     (5, 3, 64, 4, 33)])
@@ -1136,28 +1137,30 @@ def test_kernels_take_fp16(dev, case):
 
 
 def test_c6_serving_and_codec_kernels_raise_on_fp16(dev):
-    """The serving kernels (paged attention, the fused layer) and the
-    codec take fp32 and bf16: fp16 raises rather than running another way
-    (ROADMAP C6)."""
+    """Since C6 the serving kernels (paged attention, the fused layer) and
+    the codec take fp16 on the card (their fp16 cases: the dtype
+    parametrizations of the paged, megakernel and codec tests); a type
+    none of them takes (float64) still raises rather than running another
+    way."""
     from apex_tpu_torch.comm import quantize as pq
     q, pools, cfg, bt, ctx = _paged(dev, torch.float32, 4, 2, 64, 16, 2, 1)
-    h16 = KVCacheConfig(num_layers=1, num_heads=2, head_dim=64,
-                        num_blocks=8, block_size=16, dtype=FP16)
-    with pytest.raises(ValueError):
-        paged_attention_fwd(q.half(), {k: v.half() for k, v in pools.items()},
-                            h16, bt, ctx, 0.125)
-    x, lp, layer, _, _, bt, start, _, active = _fused_case(
-        dev, torch.float32, "none", 2, 1)
-    with pytest.raises(ValueError, match="fp32 or bf16"):
-        fused_layer_fwd(x.half(), lp, layer,
-                        GPTConfig(vocab_size=128, max_seq=256, hidden=256,
-                                  num_layers=1, num_heads=4, dtype=FP16),
-                        KVCacheConfig(num_layers=1, num_heads=4,
-                                      head_dim=64, num_blocks=16,
-                                      block_size=16, dtype=FP16),
-                        bt, start, None, active)
-    with pytest.raises(ValueError):
-        pq.quantize_blocks(torch.randn(32, 128, device=dev).half())
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        paged_attention_fwd(q.double(),
+                            {k: v.double() for k, v in pools.items()}, cfg,
+                            bt, ctx, 0.125)
+    x, lp, layer, cfg16, kv16, bt, start, _, active = _fused_case(
+        dev, FP16, "none", 2, 1)
+    before = ku.launch_counts().get("megakernel", 0)
+    fused_layer_fwd(x, lp, _clone(layer), cfg16, kv16, bt, start, None,
+                    active)
+    assert ku.launch_counts()["megakernel"] == before + 1
+    with pytest.raises(ValueError, match="x must be"):
+        fused_layer_fwd(x.double(), lp, layer, cfg16, kv16, bt, start, None,
+                        active)
+    with pytest.raises(ValueError, match="float16"):
+        pq.quantize_blocks(torch.randn(32, 128, device=dev).double())
+    codes, _ = pq.quantize_blocks(torch.randn(32, 128, device=dev).half())
+    assert codes.shape == (32, 128)
 
 
 def test_fp8_product_routes_agree(dev):
@@ -1210,7 +1213,8 @@ def _quant_pools(dev, dtype, mode, n, heads, hd, bs, mb, seed):
     return q, layer, cfg, bt, ctx
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("mode", list(QUANT))
 @pytest.mark.parametrize("n,heads,hd,bs,mb", [
     (8, 12, 64, 16, 8), (3, 2, 32, 8, 3), (5, 4, 128, 16, 5)])
@@ -1273,7 +1277,8 @@ def _paged_groups(dev, dtype, mode, slots, g, hd, seed, heads=3, bs=16,
             torch.from_numpy(ctx.astype(np.int32)).to(dev))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("mode", list(PAGED_POOLS))
 @pytest.mark.parametrize("hd", [8, 40, 80, 96, 136, 256])
 @pytest.mark.parametrize("g", [1, 5, 32])
@@ -1289,15 +1294,16 @@ def test_paged_routes_match_plain(dev, dtype, mode, hd, g):
     assert ku.launch_counts()[entry] == before + 1
     want = paged_attention_reference(q, layer, cfg, bt, ctx)
     torch.cuda.synchronize()
-    atol = {torch.float32: 2e-5,
-            torch.bfloat16: 1e-3 if mode == "none" else 1e-2}[dtype]
+    atol = 2e-5 if dtype == torch.float32 else \
+        1e-3 if mode == "none" else 1e-2     # bf16 and fp16: the bf16 gate
     rtol = 2e-5 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     assert not got[0].float().abs().max()        # ctx == 0 -> zeros
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("mode", ["none", "int8", "int4"])
 @pytest.mark.parametrize("hd", [64, 80])
 def test_paged_rows_bitwise_whatever_their_group(dev, dtype, mode, hd):
@@ -1369,7 +1375,10 @@ def _clone(layer):
 MK_TOL = {(torch.float32, False): (1e-4, 1e-4),
           (torch.float32, True): (2e-3, 1e-3),
           (torch.bfloat16, False): (2e-2, 2 ** -6),
-          (torch.bfloat16, True): (2e-2, 2 ** -6)}
+          (torch.bfloat16, True): (2e-2, 2 ** -6),
+          # fp16 held to the bf16 gate
+          (torch.float16, False): (2e-2, 2 ** -6),
+          (torch.float16, True): (2e-2, 2 ** -6)}
 
 
 # (hidden, heads) of the fused layer's head dims: the walks' buckets 64
@@ -1377,7 +1386,8 @@ MK_TOL = {(torch.float32, False): (1e-4, 1e-4),
 MK_WIDTHS = {32: (128, 4), 64: (256, 4), 80: (320, 4), 320: (640, 2)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("mode", ["none", "int8", "int4"])
 @pytest.mark.parametrize("n,q", [(8, 1), (8, 5), (3, 3), (32, 5)])
 @pytest.mark.parametrize("hd", sorted(MK_WIDTHS))
@@ -1437,7 +1447,8 @@ def test_megakernel_matches_plain(dev, dtype, mode, n, q, hd):
 
 
 @pytest.mark.parametrize("mode", ["none", "int4"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("hd", [64, 80, 320])
 @pytest.mark.parametrize("n", [8, 32])
 def test_megakernel_rows_do_not_depend_on_the_batch(dev, mode, dtype, hd, n):
@@ -1487,30 +1498,30 @@ def test_megakernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="pool"):
         fused_layer_fwd(x, lp, {k: v.bfloat16() for k, v in layer.items()},
                         cfg, kv, bt, start, None, active)
-    with pytest.raises(ValueError, match="fp32 or bf16"):
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
         fused_layer_fwd(x.half(), lp, layer,
                         GPTConfig(vocab_size=128, max_seq=256, hidden=256,
                                   num_layers=1, num_heads=4,
                                   dtype=torch.float16),
                         KVCacheConfig(num_layers=1, num_heads=4,
                                       head_dim=64, num_blocks=16,
-                                      block_size=16, dtype=torch.float16),
+                                      block_size=16, dtype=torch.float32),
                         bt, start, None, active)
 
 
 def test_megakernel_smem_mirror_matches_the_kernel(dev):
     """The shared memory the gate counts (kernel_smem_bytes) equals what
-    the kernel's C entry reports, over head dims, both types and every
-    pool format; the budget equals SMEM_LIMIT_BYTES."""
+    the kernel's C entry reports, over head dims, the three types and
+    every pool format; the budget equals SMEM_LIMIT_BYTES."""
     lib = ku.load_kernel("megakernel", mk._SIGNATURES)
     assert lib.fused_layer_smem_budget() == mk.SMEM_LIMIT_BYTES
     for d in (8, 40, 64, 80, 128, 136, 256, 264, 320, 1024):
         for heads in (1, 12):
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
                 for mode, group in ((0, d), (1, d), (2, d), (2, 8)):
                     h = heads * d
                     got = lib.fused_layer_smem_bytes(
-                        h, d, 4 * h, mode, group, int(dt == torch.bfloat16))
+                        h, d, 4 * h, mode, group, ku.dtype_code(dt))
                     assert got == mk.kernel_smem_bytes(h, d, 4 * h, dt, mode,
                                                        group), (d, heads, dt,
                                                                 mode, group)
@@ -1981,7 +1992,8 @@ def test_rms_norm_gate_on_the_card(dev):
         rms_norm(x, w, use_pallas=True)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("bits,block", [(8, 128), (8, 256), (8, 384),
                                         (8, 512), (8, 1024), (8, 1152),
                                         (8, 2048), (8, 8320), (4, 128),
@@ -2016,6 +2028,11 @@ def test_codec_kernels_match_plain_bitwise(dev, dtype, bits, block, seed,
     torch.cuda.synchronize()
     assert torch.equal(q, q_p) and torch.equal(s, s_p)
     assert int(q.abs().max()) <= qmax and float(s[0]) == 1.0
+    if dtype == torch.float16:
+        # upcast inside the kernel, exactly: the fp32 path's codes and
+        # scales on the same values
+        q32, s32 = pq.quantize_blocks(x2d.float(), qmax, seed)
+        assert torch.equal(q, q32) and torch.equal(s, s32)
     y = pq.dequantize_blocks(q, s)
     assert torch.equal(y, pq.dequantize_blocks_reference(q, s))
     if bits == 4:
@@ -2070,8 +2087,9 @@ def test_codec_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="aligned"):
         pq.dequantize_blocks(codes[1:].view(32, 128),
                              torch.ones(32, device=dev))
-    with pytest.raises(ValueError, match="torch.float32 or torch.bfloat16"):
-        pq.quantize_blocks(torch.randn(32, 128, device=dev).half())
+    with pytest.raises(ValueError, match="torch.float32 or torch.bfloat16 "
+                                         "or torch.float16"):
+        pq.quantize_blocks(torch.randn(32, 128, device=dev).double())
     with pytest.raises(ValueError, match="torch.uint8"):
         pq.dequantize_blocks(torch.zeros(32, 64, dtype=torch.int8,
                                          device=dev),
@@ -2472,8 +2490,8 @@ def test_paged_wide_head_dims_match_plain(dev, dtype, mode, hd):
     assert ku.launch_counts()["paged_wide_fwd"] == before + 1
     want = paged_attention_reference(q, layer, cfg, bt, ctx)
     torch.cuda.synchronize()
-    atol = {torch.float32: 2e-5,
-            torch.bfloat16: 1e-3 if mode == "none" else 1e-2}[dtype]
+    atol = 2e-5 if dtype == torch.float32 else \
+        1e-3 if mode == "none" else 1e-2     # bf16 and fp16: the bf16 gate
     rtol = 2e-5 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)

@@ -398,12 +398,17 @@ def _c_entry_accepts(cfg, kv_cfg) -> bool:
                                   re.S):
         vals = dict(re.findall(r"(\w+) = (\d+)", body))
         gemm[tname] = {k: int(v) for k, v in vals.items()}
+    # a type that takes another's geometry: struct Gemm<A> : Gemm<B> {};
+    for tname, base in re.findall(r"struct Gemm<(\w+)> : Gemm<(\w+)> \{\};",
+                                  src):
+        gemm[tname] = gemm[base]
     h, heads, d, f = (cfg.hidden, cfg.num_heads, cfg.head_dim,
                       cfg.ffn_hidden)
     if h != heads * d or d % 8 or f % 8 or f <= 0:
         return False
-    bf16 = cfg.dtype == torch.bfloat16
-    g = gemm["bf16" if bf16 else "float"]
+    bf16 = cfg.dtype in (torch.bfloat16, torch.float16)  # a half type
+    g = gemm[{torch.float32: "float", torch.bfloat16: "bf16",
+              torch.float16: "__half"}[cfg.dtype]]
     esz = 2 if bf16 else 4
 
     def gemm_bytes(kw, k, rows, ln, raw=False):
@@ -445,7 +450,7 @@ def _c_entry_accepts(cfg, kv_cfg) -> bool:
 
 
 def test_megakernel_gate_agrees_with_the_kernels_limits(monkeypatch):
-    """Over head dims 8-1024, 1-64 heads, both types and every pool
+    """Over head dims 8-1024, 1-64 heads, the three types and every pool
     format, the gate (where the kernel itself must run) admits exactly
     the shapes the C entry and its launch take, mirrored from the
     source's constants; every refusal names the shared memory."""
@@ -454,7 +459,7 @@ def test_megakernel_gate_agrees_with_the_kernels_limits(monkeypatch):
     for d in (8, 16, 40, 64, 80, 96, 128, 136, 200, 256, 264, 320, 512,
               1024):
         for heads in (1, 2, 12, 25, 64):
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
                 for mode in KV_MODES:
                     cfg = GPTConfig(hidden=heads * d, num_heads=heads,
                                     vocab_size=97, dtype=dt)
@@ -646,20 +651,24 @@ def test_megakernel_refusal_reasons(monkeypatch):
 def test_megakernel_refuses_the_dtype_and_its_shared_memory(monkeypatch,
                                                             what):
     """The two refusals left where the kernel itself must run, each named
-    in its reason: a model type other than fp32 / bf16, and a shape whose
-    shared memory (reported in bytes) is over the kernel's budget."""
+    in its reason: pools in a type other than the model's (fp32, bf16 and
+    fp16 models each take their own), and a shape whose shared memory
+    (reported in bytes) is over the kernel's budget."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     if what == "dtype":
-        cfg = GPTConfig(dtype=torch.float16)
-        kvc = KVCacheConfig(num_layers=12, num_heads=12, head_dim=64,
-                            num_blocks=8, dtype=torch.float16)
-        assert "fp32 or bf16" in megakernel_refusal(cfg, kvc,
-                                                    allow_interpret=False)
-        flag = GPTConfig()
-        f32 = KVCacheConfig(num_layers=12, num_heads=12, head_dim=64,
-                            num_blocks=8, dtype=torch.float32)
-        assert "fp32 or bf16" in megakernel_refusal(flag, f32,
-                                                    allow_interpret=False)
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            cfg = GPTConfig(dtype=dt)
+            kvc = KVCacheConfig(num_layers=12, num_heads=12, head_dim=64,
+                                num_blocks=8, dtype=dt)
+            assert megakernel_refusal(cfg, kvc, allow_interpret=False) \
+                is None, dt
+        for model, pool in ((torch.float16, torch.bfloat16),
+                            (torch.bfloat16, torch.float32),
+                            (torch.float16, torch.float32)):
+            kvc = KVCacheConfig(num_layers=12, num_heads=12, head_dim=64,
+                                num_blocks=8, dtype=pool)
+            assert "fp32, bf16 or fp16" in megakernel_refusal(
+                GPTConfig(dtype=model), kvc, allow_interpret=False)
         return
     big = GPTConfig(hidden=64 * 1024, num_heads=512, vocab_size=128)
     kv_big = KVCacheConfig(num_layers=12, num_heads=512, head_dim=128,

@@ -155,16 +155,17 @@ def test_paged_splits_are_a_function_of_the_capacity_alone():
 def test_route_table():
     for d in range(8, 257, 8):
         assert dec._paged_route(torch.bfloat16, d) == "paged_mma_fwd"
+        assert dec._paged_route(torch.float16, d) == "paged_mma_fwd"
         assert dec._paged_route(torch.float32, d) == "paged_attention_fwd"
     for d in (4, 12, 44, 100, 252):
         with pytest.raises(ValueError, match=f"head_dim {d} is not a "
                                              f"multiple of 8"):
             dec._paged_route(torch.bfloat16, d)
     for d in (264, 512, 1024, 2056, 4096):
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             assert dec._paged_route(dt, d) == "paged_wide_fwd"
-    with pytest.raises(ValueError, match="fp32 or bf16"):
-        dec._paged_route(torch.float16, 64)
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        dec._paged_route(torch.float64, 64)
     assert set(dec._ROUTES) == {"paged_mma_fwd", "paged_attention_fwd",
                                 "paged_wide_fwd"}
     assert dec._ROUTES["paged_mma_fwd"][0] == "paged_mma"
