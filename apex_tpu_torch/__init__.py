@@ -28,7 +28,13 @@ bf16 and fp16; so do the serving kernels and the codec), BERT
 ``contrib.sparsity`` (ASP) modules, the example models (``models``:
 ResNet over ``parallel.sync_batchnorm``'s one-device path, DCGAN),
 ``RNN``, ``reparameterization`` and ``_autocast_utils``: every Pallas
-kernel of ``apex_tpu`` has its CUDA counterpart.
+kernel of ``apex_tpu`` has its CUDA counterpart. Data parallelism rides
+``torch.distributed``: the mesh (``parallel.mesh``), process bootstrap
+(``parallel.multiproc``), the compressed collectives over the codec
+kernels with error feedback (``comm.collectives``,
+``comm.error_feedback``, ``comm.accounting``), DDP
+(``parallel.distributed``), SyncBatchNorm across devices,
+``contrib.groupbn`` and ``contrib.bottleneck``.
 """
 
 from apex_tpu_torch._device import resolve_device  # noqa: F401

@@ -253,7 +253,8 @@ def apply_grads(state: AmpState, grads: Any,
     """Unscale, check for overflow, ``update_fn(grads, masters) ->
     new_masters`` guarded by the skip, update the scale. Returns
     ``(new_state, skipped)`` (new master tensors, as JAX). ``mp_group``:
-    a ``torch.distributed`` group to MAX-reduce the flag over."""
+    a ``torch.distributed`` group, or the mesh's axis names (JAX's
+    ``mp_axes``), to MAX-reduce the flag over."""
     grads = _as_tree(grads, state.master_params)
     grads, new_scaler_state, skipped = _unscale_and_check(state, grads,
                                                           mp_group)

@@ -144,21 +144,34 @@ class LossScaler:
 
     # -- distributed ------------------------------------------------------
     @staticmethod
-    def all_reduce_found_inf(found_inf: torch.Tensor, group=None
-                             ) -> torch.Tensor:
-        """MAX all-reduce of the overflow flag over ``group`` (a
-        ``torch.distributed`` process group of the model-parallel ranks),
-        so every rank skips together. JAX reduces over mesh axes inside
-        its mesh program; the port's mesh is ROADMAP A7, so a group must
-        be given."""
-        if group is None:
-            raise NotImplementedError(
-                "all_reduce_found_inf needs a torch.distributed group: the "
-                "port's mesh and parallel_state are not ported (ROADMAP A7)")
+    def all_reduce_found_inf(found_inf: torch.Tensor, axis_names=None,
+                             group=None) -> torch.Tensor:
+        """MAX all-reduce of the overflow flag, so every rank skips
+        together: over the current mesh's ``axis_names`` (a name or a
+        sequence, JAX's ``lax.pmax``: one all-reduce an axis, the max over
+        their product), or over ``group`` (a ``torch.distributed`` process
+        group; also accepted in ``axis_names``' place). A new tensor."""
+        if (axis_names is None) == (group is None):
+            raise TypeError(
+                "all_reduce_found_inf takes the mesh's axis_names (JAX's "
+                "argument) or group= (a torch.distributed group): exactly "
+                "one of them")
+        from apex_tpu_torch.comm.collectives import all_reduce
+        from apex_tpu_torch.parallel.mesh import resolve_axis
+
         import torch.distributed as dist
 
         out = found_inf.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        if group is not None:
+            axes = [group]
+        elif isinstance(axis_names, (list, tuple)):
+            axes = list(axis_names)
+        else:
+            axes = [axis_names]         # one name, or a process group
+        for axis in axes:
+            g, world, _ = resolve_axis(axis)
+            all_reduce(out, g, world, op=dist.ReduceOp.MAX,
+                       tag="found_inf")
         return out
 
     # -- checkpointing ------------------------------------------------------

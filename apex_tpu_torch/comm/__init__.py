@@ -1,8 +1,30 @@
-"""apex_tpu_torch.comm — so far the blockwise codec (counterpart of
-``apex_tpu.comm.quantize``, with its quantize and dequantize kernels in
-``csrc/quantize.cu``) that the quantized KV cache uses; the collectives
-are ROADMAP §A item 7."""
+"""apex_tpu_torch.comm (counterpart of ``apex_tpu.comm``): the blockwise
+codec (``quantize``, with its kernels in ``csrc/quantize.cu``), the
+compressed all-reduce and reduce-scatter over ``torch.distributed``
+(``collectives``), the error-feedback residual (``error_feedback``) and
+the bytes-on-wire record of the issued collectives (``accounting``).
+``overlap`` (the decomposed collective matmuls) is tensor-parallel:
+ROADMAP A7c."""
 
+from apex_tpu_torch.comm.accounting import (  # noqa: F401
+    CollectiveReport,
+    collective_report,
+    record_collectives,
+    wire_bytes,
+)
+from apex_tpu_torch.comm.collectives import (  # noqa: F401
+    CompressionConfig,
+    all_gather_wire_bytes,
+    allreduce_wire_bytes,
+    compressed_allreduce,
+    compressed_psum_scatter,
+    psum_scatter_wire_bytes,
+)
+from apex_tpu_torch.comm.error_feedback import (  # noqa: F401
+    init_error_feedback,
+    load_state_dict,
+    state_dict,
+)
 from apex_tpu_torch.comm.quantize import (  # noqa: F401
     QMAX,
     QMAX4,

@@ -374,8 +374,18 @@ def _dequantize(q_flat, scales, block_size: int, use_pallas, packed: bool):
     if n % block_size != 0:
         raise ValueError(f"size {n} not a multiple of block_size "
                          f"{block_size}")
-    if (_use_pallas(q_flat, block_size, use_pallas, "dequantize", n=n)
-            and ku.use_kernel(q_flat)):
+    return _dequantize_on(
+        q_flat, scales, block_size,
+        _use_pallas(q_flat, block_size, use_pallas, "dequantize", n=n),
+        packed)
+
+
+def _dequantize_on(q_flat, scales, block_size: int, kernels: bool,
+                   packed: bool):
+    """The kernel for a CUDA tensor when ``kernels``, else the reference
+    on the (unpacked) codes — the dequantize kernel's plain version is
+    the same product."""
+    if kernels and ku.use_kernel(q_flat):
         width = block_size // 2 if packed else block_size
         return dequantize_blocks(q_flat.reshape(-1, width).contiguous(),
                                  scales.float().contiguous(),

@@ -6,7 +6,7 @@ follow flax's tree (``conv_init``, ``bn_init``, ``BottleneckBlock_3``,
 ``convert.module_from_numpy`` carries a flax tree (params and
 ``batch_stats``) across. NHWC in and out; every conv is lax ``"SAME"``
 (``models.layers``); the norm is :class:`SyncBatchNorm` (``make_norm``:
-local statistics, or a named axis, which is ROADMAP A7). The convolutions
+local statistics, or across a mesh axis on the current mesh). The convolutions
 and the head are cuDNN / cuBLAS calls, as JAX leaves them to XLA: no TPU
 kernel of the JAX package runs here.
 """
@@ -26,8 +26,8 @@ from apex_tpu_torch.parallel.sync_batchnorm import DP_AXIS, SyncBatchNorm
 
 def make_norm(sync_bn: bool = False, axis_name: str = "dp",
               momentum: float = 0.1, eps: float = 1e-5):
-    """JAX's norm factory: :class:`SyncBatchNorm` across ``axis_name``
-    (ROADMAP A7: raises when built) or this device's batch."""
+    """JAX's norm factory: :class:`SyncBatchNorm` across ``axis_name`` (on
+    the current mesh) or this device's batch."""
     return functools.partial(SyncBatchNorm, momentum=momentum, eps=eps,
                              axis_name=axis_name if sync_bn else None)
 

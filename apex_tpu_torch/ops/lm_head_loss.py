@@ -410,11 +410,11 @@ def lm_head_loss(x, w, targets, axis_name: Optional[str] = None):
     ``targets``, differentiable in ``x`` and ``w``. On CUDA the kernels
     take fp32, bf16 or fp16 with ``h % 128 == 0`` and raise on anything else.
     ``axis_name`` (the vocab-sharded tensor-parallel form) is
-    multi-device and not ported (ROADMAP A7)."""
+    multi-device and not ported (ROADMAP A7c)."""
     if axis_name is not None:
         raise NotImplementedError(
             f"lm_head_loss(axis_name={axis_name!r}): the vocab-parallel "
-            f"loss is multi-device and not ported yet (ROADMAP A7)")
+            f"loss is multi-device and not ported yet (ROADMAP A7c)")
     h = x.shape[-1]
     lead = targets.shape
     x2 = x.reshape(-1, h)

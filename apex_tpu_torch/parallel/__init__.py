@@ -1,14 +1,36 @@
-"""The single-device parts of ``apex_tpu/parallel`` ported so far: LARC and
-``SyncBatchNorm``'s one-device path (``sync_batchnorm``: a named mesh
-axis raises). The mesh, DDP and the cross-device statistics are
-multi-device (ROADMAP A7)."""
+"""Data parallelism (counterpart of ``apex_tpu/parallel``): the mesh over
+``torch.distributed`` (``mesh``), process bootstrap and the spawn helper
+(``multiproc``), DDP and ``Reducer`` (``distributed``), SyncBatchNorm
+across devices (``sync_batchnorm``) and LARC. ZeRO, FSDP and
+``plan.py`` are ROADMAP A7b; tensor, sequence and pipeline parallelism
+A7c-d."""
 
 # the optimizers package imports LARC back: load it first
 import apex_tpu_torch.optimizers  # noqa: F401
 from apex_tpu_torch.parallel.larc import LARC, larc_transform  # noqa: F401
-from apex_tpu_torch.parallel.sync_batchnorm import (  # noqa: F401
+from apex_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXIS_ORDER,
     DP_AXIS,
+    PP_AXIS,
+    SP_AXIS,
+    TP_AXIS,
+    Mesh,
+    build_hybrid_mesh,
+    build_mesh,
+    get_mesh,
+    model_parallel_axes,
+)
+from apex_tpu_torch.parallel.sync_batchnorm import (  # noqa: F401
     SyncBatchNorm,
     convert_syncbn_model,
     create_syncbn_process_group,
 )
+
+
+def __getattr__(name):
+    if name in ("DistributedDataParallel", "Reducer"):
+        from apex_tpu_torch.parallel import distributed
+
+        return getattr(distributed, name)
+    raise AttributeError(
+        f"module 'apex_tpu_torch.parallel' has no attribute {name!r}")

@@ -1,19 +1,25 @@
-"""SyncBatchNorm's one-device path (counterpart of
+"""Synchronized BatchNorm (counterpart of
 ``apex_tpu/parallel/sync_batchnorm.py``).
 
 JAX's module computes its own statistics, and so does this one: fp32 sum
-and sum of squares over every axis but the channel one, mean = sum /
-count, var = sum_sq / count - mean² clamped at 0 (JAX clamps what its
-E[x²] − E[x]² cancellation can push below 0), the running var updated
-with the unbiased m / (m − 1) of the batch's variance. PyTorch's
-``F.batch_norm`` forms another variance and is not used. Channels are
-last (NHWC), as JAX's layout; ``channel_last=False`` takes channel-first
-input (what :func:`convert_syncbn_model` makes of a ``nn.BatchNorm*``).
+and sum of squares over every axis but the channel one, packed with the
+count as ``[sum, sum_sq, count]``; across devices one all-reduce of the
+pack over the mesh axis (JAX: one ``lax.psum``); mean = sum / count, var
+= sum_sq / count - mean² clamped at 0, the running var updated with the
+unbiased m / (m − 1) of the batch's variance. PyTorch's ``F.batch_norm``
+forms another variance and is not used. Channels are last (NHWC), as
+JAX's layout; ``channel_last=False`` takes channel-first input (what
+:func:`convert_syncbn_model` makes of a ``nn.BatchNorm*``).
 
-The cross-device statistics (a named mesh axis, the process groups of
-:func:`create_syncbn_process_group`) are ROADMAP A7: ``axis_name`` other
-than ``None`` raises, JAX's default ``"dp"`` included (JAX runs that
-default only inside a mesh).
+The all-reduce carries an autograd rule (its backward all-reduces the
+gradient, the transpose of JAX's psum), so the backward's ``mean_dy`` /
+``mean_dy_xmu`` sums cross the devices as in the reference. BN groups
+(:func:`create_syncbn_process_group`) are JAX's: every rank all-gathers
+the packs of the whole axis and sums its own contiguous group in rank
+order, so every member of a group adds in one order (no subgroup is
+made). ``axis_name=None`` is this device's batch; a named axis needs the
+current mesh (``parallel.mesh.build_mesh``), as JAX's needs its mesh
+program.
 """
 
 from __future__ import annotations
@@ -24,22 +30,47 @@ import torch
 import torch.nn as nn
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
+from apex_tpu_torch.comm import collectives as cc
+from apex_tpu_torch.parallel.mesh import DP_AXIS, resolve_axis
 
-DP_AXIS = "dp"   # JAX's data-parallel mesh axis name (apex_tpu.parallel.mesh)
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group, differentiable: the backward sums the
+    gradient over the group (the transpose of ``lax.psum``)."""
+
+    @staticmethod
+    def forward(ctx, t, group, world, tag):
+        ctx.group, ctx.world, ctx.tag = group, world, tag
+        return cc.all_reduce(t.clone(), group, world, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (cc.all_reduce(g.clone(), ctx.group, ctx.world,
+                              tag=ctx.tag + ".grad"), None, None, None)
 
 
-def _refuse_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise ValueError(
-            f"SyncBatchNorm over the mesh axis {axis_name!r}: cross-device "
-            f"statistics are multi-device work (ROADMAP A7); pass "
-            f"axis_name=None for this device's batch")
+class _AllGather(torch.autograd.Function):
+    """Every rank's tensor stacked in rank order, differentiable: the
+    backward sums each rank's slot of the gradient over the group back to
+    that rank (a reduce-scatter, the transpose of ``lax.all_gather``)."""
+
+    @staticmethod
+    def forward(ctx, t, group, world, tag):
+        ctx.group, ctx.world, ctx.tag = group, world, tag
+        out = cc.all_gather(t.unsqueeze(0), group, world, tag=tag)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (cc.reduce_scatter(g, ctx.group, ctx.world,
+                                  tag=ctx.tag + ".grad")[0],
+                None, None, None)
 
 
 def create_syncbn_process_group(group_size: int, world_size: int):
     """JAX's grouping: ``world_size`` ranks in contiguous groups of
-    ``group_size`` (``None`` for one group); the groups' collectives are
-    ROADMAP A7."""
+    ``group_size`` (``None`` for one group), the ``axis_index_groups``
+    argument of :func:`sync_batch_stats`."""
     if group_size == 0 or group_size >= world_size:
         return None
     if world_size % group_size != 0:
@@ -49,35 +80,60 @@ def create_syncbn_process_group(group_size: int, world_size: int):
             for i in range(0, world_size, group_size)]
 
 
+def _reduce_pack(packed: torch.Tensor, axis_name, axis_index_groups):
+    group, world, index = resolve_axis(axis_name)
+    if axis_index_groups is None:
+        return _AllReduceSum.apply(packed, group, world, "sync_batch_stats")
+    gsize = len(axis_index_groups[0])
+    if any(list(g) != list(range(i * gsize, (i + 1) * gsize))
+           for i, g in enumerate(axis_index_groups)) or \
+            gsize * len(axis_index_groups) != world:
+        raise ValueError(
+            "axis_index_groups must be contiguous, uniform, and aligned "
+            "(group i covers ranks [i*gsize, (i+1)*gsize)) — the groups "
+            "create_syncbn_process_group produces")
+    gathered = _AllGather.apply(packed, group, world, "sync_batch_stats")
+    first = (index // gsize) * gsize
+    total = gathered[first]
+    for r in range(first + 1, first + gsize):
+        total = total + gathered[r]
+    return total
+
+
 def sync_batch_stats(x: torch.Tensor, reduce_axes: Sequence[int],
-                     axis_name: Optional[str] = None,
-                     axis_index_groups=None
+                     axis_name=None, axis_index_groups=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(mean, var, count) per channel in fp32 over ``reduce_axes`` (JAX's
-    ``sync_batch_stats`` on one device: the packed sums, the clamped
-    variance); a named axis raises (ROADMAP A7)."""
-    _refuse_axis(axis_name)
+    """(mean, var, total count) per channel in fp32 over ``reduce_axes``
+    and, with ``axis_name`` (a mesh axis name or a process group), over
+    the axis (or each rank's group of ``axis_index_groups``): one
+    all-reduce (or all-gather) of the packed ``[sum, sum_sq, count]``,
+    differentiable."""
     x32 = x.float()
     dims = tuple(reduce_axes)
     total = x32.sum(dims)
-    total_sq = (x32 * x32).sum(dims)
     count = 1
     for a in dims:
         count *= x.shape[a]
+    packed = torch.stack([total, (x32 * x32).sum(dims),
+                          torch.full_like(total, float(count))])
+    if axis_name is not None:
+        packed = _reduce_pack(packed, axis_name, axis_index_groups)
+    total, total_sq, n = packed.unbind(0)
     # a tensor divisor: torch divides by a Python number through its
     # reciprocal on the card, XLA by the number itself
-    n = torch.full_like(total, float(count))
     mean = total / n
     var = torch.clamp(total_sq / n - mean * mean, min=0.0)
     return mean, var, n
 
 
 class SyncBatchNorm(nn.Module):
-    """JAX's ``SyncBatchNorm`` on one device, with flax's names: params
-    ``scale`` and ``bias`` (``param_dtype``), running statistics ``mean``
-    and ``var`` as fp32 buffers (flax's ``batch_stats``). Call
-    ``module(x, use_running_average=False)``; training updates the
-    running statistics in place (JAX returns them)."""
+    """JAX's ``SyncBatchNorm`` with flax's names: params ``scale`` and
+    ``bias`` (``param_dtype``), running statistics ``mean`` and ``var`` as
+    fp32 buffers (flax's ``batch_stats``). Call ``module(x,
+    use_running_average=False)``; training updates the running statistics
+    in place (JAX returns them). ``axis_name`` (JAX's default ``"dp"``)
+    and ``axis_index_groups`` take the statistics across devices, on the
+    current mesh; ``None`` is this device's batch."""
 
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5, affine: bool = True,
@@ -88,7 +144,6 @@ class SyncBatchNorm(nn.Module):
                  fuse_relu: bool = False, channel_last: bool = True,
                  device: DeviceLike = None):
         super().__init__()
-        _refuse_axis(axis_name)
         dev = resolve_device(device)
         self.features, self.momentum, self.eps = features, momentum, eps
         self.affine, self.track_running_stats = affine, track_running_stats
@@ -111,7 +166,8 @@ class SyncBatchNorm(nn.Module):
         if use_running_average and self.track_running_stats:
             mean, var = self.mean, self.var
         else:
-            mean, var, m = sync_batch_stats(x, reduce_axes)
+            mean, var, m = sync_batch_stats(x, reduce_axes, self.axis_name,
+                                            self.axis_index_groups)
             if self.track_running_stats:
                 with torch.no_grad():
                     unbiased = var * m / torch.clamp(m - 1.0, min=1.0)
@@ -128,22 +184,29 @@ class SyncBatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def convert_syncbn_model(module: nn.Module, axis_name: Optional[str] = DP_AXIS
-                         ) -> nn.Module:
-    """Apex's ``convert_syncbn_model``: every ``nn.BatchNorm*`` submodule,
-    recursively, replaced by a :class:`SyncBatchNorm` of its features,
-    momentum, eps and affine flags over its channel-first input, its
-    weight, bias and running statistics carried across (the module itself
-    when it is one). ``axis_name`` other than ``None`` raises (ROADMAP
-    A7)."""
-    _refuse_axis(axis_name)
+def convert_syncbn_model(module: nn.Module, axis_name=DP_AXIS,
+                         axis_index_groups=None) -> nn.Module:
+    """Apex's ``convert_syncbn_model``: every batch norm of ``module``,
+    recursively (the module itself when it is one), becomes a
+    :class:`SyncBatchNorm` over ``axis_name`` (and ``axis_index_groups``).
+    A ``nn.BatchNorm*`` becomes one of its features, momentum, eps and
+    affine flags over its channel-first input, its weight, bias and
+    running statistics copied across; a :class:`SyncBatchNorm` is set to
+    the axis in place (a model may also hold its norms in plain lists, as
+    ``models.resnet``'s blocks do)."""
+    if isinstance(module, SyncBatchNorm):
+        # in place: a model may hold its norms in plain lists too
+        module.axis_name = axis_name
+        module.axis_index_groups = axis_index_groups
+        return module
     if isinstance(module, nn.modules.batchnorm._BatchNorm):
         p = next(module.parameters(), None)
         out = SyncBatchNorm(
             module.num_features,
             momentum=0.1 if module.momentum is None else module.momentum,
             eps=module.eps, affine=module.affine,
-            track_running_stats=module.track_running_stats, axis_name=None,
+            track_running_stats=module.track_running_stats,
+            axis_name=axis_name, axis_index_groups=axis_index_groups,
             param_dtype=torch.float32 if p is None else p.dtype,
             channel_last=False,
             device=(p.device if p is not None else
@@ -158,5 +221,6 @@ def convert_syncbn_model(module: nn.Module, axis_name: Optional[str] = DP_AXIS
                 out.var.copy_(module.running_var)
         return out
     for name, child in list(module.named_children()):
-        setattr(module, name, convert_syncbn_model(child, axis_name))
+        setattr(module, name,
+                convert_syncbn_model(child, axis_name, axis_index_groups))
     return module

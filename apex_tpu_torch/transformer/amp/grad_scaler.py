@@ -19,11 +19,13 @@ class GradScaler(LossScaler):
 
     ``axis_names=()`` names no model-parallel axis, as on one device with
     no mesh: :meth:`sync_found_inf` is the identity, as JAX's loop over no
-    axes is. A non-empty ``axis_names`` raises: the mesh and
-    ``parallel_state`` are not ported (ROADMAP A7). ``group`` is the
-    ``torch.distributed`` form: the group of the model-parallel ranks.
-    With neither (JAX's default, every non-dp axis of the installed mesh)
-    :meth:`sync_found_inf` raises, naming A7."""
+    axes is. A non-empty ``axis_names`` raises: JAX reads the
+    model-parallel axes off ``parallel_state``, which is not ported
+    (ROADMAP A7c; ``LossScaler.all_reduce_found_inf`` takes mesh axis
+    names). ``group`` is the ``torch.distributed`` form: the group of the
+    model-parallel ranks. With neither (JAX's default, every non-dp axis
+    of ``parallel_state``'s mesh) :meth:`sync_found_inf` raises, naming
+    A7c."""
 
     def __init__(self, init_scale: float = 2.0 ** 16,
                  growth_factor: float = 2.0, backoff_factor: float = 0.5,
@@ -38,9 +40,9 @@ class GradScaler(LossScaler):
         if self.axis_names:
             raise NotImplementedError(
                 f"GradScaler(axis_names={self.axis_names!r}) reduces over "
-                "mesh axes: the mesh and parallel_state are not ported "
-                "(ROADMAP A7); pass group= (a torch.distributed group) or "
-                "axis_names=() on one device")
+                "parallel_state's model-parallel axes: parallel_state is "
+                "not ported (ROADMAP A7c); pass group= (a torch.distributed "
+                "group) or axis_names=() on one device")
         if self.axis_names is not None and group is not None:
             raise ValueError("GradScaler takes axis_names=() or group=, "
                              "not both")
@@ -55,8 +57,8 @@ class GradScaler(LossScaler):
             raise NotImplementedError(
                 "GradScaler.sync_found_inf needs the model-parallel "
                 "torch.distributed group (GradScaler(group=...)) or "
-                "axis_names=(): parallel_state is not ported (ROADMAP A7)")
-        return LossScaler.all_reduce_found_inf(found_inf, self.group)
+                "axis_names=(): parallel_state is not ported (ROADMAP A7c)")
+        return LossScaler.all_reduce_found_inf(found_inf, group=self.group)
 
     def update_scale(self, state: LossScalerState, found_inf: torch.Tensor,
                      *, synced: bool = True

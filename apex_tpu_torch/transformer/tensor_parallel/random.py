@@ -27,7 +27,7 @@ step that derives its keys here never syncs.
 The tracker and seeds follow JAX's module: :class:`RngStatesTracker`'s
 named streams, ``model_parallel_seed`` (the 2718 offset) and the per-rank
 folds, with the tensor-parallel rank 0 until the port has a tensor-parallel
-group (``rank=``). ``pipeline_stage_key`` waits for pipelining (A7).
+group (``rank=``). ``pipeline_stage_key`` waits for pipelining (A7d).
 
 Checkpointing maps ``jax.checkpoint`` and its save policies onto
 ``torch.utils.checkpoint``: "nothing" recomputes everything, "dots" saves
@@ -182,7 +182,7 @@ def random_bits_tensor(key, numel: int, device=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# seeds and streams (tensor-parallel rank 0 until A7 brings a group)
+# seeds and streams (tensor-parallel rank 0 until A7c brings a group)
 
 
 def model_parallel_key(key, rank: int = 0) -> np.ndarray:

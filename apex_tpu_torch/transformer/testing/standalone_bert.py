@@ -47,7 +47,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
 @dataclasses.dataclass(frozen=True)
 class BertConfig(GPTConfig):
     """GPT's fields (GPT-2-124M's widths by default) and the number of
-    token types. ``megatron_sp`` and ``num_experts`` stay refused (A7)."""
+    token types. ``megatron_sp`` and ``num_experts`` stay refused (A7c, A7d)."""
 
     num_token_types: int = 2
 

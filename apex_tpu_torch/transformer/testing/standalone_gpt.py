@@ -127,11 +127,11 @@ class GPTConfig:
                 f"got {self.remat_policy!r}")
         refused = {
             "megatron_sp": (self.megatron_sp,
-                            "sequence parallelism is multi-device (A7)"),
+                            "sequence parallelism is multi-device (A7c)"),
             "overlap_comm": (self.overlap_comm,
-                             "collective overlap is multi-device (A7)"),
+                             "collective overlap is multi-device (A7c)"),
             "num_experts": (self.num_experts != 0,
-                            "mixture of experts is multi-device (A7)"),
+                            "mixture of experts is multi-device (A7d)"),
         }
         for name, (bad, why) in refused.items():
             if bad:

@@ -146,7 +146,7 @@ class T5Config:
                     f"({self.rel_pos_buckets // 2})")
         refused = {
             "megatron_sp": (self.megatron_sp,
-                            "sequence parallelism is multi-device (A7)"),
+                            "sequence parallelism is multi-device (A7c)"),
         }
         for name, (bad, why) in refused.items():
             if bad:

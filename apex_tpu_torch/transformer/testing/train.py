@@ -53,7 +53,7 @@ def param_leaves(params: Dict[str, Any]):
 
 def build_train_step(cfg: GPTConfig, batch: int, seq: int,
                      device: DeviceLike = None, seed: int = 0,
-                     fused_tail: str = "auto"
+                     fused_tail: str = "auto", ddp=None
                      ) -> Tuple[Callable[[], torch.Tensor], Dict[str, Any],
                                 FusedAdam, torch.Tensor, torch.Tensor]:
     """Returns ``(train_step, params, optimizer, tok, tgt)``; each call of
@@ -64,7 +64,14 @@ def build_train_step(cfg: GPTConfig, batch: int, seq: int,
     and the Adam tail is one kernel per leaf (``"auto"``);
     ``fused_tail="off"`` keeps the op chain. ``dropout_key`` (a threefry
     ``uint32[2]`` the caller derives per step, as JAX's callers do) turns
-    on cfg's dropout rates for that step."""
+    on cfg's dropout rates for that step.
+
+    ``ddp`` (a ``parallel.DistributedDataParallel``) averages the
+    gradients between the backward and the update, its comm state (the
+    EF residuals) carried in ``train_step.ddp_state["comm_state"]``, the
+    step count as the stochastic-rounding seed, its comm metrics (host
+    scalars) in ``train_step.ddp_state["metrics"]``. Without ``ddp`` the
+    step is unchanged."""
     cfg.validate()
     if seq > cfg.max_seq:
         raise ValueError(f"seq ({seq}) exceeds max_seq ({cfg.max_seq})")
@@ -75,7 +82,7 @@ def build_train_step(cfg: GPTConfig, batch: int, seq: int,
     tgt = torch.roll(tok, -1, dims=1)
     step, optimizer = _step_over(
         params, fused_tail,
-        lambda key: gpt_loss(params, tok, tgt, cfg, dropout_key=key))
+        lambda key: gpt_loss(params, tok, tgt, cfg, dropout_key=key), ddp)
     return step, params, optimizer, tok, tgt
 
 
@@ -113,20 +120,47 @@ def _tokens(rng, vocab: int, batch: int, seq: int, dev) -> torch.Tensor:
         rng.integers(0, vocab, (batch, seq)).astype(np.int64)).to(dev)
 
 
-def _step_over(params, fused_tail: str, loss_fn):
+def _step_over(params, fused_tail: str, loss_fn, ddp=None):
     """The step closure over ``loss_fn(dropout_key)`` and a
     ``FusedAdam(lr=1e-4)`` over every leaf of ``params`` (made trainable
-    here)."""
-    for p in param_leaves(params):
+    here); with ``ddp``, its gradient average between the backward and
+    the update."""
+    leaves = param_leaves(params)
+    for p in leaves:
         p.requires_grad_(True)
-    optimizer = FusedAdam(param_leaves(params), lr=1e-4,
-                          fused_tail=fused_tail)
+    optimizer = FusedAdam(leaves, lr=1e-4, fused_tail=fused_tail)
+    state: Dict[str, Any] = {}
+    if ddp is not None:
+        state.update(comm_state=ddp.init_comm_state(leaves), metrics=None,
+                     step=0)
 
     def train_step(dropout_key=None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(dropout_key)
         loss.backward()
+        if ddp is not None:
+            _average(ddp, leaves, state)
         optimizer.step()
         return loss.detach()
 
+    train_step.ddp_state = state
     return train_step, optimizer
+
+
+def _average(ddp, leaves, state: Dict[str, Any]) -> None:
+    """``ddp.average_gradients`` over the leaves' gradients, written back
+    as their ``.grad``; the comm state and metrics kept in ``state``."""
+    from apex_tpu_torch.monitor.metrics import Metrics
+
+    cfg = ddp.compression
+    seed = (state["step"] if cfg is not None and cfg.stochastic_rounding
+            else None)
+    out = ddp.average_gradients(
+        [p.grad for p in leaves], comm_state=state["comm_state"], seed=seed,
+        metrics=Metrics())
+    for p, g in zip(leaves, out[0]):
+        p.grad = g
+    if state["comm_state"] is not None:
+        state["comm_state"] = out[1]
+    state["metrics"] = out[-1]
+    state["step"] += 1

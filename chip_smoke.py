@@ -274,7 +274,23 @@
 13. ``transducer``: joint + RNN-T loss forward and backward in fp32 at B 8,
    T 256, U 64, joint width 512, vocab 1024, the NLL held to an fp64 run
    of the same recursion on the card.
-14. Prints detail lines, the wall seconds of each phase (and of each
+14. ``ddp`` (data parallel, A7a): the GPT-2-124M bf16 step at 8 x 1024
+   with ``DistributedDataParallel`` over the dp axis of ``build_mesh()``
+   on a one-rank NCCL group (a real communicator: ``all_reduce``,
+   ``all_to_all_single`` and ``all_gather_into_tensor`` launch), policies
+   ``none``, ``int8``, ``int8_ef`` and ``int4_ef`` (block 256, 10 M
+   element buckets), 5 steps each beside the same steps without DDP:
+   ``none`` bitwise the no-DDP losses and params, the EF policies within
+   ``DDP_EF_GATE`` of ``none``, ``int8_ef`` bitwise over two runs, each
+   compressed bucket bitwise the plain codec's round trip, the codec
+   kernels' launches the count the bucket list gives, no plain codec
+   call; step and busy ms, the codec's and NCCL's ms a step, peak memory,
+   the wire bytes of the metrics and of the issued collectives.
+15. ``syncbn_dp``: ResNet-50 (the resnet phase's) with its batch norms
+   converted to the dp axis and DDP ``none``, 3 steps bitwise the
+   local-BN run's (losses, masters, running statistics), one statistics
+   all-reduce per BN layer per forward and backward; img/s of both.
+16. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -2978,12 +2994,13 @@ def fused_launches_per_call(torch, ku, params, cfg, dev, spec_k: int):
         "megakernel": cfg.num_layers, "layer_norm_fwd": 1})
 
 
-def profiled(torch, fn, match=()):
+def profiled(torch, fn, match=(), groups=None):
     """Run ``fn`` once under torch.profiler: its wall time, the device's
     busy time (union of its kernel and copy intervals; the device-side
     copies of host annotations such as ``Optimizer.step`` are left out),
-    idle share, the top kernels by device time, and the device time of
-    the kernels whose names hold one of the strings ``match``."""
+    idle share, the top kernels by device time, the device time of the
+    kernels whose names hold one of the strings ``match``, and for each
+    of ``groups`` (name: strings) its kernels' device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3012,7 +3029,15 @@ def profiled(torch, fn, match=()):
             "top": [{"name": k[:80], "count": n, "device_ms": us / 1e3}
                     for k, (n, us) in top],
             "matched_device_ms": sum(us for k, (_, us) in by_name.items()
-                                     if any(m in k for m in match)) / 1e3}
+                                     if any(m in k for m in match)) / 1e3,
+            "group_device_ms": {
+                g: sum(us for k, (_, us) in by_name.items()
+                       if any(m in k for m in ms)) / 1e3
+                for g, ms in (groups or {}).items()},
+            "group_events": {
+                g: {k[:80]: n for k, (n, _) in by_name.items()
+                    if any(m in k for m in ms)}
+                for g, ms in (groups or {}).items()}}
 
 
 def first_mismatch(a, b):
@@ -5810,9 +5835,12 @@ RESNET_PATH = ("ResNet50 at examples/imagenet/main_amp.py's defaults: batch "
                "0.9, weight decay 1e-4), one device, local BN")
 
 
-def resnet_run(torch, dev):
+def resnet_run(torch, dev, sync: bool = False, ddp=None):
     """One ResNet-50 O2 training run from numpy seed 0 (weights from the
-    model's seed, one fixed batch): returns ``step`` and the model."""
+    model's seed, one fixed batch): returns ``step`` and the model (the
+    amp state in ``step.box[0]``). ``sync``: the batch norms converted to
+    the dp axis of the current mesh; ``ddp``: its average of the
+    gradients before the update."""
     import numpy as np
 
     from apex_tpu_torch import amp
@@ -5823,6 +5851,10 @@ def resnet_run(torch, dev):
 
     model = ResNet50(num_classes=RESNET_CLASSES, norm=make_norm(),
                      dtype=torch.bfloat16, device=dev, seed=0)
+    if sync:
+        from apex_tpu_torch.parallel import convert_syncbn_model
+
+        model = convert_syncbn_model(model, axis_name="dp")
     tree = param_tree(model)
     state, _ = amp.initialize(tree, "O2")
     for p, c in zip(tree_leaves(tree), tree_leaves(amp.model_params(state))):
@@ -5842,9 +5874,12 @@ def resnet_run(torch, dev):
         amp.model_params(box[0], out=tree)
         loss = torch.nn.functional.cross_entropy(model(x).float(), y)
         grads = torch.autograd.grad(amp.scale_loss(loss, box[0]), leaves)
+        if ddp is not None:
+            grads = ddp.average_gradients(list(grads))
         box[0], _, _ = amp.apply_grads_with_optimizer(box[0], grads, opt)
         return loss.detach()
 
+    step.box = box
     return step, model
 
 
@@ -6083,6 +6118,473 @@ def rnn_phase(torch, dev, ku):
             "device_busy_ms_per_step": prof["device_busy_ms"],
             "device_idle_share": prof["device_idle_share"],
             "peak_mem_gib": peak, "top": prof["top"]}
+
+
+# ---------------------------------------------------------------------------
+# data parallel (A7a): DDP's compressed gradient wire and SyncBatchNorm
+# over a one-rank NCCL group
+
+DDP_POLICIES = ("none", "int8", "int8_ef", "int4_ef")
+DDP_BATCH, DDP_SEQ = 8, 1024
+DDP_STEPS = 5
+DDP_TIMED = 3
+DDP_PATH = ("GPT-2-124M bf16, 8 x 1024, full remat, fused LM-head loss, "
+            "FusedAdam(lr=1e-4); DistributedDataParallel over the "
+            "dp axis of build_mesh() on a one-rank NCCL group, "
+            "CompressionConfig defaults (block 256, min_elements 2048), "
+            "message size 10 M elements")
+# the largest |loss - none loss| over the 5 steps an EF policy may show:
+# int8_ef JAX's gate (tests/test_comm_mesh.py:488), absolute; int4_ef a
+# share of none's loss drop over the run, set from the CPU rehearsal of
+# this phase on one rank (2.0-3.3 % at hidden 128-256, 2-4 layers)
+DDP_EF_GATE = {"int8_ef": ("abs", 0.02), "int4_ef": ("drop_share", 0.10)}
+# the codec path's nearest round trip on the card: the kernels' codes and
+# scales are the plain versions' bit for bit (the codec phase's gate)
+DDP_USE_PALLAS = None
+# the profile's kernel groups a DDP step is split into (names holding
+# one of the strings): the codec kernels, NCCL's kernels, the copies
+DDP_PROFILE_GROUPS = {"codec": ("quantize_kernel", "dequantize_kernel"),
+                      "nccl": ("nccl", "Nccl"),
+                      "copy": ("Memcpy", "memcpy")}
+SYNCBN_STEPS = 3
+SYNCBN_LATENCY_CALLS = 200
+SYNCBN_PATH = ("ResNet50 as RESNET_PATH, its SyncBatchNorms converted "
+               "(convert_syncbn_model) to the dp axis of build_mesh() on a "
+               "one-rank NCCL group, DistributedDataParallel policy none")
+
+
+class OneRankGroup:
+    """A one-rank process group on this process's card for a phase: NCCL
+    (no fallback: its failure fails the phase), the mesh built over it,
+    torn down on exit."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from apex_tpu_torch.parallel.mesh import build_mesh
+        from apex_tpu_torch.parallel.multiproc import initialize_distributed
+
+        initialize_distributed(device=self.dev)
+        backend = str(dist.get_backend())
+        if self.dev.type == "cuda" and "nccl" not in backend:
+            raise AssertionError(f"the card's group runs {backend}, not "
+                                 f"NCCL")
+        self.mesh = build_mesh()
+        self.backend = backend
+        return self
+
+    def __exit__(self, *exc):
+        from apex_tpu_torch.parallel.multiproc import destroy_distributed
+
+        destroy_distributed()
+
+
+class PlainCodecCalls:
+    """Counts calls of the codec's plain versions and of JAX's reference
+    codes while open (the card's compressed path must make none)."""
+
+    NAMES = ("quantize_blocks_reference", "dequantize_blocks_reference",
+             "_codes")
+
+    def __enter__(self):
+        from apex_tpu_torch.comm import quantize as pq
+
+        self.pq, self.saved, self.calls = pq, {}, 0
+        for name in self.NAMES:
+            fn = getattr(pq, name)
+            self.saved[name] = fn
+
+            def counted(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+
+            setattr(pq, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.pq, name, fn)
+
+
+def ddp_config(policy: str):
+    from apex_tpu_torch.comm import CompressionConfig
+
+    return CompressionConfig(policy=policy, use_pallas=DDP_USE_PALLAS)
+
+
+def ddp_codec_launches(sizes, cfg):
+    """The codec kernels' launches of one DDP step at one rank: each
+    compressed bucket quantizes twice (pass 1, pass 3) and dequantizes
+    twice (the exchanged chunks, the gathered result), and once more
+    under EF (pass 1's error); pass 3's error reads the result."""
+    n = sum(1 for s in sizes if cfg.compresses(s))
+    if not n:
+        return {}
+    return {"quantize_blockwise[nearest]": 2 * n,
+            "dequantize_blockwise": (3 if cfg.error_feedback else 2) * n}
+
+
+def ddp_codec_bound(sizes, cfg, world: int = 1):
+    """Bytes the codec launches of one step must move (each input read
+    once, each output written once) and the byte bound in ms."""
+    from apex_tpu_torch.comm.quantize import padded_size
+
+    code = cfg.bits / 8.0
+    total = 0.0
+    for s in sizes:
+        if not cfg.compresses(s):
+            continue
+        m = padded_size(s, cfg.block_size * world)
+        side = 4.0 * m / cfg.block_size
+        quant = 4.0 * m + code * m + side               # fp32 in
+        deq = code * m + side + 4.0 * m                  # fp32 out
+        total += (quant + quant / world
+                  + deq * (2 + (1 if cfg.error_feedback else 0)))
+    return total, total / HBM_BYTES_PER_S * 1e3
+
+
+def ddp_bucket_check(torch, cfg, flats, residuals):
+    """Each compressed bucket through ``compressed_allreduce`` (the
+    kernels) against the plain codec's chain on the same input: quantize
+    → dequantize → requantize → dequantize with the kernels' plain
+    versions, the result bitwise; under EF the new residual bitwise the
+    plain (x + r − dq1) + (dq1 − dq2) and within fp32 rounding of (x + r)
+    − round trip."""
+    from apex_tpu_torch.comm import quantize as pq
+    from apex_tpu_torch.comm.collectives import (_pad_to,
+                                                 compressed_allreduce)
+
+    qmax, packed = ((pq.QMAX4, True) if cfg.bits == 4
+                    else (pq.QMAX, False))
+    bsz = cfg.block_size
+    checked, worst = 0, 0.0
+    for flat, r in zip(flats, residuals):
+        n = flat.numel()
+        if not cfg.compresses(n):
+            continue
+        out, new_r = compressed_allreduce(flat, "dp", cfg, residual=r)
+        x = flat.float() if r is None else flat.float() + r
+        padded = _pad_to(x, pq.padded_size(n, bsz))
+        q1, s1 = pq.quantize_blocks_reference(padded.view(-1, bsz), qmax,
+                                              None, packed)
+        d1 = pq.dequantize_blocks_reference(q1, s1, packed).reshape(-1)
+        q2, s2 = pq.quantize_blocks_reference(d1.view(-1, bsz), qmax,
+                                              None, packed)
+        d2 = pq.dequantize_blocks_reference(q2, s2, packed).reshape(-1)
+        if not torch.equal(out, d2[:n]):
+            bad = int((out != d2[:n]).sum())
+            raise AssertionError(f"ddp {cfg.policy}: a bucket of {n} "
+                                 f"differs from the plain codec's round "
+                                 f"trip at {bad} elements")
+        if cfg.error_feedback:
+            want = ((padded - d1) + (d1 - d2))[:n]
+            if not torch.equal(new_r, want):
+                raise AssertionError(f"ddp {cfg.policy}: the residual of a "
+                                     f"bucket of {n} is not the plain one")
+            direct = (x - d2[:n]).abs()
+            diff = float((new_r - (x - d2[:n])).abs().max())
+            tol = 4 * 2.0 ** -24 * float(x.abs().max() + direct.max())
+            if diff > tol:
+                raise AssertionError(f"ddp {cfg.policy}: residual off "
+                                     f"(x + r) - round trip by {diff:.3e}")
+            worst = max(worst, diff)
+        checked += 1
+    return {"buckets_checked": checked, "residual_vs_direct_max": worst}
+
+
+def ddp_run(torch, dev, ku, ddp, steps: int = DDP_STEPS,
+            timed: int = DDP_TIMED, record: bool = True):
+    """One run of the GPT main path with ``ddp`` (None: no DDP) from
+    seed 0: the first step's launches, collectives and plain codec calls
+    (counts reset just before it, read just after), the losses of
+    ``steps`` steps, the final params, then ``timed`` timed steps and a
+    profiled one."""
+    from apex_tpu_torch.comm import accounting
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step)
+    from apex_tpu_torch.transformer.testing.train import param_leaves
+
+    cfg = GPTConfig()
+    torch.cuda.reset_peak_memory_stats()
+    step, params, _, tok, tgt = build_train_step(
+        cfg, DDP_BATCH, DDP_SEQ, device=dev, seed=0, ddp=ddp)
+    with PlainCodecCalls() as plain, \
+            accounting.record_collectives() as rec:
+        ku.reset_launch_counts()
+        losses = [step()]
+        torch.cuda.synchronize()
+        launches = ku.launch_counts()
+    losses += [step() for _ in range(steps - 1)]
+    losses = torch.stack(losses)
+    out = {"losses": losses, "launches": launches,
+           "plain_codec_calls": plain.calls, "collectives": rec,
+           "params": [p.detach().clone() for p in param_leaves(params)],
+           "state": step.ddp_state, "step": step,
+           "gpt": (params, tok, tgt, cfg)}
+    if record:
+        durs = timed_steps_of(torch, step, timed)
+        out["step_ms"] = [d * 1e3 for d in durs]
+        out["prof"] = profiled(torch, step, groups=DDP_PROFILE_GROUPS)
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def ddp_phase(torch, dev, ku):
+    """DDP on the GPT main path (DDP_PATH) under each of DDP_POLICIES,
+    DDP_STEPS steps each, beside the same steps without DDP, in one
+    process on one rank. Gates: ``none`` bitwise the no-DDP losses and
+    final params; each EF policy within DDP_EF_GATE of ``none`` at every
+    step, every curve finite and falling; ``int8_ef`` twice from one seed
+    bitwise; each compressed bucket bitwise the plain codec's round trip
+    (``ddp_bucket_check``); the first step's launches the train table
+    plus ``ddp_codec_launches`` of the bucket list, no plain codec call on
+    the path; collectives issued on NCCL. Records step and busy ms, the
+    codec's and NCCL's device ms a step (profiler), peak memory, the
+    metrics' and ``collective_report``'s wire bytes (0 at one rank: the
+    ring model's (W-1)/W) and the modeled bytes at 8 ranks."""
+    from apex_tpu_torch.comm import accounting
+    from apex_tpu_torch.comm.collectives import allreduce_wire_bytes
+    from apex_tpu_torch.optimizers._common import tree_leaves
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.transformer.testing import gpt_loss
+
+    result = {"path": DDP_PATH, "steps": DDP_STEPS, "policies": {}}
+    with OneRankGroup(torch, dev) as grp:
+        result["backend"] = grp.backend
+        result["mesh"] = dict(grp.mesh.shape)
+        base = ddp_run(torch, dev, ku, None)
+        base_vals = base["losses"].tolist()
+        if TRAIN_LAUNCHES and base["launches"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"no-DDP step launches {base['launches']}"
+                                 f", expected {TRAIN_LAUNCHES}")
+        result["no_ddp"] = {
+            "losses": base_vals, "step_ms": base["step_ms"],
+            "step_ms_p50": sorted(base["step_ms"])[DDP_TIMED // 2],
+            "device_busy_ms": base["prof"]["device_busy_ms"],
+            "peak_mem_gib": base["peak_mem_gib"]}
+        base_params = base.pop("params")
+        del base
+        torch.cuda.empty_cache()
+        for policy in DDP_POLICIES:
+            cfg = ddp_config(policy)
+            ddp = DistributedDataParallel(compression=cfg)
+            run = ddp_run(torch, dev, ku, ddp)
+            vals = run["losses"].tolist()
+            if not all(math.isfinite(v) for v in vals) or \
+                    not vals[-1] < vals[0]:
+                raise AssertionError(f"ddp {policy}: loss did not fall: "
+                                     f"{vals}")
+            leaves = run["params"]
+            sizes = [sum(leaves[i].numel() for i in idxs)
+                     for _, idxs in ddp.buckets(leaves)]
+            want = {**TRAIN_LAUNCHES, **ddp_codec_launches(sizes, cfg)}
+            if TRAIN_LAUNCHES and run["launches"] != want:
+                raise AssertionError(f"ddp {policy}: launches "
+                                     f"{run['launches']}, expected {want}")
+            if run["plain_codec_calls"] and DDP_USE_PALLAS is None:
+                raise AssertionError(f"ddp {policy}: {run['plain_codec_calls']}"
+                                     f" plain codec calls on the path")
+            rec = run["collectives"]
+            rep = accounting.collective_report(rec)
+            tagged = {t: sum(1 for c in rec if c.tag == t)
+                      for t in sorted({c.tag for c in rec})}
+            if policy == "none":
+                if not torch.equal(run["losses"], torch.tensor(
+                        base_vals, device=run["losses"].device)) or not all(
+                        torch.equal(a, b) for a, b in zip(leaves,
+                                                          base_params)):
+                    raise AssertionError("ddp none: not bitwise the no-DDP "
+                                         "steps")
+            gap = max(abs(a - b) for a, b in zip(vals, base_vals))
+            if policy in DDP_EF_GATE:
+                kind, tol = DDP_EF_GATE[policy]
+                limit = tol * (base_vals[0] - base_vals[-1]) \
+                    if kind == "drop_share" else tol
+                if gap > limit:
+                    raise AssertionError(f"ddp {policy}: |loss - none| "
+                                         f"{gap:.4f} above {limit:.4f}")
+            check = {}
+            if cfg.enabled:
+                params, tok, tgt, gcfg = run["gpt"]
+                p_leaves = [p for p in tree_leaves(params)]
+                grads = torch.autograd.grad(gpt_loss(params, tok, tgt, gcfg),
+                                            p_leaves)
+                state = run["state"]["comm_state"]
+                flats, res = [], []
+                for _, idxs in ddp.buckets(list(grads)):
+                    flats.append(torch.cat([grads[i].reshape(-1).float()
+                                            for i in idxs]))
+                    res.append(None if state is None else torch.cat(
+                        [state[i].reshape(-1) for i in idxs]))
+                check = ddp_bucket_check(torch, cfg, flats, res)
+                del grads, flats, res
+            metrics = run["state"]["metrics"].as_dict()
+            nbytes, bound = ddp_codec_bound(sizes, cfg)
+            prof = run["prof"]
+            result["policies"][policy] = {
+                "losses": vals, "max_gap_to_none": gap,
+                "launches_first_step": run["launches"],
+                "codec_launches_per_step": ddp_codec_launches(sizes, cfg),
+                "plain_codec_calls": run["plain_codec_calls"],
+                "buckets": len(sizes), "bucket_elements": sizes,
+                "compressed_buckets": sum(1 for s in sizes
+                                          if cfg.compresses(s)),
+                "bucket_check": check,
+                "step_ms": run["step_ms"],
+                "step_ms_p50": sorted(run["step_ms"])[DDP_TIMED // 2],
+                "device_busy_ms": prof["device_busy_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "codec_ms_per_step": prof["group_device_ms"]["codec"],
+                "nccl_ms_per_step": prof["group_device_ms"]["nccl"],
+                "copy_ms_per_step": prof["group_device_ms"]["copy"],
+                "group_events": prof["group_events"],
+                "top": prof["top"],
+                "codec_bytes_per_step": nbytes,
+                "codec_bound_ms_per_step": bound,
+                "peak_mem_gib": run["peak_mem_gib"],
+                "metrics": metrics,
+                "report": {"counts": rep.counts,
+                           "result_bytes": rep.result_bytes,
+                           "wire_bytes": rep.wire_bytes,
+                           "by_tag": tagged},
+                "modeled_wire_bytes_8_ranks": sum(
+                    allreduce_wire_bytes(s, 2, 8, cfg) for s in sizes),
+                "modeled_fp32_wire_bytes_8_ranks": sum(
+                    allreduce_wire_bytes(s, 4, 8, None) for s in sizes)}
+            if policy == "int8_ef":
+                again = ddp_run(torch, dev, ku, DistributedDataParallel(
+                    compression=cfg), record=False)
+                if not torch.equal(run["losses"], again["losses"]):
+                    raise AssertionError("ddp int8_ef: two runs from one "
+                                         "seed differ")
+                result["policies"][policy]["bitwise_repeat"] = True
+                del again
+            del run, leaves
+            torch.cuda.empty_cache()
+    return result
+
+
+def syncbn_dp_phase(torch, dev, ku):
+    """ResNet-50 (RESNET_PATH) with its SyncBatchNorms converted to the dp
+    axis of a one-rank NCCL group and DDP ``none`` (SYNCBN_PATH) against
+    the local-BN run, SYNCBN_STEPS steps each from one seed under cuDNN's
+    deterministic algorithms: the loss curves, the final masters and the
+    running statistics bitwise equal; one all-reduce of the packed
+    statistics per BN layer per forward (and one of their gradients per
+    backward), counted from the issued collectives; img/s of both."""
+    import torch.backends.cudnn as cudnn
+
+    from apex_tpu_torch.comm import accounting
+    from apex_tpu_torch.optimizers._common import tree_leaves
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
+
+    was = (cudnn.deterministic, cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = {}
+    try:
+        with OneRankGroup(torch, dev) as grp:
+            for label in ("local", "sync"):
+                sync = label == "sync"
+                step, model = resnet_run(
+                    torch, dev, sync=sync,
+                    ddp=DistributedDataParallel() if sync else None)
+                bns = [m for m in model.modules()
+                       if isinstance(m, SyncBatchNorm)]
+                if sync != all(m.axis_name == "dp" for m in bns):
+                    raise AssertionError(f"syncbn_dp {label}: axis names "
+                                         f"{[m.axis_name for m in bns]}")
+                with accounting.record_collectives() as rec:
+                    losses = [step()]
+                    torch.cuda.synchronize()
+                losses += [step() for _ in range(SYNCBN_STEPS - 1)]
+                durs = timed_steps_of(torch, step, SYNCBN_STEPS)
+                runs[label] = {
+                    "losses": torch.stack(losses),
+                    "masters": [t.clone() for t in tree_leaves(
+                        step.box[0].master_params)],
+                    "stats": [t.clone() for m in bns
+                              for t in (m.mean, m.var)],
+                    "bn_layers": len(bns), "durs": durs,
+                    "tags": {t: sum(1 for c in rec if c.tag == t)
+                             for t in sorted({c.tag for c in rec})},
+                    "kinds": accounting.collective_report(rec).counts}
+                runs[label]["prof"] = profiled(torch, step,
+                                               groups=DDP_PROFILE_GROUPS)
+                del step, model, bns
+                torch.cuda.empty_cache()
+            runs["latency"] = allreduce_latency(torch, dev, grp.mesh)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was[:2]
+        torch.use_deterministic_algorithms(was[2])
+    loc, syn = runs["local"], runs["sync"]
+    if not torch.equal(loc["losses"], syn["losses"]):
+        raise AssertionError(f"syncbn_dp: losses differ from local BN: "
+                             f"{loc['losses'].tolist()} vs "
+                             f"{syn['losses'].tolist()}")
+    for what in ("masters", "stats"):
+        if not all(torch.equal(a, b) for a, b in zip(loc[what], syn[what])):
+            raise AssertionError(f"syncbn_dp: {what} differ from local BN")
+    n_bn = syn["bn_layers"]
+    fwd = syn["tags"].get("sync_batch_stats", 0)
+    bwd = syn["tags"].get("sync_batch_stats.grad", 0)
+    if fwd != n_bn or bwd != n_bn or loc["tags"]:
+        raise AssertionError(f"syncbn_dp: {fwd} forward / {bwd} backward "
+                             f"statistics all-reduces for {n_bn} BN layers "
+                             f"(local run: {loc['tags']})")
+    vals = syn["losses"].tolist()
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"syncbn_dp: losses not finite: {vals}")
+    lat = runs["latency"]
+
+    def p50(d):
+        return sorted(d)[len(d) // 2]
+
+    return {"path": SYNCBN_PATH, "steps": SYNCBN_STEPS, "losses": vals,
+            "bitwise_equal_to_local": True, "bn_layers": n_bn,
+            "collectives_first_step": syn["tags"],
+            "collective_kinds_first_step": syn["kinds"],
+            "step_ms_p50": p50(syn["durs"]) * 1e3,
+            "local_step_ms_p50": p50(loc["durs"]) * 1e3,
+            "img_per_s": RESNET_BATCH / p50(syn["durs"]),
+            "local_img_per_s": RESNET_BATCH / p50(loc["durs"]),
+            **{f"{k}_device_busy_ms": runs[k]["prof"]["device_busy_ms"]
+               for k in ("local", "sync")},
+            **{f"{k}_profiled_wall_ms": runs[k]["prof"]["profiled_wall_ms"]
+               for k in ("local", "sync")},
+            "sync_nccl_ms": syn["prof"]["group_device_ms"]["nccl"],
+            "sync_group_events": syn["prof"]["group_events"],
+            "allreduce_latency": lat}
+
+
+def allreduce_latency(torch, dev, mesh, calls: int = SYNCBN_LATENCY_CALLS):
+    """One statistics pack's all-reduce ((3, 2048) fp32, ResNet-50's
+    widest) on the mesh's dp group, ``calls`` in a row after a warm-up:
+    host µs a call (enqueue) and device µs a call (CUDA events)."""
+    import torch.distributed as dist
+
+    x = torch.zeros(3, 2048, device=dev)
+    group = mesh.group("dp")
+    for _ in range(10):
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        dist.all_reduce(x, group=group)
+    end.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"calls": calls, "host_us_per_call": host / calls * 1e6,
+            "device_us_per_call": start.elapsed_time(end) / calls * 1e3,
+            "shape": [3, 2048]}
 
 
 def attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
@@ -6357,6 +6859,8 @@ def main(argv=None) -> int:
     resnet = phase("resnet", (), resnet_phase, torch, dev, ku)
     dcgan = phase("dcgan", (), dcgan_phase, torch, dev, ku)
     rnn = phase("rnn", (), rnn_phase, torch, dev, ku)
+    ddp = phase("ddp", (), ddp_phase, torch, dev, ku)
+    sbn = phase("syncbn_dp", (), syncbn_dp_phase, torch, dev, ku)
     name = torch.cuda.get_device_name(0)
     # the phases' record, written before the kernels line is assembled
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
@@ -6374,7 +6878,7 @@ def main(argv=None) -> int:
               "t5_dropout": t5d, "functional": func, "amp": amp_res,
               "amp_fp16": amp16, "bert": bert, "multihead_attn": mha,
               "transducer": trans, "asp": asp, "resnet": resnet,
-              "dcgan": dcgan, "rnn": rnn}
+              "dcgan": dcgan, "rnn": rnn, "ddp": ddp, "syncbn_dp": sbn}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -7309,6 +7813,57 @@ def main(argv=None) -> int:
           f"{rnn['device_idle_share']:.3f}), peak {rnn['peak_mem_gib']:.2f} "
           f"GiB, launches a step {rnn['launches_per_step']}, losses "
           f"{[round(v, 4) for v in rnn['losses']]} on {card}")
+    # the data-parallel slice: the codec kernels' launches a step on the
+    # DDP path (each compressed bucket's passes), the codec's device ms a
+    # step beside its byte bound, under each compressed policy
+    for kname in ("quantize_blockwise[nearest]", "dequantize_blockwise"):
+        by_name[kname]["ddp"] = {
+            policy: {"launches_per_step": r["codec_launches_per_step"].get(
+                         kname, 0),
+                     "launches_first_step": r["launches_first_step"].get(
+                         kname, 0),
+                     "codec_ms_per_step": r["codec_ms_per_step"],
+                     "codec_bound_ms_per_step": r["codec_bound_ms_per_step"],
+                     "path": DDP_PATH}
+            for policy, r in ddp["policies"].items() if policy != "none"}
+    base = ddp["no_ddp"]
+    print(f"ddp {DDP_PATH} ({ddp['backend']}, mesh {ddp['mesh']}): no DDP "
+          f"step_ms_p50 {base['step_ms_p50']:.2f} busy ms "
+          f"{base['device_busy_ms']:.2f} peak {base['peak_mem_gib']:.2f} GiB"
+          f" losses {[round(v, 4) for v in base['losses']]} on {card}")
+    for policy, r in ddp["policies"].items():
+        m = r["metrics"]
+        print(f"ddp {policy}: step_ms_p50 {r['step_ms_p50']:.2f} busy ms "
+              f"{r['device_busy_ms']:.2f} (idle share "
+              f"{r['device_idle_share']:.3f}), codec "
+              f"{r['codec_ms_per_step']:.4f} ms a step (bound "
+              f"{r['codec_bound_ms_per_step']:.4f}), NCCL "
+              f"{r['nccl_ms_per_step']:.4f} ms, copies "
+              f"{r['copy_ms_per_step']:.4f} ms, peak {r['peak_mem_gib']:.2f} "
+              f"GiB, {r['compressed_buckets']} of {r['buckets']} buckets "
+              f"compressed, codec launches a step "
+              f"{r['codec_launches_per_step']}, plain codec calls "
+              f"{r['plain_codec_calls']}, losses "
+              f"{[round(v, 4) for v in r['losses']]} (max gap to none "
+              f"{r['max_gap_to_none']:.2e}), metrics wire "
+              f"{m['comm_wire_bytes']:.0f} B ratio "
+              f"{m['comm_compression_ratio']:.3f}, issued "
+              f"{r['report']['counts']} wire "
+              f"{r['report']['wire_bytes']:.0f} B, modeled at 8 ranks "
+              f"{r['modeled_wire_bytes_8_ranks']:.0f} B (fp32 "
+              f"{r['modeled_fp32_wire_bytes_8_ranks']:.0f}) on {card}")
+    print(f"syncbn_dp {SYNCBN_PATH}: {sbn['img_per_s']:.1f} img/s (local "
+          f"{sbn['local_img_per_s']:.1f}), step_ms_p50 "
+          f"{sbn['step_ms_p50']:.2f} (local {sbn['local_step_ms_p50']:.2f}),"
+          f" {sbn['bn_layers']} BN layers, collectives a step "
+          f"{sbn['collectives_first_step']}, busy ms "
+          f"{sbn['sync_device_busy_ms']:.2f} (local "
+          f"{sbn['local_device_busy_ms']:.2f}), NCCL "
+          f"{sbn['sync_nccl_ms']:.3f} ms a step, one (3, 2048) all-reduce "
+          f"{sbn['allreduce_latency']['host_us_per_call']:.1f} host µs / "
+          f"{sbn['allreduce_latency']['device_us_per_call']:.1f} device µs,"
+          f" bitwise equal to local BN, losses "
+          f"{[round(v, 4) for v in sbn['losses']]} on {card}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels its path never launched: {idle}")

@@ -585,13 +585,19 @@ def test_scaler_state_dict_refusal_and_clamping():
 
 
 def test_found_inf_allreduce_needs_a_group():
-    """JAX's mesh reduction (test_amp.py:301) is multi-device (A7): without
-    a group the port refuses, naming A7."""
-    with pytest.raises(NotImplementedError, match="A7"):
+    """JAX's mesh reduction (test_amp.py:301) takes the mesh's axis names
+    since A7a (held across ranks in ``tests/test_torch_comm_dist.py``):
+    with neither axis names nor a group the port refuses. The Megatron
+    GradScaler's default over parallel_state's axes still refuses, naming
+    A7c."""
+    with pytest.raises(TypeError, match="axis_names"):
         amp.LossScaler.all_reduce_found_inf(torch.tensor(1.0))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="exactly one"):
+        amp.LossScaler.all_reduce_found_inf(torch.tensor(1.0), "dp",
+                                            group=object())
+    with pytest.raises(NotImplementedError, match="A7c"):
         GradScaler().sync_found_inf(torch.tensor(1.0))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A7c"):
         GradScaler().update_scale(
             GradScaler().init_state(device="cpu"), torch.tensor(1.0),
             synced=False)

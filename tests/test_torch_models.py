@@ -134,18 +134,29 @@ def test_sync_batch_stats_and_groups_match_jax():
 
 
 def test_named_axis_raises_naming_a7():
-    """A named mesh axis, JAX's default ``"dp"`` included, is ROADMAP A7:
-    the module, the stats, the factory and the converter refuse it."""
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        SyncBatchNorm(4, device=CPU)
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        sync_batch_stats(torch.zeros(2, 4), (0,), "dp")
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        make_norm(sync_bn=True)(4, device=CPU)
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        ResNet18(num_classes=10, width=8, device=CPU)   # JAX's default norm
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        convert_syncbn_model(torch.nn.BatchNorm2d(3))
+    """A named mesh axis (JAX's default ``"dp"`` included) was refused,
+    naming ROADMAP A7, until the cross-device statistics were ported
+    (A7a). Now the module, the statistics, the factory, the default
+    ResNet and the converter take it, and — as JAX's axis name is unbound
+    outside a mesh program — the statistics raise while no mesh is
+    installed. The cross-device behaviour itself:
+    ``tests/test_torch_syncbn_dist.py``."""
+    from apex_tpu_torch.parallel.mesh import get_mesh
+
+    assert get_mesh(required=False) is None
+    x = torch.zeros(2, 4)
+    bn = SyncBatchNorm(4, device=CPU)
+    assert bn.axis_name == "dp"
+    with pytest.raises(RuntimeError, match="no mesh is installed"):
+        bn(x)
+    with pytest.raises(RuntimeError, match="no mesh is installed"):
+        sync_batch_stats(x, (0,), "dp")
+    assert make_norm(sync_bn=True)(4, device=CPU).axis_name == "dp"
+    net = ResNet18(num_classes=10, width=8, device=CPU)   # JAX's default norm
+    with pytest.raises(RuntimeError, match="no mesh is installed"):
+        net(torch.zeros(1, 32, 32, 3))
+    conv = convert_syncbn_model(torch.nn.BatchNorm2d(3))
+    assert isinstance(conv, SyncBatchNorm) and conv.axis_name == "dp"
 
 
 def test_convert_syncbn_model_replaces_batchnorm_recursively():

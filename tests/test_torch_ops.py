@@ -296,11 +296,12 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_port_imports_no_jax_and_no_apex_tpu():
-    """No module of apex_tpu_torch, and not chip_smoke.py, imports jax or
-    the JAX package (module names matched exactly: apex_tpu_torch itself
-    has apex_tpu as a prefix)."""
+    """No module of apex_tpu_torch, not chip_smoke.py, and not the rank
+    functions the multi-process tests spawn (tests/torch_dist_workers.py)
+    imports jax or the JAX package (module names matched exactly:
+    apex_tpu_torch itself has apex_tpu as a prefix)."""
     files = sorted((REPO / "apex_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_workers.py"]
     assert len(files) > 10
     bad = []
     for f in files:
