@@ -1,9 +1,10 @@
 """Data parallelism (counterpart of ``apex_tpu/parallel``): the mesh over
 ``torch.distributed`` (``mesh``), process bootstrap and the spawn helper
 (``multiproc``), DDP and ``Reducer`` (``distributed``), SyncBatchNorm
-across devices (``sync_batchnorm``) and LARC. ZeRO, FSDP and
-``plan.py`` are ROADMAP A7b; tensor, sequence and pipeline parallelism
-A7c-d."""
+across devices (``sync_batchnorm``), LARC, and ``ParallelismPlan``
+(``plan``: the mesh shape, the data strategy — DDP, ZeRO-1's
+``contrib.optimizers``, ``fsdp`` — and the wire policies as one object).
+Tensor, sequence and pipeline parallelism are ROADMAP A7c-d."""
 
 # the optimizers package imports LARC back: load it first
 import apex_tpu_torch.optimizers  # noqa: F401
@@ -32,5 +33,9 @@ def __getattr__(name):
         from apex_tpu_torch.parallel import distributed
 
         return getattr(distributed, name)
+    if name == "ParallelismPlan":
+        from apex_tpu_torch.parallel.plan import ParallelismPlan
+
+        return ParallelismPlan
     raise AttributeError(
         f"module 'apex_tpu_torch.parallel' has no attribute {name!r}")

@@ -53,9 +53,9 @@ def param_leaves(params: Dict[str, Any]):
 
 def build_train_step(cfg: GPTConfig, batch: int, seq: int,
                      device: DeviceLike = None, seed: int = 0,
-                     fused_tail: str = "auto", ddp=None
+                     fused_tail: str = "auto", ddp=None, plan=None
                      ) -> Tuple[Callable[[], torch.Tensor], Dict[str, Any],
-                                FusedAdam, torch.Tensor, torch.Tensor]:
+                                Any, torch.Tensor, torch.Tensor]:
     """Returns ``(train_step, params, optimizer, tok, tgt)``; each call of
     ``train_step(dropout_key=None)`` runs one fwd + bwd +
     ``FusedAdam(lr=1e-4, fused_tail=fused_tail)`` update on the fixed
@@ -71,7 +71,19 @@ def build_train_step(cfg: GPTConfig, batch: int, seq: int,
     EF residuals) carried in ``train_step.ddp_state["comm_state"]``, the
     step count as the stochastic-rounding seed, its comm metrics (host
     scalars) in ``train_step.ddp_state["metrics"]``. Without ``ddp`` the
-    step is unchanged."""
+    step is unchanged.
+
+    ``plan`` (a ``parallel.ParallelismPlan``; the mesh built beforehand)
+    trains through the plan's strategy with ``plan.build_optimizer(lr=
+    1e-4)`` in place of ``FusedAdam``: ``ddp`` as ``ddp=plan.ddp()``;
+    ``zero1`` hands the leaves' gradients to ``opt.step(grads, state,
+    params)`` and writes the gathered parameters back into the leaves;
+    ``fsdp`` differentiates the fp32 master shards through the loss over
+    ``plan.fsdp().gather(master, meta)`` (the returned ``params`` are then
+    the initial weights only). The carried state lives in
+    ``train_step.plan_state``: ``"state"`` (the optimizer's), ``"comm_state"``
+    (zero1's EF residuals), ``"meta"`` (fsdp's), ``"step"``; the step
+    count seeds stochastic rounding."""
     cfg.validate()
     if seq > cfg.max_seq:
         raise ValueError(f"seq ({seq}) exceeds max_seq ({cfg.max_seq})")
@@ -80,6 +92,13 @@ def build_train_step(cfg: GPTConfig, batch: int, seq: int,
     tok = _tokens(np.random.default_rng(seed + 1), cfg.vocab_size, batch,
                   seq, dev)
     tgt = torch.roll(tok, -1, dims=1)
+    if plan is not None:
+        if ddp is not None:
+            raise ValueError("pass ddp= or plan=, not both")
+        step, optimizer = _plan_step(
+            plan, params,
+            lambda p, key: gpt_loss(p, tok, tgt, cfg, dropout_key=key))
+        return step, params, optimizer, tok, tgt
     step, optimizer = _step_over(
         params, fused_tail,
         lambda key: gpt_loss(params, tok, tgt, cfg, dropout_key=key), ddp)
@@ -164,3 +183,57 @@ def _average(ddp, leaves, state: Dict[str, Any]) -> None:
         state["comm_state"] = out[1]
     state["metrics"] = out[-1]
     state["step"] += 1
+
+
+def _plan_step(plan, params, loss_of):
+    """The step closure of :func:`build_train_step`'s ``plan``:
+    ``loss_of(params_tree, dropout_key)`` trained through the plan's data
+    strategy with ``plan.build_optimizer(lr=1e-4)``."""
+    from apex_tpu_torch.optimizers._common import (tree_leaves,
+                                                   tree_unflatten)
+
+    if plan.data == "ddp":
+        return _step_over(params, plan.fused_update,
+                          lambda key: loss_of(params, key), plan.ddp())
+    opt = plan.build_optimizer(lr=1e-4)
+    cfg = plan.compression
+    stochastic = cfg is not None and cfg.stochastic_rounding
+    state: Dict[str, Any] = {"step": 0, "state": opt.init(params),
+                             "comm_state": None, "meta": None}
+    if plan.data == "zero1":
+        leaves = param_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        state["comm_state"] = opt.init_comm_state(params)
+
+        def train_step(dropout_key=None) -> torch.Tensor:
+            loss = loss_of(params, dropout_key)
+            grads = torch.autograd.grad(loss, leaves)
+            out = opt.step(tree_unflatten(params, list(grads)),
+                           state["state"], params,
+                           comm_state=state["comm_state"],
+                           seed=state["step"] if stochastic else None)
+            state["state"] = out[1]
+            if state["comm_state"] is not None:
+                state["comm_state"] = out[2]
+            with torch.no_grad():
+                for p, new in zip(leaves, tree_leaves(out[0])):
+                    p.copy_(new)
+            state["step"] += 1
+            return loss.detach()
+    else:
+        fsdp = opt.fsdp
+        state["meta"] = fsdp.meta(params)
+
+        def train_step(dropout_key=None) -> torch.Tensor:
+            master = state["state"].master
+            shards = [m.requires_grad_(True) for m in tree_leaves(master)]
+            loss = loss_of(fsdp.gather(master, state["meta"]), dropout_key)
+            grads = torch.autograd.grad(loss, shards)
+            state["state"] = opt.step(tree_unflatten(master, list(grads)),
+                                      state["state"])
+            state["step"] += 1
+            return loss.detach()
+
+    train_step.plan_state = state
+    return train_step, opt

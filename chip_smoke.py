@@ -290,7 +290,31 @@
    converted to the dp axis and DDP ``none``, 3 steps bitwise the
    local-BN run's (losses, masters, running statistics), one statistics
    all-reduce per BN layer per forward and backward; img/s of both.
-16. Prints detail lines, the wall seconds of each phase (and of each
+16. ``zero1`` (ZeRO-1, A7b): the GPT-2-124M bf16 step at 8 x 1024 through
+   ``build_train_step(plan=ParallelismPlan.preset("zero1"))``
+   (``DistributedFusedAdam(lr=1e-4)`` on a one-rank NCCL group: the
+   gradient reduce-scatter, the Adam tail kernel on fp32 shards, the
+   all-gather), policies ``none``, ``int8``, ``int8_ef`` and the e5m2
+   gather, 5 steps each beside amp O2 from the same weights: ``none``
+   within 1e-2 (rel) of amp O2's losses, the wires within 0.02 of
+   ``none``, the e5m2 params bitwise a host emulation of JAX's clip →
+   bf16 → e5m2 of the run's masters; the train table's launches
+   (one tail a leaf) and the codec's a compressed leaf, no plain tail or
+   codec call, no synchronizing call a step; the tail kernel on fp32
+   shards against its plain version, timed against 28 bytes an element.
+17. ``fsdp``: the same step through ``preset("fsdp")`` (``FSDPAdam``,
+   the loss over ``FSDP.gather`` of the fp32 master shards): ``none``'s
+   losses and masters bitwise zero1 ``none``'s; an int8 gradient wire
+   within 0.05, int8 / int4 weight gathers within 0.02 / 0.1 of ``none``;
+   the same launch, plain-call and sync gates.
+18. ``dist_lamb``: ``BertConfig()`` MLM at 8 x 512 with
+   ``DistributedFusedLAMB`` (the LAMB tail kernel a leaf, the trust
+   ratio's sums in one all-reduce) beside ``FusedLAMB`` over fp32
+   masters: losses within 1e-2 every step; launches, plain calls, syncs
+   as above. Each of 16-18 records step, host and busy ms, the tails',
+   codec's and collectives' device ms a step and peak memory; 16 also
+   the modelled (not measured) HBM bytes of ddp / zero1 / fsdp at W = 8.
+19. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -3941,12 +3965,16 @@ def train_bf16_check(torch, dev, ku):
     return {"batch": 2, "seq": 1024, **out}
 
 
-def timed_steps_of(torch, step, n: int):
-    """Wall seconds of ``n`` calls of ``step``, each ended by a sync."""
+def timed_steps_of(torch, step, n: int, hosts=None):
+    """Wall seconds of ``n`` calls of ``step``, each ended by a sync; the
+    host seconds of each (the call's return, before the sync) appended to
+    ``hosts`` when given."""
     durs = []
     for _ in range(n):
         t0 = time.perf_counter()
         step()
+        if hosts is not None:
+            hosts.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         durs.append(time.perf_counter() - t0)
     return durs
@@ -4787,7 +4815,8 @@ class AmpRun:
 def count_syncs(torch, fn, messages=None) -> int:
     """Synchronizing CUDA calls ``fn`` makes (``set_sync_debug_mode``
     warnings, every one recorded; their texts appended to ``messages``
-    when given)."""
+    when given). The mode's own notice, which a process's first use
+    prints once ("... is a prototype feature ..."), is no call."""
     import warnings
 
     torch.cuda.synchronize()
@@ -4799,7 +4828,9 @@ def count_syncs(torch, fn, messages=None) -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message)
+             and "prototype feature" not in str(w.message)]
     if messages is not None:
         messages.extend(m[:300] for m in syncs)
     return len(syncs)
@@ -6182,31 +6213,37 @@ class OneRankGroup:
         destroy_distributed()
 
 
-class PlainCodecCalls:
-    """Counts calls of the codec's plain versions and of JAX's reference
-    codes while open (the card's compressed path must make none)."""
+class PlainCalls:
+    """Counts calls of the named plain versions while open (``targets``:
+    (module, attribute) pairs); the card's path must make none."""
 
-    NAMES = ("quantize_blocks_reference", "dequantize_blocks_reference",
-             "_codes")
+    def __init__(self, targets):
+        self.targets, self.saved, self.calls = targets, [], 0
 
     def __enter__(self):
-        from apex_tpu_torch.comm import quantize as pq
-
-        self.pq, self.saved, self.calls = pq, {}, 0
-        for name in self.NAMES:
-            fn = getattr(pq, name)
-            self.saved[name] = fn
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
 
             def counted(*a, _fn=fn, **k):
                 self.calls += 1
                 return _fn(*a, **k)
 
-            setattr(pq, name, counted)
+            setattr(mod, name, counted)
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.pq, name, fn)
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def plain_codec_calls():
+    """The codec's plain versions and JAX's reference codes."""
+    from apex_tpu_torch.comm import quantize as pq
+
+    return PlainCalls([(pq, name) for name in (
+        "quantize_blocks_reference", "dequantize_blocks_reference",
+        "_codes")])
 
 
 def ddp_config(policy: str):
@@ -6311,7 +6348,7 @@ def ddp_run(torch, dev, ku, ddp, steps: int = DDP_STEPS,
     torch.cuda.reset_peak_memory_stats()
     step, params, _, tok, tgt = build_train_step(
         cfg, DDP_BATCH, DDP_SEQ, device=dev, seed=0, ddp=ddp)
-    with PlainCodecCalls() as plain, \
+    with plain_codec_calls() as plain, \
             accounting.record_collectives() as rec:
         ku.reset_launch_counts()
         losses = [step()]
@@ -6585,6 +6622,611 @@ def allreduce_latency(torch, dev, mesh, calls: int = SYNCBN_LATENCY_CALLS):
     return {"calls": calls, "host_us_per_call": host / calls * 1e6,
             "device_us_per_call": start.elapsed_time(end) / calls * 1e3,
             "shape": [3, 2048]}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO and FSDP (A7b): the sharded optimizers and the gather on demand over
+# a one-rank NCCL group
+
+ZERO_POLICIES = ("none", "int8", "int8_ef", "e5m2")
+FSDP_RUNS = ("none", "grad_int8", "gather_int8", "gather_int4")
+ZERO_PATH = ("GPT-2-124M bf16, 8 x 1024, full remat, fused LM-head loss; "
+             "build_train_step(plan=ParallelismPlan.preset('zero1', ...)): "
+             "DistributedFusedAdam(lr=1e-4) over the dp axis of plan.mesh() "
+             "on a one-rank NCCL group, CompressionConfig defaults (block "
+             "256, min_elements 2048)")
+FSDP_PATH = ("GPT-2-124M bf16, 8 x 1024, full remat, fused LM-head loss; "
+             "build_train_step(plan=ParallelismPlan.preset('fsdp', ...)): "
+             "the loss over FSDP.gather(master, meta), FSDPAdam(lr=1e-4) "
+             "on the fp32 master shards, one-rank NCCL group; int8 codecs "
+             "at CompressionConfig's defaults, int4 at block 128")
+DIST_LAMB_PATH = ("BertConfig() MLM bf16, 8 x 512 unpadded, 15 % predicted; "
+                  "DistributedFusedLAMB(lr=1e-3, eps=1e-6, weight_decay=0.01,"
+                  " max_grad_norm=1.0, grad_averaging, the fused LAMB tail) "
+                  "over a one-rank NCCL group, beside FusedLAMB with the "
+                  "same hyperparameters over fp32 masters of the same bf16 "
+                  "weights")
+# the largest |loss - none loss| over the run each compressed wire may
+# show: JAX's tolerances (tests/test_fsdp.py:558-604; int8_ef as DDP's)
+ZERO_GATE = {"int8": 0.02, "int8_ef": 0.02}
+FSDP_GATE = {"gather_int8": 0.02, "grad_int8": 0.05, "gather_int4": 0.1}
+ZERO_REF_RTOL = 1e-2      # zero1 / fsdp none vs amp O2, §2's bf16 loss gate
+DIST_LAMB_STEPS = 5
+DIST_LAMB_LR = 1e-3
+DIST_LAMB_ATOL = 1e-2     # dist_lamb's loss vs FusedLAMB's, every step
+ZERO_PROFILE_GROUPS = {"tail": ("adam_tail_kernel", "sum_parts_kernel"),
+                       "codec": ("quantize_kernel", "dequantize_kernel"),
+                       "nccl": ("nccl", "Nccl"),
+                       "copy": ("Memcpy", "memcpy")}
+# the e5m2 transport's largest value (JAX clips to it before the cast)
+E5M2_MAX = 57344.0
+
+
+def plain_tail_calls():
+    """The Adam / LAMB tail's plain versions, wherever the sharded path
+    looks them up."""
+    from apex_tpu_torch.contrib.optimizers import _sharding
+    from apex_tpu_torch.contrib.optimizers import distributed_fused_lamb
+    from apex_tpu_torch.ops import fused_update
+
+    return PlainCalls([(fused_update, "adam_tail_reference"),
+                       (fused_update, "lamb_tail_reference"),
+                       (_sharding, "adam_tail_reference"),
+                       (distributed_fused_lamb, "lamb_tail_reference")])
+
+
+def zero_codec_launches(sizes, cfg, ef: bool = False):
+    """The codec kernels' launches of one sharded step at one rank, for
+    each leaf the wire compresses: one quantize and one dequantize (the
+    received chunks), and under EF one more dequantize (pass 1's
+    error)."""
+    if cfg is None:
+        return {}
+    n = sum(1 for s in sizes if cfg.compresses(s))
+    if not n:
+        return {}
+    return {"quantize_blockwise[nearest]": n,
+            "dequantize_blockwise": (2 if ef else 1) * n}
+
+
+def zero_codec_bound(sizes, cfg, ef: bool = False):
+    """Bytes of those launches (fp32 in and out, the codes and scales) and
+    the byte bound in ms."""
+    from apex_tpu_torch.comm.quantize import padded_size
+
+    if cfg is None:
+        return 0.0, 0.0
+    code = cfg.bits / 8.0
+    total = 0.0
+    for s in sizes:
+        if not cfg.compresses(s):
+            continue
+        m = padded_size(s, cfg.block_size)
+        side = 4.0 * m / cfg.block_size
+        total += (4.0 * m + code * m + side) + (2 if ef else 1) * (
+            code * m + side + 4.0 * m)
+    return total, total / HBM_BYTES_PER_S * 1e3
+
+
+def e5m2_emulation(x):
+    """JAX's e5m2 transport on the host, by bits: clip to ±57344 in fp32,
+    round to bf16 (nearest even), then to float8_e5m2 (2 mantissa bits,
+    nearest even; below 2**-14 multiples of 2**-16) -> fp32 values."""
+    import numpy as np
+
+    x = np.clip(np.asarray(x, np.float32), -E5M2_MAX, E5M2_MAX)
+    u = x.view(np.uint32).astype(np.uint64)
+    b = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(
+        np.uint32).view(np.float32)
+    ub = b.view(np.uint32).astype(np.uint64)
+    normal = ((ub + 0xFFFFF + ((ub >> 21) & 1)) & 0xFFE00000).astype(
+        np.uint32).view(np.float32)
+    sub = (np.round(b.astype(np.float64) * 2.0 ** 16) / 2.0 ** 16).astype(
+        np.float32)
+    return np.where(np.abs(b) < 2.0 ** -14, sub, normal)
+
+
+def plan_run(torch, dev, ku, plan, steps: int = DDP_STEPS,
+             timed: int = DDP_TIMED):
+    """One run of the GPT main path through ``build_train_step(plan=)``
+    from seed 0, the plan's mesh over the current one-rank group: the
+    first step's launches, collectives and plain codec / tail calls
+    (counts reset just before it, read just after), the synchronizing
+    calls of the last of ``steps`` steps, the losses, the fp32 masters
+    (unpadded: one rank owns the whole leaf) and the leaves' params after
+    that step, then
+    ``timed`` timed steps and a profiled one."""
+    from apex_tpu_torch.comm import accounting
+    from apex_tpu_torch.optimizers._common import tree_leaves
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step)
+
+    plan.mesh()
+    cfg = GPTConfig()
+    torch.cuda.reset_peak_memory_stats()
+    step, params, opt, tok, tgt = build_train_step(
+        cfg, DDP_BATCH, DDP_SEQ, device=dev, seed=0, plan=plan)
+    with plain_codec_calls() as pcodec, plain_tail_calls() as ptail, \
+            accounting.record_collectives() as rec:
+        ku.reset_launch_counts()
+        losses = [step()]
+        torch.cuda.synchronize()
+        launches = ku.launch_counts()
+    losses += [step() for _ in range(steps - 2)]
+    messages = []
+    syncs = count_syncs(torch, lambda: losses.append(step()), messages)
+    losses = torch.stack(losses)
+    st = step.plan_state["state"]
+    sizes = [p.numel() for p in tree_leaves(params)]
+    masters = [m.detach()[:n].clone()
+               for m, n in zip(tree_leaves(st.master), sizes)]
+    gathered = [p.detach().clone() for p in tree_leaves(params)]
+    hosts = []
+    walls = timed_steps_of(torch, step, timed, hosts)
+    prof = profiled(torch, step, groups=ZERO_PROFILE_GROUPS)
+    return {"losses": losses, "launches": launches,
+            "plain_codec_calls": pcodec.calls,
+            "plain_tail_calls": ptail.calls, "collectives": rec,
+            "syncs": syncs, "sync_messages": messages[:3],
+            "masters": masters, "gathered": gathered, "params": params,
+            "sizes": sizes,
+            "shard_shapes": [tuple(m.shape) for m in tree_leaves(st.master)],
+            "step_ms": [d * 1e3 for d in walls],
+            "host_ms": [d * 1e3 for d in hosts], "prof": prof,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def plan_record(run, codec_launches, codec_bytes, codec_bound):
+    """The printed / recorded numbers of a :func:`plan_run`."""
+    from apex_tpu_torch.comm import accounting
+
+    prof, rec = run["prof"], run["collectives"]
+    p50 = lambda d: sorted(d)[len(d) // 2]
+    return {"losses": run["losses"].tolist(),
+            "launches_first_step": run["launches"],
+            "codec_launches_per_step": codec_launches,
+            "plain_codec_calls": run["plain_codec_calls"],
+            "plain_tail_calls": run["plain_tail_calls"],
+            "syncs_per_step": run["syncs"],
+            "step_ms": run["step_ms"], "step_ms_p50": p50(run["step_ms"]),
+            "host_ms_p50": p50(run["host_ms"]),
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "tail_ms_per_step": prof["group_device_ms"]["tail"],
+            "codec_ms_per_step": prof["group_device_ms"]["codec"],
+            "nccl_ms_per_step": prof["group_device_ms"]["nccl"],
+            "copy_ms_per_step": prof["group_device_ms"]["copy"],
+            "group_events": prof["group_events"], "top": prof["top"][:6],
+            "codec_bytes_per_step": codec_bytes,
+            "codec_bound_ms_per_step": codec_bound,
+            "peak_mem_gib": run["peak_mem_gib"],
+            "collectives_first_step": {
+                t: sum(1 for c in rec if c.tag == t)
+                for t in sorted({c.tag for c in rec})},
+            "collective_kinds": accounting.collective_report(rec).counts}
+
+
+def check_plan_run(what, run, want, base_vals=None, gate=None,
+                   falling: bool = True):
+    """The gates every sharded run shares: finite (and, when ``falling``,
+    falling) losses; the first step's launches ``want``; no plain tail or
+    codec call; no synchronizing call a step; with ``gate``, every step's
+    loss within it of ``base_vals``."""
+    vals = run["losses"].tolist()
+    if not all(math.isfinite(v) for v in vals) or (
+            falling and not vals[-1] < vals[0]):
+        raise AssertionError(f"{what}: loss not finite or did not fall: "
+                             f"{vals}")
+    if TRAIN_LAUNCHES and run["launches"] != want:
+        raise AssertionError(f"{what}: launches {run['launches']}, "
+                             f"expected {want}")
+    if run["plain_tail_calls"] or (run["plain_codec_calls"]
+                                   and DDP_USE_PALLAS is None):
+        raise AssertionError(f"{what}: {run['plain_tail_calls']} plain tail "
+                             f"and {run['plain_codec_calls']} plain codec "
+                             f"calls on the path")
+    if run["syncs"]:
+        raise AssertionError(f"{what}: {run['syncs']} synchronizing calls "
+                             f"a step: {run['sync_messages']}")
+    if gate is not None:
+        gap = max(abs(a - b) for a, b in zip(vals, base_vals))
+        if gap > gate:
+            raise AssertionError(f"{what}: |loss - none| {gap:.4f} above "
+                                 f"{gate}")
+        return gap
+    return None
+
+
+def _shards(torch, dev, gen, sizes):
+    """(g, m, v, p) fp32 flat shards of the given sizes."""
+    return [(torch.randn(n, device=dev, generator=gen),
+             0.01 * torch.randn(n, device=dev, generator=gen),
+             1e-4 * torch.rand(n, device=dev, generator=gen),
+             torch.randn(n, device=dev, generator=gen)) for n in sizes]
+
+
+def shard_tail_check(torch, dev, sizes, lamb: bool = False):
+    """The tail kernel on the sharded paths' inputs: fp32 g and p as flat
+    ``(k,)`` shards (one rank: k = the leaf's elements), c1 and c2 from a
+    device pointer, against its plain version: u, m', v' within rtol 1e-6
+    / atol 1e-7 (Adam in both decay modes; LAMB with decay 0.01 and its
+    Σp², Σu² within rtol 1e-5). Times the step's launches over ``sizes``
+    against the bound of 28 bytes an element (g, p, u 4 each, m and v read
+    and written), beside the plain version and, for Adam,
+    ``torch.optim.AdamW(fused=True)`` over fp32 params (fp32 moments: the
+    same function but that it writes p in place of u; LAMB has no library
+    call)."""
+    from apex_tpu_torch.ops.fused_update import (adam_tail_reference,
+                                                 fused_adam_tail,
+                                                 fused_lamb_tail,
+                                                 lamb_tail_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kw = dict(betas=(0.9, 0.999), eps=1e-8)
+    corr = torch.full((2,), 0.9, device=dev)
+    corr[1:].fill_(0.999)
+    corr = 1.0 - torch.pow(corr, torch.full((), 3.0, device=dev))
+    leaves = _shards(torch, dev, gen, sizes)
+    worst, sums_err = 0.0, 0.0
+    modes = ((0.01, True),) if lamb else ((0.0, True), (0.01, True),
+                                          (0.01, False))
+    for wd, adam_w in modes:
+        for i, (g, m, v, p) in enumerate(leaves):
+            if lamb:
+                want = lamb_tail_reference(g, m, v, p, 1.0, 1.0, corr=corr,
+                                           weight_decay=wd, **kw)
+                got = fused_lamb_tail(g, m.clone(), v.clone(), p, 1.0, 1.0,
+                                      corr=corr, weight_decay=wd, **kw)
+                for a, b in zip(got[3:], want[3:]):
+                    sums_err = max(sums_err, check_close(
+                        f"shard lamb sums leaf {i}", a, b, 0.0, 1e-5)
+                        / float(b))
+            else:
+                want = adam_tail_reference(g, m, v, p, 1.0, 1.0, corr=corr,
+                                           weight_decay=wd,
+                                           adam_w_mode=adam_w, **kw)
+                got = fused_adam_tail(g, m.clone(), v.clone(), p, 1.0, 1.0,
+                                      corr=corr, weight_decay=wd,
+                                      adam_w_mode=adam_w, **kw)
+            for a, b, what in zip(got[:3], want[:3], ("u", "m", "v")):
+                worst = max(worst, check_close(
+                    f"shard tail {what} leaf {i} wd={wd}", a, b, 1e-7,
+                    1e-6))
+    tail = fused_lamb_tail if lamb else fused_adam_tail
+    plain = lamb_tail_reference if lamb else adam_tail_reference
+    wd = 0.01 if lamb else 0.0
+
+    def step_kernel():
+        for g, m, v, p in leaves:
+            tail(g, m, v, p, 1.0, 1.0, corr=corr, weight_decay=wd, **kw)
+
+    def step_plain():
+        for g, m, v, p in leaves:
+            plain(g, m, v, p, 1.0, 1.0, corr=corr, weight_decay=wd,
+                  in_place=True, **kw)
+
+    n_el = sum(sizes)
+    bms, by = bound_ms(28.0 * n_el, (14.0 if lamb else 10.0) * n_el,
+                       "float32")
+    out = {"leaves": len(sizes), "elements": n_el, "rtol": 1e-6,
+           "atol": 1e-7, "max_abs_err": worst,
+           "per": f"the sharded step's {len(sizes)} "
+                  f"{'LAMB' if lamb else 'Adam'} launches, fp32 g and p",
+           "ms": time_ms(torch, step_kernel, iters=20),
+           "plain_ms": time_ms(torch, step_plain, iters=5),
+           "library_ms": None, "bound_ms": bms, "bound_by": by}
+    if lamb:
+        out.update(lamb_sums_max_rel_err=sums_err, lamb_sums_rtol=1e-5)
+    else:
+        params = [p.clone().requires_grad_() for _, _, _, p in leaves]
+        for q, (g, _, _, _) in zip(params, leaves):
+            q.grad = g.clone()
+        lib = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.0,
+                                fused=True)
+        out["library_ms"] = time_ms(torch, lib.step, iters=20)
+        del params, lib
+    del leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_reference_run(torch, dev, steps: int = DDP_STEPS):
+    """amp O2 from the same weights and batch (fp32 masters,
+    ``FusedAdam(lr=1e-4)``): the reference curve of the sharded runs."""
+    from apex_tpu_torch.transformer.testing import GPTConfig
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        init_gpt_params_numpy)
+
+    cfg = GPTConfig()
+    tok, tgt = _gpt_batch(torch, cfg.vocab_size, DDP_BATCH, DDP_SEQ)
+    run = AmpRun(torch, cfg, init_gpt_params_numpy(cfg, 0), tok, tgt, dev)
+    losses = torch.stack([run.step() for _ in range(steps)]).tolist()
+    del run
+    torch.cuda.empty_cache()
+    return losses
+
+
+def check_reference(what, vals, ref):
+    rel = max(abs(a - b) / abs(b) for a, b in zip(vals, ref))
+    if rel > ZERO_REF_RTOL:
+        raise AssertionError(f"{what}: losses {vals} off amp O2's {ref} by "
+                             f"{rel:.3e} (rel)")
+    return rel
+
+
+def modeled_hbm(params):
+    """``fsdp.accounting.hbm_params_bytes`` of ``params``' tree (GPT-2-124M,
+    bf16) under ``ddp`` / ``zero1`` / ``fsdp`` at W = 8: modelled, not
+    measured."""
+    from apex_tpu_torch.fsdp import FSDP
+    from apex_tpu_torch.fsdp.accounting import hbm_params_bytes
+
+    meta = FSDP().meta(params)
+    return {s: hbm_params_bytes(meta, strategy=s, world=8)
+            for s in ("ddp", "zero1", "fsdp")}
+
+
+def zero1_phase(torch, dev, ku):
+    """ZeRO-1 on the GPT main path (ZERO_PATH) under each of
+    ZERO_POLICIES, DDP_STEPS steps each from seed 0, in one process on one
+    rank; amp O2 from the same weights beside them. Gates: ``none``
+    within ZERO_REF_RTOL of amp O2's losses; the compressed wires within
+    ZERO_GATE of ``none``; ``e5m2``'s params bitwise the host emulation
+    of JAX's clip → bf16 → e5m2 of its masters; every run's first-step launches the train table (16 tail
+    launches, one a leaf) plus ``zero_codec_launches``, no plain tail or
+    codec call, no synchronizing call a step, falling losses. Then the
+    tail kernel at the shards' inputs (``shard_tail_check``). Records step,
+    host and busy ms, the tails', codec's and collectives' device ms a
+    step, peak memory, shard shapes, and the modeled HBM bytes at W = 8.
+    ``none``'s losses and masters are kept for the fsdp phase."""
+    from apex_tpu_torch.comm import CompressionConfig
+    from apex_tpu_torch.parallel import ParallelismPlan
+
+    import numpy as np
+
+    result = {"path": ZERO_PATH, "steps": DDP_STEPS, "policies": {}}
+    with OneRankGroup(torch, dev) as grp:
+        result["backend"] = grp.backend
+        ref = zero_reference_run(torch, dev)
+        result["amp_o2_losses"] = ref
+        keep = {}
+        for policy in ZERO_POLICIES:
+            kw = {}
+            if policy == "e5m2":
+                kw["e5m2_allgather"] = True
+            elif policy != "none":
+                kw["compression"] = CompressionConfig(
+                    policy=policy, use_pallas=DDP_USE_PALLAS)
+            plan = ParallelismPlan.preset("zero1", **kw)
+            run = plan_run(torch, dev, ku, plan)
+            cfg = kw.get("compression")
+            ef = cfg is not None and cfg.error_feedback
+            codec = zero_codec_launches(run["sizes"], cfg, ef)
+            want = {**TRAIN_LAUNCHES, **codec}
+            # e5m2's two mantissa bits hold a weight still under lr 1e-4
+            # updates: its curve need not fall in 5 steps
+            gap = check_plan_run(f"zero1 {policy}", run, want,
+                                 keep.get("losses"), ZERO_GATE.get(policy),
+                                 falling=policy != "e5m2")
+            nbytes, bound = zero_codec_bound(run["sizes"], cfg, ef)
+            rec = plan_record(run, codec, nbytes, bound)
+            rec["max_gap_to_none"] = gap
+            rec["shard_shapes"] = run["shard_shapes"]
+            if policy == "none":
+                rec["rel_to_amp_o2"] = check_reference(
+                    "zero1 none", rec["losses"], ref)
+                keep = {"losses": rec["losses"], "masters": run["masters"],
+                        "loss_tensor": run["losses"],
+                        "params": run["params"]}
+            if policy == "e5m2":
+                from apex_tpu_torch.optimizers._common import tree_leaves
+
+                rec["max_gap_to_none"] = max(abs(a - b) for a, b in zip(
+                    rec["losses"], keep["losses"]))     # not gated
+
+                rounded = 0
+                for p, m in zip(run["gathered"], run["masters"]):
+                    want_p = e5m2_emulation(m.cpu().numpy())
+                    got_p = p.detach().float().cpu().numpy().reshape(-1)
+                    if not np.array_equal(got_p, want_p):
+                        bad = int((got_p != want_p).sum())
+                        raise AssertionError(f"zero1 e5m2: {bad} gathered "
+                                             f"params differ from the host "
+                                             f"emulation")
+                    rounded += int((got_p != m.cpu().numpy()).sum())
+                rec["e5m2_bitwise_host_emulation"] = True
+                rec["e5m2_rounded_elements"] = rounded
+            result["policies"][policy] = rec
+            del run
+            torch.cuda.empty_cache()
+        result["shard_tail"] = shard_tail_check(
+            torch, dev, [m.numel() for m in keep["masters"]])
+    result["modeled_hbm_params_bytes_8_ranks"] = modeled_hbm(
+        keep.pop("params"))
+    result["_keep"] = keep
+    return result
+
+
+def fsdp_phase(torch, dev, ku, zero1):
+    """FSDP on the GPT main path (FSDP_PATH), each of FSDP_RUNS for
+    DDP_STEPS steps from seed 0 on one rank. Gates: ``none``'s losses and
+    fp32 masters bitwise zero1 ``none``'s (the same tail, exact gathers at
+    one rank, the same bf16 gradients) and within ZERO_REF_RTOL of amp
+    O2's; the int8 / int4 wires within FSDP_GATE of ``none``; the first
+    step's launches the train table plus the codec's (a quantize and a
+    dequantize a compressed leaf: the gather's forward, or the
+    reduce-scatter's backward), no plain tail or codec call, no
+    synchronizing call a step, falling losses. Records as zero1's."""
+    from apex_tpu_torch.comm import CompressionConfig
+    from apex_tpu_torch.parallel import ParallelismPlan
+
+    keep = zero1.pop("_keep")
+    result = {"path": FSDP_PATH, "steps": DDP_STEPS, "runs": {}}
+    with OneRankGroup(torch, dev) as grp:
+        result["backend"] = grp.backend
+        base = None
+        for label in FSDP_RUNS:
+            kw = {}
+            if label != "none":
+                where, bits = label.split("_")
+                cfg = CompressionConfig(
+                    policy=bits, use_pallas=DDP_USE_PALLAS,
+                    **({"block_size": 128} if bits == "int4" else {}))
+                kw["compression" if where == "grad" else "weight_gather"] = cfg
+            cfg = kw.get("compression", kw.get("weight_gather"))
+            run = plan_run(torch, dev, ku, ParallelismPlan.preset("fsdp",
+                                                                  **kw))
+            codec = zero_codec_launches(run["sizes"], cfg)
+            gap = check_plan_run(f"fsdp {label}", run,
+                                 {**TRAIN_LAUNCHES, **codec}, base,
+                                 FSDP_GATE.get(label))
+            nbytes, bound = zero_codec_bound(run["sizes"], cfg)
+            rec = plan_record(run, codec, nbytes, bound)
+            rec["max_gap_to_none"] = gap
+            rec["shard_shapes"] = run["shard_shapes"]
+            if label == "none":
+                if not torch.equal(run["losses"], keep["loss_tensor"]) or \
+                        not all(torch.equal(a, b) for a, b in
+                                zip(run["masters"], keep["masters"])):
+                    raise AssertionError(
+                        f"fsdp none: not bitwise zero1 none (losses "
+                        f"{rec['losses']} vs {keep['losses']})")
+                rec["bitwise_zero1_none"] = True
+                rec["rel_to_amp_o2"] = check_reference(
+                    "fsdp none", rec["losses"], zero1["amp_o2_losses"])
+                base = rec["losses"]
+            result["runs"][label] = rec
+            del run
+            torch.cuda.empty_cache()
+    del keep
+    torch.cuda.empty_cache()
+    return result
+
+
+def dist_lamb_phase(torch, dev, ku, steps: int = DIST_LAMB_STEPS):
+    """BERT MLM (DIST_LAMB_PATH): DistributedFusedLAMB on a one-rank NCCL
+    group beside FusedLAMB over fp32 masters, ``steps`` steps each from
+    the same bf16 weights and batch. Gates: every step's loss within
+    DIST_LAMB_ATOL of FusedLAMB's, finite and falling; the first step's
+    launches BERT's table with one LAMB tail (``fused_lamb_tail``) a leaf
+    and no Adam tail, no plain tail call, no synchronizing call a step.
+    Then the LAMB tail at BERT's shards, fp32 (``shard_tail_check``).
+    Records step, host and busy ms, the tails' and collectives' device ms
+    a step, peak memory."""
+    from apex_tpu_torch.comm import accounting
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.optimizers._common import (tree_leaves,
+                                                   tree_unflatten)
+    from apex_tpu_torch.parallel.mesh import build_mesh
+    from apex_tpu_torch.transformer.testing import (BertConfig,
+                                                    bert_mlm_loss,
+                                                    init_bert_params)
+
+    cfg = BertConfig()
+    hyper = dict(lr=DIST_LAMB_LR, betas=(0.9, 0.999), eps=1e-6,
+                 weight_decay=0.01, max_grad_norm=1.0, grad_averaging=True)
+    tok, tgt, lm, types, _ = bert_batch(torch, dev, cfg, BERT_BATCH,
+                                        BERT_SEQ, False)
+    out = {"path": DIST_LAMB_PATH, "steps": steps}
+
+    # FusedLAMB over fp32 masters of the bf16 weights, the model copied
+    # from them each step (the comparator; its launches are not counted)
+    params = init_bert_params(cfg, seed=0, device=dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    masters = [p.detach().float().clone().requires_grad_(True)
+               for p in leaves]
+    opt = FusedLAMB(masters, **hyper)
+    ref = []
+    for _ in range(steps):
+        loss = bert_mlm_loss(params, tok, tgt, lm, cfg, token_types=types)
+        grads = torch.autograd.grad(loss, leaves)
+        for m, g in zip(masters, grads):
+            m.grad = g.float()
+        opt.step()
+        with torch.no_grad():
+            for p, m in zip(leaves, masters):
+                p.copy_(m)
+        ref.append(float(loss.detach()))
+    del params, leaves, masters, opt
+    torch.cuda.empty_cache()
+
+    with OneRankGroup(torch, dev) as grp:
+        out["backend"] = grp.backend
+        build_mesh()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_bert_params(cfg, seed=0, device=dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        lamb = DistributedFusedLAMB(**hyper)
+        box = {"st": lamb.init(params)}
+
+        def step():
+            loss = bert_mlm_loss(params, tok, tgt, lm, cfg,
+                                 token_types=types)
+            grads = torch.autograd.grad(loss, leaves)
+            new, box["st"] = lamb.step(tree_unflatten(params, list(grads)),
+                                       box["st"], params)
+            with torch.no_grad():
+                for p, n in zip(leaves, tree_leaves(new)):
+                    p.copy_(n)
+            return loss.detach()
+
+        with plain_tail_calls() as ptail, \
+                accounting.record_collectives() as rec:
+            ku.reset_launch_counts()
+            losses = [step()]
+            torch.cuda.synchronize()
+            launches = ku.launch_counts()
+        losses += [step() for _ in range(steps - 2)]
+        messages = []
+        syncs = count_syncs(torch, lambda: losses.append(step()), messages)
+        vals = torch.stack(losses).tolist()
+        one = bert_launches(cfg, len(leaves), False)
+        del one["fused_adam_tail"]
+        one["fused_lamb_tail"] = len(leaves)
+        if TRAIN_LAUNCHES and launches != one:
+            raise AssertionError(f"dist_lamb: first step launches "
+                                 f"{launches}, expected {one}")
+        if ptail.calls or syncs:
+            raise AssertionError(f"dist_lamb: {ptail.calls} plain tail "
+                                 f"calls, {syncs} synchronizing calls a "
+                                 f"step: {messages[:3]}")
+        if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+            raise AssertionError(f"dist_lamb: loss did not fall: {vals}")
+        gap = max(abs(a - b) for a, b in zip(vals, ref))
+        if gap > DIST_LAMB_ATOL:
+            raise AssertionError(f"dist_lamb: losses {vals} off FusedLAMB's "
+                                 f"{ref} by {gap:.4f}")
+        hosts = []
+        walls = timed_steps_of(torch, step, DDP_TIMED, hosts)
+        prof = profiled(torch, step, groups=ZERO_PROFILE_GROUPS)
+        sizes = [p.numel() for p in leaves]
+        p50 = lambda d: sorted(d)[len(d) // 2] * 1e3
+        out.update({
+            "losses": vals, "fused_lamb_losses": ref, "max_gap": gap,
+            "launches_first_step": launches, "launches_per_step": one,
+            "plain_tail_calls": ptail.calls, "syncs_per_step": syncs,
+            "collectives_first_step": {
+                t: sum(1 for c in rec if c.tag == t)
+                for t in sorted({c.tag for c in rec})},
+            "step_ms_p50": p50(walls), "host_ms_p50": p50(hosts),
+            "tokens_per_s": BERT_BATCH * BERT_SEQ * len(walls) / sum(walls),
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "tail_ms_per_step": prof["group_device_ms"]["tail"],
+            "nccl_ms_per_step": prof["group_device_ms"]["nccl"],
+            "copy_ms_per_step": prof["group_device_ms"]["copy"],
+            "top": prof["top"][:6],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "leaves": len(leaves), "elements": sum(sizes)})
+        del params, leaves, box
+        torch.cuda.empty_cache()
+    out["shard_tail"] = shard_tail_check(torch, dev, sizes, lamb=True)
+    return out
 
 
 def attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
@@ -6861,6 +7503,9 @@ def main(argv=None) -> int:
     rnn = phase("rnn", (), rnn_phase, torch, dev, ku)
     ddp = phase("ddp", (), ddp_phase, torch, dev, ku)
     sbn = phase("syncbn_dp", (), syncbn_dp_phase, torch, dev, ku)
+    zero1 = phase("zero1", (), zero1_phase, torch, dev, ku)
+    fsdp = phase("fsdp", (), fsdp_phase, torch, dev, ku, zero1)
+    dlamb = phase("dist_lamb", (), dist_lamb_phase, torch, dev, ku)
     name = torch.cuda.get_device_name(0)
     # the phases' record, written before the kernels line is assembled
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
@@ -6878,7 +7523,8 @@ def main(argv=None) -> int:
               "t5_dropout": t5d, "functional": func, "amp": amp_res,
               "amp_fp16": amp16, "bert": bert, "multihead_attn": mha,
               "transducer": trans, "asp": asp, "resnet": resnet,
-              "dcgan": dcgan, "rnn": rnn, "ddp": ddp, "syncbn_dp": sbn}
+              "dcgan": dcgan, "rnn": rnn, "ddp": ddp, "syncbn_dp": sbn,
+              "zero1": zero1, "fsdp": fsdp, "dist_lamb": dlamb}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -7864,6 +8510,83 @@ def main(argv=None) -> int:
           f"{sbn['allreduce_latency']['device_us_per_call']:.1f} device µs,"
           f" bitwise equal to local BN, losses "
           f"{[round(v, 4) for v in sbn['losses']]} on {card}")
+    # the ZeRO / FSDP slice: the tail's launches a step on the sharded
+    # paths (fp32 shards; LAMB's variant on dist_lamb) with its time at
+    # the shards' inputs, and the codec's launches, device ms and bound a
+    # step under each compressed wire
+    tail = by_name["fused_adam_tail"]
+    z_none, f_none = zero1["policies"]["none"], fsdp["runs"]["none"]
+    tail["zero1"] = {"launches": z_none["launches_first_step"][
+        "fused_adam_tail"], "path": ZERO_PATH,
+        "shard": zero1["shard_tail"],
+        "tail_ms_per_step": z_none["tail_ms_per_step"]}
+    tail["fsdp"] = {"launches": f_none["launches_first_step"][
+        "fused_adam_tail"], "path": FSDP_PATH,
+        "tail_ms_per_step": f_none["tail_ms_per_step"]}
+    tail["dist_lamb"] = {"launches": dlamb["launches_first_step"][
+        "fused_lamb_tail"], "variant": "fused_lamb_tail (the kernel's "
+        "Σp² / Σu² instantiation)", "path": DIST_LAMB_PATH,
+        "shard": dlamb["shard_tail"],
+        "tail_ms_per_step": dlamb["tail_ms_per_step"]}
+    for kname in ("quantize_blockwise[nearest]", "dequantize_blockwise"):
+        for key, runs, path in (("zero1", zero1["policies"], ZERO_PATH),
+                                ("fsdp", fsdp["runs"], FSDP_PATH)):
+            by_name[kname][key] = {
+                label: {"launches_per_step": r["codec_launches_per_step"]
+                        .get(kname, 0),
+                        "launches_first_step": r["launches_first_step"]
+                        .get(kname, 0),
+                        "codec_ms_per_step": r["codec_ms_per_step"],
+                        "codec_bound_ms_per_step":
+                            r["codec_bound_ms_per_step"], "path": path}
+                for label, r in runs.items() if r["codec_launches_per_step"]}
+    hbm = zero1["modeled_hbm_params_bytes_8_ranks"]
+    print(f"zero1 / fsdp modelled (fsdp.accounting.hbm_params_bytes, not "
+          f"measured) GPT-2-124M bf16 at W = 8: "
+          + ", ".join(f"{k} {v['total'] / 2 ** 30:.3f} GiB" for k, v in
+                      hbm.items()))
+    print(f"zero1 {ZERO_PATH} ({zero1['backend']}): amp O2 reference losses "
+          f"{[round(v, 4) for v in zero1['amp_o2_losses']]} on {card}")
+    for what, runs in (("zero1", zero1["policies"]), ("fsdp", fsdp["runs"])):
+        for label, r in runs.items():
+            gap = r["max_gap_to_none"]
+            print(f"{what} {label}: step_ms_p50 {r['step_ms_p50']:.2f} host "
+                  f"ms {r['host_ms_p50']:.2f} busy ms "
+                  f"{r['device_busy_ms']:.2f} (idle share "
+                  f"{r['device_idle_share']:.3f}), tail "
+                  f"{r['tail_ms_per_step']:.4f} ms, codec "
+                  f"{r['codec_ms_per_step']:.4f} ms (bound "
+                  f"{r['codec_bound_ms_per_step']:.4f}), NCCL "
+                  f"{r['nccl_ms_per_step']:.4f} ms, copies "
+                  f"{r['copy_ms_per_step']:.4f} ms, peak "
+                  f"{r['peak_mem_gib']:.2f} GiB, syncs a step "
+                  f"{r['syncs_per_step']}, codec launches a step "
+                  f"{r['codec_launches_per_step']}, collectives "
+                  f"{r['collective_kinds']}, losses "
+                  f"{[round(v, 4) for v in r['losses']]}"
+                  + ("" if gap is None else f" (max gap to none {gap:.2e})")
+                  + f" on {card}")
+    st = zero1["shard_tail"]
+    print(f"fused_adam_tail at the shards (fp32 g and p, {st['elements']} "
+          f"elements, {st['leaves']} launches): {st['ms']:.4f} ms, bound "
+          f"{st['bound_ms']:.4f} ({st['bound_by']}), plain "
+          f"{st['plain_ms']:.4f}, AdamW(fused=True) fp32 "
+          f"{st['library_ms']:.4f}, max err {st['max_abs_err']:.2e} on "
+          f"{card}")
+    print(f"dist_lamb {DIST_LAMB_PATH}: step_ms_p50 "
+          f"{dlamb['step_ms_p50']:.2f} host ms {dlamb['host_ms_p50']:.2f} "
+          f"busy ms {dlamb['device_busy_ms']:.2f} (idle share "
+          f"{dlamb['device_idle_share']:.3f}), LAMB tails "
+          f"{dlamb['tail_ms_per_step']:.4f} ms ({dlamb['leaves']} launches, "
+          f"shards {dlamb['shard_tail']['ms']:.4f} ms vs bound "
+          f"{dlamb['shard_tail']['bound_ms']:.4f}), NCCL "
+          f"{dlamb['nccl_ms_per_step']:.4f} ms, peak "
+          f"{dlamb['peak_mem_gib']:.2f} GiB, syncs a step "
+          f"{dlamb['syncs_per_step']}, collectives "
+          f"{dlamb['collectives_first_step']}, losses "
+          f"{[round(v, 4) for v in dlamb['losses']]} vs FusedLAMB "
+          f"{[round(v, 4) for v in dlamb['fused_lamb_losses']]} (max gap "
+          f"{dlamb['max_gap']:.2e}) on {card}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels its path never launched: {idle}")

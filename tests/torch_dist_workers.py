@@ -1,5 +1,5 @@
 """Rank functions of the port's multi-process tests
-(``tests/test_torch_{comm_dist,ddp,syncbn_dist}.py``).
+(``tests/test_torch_{comm_dist,ddp,syncbn_dist,zero,fsdp}.py``).
 
 Each runs in a process that ``apex_tpu_torch.parallel.multiproc.spawn``
 started, as one rank of a ``gloo`` group, and returns host tensors; the
@@ -15,6 +15,14 @@ import sys
 
 import numpy as np
 import torch
+
+
+def several(rank, world, calls):
+    """Each ``(function name, args)`` of this module in turn, in one
+    group (one spawn instead of several) -> their results by name."""
+    mod = sys.modules[__name__]
+    return {name: getattr(mod, name)(rank, world, *args)
+            for name, args in calls}
 
 
 def _loaded() -> bool:
@@ -353,3 +361,279 @@ def bottleneck(rank, world, x_full, kernel, cot_full):
     gx, gk = torch.autograd.grad((y * cot).sum(), [x, k])
     return {"jax_loaded": _loaded(), "y": y.detach(), "gx": gx, "gk": gk,
             "index": i, "same_class": Bottleneck is BottleneckBlock}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 (contrib.optimizers) and FSDP
+
+
+def _codec(spec):
+    """A ``CompressionConfig`` from its keyword dict (None stays None)."""
+    from apex_tpu_torch.comm import CompressionConfig
+
+    return None if spec is None else CompressionConfig(**spec)
+
+
+def _tree(d, fn=_t):
+    return {k: fn(v) for k, v in d.items()}
+
+
+def zero_cases(rank, world, params, grads, residuals, cases, steps):
+    """For each case ``(label, "adam" | "lamb", optimizer kwargs, codec
+    kwargs or None, scale or None, metrics, gradient multiplier)``:
+    ``steps`` steps of the ZeRO optimizer from ``params`` with this rank's
+    row of ``grads`` times the multiplier (and of ``residuals`` under EF)
+    -> the final params, master and moment shards, EF state, metrics and
+    shard shapes."""
+    from apex_tpu_torch.contrib.optimizers import (DistributedFusedAdam,
+                                                   DistributedFusedLAMB)
+    from apex_tpu_torch.monitor.metrics import Metrics
+    from apex_tpu_torch.parallel.mesh import build_mesh
+
+    build_mesh(tp=1, pp=1, sp=1)
+    out = {"jax_loaded": _loaded()}
+    for label, kind, kw, codec, scale, with_metrics, mult in cases:
+        cls = DistributedFusedAdam if kind == "adam" else DistributedFusedLAMB
+        opt = cls(compression=_codec(codec), **kw)
+        p = _tree(params)
+        g = {k: _t(mult * v[rank]) for k, v in grads.items()}
+        st = opt.init(p)
+        comm = opt.init_comm_state(p)
+        if comm is not None:
+            comm = {k: _t(v[rank]) for k, v in residuals.items()}
+        sc = None if scale is None else torch.tensor(scale)
+        metrics = None
+        for _ in range(steps):
+            res = opt.step(g, st, p, scale=sc, comm_state=comm,
+                           metrics=Metrics() if with_metrics else None)
+            p, st = res[0], res[1]
+            if comm is not None:
+                comm = res[2]
+            if with_metrics:
+                metrics = res[-1].as_dict()
+        out[label] = {"params": p, "master": st.master, "mu": st.mu,
+                      "nu": st.nu, "count": int(st.count),
+                      "comm": comm, "metrics": metrics,
+                      "shapes": {k: tuple(v.shape)
+                                 for k, v in st.mu.items()}}
+    return out
+
+
+def fsdp_cases(rank, world, params, coefs, curv, cases, steps):
+    """For each case ``(label, FSDP codec kwargs {"compression": ...,
+    "weight_gather": ...})``: FSDPAdam(lr=1e-2, weight_decay=0.01) over
+    ``steps`` steps of the loss Σ_leaves Σ(full · a_rank) + ½ Σ(full² ·
+    c) through ``FSDP.gather`` -> the first step's shard gradients, the
+    final master shards, the final gather and the last step's metrics
+    (with ``meta``)."""
+    from apex_tpu_torch.fsdp import FSDP, FSDPAdam
+    from apex_tpu_torch.monitor.metrics import Metrics
+    from apex_tpu_torch.optimizers._common import (tree_leaves,
+                                                   tree_unflatten)
+    from apex_tpu_torch.parallel.mesh import build_mesh
+
+    build_mesh(tp=1, pp=1, sp=1)
+    out = {"jax_loaded": _loaded()}
+    a = {k: _t(v[rank]) for k, v in coefs.items()}
+    c = _tree(curv)
+    for label, codecs in cases:
+        fsdp = FSDP(**{k: _codec(v) for k, v in codecs.items()})
+        opt = FSDPAdam(fsdp=fsdp, lr=1e-2, weight_decay=0.01)
+        p = _tree(params)
+        meta = fsdp.meta(p)
+        st = opt.init(p)
+        first = metrics = None
+        for i in range(steps):
+            shards = [m.requires_grad_(True) for m in tree_leaves(st.master)]
+            full = fsdp.gather(st.master, meta)
+            loss = sum(torch.sum(full[k] * a[k])
+                       + 0.5 * torch.sum(full[k] * full[k] * c[k])
+                       for k in sorted(full))
+            g = tree_unflatten(st.master,
+                               list(torch.autograd.grad(loss, shards)))
+            if i == 0:
+                first = g
+            if i == steps - 1:
+                st, m = opt.step(g, st, metrics=Metrics(), meta=meta)
+                metrics = m.as_dict()
+            else:
+                st = opt.step(g, st)
+        with torch.no_grad():
+            gathered = fsdp.gather(st.master, meta)
+        out[label] = {"grads": first, "master": st.master,
+                      "gathered": gathered, "metrics": metrics,
+                      "shard_multiple": fsdp.shard_multiple,
+                      "requires_grad": any(m.requires_grad for m in
+                                           tree_leaves(st.master))}
+    fsdp = FSDP()
+    lin = torch.arange(6 * 4 * world, dtype=torch.bfloat16).reshape(6, -1)
+    out["linear_shard"] = fsdp.shard_linear_weight(lin)
+    refusals = []
+    for bad in (torch.zeros(2, 3, 4), torch.zeros(4, 2 * world + 1)):
+        try:
+            fsdp.shard_linear_weight(bad)
+        except ValueError as e:
+            refusals.append(str(e))
+    out["linear_refusals"] = refusals
+    return out
+
+
+def gpt_ladder(rank, world, tokens, steps, lr, runs):
+    """The tiny GPT (fp32) at dp = ``world``, this rank's rows of
+    ``tokens`` (targets = tokens, JAX's fixture), ``steps`` steps of each
+    run ``(label, "ddp" | "zero1" | "fsdp", FSDP / ZeRO codec kwargs)``
+    with lr ``lr``: DDP + FusedAdam, DistributedFusedAdam, FSDP +
+    FSDPAdam, each from seed 0 -> per-run local losses and final fp32
+    params (the masters unpadded for the sharded runs). Then
+    ``build_train_step(plan=)`` for each preset, 3 steps."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.fsdp import FSDP, FSDPAdam
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers._common import (tree_leaves,
+                                                   tree_unflatten)
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.parallel.mesh import build_mesh
+    from apex_tpu_torch.parallel.plan import ParallelismPlan
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step,
+                                                    gpt_loss,
+                                                    init_gpt_params)
+
+    build_mesh(tp=1, pp=1, sp=1)
+    cfg = GPTConfig(vocab_size=128, max_seq=32, hidden=64, num_layers=2,
+                    num_heads=2, dtype=torch.float32)
+    rows = tokens.shape[0] // world
+    tok = _t(tokens[rank * rows:(rank + 1) * rows]).long()
+    out = {"jax_loaded": _loaded()}
+
+    def unpad(shards, like):
+        full = []
+        for s, p in zip(tree_leaves(shards), tree_leaves(like)):
+            allg = [torch.empty_like(s) for _ in range(world)]
+            dist.all_gather(allg, s.detach())
+            full.append(torch.cat(allg)[:p.numel()].reshape(p.shape))
+        return full
+
+    for label, kind, kw in runs:
+        params = init_gpt_params(cfg, seed=0, device="cpu")
+        leaves = tree_leaves(params)
+        losses = []
+        if kind == "ddp":
+            for p in leaves:
+                p.requires_grad_(True)
+            ddp = DistributedDataParallel()
+            opt = FusedAdam(leaves, lr=lr)
+            for _ in range(steps):
+                loss = gpt_loss(params, tok, tok, cfg)
+                grads = torch.autograd.grad(loss, leaves)
+                for p, g in zip(leaves, ddp.average_gradients(list(grads))):
+                    p.grad = g
+                opt.step()
+                losses.append(float(loss.detach()))
+            final = [p.detach().clone() for p in leaves]
+        elif kind == "zero1":
+            for p in leaves:
+                p.requires_grad_(True)
+            opt = DistributedFusedAdam(lr=lr, compression=_codec(
+                kw.get("compression")))
+            st = opt.init(params)
+            for _ in range(steps):
+                loss = gpt_loss(params, tok, tok, cfg)
+                grads = torch.autograd.grad(loss, leaves)
+                new, st = opt.step(tree_unflatten(params, list(grads)), st,
+                                   params)
+                with torch.no_grad():
+                    for p, n in zip(leaves, tree_leaves(new)):
+                        p.copy_(n)
+                losses.append(float(loss.detach()))
+            final = unpad(st.master, params)
+        else:
+            fsdp = FSDP(**{k: _codec(v) for k, v in kw.items()})
+            opt = FSDPAdam(fsdp=fsdp, lr=lr)
+            meta = fsdp.meta(params)
+            st = opt.init(params)
+            for _ in range(steps):
+                shards = [m.requires_grad_(True)
+                          for m in tree_leaves(st.master)]
+                loss = gpt_loss(fsdp.gather(st.master, meta), tok, tok, cfg)
+                grads = torch.autograd.grad(loss, shards)
+                st = opt.step(tree_unflatten(st.master, list(grads)), st)
+                losses.append(float(loss.detach()))
+            final = unpad(st.master, params)
+        out[label] = {"losses": losses, "final": final}
+    trained = {}
+    for preset in ("ddp", "zero1", "fsdp"):
+        plan = ParallelismPlan.preset(preset)
+        mesh = plan.mesh()
+        step = build_train_step(cfg, 2, 32, device="cpu", plan=plan)[0]
+        trained[preset] = [float(step()) for _ in range(3)]
+    out["build_train_step"] = trained
+    out["plan_mesh"] = dict(mesh.shape)
+    try:
+        ParallelismPlan.preset("fsdp", tp=world + 1).mesh()
+    except ValueError as e:
+        out["plan_mesh_refusal"] = str(e)
+    return out
+
+
+def bert_lamb(rank, world, steps, lr, batch, seq):
+    """A 2-layer BERT (fp32) at dp = ``world`` on this rank's rows of a
+    numpy-seeded MLM batch: DistributedFusedLAMB (the fused tail) beside
+    DDP + FusedLAMB with the same hyperparameters, from seed 0 ->
+    losses and final params of both."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.optimizers._common import (tree_leaves,
+                                                   tree_unflatten)
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.parallel.mesh import build_mesh
+    from apex_tpu_torch.transformer.testing import (BertConfig,
+                                                    bert_mlm_loss,
+                                                    init_bert_params)
+
+    build_mesh(tp=1, pp=1, sp=1)
+    cfg = BertConfig(vocab_size=128, max_seq=seq, hidden=64, num_layers=2,
+                     num_heads=2, dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    tok = rng.integers(0, cfg.vocab_size, (batch, seq))
+    tgt = rng.integers(0, cfg.vocab_size, (batch, seq))
+    lm = (rng.random((batch, seq)) < 0.15).astype(np.float32)
+    types = (np.arange(seq) >= seq // 2).astype(np.int64)[None].repeat(
+        batch, 0)
+    rows = batch // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    tok, tgt, lm, types = (_t(x[mine]) for x in (tok, tgt, lm, types))
+    hyper = dict(lr=lr, betas=(0.9, 0.999), eps=1e-6, weight_decay=0.01,
+                 max_grad_norm=1.0, grad_averaging=True)
+    out = {"jax_loaded": _loaded()}
+    for label in ("dist_lamb", "fused_lamb"):
+        params = init_bert_params(cfg, seed=0, device="cpu")
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        losses = []
+        if label == "dist_lamb":
+            opt = DistributedFusedLAMB(fused_update="on", **hyper)
+            st = opt.init(params)
+        else:
+            opt, ddp = FusedLAMB(leaves, **hyper), DistributedDataParallel()
+        for _ in range(steps):
+            loss = bert_mlm_loss(params, tok, tgt, lm, cfg,
+                                 token_types=types)
+            grads = torch.autograd.grad(loss, leaves)
+            if label == "dist_lamb":
+                new, st = opt.step(tree_unflatten(params, list(grads)), st,
+                                   params)
+                with torch.no_grad():
+                    for p, n in zip(leaves, tree_leaves(new)):
+                        p.copy_(n)
+            else:
+                for p, g in zip(leaves, ddp.average_gradients(list(grads))):
+                    p.grad = g
+                opt.step()
+            losses.append(float(loss.detach()))
+        out[label] = {"losses": losses,
+                      "final": [p.detach().clone() for p in leaves]}
+    return out
