@@ -1,15 +1,18 @@
 """apex_tpu_torch.comm (counterpart of ``apex_tpu.comm``): the blockwise
 codec (``quantize``, with its kernels in ``csrc/quantize.cu``), the
 compressed all-reduce and reduce-scatter over ``torch.distributed``
-(``collectives``), the error-feedback residual (``error_feedback``) and
-the bytes-on-wire record of the issued collectives (``accounting``).
-``overlap`` (the decomposed collective matmuls) is tensor-parallel:
-ROADMAP A7c."""
+(``collectives``), the error-feedback residual (``error_feedback``),
+the bytes-on-wire record of the issued collectives (``accounting``)
+and ``overlap``, the decomposed collective matmuls (their rings'
+record: ``accounting.record_overlap`` / ``overlap_report``)."""
 
 from apex_tpu_torch.comm.accounting import (  # noqa: F401
     CollectiveReport,
+    OverlapReport,
     collective_report,
+    overlap_report,
     record_collectives,
+    record_overlap,
     wire_bytes,
 )
 from apex_tpu_torch.comm.collectives import (  # noqa: F401

@@ -21,8 +21,15 @@ device, for a collective whose result occupies ``b`` bytes in a group of
 
 No record open costs one list test a collective.
 
-JAX's ``overlap_report`` reads ``comm/overlap.py``'s decomposed matmuls,
-which are tensor-parallel: it comes with them (ROADMAP A7c).
+JAX's ``overlap_report`` parses a compiled program's HLO for
+``collective-permute`` pairs with a ``dot`` scheduled inside their
+window. The port has no compiled program either: ``comm/overlap.py``'s
+ring ops enter each op into the records :func:`record_overlap` has open
+(:class:`RingOp`: the hops it posted, how many had a product issued while
+in flight, its products and its bytes on the wire) and
+:func:`overlap_report` sums them into JAX's :class:`OverlapReport`
+fields. A posted hop is an async pair; a product issued between its post
+and its wait is the proof JAX reads off a schedule.
 """
 
 from __future__ import annotations
@@ -124,3 +131,86 @@ def collective_report(record: List[Collective]) -> CollectiveReport:
 def wire_bytes(record: List[Collective]) -> float:
     """Total modeled bytes on the wire per device of a record."""
     return collective_report(record).wire_bytes
+
+
+# ---------------------------------------------------------------------------
+# the rings' overlap record
+
+
+class RingOp(NamedTuple):
+    """One ring op as issued (``comm.overlap``): its name, group size,
+    hops posted, hops with a product issued while in flight, products,
+    bytes on the wire and the bytes of its hidden hops."""
+    name: str
+    group_size: int
+    hops: int
+    hidden_hops: int
+    products: int
+    wire_bytes: float
+    hidden_wire_bytes: float
+
+
+_OPEN_RINGS: List[List[RingOp]] = []
+
+
+@contextlib.contextmanager
+def record_overlap() -> Iterator[List[RingOp]]:
+    """Open a record of the ring ops issued inside the block."""
+    rec: List[RingOp] = []
+    _OPEN_RINGS.append(rec)
+    try:
+        yield rec
+    finally:
+        _OPEN_RINGS.remove(rec)
+
+
+def note_ring(name: str, group_size: int, hops: int, hidden_hops: int,
+              products: int, wire: float, hidden_wire: float) -> None:
+    """Enter one ring op into every open overlap record."""
+    if _OPEN_RINGS:
+        entry = RingOp(name, int(group_size), int(hops), int(hidden_hops),
+                       int(products), float(wire), float(hidden_wire))
+        for rec in _OPEN_RINGS:
+            rec.append(entry)
+
+
+@dataclasses.dataclass
+class OverlapReport:
+    """JAX's overlap evidence, read off a ring record: ``async_pairs``
+    hops posted, ``async_hidden`` of them with a product issued inside
+    their post→wait window, ``dots`` products the rings issued, and the
+    hop bytes split into hidden and exposed. The port posts no
+    synchronous permute (``sync_*`` stay 0)."""
+
+    async_pairs: int = 0
+    async_hidden: int = 0
+    sync_permutes: int = 0
+    sync_hidden: int = 0
+    dots: int = 0
+    hidden_wire_bytes: float = 0.0
+    exposed_wire_bytes: float = 0.0
+
+    @property
+    def permutes(self) -> int:
+        return self.async_pairs + self.sync_permutes
+
+    @property
+    def hidden(self) -> int:
+        return self.async_hidden + self.sync_hidden
+
+    @property
+    def hidden_fraction(self) -> float:
+        total = self.hidden_wire_bytes + self.exposed_wire_bytes
+        return self.hidden_wire_bytes / total if total else 0.0
+
+
+def overlap_report(record: List[RingOp]) -> OverlapReport:
+    """Sum a record from :func:`record_overlap`."""
+    rep = OverlapReport()
+    for op in record:
+        rep.async_pairs += op.hops
+        rep.async_hidden += op.hidden_hops
+        rep.dots += op.products
+        rep.hidden_wire_bytes += op.hidden_wire_bytes
+        rep.exposed_wire_bytes += op.wire_bytes - op.hidden_wire_bytes
+    return rep

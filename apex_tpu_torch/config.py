@@ -1,7 +1,6 @@
 """The mixed-precision policy (counterpart of ``apex_tpu/config.py``'s
 :class:`PrecisionConfig`; its ``MeshConfig`` and
-``TransformerParallelConfig`` are multi-device and wait for ROADMAP A7c /
-A8). The amp opt levels O0-O3 and FP8 resolve to one of these.
+``TransformerParallelConfig`` wait for ROADMAP A8). The amp opt levels O0-O3 and FP8 resolve to one of these.
 """
 
 from __future__ import annotations

@@ -177,7 +177,7 @@ __global__ void __launch_bounds__(row_threads(D),
         const int j = j0 + jj;
         float p = s[jj];
         if (drop.on)
-          p = hash_keep(qpos, kt * BR + j, base, drop.thresh)
+          p = drop.keep(qpos, kt * BR + j, base)
                   ? p * drop.inv_keep
                   : 0.f;
         axpy_part<DPT, TPR>(acc, round_to<T>(p), sV + j * D, h);
@@ -247,7 +247,7 @@ __global__ void __launch_bounds__(row_threads(D))
       const float p = expf(sv - lse_r);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
       if (drop.on)
-        dp = hash_keep(qpos, kt * BR + j, base, drop.thresh)
+        dp = drop.keep(qpos, kt * BR + j, base)
                  ? dp * drop.inv_keep
                  : 0.f;
       const float ds = p * (dp - delta_r) * scale;
@@ -321,7 +321,7 @@ __global__ void __launch_bounds__(BR * (D / dkv_dims(D)))
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(vr, sO + i * D, h));
       float pv = p;
       if (drop.on) {
-        const bool keep = hash_keep(qt * BR + i, kpos, base, drop.thresh);
+        const bool keep = drop.keep(qt * BR + i, kpos, base);
         pv = keep ? p * drop.inv_keep : 0.f;
         dp = keep ? dp * drop.inv_keep : 0.f;
       }
@@ -402,7 +402,7 @@ __global__ void __launch_bounds__(row_threads(D), D == 64 ? 3 : 1)
       const float p = expf(sv - lse_r);
       float dp = group_sum<TPR>(dot_part<DPT, TPR>(dor, sV + j * D, h));
       if (drop.on)
-        dp = hash_keep(qpos, kt * BR + j, base, drop.thresh)
+        dp = drop.keep(qpos, kt * BR + j, base)
                  ? dp * drop.inv_keep
                  : 0.f;
       // rounded before the sum, as JAX adds p * (dp - delta) to its scratch
@@ -520,7 +520,7 @@ __global__ void __launch_bounds__(kWideThreads)
     for (int j = 0; j < kWideRows; ++j) {
       float p = expf(s[0][j] - lse_r);
       if (drop.on)
-        p = hash_keep(qpos, kt * kWideRows + j, base, drop.thresh)
+        p = drop.keep(qpos, kt * kWideRows + j, base)
                 ? p * drop.inv_keep
                 : 0.f;
       axpy_part<kWideDims, kWideLanes>(acc, round_to<T>(p),
@@ -574,7 +574,7 @@ __global__ void __launch_bounds__(kWideThreads)
       const float p = expf(sd[0][j] - lse_r);
       float dp = sd[1][j];
       if (drop.on)
-        dp = hash_keep(qpos, kt * kWideRows + j, base, drop.thresh)
+        dp = drop.keep(qpos, kt * kWideRows + j, base)
                  ? dp * drop.inv_keep
                  : 0.f;
       const float ds = p * (dp - delta_r) * scale;
@@ -645,7 +645,7 @@ __global__ void __launch_bounds__(kWideThreads)
       float dp = sd[1][i], pv = p;
       if (drop.on) {
         const bool keep =
-            hash_keep(qt * kWideRows + i, kpos, base, drop.thresh);
+            drop.keep(qt * kWideRows + i, kpos, base);
         pv = keep ? p * drop.inv_keep : 0.f;
         dp = keep ? dp * drop.inv_keep : 0.f;
       }
@@ -708,7 +708,7 @@ __global__ void __launch_bounds__(kWideThreads)
       const float p = expf(sd[0][j] - lse_r);
       float dp = sd[1][j];
       if (drop.on)
-        dp = hash_keep(qpos, kt * kWideRows + j, base, drop.thresh)
+        dp = drop.keep(qpos, kt * kWideRows + j, base)
                  ? dp * drop.inv_keep
                  : 0.f;
       // rounded before the sum, as JAX adds p * (dp - delta) to its scratch
@@ -919,17 +919,19 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v,
 // sk rounded up to multiples of 64, its entries past sq, sk NEG_INF (they mask
 // the scores of the rows and columns past the end); d(bias) writes db, fp32
 // (heads, bsq, bsk), whose entries past sq, sk are scratch. Dropout is on when
-// `dropout` != 0: keep where hash >= thresh, kept values scaled by inv_keep.
+// `dropout` != 0: keep where hash >= thresh, kept values scaled by inv_keep;
+// the hash reads row q_off + i and column k_off + j (the launch's place in
+// the global sequence; 0, 0 for a whole sequence).
 extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
                                    const void* v, const void* bias, void* o,
                                    void* lse, int heads, int bh, int sq,
                                    int sk, int d, float scale, int causal,
                                    int dropout, unsigned seed,
                                    unsigned thresh, float inv_keep,
-                                   int dtype, void* stream) {
+                                   unsigned q_off, unsigned k_off, int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dropout drop{dropout, seed, thresh, inv_keep, q_off, k_off};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > kWideCols)
@@ -947,10 +949,10 @@ extern "C" int flash_attention_bwd_dq(int device, const void* q,
                                       int sk, int d, float scale, int causal,
                                       int dropout, unsigned seed,
                                       unsigned thresh, float inv_keep,
-                                      int dtype, void* stream) {
+                                      unsigned q_off, unsigned k_off, int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dropout drop{dropout, seed, thresh, inv_keep, q_off, k_off};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > kWideCols)
@@ -968,10 +970,10 @@ extern "C" int flash_attention_bwd_dkv(int device, const void* q,
                                        int sq, int sk, int d, float scale,
                                        int causal, int dropout, unsigned seed,
                                        unsigned thresh, float inv_keep,
-                                       int dtype, void* stream) {
+                                       unsigned q_off, unsigned k_off, int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dropout drop{dropout, seed, thresh, inv_keep, q_off, k_off};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > kWideCols)
@@ -989,13 +991,13 @@ extern "C" int flash_attention_bwd_dbias(int device, const void* q,
                                          int sk, int d, float scale,
                                          int causal, int dropout,
                                          unsigned seed, unsigned thresh,
-                                         float inv_keep, int dtype,
+                                         float inv_keep, unsigned q_off, unsigned k_off, int dtype,
                                          void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (bias == nullptr || heads <= 0 || bh % heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dropout drop{dropout, seed, thresh, inv_keep, q_off, k_off};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > kWideCols)

@@ -20,10 +20,19 @@ __device__ __forceinline__ bool hash_keep(uint32_t qpos, uint32_t kpos,
   return x >= thresh;
 }
 
+// q_off, k_off place the launch's rows and columns in the global sequence
+// (JAX's SMEM triple [seed, q_off, k_off]): a chunk of a longer sequence
+// then drops the entries of the dense mask that its positions select
 struct Dropout {
   int on;
   uint32_t seed, thresh;
   float inv_keep;  // 1 / (1 - rate), as the JAX kernels scale
+  uint32_t q_off, k_off;
+  // whether the entry at local row `qpos`, local column `kpos` is kept
+  __device__ __forceinline__ bool keep(uint32_t qpos, uint32_t kpos,
+                                       uint32_t base) const {
+    return hash_keep(qpos + q_off, kpos + k_off, base, thresh);
+  }
 };
 
 // shapes of one launch: sq, sk rows; d the true head dim (the row stride);

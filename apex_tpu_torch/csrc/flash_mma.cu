@@ -187,9 +187,8 @@ __global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 4 : D == 128 ? 2 : 1)
         l[e >> 1] += p;
         float pv = p;
         if (drop.on)
-          pv = hash_keep(qt * kB + r[e >> 1],
-                         kt * kB + j * 8 + 2 * t + (e & 1), base,
-                         drop.thresh)
+          pv = drop.keep(qt * kB + r[e >> 1],
+                         kt * kB + j * 8 + 2 * t + (e & 1), base)
                    ? p * drop.inv_keep
                    : 0.f;
         s[j][e] = pv;
@@ -338,7 +337,7 @@ __global__ void __launch_bounds__(128 * dkv_split<D>(), D <= 64 ? 3 : 1)
         float dpv = dp[j][e], pv = p;
         if (drop.on) {
           const bool keep =
-              hash_keep(qpos, kt * kB + key, base, drop.thresh);
+              drop.keep(qpos, kt * kB + key, base);
           pv = keep ? p * drop.inv_keep : 0.f;
           dpv = keep ? dpv * drop.inv_keep : 0.f;
         }
@@ -472,7 +471,7 @@ __global__ void __launch_bounds__(128 * dq_split<D>(),
         const float p = expf(sv - lse_r[e >> 1]);
         float dpv = dp[j][e];
         if (drop.on)
-          dpv = hash_keep(qt * kB + row, kt * kB + col, base, drop.thresh)
+          dpv = drop.keep(qt * kB + row, kt * kB + col, base)
                     ? dpv * drop.inv_keep
                     : 0.f;
         sc[j][e] = p * (dpv - delta_r[e >> 1]) * scale;
@@ -617,7 +616,7 @@ __global__ void __launch_bounds__(128, D <= 64 ? 2 : 1)
         const float p = expf(sv - cL[row]);
         float dpv = dp[j][e];
         if (drop.on)
-          dpv = hash_keep(qt * kB + row, kt * kB + col, base, drop.thresh)
+          dpv = drop.keep(qt * kB + row, kt * kB + col, base)
                     ? dpv * drop.inv_keep
                     : 0.f;
         // rounded before the sum, as JAX adds p * (dp - delta) to its
@@ -794,10 +793,10 @@ extern "C" int flash_mma_fwd(int device, const void* q, const void* k,
                              void* lse, int heads, int bh, int sq, int sk,
                              int d, float scale, int causal, int dropout,
                              unsigned seed, unsigned thresh, float inv_keep,
-                             int dtype, void* stream) {
+                             unsigned q_off, unsigned k_off, int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dropout drop{dropout, seed, thresh, inv_keep, q_off, k_off};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   APEX_MMA_DISPATCH(launch_fwd, q, k, v, bias, o, lse, n, bh, scale, causal,
@@ -811,10 +810,10 @@ extern "C" int flash_mma_bwd_dkv(int device, const void* q, const void* k,
                                  int heads, int bh, int sq, int sk, int d,
                                  float scale, int causal, int dropout,
                                  unsigned seed, unsigned thresh,
-                                 float inv_keep, int dtype, void* stream) {
+                                 float inv_keep, unsigned q_off, unsigned k_off, int dtype, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dropout drop{dropout, seed, thresh, inv_keep, q_off, k_off};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   APEX_MMA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, bias, dk, dv, n,
@@ -827,11 +826,11 @@ extern "C" int flash_mma_bwd_dq(int device, const void* q, const void* k,
                                 const void* bias, void* dq, int heads, int bh,
                                 int sq, int sk, int d, float scale,
                                 int causal, int dropout, unsigned seed,
-                                unsigned thresh, float inv_keep, int dtype,
+                                unsigned thresh, float inv_keep, unsigned q_off, unsigned k_off, int dtype,
                                 void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dropout drop{dropout, seed, thresh, inv_keep, q_off, k_off};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   APEX_MMA_DISPATCH(launch_dq, q, k, v, dout, lse, delta, bias, dq, n, bh,
@@ -849,14 +848,14 @@ extern "C" int flash_mma_bwd_dbias(int device, const void* q, const void* k,
                                    int heads, int bh, int sq, int sk, int d,
                                    float scale, int causal, int dropout,
                                    unsigned seed, unsigned thresh,
-                                   float inv_keep, int dtype, int chunks,
+                                   float inv_keep, unsigned q_off, unsigned k_off, int dtype, int chunks,
                                    void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (bias == nullptr || heads <= 0 || bh % heads != 0 || chunks < 1 ||
       chunks > bh / heads || (chunks > 1) != (part != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{dropout, seed, thresh, inv_keep};
+  const Dropout drop{dropout, seed, thresh, inv_keep, q_off, k_off};
   const Dims n{heads, sq, sk, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   APEX_MMA_DISPATCH_D(launch_dbias, q, k, v, dout, lse, delta, bias, db,

@@ -18,9 +18,8 @@ gradient reduce-scatter is fp32 or, with ``compression``,
 ``comm.collectives.compressed_psum_scatter``. Both are stateless, so
 error feedback and stochastic rounding are refused.
 
-:meth:`FSDP.linear` (the weight gather hidden behind partial GEMMs on a
-ring, ``comm.overlap.matmul_param_gather``) is tensor-parallel machinery:
-ROADMAP A7c.
+:meth:`FSDP.linear` hides the weight gather of one linear behind partial
+products on a ring (``comm.overlap.matmul_param_gather``).
 """
 
 from __future__ import annotations
@@ -217,11 +216,19 @@ class FSDP:
         return w.detach().float()[:, idx * n_loc:(idx + 1) * n_loc].clone()
 
     def linear(self, x, w_shard, dtype=None):
-        raise NotImplementedError(
-            "FSDP.linear rides comm.overlap.matmul_param_gather (the "
-            "weight gather decomposed into a ring behind partial GEMMs), "
-            "tensor-parallel machinery the port has not ported yet: "
-            "ROADMAP A7c. Gather the leaf with FSDP.gather instead")
+        """``x @ all_gather(w_shard)`` on the
+        :func:`~apex_tpu_torch.comm.overlap.matmul_param_gather` ring (the
+        gather hops behind partial products; ``bidirectional`` as the
+        engine's): backward re-gathers the weight for dX and
+        reduce-scatters the dp-summed dW into the column shard.
+        ``w_shard``: the fp32 column shard of :meth:`shard_linear_weight`;
+        ``dtype``: the compute dtype (default ``x``'s)."""
+        from apex_tpu_torch.comm.overlap import matmul_param_gather
+
+        dt = x.dtype if dtype is None else dtype
+        return matmul_param_gather(x, w_shard.to(dt),
+                                   axis_name=self.axis_name,
+                                   bidirectional=self.bidirectional)
 
     # -- accounting --------------------------------------------------------
     def gather_wire_bytes(self, meta: Pytree, world: int) -> float:

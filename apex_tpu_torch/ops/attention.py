@@ -18,7 +18,11 @@ a fourth kernel, :func:`flash_attention_bwd_dbias`.
 
 Dropout is the JAX kernels' counter hash (:func:`attention_dropout_mask`),
 bitwise the same keep mask, so the forward, its remat replay and both
-backward kernels drop the same entries.
+backward kernels drop the same entries. Like JAX's kernels (their SMEM
+triple ``[seed, q_off, k_off]``) every kernel and plain version takes the
+offsets ``q_off`` / ``k_off`` that place its rows and columns in a longer
+sequence: a ring chunk then drops the entries of the dense mask its
+global positions select. They default to 0, a whole sequence.
 
 Two routes (:func:`_flash_route`): bf16 inputs at head_dim <= 256 run all
 four kernels on the tensor cores (``csrc/flash_mma.cu``); fp32 inputs and
@@ -55,11 +59,11 @@ _TILE = 64
 # 132 SMs
 _DBIAS_TARGET_BLOCKS = 264
 # heads, bh, sq, sk, d, scale, causal, dropout, seed, thresh, inv_keep,
-# dtype code, stream
+# q_off, k_off, dtype code, stream
 _FLASH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-               ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
-               ctypes.c_void_p]
+               ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
+               ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
     "flash_attention_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6
     + _FLASH_ARGS,
@@ -222,26 +226,29 @@ def _per_head(t3, bias):
     return t3.view(-1, bias.shape[0], *t3.shape[1:])
 
 
-def _keep(rate, seed, bh, sq, sk, device):
+def _keep(rate, seed, bh, sq, sk, device, q_off=0, k_off=0):
     if rate <= 0.0:
         return None
-    return attention_dropout_mask(seed, rate, bh, sq, sk, device=device)
+    return attention_dropout_mask(seed, rate, bh, sq, sk, q_off, k_off,
+                                  device=device)
 
 
 def flash_attention_fwd_reference(q3, k3, v3, scale: float, causal: bool,
                                   dropout_rate: float = 0.0, seed: int = 0,
-                                  bias=None):
+                                  bias=None, q_off: int = 0, k_off: int = 0):
     """Plain version of the forward kernel over (bh, s, d): ``(o, lse)``,
     o in q's type, lse fp32 (bh, sq, 1). Like the kernel, ``l`` sums the
     UNdropped probabilities, dropout scales the kept ones, and p is
     rounded to v's type before p @ v. ``bias``: None or (heads, sq, sk),
-    added in fp32 after the scaling."""
+    added in fp32 after the scaling. ``q_off``, ``k_off``: the global
+    positions of row and column 0 in the dropout hash."""
     bh, sq, _ = q3.shape
     s = _scores(q3, k3, scale, causal, bias)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    keep = _keep(dropout_rate, seed, bh, sq, k3.shape[1], q3.device)
+    keep = _keep(dropout_rate, seed, bh, sq, k3.shape[1], q3.device, q_off,
+                 k_off)
     if keep is not None:
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     acc = torch.einsum("bqk,bkd->bqd", p.to(v3.dtype).float(), v3.float())
@@ -253,14 +260,15 @@ def flash_attention_fwd_reference(q3, k3, v3, scale: float, causal: bool,
 
 
 def _p_dp_delta(q3, k3, v3, o3, lse, do3, scale, causal, dropout_rate,
-                seed, bias):
+                seed, bias, q_off=0, k_off=0):
     """The backward's recomputation: p = exp(s − lse), dp = dO·vᵀ (dropped
     and rescaled), Δ = Σ dO·O, and the dropped p that multiplies dO."""
     bh, sq, _ = q3.shape
     delta = (do3.float() * o3.float()).sum(dim=-1, keepdim=True)
     p = torch.exp(_scores(q3, k3, scale, causal, bias) - lse)
     dp = torch.einsum("bqd,bkd->bqk", do3.float(), v3.float())
-    keep = _keep(dropout_rate, seed, bh, sq, k3.shape[1], q3.device)
+    keep = _keep(dropout_rate, seed, bh, sq, k3.shape[1], q3.device, q_off,
+                 k_off)
     p_v = p
     if keep is not None:
         inv = 1.0 / (1.0 - dropout_rate)
@@ -271,14 +279,15 @@ def _p_dp_delta(q3, k3, v3, o3, lse, do3, scale, causal, dropout_rate,
 
 def flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3, scale: float,
                                   causal: bool, dropout_rate: float = 0.0,
-                                  seed: int = 0, bias=None):
+                                  seed: int = 0, bias=None, q_off: int = 0,
+                                  k_off: int = 0):
     """Plain version of the dQ and dK/dV kernels: ``(dq, dk, dv)`` in the
     inputs' types, recomputed from ``lse`` the way the kernels do: p =
     exp(s − lse), dp = dO·vᵀ (dropped and rescaled), ds = p·(dp − Δ)·scale
     with Δ = Σ dO·O; ds and the dropped p are rounded to the input type
     before each product, fp32 accumulation."""
     p, dp, delta, p_v = _p_dp_delta(q3, k3, v3, o3, lse, do3, scale, causal,
-                                    dropout_rate, seed, bias)
+                                    dropout_rate, seed, bias, q_off, k_off)
     ds = (p * (dp - delta) * scale).to(q3.dtype).float()
     dv = torch.einsum("bqk,bqd->bkd", p_v.to(do3.dtype).float(), do3.float())
     dq = torch.einsum("bqk,bkd->bqd", ds, k3.float())
@@ -289,13 +298,14 @@ def flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3, scale: float,
 def flash_attention_bwd_dbias_reference(q3, k3, v3, o3, lse, do3,
                                         scale: float, causal: bool,
                                         dropout_rate: float = 0.0,
-                                        seed: int = 0, *, bias):
+                                        seed: int = 0, *, bias,
+                                        q_off: int = 0, k_off: int = 0):
     """Plain version of the d(bias) kernel: dL/dbias, fp32 (heads, sq, sk),
     Σ over the batch of p·(dp − Δ) — no ``scale`` factor, the bias enters
     after the scaling. Where the causal mask holds p is 0, so those
     entries are 0."""
     p, dp, delta, _ = _p_dp_delta(q3, k3, v3, o3, lse, do3, scale, causal,
-                                  dropout_rate, seed, bias)
+                                  dropout_rate, seed, bias, q_off, k_off)
     return _per_head(p * (dp - delta), bias).sum(dim=0)
 
 
@@ -303,13 +313,14 @@ def flash_attention_bwd_dbias_chunked_reference(q3, k3, v3, o3, lse, do3,
                                                 scale: float, causal: bool,
                                                 dropout_rate: float = 0.0,
                                                 seed: int = 0, *, bias,
-                                                chunks: int):
+                                                chunks: int, q_off: int = 0,
+                                                k_off: int = 0):
     """Plain version of the tensor-core d(bias)'s batch split: chunk c sums
     the batch items [c·nb // chunks, (c + 1)·nb // chunks) in order into
     an fp32 partial, and the partials are added in chunk order, as the
     kernel's second launch adds them."""
     p, dp, delta, _ = _p_dp_delta(q3, k3, v3, o3, lse, do3, scale, causal,
-                                  dropout_rate, seed, bias)
+                                  dropout_rate, seed, bias, q_off, k_off)
     per = _per_head(p * (dp - delta), bias)
     nb = per.shape[0]
     out = None
@@ -377,17 +388,23 @@ def _whole_tiles(t, rows: int, cols: int, value: float = 0.0):
     return F.pad(t, (0, pc, 0, pr), value=value) if pr or pc else t
 
 
-def _dropout_args(rate: float, seed: int):
+def _dropout_args(rate: float, seed):
+    """The C entries' dropout arguments from ``seed``, an int or JAX's
+    triple ``(seed, q_off, k_off)``: on, seed, thresh, inv_keep, q_off,
+    k_off."""
+    seed, q_off, k_off = (seed, 0, 0) if isinstance(seed, int) else seed
     if rate <= 0.0:
-        return 0, 0, 0, 1.0
-    return 1, int(seed) & M32, _keep_threshold(rate), 1.0 / (1.0 - rate)
+        return 0, 0, 0, 1.0, 0, 0
+    return (1, int(seed) & M32, _keep_threshold(rate), 1.0 / (1.0 - rate),
+            int(q_off) & M32, int(k_off) & M32)
 
 
 def _launch(entry, q3, k3, v3, bias, scale, causal, dropout_rate, seed,
             pointers, shapes, extra=()):
     """Check the inputs, launch ``entry`` (of ``flash_mma.cu`` or
     ``flash_attention.cu``) with the tensors of ``pointers`` (in the C
-    order) and the ints of ``extra`` (after the dtype code), count the
+    order), the dropout of ``seed`` (an int or ``(seed, q_off, k_off)``)
+    and the ints of ``extra`` (after the dtype code), count the
     launch (a launch of the fwd, dQ or dK/dV kernel with a bias also under
     ``entry + "[bias]"``) and raise on a CUDA error."""
     heads, bh, sq, sk, d = _check_flash(entry, q3, k3, v3, causal, bias,
@@ -416,10 +433,12 @@ def _bwd_shapes(q3, do3, lse, delta):
 
 def flash_attention_fwd(q3, k3, v3, scale: float, causal: bool,
                         dropout_rate: float = 0.0, seed: int = 0,
-                        bias=None):
+                        bias=None, q_off: int = 0, k_off: int = 0):
     """Launch the flash forward kernel of :func:`_flash_route` on (bh, s, d)
     CUDA tensors: returns ``(o, lse)``, lse fp32 (bh, sq, 1). ``bias``:
-    None or a contiguous fp32 (heads, sq, sk) CUDA tensor."""
+    None or a contiguous fp32 (heads, sq, sk) CUDA tensor. ``q_off``,
+    ``k_off``: the global positions of row and column 0 in the dropout
+    hash (the kernels' and JAX's ``[seed, q_off, k_off]``)."""
     entry = ("flash_mma_fwd"
              if _flash_route(q3.dtype, q3.shape[-1]) == "tensor_core"
              else "flash_attention_fwd")
@@ -427,13 +446,15 @@ def flash_attention_fwd(q3, k3, v3, scale: float, causal: bool,
     lse = torch.empty(q3.shape[0], q3.shape[1], 1, dtype=torch.float32,
                       device=q3.device)
     _launch(entry, q3, k3, v3, bias, scale, causal,
-            dropout_rate, seed, (q3, k3, v3, bias, o, lse), ())
+            dropout_rate, (seed, q_off, k_off), (q3, k3, v3, bias, o, lse),
+            ())
     return o, lse
 
 
 def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float,
                            causal: bool, dropout_rate: float = 0.0,
-                           seed: int = 0, bias=None):
+                           seed: int = 0, bias=None, q_off: int = 0,
+                           k_off: int = 0):
     """Launch the dQ kernel of :func:`_flash_route`; ``lse`` and ``delta``
     are fp32 (bh, sq, 1)."""
     entry = ("flash_mma_bwd_dq"
@@ -441,14 +462,16 @@ def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float,
              else "flash_attention_bwd_dq")
     dq = torch.empty_like(q3)
     _launch(entry, q3, k3, v3, bias, scale, causal,
-            dropout_rate, seed, (q3, k3, v3, do3, lse, delta, bias, dq),
+            dropout_rate, (seed, q_off, k_off),
+            (q3, k3, v3, do3, lse, delta, bias, dq),
             _bwd_shapes(q3, do3, lse, delta))
     return dq
 
 
 def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float,
                             causal: bool, dropout_rate: float = 0.0,
-                            seed: int = 0, bias=None):
+                            seed: int = 0, bias=None, q_off: int = 0,
+                            k_off: int = 0):
     """Launch the dK/dV kernel of :func:`_flash_route`; returns ``(dk,
     dv)``."""
     entry = ("flash_mma_bwd_dkv"
@@ -457,14 +480,16 @@ def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float,
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
     _launch(entry, q3, k3, v3, bias, scale, causal,
-            dropout_rate, seed, (q3, k3, v3, do3, lse, delta, bias, dk, dv),
+            dropout_rate, (seed, q_off, k_off),
+            (q3, k3, v3, do3, lse, delta, bias, dk, dv),
             _bwd_shapes(q3, do3, lse, delta))
     return dk, dv
 
 
 def flash_attention_bwd_dbias(q3, k3, v3, do3, lse, delta, scale: float,
                               causal: bool, dropout_rate: float = 0.0,
-                              seed: int = 0, *, bias):
+                              seed: int = 0, *, bias, q_off: int = 0,
+                              k_off: int = 0):
     """Launch the d(bias) kernel of :func:`_flash_route`: dL/dbias, fp32
     (heads, sq, sk), summed over the batch in order by one block per
     output tile (on the tensor cores per chunk of the batch,
@@ -482,11 +507,11 @@ def flash_attention_bwd_dbias(q3, k3, v3, do3, lse, delta, scale: float,
         part = (torch.empty((chunks, *db.shape), dtype=torch.float32,
                             device=q3.device) if chunks > 1 else None)
         _launch("flash_mma_bwd_dbias", q3, k3, v3, bias, scale, causal,
-                dropout_rate, seed, (*pointers, part), shapes,
-                extra=(chunks,))
+                dropout_rate, (seed, q_off, k_off), (*pointers, part),
+                shapes, extra=(chunks,))
     else:
         _launch("flash_attention_bwd_dbias", q3, k3, v3, bias, scale, causal,
-                dropout_rate, seed, pointers, shapes)
+                dropout_rate, (seed, q_off, k_off), pointers, shapes)
     return db if db.shape[1:] == (sq, sk) else db[:, :sq, :sk].contiguous()
 
 

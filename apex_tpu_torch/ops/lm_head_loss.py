@@ -26,7 +26,9 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.comm import collectives as coll
 from apex_tpu_torch.ops import _kernel_util as ku
+from apex_tpu_torch.parallel.mesh import axis_info
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_N = 1024
@@ -379,15 +381,23 @@ class LMHeadLoss(ku.OpaqueFunction):
     """Per-row loss ``lse − pred`` of ``x2 · wᵀ`` (fp32, (n,)),
     differentiable in ``x2`` and ``w``: the kernels for CUDA tensors,
     their plain versions for CPU tensors (or under ``force_plain``). Saves
-    ``(x2, w, t, lse)``, as ``_lm_fwd`` does."""
+    ``(x2, w, t, lse)``, as ``_lm_fwd`` does. With ``axis_name`` (the
+    vocab-parallel form: ``w`` is this rank's vocab shard, ``t`` the
+    targets localized to it) the shards' ``(lse, pred)`` are merged over
+    the axis (JAX ``lm_head_loss.py:346-353``: ``lse`` by pmax and the log
+    of the psum of ``exp(lse − max)``, ``pred`` by psum) and the backward
+    runs against the merged ``lse``; its ``dx`` is this rank's partial,
+    which the caller's ``copy_to_tensor_model_parallel_region`` sums."""
 
     @staticmethod
-    def forward(ctx, x2, w, t):
+    def forward(ctx, x2, w, t, axis_name=None):
         ctx.kernel = ku.use_kernel(x2)
         if ctx.kernel:
             lse, pred = lm_head_loss_fwd(x2, w, t)
         else:
             lse, pred = lm_head_loss_fwd_reference(x2, w, t)
+        if axis_name is not None:
+            lse, pred = _merge_shards(lse, pred, axis_name)
         ctx.save_for_backward(x2, w, t, lse)
         return lse - pred
 
@@ -400,7 +410,21 @@ class LMHeadLoss(ku.OpaqueFunction):
             dw = lm_head_loss_bwd_dw(x2, w, t, lse, g)
         else:
             dx, dw = lm_head_loss_bwd_reference(x2, w, t, lse, g)
-        return dx, dw, None
+        return dx, dw, None, None
+
+
+def _merge_shards(lse, pred, axis_name: str):
+    """The vocab shards' ``(lse, pred)`` merged over ``axis_name`` (of more
+    than one rank): the reference's MAX / SUM / SUM triple on (n,) rows."""
+    group, world, _ = axis_info(axis_name)
+
+    def reduce(t, op=None):
+        return coll.all_reduce(t.contiguous().clone(), group, world, op=op,
+                               tag="tp")
+
+    m = reduce(lse, op=torch.distributed.ReduceOp.MAX)
+    lse = m + torch.log(reduce(torch.exp(lse - m)))
+    return lse.contiguous(), reduce(pred).contiguous()
 
 
 def lm_head_loss(x, w, targets, axis_name: Optional[str] = None):
@@ -409,16 +433,26 @@ def lm_head_loss(x, w, targets, axis_name: Optional[str] = None):
     ``targets``: (...) int ids. Returns the fp32 loss shaped like
     ``targets``, differentiable in ``x`` and ``w``. On CUDA the kernels
     take fp32, bf16 or fp16 with ``h % 128 == 0`` and raise on anything else.
-    ``axis_name`` (the vocab-sharded tensor-parallel form) is
-    multi-device and not ported (ROADMAP A7c)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"lm_head_loss(axis_name={axis_name!r}): the vocab-parallel "
-            f"loss is multi-device and not ported yet (ROADMAP A7c)")
+
+    ``axis_name`` (JAX's vocab-parallel form, a mesh axis such as
+    ``"tp"``): ``w`` is this rank's (V_local, h) shard of the vocab rows,
+    ``targets`` are global ids, localized by ``rank · V_local`` (on the
+    other ranks' rows they fall outside [0, V_local), where the kernels
+    pick no target); the shards' results merge over the axis, and ``dx``
+    is this rank's partial (summed by the enclosing
+    ``copy_to_tensor_model_parallel_region``'s backward). On an axis of
+    one rank (or with no mesh) the shard is the whole vocab and the form
+    is the plain one, as every tp mapping is the identity there."""
     h = x.shape[-1]
     lead = targets.shape
     x2 = x.reshape(-1, h)
     t = targets.reshape(-1).long()
+    if axis_name is not None:
+        _, world, index = axis_info(axis_name)
+        if world == 1:
+            axis_name = None
+        else:
+            t = t - index * w.shape[0]
     if ku.use_kernel(x2):
         x2, w, t = x2.contiguous(), w.contiguous(), t.contiguous()
-    return LMHeadLoss.apply(x2, w, t).reshape(lead)
+    return LMHeadLoss.apply(x2, w, t, axis_name).reshape(lead)

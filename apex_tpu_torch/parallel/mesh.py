@@ -203,6 +203,15 @@ def model_parallel_axes(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a != DP_AXIS)
 
 
+def axis_info(axis_name: str):
+    """``(group, size, index)`` of ``axis_name`` on the current mesh;
+    ``(None, 1, 0)`` with no mesh installed (one device: every axis has
+    one rank, as in JAX's program on a one-device mesh)."""
+    if get_mesh(required=False) is None:
+        return None, 1, 0
+    return resolve_axis(axis_name)
+
+
 def resolve_axis(axis, mesh: Optional[Mesh] = None):
     """``(group, size, index)`` of an axis: a name on ``mesh`` (the
     current mesh by default), or a ``torch.distributed`` process group

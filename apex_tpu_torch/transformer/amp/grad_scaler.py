@@ -17,15 +17,11 @@ class GradScaler(LossScaler):
     ``backoff_factor``, ``growth_interval``, ``axis_names`` and the
     LossScaler keywords).
 
-    ``axis_names=()`` names no model-parallel axis, as on one device with
-    no mesh: :meth:`sync_found_inf` is the identity, as JAX's loop over no
-    axes is. A non-empty ``axis_names`` raises: JAX reads the
-    model-parallel axes off ``parallel_state``, which is not ported
-    (ROADMAP A7c; ``LossScaler.all_reduce_found_inf`` takes mesh axis
-    names). ``group`` is the ``torch.distributed`` form: the group of the
-    model-parallel ranks. With neither (JAX's default, every non-dp axis
-    of ``parallel_state``'s mesh) :meth:`sync_found_inf` raises, naming
-    A7c."""
+    ``axis_names``: the mesh axes the flag is MAX-reduced over; by
+    default, JAX's, every model-parallel axis of ``parallel_state``'s
+    mesh, read when the flag is synced (``()``: none, as on one device).
+    ``group`` is the ``torch.distributed`` form: the group of the
+    model-parallel ranks, in place of axis names."""
 
     def __init__(self, init_scale: float = 2.0 ** 16,
                  growth_factor: float = 2.0, backoff_factor: float = 0.5,
@@ -37,28 +33,28 @@ class GradScaler(LossScaler):
                          scale_window=growth_interval,
                          backoff_factor=backoff_factor, **kw)
         self.axis_names = tuple(axis_names) if axis_names is not None else None
-        if self.axis_names:
-            raise NotImplementedError(
-                f"GradScaler(axis_names={self.axis_names!r}) reduces over "
-                "parallel_state's model-parallel axes: parallel_state is "
-                "not ported (ROADMAP A7c); pass group= (a torch.distributed "
-                "group) or axis_names=() on one device")
         if self.axis_names is not None and group is not None:
-            raise ValueError("GradScaler takes axis_names=() or group=, "
+            raise ValueError("GradScaler takes axis_names= or group=, "
                              "not both")
         self.group = group
 
-    def sync_found_inf(self, found_inf: torch.Tensor) -> torch.Tensor:
-        """MAX all-reduce of the flag over the model-parallel group; the
-        flag itself under ``axis_names=()``."""
+    def _mp_axes(self) -> Sequence[str]:
         if self.axis_names is not None:
+            return self.axis_names
+        from apex_tpu_torch.transformer import parallel_state
+
+        return parallel_state.get_model_parallel_axes()
+
+    def sync_found_inf(self, found_inf: torch.Tensor) -> torch.Tensor:
+        """MAX all-reduce of the flag over the model-parallel axes (or the
+        group); the flag itself over no axis."""
+        if self.group is not None:
+            return LossScaler.all_reduce_found_inf(found_inf,
+                                                   group=self.group)
+        axes = tuple(self._mp_axes())
+        if not axes:
             return found_inf
-        if self.group is None:
-            raise NotImplementedError(
-                "GradScaler.sync_found_inf needs the model-parallel "
-                "torch.distributed group (GradScaler(group=...)) or "
-                "axis_names=(): parallel_state is not ported (ROADMAP A7c)")
-        return LossScaler.all_reduce_found_inf(found_inf, group=self.group)
+        return LossScaler.all_reduce_found_inf(found_inf, axes)
 
     def update_scale(self, state: LossScalerState, found_inf: torch.Tensor,
                      *, synced: bool = True

@@ -26,8 +26,9 @@ step that derives its keys here never syncs.
 
 The tracker and seeds follow JAX's module: :class:`RngStatesTracker`'s
 named streams, ``model_parallel_seed`` (the 2718 offset) and the per-rank
-folds, with the tensor-parallel rank 0 until the port has a tensor-parallel
-group (``rank=``). ``pipeline_stage_key`` waits for pipelining (A7d).
+folds, which fold this rank's index on the current mesh's tp axis (0 with
+no mesh installed; ``rank=`` overrides it). ``pipeline_stage_key`` waits
+for pipelining (A7d).
 
 Checkpointing maps ``jax.checkpoint`` and its save policies onto
 ``torch.utils.checkpoint``: "nothing" recomputes everything, "dots" saves
@@ -182,14 +183,26 @@ def random_bits_tensor(key, numel: int, device=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# seeds and streams (tensor-parallel rank 0 until A7c brings a group)
+# seeds and streams
 
 
-def model_parallel_key(key, rank: int = 0) -> np.ndarray:
+def _tp_rank(rank) -> int:
+    """``rank``, or this rank's index on the current mesh's tp axis (0
+    with no mesh installed): JAX's ``lax.axis_index(tp)``."""
+    if rank is not None:
+        return int(rank)
+    from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+        axis_info,
+    )
+
+    return axis_info("tp")[2]
+
+
+def model_parallel_key(key, rank=None) -> np.ndarray:
     """A key distinct per tensor-parallel rank, the same across data-
-    parallel replicas: ``fold_in(fold_in(key, 2718), rank)`` (JAX folds
-    ``lax.axis_index(tp)``)."""
-    return fold_in(fold_in(key, _MODEL_PARALLEL_SEED_OFFSET), rank)
+    parallel replicas: ``fold_in(fold_in(key, 2718), rank)``, ``rank``
+    this process's tp index by default (JAX folds ``lax.axis_index(tp)``)."""
+    return fold_in(fold_in(key, _MODEL_PARALLEL_SEED_OFFSET), _tp_rank(rank))
 
 
 def data_parallel_key(key) -> np.ndarray:
@@ -198,7 +211,7 @@ def data_parallel_key(key) -> np.ndarray:
     return _key_words(key)
 
 
-def attention_dropout_seed(key, rank: int = 0) -> int:
+def attention_dropout_seed(key, rank=None) -> int:
     """The int32 seed of the flash kernels' attention dropout:
     ``bits(model_parallel_key(key, rank))`` as a signed 32-bit int, JAX's
     ``jax.random.bits(..., uint32).astype(int32)``."""

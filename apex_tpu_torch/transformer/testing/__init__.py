@@ -4,6 +4,7 @@
 from apex_tpu_torch.transformer.testing.standalone_bert import (  # noqa: F401
     BertConfig,
     bert_forward,
+    bert_param_specs,
     bert_mlm_loss,
     init_bert_params,
     init_bert_params_numpy,
@@ -12,10 +13,13 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     GPTConfig,
     dots_attn_policy,
     embed_tokens,
+    gather_grads,
     gpt_forward,
     gpt_head,
     gpt_loss,
+    gpt_param_specs,
     init_gpt_params,
+    shard_params,
     tied_vocab_logits,
 )
 from apex_tpu_torch.transformer.testing.standalone_t5 import (  # noqa: F401
@@ -25,6 +29,7 @@ from apex_tpu_torch.transformer.testing.standalone_t5 import (  # noqa: F401
     t5_decode,
     t5_encode,
     t5_loss,
+    t5_param_specs,
     t5_relative_bias,
 )
 from apex_tpu_torch.transformer.testing.train import (  # noqa: F401

@@ -4,7 +4,10 @@ run bidirectionally (``causal=False``) with an optional padding mask,
 token + position + token-type embeddings and their LayerNorm, and the
 tied MLM head with Megatron's dense -> GELU -> LayerNorm transform.
 
-Single device, the JAX tp = 1 program. An unpadded call runs the
+On one device or, with a mesh installed, on this rank's shards under
+tp and ``megatron_sp`` (GPT's tp layers and specs, ``gpt_param_specs``
+plus the whole ``embed.type`` / ``embed.ln_*`` / ``head.*``). An unpadded
+call runs the
 non-causal flash kernels (B #5-8 on the card); a padded call takes
 :func:`~apex_tpu_torch.ops.attention.attention_reference`, as JAX sends a
 masked call to its XLA path. The parameter tree is JAX's:
@@ -34,11 +37,16 @@ from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.parallel.mesh import TP_AXIS
+from apex_tpu_torch.transformer.tensor_parallel.mappings import axis_info
+from apex_tpu_torch.transformer.tensor_parallel.utils import P
 from apex_tpu_torch.transformer.testing.standalone_gpt import (
     GPTConfig,
     _dense,
     _layer_stack,
+    _sp_param,
     embed_tokens,
+    gpt_param_specs,
     init_gpt_params_numpy,
     tied_vocab_logits,
 )
@@ -47,7 +55,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
 @dataclasses.dataclass(frozen=True)
 class BertConfig(GPTConfig):
     """GPT's fields (GPT-2-124M's widths by default) and the number of
-    token types. ``megatron_sp`` and ``num_experts`` stay refused (A7c, A7d)."""
+    token types. ``num_experts`` stays refused (A7d)."""
 
     num_token_types: int = 2
 
@@ -85,29 +93,48 @@ def init_bert_params(cfg: BertConfig, seed: int = 0,
                              dtype=cfg.dtype)
 
 
+def bert_param_specs(cfg: BertConfig) -> Dict[str, Any]:
+    """Partition specs of :func:`init_bert_params`: GPT's
+    (``gpt_param_specs``) with the token-type table, the embedding LN and
+    the head whole (the layout JAX's BERT tests feed ``shard_map``)."""
+    specs = gpt_param_specs(dataclasses.replace(cfg, tie_embeddings=True))
+    specs["embed"].update(type=P(), ln_w=P(), ln_b=P())
+    specs["head"] = {k: P() for k in ("dense_kernel", "dense_bias", "ln_w",
+                                      "ln_b")}
+    return specs
+
+
 def _bert_logits(params, tokens, cfg: BertConfig, token_types=None,
                  padding_mask=None):
-    """MLM logits (b, s, vocab) in the model's dtype (JAX's
-    ``_bert_logits`` at tp = 1, no MoE aux loss)."""
+    """Vocab-sharded MLM logits (b, s, vocab/tp) in the model's dtype
+    (JAX's ``_bert_logits``, no MoE aux loss). Under ``cfg.megatron_sp``
+    the embedding exit reduce-scatters the sequence, the LN and head
+    transform run on the (b, s/tp, h) shard (their replicated parameters'
+    gradients summed over tp), and the tied head gathers it back."""
     cfg.validate()
     e = params["embed"]
-    x = embed_tokens(e, tokens)
+    x = embed_tokens(e, tokens, megatron_sp=cfg.megatron_sp)
     if token_types is not None:
-        x = x + F.embedding(token_types, e["type"]).to(x.dtype)
-    x = layer_norm(x, e["ln_w"], e["ln_b"])
+        _, tp, rank = axis_info(TP_AXIS)
+        if cfg.megatron_sp and tp > 1:
+            shard = tokens.shape[1] // tp
+            token_types = token_types[:, rank * shard:(rank + 1) * shard]
+        x = x + F.embedding(token_types,
+                            _sp_param(e["type"], cfg)).to(x.dtype)
+    x = layer_norm(x, *(_sp_param(e[k], cfg) for k in ("ln_w", "ln_b")))
     mask = None if padding_mask is None else padding_mask[:, None, None, :]
     x = _layer_stack(params["layers"], x, cfg, causal=False, mask=mask)
-    h = params["head"]
+    h = {k: _sp_param(v, cfg) for k, v in params["head"].items()}
     x = F.gelu(_dense(x, h["dense_kernel"], h["dense_bias"]),
                approximate="tanh")
     x = layer_norm(x, h["ln_w"], h["ln_b"])
-    return tied_vocab_logits(x, e["tok"])
+    return tied_vocab_logits(x, e["tok"], cfg.megatron_sp)
 
 
 def bert_forward(params, tokens, cfg: BertConfig, token_types=None,
                  padding_mask=None):
-    """tokens (b, s) -> MLM logits (b, s, vocab). ``padding_mask`` (b, s):
-    True = pad, masked out of attention as a key."""
+    """tokens (b, s) -> MLM logits (b, s, vocab/tp). ``padding_mask`` (b,
+    s): True = pad, masked out of attention as a key."""
     return _bert_logits(params, tokens, cfg, token_types, padding_mask)
 
 

@@ -1,6 +1,7 @@
 """Standalone GPT config and parameters (counterpart of
 ``apex_tpu/transformer/testing/standalone_gpt.py``): config, parameters,
-and the single-device training forward and loss.
+their partition specs, and the training forward and loss, on one device
+or on this rank's shards under tensor and sequence parallelism.
 
 The parameter tree keeps the JAX package's layout so weights carry across
 one to one through :func:`apex_tpu_torch.convert.params_from_numpy`:
@@ -17,11 +18,10 @@ one to one through :func:`apex_tpu_torch.convert.params_from_numpy`:
 ``head.lm`` (untied head)       (hidden, vocab)
 ==============================  ==========================
 
-Training (single device, the JAX package's tp=1 program): :func:`gpt_loss`
-is the JAX ``gpt_loss`` — embedding, a Python loop over the stacked layers
-(each under ``torch.utils.checkpoint`` when ``remat``, saving what
-``remat_policy`` names), then either the fused head (``fused_loss``, the
-default: final LayerNorm and
+Training: :func:`gpt_loss` is the JAX ``gpt_loss`` — embedding, a Python
+loop over the stacked layers (each under ``torch.utils.checkpoint`` when
+``remat``, saving what ``remat_policy`` names), then either the fused
+head (``fused_loss``, the default: final LayerNorm and
 :func:`~apex_tpu_torch.ops.lm_head_loss.lm_head_loss` over the vocab rows,
 kernels B #12-14 on the card) or the unfused one (final LayerNorm, the
 vocab logits and the port's ``vocab_parallel_cross_entropy``).
@@ -30,12 +30,35 @@ kernels; the projections are plain ``torch.matmul`` over the (b·s) rows.
 
 Dropout (training mode, ``dropout_key`` given: a threefry ``uint32[2]``
 key on the host, ``transformer.tensor_parallel.random``) follows JAX's
-sites and keys at tp = sp = 1: the embedding's hidden dropout under
-``fold_in(key, 0x0E0B)``; layer i under ``fold_in(key, i)``, split in
-three for the attention seed (the flash kernels' in-kernel dropout,
-``attention_dropout_seed``) and the two residual branches' hidden dropout
-(``ops.dropout.hidden_dropout``, bitwise JAX's ``_hidden_dropout``).
-Without a key the model runs in eval mode.
+sites and keys: the embedding's hidden dropout under ``fold_in(key,
+0x0E0B)``; layer i under ``fold_in(key, i)``, split in three for the
+attention seed (the flash kernels' in-kernel dropout,
+``attention_dropout_seed``, which folds the tp rank) and the two residual
+branches' hidden dropout (``ops.dropout.hidden_dropout``, bitwise JAX's
+``_hidden_dropout``), whose keys fold the sp rank under ring sp and the
+tp rank under ``megatron_sp`` (``_hidden_key``). Without a key the model
+runs in eval mode.
+
+Tensor and sequence parallelism (JAX's program inside ``shard_map``). With
+a mesh installed (``parallel_state.initialize_model_parallel`` or
+``parallel.build_mesh``) the functions take this rank's LOCAL parameter
+tree (:func:`shard_params` cuts it from the global one by
+:func:`gpt_param_specs`) and, under ring sp, this rank's (b, s/sp) token
+shard; they run JAX's tp layers (``tensor_parallel.layers``: the QKV and
+FC1 column-parallel, split per head, the out-projection and FC2
+row-parallel, the vocab-parallel embedding and the vocab-parallel loss,
+``lm_head_loss(axis_name="tp")``), ``megatron_sp`` (sequence shards
+between the tp blocks), ``overlap_comm`` (the ``comm.overlap`` rings) and
+ring attention over ``sp``. The loss is this rank's mean over its tokens.
+JAX sums the gradient of every replicated parameter over the axes its
+cotangent varies on at the ``shard_map`` boundary; the port has no such
+boundary, so the parameters that meet a sequence shard under
+``megatron_sp`` (the LayerNorms, the row-parallel biases, the position
+table) pass through ``copy_to_tensor_model_parallel_region`` (summed over
+tp in backward, exactly once), and :func:`gather_grads` sums over dp and
+sp (the data-parallel axes of the token shards) and gathers the tp
+shards, the port's ``out_specs``. With no mesh every axis has one rank
+and the functions are the single-device program.
 """
 
 from __future__ import annotations
@@ -54,16 +77,31 @@ from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.dropout import hidden_dropout
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.ops.lm_head_loss import kernel_fits, lm_head_loss
+from apex_tpu_torch.parallel.mesh import SP_AXIS, TP_AXIS
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
+)
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    column_parallel_linear,
+    row_parallel_linear,
+    vocab_parallel_embedding,
+)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    all_gather_dim,
+    all_reduce,
+    axis_info,
+    copy_to_tensor_model_parallel_region,
+    gather_from_sequence_parallel_region,
 )
 from apex_tpu_torch.transformer.tensor_parallel.random import (
     attention_dropout_seed,
     checkpoint_saving,
     fold_in,
+    model_parallel_key,
     saved_product,
     split,
 )
+from apex_tpu_torch.transformer.tensor_parallel.utils import P
 
 # the embedding's dropout stream, apart from the per-layer keys
 _EMBED_DROPOUT_SALT = 0x0E0B
@@ -83,10 +121,12 @@ class GPTConfig:
     ``fused_loss`` (JAX's default ``True``: the LM head fused into the
     loss, kernels B #12-14 on the card; ``False`` materializes the
     logits), ``attention_dropout`` and ``hidden_dropout`` (active when the
-    loss is given a ``dropout_key``), ``megatron_sp``, ``overlap_comm``
-    and ``num_experts`` (defaults only: single device, dense FFN). Left
-    out, as TPU-only tuning: ``scan_unroll``, ``ln_pallas``,
-    ``attn_block_q/k``, ``lm_block_n/v``, and the MoE routing fields.
+    loss is given a ``dropout_key``), ``megatron_sp`` (Megatron's sequence
+    shards over tp between the tp blocks), ``overlap_comm`` (the tp
+    boundary collectives on ``comm.overlap``'s rings) and ``num_experts``
+    (0 only: mixture of experts is ROADMAP A7d). Left out, as TPU-only
+    tuning: ``scan_unroll``, ``ln_pallas``, ``attn_block_q/k``,
+    ``lm_block_n/v``, and the MoE routing fields.
     """
 
     vocab_size: int = 50304
@@ -114,9 +154,16 @@ class GPTConfig:
     def head_dim(self) -> int:
         return self.hidden // self.num_heads
 
-    def validate(self) -> None:
+    def validate(self, tp: int = 1, sp: int = 1) -> None:
+        """JAX's checks for a tp × sp layout (and the port's dtypes);
+        ``num_experts`` raises, naming A7d."""
         if self.hidden % self.num_heads:
             raise ValueError("hidden must be divisible by num_heads")
+        for name, dim in (("vocab_size", self.vocab_size),
+                          ("num_heads", self.num_heads),
+                          ("ffn_hidden", self.ffn_hidden)):
+            if dim % tp:
+                raise ValueError(f"{name} ({dim}) not divisible by tp ({tp})")
         if self.dtype not in (torch.float32, torch.bfloat16,
                               torch.float16):
             raise ValueError(f"dtype must be float32, bfloat16 or float16, "
@@ -125,19 +172,19 @@ class GPTConfig:
             raise ValueError(
                 f"remat_policy must be 'full', 'dots' or 'dots_attn', "
                 f"got {self.remat_policy!r}")
-        refused = {
-            "megatron_sp": (self.megatron_sp,
-                            "sequence parallelism is multi-device (A7c)"),
-            "overlap_comm": (self.overlap_comm,
-                             "collective overlap is multi-device (A7c)"),
-            "num_experts": (self.num_experts != 0,
-                            "mixture of experts is multi-device (A7d)"),
-        }
-        for name, (bad, why) in refused.items():
-            if bad:
-                raise NotImplementedError(
-                    f"GPTConfig.{name}={getattr(self, name)!r} is not ported: "
-                    f"{why}")
+        if self.megatron_sp and self.max_seq % tp:
+            raise ValueError(
+                f"megatron_sp needs max_seq ({self.max_seq}) divisible by "
+                f"tp ({tp})")
+        if self.overlap_comm and self.max_seq % (tp * sp):
+            raise ValueError(
+                f"overlap_comm rings shard the sp-local sequence by tp: "
+                f"max_seq ({self.max_seq}) must be divisible by "
+                f"tp*sp ({tp}*{sp})")
+        if self.num_experts:
+            raise NotImplementedError(
+                f"GPTConfig.num_experts={self.num_experts!r} is not ported: "
+                f"mixture of experts is multi-device (A7d)")
 
 
 def init_gpt_params_numpy(cfg: GPTConfig, seed: int = 0
@@ -190,8 +237,79 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0,
                              dtype=cfg.dtype)
 
 
+def gpt_param_specs(cfg: GPTConfig) -> Dict[str, Any]:
+    """Partition specs matching :func:`init_gpt_params` (JAX's
+    ``gpt_param_specs``): the Megatron dims over tp (the stacked layer dim
+    leads), everything else whole."""
+    layer = {
+        "ln1_w": P(None), "ln1_b": P(None),
+        "qkv_kernel": P(None, None, TP_AXIS), "qkv_bias": P(None, TP_AXIS),
+        "out_kernel": P(None, TP_AXIS, None), "out_bias": P(None),
+        "ln2_w": P(None), "ln2_b": P(None),
+        "fc1_kernel": P(None, None, TP_AXIS), "fc1_bias": P(None, TP_AXIS),
+        "fc2_kernel": P(None, TP_AXIS, None), "fc2_bias": P(None),
+    }
+    specs = {"embed": {"tok": P(TP_AXIS, None), "pos": P()},
+             "layers": layer, "head": {"ln_w": P(), "ln_b": P()}}
+    if not cfg.tie_embeddings:
+        specs["head"]["lm"] = P(None, TP_AXIS)
+    return specs
+
+
+def _spec_tree(tree, specs, fn):
+    if isinstance(tree, dict):
+        return {k: _spec_tree(v, specs[k], fn) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def shard_params(params, specs):
+    """This rank's local tree of a global parameter tree: each leaf cut
+    along the dims its spec names by this rank's index on that axis of the
+    current mesh (``shard_map``'s ``in_specs``). Leaves keep their
+    ``requires_grad`` off: make the local leaves trainable."""
+    def cut(t, spec):
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            _, world, index = axis_info(axis)
+            size = t.shape[dim] // world
+            t = t.narrow(dim, index * size, size)
+        return t.detach().contiguous()
+
+    return _spec_tree(params, specs, cut)
+
+
+def gather_grads(grads, specs):
+    """The global gradient tree from this rank's local one (``shard_map``'s
+    ``out_specs`` and the boundary's sum): each leaf summed over dp and sp
+    (the axes the tokens are sharded on, where every parameter is
+    replicated) and gathered along the dims its spec names. The same tree
+    on every rank."""
+    def assemble(g, spec):
+        for axis in ("dp", SP_AXIS):
+            g = all_reduce(g, axis)
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                g = all_gather_dim(g, dim, axis)
+        return g
+
+    return _spec_tree(grads, specs, assemble)
+
+
 # ---------------------------------------------------------------------------
-# forward and loss (single device; the JAX tp=1 program)
+# forward and loss (this rank's shards; with no mesh, one device)
+
+
+def _tp() -> int:
+    return axis_info(TP_AXIS)[1]
+
+
+def _sp_param(w, cfg: GPTConfig):
+    """A replicated parameter that meets this rank's sequence shard under
+    ``megatron_sp``: its gradient is summed over tp once, in backward."""
+    if cfg.megatron_sp:
+        return copy_to_tensor_model_parallel_region(w)
+    return w
 
 
 def _dense(x, kernel, bias=None):
@@ -203,41 +321,110 @@ def _dense(x, kernel, bias=None):
     return y if bias is None else y + bias
 
 
-def embed_tokens(embed, tokens):
-    """Token + position embedding (the JAX ``embed_tokens`` at tp=1, no
-    sequence sharding): tokens (b, s) -> (b, s, hidden)."""
-    h = F.embedding(tokens, embed["tok"])
-    return h + embed["pos"][:tokens.shape[1]][None].to(h.dtype)
+def embed_tokens(embed, tokens, megatron_sp: bool = False):
+    """Token + position embedding (JAX ``embed_tokens``): tokens (b, s_loc)
+    (the sp shard under ring sp, positions offset by the sp rank) -> (b,
+    s_loc, hidden), or with ``megatron_sp`` the (b, s_loc/tp, hidden)
+    shard (the embedding's sum reduce-scattered along the sequence)."""
+    s_loc = tokens.shape[1]
+    _, tp, tp_rank = axis_info(TP_AXIS)
+    _, sp, sp_rank = axis_info(SP_AXIS)
+    if megatron_sp and s_loc % tp:
+        raise ValueError(
+            f"megatron_sp needs the sp-local sequence ({s_loc}) "
+            f"divisible by tp ({tp})")
+    h = vocab_parallel_embedding(tokens, embed["tok"],
+                                 sequence_parallel=megatron_sp)
+    start = sp_rank * s_loc
+    pos = embed["pos"]
+    if megatron_sp and tp > 1:
+        s_loc //= tp
+        start += tp_rank * s_loc
+        pos = copy_to_tensor_model_parallel_region(pos)
+    return h + pos[start:start + s_loc][None].to(h.dtype)
+
+
+def _column(x, kernel, bias, cfg: GPTConfig):
+    """A column-parallel projection of the tp layers (JAX's
+    ``column_parallel_linear(gather_output=False)``), the product marked
+    for the remat policies."""
+    return column_parallel_linear(x, kernel, bias, gather_output=False,
+                                  sequence_parallel=cfg.megatron_sp,
+                                  overlap_comm=cfg.overlap_comm,
+                                  product=saved_product)
+
+
+def _row(x, kernel, bias, cfg: GPTConfig):
+    """A row-parallel projection (``input_is_parallel``)."""
+    return row_parallel_linear(x, kernel, bias, input_is_parallel=True,
+                               sequence_parallel=cfg.megatron_sp,
+                               overlap_comm=cfg.overlap_comm,
+                               product=saved_product)
 
 
 def _attention(p, x, cfg: GPTConfig, causal: bool = True, mask=None,
                dropout_key=None):
-    """Fused QKV, flash core, out-projection (JAX ``_attention`` at tp=1).
-    The QKV columns are per-head interleaved, (head, {q,k,v}, head_dim),
-    as in the JAX tree. With ``dropout_key`` the flash kernels drop the
-    attention probabilities at ``cfg.attention_dropout`` under
-    ``attention_dropout_seed(dropout_key)``."""
-    b, s, h = x.shape
-    qkv = _dense(x, p["qkv_kernel"], p["qkv_bias"])
+    """Column-parallel fused QKV, flash core, row-parallel out-projection
+    (JAX ``_attention``). The QKV columns are per-head interleaved, (head,
+    {q,k,v}, head_dim), so a tp column split hands each rank whole heads.
+    Under ``megatron_sp`` ``x`` is the (b, s/tp, h) shard (gathered on
+    entry, reduce-scattered on exit); over an sp axis of several ranks
+    the core is :func:`ring_attention`. With ``dropout_key`` the kernels
+    drop the attention probabilities at ``cfg.attention_dropout`` under
+    ``attention_dropout_seed(dropout_key)`` (the tp rank folded in)."""
+    b, s, _ = x.shape
+    tp = _tp()
+    if cfg.megatron_sp:
+        s *= tp
+    heads = cfg.num_heads // tp
+    qkv = _column(x, p["qkv_kernel"], p["qkv_bias"], cfg)
     # (b, s, H, 3, D) -> (3, b, H, s, D): one copy, then q, k, v are
     # contiguous (b, H, s, D) views
-    qkv = qkv.view(b, s, cfg.num_heads, 3, cfg.head_dim)
+    qkv = qkv.view(b, s, heads, 3, cfg.head_dim)
     q, k, v = qkv.permute(3, 0, 2, 1, 4).contiguous().unbind(0)
     rate = cfg.attention_dropout if dropout_key is not None else 0.0
-    if rate > 0.0:
+    seed = attention_dropout_seed(dropout_key) if rate > 0.0 else None
+    if axis_info(SP_AXIS)[1] > 1:
+        if mask is not None:
+            raise NotImplementedError(
+                "explicit attention masks are not supported with sp > 1; "
+                "use causal or full attention")
+        from apex_tpu_torch.transformer.sequence_parallel import (
+            ring_attention,
+        )
+
+        ctx = ring_attention(q, k, v, causal=causal, dropout_rate=rate,
+                             dropout_seed=seed)
+    elif rate > 0.0:
         ctx = flash_attention(q, k, v, causal=causal, mask=mask,
-                              dropout_rate=rate,
-                              dropout_seed=attention_dropout_seed(dropout_key))
+                              dropout_rate=rate, dropout_seed=seed)
     else:
         ctx = flash_attention(q, k, v, causal=causal, mask=mask)
-    ctx = ctx.transpose(1, 2).reshape(b, s, h)
-    return _dense(ctx, p["out_kernel"], p["out_bias"])
+    ctx = ctx.transpose(1, 2).reshape(b, s, heads * cfg.head_dim)
+    return _row(ctx, p["out_kernel"], p["out_bias"], cfg)
 
 
 def _mlp(p, x, cfg: GPTConfig):
-    """FC1 + tanh-approximated GELU + FC2 (JAX ``_mlp``, dense FFN)."""
-    y = F.gelu(_dense(x, p["fc1_kernel"], p["fc1_bias"]), approximate="tanh")
-    return _dense(y, p["fc2_kernel"], p["fc2_bias"])
+    """Column-parallel FC1 + tanh-approximated GELU + row-parallel FC2
+    (JAX ``_mlp``, dense FFN)."""
+    y = F.gelu(_column(x, p["fc1_kernel"], p["fc1_bias"], cfg),
+               approximate="tanh")
+    return _row(y, p["fc2_kernel"], p["fc2_bias"], cfg)
+
+
+def _hidden_key(key, cfg: GPTConfig):
+    """JAX's hidden-dropout key policy: the sp rank folded in under ring sp
+    and the tp rank (``model_parallel_key``) under ``megatron_sp``, where
+    ranks hold different tokens; the attention stream stays unfolded by
+    sp (its hash is keyed by global positions)."""
+    if key is None:
+        return key
+    _, sp, sp_rank = axis_info(SP_AXIS)
+    if sp > 1:
+        key = fold_in(key, sp_rank)
+    if cfg.megatron_sp:
+        key = model_parallel_key(key)
+    return key
 
 
 def _layer(p, x, cfg: GPTConfig, causal: bool = True, mask=None,
@@ -249,12 +436,15 @@ def _layer(p, x, cfg: GPTConfig, causal: bool = True, mask=None,
     k_attn = k_h1 = k_h2 = None
     if dropout_key is not None:
         k_attn, k_h1, k_h2 = split(dropout_key, 3)
-    a = _attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg, causal,
-                   mask, dropout_key=k_attn)
+        k_h1, k_h2 = _hidden_key(k_h1, cfg), _hidden_key(k_h2, cfg)
+    ln1 = [_sp_param(p[k], cfg) for k in ("ln1_w", "ln1_b")]
+    a = _attention(p, layer_norm(x, *ln1), cfg, causal, mask,
+                   dropout_key=k_attn)
     if k_h1 is not None and cfg.hidden_dropout > 0.0:
         a = hidden_dropout(a, cfg.hidden_dropout, k_h1)
     x = x + a
-    m = _mlp(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), cfg)
+    ln2 = [_sp_param(p[k], cfg) for k in ("ln2_w", "ln2_b")]
+    m = _mlp(p, layer_norm(x, *ln2), cfg)
     if k_h2 is not None and cfg.hidden_dropout > 0.0:
         m = hidden_dropout(m, cfg.hidden_dropout, k_h2)
     return x + m
@@ -281,6 +471,16 @@ def _layer_stack(layers, x, cfg: GPTConfig, causal: bool = True, mask=None,
     i)``, an argument of the recomputed function, so the recompute drops
     the same elements. The stacked leaves are unbound once, so their
     gradients are stacked once in backward."""
+    tp = _tp()
+    if cfg.num_heads % tp:
+        raise ValueError(
+            f"num_heads ({cfg.num_heads}) not divisible by tp ({tp}); "
+            f"see GPTConfig.validate(tp=...)")
+    if cfg.overlap_comm and not cfg.megatron_sp and x.shape[1] % tp:
+        raise ValueError(
+            f"overlap_comm rings shard the sequence: local sequence "
+            f"({x.shape[1]}) not divisible by tp ({tp}); see "
+            f"GPTConfig.validate(tp=..., sp=...)")
     names = sorted(layers)
     per_leaf = [layers[k].unbind(0) for k in names]
     one = _layer
@@ -295,30 +495,45 @@ def _layer_stack(layers, x, cfg: GPTConfig, causal: bool = True, mask=None,
 def _embed_with_dropout(embed, tokens, cfg: GPTConfig, dropout_key):
     """The embedding, then (training) its hidden dropout under
     ``fold_in(key, 0x0E0B)``, a stream apart from the layers'."""
-    x = embed_tokens(embed, tokens)
+    x = embed_tokens(embed, tokens, megatron_sp=cfg.megatron_sp)
     if dropout_key is not None and cfg.hidden_dropout > 0.0:
-        x = hidden_dropout(x, cfg.hidden_dropout,
-                           fold_in(dropout_key, _EMBED_DROPOUT_SALT))
+        x = hidden_dropout(x, cfg.hidden_dropout, _hidden_key(
+            fold_in(dropout_key, _EMBED_DROPOUT_SALT), cfg))
     return x
 
 
-def tied_vocab_logits(x, tok_embed):
-    """The tied LM head: logits = x @ tokᵀ, (b, s, vocab) in x's dtype."""
-    return torch.matmul(x, tok_embed.t())
+def tied_vocab_logits(x, tok_embed, megatron_sp: bool = False):
+    """The tied LM head: logits = x @ tokᵀ against this rank's vocab rows,
+    (b, s, vocab/tp) in x's dtype; under ``megatron_sp`` the sequence is
+    gathered first (whose backward reduce-scatters the ranks' partial
+    cotangents, in place of the copy mapping's all-reduce)."""
+    return torch.matmul(_enter_vocab_region(x, megatron_sp), tok_embed.t())
+
+
+def _enter_vocab_region(x, megatron_sp: bool):
+    """The activations entering the vocab-sharded head: gathered along the
+    sequence under ``megatron_sp``, else marked replicated (copy); either
+    backward sums the ranks' partial cotangents once."""
+    if megatron_sp:
+        return gather_from_sequence_parallel_region(x)
+    return copy_to_tensor_model_parallel_region(x)
 
 
 def gpt_head(params, x, cfg: GPTConfig):
-    """Final LN + LM head -> logits (b, s, vocab)."""
+    """Final LN + LM head -> vocab-sharded logits (b, s, vocab/tp)."""
     head = params["head"]
-    x = layer_norm(x, head["ln_w"], head["ln_b"])
+    x = layer_norm(x, *(_sp_param(head[k], cfg) for k in ("ln_w", "ln_b")))
     if cfg.tie_embeddings:
-        return tied_vocab_logits(x, params["embed"]["tok"])
-    return _dense(x, head["lm"])
+        return tied_vocab_logits(x, params["embed"]["tok"], cfg.megatron_sp)
+    if cfg.megatron_sp:
+        x = gather_from_sequence_parallel_region(x)
+    return column_parallel_linear(x, head["lm"], gather_output=False,
+                                  product=saved_product)
 
 
 def gpt_forward(params, tokens, cfg: GPTConfig, dropout_key=None):
-    """tokens (b, s) -> logits (b, s, vocab). ``dropout_key`` (a threefry
-    ``uint32[2]``) turns on cfg's dropout rates: training mode."""
+    """tokens (b, s) -> logits (b, s, vocab/tp). ``dropout_key`` (a
+    threefry ``uint32[2]``) turns on cfg's dropout rates: training mode."""
     cfg.validate()
     x = _embed_with_dropout(params["embed"], tokens, cfg, dropout_key)
     x = _layer_stack(params["layers"], x, cfg, dropout_key=dropout_key)
@@ -338,12 +553,20 @@ def _use_fused_loss(cfg: GPTConfig, n_rows: int,
     return kernel_fits(n_rows, cfg.hidden)
 
 
-def fused_head_loss(head_rows_w, ln_w, ln_b, x, targets):
-    """Final LayerNorm, then the fused LM-head + CE over the (vocab,
-    hidden) projection rows ``head_rows_w``: the mean loss, 0-d fp32 (the
-    JAX ``fused_head_loss`` at tp = 1)."""
-    x = layer_norm(x, ln_w, ln_b)
-    return lm_head_loss(x, head_rows_w, targets).mean()
+def fused_head_loss(head_rows_w, ln_w, ln_b, x, targets,
+                    gather_sequence: bool = False):
+    """Final LayerNorm, then the fused LM-head + CE over this rank's
+    (vocab/tp, hidden) projection rows ``head_rows_w``: the mean loss, 0-d
+    fp32 (JAX ``fused_head_loss``). With ``gather_sequence``
+    (megatron_sp) the LN runs on the sequence shard, whose parameters'
+    gradients are then summed over tp, and the sequence is gathered
+    before the head."""
+    if gather_sequence:
+        ln_w = copy_to_tensor_model_parallel_region(ln_w)
+        ln_b = copy_to_tensor_model_parallel_region(ln_b)
+    x = _enter_vocab_region(layer_norm(x, ln_w, ln_b), gather_sequence)
+    return lm_head_loss(x, head_rows_w, targets,
+                        axis_name=TP_AXIS).mean()
 
 
 def gpt_loss(params, tokens, targets, cfg: GPTConfig, dropout_key=None):
@@ -352,7 +575,8 @@ def gpt_loss(params, tokens, targets, cfg: GPTConfig, dropout_key=None):
     gate on the card) the head is fused into the loss and the logits are
     never materialized; otherwise logits + ``vocab_parallel_cross_entropy``.
     ``dropout_key`` (a threefry ``uint32[2]``, JAX's key data) turns on
-    cfg's dropout rates; None is eval mode.
+    cfg's dropout rates; None is eval mode. Under a mesh: this rank's
+    local parameters and token shard, the mean over this rank's tokens.
     """
     cfg.validate()
     x = _embed_with_dropout(params["embed"], tokens, cfg, dropout_key)
@@ -362,5 +586,6 @@ def gpt_loss(params, tokens, targets, cfg: GPTConfig, dropout_key=None):
         return vocab_parallel_cross_entropy(logits, targets).mean()
     head = params["head"]
     w = (params["embed"]["tok"] if cfg.tie_embeddings
-         else head["lm"].t())  # (vocab, hidden) rows
-    return fused_head_loss(w, head["ln_w"], head["ln_b"], x, targets)
+         else head["lm"].t())  # (vocab/tp, hidden) rows
+    return fused_head_loss(w, head["ln_w"], head["ln_b"], x, targets,
+                           gather_sequence=cfg.megatron_sp)

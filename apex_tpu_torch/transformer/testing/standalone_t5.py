@@ -1,7 +1,8 @@
 """Standalone T5-style encoder-decoder (counterpart of
-``apex_tpu/transformer/testing/standalone_t5.py`` at tp = pp = sp = 1):
-config, relative position bias, parameters, and the single-device
-sequential forward and loss.
+``apex_tpu/transformer/testing/standalone_t5.py`` at pp = 1): config,
+relative position bias, parameters, their partition specs, and the
+sequential forward and loss, on one device or on this rank's shards
+under tp / ``megatron_sp`` / ring sp.
 
 The parameter tree keeps the JAX package's layout so weights carry across
 one to one through :func:`apex_tpu_torch.convert.params_from_numpy`:
@@ -42,10 +43,21 @@ sites and keys: the encoder under ``fold_in(key, 0)``, the decoder under
 i)``; in a layer the attention seeds from ``fold_in(k, 0)`` (self) and
 ``fold_in(k, 3)`` (cross), the hidden dropout after self-attention,
 cross-attention and the MLP under ``fold_in(k, 1)``, ``fold_in(k, 4)``
-and ``fold_in(k, 2)``. The pipeline and sharding
-functions of the JAX module (``t5_param_specs``, ``t5_pipeline_params``,
-``t5_pipeline_specs_tree``, ``t5_enc_dec_spec``) are multi-device and not
-ported.
+and ``fold_in(k, 2)``; the hidden-dropout keys fold the sp rank under ring
+sp and the tp rank under ``megatron_sp`` (GPT's ``_hidden_key``).
+
+Tensor and sequence parallelism follow JAX's program inside
+``shard_map``, as the port's GPT does (``standalone_gpt``'s docstring):
+with a mesh installed the functions take this rank's local tree
+(``shard_params`` by :func:`t5_param_specs`, the bias tables split by
+heads) and, under ring sp, the (b, s/sp) token shards; the projections
+are JAX's column / row-parallel layers, ``megatron_sp`` keeps (b, s/tp,
+h) shards between them, and over sp the attention is the ring, the
+self-attention's relative bias the ring's strip (this shard's rows
+against every global column, :func:`_rel_or_strip`), so the strip's
+gradient runs the d(bias) kernel with the chunk offsets. The pipeline
+functions (``t5_pipeline_params``, ``t5_pipeline_specs_tree``,
+``t5_enc_dec_spec``) are ROADMAP A7d.
 """
 
 from __future__ import annotations
@@ -67,13 +79,26 @@ from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.parallel.mesh import SP_AXIS, TP_AXIS
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    column_parallel_linear,
+    row_parallel_linear,
+    vocab_parallel_embedding,
+)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    axis_info,
+    scatter_to_sequence_parallel_region,
+)
 from apex_tpu_torch.transformer.tensor_parallel.random import (
     attention_dropout_seed,
     checkpoint_saving,
     fold_in,
+    saved_product,
 )
+from apex_tpu_torch.transformer.tensor_parallel.utils import P
 from apex_tpu_torch.transformer.testing.standalone_gpt import (
-    _dense,
+    _hidden_key,
+    _sp_param,
     _use_fused_loss,
     fused_head_loss,
     tied_vocab_logits,
@@ -95,8 +120,8 @@ class T5Config:
     applied to the memory where the decoder takes it.
     ``attention_dropout`` / ``hidden_dropout``: the rates, active when the
     loss is given a ``dropout_key``. ``remat`` recomputes every layer (JAX
-    has no T5 save policy). Refused with ``NotImplementedError``:
-    ``megatron_sp`` (multi-device). Left out, as TPU-only tuning:
+    has no T5 save policy). ``megatron_sp``: Megatron's sequence shards
+    over tp between the tp blocks. Left out, as TPU-only tuning:
     ``attn_block_q/k``.
     """
 
@@ -127,9 +152,20 @@ class T5Config:
     def head_dim(self) -> int:
         return self.hidden // self.num_heads
 
-    def validate(self) -> None:
+    def validate(self, tp: int = 1) -> None:
+        """JAX's checks for tp ranks (and the port's dtypes)."""
         if self.hidden % self.num_heads:
             raise ValueError("hidden must be divisible by num_heads")
+        for name, dim in (("vocab_size", self.vocab_size),
+                          ("num_heads", self.num_heads),
+                          ("ffn_hidden", self.ffn_hidden)):
+            if dim % tp:
+                raise ValueError(f"{name} ({dim}) not divisible by tp ({tp})")
+        if self.megatron_sp and (self.max_seq_enc % tp
+                                 or self.max_seq_dec % tp):
+            raise ValueError(
+                f"megatron_sp needs max_seq_enc ({self.max_seq_enc}) and "
+                f"max_seq_dec ({self.max_seq_dec}) divisible by tp ({tp})")
         if self.dtype not in (torch.float32, torch.bfloat16,
                               torch.float16):
             raise ValueError(f"dtype must be float32, bfloat16 or float16, "
@@ -144,15 +180,6 @@ class T5Config:
                     f"rel_pos_max_distance ({self.rel_pos_max_distance}) "
                     f"must exceed rel_pos_buckets/2 "
                     f"({self.rel_pos_buckets // 2})")
-        refused = {
-            "megatron_sp": (self.megatron_sp,
-                            "sequence parallelism is multi-device (A7c)"),
-        }
-        for name, (bad, why) in refused.items():
-            if bad:
-                raise NotImplementedError(
-                    f"T5Config.{name}={getattr(self, name)!r} is not ported: "
-                    f"{why}")
 
 
 # ---------------------------------------------------------------------------
@@ -191,13 +218,14 @@ def _rel_pos_bucket(rel, *, bidirectional: bool, num_buckets: int,
 
 @functools.lru_cache(maxsize=16)
 def _bucket_index(sq: int, sk: int, bidirectional: bool, num_buckets: int,
-                  max_distance: int, device: torch.device):
+                  max_distance: int, device: torch.device, shift: int = 0):
     """``(buckets, onehot)`` on ``device``, built once per shape and scheme
-    on the host: ``buckets`` (sq, sk) int64, the bucket of k − q;
-    ``onehot`` (sq + sk − 1, num_buckets) fp32, the bucket of each
-    distance k − q = d − (sq − 1) as a one-hot row (the backward's fixed
-    summation order)."""
-    rel = torch.arange(-(sq - 1), sk, dtype=torch.int32)
+    on the host: ``buckets`` (sq, sk) int64, the bucket of the global
+    distance k − q + ``shift`` (``shift`` = the first key position less
+    the first query position; 0 for a square bias); ``onehot`` (sq + sk −
+    1, num_buckets) fp32, the bucket of each distance d − (sq − 1) +
+    shift as a one-hot row (the backward's fixed summation order)."""
+    rel = torch.arange(-(sq - 1), sk, dtype=torch.int32) + shift
     per_rel = _rel_pos_bucket(rel, bidirectional=bidirectional,
                               num_buckets=num_buckets,
                               max_distance=max_distance).long()
@@ -237,15 +265,63 @@ class _RelativeBias(torch.autograd.Function):
         return per_bucket.t().to(ctx.table_dtype), None, None
 
 
-def t5_relative_bias(table, sq: int, sk: int, *, bidirectional: bool,
-                     cfg: T5Config):
+def t5_relative_bias(table, sq: int = None, sk: int = None, *,
+                     bidirectional: bool, cfg: T5Config, qpos=None,
+                     kpos=None):
     """(heads, sq, sk) fp32 additive logit bias from the (buckets, heads)
-    table (JAX's ``t5_relative_bias`` without the ring-SP strip); feeds
-    ``flash_attention(bias=)``. Differentiable in ``table``."""
+    table (this rank's head shard under tp); feeds
+    ``flash_attention(bias=)``. Differentiable in ``table``. ``qpos`` /
+    ``kpos`` (consecutive global positions, in place of ``sq`` / ``sk``)
+    build a ring-SP strip: this shard's rows against every global
+    column."""
+    shift = 0
+    if qpos is not None or kpos is not None:
+        qpos = torch.arange(sq) if qpos is None else torch.as_tensor(qpos)
+        kpos = torch.arange(sk) if kpos is None else torch.as_tensor(kpos)
+        for pos in (qpos, kpos):
+            if pos.numel() > 1 and not bool((pos.diff() == 1).all()):
+                raise ValueError("qpos / kpos must be consecutive positions")
+        sq, sk = qpos.numel(), kpos.numel()
+        shift = int(kpos[0]) - int(qpos[0])
     buckets, onehot = _bucket_index(sq, sk, bidirectional,
                                     cfg.rel_pos_buckets,
-                                    cfg.rel_pos_max_distance, table.device)
+                                    cfg.rel_pos_max_distance, table.device,
+                                    shift)
     return _RelativeBias.apply(table, buckets, onehot)
+
+
+def t5_param_specs(cfg: T5Config) -> Dict[str, Any]:
+    """Partition specs matching :func:`init_t5_params` (JAX's
+    ``t5_param_specs``): the Megatron tp dims, as GPT's, and the bias
+    tables split by heads."""
+    cols = {"qkv_kernel", "fc1_kernel", "q_kernel", "kv_kernel"}
+    col_bias = {"qkv_bias", "fc1_bias", "q_bias", "kv_bias"}
+    rows = {"out_kernel", "fc2_kernel", "xout_kernel"}
+
+    def layer(keys):
+        return {k: (P(None, None, TP_AXIS) if k in cols
+                    else P(None, TP_AXIS) if k in col_bias
+                    else P(None, TP_AXIS, None) if k in rows else P(None))
+                for k in keys}
+
+    enc_keys = ("ln1_w", "ln1_b", "qkv_kernel", "qkv_bias", "out_kernel",
+                "out_bias", "ln2_w", "ln2_b", "fc1_kernel", "fc1_bias",
+                "fc2_kernel", "fc2_bias")
+    dec_keys = enc_keys + ("q_kernel", "q_bias", "kv_kernel", "kv_bias",
+                           "xout_kernel", "xout_bias", "ln3_w", "ln3_b")
+    embed = {"tok": P(TP_AXIS, None)}
+    if cfg.encoder_final_ln:
+        embed["enc_ln_w"] = P()
+        embed["enc_ln_b"] = P()
+    if cfg.relative_position_bias:
+        embed["rel_enc"] = P(None, TP_AXIS)
+        embed["rel_dec"] = P(None, TP_AXIS)
+    else:
+        embed["pos_enc"] = P()
+        embed["pos_dec"] = P()
+    return {"embed": embed, "enc_layers": layer(enc_keys),
+            "dec_layers": layer(dec_keys),
+            "head": {"ln_w": P(), "ln_b": P()}}
 
 
 # ---------------------------------------------------------------------------
@@ -325,15 +401,34 @@ def init_t5_params(cfg: T5Config, seed: int = 0,
 
 
 # ---------------------------------------------------------------------------
-# forward (single device; the JAX tp = 1 program)
+# forward (this rank's shards; with no mesh, one device)
 
 
 def _split_heads(x, cfg: T5Config, parts: int):
-    """(b, s, parts·hidden) with columns (head, part, head_dim) -> ``parts``
-    contiguous (b, heads, s, head_dim) tensors (one copy)."""
+    """(b, s, parts·hidden/tp) with columns (head, part, head_dim) ->
+    ``parts`` contiguous (b, heads/tp, s, head_dim) tensors (one copy)."""
     b, s, _ = x.shape
-    x = x.view(b, s, cfg.num_heads, parts, cfg.head_dim)
+    heads = cfg.num_heads // axis_info(TP_AXIS)[1]
+    x = x.view(b, s, heads, parts, cfg.head_dim)
     return x.permute(3, 0, 2, 1, 4).contiguous().unbind(0)
+
+
+def _column(x, kernel, bias, cfg: T5Config):
+    return column_parallel_linear(x, kernel, bias, gather_output=False,
+                                  sequence_parallel=cfg.megatron_sp,
+                                  product=saved_product)
+
+
+def _row(x, kernel, bias, cfg: T5Config):
+    return row_parallel_linear(x, kernel, bias, input_is_parallel=True,
+                               sequence_parallel=cfg.megatron_sp,
+                               product=saved_product)
+
+
+def _ln(x, p, w: str, b: str, cfg: T5Config):
+    """LayerNorm; under ``megatron_sp`` its parameters meet this rank's
+    sequence shard, so their gradients are summed over tp."""
+    return layer_norm(x, _sp_param(p[w], cfg), _sp_param(p[b], cfg))
 
 
 def _merge_heads(ctx):
@@ -343,10 +438,21 @@ def _merge_heads(ctx):
 
 def _attn_core(q, k, v, cfg: T5Config, causal: bool, dropout_key,
                bias=None):
-    """The flash core (JAX ``_attn_core`` at sp = 1): with ``dropout_key``
-    the kernels drop the probabilities at ``cfg.attention_dropout`` under
-    ``attention_dropout_seed(dropout_key)``."""
+    """The attention core (JAX ``_attn_core``): the ring over sp shards
+    (``bias`` is then the ring's strip), flash otherwise; with
+    ``dropout_key`` the kernels drop the probabilities at
+    ``cfg.attention_dropout`` under ``attention_dropout_seed(dropout_key)``
+    (the tp rank folded in)."""
     rate = cfg.attention_dropout if dropout_key is not None else 0.0
+    if axis_info(SP_AXIS)[1] > 1:
+        from apex_tpu_torch.transformer.sequence_parallel import (
+            ring_attention,
+        )
+
+        return ring_attention(
+            q, k, v, causal=causal, bias_strip=bias, dropout_rate=rate,
+            dropout_seed=(attention_dropout_seed(dropout_key) if rate > 0.0
+                          else None))
     if rate > 0.0:
         return flash_attention(q, k, v, causal=causal, bias=bias,
                                dropout_rate=rate,
@@ -357,35 +463,42 @@ def _attn_core(q, k, v, cfg: T5Config, causal: bool, dropout_key,
 
 def _self_attention(p, x, cfg: T5Config, causal: bool, dropout_key=None,
                     rel_bias=None):
-    """Fused per-head interleaved QKV, flash core (with the relative bias),
-    out-projection (JAX ``_self_attention`` at tp = 1)."""
-    q, k, v = _split_heads(_dense(x, p["qkv_kernel"], p["qkv_bias"]), cfg, 3)
+    """Column-parallel fused per-head interleaved QKV, the attention core
+    (with the relative bias), row-parallel out-projection (JAX
+    ``_self_attention``)."""
+    q, k, v = _split_heads(_column(x, p["qkv_kernel"], p["qkv_bias"], cfg),
+                           cfg, 3)
     ctx = _attn_core(q, k, v, cfg, causal, dropout_key, bias=rel_bias)
-    return _dense(_merge_heads(ctx), p["out_kernel"], p["out_bias"])
+    return _row(_merge_heads(ctx), p["out_kernel"], p["out_bias"], cfg)
 
 
 def _cross_attention(p, x, mem, cfg: T5Config, dropout_key=None):
     """Q from the decoder stream, packed KV from the memory, a rectangular
-    (s_dec x s_enc) non-causal flash core with no bias (JAX
-    ``_cross_attention`` at tp = 1)."""
-    (q,) = _split_heads(_dense(x, p["q_kernel"], p["q_bias"]), cfg, 1)
-    k, v = _split_heads(_dense(mem, p["kv_kernel"], p["kv_bias"]), cfg, 2)
+    (s_dec x s_enc) non-causal core with no bias (the rectangular ring
+    under sp; JAX ``_cross_attention``)."""
+    (q,) = _split_heads(_column(x, p["q_kernel"], p["q_bias"], cfg), cfg, 1)
+    k, v = _split_heads(_column(mem, p["kv_kernel"], p["kv_bias"], cfg),
+                        cfg, 2)
     ctx = _attn_core(q, k, v, cfg, False, dropout_key)
-    return _dense(_merge_heads(ctx), p["xout_kernel"], p["xout_bias"])
+    return _row(_merge_heads(ctx), p["xout_kernel"], p["xout_bias"], cfg)
 
 
 def _mlp(p, x, cfg: T5Config):
-    """FC1 + tanh-approximated GELU + FC2 (JAX ``_mlp``)."""
-    y = F.gelu(_dense(x, p["fc1_kernel"], p["fc1_bias"]), approximate="tanh")
-    return _dense(y, p["fc2_kernel"], p["fc2_bias"])
+    """Column-parallel FC1 + tanh-approximated GELU + row-parallel FC2
+    (JAX ``_mlp``)."""
+    y = F.gelu(_column(x, p["fc1_kernel"], p["fc1_bias"], cfg),
+               approximate="tanh")
+    return _row(y, p["fc2_kernel"], p["fc2_bias"], cfg)
 
 
 def _maybe_hidden_dropout(x, cfg: T5Config, key, salt: int):
-    """JAX's ``_maybe_hidden_dropout``: hidden dropout under ``fold_in(key,
-    salt)`` when training (a key) with a rate."""
+    """JAX's ``_maybe_hidden_dropout``: hidden dropout under
+    ``_hidden_key(fold_in(key, salt))`` when training (a key) with a
+    rate."""
     if key is None or cfg.hidden_dropout <= 0.0:
         return x
-    return hidden_dropout(x, cfg.hidden_dropout, fold_in(key, salt))
+    return hidden_dropout(x, cfg.hidden_dropout,
+                          _hidden_key(fold_in(key, salt), cfg))
 
 
 def _fold(key, data: int):
@@ -395,11 +508,11 @@ def _fold(key, data: int):
 def enc_layer_fn(p, x, cfg: T5Config, rel_bias=None, dropout_key=None):
     """Pre-LN encoder layer: bidirectional self-attention, MLP."""
     k = dropout_key
-    a = _self_attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg,
+    a = _self_attention(p, _ln(x, p, "ln1_w", "ln1_b", cfg), cfg,
                         causal=False, dropout_key=_fold(k, 0),
                         rel_bias=rel_bias)
     x = x + _maybe_hidden_dropout(a, cfg, k, 1)
-    m = _mlp(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), cfg)
+    m = _mlp(p, _ln(x, p, "ln2_w", "ln2_b", cfg), cfg)
     return x + _maybe_hidden_dropout(m, cfg, k, 2)
 
 
@@ -407,14 +520,14 @@ def dec_layer_fn(p, x, mem, cfg: T5Config, rel_bias=None, dropout_key=None):
     """Pre-LN decoder layer: causal self-attention, cross-attention to the
     memory (no position bias, the T5 scheme), MLP."""
     k = dropout_key
-    a = _self_attention(p, layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg,
+    a = _self_attention(p, _ln(x, p, "ln1_w", "ln1_b", cfg), cfg,
                         causal=True, dropout_key=_fold(k, 0),
                         rel_bias=rel_bias)
     x = x + _maybe_hidden_dropout(a, cfg, k, 1)
-    c = _cross_attention(p, layer_norm(x, p["ln2_w"], p["ln2_b"]), mem, cfg,
+    c = _cross_attention(p, _ln(x, p, "ln2_w", "ln2_b", cfg), mem, cfg,
                          dropout_key=_fold(k, 3))
     x = x + _maybe_hidden_dropout(c, cfg, k, 4)
-    m = _mlp(p, layer_norm(x, p["ln3_w"], p["ln3_b"]), cfg)
+    m = _mlp(p, _ln(x, p, "ln3_w", "ln3_b", cfg), cfg)
     return x + _maybe_hidden_dropout(m, cfg, k, 2)
 
 
@@ -436,24 +549,51 @@ def _scan_layers(layer_fn, layers, x, cfg: T5Config, *extra,
     return x
 
 
-def _embed(embed, tokens, pos_table):
-    """Token (+ absolute position) embedding; ``pos_table`` is None under
-    the relative bias (T5 proper has no absolute positions)."""
-    h = F.embedding(tokens, embed["tok"])
+def _embed(embed, tokens, pos_table, megatron_sp: bool = False):
+    """Token (+ absolute position) embedding (JAX ``_embed``);
+    ``pos_table`` is None under the relative bias (T5 proper has no
+    absolute positions). Under ring sp the positions start at the shard's;
+    under ``megatron_sp`` the result is the (b, s/tp, h) shard."""
+    s_loc = tokens.shape[1]
+    tp = axis_info(TP_AXIS)[1]
+    if megatron_sp and s_loc % tp:
+        raise ValueError(f"megatron_sp needs the sequence length ({s_loc}) "
+                         f"divisible by tp ({tp})")
+    h = vocab_parallel_embedding(tokens, embed["tok"],
+                                 sequence_parallel=megatron_sp)
     if pos_table is None:
         return h
-    return h + pos_table[:tokens.shape[1]][None].to(h.dtype)
+    start = axis_info(SP_AXIS)[2] * s_loc
+    pos = pos_table[start:start + s_loc]
+    if megatron_sp:
+        pos = scatter_to_sequence_parallel_region(pos, seq_axis=0)
+    return h + pos[None].to(h.dtype)
+
+
+def _rel_or_strip(table, s_tok: int, *, bidirectional: bool,
+                  cfg: T5Config):
+    """The stack's relative bias, built once: the square (heads, s, s)
+    bias at sp = 1 (``s_tok`` the whole sequence), or at sp > 1 the ring's
+    strip (heads, s_loc, sp·s_loc) from this shard's global positions
+    (``s_tok`` the local shard)."""
+    _, sp, my = axis_info(SP_AXIS)
+    if sp == 1:
+        return t5_relative_bias(table, s_tok, s_tok,
+                                bidirectional=bidirectional, cfg=cfg)
+    return t5_relative_bias(table, bidirectional=bidirectional, cfg=cfg,
+                            qpos=range(my * s_tok, (my + 1) * s_tok),
+                            kpos=range(sp * s_tok))
 
 
 def t5_encode(params, enc_tokens, cfg: T5Config, dropout_key=None):
     """Encoder tokens (b, s_enc) -> memory (b, s_enc, hidden)."""
     rel_on = cfg.relative_position_bias
     embed = params["embed"]
-    x = _embed(embed, enc_tokens, None if rel_on else embed["pos_enc"])
+    x = _embed(embed, enc_tokens, None if rel_on else embed["pos_enc"],
+               cfg.megatron_sp)
     x = _maybe_hidden_dropout(x, cfg, _fold(dropout_key, 100), 0)
-    s = enc_tokens.shape[1]
-    rel = (t5_relative_bias(embed["rel_enc"], s, s, bidirectional=True,
-                            cfg=cfg) if rel_on else None)
+    rel = (_rel_or_strip(embed["rel_enc"], enc_tokens.shape[1],
+                         bidirectional=True, cfg=cfg) if rel_on else None)
     return _scan_layers(lambda lp, h, r, k: enc_layer_fn(lp, h, cfg, r, k),
                         params["enc_layers"], x, cfg, rel,
                         dropout_key=dropout_key)
@@ -466,12 +606,12 @@ def t5_decode(params, dec_tokens, mem, cfg: T5Config, dropout_key=None):
     rel_on = cfg.relative_position_bias
     embed = params["embed"]
     if cfg.encoder_final_ln:
-        mem = layer_norm(mem, embed["enc_ln_w"], embed["enc_ln_b"])
-    x = _embed(embed, dec_tokens, None if rel_on else embed["pos_dec"])
+        mem = _ln(mem, embed, "enc_ln_w", "enc_ln_b", cfg)
+    x = _embed(embed, dec_tokens, None if rel_on else embed["pos_dec"],
+               cfg.megatron_sp)
     x = _maybe_hidden_dropout(x, cfg, _fold(dropout_key, 101), 0)
-    s = dec_tokens.shape[1]
-    rel = (t5_relative_bias(embed["rel_dec"], s, s, bidirectional=False,
-                            cfg=cfg) if rel_on else None)
+    rel = (_rel_or_strip(embed["rel_dec"], dec_tokens.shape[1],
+                         bidirectional=False, cfg=cfg) if rel_on else None)
     return _scan_layers(
         lambda lp, h, m, r, k: dec_layer_fn(lp, h, m, cfg, r, k),
         params["dec_layers"], x, cfg, mem, rel, dropout_key=dropout_key)
@@ -492,7 +632,8 @@ def t5_loss(params, enc_tokens, dec_tokens, targets, cfg: T5Config,
     x = t5_decode(params, dec_tokens, mem, cfg, _fold(dropout_key, 1))
     head, tok = params["head"], params["embed"]["tok"]
     if _use_fused_loss(cfg, dec_tokens.numel(), dec_tokens.device):
-        return fused_head_loss(tok, head["ln_w"], head["ln_b"], x, targets)
-    x = layer_norm(x, head["ln_w"], head["ln_b"])
-    return vocab_parallel_cross_entropy(tied_vocab_logits(x, tok),
-                                        targets).mean()
+        return fused_head_loss(tok, head["ln_w"], head["ln_b"], x, targets,
+                               gather_sequence=cfg.megatron_sp)
+    x = _ln(x, head, "ln_w", "ln_b", cfg)
+    return vocab_parallel_cross_entropy(
+        tied_vocab_logits(x, tok, cfg.megatron_sp), targets).mean()

@@ -26,6 +26,7 @@ JAX.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -37,7 +38,9 @@ from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.transformer.testing.standalone_gpt import (
     GPTConfig,
     gpt_loss,
+    gpt_param_specs,
     init_gpt_params,
+    shard_params,
 )
 from apex_tpu_torch.transformer.testing.standalone_t5 import (
     T5Config,
@@ -83,12 +86,21 @@ def build_train_step(cfg: GPTConfig, batch: int, seq: int,
     the initial weights only). The carried state lives in
     ``train_step.plan_state``: ``"state"`` (the optimizer's), ``"comm_state"``
     (zero1's EF residuals), ``"meta"`` (fsdp's), ``"step"``; the step
-    count seeds stochastic rounding."""
+    count seeds stochastic rounding. A plan with ``tp > 1`` (the
+    ``fsdp+tp`` preset) splices its ``gpt_overrides()`` (``megatron_sp``,
+    ``overlap_comm``) into ``cfg`` and trains this rank's tp shards
+    (``shard_params`` by ``gpt_param_specs``; the returned ``params`` are
+    the local tree)."""
+    if plan is not None and plan.tp > 1:
+        cfg = dataclasses.replace(cfg, **plan.gpt_overrides())
+        cfg.validate(tp=plan.tp, sp=plan.sp)
     cfg.validate()
     if seq > cfg.max_seq:
         raise ValueError(f"seq ({seq}) exceeds max_seq ({cfg.max_seq})")
     dev = resolve_device(device)
     params = init_gpt_params(cfg, seed=seed, device=dev)
+    if plan is not None and plan.tp > 1:
+        params = shard_params(params, gpt_param_specs(cfg))
     tok = _tokens(np.random.default_rng(seed + 1), cfg.vocab_size, batch,
                   seq, dev)
     tgt = torch.roll(tok, -1, dims=1)

@@ -279,7 +279,8 @@
    on a one-rank NCCL group (a real communicator: ``all_reduce``,
    ``all_to_all_single`` and ``all_gather_into_tensor`` launch), policies
    ``none``, ``int8``, ``int8_ef`` and ``int4_ef`` (block 256, 10 M
-   element buckets), 5 steps each beside the same steps without DDP:
+   element buckets), DDP_STEPS (3) steps each beside the same steps
+   without DDP:
    ``none`` bitwise the no-DDP losses and params, the EF policies within
    ``DDP_EF_GATE`` of ``none``, ``int8_ef`` bitwise over two runs, each
    compressed bucket bitwise the plain codec's round trip, the codec
@@ -295,7 +296,8 @@
    (``DistributedFusedAdam(lr=1e-4)`` on a one-rank NCCL group: the
    gradient reduce-scatter, the Adam tail kernel on fp32 shards, the
    all-gather), policies ``none``, ``int8``, ``int8_ef`` and the e5m2
-   gather, 5 steps each beside amp O2 from the same weights: ``none``
+   gather, DDP_STEPS steps each beside amp O2 from the same weights:
+   ``none``
    within 1e-2 (rel) of amp O2's losses, the wires within 0.02 of
    ``none``, the e5m2 params bitwise a host emulation of JAX's clip →
    bf16 → e5m2 of the run's masters; the train table's launches
@@ -314,7 +316,26 @@
    as above. Each of 16-18 records step, host and busy ms, the tails',
    codec's and collectives' device ms a step and peak memory; 16 also
    the modelled (not measured) HBM bytes of ddp / zero1 / fsdp at W = 8.
-19. Prints detail lines, the wall seconds of each phase (and of each
+19. ``lm_head_vocab_shard`` (beside the LM-head phase): the fused LM-head
+   kernels at GPT-2's width on a 25,152-row vocab shard with every
+   target outside it (half negative, half >= V_local, as a non-owner rank
+   of the vocab-parallel loss sees them), fp32 and bf16, against their
+   plain versions; pred 0 on every row.
+20. ``ring_chunks`` (beside the flash phase, C7): the flash kernels with
+   JAX's ``[seed, q_off, k_off]`` on 4 ring chunks of GPT-2's attention
+   (8, 12, 1024, 64) causal and T5-small's biased (8, 8, 512, 64), both
+   with dropout 0.1, fp32 and bf16: each chunk against its plain version
+   at its offsets, the chunks merged by lse (and their gradients summed,
+   d(bias) tiled) against one dense call with the same seed; a chunk's
+   kernel times with offsets set beside offsets 0.
+21. ``tp`` and ``t5_tp`` (tensor and sequence parallelism, A7c): GPT-2
+   (plain tp with the unfused vocab-parallel head, ``megatron_sp``, with
+   ``overlap_comm``, the fused vocab-parallel LM head) and T5-small (tp,
+   ``megatron_sp``) through the tp layers on a one-rank NCCL group,
+   TP_STEPS (5) steps each beside the same steps without a mesh: losses
+   and every parameter bitwise, the same kernel launches; step, host and
+   busy ms and the collectives a step (none cross a one-rank axis).
+22. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -6157,14 +6178,17 @@ def rnn_phase(torch, dev, ku):
 
 DDP_POLICIES = ("none", "int8", "int8_ef", "int4_ef")
 DDP_BATCH, DDP_SEQ = 8, 1024
-DDP_STEPS = 5
+# steps of each data-parallel run (DDP, ZeRO-1, FSDP; dist_lamb's too):
+# 3 since the tensor-parallel phases joined the script, to keep it well
+# inside its time limit
+DDP_STEPS = 3
 DDP_TIMED = 3
 DDP_PATH = ("GPT-2-124M bf16, 8 x 1024, full remat, fused LM-head loss, "
             "FusedAdam(lr=1e-4); DistributedDataParallel over the "
             "dp axis of build_mesh() on a one-rank NCCL group, "
             "CompressionConfig defaults (block 256, min_elements 2048), "
             "message size 10 M elements")
-# the largest |loss - none loss| over the 5 steps an EF policy may show:
+# the largest |loss - none loss| over the steps an EF policy may show:
 # int8_ef JAX's gate (tests/test_comm_mesh.py:488), absolute; int4_ef a
 # share of none's loss drop over the run, set from the CPU rehearsal of
 # this phase on one rank (2.0-3.3 % at hidden 128-256, 2-4 layers)
@@ -6651,7 +6675,7 @@ DIST_LAMB_PATH = ("BertConfig() MLM bf16, 8 x 512 unpadded, 15 % predicted; "
 ZERO_GATE = {"int8": 0.02, "int8_ef": 0.02}
 FSDP_GATE = {"gather_int8": 0.02, "grad_int8": 0.05, "gather_int4": 0.1}
 ZERO_REF_RTOL = 1e-2      # zero1 / fsdp none vs amp O2, §2's bf16 loss gate
-DIST_LAMB_STEPS = 5
+DIST_LAMB_STEPS = DDP_STEPS
 DIST_LAMB_LR = 1e-3
 DIST_LAMB_ATOL = 1e-2     # dist_lamb's loss vs FusedLAMB's, every step
 ZERO_PROFILE_GROUPS = {"tail": ("adam_tail_kernel", "sum_parts_kernel"),
@@ -7004,7 +7028,7 @@ def zero1_phase(torch, dev, ku):
             codec = zero_codec_launches(run["sizes"], cfg, ef)
             want = {**TRAIN_LAUNCHES, **codec}
             # e5m2's two mantissa bits hold a weight still under lr 1e-4
-            # updates: its curve need not fall in 5 steps
+            # updates: its curve need not fall in DDP_STEPS steps
             gap = check_plan_run(f"zero1 {policy}", run, want,
                                  keep.get("losses"), ZERO_GATE.get(policy),
                                  falling=policy != "e5m2")
@@ -7229,6 +7253,428 @@ def dist_lamb_phase(torch, dev, ku, steps: int = DIST_LAMB_STEPS):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor and sequence parallelism (A7c): the ring chunks' offsets (C7), the
+# LM head on a vocab shard, GPT-2 and T5-small through the tp layers
+
+RING_SHAPE = (8, 12, 1024, 64)     # GPT-2's attention: batch, heads, seq, d
+RING_T5_SHAPE = (8, 8, 512, 64)    # T5-small's encoder self-attention
+RING_CHUNKS = 4
+RING_RATE = 0.1
+RING_SEED = 1234
+RING_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
+LM_SHARD_VOCAB = 50304 // 2        # V_local of GPT-2's vocab over tp = 2
+TP_STEPS = 5
+TP_TIMED = 3
+TP_PATH = ("GPT-2-124M bf16, 8 x 1024, full remat, FusedAdam(lr=1e-4), "
+           "through the tp layers on a one-rank NCCL group (tp = sp = 1)")
+T5_TP_PATH = ("T5-small (relative bias, encoder-final LN) bf16, 8 x 512 / "
+              "128, FusedAdam(lr=1e-4), through the tp layers on a one-rank "
+              "NCCL group (tp = sp = 1)")
+# variant -> (GPTConfig fields, the fields of the run without tp beside it)
+TP_VARIANTS = {
+    "tp": (dict(fused_loss=False), dict(fused_loss=False)),
+    "megatron_sp": (dict(megatron_sp=True), {}),
+    "megatron_sp+overlap_comm": (dict(megatron_sp=True, overlap_comm=True),
+                                 {}),
+    "lm_head_tp": ({}, {}),
+}
+T5_TP_VARIANTS = {"tp": {}, "megatron_sp": dict(megatron_sp=True)}
+
+
+def lm_head_shard_phase(torch, dev):
+    """The LM-head kernels (forward, dX, dW) on a vocab shard's rows as a
+    rank that owns none of the targets sees them: GPT-2's width, 8192 rows,
+    V_local = 25152 (50304 over tp = 2), the targets localized by one
+    shard so half are negative and half >= V_local (the vocab-parallel
+    loss's non-owner rows; no target in range), fp32 and bf16, each held to
+    its plain version with the same targets under the lm_head phase's
+    gates; pred is 0 on every row of both."""
+    from apex_tpu_torch.ops.lm_head_loss import (lm_head_loss_bwd_dw,
+                                                 lm_head_loss_bwd_dx,
+                                                 lm_head_loss_bwd_reference,
+                                                 lm_head_loss_fwd,
+                                                 lm_head_loss_fwd_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, h, v = TRAIN_ROWS, 768, LM_SHARD_VOCAB
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        x = torch.randn(n, h, device=dev, generator=gen).to(dt)
+        w = (0.05 * torch.randn(v, h, device=dev, generator=gen)).to(dt)
+        t0 = torch.randint(0, v, (n,), device=dev, generator=gen)
+        above = torch.randint(0, 2, (n,), device=dev, generator=gen) == 1
+        t = torch.where(above, t0 + v, t0 - v)
+        g = torch.full((n,), 1.0 / n, device=dev)
+        lse, pred = lm_head_loss_fwd(x, w, t)
+        dx = lm_head_loss_bwd_dx(x, w, t, lse, g)
+        dw = lm_head_loss_bwd_dw(x, w, t, lse, g)
+        lse_p, pred_p = lm_head_loss_fwd_reference(x, w, t)
+        dx_p, dw_p = lm_head_loss_bwd_reference(x, w, t, lse, g)
+        torch.cuda.synchronize()
+        if bool((pred != 0).any()) or bool((pred_p != 0).any()):
+            raise AssertionError(f"lm_head shard {dname}: a target outside "
+                                 f"[0, V_local) picked a score")
+        tag = f"vocab shard {dname}"
+        tol = 2e-5 if dt == torch.float32 else 2e-4
+        atol, rtol = ((1e-5, 1e-4) if dt == torch.float32
+                      else (1e-2, 2 ** -7))
+        cases.append({
+            "dtype": dname, "rows": n, "hidden": h, "vocab_local": v,
+            "negative_targets": int((t < 0).sum()),
+            "targets_at_or_above_vocab_local": int((t >= v).sum()),
+            "pred_all_zero": True,
+            "fwd_max_abs_err": check_close(f"lm_head lse {tag}", lse, lse_p,
+                                           tol, tol),
+            "dx_max_row_rel_err": check_rows(f"lm_head dx {tag}", dx, dx_p,
+                                             atol, rtol)[1],
+            "dw_max_row_rel_err": check_rows(f"lm_head dw {tag}", dw, dw_p,
+                                             atol, rtol)[1],
+            "lse_pred_tol": tol, "atol_of_row_max": atol, "rtol": rtol})
+        del x, w, t, g, lse, pred, dx, dw, lse_p, pred_p, dx_p, dw_p
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _ring_merge(torch, o_bar, lse_run, o_c, lse_c):
+    """One chunk merged into a row block's running (o, lse), fp32."""
+    lse_new = torch.logaddexp(lse_run, lse_c)
+    return (o_bar * torch.exp(lse_run - lse_new)
+            + o_c.float() * torch.exp(lse_c - lse_new)), lse_new
+
+
+def ring_chunks_phase(torch, dev):
+    """C7 on the card: the flash kernels with JAX's [seed, q_off, k_off] at
+    GPT-2's attention shape (8, 12, 1024, 64), causal, dropout 0.1, in fp32
+    and bf16, split into RING_CHUNKS sequence chunks as ring attention runs
+    them. Each live chunk (i, j <= i; the diagonal causal) runs the forward,
+    dQ and dK/dV kernels at offsets (i·s, j·s), each held to its plain
+    version with the same offsets (the flash phase's gates); the chunks'
+    (o, lse) merged by log-sum-exp, and their dQ / dK / dV summed (against
+    the dense lse, as the ring's second pass runs them), are held to one
+    dense kernel call with the same seed under the same gates. Then
+    T5-small's encoder self-attention (8, 8, 512, 64) with its fp32 bias,
+    non-causal, dropout 0.1: each chunk's d(bias) at its offsets against
+    its plain version, and the chunks' d(bias) tiled into the dense one.
+    Times of the four kernels at a chunk with offsets set beside offsets 0
+    (bf16, the same chunk)."""
+    from apex_tpu_torch.ops import attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {"cases": [], "timed": {}}
+    for shape, bias_on in ((RING_SHAPE, False), (RING_T5_SHAPE, True)):
+        b, hh, S, d = shape
+        s = S // RING_CHUNKS
+        causal = not bias_on
+        scale = 1.0 / math.sqrt(d)
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            atol, rtol = RING_TOL[dname]
+            q, k, v, do = (torch.randn(b * hh, S, d, device=dev,
+                                       generator=gen).to(dt)
+                           for _ in range(4))
+            bias = (torch.randn(hh, S, S, device=dev, generator=gen)
+                    if bias_on else None)
+            args = (scale, causal, RING_RATE, RING_SEED)
+            o_d, lse_d = pa.flash_attention_fwd(q, k, v, *args, bias=bias)
+            delta = (do.float() * o_d.float()).sum(-1, keepdim=True)
+            dq_d = pa.flash_attention_bwd_dq(q, k, v, do, lse_d, delta,
+                                             *args, bias=bias)
+            dk_d, dv_d = pa.flash_attention_bwd_dkv(q, k, v, do, lse_d,
+                                                    delta, *args, bias=bias)
+            db_d = (pa.flash_attention_bwd_dbias(q, k, v, do, lse_d, delta,
+                                                 *args, bias=bias)
+                    if bias_on else None)
+            errs = {"fwd": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0,
+                    "dbias": 0.0}
+            dq = torch.zeros(b * hh, S, d, device=dev)
+            dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+            db = torch.zeros(hh, S, S, device=dev) if bias_on else None
+            o_m = torch.zeros(b * hh, S, d, device=dev)
+            lse_m = torch.full((b * hh, S, 1), pa.NEG_INF, device=dev)
+            tag = f"ring {'t5' if bias_on else 'gpt'} {dname}"
+            for i in range(RING_CHUNKS):
+                rows = slice(i * s, (i + 1) * s)
+                qc, doc = q[:, rows].contiguous(), do[:, rows].contiguous()
+                lse_i = lse_d[:, rows].contiguous()
+                delta_i = delta[:, rows].contiguous()
+                o_bar = torch.zeros(b * hh, s, d, device=dev)
+                lse_run = torch.full((b * hh, s, 1), pa.NEG_INF, device=dev)
+                for j in range(RING_CHUNKS if not causal else i + 1):
+                    cols = slice(j * s, (j + 1) * s)
+                    kc, vc = k[:, cols].contiguous(), v[:, cols].contiguous()
+                    bc = (bias[:, rows, cols].contiguous() if bias_on
+                          else None)
+                    cargs = (scale, causal and i == j, RING_RATE, RING_SEED)
+                    offs = dict(q_off=i * s, k_off=j * s)
+                    o_c, lse_c = pa.flash_attention_fwd(qc, kc, vc, *cargs,
+                                                        bias=bc, **offs)
+                    o_p, lse_p = pa.flash_attention_fwd_reference(
+                        qc, kc, vc, *cargs, bias=bc, **offs)
+                    errs["fwd"] = max(errs["fwd"], check_close(
+                        f"{tag} fwd o ({i},{j})", o_c, o_p, atol, rtol),
+                        check_close(f"{tag} fwd lse ({i},{j})", lse_c,
+                                    lse_p, 1e-4, 1e-4))
+                    o_bar, lse_run = _ring_merge(torch, o_bar, lse_run, o_c,
+                                                 lse_c)
+                    dq_c = pa.flash_attention_bwd_dq(
+                        qc, kc, vc, doc, lse_i, delta_i, *cargs, bias=bc,
+                        **offs)
+                    dk_c, dv_c = pa.flash_attention_bwd_dkv(
+                        qc, kc, vc, doc, lse_i, delta_i, *cargs, bias=bc,
+                        **offs)
+                    want = pa.flash_attention_bwd_reference(
+                        qc, kc, vc, o_d[:, rows].contiguous(), lse_i, doc,
+                        *cargs, bias=bc, **offs)
+                    for key, got, w_ in (("dq", dq_c, want[0]),
+                                         ("dk", dk_c, want[1]),
+                                         ("dv", dv_c, want[2])):
+                        errs[key] = max(errs[key], check_close(
+                            f"{tag} {key} ({i},{j})", got, w_, atol, rtol))
+                    dq[:, rows] += dq_c.float()
+                    dk[:, cols] += dk_c.float()
+                    dv[:, cols] += dv_c.float()
+                    if bias_on:
+                        db_c = pa.flash_attention_bwd_dbias(
+                            qc, kc, vc, doc, lse_i, delta_i, *cargs,
+                            bias=bc, **offs)
+                        db_p = pa.flash_attention_bwd_dbias_reference(
+                            qc, kc, vc, o_d[:, rows].contiguous(), lse_i,
+                            doc, *cargs, bias=bc, **offs)
+                        errs["dbias"] = max(errs["dbias"], check_close(
+                            f"{tag} dbias ({i},{j})", db_c, db_p,
+                            *DBIAS_TOL))
+                        db[:, rows, cols] = db_c
+                o_m[:, rows] = o_bar
+                lse_m[:, rows] = lse_run
+            torch.cuda.synchronize()
+            case = {"shape": list(shape), "dtype": dname, "causal": causal,
+                    "bias": bias_on, "chunks": RING_CHUNKS,
+                    "dropout": RING_RATE, "atol": atol, "rtol": rtol,
+                    "chunk_vs_plain_max_abs_err": errs,
+                    "merged_vs_dense_max_abs_err": {
+                        "o": check_close(f"{tag} merged o", o_m.to(dt), o_d,
+                                         atol, rtol),
+                        "lse": check_close(f"{tag} merged lse", lse_m,
+                                           lse_d, 1e-4, 1e-4),
+                        "dq": check_close(f"{tag} summed dq", dq.to(dt),
+                                          dq_d, atol, rtol),
+                        "dk": check_close(f"{tag} summed dk", dk.to(dt),
+                                          dk_d, atol, rtol),
+                        "dv": check_close(f"{tag} summed dv", dv.to(dt),
+                                          dv_d, atol, rtol)}}
+            if bias_on:
+                case["merged_vs_dense_max_abs_err"]["dbias"] = check_close(
+                    f"{tag} tiled dbias", db, db_d, *DBIAS_TOL)
+            out["cases"].append(case)
+            if dt == torch.bfloat16:
+                out["timed"]["t5" if bias_on else "gpt"] = ring_chunk_times(
+                    torch, pa, q, k, v, do, lse_d, delta, bias, s, scale,
+                    causal)
+            del q, k, v, do, o_d, lse_d, delta, dq_d, dk_d, dv_d, dq, dk
+            del dv, o_m, lse_m, db, db_d, bias
+            torch.cuda.empty_cache()
+    return out
+
+
+def ring_chunk_times(torch, pa, q, k, v, do, lse, delta, bias, s, scale,
+                     causal):
+    """The four kernels on chunk (RING_CHUNKS - 1, 1) (a full chunk below
+    the diagonal) at its offsets beside offsets 0, with their bounds."""
+    i, j = RING_CHUNKS - 1, 1
+    rows, cols = slice(i * s, (i + 1) * s), slice(j * s, (j + 1) * s)
+    qc, doc = q[:, rows].contiguous(), do[:, rows].contiguous()
+    kc, vc = k[:, cols].contiguous(), v[:, cols].contiguous()
+    lse_i, delta_i = lse[:, rows].contiguous(), delta[:, rows].contiguous()
+    bc = None if bias is None else bias[:, rows, cols].contiguous()
+    cargs = (scale, False, RING_RATE, RING_SEED)
+    heads = 0 if bias is None else bias.shape[0]
+    bounds = flash_bounds(qc.shape[0], s, s, qc.shape[-1], False,
+                          qc.element_size(), "bfloat16", heads)
+    out = {"chunk": [i, j], "rows": s}
+    kernels = {
+        "fwd": lambda o: pa.flash_attention_fwd(qc, kc, vc, *cargs, bias=bc,
+                                                **o),
+        "dq": lambda o: pa.flash_attention_bwd_dq(qc, kc, vc, doc, lse_i,
+                                                  delta_i, *cargs, bias=bc,
+                                                  **o),
+        "dkv": lambda o: pa.flash_attention_bwd_dkv(qc, kc, vc, doc, lse_i,
+                                                    delta_i, *cargs,
+                                                    bias=bc, **o)}
+    if bc is not None:
+        kernels["dbias"] = lambda o: pa.flash_attention_bwd_dbias(
+            qc, kc, vc, doc, lse_i, delta_i, *cargs, bias=bc, **o)
+    for (name, fn), (bms, by) in zip(kernels.items(), bounds):
+        out[name] = {
+            "ms_offsets_set": time_ms(torch, lambda: fn(dict(
+                q_off=i * s, k_off=j * s))),
+            "ms_offsets_0": time_ms(torch, lambda: fn({})),
+            "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def _mesh_state(torch, tp: bool):
+    """Install the one-rank tp mesh (``parallel_state``) or none."""
+    from apex_tpu_torch.parallel.mesh import set_mesh
+    from apex_tpu_torch.transformer import parallel_state
+
+    parallel_state.destroy_model_parallel()
+    set_mesh(None)
+    if tp:
+        parallel_state.initialize_model_parallel(1)
+
+
+def tp_run(torch, ku, build, steps: int, timed: int):
+    """``steps`` steps of a fresh ``build()`` step from seed 0: the first
+    step's launches and collectives (counts reset just before it, read
+    just after), the losses, the leaves after the last step, then
+    ``timed`` timed steps (host and wall ms) and a profiled one."""
+    from apex_tpu_torch.comm import accounting
+    from apex_tpu_torch.convert import named_leaves
+
+    step, params = build()
+    with accounting.record_collectives() as rec:
+        ku.reset_launch_counts()
+        losses = [step()]
+        torch.cuda.synchronize()
+        launches = ku.launch_counts()
+    losses += [step() for _ in range(steps - 1)]
+    losses = torch.stack(losses)
+    leaves = {k: p.detach().clone() for k, p in named_leaves(params)}
+    hosts = []
+    walls = timed_steps_of(torch, step, timed, hosts)
+    prof = profiled(torch, step)
+    del step, params
+    torch.cuda.empty_cache()
+    return {"losses": losses, "leaves": leaves, "launches": launches,
+            "collectives": accounting.collective_report(rec).counts,
+            "step_ms": [w * 1e3 for w in walls],
+            "host_ms": [h * 1e3 for h in hosts],
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"]}
+
+
+def tp_record(run, base):
+    """The printed / recorded numbers of a :func:`tp_run` beside the run
+    without tp: losses and every leaf bitwise."""
+    p50 = lambda d: sorted(d)[len(d) // 2]
+    vals = run["losses"].tolist()
+    if not all(math.isfinite(x) for x in vals) or not vals[-1] < vals[0]:
+        raise AssertionError(f"tp run's loss did not fall: {vals}")
+    bitwise_loss = torch_equal(run["losses"], base["losses"])
+    bad = [k for k in base["leaves"]
+           if not torch_equal(run["leaves"][k], base["leaves"][k])]
+    if not bitwise_loss or bad:
+        raise AssertionError(f"tp run differs from the run without tp: "
+                             f"losses {vals} vs {base['losses'].tolist()}, "
+                             f"leaves {bad[:4]}")
+    if run["launches"] != base["launches"]:
+        raise AssertionError(f"tp run launches {run['launches']} differ "
+                             f"from the run without tp's "
+                             f"{base['launches']}")
+    return {"losses": vals, "bitwise_to_no_tp": True,
+            "launches_first_step": run["launches"],
+            "collectives_per_step": run["collectives"],
+            "step_ms_p50": p50(run["step_ms"]),
+            "host_ms_p50": p50(run["host_ms"]),
+            "device_busy_ms": run["device_busy_ms"],
+            "device_idle_share": run["device_idle_share"]}
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def tp_phase(torch, dev, ku, steps: int = TP_STEPS, timed: int = TP_TIMED):
+    """GPT-2-124M bf16 at 8 x 1024, full width and depth, through the tp
+    layers on a one-rank NCCL group, TP_STEPS steps of each of
+    TP_VARIANTS: plain tp (the unfused vocab-parallel head), megatron_sp,
+    megatron_sp + overlap_comm, and the fused vocab-parallel LM head
+    (``lm_head_loss(axis_name="tp")``); each beside the same steps without
+    a mesh (no tp). At one rank every mapping, ring and the head's merge
+    is the identity, so the variants run the arithmetic of the run without
+    tp: losses and every parameter after the steps are held bitwise and
+    the first step's kernel launches equal the run without tp's. The
+    first step's collectives are recorded (none cross a one-rank axis)."""
+    from apex_tpu_torch.transformer.testing import (GPTConfig,
+                                                    build_train_step)
+
+    def build(fields):
+        cfg = GPTConfig(**fields)
+        step, params, _, _, _ = build_train_step(cfg, DDP_BATCH, DDP_SEQ,
+                                                 device=dev, seed=0)
+        return step, params
+
+    result = {"path": TP_PATH, "steps": steps, "variants": {},
+              "no_tp": {}}
+    with OneRankGroup(torch, dev) as group:
+        result["backend"] = group.backend
+        bases = {}
+        for name, (fields, base_fields) in TP_VARIANTS.items():
+            key = tuple(sorted(base_fields.items()))
+            if key not in bases:
+                _mesh_state(torch, False)
+                bases[key] = tp_run(torch, ku, lambda: build(base_fields),
+                                    steps, timed)
+                p50 = lambda d: sorted(d)[len(d) // 2]
+                result["no_tp"][str(dict(key))] = {
+                    "losses": bases[key]["losses"].tolist(),
+                    "step_ms_p50": p50(bases[key]["step_ms"]),
+                    "host_ms_p50": p50(bases[key]["host_ms"]),
+                    "device_busy_ms": bases[key]["device_busy_ms"],
+                    "device_idle_share": bases[key]["device_idle_share"],
+                    "launches_first_step": bases[key]["launches"]}
+            _mesh_state(torch, True)
+            run = tp_run(torch, ku, lambda: build(fields), steps, timed)
+            result["variants"][name] = tp_record(run, bases[key])
+            del run
+        _mesh_state(torch, False)
+        del bases
+        torch.cuda.empty_cache()
+    return result
+
+
+def t5_tp_phase(torch, dev, ku, steps: int = TP_STEPS,
+                timed: int = TP_TIMED):
+    """T5-small bf16 (the t5_train phase's config and batch) through the tp
+    layers on a one-rank NCCL group, TP_STEPS steps of plain tp and of
+    megatron_sp, each beside the same steps without a mesh: losses and
+    every parameter bitwise, the same kernel launches (the relative bias
+    through flash's bias path and d(bias))."""
+    import dataclasses
+
+    from apex_tpu_torch.transformer.testing import build_t5_train_step
+
+    def build(fields):
+        cfg = dataclasses.replace(t5_config(torch.bfloat16), **fields)
+        step, params, _, _ = build_t5_train_step(cfg, T5_BATCH, T5_ENC,
+                                                 T5_DEC, device=dev, seed=0)
+        return step, params
+
+    result = {"path": T5_TP_PATH, "steps": steps, "variants": {}}
+    with OneRankGroup(torch, dev) as group:
+        result["backend"] = group.backend
+        _mesh_state(torch, False)
+        base = tp_run(torch, ku, lambda: build({}), steps, timed)
+        p50 = lambda d: sorted(d)[len(d) // 2]
+        result["no_tp"] = {"losses": base["losses"].tolist(),
+                           "step_ms_p50": p50(base["step_ms"]),
+                           "host_ms_p50": p50(base["host_ms"]),
+                           "device_busy_ms": base["device_busy_ms"],
+                           "device_idle_share": base["device_idle_share"],
+                           "launches_first_step": base["launches"]}
+        for name, fields in T5_TP_VARIANTS.items():
+            _mesh_state(torch, True)
+            run = tp_run(torch, ku, lambda: build(fields), steps, timed)
+            result["variants"][name] = tp_record(run, base)
+            del run
+        _mesh_state(torch, False)
+        del base
+        torch.cuda.empty_cache()
+    return result
+
+
 def attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
                 adam, drop_cases):
     """Each kernel's fp16 cases under its entry's ``float16`` key (as its
@@ -7442,6 +7888,8 @@ def main(argv=None) -> int:
     pa_cases = pa["cases"]
     lm_cases = phase("lm_head_loss", ("lm_head_loss", "lm_head_mma"),
                      lm_head_phase, torch, dev)
+    lm_shard = phase("lm_head_vocab_shard", ("lm_head_loss", "lm_head_mma"),
+                     lm_head_shard_phase, torch, dev)
     ln_cases = phase("layer_norm", ("layer_norm",), layer_norm_phase, torch,
                      dev)
     ln_non_affine = phase("layer_norm_non_affine", ("layer_norm",),
@@ -7454,6 +7902,8 @@ def main(argv=None) -> int:
                      megakernel_phase, torch, dev)
     fa_cases = phase("flash_attention", ("flash_attention", "flash_mma"),
                      flash_phase, torch, dev)
+    ring = phase("ring_chunks", ("flash_attention", "flash_mma"),
+                 ring_chunks_phase, torch, dev)
     vl = phase("flash_varlen", ("flash_attention", "flash_mma",
                                 "flash_varlen", "flash_varlen_mma"),
                varlen_phase, torch, dev)
@@ -7506,6 +7956,8 @@ def main(argv=None) -> int:
     zero1 = phase("zero1", (), zero1_phase, torch, dev, ku)
     fsdp = phase("fsdp", (), fsdp_phase, torch, dev, ku, zero1)
     dlamb = phase("dist_lamb", (), dist_lamb_phase, torch, dev, ku)
+    tp = phase("tp", (), tp_phase, torch, dev, ku)
+    t5_tp = phase("t5_tp", (), t5_tp_phase, torch, dev, ku)
     name = torch.cuda.get_device_name(0)
     # the phases' record, written before the kernels line is assembled
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
@@ -7524,7 +7976,9 @@ def main(argv=None) -> int:
               "amp_fp16": amp16, "bert": bert, "multihead_attn": mha,
               "transducer": trans, "asp": asp, "resnet": resnet,
               "dcgan": dcgan, "rnn": rnn, "ddp": ddp, "syncbn_dp": sbn,
-              "zero1": zero1, "fsdp": fsdp, "dist_lamb": dlamb}
+              "zero1": zero1, "fsdp": fsdp, "dist_lamb": dlamb,
+              "lm_head_vocab_shard": lm_shard, "ring_chunks": ring, "tp": tp,
+              "t5_tp": t5_tp}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -8587,6 +9041,80 @@ def main(argv=None) -> int:
           f"{[round(v, 4) for v in dlamb['losses']]} vs FusedLAMB "
           f"{[round(v, 4) for v in dlamb['fused_lamb_losses']]} (max gap "
           f"{dlamb['max_gap']:.2e}) on {card}")
+    # the tensor- and sequence-parallel slice: each kernel's launches on
+    # the tp paths' first steps (GPT-2 and T5-small through the tp layers,
+    # one rank), the ring chunks' checks and times with offsets (flash),
+    # the vocab shard's (LM head)
+    for kname in by_name:
+        for path, res in (("tp", tp), ("t5_tp", t5_tp)):
+            runs = {v: r["launches_first_step"].get(kname, 0)
+                    for v, r in res["variants"].items()}
+            if any(runs.values()):
+                by_name[kname].setdefault("tp_paths", {})[path] = {
+                    "launches_first_step": runs, "path": res["path"]}
+    ring_key = {"flash_mma_fwd": "fwd", "flash_mma_bwd_dq": "dq",
+                "flash_mma_bwd_dkv": "dkv", "flash_mma_bwd_dbias": "dbias"}
+    for kname, key in ring_key.items():
+        rc = [c for c in ring["cases"] if key != "dbias" or c["bias"]]
+        err_key = {"fwd": "fwd", "dq": "dq", "dkv": "dk",
+                   "dbias": "dbias"}[key]
+        by_name[kname]["ring_chunks"] = {
+            "chunks": RING_CHUNKS, "offsets": "q_off = i*s, k_off = j*s",
+            "chunk_vs_plain_max_abs_err": max(
+                c["chunk_vs_plain_max_abs_err"][err_key] for c in rc),
+            "merged_vs_dense_max_abs_err": max(
+                c["merged_vs_dense_max_abs_err"][
+                    {"fwd": "o", "dkv": "dk"}.get(key, key)] for c in rc),
+            **{shape: t[key] for shape, t in ring["timed"].items()
+               if key in t}}
+    for kname in ("lm_head_mma_fwd", "lm_head_mma_bwd_dx",
+                  "lm_head_mma_bwd_dw", "lm_head_loss_fwd",
+                  "lm_head_loss_bwd_dx", "lm_head_loss_bwd_dw"):
+        dname = "bfloat16" if "mma" in kname else "float32"
+        c = pick(lm_shard, dtype=dname)
+        by_name[kname]["vocab_shard"] = {
+            k: c[k] for k in ("rows", "hidden", "vocab_local",
+                              "negative_targets",
+                              "targets_at_or_above_vocab_local",
+                              "pred_all_zero", "fwd_max_abs_err",
+                              "dx_max_row_rel_err", "dw_max_row_rel_err")}
+    for c in lm_shard:
+        print(f"lm_head vocab shard {c['dtype']} ({c['rows']} x "
+              f"{c['hidden']}, V_local {c['vocab_local']}, "
+              f"{c['negative_targets']} targets < 0, "
+              f"{c['targets_at_or_above_vocab_local']} >= V_local): pred 0 "
+              f"everywhere, lse err {c['fwd_max_abs_err']:.2e}, dx / dw row "
+              f"rel err {c['dx_max_row_rel_err']:.2e} / "
+              f"{c['dw_max_row_rel_err']:.2e} on {card}")
+    for c in ring["cases"]:
+        print(f"ring_chunks {c['shape']} {c['dtype']} causal={c['causal']} "
+              f"bias={c['bias']} dropout {c['dropout']}, {c['chunks']} "
+              f"chunks: chunk vs plain {c['chunk_vs_plain_max_abs_err']}, "
+              f"merged vs dense {c['merged_vs_dense_max_abs_err']} on {card}")
+    for shape, t in ring["timed"].items():
+        print(f"ring_chunks {shape} bf16 chunk {t['chunk']} ({t['rows']} "
+              f"rows): " + ", ".join(
+                  f"{k} {v['ms_offsets_set']:.4f} ms (offsets 0 "
+                  f"{v['ms_offsets_0']:.4f}, bound {v['bound_ms']:.4f})"
+                  for k, v in t.items() if isinstance(v, dict))
+              + f" on {card}")
+    for label, res in (("tp", tp), ("t5_tp", t5_tp)):
+        print(f"{label} {res['path']} ({res['backend']}): no tp "
+              + "; ".join(f"{k} step_ms_p50 {v['step_ms_p50']:.2f} host ms "
+                          f"{v['host_ms_p50']:.2f} busy ms "
+                          f"{v['device_busy_ms']:.2f}"
+                          for k, v in ((k, v) for k, v in (
+                              res["no_tp"].items() if label == "tp"
+                              else (("default", res["no_tp"]),))))
+              + f" on {card}")
+        for vname, r in res["variants"].items():
+            print(f"{label} {vname}: step_ms_p50 {r['step_ms_p50']:.2f} host "
+                  f"ms {r['host_ms_p50']:.2f} busy ms "
+                  f"{r['device_busy_ms']:.2f} (idle share "
+                  f"{r['device_idle_share']:.3f}), collectives a step "
+                  f"{ {k: n for k, n in r['collectives_per_step'].items() if n} }"
+                  f", losses {[round(v, 4) for v in r['losses']]} bitwise "
+                  f"the run without tp, same launches on {card}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels its path never launched: {idle}")

@@ -588,16 +588,17 @@ def test_found_inf_allreduce_needs_a_group():
     """JAX's mesh reduction (test_amp.py:301) takes the mesh's axis names
     since A7a (held across ranks in ``tests/test_torch_comm_dist.py``):
     with neither axis names nor a group the port refuses. The Megatron
-    GradScaler's default over parallel_state's axes still refuses, naming
-    A7c."""
+    GradScaler's default, parallel_state's model-parallel axes, needs
+    ``initialize_model_parallel`` first (held across ranks in
+    ``tests/test_torch_tensor_parallel.py``)."""
     with pytest.raises(TypeError, match="axis_names"):
         amp.LossScaler.all_reduce_found_inf(torch.tensor(1.0))
     with pytest.raises(TypeError, match="exactly one"):
         amp.LossScaler.all_reduce_found_inf(torch.tensor(1.0), "dp",
                                             group=object())
-    with pytest.raises(NotImplementedError, match="A7c"):
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         GradScaler().sync_found_inf(torch.tensor(1.0))
-    with pytest.raises(NotImplementedError, match="A7c"):
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         GradScaler().update_scale(
             GradScaler().init_state(device="cpu"), torch.tensor(1.0),
             synced=False)

@@ -179,9 +179,18 @@ def test_bert_numpy_init_layout():
 @pytest.mark.parametrize("field,value", [("megatron_sp", True),
                                          ("num_experts", 4)])
 def test_bert_refuses_what_is_multi_device(field, value):
+    """``num_experts`` raises, naming A7; ``megatron_sp``, ported with the
+    tensor-parallel slice, runs and on one device (no mesh) gives the
+    plain loss bitwise (held to JAX at tp > 1 in
+    ``tests/test_torch_tp_gpt.py``)."""
     _, tcfg = _cfgs("float32")
     cfg = dataclasses.replace(tcfg, **{field: value})
     params = init_bert_params(tcfg, device="cpu")
     tok = torch.zeros(1, 8, dtype=torch.long)
+    if field == "megatron_sp":
+        assert torch.equal(
+            bert_mlm_loss(params, tok, tok, torch.ones(1, 8), cfg),
+            bert_mlm_loss(params, tok, tok, torch.ones(1, 8), tcfg))
+        return
     with pytest.raises(NotImplementedError, match="A7"):
         bert_mlm_loss(params, tok, tok, torch.ones(1, 8), cfg)

@@ -97,8 +97,12 @@ def test_grad_scaler_axis_names_empty_matches_jax_unsynced(kw):
 
 
 def test_grad_scaler_mesh_axes_raise_naming_a7():
-    with pytest.raises(NotImplementedError, match="A7"):
-        GradScaler(axis_names=("tp",))
+    """Mesh axis names, ported with the tensor-parallel slice (held across
+    ranks in ``tests/test_torch_tensor_parallel.py``): the scaler takes
+    them; syncing needs a mesh, which names how to build one."""
+    s = GradScaler(axis_names=("tp",))
+    with pytest.raises(RuntimeError, match="build_mesh"):
+        s.sync_found_inf(torch.tensor(1.0))
     with pytest.raises(ValueError, match="not both"):
         GradScaler(axis_names=(), group=object())
 

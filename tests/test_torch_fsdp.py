@@ -278,7 +278,9 @@ def test_meta_and_policy_dtype_match_jax():
 
 def test_linear_shard_and_refusals():
     """``shard_linear_weight``: this rank's fp32 column slice; 3-D and
-    indivisible weights refused; ``FSDP.linear`` names ROADMAP A7c."""
+    indivisible weights refused; ``FSDP.linear`` (ported with the
+    tensor-parallel slice; its ring held across ranks in
+    ``tests/test_torch_overlap.py``) is the plain product on one device."""
     for world in WORLDS:
         for rank, r in enumerate(_port(world)):
             lin = np.arange(6 * 4 * world, dtype=np.float32).reshape(6, -1)
@@ -287,8 +289,8 @@ def test_linear_shard_and_refusals():
             assert r["linear_shard"].dtype == torch.float32
             assert "2-D kernel" in r["linear_refusals"][0]
             assert "not divisible" in r["linear_refusals"][1]
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        FSDP().linear(torch.zeros(2, 3), torch.zeros(3, 2))
+    x, w = torch.randn(2, 3), torch.randn(3, 2)
+    assert torch.equal(FSDP().linear(x, w), x @ w)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         FSDPAdam().state_dict(None)
 

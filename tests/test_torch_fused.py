@@ -185,10 +185,21 @@ def test_kernel_fits_is_the_jax_predicate():
 
 
 def test_lm_head_loss_refuses_the_vocab_parallel_form():
-    x = torch.zeros(4, 128)
-    with pytest.raises(NotImplementedError, match="A7"):
-        lm_head_loss(x, torch.zeros(8, 128), torch.zeros(4, dtype=torch.long),
-                     axis_name="tp")
+    """The vocab-parallel form, ported with the tensor-parallel slice (held
+    to JAX across ranks in ``tests/test_torch_tensor_parallel.py``): on
+    one device (no mesh, one rank on tp) it is the plain form, the loss
+    and gradients bitwise the plain form's."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 128, generator=g)
+    w = torch.randn(8, 128, generator=g)
+    t = torch.tensor([0, 3, 7, 5])
+    outs = []
+    for axis in (None, "tp"):
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = lm_head_loss(xi, wi, t, axis_name=axis)
+        outs.append((loss, *torch.autograd.grad(loss.sum(), (xi, wi))))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -198,8 +198,10 @@ def test_waiting_surfaces_name_their_roadmap_items():
         ParallelismPlan.preset("fsdp").checkpoint_manager("/nonexistent")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         DistributedFusedAdam().state_dict(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        FSDP().linear(torch.zeros(2, 3), torch.zeros(3, 2))
+    # FSDP.linear is ported (tensor-parallel slice): the plain product on
+    # one device, its ring across ranks in tests/test_torch_overlap.py
+    x, w = torch.randn(2, 3), torch.randn(3, 2)
+    assert torch.equal(FSDP().linear(x, w), x @ w)
 
 
 def test_parallel_exports_the_plan():

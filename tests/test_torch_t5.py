@@ -427,11 +427,12 @@ def test_build_t5_train_step_on_cpu_falls_and_repeats():
     ("megatron_sp", True)])
 def test_refused_t5_fields_raise(field, value):
     """Each refused field raises from ``validate()``, ``init_t5_params``,
-    ``t5_loss`` and ``build_t5_train_step``. The dropout rates, ported
-    since, are accepted: ``validate()`` passes and ``t5_loss`` and a
-    ``build_t5_train_step`` step run on the CPU with a dropout key."""
+    ``t5_loss`` and ``build_t5_train_step``. The dropout rates and
+    ``megatron_sp``, ported since, are accepted: ``validate()`` passes and
+    ``t5_loss`` and a ``build_t5_train_step`` step run on the CPU with a
+    dropout key (``megatron_sp`` on one device: no mesh, tp = 1)."""
     cfg = dataclasses.replace(_configs(True, True, True)[1], **{field: value})
-    if field in ("attention_dropout", "hidden_dropout"):
+    if field in ("attention_dropout", "hidden_dropout", "megatron_sp"):
         cfg.validate()
         key = np.asarray(jax.random.PRNGKey(1))
         params = init_t5_params(cfg, device="cpu")

@@ -484,8 +484,10 @@ def test_build_train_step_on_cpu_falls_and_repeats():
     assert all(np.isfinite(runs[0]))
 
 
-# ported since the dropout slice: accepted now, the rest still refused (A7)
-ACCEPTED_FIELDS = ("remat_policy", "attention_dropout", "hidden_dropout")
+# ported since the dropout slice (and megatron_sp / overlap_comm with the
+# tensor-parallel slice): accepted now, the rest still refused (A7d)
+ACCEPTED_FIELDS = ("remat_policy", "attention_dropout", "hidden_dropout",
+                   "megatron_sp", "overlap_comm")
 
 
 @pytest.mark.parametrize("field,value", [
@@ -497,7 +499,8 @@ def test_refused_training_fields_raise(field, value):
     """Each refused field raises ``NotImplementedError`` from
     ``validate()``, ``gpt_loss`` and ``build_train_step``; an unknown
     ``remat_policy`` raises ``ValueError`` there, as JAX's ``validate``.
-    The fields ported since (the remat policies, both dropout rates) are
+    The fields ported since (the remat policies, both dropout rates,
+    ``megatron_sp`` and ``overlap_comm``, here on one device) are
     accepted: ``validate()`` passes and ``gpt_loss`` and a
     ``build_train_step`` step run on the CPU with a dropout key."""
     cfg = dataclasses.replace(TCFG, **{field: value})
