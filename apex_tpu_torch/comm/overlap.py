@@ -37,6 +37,10 @@ counter-rotating streams, ⌈(W-1)/2⌉ hops deep. dW partials sum in fp32
 and round once, as JAX's ``_contract_leading``. On an axis of one rank
 every op is its plain product.
 
+:func:`ring_shift` is one such hop alone, differentiable (its backward
+hops the cotangent back): the einsum ring attention's K / V hops and the
+pipeline schedules' stage-to-stage shifts.
+
 Every hop enters the open ``comm.accounting`` records as a
 ``collective-permute`` of its bytes; each ring op enters the open
 overlap records (``accounting.record_overlap``) with its hops, the hops
@@ -56,6 +60,7 @@ from apex_tpu_torch.comm import accounting
 from apex_tpu_torch.parallel.mesh import DP_AXIS, TP_AXIS, axis_info
 
 __all__ = [
+    "ring_shift",
     "all_gather_matmul",
     "matmul_param_gather",
     "matmul_reduce_scatter",
@@ -184,6 +189,35 @@ class _Hop:
             self.ring.hidden += len(self.outs)
             self.ring.hidden_wire += self.nbytes
         return [out for _, out in self.outs]
+
+
+class _Shift(torch.autograd.Function):
+    """One ring hop (send to ``index + shift``), differentiable: the
+    backward sends the cotangent the other way."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, shift, name):
+        ctx.args = (axis_name, shift, name)
+        ring = _Ring(name, axis_name)
+        out, = ring.post([(x, shift)]).wait()
+        ring.done()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, shift, name = ctx.args
+        return _Shift.apply(g, axis_name, -shift, name), None, None, None
+
+
+def ring_shift(x, axis_name: str, shift: int = 1,
+               name: str = "ring_shift"):
+    """``x`` of the rank ``shift`` places before this one on the axis
+    (``lax.ppermute`` over the ring ``i -> i + shift``): one hop, entered
+    into the open records under ``name``. Differentiable: the cotangent
+    hops back. On an axis of one rank ``x`` itself, no hop."""
+    if axis_info(axis_name)[1] == 1:
+        return x
+    return _Shift.apply(x, axis_name, shift, name)
 
 
 def _gather_ring(ring: _Ring, x, bidirectional: bool):

@@ -49,6 +49,52 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
     return conv(tree)
 
 
+def pipeline_params_from_numpy(tree: Any, device: DeviceLike = None,
+                               dtype: Optional[torch.dtype] = None, *,
+                               specs: Any = None) -> Any:
+    """JAX's pipeline tree as numpy arrays (``{"embed", "stages", "head"}``,
+    or ``"enc_stages"`` / ``"dec_stages"`` for the encoder-decoder
+    schedule; ``jax.tree.map(np.asarray, params)``) -> this rank's local
+    tree of tensors, the schedules' ``params``. ``specs`` is a
+    PartitionSpec tree shaped like ``tree`` (``gpt_pipeline_specs_tree``,
+    ``t5_pipeline_specs_tree``; JAX's interleaved ``[vp, pp, ...]``
+    stages become the ``[vp, ...]`` chunk stack): each leaf is indexed at
+    this process's pp rank on the current mesh along the dim named
+    ``"pp"``, and cut to this rank's slice along every other named dim
+    (tp). Without ``specs``, each stage group's leaves are indexed along
+    their leading stage axis and ``embed`` and ``head`` stay whole."""
+    from apex_tpu_torch.parallel.mesh import PP_AXIS, axis_info
+
+    pp_rank = axis_info(PP_AXIS)[2]
+
+    def cut(a, spec):
+        # a copy: on the CPU the tensor would otherwise share ``tree``'s
+        # memory, and training it would change the caller's arrays
+        a = np.array(a)
+        for dim in reversed(range(len(spec))):
+            axis = spec[dim]
+            if axis is None:
+                continue
+            if axis == PP_AXIS:
+                a = np.take(a, pp_rank, axis=dim)
+                continue
+            _, world, index = axis_info(axis)
+            size = a.shape[dim] // world
+            a = np.take(a, range(index * size, (index + 1) * size), axis=dim)
+        return a
+
+    def walk(node, spec, stage):
+        if isinstance(node, dict):
+            return {k: walk(v, None if spec is None else spec[k],
+                            stage or k.endswith("stages"))
+                    for k, v in node.items()}
+        if spec is None:
+            spec = (PP_AXIS,) if stage else ()
+        return cut(node, spec)
+
+    return params_from_numpy(walk(tree, specs, False), device, dtype)
+
+
 def named_leaves(tree: Any, prefix: str = ""):
     """``(path, leaf)`` pairs of a nested dict in sorted-key order (the
     JAX tree order), paths joined by ``.``: ``("layers.qkv_kernel", t)``."""

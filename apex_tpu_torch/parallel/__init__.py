@@ -4,9 +4,11 @@
 across devices (``sync_batchnorm``), LARC, and ``ParallelismPlan``
 (``plan``: the mesh shape, the data strategy — DDP, ZeRO-1's
 ``contrib.optimizers``, ``fsdp`` — and the wire policies as one object).
-Tensor and sequence parallelism live in ``transformer`` (``parallel_state``,
-``tensor_parallel``, ``sequence_parallel``) and ``comm.overlap``;
-pipelines are ROADMAP A7d."""
+Tensor, sequence and pipeline parallelism live in ``transformer``
+(``parallel_state``, ``tensor_parallel``, ``sequence_parallel``,
+``pipeline_parallel``: the p2p ring shifts, the microbatch calculators and
+the four schedules) and ``comm.overlap``; mixture of experts is ROADMAP
+A7d."""
 
 # the optimizers package imports LARC back: load it first
 import apex_tpu_torch.optimizers  # noqa: F401

@@ -1,0 +1,9 @@
+"""Megatron pretraining batch samplers (counterpart of
+``apex_tpu/transformer/_data``)."""
+
+from apex_tpu_torch.transformer._data._batchsampler import (  # noqa: F401
+    MegatronPretrainingRandomSampler,
+    MegatronPretrainingSampler,
+)
+
+__all__ = ["MegatronPretrainingSampler", "MegatronPretrainingRandomSampler"]

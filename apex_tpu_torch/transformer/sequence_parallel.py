@@ -21,8 +21,10 @@ and Ulysses all-to-all attention (counterpart of
     run the flash kernels (#5-8, with those offsets) where JAX's gate
     takes them; elsewhere their plain versions.
   - ``impl="scan"``: the einsum online-softmax ring, differentiated by
-    autograd through the hops (a hop's backward sends its cotangent back
-    the other way).
+    autograd through the hops (``comm.overlap.ring_shift``: a hop's
+    backward sends its cotangent back the other way); with
+    ``remat_steps`` each step's math is recomputed in backward, so no
+    step's (s, s) scores are kept.
 * :func:`ulysses_attention` — ``all_to_all_single`` re-shards sequence →
   heads, dense flash attention runs over the whole sequence for h/sp
   heads, and a second all-to-all re-shards back; dropout folds the sp rank
@@ -40,7 +42,7 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch.comm import collectives as coll
-from apex_tpu_torch.comm.overlap import _Ring
+from apex_tpu_torch.comm.overlap import _Ring, ring_shift
 from apex_tpu_torch.ops import _kernel_util as ku
 from apex_tpu_torch.ops.attention import (
     NEG_INF,
@@ -56,7 +58,10 @@ from apex_tpu_torch.ops.attention import (
 )
 from apex_tpu_torch.parallel.mesh import SP_AXIS
 from apex_tpu_torch.transformer.tensor_parallel.mappings import axis_info
-from apex_tpu_torch.transformer.tensor_parallel.random import saved_output
+from apex_tpu_torch.transformer.tensor_parallel.random import (
+    checkpoint_saving,
+    saved_output,
+)
 
 
 def ring_attention(q, k, v, axis_name: str = SP_AXIS, causal: bool = False,
@@ -69,9 +74,9 @@ def ring_attention(q, k, v, axis_name: str = SP_AXIS, causal: bool = False,
     shard of the dense result. ``bias_strip``: (h, s_local, sp ·
     sk_local), batch-shared, differentiable. ``dropout_rate`` > 0 needs
     ``dropout_seed`` (an int, the same on every sp rank) and ``impl=
-    "auto"``. ``remat_steps`` is JAX's knob for its scan's per-step
-    rematerialization; the port's scan keeps the step activations."""
-    del remat_steps
+    "auto"``. ``remat_steps`` (JAX's default True) recomputes each step
+    of the einsum scan in backward, as JAX's ``jax.checkpoint`` of the
+    step (the chunked-flash ring keeps no (s, s) tensor either way)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if dropout_rate > 0.0 and dropout_seed is None:
@@ -94,7 +99,7 @@ def ring_attention(q, k, v, axis_name: str = SP_AXIS, causal: bool = False,
         raise NotImplementedError("bias_strip needs impl='auto'")
     if dropout_rate > 0.0:
         raise NotImplementedError("attention dropout needs impl='auto'")
-    return _ring_scan(q, k, v, axis_name, causal, scale)
+    return _ring_scan(q, k, v, axis_name, causal, scale, remat_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -247,27 +252,29 @@ class _RingFlash(ku.OpaqueFunction):
 # the einsum scan
 
 
-class _Hop(torch.autograd.Function):
-    """One ring hop (send to ``index + shift``), differentiable: the
-    backward sends the cotangent the other way."""
-
-    @staticmethod
-    def forward(ctx, x, axis_name, shift):
-        ctx.args = (axis_name, shift)
-        ring = _Ring("ring_attention.scan", axis_name)
-        out, = ring.post([(x, shift)]).wait()
-        ring.done()
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        axis_name, shift = ctx.args
-        return _Hop.apply(g, axis_name, -shift), None, None
+def _scan_step(q32, k_c, v_c, m, l, acc, qpos, kpos, scale):
+    """One step of the online softmax: this rank's queries against one
+    K/V chunk, the carries (m, l, acc) updated. ``kpos`` is None for a
+    non-causal ring."""
+    sc = torch.einsum("bhqd,bhkd->bhqk", q32, k_c.float()) * scale
+    if kpos is not None:
+        sc = torch.where(kpos[None, :] > qpos[:, None], NEG_INF, sc)
+    m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+    p = torch.exp(sc - m_new)
+    p = torch.where(sc <= NEG_INF / 2, 0.0, p)
+    corr = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_new))
+    l = corr * l + p.sum(dim=-1, keepdim=True)
+    acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, v_c.float())
+    return m_new, l, acc
 
 
-def _ring_scan(q, k, v, axis_name, causal, scale):
+def _ring_scan(q, k, v, axis_name, causal, scale, remat_steps):
     """Online-softmax einsum ring; masked entries are zeroed by value, so
-    wholly-future chunks add exactly nothing."""
+    wholly-future chunks add exactly nothing. With ``remat_steps`` each
+    step's math runs under a non-reentrant checkpoint (JAX's per-step
+    ``jax.checkpoint``): backward keeps the step's carries and chunk, not
+    its (s, s) scores, and recomputes them. The hops stay outside the
+    checkpoint, so a recompute issues no collective."""
     _, n, my = axis_info(axis_name)
     b, h, s, d = q.shape
     q32 = q.float()
@@ -275,23 +282,18 @@ def _ring_scan(q, k, v, axis_name, causal, scale):
     m = torch.full((b, h, s, 1), NEG_INF, device=q.device)
     l = torch.zeros((b, h, s, 1), device=q.device)
     acc = torch.zeros((b, h, s, d), device=q.device)
+    step = _scan_step
+    if remat_steps and torch.is_grad_enabled():
+        step = checkpoint_saving(_scan_step)
     k_c, v_c = k, v
     for t in range(n):
         origin = (my - t) % n
-        sc = torch.einsum("bhqd,bhkd->bhqk", q32, k_c.float()) * scale
-        if causal:
-            kpos = origin * s + torch.arange(s, device=q.device)
-            sc = torch.where(kpos[None, :] > qpos[:, None], NEG_INF, sc)
-        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-        p = torch.exp(sc - m_new)
-        p = torch.where(sc <= NEG_INF / 2, 0.0, p)
-        corr = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_new))
-        l = corr * l + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, v_c.float())
-        m = m_new
+        kpos = (origin * s + torch.arange(s, device=q.device) if causal
+                else None)
+        m, l, acc = step(q32, k_c, v_c, m, l, acc, qpos, kpos, scale)
         if t < n - 1:
-            k_c = _Hop.apply(k_c, axis_name, 1)
-            v_c = _Hop.apply(v_c, axis_name, 1)
+            k_c = ring_shift(k_c, axis_name, 1, "ring_attention.scan")
+            v_c = ring_shift(v_c, axis_name, 1, "ring_attention.scan")
     return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
 
 

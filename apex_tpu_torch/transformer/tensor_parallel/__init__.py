@@ -47,6 +47,7 @@ from apex_tpu_torch.transformer.tensor_parallel.random import (
     model_parallel_cuda_manual_seed,
     model_parallel_key,
     model_parallel_seed,
+    pipeline_stage_key,
     prng_key,
     random_bits,
     split,
@@ -71,7 +72,8 @@ __all__ = [
     "gather_from_tensor_model_parallel_region", "get_cuda_rng_tracker",
     "get_rng_tracker", "model_parallel_cuda_manual_seed",
     "model_parallel_key", "model_parallel_seed",
-    "param_is_not_tensor_parallel_duplicate", "prng_key", "random_bits",
+    "param_is_not_tensor_parallel_duplicate", "pipeline_stage_key",
+    "prng_key", "random_bits",
     "reduce_from_tensor_model_parallel_region",
     "reduce_scatter_to_sequence_parallel_region", "row_parallel_linear",
     "scatter_to_sequence_parallel_region",

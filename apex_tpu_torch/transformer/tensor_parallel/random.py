@@ -27,8 +27,9 @@ step that derives its keys here never syncs.
 The tracker and seeds follow JAX's module: :class:`RngStatesTracker`'s
 named streams, ``model_parallel_seed`` (the 2718 offset) and the per-rank
 folds, which fold this rank's index on the current mesh's tp axis (0 with
-no mesh installed; ``rank=`` overrides it). ``pipeline_stage_key`` waits
-for pipelining (A7d).
+no mesh installed; ``rank=`` overrides it), and ``pipeline_stage_key``,
+which folds the pp index (a stage's key under the pipeline schedules,
+``transformer.pipeline_parallel``).
 
 Checkpointing maps ``jax.checkpoint`` and its save policies onto
 ``torch.utils.checkpoint``: "nothing" recomputes everything, "dots" saves
@@ -218,6 +219,19 @@ def attention_dropout_seed(key, rank=None) -> int:
     b0, b1 = threefry2x32(model_parallel_key(key, rank), 0, 0)
     b = b0 ^ b1
     return b - (1 << 32) if b >= 1 << 31 else b
+
+
+def pipeline_stage_key(key, rank=None) -> np.ndarray:
+    """A key distinct per pipeline stage: ``fold_in(key, rank)``, ``rank``
+    this process's index on the current mesh's pp axis by default (0 with
+    no mesh; JAX folds ``lax.axis_index(pp)``)."""
+    if rank is None:
+        from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+            axis_info,
+        )
+
+        rank = axis_info("pp")[2]
+    return fold_in(key, int(rank))
 
 
 class RngStatesTracker:

@@ -1,5 +1,6 @@
 """Test/flagship models of the port (counterpart of
-``apex_tpu/transformer/testing``)."""
+``apex_tpu/transformer/testing``): GPT, T5 and BERT, their training steps
+and their pipeline wiring."""
 
 from apex_tpu_torch.transformer.testing.standalone_bert import (  # noqa: F401
     BertConfig,
@@ -18,6 +19,10 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     gpt_head,
     gpt_loss,
     gpt_param_specs,
+    gpt_pipeline_params,
+    gpt_pipeline_params_numpy,
+    gpt_pipeline_spec,
+    gpt_pipeline_specs_tree,
     init_gpt_params,
     shard_params,
     tied_vocab_logits,
@@ -29,7 +34,11 @@ from apex_tpu_torch.transformer.testing.standalone_t5 import (  # noqa: F401
     t5_decode,
     t5_encode,
     t5_loss,
+    t5_enc_dec_spec,
     t5_param_specs,
+    t5_pipeline_params,
+    t5_pipeline_params_numpy,
+    t5_pipeline_specs_tree,
     t5_relative_bias,
 )
 from apex_tpu_torch.transformer.testing.train import (  # noqa: F401

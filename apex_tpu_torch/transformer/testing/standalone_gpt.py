@@ -59,6 +59,12 @@ tp in backward, exactly once), and :func:`gather_grads` sums over dp and
 sp (the data-parallel axes of the token shards) and gathers the tp
 shards, the port's ``out_specs``. With no mesh every axis has one rank
 and the functions are the single-device program.
+
+Pipelines (``transformer.pipeline_parallel``): :func:`gpt_pipeline_spec`
+gives the schedules' three functions over the untied tree of
+:func:`gpt_pipeline_params_numpy` (JAX's ``[pp, L/pp, ...]`` or ``[vp,
+pp, L/(vp·pp), ...]`` layout, specs :func:`gpt_pipeline_specs_tree`),
+and :func:`gpt_pipeline_params` this rank's local tree of it.
 """
 
 from __future__ import annotations
@@ -77,7 +83,10 @@ from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.dropout import hidden_dropout
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.ops.lm_head_loss import kernel_fits, lm_head_loss
-from apex_tpu_torch.parallel.mesh import SP_AXIS, TP_AXIS
+from apex_tpu_torch.parallel.mesh import PP_AXIS, SP_AXIS, TP_AXIS
+from apex_tpu_torch.transformer.pipeline_parallel.schedules.common import (
+    PipelineSpec,
+)
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -98,6 +107,7 @@ from apex_tpu_torch.transformer.tensor_parallel.random import (
     checkpoint_saving,
     fold_in,
     model_parallel_key,
+    pipeline_stage_key,
     saved_product,
     split,
 )
@@ -468,9 +478,10 @@ def _layer_stack(layers, x, cfg: GPTConfig, causal: bool = True, mask=None,
     with ``cfg.remat`` (and autograd recording) each layer runs under
     ``torch.utils.checkpoint`` and is recomputed in backward, saving what
     ``cfg.remat_policy`` names. Layer i's dropout key is ``fold_in(key,
-    i)``, an argument of the recomputed function, so the recompute drops
-    the same elements. The stacked leaves are unbound once, so their
-    gradients are stacked once in backward."""
+    i)`` (the key first folded by the pp rank over a pipeline of several
+    stages, as JAX's), an argument of the recomputed function, so the
+    recompute drops the same elements. The stacked leaves are unbound
+    once, so their gradients are stacked once in backward."""
     tp = _tp()
     if cfg.num_heads % tp:
         raise ValueError(
@@ -481,6 +492,10 @@ def _layer_stack(layers, x, cfg: GPTConfig, causal: bool = True, mask=None,
             f"overlap_comm rings shard the sequence: local sequence "
             f"({x.shape[1]}) not divisible by tp ({tp}); see "
             f"GPTConfig.validate(tp=..., sp=...)")
+    if dropout_key is not None and axis_info(PP_AXIS)[1] > 1:
+        # each stage holds other layers under the same local indices:
+        # decorrelate by the stage rank, as JAX folds axis_index(pp)
+        dropout_key = pipeline_stage_key(dropout_key)
     names = sorted(layers)
     per_leaf = [layers[k].unbind(0) for k in names]
     one = _layer
@@ -589,3 +604,93 @@ def gpt_loss(params, tokens, targets, cfg: GPTConfig, dropout_key=None):
          else head["lm"].t())  # (vocab/tp, hidden) rows
     return fused_head_loss(w, head["ln_w"], head["ln_b"], x, targets,
                            gather_sequence=cfg.megatron_sp)
+
+
+# ---------------------------------------------------------------------------
+# pipeline wiring (the PipelineSpec contract, pipeline_parallel.schedules)
+
+
+def gpt_pipeline_params_numpy(cfg: GPTConfig, pp: int, vp: int = None,
+                              seed: int = 0) -> Dict[str, Any]:
+    """:func:`init_gpt_params_numpy` regrouped into the pipeline drivers'
+    global layout (JAX's ``gpt_pipeline_params``): ``{"embed", "stages"
+    [pp, L/pp, ...], "head"}``, or ``[vp, pp, L/(vp·pp), ...]`` for the
+    interleaved schedule (chunk ``v`` on stage ``s`` holds depth block
+    ``v·pp + s``). The LM head is untied: embedding and head live on
+    different stages."""
+    chunks = pp * (vp or 1)
+    if cfg.num_layers % chunks:
+        raise ValueError("num_layers must be divisible by pp * vp")
+    flat = init_gpt_params_numpy(
+        dataclasses.replace(cfg, tie_embeddings=False), seed)
+    per = cfg.num_layers // chunks
+    lead = (pp, per) if vp is None else (vp, pp, per)
+    stages = {k: v.reshape(lead + v.shape[1:])
+              for k, v in flat["layers"].items()}
+    return {"embed": flat["embed"], "stages": stages, "head": flat["head"]}
+
+
+def gpt_pipeline_params(cfg: GPTConfig, pp: int, vp: int = None,
+                        seed: int = 0, device: DeviceLike = None
+                        ) -> Dict[str, Any]:
+    """This rank's local pipeline tree (its stage, or its ``[vp, ...]``
+    chunk stack, and its tp shards on the current mesh) of
+    :func:`gpt_pipeline_params_numpy`, as ``cfg.dtype`` tensors on
+    ``device``: the schedules' ``params``."""
+    from apex_tpu_torch.convert import pipeline_params_from_numpy
+
+    return pipeline_params_from_numpy(
+        gpt_pipeline_params_numpy(cfg, pp, vp, seed), device,
+        dtype=cfg.dtype,
+        specs=gpt_pipeline_specs_tree(cfg, interleaved=vp is not None))
+
+
+def gpt_pipeline_specs_tree(cfg: GPTConfig, interleaved: bool = False
+                            ) -> Dict[str, Any]:
+    """Partition specs of :func:`gpt_pipeline_params_numpy` (JAX's): the
+    layer specs of :func:`gpt_param_specs` with the stage axis (``[pp]``,
+    or ``[vp, pp]``) in front."""
+    lead = (None, PP_AXIS) if interleaved else (PP_AXIS,)
+    base = gpt_param_specs(dataclasses.replace(cfg, tie_embeddings=False))
+    stages = {k: P(*lead, *spec) for k, spec in base["layers"].items()}
+    return {"embed": base["embed"], "stages": stages, "head": base["head"]}
+
+
+def gpt_pipeline_spec(cfg: GPTConfig, dropout: bool = False) -> PipelineSpec:
+    """The three pipeline functions (JAX's ``gpt_pipeline_spec``). With
+    ``dropout`` the embed and stage functions take the schedules'
+    per-microbatch key (``takes_dropout_key``) and apply cfg's dropout
+    rates; pass ``dropout_key=`` to the driver. The loss is the fused
+    LM head over the untied head rows where ``_use_fused_loss`` allows it
+    for the rows the kernel sees (the sequence gathered over tp under
+    ``megatron_sp``), else the unfused vocab-parallel loss."""
+    cfg.validate()
+    untied = dataclasses.replace(cfg, tie_embeddings=False)
+
+    if dropout:
+        def embed_fn(embed, tokens, key):
+            return _embed_with_dropout(embed, tokens, cfg, key)
+
+        def stage_fn(stage_layers, h, key):
+            return _layer_stack(stage_layers, h, cfg, dropout_key=key)
+    else:
+        def embed_fn(embed, tokens):
+            return embed_tokens(embed, tokens, megatron_sp=cfg.megatron_sp)
+
+        def stage_fn(stage_layers, h):
+            return _layer_stack(stage_layers, h, cfg)
+
+    def loss_fn(head, h, targets):
+        rows = h.shape[0] * h.shape[1]
+        if cfg.megatron_sp:
+            rows *= _tp()
+        if _use_fused_loss(cfg, rows, h.device):
+            return fused_head_loss(head["lm"].t(), head["ln_w"],
+                                   head["ln_b"], h, targets,
+                                   gather_sequence=cfg.megatron_sp)
+        logits = gpt_head({"head": head}, h, untied)
+        return vocab_parallel_cross_entropy(logits, targets).mean()
+
+    return PipelineSpec(embed_fn=embed_fn, stage_fn=stage_fn, loss_fn=loss_fn,
+                        stage_aux=bool(cfg.num_experts),
+                        takes_dropout_key=dropout)

@@ -55,9 +55,13 @@ are JAX's column / row-parallel layers, ``megatron_sp`` keeps (b, s/tp,
 h) shards between them, and over sp the attention is the ring, the
 self-attention's relative bias the ring's strip (this shard's rows
 against every global column, :func:`_rel_or_strip`), so the strip's
-gradient runs the d(bias) kernel with the chunk offsets. The pipeline
-functions (``t5_pipeline_params``, ``t5_pipeline_specs_tree``,
-``t5_enc_dec_spec``) are ROADMAP A7d.
+gradient runs the d(bias) kernel with the chunk offsets.
+
+The pipeline wiring (JAX's, for ``pipeline_parallel``'s encoder-decoder
+schedule): :func:`t5_pipeline_params_numpy` regroups the tree so every
+stage holds one encoder and one decoder chunk, :func:`t5_pipeline_params`
+cuts this rank's local tree from it, :func:`t5_pipeline_specs_tree` gives
+its specs and :func:`t5_enc_dec_spec` the five stage functions.
 """
 
 from __future__ import annotations
@@ -79,7 +83,10 @@ from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
-from apex_tpu_torch.parallel.mesh import SP_AXIS, TP_AXIS
+from apex_tpu_torch.parallel.mesh import PP_AXIS, SP_AXIS, TP_AXIS
+from apex_tpu_torch.transformer.pipeline_parallel.schedules.fwd_bwd_enc_dec import (  # noqa: E501
+    EncDecPipelineSpec,
+)
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     column_parallel_linear,
     row_parallel_linear,
@@ -93,6 +100,7 @@ from apex_tpu_torch.transformer.tensor_parallel.random import (
     attention_dropout_seed,
     checkpoint_saving,
     fold_in,
+    pipeline_stage_key,
     saved_product,
 )
 from apex_tpu_torch.transformer.tensor_parallel.utils import P
@@ -637,3 +645,171 @@ def t5_loss(params, enc_tokens, dec_tokens, targets, cfg: T5Config,
     x = _ln(x, head, "ln_w", "ln_b", cfg)
     return vocab_parallel_cross_entropy(
         tied_vocab_logits(x, tok, cfg.megatron_sp), targets).mean()
+
+
+# ---------------------------------------------------------------------------
+# pipeline wiring (the EncDecPipelineSpec contract)
+
+
+def _stage_extras(cfg: T5Config):
+    """Which stage-consumed extras become per-stage copies: the bias
+    tables (``"rel"``) and the encoder-final LayerNorm (on the decoder
+    side)."""
+    return cfg.relative_position_bias, cfg.encoder_final_ln
+
+
+def t5_pipeline_params_numpy(cfg: T5Config, pp: int, seed: int = 0
+                             ) -> Dict[str, Any]:
+    """:func:`init_t5_params_numpy` regrouped into the encoder-decoder
+    driver's layout (JAX's ``t5_pipeline_params``): ``{"embed",
+    "enc_stages" [pp, Le/pp, ...], "dec_stages" [pp, Ld/pp, ...],
+    "head"}``. The head gets its own LM rows (``lm_rows``, initialized
+    from the shared table: the loss head sees only the ``head`` group),
+    and the extras a stage consumes (the bias tables, the encoder-final
+    LN) become per-stage copies, initialized equal and dropped from the
+    embedding group."""
+    if cfg.enc_layers % pp or cfg.dec_layers % pp:
+        raise ValueError("enc_layers and dec_layers must be divisible by pp")
+    p = init_t5_params_numpy(cfg, seed)
+
+    def regroup(a, n):
+        return a.reshape((pp, n // pp) + a.shape[1:])
+
+    def tile(a):
+        return np.broadcast_to(a[None], (pp,) + a.shape).copy()
+
+    head = dict(p["head"], lm_rows=p["embed"]["tok"].copy())
+    enc = {k: regroup(v, cfg.enc_layers) for k, v in p["enc_layers"].items()}
+    dec = {k: regroup(v, cfg.dec_layers) for k, v in p["dec_layers"].items()}
+    embed = dict(p["embed"])
+    rel_on, final_ln = _stage_extras(cfg)
+    if rel_on:
+        enc = {"layers": enc, "rel": tile(embed.pop("rel_enc"))}
+        dec = {"layers": dec, "rel": tile(embed.pop("rel_dec"))}
+    if final_ln:
+        if not rel_on:
+            dec = {"layers": dec}
+        dec["enc_ln_w"] = tile(embed.pop("enc_ln_w"))
+        dec["enc_ln_b"] = tile(embed.pop("enc_ln_b"))
+    return {"embed": embed, "enc_stages": enc, "dec_stages": dec,
+            "head": head}
+
+
+def t5_pipeline_specs_tree(cfg: T5Config) -> Dict[str, Any]:
+    """Partition specs of :func:`t5_pipeline_params_numpy` (JAX's): the
+    layer specs with the stage axis in front, the head's rows over tp."""
+    specs = t5_param_specs(cfg)
+
+    def lead(layers):
+        return {k: P(PP_AXIS, *v) for k, v in layers.items()}
+
+    enc, dec = lead(specs["enc_layers"]), lead(specs["dec_layers"])
+    embed = dict(specs["embed"])
+    rel_on, final_ln = _stage_extras(cfg)
+    if rel_on:
+        rel = P(PP_AXIS, None, TP_AXIS)
+        enc, dec = {"layers": enc, "rel": rel}, {"layers": dec, "rel": rel}
+        del embed["rel_enc"], embed["rel_dec"]
+    if final_ln:
+        if not rel_on:
+            dec = {"layers": dec}
+        dec["enc_ln_w"] = dec["enc_ln_b"] = P(PP_AXIS, None)
+        del embed["enc_ln_w"], embed["enc_ln_b"]
+    return {"embed": embed, "enc_stages": enc, "dec_stages": dec,
+            "head": dict(specs["head"], lm_rows=P(TP_AXIS, None))}
+
+
+def t5_pipeline_params(cfg: T5Config, pp: int, seed: int = 0,
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """This rank's local tree (its encoder and decoder chunks, its tp
+    shards on the current mesh) of :func:`t5_pipeline_params_numpy`, as
+    ``cfg.dtype`` tensors on ``device``: the driver's ``params``."""
+    from apex_tpu_torch.convert import pipeline_params_from_numpy
+
+    return pipeline_params_from_numpy(
+        t5_pipeline_params_numpy(cfg, pp, seed), device, dtype=cfg.dtype,
+        specs=t5_pipeline_specs_tree(cfg))
+
+
+def t5_enc_dec_spec(cfg: T5Config, dropout: bool = False
+                    ) -> EncDecPipelineSpec:
+    """The encoder-decoder stage functions (JAX's ``t5_enc_dec_spec``).
+    With ``dropout`` they take the schedule's per-microbatch key: the
+    side salt (encoder 0, decoder 1, as ``t5_loss``) and the pp rank are
+    folded here (encoder and decoder chunks share a stage's rank, and
+    stage-local layer indices restart at 0), the embeddings draw
+    ``t5_encode`` / ``t5_decode``'s streams (salts 100 / 101). The loss
+    is JAX's pipeline head: LN, the untied LM rows' logits and the
+    vocab-parallel cross-entropy."""
+    cfg.validate()
+    rel_on = cfg.relative_position_bias
+
+    def stage_key(key, side: int):
+        return None if key is None else pipeline_stage_key(fold_in(key, side))
+
+    def seq_len(h):
+        return h.shape[1] * (axis_info(TP_AXIS)[1] if cfg.megatron_sp else 1)
+
+    def enc_embed(embed, tokens, key=None):
+        x = _embed(embed, tokens, None if rel_on else embed["pos_enc"],
+                   cfg.megatron_sp)
+        return _maybe_hidden_dropout(x, cfg, _fold(key, 100), 0)
+
+    def enc_stage(stage, h, key=None):
+        dk = stage_key(key, 0)
+        if rel_on:
+            rel = _rel_or_strip(stage["rel"], seq_len(h), bidirectional=True,
+                                cfg=cfg)
+            return _scan_layers(
+                lambda lp, x, r, k: enc_layer_fn(lp, x, cfg, r, k),
+                stage["layers"], h, cfg, rel, dropout_key=dk)
+        return _scan_layers(
+            lambda lp, x, k: enc_layer_fn(lp, x, cfg, None, k), stage, h,
+            cfg, dropout_key=dk)
+
+    def dec_embed(embed, tokens, key=None):
+        x = _embed(embed, tokens, None if rel_on else embed["pos_dec"],
+                   cfg.megatron_sp)
+        return _maybe_hidden_dropout(x, cfg, _fold(key, 101), 0)
+
+    def dec_stage(stage, h, mem, key=None):
+        dk = stage_key(key, 1)
+        if cfg.encoder_final_ln:
+            # every stage normalizes the broadcast memory with its copy
+            # of the encoder-final LN: the sequential model's one LN
+            mem = _ln(mem, stage, "enc_ln_w", "enc_ln_b", cfg)
+        if rel_on:
+            rel = _rel_or_strip(stage["rel"], seq_len(h),
+                                bidirectional=False, cfg=cfg)
+            return _scan_layers(
+                lambda lp, x, m, r, k: dec_layer_fn(lp, x, m, cfg, r, k),
+                stage["layers"], h, cfg, mem, rel, dropout_key=dk)
+        layers = stage["layers"] if cfg.encoder_final_ln else stage
+        return _scan_layers(
+            lambda lp, x, m, k: dec_layer_fn(lp, x, m, cfg, None, k),
+            layers, h, cfg, mem, dropout_key=dk)
+
+    if dropout:
+        enc_embed_fn, dec_embed_fn = enc_embed, dec_embed
+        enc_stage_fn, dec_stage_fn = enc_stage, dec_stage
+    else:
+        def enc_embed_fn(embed, tokens):
+            return enc_embed(embed, tokens)
+
+        def dec_embed_fn(embed, tokens):
+            return dec_embed(embed, tokens)
+
+        def enc_stage_fn(stage, h):
+            return enc_stage(stage, h)
+
+        def dec_stage_fn(stage, h, mem):
+            return dec_stage(stage, h, mem)
+
+    def loss_fn(head, h, targets):
+        x = _ln(h, head, "ln_w", "ln_b", cfg)
+        logits = tied_vocab_logits(x, head["lm_rows"], cfg.megatron_sp)
+        return vocab_parallel_cross_entropy(logits, targets).mean()
+
+    return EncDecPipelineSpec(enc_embed_fn, enc_stage_fn, dec_embed_fn,
+                              dec_stage_fn, loss_fn,
+                              takes_dropout_key=dropout)

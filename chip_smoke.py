@@ -329,13 +329,38 @@
    d(bias) tiled) against one dense call with the same seed; a chunk's
    kernel times with offsets set beside offsets 0.
 21. ``tp`` and ``t5_tp`` (tensor and sequence parallelism, A7c): GPT-2
-   (plain tp with the unfused vocab-parallel head, ``megatron_sp``, with
-   ``overlap_comm``, the fused vocab-parallel LM head) and T5-small (tp,
-   ``megatron_sp``) through the tp layers on a one-rank NCCL group,
-   TP_STEPS (5) steps each beside the same steps without a mesh: losses
-   and every parameter bitwise, the same kernel launches; step, host and
-   busy ms and the collectives a step (none cross a one-rank axis).
-22. Prints detail lines, the wall seconds of each phase (and of each
+   (``megatron_sp``, the fused vocab-parallel LM head) and T5-small
+   (``megatron_sp``) through the tp layers on a one-rank NCCL group,
+   TP_STEPS (3) steps each, held to the train / t5_train phase's run
+   without a mesh (same seed and batch; its parameters kept after those
+   steps): losses and every parameter bitwise, the same kernel launches;
+   step, host and busy ms and the collectives a step (none cross a
+   one-rank axis).
+22. ``pipeline`` (A7d.1): GPT-2-124M bf16 at 8 x 1024 (untied head,
+   fused LM-head loss) through ``forward_backward_no_pipelining``, 1F1B
+   with and without the stage remat and the interleaved schedule (vp 2,
+   chunks of 6 layers), M = 4, ``FusedAdam(lr=1e-4)`` after the driver,
+   TP_STEPS steps each on a one-rank NCCL group
+   (``initialize_model_parallel(pp=1)``), beside the plain ``gpt_loss``
+   step over the whole batch from the same weights: every step's loss
+   within PIPE_LOSS_RTOL (4e-4), the first step's gradients within
+   BF16_GRAD_NORM_RTOL in norm; each kernel's launches a step equal to
+   ``gpt_pipeline_launches`` (in M, L, vp and the remat), no
+   plain-version call, 0 synchronizing calls a step; the stage remat's
+   peak memory below 1F1B's without it; one fp32 step of every run
+   within 1e-5 (loss and every gradient leaf) of the plain step. Step,
+   host and busy ms and peak memory of each run.
+23. ``t5_pipeline``: T5-small (the t5_train phase's config and batch)
+   through ``forward_backward_pipelining_enc_dec`` at pp = 1, M = 4,
+   with and without the stage remat, the same checks
+   (``t5_pipeline_launches``; the first loss beside ``t5_loss``'s, the
+   steps, gradients and the fp32 steps, no-pipelining's too, beside the
+   same functions over the whole batch). At one rank
+   the hops and the pp sums issue no collective: phases 22-23 show the
+   schedules' device work (microbatching, the stage remat, the launch
+   order), not the wire; pp > 1 is held to JAX on the CPU in ``gloo``
+   (``tests/test_torch_pipeline_*.py``).
+24. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -4060,7 +4085,10 @@ def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
     if launches != TRAIN_LAUNCHES:
         raise AssertionError(f"train step launches {launches}, expected "
                              f"{TRAIN_LAUNCHES}")
-    losses += [step() for _ in range(steps - 1)]
+    losses += [step() for _ in range(TP_STEPS - 1)]
+    # the no-mesh run the tp phase holds its variants to, bitwise
+    after_tp_steps = {k: p.detach().clone() for k, p in named_leaves(params)}
+    losses += [step() for _ in range(steps - TP_STEPS)]
     losses = torch.stack(losses)
     vals = losses.tolist()
     if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
@@ -4096,7 +4124,8 @@ def train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
         "mfu_6n": 6 * n_params * tokens_per_s / PEAK_OPS_PER_S["bfloat16"],
         "mfu_bench_py": (6 * n_params + 6 * cfg.num_layers * cfg.hidden * seq)
         * tokens_per_s / PEAK_OPS_PER_S["bfloat16"],
-        "peak_mem_gib": peak_gib, "profile_3_steps": prof})
+        "peak_mem_gib": peak_gib, "profile_3_steps": prof,
+        "_leaves_after_tp_steps": after_tp_steps})
     return result
 
 
@@ -4211,7 +4240,9 @@ def t5_train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
     if launches != T5_LAUNCHES:
         raise AssertionError(f"T5 train step launches {launches}, expected "
                              f"{T5_LAUNCHES}")
-    losses += [step() for _ in range(steps - 1)]
+    losses += [step() for _ in range(TP_STEPS - 1)]
+    after_tp_steps = {k: p.detach().clone() for k, p in named_leaves(params)}
+    losses += [step() for _ in range(steps - TP_STEPS)]
     losses = torch.stack(losses)
     vals = losses.tolist()
     if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
@@ -4243,7 +4274,8 @@ def t5_train_phase(torch, dev, ku, steps: int = 10, timed_steps: int = 10):
         "bitwise_repeat": True, "tokens_per_s": tokens_per_s,
         "step_ms_p50": sorted(durs)[len(durs) // 2] * 1e3,
         "step_ms": [d * 1e3 for d in durs],
-        "peak_mem_gib": peak_gib, "profile_3_steps": prof})
+        "peak_mem_gib": peak_gib, "profile_3_steps": prof,
+        "_leaves_after_tp_steps": after_tp_steps})
     return result
 
 
@@ -7264,22 +7296,19 @@ RING_RATE = 0.1
 RING_SEED = 1234
 RING_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
 LM_SHARD_VOCAB = 50304 // 2        # V_local of GPT-2's vocab over tp = 2
-TP_STEPS = 5
+# steps of each tp and pipeline run; the train and t5_train phases keep
+# their parameters after this many steps for the tp phases
+TP_STEPS = DDP_STEPS
 TP_TIMED = 3
 TP_PATH = ("GPT-2-124M bf16, 8 x 1024, full remat, FusedAdam(lr=1e-4), "
            "through the tp layers on a one-rank NCCL group (tp = sp = 1)")
 T5_TP_PATH = ("T5-small (relative bias, encoder-final LN) bf16, 8 x 512 / "
               "128, FusedAdam(lr=1e-4), through the tp layers on a one-rank "
               "NCCL group (tp = sp = 1)")
-# variant -> (GPTConfig fields, the fields of the run without tp beside it)
-TP_VARIANTS = {
-    "tp": (dict(fused_loss=False), dict(fused_loss=False)),
-    "megatron_sp": (dict(megatron_sp=True), {}),
-    "megatron_sp+overlap_comm": (dict(megatron_sp=True, overlap_comm=True),
-                                 {}),
-    "lm_head_tp": ({}, {}),
-}
-T5_TP_VARIANTS = {"tp": {}, "megatron_sp": dict(megatron_sp=True)}
+# variant -> GPTConfig fields; each is held to the train phase's run of
+# GPTConfig() (no mesh), as T5's to the t5_train phase's
+TP_VARIANTS = {"megatron_sp": dict(megatron_sp=True), "lm_head_tp": {}}
+T5_TP_VARIANTS = {"megatron_sp": dict(megatron_sp=True)}
 
 
 def lm_head_shard_phase(torch, dev):
@@ -7555,19 +7584,31 @@ def tp_run(torch, ku, build, steps: int, timed: int):
             "device_idle_share": prof["device_idle_share"]}
 
 
+def no_mesh_base(train, steps: int = TP_STEPS):
+    """The train / t5_train phase's run (no mesh, seed 0, the same batch)
+    as a tp phase's base: its first ``steps`` losses, its parameters after
+    them, its first step's launches and its times."""
+    prof = train["profile_3_steps"]
+    return {"losses": train["losses"][:steps],
+            "leaves": train.pop("_leaves_after_tp_steps"),
+            "launches": train["launches_per_step"],
+            "step_ms_p50": train["step_ms_p50"],
+            "device_busy_ms": prof["device_busy_ms"] / 3,
+            "device_idle_share": prof["device_idle_share"]}
+
+
 def tp_record(run, base):
     """The printed / recorded numbers of a :func:`tp_run` beside the run
-    without tp: losses and every leaf bitwise."""
+    without a mesh: losses and every leaf bitwise, the same launches."""
     p50 = lambda d: sorted(d)[len(d) // 2]
     vals = run["losses"].tolist()
     if not all(math.isfinite(x) for x in vals) or not vals[-1] < vals[0]:
         raise AssertionError(f"tp run's loss did not fall: {vals}")
-    bitwise_loss = torch_equal(run["losses"], base["losses"])
     bad = [k for k in base["leaves"]
            if not torch_equal(run["leaves"][k], base["leaves"][k])]
-    if not bitwise_loss or bad:
+    if vals != base["losses"] or bad:
         raise AssertionError(f"tp run differs from the run without tp: "
-                             f"losses {vals} vs {base['losses'].tolist()}, "
+                             f"losses {vals} vs {base['losses']}, "
                              f"leaves {bad[:4]}")
     if run["launches"] != base["launches"]:
         raise AssertionError(f"tp run launches {run['launches']} differ "
@@ -7586,17 +7627,17 @@ def torch_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
 
-def tp_phase(torch, dev, ku, steps: int = TP_STEPS, timed: int = TP_TIMED):
+def tp_phase(torch, dev, ku, train, steps: int = TP_STEPS,
+             timed: int = TP_TIMED):
     """GPT-2-124M bf16 at 8 x 1024, full width and depth, through the tp
     layers on a one-rank NCCL group, TP_STEPS steps of each of
-    TP_VARIANTS: plain tp (the unfused vocab-parallel head), megatron_sp,
-    megatron_sp + overlap_comm, and the fused vocab-parallel LM head
-    (``lm_head_loss(axis_name="tp")``); each beside the same steps without
-    a mesh (no tp). At one rank every mapping, ring and the head's merge
-    is the identity, so the variants run the arithmetic of the run without
-    tp: losses and every parameter after the steps are held bitwise and
-    the first step's kernel launches equal the run without tp's. The
-    first step's collectives are recorded (none cross a one-rank axis)."""
+    TP_VARIANTS: megatron_sp and the fused vocab-parallel LM head
+    (``lm_head_loss(axis_name="tp")``). At one rank every mapping, ring
+    and the head's merge is the identity, so each runs the arithmetic of
+    the run without a mesh, which the train phase made (seed 0, the same
+    batch): losses and every parameter after the steps are held bitwise
+    to it and the first step's kernel launches equal its. The first
+    step's collectives are recorded (none cross a one-rank axis)."""
     from apex_tpu_torch.transformer.testing import (GPTConfig,
                                                     build_train_step)
 
@@ -7606,42 +7647,31 @@ def tp_phase(torch, dev, ku, steps: int = TP_STEPS, timed: int = TP_TIMED):
                                                  device=dev, seed=0)
         return step, params
 
+    base = no_mesh_base(train, steps)
     result = {"path": TP_PATH, "steps": steps, "variants": {},
-              "no_tp": {}}
+              "no_tp": {k: base[k] for k in (
+                  "losses", "step_ms_p50", "device_busy_ms",
+                  "device_idle_share", "launches")}}
     with OneRankGroup(torch, dev) as group:
         result["backend"] = group.backend
-        bases = {}
-        for name, (fields, base_fields) in TP_VARIANTS.items():
-            key = tuple(sorted(base_fields.items()))
-            if key not in bases:
-                _mesh_state(torch, False)
-                bases[key] = tp_run(torch, ku, lambda: build(base_fields),
-                                    steps, timed)
-                p50 = lambda d: sorted(d)[len(d) // 2]
-                result["no_tp"][str(dict(key))] = {
-                    "losses": bases[key]["losses"].tolist(),
-                    "step_ms_p50": p50(bases[key]["step_ms"]),
-                    "host_ms_p50": p50(bases[key]["host_ms"]),
-                    "device_busy_ms": bases[key]["device_busy_ms"],
-                    "device_idle_share": bases[key]["device_idle_share"],
-                    "launches_first_step": bases[key]["launches"]}
+        for name, fields in TP_VARIANTS.items():
             _mesh_state(torch, True)
             run = tp_run(torch, ku, lambda: build(fields), steps, timed)
-            result["variants"][name] = tp_record(run, bases[key])
+            result["variants"][name] = tp_record(run, base)
             del run
         _mesh_state(torch, False)
-        del bases
-        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
     return result
 
 
-def t5_tp_phase(torch, dev, ku, steps: int = TP_STEPS,
+def t5_tp_phase(torch, dev, ku, t5_train, steps: int = TP_STEPS,
                 timed: int = TP_TIMED):
     """T5-small bf16 (the t5_train phase's config and batch) through the tp
-    layers on a one-rank NCCL group, TP_STEPS steps of plain tp and of
-    megatron_sp, each beside the same steps without a mesh: losses and
-    every parameter bitwise, the same kernel launches (the relative bias
-    through flash's bias path and d(bias))."""
+    layers under megatron_sp on a one-rank NCCL group, TP_STEPS steps,
+    held to the t5_train phase's run without a mesh: losses and every
+    parameter bitwise, the same kernel launches (the relative bias through
+    flash's bias path and d(bias))."""
     import dataclasses
 
     from apex_tpu_torch.transformer.testing import build_t5_train_step
@@ -7652,27 +7682,506 @@ def t5_tp_phase(torch, dev, ku, steps: int = TP_STEPS,
                                                  T5_DEC, device=dev, seed=0)
         return step, params
 
-    result = {"path": T5_TP_PATH, "steps": steps, "variants": {}}
+    base = no_mesh_base(t5_train, steps)
+    result = {"path": T5_TP_PATH, "steps": steps, "variants": {},
+              "no_tp": {k: base[k] for k in (
+                  "losses", "step_ms_p50", "device_busy_ms",
+                  "device_idle_share", "launches")}}
     with OneRankGroup(torch, dev) as group:
         result["backend"] = group.backend
-        _mesh_state(torch, False)
-        base = tp_run(torch, ku, lambda: build({}), steps, timed)
-        p50 = lambda d: sorted(d)[len(d) // 2]
-        result["no_tp"] = {"losses": base["losses"].tolist(),
-                           "step_ms_p50": p50(base["step_ms"]),
-                           "host_ms_p50": p50(base["host_ms"]),
-                           "device_busy_ms": base["device_busy_ms"],
-                           "device_idle_share": base["device_idle_share"],
-                           "launches_first_step": base["launches"]}
         for name, fields in T5_TP_VARIANTS.items():
             _mesh_state(torch, True)
             run = tp_run(torch, ku, lambda: build(fields), steps, timed)
             result["variants"][name] = tp_record(run, base)
             del run
         _mesh_state(torch, False)
-        del base
-        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
     return result
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism (one rank: the schedules' device work, not the wire)
+
+PIPE_M = 4
+PIPE_LR = 1e-4
+PIPE_PATH = ("GPT-2-124M bf16, 8 x 1024, full remat, fused LM-head loss, "
+             "untied head, FusedAdam(lr=1e-4), through the pipeline "
+             "schedules on a one-rank NCCL group "
+             "(initialize_model_parallel(pp=1)), M = 4")
+T5_PIPE_PATH = ("T5-small (relative bias, encoder-final LN) bf16, 8 x 512 / "
+                "128, FusedAdam(lr=1e-4), through "
+                "forward_backward_pipelining_enc_dec on a one-rank NCCL "
+                "group (pp = 1), M = 4")
+# run -> (schedule, virtual pipeline size, stage remat)
+PIPE_RUNS = {"no_pipelining": ("none", None, False),
+             "1f1b": ("1f1b", None, True),
+             "1f1b_no_remat": ("1f1b", None, False),
+             "interleaved_vp2": ("interleaved", 2, True)}
+T5_PIPE_RUNS = {"enc_dec": True, "enc_dec_no_remat": False}
+# every run's fp32 first step against the plain step's: JAX's step gate
+PIPE_FP32_RTOL = 1e-5
+# every bf16 step's loss against the plain step's: 4x the largest gap
+# measured over three steps (1.04e-4 on an H100 80GB HBM3 at 700 W; the
+# first step, from the same weights, agreed bitwise)
+PIPE_LOSS_RTOL = 4e-4
+
+
+def gpt_pipeline_launches(M, L, vp, remat, leaves):
+    """Kernel launches of one GPT pipeline step at pp = 1: each of the M
+    microbatches runs its L layers forward (LN 2, flash 1 a layer), each
+    layer's remat replays them in backward, the head's LN and the fused LM
+    head once; with the stage remat the stage's recompute replays each of
+    its vp chunks up to the input of the chunk's last layer (a
+    non-reentrant checkpoint stops once the tensors backward reads are
+    back: L - vp layers); one Adam tail a leaf."""
+    replay = L - (vp or 1) if remat else 0
+    return {"layer_norm_fwd": M * (4 * L + 1 + 2 * replay),
+            "layer_norm_bwd": M * (2 * L + 1),
+            "flash_mma_fwd": M * (2 * L + replay),
+            "flash_mma_bwd_dq": M * L, "flash_mma_bwd_dkv": M * L,
+            "lm_head_mma_fwd": M, "lm_head_mma_bwd_dx": M,
+            "lm_head_mma_bwd_dw": M, "fused_adam_tail": leaves}
+
+
+def t5_pipeline_launches(M, le, ld, remat, leaves):
+    """Kernel launches of one T5 enc-dec pipeline step at pp = 1: per
+    microbatch the t5_train table's layers (LN 2 an encoder and 3 a
+    decoder layer, flash 1 a self- and 1 a cross-attention, each replayed
+    by the layer remat; the encoder-final LN at the decoder stage's entry
+    and the head's LN, JAX's unfused pipeline head: no LM-head kernel);
+    the stage remat replays each stage up to its last layer's input (and
+    the encoder-final LN); one Adam tail a leaf."""
+    re_, rd = (le - 1, ld - 1) if remat else (0, 0)
+    return {"layer_norm_fwd": M * (4 * le + 6 * ld + 2 + 2 * re_ + 3 * rd
+                                   + (1 if remat else 0)),
+            "layer_norm_bwd": M * (2 * le + 3 * ld + 2),
+            "flash_mma_fwd": M * (2 * le + 4 * ld + re_ + 2 * rd),
+            "flash_mma_fwd[bias]": M * (2 * le + 2 * ld + re_ + rd),
+            "flash_mma_bwd_dq": M * (le + 2 * ld),
+            "flash_mma_bwd_dq[bias]": M * (le + ld),
+            "flash_mma_bwd_dkv": M * (le + 2 * ld),
+            "flash_mma_bwd_dkv[bias]": M * (le + ld),
+            "flash_mma_bwd_dbias": M * (le + ld), "fused_adam_tail": leaves}
+
+
+def plain_kernel_calls():
+    """The training kernels' plain versions, wherever the paths look them
+    up (the pipeline runs on the card must make none)."""
+    import importlib
+
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.ops import fused_update
+
+    att = importlib.import_module("apex_tpu_torch.ops.attention")
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+    lm = importlib.import_module("apex_tpu_torch.ops.lm_head_loss")
+    return PlainCalls(
+        [(att, n) for n in ("flash_attention_fwd_reference",
+                            "flash_attention_bwd_reference",
+                            "flash_attention_bwd_dbias_reference",
+                            "attention_reference")]
+        + [(ln, n) for n in ("layer_norm_fwd_reference",
+                             "layer_norm_bwd_reference")]
+        + [(lm, n) for n in ("lm_head_loss_fwd_reference",
+                             "lm_head_loss_bwd_reference")]
+        + [(fused_update, "adam_tail_reference"),
+           (fused_adam, "adam_tail_reference")])
+
+
+def pipe_train_step(torch, drive, params, opt, leaves):
+    """One step: ``drive()`` -> (loss, grads), the grads set as the
+    leaves' ``.grad``, the optimizer's update; the loss."""
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    def step():
+        loss, grads = drive()
+        for p, g in zip(leaves, tree_leaves(grads)):
+            p.grad = g
+        opt.step()
+        return loss
+    return step
+
+
+def pipe_grads(params):
+    """The gradients the last step set, by leaf name (the plain GPT tree's
+    ``layers.`` named ``stages.`` as in the pipeline tree), copied to the
+    host so that they take no room in the runs' peak memory."""
+    from apex_tpu_torch.convert import named_leaves
+
+    return {k.replace("layers.", "stages.", 1): p.grad.detach().cpu()
+            for k, p in named_leaves(params)}
+
+
+def pipe_run(torch, ku, build, steps: int = TP_STEPS,
+             timed: int = TP_TIMED):
+    """``steps`` steps of ``build()``'s step from seed 0: the first step's
+    launches and plain-version calls (counts reset just before it, read
+    just after) and gradients, the synchronizing calls and peak memory of
+    the last, the losses; then ``timed`` timed steps and a profiled
+    one."""
+    step, params = build()
+    with plain_kernel_calls() as plain:
+        ku.reset_launch_counts()
+        losses = [step()]
+        torch.cuda.synchronize()
+        launches = ku.launch_counts()
+    grads0 = pipe_grads(params)
+    losses += [step() for _ in range(steps - 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs = count_syncs(torch, lambda: losses.append(step()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hosts = []
+    walls = timed_steps_of(torch, step, timed, hosts)
+    prof = profiled(torch, step)
+    del step, params
+    torch.cuda.empty_cache()
+    p50 = lambda d: sorted(d)[len(d) // 2]
+    return {"losses": torch.stack(losses).tolist(), "grads0": grads0,
+            "launches": launches, "plain_calls": plain.calls,
+            "syncs_per_step": syncs, "peak_mem_gib": peak,
+            "step_ms_p50": p50(walls) * 1e3,
+            "host_ms_p50": p50(hosts) * 1e3,
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "top": prof["top"][:8]}
+
+
+def grad_rel_errs(torch, grads, base):
+    """Each leaf's gradient beside the plain step's, in norm (the leaf
+    reshaped to the plain one's: the interleaved chunk stack is the
+    layer stack cut in vp)."""
+    if set(grads) != set(base):
+        raise AssertionError(f"gradient leaves {sorted(grads)} vs the plain "
+                             f"step's {sorted(base)}")
+    rel = {}
+    for k, b in base.items():
+        a = grads[k].float().reshape(b.shape)
+        b = b.float()
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"{k}: non-finite gradient")
+        rel[k] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+    return rel
+
+
+def pipe_checks(torch, what, run, base, want, loss_base=None):
+    """A pipeline run beside the plain step: every step's loss within
+    PIPE_LOSS_RTOL, the first step's gradients (the same weights) within
+    BF16_GRAD_NORM_RTOL in norm, the launches the formula's, no
+    plain-version call, no synchronizing call, a falling loss. Returns
+    the worst leaf's gradient error."""
+    vals = run["losses"]
+    if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+        raise AssertionError(f"{what}: loss did not fall: {vals}")
+    for i, (a, b) in enumerate(zip(vals, loss_base or base["losses"])):
+        if not abs(a - b) <= PIPE_LOSS_RTOL * abs(b):
+            raise AssertionError(f"{what}: step {i} loss {a} vs the plain "
+                                 f"step's {b} (rtol {PIPE_LOSS_RTOL})")
+    rel = grad_rel_errs(torch, run.pop("grads0"), base["grads0"])
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= BF16_GRAD_NORM_RTOL:
+        raise AssertionError(f"{what}: first step's {worst} gradient "
+                             f"{rel[worst]:.3e} from the plain step's "
+                             f"(limit {BF16_GRAD_NORM_RTOL})")
+    if run["launches"] != want:
+        raise AssertionError(f"{what}: launches {run['launches']}, the "
+                             f"formula gives {want}")
+    if run["plain_calls"]:
+        raise AssertionError(f"{what}: {run['plain_calls']} plain-version "
+                             f"calls")
+    if run["syncs_per_step"]:
+        raise AssertionError(f"{what}: {run['syncs_per_step']} "
+                             f"synchronizing calls a step")
+    return rel[worst]
+
+
+def pipe_record(run, extra=None):
+    return {k: run[k] for k in (
+        "losses", "launches", "syncs_per_step", "peak_mem_gib", "step_ms_p50",
+        "host_ms_p50", "device_busy_ms", "device_idle_share",
+        "top")} | (extra or {})
+
+
+def pipe_fp32_gate(torch, what, runs):
+    """One fp32 step of each of ``runs`` (name -> ``(make_params,
+    drive)``, ``drive(params) -> (loss, grads)``; the first the plain
+    step over the whole batch) from the same weights: every other run's
+    loss and every gradient leaf (in norm) within PIPE_FP32_RTOL of the
+    plain step's, JAX's step gate. Returns the plain loss and each run's
+    loss and errors."""
+    from apex_tpu_torch.convert import named_leaves
+
+    base, out = None, {"rtol": PIPE_FP32_RTOL, "runs": {}}
+    for run, (make_params, drive) in runs.items():
+        params = make_params()
+        loss, grads = drive(params)
+        got = {k.replace("layers.", "stages.", 1): g
+               for k, g in named_leaves(grads)}
+        del params, grads
+        if base is None:
+            base, out["loss_plain"] = got, float(loss)
+            continue
+        rel = grad_rel_errs(torch, got, base)
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(float(loss) - out["loss_plain"]) / abs(
+            out["loss_plain"])
+        if not (loss_rel <= PIPE_FP32_RTOL and rel[worst] <= PIPE_FP32_RTOL):
+            raise AssertionError(f"{what} {run}: fp32 step vs the plain "
+                                 f"step: loss rel {loss_rel:.2e}, worst leaf "
+                                 f"{worst} {rel[worst]:.2e}")
+        out["runs"][run] = {"loss": float(loss), "loss_rel": loss_rel,
+                            "worst_leaf": worst,
+                            "worst_leaf_rel": rel[worst]}
+        del got
+        torch.cuda.empty_cache()
+    return out
+
+
+def spec_step(spec):
+    """A PipelineSpec's three functions composed over one microbatch (the
+    no-pipelining step function; the whole model is one stage)."""
+    def fwd(p, mb):
+        h = spec.stage_fn(p["stages"], spec.embed_fn(p["embed"], mb[0]))
+        return spec.loss_fn(p["head"], h, mb[1])
+    return fwd
+
+
+def pipeline_phase(torch, dev, ku):
+    """GPT-2-124M bf16 at 8 x 1024 (``GPTConfig()``, the untied head the
+    pipeline needs) through the schedules on a one-rank NCCL group
+    (``initialize_model_parallel(pp=1)``), TP_STEPS steps of each of
+    PIPE_RUNS with ``FusedAdam(lr=1e-4)`` after the driver, M = 4, beside
+    the plain ``gpt_loss`` step over the whole batch from the same
+    weights: every step's loss within PIPE_LOSS_RTOL, the first step's
+    gradients within BF16_GRAD_NORM_RTOL, launches a step equal to
+    :func:`gpt_pipeline_launches`, no plain-version call, 0 synchronizing
+    calls a step; the stage remat's peak memory below 1F1B's without it;
+    one fp32 step of every run within PIPE_FP32_RTOL of the plain
+    ``gpt_loss`` step (loss and every gradient leaf). At one rank the
+    hops and the pp sums issue no collective: this is the schedules'
+    device work (microbatching, the stage remat, the launch order), not
+    the wire."""
+    import dataclasses
+
+    from apex_tpu_torch.convert import pipeline_params_from_numpy
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers._common import tree_unflatten
+    from apex_tpu_torch.transformer import parallel_state
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules as sch
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules.common import (
+        trainable_leaves,
+    )
+    from apex_tpu_torch.transformer.testing import (GPTConfig, gpt_loss,
+                                                    gpt_pipeline_params_numpy,
+                                                    gpt_pipeline_spec,
+                                                    gpt_pipeline_specs_tree)
+
+    tok, tgt = (t.to(dev) for t in _gpt_batch(torch, GPTConfig().vocab_size,
+                                              DDP_BATCH, DDP_SEQ))
+
+    def model(cfg):
+        """The config's spec and its run's drivers: run -> ``(make_params,
+        drive)``, ``drive(params) -> (loss, grads)``, the plain
+        ``gpt_loss`` step first."""
+        untied = dataclasses.replace(cfg, tie_embeddings=False)
+        tree = gpt_pipeline_params_numpy(cfg, 1, seed=0)
+        spec, L = gpt_pipeline_spec(cfg), cfg.num_layers
+
+        def local_tree(vp):
+            t = tree
+            if vp:
+                t = dict(tree, stages={k: v.reshape((vp, 1, L // vp)
+                                                    + v.shape[2:])
+                                       for k, v in tree["stages"].items()})
+            return pipeline_params_from_numpy(
+                t, dev, cfg.dtype,
+                specs=gpt_pipeline_specs_tree(cfg, interleaved=bool(vp)))
+
+        def plain_params():
+            p = local_tree(None)
+            return {"embed": p["embed"], "layers": p["stages"],
+                    "head": p["head"]}
+
+        def plain(params):
+            leaves = trainable_leaves(params)
+            loss = gpt_loss(params, tok, tgt, untied)
+            grads = torch.autograd.grad(loss, leaves)
+            return loss.detach(), tree_unflatten(params, list(grads))
+
+        runs = {"plain": (plain_params, plain)}
+        for run, (kind, vp, remat) in PIPE_RUNS.items():
+            kw = dict(num_microbatches=PIPE_M)
+            if kind == "none":
+                def drive(params, kw=kw):
+                    return sch.forward_backward_no_pipelining(
+                        spec_step(spec), (tok, tgt), params, **kw)
+            elif kind == "1f1b":
+                def drive(params, kw=kw, remat=remat):
+                    return sch.forward_backward_pipelining_without_interleaving(
+                        spec, params, (tok, tgt), remat=remat, **kw)
+            else:
+                def drive(params, kw=kw, vp=vp, remat=remat):
+                    return sch.forward_backward_pipelining_with_interleaving(
+                        spec, params, (tok, tgt), virtual_pipeline_size=vp,
+                        remat=remat, **kw)
+            runs[run] = (lambda vp=vp: local_tree(vp), drive)
+        return runs
+
+    def build(make_params, drive):
+        def make():
+            params = make_params()
+            leaves = trainable_leaves(params)
+            opt = FusedAdam(leaves, lr=PIPE_LR)
+            return pipe_train_step(torch, lambda: drive(params), params, opt,
+                                   leaves), params
+        return make
+
+    L = GPTConfig().num_layers
+    result = {"path": PIPE_PATH, "steps": TP_STEPS, "M": PIPE_M, "runs": {}}
+    with OneRankGroup(torch, dev) as group:
+        result["backend"] = group.backend
+        parallel_state.destroy_model_parallel()
+        parallel_state.initialize_model_parallel(1, 1)
+        result["fp32_check"] = pipe_fp32_gate(
+            torch, "pipeline", model(GPTConfig(dtype=torch.float32)))
+        runs = model(GPTConfig())
+        plain = pipe_run(torch, ku, build(*runs.pop("plain")))
+        n_leaves = len(plain["grads0"])
+        for run, (kind, vp, remat) in PIPE_RUNS.items():
+            r = pipe_run(torch, ku, build(*runs[run]))
+            want = gpt_pipeline_launches(PIPE_M, L, vp,
+                                         remat and kind != "none", n_leaves)
+            worst = pipe_checks(torch, f"pipeline {run}", r, plain, want)
+            result["runs"][run] = pipe_record(r, {
+                "grads_worst_rel": worst, "launches_formula": want})
+            del r
+        result["plain"] = pipe_record(plain)
+        parallel_state.destroy_model_parallel()
+    runs = result["runs"]
+    if not runs["1f1b"]["peak_mem_gib"] < runs["1f1b_no_remat"]["peak_mem_gib"]:
+        raise AssertionError(f"the stage remat's peak "
+                             f"{runs['1f1b']['peak_mem_gib']:.3f} GiB is not "
+                             f"below 1F1B's without it "
+                             f"{runs['1f1b_no_remat']['peak_mem_gib']:.3f}")
+    del plain
+    torch.cuda.empty_cache()
+    return result
+
+
+def t5_pipeline_phase(torch, dev, ku, t5_train):
+    """T5-small bf16 (the t5_train phase's config and batch) through
+    ``forward_backward_pipelining_enc_dec`` at pp = 1 on a one-rank NCCL
+    group, M = 4, with and without the stage remat, TP_STEPS steps with
+    ``FusedAdam(lr=1e-4)``: the first loss within PIPE_LOSS_RTOL of
+    ``t5_loss``'s (the t5_train phase's run from the same seed and batch);
+    every step's loss and the first step's gradients beside the same
+    functions run over the whole batch in one pass (the pipeline tree
+    unties the LM rows and copies the bias tables and the encoder-final
+    LN into the stages, so after an update it is another model than
+    ``t5_loss``'s); launches as :func:`t5_pipeline_launches`, no
+    plain-version call, 0 synchronizing calls, the remat's peak below the
+    run without it; one fp32 step of no-pipelining (M = 4) and of both
+    enc-dec runs within PIPE_FP32_RTOL of the whole-batch pass."""
+    import numpy as np
+
+    from apex_tpu_torch.convert import pipeline_params_from_numpy
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer import parallel_state
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules as sch
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules.common import (
+        trainable_leaves,
+    )
+    from apex_tpu_torch.transformer.testing import (t5_enc_dec_spec,
+                                                    t5_pipeline_params_numpy,
+                                                    t5_pipeline_specs_tree)
+
+    def batch_on(dev_):
+        """``build_t5_train_step``'s batch: numpy seed 1, encoder tokens
+        then decoder tokens, targets rolled by one."""
+        vocab = t5_config(torch.bfloat16).vocab_size
+        rng = np.random.default_rng(1)
+        enc = torch.from_numpy(rng.integers(0, vocab, (T5_BATCH, T5_ENC)))
+        dec = torch.from_numpy(rng.integers(0, vocab, (T5_BATCH, T5_DEC)))
+        return tuple(t.to(dev_) for t in (enc, dec, torch.roll(dec, -1, 1)))
+
+    def sequential(spec):
+        def fwd(p, mb):
+            mem = spec.enc_stage_fn(p["enc_stages"],
+                                    spec.enc_embed_fn(p["embed"], mb[0]))
+            h = spec.dec_stage_fn(p["dec_stages"],
+                                  spec.dec_embed_fn(p["embed"], mb[1]), mem)
+            return spec.loss_fn(p["head"], h, mb[2])
+        return fwd
+
+    batch = batch_on(dev)
+
+    def model(cfg):
+        """run -> ``(make_params, drive)``: the whole-batch pass first,
+        then no-pipelining (fp32 only) and the enc-dec runs."""
+        spec, tree = t5_enc_dec_spec(cfg), t5_pipeline_params_numpy(
+            cfg, 1, seed=0)
+
+        def make():
+            return pipeline_params_from_numpy(
+                tree, dev, cfg.dtype, specs=t5_pipeline_specs_tree(cfg))
+
+        def loop(M):
+            return lambda p: sch.forward_backward_no_pipelining(
+                sequential(spec), batch, p, num_microbatches=M)
+        runs = {"plain": (make, loop(1)), "no_pipelining": (make,
+                                                            loop(PIPE_M))}
+        for run, remat in T5_PIPE_RUNS.items():
+            runs[run] = (make, lambda p, remat=remat:
+                         sch.forward_backward_pipelining_enc_dec(
+                             spec, p, batch, num_microbatches=PIPE_M,
+                             remat=remat))
+        return runs
+
+    def build(make_params, drive):
+        def make():
+            params = make_params()
+            leaves = trainable_leaves(params)
+            opt = FusedAdam(leaves, lr=PIPE_LR)
+            return pipe_train_step(torch, lambda: drive(params), params, opt,
+                                   leaves), params
+        return make
+
+    out = {"path": T5_PIPE_PATH, "steps": TP_STEPS, "M": PIPE_M, "runs": {}}
+    with OneRankGroup(torch, dev) as group:
+        out["backend"] = group.backend
+        parallel_state.destroy_model_parallel()
+        parallel_state.initialize_model_parallel(1, 1)
+        out["fp32_check"] = pipe_fp32_gate(torch, "t5_pipeline",
+                                           model(t5_config(torch.float32)))
+        cfg = t5_config(torch.bfloat16)
+        runs = model(cfg)
+        plain = pipe_run(torch, ku, build(*runs["plain"]))
+        t5_first = t5_train["losses"][0]
+        if not abs(plain["losses"][0] - t5_first) <= (
+                PIPE_LOSS_RTOL * abs(t5_first)):
+            raise AssertionError(f"the pipeline tree's first loss "
+                                 f"{plain['losses'][0]} vs t5_loss's "
+                                 f"{t5_first} (rtol {PIPE_LOSS_RTOL})")
+        n_leaves = len(plain["grads0"])
+        for run, remat in T5_PIPE_RUNS.items():
+            r = pipe_run(torch, ku, build(*runs[run]))
+            want = t5_pipeline_launches(PIPE_M, cfg.enc_layers,
+                                        cfg.dec_layers, remat, n_leaves)
+            worst = pipe_checks(torch, f"t5_pipeline {run}", r, plain, want)
+            out["runs"][run] = pipe_record(r, {
+                "grads_worst_rel": worst, "launches_formula": want})
+            del r
+        out["plain"] = pipe_record(plain, {"t5_loss_first": t5_first})
+        parallel_state.destroy_model_parallel()
+    runs = out["runs"]
+    if not (runs["enc_dec"]["peak_mem_gib"]
+            < runs["enc_dec_no_remat"]["peak_mem_gib"]):
+        raise AssertionError("T5: the stage remat's peak is not below the "
+                             "run without it")
+    del plain
+    torch.cuda.empty_cache()
+    return out
 
 
 def attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
@@ -7956,8 +8465,10 @@ def main(argv=None) -> int:
     zero1 = phase("zero1", (), zero1_phase, torch, dev, ku)
     fsdp = phase("fsdp", (), fsdp_phase, torch, dev, ku, zero1)
     dlamb = phase("dist_lamb", (), dist_lamb_phase, torch, dev, ku)
-    tp = phase("tp", (), tp_phase, torch, dev, ku)
-    t5_tp = phase("t5_tp", (), t5_tp_phase, torch, dev, ku)
+    tp = phase("tp", (), tp_phase, torch, dev, ku, train)
+    t5_tp = phase("t5_tp", (), t5_tp_phase, torch, dev, ku, t5)
+    pipe = phase("pipeline", (), pipeline_phase, torch, dev, ku)
+    t5_pipe = phase("t5_pipeline", (), t5_pipeline_phase, torch, dev, ku, t5)
     name = torch.cuda.get_device_name(0)
     # the phases' record, written before the kernels line is assembled
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
@@ -7978,7 +8489,7 @@ def main(argv=None) -> int:
               "dcgan": dcgan, "rnn": rnn, "ddp": ddp, "syncbn_dp": sbn,
               "zero1": zero1, "fsdp": fsdp, "dist_lamb": dlamb,
               "lm_head_vocab_shard": lm_shard, "ring_chunks": ring, "tp": tp,
-              "t5_tp": t5_tp}
+              "t5_tp": t5_tp, "pipeline": pipe, "t5_pipeline": t5_pipe}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -9099,14 +9610,11 @@ def main(argv=None) -> int:
                   for k, v in t.items() if isinstance(v, dict))
               + f" on {card}")
     for label, res in (("tp", tp), ("t5_tp", t5_tp)):
-        print(f"{label} {res['path']} ({res['backend']}): no tp "
-              + "; ".join(f"{k} step_ms_p50 {v['step_ms_p50']:.2f} host ms "
-                          f"{v['host_ms_p50']:.2f} busy ms "
-                          f"{v['device_busy_ms']:.2f}"
-                          for k, v in ((k, v) for k, v in (
-                              res["no_tp"].items() if label == "tp"
-                              else (("default", res["no_tp"]),))))
-              + f" on {card}")
+        base = res["no_tp"]
+        print(f"{label} {res['path']} ({res['backend']}): no mesh (the "
+              f"{'train' if label == 'tp' else 't5_train'} phase's run) "
+              f"step_ms_p50 {base['step_ms_p50']:.2f} busy ms "
+              f"{base['device_busy_ms']:.2f} on {card}")
         for vname, r in res["variants"].items():
             print(f"{label} {vname}: step_ms_p50 {r['step_ms_p50']:.2f} host "
                   f"ms {r['host_ms_p50']:.2f} busy ms "
@@ -9114,7 +9622,42 @@ def main(argv=None) -> int:
                   f"{r['device_idle_share']:.3f}), collectives a step "
                   f"{ {k: n for k, n in r['collectives_per_step'].items() if n} }"
                   f", losses {[round(v, 4) for v in r['losses']]} bitwise "
-                  f"the run without tp, same launches on {card}")
+                  f"the run without a mesh, same launches on {card}")
+    # the pipeline slice: each kernel's launches a step on the schedules'
+    # runs (GPT-2 and T5-small, one rank, M = 4)
+    for kname in by_name:
+        for path, res in (("pipeline", pipe), ("t5_pipeline", t5_pipe)):
+            runs = {v: r["launches"].get(kname, 0)
+                    for v, r in res["runs"].items()}
+            if any(runs.values()):
+                by_name[kname].setdefault("pipeline_paths", {})[path] = {
+                    "launches_per_step": runs, "M": res["M"],
+                    "path": res["path"]}
+    for label, res in (("pipeline", pipe), ("t5_pipeline", t5_pipe)):
+        base, fp = res["plain"], res["fp32_check"]
+        fp_runs = {run: (f"{f['loss_rel']:.2e}", f"{f['worst_leaf_rel']:.2e}")
+                   for run, f in fp["runs"].items()}
+        print(f"{label} {res['path']} ({res['backend']}): plain step "
+              f"step_ms_p50 {base['step_ms_p50']:.2f} host ms "
+              f"{base['host_ms_p50']:.2f} busy ms "
+              f"{base['device_busy_ms']:.2f} peak "
+              f"{base['peak_mem_gib']:.3f} GiB losses "
+              f"{[round(v, 4) for v in base['losses']]}, top "
+              f"{[(t['name'][:40], round(t['device_ms'], 2)) for t in base['top'][:4]]}"
+              f"; fp32 step beside it (loss rel, worst leaf rel) "
+              f"{fp_runs} on {card}")
+        for run, r in res["runs"].items():
+            print(f"{label} {run}: step_ms_p50 {r['step_ms_p50']:.2f} host "
+                  f"ms {r['host_ms_p50']:.2f} busy ms "
+                  f"{r['device_busy_ms']:.2f} (idle share "
+                  f"{r['device_idle_share']:.3f}), peak "
+                  f"{r['peak_mem_gib']:.3f} GiB, syncs a step "
+                  f"{r['syncs_per_step']}, first step's worst gradient "
+                  f"leaf {r['grads_worst_rel']:.2e} from the plain step's, "
+                  f"losses {[round(v, 4) for v in r['losses']]}, launches "
+                  f"{r['launches']} (the formula's), top "
+                  f"{[(t['name'][:40], round(t['device_ms'], 2)) for t in r['top'][:4]]}"
+                  f" on {card}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels its path never launched: {idle}")

@@ -16,6 +16,11 @@ q / k / v / strip gradients within rtol 1e-5, atol 2e-6 of JAX's, and the
 ring within the same of the dense ``flash_attention`` of the gathered
 sequence (the port's own), dropout included.
 
+C8: the einsum scan's per-step remat (``remat_steps``, JAX's
+``jax.checkpoint`` of a step): bitwise the same outputs and gradients,
+no (s, s) tensor saved, and a rank's saved bytes at sp 4 at most 1/sp of
+the one-rank scan's (JAX's ``tests/test_ring_memory.py`` claim).
+
 C7: the port's plain flash forward, dQ, dK/dV and d(bias) with ``(seed,
 q_off, k_off)`` against JAX's Pallas kernels in interpret mode
 (``_fa_fwd`` / ``_fa_bwd`` with ``seed=[seed, q_off, k_off]``) at 32-row
@@ -71,11 +76,20 @@ def _inputs(world):
         f32(b, h, s, d), 0.5 * f32(h, s, s)
 
 
+def _long_inputs():
+    """C8's memory shapes: a long sequence over narrow heads, so the (S, S)
+    scores dominate what attention saves."""
+    rng = np.random.default_rng(7)
+    return tuple(rng.standard_normal((1, 2, 256, 8)).astype(np.float32)
+                 for _ in range(3))
+
+
 @functools.lru_cache(maxsize=None)
 def _spawned(world):
     q, k, v, do, bias = _inputs(world)
     return spawn(workers.several, world, {
-        "ring": ("ring", (q, k, v, do, bias, SEED, CASES))})
+        "ring": ("ring", (q, k, v, do, bias, SEED, CASES)),
+        "remat": ("ring_remat", (q, k, v, do, _long_inputs()))})
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,6 +166,52 @@ def test_ring_equals_the_dense_call(world, name):
             np.testing.assert_allclose(
                 g.numpy(), _shard(w.detach().numpy(), rank, world, axis),
                 rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_c8_remat_steps_is_bitwise(world, causal):
+    """C8: ``remat_steps=True`` recomputes each step of the einsum scan
+    in backward: output and q / k / v gradients bitwise those of
+    ``remat_steps=False``."""
+    for rank, r in enumerate(_spawned(world)):
+        on, off = r["remat"][(causal, True)], r["remat"][(causal, False)]
+        for a, b, what in zip(on, off, ("o", "dq", "dk", "dv")):
+            assert torch.equal(a, b), f"{what} rank {rank}"
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_c8_remat_steps_keeps_no_scores(world):
+    """With ``remat_steps=True`` no saved tensor ends in the (s, s) of a
+    step's scores (s the local sequence, 256 / sp tokens over heads of 8),
+    which ``False`` keeps."""
+    s = _long_inputs()[0].shape[2] // world
+    for rank, r in enumerate(_spawned(world)):
+        shapes_on = r["remat"][("long", True)][2]
+        shapes_off = r["remat"][("long", False)][2]
+        assert not any(sh[-2:] == (s, s) for sh in shapes_on), shapes_on
+        assert any(sh[-2:] == (s, s) for sh in shapes_off), shapes_off
+
+
+def test_c8_ring_divides_the_saved_scores_by_sp():
+    """JAX's ``tests/test_ring_memory.py`` claim, per rank at sp 4 on a
+    256-token sequence: without per-step remat each rank saves exactly
+    1/sp of the (S, S)-tailed bytes the one-rank scan saves (sp steps of
+    (S/sp)² scores); with it (the default) a rank's whole saved footprint
+    is at most 1/sp of the one-rank scan's."""
+    from apex_tpu_torch.transformer.sequence_parallel import ring_attention
+
+    world = 4
+    leaves = [torch.from_numpy(a).requires_grad_() for a in _long_inputs()]
+    _, total_1, square_1, _ = workers.saved_bytes(
+        ring_attention, *leaves, causal=True, impl="scan",
+        remat_steps=False)
+    for rank, r in enumerate(_spawned(world)):
+        total_on, square_on, _ = r["remat"][("long", True)]
+        total_off, square_off, _ = r["remat"][("long", False)]
+        assert square_off * world == square_1, (rank, square_off, square_1)
+        assert square_on == 0
+        assert total_on * world <= total_1, (rank, total_on, total_1)
 
 
 def test_ring_refusals_and_one_rank():

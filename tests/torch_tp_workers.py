@@ -308,6 +308,59 @@ def ring(rank, world, q, k, v, do, bias, seed, cases):
     return out
 
 
+def saved_bytes(fn, *args, **kwargs):
+    """``fn``'s result, and what autograd saved while it ran: ``(bytes of
+    the distinct storages, bytes of those whose tensor's two trailing dims
+    are equal (the (s, s) scores), the set of saved shapes)``."""
+    seen, out = set(), [0, 0]
+    shapes = set()
+
+    def pack(t):
+        s = t.untyped_storage()
+        shapes.add(tuple(t.shape))
+        if s.data_ptr() not in seen:
+            seen.add(s.data_ptr())
+            out[0] += s.nbytes()
+            if t.dim() >= 2 and t.shape[-1] == t.shape[-2] > 1:
+                out[1] += s.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        res = fn(*args, **kwargs)
+    return res, out[0], out[1], shapes
+
+
+def ring_remat(rank, world, q, k, v, do, long_qkv):
+    """C8: the einsum scan with ``remat_steps`` on and off, causal and
+    not, on this rank's shards: the outputs and q / k / v gradients of
+    both; and on ``long_qkv`` (a long sequence, narrow heads) the saved
+    bytes (all, and the square-tailed ones) and shapes of the causal scan
+    with it on and off."""
+    from apex_tpu_torch.transformer.sequence_parallel import ring_attention
+
+    _mesh(sp=world)
+    out = {}
+
+    def shard(a):
+        s = a.shape[2] // world
+        return a[:, :, rank * s:(rank + 1) * s]
+
+    for causal in (True, False):
+        for remat in (True, False):
+            leaves = [_t(shard(a), True) for a in (q, k, v)]
+            o = ring_attention(*leaves, causal=causal, impl="scan",
+                               remat_steps=remat)
+            grads = torch.autograd.grad(o, leaves, _t(shard(do)))
+            out[(causal, remat)] = (o.detach(),) + tuple(grads)
+    for remat in (True, False):
+        leaves = [_t(shard(a), True) for a in long_qkv]
+        _, total, square, shapes = saved_bytes(
+            ring_attention, *leaves, causal=True, impl="scan",
+            remat_steps=remat)
+        out[("long", remat)] = (total, square, shapes)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # GPT and T5
 
