@@ -7,8 +7,9 @@ across devices (``sync_batchnorm``), LARC, and ``ParallelismPlan``
 Tensor, sequence and pipeline parallelism live in ``transformer``
 (``parallel_state``, ``tensor_parallel``, ``sequence_parallel``,
 ``pipeline_parallel``: the p2p ring shifts, the microbatch calculators and
-the four schedules) and ``comm.overlap``; mixture of experts is ROADMAP
-A7d."""
+the four schedules) and ``comm.overlap``; expert parallelism in
+``transformer.moe`` (experts over dp, an all-to-all each way); a plan's
+serving residency (tp, pp or fsdp) in ``serve.sharded.build_engine``."""
 
 # the optimizers package imports LARC back: load it first
 import apex_tpu_torch.optimizers  # noqa: F401

@@ -20,7 +20,11 @@
   the :class:`AdapterRegistry`;
 * :mod:`~apex_tpu_torch.serve.engine` — the continuous-batching
   :class:`InferenceEngine` (chunked prefill, prefix cache, speculative
-  decode, adapters, the ``monitor`` telemetry, slot eviction).
+  decode, adapters, the ``monitor`` telemetry, slot eviction; one rank of
+  a tensor-parallel group with ``tp_axis``);
+* :mod:`~apex_tpu_torch.serve.sharded` — plan-driven model-parallel
+  serving: :func:`build_engine` reads ``ServeConfig.plan`` (tp shards,
+  the :class:`PPStagedEngine`, fsdp weight residency).
 """
 
 from apex_tpu_torch.serve.adapters import (  # noqa: F401
@@ -73,6 +77,11 @@ from apex_tpu_torch.serve.megakernel import (  # noqa: F401
     gpt_verify_step_fused,
     megakernel_ok,
     megakernel_refusal,
+)
+from apex_tpu_torch.serve.sharded import (  # noqa: F401
+    PPStagedEngine,
+    build_engine,
+    plan_world,
 )
 from apex_tpu_torch.serve.sampling import (  # noqa: F401
     SamplingConfig,

@@ -1,5 +1,6 @@
 """Paged attention and the GPT serve programs (counterpart of
-``apex_tpu/serve/decode.py``), single device.
+``apex_tpu/serve/decode.py``): one device, or this rank's shards under
+tensor parallelism.
 
 Two halves:
 
@@ -33,7 +34,15 @@ Two halves:
   rows add their LoRA adapter's delta (``serve.adapters.lora_delta``)
   after the qkv, out, fc1 and fc2 projections; ``gather_layer=`` is JAX's
   per-layer parameter hook; ``use_pallas=False`` runs the plain versions
-  on every device.
+  on every device. ``tp_axis=`` (a mesh axis, JAX's axis-optional TP
+  plumbing): the params are this rank's Megatron shards
+  (``gpt_param_specs``) and the pools hold ``num_heads / tp`` local
+  heads; the qkv and fc1 projections are column-parallel, out and fc2
+  row-parallel (an all-reduce exit; ``cfg.overlap_comm`` puts the exits
+  of q > 1 calls with q % tp == 0 on ``comm.overlap``'s ring, decode's
+  stay monolithic), the embedding vocab-parallel and the logits
+  all-gathered over the vocab. Every serve entry point refuses a MoE
+  model (:func:`ensure_dense_ffn`, JAX's text).
 
 Row-count invariance: cuBLAS picks its GEMM algorithm per shape, and two
 algorithms may sum a row's products in different orders. So every
@@ -55,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _kernel_util as ku
+from apex_tpu_torch.parallel.mesh import axis_info
 from apex_tpu_torch.ops.attention import NEG_INF, attention_reference
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.serve.adapters import lora_delta_rows, lora_rows
@@ -385,9 +395,55 @@ def _dense(x, kernel, bias):
     return y.reshape(*lead, y.shape[-1])
 
 
-def _embed(embed, tokens, positions):
-    """Token + position embedding at explicit positions."""
-    x = embed["tok"][tokens.long()]
+def _tp_size(tp_axis: Optional[str]) -> int:
+    return 1 if tp_axis is None else axis_info(tp_axis)[1]
+
+
+def _tiled(x, kernel):
+    """The local product of a tp projection, in ``GEMM_ROW_TILE``-row
+    tiles (row-count invariance for this rank's shard too)."""
+    return _dense(x, kernel, None)
+
+
+def _col(x, kernel, bias, tp_axis: Optional[str]):
+    """Column-parallel projection (output-sharded, no gather)."""
+    if tp_axis is None:
+        return _dense(x, kernel, bias)
+    from apex_tpu_torch.transformer.tensor_parallel.layers import (
+        column_parallel_linear,
+    )
+
+    return column_parallel_linear(x, kernel, bias, gather_output=False,
+                                  axis_name=tp_axis, product=_tiled)
+
+
+def _row(x, kernel, bias, tp_axis: Optional[str], overlap: bool = False):
+    """Row-parallel projection (input-sharded, all-reduce exit; ``overlap``
+    puts the exit of a 3-d (n, q, h) activation on the ring)."""
+    if tp_axis is None:
+        return _dense(x, kernel, bias)
+    from apex_tpu_torch.transformer.tensor_parallel.layers import (
+        row_parallel_linear,
+    )
+
+    return row_parallel_linear(x, kernel, bias, input_is_parallel=True,
+                               axis_name=tp_axis,
+                               overlap_comm=overlap and x.dim() == 3,
+                               product=_tiled)
+
+
+def _embed(embed, tokens, positions, tp_axis: Optional[str] = None):
+    """Token + position embedding at explicit positions (the token table
+    vocab-parallel under ``tp_axis``)."""
+    if tp_axis is None:
+        x = embed["tok"][tokens.long()]
+    else:
+        from apex_tpu_torch.transformer.tensor_parallel.layers import (
+            vocab_parallel_embedding,
+        )
+
+        x = vocab_parallel_embedding(tokens.long(), embed["tok"],
+                                     axis_name=tp_axis)
     pos = embed["pos"][positions.long()]
     return x + pos.to(x.dtype)
 
@@ -398,9 +454,13 @@ def _ln_pallas(use_pallas: Optional[bool]) -> Optional[bool]:
     return False if use_pallas is False else None
 
 
-def serve_logits(params: Params, x, cfg, use_pallas: Optional[bool] = None):
+def serve_logits(params: Params, x, cfg, use_pallas: Optional[bool] = None,
+                 tp_axis: Optional[str] = None):
     """Final LN + LM head -> full-vocab fp32 logits. The tied head is a
-    product in the model dtype, then cast to fp32 (as in JAX)."""
+    product in the model dtype, then cast to fp32 (as in JAX). Under
+    ``tp_axis`` the head holds this rank's vocab shard and the logits are
+    all-gathered over the vocab (sampling needs the global argmax /
+    top-k)."""
     head = params["head"]
     x = layer_norm(x, head["ln_w"], head["ln_b"],
                    use_pallas=_ln_pallas(use_pallas))
@@ -408,7 +468,14 @@ def serve_logits(params: Params, x, cfg, use_pallas: Optional[bool] = None):
         w = params["embed"]["tok"].to(x.dtype).t()
     else:
         w = head["lm"]
-    return _dense(x, w, None).float()
+    logits = _dense(x, w, None)
+    if tp_axis is not None:
+        from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+            all_gather_dim,
+        )
+
+        logits = all_gather_dim(logits, -1, tp_axis)
+    return logits.float()
 
 
 def _split_qkv(qkv, heads: int, head_dim: int):
@@ -417,11 +484,42 @@ def _split_qkv(qkv, heads: int, head_dim: int):
     return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
 
-def _check_serve_cfg(cfg, kv_cfg: KVCacheConfig) -> None:
-    if kv_cfg.num_heads != cfg.num_heads or kv_cfg.head_dim != cfg.head_dim:
+def _serve_heads(cfg, tp_axis: Optional[str]) -> int:
+    tp = _tp_size(tp_axis)
+    if cfg.num_heads % tp:
+        raise ValueError(
+            f"num_heads ({cfg.num_heads}) not divisible by tp ({tp})")
+    return cfg.num_heads // tp
+
+
+def ensure_dense_ffn(num_experts: int) -> None:
+    """The one MoE serving refusal, shared by every serve entry point (the
+    paged programs and the engine constructor), with JAX's text: the
+    paged programs assume a dense FFN."""
+    if num_experts:
+        raise NotImplementedError(
+            "serve does not support MoE layers (num_experts > 0) yet — "
+            "the paged decode/prefill programs assume a dense FFN, and "
+            "no ServeConfig.plan residency strategy (tp/pp/fsdp, "
+            "apex_tpu.serve.sharded) shards experts either: a plan moves "
+            "dense weights, it does not route tokens. One refusal for "
+            "both stacks; routed-expert serving is ROADMAP item 5a.")
+
+
+def _check_stack_cfg(cfg, kv_cfg: KVCacheConfig, tp_axis) -> None:
+    """The layer-stack half of the serve config check (no layer count: a
+    pipeline stage's pools hold its own layer slice)."""
+    ensure_dense_ffn(cfg.num_experts)
+    heads_local = _serve_heads(cfg, tp_axis)
+    if kv_cfg.num_heads != heads_local or kv_cfg.head_dim != cfg.head_dim:
         raise ValueError(
             f"KVCacheConfig ({kv_cfg.num_heads} heads x {kv_cfg.head_dim}) "
-            f"does not match the model ({cfg.num_heads} x {cfg.head_dim})")
+            f"does not match the model's local layout ({heads_local} x "
+            f"{cfg.head_dim})")
+
+
+def _check_serve_cfg(cfg, kv_cfg: KVCacheConfig, tp_axis=None) -> None:
+    _check_stack_cfg(cfg, kv_cfg, tp_axis)
     if kv_cfg.num_layers != cfg.num_layers:
         raise ValueError(
             f"KVCacheConfig.num_layers ({kv_cfg.num_layers}) != "
@@ -439,6 +537,7 @@ def _check_serve_cfg(cfg, kv_cfg: KVCacheConfig) -> None:
 def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
                       cache: Dict[str, torch.Tensor], block_tables, cfg,
                       kv_cfg: KVCacheConfig, *,
+                      tp_axis: Optional[str] = None,
                       use_pallas: Optional[bool] = None,
                       adapters: Optional[Dict[str, torch.Tensor]] = None,
                       adapter_ids=None, gather_layer=None
@@ -453,15 +552,27 @@ def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
     the base model, an exact zero). ``gather_layer``: JAX's per-layer
     parameter hook, applied to each layer's dict before use.
     ``use_pallas``: as :func:`paged_attention`; ``False`` also takes the
-    plain LayerNorm."""
-    if adapters is not None and adapter_ids is None:
-        raise ValueError("adapters given without adapter_ids")
+    plain LayerNorm. ``tp_axis``: this rank's Megatron shards and local
+    heads (the module docstring). The number of layers is the stacked
+    params' (a pipeline stage runs its slice)."""
+    _check_stack_cfg(cfg, kv_cfg, tp_axis)
+    if adapters is not None:
+        if tp_axis is not None:
+            raise NotImplementedError(
+                "paged LoRA adapters are single-device for now — the pool "
+                "is not TP-sharded (pass tp_axis=None)")
+        if adapter_ids is None:
+            raise ValueError("adapters given without adapter_ids")
     ln_pallas = _ln_pallas(use_pallas)
     n, q = x.shape[:2]
     # every flat row's pool slot, once a call for all layers and targets
     rows = (None if adapters is None
             else lora_rows(adapter_ids, q, x.device))
-    heads, hd = cfg.num_heads, cfg.head_dim
+    heads, hd = _serve_heads(cfg, tp_axis), cfg.head_dim
+    # q > 1 row exits ride the ring with cfg.overlap_comm (the ring
+    # scatters over q, so q % tp == 0); decode's q = 1 stays monolithic
+    overlap = (tp_axis is not None and cfg.overlap_comm and q > 1
+               and q % _tp_size(tp_axis) == 0)
     offs = torch.arange(q, device=x.device)
     positions = start_lens.long()[:, None] + offs[None, :]      # (n, q)
     valid = active[:, None] & (offs[None, :] < n_valid[:, None])
@@ -472,7 +583,7 @@ def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
     bt_rows = block_tables.to(torch.int32).repeat_interleave(q, dim=0)
     pos_flat = positions.reshape(-1)
     valid_flat = valid.reshape(-1)
-    for li in range(cfg.num_layers):
+    for li in range(next(iter(layers.values())).shape[0]):
         lp = {name: t[li] for name, t in layers.items()}
         if gather_layer is not None:
             lp = gather_layer(lp)
@@ -480,7 +591,7 @@ def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
         ad = (None if adapters is None
               else {name: t[li] for name, t in adapters.items()})
         h1 = layer_norm(x, lp["ln1_w"], lp["ln1_b"], use_pallas=ln_pallas)
-        qkv = _dense(h1, lp["qkv_kernel"], lp["qkv_bias"])
+        qkv = _col(h1, lp["qkv_kernel"], lp["qkv_bias"], tp_axis)
         if ad is not None:
             qkv = qkv + lora_delta_rows(h1, ad["qkv_a"], ad["qkv_b"], rows)
         qh, k, v = _split_qkv(qkv, heads, hd)                  # (n,q,H,D)
@@ -491,16 +602,16 @@ def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
                               kv_cfg, bt_rows, ctx_lens, rows_per_table=q,
                               use_pallas=use_pallas)
         ctx = ctx.reshape(n, q, heads * hd)
-        a = _dense(ctx, lp["out_kernel"], lp["out_bias"])
+        a = _row(ctx, lp["out_kernel"], lp["out_bias"], tp_axis, overlap)
         if ad is not None:
             a = a + lora_delta_rows(ctx, ad["out_a"], ad["out_b"], rows)
         x = x + a
         h2 = layer_norm(x, lp["ln2_w"], lp["ln2_b"], use_pallas=ln_pallas)
-        pre = _dense(h2, lp["fc1_kernel"], lp["fc1_bias"])
+        pre = _col(h2, lp["fc1_kernel"], lp["fc1_bias"], tp_axis)
         if ad is not None:
             pre = pre + lora_delta_rows(h2, ad["fc1_a"], ad["fc1_b"], rows)
         y = F.gelu(pre, approximate="tanh")
-        m = _dense(y, lp["fc2_kernel"], lp["fc2_bias"])
+        m = _row(y, lp["fc2_kernel"], lp["fc2_bias"], tp_axis, overlap)
         if ad is not None:
             m = m + lora_delta_rows(y, ad["fc2_a"], ad["fc2_b"], rows)
         x = x + m
@@ -510,6 +621,7 @@ def paged_layer_stack(x, layers: Params, start_lens, n_valid, active,
 def gpt_paged_forward(params: Params, tokens, start_lens, n_valid, active,
                       cache: Dict[str, torch.Tensor], block_tables, cfg,
                       kv_cfg: KVCacheConfig, *,
+                      tp_axis: Optional[str] = None,
                       use_pallas: Optional[bool] = None,
                       adapters: Optional[Dict[str, torch.Tensor]] = None,
                       adapter_ids=None, gather_layer=None):
@@ -521,25 +633,26 @@ def gpt_paged_forward(params: Params, tokens, start_lens, n_valid, active,
     ``active``: (n,) bool. Returns ``(cache, logits (n, q, vocab) fp32)``;
     ``cache`` is updated in place. logits[i, j] is the next-token
     distribution after tokens[i, j] at position ``start_lens[i] + j``.
-    ``use_pallas`` / ``adapters`` / ``adapter_ids`` / ``gather_layer``: see
-    :func:`paged_layer_stack`.
+    ``tp_axis`` / ``use_pallas`` / ``adapters`` / ``adapter_ids`` /
+    ``gather_layer``: see :func:`paged_layer_stack`.
     """
-    _check_serve_cfg(cfg, kv_cfg)
+    _check_serve_cfg(cfg, kv_cfg, tp_axis)
     q = tokens.shape[1]
     offs = torch.arange(q, device=tokens.device)
     positions = start_lens.long()[:, None] + offs[None, :]
     # JAX's take clamps; torch indexing raises, so clamp explicitly
     positions_c = torch.clamp(positions, max=cfg.max_seq - 1)
-    x = _embed(params["embed"], tokens, positions_c)           # (n, q, h)
+    x = _embed(params["embed"], tokens, positions_c, tp_axis)  # (n, q, h)
     x, cache = paged_layer_stack(
         x, params["layers"], start_lens, n_valid, active, cache,
-        block_tables, cfg, kv_cfg, use_pallas=use_pallas, adapters=adapters,
-        adapter_ids=adapter_ids, gather_layer=gather_layer)
-    return cache, serve_logits(params, x, cfg, use_pallas)
+        block_tables, cfg, kv_cfg, tp_axis=tp_axis, use_pallas=use_pallas,
+        adapters=adapters, adapter_ids=adapter_ids, gather_layer=gather_layer)
+    return cache, serve_logits(params, x, cfg, use_pallas, tp_axis)
 
 
 def gpt_decode_step(params: Params, last_tokens, seq_lens, active, cache,
                     block_tables, cfg, kv_cfg: KVCacheConfig, *,
+                    tp_axis: Optional[str] = None,
                     use_pallas: Optional[bool] = None, adapters=None,
                     adapter_ids=None, gather_layer=None):
     """Advance every active slot by one token (q=1). ``last_tokens`` (n,)
@@ -550,13 +663,14 @@ def gpt_decode_step(params: Params, last_tokens, seq_lens, active, cache,
     ones = torch.ones((n,), dtype=torch.int32, device=last_tokens.device)
     cache, logits = gpt_paged_forward(
         params, last_tokens[:, None], seq_lens, ones, active, cache,
-        block_tables, cfg, kv_cfg, use_pallas=use_pallas, adapters=adapters,
-        adapter_ids=adapter_ids, gather_layer=gather_layer)
+        block_tables, cfg, kv_cfg, tp_axis=tp_axis, use_pallas=use_pallas,
+        adapters=adapters, adapter_ids=adapter_ids, gather_layer=gather_layer)
     return cache, logits[:, 0]
 
 
 def gpt_verify_step(params: Params, fed_tokens, seq_lens, n_fed, active,
                     cache, block_tables, cfg, kv_cfg: KVCacheConfig, *,
+                    tp_axis: Optional[str] = None,
                     use_pallas: Optional[bool] = None, adapters=None,
                     adapter_ids=None, gather_layer=None):
     """Speculative verify: ``fed_tokens`` (n, k+1) — each slot's last
@@ -565,13 +679,15 @@ def gpt_verify_step(params: Params, fed_tokens, seq_lens, n_fed, active,
     accepted length caps the context, and later writes overwrite them."""
     return gpt_paged_forward(params, fed_tokens, seq_lens, n_fed, active,
                              cache, block_tables, cfg, kv_cfg,
-                             use_pallas=use_pallas, adapters=adapters,
+                             tp_axis=tp_axis, use_pallas=use_pallas,
+                             adapters=adapters,
                              adapter_ids=adapter_ids,
                              gather_layer=gather_layer)
 
 
 def gpt_prefill_chunk(params: Params, tokens, start: int, n_valid: int,
                       cache, block_row, cfg, kv_cfg: KVCacheConfig, *,
+                      tp_axis: Optional[str] = None,
                       use_pallas: Optional[bool] = None, adapters=None,
                       adapter_id=None, gather_layer=None):
     """One fixed-size chunk of ONE prompt: ``tokens`` (chunk,) holding
@@ -591,6 +707,7 @@ def gpt_prefill_chunk(params: Params, tokens, start: int, n_valid: int,
     active = torch.ones((1,), dtype=torch.bool, device=dev)
     cache, logits = gpt_paged_forward(
         params, tokens[None, :], start_lens, nv, active, cache,
-        block_row[None, :], cfg, kv_cfg, use_pallas=use_pallas,
-        adapters=adapters, adapter_ids=aids, gather_layer=gather_layer)
+        block_row[None, :], cfg, kv_cfg, tp_axis=tp_axis,
+        use_pallas=use_pallas, adapters=adapters, adapter_ids=aids,
+        gather_layer=gather_layer)
     return cache, logits[0, max(int(n_valid) - 1, 0)]

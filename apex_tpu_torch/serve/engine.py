@@ -1,5 +1,6 @@
 """Iteration-level continuous-batching inference engine (counterpart of
-``apex_tpu/serve/engine.py``), single device.
+``apex_tpu/serve/engine.py``): one device, or one rank of a tensor-parallel
+group (``tp_axis``).
 
 A fixed grid of decode slots advances one token per step; between steps
 finished requests retire and waiting ones are admitted (FCFS) into the
@@ -53,9 +54,17 @@ back into the grid, and :meth:`~InferenceEngine.collect_registry` /
 :meth:`~InferenceEngine.scrape` expose the engine to a
 ``MetricsRegistry``.
 
-Outside this slice: plan-sharded serving (``ServeConfig.plan`` raises
-``NotImplementedError``), tensor-parallel serving (``tp_axis``) and
-``from_checkpoint``.
+Tensor parallelism (``tp_axis`` / ``tp_size``): JAX wraps the engine's
+programs in ``shard_map`` (its ``transform=``), which has no torch
+counterpart. The port runs one engine per rank of the model-parallel mesh
+(``transformer.parallel_state``): each holds its Megatron shards of the
+params (``gpt_param_specs``) and pools of ``num_heads / tp_size`` local
+heads, runs the host scheduler on the same requests, and the programs'
+collectives meet over ``tp_axis``. Every host decision is a function of
+the requests and the sampled tokens (the logits are all-gathered, the
+draws keyed by request and position), so the ranks stay in step.
+``ServeConfig.plan`` is validated as JAX's; ``serve.sharded.build_engine``
+builds the engine it names. Outside this slice: ``from_checkpoint``.
 """
 
 from __future__ import annotations
@@ -82,6 +91,7 @@ from apex_tpu_torch.serve.adapters import (AdapterRegistry,
                                            adapter_pool_bytes,
                                            init_adapter_pool, write_adapter)
 from apex_tpu_torch.serve.decode import (
+    ensure_dense_ffn,
     gpt_decode_step,
     gpt_prefill_chunk,
     gpt_verify_step,
@@ -139,9 +149,10 @@ class ServeConfig:
     raises with the reason on an unsupported shape; ``"off"`` keeps the
     per-op path. ``kv_quant``: ``"none"``, ``"int8"`` or ``"int4"`` pools
     (``kv_group``: int4 scale-group length). ``lora_rank`` /
-    ``max_adapters``: per-tenant LoRA (0 disables; both or neither). The
-    plan field exists so a JAX config reads the same; a plan raises
-    ``NotImplementedError`` until its slice is ported."""
+    ``max_adapters``: per-tenant LoRA (0 disables; both or neither).
+    ``plan``: a ``parallel.ParallelismPlan`` whose one sharding term (tp,
+    pp or fsdp) picks the residency ``serve.sharded.build_engine`` builds;
+    validated inference-legal here (JAX's checks)."""
 
     num_slots: int = 4
     block_size: int = 16
@@ -196,9 +207,18 @@ class ServeConfig:
         if self.max_adapters > 0 and self.lora_rank == 0:
             raise ValueError("max_adapters > 0 needs lora_rank > 0")
         if self.plan is not None:
-            raise NotImplementedError(
-                "plan-sharded serving (ServeConfig.plan) is not ported yet: "
-                "serve.sharded is ROADMAP §A item 8")
+            if not hasattr(self.plan, "serve_overrides"):
+                raise ValueError(
+                    f"plan must be a ParallelismPlan "
+                    f"(apex_tpu_torch.parallel.plan), got {type(self.plan)!r}")
+            # the inference-legality checks run here: a plan that only
+            # makes sense feeding an optimizer is refused before any build
+            self.plan.serve_overrides()
+            if self.lora_rank > 0:
+                raise NotImplementedError(
+                    "paged LoRA adapters are single-device for now — the "
+                    "AdapterPool is not plan-sharded (lora_rank needs "
+                    "plan=None)")
         self.sampling.validate()
 
 
@@ -254,6 +274,13 @@ class InferenceEngine:
     per-layer parameter hook (see ``decode.paged_layer_stack``); it and
     ``lora_rank > 0`` take the per-op path.
 
+    ``tp_axis`` / ``tp_size``: this engine is one rank of a tensor-parallel
+    group over that mesh axis (both or neither; see the module docstring):
+    ``params`` are this rank's shards, the pools hold ``num_heads /
+    tp_size`` local heads, decode and verify take the per-op path, and
+    LoRA is refused. ``plan_stats``: a zero-argument callable whose fields
+    :meth:`stats` merges (``serve.sharded`` sets it).
+
     Telemetry (JAX's arguments, each off when ``None``): ``sink`` a
     ``monitor.JsonlSink`` receiving one record per step (``decode_mfu``
     when ``peak_flops_per_s``, the card's peak, is given); ``events`` a
@@ -278,10 +305,19 @@ class InferenceEngine:
                  on_reject: Optional[Callable[[Request, Dict[str, Any]],
                                               None]] = None,
                  meter: Optional[Meter] = None,
-                 meter_worker: str = "engine"):
+                 meter_worker: str = "engine",
+                 tp_axis: Optional[str] = None,
+                 tp_size: int = 1):
         scfg = serve_cfg or ServeConfig()
         scfg.validate()
+        ensure_dense_ffn(cfg.num_experts)
         cfg.validate()
+        if (tp_axis is None) != (tp_size == 1):
+            raise ValueError("pass tp_axis together with tp_size > 1 "
+                             "(and a shard_map transform)")
+        if cfg.num_heads % tp_size:
+            raise ValueError(f"num_heads ({cfg.num_heads}) not divisible "
+                             f"by tp_size ({tp_size})")
         self.device = resolve_device(device)
         if use_pallas and self.device.type != "cuda":
             raise ValueError(
@@ -305,8 +341,9 @@ class InferenceEngine:
         self._blocks_per_slot = -(-self.max_context // bs)
         num_blocks = (scfg.num_blocks if scfg.num_blocks is not None
                       else scfg.num_slots * self._blocks_per_slot)
+        self._tp_axis = tp_axis
         self.kv_cfg = KVCacheConfig(
-            num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+            num_layers=cfg.num_layers, num_heads=cfg.num_heads // tp_size,
             head_dim=cfg.head_dim, num_blocks=num_blocks, block_size=bs,
             dtype=cfg.dtype, quantized=scfg.kv_quant != "none",
             bits=4 if scfg.kv_quant == "int4" else 8,
@@ -329,6 +366,11 @@ class InferenceEngine:
         # name -> times loaded (the prefix-cache salt's generation)
         self._adapter_loads: Dict[str, int] = {}
         if scfg.lora_rank > 0:
+            if tp_axis is not None:
+                raise NotImplementedError(
+                    "paged LoRA adapters are single-device for now — the "
+                    "AdapterPool is not TP-sharded (lora_rank needs "
+                    "tp_axis=None)")
             self._lora_pool = init_adapter_pool(
                 cfg, scfg.lora_rank, scfg.max_adapters, device=self.device)
             self.adapters = AdapterRegistry(scfg.max_adapters)
@@ -394,6 +436,9 @@ class InferenceEngine:
         self._verify_steps = 0
         self._decode_steps = 0
         self._n_params = sum(t.numel() for _, t in named_leaves(params))
+        # the plan-sharded engines' stats hook (serve.sharded): the fields
+        # stats() merges; None on the plain engine
+        self.plan_stats: Optional[Callable[[], Dict[str, Any]]] = None
         self._gather_layer = gather_layer
         self._use_pallas = use_pallas
         self._megakernel = self._resolve_megakernel()
@@ -408,7 +453,8 @@ class InferenceEngine:
         """``ServeConfig.megakernel`` -> whether the decode AND verify calls
         run the fused layer, gated on the verify call's spec_k + 1 rows per
         slot so speculation never flips the choice. ``gather_layer`` and
-        LoRA adapters take the per-op path with JAX's reasons. ``auto``
+        LoRA adapters take the per-op path with JAX's reasons, as does a
+        tensor-parallel engine. ``auto``
         needs the kernel itself (a CUDA engine with the kernels on): there
         it falls back to the per-op path only with a reason, logged once;
         elsewhere it means per-op. ``on`` raises with the reason on an
@@ -416,7 +462,9 @@ class InferenceEngine:
         mode = self.serve_cfg.megakernel
         if mode == "off":
             return False
-        if self._gather_layer is not None:
+        if self._tp_axis is not None:
+            reason = "TP-sharded programs ride the per-op layer body"
+        elif self._gather_layer is not None:
             reason = ("plan-sharded (FSDP weight-resident) params ride "
                       "the per-op layer body")
         elif self.serve_cfg.lora_rank > 0:
@@ -616,7 +664,7 @@ class InferenceEngine:
             # fresh[0] replaces the last matched block: copy the shared
             # content on device, drop OUR ref on the source
             src, dst = hit[-1], fresh[0]
-            copy_block(self.cache, src, dst)
+            self._copy_block(src, dst)
             self.allocator.free([src])
             blocks = hit[:-1] + [dst] + fresh[1:]
             self._cow_copies += 1
@@ -698,11 +746,8 @@ class InferenceEngine:
         tokens[:n_valid] = np.asarray(state.request.tokens[c:c + n_valid],
                                       np.int32)
         with span("prefill"):
-            self.cache, logits = gpt_prefill_chunk(
-                self.params, self._upload(tokens), c, n_valid, self.cache,
-                self._dev("block_tables")[slot], self.cfg, self.kv_cfg,
-                use_pallas=self._use_pallas, gather_layer=self._gather_layer,
-                **self._lora_kw(slot))
+            logits = self._prefill_logits(slot, self._upload(tokens), c,
+                                          n_valid)
             state.prefill_pos = c + n_valid
             self._chunks_run += 1
             done = state.prefill_pos >= p
@@ -998,19 +1043,55 @@ class InferenceEngine:
                 out[i] = [int(t) for t in drafts]
         return out or None
 
-    # -- stepping ----------------------------------------------------------
-    def _decode(self) -> torch.Tensor:
+    # -- the model calls (a pipeline-staged engine overrides these) ------
+    def _per_op_kw(self) -> Dict[str, Any]:
+        return {"tp_axis": self._tp_axis, "use_pallas": self._use_pallas,
+                "gather_layer": self._gather_layer}
+
+    def _prefill_logits(self, slot: int, tokens: torch.Tensor, start: int,
+                        n_valid: int) -> torch.Tensor:
+        """One prefill chunk of ``slot``'s prompt into the pools; the
+        (vocab,) fp32 logits after its last valid token."""
+        self.cache, logits = gpt_prefill_chunk(
+            self.params, tokens, start, n_valid, self.cache,
+            self._dev("block_tables")[slot], self.cfg, self.kv_cfg,
+            **self._per_op_kw(), **self._lora_kw(slot))
+        return logits
+
+    def _decode_logits(self) -> torch.Tensor:
+        """One token for every slot: (n, vocab) fp32 logits."""
+        args = (self.params, self._dev("last_tokens"), self._dev("seq_lens"),
+                self._dev("active"), self.cache, self._dev("block_tables"),
+                self.cfg, self.kv_cfg)
         if self._megakernel:
             self.cache, logits = gpt_decode_step_fused(
-                self.params, self._dev("last_tokens"), self._dev("seq_lens"),
-                self._dev("active"), self.cache, self._dev("block_tables"),
-                self.cfg, self.kv_cfg, use_pallas=self._use_pallas)
+                *args, use_pallas=self._use_pallas)
         else:
             self.cache, logits = gpt_decode_step(
-                self.params, self._dev("last_tokens"), self._dev("seq_lens"),
+                *args, **self._per_op_kw(), **self._lora_kw())
+        return logits
+
+    def _verify_logits(self, fed: torch.Tensor,
+                       n_fed: torch.Tensor) -> torch.Tensor:
+        """The q = spec_k + 1 verify call: (n, q, vocab) fp32 logits."""
+        args = (self.params, fed, self._dev("seq_lens"), n_fed,
                 self._dev("active"), self.cache, self._dev("block_tables"),
-                self.cfg, self.kv_cfg, use_pallas=self._use_pallas,
-                gather_layer=self._gather_layer, **self._lora_kw())
+                self.cfg, self.kv_cfg)
+        if self._megakernel:
+            self.cache, logits = gpt_verify_step_fused(
+                *args, use_pallas=self._use_pallas)
+        else:
+            self.cache, logits = gpt_verify_step(
+                *args, **self._per_op_kw(), **self._lora_kw())
+        return logits
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy-on-write of one pool block (every layer)."""
+        copy_block(self.cache, src, dst)
+
+    # -- stepping ----------------------------------------------------------
+    def _decode(self) -> torch.Tensor:
+        logits = self._decode_logits()
         return sample(logits, self._dev("keys"),
                       self._dev("seq_lens").long() + 1,
                       self.serve_cfg.sampling)
@@ -1024,16 +1105,7 @@ class InferenceEngine:
             fed[i, 1:1 + len(d)] = d
             n_fed[i] = 1 + len(d)
         seq_lens = self._dev("seq_lens")
-        args = (self.params, self._upload(fed), seq_lens, self._upload(n_fed),
-                self._dev("active"), self.cache, self._dev("block_tables"),
-                self.cfg, self.kv_cfg)
-        if self._megakernel:
-            self.cache, logits = gpt_verify_step_fused(
-                *args, use_pallas=self._use_pallas)
-        else:
-            self.cache, logits = gpt_verify_step(
-                *args, use_pallas=self._use_pallas,
-                gather_layer=self._gather_layer, **self._lora_kw())
+        logits = self._verify_logits(self._upload(fed), self._upload(n_fed))
         offs = torch.arange(k1, device=self.device)
         draw_pos = seq_lens.long()[:, None] + 1 + offs[None, :]
         return sample(logits, self._dev("keys"), draw_pos,
@@ -1344,6 +1416,10 @@ class InferenceEngine:
         # flat aliases of the two headline rates
         out["prefix_hit_rate"] = out["prefix_cache"]["hit_rate"]
         out["spec_acceptance_rate"] = out["speculative"]["acceptance_rate"]
+        # the plan-sharded engines' fields (serve.sharded): plan,
+        # plan_world, hbm_model_bytes, hbm_chip_bytes and the strategy's own
+        if self.plan_stats is not None:
+            out.update(self.plan_stats())
         out["hists"] = {k: v.to_dict() for k, v in self.hists.items()}
         if self._slo is not None:
             out["slo_report"] = self._slo.report()

@@ -241,20 +241,29 @@ def data_parallel_share() -> int:
     return axis_info(DP_AXIS)[1] * axis_info(SP_AXIS)[1]
 
 
-def reduce_grads(params: Pytree, grads: Sequence[torch.Tensor]) -> Pytree:
+def reduce_grads(params: Pytree, grads: Sequence[torch.Tensor],
+                 specs: Optional[Pytree] = None) -> Pytree:
     """The tree of this rank's gradients as JAX's driver returns them (the
     module docstring): every leaf summed over dp and sp, ``embed`` and
-    ``head`` over pp too."""
+    ``head`` over pp too. ``specs`` (JAX's ``params_specs``, shaped like
+    ``params``): a leaf whose spec names dp is sharded over it (an expert
+    of ``transformer.moe``: its local gradient already holds every dp
+    rank's tokens, through the all-to-all's backward) and is not summed
+    over dp."""
     tree = tree_unflatten(params, list(grads))
 
     def over(axes):
-        def one(g):
+        def one(g, spec=()):
             for a in axes:
-                g = all_reduce(g, a)
+                if a != DP_AXIS or DP_AXIS not in tuple(spec):
+                    g = all_reduce(g, a)
             return g
         return one
 
-    return {k: tree_map(over((DP_AXIS, SP_AXIS)
-                             + ((PP_AXIS,) if k in ("embed", "head")
-                                else ())), v)
-            for k, v in tree.items()}
+    out = {}
+    for k, v in tree.items():
+        fn = over((DP_AXIS, SP_AXIS)
+                  + ((PP_AXIS,) if k in ("embed", "head") else ()))
+        out[k] = (tree_map(fn, v) if specs is None
+                  else tree_map(fn, v, specs[k]))
+    return out

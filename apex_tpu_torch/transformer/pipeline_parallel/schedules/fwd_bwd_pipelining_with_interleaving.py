@@ -77,12 +77,13 @@ def forward_backward_pipelining_with_interleaving(
     loss_scale=None,
     remat: bool = True,
     dropout_key=None,
+    params_specs=None,
 ) -> Tuple[torch.Tensor, Pytree]:
     """The driver (ref :25): the non-interleaved driver's contract, with
     ``params["stages"]`` this stage's ``[vp, ...]`` chunk stack (JAX's
     ``[vp, pp, ...]`` at this rank's pp index) and the chunk index folded
-    into each tick's dropout key. Encoder-decoder specs are refused, as
-    the reference does."""
+    into each tick's dropout key (``params_specs`` as there).
+    Encoder-decoder specs are refused, as the reference does."""
     from apex_tpu_torch.transformer.pipeline_parallel.schedules.fwd_bwd_enc_dec import (  # noqa: E501
         EncDecPipelineSpec,
     )
@@ -97,4 +98,4 @@ def forward_backward_pipelining_with_interleaving(
         spec, params, batch, num_microbatches=num_microbatches,
         virtual_pipeline_size=virtual_pipeline_size, mesh=mesh,
         data_spec=data_spec, loss_scale=loss_scale, remat=remat,
-        dropout_key=dropout_key)
+        dropout_key=dropout_key, params_specs=params_specs)

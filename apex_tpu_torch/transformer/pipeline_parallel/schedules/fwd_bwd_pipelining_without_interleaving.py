@@ -192,7 +192,7 @@ def pipeline_ring(
     return outs
 
 
-def finish(params, ys, loss_of, aux, scale, leaves):
+def finish(params, ys, loss_of, aux, scale, leaves, specs=None):
     """Differentiate this rank's share of JAX's replicated loss (the
     last stage's mean over dp × sp ranks; the aux over pp × dp × sp) and
     return ``(loss, grads)`` as the drivers do. Only the last stage runs
@@ -219,12 +219,13 @@ def finish(params, ys, loss_of, aux, scale, leaves):
     loss = replicate_loss(local.detach())
     if aux is not None:
         loss = loss + replicate_loss(aux.detach(), masked_axis=None)
-    return loss, reduce_grads(params, grads)
+    return loss, reduce_grads(params, grads, specs)
 
 
 def drive_pipeline(spec: PipelineSpec, params: Pytree, batch, *,
                    num_microbatches: int, virtual_pipeline_size, mesh,
-                   data_spec, loss_scale, remat: bool, dropout_key):
+                   data_spec, loss_scale, remat: bool, dropout_key,
+                   params_specs=None):
     """The body of the 1F1B and interleaved drivers: split and cut the
     batch, embed each microbatch, run the ring, differentiate."""
     check_dropout_spec(spec, dropout_key)
@@ -252,7 +253,7 @@ def drive_pipeline(spec: PipelineSpec, params: Pytree, batch, *,
             return [spec.loss_fn(params["head"], y,
                                  microbatch(targets_mb, m))
                     for m, y in enumerate(ys)]
-        return finish(params, ys, loss_of, aux, scale, leaves)
+        return finish(params, ys, loss_of, aux, scale, leaves, params_specs)
 
 
 def forward_backward_pipelining_without_interleaving(
@@ -266,6 +267,7 @@ def forward_backward_pipelining_without_interleaving(
     loss_scale=None,
     remat: bool = True,
     dropout_key=None,
+    params_specs=None,
 ) -> Tuple[torch.Tensor, Pytree]:
     """The driver (ref :155). ``batch = (inputs, targets)``, trees with a
     leading global-batch dim, split into ``[M, B/M, ...]`` microbatches
@@ -275,7 +277,10 @@ def forward_backward_pipelining_without_interleaving(
     the stage axis removed). Returns ``(mean_unscaled_loss, grads)``:
     the loss the same on every rank, the gradients of ``loss *
     loss_scale`` as the module docstring of ``schedules.common`` says.
-    ``mesh`` defaults to the current one.
+    ``mesh`` defaults to the current one. ``params_specs`` (JAX's, e.g.
+    ``gpt_pipeline_specs_tree(cfg)``) names the leaves sharded over dp,
+    whose gradients are not summed over it (the experts of a MoE model);
+    None: every leaf replicated over dp.
 
     ``dropout_key`` (a threefry key; the spec built with
     ``takes_dropout_key``) derives one key per microbatch, delivered to
@@ -295,4 +300,5 @@ def forward_backward_pipelining_without_interleaving(
     return drive_pipeline(
         spec, params, batch, num_microbatches=num_microbatches,
         virtual_pipeline_size=None, mesh=mesh, data_spec=data_spec,
-        loss_scale=loss_scale, remat=remat, dropout_key=dropout_key)
+        loss_scale=loss_scale, remat=remat, dropout_key=dropout_key,
+        params_specs=params_specs)

@@ -307,20 +307,30 @@ class _AllToAll(torch.autograd.Function):
     the backward is the inverse exchange."""
 
     @staticmethod
-    def forward(ctx, x, axis_name, split, concat):
-        ctx.args = (axis_name, split, concat)
-        return _all_to_all(x, axis_name, split, concat)
+    def forward(ctx, x, axis_name, split, concat, tag):
+        ctx.args = (axis_name, split, concat, tag)
+        return _all_to_all(x, axis_name, split, concat, tag)
 
     @staticmethod
     def backward(ctx, g):
-        axis_name, split, concat = ctx.args
-        return _all_to_all(g, axis_name, concat, split), None, None, None
+        axis_name, split, concat, tag = ctx.args
+        return (_all_to_all(g, axis_name, concat, split, tag), None, None,
+                None, None)
 
 
-def _all_to_all(x, axis_name, split, concat):
+def all_to_all_dims(x, axis_name: str, split: int, concat: int,
+                    tag: str = "ulysses"):
+    """The differentiable tiled all-to-all over ``axis_name`` (piece j of
+    ``x`` along ``split`` to rank j, the received pieces concatenated
+    along ``concat``; backward the inverse exchange), entered into the
+    ``comm.accounting`` records under ``tag``."""
+    return _AllToAll.apply(x, axis_name, split, concat, tag)
+
+
+def _all_to_all(x, axis_name, split, concat, tag):
     group, world, _ = axis_info(axis_name)
     pieces = torch.stack(x.chunk(world, dim=split)).contiguous()
-    out = coll.all_to_all(pieces.reshape(-1), group, world, tag="ulysses")
+    out = coll.all_to_all(pieces.reshape(-1), group, world, tag=tag)
     out = out.view(pieces.shape)
     return torch.cat(out.unbind(0), dim=concat)
 
@@ -368,7 +378,7 @@ def ulysses_attention(q, k, v, axis_name: str = SP_AXIS,
         seed = coll.fold_seed(dropout_seed, my)
 
     def to_heads(x):
-        return _AllToAll.apply(x, axis_name, 1, 2)
+        return all_to_all_dims(x, axis_name, 1, 2)
 
     o = attend(to_heads(q), to_heads(k), to_heads(v), seed)
-    return _AllToAll.apply(o, axis_name, 2, 1)
+    return all_to_all_dims(o, axis_name, 2, 1)

@@ -11,6 +11,7 @@ mapping                                    forward          backward
 ``scatter_to_tensor_model_parallel_...``   split last dim   all-gather
 ``gather_from_tensor_model_parallel_...``  all-gather last  split
 ``gather_from_sequence_parallel_region``   all-gather seq   reduce-scatter
+  (``tensor_parallel_output_grad=False``)                   split seq
 ``reduce_scatter_to_sequence_parallel_...``reduce-scatter   all-gather seq
 ``scatter_to_sequence_parallel_region``    slice seq        all-gather seq
 =========================================  ===============  ===============
@@ -139,6 +140,17 @@ class _SeqGather(torch.autograd.Function):
         return reduce_scatter_dim(g, *ctx.args), None, None
 
 
+class _SeqGatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, seq_axis):
+        ctx.args = (seq_axis, axis_name)
+        return all_gather_dim(x, seq_axis, axis_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, *ctx.args), None, None
+
+
 class _SeqReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis_name, seq_axis):
@@ -188,12 +200,19 @@ def gather_from_tensor_model_parallel_region(x, axis_name: str = TP_AXIS):
     return x if _world(axis_name) == 1 else _Gather.apply(x, axis_name)
 
 
-def gather_from_sequence_parallel_region(x, axis_name: str = TP_AXIS,
-                                         seq_axis: int = 1):
+def gather_from_sequence_parallel_region(
+        x, axis_name: str = TP_AXIS, seq_axis: int = 1,
+        tensor_parallel_output_grad: bool = True):
     """Megatron-SP's entry ``g``: the (b, s/tp, h) shards all-gathered along
-    the sequence; backward reduce-scatters the cotangent."""
+    the sequence; backward reduce-scatters the cotangent (the ranks hold
+    partial cotangents of a tensor-parallel region). With
+    ``tensor_parallel_output_grad=False`` (Megatron's flag) the region
+    after the gather is computed the same on every rank, its cotangent is
+    whole on each, and the backward keeps this rank's slice."""
     if _world(axis_name) == 1:
         return x
+    if not tensor_parallel_output_grad:
+        return _SeqGatherSplit.apply(x, axis_name, seq_axis)
     return _SeqGather.apply(x, axis_name, seq_axis)
 
 

@@ -19,6 +19,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     gpt_head,
     gpt_loss,
     gpt_param_specs,
+    gpt_params_from_numpy,
     gpt_pipeline_params,
     gpt_pipeline_params_numpy,
     gpt_pipeline_spec,

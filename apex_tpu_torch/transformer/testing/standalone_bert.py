@@ -32,7 +32,6 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch._device import DeviceLike
-from apex_tpu_torch.convert import params_from_numpy
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -47,6 +46,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
     _sp_param,
     embed_tokens,
     gpt_param_specs,
+    gpt_params_from_numpy,
     init_gpt_params_numpy,
     tied_vocab_logits,
 )
@@ -54,8 +54,8 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
 
 @dataclasses.dataclass(frozen=True)
 class BertConfig(GPTConfig):
-    """GPT's fields (GPT-2-124M's widths by default) and the number of
-    token types. ``num_experts`` stays refused (A7d)."""
+    """GPT's fields (GPT-2-124M's widths by default, the MoE fields
+    included) and the number of token types."""
 
     num_token_types: int = 2
 
@@ -88,9 +88,9 @@ def init_bert_params_numpy(cfg: BertConfig, seed: int = 0
 def init_bert_params(cfg: BertConfig, seed: int = 0,
                      device: DeviceLike = None) -> Dict[str, Any]:
     """Random parameters from a numpy seed, as ``cfg.dtype`` tensors on
-    ``device`` (default ``cuda``)."""
-    return params_from_numpy(init_bert_params_numpy(cfg, seed), device,
-                             dtype=cfg.dtype)
+    ``device`` (default ``cuda``; the MoE router fp32)."""
+    return gpt_params_from_numpy(init_bert_params_numpy(cfg, seed), cfg,
+                                 device)
 
 
 def bert_param_specs(cfg: BertConfig) -> Dict[str, Any]:
@@ -106,8 +106,9 @@ def bert_param_specs(cfg: BertConfig) -> Dict[str, Any]:
 
 def _bert_logits(params, tokens, cfg: BertConfig, token_types=None,
                  padding_mask=None):
-    """Vocab-sharded MLM logits (b, s, vocab/tp) in the model's dtype
-    (JAX's ``_bert_logits``, no MoE aux loss). Under ``cfg.megatron_sp``
+    """-> (vocab-sharded MLM logits (b, s, vocab/tp) in the model's dtype,
+    the layer mean of the MoE router loss or None) (JAX's
+    ``_bert_logits``). Under ``cfg.megatron_sp``
     the embedding exit reduce-scatters the sequence, the LN and head
     transform run on the (b, s/tp, h) shard (their replicated parameters'
     gradients summed over tp), and the tied head gathers it back."""
@@ -123,26 +124,30 @@ def _bert_logits(params, tokens, cfg: BertConfig, token_types=None,
                             _sp_param(e["type"], cfg)).to(x.dtype)
     x = layer_norm(x, *(_sp_param(e[k], cfg) for k in ("ln_w", "ln_b")))
     mask = None if padding_mask is None else padding_mask[:, None, None, :]
-    x = _layer_stack(params["layers"], x, cfg, causal=False, mask=mask)
+    x, aux = _layer_stack(params["layers"], x, cfg, causal=False, mask=mask)
     h = {k: _sp_param(v, cfg) for k, v in params["head"].items()}
     x = F.gelu(_dense(x, h["dense_kernel"], h["dense_bias"]),
                approximate="tanh")
     x = layer_norm(x, h["ln_w"], h["ln_b"])
-    return tied_vocab_logits(x, e["tok"], cfg.megatron_sp)
+    return tied_vocab_logits(x, e["tok"], cfg.megatron_sp), aux
 
 
 def bert_forward(params, tokens, cfg: BertConfig, token_types=None,
                  padding_mask=None):
     """tokens (b, s) -> MLM logits (b, s, vocab/tp). ``padding_mask`` (b,
-    s): True = pad, masked out of attention as a key."""
-    return _bert_logits(params, tokens, cfg, token_types, padding_mask)
+    s): True = pad, masked out of attention as a key. The MoE router loss
+    is dropped here (:func:`bert_mlm_loss` adds it)."""
+    return _bert_logits(params, tokens, cfg, token_types, padding_mask)[0]
 
 
 def bert_mlm_loss(params, tokens, targets, loss_mask, cfg: BertConfig,
                   token_types=None, padding_mask=None):
     """Masked-LM loss: the cross entropy over the positions where
-    ``loss_mask`` (b, s) is 1, their mean (0-d fp32)."""
-    logits = _bert_logits(params, tokens, cfg, token_types, padding_mask)
+    ``loss_mask`` (b, s) is 1, their mean (0-d fp32); with
+    ``cfg.num_experts`` the layer mean of the router loss is added."""
+    logits, aux = _bert_logits(params, tokens, cfg, token_types,
+                               padding_mask)
     per_tok = vocab_parallel_cross_entropy(logits, targets)
     m = loss_mask.to(torch.float32)
-    return (per_tok * m).sum() / torch.clamp(m.sum(), min=1.0)
+    loss = (per_tok * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return loss if aux is None else loss + aux

@@ -83,7 +83,7 @@ from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.dropout import hidden_dropout
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.ops.lm_head_loss import kernel_fits, lm_head_loss
-from apex_tpu_torch.parallel.mesh import PP_AXIS, SP_AXIS, TP_AXIS
+from apex_tpu_torch.parallel.mesh import DP_AXIS, PP_AXIS, SP_AXIS, TP_AXIS
 from apex_tpu_torch.transformer.pipeline_parallel.schedules.common import (
     PipelineSpec,
 )
@@ -101,6 +101,8 @@ from apex_tpu_torch.transformer.tensor_parallel.mappings import (
     axis_info,
     copy_to_tensor_model_parallel_region,
     gather_from_sequence_parallel_region,
+    reduce_from_tensor_model_parallel_region,
+    scatter_to_sequence_parallel_region,
 )
 from apex_tpu_torch.transformer.tensor_parallel.random import (
     attention_dropout_seed,
@@ -133,10 +135,14 @@ class GPTConfig:
     logits), ``attention_dropout`` and ``hidden_dropout`` (active when the
     loss is given a ``dropout_key``), ``megatron_sp`` (Megatron's sequence
     shards over tp between the tp blocks), ``overlap_comm`` (the tp
-    boundary collectives on ``comm.overlap``'s rings) and ``num_experts``
-    (0 only: mixture of experts is ROADMAP A7d). Left out, as TPU-only
-    tuning: ``scan_unroll``, ``ln_pallas``, ``attn_block_q/k``,
-    ``lm_block_n/v``, and the MoE routing fields.
+    boundary collectives on ``comm.overlap``'s rings), ``num_experts``
+    (> 0: every layer's FFN is ``transformer.moe``'s mixture of experts,
+    experts over dp, the layer mean of the router loss added to the loss),
+    ``moe_top_k``, ``moe_capacity_factor`` and ``moe_seq_dispatch``
+    (under ``megatron_sp``, route each rank's sequence shard and gather
+    the kept slots instead of the sequence). Left out, as TPU-only
+    tuning: ``scan_unroll``, ``ln_pallas``, ``attn_block_q/k`` and
+    ``lm_block_n/v``.
     """
 
     vocab_size: int = 50304
@@ -155,6 +161,9 @@ class GPTConfig:
     megatron_sp: bool = False
     overlap_comm: bool = False
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_seq_dispatch: bool = False
 
     @property
     def ffn_hidden(self) -> int:
@@ -165,8 +174,9 @@ class GPTConfig:
         return self.hidden // self.num_heads
 
     def validate(self, tp: int = 1, sp: int = 1) -> None:
-        """JAX's checks for a tp × sp layout (and the port's dtypes);
-        ``num_experts`` raises, naming A7d."""
+        """JAX's checks for a tp × sp layout (and the port's dtypes); with
+        ``num_experts``, :class:`~apex_tpu_torch.transformer.moe.MoEConfig`
+        checks the routing fields."""
         if self.hidden % self.num_heads:
             raise ValueError("hidden must be divisible by num_heads")
         for name, dim in (("vocab_size", self.vocab_size),
@@ -192,9 +202,16 @@ class GPTConfig:
                 f"max_seq ({self.max_seq}) must be divisible by "
                 f"tp*sp ({tp}*{sp})")
         if self.num_experts:
-            raise NotImplementedError(
-                f"GPTConfig.num_experts={self.num_experts!r} is not ported: "
-                f"mixture of experts is multi-device (A7d)")
+            self.moe_config  # MoEConfig.__post_init__ owns the MoE checks
+
+    @property
+    def moe_config(self):
+        from apex_tpu_torch.transformer.moe import MoEConfig
+
+        return MoEConfig(num_experts=self.num_experts, hidden=self.hidden,
+                         ffn_hidden=self.ffn_hidden, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor,
+                         dtype=self.dtype)
 
 
 def init_gpt_params_numpy(cfg: GPTConfig, seed: int = 0
@@ -202,7 +219,11 @@ def init_gpt_params_numpy(cfg: GPTConfig, seed: int = 0
     """The parameter tree as float32 numpy arrays, drawn from
     ``np.random.default_rng(seed)`` with the JAX package's scheme:
     normal(0.02) input projections and embeddings, output projections
-    scaled by 1/sqrt(2L), zero biases, unit LN weights."""
+    scaled by 1/sqrt(2L), zero biases, unit LN weights. With
+    ``num_experts`` the FFN leaves are the experts' (JAX's shapes): a
+    normal(0.02) ``router`` (L, h, E), which :func:`gpt_params_from_numpy`
+    keeps fp32, and the fc kernels and biases with a leading ``E`` after
+    ``L``."""
     cfg.validate()
     rng = np.random.default_rng(seed)
     h, f, L = cfg.hidden, cfg.ffn_hidden, cfg.num_layers
@@ -227,38 +248,77 @@ def init_gpt_params_numpy(cfg: GPTConfig, seed: int = 0
             "out_kernel": normal((L, h, h), out_std),
             "out_bias": zeros(L, h),
             "ln2_w": ones(L, h), "ln2_b": zeros(L, h),
-            "fc1_kernel": normal((L, h, f), 0.02),
-            "fc1_bias": zeros(L, f),
-            "fc2_kernel": normal((L, f, h), out_std),
-            "fc2_bias": zeros(L, h),
         },
         "head": {"ln_w": ones(h), "ln_b": zeros(h)},
     }
+    layers = params["layers"]
+    if cfg.num_experts:
+        e = cfg.num_experts
+        layers.update(router=normal((L, h, e), 0.02),
+                      fc1_kernel=normal((L, e, h, f), 0.02),
+                      fc1_bias=zeros(L, e, f),
+                      fc2_kernel=normal((L, e, f, h), out_std),
+                      fc2_bias=zeros(L, e, h))
+    else:
+        layers.update(fc1_kernel=normal((L, h, f), 0.02),
+                      fc1_bias=zeros(L, f),
+                      fc2_kernel=normal((L, f, h), out_std),
+                      fc2_bias=zeros(L, h))
     if not cfg.tie_embeddings:
         params["head"]["lm"] = normal((h, cfg.vocab_size), 0.02)
     return params
 
 
+def _with_fp32_router(params, tree, convert, group: str = "layers"):
+    """JAX initialises the MoE router fp32 whatever the model dtype (its
+    logits feed softmax and top-k): ``params[group]["router"]``, cast with
+    the other leaves, converted again from ``tree`` by ``convert`` with no
+    dtype."""
+    if "router" in tree.get(group, {}):
+        sub = convert({group: {"router": tree[group]["router"]}})
+        params[group]["router"] = sub[group]["router"]
+    return params
+
+
+def gpt_params_from_numpy(tree: Dict[str, Any], cfg: GPTConfig,
+                          device: DeviceLike = None) -> Dict[str, Any]:
+    """A GPT or BERT tree of numpy arrays (:func:`init_gpt_params_numpy`'s,
+    or JAX's taken to numpy) as ``cfg.dtype`` tensors on ``device``
+    (default ``cuda``), the MoE router fp32."""
+    return _with_fp32_router(
+        params_from_numpy(tree, device, dtype=cfg.dtype), tree,
+        lambda t: params_from_numpy(t, device))
+
+
 def init_gpt_params(cfg: GPTConfig, seed: int = 0,
                     device: DeviceLike = None) -> Dict[str, Any]:
     """Random parameters from a numpy seed, as ``cfg.dtype`` tensors on
-    ``device`` (default ``cuda``)."""
-    return params_from_numpy(init_gpt_params_numpy(cfg, seed), device,
-                             dtype=cfg.dtype)
+    ``device`` (default ``cuda``; the MoE router fp32)."""
+    return gpt_params_from_numpy(init_gpt_params_numpy(cfg, seed), cfg,
+                                 device)
 
 
 def gpt_param_specs(cfg: GPTConfig) -> Dict[str, Any]:
     """Partition specs matching :func:`init_gpt_params` (JAX's
     ``gpt_param_specs``): the Megatron dims over tp (the stacked layer dim
-    leads), everything else whole."""
+    leads), everything else whole; with ``num_experts`` the experts over dp
+    (``moe.moe_param_specs``: each rank owns E/dp experts)."""
     layer = {
         "ln1_w": P(None), "ln1_b": P(None),
         "qkv_kernel": P(None, None, TP_AXIS), "qkv_bias": P(None, TP_AXIS),
         "out_kernel": P(None, TP_AXIS, None), "out_bias": P(None),
         "ln2_w": P(None), "ln2_b": P(None),
-        "fc1_kernel": P(None, None, TP_AXIS), "fc1_bias": P(None, TP_AXIS),
-        "fc2_kernel": P(None, TP_AXIS, None), "fc2_bias": P(None),
     }
+    if cfg.num_experts:
+        from apex_tpu_torch.transformer.moe import moe_param_specs
+
+        layer.update({k: P(None, *s)
+                      for k, s in moe_param_specs(DP_AXIS).items()})
+    else:
+        layer.update({
+            "fc1_kernel": P(None, None, TP_AXIS),
+            "fc1_bias": P(None, TP_AXIS),
+            "fc2_kernel": P(None, TP_AXIS, None), "fc2_bias": P(None)})
     specs = {"embed": {"tok": P(TP_AXIS, None), "pos": P()},
              "layers": layer, "head": {"ln_w": P(), "ln_b": P()}}
     if not cfg.tie_embeddings:
@@ -292,12 +352,15 @@ def shard_params(params, specs):
 def gather_grads(grads, specs):
     """The global gradient tree from this rank's local one (``shard_map``'s
     ``out_specs`` and the boundary's sum): each leaf summed over dp and sp
-    (the axes the tokens are sharded on, where every parameter is
-    replicated) and gathered along the dims its spec names. The same tree
-    on every rank."""
+    (the axes the tokens are sharded on) where it is replicated over them,
+    and gathered along the dims its spec names. An expert leaf is sharded
+    over dp: its local gradient already holds every rank's tokens (the
+    backward of the all-to-all), so it is gathered along ``E``, not
+    summed. The same tree on every rank."""
     def assemble(g, spec):
-        for axis in ("dp", SP_AXIS):
-            g = all_reduce(g, axis)
+        for axis in (DP_AXIS, SP_AXIS):
+            if axis not in tuple(spec):
+                g = all_reduce(g, axis)
         for dim, axis in enumerate(spec):
             if axis is not None:
                 g = all_gather_dim(g, dim, axis)
@@ -415,11 +478,40 @@ def _attention(p, x, cfg: GPTConfig, causal: bool = True, mask=None,
 
 
 def _mlp(p, x, cfg: GPTConfig):
-    """Column-parallel FC1 + tanh-approximated GELU + row-parallel FC2
-    (JAX ``_mlp``, dense FFN)."""
+    """-> ``(out, aux)`` (JAX ``_mlp``). Dense: column-parallel FC1 +
+    tanh-approximated GELU + row-parallel FC2, ``aux`` None. With
+    ``cfg.num_experts`` the FFN is ``moe.moe_mlp`` (experts over dp) and
+    ``aux`` its weighted router loss, on JAX's three branches: plain;
+    under ``megatron_sp`` the sequence gathered for the MoE region (every
+    tp rank then computes the same region, so the gather's backward keeps
+    this rank's slice) and the shard sliced back out; with
+    ``moe_seq_dispatch`` too, each rank routes its own shard
+    (``seq_shard_axis``), the router's gradient summed over tp, and the
+    per-shard router loss averaged over tp (the loss stays the same on
+    every tp rank)."""
+    if cfg.num_experts:
+        from apex_tpu_torch.transformer.moe import moe_mlp
+
+        mcfg = cfg.moe_config
+        if cfg.megatron_sp and cfg.moe_seq_dispatch:
+            p = dict(p, router=copy_to_tensor_model_parallel_region(
+                p["router"]))
+            out, aux = moe_mlp(p, x, mcfg, ep_axis=DP_AXIS,
+                               seq_shard_axis=TP_AXIS)
+            loss = aux["loss"]
+            if _tp() > 1:
+                loss = reduce_from_tensor_model_parallel_region(loss) / _tp()
+            return out, loss
+        if cfg.megatron_sp:
+            x = gather_from_sequence_parallel_region(
+                x, tensor_parallel_output_grad=False)
+            out, aux = moe_mlp(p, x, mcfg, ep_axis=DP_AXIS)
+            return scatter_to_sequence_parallel_region(out), aux["loss"]
+        out, aux = moe_mlp(p, x, mcfg, ep_axis=DP_AXIS)
+        return out, aux["loss"]
     y = F.gelu(_column(x, p["fc1_kernel"], p["fc1_bias"], cfg),
                approximate="tanh")
-    return _row(y, p["fc2_kernel"], p["fc2_bias"], cfg)
+    return _row(y, p["fc2_kernel"], p["fc2_bias"], cfg), None
 
 
 def _hidden_key(key, cfg: GPTConfig):
@@ -439,10 +531,10 @@ def _hidden_key(key, cfg: GPTConfig):
 
 def _layer(p, x, cfg: GPTConfig, causal: bool = True, mask=None,
            dropout_key=None):
-    """Pre-LN transformer layer (JAX ``_layer`` at tp = sp = 1): attention
-    (with in-kernel attention dropout) -> hidden dropout -> residual; MLP
-    -> hidden dropout -> residual. ``dropout_key`` splits in three:
-    attention, then each branch's hidden dropout."""
+    """Pre-LN transformer layer (JAX ``_layer``): attention (with in-kernel
+    attention dropout) -> hidden dropout -> residual; MLP -> hidden dropout
+    -> residual. ``dropout_key`` splits in three: attention, then each
+    branch's hidden dropout. Returns ``(x, aux)`` (``_mlp``'s aux)."""
     k_attn = k_h1 = k_h2 = None
     if dropout_key is not None:
         k_attn, k_h1, k_h2 = split(dropout_key, 3)
@@ -454,10 +546,10 @@ def _layer(p, x, cfg: GPTConfig, causal: bool = True, mask=None,
         a = hidden_dropout(a, cfg.hidden_dropout, k_h1)
     x = x + a
     ln2 = [_sp_param(p[k], cfg) for k in ("ln2_w", "ln2_b")]
-    m = _mlp(p, layer_norm(x, *ln2), cfg)
+    m, aux = _mlp(p, layer_norm(x, *ln2), cfg)
     if k_h2 is not None and cfg.hidden_dropout > 0.0:
         m = hidden_dropout(m, cfg.hidden_dropout, k_h2)
-    return x + m
+    return x + m, aux
 
 
 def dots_attn_policy():
@@ -481,7 +573,9 @@ def _layer_stack(layers, x, cfg: GPTConfig, causal: bool = True, mask=None,
     i)`` (the key first folded by the pp rank over a pipeline of several
     stages, as JAX's), an argument of the recomputed function, so the
     recompute drops the same elements. The stacked leaves are unbound
-    once, so their gradients are stacked once in backward."""
+    once, so their gradients are stacked once in backward. Returns ``(x,
+    aux)``: the layer mean of the MoE router loss (fp32), None for a
+    dense FFN."""
     tp = _tp()
     if cfg.num_heads % tp:
         raise ValueError(
@@ -501,10 +595,13 @@ def _layer_stack(layers, x, cfg: GPTConfig, causal: bool = True, mask=None,
     one = _layer
     if cfg.remat and torch.is_grad_enabled():
         one = checkpoint_saving(_layer, _REMAT_SAVES[cfg.remat_policy])
+    auxes = []
     for i, vals in enumerate(zip(*per_leaf)):
         key = None if dropout_key is None else fold_in(dropout_key, i)
-        x = one(dict(zip(names, vals)), x, cfg, causal, mask, key)
-    return x
+        x, aux = one(dict(zip(names, vals)), x, cfg, causal, mask, key)
+        if aux is not None:
+            auxes.append(aux)
+    return x, (torch.stack(auxes).mean() if auxes else None)
 
 
 def _embed_with_dropout(embed, tokens, cfg: GPTConfig, dropout_key):
@@ -551,7 +648,7 @@ def gpt_forward(params, tokens, cfg: GPTConfig, dropout_key=None):
     threefry ``uint32[2]``) turns on cfg's dropout rates: training mode."""
     cfg.validate()
     x = _embed_with_dropout(params["embed"], tokens, cfg, dropout_key)
-    x = _layer_stack(params["layers"], x, cfg, dropout_key=dropout_key)
+    x, _ = _layer_stack(params["layers"], x, cfg, dropout_key=dropout_key)
     return gpt_head(params, x, cfg)
 
 
@@ -589,21 +686,24 @@ def gpt_loss(params, tokens, targets, cfg: GPTConfig, dropout_key=None):
     a 0-d fp32 tensor. With ``cfg.fused_loss`` (and the kernel's shape
     gate on the card) the head is fused into the loss and the logits are
     never materialized; otherwise logits + ``vocab_parallel_cross_entropy``.
+    With ``cfg.num_experts`` the layer mean of the router loss is added.
     ``dropout_key`` (a threefry ``uint32[2]``, JAX's key data) turns on
     cfg's dropout rates; None is eval mode. Under a mesh: this rank's
     local parameters and token shard, the mean over this rank's tokens.
     """
     cfg.validate()
     x = _embed_with_dropout(params["embed"], tokens, cfg, dropout_key)
-    x = _layer_stack(params["layers"], x, cfg, dropout_key=dropout_key)
+    x, aux = _layer_stack(params["layers"], x, cfg, dropout_key=dropout_key)
     if not _use_fused_loss(cfg, tokens.numel(), tokens.device):
         logits = gpt_head(params, x, cfg)
-        return vocab_parallel_cross_entropy(logits, targets).mean()
-    head = params["head"]
-    w = (params["embed"]["tok"] if cfg.tie_embeddings
-         else head["lm"].t())  # (vocab/tp, hidden) rows
-    return fused_head_loss(w, head["ln_w"], head["ln_b"], x, targets,
-                           gather_sequence=cfg.megatron_sp)
+        loss = vocab_parallel_cross_entropy(logits, targets).mean()
+    else:
+        head = params["head"]
+        w = (params["embed"]["tok"] if cfg.tie_embeddings
+             else head["lm"].t())  # (vocab/tp, hidden) rows
+        loss = fused_head_loss(w, head["ln_w"], head["ln_b"], x, targets,
+                               gather_sequence=cfg.megatron_sp)
+    return loss if aux is None else loss + aux
 
 
 # ---------------------------------------------------------------------------
@@ -636,13 +736,16 @@ def gpt_pipeline_params(cfg: GPTConfig, pp: int, vp: int = None,
     """This rank's local pipeline tree (its stage, or its ``[vp, ...]``
     chunk stack, and its tp shards on the current mesh) of
     :func:`gpt_pipeline_params_numpy`, as ``cfg.dtype`` tensors on
-    ``device``: the schedules' ``params``."""
+    ``device`` (the MoE router fp32): the schedules' ``params``."""
     from apex_tpu_torch.convert import pipeline_params_from_numpy
 
-    return pipeline_params_from_numpy(
-        gpt_pipeline_params_numpy(cfg, pp, vp, seed), device,
-        dtype=cfg.dtype,
-        specs=gpt_pipeline_specs_tree(cfg, interleaved=vp is not None))
+    tree = gpt_pipeline_params_numpy(cfg, pp, vp, seed)
+    specs = gpt_pipeline_specs_tree(cfg, interleaved=vp is not None)
+    return _with_fp32_router(
+        pipeline_params_from_numpy(tree, device, dtype=cfg.dtype,
+                                   specs=specs), tree,
+        lambda t: pipeline_params_from_numpy(t, device, specs=specs),
+        "stages")
 
 
 def gpt_pipeline_specs_tree(cfg: GPTConfig, interleaved: bool = False
@@ -660,25 +763,36 @@ def gpt_pipeline_spec(cfg: GPTConfig, dropout: bool = False) -> PipelineSpec:
     """The three pipeline functions (JAX's ``gpt_pipeline_spec``). With
     ``dropout`` the embed and stage functions take the schedules'
     per-microbatch key (``takes_dropout_key``) and apply cfg's dropout
-    rates; pass ``dropout_key=`` to the driver. The loss is the fused
+    rates; pass ``dropout_key=`` to the driver. With ``cfg.num_experts``
+    the stage function also yields its layers' router loss
+    (``stage_aux``); pass the driver ``params_specs=
+    gpt_pipeline_specs_tree(cfg)`` so the expert gradients are not summed
+    over dp. The loss is the fused
     LM head over the untied head rows where ``_use_fused_loss`` allows it
     for the rows the kernel sees (the sequence gathered over tp under
     ``megatron_sp``), else the unfused vocab-parallel loss."""
     cfg.validate()
     untied = dataclasses.replace(cfg, tie_embeddings=False)
 
+    def _stage_out(out_aux):
+        # with experts the stage yields its layers' router loss too
+        # (stage_aux), which the schedules average and add
+        out, aux = out_aux
+        return (out, aux) if cfg.num_experts else out
+
     if dropout:
         def embed_fn(embed, tokens, key):
             return _embed_with_dropout(embed, tokens, cfg, key)
 
         def stage_fn(stage_layers, h, key):
-            return _layer_stack(stage_layers, h, cfg, dropout_key=key)
+            return _stage_out(_layer_stack(stage_layers, h, cfg,
+                                           dropout_key=key))
     else:
         def embed_fn(embed, tokens):
             return embed_tokens(embed, tokens, megatron_sp=cfg.megatron_sp)
 
         def stage_fn(stage_layers, h):
-            return _layer_stack(stage_layers, h, cfg)
+            return _stage_out(_layer_stack(stage_layers, h, cfg))
 
     def loss_fn(head, h, targets):
         rows = h.shape[0] * h.shape[1]

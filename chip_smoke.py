@@ -360,7 +360,34 @@
    schedules' device work (microbatching, the stage remat, the launch
    order), not the wire; pp > 1 is held to JAX on the CPU in ``gloo``
    (``tests/test_torch_pipeline_*.py``).
-24. Prints detail lines, the wall seconds of each phase (and of each
+24. ``moe`` (A7d.2): GPT-2-124M bf16 with 8 experts (top-2, capacity
+   factor 1.25) at 8 x 1024 on a one-rank NCCL group (ep = dp = 1, no
+   exchange), TP_STEPS ``FusedAdam(lr=1e-4)`` steps: JAX's single-expert
+   identity in fp32 at full width (E = 1, top-1, zero router, C = 8200:
+   the dense step plus ``lb_loss_weight``, loss and every leaf's norm
+   within 1e-5), the bf16 first step beside an fp32 step of the same
+   weights (``MOE_LOSS_RTOL``, ``MOE_GRAD_NORM_RTOL``,
+   ``MOE_GRAD_DIFF_RTOL``), that fp32 step beside the same GPT with a
+   plain MoE layer written without ``transformer.moe``
+   (``make_plain_moe_mlp``: loss and every leaf's difference within
+   ``MOE_PLAIN_RTOL``), finite losses,
+   launches a step equal to ``moe_launches``, no plain-version call, 0
+   synchronizing calls a step; ``fraction_kept`` a layer, step, host and
+   busy ms, peak memory.
+25. ``serve_pp`` / ``serve_fsdp`` (A8.2): the engine phase's requests
+   (the first 8) through ``serve.build_engine`` with
+   ``ParallelismPlan(pp=2)`` (both stages on the card; greedy and
+   ``spec_k = 3`` streams) and ``ParallelismPlan("fsdp", dp=1)`` (a
+   one-rank NCCL group; greedy streams), 16 slots, bitwise the plain
+   per-op engine's; a decode call's launches against their formulas
+   (M · L paged attention and M · (2L + 1) LN through the stages; with
+   the int8 ``weight_gather`` the codec's quantize and dequantize a
+   gathered leaf, ``fsdp_codec_launches``); the int8 engine's first
+   logits within ``FSDP_WG_LOGIT_RTOL``; bubble, step ms,
+   ``weight_gather_ms`` and the wire bytes. tp > 1 serving and ep > 1
+   need several cards: they are held to JAX on the CPU in ``gloo``
+   (``tests/test_torch_moe.py``, ``tests/test_torch_serve_sharded.py``).
+26. Prints detail lines, the wall seconds of each phase (and of each
    source's build), the card's ``nvidia-smi`` name and power limit,
    the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -8184,6 +8211,575 @@ def t5_pipeline_phase(torch, dev, ku, t5_train):
     return out
 
 
+# ---------------------------------------------------------------------------
+# mixture of experts (one rank: ep = dp = 1, no exchange)
+
+MOE_EXPERTS, MOE_TOP_K, MOE_FACTOR = 8, 2, 1.25
+MOE_PATH = ("GPT-2-124M bf16 with num_experts=8 (top-2, capacity factor "
+            "1.25), 8 x 1024, full remat, fused LM-head loss, "
+            "FusedAdam(lr=1e-4), on a one-rank NCCL group (ep = dp = 1)")
+# one fp32 step of JAX's single-expert identity (E = 1, top-1, a zero
+# router, factor 1.0: C = 8200 >= 8192 keeps every token) against the
+# dense gpt_loss step on the same weights plus lb_loss_weight: the loss
+# and every gradient leaf's norm
+MOE_FP32_RTOL = 1e-5
+# the bf16 8-expert first step against an fp32 run of the same weights and
+# batch (stated before the first run on the card): the loss within 1e-2
+# and each gradient leaf's norm within 5e-2 of the fp32 leaf's norm (a
+# routing decision may flip where bf16 moves a near tie, so the leaves
+# are held in norm, their differences reported)
+MOE_LOSS_RTOL = 1e-2
+MOE_GRAD_NORM_RTOL = 5e-2
+# the same bf16 step: each gradient leaf's difference from the fp32 leaf
+# within half the fp32 leaf's norm (a gradient of the same norm pointing
+# an unrelated way is about 1.4 off, a reversed one 2)
+MOE_GRAD_DIFF_RTOL = 0.5
+# one fp32 step of the 8-expert model against the same GPT with
+# plain_moe_mlp (no transformer.moe) in place of its MoE layer: the loss
+# and each gradient leaf's difference norm within 1e-5 of the plain
+# step's (relative)
+MOE_PLAIN_RTOL = 1e-5
+
+
+def moe_launches(n_leaves):
+    """Kernel launches of one MoE GPT-2 step: the dense step's table (the
+    routing, the dispatch, expert and combine products are torch.matmul /
+    bmm outside any kernel, as JAX's einsums) and one Adam tail a leaf
+    (17: the fp32 router and four expert leaves for the four dense FFN
+    leaves)."""
+    return dict(TRAIN_LAUNCHES, fused_adam_tail=n_leaves)
+
+
+def _loss_and_grads(torch, cfg, tree, dev, tok, tgt, dtype=None):
+    """One gpt_loss forward + backward of ``tree`` (numpy) as ``dtype``
+    tensors: the loss and each gradient leaf on the host."""
+    from apex_tpu_torch.convert import named_leaves, params_from_numpy
+    from apex_tpu_torch.transformer.testing import gpt_loss
+
+    params = params_from_numpy(tree, dev, dtype=dtype)
+    names = [k for k, _ in named_leaves(params)]
+    leaves = [p.requires_grad_() for _, p in named_leaves(params)]
+    loss = gpt_loss(params, tok, tgt, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    out = {k: g.detach().float().cpu() for k, g in zip(names, grads)}
+    del params, leaves, grads
+    torch.cuda.empty_cache()
+    return float(loss), out
+
+
+def moe_fp32_identity(torch, dev, tok, tgt):
+    """JAX's single-expert identity at full width in fp32: the MoE GPT
+    (E = 1, top-1, zero router, factor 1.0) carrying the dense GPT's FFN
+    as its expert equals the dense GPT plus ``lb_loss_weight`` (lb = 1,
+    z = 0), loss and every shared gradient leaf's norm within
+    MOE_FP32_RTOL."""
+    import dataclasses
+
+    import numpy as np
+
+    from apex_tpu_torch.transformer.testing import GPTConfig
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        init_gpt_params_numpy,
+    )
+
+    dense_cfg = GPTConfig(dtype=torch.float32)
+    moe_cfg = dataclasses.replace(dense_cfg, num_experts=1, moe_top_k=1,
+                                  moe_capacity_factor=1.0)
+    cap = moe_cfg.moe_config.capacity(TRAIN_ROWS)
+    if cap < TRAIN_ROWS:
+        raise AssertionError(f"capacity {cap} drops tokens")
+    dense = init_gpt_params_numpy(dense_cfg, seed=0)
+    layers = dict(dense["layers"])
+    for k in ("fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias"):
+        layers[k] = layers[k][:, None]
+    layers["router"] = np.zeros((dense_cfg.num_layers, dense_cfg.hidden, 1),
+                                np.float32)
+    tree = {"embed": dense["embed"], "layers": layers, "head": dense["head"]}
+    l_dense, g_dense = _loss_and_grads(torch, dense_cfg, dense, dev, tok, tgt)
+    l_moe, g_moe = _loss_and_grads(torch, moe_cfg, tree, dev, tok, tgt)
+    weight = moe_cfg.moe_config.lb_loss_weight
+    loss_rel = abs(l_moe - weight - l_dense) / abs(l_dense)
+    rel = {k: abs(float(g_moe[k].norm()) - float(g.norm()))
+           / max(float(g.norm()), 1e-30) for k, g in g_dense.items()}
+    worst = max(rel, key=rel.get)
+    if not (loss_rel <= MOE_FP32_RTOL and rel[worst] <= MOE_FP32_RTOL):
+        raise AssertionError(f"moe single-expert fp32 step vs dense + "
+                             f"{weight}: loss rel {loss_rel:.2e}, worst leaf "
+                             f"{worst} {rel[worst]:.2e} (limit "
+                             f"{MOE_FP32_RTOL})")
+    return {"capacity": cap, "loss_dense": l_dense, "loss_moe": l_moe,
+            "lb_loss_weight": weight, "loss_rel": loss_rel,
+            "worst_leaf": worst, "worst_leaf_norm_rel": rel[worst],
+            "rtol": MOE_FP32_RTOL}
+
+
+def make_plain_moe_mlp(margins):
+    """A stand-in for ``transformer.moe.moe_mlp`` at one rank, written
+    plainly without it: top-k by repeated argmax (the lower expert on
+    ties), the gates renormalised over k, then for each expert its
+    choices in priority order (every token's first choice in token order,
+    then every second choice) cut at the capacity, their rows gathered by
+    index through the expert's FFN and added back weighted by their gates;
+    the Switch and z losses as JAX defines them. Each call appends the
+    smallest gap between a token's k-th and (k+1)-th probability to
+    ``margins`` (how far a rounding difference must move a logit to
+    change a choice)."""
+    import torch
+    import torch.nn.functional as F
+
+    def plain_moe_mlp(params, x, cfg, ep_axis=None, seq_shard_axis=None):
+        if seq_shard_axis is not None:
+            raise ValueError("plain_moe_mlp: one rank's tokens only")
+        h = x.shape[-1]
+        xf = x.reshape(-1, h)
+        t, e, k = xf.shape[0], cfg.num_experts, cfg.top_k
+        cap = cfg.capacity(t)
+        logits = xf.float() @ params["router"]
+        probs = torch.softmax(logits, dim=-1)
+        rest = probs.detach().clone()
+        idx = []
+        for _ in range(k):
+            i = torch.argmax(rest, dim=-1)
+            idx.append(i)
+            rest.scatter_(1, i[:, None], -1.0)
+        if k < e:
+            nxt = rest.max(-1).values
+            margins.append(float((probs.gather(
+                1, idx[-1][:, None])[:, 0] - nxt).min()))
+        idx = torch.stack(idx, 1)                                 # (T, k)
+        gate = probs.gather(1, idx)
+        gate = gate / gate.sum(-1, keepdim=True)
+        out = torch.zeros_like(xf)
+        kept = 0
+        for ex in range(e):
+            rows = [torch.nonzero(idx[:, j] == ex)[:, 0] for j in range(k)]
+            gates = [gate[r, j] for j, r in enumerate(rows)]
+            rows, gates = torch.cat(rows)[:cap], torch.cat(gates)[:cap]
+            kept += rows.numel()
+            y = xf[rows] @ params["fc1_kernel"][ex].to(x.dtype)
+            y = F.gelu(y + params["fc1_bias"][ex], approximate="tanh")
+            y = y @ params["fc2_kernel"][ex].to(x.dtype)
+            y = y + params["fc2_bias"][ex]
+            out = out.index_add(0, rows, gates.to(x.dtype)[:, None] * y)
+        frac = F.one_hot(idx[:, 0], e).float().mean(0)
+        lb_loss = e * (frac * probs.mean(0)).sum()
+        z = torch.logsumexp(logits, dim=-1)
+        z_loss = (z * z).mean()
+        aux = {"lb_loss": lb_loss, "z_loss": z_loss,
+               "fraction_kept": torch.tensor(kept / (t * k),
+                                             device=x.device),
+               "loss": (cfg.lb_loss_weight * lb_loss
+                        + cfg.z_loss_weight * z_loss)}
+        return out.reshape(x.shape), aux
+
+    return plain_moe_mlp
+
+
+def moe_plain_check(torch, cfg32, tree, dev, tok, tgt, l32, g32):
+    """One fp32 step of the GPT with ``make_plain_moe_mlp``'s layer in
+    place of ``transformer.moe.moe_mlp`` against the port's fp32 step
+    (``l32``, ``g32``) on the same weights and batch: the loss and each
+    gradient leaf's difference norm within MOE_PLAIN_RTOL of the plain
+    step's."""
+    import apex_tpu_torch.transformer.moe as moe_mod
+
+    margins, orig = [], moe_mod.moe_mlp
+    moe_mod.moe_mlp = make_plain_moe_mlp(margins)
+    try:
+        lp, gp = _loss_and_grads(torch, cfg32, tree, dev, tok, tgt)
+    finally:
+        moe_mod.moe_mlp = orig
+    loss_rel = abs(l32 - lp) / abs(lp)
+    diff = {k: float((g32[k] - g).norm()) / max(float(g.norm()), 1e-30)
+            for k, g in gp.items()}
+    worst = max(diff, key=diff.get)
+    if not (loss_rel <= MOE_PLAIN_RTOL and diff[worst] <= MOE_PLAIN_RTOL):
+        raise AssertionError(
+            f"moe fp32 step vs the plain MoE layer: loss rel "
+            f"{loss_rel:.2e}, worst leaf difference {worst} "
+            f"{diff[worst]:.2e} (limit {MOE_PLAIN_RTOL})")
+    return {"loss_plain": lp, "loss_rel": loss_rel, "worst_leaf": worst,
+            "worst_leaf_diff_rel": diff[worst], "diff_norm_rel": diff,
+            "smallest_topk_margin": min(margins), "rtol": MOE_PLAIN_RTOL}
+
+
+def moe_fraction_kept(torch, cfg, params, tok, tgt):
+    """Each layer's ``fraction_kept`` on a no-grad forward (the first
+    step's weights): ``moe_mlp``'s aux, recorded around the call."""
+    import apex_tpu_torch.transformer.moe as moe_mod
+    from apex_tpu_torch.transformer.testing import gpt_loss
+
+    kept, orig = [], moe_mod.moe_mlp
+
+    def record(*a, **kw):
+        out, aux = orig(*a, **kw)
+        kept.append(aux["fraction_kept"])
+        return out, aux
+
+    moe_mod.moe_mlp = record
+    try:
+        with torch.no_grad():
+            gpt_loss(params, tok, tgt, cfg)
+    finally:
+        moe_mod.moe_mlp = orig
+    return torch.stack(kept).tolist()
+
+
+def moe_phase(torch, dev, ku):
+    """GPT-2-124M bf16 with 8 experts (MOE_PATH) on a one-rank NCCL group:
+    JAX's single-expert identity in fp32 (:func:`moe_fp32_identity`);
+    TP_STEPS steps of the 8-expert model under ``FusedAdam(lr=1e-4)``
+    (every loss finite, the first step's launches the formula's,
+    :func:`moe_launches`, no plain-version call, 0 synchronizing calls a
+    step), its first step beside an fp32 step of the same weights and
+    batch (MOE_LOSS_RTOL, MOE_GRAD_NORM_RTOL, MOE_GRAD_DIFF_RTOL), that
+    fp32 step beside the plain MoE layer's (:func:`moe_plain_check`);
+    each layer's ``fraction_kept``; step, host and busy ms and peak
+    memory."""
+    import dataclasses
+
+    from apex_tpu_torch.convert import named_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer import parallel_state
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules.common import (
+        trainable_leaves,
+    )
+    from apex_tpu_torch.transformer.testing import GPTConfig, gpt_loss
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        gpt_params_from_numpy,
+        init_gpt_params_numpy,
+    )
+
+    tok, tgt = (t.to(dev) for t in _gpt_batch(torch, GPTConfig().vocab_size,
+                                              DDP_BATCH, DDP_SEQ))
+    cfg = GPTConfig(num_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
+                    moe_capacity_factor=MOE_FACTOR)
+    result = {"path": MOE_PATH, "steps": TP_STEPS,
+              "capacity": cfg.moe_config.capacity(TRAIN_ROWS)}
+    with OneRankGroup(torch, dev) as group:
+        result["backend"] = group.backend
+        parallel_state.destroy_model_parallel()
+        parallel_state.initialize_model_parallel(1, 1)
+        result["fp32_identity"] = moe_fp32_identity(torch, dev, tok, tgt)
+        tree = init_gpt_params_numpy(cfg, seed=0)
+        result["n_params"] = sum(int(v.size)
+                                 for _, v in named_leaves(tree))
+
+        def build():
+            params = gpt_params_from_numpy(tree, cfg, dev)
+            if params["layers"]["router"].dtype != torch.float32:
+                raise AssertionError("the router is not fp32")
+            leaves = trainable_leaves(params)
+            opt = FusedAdam(leaves, lr=PIPE_LR)
+
+            def step():
+                loss = gpt_loss(params, tok, tgt, cfg)
+                for p, g in zip(leaves, torch.autograd.grad(loss, leaves)):
+                    p.grad = g
+                opt.step()
+                return loss.detach()
+            return step, params
+
+        params0 = gpt_params_from_numpy(tree, cfg, dev)
+        result["fraction_kept"] = moe_fraction_kept(torch, cfg, params0, tok,
+                                                    tgt)
+        del params0
+        run = pipe_run(torch, ku, build)
+        want = moe_launches(len(run["grads0"]))
+        if run["launches"] != want:
+            raise AssertionError(f"moe: launches {run['launches']}, the "
+                                 f"formula gives {want}")
+        if run["plain_calls"] or run["syncs_per_step"]:
+            raise AssertionError(f"moe: {run['plain_calls']} plain-version "
+                                 f"calls, {run['syncs_per_step']} "
+                                 f"synchronizing calls a step")
+        if not all(math.isfinite(v) for v in run["losses"]):
+            raise AssertionError(f"moe: non-finite loss {run['losses']}")
+        l32, g32 = _loss_and_grads(torch, dataclasses.replace(
+            cfg, dtype=torch.float32), tree, dev, tok, tgt)
+        g16 = {k.replace("stages.", "layers.", 1): g
+               for k, g in run.pop("grads0").items()}
+        loss_rel = abs(run["losses"][0] - l32) / abs(l32)
+        norm_rel = {k: abs(float(g16[k].norm()) - float(g.norm()))
+                    / max(float(g.norm()), 1e-30) for k, g in g32.items()}
+        diff_rel = {k: float((g16[k] - g).norm())
+                    / max(float(g.norm()), 1e-30) for k, g in g32.items()}
+        worst = max(norm_rel, key=norm_rel.get)
+        worst_diff = max(diff_rel, key=diff_rel.get)
+        if not (loss_rel <= MOE_LOSS_RTOL
+                and norm_rel[worst] <= MOE_GRAD_NORM_RTOL
+                and diff_rel[worst_diff] <= MOE_GRAD_DIFF_RTOL):
+            raise AssertionError(
+                f"moe bf16 first step vs fp32: loss rel {loss_rel:.2e} "
+                f"(limit {MOE_LOSS_RTOL}), worst leaf norm {worst} "
+                f"{norm_rel[worst]:.2e} (limit {MOE_GRAD_NORM_RTOL}), "
+                f"worst leaf difference {worst_diff} "
+                f"{diff_rel[worst_diff]:.2e} (limit {MOE_GRAD_DIFF_RTOL})")
+        result["bf16_vs_fp32"] = {
+            "loss_fp32": l32, "loss_rel": loss_rel, "worst_leaf": worst,
+            "worst_leaf_norm_rel": norm_rel[worst],
+            "worst_diff_leaf": worst_diff,
+            "worst_leaf_diff_rel": diff_rel[worst_diff],
+            "diff_norm_rel": diff_rel, "loss_rtol": MOE_LOSS_RTOL,
+            "grad_norm_rtol": MOE_GRAD_NORM_RTOL,
+            "grad_diff_rtol": MOE_GRAD_DIFF_RTOL}
+        result["fp32_vs_plain"] = moe_plain_check(
+            torch, dataclasses.replace(cfg, dtype=torch.float32), tree, dev,
+            tok, tgt, l32, g32)
+        result.update(pipe_record(run, {"launches_formula": want}))
+        parallel_state.destroy_model_parallel()
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# plan-sharded serving (serve.sharded, one card)
+
+# 16 slots: a pipeline decode call's microbatches hold 8 rows each, inside
+# the LayerNorm kernel's gate (JAX's: whole 8-row blocks)
+SERVE_SLOTS = 16
+# the first 8 of the engine phase's 16 requests (the phases' time: the
+# per-op engines are host-bound, ≈ 1 s a request)
+SERVE_REQUESTS = 8
+SERVE_PP_PATH = ("the engine phase's GPT-2-124M bf16 requests through "
+                 "build_engine(ServeConfig(num_slots=16, prefill_chunk=32, "
+                 "plan=ParallelismPlan(pp=2))), both stages on the card")
+SERVE_FSDP_PATH = ("the same requests through build_engine with "
+                   "ParallelismPlan('fsdp', dp=1) on a one-rank NCCL group "
+                   "(each layer's weights gathered from its resident shard "
+                   "every call)")
+# the int8 weight_gather engine's first prefill logits against the plain
+# engine's (stated before the first run on the card): the largest logit
+# difference within 5e-2 of the largest plain logit
+FSDP_WG_LOGIT_RTOL = 5e-2
+
+
+def plan_last_logits(torch, eng, tokens, chunk: int = 32):
+    """Next-token logits after ``tokens`` through ``eng``'s per-op prefill
+    program (its params, ``gather_layer`` and tp axis) into a fresh cache
+    of its layout."""
+    from apex_tpu_torch.serve import gpt_prefill_chunk, init_kv_cache
+
+    dev = eng.device
+    cache = init_kv_cache(eng.kv_cfg, dev)
+    row = torch.arange(eng._blocks_per_slot, dtype=torch.int32, device=dev)
+    logits = None
+    for c in range(0, len(tokens), chunk):
+        part = tokens[c:c + chunk]
+        t = torch.zeros(chunk, dtype=torch.int32, device=dev)
+        t[:len(part)] = torch.tensor(part, dtype=torch.int32, device=dev)
+        cache, logits = gpt_prefill_chunk(eng.params, t, c, len(part), cache,
+                                          row, eng.cfg, eng.kv_cfg,
+                                          **eng._per_op_kw())
+    return logits
+
+
+def run_plan_engine(torch, ku, eng, requests):
+    """Serve ``requests`` on ``eng`` (counts reset just before, read just
+    after): the streams, the run's launches and wall seconds, and
+    ``stats()``."""
+    ku.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = eng.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return streams, ku.launch_counts(), wall, eng.stats()
+
+
+def decode_call_launches(torch, ku, eng):
+    """Kernel launches of one decode call of ``eng`` (every slot's row) once
+    eight slots are decoding and no prompt is left to prefill."""
+    from apex_tpu_torch.serve import Request
+
+    for i in range(8):
+        eng.submit(Request(f"p{i}", list(range(1 + i, 17 + i)),
+                           max_new_tokens=24))
+    while eng._pending or eng._prefill_queue:
+        eng.step()
+    torch.cuda.synchronize()
+    ku.reset_launch_counts()
+    eng.step()
+    torch.cuda.synchronize()
+    return ku.launch_counts()
+
+
+def serve_plain_streams(torch, dev, params, cfg, requests):
+    """The plain engine's per-op runs (``megakernel="off"``), greedy and
+    ``spec_k = 3``: their streams, what the plan engines are held to, and
+    figures."""
+    return {k: serve(torch, params, cfg, dev, k, requests,
+                     num_slots=SERVE_SLOTS, megakernel="off")
+            for k in (0, 3)}
+
+
+def per_op_decode_launches(cfg, rows: int, calls: int = 1):
+    """A per-op decode call's launches over ``calls`` row groups of
+    ``rows`` rows: paged attention a layer, LayerNorm twice a layer and
+    once in the head where its gate takes the rows."""
+    import importlib
+
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+    L = cfg.num_layers
+    out = {"paged_mma_fwd": calls * L}
+    if ln._pallas_ok(rows, cfg.hidden):
+        out["layer_norm_fwd"] = calls * (2 * L + 1)
+    return out
+
+
+def serve_pp_phase(torch, dev, ku):
+    """SERVE_PP_PATH: the greedy and ``spec_k = 3`` streams bitwise the
+    plain engine's at ``megakernel="off"``; paged-attention and LN
+    launches of one decode call (M microbatches through both stages:
+    :func:`per_op_decode_launches` over M groups of 16 / M rows), the
+    modelled and measured bubble, step ms."""
+    from apex_tpu_torch.parallel import ParallelismPlan
+    from apex_tpu_torch.serve import ServeConfig, build_engine
+    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+
+    cfg = GPTConfig()
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    requests = make_requests(cfg.vocab_size)[:SERVE_REQUESTS]
+    runs = serve_plain_streams(torch, dev, params, cfg, requests)
+    plain = {k: s for k, (s, _) in runs.items()}
+    result = {"path": SERVE_PP_PATH, "runs": {}, "plain": {
+        f"spec_k_{k}": {f: st[f] for f in ("steps", "decode_step_ms_p50",
+                                           "tokens_per_s", "wall_s")}
+        for k, (_, st) in runs.items()}}
+    for k in (0, 3):
+        eng = build_engine(params, cfg, ServeConfig(
+            num_slots=SERVE_SLOTS, prefill_chunk=32, spec_k=k,
+            plan=ParallelismPlan(pp=2)), device=dev, devices=[dev, dev])
+        streams, launches, wall, st = run_plan_engine(torch, ku, eng,
+                                                      requests)
+        streams_equal(torch, f"serve_pp spec_k={k} vs the plain per-op "
+                      f"engine", streams, plain[k], requests)
+        result["runs"][f"spec_k_{k}"] = {
+            "launches_run": launches, "wall_s": wall,
+            "steps": st["steps"],
+            "decode_step_ms_p50": st.get("decode_step_ms_p50"),
+            "tokens_per_s": st.get("tokens_per_s"),
+            **{f: st[f] for f in ("decode_kernel", "pp_microbatches",
+                                  "pp_bubble_fraction",
+                                  "pp_bubble_fraction_modeled",
+                                  "pp_credit_waits", "hbm_model_bytes",
+                                  "hbm_chip_bytes")}}
+        del eng
+    eng = build_engine(params, cfg, ServeConfig(
+        num_slots=SERVE_SLOTS, prefill_chunk=32, plan=ParallelismPlan(pp=2)),
+        device=dev, devices=[dev, dev])
+    M = eng.stats()["pp_microbatches"]
+    call = decode_call_launches(torch, ku, eng)
+    want = per_op_decode_launches(cfg, SERVE_SLOTS // M, M)
+    if call != want:
+        raise AssertionError(f"serve_pp decode call launched {call}, the "
+                             f"formula gives {want}")
+    result["decode_call_launches"] = call
+    del eng, params
+    torch.cuda.empty_cache()
+    return result, plain
+
+
+def fsdp_codec_launches(cfg, wg):
+    """Quantize and dequantize launches of one call of an fsdp engine with
+    ``weight_gather=wg``: one each for every leaf of every layer whose
+    gather is compressed (``wg.compresses``: the codec's kernels take
+    every such shard on the card, ``CompressionConfig.quantize``)."""
+    import math as _m
+
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        gpt_param_specs,
+    )
+
+    h, f = cfg.hidden, cfg.ffn_hidden
+    shapes = {"ln1_w": (h,), "ln1_b": (h,), "qkv_kernel": (h, 3 * h),
+              "qkv_bias": (3 * h,), "out_kernel": (h, h), "out_bias": (h,),
+              "ln2_w": (h,), "ln2_b": (h,), "fc1_kernel": (h, f),
+              "fc1_bias": (f,), "fc2_kernel": (f, h), "fc2_bias": (h,)}
+    assert set(shapes) == set(gpt_param_specs(cfg)["layers"])
+    n_kernel = sum(wg.compresses(_m.prod(s)) for s in shapes.values())
+    return {"quantize_blockwise[nearest]": cfg.num_layers * n_kernel,
+            "dequantize_blockwise": cfg.num_layers * n_kernel}
+
+
+def serve_fsdp_phase(torch, dev, ku, plain):
+    """SERVE_FSDP_PATH: the greedy streams bitwise the plain per-op
+    engine's, the first prefill logits too; with
+    ``weight_gather=CompressionConfig(policy="int8")``, a decode call's
+    quantize and dequantize launches the formula's
+    (:func:`fsdp_codec_launches`) beside the layers' paged attention and
+    LN, the first prefill logits within FSDP_WG_LOGIT_RTOL of the plain
+    engine's; ``weight_gather_ms`` and the wire bytes reported."""
+    from apex_tpu_torch.comm import CompressionConfig
+    from apex_tpu_torch.parallel import ParallelismPlan
+    from apex_tpu_torch.serve import InferenceEngine, ServeConfig, \
+        build_engine
+    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+
+    cfg = GPTConfig()
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    requests = make_requests(cfg.vocab_size)[:SERVE_REQUESTS]
+    probe = requests[1].tokens[:40]
+    base = InferenceEngine(params, cfg, ServeConfig(
+        num_slots=SERVE_SLOTS, prefill_chunk=32, megakernel="off"),
+        device=dev)
+    want_logits = plan_last_logits(torch, base, probe)
+    del base
+    result = {"path": SERVE_FSDP_PATH, "runs": {}}
+    wg8 = CompressionConfig(policy="int8")
+    with OneRankGroup(torch, dev) as group:
+        result["backend"] = group.backend
+        for name, wg in (("none", None), ("int8", wg8)):
+            plan = ParallelismPlan("fsdp", dp=1, weight_gather=wg)
+
+            eng = build_engine(params, cfg, ServeConfig(
+                num_slots=SERVE_SLOTS, prefill_chunk=32, plan=plan),
+                device=dev)
+            logits = plan_last_logits(torch, eng, probe)
+            err = float((logits - want_logits).abs().max())
+            scale = float(want_logits.abs().max())
+            rec = {"first_logits_max_abs_err": err,
+                   "first_logits_rel_of_max": err / scale}
+            if wg is None:
+                if not torch.equal(logits, want_logits):
+                    raise AssertionError(f"serve_fsdp: first logits differ "
+                                         f"from the plain engine's ({err})")
+            elif not err <= FSDP_WG_LOGIT_RTOL * scale:
+                raise AssertionError(
+                    f"serve_fsdp int8 weight_gather: first logits max abs "
+                    f"err {err:.3e} > {FSDP_WG_LOGIT_RTOL} x {scale:.3f}")
+            if wg is None:
+                # the whole run only without a codec (int8 weights move
+                # the greedy streams: not a claim this phase makes)
+                streams, launches, wall, st = run_plan_engine(torch, ku, eng,
+                                                              requests)
+                streams_equal(torch, "serve_fsdp vs the plain per-op engine",
+                              streams, plain[0], requests)
+                rec["run"] = {
+                    "launches_run": launches, "wall_s": wall,
+                    "steps": st["steps"],
+                    "decode_step_ms_p50": st.get("decode_step_ms_p50"),
+                    "tokens_per_s": st.get("tokens_per_s")}
+            call = decode_call_launches(torch, ku, eng)
+            st = eng.stats()
+            rec.update({f: st[f] for f in (
+                "decode_kernel", "plan_world", "hbm_model_bytes",
+                "hbm_chip_bytes", "weight_gather_ms",
+                "weight_gather_wire_bytes")})
+            want = per_op_decode_launches(cfg, SERVE_SLOTS)
+            if wg is not None:
+                want.update(fsdp_codec_launches(cfg, wg))
+            if call != want:
+                raise AssertionError(f"serve_fsdp {name}: one decode call "
+                                     f"launched {call}, the formula gives "
+                                     f"{want}")
+            rec["decode_call_launches"] = call
+            result["runs"][name] = rec
+            del eng
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
 def attach_fp16(kernels, ln_cases, lnb_cases, nrm, fa_cases, vl, lm_cases,
                 adam, drop_cases):
     """Each kernel's fp16 cases under its entry's ``float16`` key (as its
@@ -8469,6 +9065,10 @@ def main(argv=None) -> int:
     t5_tp = phase("t5_tp", (), t5_tp_phase, torch, dev, ku, t5)
     pipe = phase("pipeline", (), pipeline_phase, torch, dev, ku)
     t5_pipe = phase("t5_pipeline", (), t5_pipeline_phase, torch, dev, ku, t5)
+    moe = phase("moe", (), moe_phase, torch, dev, ku)
+    spp, serve_plain = phase("serve_pp", (), serve_pp_phase, torch, dev, ku)
+    sfs = phase("serve_fsdp", (), serve_fsdp_phase, torch, dev, ku,
+                serve_plain)
     name = torch.cuda.get_device_name(0)
     # the phases' record, written before the kernels line is assembled
     record = {"card": card, "build_s": build_s, "kernel_phase_s": kernel_s,
@@ -8489,7 +9089,8 @@ def main(argv=None) -> int:
               "dcgan": dcgan, "rnn": rnn, "ddp": ddp, "syncbn_dp": sbn,
               "zero1": zero1, "fsdp": fsdp, "dist_lamb": dlamb,
               "lm_head_vocab_shard": lm_shard, "ring_chunks": ring, "tp": tp,
-              "t5_tp": t5_tp, "pipeline": pipe, "t5_pipeline": t5_pipe}
+              "t5_tp": t5_tp, "pipeline": pipe, "t5_pipeline": t5_pipe,
+              "moe": moe, "serve_pp": spp, "serve_fsdp": sfs}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
@@ -9658,6 +10259,68 @@ def main(argv=None) -> int:
                   f"{r['launches']} (the formula's), top "
                   f"{[(t['name'][:40], round(t['device_ms'], 2)) for t in r['top'][:4]]}"
                   f" on {card}")
+    # the MoE slice: each kernel's launches a step of the 8-expert GPT-2
+    for kname, n in moe["launches"].items():
+        by_name[kname]["moe"] = {"launches_per_step": n, "path": MOE_PATH}
+    print(f"moe {moe['path']} ({moe['backend']}): capacity "
+          f"{moe['capacity']}, {moe['n_params']} parameters, step_ms_p50 "
+          f"{moe['step_ms_p50']:.2f} host ms {moe['host_ms_p50']:.2f} busy "
+          f"ms {moe['device_busy_ms']:.2f} (idle share "
+          f"{moe['device_idle_share']:.3f}), peak {moe['peak_mem_gib']:.3f} "
+          f"GiB, syncs a step {moe['syncs_per_step']}, fraction_kept "
+          f"{[round(v, 4) for v in moe['fraction_kept']]}, losses "
+          f"{[round(v, 4) for v in moe['losses']]}, launches "
+          f"{moe['launches']} (the formula's), top "
+          f"{[(t['name'][:40], round(t['device_ms'], 2)) for t in moe['top'][:6]]}"
+          f" on {card}")
+    fi, bv, fp = (moe["fp32_identity"], moe["bf16_vs_fp32"],
+                  moe["fp32_vs_plain"])
+    print(f"moe fp32 single-expert identity: loss {fi['loss_moe']:.6f} - "
+          f"{fi['lb_loss_weight']} vs dense {fi['loss_dense']:.6f} (rel "
+          f"{fi['loss_rel']:.2e}), worst leaf norm {fi['worst_leaf']} "
+          f"{fi['worst_leaf_norm_rel']:.2e}; bf16 first step vs fp32: loss "
+          f"rel {bv['loss_rel']:.2e}, worst leaf norm {bv['worst_leaf']} "
+          f"{bv['worst_leaf_norm_rel']:.2e}, worst leaf difference "
+          f"{bv['worst_diff_leaf']} {bv['worst_leaf_diff_rel']:.2e} (limit "
+          f"{bv['grad_diff_rtol']}); fp32 step vs the plain MoE layer: loss "
+          f"rel {fp['loss_rel']:.2e}, worst leaf difference "
+          f"{fp['worst_leaf']} {fp['worst_leaf_diff_rel']:.2e} (limit "
+          f"{fp['rtol']}), smallest top-k margin "
+          f"{fp['smallest_topk_margin']:.2e} on {card}")
+    # the plan-sharded serving slice: the per-op kernels on the pp and fsdp
+    # engines (launches of one decode call and of each whole run)
+    for kname, n in spp["decode_call_launches"].items():
+        by_name[kname]["serve_pp"] = {
+            "decode_call_launches": n, "path": SERVE_PP_PATH,
+            "run_launches": {r: v["launches_run"].get(kname, 0)
+                             for r, v in spp["runs"].items()}}
+    for run, rec in sfs["runs"].items():
+        for kname, n in rec["decode_call_launches"].items():
+            by_name[kname].setdefault("serve_fsdp", {})[run] = {
+                "decode_call_launches": n, "path": SERVE_FSDP_PATH}
+    for run, r in spp["plain"].items():
+        print(f"serve_pp plain per-op engine {run}: {r['steps']} steps, "
+              f"decode_step_ms_p50 {r['decode_step_ms_p50']}, tokens/s "
+              f"{r['tokens_per_s']}, wall {r['wall_s']:.2f} s on {card}")
+    for run, r in spp["runs"].items():
+        print(f"serve_pp {run}: streams bitwise the plain per-op engine's, "
+              f"{r['steps']} steps, decode_step_ms_p50 "
+              f"{r['decode_step_ms_p50']}, tokens/s {r['tokens_per_s']}, "
+              f"bubble {r['pp_bubble_fraction']:.4f} (modelled "
+              f"{r['pp_bubble_fraction_modeled']:.4f}, M "
+              f"{r['pp_microbatches']}), credit waits {r['pp_credit_waits']}"
+              f", wall {r['wall_s']:.2f} s; one decode call "
+              f"{spp['decode_call_launches']} on {card}")
+    for run, r in sfs["runs"].items():
+        print(f"serve_fsdp {run} ({sfs['backend']}): first logits max abs "
+              f"err {r['first_logits_max_abs_err']:.3e} "
+              f"({r['first_logits_rel_of_max']:.2e} of the largest), "
+              f"weight_gather_ms {r['weight_gather_ms']:.3f}, wire bytes "
+              f"{r['weight_gather_wire_bytes']}, one decode call "
+              f"{r['decode_call_launches']}"
+              + (f", streams bitwise the plain per-op engine's, "
+                 f"decode_step_ms_p50 {r['run']['decode_step_ms_p50']}"
+                 if "run" in r else "") + f" on {card}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels its path never launched: {idle}")

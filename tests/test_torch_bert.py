@@ -179,10 +179,12 @@ def test_bert_numpy_init_layout():
 @pytest.mark.parametrize("field,value", [("megatron_sp", True),
                                          ("num_experts", 4)])
 def test_bert_refuses_what_is_multi_device(field, value):
-    """``num_experts`` raises, naming A7; ``megatron_sp``, ported with the
-    tensor-parallel slice, runs and on one device (no mesh) gives the
-    plain loss bitwise (held to JAX at tp > 1 in
-    ``tests/test_torch_tp_gpt.py``)."""
+    """Both fields once refused as multi-device now run on one device.
+    ``megatron_sp`` (the tensor-parallel slice) gives the plain loss
+    bitwise with no mesh (held to JAX at tp > 1 in
+    ``tests/test_torch_tp_gpt.py``); ``num_experts`` (the MoE slice) adds
+    the router loss, which reaches the router's gradient (held to JAX at
+    dp 4 in ``tests/test_torch_moe.py``)."""
     _, tcfg = _cfgs("float32")
     cfg = dataclasses.replace(tcfg, **{field: value})
     params = init_bert_params(tcfg, device="cpu")
@@ -192,5 +194,10 @@ def test_bert_refuses_what_is_multi_device(field, value):
             bert_mlm_loss(params, tok, tok, torch.ones(1, 8), cfg),
             bert_mlm_loss(params, tok, tok, torch.ones(1, 8), tcfg))
         return
-    with pytest.raises(NotImplementedError, match="A7"):
-        bert_mlm_loss(params, tok, tok, torch.ones(1, 8), cfg)
+    params = init_bert_params(cfg, device="cpu")
+    router = params["layers"]["router"].requires_grad_()
+    loss = bert_mlm_loss(params, tok, tok, torch.ones(1, 8), cfg)
+    assert loss.dtype == torch.float32 and np.isfinite(loss.item())
+    assert router.shape == (cfg.num_layers, cfg.hidden, value)
+    (g,) = torch.autograd.grad(loss, router)
+    assert torch.any(g != 0.0)

@@ -298,14 +298,17 @@ def _imported_modules(path: pathlib.Path):
 def test_port_imports_no_jax_and_no_apex_tpu():
     """No module of apex_tpu_torch, not chip_smoke.py, and not the rank
     functions the multi-process tests spawn (tests/torch_dist_workers.py,
-    tests/torch_tp_workers.py, tests/torch_pp_workers.py) imports jax or
+    tests/torch_tp_workers.py, tests/torch_pp_workers.py,
+    tests/torch_moe_workers.py, tests/torch_serve_workers.py) imports jax or
     the JAX package (module
     names matched exactly: apex_tpu_torch itself has apex_tpu as a
     prefix)."""
     files = sorted((REPO / "apex_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_workers.py",
               REPO / "tests" / "torch_tp_workers.py",
-              REPO / "tests" / "torch_pp_workers.py"]
+              REPO / "tests" / "torch_pp_workers.py",
+              REPO / "tests" / "torch_moe_workers.py",
+              REPO / "tests" / "torch_serve_workers.py"]
     assert len(files) > 10
     bad = []
     for f in files:

@@ -377,11 +377,11 @@ def test_ngram_drafter_matches_jax():
 @pytest.mark.parametrize("field,value", [
     ("lora_rank", 4), ("plan", object())])
 def test_serve_config_refuses_unported_fields(field, value):
-    """A plan (outside the port so far) raises NotImplementedError naming
-    its ROADMAP item; LoRA is ported and validates as JAX's does:
-    lora_rank > 0 without max_adapters, or max_adapters without a rank,
-    raises JAX's ValueError, both together pass. None is silently
-    ignored."""
+    """Both are ported and validate as JAX's do: a plan that is not a
+    ``ParallelismPlan`` raises JAX's ValueError (plan-sharded serving,
+    ``serve.sharded``, takes a real one); lora_rank > 0 without
+    max_adapters, or max_adapters without a rank, raises JAX's ValueError,
+    both together pass. None is silently ignored."""
     kw = {field: value}
     if field == "lora_rank":
         for bad, msg in (({"lora_rank": value}, "needs max_adapters"),
@@ -393,8 +393,10 @@ def test_serve_config_refuses_unported_fields(field, value):
                 JServeConfig(**bad).validate()
         ServeConfig(lora_rank=value, max_adapters=1).validate()
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="must be a ParallelismPlan"):
             ServeConfig(**kw).validate()
+        with pytest.raises(ValueError, match="must be a ParallelismPlan"):
+            JServeConfig(**kw).validate()
     ServeConfig(megakernel="auto").validate()
     ServeConfig(megakernel="off").validate()
 

@@ -208,8 +208,8 @@ def test_dropout_changes_the_loss_and_replays():
 
 
 def test_validate_matches_jax():
-    """``GPTConfig.validate(tp, sp)``: JAX's errors; experts still refused,
-    naming A7d."""
+    """``GPTConfig.validate(tp, sp)``: JAX's errors, the MoE fields'
+    (checked through ``MoEConfig``) included."""
     from apex_tpu_torch.transformer.testing import GPTConfig
 
     for fields, tp, sp in ((dict(max_seq=30, megatron_sp=True), 4, 1),
@@ -222,8 +222,13 @@ def test_validate_matches_jax():
             GPTConfig(dtype=torch.float32, **{**SIZES, **fields}).validate(
                 tp=tp, sp=sp)
         assert str(pe.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="A7d"):
-        GPTConfig(num_experts=4).validate()
+    GPTConfig(num_experts=4).validate()
+    with pytest.raises(ValueError) as je:
+        dataclasses.replace(_jcfg("gpt", {}), num_experts=2,
+                            moe_top_k=3).validate()
+    with pytest.raises(ValueError) as pe:
+        GPTConfig(num_experts=2, moe_top_k=3).validate()
+    assert str(pe.value) == str(je.value)
 
 
 def test_fsdp_tp_preset_trains_as_fsdp():

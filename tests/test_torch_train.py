@@ -484,10 +484,10 @@ def test_build_train_step_on_cpu_falls_and_repeats():
     assert all(np.isfinite(runs[0]))
 
 
-# ported since the dropout slice (and megatron_sp / overlap_comm with the
-# tensor-parallel slice): accepted now, the rest still refused (A7d)
+# ported since the dropout slice (megatron_sp / overlap_comm with the
+# tensor-parallel slice, num_experts with the MoE slice): accepted now
 ACCEPTED_FIELDS = ("remat_policy", "attention_dropout", "hidden_dropout",
-                   "megatron_sp", "overlap_comm")
+                   "megatron_sp", "overlap_comm", "num_experts")
 
 
 @pytest.mark.parametrize("field,value", [
@@ -500,16 +500,19 @@ def test_refused_training_fields_raise(field, value):
     ``validate()``, ``gpt_loss`` and ``build_train_step``; an unknown
     ``remat_policy`` raises ``ValueError`` there, as JAX's ``validate``.
     The fields ported since (the remat policies, both dropout rates,
-    ``megatron_sp`` and ``overlap_comm``, here on one device) are
-    accepted: ``validate()`` passes and ``gpt_loss`` and a
-    ``build_train_step`` step run on the CPU with a dropout key."""
+    ``megatron_sp``, ``overlap_comm`` and ``num_experts``, here on one
+    device) are accepted: ``validate()`` passes and ``gpt_loss`` (on JAX's
+    parameters of the config) and a ``build_train_step`` step run on the
+    CPU with a dropout key."""
     cfg = dataclasses.replace(TCFG, **{field: value})
     tok = torch.zeros(1, 4, dtype=torch.long)
     if field in ACCEPTED_FIELDS and value != "bogus":
         cfg.validate()
         key = np.asarray(jax.random.PRNGKey(1))
+        jcfg = (dataclasses.replace(JCFG, num_experts=value)
+                if field == "num_experts" else JCFG)
         params = _trainable(jax.tree.map(np.asarray, jax_init(
-            jax.random.PRNGKey(0), JCFG)))
+            jax.random.PRNGKey(0), jcfg)))
         loss = gpt_loss(params, tok, tok, cfg, dropout_key=key)
         loss.backward()
         assert np.isfinite(loss.item())
